@@ -1,0 +1,164 @@
+// Shared device helpers for the port's kernels (C = 128 channels).
+//
+// The kernels keep activations in shared memory as fp32 rows, run their
+// [rows x 128] x [128 x 128] products on CUDA cores with fp32 accumulation
+// (register-blocked: each of 256 threads owns a 4 x 8 or 2 x 4 output
+// block), and take GroupNorm statistics with one warp per row. Operands
+// that the TPU kernels round to the activation dtype before a product are
+// rounded at the same points here (`rnd<T>`), so fp32 runs round nowhere
+// and bf16 runs round exactly where the plain PyTorch versions do.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace lgk {
+
+constexpr int C = 128;       // channel width the kernels are written for
+constexpr int LDA = C + 4;   // padded fp32 row stride of activation tiles
+constexpr int NT = 256;      // threads per block
+constexpr int TM = 64;       // rows per product tile
+
+typedef __nv_bfloat16 bf16;
+
+template <typename T> __device__ __forceinline__ float to_f(T x);
+template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f<bf16>(bf16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
+
+// Round an fp32 value to T's precision and back (identity for float).
+template <typename T> __device__ __forceinline__ float rnd(float x) {
+  return to_f<T>(from_f<T>(x));
+}
+
+// Four consecutive elements (16-byte aligned for float, 8-byte for bf16).
+template <typename T> __device__ __forceinline__ float4 load4(const T* p);
+template <> __device__ __forceinline__ float4 load4<float>(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+template <> __device__ __forceinline__ float4 load4<bf16>(const bf16* p) {
+  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
+  float2 a = __bfloat1622float2(q[0]);
+  float2 b = __bfloat1622float2(q[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+template <typename T> __device__ __forceinline__ void store4(T* p, float4 v);
+template <> __device__ __forceinline__ void store4<float>(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+template <> __device__ __forceinline__ void store4<bf16>(bf16* p, float4 v) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(v.x, v.y);
+  q[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// W_s[k*C + n] = W[k*C + n] for a [C x C] weight in (in, out) layout.
+template <typename T>
+__device__ __forceinline__ void load_weight(float* W_s, const T* W) {
+  for (int i = threadIdx.x * 4; i < C * C; i += NT * 4) {
+    *reinterpret_cast<float4*>(W_s + i) = load4<T>(W + i);
+  }
+}
+
+// Output column of acc[.][j] in the 64 x 128 product layout.
+__device__ __forceinline__ int mm_col(int j) {
+  const int tc = threadIdx.x & 15;
+  return (j < 4) ? (tc * 4 + j) : (64 + tc * 4 + (j - 4));
+}
+// Output row of acc[i][.] in the 64 x 128 product layout.
+__device__ __forceinline__ int mm_row(int i) { return (threadIdx.x >> 4) * 4 + i; }
+
+// acc[i][j] += Σ_k scale[i] * A_s[(row_off + mm_row(i)) * LDA + k] * W_s[k*C + mm_col(j)]
+// over a TM x C tile. scale is 0 or 1 (band masks) or 1.
+__device__ __forceinline__ void mm_64x128(const float* A_s, int row_off, const float scale[4],
+                                          const float* W_s, float acc[4][8]) {
+  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
+  const float* a0 = A_s + (row_off + tr * 4) * LDA;
+#pragma unroll 4
+  for (int k = 0; k < C; ++k) {
+    float a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = a0[i * LDA + k] * scale[i];
+    const float4 w0 = *reinterpret_cast<const float4*>(W_s + k * C + tc * 4);
+    const float4 w1 = *reinterpret_cast<const float4*>(W_s + k * C + 64 + tc * 4);
+    const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float acc[4][8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+}
+
+// T_s[mm_row(i)][mm_col(j)] = acc[i][j]
+__device__ __forceinline__ void store_acc(float* T_s, const float acc[4][8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float* row = T_s + mm_row(i) * LDA;
+    *reinterpret_cast<float4*>(row + mm_col(0)) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(row + mm_col(4)) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+}
+
+// Single-group GroupNorm of one 128-wide row held as 4 values per lane of a
+// warp (columns lane*4 .. lane*4+3): biased variance, eps inside rsqrt.
+__device__ __forceinline__ float4 gn_row(float4 v, const float* w, const float* b, float eps) {
+  const int c = (threadIdx.x & 31) * 4;
+  const float mu = warp_sum(v.x + v.y + v.z + v.w) * (1.f / C);
+  const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
+  const float var = warp_sum(d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3) * (1.f / C);
+  const float inv = rsqrtf(var + eps);
+  return make_float4(d0 * inv * w[c] + b[c], d1 * inv * w[c + 1] + b[c + 1],
+                     d2 * inv * w[c + 2] + b[c + 2], d3 * inv * w[c + 3] + b[c + 3]);
+}
+
+__device__ __forceinline__ float4 relu4(float4 v) {
+  return make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
+}
+
+template <typename T> __device__ __forceinline__ float4 rnd4(float4 v) {
+  return make_float4(rnd<T>(v.x), rnd<T>(v.y), rnd<T>(v.z), rnd<T>(v.w));
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// Rows [0, rows) of T_s: relu(GN(row)) rounded to T, in place (warp per row).
+template <typename T>
+__device__ __forceinline__ void gn_relu_rows(float* T_s, int rows, const float* w,
+                                             const float* b, float eps) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < rows; r += NT / 32) {
+    float* p = T_s + r * LDA + lane * 4;
+    const float4 v = gn_row(*reinterpret_cast<float4*>(p), w, b, eps);
+    *reinterpret_cast<float4*>(p) = rnd4<T>(relu4(v));
+  }
+}
+
+inline cudaError_t set_smem(const void* kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+}  // namespace lgk

@@ -1,0 +1,92 @@
+// Fused residual row tail (K = 1), forward.
+//
+// Replaces lanegcn_tpu/ops/pallas_row_tail.py `_fwd_kernel` / `_fwd_impl`
+// (the Pallas kernel behind `fused_row_tail`), the tail every Att stage runs
+// after its edge aggregation:
+//
+//   out = relu(GN2(relu(GN1(x)) @ W) + res)      (single-group GroupNorms)
+//
+// What bounds it: x, res and out are each read or written once (160 MB at
+// N = 208,896 in bf16) against 6.8 GFLOP, so at the card's bf16 matrix rate
+// it is memory-bound; this first version runs the product on CUDA cores in
+// fp32, whose rate is close enough to the memory time that the product, not
+// the traffic, may dominate. The design keeps the chain in one pass: a block
+// owns 64 rows, takes both GN statistics with one warp per row, and the
+// normalized rows, the product and its statistics stay in shared memory, so
+// each byte of x, res and out crosses device memory once.
+#include "common.cuh"
+
+using namespace lgk;
+
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+row_tail_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __restrict__ w,
+                const float* __restrict__ g1w, const float* __restrict__ g1b,
+                const float* __restrict__ g2w, const float* __restrict__ g2b,
+                T* __restrict__ out, int n, float eps) {
+  extern __shared__ float4 smem4[];
+  float* X_s = reinterpret_cast<float*>(smem4);  // [TM][LDA]
+  float* W_s = X_s + TM * LDA;                   // [C][C]
+  const long row0 = (long)blockIdx.x * TM;
+
+  for (int idx = threadIdx.x; idx < TM * (C / 4); idx += NT) {
+    const int r = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
+    const long g = row0 + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (g < n) v = load4<T>(x + g * C + c4);
+    *reinterpret_cast<float4*>(X_s + r * LDA + c4) = v;
+  }
+  load_weight<T>(W_s, w);
+  __syncthreads();
+  gn_relu_rows<T>(X_s, TM, g1w, g1b, eps);  // h = relu(GN1(x)), rounded to T
+  __syncthreads();
+
+  float acc[4][8];
+  zero_acc(acc);
+  const float ones[4] = {1.f, 1.f, 1.f, 1.f};
+  mm_64x128(X_s, 0, ones, W_s, acc);        // z = h @ W
+  __syncthreads();
+  store_acc(X_s, acc);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < TM; r += NT / 32) {
+    const long g = row0 + r;
+    if (g >= n) break;
+    const float4 z = *reinterpret_cast<const float4*>(X_s + r * LDA + lane * 4);
+    const float4 y = gn_row(z, g2w, g2b, eps);
+    const float4 rv = load4<T>(res + g * C + lane * 4);
+    store4<T>(out + g * C + lane * 4, relu4(add4(y, rv)));
+  }
+}
+
+template <typename T>
+int launch(const void* x, const void* res, const void* w, const float* g1w, const float* g1b,
+           const float* g2w, const float* g2b, void* out, int n, float eps,
+           cudaStream_t stream) {
+  const int smem = (TM * LDA + C * C) * (int)sizeof(float);
+  cudaError_t err = set_smem((const void*)row_tail_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n + TM - 1) / TM;
+  if (blocks > 0) {
+    row_tail_kernel<T><<<blocks, NT, smem, stream>>>((const T*)x, (const T*)res, (const T*)w,
+                                                     g1w, g1b, g2w, g2b, (T*)out, n, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (x, res, w, out); GN vectors fp32 [128].
+extern "C" int row_tail_fwd(const void* x, const void* res, const void* w, const void* g1w,
+                            const void* g1b, const void* g2w, const void* g2b, void* out,
+                            int n, float eps, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const float *a = (const float*)g1w, *b = (const float*)g1b, *c = (const float*)g2w,
+              *d = (const float*)g2b;
+  if (dtype == 0) return launch<float>(x, res, w, a, b, c, d, out, n, eps, st);
+  if (dtype == 1) return launch<bf16>(x, res, w, a, b, c, d, out, n, eps, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,304 @@
+"""Static-shape packed batches: the port's data layout.
+
+Plain dataclasses with the same field names and properties as the JAX
+package's pytrees (one packed micro-batch: all actors of all scenarios in
+one [A, ...] buffer, all lane nodes in one [N, ...] buffer, fixed-capacity
+edge lists with validity masks, window-pair chunked fusion plans).
+
+The host packer (data/packing.py) fills them with numpy arrays;
+`PackedBatch.from_numpy` turns any object with these fields (the packer's
+output, or another framework's pack with numpy leaves) into torch tensors,
+and `.to(device)` moves them. Edge-list and row indices become int64 (torch
+indexing); the window plans and pair plans keep int32, which is what the
+CUDA kernels read.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+
+def _convert(x, keep_int32: bool):
+    """numpy / torch leaf → CPU torch tensor (int32 → int64 unless kept)."""
+    if x is None:
+        return None
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+    if t.dtype == torch.int32 and not keep_int32:
+        t = t.long()
+    return t
+
+
+def _map_leaves(obj, fn):
+    """Apply fn to every tensor / array leaf of a dataclass tree."""
+    if obj is None:
+        return None
+    if isinstance(obj, dict):
+        return {k: _map_leaves(v, fn) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj):
+        kw = {}
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            kw[f.name] = _map_leaves(v, fn) if _is_node(v) else v
+        return type(obj)(**kw)
+    return fn(obj)
+
+
+def _is_node(v) -> bool:
+    return (
+        v is None
+        or isinstance(v, (dict, torch.Tensor, np.ndarray))
+        or dataclasses.is_dataclass(v)
+    )
+
+
+class _Tree:
+    """Shared `.to(device)` for the batch dataclasses."""
+
+    def to(self, device):
+        return _map_leaves(self, lambda t: t.to(device))
+
+
+@dataclasses.dataclass
+class EdgeSet(_Tree):
+    """Fixed-capacity directed edge list: messages flow v (source) → u (dest)."""
+
+    u: torch.Tensor  # [E] destination row
+    v: torch.Tensor  # [E] source row
+    mask: torch.Tensor  # [E] bool, False on padding
+    inv_perm: Optional[torch.Tensor] = None
+    inv_dst: Optional[torch.Tensor] = None
+
+    @property
+    def capacity(self) -> int:
+        return self.u.shape[0]
+
+    def num_valid(self):
+        return self.mask.sum()
+
+    @classmethod
+    def from_numpy(cls, e) -> "EdgeSet":
+        return cls(
+            u=_convert(e.u, False),
+            v=_convert(e.v, False),
+            mask=_convert(e.mask, False),
+            inv_perm=_convert(getattr(e, "inv_perm", None), False),
+            inv_dst=_convert(getattr(e, "inv_dst", None), False),
+        )
+
+
+@dataclasses.dataclass
+class PairPlan(_Tree):
+    """Window-pair chunked edge layout (the win_edge kernel's input).
+
+    idx[:, 0] = window-local dst row, idx[:, 1] = window-local src row (-1
+    padding), optional idx[:, 2] = relation id; meta rows = dwin, swin,
+    first, sperm, sswin, sfirst over the NC chunks. Chunks are sorted by
+    (dwin, swin), so each destination window's chunks form one run that
+    starts where `first` is 1.
+    """
+
+    idx: torch.Tensor  # [NC*chunk, 2 or 3] int32
+    meta: torch.Tensor  # [6, NC] int32
+    chunk: int = 128
+    dst_stride: int = 0
+    src_stride: int = 0
+
+    @property
+    def lu(self):
+        return self.idx[:, 0:1]
+
+    @property
+    def lv(self):
+        return self.idx[:, 1:2]
+
+    @property
+    def rel(self):
+        return self.idx[:, 2:3]
+
+    @property
+    def dwin(self):
+        return self.meta[0]
+
+    @property
+    def swin(self):
+        return self.meta[1]
+
+    @property
+    def first(self):
+        return self.meta[2]
+
+    @property
+    def sperm(self):
+        return self.meta[3]
+
+    @property
+    def sswin(self):
+        return self.meta[4]
+
+    @property
+    def sfirst(self):
+        return self.meta[5]
+
+    @property
+    def num_chunks(self) -> int:
+        return self.meta.shape[1]
+
+    def num_valid(self):
+        return (self.idx[:, 0] >= 0).sum()
+
+    @classmethod
+    def from_numpy(cls, p) -> "PairPlan | None":
+        if p is None:
+            return None
+        return cls(
+            idx=_convert(p.idx, True).to(torch.int32),
+            meta=_convert(p.meta, True).to(torch.int32),
+            chunk=int(p.chunk),
+            dst_stride=int(p.dst_stride),
+            src_stride=int(p.src_stride),
+        )
+
+
+@dataclasses.dataclass
+class ActorBatch(_Tree):
+    """All actors of a pack, concatenated."""
+
+    feats: torch.Tensor  # [A, T_hist, 3]
+    ctrs: torch.Tensor  # [A, 2]
+    mask: torch.Tensor  # [A] bool
+    scen: torch.Tensor  # [A] scenario id within the pack
+
+    @property
+    def capacity(self) -> int:
+        return self.feats.shape[0]
+
+    @classmethod
+    def from_numpy(cls, a) -> "ActorBatch":
+        return cls(
+            feats=_convert(a.feats, False),
+            ctrs=_convert(a.ctrs, False),
+            mask=_convert(a.mask, False),
+            scen=_convert(a.scen, False),
+        )
+
+
+@dataclasses.dataclass
+class LaneGraphBatch(_Tree):
+    """All lane nodes + relation edges of a pack.
+
+    bands[nm][u] ⇔ intra-lane edge (u, u + band_shift(nm)) exists; `edges`
+    holds the residue lists; plan_lu/plan_lv/plan_rel are the window edge
+    plan ([W*ECAP, 1] int32 window-local rows, -1 padding) over plan_scen
+    windows. `tables`, `table_inv` and `spill_pair` mirror the JAX layout;
+    the port's model does not consume them yet.
+    """
+
+    ctrs: torch.Tensor  # [N, 2]
+    feats: torch.Tensor  # [N, 2]
+    turn: torch.Tensor  # [N, 2]
+    control: torch.Tensor  # [N]
+    intersect: torch.Tensor  # [N]
+    node_mask: torch.Tensor  # [N] bool
+    node_scen: torch.Tensor  # [N]
+    edges: Dict[str, EdgeSet]
+    bands: Optional[Dict[str, torch.Tensor]] = None
+    tables: Optional[Dict[str, torch.Tensor]] = None
+    table_inv: Optional[EdgeSet] = None
+    spill_pair: Optional[PairPlan] = None
+    plan_lu: Optional[torch.Tensor] = None
+    plan_lv: Optional[torch.Tensor] = None
+    plan_rel: Optional[torch.Tensor] = None
+    plan_scen: int = 0
+
+    @property
+    def capacity(self) -> int:
+        return self.ctrs.shape[0]
+
+    @classmethod
+    def from_numpy(cls, g) -> "LaneGraphBatch":
+        bands = getattr(g, "bands", None)
+        tables = getattr(g, "tables", None)
+        table_inv = getattr(g, "table_inv", None)
+        return cls(
+            ctrs=_convert(g.ctrs, False),
+            feats=_convert(g.feats, False),
+            turn=_convert(g.turn, False),
+            control=_convert(g.control, False),
+            intersect=_convert(g.intersect, False),
+            node_mask=_convert(g.node_mask, False),
+            node_scen=_convert(g.node_scen, False),
+            edges={k: EdgeSet.from_numpy(e) for k, e in g.edges.items()},
+            bands=None if bands is None else {
+                k: _convert(m, False) for k, m in bands.items()},
+            tables=None if tables is None else {
+                k: _convert(t, False) for k, t in tables.items()},
+            table_inv=None if table_inv is None else EdgeSet.from_numpy(table_inv),
+            spill_pair=PairPlan.from_numpy(getattr(g, "spill_pair", None)),
+            plan_lu=_convert(getattr(g, "plan_lu", None), True),
+            plan_lv=_convert(getattr(g, "plan_lv", None), True),
+            plan_rel=_convert(getattr(g, "plan_rel", None), True),
+            plan_scen=int(getattr(g, "plan_scen", 0)),
+        )
+
+
+@dataclasses.dataclass
+class FusionEdges(_Tree):
+    """Distance-thresholded bipartite fusion edges (a2m, m2a, a2a) and their
+    window-pair chunked plans."""
+
+    a2m: EdgeSet
+    m2a: EdgeSet
+    a2a: EdgeSet
+    pair_a2m: Optional[PairPlan] = None
+    pair_m2a: Optional[PairPlan] = None
+    pair_a2a: Optional[PairPlan] = None
+
+    @classmethod
+    def from_numpy(cls, f) -> "FusionEdges":
+        return cls(
+            a2m=EdgeSet.from_numpy(f.a2m),
+            m2a=EdgeSet.from_numpy(f.m2a),
+            a2a=EdgeSet.from_numpy(f.a2a),
+            pair_a2m=PairPlan.from_numpy(getattr(f, "pair_a2m", None)),
+            pair_m2a=PairPlan.from_numpy(getattr(f, "pair_m2a", None)),
+            pair_a2a=PairPlan.from_numpy(getattr(f, "pair_a2a", None)),
+        )
+
+
+@dataclasses.dataclass
+class PackedBatch(_Tree):
+    """One device's micro-batch: the unit the model consumes."""
+
+    actors: ActorBatch
+    graph: LaneGraphBatch
+    fusion: FusionEdges
+    gt_preds: torch.Tensor  # [A, T_pred, 2]
+    has_preds: torch.Tensor  # [A, T_pred] bool
+    rot: torch.Tensor  # [B, 2, 2]
+    orig: torch.Tensor  # [B, 2]
+    scen_mask: torch.Tensor  # [B] bool
+    agent_idx: torch.Tensor  # [B] packed row of each scenario's AGENT
+
+    @property
+    def num_scenarios(self) -> int:
+        return self.rot.shape[0]
+
+    @classmethod
+    def from_numpy(cls, b) -> "PackedBatch":
+        """Any pack with these fields and numpy (or torch) leaves → a
+        PackedBatch of CPU tensors."""
+        return cls(
+            actors=ActorBatch.from_numpy(b.actors),
+            graph=LaneGraphBatch.from_numpy(b.graph),
+            fusion=FusionEdges.from_numpy(b.fusion),
+            gt_preds=_convert(b.gt_preds, False),
+            has_preds=_convert(b.has_preds, False),
+            rot=_convert(b.rot, False),
+            orig=_convert(b.orig, False),
+            scen_mask=_convert(b.scen_mask, False),
+            agent_idx=_convert(b.agent_idx, False),
+        )

@@ -1,0 +1,178 @@
+"""Primitive blocks with the reference's semantics and parameter names.
+
+Layout is channels-last ([N, C] / [N, L, C]); parameters keep torch's own
+layouts (Linear [out, in], Conv1d [out, in, k]) and the reference module
+names (`linear`, `norm`, `conv1`, `bn1`, `downsample.0`, ...), so a
+reference state_dict loads with strict=True.
+
+Rounding points follow the JAX package: a Dense casts x and its weight to
+the compute dtype and adds its bias in that dtype; GroupNorm takes its
+statistics in fp32 (biased variance, eps inside the rsqrt) and returns its
+input's dtype. Initialization is torch's default, U(±1/sqrt(fan_in)) for
+weights and biases, ones/zeros for norm affines, drawn from a
+torch.Generator.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from lanegcn_tpu_torch.ops import conv1d, group_norm
+
+
+class Dense(nn.Module):
+    """Bare matmul layer (torch nn.Linear parameters), channels-last."""
+
+    def __init__(self, n_in: int, n_out: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(n_out, n_in))
+        self.bias = nn.Parameter(torch.empty(n_out)) if bias else None
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        for p in (self.weight, self.bias):
+            if p is not None:
+                p.data.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=gen))
+
+    @property
+    def kernel(self) -> torch.Tensor:
+        """[in, out] view of the weight (the JAX kernel layout)."""
+        return self.weight.t()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.to(self.dtype) @ self.weight.to(self.dtype).t()
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+class ConvWeight(nn.Module):
+    """Holds a bias-free Conv1d weight [out, in, k] (torch nn.Conv1d name)."""
+
+    def __init__(self, n_in: int, n_out: int, kernel_size: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n_out, n_in, kernel_size))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        fan_in = self.weight.shape[1] * self.weight.shape[2]
+        bound = 1.0 / math.sqrt(fan_in)
+        self.weight.data.copy_(
+            torch.empty(self.weight.shape).uniform_(-bound, bound, generator=gen))
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm(gcd(ng, C), C) with per-channel affine."""
+
+    def __init__(self, c: int, ng: int = 1, eps: float = 1e-5):
+        super().__init__()
+        self.groups = math.gcd(ng, c)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.weight.data.fill_(1.0)
+        self.bias.data.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm(x, self.weight, self.bias, self.groups, self.eps).to(x.dtype)
+
+
+class Linear(nn.Module):
+    """Linear(bias=False) + GN + optional ReLU (reference layers.Linear)."""
+
+    def __init__(self, n_in: int, n_out: int, act: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.linear = Dense(n_in, n_out, bias=False, dtype=dtype)
+        self.norm = GroupNorm(n_out)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.norm(self.linear(x))
+        return torch.relu(y) if self.act else y
+
+
+class LinearRes(nn.Module):
+    """Linear residual block (reference layers.LinearRes)."""
+
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.linear1 = Dense(n_in, n_out, bias=False, dtype=dtype)
+        self.norm1 = GroupNorm(n_out)
+        self.linear2 = Dense(n_out, n_out, bias=False, dtype=dtype)
+        self.norm2 = GroupNorm(n_out)
+        self.transform = (
+            nn.Sequential(Dense(n_in, n_out, bias=False, dtype=dtype), GroupNorm(n_out))
+            if n_in != n_out else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.norm1(self.linear1(x)))
+        y = self.norm2(self.linear2(y))
+        if self.transform is not None:
+            x = self.transform(x)
+        return torch.relu(y + x)
+
+
+class Conv1dBlock(nn.Module):
+    """Conv1d(bias=False) + GN + optional ReLU (reference layers.Conv1d)."""
+
+    def __init__(self, n_in: int, n_out: int, kernel_size: int = 3, stride: int = 1,
+                 act: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = ConvWeight(n_in, n_out, kernel_size)
+        self.norm = GroupNorm(n_out)
+        self.stride = stride
+        self.act = act
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.norm(conv1d(x.to(self.dtype), self.conv.weight.to(self.dtype), self.stride))
+        return torch.relu(y) if self.act else y
+
+
+class Res1d(nn.Module):
+    """1-D conv residual block (reference layers.Res1d)."""
+
+    def __init__(self, n_in: int, n_out: int, kernel_size: int = 3, stride: int = 1,
+                 act: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv1 = ConvWeight(n_in, n_out, kernel_size)
+        self.conv2 = ConvWeight(n_out, n_out, kernel_size)
+        self.bn1 = GroupNorm(n_out)
+        self.bn2 = GroupNorm(n_out)
+        self.downsample = (
+            nn.Sequential(ConvWeight(n_in, n_out, 1), GroupNorm(n_out))
+            if stride != 1 or n_out != n_in else None
+        )
+        self.stride = stride
+        self.act = act
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = self.bn1(conv1d(x.to(dt), self.conv1.weight.to(dt), self.stride))
+        y = torch.relu(y)
+        y = self.bn2(conv1d(y, self.conv2.weight.to(dt), 1))
+        if self.downsample is not None:
+            conv, norm = self.downsample
+            x = norm(conv1d(x.to(dt), conv.weight.to(dt), self.stride))
+        y = y + x
+        return torch.relu(y) if self.act else y
+
+
+def init_parameters(module: nn.Module, seed: int = 0) -> None:
+    """Torch-default initialization of every parameter, drawn in module
+    order from one seeded torch.Generator (on the CPU, then copied)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if hasattr(m, "reset_parameters") and isinstance(
+                    m, (Dense, ConvWeight, GroupNorm)):
+                m.reset_parameters(gen)

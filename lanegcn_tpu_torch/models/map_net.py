@@ -1,0 +1,123 @@
+"""MapNet + the LaneConv stack (reference lanegcn.py:266-363, 410-480).
+
+Per node u and layer:
+
+    temp[u] = W_ctr x[u] + Σ_{r ∈ pre0..5, suc0..5, left, right} Σ_{(u,v) ∈ E_r} W_r x[v]
+    x' = relu(GN(temp));  x'' = relu(Linear(x') + res)
+
+The port runs the windowed-pack formulation of the JAX package:
+- the intra-lane band edges (v = u + 2^s, the pack's band masks) and the
+  whole layer tail go through the fused `lane_layer` kernel;
+- the window plan's edges (both endpoints in one node window) go through
+  the `scenario_agg` kernel;
+- the residue lists (cross-window and over-budget edges) go through
+  masked_gather → per-relation matmul → one scatter_add.
+
+Neighbor tables and the spill pair plan are other pack layouts, not ported
+yet: a pack that carries them raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from lanegcn_tpu_torch.config import ModelConfig, band_shift, relation_names
+from lanegcn_tpu_torch.graph import EdgeSet, LaneGraphBatch
+from lanegcn_tpu_torch.models.layers import Dense, GroupNorm, Linear
+from lanegcn_tpu_torch.ops import masked_gather, scatter_add
+from lanegcn_tpu_torch.ops.lane_layer import fused_lane_layer
+from lanegcn_tpu_torch.ops.scenario_agg import GROUPED_MIN_CAP, scenario_aggregate
+
+
+class LaneConvStack(nn.ModuleDict):
+    """num_layers residual LaneConv blocks. The module IS the reference's
+    `fuse` ModuleDict (ctr, pre0..5, suc0..5, left, right, norm, ctr2 — one
+    entry per layer each), so its parameter names match the reference."""
+
+    def __init__(self, cfg: ModelConfig, num_layers: int = 4,
+                 dtype: torch.dtype = torch.float32):
+        c = cfg.n_map
+        names = relation_names(cfg.num_scales)
+        dense = lambda: nn.ModuleList(
+            [Dense(c, c, bias=False, dtype=dtype) for _ in range(num_layers)])
+        blocks = {"ctr": dense()}
+        blocks.update({name: dense() for name in names})
+        blocks["norm"] = nn.ModuleList([GroupNorm(c) for _ in range(num_layers)])
+        blocks["ctr2"] = nn.ModuleList(
+            [Linear(c, c, act=False, dtype=dtype) for _ in range(num_layers)])
+        super().__init__(blocks)
+        self.cfg = cfg
+        self.num_layers = num_layers
+        self.dtype = dtype
+        self.names = names
+
+    def forward(self, feat: torch.Tensor, graph: LaneGraphBatch) -> torch.Tensor:
+        if graph.tables or graph.spill_pair is not None:
+            raise NotImplementedError(
+                "neighbor tables and the spill pair plan are not ported yet; pack with "
+                "table_relations=() and spill_pairs=False")
+        if not graph.bands:
+            raise NotImplementedError("packs without band masks are not ported yet")
+        dt = self.dtype
+        fuse = self
+        names = self.names
+        num_nodes = feat.shape[0]
+        band_rel = [(r, nm) for r, nm in enumerate(names) if nm in graph.bands]
+        shifts = [band_shift(nm) for _, nm in band_rel]
+        band_masks = torch.stack([graph.bands[nm] for _, nm in band_rel], 0).contiguous()
+        band_idx = [r for r, _ in band_rel]
+
+        plan = graph.plan_lu is not None
+        groups = None
+        if plan:
+            num_win = graph.plan_scen
+            ecap = graph.plan_lu.shape[0] // num_win
+            lr = tuple(r for r, nm in enumerate(names) if nm in ("left", "right"))
+            dil = tuple(r for r, nm in enumerate(names) if nm not in ("left", "right"))
+            if ecap >= GROUPED_MIN_CAP and lr and dil:
+                groups = (lr, dil)
+
+        edge_u = torch.cat([graph.edges[nm].u for nm in names])
+        edge_m = torch.cat([graph.edges[nm].mask for nm in names])
+
+        for i in range(self.num_layers):
+            temp = fuse["ctr"][i](feat)
+            # Stacked relation kernel [R, C, C] in (in, out) layout.
+            w_rel = torch.stack([fuse[nm][i].kernel for nm in names], 0)
+            msgs = []
+            for r, nm in enumerate(names):
+                e: EdgeSet = graph.edges[nm]
+                src = masked_gather(feat, e.v, e.mask)
+                msgs.append(src.to(dt) @ w_rel[r].to(dt))
+            temp = scatter_add(torch.cat(msgs), edge_u, num_nodes, mask=edge_m, out=temp)
+            w_dt = w_rel.to(dt).contiguous()
+            if plan:
+                temp = scenario_aggregate(
+                    feat.to(dt).contiguous(), temp.to(dt).contiguous(), w_dt,
+                    graph.plan_lu, graph.plan_lv, graph.plan_rel, num_win, groups,
+                )
+            norm, ctr2 = fuse["norm"][i], fuse["ctr2"][i]
+            feat = fused_lane_layer(
+                feat.to(dt).contiguous(), temp.to(dt).contiguous(), band_masks,
+                w_dt[band_idx].contiguous(), ctr2.linear.kernel.to(dt).contiguous(),
+                norm.weight, norm.bias, ctr2.norm.weight, ctr2.norm.bias, shifts,
+            )
+        return feat
+
+
+class MapNet(nn.Module):
+    """Lane-node embedding + LaneConv stack (reference lanegcn.py:266-363)."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        c = cfg.n_map
+        self.input = nn.Sequential(Dense(2, c, dtype=dtype), nn.ReLU(),
+                                   Linear(c, c, act=False, dtype=dtype))
+        self.seg = nn.Sequential(Dense(2, c, dtype=dtype), nn.ReLU(),
+                                 Linear(c, c, act=False, dtype=dtype))
+        self.fuse = LaneConvStack(cfg, cfg.num_fuse_layers, dtype=dtype)
+
+    def forward(self, graph: LaneGraphBatch) -> torch.Tensor:
+        feat = torch.relu(self.input(graph.ctrs) + self.seg(graph.feats))
+        return self.fuse(feat, graph)

@@ -1,0 +1,37 @@
+"""Masked gather / scatter-add over static-capacity edge lists."""
+
+from __future__ import annotations
+
+import torch
+
+
+def masked_gather(x: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor | None = None):
+    """Rows x[idx], indices clamped into range; rows where mask is False are
+    zeroed (so clamping never leaks data). Returns [E, ...]."""
+    out = x[idx.clamp(0, x.shape[0] - 1)]
+    if mask is not None:
+        out = torch.where(mask.reshape(mask.shape + (1,) * (out.dim() - 1)), out,
+                          torch.zeros((), dtype=out.dtype, device=out.device))
+    return out
+
+
+def scatter_add(
+    data: torch.Tensor,
+    idx: torch.Tensor,
+    num_segments: int,
+    mask: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """out[idx[e]] += data[e] for valid edges; masked edges are dropped.
+
+    Returns a new tensor (out is not modified). Uses index_add_, whose sum
+    order on CUDA depends on its atomics, so the result is not bitwise
+    deterministic there.
+    """
+    if out is None:
+        out = torch.zeros((num_segments,) + data.shape[1:], dtype=data.dtype,
+                          device=data.device)
+    if mask is not None:
+        keep = mask.nonzero().squeeze(1)
+        idx, data = idx[keep], data[keep]
+    return out.clone().index_add_(0, idx, data.to(out.dtype))

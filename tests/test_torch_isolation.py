@@ -1,0 +1,65 @@
+"""The port stands alone: importing every module of `lanegcn_tpu_torch` pulls
+in neither JAX (nor flax / optax) nor any module of the JAX package, and the
+port's entry points run on CUDA unless the caller asks for the CPU — without
+CUDA they raise instead of falling back quietly."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from lanegcn_tpu_torch.config import Config
+from lanegcn_tpu_torch.device import resolve_device
+from lanegcn_tpu_torch.models.lanegcn import LaneGCN
+from lanegcn_tpu_torch.train.loop import make_eval_step
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import lanegcn_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(lanegcn_tpu_torch.__path__,
+                                                      "lanegcn_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
+banned = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "lanegcn_tpu"))
+print(json.dumps({"modules": names, "banned": banned}))
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    # Every layer of the slice was imported, down to the kernel wrappers.
+    for name in ("lanegcn_tpu_torch.ops.lane_layer", "lanegcn_tpu_torch.ops.scenario_agg",
+                 "lanegcn_tpu_torch.ops.win_edge", "lanegcn_tpu_torch.ops.row_tail",
+                 "lanegcn_tpu_torch.data.packing", "lanegcn_tpu_torch.train.loop",
+                 "lanegcn_tpu_torch.utils.weights"):
+        assert name in res["modules"], name
+    assert res["banned"] == [], res["banned"]
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    """The entry points' view of a machine without CUDA, whatever this one has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", ["resolve_device", "LaneGCN", "make_eval_step"])
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
+    cfg = Config()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "resolve_device":
+            resolve_device()
+        elif entry == "LaneGCN":
+            LaneGCN(cfg.model)
+        else:
+            make_eval_step(cfg, torch.nn.Linear(1, 1))
+    # Asking for the CPU is the one way to run them here.
+    assert resolve_device("cpu").type == "cpu"
