@@ -261,6 +261,32 @@ class Config:
     train: TrainConfig = TrainConfig()
 
 
+def windowed_pack_config(s: int) -> PackConfig:
+    """The pack geometry the port serves: the production windowed layout
+    (768-row node windows with a 2048-slot window plan, 128-row actor
+    windows, fusion pair plans, no neighbour tables) with spill_pairs off,
+    so the plan's residue rides the classic edge lists. Capacities scale
+    with the s scenarios per pack, with max_edges_lr raised so urban
+    scenarios drop no edge, and floors for small packs."""
+    return PackConfig(
+        max_scenarios=s,
+        max_actors=128 * (-(-16 * s // 128)),  # whole 128-row actor windows
+        max_nodes=768 * (-(-s * 17 // 16)),
+        node_stride=768,
+        max_plan_edges=2048,
+        table_relations=(),
+        spill_pairs=False,
+        max_edges_scale0=max(16 * s, 512),
+        max_edges_dilated=tuple(max(8 * (2 ** i) * s, 512) for i in range(1, 6)),
+        max_edges_lr=max(24 * s, 512),
+        max_a2m_edges=max(160 * s, 4096),
+        max_m2a_edges=max(160 * s, 4096),
+        max_a2a_edges=max(64 * s, 2048),
+        actor_stride=128,
+        fusion_pairs=True,
+    )
+
+
 def relation_names(num_scales: int = 6) -> Tuple[str, ...]:
     """Edge-relation ordering used throughout: pre0..preS, suc0..sucS, left, right."""
     names = []

@@ -7,9 +7,10 @@
 //                                                           outside [0,N) read 0)
 //   out  = relu(GN2(relu(GN1(temp)) @ W2) + feat)
 //
-// What bounds it: 13 dense [N x 128] x [128 x 128] products per launch
-// (89 GFLOP at N = 208,896) against ~160 MB of traffic, so it is
-// compute-bound on the card's matrix rate. This first version runs the
+// What bounds it: a [128 x 128] band product on every row its mask selects
+// and the second product on every row (64 GFLOP at the 256-scenario bench
+// pack, N = 208,896, ~8 masked band rows per row) against ~163 MB of
+// traffic, so it is compute-bound on the card's matrix rate. This first version runs the
 // products on CUDA cores in fp32 (register-blocked 4 x 8 per thread), so it
 // sits far below the bf16 tensor-core bound; moving the products to wgmma is
 // later work. What the design keeps out of device memory: each block loads

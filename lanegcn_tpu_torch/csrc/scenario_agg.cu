@@ -13,8 +13,9 @@
 // exactly as on the TPU.
 //
 // What bounds it: the useful work is (valid planned edges) x 128 x 128 MACs
-// (a few GFLOP per launch at the bench geometry) against ~167 MB of
-// feat/temp/out traffic, so at the card's rates it is memory-bound. The TPU
+// (a few GFLOP per launch at the bench geometry) against ~155 MB of
+// traffic (temp and out whole, feat at the rows the edges read), so at the
+// card's rates it is memory-bound. The TPU
 // kernel used one-hot matmuls to gather and scatter; here the gather is an
 // indexed row load and the scatter an indexed add in shared memory. A block
 // owns one window and a 32-channel slice of it, so no two blocks write the

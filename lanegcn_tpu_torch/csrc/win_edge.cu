@@ -15,8 +15,9 @@
 // rewrites only its own window.
 //
 // What bounds it: three [E x 128] x [128 x 128] products per valid edge
-// (~8 GFLOP for A2M at 256 scenarios) against at most ~216 MB of row
-// traffic, so at the card's bf16 matrix rate it is memory-bound; this first
+// (2.1 GFLOP for A2M at 256 scenarios) against ~118 MB of traffic (temp
+// read and out written whole, Pd/Qd/Ps/Cs at the rows the edges gather),
+// so at the card's bf16 matrix rate it is memory-bound; this first
 // version runs the products on CUDA cores in fp32, which makes the products
 // the larger cost. The design keeps every per-edge intermediate on chip:
 // the gathers are indexed row loads straight into shared memory, the chain

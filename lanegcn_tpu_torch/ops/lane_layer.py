@@ -85,10 +85,16 @@ def fused_lane_layer(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b,
     return out
 
 
-def work(n: int, j: int, itemsize: int) -> dict:
-    """Bytes the function must move and operations it does at these shapes."""
-    c = 128
+def work(feat, masks) -> dict:
+    """Bytes the function must move and operations it does at these inputs:
+    feat, pre and out whole, the masks as bytes, the weights once; a band
+    product only on the rows its mask selects (the work depends on the
+    masks' data), the second product on every row."""
+    n, c = feat.shape
+    j, db = masks.shape[0], feat.element_size()
+    band_rows = int(torch.count_nonzero(masks))
     return {
-        "bytes": 3 * n * c * itemsize + j * n + (j + 1) * c * c * itemsize + 4 * c * 4,
-        "flops": 2 * n * c * c * (j + 1),
+        "bytes": 3 * n * c * db + j * n + (j + 1) * c * c * db + 4 * c * 4,
+        "flops": 2 * c * c * (band_rows + n),
+        "band_rows": band_rows,
     }

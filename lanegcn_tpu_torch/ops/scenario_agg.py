@@ -127,15 +127,23 @@ def scenario_aggregate(feat, temp, w_rel, lu, lv, rel, num_win: int, groups=None
     return out
 
 
-def work(feat, lu, rel, w_rel, num_win: int, groups=None) -> dict:
-    """Bytes moved and operations done at these inputs (valid applied edges
-    only: the work depends on the plan's data)."""
+def work(feat, lu, lv, rel, w_rel, num_win: int, groups=None) -> dict:
+    """Bytes moved and operations done at these inputs. The work depends on
+    the plan's data: feat is read at the distinct source rows of applied
+    edges; temp is read and the output written whole; the plan and W_rel
+    are read once; the products run on applied edges only."""
     n, c = feat.shape
     db = feat.element_size()
+    ecap = lu.shape[0] // num_win
     groups = _groups(groups, w_rel.shape[0])
-    edges = int(_applied(lu.reshape(-1).long(), rel.reshape(-1).long(), num_win, groups).sum())
+    lu_f, lv_f = lu.reshape(-1).long(), lv.reshape(-1).long()
+    ok = _applied(lu_f, rel.reshape(-1).long(), num_win, groups)
+    base = torch.arange(num_win, device=feat.device).repeat_interleave(ecap) * (n // num_win)
+    src_rows = int((base + lv_f)[ok].unique().numel())
+    edges = int(ok.sum())
     return {
-        "bytes": 3 * n * c * db + 3 * lu.shape[0] * 4 + w_rel.numel() * db,
+        "bytes": (2 * n + src_rows) * c * db + 3 * lu.shape[0] * 4 + w_rel.numel() * db,
         "flops": 2 * edges * c * c,
         "edges": edges,
+        "src_rows": src_rows,
     }

@@ -103,14 +103,20 @@ def win_edge_mlp(pd, qd, ps, cs, temp, bd, kdo, gdow, gdob, k1, gchw, gchb, kout
 
 
 def work(pd, ps, plan: PairPlan) -> dict:
-    """Bytes moved and operations done at these inputs (valid edges only)."""
+    """Bytes moved and operations done at these inputs. The work depends on
+    the plan's data: pd/qd are read at the distinct destination rows of
+    valid edges and ps/cs at their distinct source rows; temp is read and
+    the output written whole; the plan and the weights are read once; the
+    three products run on valid edges only."""
     nd, c = pd.shape
-    ns = ps.shape[0]
     db = pd.element_size()
-    edges = int(_edge_rows(plan, nd, ns)[0].numel())
+    sel, u, v = _edge_rows(plan, nd, ps.shape[0])
+    dst_rows, src_rows = int(u.unique().numel()), int(v.unique().numel())
     return {
-        "bytes": (4 * nd + 2 * ns) * c * db + plan.idx.numel() * 4 + plan.meta.numel() * 4
-        + 3 * c * c * db + 5 * c * 4,
-        "flops": 3 * 2 * edges * c * c,
-        "edges": edges,
+        "bytes": (2 * dst_rows + 2 * src_rows + 2 * nd) * c * db
+        + plan.idx.numel() * 4 + plan.meta.numel() * 4 + 3 * c * c * db + 5 * c * 4,
+        "flops": 3 * 2 * int(sel.numel()) * c * c,
+        "edges": int(sel.numel()),
+        "dst_rows": dst_rows,
+        "src_rows": src_rows,
     }

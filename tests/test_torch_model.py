@@ -27,7 +27,9 @@ from lanegcn_tpu.models.map_net import MapNet as JMapNet
 from lanegcn_tpu.models.pred_net import PredNet as JPredNet
 from lanegcn_tpu.train.loop import make_eval_step as jax_make_eval_step
 
-from lanegcn_tpu_torch.config import Config, ModelConfig, PackConfig
+from lanegcn_tpu_torch.config import Config, ModelConfig, PackConfig, windowed_pack_config
+from lanegcn_tpu_torch.data.packing import pack_batch
+from lanegcn_tpu_torch.data.synthetic import make_urban_scenario
 from lanegcn_tpu_torch.graph import PackedBatch
 from lanegcn_tpu_torch.models.lanegcn import LaneGCN
 from lanegcn_tpu_torch.train.loop import MetricAccumulator, make_eval_step
@@ -169,3 +171,24 @@ def test_eval_step_matches(world):
     s = acc.summary()
     assert all(np.isfinite(v) for v in s.values())
     assert s["ade"] > 0 and 0 <= s["mr"] <= 1
+
+
+def test_windowed_pack_config_serves_at_full_width():
+    """The geometry the port serves, as a user builds it: urban scenarios
+    packed with `windowed_pack_config` drop nothing and carry the window
+    plan and all three pair plans, and the full-width model's eval step
+    runs on them (no NotImplementedError path) with finite outputs."""
+    s = 2
+    cfg = Config(pack=windowed_pack_config(s))
+    scens = [make_urban_scenario(seed=i, num_corridors=7, num_actors=16) for i in range(s)]
+    batch, stats = pack_batch(scens, cfg.pack, cfg.model)
+    assert stats["packed_scenarios"] == s
+    assert not any(v for k, v in stats.items() if k.startswith(("dropped", "skipped"))), stats
+    assert batch.graph.plan_lu is not None and batch.graph.spill_pair is None
+    assert all(p is not None for p in (batch.fusion.pair_a2m, batch.fusion.pair_m2a,
+                                       batch.fusion.pair_a2a))
+    net = LaneGCN(cfg.model, dtype=torch.float32, device="cpu", seed=0)
+    out, m = make_eval_step(cfg, net, device="cpu")(batch)
+    assert out["reg"].shape == (cfg.pack.max_actors, 6, 30, 2)
+    assert torch.isfinite(out["reg"]).all() and torch.isfinite(out["cls"]).all()
+    assert all(np.isfinite(float(v)) for v in m.values())
