@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its LaneGCN eval path on one GPU.
+"""Build the port's CUDA kernels and drive its LaneGCN eval and train paths on
+one GPU.
 
     python3 chip_smoke.py            # one card, no arguments
 
@@ -14,17 +15,36 @@ Phases, one JSON line each; any failure raises and exits non-zero:
           eval path hands it (captured from one forward), in float32 (TF32
           off) and bfloat16: the error beside its tolerance and the output's
           scale, kernel and plain times (CUDA events, median of 25 runs),
-          and the bound from the work these inputs need.
+          and the bound from the work these inputs need; lane_layer's saved
+          fp32 temp (the train path's) against the plain temp.
   parity  the full float32 forward + loss on the card (kernels) against the
           same on the CPU (plain versions), 8 scenarios, same weights.
   serve   make_eval_step in bfloat16 over the 2 packs, several rounds: ms per
           pack, scen/s, loss/ade/fde/mr, peak device memory, and the kernel
           launch counts of that run (per forward: lane_layer 8, scenario_agg
           8, win_edge 6, row_tail 6).
+  kernel_bwd  each backward kernel against its plain backward on the inputs
+          and cotangent one bf16 train step hands it (captured from that
+          step), in float32 and bfloat16 under the same tolerances, with a
+          rerun that must be bitwise equal; kernel and plain times and the
+          bound, as above. A few rows whose ReLU pre-activation ties at
+          zero on the plain side (see TIE_EPS) may get a zero cotangent
+          before the comparison.
+  train_parity  one float32 make_train_step on 8 scenarios on the card and on
+          the CPU from the same weights: the loss, every parameter's gradient
+          (same names, none missing) and the parameters after the step (the
+          share of elements apart, beside a control with perturbed
+          gradients).
   profile device time by kernel name over one forward per pack (torch.profiler,
           after the counted serve run), and the device's idle share.
-Then the `kernels` summary line, the nvidia-smi name/power-limit line, and
-last the `ok` line with the device.
+  train   make_train_step in bfloat16 over fp32 params on the 2 S=256 packs:
+          2 warm steps, then 20 steps alternating the packs: ms per step,
+          scen/s, first and last loss (finite), skipped steps (0), peak device
+          memory, and the launch counts per step (forward 8/8/6/6, backward
+          lane_layer 8, scenario_agg 8, win_edge 6 + 6, row_tail 6).
+  profile_train  the same profile over one train step.
+Then the `kernels` summary line (every forward and backward kernel), the
+nvidia-smi name/power-limit line, and last the `ok` line with the device.
 
 Weights are random (seeded); no dataset or checkpoint is needed.
 """
@@ -61,17 +81,30 @@ PEAK_HBM_BYTES = 3.35e12
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 RMS_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
+# name: (source, TPU kernel it replaces, C entry points whose launches it counts)
 KERNEL_META = {
     "lane_layer": ("lanegcn_tpu_torch/csrc/lane_layer.cu",
-                   "lanegcn_tpu/ops/pallas_lane_layer.py:254"),
+                   "lanegcn_tpu/ops/pallas_lane_layer.py:254", ("lane_layer_fwd",)),
     "scenario_agg": ("lanegcn_tpu_torch/csrc/scenario_agg.cu",
-                     "lanegcn_tpu/ops/pallas_scenario_agg.py:252"),
+                     "lanegcn_tpu/ops/pallas_scenario_agg.py:252", ("scenario_agg_fwd",)),
     "win_edge": ("lanegcn_tpu_torch/csrc/win_edge.cu",
-                 "lanegcn_tpu/ops/pallas_win_edge.py:262"),
+                 "lanegcn_tpu/ops/pallas_win_edge.py:262", ("win_edge_fwd",)),
     "row_tail": ("lanegcn_tpu_torch/csrc/row_tail.cu",
-                 "lanegcn_tpu/ops/pallas_row_tail.py:152"),
+                 "lanegcn_tpu/ops/pallas_row_tail.py:152", ("row_tail_fwd",)),
+    "lane_layer_bwd": ("lanegcn_tpu_torch/csrc/lane_layer.cu",
+                       "lanegcn_tpu/ops/pallas_lane_layer.py:303", ("lane_layer_bwd",)),
+    "scenario_agg_bwd": ("lanegcn_tpu_torch/csrc/scenario_agg.cu",
+                         "lanegcn_tpu/ops/pallas_scenario_agg.py:292", ("scenario_agg_bwd",)),
+    "win_edge_bwd": ("lanegcn_tpu_torch/csrc/win_edge.cu",
+                     "lanegcn_tpu/ops/pallas_win_edge.py:316",
+                     ("win_edge_bwd_d", "win_edge_bwd_s")),
+    "row_tail_bwd": ("lanegcn_tpu_torch/csrc/row_tail.cu",
+                     "lanegcn_tpu/ops/pallas_row_tail.py:169", ("row_tail_bwd",)),
 }
-PER_FORWARD = {"lane_layer": 8, "scenario_agg": 8, "win_edge": 6, "row_tail": 6}
+# Launches of each C entry point per eval forward and per train step.
+PER_FORWARD = {"lane_layer_fwd": 8, "scenario_agg_fwd": 8, "win_edge_fwd": 6, "row_tail_fwd": 6}
+PER_TRAIN_STEP = dict(PER_FORWARD, lane_layer_bwd=8, scenario_agg_bwd=8, win_edge_bwd_d=6,
+                      win_edge_bwd_s=6, row_tail_bwd=6)
 
 
 def emit(obj) -> None:
@@ -137,18 +170,12 @@ def cast_args(args, dtype):
 
 
 class Capture:
-    """Records the first call's arguments of each kernel wrapper (per input
-    shape) as the model modules see them, then calls through."""
+    """Records, per input shape, the first call's arguments of each wrapped
+    function (module attribute), then calls through. `targets` lists
+    (module, attribute, kernel name)."""
 
-    def __init__(self):
-        from lanegcn_tpu_torch.models import fusion, map_net
-
-        self.targets = [
-            (map_net, "fused_lane_layer", "lane_layer"),
-            (map_net, "scenario_aggregate", "scenario_agg"),
-            (fusion, "win_edge_mlp", "win_edge"),
-            (fusion, "fused_row_tail", "row_tail"),
-        ]
+    def __init__(self, targets):
+        self.targets = targets
         self.calls = {name: {} for _, _, name in self.targets}
         self.counts = {name: {} for _, _, name in self.targets}
 
@@ -177,58 +204,245 @@ class Capture:
             setattr(mod, attr, fn)
 
 
-def kernel_phase(calls, counts):
-    """Kernel vs plain on the captured inputs; returns per-kernel results of
-    the first (largest-row) call shape, with `ms_per_forward`: the kernel
-    time of every call shape times its calls in the captured forward."""
-    import torch
+def forward_capture():
+    """The kernel wrappers as the model modules call them (eval forward)."""
+    from lanegcn_tpu_torch.models import fusion, map_net
+
+    return Capture([
+        (map_net, "fused_lane_layer", "lane_layer"),
+        (map_net, "scenario_aggregate", "scenario_agg"),
+        (fusion, "win_edge_mlp", "win_edge"),
+        (fusion, "fused_row_tail", "row_tail"),
+    ])
+
+
+def backward_capture():
+    """The backward kernels' launchers as the autograd Functions call them
+    (inputs and cotangent of one train step)."""
     from lanegcn_tpu_torch.ops import lane_layer, row_tail, scenario_agg, win_edge
 
-    ops = {
+    return Capture([
+        (lane_layer, "lane_layer_bwd_cuda", "lane_layer_bwd"),
+        (scenario_agg, "scenario_agg_bwd_cuda", "scenario_agg_bwd"),
+        (win_edge, "win_edge_bwd_cuda", "win_edge_bwd"),
+        (row_tail, "row_tail_bwd_cuda", "row_tail_bwd"),
+    ])
+
+
+def forward_ops():
+    from lanegcn_tpu_torch.ops import lane_layer, row_tail, scenario_agg, win_edge
+
+    return {
         "lane_layer": (lane_layer.fused_lane_layer, lane_layer.lane_layer_plain),
         "scenario_agg": (scenario_agg.scenario_aggregate, scenario_agg.scenario_agg_plain),
         "win_edge": (win_edge.win_edge_mlp, win_edge.win_edge_plain),
         "row_tail": (row_tail.fused_row_tail, row_tail.row_tail_plain),
     }
+
+
+def backward_ops():
+    from lanegcn_tpu_torch.ops import lane_layer, row_tail, scenario_agg, win_edge
+
+    return {
+        "lane_layer_bwd": (lane_layer.lane_layer_bwd_cuda, lane_layer.lane_layer_bwd_plain),
+        "scenario_agg_bwd": (scenario_agg.scenario_agg_bwd_cuda,
+                             scenario_agg.scenario_agg_bwd_plain),
+        "win_edge_bwd": (win_edge.win_edge_bwd_cuda, win_edge.win_edge_bwd_plain),
+        "row_tail_bwd": (row_tail.row_tail_bwd_cuda, row_tail.row_tail_bwd_plain),
+    }
+
+
+def compare(name, tag, out_k, out_p):
+    """Every output of a kernel against its plain version under TOL/RMS_TOL
+    (an all-zero plain output must come back all zero); returns the worst
+    output's numbers and one [max_abs_err, rms, err_over_tol, rel_rms_err]
+    row per output."""
+    import torch
+
+    outs_k = out_k if isinstance(out_k, (tuple, list)) else (out_k,)
+    outs_p = out_p if isinstance(out_p, (tuple, list)) else (out_p,)
+    check(len(outs_k) == len(outs_p), f"{name}: {len(outs_k)} outputs, plain has {len(outs_p)}")
+    rows = []
+    for i, (k, p) in enumerate(zip(outs_k, outs_p)):
+        check(k.shape == p.shape, f"{name} {tag} output {i}: shape {tuple(k.shape)} != "
+              f"{tuple(p.shape)}")
+        check(bool(torch.isfinite(k).all()), f"{name} {tag} output {i}: non-finite values")
+        ref = p.float()
+        diff = (k.float() - ref).abs()
+        rms = float(ref.square().mean().sqrt()) if ref.numel() else 0.0
+        err = float(diff.max()) if diff.numel() else 0.0
+        if rms == 0.0:
+            check(err == 0.0, f"{name} {tag} output {i}: plain is all zeros, kernel is not")
+            rows.append([err, rms, 0.0, 0.0])
+            continue
+        # worst element's error as a share of its own tolerance
+        worst = float((diff / (TOL[tag] * (rms + ref.abs()))).max())
+        rel_rms = float(diff.square().mean().sqrt()) / rms
+        check(worst <= 1.0, f"{name} {tag} output {i}: an element's error is {worst} x its "
+              f"tolerance {TOL[tag]} * (rms {rms} + |plain|)")
+        check(rel_rms <= RMS_TOL[tag], f"{name} {tag} output {i}: RMS error {rel_rms} of the "
+              f"output's RMS > {RMS_TOL[tag]}")
+        rows.append([err, rms, worst, rel_rms])
+    first = outs_p[0].float()
+    return {"max_abs_err": max(r[0] for r in rows), "rms": rows[0][1],
+            "max_abs": float(first.abs().max()), "tol_abs": TOL[tag] * rows[0][1],
+            "tol_rel": TOL[tag], "err_over_tol": max(r[2] for r in rows),
+            "rel_rms_err": max(r[3] for r in rows), "rel_rms_tol": RMS_TOL[tag],
+            "shape": list(outs_k[0].shape), "outputs": rows}
+
+
+# ReLU ties in the backward checks. Where a ReLU's pre-activation lies
+# within the kernel-vs-plain difference of zero, the two may take opposite
+# sides of its mask, and that row's cotangent then flows differently
+# through the two (an error of the cotangent's size, not of a rounding).
+# A row of the outputs that follow the cotangent's rows (TIE_OUTPUTS) that
+# misses its tolerance is excused only if the plain side puts one of that
+# row's ReLU pre-activations within TIE_EPS of zero, relative to that
+# pre-activation's RMS: in float32 1e-5, ~10x the reorder error of a
+# 128-term fp32 sum and a GroupNorm; in bfloat16 one bf16 ulp at 1 (2^-7),
+# about what one flipped rounding of h, t1 or t2 moves a later
+# pre-activation. In float32 that marks well under 1 % of the rows (random
+# inputs); in bfloat16 most rows hold such a pre-activation, so there the
+# share cap does the bounding. At most TIE_SHARE of the rows (at least 1)
+# are excused: their cotangent is zeroed and every output is held to the
+# tolerances again. scenario_agg_bwd is linear: it has no ties.
+TIE_OUTPUTS = {"row_tail_bwd": (0, 1), "lane_layer_bwd": (1,), "win_edge_bwd": (0, 1)}
+COTANGENT_ARG = {"row_tail_bwd": 7, "lane_layer_bwd": 9, "win_edge_bwd": 13}
+TIE_EPS = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+TIE_SHARE = 1e-4
+
+
+def tie_rows(name, tag, out_k, out_p):
+    """Rows (of the cotangent) where a row-aligned output misses its tolerance."""
+    import torch
+
+    bad = None
+    for i in TIE_OUTPUTS[name]:
+        ref = out_p[i].float()
+        rms = float(ref.square().mean().sqrt())
+        miss = ((out_k[i].float() - ref).abs() > TOL[tag] * (rms + ref.abs())).any(1)
+        bad = miss if bad is None else bad | miss
+    return torch.nonzero(bad).squeeze(1)
+
+
+def relu_pre(name, a):
+    """The plain side's ReLU pre-activations of a backward's inputs `a`, as
+    ([rows, C] pre-activation, the cotangent row of each row or None where
+    the rows are the cotangent's) pairs."""
+    import torch
+    from lanegcn_tpu_torch.ops import win_edge
+    from lanegcn_tpu_torch.ops.norm import group_norm
+
+    if name != "win_edge_bwd":
+        if name == "row_tail_bwd":
+            x, res, w, g1w, g1b, g2w, g2b = a[:7]
+        else:  # lane_layer_bwd: the tail of temp, with feat as the residual
+            res, x, _, _, w, g1w, g1b, g2w, g2b = a[:9]
+        dt = res.dtype
+        h_pre = group_norm(x.float(), g1w, g1b)
+        y = group_norm(torch.relu(h_pre).to(dt).float() @ w.to(dt).float(), g2w, g2b)
+        return [(h_pre, None), (y + res.float(), None)]
+    pd, qd, ps, cs, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, plan = a[:13]
+    rnd = lambda x: x.to(pd.dtype).float()
+    _, u, v = win_edge._edge_rows(plan, pd.shape[0], ps.shape[0])
+    t1_pre = pd[u].float() + ps[v].float() + bd.float()
+    z_pre = group_norm(rnd(torch.relu(t1_pre)) @ rnd(kdo), gdow, gdob)
+    s_pre = group_norm(rnd(torch.relu(z_pre)) @ rnd(k1) + cs[v].float() + qd[u].float(),
+                       gchw, gchb)
+    return [(t1_pre, u), (z_pre, u), (s_pre, u)]
+
+
+def near_zero_rows(name, tag, a, n_rows):
+    """[n_rows] bool: the cotangent rows with a ReLU pre-activation within
+    TIE_EPS[tag] of zero (relative to its RMS) on the plain side."""
+    import torch
+
+    near = torch.zeros(n_rows, dtype=torch.bool, device=a[0].device)
+    for pre, rows in relu_pre(name, a):
+        hit = (pre.abs() <= TIE_EPS[tag] * pre.square().mean().sqrt()).any(1)
+        if rows is None:
+            near |= hit
+        else:
+            near[rows[hit]] = True
+    return near
+
+
+def check_temp(a, out):
+    """The lane_layer forward kernel's saved fp32 temp, which every
+    lane_layer_bwd consumes, against the plain temp under the float32
+    tolerances in both dtypes (both sum products of the same dtype-valued
+    operands in fp32; only the order differs), and the out of that launch
+    bitwise equal to the eval path's `out`."""
+    import torch
+    from lanegcn_tpu_torch.ops import lane_layer
+
+    out_t, temp = lane_layer._fwd_cuda(*a[:10], 1e-5, save_temp=True)
+    check(torch.equal(out_t, out), "lane_layer: out with save_temp differs from out without")
+    return compare("lane_layer temp", "float32", temp,
+                   lane_layer._temp_plain(a[0], a[1], a[2], a[3], a[9]))
+
+
+def kernel_phase(phase, ops, calls, counts):
+    """Kernel vs plain on the captured inputs, in float32 and bfloat16, with
+    a rerun of the kernel that must be bitwise equal; returns per-kernel
+    results of the call shape with the most rows (N rows; A2M for win_edge),
+    with `ms_per_step`: the kernel time of every call shape times its calls
+    in the captured step."""
+    import torch
+
     summary = {}
     for name, (fn, plain) in ops.items():
-        check(bool(calls[name]), f"{name}: the eval path never called this kernel")
-        per_forward = 0.0
-        for ci, (key, args) in enumerate(calls[name].items()):
-            res = {"phase": "kernel", "name": name, "call": ci,
-                   "calls_per_forward": counts[name][key]}
+        check(bool(calls[name]), f"{name}: the path never called this kernel")
+        per_step = 0.0
+        shapes = list(calls[name].items())
+        main_call = max(range(len(shapes)), key=lambda i: (shapes[i][0][0][0], -i))
+        for ci, (key, args) in enumerate(shapes):
+            res = {"phase": phase, "name": name, "call": ci,
+                   "calls_per_step": counts[name][key]}
             for dtype in (torch.float32, torch.bfloat16):
                 a = cast_args(args, dtype)
                 out_k = fn(*a)
                 out_p = plain(*a)
-                torch.cuda.synchronize()
-                ref = out_p.float()
-                diff = (out_k.float() - ref).abs()
                 tag = str(dtype).split(".")[-1]
-                rms = float(ref.square().mean().sqrt())
-                check(rms > 0, f"{name} {tag}: the plain output is all zeros")
-                # worst element's error as a share of its own tolerance
-                worst = float((diff / (TOL[tag] * (rms + ref.abs()))).max())
-                rel_rms = float(diff.square().mean().sqrt()) / rms
-                res[tag] = {"max_abs_err": float(diff.max()), "rms": rms,
-                            "max_abs": float(ref.abs().max()), "tol_abs": TOL[tag] * rms,
-                            "tol_rel": TOL[tag], "err_over_tol": worst,
-                            "rel_rms_err": rel_rms, "rel_rms_tol": RMS_TOL[tag],
-                            "shape": list(out_k.shape)}
-                check(bool(torch.isfinite(out_k).all()), f"{name} {tag}: non-finite output")
-                check(worst <= 1.0, f"{name} {tag}: an element's error is {worst} x its "
-                      f"tolerance {TOL[tag]} * (rms {rms} + |plain|)")
-                check(rel_rms <= RMS_TOL[tag],
-                      f"{name} {tag}: RMS error {rel_rms} of the output's RMS > {RMS_TOL[tag]}")
+                ties = 0
+                if name in TIE_OUTPUTS:
+                    rows = tie_rows(name, tag, out_k, out_p)
+                    ties = int(rows.numel())
+                    if ties:
+                        n_rows = a[COTANGENT_ARG[name]].shape[0]
+                        lone = rows[~near_zero_rows(name, tag, a, n_rows)[rows]]
+                        check(not lone.numel(), f"{name} {tag}: rows {lone[:8].tolist()} "
+                              f"({lone.numel()}) miss the tolerance and hold no ReLU "
+                              f"pre-activation within {TIE_EPS[tag]} of zero")
+                        check(ties <= max(1, TIE_SHARE * n_rows),
+                              f"{name} {tag}: {ties} of {n_rows} rows miss the tolerance, "
+                              f"more than ReLU ties explain ({TIE_SHARE} of the rows)")
+                        g = a[COTANGENT_ARG[name]].clone()
+                        g[rows] = 0
+                        a[COTANGENT_ARG[name]] = g
+                        out_k = fn(*a)
+                        out_p = plain(*a)
+                again = fn(*a)
+                torch.cuda.synchronize()
+                res[tag] = compare(name, tag, out_k, out_p)
+                res[tag]["tie_rows"] = ties
+                if name == "lane_layer":
+                    res[tag]["temp"] = check_temp(a, out_k)
+                outs = out_k if isinstance(out_k, (tuple, list)) else (out_k,)
+                agains = again if isinstance(again, (tuple, list)) else (again,)
+                check(all(torch.equal(x, y) for x, y in zip(outs, agains)),
+                      f"{name} {tag}: a rerun of the kernel is not bitwise equal")
+                res[tag]["bitwise_rerun"] = True
+                del out_k, out_p, again, outs, agains
                 if dtype == torch.bfloat16:
                     res["ms"] = time_ms(lambda: fn(*a))
                     res["plain_ms"] = time_ms(lambda: plain(*a))
                     res["work"] = work_of(name, a)
             emit(res)
-            per_forward += res["ms"] * counts[name][key]
-            if ci == 0:
+            per_step += res["ms"] * counts[name][key]
+            if ci == main_call:
                 summary[name] = res
-        summary[name]["ms_per_forward"] = per_forward
+        summary[name]["ms_per_step"] = per_step
     return summary
 
 
@@ -241,8 +455,16 @@ def work_of(name, a):
         w = scenario_agg.work(a[0], a[3], a[4], a[5], a[2], a[6], a[7])
     elif name == "win_edge":
         w = win_edge.work(a[0], a[2], a[13])
-    else:
+    elif name == "row_tail":
         w = row_tail.work(a[0].shape[0], a[0].element_size())
+    elif name == "lane_layer_bwd":
+        w = lane_layer.work_bwd(a[0], a[2])
+    elif name == "scenario_agg_bwd":
+        w = scenario_agg.work_bwd(a[0], a[2], a[3], a[4], a[1], a[5], a[6])
+    elif name == "win_edge_bwd":
+        w = win_edge.work_bwd(a[0], a[2], a[12])
+    else:
+        w = row_tail.work_bwd(a[0].shape[0], a[0].element_size())
     t_bytes = w["bytes"] / PEAK_HBM_BYTES * 1e3
     t_ops = w["flops"] / PEAK_BF16_FLOPS * 1e3
     w["bound_ms"] = max(t_bytes, t_ops)
@@ -281,17 +503,117 @@ def parity_phase():
         check(err[k] <= tol[k], f"parity {k}: {err[k]} > {tol[k]}")
 
 
-def profile_phase(step, batches) -> None:
-    """torch.profiler (CUPTI) over one forward per pack: device time by kernel
-    name and the device's idle share of the host wall time (which includes
-    the profiler's own overhead, so the share is an upper bound)."""
+# Gradient parity, card vs CPU (float32): each leaf's max error within
+# GRAD_TOL of that leaf's max |g| on the CPU. The gradients carry the
+# forward's reorder error (1e-6..1e-5 relative, see parity) through a
+# second chain of reordered sums (the backward kernels' per-block partials,
+# cuBLAS, index_add_); 2e-3 leaves ~100x room over that. A leaf whose
+# gradient cancels to zero by construction (the mode score's bias: the
+# max-margin loss sees only score differences) holds rounding noise only,
+# so a leaf's scale is floored at GRAD_FLOOR of the model's largest
+# gradient element; every other leaf of the model is above that floor
+# (the smallest is ~1.7e-3 of the largest at S=8).
+GRAD_TOL = 2e-3
+GRAD_FLOOR = 1e-4
+# Params after the step: Adam's first step moves each element by about
+# lr·sign(g), so where |g| lies at the reorder noise the card and the CPU
+# may step apart (up to 2·lr) while every gradient passes. At most
+# PARAM_FAR_SHARE of the elements may differ by more than PARAM_FAR: runs
+# of this check measured 846-852 of 3,701,161 (2.3e-4). A wrong step rule
+# (bias correction, lr, coefficient, clip) moves every element, and the
+# control (the CPU's step redone with each gradient leaf moved by uniform
+# noise of GRAD_TOL of its scale, what the gradient check lets through) is
+# printed beside it.
+PARAM_FAR = 1e-6
+PARAM_FAR_SHARE = 1e-3
+
+
+def train_parity_phase():
+    """One float32 make_train_step, 8 scenarios: card vs CPU from the same
+    weights. Loss, every gradient, and the parameters after the step."""
+    import torch
+    from lanegcn_tpu_torch.config import Config, windowed_pack_config
+    from lanegcn_tpu_torch.graph import PackedBatch
+    from lanegcn_tpu_torch.models.lanegcn import LaneGCN
+    from lanegcn_tpu_torch.train.loop import init_state, make_train_step
+
+    s = 8
+    cfg = Config(pack=windowed_pack_config(s))
+    packs, _, _, _ = make_packs(cfg, 1, s, seed0=20_000)
+    batch = PackedBatch.from_numpy(packs[0])
+    net_g = LaneGCN(cfg.model, dtype=torch.float32, device="cuda", seed=2)
+    net_c = LaneGCN(cfg.model, dtype=torch.float32, device="cpu", seed=2)
+    net_c.load_state_dict({k: v.cpu() for k, v in net_g.state_dict().items()})
+    start = {k: v.clone() for k, v in net_c.state_dict().items()}
+    net_g, state_g = init_state(cfg, net=net_g)
+    net_c, state_c = init_state(cfg, net=net_c, device="cpu")
+    m_g = make_train_step(cfg, net_g, state_g)(batch, 0.0)
+    m_c = make_train_step(cfg, net_c, state_c, device="cpu")(batch, 0.0)
+    loss_g, loss_c = float(m_g["loss"]), float(m_c["loss"])
+    grads_g = {n: p.grad for n, p in net_g.named_parameters()}
+    grads_c = {n: p.grad for n, p in net_c.named_parameters()}
+    check(set(grads_g) == set(grads_c), "train_parity: parameter names differ")
+    missing = sorted(n for n in grads_g if grads_g[n] is None or grads_c[n] is None)
+    check(not missing, f"train_parity: no gradient for {missing[:5]} ({len(missing)})")
+    top = max(float(g.abs().max()) for g in grads_c.values())
+    shares, scales = {}, {}
+    for n in grads_g:
+        ref = grads_c[n]
+        scales[n] = max(float(ref.abs().max()), GRAD_FLOOR * top)
+        err = float((grads_g[n].cpu() - ref).abs().max())
+        shares[n] = (err / (GRAD_TOL * scales[n]), err, float(ref.abs().max()))
+    ranked = sorted(shares, key=lambda n: -shares[n][0])
+    worst, worst_name = shares[ranked[0]][0], ranked[0]
+
+    # The control: the CPU's step from the same start, each gradient leaf
+    # moved by uniform noise of GRAD_TOL of its scale.
+    net_x = LaneGCN(cfg.model, dtype=torch.float32, device="cpu", seed=2)
+    net_x.load_state_dict(start)
+    net_x, state_x = init_state(cfg, net=net_x, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    for n, p in net_x.named_parameters():
+        noise = 2 * torch.rand(p.shape, generator=gen) - 1
+        p.grad = grads_c[n] + GRAD_TOL * scales[n] * noise
+    state_x.opt.step(m_c["lr"])
+
+    def apart(net):
+        diffs = [(p.detach().cpu() - pc.detach()).abs()
+                 for p, pc in zip(net.parameters(), net_c.parameters())]
+        return max(float(d.max()) for d in diffs), sum(int((d > PARAM_FAR).sum()) for d in diffs)
+
+    lr = float(m_c["lr"])
+    p_err, n_far = apart(net_g)
+    _, n_far_control = apart(net_x)
+    n_params = sum(p.numel() for p in net_c.parameters())
+    emit({"phase": "train_parity", "scenarios": s, "loss_gpu": loss_g, "loss_cpu": loss_c,
+          "leaves": len(grads_g), "grad_tol_rel": GRAD_TOL, "grad_floor": GRAD_FLOOR * top,
+          "worst_grad_err_over_tol": worst, "worst_grad_leaf": worst_name,
+          "worst_leaves": [[n, *shares[n]] for n in ranked[:5]],
+          "param_max_abs_err": p_err, "param_max_tol": 2 * lr, "param_far": PARAM_FAR,
+          "params_far": n_far, "params_far_limit": PARAM_FAR_SHARE * n_params,
+          "params_far_control": n_far_control, "params": n_params})
+    check(abs(loss_g - loss_c) <= 1e-3 * max(1.0, abs(loss_c)),
+          f"train_parity loss: {loss_g} vs {loss_c}")
+    check(worst <= 1.0, f"train_parity: {worst_name}'s gradient error is {worst} x its "
+          f"tolerance ({GRAD_TOL} of the leaf's max |g|)")
+    check(p_err <= 2 * lr, f"train_parity: params differ by {p_err} > 2·lr = {2 * lr}")
+    check(n_far <= PARAM_FAR_SHARE * n_params, f"train_parity: {n_far} of {n_params} params "
+          f"differ by more than {PARAM_FAR}, more than {PARAM_FAR_SHARE} of them")
+    check(n_far_control > PARAM_FAR_SHARE * n_params, f"train_parity: the control moved only "
+          f"{n_far_control} params, so the params check cannot tell gradients apart")
+
+
+def profile_phase(phase, step, items) -> None:
+    """torch.profiler (CUPTI) over step(item) for each item: device time by
+    kernel name and the device's idle share of the host wall time (which
+    includes the profiler's own overhead, so the share is an upper bound)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for b in batches:
+        for b in items:
             step(b)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -303,16 +625,23 @@ def profile_phase(step, batches) -> None:
         spans.append((t0, t1))
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + (t1 - t0))
-    check(bool(spans), "profile: no device activity was traced")
+    check(bool(spans), f"{phase}: no device activity was traced")
     busy, end = 0.0, float("-inf")
     for t0, t1 in sorted(spans):  # union of the device intervals
         if t1 > end:
             busy += t1 - max(t0, end)
             end = t1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
-    emit({"phase": "profile", "forwards": len(batches), "wall_ms": wall_us / 1e3,
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:20]
+    emit({"phase": phase, "steps": len(items), "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy / 1e3, "idle_share": 1.0 - busy / wall_us,
           "by_name": [[name[:90], n, us / 1e3] for name, (n, us) in top]})
+
+
+def check_counts(counts, per, steps, what):
+    for entry, n in counts.items():
+        want = per.get(entry, 0) * steps
+        check(n == want, f"{what}: {entry} launched {n} times in {steps} steps, "
+              f"expected {per.get(entry, 0)} each")
 
 
 def main() -> None:
@@ -325,7 +654,8 @@ def main() -> None:
     from lanegcn_tpu_torch.graph import PackedBatch
     from lanegcn_tpu_torch.models.lanegcn import LaneGCN
     from lanegcn_tpu_torch.ops import cuda
-    from lanegcn_tpu_torch.train.loop import MetricAccumulator, make_eval_step
+    from lanegcn_tpu_torch.train.loop import (MetricAccumulator, init_state, make_eval_step,
+                                              make_train_step)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -345,7 +675,7 @@ def main() -> None:
     build = cuda.build_all()
     ptxas = {
         name: [ln.strip() for ln in log.splitlines()
-               if "registers" in ln or "spill" in ln or "smem" in ln][:6]
+               if "registers" in ln or "spill" in ln or "smem" in ln][:12]
         for name, log in build["ptxas"].items()
     }
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -372,16 +702,26 @@ def main() -> None:
     step = make_eval_step(cfg, net)
 
     # --- kernels against their plain versions, on the eval path's inputs ---
-    with Capture() as cap:
+    with forward_capture() as cap:
         step(batches[0])
     torch.cuda.synchronize()
-    results = kernel_phase(cap.calls, cap.counts)
+    results = kernel_phase("kernel", forward_ops(), cap.calls, cap.counts)
+    del cap
+
+    # --- backward kernels against their plain backwards, on a train step's inputs ---
+    net_t, state = init_state(cfg, dtype=torch.bfloat16)
+    tstep = make_train_step(cfg, net_t, state)
+    with backward_capture() as cap:
+        tstep(batches[0], 0.0)
+    torch.cuda.synchronize()
+    results.update(kernel_phase("kernel_bwd", backward_ops(), cap.calls, cap.counts))
     del cap
 
     # --- card vs CPU, float32 ---
     parity_phase()
+    train_parity_phase()
 
-    # --- serve: the main path, counted ---
+    # --- serve: the eval path, counted ---
     step(batches[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -394,7 +734,7 @@ def main() -> None:
         acc.update(m)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = cuda.launch_counts()
+    serve_counts = cuda.launch_counts()
     forwards = rounds * len(batches)
     summ = acc.summary()
     emit({"phase": "serve", "scenarios_per_pack": s, "forwards": forwards,
@@ -402,29 +742,58 @@ def main() -> None:
           "loss": summ["loss"], "ade": summ["ade"], "fde": summ["fde"], "mr": summ["mr"],
           "host_pack_s_per_pack": pack_s / len(packs),
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "kernel_ms_per_forward": sum(r["ms_per_forward"] for r in results.values()),
-          "launches": counts,
-          "launches_per_forward": {k: v / forwards for k, v in counts.items()}})
+          "kernel_ms_per_forward": sum(results[k]["ms_per_step"] for k in forward_ops()),
+          "launches": serve_counts,
+          "launches_per_forward": {k: v / forwards for k, v in serve_counts.items()}})
     for k in ("loss", "ade", "fde", "mr"):
         check(math.isfinite(summ[k]), f"non-finite {k}: {summ[k]}")
-    for name, per in PER_FORWARD.items():
-        check(counts[name] == per * forwards,
-              f"{name}: {counts[name]} launches in {forwards} forwards, expected {per} each")
-    profile_phase(step, batches)
+    check_counts(serve_counts, PER_FORWARD, forwards, "serve")
+    profile_phase("profile", step, batches)
+
+    # --- train: the train path, counted ---
+    for i in range(2):
+        tstep(batches[i % 2], (1 + i) / 100.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = 20
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [tstep(batches[i % 2], (3 + i) / 100.0) for i in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    train_counts = cuda.launch_counts()
+    losses = [float(m["loss"]) for m in metrics]
+    skipped = sum(float(m["skipped"]) for m in metrics)
+    emit({"phase": "train", "scenarios_per_pack": s, "steps": steps,
+          "ms_per_step": dt / steps * 1e3, "scen_per_s": s * steps / dt,
+          "first_loss": losses[0], "last_loss": losses[-1], "skipped": skipped,
+          "lr": float(metrics[-1]["lr"]),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "kernel_ms_per_step": sum(r["ms_per_step"] for r in results.values()),
+          "launches": train_counts,
+          "launches_per_step": {k: v / steps for k, v in train_counts.items()}})
+    check(all(math.isfinite(x) for x in losses), f"non-finite train loss: {losses}")
+    check(skipped == 0, f"the NaN guard skipped {skipped} of {steps} steps")
+    check_counts(train_counts, PER_TRAIN_STEP, steps, "train")
+    profile_phase("profile_train", lambda b: tstep(b, 0.5), batches[:1])
 
     kernels = []
     for name, res in results.items():
-        source, replaces = KERNEL_META[name]
+        source, replaces, entries = KERNEL_META[name]
+        counts, runs = (train_counts, steps) if name.endswith("_bwd") else (serve_counts,
+                                                                           forwards)
+        launches = counts[entries[0]]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[name], "launches_per_forward": counts[name] // forwards,
+            "launches": launches, "launches_per_step": launches // runs,
+            "entries": {e: counts[e] for e in entries},
             "max_abs_err": res["bfloat16"]["max_abs_err"],
             "rms": res["bfloat16"]["rms"], "tol_abs": res["bfloat16"]["tol_abs"],
             "err_over_tol": res["bfloat16"]["err_over_tol"],
             "rel_rms_err": res["bfloat16"]["rel_rms_err"],
             "max_abs_err_fp32": res["float32"]["max_abs_err"],
             "ms": res["ms"], "plain_ms": res["plain_ms"],
-            "ms_per_forward": res["ms_per_forward"],
+            "ms_per_step": res["ms_per_step"],
             "bound_ms": res["work"]["bound_ms"], "bound_by": res["work"]["bound_by"],
             "library_ms": None,
         })

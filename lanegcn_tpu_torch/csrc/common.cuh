@@ -2,8 +2,8 @@
 //
 // The kernels keep activations in shared memory as fp32 rows, run their
 // [rows x 128] x [128 x 128] products on CUDA cores with fp32 accumulation
-// (register-blocked: each of 256 threads owns a 4 x 8 or 2 x 4 output
-// block), and take GroupNorm statistics with one warp per row. Operands
+// (register-blocked: each of 256 threads owns a 4 x 8, 8 x 8 or 2 x 4
+// output block), and take GroupNorm statistics with one warp per row. Operands
 // that the TPU kernels round to the activation dtype before a product are
 // rounded at the same points here (`rnd<T>`), so fp32 runs round nowhere
 // and bf16 runs round exactly where the plain PyTorch versions do.
@@ -159,6 +159,168 @@ __device__ __forceinline__ void gn_relu_rows(float* T_s, int rows, const float* 
 
 inline cudaError_t set_smem(const void* kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// ---------------------------------------------------------------------------
+// Backward helpers.
+//
+// Parameter gradients are sums over every row of a launch. Blocks run in no
+// order, so no block adds into another's sum: each block keeps its own
+// partial (in registers, or in a slice of device memory only it touches),
+// writes it to a workspace, and `reduce_partials` sums the partials in
+// block order. No float atomic touches a gradient, and a rerun is bitwise
+// equal.
+
+// W_s[k*C + n] = W[n*C + k]: the transpose of a [C x C] weight, so that
+// mm_64x128 with W_s computes A @ Wᵀ. Reads 4 consecutive k of one row n per
+// thread; neighbouring threads write neighbouring n (no bank conflicts).
+template <typename T>
+__device__ __forceinline__ void load_weight_t(float* W_s, const T* W) {
+  for (int i = threadIdx.x; i < C * C / 4; i += NT) {
+    const int n = i % C, k4 = (i / C) * 4;
+    const float4 v = load4<T>(W + n * C + k4);
+    W_s[(k4 + 0) * C + n] = v.x;
+    W_s[(k4 + 1) * C + n] = v.y;
+    W_s[(k4 + 2) * C + n] = v.z;
+    W_s[(k4 + 3) * C + n] = v.w;
+  }
+}
+
+// Output row of acc[i][.] in the 128 x 128 Aᵀ·B layout (8 rows per thread).
+__device__ __forceinline__ int tn_row(int i) {
+  const int tr = threadIdx.x >> 4;
+  return (i < 4) ? (tr * 4 + i) : (64 + tr * 4 + (i - 4));
+}
+
+__device__ __forceinline__ void zero_tn(float acc[8][8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+}
+
+// acc[i][j] += Σ_{r < rows} A_s[r*LDA + tn_row(i)] * B_s[r*LDA + mm_col(j)]:
+// the [C x C] product Aᵀ B over `rows` rows of two row tiles, in row order.
+__device__ __forceinline__ void mm_tn(const float* A_s, const float* B_s, int rows,
+                                      float acc[8][8]) {
+  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
+#pragma unroll 2
+  for (int r = 0; r < rows; ++r) {
+    const float4 a0 = *reinterpret_cast<const float4*>(A_s + r * LDA + tr * 4);
+    const float4 a1 = *reinterpret_cast<const float4*>(A_s + r * LDA + 64 + tr * 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(B_s + r * LDA + tc * 4);
+    const float4 b1 = *reinterpret_cast<const float4*>(B_s + r * LDA + 64 + tc * 4);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+}
+
+// P[tn_row(i)*C + mm_col(j)] = acc[i][j] (add = false) or += (add = true):
+// a thread's 64 elements of a [C x C] gradient in device memory.
+__device__ __forceinline__ void store_tn(float* P, const float acc[8][8], bool add) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* row = P + tn_row(i) * C;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float4* p = reinterpret_cast<float4*>(row + mm_col(4 * h));
+      float4 v = make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                             acc[i][4 * h + 3]);
+      if (add) v = add4(*p, v);
+      *p = v;
+    }
+  }
+}
+
+// Mean and 1/sqrt(var + eps) of one 128-wide row held as 4 values per lane
+// (the statistics of gn_row).
+__device__ __forceinline__ float2 gn_stats(float4 v, float eps) {
+  const float mu = warp_sum(v.x + v.y + v.z + v.w) * (1.f / C);
+  const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
+  const float var = warp_sum(d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3) * (1.f / C);
+  return make_float2(mu, rsqrtf(var + eps));
+}
+
+__device__ __forceinline__ float4 gn_nrm(float4 v, float2 st) {
+  return make_float4((v.x - st.x) * st.y, (v.y - st.x) * st.y, (v.z - st.x) * st.y,
+                     (v.w - st.x) * st.y);
+}
+
+// nrm ⊙ w + b for the lane's 4 columns.
+__device__ __forceinline__ float4 gn_affine(float4 nrm, const float* w, const float* b) {
+  const int c = (threadIdx.x & 31) * 4;
+  return make_float4(nrm.x * w[c] + b[c], nrm.y * w[c + 1] + b[c + 1],
+                     nrm.z * w[c + 2] + b[c + 2], nrm.w * w[c + 3] + b[c + 3]);
+}
+
+// GroupNorm backward of one row (torch semantics, single group):
+//   d_x = inv · (d_nrm − mean(d_nrm) − nrm · mean(d_nrm · nrm)),  d_nrm = d_y ⊙ w.
+__device__ __forceinline__ float4 gn_bwd_row(float4 dy, float4 nrm, float inv, const float* w) {
+  const int c = (threadIdx.x & 31) * 4;
+  const float4 dn = make_float4(dy.x * w[c], dy.y * w[c + 1], dy.z * w[c + 2], dy.w * w[c + 3]);
+  const float c1 = warp_sum(dn.x + dn.y + dn.z + dn.w) * (1.f / C);
+  const float c2 =
+      warp_sum(dn.x * nrm.x + dn.y * nrm.y + dn.z * nrm.z + dn.w * nrm.w) * (1.f / C);
+  return make_float4(inv * (dn.x - c1 - nrm.x * c2), inv * (dn.y - c1 - nrm.y * c2),
+                     inv * (dn.z - c1 - nrm.z * c2), inv * (dn.w - c1 - nrm.w * c2));
+}
+
+__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}
+
+// v where m > 0, else 0 (the ReLU's backward mask), per element.
+__device__ __forceinline__ float4 pos_mask4(float4 v, float4 m) {
+  return make_float4(m.x > 0.f ? v.x : 0.f, m.y > 0.f ? v.y : 0.f, m.z > 0.f ? v.z : 0.f,
+                     m.w > 0.f ? v.w : 0.f);
+}
+
+__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+
+// Column sums kept per warp (lane owns columns lane*4..+3) → their sum over
+// the 8 warps, in warp order, written to out[q*C + c] for the NV vectors.
+// red_s: NT/32 * NV * C floats of shared memory that no thread is using.
+template <int NV>
+__device__ __forceinline__ void reduce_warp_vecs(const float4 (&v)[NV], float* red_s,
+                                                 float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < NV; ++q)
+    *reinterpret_cast<float4*>(red_s + (warp * NV + q) * C + lane * 4) = v[q];
+  __syncthreads();
+  for (int i = threadIdx.x; i < NV * C; i += NT) {
+    float s = 0.f;
+    for (int w = 0; w < NT / 32; ++w) s += red_s[w * NV * C + i];
+    out[i] = s;
+  }
+  __syncthreads();
+}
+
+// out[i] = Σ_{p < np} part[p*m + i], summed in p order.
+__global__ void reduce_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                       int np, long m) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  float s = 0.f;
+  for (int p = 0; p < np; ++p) s += part[(long)p * m + i];
+  out[i] = s;
+}
+
+inline cudaError_t reduce_partials(const float* part, float* out, int np, long m,
+                                   cudaStream_t stream) {
+  if (m <= 0) return cudaSuccess;
+  if (np <= 0) return cudaMemsetAsync(out, 0, m * sizeof(float), stream);
+  const int threads = 256;
+  const long blocks = (m + threads - 1) / threads;
+  reduce_partials_kernel<<<(unsigned)blocks, threads, 0, stream>>>(part, out, np, m);
+  return cudaGetLastError();
 }
 
 }  // namespace lgk

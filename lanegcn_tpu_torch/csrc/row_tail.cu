@@ -14,7 +14,18 @@
 // owns 64 rows, takes both GN statistics with one warp per row, and the
 // normalized rows, the product and its statistics stay in shared memory, so
 // each byte of x, res and out crosses device memory once.
-#include "common.cuh"
+//
+// Backward (`row_tail_bwd`): replaces pallas_row_tail.py `_bwd_kernel` /
+// `_bwd_impl`. It recomputes the chain per row (nothing but the inputs is
+// saved) and emits dx, dres (= the masked output cotangent), dW and the four
+// GN vectors; the kernel is tail_bwd.cuh's. What bounds it: x, res and g
+// read and dx, dres written (267 MB at N = 208,896 in bf16) against three
+// [N x 128] x [128 x 128] products (20.5 GFLOP): memory-bound at the card's
+// bf16 matrix rate, product-bound on the CUDA cores this version uses. The
+// TPU kernel summed dW and dGN across its sequential grid; here one block
+// per SM walks the tiles with its dW in registers and a second pass sums
+// the per-block partials in a fixed order (deterministic, no atomics).
+#include "tail_bwd.cuh"
 
 using namespace lgk;
 
@@ -88,5 +99,28 @@ extern "C" int row_tail_fwd(const void* x, const void* res, const void* w, const
               *d = (const float*)g2b;
   if (dtype == 0) return launch<float>(x, res, w, a, b, c, d, out, n, eps, st);
   if (dtype == 1) return launch<bf16>(x, res, w, a, b, c, d, out, n, eps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Backward. g: the output cotangent in x's dtype; dx, dres [n, 128] in x's
+// dtype; part: blocks * (C*C + 4*C) fp32 workspace; grads: fp32
+// [C*C + 4*C] = dW (in, out), dg1w, dg1b, dg2w, dg2b.
+extern "C" int row_tail_bwd(const void* x, const void* res, const void* g, const void* w,
+                            const void* g1w, const void* g1b, const void* g2w, const void* g2b,
+                            void* dx, void* dres, void* part, void* grads, int n, int blocks,
+                            float eps, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const float *a = (const float*)g1w, *b = (const float*)g1b, *c = (const float*)g2w,
+              *d = (const float*)g2b;
+  float *p = (float*)part, *gr = (float*)grads;
+  if (dtype == 0)
+    return launch_tail_bwd<float, float>((const float*)x, (const float*)res, (const float*)g,
+                                         (const float*)w, a, b, c, d, (float*)dx,
+                                         (float*)dres, nullptr, nullptr, p, gr, n, blocks,
+                                         eps, st);
+  if (dtype == 1)
+    return launch_tail_bwd<bf16, bf16>((const bf16*)x, (const bf16*)res, (const bf16*)g,
+                                       (const bf16*)w, a, b, c, d, (bf16*)dx, (bf16*)dres,
+                                       nullptr, nullptr, p, gr, n, blocks, eps, st);
   return (int)cudaErrorInvalidValue;
 }

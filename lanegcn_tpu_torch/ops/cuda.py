@@ -9,8 +9,10 @@ built one is reused. `build_all` starts one `nvcc` per source at once.
 Every C entry point returns `cudaGetLastError()` after its launch; `call`
 raises when that is not 0, so a refused launch never passes silently.
 
-`LAUNCHES` counts kernel launches by name: each op's wrapper adds one where
-it launches its kernel, and nowhere else.
+`LAUNCHES` counts launches per C entry point (`lane_layer_fwd`,
+`lane_layer_bwd`, ...): `call` adds one where it launches the entry, and
+nothing else does. An entry may run several kernels (a backward's passes
+and its partial-sum reduction); it counts once per call.
 """
 
 from __future__ import annotations
@@ -26,9 +28,17 @@ from typing import Dict, Iterable
 
 import torch
 
-KERNELS = ("lane_layer", "scenario_agg", "win_edge", "row_tail")
+# C entry points of each kernel library.
+ENTRIES = {
+    "lane_layer": ("lane_layer_fwd", "lane_layer_bwd"),
+    "scenario_agg": ("scenario_agg_fwd", "scenario_agg_bwd"),
+    "win_edge": ("win_edge_fwd", "win_edge_bwd_d", "win_edge_bwd_s"),
+    "row_tail": ("row_tail_fwd", "row_tail_bwd"),
+}
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+KERNELS = tuple(ENTRIES)
+
+LAUNCHES: Dict[str, int] = {e: 0 for entries in ENTRIES.values() for e in entries}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "lanegcn_tpu_torch"
@@ -121,7 +131,7 @@ def stream() -> ctypes.c_void_p:
 
 
 def call(name: str, entry: str, *args) -> None:
-    """Launch one C entry of kernel `name` and count it.
+    """Launch one C entry of kernel library `name` and count the entry.
 
     Arguments are ctypes values (c_void_p for pointers, c_int, c_float);
     raises if the entry reports a CUDA error.
@@ -132,10 +142,16 @@ def call(name: str, entry: str, *args) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} from {entry}")
-    LAUNCHES[name] += 1
+    LAUNCHES[entry] += 1
 
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def num_sms(device: torch.device) -> int:
+    """Streaming multiprocessors of the card: the block count of the
+    backward passes that keep one parameter-gradient partial per block."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> int:

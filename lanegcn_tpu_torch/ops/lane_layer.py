@@ -1,10 +1,14 @@
-"""Fused LaneConv residual layer (forward): the `lane_layer` CUDA kernel
-(csrc/lane_layer.cu) and its plain PyTorch version.
+"""Fused LaneConv residual layer: the `lane_layer` CUDA kernels
+(csrc/lane_layer.cu, forward and backward) and their plain PyTorch versions.
 
     temp = pre + Σ_j band_j ⊙ feat[u + s_j] @ Wb_j     (rows outside [0, N) read 0)
     out  = relu(GN2(relu(GN1(temp)) @ W2) + feat)
 
 Counterpart of lanegcn_tpu/ops/pallas_lane_layer.py `fused_lane_layer`.
+When a gradient is wanted the public op runs through a
+`torch.autograd.Function`: its forward also keeps temp (fp32; on the card
+the forward kernel writes it, bitwise its own value) and its backward is the
+`lane_layer_bwd` kernel on CUDA tensors, `lane_layer_bwd_plain` on CPU ones.
 """
 
 from __future__ import annotations
@@ -16,7 +20,9 @@ import torch
 
 from lanegcn_tpu_torch.ops import cuda
 from lanegcn_tpu_torch.ops.norm import group_norm
+from lanegcn_tpu_torch.ops.row_tail import PART, tail_bwd_plain
 
+C = 128
 HALO = 32
 
 
@@ -27,20 +33,165 @@ def _shift_rows(x: torch.Tensor, s: int) -> torch.Tensor:
     return xp[HALO + s : HALO + s + n]
 
 
-def lane_layer_plain(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b,
-                     shifts: Sequence[int], eps: float = 1e-5) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch: fp32 products of dtype-valued
-    operands; h rounded to the activation dtype before the second product."""
-    dt = feat.dtype
+def _temp_plain(feat, pre, masks, wb, shifts):
+    """pre + the band products, fp32 (the kernel's temp)."""
     f = feat.float()
     temp = pre.float()
     for j, s in enumerate(shifts):
         rows = _shift_rows(f, s) * masks[j].to(torch.float32)[:, None]
         temp = temp + rows @ wb[j].float()
+    return temp
+
+
+def _tail_plain(feat, temp, w2, g1w, g1b, g2w, g2b, eps):
+    dt = feat.dtype
     h = torch.relu(group_norm(temp, g1w, g1b, 1, eps)).to(dt).float()
     z = h @ w2.float()
     y = group_norm(z, g2w, g2b, 1, eps)
-    return torch.relu(y + f).to(dt)
+    return torch.relu(y + feat.float()).to(dt)
+
+
+def lane_layer_plain(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b,
+                     shifts: Sequence[int], eps: float = 1e-5) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch: fp32 products of dtype-valued
+    operands; h rounded to the activation dtype before the second product."""
+    temp = _temp_plain(feat, pre, masks, wb, shifts)
+    return _tail_plain(feat, temp, w2, g1w, g1b, g2w, g2b, eps)
+
+
+def lane_layer_bwd_plain(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, g,
+                         shifts: Sequence[int], eps: float = 1e-5):
+    """The backward kernel's arithmetic, from the forward's fp32 temp:
+
+        d_y, d_temp = the tail's backward (row_tail.tail_bwd_plain)
+        dx  = d_y + Σ_j band_j[p − s_j] · d_temp[p − s_j] @ Wb_jᵀ   (fp32 d_temp)
+        dWb_j = Σ_u (band_j[u] · feat[u + s_j])ᵀ rnd(d_temp[u])
+
+    Returns (dx, dpre) in feat's dtype, then fp32 dWb [J, 128, 128], dW2 and
+    the four GN vector gradients.
+    """
+    dt = feat.dtype
+    d_temp, d_y, dw2, *dgn = tail_bwd_plain(temp, feat, w2, g1w, g1b, g2w, g2b, g, eps)
+    f = feat.float()
+    dt_r = d_temp.to(dt).float()
+    dx = d_y
+    dwb = []
+    for j, s in enumerate(shifts):
+        m = masks[j].to(torch.float32)[:, None]
+        dx = dx + _shift_rows(d_temp * m, -s) @ wb[j].float().t()
+        dwb.append((_shift_rows(f, s) * m).t() @ dt_r)
+    dwb = torch.stack(dwb) if dwb else torch.zeros(0, C, C, dtype=torch.float32,
+                                                   device=feat.device)
+    return (dx.to(dt), d_temp.to(dt), dwb, dw2, *dgn)
+
+
+def _check(feat, pre, masks, wb, w2, gns, shifts):
+    n, c = feat.shape
+    j = len(shifts)
+    if (c != C or pre.shape != feat.shape or tuple(wb.shape) != (j, c, c)
+            or tuple(w2.shape) != (c, c) or tuple(masks.shape) != (j, n)
+            or any(tuple(g.shape) != (c,) for g in gns)):
+        raise ValueError(f"lane_layer: bad shapes feat {feat.shape} pre {pre.shape} "
+                         f"masks {masks.shape} wb {wb.shape} w2 {w2.shape}")
+    if any(abs(s) > HALO for s in shifts):
+        raise ValueError(f"lane_layer: shifts beyond ±{HALO}: {shifts}")
+    if pre.dtype != feat.dtype or wb.dtype != feat.dtype or w2.dtype != feat.dtype:
+        raise TypeError("lane_layer: feat, pre, wb and w2 must share one dtype")
+
+
+def _mask_bytes(masks):
+    if masks.dtype == torch.bool:
+        return masks.contiguous().view(torch.uint8)
+    if masks.dtype != torch.uint8:
+        return (masks != 0).to(torch.uint8)
+    return masks.contiguous()
+
+
+def _shift_array(shifts):
+    return (ctypes.c_int * max(len(shifts), 1))(*shifts)
+
+
+def _fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, shifts, eps, save_temp=False):
+    """The forward kernel; returns out, or (out, temp fp32) with save_temp."""
+    _check(feat, pre, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts)
+    n = feat.shape[0]
+    masks = _mask_bytes(masks)
+    gns = [g.float().contiguous() for g in (g1w, g1b, g2w, g2b)]
+    code = cuda.check_cuda("lane_layer", feat, pre, masks, wb, w2, *gns)
+    out = torch.empty_like(feat)
+    temp = torch.empty(n, C, dtype=torch.float32, device=feat.device) if save_temp else None
+    sh = _shift_array(shifts)
+    cuda.call(
+        "lane_layer", "lane_layer_fwd",
+        cuda.ptr(feat), cuda.ptr(pre), cuda.ptr(masks), cuda.ptr(wb), cuda.ptr(w2),
+        *(cuda.ptr(g) for g in gns), cuda.ptr(out), cuda.ptr(temp),
+        ctypes.c_int(n), ctypes.c_int(len(shifts)), ctypes.cast(sh, ctypes.c_void_p),
+        ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+    )
+    return (out, temp) if save_temp else out
+
+
+def lane_layer_bwd_cuda(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, g,
+                        shifts: Sequence[int], eps: float = 1e-5):
+    """The `lane_layer_bwd` kernel; the same outputs as `lane_layer_bwd_plain`."""
+    _check(feat, feat, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts)
+    n = feat.shape[0]
+    j = len(shifts)
+    if (temp.shape != feat.shape or temp.dtype != torch.float32
+            or g.shape != feat.shape or g.dtype != feat.dtype):
+        raise ValueError("lane_layer: temp must be fp32 and g in feat's dtype, both [N, 128]")
+    masks = _mask_bytes(masks)
+    gns = [t.float().contiguous() for t in (g1w, g1b, g2w, g2b)]
+    code = cuda.check_cuda("lane_layer", feat, temp, masks, wb, w2, g, *gns)
+    dev = feat.device
+    tail_blocks = cuda.num_sms(dev)
+    splits = max(1, 2 * tail_blocks // max(j, 1))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx, dpre = torch.empty_like(feat), torch.empty_like(feat)
+    d_temp, d_y = torch.empty(n, C, **f32), torch.empty(n, C, **f32)
+    part_tail = torch.empty(tail_blocks * PART, **f32)
+    part_band = torch.empty(splits * j * C * C, **f32)
+    grads_tail = torch.empty(PART, **f32)
+    dwb = torch.empty(j, C, C, **f32)
+    sh = _shift_array(shifts)
+    cuda.call(
+        "lane_layer", "lane_layer_bwd",
+        cuda.ptr(feat), cuda.ptr(temp), cuda.ptr(masks), cuda.ptr(wb), cuda.ptr(w2),
+        *(cuda.ptr(t) for t in gns), cuda.ptr(g), cuda.ptr(dx), cuda.ptr(dpre),
+        cuda.ptr(d_temp), cuda.ptr(d_y), cuda.ptr(part_tail), cuda.ptr(part_band),
+        cuda.ptr(grads_tail), cuda.ptr(dwb), ctypes.c_int(n), ctypes.c_int(j),
+        ctypes.cast(sh, ctypes.c_void_p), ctypes.c_int(tail_blocks), ctypes.c_int(splits),
+        ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+    )
+    dgn = grads_tail[C * C:].view(4, C)
+    return dx, dpre, dwb, grads_tail[: C * C].view(C, C), dgn[0], dgn[1], dgn[2], dgn[3]
+
+
+class _LaneLayer(torch.autograd.Function):
+    """Forward: the plain version on CPU tensors, the kernel (with temp) on
+    CUDA tensors. Backward: `lane_layer_bwd_plain` / `lane_layer_bwd_cuda`;
+    each cotangent comes back in its primal's dtype; the masks get None."""
+
+    @staticmethod
+    def forward(ctx, feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, shifts, eps):
+        if feat.device.type == "cpu":
+            temp = _temp_plain(feat, pre, masks, wb, shifts)
+            out = _tail_plain(feat, temp, w2, g1w, g1b, g2w, g2b, eps)
+        else:
+            out, temp = _fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, shifts, eps,
+                                  save_temp=True)
+        ctx.save_for_backward(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b)
+        ctx.shifts, ctx.eps, ctx.pre_dtype = tuple(shifts), eps, pre.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b = ctx.saved_tensors
+        bwd = lane_layer_bwd_plain if feat.device.type == "cpu" else lane_layer_bwd_cuda
+        dx, dpre, dwb, dw2, *dgn = bwd(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b,
+                                       g.to(feat.dtype).contiguous(), ctx.shifts, ctx.eps)
+        return (dx, dpre.to(ctx.pre_dtype), None, dwb.to(wb.dtype), dw2.to(w2.dtype),
+                *(d.to(p.dtype) for d, p in zip(dgn, (g1w, g1b, g2w, g2b))), None, None)
 
 
 def fused_lane_layer(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b,
@@ -52,37 +203,15 @@ def fused_lane_layer(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b,
     GN affines [128] fp32; shifts: J ints with |s| ≤ 32. CPU tensors take
     the plain version; CUDA tensors launch the kernel.
     """
-    if feat.device.type == "cpu":
-        return lane_layer_plain(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, shifts, eps)
-    if feat.device.type != "cuda":
+    if feat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lane_layer: unsupported device {feat.device}")
-    n, c = feat.shape
-    j = len(shifts)
-    if (c != 128 or pre.shape != feat.shape or tuple(wb.shape) != (j, c, c)
-            or tuple(w2.shape) != (c, c) or tuple(masks.shape) != (j, n)
-            or any(tuple(g.shape) != (c,) for g in (g1w, g1b, g2w, g2b))):
-        raise ValueError(f"lane_layer: bad shapes feat {feat.shape} pre {pre.shape} "
-                         f"masks {masks.shape} wb {wb.shape} w2 {w2.shape}")
-    if any(abs(s) > HALO for s in shifts):
-        raise ValueError(f"lane_layer: shifts beyond ±{HALO}: {shifts}")
-    if pre.dtype != feat.dtype or wb.dtype != feat.dtype or w2.dtype != feat.dtype:
-        raise TypeError("lane_layer: feat, pre, wb and w2 must share one dtype")
-    if masks.dtype == torch.bool:
-        masks = masks.view(torch.uint8)
-    elif masks.dtype != torch.uint8:
-        masks = (masks != 0).to(torch.uint8)
-    gns = [g.float().contiguous() for g in (g1w, g1b, g2w, g2b)]
-    code = cuda.check_cuda("lane_layer", feat, pre, masks, wb, w2, *gns)
-    out = torch.empty_like(feat)
-    sh = (ctypes.c_int * max(j, 1))(*shifts)
-    cuda.call(
-        "lane_layer", "lane_layer_fwd",
-        cuda.ptr(feat), cuda.ptr(pre), cuda.ptr(masks), cuda.ptr(wb), cuda.ptr(w2),
-        *(cuda.ptr(g) for g in gns), cuda.ptr(out),
-        ctypes.c_int(n), ctypes.c_int(j), ctypes.cast(sh, ctypes.c_void_p),
-        ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
-    )
-    return out
+    args = (feat.contiguous(), pre.contiguous(), masks, wb.contiguous(), w2.contiguous(),
+            g1w, g1b, g2w, g2b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _LaneLayer.apply(*args, tuple(shifts), eps)
+    if feat.device.type == "cpu":
+        return lane_layer_plain(*args, shifts, eps)
+    return _fwd_cuda(*args, shifts, eps)
 
 
 def work(feat, masks) -> dict:
@@ -96,5 +225,21 @@ def work(feat, masks) -> dict:
     return {
         "bytes": 3 * n * c * db + j * n + (j + 1) * c * c * db + 4 * c * 4,
         "flops": 2 * c * c * (band_rows + n),
+        "band_rows": band_rows,
+    }
+
+
+def work_bwd(feat, masks) -> dict:
+    """The backward's bytes and operations at these inputs: feat, g and the
+    fp32 temp read, dx and dpre written, the masks, the weights read and
+    their gradients written; the band transpose and dWb only on the rows
+    each mask selects, and three [N, 128] x [128, 128] products (z
+    recomputed, d_h, dW2) on every row."""
+    n, c = feat.shape
+    j, db = masks.shape[0], feat.element_size()
+    band_rows = int(torch.count_nonzero(masks))
+    return {
+        "bytes": 4 * n * c * db + n * c * 4 + j * n + (j + 1) * c * c * (db + 4) + 8 * c * 4,
+        "flops": 2 * 2 * c * c * band_rows + 3 * 2 * c * c * n,
         "band_rows": band_rows,
     }

@@ -1,9 +1,12 @@
-"""Fused residual row tail, K = 1 (forward): the `row_tail` CUDA kernel
-(csrc/row_tail.cu) and its plain version.
+"""Fused residual row tail, K = 1: the `row_tail` CUDA kernels
+(csrc/row_tail.cu, forward and backward) and their plain versions.
 
     out = relu(GN2(relu(GN1(x)) @ W) + res)
 
-Counterpart of lanegcn_tpu/ops/pallas_row_tail.py `fused_row_tail`.
+Counterpart of lanegcn_tpu/ops/pallas_row_tail.py `fused_row_tail`. The
+public op runs through a `torch.autograd.Function`: its backward is the
+`row_tail_bwd` kernel on CUDA tensors and `row_tail_bwd_plain` on CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -13,7 +16,10 @@ import ctypes
 import torch
 
 from lanegcn_tpu_torch.ops import cuda
-from lanegcn_tpu_torch.ops.norm import group_norm
+from lanegcn_tpu_torch.ops.norm import gn_bwd, gn_stats, group_norm
+
+C = 128
+PART = C * C + 4 * C  # a backward partial: dW, dg1w, dg1b, dg2w, dg2b
 
 
 def row_tail_plain(x, res, w, g1w, g1b, g2w, g2b, eps: float = 1e-5) -> torch.Tensor:
@@ -26,33 +32,122 @@ def row_tail_plain(x, res, w, g1w, g1b, g2w, g2b, eps: float = 1e-5) -> torch.Te
     return torch.relu(y + res.float()).to(dt)
 
 
-def fused_row_tail(x, res, w, g1w, g1b, g2w, g2b, eps: float = 1e-5) -> torch.Tensor:
-    """x/res [N, 128] in one dtype; w [128, 128] (in, out), cast to x's
-    dtype; GN affines [128] fp32. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
-    if x.device.type == "cpu":
-        return row_tail_plain(x, res, w, g1w, g1b, g2w, g2b, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"row_tail: unsupported device {x.device}")
+def tail_bwd_plain(x, res, w, g1w, g1b, g2w, g2b, g, eps: float = 1e-5):
+    """Backward of relu(GN2(relu(GN1(x)) @ w) + res) with the kernels'
+    rounding points (h and d_z rounded to res's dtype before the products).
+
+    x may be fp32 (the lane layer's saved temp) or res's dtype. Returns fp32
+    (d_x, d_y, dW, dg1w, dg1b, dg2w, dg2b); d_y is the cotangent of res.
+    """
+    dt = res.dtype
+    nrm1, inv1 = gn_stats(x.float(), eps)
+    h_pre = nrm1 * g1w.float() + g1b.float()
+    h = torch.relu(h_pre).to(dt).float()
+    wf = w.to(dt).float()
+    nrm2, inv2 = gn_stats(h @ wf, eps)
+    y = nrm2 * g2w.float() + g2b.float()
+    d_y = torch.where(y + res.float() > 0, g.to(dt).float(), 0.0)
+    d_z = gn_bwd(d_y, nrm2, inv2, g2w).to(dt).float()
+    d_h = torch.where(h_pre > 0, d_z @ wf.t(), 0.0)
+    d_x = gn_bwd(d_h, nrm1, inv1, g1w)
+    return (d_x, d_y, h.t() @ d_z, (d_h * nrm1).sum(0), d_h.sum(0),
+            (d_y * nrm2).sum(0), d_y.sum(0))
+
+
+def row_tail_bwd_plain(x, res, w, g1w, g1b, g2w, g2b, g, eps: float = 1e-5):
+    """The backward kernel's arithmetic: (dx, dres) in x's dtype, then fp32
+    dW [128, 128] (in, out) and the four GN vector gradients."""
+    d_x, d_y, *grads = tail_bwd_plain(x, res, w, g1w, g1b, g2w, g2b, g, eps)
+    return (d_x.to(x.dtype), d_y.to(x.dtype), *grads)
+
+
+def _check(x, res, w, gns):
     n, c = x.shape
-    if (c != 128 or res.shape != x.shape or tuple(w.shape) != (c, c)
-            or any(tuple(g.shape) != (c,) for g in (g1w, g1b, g2w, g2b))):
+    if (c != C or res.shape != x.shape or tuple(w.shape) != (c, c)
+            or any(tuple(g.shape) != (c,) for g in gns)):
         raise ValueError(f"row_tail: bad shapes x {x.shape} res {res.shape} w {w.shape}")
-    if res.dtype != x.dtype:
-        raise TypeError("row_tail: x and res must share one dtype")
-    w = w.to(x.dtype).contiguous()
+    if res.dtype != x.dtype or w.dtype != x.dtype:
+        raise TypeError("row_tail: x, res and w must share one dtype")
+
+
+def _fwd_cuda(x, res, w, g1w, g1b, g2w, g2b, eps):
+    _check(x, res, w, (g1w, g1b, g2w, g2b))
     gns = [g.float().contiguous() for g in (g1w, g1b, g2w, g2b)]
     code = cuda.check_cuda("row_tail", x, res, w, *gns)
     out = torch.empty_like(x)
     cuda.call(
         "row_tail", "row_tail_fwd",
         cuda.ptr(x), cuda.ptr(res), cuda.ptr(w), *(cuda.ptr(g) for g in gns), cuda.ptr(out),
-        ctypes.c_int(n), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+        ctypes.c_int(x.shape[0]), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
     )
     return out
 
 
+def row_tail_bwd_cuda(x, res, w, g1w, g1b, g2w, g2b, g, eps: float = 1e-5):
+    """The `row_tail_bwd` kernel; the same outputs as `row_tail_bwd_plain`."""
+    _check(x, res, w, (g1w, g1b, g2w, g2b))
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError(f"row_tail: cotangent {g.shape} {g.dtype} for x {x.shape} {x.dtype}")
+    gns = [t.float().contiguous() for t in (g1w, g1b, g2w, g2b)]
+    code = cuda.check_cuda("row_tail", x, res, g, w, *gns)
+    blocks = cuda.num_sms(x.device)
+    dx, dres = torch.empty_like(x), torch.empty_like(x)
+    part = torch.empty(blocks * PART, dtype=torch.float32, device=x.device)
+    grads = torch.empty(PART, dtype=torch.float32, device=x.device)
+    cuda.call(
+        "row_tail", "row_tail_bwd",
+        cuda.ptr(x), cuda.ptr(res), cuda.ptr(g), cuda.ptr(w), *(cuda.ptr(t) for t in gns),
+        cuda.ptr(dx), cuda.ptr(dres), cuda.ptr(part), cuda.ptr(grads),
+        ctypes.c_int(x.shape[0]), ctypes.c_int(blocks), ctypes.c_float(eps), ctypes.c_int(code),
+        cuda.stream(),
+    )
+    dgn = grads[C * C:].view(4, C)
+    return dx, dres, grads[: C * C].view(C, C), dgn[0], dgn[1], dgn[2], dgn[3]
+
+
+class _RowTail(torch.autograd.Function):
+    """Forward: the plain version on CPU tensors, the kernel on CUDA tensors.
+    Backward: `row_tail_bwd_plain` / `row_tail_bwd_cuda` likewise; each
+    cotangent comes back in its primal's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, res, w, g1w, g1b, g2w, g2b, eps):
+        ctx.save_for_backward(x, res, w, g1w, g1b, g2w, g2b)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return row_tail_plain(x, res, w, g1w, g1b, g2w, g2b, eps)
+        return _fwd_cuda(x, res, w, g1w, g1b, g2w, g2b, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        x = saved[0]
+        bwd = row_tail_bwd_plain if x.device.type == "cpu" else row_tail_bwd_cuda
+        grads = bwd(*saved, g.to(x.dtype).contiguous(), ctx.eps)
+        return (*(d.to(p.dtype) for d, p in zip(grads, saved)), None)
+
+
+def fused_row_tail(x, res, w, g1w, g1b, g2w, g2b, eps: float = 1e-5) -> torch.Tensor:
+    """x/res [N, 128] in one dtype; w [128, 128] (in, out), cast to x's
+    dtype (its gradient flows back through the cast); GN affines [128] fp32.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"row_tail: unsupported device {x.device}")
+    w = w.to(x.dtype)
+    return _RowTail.apply(x.contiguous(), res.contiguous(), w.contiguous(), g1w, g1b, g2w, g2b,
+                          eps)
+
+
 def work(n: int, itemsize: int) -> dict:
-    c = 128
+    c = C
     return {"bytes": 3 * n * c * itemsize + c * c * itemsize + 4 * c * 4,
             "flops": 2 * n * c * c}
+
+
+def work_bwd(n: int, itemsize: int) -> dict:
+    """The backward's bytes and operations: x, res and g read and dx, dres
+    written once, W read and dW and the GN vectors written; three [N, 128] x
+    [128, 128] products (z recomputed, d_h, dW)."""
+    c = C
+    return {"bytes": 5 * n * c * itemsize + c * c * (itemsize + 4) + 8 * c * 4,
+            "flops": 3 * 2 * n * c * c}

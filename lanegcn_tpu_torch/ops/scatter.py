@@ -7,8 +7,20 @@ import torch
 
 def masked_gather(x: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor | None = None):
     """Rows x[idx], indices clamped into range; rows where mask is False are
-    zeroed (so clamping never leaks data). Returns [E, ...]."""
-    out = x[idx.clamp(0, x.shape[0] - 1)]
+    zeroed (so clamping never leaks data). Returns [E, ...].
+
+    The gather is an index_select, whose backward is one index_add_; padding
+    slots read distinct rows (and are zeroed), so the backward does not pile
+    every padding slot onto one row (advanced indexing's backward sorts the
+    indices and walks each run of equal ones serially: with all padding on
+    row 0 that took ~1.9 s per S=256 train step on an H100).
+    """
+    n = x.shape[0]
+    flat = idx.reshape(-1).clamp(0, n - 1)
+    if mask is not None:
+        spread = torch.arange(flat.shape[0], device=flat.device) % n
+        flat = torch.where(mask.reshape(-1), flat, spread)
+    out = x.index_select(0, flat).reshape(idx.shape + x.shape[1:])
     if mask is not None:
         out = torch.where(mask.reshape(mask.shape + (1,) * (out.dim() - 1)), out,
                           torch.zeros((), dtype=out.dtype, device=out.device))

@@ -1,5 +1,6 @@
-"""Window-plan aggregation of LaneConv overflow edges (forward): the
-`scenario_agg` CUDA kernel (csrc/scenario_agg.cu) and its plain version.
+"""Window-plan aggregation of LaneConv overflow edges: the `scenario_agg`
+CUDA kernels (csrc/scenario_agg.cu, forward and backward) and their plain
+versions.
 
     out[w*stride + lu] = temp + Σ_planned W_rel[rel] · feat[w*stride + lv]
 
@@ -9,7 +10,10 @@ prefix-dense per window and, with `groups`, chunk-aligned per relation
 group: the slots of group g fill whole 512-slot chunks, and a chunk applies
 only its group's relations (an unaligned plan under `groups` drops the
 out-of-group edges, as on the TPU). Chunks past a window's last group end
-are skipped.
+are skipped. The public op runs through a `torch.autograd.Function`
+whose backward is the `scenario_agg_bwd` kernel on
+CUDA tensors and `scenario_agg_bwd_plain` on CPU tensors; temp's cotangent
+is the output's, unchanged.
 """
 
 from __future__ import annotations
@@ -89,17 +93,32 @@ def scenario_agg_plain(feat, temp, w_rel, lu, lv, rel, num_win: int, groups=None
     return out.to(temp.dtype)
 
 
-def scenario_aggregate(feat, temp, w_rel, lu, lv, rel, num_win: int, groups=None):
-    """temp + Σ planned edges W_rel[rel] · feat[src] added to dst.
+def scenario_agg_bwd_plain(feat, w_rel, lu, lv, rel, num_win: int, groups, g):
+    """The backward kernel's arithmetic: per applied edge (u ← v, relation
+    r), dfeat[v] += g[u] @ W_rᵀ (fp32 sums, one rounding to feat's dtype)
+    and dW_r += feat[v]ᵀ g[u] (fp32). Returns (dfeat, dW_rel [R, 128, 128])."""
+    n, c = feat.shape
+    ecap = lu.shape[0] // num_win
+    groups = _groups(groups, w_rel.shape[0])
+    lu_f, lv_f, rel_f = lu.reshape(-1).long(), lv.reshape(-1).long(), rel.reshape(-1).long()
+    ok = _applied(lu_f, rel_f, num_win, groups)
+    base = torch.arange(num_win, device=feat.device).repeat_interleave(ecap) * (n // num_win)
+    sel = ok.nonzero().squeeze(1)
+    u, v, r_sel = (base + lu_f)[sel], (base + lv_f)[sel], rel_f[sel]
+    d_msg = g.to(feat.dtype)[u].float()
+    gath = feat[v].float()
+    d_gath = torch.zeros_like(gath)
+    dw = torch.zeros(w_rel.shape, dtype=torch.float32, device=feat.device)
+    for r in range(w_rel.shape[0]):
+        m = (r_sel == r).nonzero().squeeze(1)
+        if m.numel():
+            dw[r] = gath[m].t() @ d_msg[m]
+            d_gath[m] = d_msg[m] @ w_rel[r].float().t()
+    dfeat = torch.zeros(n, c, dtype=torch.float32, device=feat.device).index_add_(0, v, d_gath)
+    return dfeat.to(feat.dtype), dw
 
-    feat/temp [N, 128] (N = num_win * stride), w_rel [R, 128, 128] (in, out)
-    in feat's dtype; lu/lv/rel [num_win*ECAP, 1] int32. CPU tensors take the
-    plain version; CUDA tensors launch the kernel.
-    """
-    if feat.device.type == "cpu":
-        return scenario_agg_plain(feat, temp, w_rel, lu, lv, rel, num_win, groups)
-    if feat.device.type != "cuda":
-        raise ValueError(f"scenario_agg: unsupported device {feat.device}")
+
+def _check(feat, temp, w_rel, lu, lv, rel, num_win):
     n, c = feat.shape
     r_num = w_rel.shape[0]
     if (c != 128 or temp.shape != feat.shape or n % num_win or lu.shape[0] % num_win
@@ -112,10 +131,21 @@ def scenario_aggregate(feat, temp, w_rel, lu, lv, rel, num_win: int, groups=None
     for t in (lu, lv, rel):
         if t.dtype != torch.int32:
             raise TypeError("scenario_agg: plan indices must be int32")
+
+
+def _group_args(lu, rel, num_win, groups, r_num):
     groups = _groups(groups, r_num)
     ends = group_chunk_ends(lu, rel, num_win, groups)
-    code = cuda.check_cuda("scenario_agg", feat, temp, w_rel, lu, lv, rel, ends)
     masks = (ctypes.c_uint * len(groups))(*(sum(1 << r for r in g) for g in groups))
+    return groups, ends, masks
+
+
+def _fwd_cuda(feat, temp, w_rel, lu, lv, rel, num_win, groups):
+    _check(feat, temp, w_rel, lu, lv, rel, num_win)
+    n = feat.shape[0]
+    r_num = w_rel.shape[0]
+    groups, ends, masks = _group_args(lu, rel, num_win, groups, r_num)
+    code = cuda.check_cuda("scenario_agg", feat, temp, w_rel, lu, lv, rel, ends)
     out = torch.empty_like(temp)
     cuda.call(
         "scenario_agg", "scenario_agg_fwd",
@@ -125,6 +155,64 @@ def scenario_aggregate(feat, temp, w_rel, lu, lv, rel, num_win: int, groups=None
         ctypes.c_int(r_num), ctypes.c_int(len(groups)), ctypes.c_int(code), cuda.stream(),
     )
     return out
+
+
+def scenario_agg_bwd_cuda(feat, w_rel, lu, lv, rel, num_win: int, groups, g):
+    """The `scenario_agg_bwd` kernel; the same outputs as `scenario_agg_bwd_plain`."""
+    _check(feat, g, w_rel, lu, lv, rel, num_win)
+    n = feat.shape[0]
+    r_num = w_rel.shape[0]
+    groups, ends, masks = _group_args(lu, rel, num_win, groups, r_num)
+    w_t = w_rel.transpose(1, 2).contiguous()
+    code = cuda.check_cuda("scenario_agg", feat, g, w_t, lu, lv, rel, ends)
+    splits = max(1, 2 * cuda.num_sms(feat.device) // r_num)
+    dfeat = torch.empty_like(feat)
+    part = torch.empty(splits * r_num * 128 * 128, dtype=torch.float32, device=feat.device)
+    dw = torch.empty(r_num, 128, 128, dtype=torch.float32, device=feat.device)
+    cuda.call(
+        "scenario_agg", "scenario_agg_bwd",
+        cuda.ptr(feat), cuda.ptr(g), cuda.ptr(w_t), cuda.ptr(lu), cuda.ptr(lv), cuda.ptr(rel),
+        cuda.ptr(ends), ctypes.cast(masks, ctypes.c_void_p), cuda.ptr(dfeat), cuda.ptr(part),
+        cuda.ptr(dw), ctypes.c_int(num_win), ctypes.c_int(n // num_win),
+        ctypes.c_int(lu.shape[0] // num_win), ctypes.c_int(r_num), ctypes.c_int(len(groups)),
+        ctypes.c_int(splits), ctypes.c_int(code), cuda.stream(),
+    )
+    return dfeat, dw
+
+
+class _ScenarioAgg(torch.autograd.Function):
+    """Forward: the plain version on CPU tensors, the kernel on CUDA tensors.
+    Backward: `scenario_agg_bwd_plain` / `scenario_agg_bwd_cuda`; temp's
+    cotangent is g unchanged; the plan indices get None."""
+
+    @staticmethod
+    def forward(ctx, feat, temp, w_rel, lu, lv, rel, num_win, groups):
+        ctx.save_for_backward(feat, w_rel, lu, lv, rel)
+        ctx.num_win, ctx.groups = num_win, groups
+        if feat.device.type == "cpu":
+            return scenario_agg_plain(feat, temp, w_rel, lu, lv, rel, num_win, groups)
+        return _fwd_cuda(feat, temp, w_rel, lu, lv, rel, num_win, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, w_rel, lu, lv, rel = ctx.saved_tensors
+        bwd = scenario_agg_bwd_plain if feat.device.type == "cpu" else scenario_agg_bwd_cuda
+        dfeat, dw = bwd(feat, w_rel, lu, lv, rel, ctx.num_win, ctx.groups,
+                        g.to(feat.dtype).contiguous())
+        return dfeat, g, dw.to(w_rel.dtype), None, None, None, None, None
+
+
+def scenario_aggregate(feat, temp, w_rel, lu, lv, rel, num_win: int, groups=None):
+    """temp + Σ planned edges W_rel[rel] · feat[src] added to dst.
+
+    feat/temp [N, 128] (N = num_win * stride), w_rel [R, 128, 128] (in, out)
+    in feat's dtype; lu/lv/rel [num_win*ECAP, 1] int32. CPU tensors take the
+    plain version; CUDA tensors launch the kernel.
+    """
+    if feat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"scenario_agg: unsupported device {feat.device}")
+    return _ScenarioAgg.apply(feat.contiguous(), temp.contiguous(), w_rel.contiguous(), lu, lv,
+                              rel, num_win, groups)
 
 
 def work(feat, lu, lv, rel, w_rel, num_win: int, groups=None) -> dict:
@@ -146,4 +234,27 @@ def work(feat, lu, lv, rel, w_rel, num_win: int, groups=None) -> dict:
         "flops": 2 * edges * c * c,
         "edges": edges,
         "src_rows": src_rows,
+    }
+
+
+def work_bwd(feat, lu, lv, rel, w_rel, num_win: int, groups=None) -> dict:
+    """The backward's bytes and operations at these inputs: g read at the
+    distinct destination rows and feat at the distinct source rows of applied
+    edges, dfeat written whole, the plan and W_rel read and dW_rel written;
+    two products (dfeat, dW_rel) on applied edges only."""
+    n, c = feat.shape
+    db = feat.element_size()
+    ecap = lu.shape[0] // num_win
+    groups = _groups(groups, w_rel.shape[0])
+    lu_f, lv_f = lu.reshape(-1).long(), lv.reshape(-1).long()
+    ok = _applied(lu_f, rel.reshape(-1).long(), num_win, groups)
+    base = torch.arange(num_win, device=feat.device).repeat_interleave(ecap) * (n // num_win)
+    dst_rows = int((base + lu_f)[ok].unique().numel())
+    src_rows = int((base + lv_f)[ok].unique().numel())
+    edges = int(ok.sum())
+    return {
+        "bytes": (n + dst_rows + src_rows) * c * db + 3 * lu.shape[0] * 4
+        + w_rel.numel() * (db + 4),
+        "flops": 2 * 2 * edges * c * c,
+        "edges": edges,
     }

@@ -1,19 +1,92 @@
-"""The eval step and metric accumulation (reference train.py val loop).
+"""Train and eval steps, metric accumulation and the training loop
+(reference train.py:161-255; the port's counterpart of
+lanegcn_tpu/train/loop.py).
 
-`make_eval_step` is the port's serving entry point: forward, then
-pred_loss, then agent_metrics, on one packed batch.
+`make_eval_step` is the serving entry point: forward, then pred_loss, then
+agent_metrics, on one packed batch. `make_train_step` adds the backward
+(through the kernels' hand-written backward passes) and the flat Adam step
+with the StepLR schedule and the NaN guard.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+import time
+from typing import Any, Callable, Dict, Iterable, Tuple
 
 import torch
 
 from lanegcn_tpu_torch.config import Config
 from lanegcn_tpu_torch.device import resolve_device
 from lanegcn_tpu_torch.graph import PackedBatch
-from lanegcn_tpu_torch.models.lanegcn import agent_metrics, pred_loss
+from lanegcn_tpu_torch.models.lanegcn import LaneGCN, agent_metrics, pred_loss
+from lanegcn_tpu_torch.train.optimizer import FusedAdam, make_optimizer
+
+
+def _on_device(batch, device) -> PackedBatch:
+    """A PackedBatch on `device` from a PackedBatch or the packer's numpy pack."""
+    if not isinstance(batch, PackedBatch) or not isinstance(batch.rot, torch.Tensor):
+        batch = PackedBatch.from_numpy(batch)
+    return batch.to(device)
+
+
+class TrainState:
+    """The optimizer (flat params, moments, count), the lr schedule and the
+    step counter. The parameters themselves live in the net, as views of
+    the optimizer's flat buffer."""
+
+    def __init__(self, opt: FusedAdam, lr_fn: Callable, step: int = 0):
+        self.opt = opt
+        self.lr_fn = lr_fn
+        self.step = step
+
+
+def init_state(config: Config, net=None, dtype=torch.float32,
+               device=None) -> Tuple[LaneGCN, TrainState]:
+    """A LaneGCN (compute dtype `dtype`, fp32 params initialised from
+    config.train.seed; or `net`, e.g. with loaded weights) on `device`
+    (default `cuda`; raises without CUDA unless device="cpu") and its
+    TrainState."""
+    device = resolve_device(device)
+    if net is None:
+        net = LaneGCN(config.model, dtype=dtype, device=device, seed=config.train.seed)
+    net.to(device)
+    opt, lr_fn = make_optimizer(config.train, net)
+    return net, TrainState(opt, lr_fn)
+
+
+def make_train_step(config: Config, net, state: TrainState, device=None) -> Callable:
+    """Returns fn(batch, epoch) → metrics.
+
+    One step: forward, pred_loss, backward, then the flat Adam update at
+    lr_fn(epoch) (fractional epoch). Where the JAX step returns new params
+    and optimizer state, this one updates `net`'s parameters and `state` in
+    place. The metrics are device tensors (no host sync): the losses,
+    agent_metrics, `lr`, and `skipped` (1 when the NaN guard dropped the
+    update) when config.train.nan_guard is set.
+    """
+    device = resolve_device(device)
+    net.to(device).train()
+    guard = config.train.nan_guard
+
+    def train_step(batch, epoch) -> Dict[str, torch.Tensor]:
+        batch = _on_device(batch, device)
+        for p in state.opt.params:
+            p.grad = None
+        out = net(batch)
+        losses = pred_loss(out, batch, config.loss)
+        losses["loss"].backward()
+        lr = state.lr_fn(epoch, device)
+        ok = state.opt.step(lr, losses["loss"] if guard else None)
+        metrics = {k: v.detach() for k, v in losses.items()}
+        if guard:
+            metrics["skipped"] = 1.0 - ok.float()
+        with torch.no_grad():
+            metrics.update(agent_metrics({k: v.detach() for k, v in out.items()}, batch))
+        metrics["lr"] = lr
+        state.step += 1
+        return metrics
+
+    return train_step
 
 
 def make_eval_step(config: Config, net, device=None) -> Callable:
@@ -28,9 +101,7 @@ def make_eval_step(config: Config, net, device=None) -> Callable:
 
     @torch.no_grad()
     def eval_step(batch) -> tuple:
-        if not isinstance(batch, PackedBatch) or not isinstance(batch.rot, torch.Tensor):
-            batch = PackedBatch.from_numpy(batch)
-        batch = batch.to(device)
+        batch = _on_device(batch, device)
         out = net(batch)
         metrics = dict(pred_loss(out, batch, config.loss))
         metrics.update(agent_metrics(out, batch))
@@ -69,3 +140,35 @@ class MetricAccumulator:
 
     def reset(self):
         self.sums = {}
+
+
+def train_epochs(
+    config: Config,
+    net,
+    state: TrainState,
+    batches: Iterable,
+    num_steps: int,
+    steps_per_epoch: int,
+    log_every: int = 50,
+    log_fn=print,
+    device=None,
+) -> Tuple[TrainState, Dict[str, float]]:
+    """Simple single-process loop over an iterable of packed batches; the
+    epoch passed to each step is step / steps_per_epoch."""
+    train_step = make_train_step(config, net, state, device)
+    acc = MetricAccumulator()
+    t0 = time.time()
+    for batch in batches:
+        if state.step >= num_steps:
+            break
+        epoch = state.step / max(steps_per_epoch, 1)
+        metrics = train_step(batch, epoch)
+        acc.update(metrics)
+        if state.step % log_every == 0:
+            s = acc.summary()
+            log_fn(
+                f"step {state.step} epoch {epoch:.3f} lr {float(metrics['lr']):.5f} "
+                f"loss {s['loss']:.4f} cls {s['cls']:.4f} reg {s['reg']:.4f} "
+                f"ade {s['ade']:.4f} fde {s['fde']:.4f} ({time.time() - t0:.1f}s)"
+            )
+    return state, acc.summary()

@@ -14,7 +14,7 @@ import torch
 from lanegcn_tpu_torch.config import Config
 from lanegcn_tpu_torch.device import resolve_device
 from lanegcn_tpu_torch.models.lanegcn import LaneGCN
-from lanegcn_tpu_torch.train.loop import make_eval_step
+from lanegcn_tpu_torch.train.loop import init_state, make_eval_step, make_train_step
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -40,7 +40,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ("lanegcn_tpu_torch.ops.lane_layer", "lanegcn_tpu_torch.ops.scenario_agg",
                  "lanegcn_tpu_torch.ops.win_edge", "lanegcn_tpu_torch.ops.row_tail",
                  "lanegcn_tpu_torch.data.packing", "lanegcn_tpu_torch.train.loop",
-                 "lanegcn_tpu_torch.utils.weights"):
+                 "lanegcn_tpu_torch.train.optimizer", "lanegcn_tpu_torch.utils.weights"):
         assert name in res["modules"], name
     assert res["banned"] == [], res["banned"]
 
@@ -51,7 +51,8 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["resolve_device", "LaneGCN", "make_eval_step"])
+@pytest.mark.parametrize("entry", ["resolve_device", "LaneGCN", "make_eval_step",
+                                   "init_state", "make_train_step"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     cfg = Config()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -59,7 +60,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
             resolve_device()
         elif entry == "LaneGCN":
             LaneGCN(cfg.model)
-        else:
+        elif entry == "make_eval_step":
             make_eval_step(cfg, torch.nn.Linear(1, 1))
+        elif entry == "init_state":
+            init_state(cfg)
+        else:
+            make_train_step(cfg, torch.nn.Linear(1, 1), None)
     # Asking for the CPU is the one way to run them here.
     assert resolve_device("cpu").type == "cpu"
