@@ -99,7 +99,7 @@ class PackConfig:
     max_m2a_edges: int = 16384
     max_a2a_edges: int = 8192
     # Capacity of the combined inverse edge list backing the neighbor-table
-    # backward (ops.table_gather). 0 ⇒ auto (2 × max_nodes — exact upper
+    # backward (the JAX package's ops.table_gather). 0 ⇒ auto (2 × max_nodes — exact upper
     # bound for the default left/right tabling: each node has at most one
     # left and one right neighbor). On overflow the packer demotes table
     # entries to the regular edge lists, so gradients stay exact either way.
@@ -180,7 +180,7 @@ class RoiPackConfig:
     max_pool_edges: int = 131072  # RoI-node ↔ global-node (≤6 m; ~10 per node)
     max_a2r_edges: int = 8192    # traj-point → interest-node (≤6 m)
     # Inverse-edge capacity for the RoI subgraphs' left/right neighbor
-    # tables (ops.table_gather). 0 ⇒ 2 × max_roi_nodes (exact bound).
+    # tables (the JAX package's ops.table_gather). 0 ⇒ 2 × max_roi_nodes (exact bound).
     max_table_edges: int = 0
     # WINDOWED layouts + window edge plan for ops/pallas_scenario_agg, as in
     # PackConfig: applies to BOTH the RoI-node space (scenario RoI blocks
@@ -262,7 +262,7 @@ class Config:
 
 
 def windowed_pack_config(s: int) -> PackConfig:
-    """The pack geometry the port serves: the production windowed layout
+    """One of the pack geometries the port serves: the production windowed layout
     (768-row node windows with a 2048-slot window plan, 128-row actor
     windows, fusion pair plans, no neighbour tables) with spill_pairs off,
     so the plan's residue rides the classic edge lists. Capacities scale
@@ -284,6 +284,54 @@ def windowed_pack_config(s: int) -> PackConfig:
         max_a2a_edges=max(64 * s, 2048),
         actor_stride=128,
         fusion_pairs=True,
+    )
+
+
+def bench_pack_config(s: int) -> PackConfig:
+    """The geometry of the JAX package's benchmark (bench.py
+    `bench_pack_config`, without its environment overrides): the windowed
+    layout of `windowed_pack_config` with spill_pairs on, so the window
+    plan's residue rides a (dst-window, src-window) chunk-pair plan of
+    192·s slots and the classic lists (512 slots per relation) keep only
+    what overflows it. max_actors is 16·s rounded up to whole 128-row actor
+    windows, and the fusion capacities have the floors of
+    `windowed_pack_config` for small packs (both the same as bench.py's
+    from s = 32 up)."""
+    return PackConfig(
+        max_scenarios=s,
+        max_actors=128 * (-(-16 * s // 128)),
+        max_nodes=768 * (-(-s * 17 // 16)),
+        node_stride=768,
+        max_plan_edges=2048,
+        table_relations=(),
+        spill_pairs=True,
+        max_spill_pair_edges=192 * s,
+        max_edges_scale0=512,
+        max_edges_dilated=(512, 512, 512, 512, 512),
+        max_edges_lr=512,
+        max_a2m_edges=max(160 * s, 4096),
+        max_m2a_edges=max(160 * s, 4096),
+        max_a2a_edges=max(64 * s, 2048),
+        actor_stride=128,
+        fusion_pairs=True,
+    )
+
+
+def contiguous_pack_config(b: int) -> PackConfig:
+    """The geometry the JAX package's CLI packs by default on one device
+    (lanegcn_tpu/cli.py `_default_config`): contiguous nodes (no window
+    plan), left/right neighbour tables, destination-sorted fusion edge
+    lists (no pair plans), capacities scaled by the b scenarios per pack."""
+    return PackConfig(
+        max_scenarios=b,
+        max_actors=16 * b,
+        max_nodes=768 * b,
+        max_edges_scale0=832 * b,
+        max_edges_dilated=1024 * b,
+        max_edges_lr=256 * b,
+        max_a2m_edges=1024 * b,
+        max_m2a_edges=1024 * b,
+        max_a2a_edges=384 * b,
     )
 
 

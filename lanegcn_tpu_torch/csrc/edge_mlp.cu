@@ -1,0 +1,241 @@
+// Fused per-edge MLP of Att over a flat edge list, forward and backward.
+//
+// Replaces lanegcn_tpu/ops/pallas_edge_mlp.py `_fwd_kernel` / `_fwd_impl`
+// and `_bwd_kernel` / `_bwd_impl` (the Pallas kernels behind
+// `fused_edge_mlp`) in the Att configuration (has_dist2, has_query). Per row
+// e of the list, padding included, the chain of edge_chain.cuh from
+//
+//   t1 = rnd(relu(rnd(d[e]) @ rnd(Wd) + bd)),  s = t2 @ K1 + qg[e] + cg[e],
+//   out[e] = rnd(e1 @ Wout).
+//
+// d [E, 2] is fp32; qg/cg (the gathered query and context projections) and
+// out are [E, 128] in the activation dtype. A padding row has d = qg = cg =
+// 0, so its output is a constant row that the caller's masked scatter drops,
+// and its cotangent is zero, so it adds exactly nothing to any gradient.
+//
+// edge_mlp_fwd: a block per 64-row tile keeps the tile's chain in shared
+// memory (one fp32 [64 x 128] tile, one [128 x 128] weight reloaded per
+// stage): only d, qg, cg are read and only out is written.
+//
+// edge_mlp_bwd: recomputes the chain per tile, as the TPU kernel does, and
+// runs it backwards (edge_chain.cuh), with dqg = dcg = rnd(d_s), dWd +=
+// rnd(d)ᵀ rnd(d_t1p) and dd = rnd(d_t1p) @ Wdᵀ per row. One block per SM
+// walks the tiles (tile = block, block + blocks, ...); it adds its products
+// into its own slice of a [blocks, 3*C*C + 7*C] workspace (zeroed by the
+// wrapper; a read-modify-write per tile by the block that owns the slice)
+// and keeps its vector sums per warp in registers; reduce_partials sums the
+// slices in block order. No float atomics; reruns are bitwise equal.
+//
+// What bounds it: three (forward) or nine (backward) [E x 128] x [128 x 128]
+// products per row against ~3 (forward) or ~7 (backward) [E x 128] rows of
+// traffic: at the card's bf16 rates the rows' bytes bound it. This first
+// version runs the products on CUDA cores in fp32, which makes the products
+// the larger cost; about 93 % of the rows are padding at the CLI geometry's
+// capacities, and the kernel runs them all, as the TPU kernel did.
+#include "edge_chain.cuh"
+
+using namespace lgk;
+
+namespace {
+
+constexpr int EB = TM;                       // rows per tile
+constexpr int EM_PART = 3 * C * C + 7 * C;  // dWdo, dK1, dWout, dbd, dgdow, dgdob, dgchw, dgchb, dWd
+
+// A_s[r] = rnd(relu(rnd(d[row]) @ rnd(Wd) + bd)) for the tile's rows; 0 past e.
+template <typename T>
+__device__ __forceinline__ void tile_t1(float* A_s, const float* d, const T* kd, const float* bd,
+                                        long row0, int e) {
+  for (int i = threadIdx.x; i < EB * (C / 4); i += NT) {
+    const int r = i / (C / 4), c4 = (i % (C / 4)) * 4;
+    const long row = row0 + r;
+    float4 t = zero4();
+    if (row < e) {
+      const float d0 = rnd<T>(d[row * 2]), d1 = rnd<T>(d[row * 2 + 1]);
+      const float4 k0 = load4<T>(kd + c4), k1 = load4<T>(kd + C + c4);
+      const float4 b = *reinterpret_cast<const float4*>(bd + c4);
+      t = make_float4(fmaf(d1, k1.x, d0 * k0.x) + b.x, fmaf(d1, k1.y, d0 * k0.y) + b.y,
+                      fmaf(d1, k1.z, d0 * k0.z) + b.z, fmaf(d1, k1.w, d0 * k0.w) + b.w);
+      t = rnd4<T>(relu4(t));
+    }
+    *reinterpret_cast<float4*>(A_s + r * LDA + c4) = t;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+edge_mlp_kernel(const float* __restrict__ d, const T* __restrict__ qg, const T* __restrict__ cg,
+                const T* __restrict__ kd, const float* __restrict__ bd, const T* __restrict__ kdo,
+                const float* __restrict__ gdow, const float* __restrict__ gdob,
+                const T* __restrict__ k1, const float* __restrict__ gchw,
+                const float* __restrict__ gchb, const T* __restrict__ kout, T* __restrict__ out,
+                int e, float eps) {
+  extern __shared__ float4 smem4[];
+  float* A_s = reinterpret_cast<float*>(smem4);  // [EB][LDA]
+  float* W_s = A_s + EB * LDA;                   // [C][C]
+  const long row0 = (long)blockIdx.x * EB;
+  const int lane = threadIdx.x & 31;
+  float mm[4][8];
+
+  tile_t1<T>(A_s, d, kd, bd, row0, e);
+  chain_fwd<T>(A_s, W_s, Chain<T>{kdo, gdow, gdob, k1, gchw, gchb, kout, eps},
+               [&](int r, float4 s) {  // s += cg + qg
+                 const long row = row0 + r;
+                 if (row < e) {
+                   s = add4(s, load4<T>(cg + row * C + lane * 4));
+                   s = add4(s, load4<T>(qg + row * C + lane * 4));
+                 }
+                 return s;
+               },
+               mm);  // e2 = e1 @ Wout
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long row = row0 + mm_row(i);
+    if (row < e) {
+      store4<T>(out + row * C + mm_col(0), make_float4(mm[i][0], mm[i][1], mm[i][2], mm[i][3]));
+      store4<T>(out + row * C + mm_col(4), make_float4(mm[i][4], mm[i][5], mm[i][6], mm[i][7]));
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+edge_mlp_bwd_kernel(const float* __restrict__ d, const T* __restrict__ qg,
+                    const T* __restrict__ cg, const T* __restrict__ g, const T* __restrict__ kd,
+                    const float* __restrict__ bd, const T* __restrict__ kdo,
+                    const float* __restrict__ gdow, const float* __restrict__ gdob,
+                    const T* __restrict__ k1, const float* __restrict__ gchw,
+                    const float* __restrict__ gchb, const T* __restrict__ kout,
+                    float* __restrict__ dd, T* __restrict__ dqg, T* __restrict__ dcg,
+                    float* __restrict__ part, int e, float eps) {
+  extern __shared__ float4 smem4[];
+  float* A_s = reinterpret_cast<float*>(smem4);  // [EB][LDA] four row tiles
+  float* B_s = A_s + EB * LDA;
+  float* C_s = B_s + EB * LDA;
+  float* D_s = C_s + EB * LDA;
+  float* W_s = D_s + EB * LDA;  // [C][C]
+  float* st_s = W_s + C * C;    // [EB][2] inv of GN(do), GN(ch)
+
+  float* P = part + (long)blockIdx.x * EM_PART;  // this block's own slice (zeroed)
+  const Chain<T> w{kdo, gdow, gdob, k1, gchw, gchb, kout, eps};
+  const int lane = threadIdx.x & 31;
+  const int ntiles = (e + EB - 1) / EB;
+  float4 vecs[5] = {zero4(), zero4(), zero4(), zero4(), zero4()};  // dbd, dgdow, dgdob, dgchw, dgchb
+  float4 vkd[2] = {zero4(), zero4()};                               // dWd rows
+  const float4 k0 = load4<T>(kd + lane * 4), k1v = load4<T>(kd + C + lane * 4);
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long row0 = (long)tile * EB;
+    chain_bwd<T>(
+        A_s, B_s, C_s, D_s, W_s, st_s, P, vecs, w,
+        [&](float* X_s) { tile_t1<T>(X_s, d, kd, bd, row0, e); },
+        [&](int r, float4 sv) {  // s += cg + qg
+          const long row = row0 + r;
+          if (row < e) {
+            sv = add4(sv, load4<T>(cg + row * C + lane * 4));
+            sv = add4(sv, load4<T>(qg + row * C + lane * 4));
+          }
+          return sv;
+        },
+        [&](int r) { return row0 + r < e ? load4<T>(g + (row0 + r) * C + lane * 4) : zero4(); },
+        [&](int r) { return row0 + r < e; },
+        [&](int r, float4 ds) {  // dqg = dcg = rnd(d_s)
+          store4<T>(dqg + (row0 + r) * C + lane * 4, ds);
+          store4<T>(dcg + (row0 + r) * C + lane * 4, ds);
+        },
+        [] {},
+        [&](int r, float4 d1) {  // dWd += rnd(d)ᵀ rnd(d_t1p);  dd = rnd(d_t1p) @ Wdᵀ
+          const long row = row0 + r;
+          const float a0 = rnd<T>(d[row * 2]), a1 = rnd<T>(d[row * 2 + 1]);
+          vkd[0] = add4(vkd[0], make_float4(a0 * d1.x, a0 * d1.y, a0 * d1.z, a0 * d1.w));
+          vkd[1] = add4(vkd[1], make_float4(a1 * d1.x, a1 * d1.y, a1 * d1.z, a1 * d1.w));
+          const float s0 = warp_sum(d1.x * k0.x + d1.y * k0.y + d1.z * k0.z + d1.w * k0.w);
+          const float s1 = warp_sum(d1.x * k1v.x + d1.y * k1v.y + d1.z * k1v.z + d1.w * k1v.w);
+          if (lane == 0) {
+            dd[row * 2] = s0;
+            dd[row * 2 + 1] = s1;
+          }
+        },
+        [] {});
+  }
+  const float4 all[7] = {vecs[0], vecs[1], vecs[2], vecs[3], vecs[4], vkd[0], vkd[1]};
+  reduce_warp_vecs<7>(all, B_s, P + 3 * C * C);
+}
+
+template <typename T>
+int launch(const float* d, const void* qg, const void* cg, const void* kd, const float* bd,
+           const void* kdo, const float* gdow, const float* gdob, const void* k1,
+           const float* gchw, const float* gchb, const void* kout, void* out, int e, float eps,
+           cudaStream_t stream) {
+  const int smem = (EB * LDA + C * C) * (int)sizeof(float);
+  cudaError_t err = set_smem((const void*)edge_mlp_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (e + EB - 1) / EB;
+  if (tiles > 0) {
+    edge_mlp_kernel<T><<<tiles, NT, smem, stream>>>(
+        d, (const T*)qg, (const T*)cg, (const T*)kd, bd, (const T*)kdo, gdow, gdob, (const T*)k1,
+        gchw, gchb, (const T*)kout, (T*)out, e, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const float* d, const void* qg, const void* cg, const void* g, const void* kd,
+               const float* bd, const void* kdo, const float* gdow, const float* gdob,
+               const void* k1, const float* gchw, const float* gchb, const void* kout, float* dd,
+               void* dqg, void* dcg, float* part, float* grads, int e, int blocks, float eps,
+               cudaStream_t stream) {
+  const int smem = (4 * EB * LDA + C * C + 2 * EB) * (int)sizeof(float);
+  cudaError_t err = set_smem((const void*)edge_mlp_bwd_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (e + EB - 1) / EB;
+  if (blocks > tiles) blocks = tiles;
+  if (blocks > 0) {
+    edge_mlp_bwd_kernel<T><<<blocks, NT, smem, stream>>>(
+        d, (const T*)qg, (const T*)cg, (const T*)g, (const T*)kd, bd, (const T*)kdo, gdow, gdob,
+        (const T*)k1, gchw, gchb, (const T*)kout, dd, (T*)dqg, (T*)dcg, part, e, eps);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)reduce_partials(part, grads, blocks, EM_PART, stream);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (qg, cg, kd [2, C], kdo, k1, kout (in,
+// out), out); d fp32 [e, 2]; bd and the GN vectors fp32 [128]; out [e, 128].
+extern "C" int edge_mlp_fwd(const void* d, const void* qg, const void* cg, const void* kd,
+                            const void* bd, const void* kdo, const void* gdow, const void* gdob,
+                            const void* k1, const void* gchw, const void* gchb, const void* kout,
+                            void* out, int e, float eps, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const float *dp = (const float*)d, *b = (const float*)bd, *g0 = (const float*)gdow,
+              *g1 = (const float*)gdob, *g2 = (const float*)gchw, *g3 = (const float*)gchb;
+  if (dtype == 0)
+    return launch<float>(dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout, out, e, eps, st);
+  if (dtype == 1)
+    return launch<bf16>(dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout, out, e, eps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Backward. g: the output cotangent [e, 128] in the activation dtype; dd fp32
+// [e, 2]; dqg/dcg [e, 128] in the activation dtype; part: fp32 [blocks,
+// 3*C*C + 7*C], zero on entry; grads: fp32 [3*C*C + 7*C] = dWdo, dK1, dWout
+// (in, out), dbd, dgdow, dgdob, dgchw, dgchb, dWd row 0, dWd row 1, the
+// slices' sum in block order.
+extern "C" int edge_mlp_bwd(const void* d, const void* qg, const void* cg, const void* g,
+                            const void* kd, const void* bd, const void* kdo, const void* gdow,
+                            const void* gdob, const void* k1, const void* gchw, const void* gchb,
+                            const void* kout, void* dd, void* dqg, void* dcg, void* part,
+                            void* grads, int e, int blocks, float eps, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const float *dp = (const float*)d, *b = (const float*)bd, *g0 = (const float*)gdow,
+              *g1 = (const float*)gdob, *g2 = (const float*)gchw, *g3 = (const float*)gchb;
+  float *ddp = (float*)dd, *pt = (float*)part, *gr = (float*)grads;
+  if (dtype == 0)
+    return launch_bwd<float>(dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg, dcg,
+                             pt, gr, e, blocks, eps, st);
+  if (dtype == 1)
+    return launch_bwd<bf16>(dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg, dcg,
+                            pt, gr, e, blocks, eps, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,430 @@
+// Window-pair aggregation of the LaneConv spill residue, forward and backward.
+//
+// Replaces lanegcn_tpu/ops/pallas_pair_agg.py `_fwd_kernel` / `_pallas_fwd`
+// (forward) and `_bwd_d_kernel` / `_bwd_s_kernel` (`_pallas_bwd`). The
+// packer's spill plan (data/packing.py build_pair_plan with a relation
+// column) holds the window plan's residue in chunks of `chunk` slots; every
+// chunk's edges share one (destination window, source window) pair, and the
+// chunks are sorted by (dwin, swin), so each destination window's chunks form
+// one run that starts where `first` is 1. Per valid slot (lu, lv, rel):
+//
+//   out[dwin*sd + lu] = temp[..] + Σ W_rel[rel] · feat[swin*ss + lv]
+//
+// A slot is valid when lu, lv lie in their windows and in the pack and rel
+// is a relation; padding slots (lu = -1), all-padding chunks, inactive tail
+// chunks and the empty plan contribute nothing.
+//
+// pair_agg_fwd: a block per (destination-window run, 32-channel slice) keeps
+// the window's slice in shared memory in fp32, started from temp, and rounds
+// it once at the end. It walks its run once per relation present in it and
+// compacts that relation's slots 64 at a time (a ballot), so each
+// [64 x 128] x [128 x 32] product runs against one relation's weight and
+// (except the last of each relation) on 64 real edges, where the TPU kernel
+// ran 14 masked products per chunk. Source rows are gathered with all 128
+// channels (the product's K axis). The scatter into the window runs in slot
+// order, each window row owned by one warp: no two threads add into one
+// element, no float atomics, a fixed order, so reruns are bitwise equal.
+// Windows no run targets keep temp: the wrapper hands in out = temp.clone().
+//
+// pair_agg_bwd_d: per valid slot (u ← v, relation r)
+//   d_gath[slot] = g[u] @ W_rᵀ  (rounded to feat's dtype)   dW_r += feat[v]ᵀ g[u]
+// A (split, relation) grid of blocks walks chunks split, split + splits, ...,
+// compacts its relation's slots 64 at a time, and per 64 edges runs both
+// products with W_rᵀ resident in shared memory: d_gath rows go to their slots
+// (zero-initialised by the wrapper, so padding slots stay zero), dW_r to an
+// 8 x 8 register block per thread, written once as the block's partial;
+// reduce_partials sums the partials in split order.
+//
+// pair_agg_bwd_s: a block per (source-window run of the chunks in `sperm`
+// order, 32-channel slice) adds the saved d_gath rows of its run's slots into
+// an fp32 shared slice of dfeat in slot order (each row owned by one warp)
+// and rounds once. Windows no run reads keep the zeros the wrapper
+// allocates. dtemp is g itself (wrapper).
+//
+// What bounds it: one (forward) or two (backward) [E x 128] x [128 x 128]
+// products on the valid spill edges (29,784 at the 256-scenario bench pack:
+// 1 GFLOP) against ~110 MB (temp read and out written whole, feat at the
+// rows the edges read): memory-bound at the card's rates. This first version
+// runs the products on CUDA cores in fp32.
+#include "common.cuh"
+
+using namespace lgk;
+
+namespace {
+
+constexpr int EB = 64;  // edges per product
+
+// The relation of slot `slot` if it is a valid edge, else -1; sets the
+// window-local destination row and the global source row.
+__device__ __forceinline__ int slot_edge(const int* idx, long slot, long base_d, long base_s,
+                                         int sd, int ss, int n, int num_rel, int* lu, int* v) {
+  const int u = idx[slot * 3], lv = idx[slot * 3 + 1], r = idx[slot * 3 + 2];
+  const bool ok = u >= 0 && u < sd && lv >= 0 && lv < ss && r >= 0 && r < num_rel &&
+                  base_d + u < n && base_s + lv < n;
+  *lu = u;
+  *v = (int)(base_s + lv);
+  return ok ? r : -1;
+}
+
+// Appends the selected values of threads 0..EB-1 (sel) to the pending lists
+// p0/p1/p2 (2*EB entries each) at `fill`, in thread order; returns the new
+// fill. Every thread of the block calls it.
+__device__ __forceinline__ int compact(bool sel, int a0, int a1, int a2, int* p0, int* p1,
+                                       int* p2, int* cnt_s, int fill) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned int ballot = __ballot_sync(0xffffffffu, sel);
+  __syncthreads();  // the previous step is done with cnt_s and the pending lists
+  if (warp < 2 && lane == 0) cnt_s[warp] = __popc(ballot);
+  __syncthreads();
+  if (sel) {
+    const int pos = fill + (warp == 1 ? cnt_s[0] : 0) + __popc(ballot & ((1u << lane) - 1u));
+    p0[pos] = a0;
+    p1[pos] = a1;
+    if (p2) p2[pos] = a2;
+  }
+  return fill + cnt_s[0] + cnt_s[1];
+}
+
+// Moves pending entries [EB, fill) to [0, fill - EB) after a flush of EB.
+__device__ __forceinline__ int drop_flushed(int* p0, int* p1, int* p2, int fill) {
+  __syncthreads();  // the flush is done reading the pending lists
+  if (threadIdx.x < fill - EB) {
+    p0[threadIdx.x] = p0[EB + threadIdx.x];
+    p1[threadIdx.x] = p1[EB + threadIdx.x];
+    if (p2) p2[threadIdx.x] = p2[EB + threadIdx.x];
+  }
+  return fill - EB;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+pair_agg_fwd_kernel(const T* __restrict__ feat, const T* __restrict__ temp,
+                    const T* __restrict__ w_rel, const int* __restrict__ idx,
+                    const int* __restrict__ meta, T* __restrict__ out, int nc, int chunk, int sd,
+                    int ss, int n, int num_rel) {
+  const int* dwin = meta;
+  const int* swin = meta + nc;
+  const int* first = meta + 2 * nc;
+  const int k = blockIdx.x;
+  if (first[k] != 1) return;
+  int k_end = k + 1;
+  while (k_end < nc && first[k_end] != 1) ++k_end;
+
+  extern __shared__ float4 smem4[];
+  float* acc_s = reinterpret_cast<float*>(smem4);  // [sd][SLICE]
+  float* G_s = acc_s + sd * SLICE;                 // [EB][LDA]
+  float* W_s = G_s + EB * LDA;                     // [C][SLICE]
+  float* M_s = W_s + C * SLICE;                    // [EB][MLD]
+  int* pu_s = reinterpret_cast<int*>(M_s + EB * MLD);  // [2*EB] pending local dst rows
+  int* pv_s = pu_s + 2 * EB;                            // [2*EB] pending global src rows
+  int* cnt_s = pv_s + 2 * EB;                           // [2]
+  unsigned int* present_s = reinterpret_cast<unsigned int*>(cnt_s + 2);
+
+  const int cs = blockIdx.y * SLICE;
+  const long base_d = (long)dwin[k] * sd;
+  const int rows_d = (int)min((long)sd, (long)n - base_d);
+  for (int i = threadIdx.x; i < sd * SLICE; i += NT) {
+    const int r = i / SLICE, c = i % SLICE;
+    acc_s[i] = r < rows_d ? to_f<T>(temp[(base_d + r) * C + cs + c]) : 0.f;
+  }
+  if (threadIdx.x == 0) *present_s = 0u;
+  __syncthreads();
+  for (long slot = (long)k * chunk + threadIdx.x; slot < (long)k_end * chunk; slot += NT) {
+    int lu, v;
+    const int r = slot_edge(idx, slot, base_d, (long)swin[slot / chunk] * ss, sd, ss, n,
+                            num_rel, &lu, &v);
+    if (r >= 0) atomicOr(present_s, 1u << r);
+  }
+  __syncthreads();
+  const unsigned int present = *present_s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float ones[2] = {1.f, 1.f};
+
+  auto flush = [&](int count) {
+    __syncthreads();  // pending rows (and W_s) written
+    for (int i = threadIdx.x; i < EB * (C / 4); i += NT) {
+      const int e = i / (C / 4), c4 = (i % (C / 4)) * 4;
+      *reinterpret_cast<float4*>(G_s + e * LDA + c4) =
+          e < count ? load4<T>(feat + (long)pv_s[e] * C + c4) : zero4();
+    }
+    __syncthreads();
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    mm_64x32(G_s, ones, W_s, acc);
+    const int row0 = (threadIdx.x >> 3) * 2, col0 = (threadIdx.x & 7) * 4;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) M_s[(row0 + i) * MLD + col0 + j] = acc[i][j];
+    }
+    __syncthreads();
+    // Scatter in slot order: warp w owns the window rows ≡ w (mod 8), lane = channel.
+    for (int e = 0; e < count; ++e) {
+      const int u = pu_s[e];
+      if (u % (NT / 32) == warp) acc_s[u * SLICE + lane] += M_s[e * MLD + lane];
+    }
+  };
+
+  for (int r = 0; r < num_rel; ++r) {
+    if (!((present >> r) & 1u)) continue;
+    __syncthreads();  // the previous relation's products are done with W_s
+    for (int i = threadIdx.x * 4; i < C * SLICE; i += NT * 4) {
+      const int kk = i / SLICE, c = i % SLICE;
+      *reinterpret_cast<float4*>(W_s + i) = load4<T>(w_rel + ((long)r * C + kk) * C + cs + c);
+    }
+    int fill = 0;
+    for (int kk = k; kk < k_end; ++kk) {
+      const long base_s = (long)swin[kk] * ss;
+      for (int h = 0; h < chunk; h += EB) {
+        bool sel = false;
+        int lu = -1, v = -1;
+        if (threadIdx.x < EB && h + threadIdx.x < chunk)
+          sel = slot_edge(idx, (long)kk * chunk + h + threadIdx.x, base_d, base_s, sd, ss, n,
+                          num_rel, &lu, &v) == r;
+        fill = compact(sel, lu, v, 0, pu_s, pv_s, nullptr, cnt_s, fill);
+        if (fill >= EB) {
+          flush(EB);
+          fill = drop_flushed(pu_s, pv_s, nullptr, fill);
+        }
+      }
+    }
+    if (fill > 0) flush(fill);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows_d * SLICE; i += NT) {
+    const int r = i / SLICE, c = i % SLICE;
+    out[(base_d + r) * C + cs + c] = from_f<T>(acc_s[i]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+pair_agg_bwd_d_kernel(const T* __restrict__ feat, const T* __restrict__ g,
+                      const T* __restrict__ w_rel_t, const int* __restrict__ idx,
+                      const int* __restrict__ meta, T* __restrict__ d_gath,
+                      float* __restrict__ part, int nc, int chunk, int sd, int ss, int n,
+                      int num_rel) {
+  const int* dwin = meta;
+  const int* swin = meta + nc;
+  const int r = blockIdx.y;
+
+  extern __shared__ float4 smem4[];
+  float* A_s = reinterpret_cast<float*>(smem4);  // [EB][LDA] feat[v]
+  float* B_s = A_s + EB * LDA;                   // [EB][LDA] g[u]
+  float* W_s = B_s + EB * LDA;                   // [C][C] W_rᵀ
+  int* ps_s = reinterpret_cast<int*>(W_s + C * C);  // [2*EB] pending slots
+  int* pu_s = ps_s + 2 * EB;                        // [2*EB] pending global dst rows
+  int* pv_s = pu_s + 2 * EB;                        // [2*EB] pending global src rows
+  int* cnt_s = pv_s + 2 * EB;                       // [2]
+  load_weight<T>(W_s, w_rel_t + (long)r * C * C);
+
+  float accW[8][8];
+  zero_tn(accW);
+  const float ones[4] = {1.f, 1.f, 1.f, 1.f};
+
+  auto flush = [&](int count) {
+    __syncthreads();  // pending rows (and W_s) written
+    for (int i = threadIdx.x; i < EB * (C / 4); i += NT) {
+      const int e = i / (C / 4), c4 = (i % (C / 4)) * 4;
+      float4 a = zero4(), b = zero4();
+      if (e < count) {
+        a = load4<T>(feat + (long)pv_s[e] * C + c4);
+        b = load4<T>(g + (long)pu_s[e] * C + c4);
+      }
+      *reinterpret_cast<float4*>(A_s + e * LDA + c4) = a;
+      *reinterpret_cast<float4*>(B_s + e * LDA + c4) = b;
+    }
+    __syncthreads();
+    mm_tn(A_s, B_s, EB, accW);  // dW_r += feat[v]ᵀ g[u]
+    float acc[4][8];
+    zero_acc(acc);
+    mm_64x128(B_s, 0, ones, W_s, acc);  // d_gath = g[u] @ W_rᵀ
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = mm_row(i);
+      if (e < count) {
+        T* row = d_gath + (long)ps_s[e] * C;
+        store4<T>(row + mm_col(0), make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+        store4<T>(row + mm_col(4), make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
+      }
+    }
+  };
+
+  int fill = 0;
+  for (int kk = blockIdx.x; kk < nc; kk += gridDim.x) {
+    const long base_d = (long)dwin[kk] * sd, base_s = (long)swin[kk] * ss;
+    for (int h = 0; h < chunk; h += EB) {
+      bool sel = false;
+      int slot = -1, u = -1, v = -1;
+      if (threadIdx.x < EB && h + threadIdx.x < chunk) {
+        slot = kk * chunk + h + threadIdx.x;
+        int lu;
+        sel = slot_edge(idx, slot, base_d, base_s, sd, ss, n, num_rel, &lu, &v) == r;
+        u = (int)(base_d + lu);
+      }
+      fill = compact(sel, slot, u, v, ps_s, pu_s, pv_s, cnt_s, fill);
+      if (fill >= EB) {
+        flush(EB);
+        fill = drop_flushed(ps_s, pu_s, pv_s, fill);
+      }
+    }
+  }
+  if (fill > 0) flush(fill);
+  store_tn(part + ((long)blockIdx.x * num_rel + r) * C * C, accW, false);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+pair_agg_bwd_s_kernel(const T* __restrict__ d_gath, const int* __restrict__ idx,
+                      const int* __restrict__ meta, T* __restrict__ dfeat, int nc, int chunk,
+                      int sd, int ss, int n, int num_rel) {
+  const int* dwin = meta;
+  const int* sperm = meta + 3 * nc;
+  const int* sswin = meta + 4 * nc;
+  const int* sfirst = meta + 5 * nc;
+  const int i0 = blockIdx.x;
+  if (sfirst[i0] != 1) return;
+  int i_end = i0 + 1;
+  while (i_end < nc && sfirst[i_end] != 1) ++i_end;
+
+  extern __shared__ float4 smem4[];
+  float* acc_s = reinterpret_cast<float*>(smem4);  // [ss][SLICE]
+  for (int i = threadIdx.x; i < ss * SLICE; i += NT) acc_s[i] = 0.f;
+  __syncthreads();
+  const long base_s = (long)sswin[i0] * ss;
+  const int cs = blockIdx.y * SLICE;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // Slot order; warp w owns the window rows ≡ w (mod 8), lane = channel.
+  for (int i = i0; i < i_end; ++i) {
+    const int kk = sperm[i];
+    const long base_d = (long)dwin[kk] * sd;
+    for (int e0 = 0; e0 < chunk; e0 += 8) {
+      int vv[8];
+      float val[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        vv[q] = -1;
+        val[q] = 0.f;
+        if (e0 + q < chunk) {
+          const long slot = (long)kk * chunk + e0 + q;
+          int lu, v;
+          if (slot_edge(idx, slot, base_d, base_s, sd, ss, n, num_rel, &lu, &v) >= 0 &&
+              (v - base_s) % (NT / 32) == warp) {
+            vv[q] = (int)(v - base_s);
+            val[q] = to_f<T>(d_gath[slot * C + cs + lane]);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (vv[q] >= 0) acc_s[vv[q] * SLICE + lane] += val[q];
+    }
+  }
+  __syncthreads();
+  const int rows_s = (int)min((long)ss, (long)n - base_s);
+  for (int i = threadIdx.x; i < rows_s * SLICE; i += NT) {
+    dfeat[(base_s + i / SLICE) * C + cs + i % SLICE] = from_f<T>(acc_s[i]);
+  }
+}
+
+inline int fwd_smem(int sd) {
+  return (sd * SLICE + EB * LDA + C * SLICE + EB * MLD) * (int)sizeof(float) +
+         (4 * EB + 3) * (int)sizeof(int);
+}
+
+template <typename T>
+int launch_fwd(const void* feat, const void* temp, const void* w_rel, const int* idx,
+               const int* meta, void* out, int nc, int chunk, int sd, int ss, int n, int num_rel,
+               cudaStream_t stream) {
+  const int smem = fwd_smem(sd);
+  cudaError_t err = set_smem((const void*)pair_agg_fwd_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (nc > 0) {
+    pair_agg_fwd_kernel<T><<<dim3(nc, C / SLICE), NT, smem, stream>>>(
+        (const T*)feat, (const T*)temp, (const T*)w_rel, idx, meta, (T*)out, nc, chunk, sd, ss,
+        n, num_rel);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_d(const void* feat, const void* g, const void* w_rel_t, const int* idx,
+                 const int* meta, void* d_gath, float* part, float* dw, int nc, int chunk,
+                 int sd, int ss, int n, int num_rel, int splits, cudaStream_t stream) {
+  const int smem = (2 * EB * LDA + C * C) * (int)sizeof(float) + (6 * EB + 2) * (int)sizeof(int);
+  cudaError_t err = set_smem((const void*)pair_agg_bwd_d_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (splits > 0 && num_rel > 0) {
+    pair_agg_bwd_d_kernel<T><<<dim3(splits, num_rel), NT, smem, stream>>>(
+        (const T*)feat, (const T*)g, (const T*)w_rel_t, idx, meta, (T*)d_gath, part, nc, chunk,
+        sd, ss, n, num_rel);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)reduce_partials(part, dw, splits, (long)num_rel * C * C, stream);
+}
+
+template <typename T>
+int launch_bwd_s(const void* d_gath, const int* idx, const int* meta, void* dfeat, int nc,
+                 int chunk, int sd, int ss, int n, int num_rel, cudaStream_t stream) {
+  const int smem = ss * SLICE * (int)sizeof(float);
+  cudaError_t err = set_smem((const void*)pair_agg_bwd_s_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (nc > 0) {
+    pair_agg_bwd_s_kernel<T><<<dim3(nc, C / SLICE), NT, smem, stream>>>(
+        (const T*)d_gath, idx, meta, (T*)dfeat, nc, chunk, sd, ss, n, num_rel);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (feat, temp, w_rel [R, C, C] (in, out),
+// out); idx int32 [nc*chunk, 3] (lu, lv, rel; -1 padding); meta int32
+// [6, nc] (dwin, swin, first, sperm, sswin, sfirst); feat/temp/out [n, 128]
+// with sd = ss (the node stride); out holds temp on entry (untouched windows
+// keep it).
+extern "C" int pair_agg_fwd(const void* feat, const void* temp, const void* w_rel,
+                            const void* idx, const void* meta, void* out, int nc, int chunk,
+                            int sd, int ss, int n, int num_rel, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int *ix = (const int*)idx, *mt = (const int*)meta;
+  if (num_rel > 32) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_fwd<float>(feat, temp, w_rel, ix, mt, out, nc, chunk, sd, ss, n, num_rel, st);
+  if (dtype == 1)
+    return launch_fwd<bf16>(feat, temp, w_rel, ix, mt, out, nc, chunk, sd, ss, n, num_rel, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Destination pass of the backward. g: the output cotangent in feat's dtype;
+// w_rel_t: [R, C, C] with each relation's weight transposed, in feat's dtype;
+// d_gath [nc*chunk, 128] in feat's dtype, zero on entry; part: splits * R *
+// C*C fp32 workspace; dw: fp32 [R, C, C] (in, out), the partials' sum.
+extern "C" int pair_agg_bwd_d(const void* feat, const void* g, const void* w_rel_t,
+                              const void* idx, const void* meta, void* d_gath, void* part,
+                              void* dw, int nc, int chunk, int sd, int ss, int n, int num_rel,
+                              int splits, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int *ix = (const int*)idx, *mt = (const int*)meta;
+  float *pt = (float*)part, *w = (float*)dw;
+  if (dtype == 0)
+    return launch_bwd_d<float>(feat, g, w_rel_t, ix, mt, d_gath, pt, w, nc, chunk, sd, ss, n,
+                               num_rel, splits, st);
+  if (dtype == 1)
+    return launch_bwd_d<bf16>(feat, g, w_rel_t, ix, mt, d_gath, pt, w, nc, chunk, sd, ss, n,
+                              num_rel, splits, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Source pass of the backward: dfeat [n, 128] in feat's dtype, zero on entry.
+extern "C" int pair_agg_bwd_s(const void* d_gath, const void* idx, const void* meta,
+                              void* dfeat, int nc, int chunk, int sd, int ss, int n, int num_rel,
+                              int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int *ix = (const int*)idx, *mt = (const int*)meta;
+  if (dtype == 0)
+    return launch_bwd_s<float>(d_gath, ix, mt, dfeat, nc, chunk, sd, ss, n, num_rel, st);
+  if (dtype == 1)
+    return launch_bwd_s<bf16>(d_gath, ix, mt, dfeat, nc, chunk, sd, ss, n, num_rel, st);
+  return (int)cudaErrorInvalidValue;
+}

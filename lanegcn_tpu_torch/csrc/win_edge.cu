@@ -52,157 +52,15 @@
 // A2M and M2A, operation-bound for A2A (the saved slots are traffic of this
 // two-pass design, on top of that bound); on the CUDA cores used here the
 // products dominate. M2A has only 32 destination windows, so only 32 blocks
-// run its destination pass.
-#include "common.cuh"
+// run its destination pass. The chain itself, forward and backward, is
+// edge_chain.cuh's, shared with edge_mlp.cu.
+#include "edge_chain.cuh"
 
 using namespace lgk;
 
 namespace {
 
 constexpr int EB = 64;  // edges per step
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-win_edge_kernel(const T* __restrict__ pd, const T* __restrict__ qd, const T* __restrict__ ps,
-                const T* __restrict__ cs, const T* __restrict__ temp,
-                const float* __restrict__ bd, const T* __restrict__ kdo,
-                const float* __restrict__ gdow, const float* __restrict__ gdob,
-                const T* __restrict__ k1, const float* __restrict__ gchw,
-                const float* __restrict__ gchb, const T* __restrict__ kout,
-                const int* __restrict__ idx, const int* __restrict__ meta, float* acc,
-                T* out, int write_out, int nc, int chunk, int sd, int ss, int icol, int nd,
-                int ns, float eps) {
-  const int* dwin = meta;
-  const int* swin = meta + nc;
-  const int* first = meta + 2 * nc;
-  const int k = blockIdx.x;
-  if (first[k] != 1) return;
-  int k_end = k + 1;
-  while (k_end < nc && first[k_end] != 1) ++k_end;
-
-  extern __shared__ float4 smem4[];
-  float* A_s = reinterpret_cast<float*>(smem4);  // [EB][LDA]
-  float* W_s = A_s + EB * LDA;                   // [C][C]
-  int* lu_s = reinterpret_cast<int*>(W_s + C * C);
-  int* lv_s = lu_s + EB;
-  int* any_s = lv_s + EB;
-
-  const long base_d = (long)dwin[k] * sd;
-  const int rows_d = (int)min((long)sd, (long)nd - base_d);
-  for (int i = threadIdx.x; i < rows_d * (C / 4); i += NT) {
-    const long o = (base_d + i / (C / 4)) * C + (i % (C / 4)) * 4;
-    *reinterpret_cast<float4*>(acc + o) = load4<T>(temp + o);
-  }
-
-  const float ones[4] = {1.f, 1.f, 1.f, 1.f};
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float mm[4][8];
-
-  for (int kk = k; kk < k_end; ++kk) {
-    const long base_s = (long)swin[kk] * ss;
-    for (int h = 0; h * EB < chunk; ++h) {
-      __syncthreads();  // previous step done with lu_s / A_s / W_s (and acc init visible)
-      if (threadIdx.x == 0) *any_s = 0;
-      __syncthreads();
-      if (threadIdx.x < EB) {
-        int u = -1, v = -1;
-        if (h * EB + threadIdx.x < chunk) {
-          const long e = (long)kk * chunk + h * EB + threadIdx.x;
-          u = idx[e * icol];
-          v = idx[e * icol + 1];
-        }
-        const bool ok = u >= 0 && u < sd && v >= 0 && v < ss && base_d + u < nd &&
-                        base_s + v < ns;
-        lu_s[threadIdx.x] = ok ? u : -1;
-        lv_s[threadIdx.x] = ok ? v : -1;
-        if (ok) *any_s = 1;
-      }
-      __syncthreads();
-      if (*any_s == 0) continue;
-
-      // t1 = relu(Pd[u] + Ps[v] + bd), rounded.
-      for (int i = threadIdx.x; i < EB * (C / 4); i += NT) {
-        const int r = i / (C / 4), c4 = (i % (C / 4)) * 4;
-        float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (lu_s[r] >= 0) {
-          const float4 a = load4<T>(pd + (base_d + lu_s[r]) * C + c4);
-          const float4 b = load4<T>(ps + (base_s + lv_s[r]) * C + c4);
-          const float4 bb = *reinterpret_cast<const float4*>(bd + c4);
-          t = rnd4<T>(relu4(add4(add4(a, b), bb)));
-        }
-        *reinterpret_cast<float4*>(A_s + r * LDA + c4) = t;
-      }
-      load_weight<T>(W_s, kdo);
-      __syncthreads();
-      zero_acc(mm);
-      mm_64x128(A_s, 0, ones, W_s, mm);
-      __syncthreads();
-      store_acc(A_s, mm);
-      __syncthreads();
-      gn_relu_rows<T>(A_s, EB, gdow, gdob, eps);  // t2
-      load_weight<T>(W_s, k1);
-      __syncthreads();
-      zero_acc(mm);
-      mm_64x128(A_s, 0, ones, W_s, mm);
-      __syncthreads();
-      store_acc(A_s, mm);
-      __syncthreads();
-      // s = t2 @ K1 + Cs[v] + Qd[u];  e1 = relu(GN(s)), rounded.
-      for (int r = warp; r < EB; r += NT / 32) {
-        float* p = A_s + r * LDA + lane * 4;
-        float4 s = *reinterpret_cast<float4*>(p);
-        if (lu_s[r] >= 0) {
-          s = add4(s, load4<T>(cs + (base_s + lv_s[r]) * C + lane * 4));
-          s = add4(s, load4<T>(qd + (base_d + lu_s[r]) * C + lane * 4));
-        }
-        *reinterpret_cast<float4*>(p) = rnd4<T>(relu4(gn_row(s, gchw, gchb, eps)));
-      }
-      load_weight<T>(W_s, kout);
-      __syncthreads();
-      zero_acc(mm);
-      mm_64x128(A_s, 0, ones, W_s, mm);  // e2 = e1 @ Wout
-      __syncthreads();
-      store_acc(A_s, mm);
-      __syncthreads();
-      // Destination scatter in edge order, one thread per channel.
-      if (threadIdx.x < C) {
-        for (int r = 0; r < EB; ++r) {
-          const int u = lu_s[r];
-          if (u >= 0) acc[(base_d + u) * C + threadIdx.x] += A_s[r * LDA + threadIdx.x];
-        }
-      }
-    }
-  }
-  __syncthreads();
-  if (write_out) {
-    for (int i = threadIdx.x; i < rows_d * (C / 4); i += NT) {
-      const long o = (base_d + i / (C / 4)) * C + (i % (C / 4)) * 4;
-      store4<T>(out + o, *reinterpret_cast<const float4*>(acc + o));
-    }
-  }
-}
-
-template <typename T>
-int launch(const void* pd, const void* qd, const void* ps, const void* cs, const void* temp,
-           const float* bd, const void* kdo, const float* gdow, const float* gdob,
-           const void* k1, const float* gchw, const float* gchb, const void* kout,
-           const int* idx, const int* meta, float* acc, void* out, int write_out, int nc,
-           int chunk, int sd, int ss, int icol, int nd, int ns, float eps,
-           cudaStream_t stream) {
-  const int smem = (EB * LDA + C * C) * (int)sizeof(float) + (2 * EB + 4) * (int)sizeof(int);
-  cudaError_t err = set_smem((const void*)win_edge_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (nc > 0) {
-    win_edge_kernel<T><<<nc, NT, smem, stream>>>(
-        (const T*)pd, (const T*)qd, (const T*)ps, (const T*)cs, (const T*)temp, bd,
-        (const T*)kdo, gdow, gdob, (const T*)k1, gchw, gchb, (const T*)kout, idx, meta, acc,
-        (T*)out, write_out, nc, chunk, sd, ss, icol, nd, ns, eps);
-  }
-  return (int)cudaGetLastError();
-}
-
-constexpr int WE_PART = 3 * C * C + 5 * C;  // dWdo, dK1, dWout, dbd, dgdow, dgdob, dgchw, dgchb
-constexpr int SL = 32;                       // channels per source-pass block
 
 // Reads slot lu/lv of one 64-edge step into lu_s/lv_s (-1 where invalid);
 // returns whether any edge of the step is valid. Ends with a barrier.
@@ -260,6 +118,96 @@ __device__ __forceinline__ void scatter_rows(float* acc_out, const float* X_s, c
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
+win_edge_kernel(const T* __restrict__ pd, const T* __restrict__ qd, const T* __restrict__ ps,
+                const T* __restrict__ cs, const T* __restrict__ temp,
+                const float* __restrict__ bd, const T* __restrict__ kdo,
+                const float* __restrict__ gdow, const float* __restrict__ gdob,
+                const T* __restrict__ k1, const float* __restrict__ gchw,
+                const float* __restrict__ gchb, const T* __restrict__ kout,
+                const int* __restrict__ idx, const int* __restrict__ meta, float* acc,
+                T* out, int write_out, int nc, int chunk, int sd, int ss, int icol, int nd,
+                int ns, float eps) {
+  const int* dwin = meta;
+  const int* swin = meta + nc;
+  const int* first = meta + 2 * nc;
+  const int k = blockIdx.x;
+  if (first[k] != 1) return;
+  int k_end = k + 1;
+  while (k_end < nc && first[k_end] != 1) ++k_end;
+
+  extern __shared__ float4 smem4[];
+  float* A_s = reinterpret_cast<float*>(smem4);  // [EB][LDA]
+  float* W_s = A_s + EB * LDA;                   // [C][C]
+  int* lu_s = reinterpret_cast<int*>(W_s + C * C);
+  int* lv_s = lu_s + EB;
+  int* any_s = lv_s + EB;
+
+  const long base_d = (long)dwin[k] * sd;
+  const int rows_d = (int)min((long)sd, (long)nd - base_d);
+  for (int i = threadIdx.x; i < rows_d * (C / 4); i += NT) {
+    const long o = (base_d + i / (C / 4)) * C + (i % (C / 4)) * 4;
+    *reinterpret_cast<float4*>(acc + o) = load4<T>(temp + o);
+  }
+
+  const Chain<T> w{kdo, gdow, gdob, k1, gchw, gchb, kout, eps};
+  const int lane = threadIdx.x & 31;
+  float mm[4][8];
+
+  for (int kk = k; kk < k_end; ++kk) {
+    const long base_s = (long)swin[kk] * ss;
+    // s += Cs[v] + Qd[u]
+    auto qc = [&](int r, float4 s) {
+      if (lu_s[r] >= 0) {
+        s = add4(s, load4<T>(cs + (base_s + lv_s[r]) * C + lane * 4));
+        s = add4(s, load4<T>(qd + (base_d + lu_s[r]) * C + lane * 4));
+      }
+      return s;
+    };
+    for (int h = 0; h * EB < chunk; ++h) {
+      // (the first barrier also makes the acc init visible)
+      if (!load_step(idx, lu_s, lv_s, any_s, kk, h, chunk, icol, sd, ss, base_d, base_s, nd, ns))
+        continue;
+      gather_t1<T>(A_s, lu_s, lv_s, pd, ps, bd, base_d, base_s);  // t1
+      chain_fwd<T>(A_s, W_s, w, qc, mm);                          // e2 = e1 @ Wout
+      __syncthreads();
+      store_acc(A_s, mm);
+      __syncthreads();
+      scatter_rows(acc, A_s, lu_s, base_d);  // out[u] += e2, in edge order
+    }
+  }
+  __syncthreads();
+  if (write_out) {
+    for (int i = threadIdx.x; i < rows_d * (C / 4); i += NT) {
+      const long o = (base_d + i / (C / 4)) * C + (i % (C / 4)) * 4;
+      store4<T>(out + o, *reinterpret_cast<const float4*>(acc + o));
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* pd, const void* qd, const void* ps, const void* cs, const void* temp,
+           const float* bd, const void* kdo, const float* gdow, const float* gdob,
+           const void* k1, const float* gchw, const float* gchb, const void* kout,
+           const int* idx, const int* meta, float* acc, void* out, int write_out, int nc,
+           int chunk, int sd, int ss, int icol, int nd, int ns, float eps,
+           cudaStream_t stream) {
+  const int smem = (EB * LDA + C * C) * (int)sizeof(float) + (2 * EB + 4) * (int)sizeof(int);
+  cudaError_t err = set_smem((const void*)win_edge_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (nc > 0) {
+    win_edge_kernel<T><<<nc, NT, smem, stream>>>(
+        (const T*)pd, (const T*)qd, (const T*)ps, (const T*)cs, (const T*)temp, bd,
+        (const T*)kdo, gdow, gdob, (const T*)k1, gchw, gchb, (const T*)kout, idx, meta, acc,
+        (T*)out, write_out, nc, chunk, sd, ss, icol, nd, ns, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
+constexpr int WE_PART = 3 * C * C + 5 * C;  // dWdo, dK1, dWout, dbd, dgdow, dgdob, dgchw, dgchb
+constexpr int SL = 32;                       // channels per source-pass block
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
 win_edge_bwd_d_kernel(const T* __restrict__ pd, const T* __restrict__ qd,
                       const T* __restrict__ ps, const T* __restrict__ cs,
                       const T* __restrict__ g, const float* __restrict__ bd,
@@ -292,135 +240,34 @@ win_edge_bwd_d_kernel(const T* __restrict__ pd, const T* __restrict__ qd,
 
   const long base_d = (long)dwin[k] * sd;
   float* P = part + (long)dwin[k] * WE_PART;  // this run's own slice (zeroed)
-  const float ones[4] = {1.f, 1.f, 1.f, 1.f};
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float4 vbd = zero4(), vdow = zero4(), vdob = zero4(), vchw = zero4(), vchb = zero4();
-  float mm[4][8];
-  float tw[8][8];
+  const Chain<T> w{kdo, gdow, gdob, k1, gchw, gchb, kout, eps};
+  const int lane = threadIdx.x & 31;
+  float4 vecs[5] = {zero4(), zero4(), zero4(), zero4(), zero4()};  // dbd, dgdow, dgdob, dgchw, dgchb
 
   for (int kk = k; kk < k_end; ++kk) {
     const long base_s = (long)swin[kk] * ss;
     for (int h = 0; h * EB < chunk; ++h) {
       if (!load_step(idx, lu_s, lv_s, any_s, kk, h, chunk, icol, sd, ss, base_d, base_s, nd, ns))
         continue;
-      // --- forward recompute ---
-      gather_t1<T>(A_s, lu_s, lv_s, pd, ps, bd, base_d, base_s);  // A = t1
-      load_weight<T>(W_s, kdo);
-      __syncthreads();
-      zero_acc(mm);
-      mm_64x128(A_s, 0, ones, W_s, mm);  // z = t1 @ Wdo
-      store_acc(B_s, mm);
-      __syncthreads();
-      for (int r = warp; r < EB; r += NT / 32) {  // B = nrm_z, C = t2
-        float4* pb = reinterpret_cast<float4*>(B_s + r * LDA + lane * 4);
-        const float2 st = gn_stats(*pb, eps);
-        const float4 nrm = gn_nrm(*pb, st);
-        *pb = nrm;
-        *reinterpret_cast<float4*>(C_s + r * LDA + lane * 4) =
-            rnd4<T>(relu4(gn_affine(nrm, gdow, gdob)));
-        if (lane == 0) st_s[2 * r] = st.y;
-      }
-      load_weight<T>(W_s, k1);
-      __syncthreads();
-      zero_acc(mm);
-      mm_64x128(C_s, 0, ones, W_s, mm);  // t2 @ K1
-      store_acc(A_s, mm);                 // t1 is regathered at the end
-      __syncthreads();
-      for (int r = warp; r < EB; r += NT / 32) {  // A = nrm_s, D = e1, C = d_e2 = g[u]
-        float4* pa = reinterpret_cast<float4*>(A_s + r * LDA + lane * 4);
-        float4 sv = *pa;
-        const int u = lu_s[r];
-        if (u >= 0) {
-          sv = add4(sv, load4<T>(cs + (base_s + lv_s[r]) * C + lane * 4));
-          sv = add4(sv, load4<T>(qd + (base_d + u) * C + lane * 4));
-        }
-        const float2 st = gn_stats(sv, eps);
-        const float4 nrm = gn_nrm(sv, st);
-        *pa = nrm;
-        *reinterpret_cast<float4*>(D_s + r * LDA + lane * 4) =
-            rnd4<T>(relu4(gn_affine(nrm, gchw, gchb)));
-        *reinterpret_cast<float4*>(C_s + r * LDA + lane * 4) =
-            u >= 0 ? load4<T>(g + (base_d + u) * C + lane * 4) : zero4();
-        if (lane == 0) st_s[2 * r + 1] = st.y;
-      }
-      load_weight_t<T>(W_s, kout);
-      __syncthreads();
-      // --- backward ---
-      zero_acc(mm);
-      mm_64x128(C_s, 0, ones, W_s, mm);  // d_e1 = d_e2 @ Woutᵀ
-      zero_tn(tw);
-      mm_tn(D_s, C_s, EB, tw);           // dWout += e1ᵀ d_e2
-      store_tn(P + 2 * C * C, tw, true);
-      __syncthreads();
-      store_acc(D_s, mm);
-      __syncthreads();
-      for (int r = warp; r < EB; r += NT / 32) {  // C = rnd(d_s), D = t2
-        const float4 nrm = *reinterpret_cast<const float4*>(A_s + r * LDA + lane * 4);
-        float4* pd_ = reinterpret_cast<float4*>(D_s + r * LDA + lane * 4);
-        const float4 e1 = rnd4<T>(relu4(gn_affine(nrm, gchw, gchb)));
-        const float4 dgn = pos_mask4(*pd_, e1);
-        float4 ds = zero4();
-        if (lu_s[r] >= 0) {
-          vchw = add4(vchw, mul4(dgn, nrm));
-          vchb = add4(vchb, dgn);
-          ds = rnd4<T>(gn_bwd_row(dgn, nrm, st_s[2 * r + 1], gchw));
-          const long slot = (long)kk * chunk + h * EB + r;
-          store4<T>(ds_save + slot * C + lane * 4, ds);
-        }
-        *reinterpret_cast<float4*>(C_s + r * LDA + lane * 4) = ds;
-        const float4 nz = *reinterpret_cast<const float4*>(B_s + r * LDA + lane * 4);
-        *pd_ = rnd4<T>(relu4(gn_affine(nz, gdow, gdob)));
-      }
-      load_weight_t<T>(W_s, k1);
-      __syncthreads();
-      scatter_rows(acc_qd, C_s, lu_s, base_d);  // dQd[u] += rnd(d_s)
-      zero_acc(mm);
-      mm_64x128(C_s, 0, ones, W_s, mm);  // d_t2 = rnd(d_s) @ K1ᵀ
-      zero_tn(tw);
-      mm_tn(D_s, C_s, EB, tw);           // dK1 += t2ᵀ rnd(d_s)
-      store_tn(P + C * C, tw, true);
-      __syncthreads();
-      store_acc(A_s, mm);
-      __syncthreads();
-      for (int r = warp; r < EB; r += NT / 32) {  // C = rnd(d_z), D = t1
-        const float4 t2 = *reinterpret_cast<const float4*>(D_s + r * LDA + lane * 4);
-        const float4 nz = *reinterpret_cast<const float4*>(B_s + r * LDA + lane * 4);
-        const float4 dgn = pos_mask4(*reinterpret_cast<const float4*>(A_s + r * LDA + lane * 4), t2);
-        float4 dz = zero4();
-        if (lu_s[r] >= 0) {
-          vdow = add4(vdow, mul4(dgn, nz));
-          vdob = add4(vdob, dgn);
-          dz = rnd4<T>(gn_bwd_row(dgn, nz, st_s[2 * r], gdow));
-        }
-        *reinterpret_cast<float4*>(C_s + r * LDA + lane * 4) = dz;
-      }
-      __syncthreads();
-      gather_t1<T>(D_s, lu_s, lv_s, pd, ps, bd, base_d, base_s);
-      load_weight_t<T>(W_s, kdo);
-      __syncthreads();
-      zero_acc(mm);
-      mm_64x128(C_s, 0, ones, W_s, mm);  // d_t1 = rnd(d_z) @ Wdoᵀ
-      zero_tn(tw);
-      mm_tn(D_s, C_s, EB, tw);           // dWdo += t1ᵀ rnd(d_z)
-      store_tn(P, tw, true);
-      __syncthreads();
-      store_acc(A_s, mm);
-      __syncthreads();
-      for (int r = warp; r < EB; r += NT / 32) {  // A = rnd(d_t1p)
-        float4* pa = reinterpret_cast<float4*>(A_s + r * LDA + lane * 4);
-        const float4 t1 = *reinterpret_cast<const float4*>(D_s + r * LDA + lane * 4);
-        float4 d1 = zero4();
-        if (lu_s[r] >= 0) {
-          const float4 d_t1p = pos_mask4(*pa, t1);
-          vbd = add4(vbd, d_t1p);
-          d1 = rnd4<T>(d_t1p);
-          const long slot = (long)kk * chunk + h * EB + r;
-          store4<T>(dt1_save + slot * C + lane * 4, d1);
-        }
-        *pa = d1;
-      }
-      __syncthreads();
-      scatter_rows(acc_pd, A_s, lu_s, base_d);  // dPd[u] += rnd(d_t1p)
+      const long slot0 = (long)kk * chunk + h * EB;
+      chain_bwd<T>(
+          A_s, B_s, C_s, D_s, W_s, st_s, P, vecs, w,
+          [&](float* X_s) { gather_t1<T>(X_s, lu_s, lv_s, pd, ps, bd, base_d, base_s); },
+          [&](int r, float4 sv) {  // s += Cs[v] + Qd[u]
+            if (lu_s[r] >= 0) {
+              sv = add4(sv, load4<T>(cs + (base_s + lv_s[r]) * C + lane * 4));
+              sv = add4(sv, load4<T>(qd + (base_d + lu_s[r]) * C + lane * 4));
+            }
+            return sv;
+          },
+          [&](int r) {  // d_e2 = g[u]
+            return lu_s[r] >= 0 ? load4<T>(g + (base_d + lu_s[r]) * C + lane * 4) : zero4();
+          },
+          [&](int r) { return lu_s[r] >= 0; },
+          [&](int r, float4 ds) { store4<T>(ds_save + (slot0 + r) * C + lane * 4, ds); },
+          [&]() { scatter_rows(acc_qd, C_s, lu_s, base_d); },  // dQd[u] += rnd(d_s)
+          [&](int r, float4 d1) { store4<T>(dt1_save + (slot0 + r) * C + lane * 4, d1); },
+          [&]() { scatter_rows(acc_pd, A_s, lu_s, base_d); });  // dPd[u] += rnd(d_t1p)
     }
   }
   __syncthreads();
@@ -432,7 +279,6 @@ win_edge_bwd_d_kernel(const T* __restrict__ pd, const T* __restrict__ qd,
       store4<T>(dqd + o, *reinterpret_cast<const float4*>(acc_qd + o));
     }
   }
-  const float4 vecs[5] = {vbd, vdow, vdob, vchw, vchb};
   reduce_warp_vecs<5>(vecs, B_s, P + 3 * C * C);
 }
 

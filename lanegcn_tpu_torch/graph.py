@@ -76,6 +76,15 @@ class EdgeSet(_Tree):
     def capacity(self) -> int:
         return self.u.shape[0]
 
+    @property
+    def dst_sorted(self) -> bool:
+        """True iff the packer emitted the list destination-sorted (u
+        non-decreasing over the valid edges, padding last) with its
+        source-side inverse: inv_perm is the argsort of v over the valid
+        edges, inv_dst = v[inv_perm] with the source-row count as the
+        padding sentinel."""
+        return self.inv_perm is not None
+
     def num_valid(self):
         return self.mask.sum()
 
@@ -193,8 +202,11 @@ class LaneGraphBatch(_Tree):
     bands[nm][u] ⇔ intra-lane edge (u, u + band_shift(nm)) exists; `edges`
     holds the residue lists; plan_lu/plan_lv/plan_rel are the window edge
     plan ([W*ECAP, 1] int32 window-local rows, -1 padding) over plan_scen
-    windows. `tables`, `table_inv` and `spill_pair` mirror the JAX layout;
-    the port's model does not consume them yet.
+    windows. `tables[nm][u]` is the source row of u's neighbour in relation
+    nm (>= N: none) and `table_inv` their combined inverse (read by the JAX
+    package's table-gather backward; the port's `masked_gather` does not
+    need it); `spill_pair` is the window plan's residue as a
+    (dst-window, src-window) chunk-pair plan with a relation column.
     """
 
     ctrs: torch.Tensor  # [N, 2]

@@ -6,12 +6,21 @@ within a distance threshold, an edge MLP consumes the relative offset, a
 query projection of the destination and the source feature; edge outputs
 sum into the destination, followed by GN → ReLU → Linear → residual → ReLU.
 
-The port runs the window-pair branch of the JAX package: the distance
-embedding is affine in the endpoint centers (d@Wd = ctr_u@Wd − ctr_v@Wd),
-so every per-edge input folds into dense per-row projections and the
-gathers, the edge MLP and the destination scatter run in the `win_edge`
-kernel over the pack's window-pair plan; the tail runs in `row_tail`.
-The edge-list branches are not ported yet and raise NotImplementedError.
+The port runs the JAX package's two branches for n_agt == n_ctx, whichever
+the pack carries:
+- the window-pair branch: the distance embedding is affine in the endpoint
+  centers (d@Wd = ctr_u@Wd − ctr_v@Wd), so every per-edge input folds into
+  dense per-row projections and the gathers, the edge MLP and the
+  destination scatter run in the `win_edge` kernel over the pack's
+  window-pair plan;
+- the edge-list branch (flat fusion lists): the query and context
+  projections run densely per row and are gathered per edge
+  (`masked_gather`, which computes what the JAX package's
+  `sorted_transpose_gather` does), the per-edge chain runs in the
+  `edge_mlp` kernel, and its rows are added into their destinations by
+  `scatter_add`.
+Both end in the `row_tail` kernel. Att with n_agt != n_ctx is not ported
+yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -20,9 +29,11 @@ import torch
 from torch import nn
 
 from lanegcn_tpu_torch.config import ModelConfig
-from lanegcn_tpu_torch.graph import LaneGraphBatch, PairPlan
+from lanegcn_tpu_torch.graph import EdgeSet, LaneGraphBatch, PairPlan
 from lanegcn_tpu_torch.models.layers import Dense, GroupNorm, Linear
 from lanegcn_tpu_torch.models.map_net import LaneConvStack
+from lanegcn_tpu_torch.ops import masked_gather, scatter_add
+from lanegcn_tpu_torch.ops.edge_mlp import fused_edge_mlp
 from lanegcn_tpu_torch.ops.row_tail import fused_row_tail
 from lanegcn_tpu_torch.ops.win_edge import win_edge_mlp
 
@@ -45,11 +56,13 @@ class Att(nn.Module):
         self.norm = GroupNorm(n_agt)
         self.linear = Linear(n_agt, n_agt, act=False, dtype=dtype)
 
-    def forward(self, agts, agt_ctrs, ctx, ctx_ctrs, pair: PairPlan | None):
-        if pair is None or self.n_agt != self.n_ctx:
-            raise NotImplementedError(
-                "Att runs the window-pair branch only; pack with fusion_pairs=True "
-                "and actor_stride set")
+    def forward(self, agts, agt_ctrs, ctx, ctx_ctrs, pair: PairPlan | None,
+                edges: EdgeSet | None = None):
+        """agts [A, n_agt] (destinations), ctx [S, n_ctx] (sources), their
+        centers; `pair`, the window-pair plan of the fusion edges, or None
+        and `edges`, the same edges as a list (u → agts rows, v → ctx rows)."""
+        if self.n_agt != self.n_ctx:
+            raise NotImplementedError("Att with n_agt != n_ctx is not ported yet")
         res = agts
         c = self.n_ctx
         dt = self.dtype
@@ -58,18 +71,25 @@ class Att(nn.Module):
         kd, bd = dist_dense.kernel, dist_dense.bias
         k_ch = ctx_hidden.linear.kernel  # [3C, C]: dist | query | ctx segments
         query_all = self.query(agts)
-        # Sign folding: Pd = ctr_u@Wd, Ps = −ctr_v@Wd; bd is added once per edge.
-        pd = agt_ctrs.to(dt) @ kd.to(dt)
-        ps = -(ctx_ctrs.to(dt) @ kd.to(dt))
         qd = query_all.to(dt) @ k_ch[c : 2 * c].to(dt)
         cs = ctx.to(dt) @ k_ch[2 * c :].to(dt)
         temp = self.agt(agts)
-        agts = win_edge_mlp(
-            pd.contiguous(), qd.contiguous(), ps.contiguous(), cs.contiguous(),
-            temp.to(dt).contiguous(), bd, dist_out.linear.kernel, dist_out.norm.weight,
-            dist_out.norm.bias, k_ch[:c], ctx_hidden.norm.weight, ctx_hidden.norm.bias,
-            ctx_out.kernel, pair,
-        )
+        chain = (dist_out.linear.kernel, dist_out.norm.weight, dist_out.norm.bias, k_ch[:c],
+                 ctx_hidden.norm.weight, ctx_hidden.norm.bias, ctx_out.kernel)
+        if pair is not None:
+            # Sign folding: Pd = ctr_u@Wd, Ps = −ctr_v@Wd; bd is added once per edge.
+            pd = agt_ctrs.to(dt) @ kd.to(dt)
+            ps = -(ctx_ctrs.to(dt) @ kd.to(dt))
+            agts = win_edge_mlp(pd.contiguous(), qd.contiguous(), ps.contiguous(),
+                                cs.contiguous(), temp.to(dt).contiguous(), bd, *chain, pair)
+        else:
+            u, v, mask = edges.u, edges.v, edges.mask
+            # The centre offset per edge (centers are data: no gradient).
+            d = masked_gather(agt_ctrs, u, mask) - masked_gather(ctx_ctrs, v, mask)
+            qg = masked_gather(qd, u, mask)
+            cg = masked_gather(cs, v, mask)
+            edge_out = fused_edge_mlp(d.float(), qg.to(dt), cg.to(dt), kd, bd, *chain)
+            agts = scatter_add(edge_out, u, agts.shape[0], mask=mask, out=temp)
         return fused_row_tail(
             agts.to(dt).contiguous(), res.to(dt).contiguous(), self.linear.linear.kernel,
             self.norm.weight, self.norm.bias, self.linear.norm.weight, self.linear.norm.bias,
@@ -85,12 +105,12 @@ class A2M(nn.Module):
         self.att = nn.ModuleList(
             [Att(cfg.n_map, cfg.n_actor, dtype=dtype) for _ in range(cfg.num_att_layers)])
 
-    def forward(self, nodes, graph: LaneGraphBatch, actors, actor_ctrs, pair):
+    def forward(self, nodes, graph: LaneGraphBatch, actors, actor_ctrs, edges: EdgeSet, pair):
         meta = torch.cat(
             [graph.turn, graph.control[:, None], graph.intersect[:, None]], dim=-1)
         nodes = self.meta(torch.cat([nodes, meta.to(nodes.dtype)], dim=-1))
         for att in self.att:
-            nodes = att(nodes, graph.ctrs, actors, actor_ctrs, pair)
+            nodes = att(nodes, graph.ctrs, actors, actor_ctrs, pair, edges)
         return nodes
 
 
@@ -114,9 +134,9 @@ class M2A(nn.Module):
         self.att = nn.ModuleList(
             [Att(cfg.n_actor, cfg.n_map, dtype=dtype) for _ in range(cfg.num_att_layers)])
 
-    def forward(self, actors, actor_ctrs, nodes, node_ctrs, pair):
+    def forward(self, actors, actor_ctrs, nodes, node_ctrs, edges: EdgeSet, pair):
         for att in self.att:
-            actors = att(actors, actor_ctrs, nodes, node_ctrs, pair)
+            actors = att(actors, actor_ctrs, nodes, node_ctrs, pair, edges)
         return actors
 
 
@@ -128,7 +148,7 @@ class A2A(nn.Module):
         self.att = nn.ModuleList(
             [Att(cfg.n_actor, cfg.n_actor, dtype=dtype) for _ in range(cfg.num_att_layers)])
 
-    def forward(self, actors, actor_ctrs, pair):
+    def forward(self, actors, actor_ctrs, edges: EdgeSet, pair):
         for att in self.att:
-            actors = att(actors, actor_ctrs, actors, actor_ctrs, pair)
+            actors = att(actors, actor_ctrs, actors, actor_ctrs, pair, edges)
         return actors

@@ -54,10 +54,11 @@ class LaneGCN(nn.Module):
         actor_ctrs = batch.actors.ctrs
         actors = self.actor_net(batch.actors.feats.to(self.dtype))
         nodes = self.map_net(batch.graph)
-        nodes = self.a2m(nodes, batch.graph, actors, actor_ctrs, batch.fusion.pair_a2m)
+        fus = batch.fusion
+        nodes = self.a2m(nodes, batch.graph, actors, actor_ctrs, fus.a2m, fus.pair_a2m)
         nodes = self.m2m(nodes, batch.graph)
-        actors = self.m2a(actors, actor_ctrs, nodes, batch.graph.ctrs, batch.fusion.pair_m2a)
-        actors = self.a2a(actors, actor_ctrs, batch.fusion.pair_a2a)
+        actors = self.m2a(actors, actor_ctrs, nodes, batch.graph.ctrs, fus.m2a, fus.pair_m2a)
+        actors = self.a2a(actors, actor_ctrs, fus.a2a, fus.pair_a2a)
         cls, reg = self.pred_net(actors, actor_ctrs)
         # Agent frame → world frame: w = a @ R + orig (reference lanegcn.py:146-150).
         rot = batch.rot[batch.actors.scen]

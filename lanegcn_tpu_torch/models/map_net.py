@@ -5,16 +5,21 @@ Per node u and layer:
     temp[u] = W_ctr x[u] + Σ_{r ∈ pre0..5, suc0..5, left, right} Σ_{(u,v) ∈ E_r} W_r x[v]
     x' = relu(GN(temp));  x'' = relu(Linear(x') + res)
 
-The port runs the windowed-pack formulation of the JAX package:
+The port runs the JAX package's formulation, in its order, for whatever
+the pack carries:
+- the neighbour tables (left/right of the contiguous layout): one stacked
+  row gather (`masked_gather`, which computes what the JAX package's
+  `stacked_table_gather` does) and one relation-contracting einsum;
+- the residue lists: masked_gather → per-relation matmul → one scatter_add;
+- the window plan's edges (both endpoints in one node window): the
+  `scenario_agg` kernel;
+- the spill plan (the window plan's residue as (dst-window, src-window)
+  chunk pairs): the `pair_agg` kernel;
 - the intra-lane band edges (v = u + 2^s, the pack's band masks) and the
-  whole layer tail go through the fused `lane_layer` kernel;
-- the window plan's edges (both endpoints in one node window) go through
-  the `scenario_agg` kernel;
-- the residue lists (cross-window and over-budget edges) go through
-  masked_gather → per-relation matmul → one scatter_add.
+  whole layer tail: the fused `lane_layer` kernel.
 
-Neighbor tables and the spill pair plan are other pack layouts, not ported
-yet: a pack that carries them raises NotImplementedError.
+Packs without band masks (split_bands=False) are not ported yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from lanegcn_tpu_torch.graph import EdgeSet, LaneGraphBatch
 from lanegcn_tpu_torch.models.layers import Dense, GroupNorm, Linear
 from lanegcn_tpu_torch.ops import masked_gather, scatter_add
 from lanegcn_tpu_torch.ops.lane_layer import fused_lane_layer
+from lanegcn_tpu_torch.ops.pair_agg import pair_aggregate
 from lanegcn_tpu_torch.ops.scenario_agg import GROUPED_MIN_CAP, scenario_aggregate
 
 
@@ -53,10 +59,6 @@ class LaneConvStack(nn.ModuleDict):
         self.names = names
 
     def forward(self, feat: torch.Tensor, graph: LaneGraphBatch) -> torch.Tensor:
-        if graph.tables or graph.spill_pair is not None:
-            raise NotImplementedError(
-                "neighbor tables and the spill pair plan are not ported yet; pack with "
-                "table_relations=() and spill_pairs=False")
         if not graph.bands:
             raise NotImplementedError("packs without band masks are not ported yet")
         dt = self.dtype
@@ -78,6 +80,9 @@ class LaneConvStack(nn.ModuleDict):
             if ecap >= GROUPED_MIN_CAP and lr and dil:
                 groups = (lr, dil)
 
+        tbl_rel = [r for r, nm in enumerate(names) if graph.tables and nm in graph.tables]
+        if tbl_rel:
+            tbl_stack = torch.stack([graph.tables[names[r]] for r in tbl_rel], 0)
         edge_u = torch.cat([graph.edges[nm].u for nm in names])
         edge_m = torch.cat([graph.edges[nm].mask for nm in names])
 
@@ -85,6 +90,10 @@ class LaneConvStack(nn.ModuleDict):
             temp = fuse["ctr"][i](feat)
             # Stacked relation kernel [R, C, C] in (in, out) layout.
             w_rel = torch.stack([fuse[nm][i].kernel for nm in names], 0)
+            if tbl_rel:
+                # temp[u] += Σ_r feat[tables[r, u]] @ W_r over the tabled relations.
+                xg = masked_gather(feat, tbl_stack, tbl_stack < num_nodes)
+                temp = temp + torch.einsum("rnc,rcd->nd", xg.to(dt), w_rel[tbl_rel].to(dt))
             msgs = []
             for r, nm in enumerate(names):
                 e: EdgeSet = graph.edges[nm]
@@ -97,6 +106,9 @@ class LaneConvStack(nn.ModuleDict):
                     feat.to(dt).contiguous(), temp.to(dt).contiguous(), w_dt,
                     graph.plan_lu, graph.plan_lv, graph.plan_rel, num_win, groups,
                 )
+            if graph.spill_pair is not None:
+                temp = pair_aggregate(feat.to(dt).contiguous(), temp.to(dt).contiguous(), w_dt,
+                                      graph.spill_pair)
             norm, ctr2 = fuse["norm"][i], fuse["ctr2"][i]
             feat = fused_lane_layer(
                 feat.to(dt).contiguous(), temp.to(dt).contiguous(), band_masks,

@@ -10,7 +10,7 @@ Every C entry point returns `cudaGetLastError()` after its launch; `call`
 raises when that is not 0, so a refused launch never passes silently.
 
 `LAUNCHES` counts launches per C entry point (`lane_layer_fwd`,
-`lane_layer_bwd`, ...): `call` adds one where it launches the entry, and
+`lane_layer_bwd`, ..., `pair_agg_bwd_s`, `edge_mlp_bwd`): `call` adds one where it launches the entry, and
 nothing else does. An entry may run several kernels (a backward's passes
 and its partial-sum reduction); it counts once per call.
 """
@@ -34,6 +34,8 @@ ENTRIES = {
     "scenario_agg": ("scenario_agg_fwd", "scenario_agg_bwd"),
     "win_edge": ("win_edge_fwd", "win_edge_bwd_d", "win_edge_bwd_s"),
     "row_tail": ("row_tail_fwd", "row_tail_bwd"),
+    "pair_agg": ("pair_agg_fwd", "pair_agg_bwd_d", "pair_agg_bwd_s"),
+    "edge_mlp": ("edge_mlp_fwd", "edge_mlp_bwd"),
 }
 
 KERNELS = tuple(ENTRIES)

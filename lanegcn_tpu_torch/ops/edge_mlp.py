@@ -1,0 +1,211 @@
+"""Att's fused per-edge MLP over a flat edge list: the `edge_mlp` CUDA
+kernels (csrc/edge_mlp.cu, forward and backward) and their plain versions.
+
+Per row e of the list (padding rows included):
+    t1 = relu(d[e] @ Wd + bd);  t2 = relu(GN(t1 @ Wdo))
+    s  = t2 @ K1 + qg[e] + cg[e];  e1 = relu(GN(s));  out[e] = e1 @ Wout
+
+Counterpart of lanegcn_tpu/ops/pallas_edge_mlp.py `fused_edge_mlp` with
+has_dist2 and has_query (the Att configuration); the gathers before it and
+the destination scatter after it stay outside. The public op runs through a
+`torch.autograd.Function` whose backward is the `edge_mlp_bwd` kernel on
+CUDA tensors and `edge_mlp_bwd_plain` on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from lanegcn_tpu_torch.ops import cuda
+from lanegcn_tpu_torch.ops.norm import gn_bwd, gn_stats, group_norm
+
+C = 128
+PART = 3 * C * C + 7 * C  # dWdo, dK1, dWout, dbd, dgdow, dgdob, dgchw, dgchb, dWd (2 rows)
+
+
+def edge_mlp_plain(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch: d and the weights rounded to the
+    activation dtype, fp32 products and statistics, t1/t2/e1 and the output
+    rounded to the activation dtype."""
+    dt = cg.dtype
+    rnd = lambda x: x.to(dt).float()
+    t1 = rnd(torch.relu(rnd(d) @ rnd(kd) + bd.float()))
+    t2 = rnd(torch.relu(group_norm(t1 @ rnd(kdo), gdow, gdob, 1, eps)))
+    s = t2 @ rnd(k1) + cg.float() + qg.float()
+    e1 = rnd(torch.relu(group_norm(s, gchw, gchb, 1, eps)))
+    return (e1 @ rnd(kout)).to(dt)
+
+
+def edge_mlp_bwd_plain(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, g,
+                       eps: float = 1e-5):
+    """The backward kernel's arithmetic: recompute the chain, then back
+    through Wout, GN(ch), K1, GN(do), Wdo, the ReLUs and Wd, rounding the
+    cotangent, d_s, d_z and d_t1p to the activation dtype before their
+    products. Returns (dd fp32 [E, 2], dqg, dcg in the activation dtype),
+    then fp32 dWd, dbd, dWdo, dgdow, dgdob, dK1, dgchw, dgchb, dWout: one
+    gradient per input, in the inputs' order."""
+    dt = cg.dtype
+    rnd = lambda x: x.to(dt).float()
+    w_d, w_do, w_1, w_out = (rnd(w) for w in (kd, kdo, k1, kout))
+    dr = rnd(d)
+    t1 = rnd(torch.relu(dr @ w_d + bd.float()))
+    nrm_z, inv_z = gn_stats(t1 @ w_do, eps)
+    t2 = rnd(torch.relu(nrm_z * gdow.float() + gdob.float()))
+    nrm_s, inv_s = gn_stats(t2 @ w_1 + cg.float() + qg.float(), eps)
+    e1 = rnd(torch.relu(nrm_s * gchw.float() + gchb.float()))
+    d_e2 = rnd(g)
+    d_gn_s = torch.where(e1 > 0, d_e2 @ w_out.t(), 0.0)
+    d_s = rnd(gn_bwd(d_gn_s, nrm_s, inv_s, gchw))
+    d_gn_z = torch.where(t2 > 0, d_s @ w_1.t(), 0.0)
+    d_z = rnd(gn_bwd(d_gn_z, nrm_z, inv_z, gdow))
+    d_t1p = torch.where(t1 > 0, d_z @ w_do.t(), 0.0)
+    d_t1 = rnd(d_t1p)
+    return (d_t1 @ w_d.t(), d_s.to(dt), d_s.to(dt), dr.t() @ d_t1, d_t1p.sum(0), t1.t() @ d_z,
+            (d_gn_z * nrm_z).sum(0), d_gn_z.sum(0), t2.t() @ d_s, (d_gn_s * nrm_s).sum(0),
+            d_gn_s.sum(0), e1.t() @ d_e2)
+
+
+def _check(d, qg, cg, kd, weights, vectors):
+    e, c = cg.shape
+    if (c != C or qg.shape != cg.shape or tuple(d.shape) != (e, 2) or tuple(kd.shape) != (2, c)
+            or any(tuple(w.shape) != (c, c) for w in weights)
+            or any(tuple(p.shape) != (c,) for p in vectors)):
+        raise ValueError(f"edge_mlp: bad shapes d {d.shape} qg {qg.shape} cg {cg.shape} "
+                         f"kd {kd.shape}")
+    if qg.dtype != cg.dtype or d.dtype != torch.float32:
+        raise TypeError("edge_mlp: qg and cg must share one dtype, d must be float32")
+
+
+def _prep(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, *rows):
+    _check(d, qg, cg, kd, (kdo, k1, kout), (bd, gdow, gdob, gchw, gchb))
+    dt = cg.dtype
+    ws = [w.to(dt).contiguous() for w in (kd, kdo, k1, kout)]
+    vs = [p.float().contiguous() for p in (bd, gdow, gdob, gchw, gchb)]
+    code = cuda.check_cuda("edge_mlp", qg, cg, *rows, d, *ws, *vs)
+    return ws, vs, code
+
+
+def _fwd_cuda(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, eps):
+    ws, vs, code = _prep(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout)
+    out = torch.empty_like(cg)
+    cuda.call(
+        "edge_mlp", "edge_mlp_fwd",
+        cuda.ptr(d), cuda.ptr(qg), cuda.ptr(cg), cuda.ptr(ws[0]), cuda.ptr(vs[0]),
+        cuda.ptr(ws[1]), cuda.ptr(vs[1]), cuda.ptr(vs[2]), cuda.ptr(ws[2]), cuda.ptr(vs[3]),
+        cuda.ptr(vs[4]), cuda.ptr(ws[3]), cuda.ptr(out), ctypes.c_int(cg.shape[0]),
+        ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+    )
+    return out
+
+
+def edge_mlp_bwd_cuda(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, g,
+                      eps: float = 1e-5):
+    """The `edge_mlp_bwd` kernel; the same outputs as `edge_mlp_bwd_plain`."""
+    if g.shape != cg.shape or g.dtype != cg.dtype:
+        raise ValueError(f"edge_mlp: cotangent {g.shape} {g.dtype} for {cg.shape} {cg.dtype}")
+    ws, vs, code = _prep(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, g)
+    dev = cg.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    blocks = cuda.num_sms(dev)
+    dd = torch.empty(d.shape, **f32)
+    dqg, dcg = torch.empty_like(cg), torch.empty_like(cg)
+    part = torch.zeros(blocks * PART, **f32)
+    grads = torch.empty(PART, **f32)
+    cuda.call(
+        "edge_mlp", "edge_mlp_bwd",
+        cuda.ptr(d), cuda.ptr(qg), cuda.ptr(cg), cuda.ptr(g), cuda.ptr(ws[0]), cuda.ptr(vs[0]),
+        cuda.ptr(ws[1]), cuda.ptr(vs[1]), cuda.ptr(vs[2]), cuda.ptr(ws[2]), cuda.ptr(vs[3]),
+        cuda.ptr(vs[4]), cuda.ptr(ws[3]), cuda.ptr(dd), cuda.ptr(dqg), cuda.ptr(dcg),
+        cuda.ptr(part), cuda.ptr(grads), ctypes.c_int(cg.shape[0]), ctypes.c_int(blocks),
+        ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+    )
+    mats = grads[: 3 * C * C].view(3, C, C)
+    vecs = grads[3 * C * C:].view(7, C)
+    return (dd, dqg, dcg, vecs[5:7], vecs[0], mats[0], vecs[1], vecs[2], mats[1], vecs[3],
+            vecs[4], mats[2])
+
+
+class _EdgeMlp(torch.autograd.Function):
+    """Forward: the plain version on CPU tensors, the kernel on CUDA tensors.
+    Backward: `edge_mlp_bwd_plain` / `edge_mlp_bwd_cuda`; each gradient in
+    its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, eps):
+        args = (d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout)
+        ctx.save_for_backward(*args)
+        ctx.eps = eps
+        if cg.device.type == "cpu":
+            return edge_mlp_plain(*args, eps)
+        return _fwd_cuda(*args, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        cg = saved[2]
+        bwd = edge_mlp_bwd_plain if cg.device.type == "cpu" else edge_mlp_bwd_cuda
+        grads = bwd(*saved, g.to(cg.dtype).contiguous(), ctx.eps)
+        return (*(x.to(p.dtype) for x, p in zip(grads, saved)), None)
+
+
+def fused_edge_mlp(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """The per-edge chain of Att; returns e2 [E, 128] for the caller's masked
+    destination scatter.
+
+    d [E, 2] fp32 (the edge's centre offset); qg/cg [E, 128] in one
+    activation dtype (the gathered query and context projections); kd
+    [2, 128], kdo/k1/kout [128, 128] (in, out), cast to the activation dtype
+    inside; bd and the GN affines [128] fp32. CPU tensors take the plain
+    version; CUDA tensors launch the kernel.
+    """
+    if cg.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"edge_mlp: unsupported device {cg.device}")
+    return _EdgeMlp.apply(d.contiguous(), qg.contiguous(), cg.contiguous(), kd, bd, kdo, gdow,
+                          gdob, k1, gchw, gchb, kout, eps)
+
+
+def _live_rows(*rows) -> int:
+    """Rows with a nonzero entry in any of `rows`, plus one if any row is all
+    zero: all-zero rows (the padding) share one output row."""
+    live = torch.zeros(rows[0].shape[0], dtype=torch.bool, device=rows[0].device)
+    for x in rows:
+        live |= (x != 0).any(1)
+    n_live = int(live.sum())
+    return n_live + int(n_live < live.numel())
+
+
+def work(d, qg, cg) -> dict:
+    """Bytes moved and operations done at these inputs: d, qg, cg read and
+    the output written whole, the weights read once; the chain's products
+    (d @ Wd and three [128 x 128]) run once per row with a nonzero input
+    and once for all the all-zero (padding) rows together."""
+    e, c = cg.shape
+    db = cg.element_size()
+    rows = _live_rows(d, qg, cg)
+    return {
+        "bytes": e * (2 * 4 + 3 * c * db) + (3 * c * c + 2 * c) * db + 5 * c * 4,
+        "flops": 2 * rows * (2 * c + 3 * c * c),
+        "rows": e,
+        "live_rows": rows,
+    }
+
+
+def work_bwd(d, qg, cg, g) -> dict:
+    """The backward's bytes and operations at these inputs: d, qg, cg and g
+    read and dd, dqg, dcg written whole, the weights read and their
+    gradients written; nine [128 x 128] products (three recomputed, three
+    transposed, three weight gradients) and the Wd ones on the rows whose
+    cotangent is nonzero (a zero cotangent contributes nothing)."""
+    e, c = cg.shape
+    db = cg.element_size()
+    rows = int((g != 0).any(1).sum())
+    return {
+        "bytes": e * (2 * 4 * 2 + 5 * c * db) + (3 * c * c + 2 * c) * (db + 4) + 10 * c * 4,
+        "flops": 2 * rows * (9 * c * c + 6 * c),
+        "rows": e,
+        "live_rows": rows,
+    }

@@ -22,7 +22,7 @@ def masked_gather(x: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor | None 
         flat = torch.where(mask.reshape(-1), flat, spread)
     out = x.index_select(0, flat).reshape(idx.shape + x.shape[1:])
     if mask is not None:
-        out = torch.where(mask.reshape(mask.shape + (1,) * (out.dim() - 1)), out,
+        out = torch.where(mask.reshape(mask.shape + (1,) * (out.dim() - mask.dim())), out,
                           torch.zeros((), dtype=out.dtype, device=out.device))
     return out
 

@@ -39,7 +39,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     # Every layer of the slice was imported, down to the kernel wrappers.
     for name in ("lanegcn_tpu_torch.ops.lane_layer", "lanegcn_tpu_torch.ops.scenario_agg",
                  "lanegcn_tpu_torch.ops.win_edge", "lanegcn_tpu_torch.ops.row_tail",
-                 "lanegcn_tpu_torch.data.packing", "lanegcn_tpu_torch.train.loop",
+                 "lanegcn_tpu_torch.ops.pair_agg", "lanegcn_tpu_torch.ops.edge_mlp",
+                 "lanegcn_tpu_torch.ops.scatter", "lanegcn_tpu_torch.data.packing", "lanegcn_tpu_torch.train.loop",
                  "lanegcn_tpu_torch.train.optimizer", "lanegcn_tpu_torch.utils.weights"):
         assert name in res["modules"], name
     assert res["banned"] == [], res["banned"]

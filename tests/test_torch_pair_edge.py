@@ -1,0 +1,242 @@
+"""The port's spill-plan aggregation (`pair_aggregate`), Att's fused edge MLP
+(`fused_edge_mlp`) and the port's gather for the neighbour tables and the
+fusion lists (`masked_gather`) against the JAX package, forward and
+gradients, on CPU tensors (the plain versions and their autograd
+Functions). The Pallas kernels run as the JAX tests run them on the CPU:
+interpret mode; the JAX package's gathers (`stacked_table_gather`,
+`sorted_transpose_gather`, with hand-written VJPs) are XLA.
+
+Inputs come from a numpy seed and feed both sides; everything is float32.
+Tolerances: forwards within 1e-5 absolute (1e-5 relative on the
+accumulating outputs), as tests/test_torch_kernels.py; each gradient leaf
+within 2e-5 · max(1, max |reference leaf|), as tests/test_torch_grads.py:
+both sides sum the same fp32 products in other orders (~1e-6).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lanegcn_tpu.data.packing import build_pair_plan
+from lanegcn_tpu.graph import PairPlan as JPairPlan
+from lanegcn_tpu.ops.pallas_edge_mlp import fused_edge_mlp as jax_edge_mlp
+from lanegcn_tpu.ops.pallas_pair_agg import pair_aggregate as jax_pair_agg
+from lanegcn_tpu.ops.table_gather import sorted_transpose_gather as jax_stg
+from lanegcn_tpu.ops.table_gather import stacked_table_gather as jax_table_gather
+
+from lanegcn_tpu_torch.graph import PairPlan
+from lanegcn_tpu_torch.ops import edge_mlp, masked_gather, pair_agg
+
+C = 128
+ATOL = 1e-5
+REL = 2e-5
+
+
+def _close_fwd(port, ref, rtol=0.0):
+    np.testing.assert_allclose(port.detach().numpy(), np.asarray(ref, np.float32),
+                               rtol=rtol, atol=ATOL)
+
+
+def _close_grad(port, ref, what):
+    port = port.detach().numpy()
+    ref = np.asarray(ref, np.float32)
+    assert port.shape == ref.shape, (what, port.shape, ref.shape)
+    tol = REL * max(1.0, float(np.abs(ref).max()) if ref.size else 0.0)
+    err = float(np.abs(port - ref).max()) if ref.size else 0.0
+    assert err <= tol, f"{what}: max abs err {err} > {tol}"
+
+
+def _leaves(arrays):
+    return [torch.from_numpy(np.array(a)).requires_grad_(True) for a in arrays]
+
+
+def _port_grads(op, leaves, rest, g):
+    out = op(*leaves, *rest)
+    assert isinstance(out.grad_fn, torch.autograd.function.BackwardCFunction), out.grad_fn
+    out.backward(torch.from_numpy(g))
+    return out, [t.grad for t in leaves]
+
+
+def _autograd_plain(plain, leaves, rest, g):
+    fresh = [t.detach().clone().requires_grad_(True) for t in leaves]
+    plain(*fresh, *rest).backward(torch.from_numpy(g))
+    # A leaf the plain graph never reads (an empty plan's feat) gets no grad.
+    return [torch.zeros_like(t) if t.grad is None else t.grad for t in fresh]
+
+
+# --- pair_aggregate -------------------------------------------------------------
+
+WIN, STRIDE, R, CHUNK = 5, 64, 14, 16
+N = WIN * STRIDE
+
+
+def _spill_case(seed, n_edges, cap, skip_dst, skip_src):
+    rng = np.random.RandomState(seed)
+    u = rng.randint(0, N, n_edges).astype(np.int64)
+    v = rng.randint(0, N, n_edges).astype(np.int64)
+    keep = np.ones(n_edges, bool)
+    if skip_dst is not None:
+        keep &= (u // STRIDE != skip_dst) & (v // STRIDE != skip_src)
+    u, v = u[keep], v[keep]
+    # Relation-major order within a window pair, as the packer's residue is.
+    rel = np.sort(rng.randint(0, R, len(u))).astype(np.int32)
+    d, dropped, _ = build_pair_plan(u, v, STRIDE, STRIDE, cap, CHUNK, rel=rel,
+                                    return_residue=True)
+    assert dropped == 0
+    idx = np.concatenate([d["lu"], d["lv"], d["rel"]], axis=1)
+    meta = np.stack([d[k] for k in ("dwin", "swin", "first", "sperm", "sswin", "sfirst")])
+    arrays = [(rng.randn(N, C) * 0.2).astype(np.float32), (rng.randn(N, C) * 0.2).astype(np.float32),
+              (rng.randn(R, C, C) * 0.1).astype(np.float32)]
+    return arrays, idx, meta, rng.randn(N, C).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", [
+    # Destination window 2 and source window 1 are never touched.
+    dict(n_edges=300, cap=1024, skip_dst=2, skip_src=1),
+    # Capacity well past the edges: all-padding tail chunks.
+    dict(n_edges=40, cap=2048, skip_dst=None, skip_src=None),
+    # No edge at all: one run of padding chunks.
+    dict(n_edges=0, cap=256, skip_dst=None, skip_src=None),
+], ids=["untouched-windows", "padding-chunks", "empty-plan"])
+def test_pair_agg_matches_pallas(case):
+    arrays, idx, meta, g = _spill_case(21, case["n_edges"], case["cap"], case["skip_dst"],
+                                       case["skip_src"])
+    jplan = JPairPlan(idx=jnp.asarray(idx), meta=jnp.asarray(meta), chunk=CHUNK,
+                      dst_stride=STRIDE, src_stride=STRIDE)
+    ref, vjp = jax.vjp(lambda *a: jax_pair_agg(*a, jplan, mode="interpret"),
+                       *map(jnp.asarray, arrays))
+    ref_grads = vjp(jnp.asarray(g))
+    plan = PairPlan(idx=torch.from_numpy(idx), meta=torch.from_numpy(meta), chunk=CHUNK,
+                    dst_stride=STRIDE, src_stride=STRIDE)
+    leaves = _leaves(arrays)
+    out, grads = _port_grads(pair_agg.pair_aggregate, leaves, (plan,), g)
+    _close_fwd(out, ref, rtol=1e-5)
+    names = ["feat", "temp", "w_rel"]
+    for nm, got, want in zip(names, grads, ref_grads):
+        _close_grad(got, want, f"pair_agg d{nm}")
+    np.testing.assert_array_equal(grads[1].numpy(), g)  # temp's cotangent passes through
+    for nm, got, want in zip(names, grads, _autograd_plain(pair_agg.pair_agg_plain, leaves,
+                                                           (plan,), g)):
+        _close_grad(got, want.numpy(), f"pair_agg d{nm} vs autograd")
+    if case["skip_dst"] is not None:
+        w = slice(case["skip_dst"] * STRIDE, (case["skip_dst"] + 1) * STRIDE)
+        np.testing.assert_array_equal(out[w].detach().numpy(), arrays[1][w])  # keeps temp
+        w = slice(case["skip_src"] * STRIDE, (case["skip_src"] + 1) * STRIDE)
+        assert not grads[0][w].any()
+    if case["n_edges"] == 0:
+        np.testing.assert_array_equal(out.detach().numpy(), arrays[1])
+        assert not grads[0].any() and not grads[2].any()
+
+
+# --- fused_edge_mlp ---------------------------------------------------------------
+
+def _edge_case(seed, e, n_pad):
+    """e rows whose last n_pad are padding: zero inputs, zero cotangent (the
+    masked scatter drops them)."""
+    rng = np.random.RandomState(seed)
+    r = lambda *s: (rng.randn(*s) * 0.3).astype(np.float32)
+    d = (rng.randn(e, 2) * 3.0).astype(np.float32)
+    qg, cg = r(e, C), r(e, C)
+    g = rng.randn(e, C).astype(np.float32)
+    for a in (d, qg, cg, g):
+        a[e - n_pad:] = 0.0
+    arrays = [d, qg, cg, r(2, C), r(C), r(C, C), r(C) + 1.0, r(C), r(C, C), r(C) + 1.0, r(C),
+              r(C, C)]
+    return arrays, g
+
+
+def test_edge_mlp_matches_pallas():
+    """700 rows (two 512-row Pallas tiles, a ragged 64-row tail here), the
+    last 150 padding: their outputs agree too, and they add nothing to any
+    gradient."""
+    e, n_pad = 700, 150
+    arrays, g = _edge_case(22, e, n_pad)
+
+    def jfn(*a):
+        return jax_edge_mlp(*a, True, True, 1e-5, True)
+
+    ref, vjp = jax.vjp(jfn, *map(jnp.asarray, arrays))
+    ref_grads = vjp(jnp.asarray(g))
+    leaves = _leaves(arrays)
+    out, grads = _port_grads(edge_mlp.fused_edge_mlp, leaves, (), g)
+    _close_fwd(out, ref)
+    names = ["d", "qg", "cg", "kd", "bd", "kdo", "gdow", "gdob", "k1", "gchw", "gchb", "kout"]
+    for nm, got, want in zip(names, grads, ref_grads):
+        _close_grad(got, want, f"edge_mlp d{nm}")
+    for nm, got, want in zip(names, grads, _autograd_plain(edge_mlp.edge_mlp_plain, leaves, (),
+                                                           g)):
+        _close_grad(got, want.numpy(), f"edge_mlp d{nm} vs autograd")
+    # Padding rows: one constant output row; exactly zero per-row cotangents.
+    tail = out[e - n_pad:].detach().numpy()
+    np.testing.assert_allclose(tail, np.broadcast_to(tail[:1], tail.shape), rtol=0, atol=1e-6)
+    for t in grads[:3]:
+        assert not t[e - n_pad:].any()
+    # The parameter gradients are those of the valid rows alone.
+    valid = [torch.from_numpy(a[: e - n_pad].copy()) for a in arrays[:3]]
+    sub = edge_mlp.edge_mlp_bwd_plain(*valid, *map(torch.from_numpy, arrays[3:]),
+                                      torch.from_numpy(g[: e - n_pad].copy()))
+    for nm, got, want in zip(names[3:], grads[3:], sub[3:]):
+        _close_grad(got, want.numpy(), f"edge_mlp d{nm} vs valid rows only")
+
+
+# --- the gathers --------------------------------------------------------------------
+
+def test_stacked_table_gather_matches_jax():
+    """The neighbour-table rows as the port's LaneConvStack gathers them."""
+    rng = np.random.RandomState(23)
+    n, r, c = 60, 2, 16
+    tables = rng.randint(0, n, (r, n)).astype(np.int32)
+    tables[rng.rand(r, n) < 0.3] = n  # no neighbour
+    src = [k * n + u for k in range(r) for u in range(n) if tables[k, u] < n]
+    dst = [tables[k, u] for k in range(r) for u in range(n) if tables[k, u] < n]
+    order = np.argsort(dst, kind="stable")
+    cap = len(src) + 7
+    inv_src = np.full(cap, r * n, np.int32)
+    inv_dst = np.full(cap, n, np.int32)
+    inv_src[: len(src)] = np.asarray(src)[order]
+    inv_dst[: len(dst)] = np.asarray(dst)[order]
+    feat = rng.randn(n, c).astype(np.float32)
+    g = rng.randn(r, n, c).astype(np.float32)
+    ref, vjp = jax.vjp(lambda f: jax_table_gather(f, jnp.asarray(tables), jnp.asarray(inv_src),
+                                                  jnp.asarray(inv_dst)), jnp.asarray(feat))
+    (ref_grad,) = vjp(jnp.asarray(g))
+    leaf = torch.from_numpy(feat).requires_grad_(True)
+    tables_t = torch.from_numpy(tables).long()
+    out = masked_gather(leaf, tables_t, tables_t < n)
+    out.backward(torch.from_numpy(g))
+    _close_fwd(out, ref)
+    _close_grad(leaf.grad, ref_grad, "table rows dfeat")
+
+
+@pytest.mark.parametrize("ident", [False, True], ids=["source-order", "destination-order"])
+def test_sorted_transpose_gather_matches_jax(ident):
+    """Att's gathers as the port runs them (`masked_gather`) against the JAX
+    package's: the context gather (inv_perm, inv_dst from the packer) and
+    the query gather (the identity order over a destination-sorted list)."""
+    rng = np.random.RandomState(24)
+    s, e, n_valid, c = 40, 90, 70, 16
+    idx = np.zeros(e, np.int32)
+    idx[:n_valid] = np.sort(rng.randint(0, s, n_valid)) if ident else rng.randint(0, s, n_valid)
+    mask = np.arange(e) < n_valid
+    if ident:
+        inv_perm = np.arange(e, dtype=np.int32)
+        inv_dst = np.where(mask, idx, s).astype(np.int32)
+    else:
+        inv_perm = np.full(e, e - 1, np.int32)
+        inv_dst = np.full(e, s, np.int32)
+        o = np.argsort(idx[:n_valid], kind="stable").astype(np.int32)
+        inv_perm[:n_valid] = o
+        inv_dst[:n_valid] = idx[:n_valid][o]
+    x = rng.randn(s, c).astype(np.float32)
+    g = rng.randn(e, c).astype(np.float32)
+    ref, vjp = jax.vjp(lambda a: jax_stg(a, jnp.asarray(idx), jnp.asarray(mask),
+                                         jnp.asarray(inv_perm), jnp.asarray(inv_dst)),
+                       jnp.asarray(x))
+    (ref_grad,) = vjp(jnp.asarray(g))
+    leaf = torch.from_numpy(x).requires_grad_(True)
+    out = masked_gather(leaf, torch.from_numpy(idx).long(), torch.from_numpy(mask))
+    out.backward(torch.from_numpy(g))
+    _close_fwd(out, ref)
+    _close_grad(leaf.grad, ref_grad, "edge-list gather dx")
