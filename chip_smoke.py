@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and drive its LaneGCN eval and train paths on
-one GPU, on each of the three pack geometries the port serves.
+one GPU, on each of the three LaneGCN pack geometries the port serves, then
+its LaneRCNN eval path.
 
     python3 chip_smoke.py            # one card, no arguments
 
@@ -12,6 +13,11 @@ Geometries (lanegcn_tpu_torch/config.py), driven in this order:
               spill_pairs on (the residue rides the spill plan, pair_agg).
   contiguous  contiguous_pack_config(32), the CLI's default: no windows,
               left/right neighbour tables, flat fusion lists (edge_mlp).
+  lanercnn    lanercnn_pack_config(256), LaneRCNN (serve only): 256-row RoI
+              windows with an ungrouped 512-slot plan, 768-row global
+              windows with a 2048-slot plan, window-chunked pool edges
+              (window_scatter), LanePooling's edge chain (edge_mlp_pool)
+              and two-Linear tail (row_tail2).
 
 Phases, one JSON line each (tagged with the geometry); any failure raises
 and exits non-zero:
@@ -20,7 +26,10 @@ and exits non-zero:
           parallel).
   pack    2 packs of synthetic urban scenarios, zero drops asserted; the
           edges left in the classic residue lists and, on the bench
-          geometry, the spill-plan edges (asserted > 0).
+          geometry, the spill-plan edges (asserted > 0); on lanercnn the
+          RoIs, RoI, interest and global nodes, pool edges (live against
+          capacity) and plan and residue edges of both node spaces, zero
+          `dropped_*` and `graph_dropped_*` asserted.
   kernel  each kernel the geometry runs at shapes of its own, against its
           plain PyTorch version on the inputs the eval path hands it
           (captured from one forward), in float32 (TF32 off) and bfloat16:
@@ -30,7 +39,10 @@ and exits non-zero:
           the plain temp. windowed: lane_layer, scenario_agg, win_edge,
           row_tail; bench: pair_agg (its other kernels run at the windowed
           shapes); contiguous: lane_layer (no node windows), row_tail (A2M
-          and 512 actor rows) and edge_mlp.
+          and 512 actor rows) and edge_mlp; lanercnn: lane_layer and
+          scenario_agg at the RoI and global shapes, window_scatter (both
+          pool scatters, beside one `index_add` call on the same inputs),
+          row_tail2 (its three row counts) and edge_mlp_pool.
   kernel_bwd  the same kernels' backwards against their plain backwards on
           the inputs and cotangent one bf16 train step hands them, with a
           rerun that must be bitwise equal. A few rows whose ReLU
@@ -38,7 +50,8 @@ and exits non-zero:
           get a zero cotangent before the comparison.
   parity  the full float32 forward + loss on the card (kernels) against the
           same on the CPU (plain versions), 8 scenarios of the geometry,
-          same weights.
+          same weights; on lanercnn the segmented-NMS picks must be equal,
+          beside the smallest logit gap around them.
   train_parity  one float32 make_train_step on 8 scenarios on the card and on
           the CPU from the same weights: the loss, every parameter's gradient
           (same names, none missing) and the parameters after the step (the
@@ -56,7 +69,8 @@ and exits non-zero:
           first and last loss (finite), skipped steps (0), peak device
           memory, and the launch counts, asserted per step (`per_train_step`).
   profile_train  the same profile over one train step.
-Then the `kernels` summary line (all twelve kernels, each from the first
+The lanercnn geometry runs pack, kernel, parity, serve and profile.
+Then the `kernels` summary line (all fifteen kernels, each from the first
 geometry that checks it, with the launches of that geometry's serve or
 train run, and under `also_checked` its checks on the later geometries),
 the nvidia-smi name/power-limit line, and last the `ok` line with the
@@ -125,30 +139,47 @@ KERNEL_META = {
                  "lanegcn_tpu/ops/pallas_edge_mlp.py:226", ("edge_mlp_fwd",)),
     "edge_mlp_bwd": ("lanegcn_tpu_torch/csrc/edge_mlp.cu",
                      "lanegcn_tpu/ops/pallas_edge_mlp.py:246", ("edge_mlp_bwd",)),
+    "window_scatter": ("lanegcn_tpu_torch/csrc/window_scatter.cu",
+                       "lanegcn_tpu/ops/pallas_window_scatter.py:82", ("window_scatter_fwd",)),
+    "row_tail2": ("lanegcn_tpu_torch/csrc/row_tail.cu",
+                  "lanegcn_tpu/ops/pallas_row_tail.py:152", ("row_tail2_fwd",)),
+    "edge_mlp_pool": ("lanegcn_tpu_torch/csrc/edge_mlp.cu",
+                      "lanegcn_tpu/ops/pallas_edge_mlp.py:226", ("edge_mlp_pool_fwd",)),
 }
-# Each geometry: its pack config (by name in lanegcn_tpu_torch.config), the
-# scenarios per pack, the kernels it runs at shapes of its own (checked
-# against their plain versions on its inputs) and the launches of each C entry point per eval
-# forward and per train step (every other entry: 0).
+# Each geometry: its model, its pack config (by name in
+# lanegcn_tpu_torch.config), the scenarios per pack, the kernels it runs at
+# shapes of its own (checked against their plain versions on its inputs)
+# and the launches of each C entry point per eval forward and per train
+# step (every other entry: 0; None: the geometry serves only).
 _WINDOWED_FWD = {"lane_layer_fwd": 8, "scenario_agg_fwd": 8, "win_edge_fwd": 6,
                  "row_tail_fwd": 6}
 _WINDOWED_BWD = {"lane_layer_bwd": 8, "scenario_agg_bwd": 8, "win_edge_bwd_d": 6,
                  "win_edge_bwd_s": 6, "row_tail_bwd": 6}
 _CONTIGUOUS_FWD = {"lane_layer_fwd": 8, "edge_mlp_fwd": 6, "row_tail_fwd": 6}
 GEOMETRIES = {
-    "windowed": dict(config="windowed_pack_config", s=256,
+    "windowed": dict(model="lanegcn", config="windowed_pack_config", s=256,
                      kernels=("lane_layer", "scenario_agg", "win_edge", "row_tail"),
                      per_forward=_WINDOWED_FWD,
                      per_train_step={**_WINDOWED_FWD, **_WINDOWED_BWD}),
-    "bench": dict(config="bench_pack_config", s=256, kernels=("pair_agg",),
+    "bench": dict(model="lanegcn", config="bench_pack_config", s=256, kernels=("pair_agg",),
                   per_forward={**_WINDOWED_FWD, "pair_agg_fwd": 8},
                   per_train_step={**_WINDOWED_FWD, **_WINDOWED_BWD, "pair_agg_fwd": 8,
                                   "pair_agg_bwd_d": 8, "pair_agg_bwd_s": 8}),
-    "contiguous": dict(config="contiguous_pack_config", s=32,
+    "contiguous": dict(model="lanegcn", config="contiguous_pack_config", s=32,
                        kernels=("lane_layer", "row_tail", "edge_mlp"),
                        per_forward=_CONTIGUOUS_FWD,
                        per_train_step={**_CONTIGUOUS_FWD, "lane_layer_bwd": 8,
                                        "edge_mlp_bwd": 6, "row_tail_bwd": 6}),
+    # LaneRCNN: 12 LaneConv layers (RoI stack, global stack, RoI stack; the
+    # RoI plan is ungrouped, 512 slots per 256-row window), three
+    # LanePoolings (r2g and g2r window-chunked, a2r flat).
+    "lanercnn": dict(model="lanercnn", config="lanercnn_pack_config", s=256,
+                     kernels=("lane_layer", "scenario_agg", "window_scatter", "row_tail2",
+                              "edge_mlp_pool"),
+                     per_forward={"lane_layer_fwd": 12, "scenario_agg_fwd": 12,
+                                  "window_scatter_fwd": 2, "edge_mlp_pool_fwd": 3,
+                                  "row_tail2_fwd": 3},
+                     per_train_step=None),
 }
 
 
@@ -162,24 +193,37 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def make_packs(cfg, num_packs: int, s: int, seed0: int):
+def make_packs(cfg, num_packs: int, s: int, seed0: int, roi: bool = False):
+    """Synthetic urban scenarios packed for LaneGCN (16 actors, pack_batch)
+    or, with roi, for LaneRCNN (12 actors with their LaneRoIs,
+    pack_roi_batch); zero drops of any kind (the RoI pack's global-graph
+    lists included) and no skipped scenario asserted."""
     from lanegcn_tpu_torch.data.packing import pack_batch
-    from lanegcn_tpu_torch.data.synthetic import make_urban_scenario
+    from lanegcn_tpu_torch.data.packing_roi import pack_roi_batch
+    from lanegcn_tpu_torch.data.synthetic import make_roi_scenario, make_urban_scenario
 
     t0 = time.perf_counter()
-    scens = [make_urban_scenario(seed=seed0 + i, num_corridors=7, num_actors=16)
-             for i in range(num_packs * s)]
+    if roi:
+        scens = [make_roi_scenario(seed=seed0 + i, num_corridors=7, num_actors=12, urban=True)
+                 for i in range(num_packs * s)]
+    else:
+        scens = [make_urban_scenario(seed=seed0 + i, num_corridors=7, num_actors=16)
+                 for i in range(num_packs * s)]
     gen_s = time.perf_counter() - t0
     packs, stats = [], []
     t0 = time.perf_counter()
     for p in range(num_packs):
-        b, st = pack_batch(scens[p * s:(p + 1) * s], cfg.pack, cfg.model)
+        part = scens[p * s:(p + 1) * s]
+        if roi:
+            b, st = pack_roi_batch(part, cfg.roi_pack, cfg.model)
+        else:
+            b, st = pack_batch(part, cfg.pack, cfg.model)
         packs.append(b)
         stats.append(st)
     pack_s = time.perf_counter() - t0
     for st in stats:
         bad = {k: v for k, v in st.items()
-               if k.startswith(("dropped", "skipped")) and v}
+               if k.startswith(("dropped", "graph_dropped", "skipped")) and v}
         check(not bad, f"pack dropped edges or skipped scenarios: {bad}")
         check(st["packed_scenarios"] == s, f"packed {st['packed_scenarios']} of {s}")
     return packs, stats, gen_s, pack_s
@@ -251,7 +295,7 @@ class Capture:
 
 def forward_capture():
     """The kernel wrappers as the model modules call them (eval forward)."""
-    from lanegcn_tpu_torch.models import fusion, map_net
+    from lanegcn_tpu_torch.models import fusion, lanercnn, map_net
 
     return Capture([
         (map_net, "fused_lane_layer", "lane_layer"),
@@ -260,6 +304,9 @@ def forward_capture():
         (fusion, "win_edge_mlp", "win_edge"),
         (fusion, "fused_row_tail", "row_tail"),
         (fusion, "fused_edge_mlp", "edge_mlp"),
+        (lanercnn, "window_scatter_add", "window_scatter"),
+        (lanercnn, "fused_row_tail2", "row_tail2"),
+        (lanercnn, "fused_edge_mlp", "edge_mlp_pool"),
     ])
 
 
@@ -282,7 +329,7 @@ def backward_capture():
 def forward_ops(names):
     """{kernel: (public op, plain version)} for the named forward kernels."""
     from lanegcn_tpu_torch.ops import edge_mlp, lane_layer, pair_agg, row_tail, scenario_agg
-    from lanegcn_tpu_torch.ops import win_edge
+    from lanegcn_tpu_torch.ops import win_edge, window_scatter
 
     ops = {
         "lane_layer": (lane_layer.fused_lane_layer, lane_layer.lane_layer_plain),
@@ -291,8 +338,28 @@ def forward_ops(names):
         "row_tail": (row_tail.fused_row_tail, row_tail.row_tail_plain),
         "pair_agg": (pair_agg.pair_aggregate, pair_agg.pair_agg_plain),
         "edge_mlp": (edge_mlp.fused_edge_mlp, edge_mlp.edge_mlp_plain),
+        "window_scatter": (window_scatter.window_scatter_add,
+                           window_scatter.window_scatter_plain),
+        "row_tail2": (row_tail.fused_row_tail2, row_tail.row_tail2_plain),
+        "edge_mlp_pool": (edge_mlp.fused_edge_mlp, edge_mlp.edge_mlp_plain),
     }
     return {name: ops[name] for name in names}
+
+
+def library_call(name, a):
+    """One PyTorch call that computes the kernel's function on the same
+    inputs (a yardstick the port never calls), or None where there is none.
+    window_scatter: index_add over the valid edges' flat destinations
+    (precomputed, outside the timing)."""
+    if name != "window_scatter":
+        return None
+    from lanegcn_tpu_torch.ops import window_scatter
+
+    msg, temp, lu, wchunk, stride = a[:5]
+    dst = window_scatter.flat_destinations(lu, wchunk, stride, temp.shape[0])
+    keep = (dst < temp.shape[0]).nonzero().squeeze(1)
+    dst, msg = dst[keep], msg[keep]
+    return lambda: temp.index_add(0, dst, msg)
 
 
 def backward_ops(names):
@@ -508,6 +575,8 @@ def kernel_phase(phase, geom, ops, calls, counts):
                 if dtype == torch.bfloat16:
                     res["ms"] = time_ms(lambda: fn(*a))
                     res["plain_ms"] = time_ms(lambda: plain(*a))
+                    lib = library_call(name, a)
+                    res["library_ms"] = None if lib is None else time_ms(lib)
                     res["work"] = work_of(name, a)
             emit(res)
             per_step += res["ms"] * counts[name][key]
@@ -519,7 +588,7 @@ def kernel_phase(phase, geom, ops, calls, counts):
 
 def work_of(name, a):
     from lanegcn_tpu_torch.ops import edge_mlp, lane_layer, pair_agg, row_tail, scenario_agg
-    from lanegcn_tpu_torch.ops import win_edge
+    from lanegcn_tpu_torch.ops import win_edge, window_scatter
 
     works = {
         "lane_layer": lambda: lane_layer.work(a[0], a[2]),
@@ -535,6 +604,9 @@ def work_of(name, a):
         "row_tail_bwd": lambda: row_tail.work_bwd(a[0].shape[0], a[0].element_size()),
         "pair_agg_bwd": lambda: pair_agg.work_bwd(a[0], a[1], a[2]),
         "edge_mlp_bwd": lambda: edge_mlp.work_bwd(a[0], a[1], a[2], a[12]),
+        "window_scatter": lambda: window_scatter.work(a[0], a[1], a[2]),
+        "row_tail2": lambda: row_tail.work2(a[0].shape[0], a[0].element_size()),
+        "edge_mlp_pool": lambda: edge_mlp.work(a[0], a[1], a[2], a[12]),
     }
     w = works[name]()
     t_bytes = w["bytes"] / PEAK_HBM_BYTES * 1e3
@@ -547,7 +619,8 @@ def work_of(name, a):
 def pack_config(geom, s):
     from lanegcn_tpu_torch import config
 
-    return config.Config(pack=getattr(config, GEOMETRIES[geom]["config"])(s))
+    field = "roi_pack" if GEOMETRIES[geom]["model"] == "lanercnn" else "pack"
+    return config.Config(**{field: getattr(config, GEOMETRIES[geom]["config"])(s)})
 
 
 def parity_phase(geom):
@@ -576,6 +649,66 @@ def parity_phase(geom):
     tol = {k: 1e-3 * scale[k] for k in err}
     emit({"phase": "parity", "geometry": geom, "scenarios": s, "max_abs_err": err, "tol": tol,
           "loss_gpu": loss_g, "loss_cpu": loss_c})
+    for k in err:
+        check(err[k] <= tol[k], f"parity {k}: {err[k]} > {tol[k]}")
+
+
+def roi_parity_phase(geom):
+    """LaneRCNN's full float32 forward + roi_loss: card (kernels) vs CPU
+    (plain versions), 8 scenarios, same weights; the segmented-NMS picks
+    must be equal on both sides. The smallest gap between a picked logit
+    and another node's logit of its segment (CPU side) is printed beside
+    them, so that a near-tie flip can be told from a bug."""
+    import torch
+    from lanegcn_tpu_torch.graph import RoiPackedBatch
+    from lanegcn_tpu_torch.models import lanercnn
+    from lanegcn_tpu_torch.train.loop import make_eval_step
+
+    s = 8
+    cfg = pack_config(geom, s)
+    packs, _, _, _ = make_packs(cfg, 1, s, seed0=10_000, roi=True)
+    batch = RoiPackedBatch.from_numpy(packs[0])
+    net_gpu = lanercnn.LaneRCNN(cfg.model, dtype=torch.float32, device="cuda", seed=1)
+    net_cpu = lanercnn.LaneRCNN(cfg.model, dtype=torch.float32, device="cpu", seed=1)
+    net_cpu.load_state_dict({k: v.cpu() for k, v in net_gpu.state_dict().items()})
+    nms, picks = lanercnn.segmented_nms, {}
+
+    def run(net, device):
+        def rec(*a):
+            sel = nms(*a)
+            picks[device] = (sel.cpu(), [x.cpu() if isinstance(x, torch.Tensor) else x for x in a])
+            return sel
+
+        lanercnn.segmented_nms = rec
+        try:
+            return make_eval_step(cfg, net, device=device, loss_fn=lanercnn.roi_loss,
+                                  metrics_fn=lanercnn.roi_metrics)(batch)
+        finally:
+            lanercnn.segmented_nms = nms
+
+    out_g, m_g = run(net_gpu, "cuda")
+    out_c, m_c = run(net_cpu, "cpu")
+    keys = ("pred_logics", "pred_goals", "pred_trajs")
+    err = {k: float((out_g[k].cpu() - out_c[k]).abs().max()) for k in keys}
+    scale = {k: max(1.0, float(out_c[k].abs().max())) for k in keys}
+    loss_g, loss_c = float(m_g["loss"]), float(m_c["loss"])
+    err["loss"], scale["loss"] = abs(loss_g - loss_c), max(1.0, abs(loss_c))
+    # As `parity_phase`: float32 on both sides through ~20 GroupNorm'd
+    # layers, 1e-3 relative; the trajectories' scale is their largest
+    # element (Decode's divisions are well away from zero at these inputs).
+    tol = {k: 1e-3 * scale[k] for k in err}
+    sel_g, sel_c = picks["cuda"][0], picks["cpu"][0]
+    xy, logits, seg, mask, num_seg = picks["cpu"][1][:5]
+    l = logits.float()
+    onehot = (seg[None, :] == torch.arange(num_seg)[:, None]) & mask[None, :]  # [B, MI]
+    other = onehot[:, None, :] & (torch.arange(l.shape[0])[None, None, :] != sel_c[:, :, None])
+    other &= onehot.any(1)[:, None, None]
+    gap = (l[sel_c][:, :, None] - l[None, None, :]).abs()[other]
+    emit({"phase": "parity", "geometry": geom, "scenarios": s, "max_abs_err": err, "tol": tol,
+          "loss_gpu": loss_g, "loss_cpu": loss_c, "nms_picks": list(sel_c.shape),
+          "nms_picks_differ": int((sel_g != sel_c).sum()),
+          "min_logit_gap_at_picks": float(gap.min()) if gap.numel() else None})
+    check(torch.equal(sel_g, sel_c), f"parity: {int((sel_g != sel_c).sum())} NMS picks differ")
     for k in err:
         check(err[k] <= tol[k], f"parity {k}: {err[k]} > {tol[k]}")
 
@@ -738,10 +871,11 @@ def drive(geom):
     from lanegcn_tpu_torch.graph import PackedBatch
     from lanegcn_tpu_torch.models.lanegcn import LaneGCN
     from lanegcn_tpu_torch.ops import cuda
-    from lanegcn_tpu_torch.train.loop import (MetricAccumulator, init_state, make_eval_step,
-                                              make_train_step)
+    from lanegcn_tpu_torch.train.loop import init_state, make_eval_step, make_train_step
 
     spec = GEOMETRIES[geom]
+    if spec["model"] == "lanercnn":
+        return drive_lanercnn(geom)
     s = spec["s"]
     cfg = pack_config(geom, s)
 
@@ -788,34 +922,7 @@ def drive(geom):
     parity_phase(geom)
     train_parity_phase(geom)
 
-    # --- serve: the eval path, counted ---
-    step(batches[0])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    rounds = 5
-    acc = MetricAccumulator()
-    cuda.reset_launch_counts()
-    t0 = time.perf_counter()
-    for i in range(rounds * len(batches)):
-        _, m = step(batches[i % len(batches)])
-        acc.update(m)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    serve_counts = cuda.launch_counts()
-    forwards = rounds * len(batches)
-    summ = acc.summary()
-    emit({"phase": "serve", "geometry": geom, "scenarios_per_pack": s, "forwards": forwards,
-          "ms_per_pack": dt / forwards * 1e3, "scen_per_s": s * forwards / dt,
-          "loss": summ["loss"], "ade": summ["ade"], "fde": summ["fde"], "mr": summ["mr"],
-          "host_pack_s_per_pack": pack_s / len(packs),
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "kernel_ms_per_forward_checked": sum(results[k]["ms_per_step"] for k in spec["kernels"]),
-          "launches": serve_counts,
-          "launches_per_forward": {k: v / forwards for k, v in serve_counts.items()}})
-    for k in ("loss", "ade", "fde", "mr"):
-        check(math.isfinite(summ[k]), f"{geom}: non-finite {k}: {summ[k]}")
-    check_counts(serve_counts, spec["per_forward"], forwards, f"{geom} serve")
-    profile_phase("profile", geom, step, batches)
+    serve = serve_phase(geom, step, batches, results, pack_s)
 
     # --- train: the train path, counted ---
     for i in range(2):
@@ -843,7 +950,102 @@ def drive(geom):
     check(skipped == 0, f"{geom}: the NaN guard skipped {skipped} of {steps} steps")
     check_counts(train_counts, spec["per_train_step"], steps, f"{geom} train")
     profile_phase("profile_train", geom, lambda b: tstep(b, 0.5), batches[:1])
-    return results, (serve_counts, forwards), (train_counts, steps)
+    return results, serve, (train_counts, steps)
+
+
+def serve_phase(geom, step, batches, results, pack_s):
+    """The eval path over the packs, 5 rounds, counted (every launch count
+    from 0 just before, read just after), then its profile; returns the
+    launch counts and the number of forwards."""
+    import torch
+    from lanegcn_tpu_torch.ops import cuda
+    from lanegcn_tpu_torch.train.loop import MetricAccumulator
+
+    spec = GEOMETRIES[geom]
+    s = spec["s"]
+    step(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rounds = 5
+    acc = MetricAccumulator()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(rounds * len(batches)):
+        _, m = step(batches[i % len(batches)])
+        acc.update(m)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    serve_counts = cuda.launch_counts()
+    forwards = rounds * len(batches)
+    summ = acc.summary()
+    emit({"phase": "serve", "geometry": geom, "scenarios_per_pack": s, "forwards": forwards,
+          "ms_per_pack": dt / forwards * 1e3, "scen_per_s": s * forwards / dt,
+          "loss": summ["loss"], "ade": summ["ade"], "fde": summ["fde"], "mr": summ["mr"],
+          "host_pack_s_per_pack": pack_s / len(batches),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "kernel_ms_per_forward_checked": sum(results[k]["ms_per_step"] for k in spec["kernels"]),
+          "launches": serve_counts,
+          "launches_per_forward": {k: v / forwards for k, v in serve_counts.items()}})
+    for k in ("loss", "ade", "fde", "mr"):
+        check(math.isfinite(summ[k]), f"{geom}: non-finite {k}: {summ[k]}")
+    check_counts(serve_counts, spec["per_forward"], forwards, f"{geom} serve")
+    profile_phase("profile", geom, step, batches)
+    return serve_counts, forwards
+
+
+def drive_lanercnn(geom):
+    """LaneRCNN's phases (serve only: pack, kernel, parity, serve,
+    profile); returns its kernel results, the serve run's launch counts and
+    None for the train run."""
+    import torch
+    from lanegcn_tpu_torch.graph import RoiPackedBatch
+    from lanegcn_tpu_torch.models.lanercnn import LaneRCNN, roi_loss, roi_metrics
+    from lanegcn_tpu_torch.train.loop import make_eval_step
+
+    spec = GEOMETRIES[geom]
+    s = spec["s"]
+    cfg = pack_config(geom, s)
+    rc = cfg.roi_pack
+
+    # --- pack ---
+    packs, stats, gen_s, pack_s = make_packs(cfg, 2, s, seed0=0, roi=True)
+    t0 = time.perf_counter()
+    batches = [RoiPackedBatch.from_numpy(b).to("cuda") for b in packs]
+    torch.cuda.synchronize()
+    transfer_s = time.perf_counter() - t0
+    live = lambda e: int(e.mask.sum())
+    emit({"phase": "pack", "geometry": geom, "scenarios_per_pack": s, "packs": len(packs),
+          "gen_s": gen_s, "pack_s": pack_s, "transfer_s": transfer_s,
+          "rois": [x["num_rois"] for x in stats], "roi_cap": rc.max_rois,
+          "roi_nodes": [x["num_roi_nodes"] for x in stats], "roi_node_cap": rc.max_roi_nodes,
+          "interest_nodes": [x["num_interest_nodes"] for x in stats],
+          "interest_node_cap": rc.max_interest_nodes,
+          "global_nodes": [int(b.graph.node_mask.sum()) for b in packs],
+          "global_node_cap": rc.max_global_nodes,
+          "r2g_edges": [live(b.r2g) for b in packs], "g2r_edges": [live(b.g2r) for b in packs],
+          "pool_edge_cap": rc.max_pool_edges,
+          "a2m_edges": [live(b.a2m) for b in packs], "a2r_edges": [live(b.a2r) for b in packs],
+          "roi_plan_edges": [x["plan_edges"] for x in stats],
+          "global_plan_edges": [int((b.graph.plan_lu >= 0).sum()) for b in packs],
+          "roi_residue_list_edges": [sum(live(e) for e in b.edges.values()) for b in packs],
+          "global_residue_list_edges": [sum(live(e) for e in b.graph.edges.values())
+                                        for b in packs],
+          "residue_list_slots": sum(rc.edge_capacity(nm) for nm in packs[0].edges),
+          "dropped": 0})
+
+    net = LaneRCNN(cfg.model, dtype=torch.bfloat16, device="cuda", seed=0)
+    step = make_eval_step(cfg, net, loss_fn=roi_loss, metrics_fn=roi_metrics)
+
+    # --- kernels against their plain versions, on the eval path's inputs ---
+    with forward_capture() as cap:
+        step(batches[0])
+    torch.cuda.synchronize()
+    results = kernel_phase("kernel", geom, forward_ops(spec["kernels"]), cap.calls, cap.counts)
+    del cap
+
+    # --- card vs CPU, float32 ---
+    roi_parity_phase(geom)
+    return results, serve_phase(geom, step, batches, results, pack_s), None
 
 
 def main() -> None:
@@ -912,13 +1114,14 @@ def main() -> None:
                 "ms": res["ms"], "plain_ms": res["plain_ms"],
                 "ms_per_step": res["ms_per_step"],
                 "bound_ms": res["work"]["bound_ms"], "bound_by": res["work"]["bound_by"],
-                "library_ms": None,
+                "library_ms": res["library_ms"],
             }
     kernels = list(kernels.values())
     # Every kernel's launches on every path, beside its home geometry's count.
     for k in kernels:
         entry, bwd = KERNEL_META[k["name"]][2][0], k["name"].endswith("_bwd")
-        k["launches_by_geometry"] = {g: p[int(bwd)][0][entry] for g, p in paths.items()}
+        k["launches_by_geometry"] = {g: p[int(bwd)][0][entry] for g, p in paths.items()
+                                     if p[int(bwd)] is not None}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -335,6 +335,38 @@ def contiguous_pack_config(b: int) -> PackConfig:
     )
 
 
+def lanercnn_pack_config(s: int) -> RoiPackConfig:
+    """The LaneRCNN geometry the port serves: the layout of the JAX package's
+    LaneRCNN benchmark (bench_lanercnn.py `bench_roi_config`, without its
+    environment overrides). RoIs are bin-packed into 256-row windows with a
+    512-slot window plan, the global lane graph into 768-row windows with a
+    2048-slot plan, no neighbour tables, and the pool edges are
+    window-chunked. At s = 256 the capacities equal the benchmark's, except
+    the classic residue lists: they also carry the global graph's plan
+    residue (measured maxima over 256 urban scenarios: 119 scale-0, 10,476
+    dilated, 3,215 left/right edges), so they are sized to drop nothing
+    (132,096 slots per LaneConv layer at s = 256). Small packs get floors so
+    that they pack with zero drops too."""
+    return RoiPackConfig(
+        max_scenarios=s,
+        max_rois=max(6 * s, 8 * min(s, 32), 96),
+        max_roi_nodes=256 * (-(-max(384 * s, 512 * min(s, 16), 2048) // 256)),
+        max_global_nodes=768 * (-(-s * 17 // 16)),
+        max_interest_nodes=max(80 * s, 1024),
+        node_stride=256,
+        max_plan_edges=512,
+        global_node_stride=768,
+        global_plan_edges=2048,
+        table_relations=(),
+        max_edges_scale0=max(2 * s, 512),
+        max_edges_dilated=max(48 * s, 96 * min(s, 64), 512),
+        max_edges_lr=max(16 * s, 24 * min(s, 32), 512),
+        max_a2m_edges=max(40 * s, 1024),
+        max_pool_edges=max(4096 * s, 6144 * min(s, 32)),
+        max_a2r_edges=max(192 * s, 2048),
+    )
+
+
 def relation_names(num_scales: int = 6) -> Tuple[str, ...]:
     """Edge-relation ordering used throughout: pre0..preS, suc0..sucS, left, right."""
     names = []

@@ -1,6 +1,8 @@
-// Att's per-edge chain over one 64-row tile, forward and backward, shared by
-// win_edge.cu (edges of a window-pair plan) and edge_mlp.cu (a flat edge
-// list). Per row, from t1 (the caller's: rnd(relu(d@Wd + bd)) in both):
+// The fusion stages' per-edge chain over one 64-row tile, forward and
+// backward, shared by win_edge.cu (Att's edges of a window-pair plan) and
+// edge_mlp.cu (a flat edge list: Att's, or LanePooling's without the
+// dist_out stage, forward only). Per row, from t1 (the caller's:
+// rnd(relu(d@Wd + bd)) in both):
 //
 //   t2 = rnd(relu(GN_do(t1 @ Wdo)));  s = t2 @ K1 + (the row's query and
 //   context projections);  e1 = rnd(relu(GN_ch(s)));  e2 = e1 @ Wout
@@ -37,20 +39,24 @@ struct Chain {
 
 // A_s holds rnd(t1) (written by the caller before a barrier-free return);
 // leaves e2 = e1 @ Wout of the tile in mm (mm_64x128 layout). qc(r, s)
-// returns s plus row r's projections. Ends without a barrier.
-template <typename T, typename QC>
+// returns s plus row r's projections. Ends without a barrier. DIST2 =
+// false drops the dist_out stage (LanePooling's chain: t2 = t1, and kdo,
+// gdow, gdob are not read).
+template <typename T, bool DIST2 = true, typename QC>
 __device__ __forceinline__ void chain_fwd(float* A_s, float* W_s, const Chain<T>& w, QC qc,
                                           float mm[4][8]) {
   const float ones[4] = {1.f, 1.f, 1.f, 1.f};
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  load_weight<T>(W_s, w.kdo);
-  __syncthreads();
-  zero_acc(mm);
-  mm_64x128(A_s, 0, ones, W_s, mm);  // z = t1 @ Wdo
-  __syncthreads();
-  store_acc(A_s, mm);
-  __syncthreads();
-  gn_relu_rows<T>(A_s, TM, w.gdow, w.gdob, w.eps);  // t2
+  if constexpr (DIST2) {
+    load_weight<T>(W_s, w.kdo);
+    __syncthreads();
+    zero_acc(mm);
+    mm_64x128(A_s, 0, ones, W_s, mm);  // z = t1 @ Wdo
+    __syncthreads();
+    store_acc(A_s, mm);
+    __syncthreads();
+    gn_relu_rows<T>(A_s, TM, w.gdow, w.gdob, w.eps);  // t2
+  }
   load_weight<T>(W_s, w.k1);
   __syncthreads();
   zero_acc(mm);

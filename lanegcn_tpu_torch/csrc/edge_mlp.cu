@@ -1,8 +1,11 @@
-// Fused per-edge MLP of Att over a flat edge list, forward and backward.
+// Fused per-edge MLP over a flat edge list: Att's forward and backward, and
+// LanePooling's forward.
 //
 // Replaces lanegcn_tpu/ops/pallas_edge_mlp.py `_fwd_kernel` / `_fwd_impl`
 // and `_bwd_kernel` / `_bwd_impl` (the Pallas kernels behind
-// `fused_edge_mlp`) in the Att configuration (has_dist2, has_query). Per row
+// `fused_edge_mlp`) in the Att configuration (has_dist2, has_query), and
+// `_fwd_kernel` / `_fwd_impl` in LanePooling's (no dist_out stage, no query,
+// d [E, 4]: edge_mlp_pool_fwd, below). Att's chain: per row
 // e of the list, padding included, the chain of edge_chain.cuh from
 //
 //   t1 = rnd(relu(rnd(d[e]) @ rnd(Wd) + bd)),  s = t2 @ K1 + qg[e] + cg[e],
@@ -32,6 +35,20 @@
 // version runs the products on CUDA cores in fp32, which makes the products
 // the larger cost; about 93 % of the rows are padding at the CLI geometry's
 // capacities, and the kernel runs them all, as the TPU kernel did.
+//
+// edge_mlp_pool_fwd (LaneRCNN's three LanePooling stages): per row,
+//
+//   t1 = rnd(relu(rnd(d[e]) @ rnd(Wd) + bd)),  s = t1 @ K1 + cg[e],
+//   out[e] = rnd(rnd(relu(GN_ch(s))) @ Wout)
+//
+// with d [E, 4] fp32 (relative pose, context minus target) and cg the
+// gathered context projection. The same tile and block as edge_mlp_fwd,
+// two [128 x 128] products per row instead of three. What bounds it: d and
+// cg read and out written (0.55 GB at E = 1,048,576 in bf16, ~0.16 ms)
+// against 2 x 2 x 128 x 128 flops per row: memory-bound at the card's bf16
+// matrix rate, product-bound on the CUDA cores used here. About 11 % of the
+// rows at the 256-scenario pack are padding; each gives one constant row
+// that the caller's scatter drops.
 #include "edge_chain.cuh"
 
 using namespace lgk;
@@ -41,8 +58,9 @@ namespace {
 constexpr int EB = TM;                       // rows per tile
 constexpr int EM_PART = 3 * C * C + 7 * C;  // dWdo, dK1, dWout, dbd, dgdow, dgdob, dgchw, dgchb, dWd
 
-// A_s[r] = rnd(relu(rnd(d[row]) @ rnd(Wd) + bd)) for the tile's rows; 0 past e.
-template <typename T>
+// A_s[r] = rnd(relu(rnd(d[row]) @ rnd(Wd) + bd)) for the tile's rows; 0 past
+// e. d is [e, DIN]; the DIN products are summed in order with fmaf.
+template <typename T, int DIN>
 __device__ __forceinline__ void tile_t1(float* A_s, const float* d, const T* kd, const float* bd,
                                         long row0, int e) {
   for (int i = threadIdx.x; i < EB * (C / 4); i += NT) {
@@ -50,12 +68,18 @@ __device__ __forceinline__ void tile_t1(float* A_s, const float* d, const T* kd,
     const long row = row0 + r;
     float4 t = zero4();
     if (row < e) {
-      const float d0 = rnd<T>(d[row * 2]), d1 = rnd<T>(d[row * 2 + 1]);
-      const float4 k0 = load4<T>(kd + c4), k1 = load4<T>(kd + C + c4);
+      const float d0 = rnd<T>(d[row * DIN]);
+      const float4 k0 = load4<T>(kd + c4);
+      t = make_float4(d0 * k0.x, d0 * k0.y, d0 * k0.z, d0 * k0.w);
+#pragma unroll
+      for (int k = 1; k < DIN; ++k) {
+        const float dk = rnd<T>(d[row * DIN + k]);
+        const float4 kk = load4<T>(kd + k * C + c4);
+        t = make_float4(fmaf(dk, kk.x, t.x), fmaf(dk, kk.y, t.y), fmaf(dk, kk.z, t.z),
+                        fmaf(dk, kk.w, t.w));
+      }
       const float4 b = *reinterpret_cast<const float4*>(bd + c4);
-      t = make_float4(fmaf(d1, k1.x, d0 * k0.x) + b.x, fmaf(d1, k1.y, d0 * k0.y) + b.y,
-                      fmaf(d1, k1.z, d0 * k0.z) + b.z, fmaf(d1, k1.w, d0 * k0.w) + b.w);
-      t = rnd4<T>(relu4(t));
+      t = rnd4<T>(relu4(add4(t, b)));
     }
     *reinterpret_cast<float4*>(A_s + r * LDA + c4) = t;
   }
@@ -76,7 +100,7 @@ edge_mlp_kernel(const float* __restrict__ d, const T* __restrict__ qg, const T* 
   const int lane = threadIdx.x & 31;
   float mm[4][8];
 
-  tile_t1<T>(A_s, d, kd, bd, row0, e);
+  tile_t1<T, 2>(A_s, d, kd, bd, row0, e);
   chain_fwd<T>(A_s, W_s, Chain<T>{kdo, gdow, gdob, k1, gchw, gchb, kout, eps},
                [&](int r, float4 s) {  // s += cg + qg
                  const long row = row0 + r;
@@ -127,7 +151,7 @@ edge_mlp_bwd_kernel(const float* __restrict__ d, const T* __restrict__ qg,
     const long row0 = (long)tile * EB;
     chain_bwd<T>(
         A_s, B_s, C_s, D_s, W_s, st_s, P, vecs, w,
-        [&](float* X_s) { tile_t1<T>(X_s, d, kd, bd, row0, e); },
+        [&](float* X_s) { tile_t1<T, 2>(X_s, d, kd, bd, row0, e); },
         [&](int r, float4 sv) {  // s += cg + qg
           const long row = row0 + r;
           if (row < e) {
@@ -159,6 +183,56 @@ edge_mlp_bwd_kernel(const float* __restrict__ d, const T* __restrict__ qg,
   }
   const float4 all[7] = {vecs[0], vecs[1], vecs[2], vecs[3], vecs[4], vkd[0], vkd[1]};
   reduce_warp_vecs<7>(all, B_s, P + 3 * C * C);
+}
+
+// LanePooling's chain (no dist_out stage, no query): t1 from d [e, DIN],
+// s = t1 @ K1 + cg[e], out[e] = rnd(e1 @ Wout).
+template <typename T, int DIN>
+__global__ void __launch_bounds__(NT)
+edge_mlp_pool_kernel(const float* __restrict__ d, const T* __restrict__ cg,
+                     const T* __restrict__ kd, const float* __restrict__ bd,
+                     const T* __restrict__ k1, const float* __restrict__ gchw,
+                     const float* __restrict__ gchb, const T* __restrict__ kout,
+                     T* __restrict__ out, int e, float eps) {
+  extern __shared__ float4 smem4[];
+  float* A_s = reinterpret_cast<float*>(smem4);  // [EB][LDA]
+  float* W_s = A_s + EB * LDA;                   // [C][C]
+  const long row0 = (long)blockIdx.x * EB;
+  const int lane = threadIdx.x & 31;
+  float mm[4][8];
+
+  tile_t1<T, DIN>(A_s, d, kd, bd, row0, e);
+  chain_fwd<T, false>(A_s, W_s, Chain<T>{nullptr, nullptr, nullptr, k1, gchw, gchb, kout, eps},
+                      [&](int r, float4 s) {  // s += cg
+                        const long row = row0 + r;
+                        if (row < e) s = add4(s, load4<T>(cg + row * C + lane * 4));
+                        return s;
+                      },
+                      mm);  // e2 = e1 @ Wout
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long row = row0 + mm_row(i);
+    if (row < e) {
+      store4<T>(out + row * C + mm_col(0), make_float4(mm[i][0], mm[i][1], mm[i][2], mm[i][3]));
+      store4<T>(out + row * C + mm_col(4), make_float4(mm[i][4], mm[i][5], mm[i][6], mm[i][7]));
+    }
+  }
+}
+
+template <typename T, int DIN>
+int launch_pool(const float* d, const void* cg, const void* kd, const float* bd, const void* k1,
+                const float* gchw, const float* gchb, const void* kout, void* out, int e,
+                float eps, cudaStream_t stream) {
+  const int smem = (EB * LDA + C * C) * (int)sizeof(float);
+  cudaError_t err = set_smem((const void*)edge_mlp_pool_kernel<T, DIN>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (e + EB - 1) / EB;
+  if (tiles > 0) {
+    edge_mlp_pool_kernel<T, DIN><<<tiles, NT, smem, stream>>>(
+        d, (const T*)cg, (const T*)kd, bd, (const T*)k1, gchw, gchb, (const T*)kout, (T*)out, e,
+        eps);
+  }
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -214,6 +288,26 @@ extern "C" int edge_mlp_fwd(const void* d, const void* qg, const void* cg, const
     return launch<float>(dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout, out, e, eps, st);
   if (dtype == 1)
     return launch<bf16>(dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout, out, e, eps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// LanePooling's configuration (has_dist2 = has_query = false). dtype as
+// edge_mlp_fwd (cg, kd [din, C], k1, kout, out); d fp32 [e, din], din 2 or 4.
+extern "C" int edge_mlp_pool_fwd(const void* d, const void* cg, const void* kd, const void* bd,
+                                 const void* k1, const void* gchw, const void* gchb,
+                                 const void* kout, void* out, int e, int din, float eps,
+                                 int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const float *dp = (const float*)d, *b = (const float*)bd, *g2 = (const float*)gchw,
+              *g3 = (const float*)gchb;
+  if (dtype == 0 && din == 2)
+    return launch_pool<float, 2>(dp, cg, kd, b, k1, g2, g3, kout, out, e, eps, st);
+  if (dtype == 0 && din == 4)
+    return launch_pool<float, 4>(dp, cg, kd, b, k1, g2, g3, kout, out, e, eps, st);
+  if (dtype == 1 && din == 2)
+    return launch_pool<bf16, 2>(dp, cg, kd, b, k1, g2, g3, kout, out, e, eps, st);
+  if (dtype == 1 && din == 4)
+    return launch_pool<bf16, 4>(dp, cg, kd, b, k1, g2, g3, kout, out, e, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,6 +21,7 @@ from lanegcn_tpu_torch.graph import (
     PackedBatch,
     PairPlan,
 )
+from lanegcn_tpu_torch.ops.window_scatter import WCHUNK
 
 
 def _pad_edges(u: np.ndarray, v: np.ndarray, capacity: int) -> Tuple[EdgeSet, int]:
@@ -58,6 +59,77 @@ def _pad_edges_sorted(
         inv_dst[:n] = v[:n][o2]
     return (
         EdgeSet(u=es.u, v=es.v, mask=es.mask, inv_perm=inv_perm, inv_dst=inv_dst),
+        dropped,
+    )
+
+
+def window_chunked_edges(
+    u: np.ndarray, v: np.ndarray, capacity: int, dst_stride: int, num_src: int
+) -> Tuple[EdgeSet, int]:
+    """_pad_edges_sorted, additionally CHUNK-ALIGNED per destination window.
+
+    Edges are sorted by destination, then each destination window's segment
+    (window = u // dst_stride) is padded to a multiple of WCHUNK so no chunk
+    straddles two windows. The EdgeSet carries win_lu / win_chunk /
+    win_first for ops/window_scatter.window_scatter_add plus the usual
+    source-side inverse. Alignment costs ≤ WCHUNK - 1 padded slots per
+    occupied window; windows that no longer fit the aligned capacity drop
+    their tail edges (counted in the return)."""
+    W = WCHUNK
+    assert capacity % W == 0, (capacity, W)
+    u = np.asarray(u, np.int64)
+    v = np.asarray(v, np.int64)
+    order = np.argsort(u, kind="stable")
+    u, v = u[order], v[order]
+    nch = capacity // W
+    uu = np.zeros(capacity, np.int32)
+    vv = np.zeros(capacity, np.int32)
+    mm = np.zeros(capacity, bool)
+    lu = np.full(capacity, -1, np.int32)
+    wchunk = np.zeros(nch, np.int32)
+    first = np.zeros(nch, np.int32)
+    dropped = 0
+    pos = 0  # next free chunk
+    if len(u):
+        win = u // dst_stride
+        wins, starts = np.unique(win, return_index=True)
+        bounds = np.append(starts, len(u))
+        for k, w in enumerate(wins):
+            s0, s1 = int(bounds[k]), int(bounds[k + 1])
+            n = s1 - s0
+            take_chunks = min(-(-n // W), nch - pos)
+            take = min(n, take_chunks * W)
+            dropped += n - take
+            if take_chunks <= 0:
+                continue
+            r0 = pos * W
+            uu[r0 : r0 + take] = u[s0 : s0 + take]
+            vv[r0 : r0 + take] = v[s0 : s0 + take]
+            mm[r0 : r0 + take] = True
+            lu[r0 : r0 + take] = u[s0 : s0 + take] - int(w) * dst_stride
+            wchunk[pos : pos + take_chunks] = w
+            first[pos] = 1
+            pos += take_chunks
+    if pos == 0:
+        first[0] = 1  # all padding: window 0 still gets temp
+    else:
+        wchunk[pos:] = wchunk[pos - 1]  # tail chunks: no-op revisits
+    # Source-side inverse over the (holey) valid rows: padding keys to the
+    # num_src drop sentinel, exactly like _pad_edges_sorted's tail padding.
+    key = np.where(mm, vv, num_src)
+    o2 = np.argsort(key, kind="stable").astype(np.int32)
+    return (
+        EdgeSet(
+            u=uu,
+            v=vv,
+            mask=mm,
+            inv_perm=o2,
+            inv_dst=key[o2].astype(np.int32),
+            win_lu=lu.reshape(-1, 1),
+            win_chunk=wchunk,
+            win_first=first,
+            win_stride=int(dst_stride),
+        ),
         dropped,
     )
 

@@ -16,6 +16,7 @@ import numpy as np
 
 from lanegcn_tpu_torch.data.featurize import featurize_scenario
 from lanegcn_tpu_torch.data.lane_graph import Lane, build_lane_graph
+from lanegcn_tpu_torch.data.lane_roi import generate_lane_rois
 
 
 def _make_corridor(
@@ -240,3 +241,11 @@ def make_urban_scenario(seed: int, num_corridors: int = 5, num_actors: int = 12,
     return make_synthetic_scenario(
         seed, num_corridors=num_corridors, num_actors=num_actors, urban=True, **kw
     )
+
+
+def make_roi_scenario(seed: int, num_corridors: int = 4, num_actors: int = 12,
+                      urban: bool = False) -> Dict:
+    """A synthetic scenario with its per-agent LaneRoI subgraphs (LaneRCNN's
+    input; the counterpart of the JAX package's RoiSyntheticDataset item)."""
+    return generate_lane_rois(make_synthetic_scenario(
+        seed, num_corridors=num_corridors, num_actors=num_actors, urban=urban))

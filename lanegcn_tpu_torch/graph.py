@@ -5,11 +5,12 @@ package's pytrees (one packed micro-batch: all actors of all scenarios in
 one [A, ...] buffer, all lane nodes in one [N, ...] buffer, fixed-capacity
 edge lists with validity masks, window-pair chunked fusion plans).
 
-The host packer (data/packing.py) fills them with numpy arrays;
-`PackedBatch.from_numpy` turns any object with these fields (the packer's
-output, or another framework's pack with numpy leaves) into torch tensors,
-and `.to(device)` moves them. Edge-list and row indices become int64 (torch
-indexing); the window plans and pair plans keep int32, which is what the
+The host packers (data/packing.py, data/packing_roi.py) fill them with
+numpy arrays; `PackedBatch.from_numpy` and `RoiPackedBatch.from_numpy` turn
+any object with these fields (the packer's output, or another framework's
+pack with numpy leaves) into torch tensors, and `.to(device)` moves them.
+Edge-list and row indices become int64 (torch indexing); the window plans,
+pair plans and window-chunked edge fields keep int32, which is what the
 CUDA kernels read.
 """
 
@@ -71,6 +72,17 @@ class EdgeSet(_Tree):
     mask: torch.Tensor  # [E] bool, False on padding
     inv_perm: Optional[torch.Tensor] = None
     inv_dst: Optional[torch.Tensor] = None
+    # Window-chunked layout (data/packing.py window_chunked_edges): each
+    # destination window's edges fill whole 512-edge chunks, destination-
+    # sorted, so a window's padding sits between its last edge and the next
+    # window's first. win_lu [E, 1] int32 window-local destination (-1 on
+    # padding), win_chunk / win_first [E/512] int32 the destination window
+    # of each chunk and whether it is the window's first; win_stride the
+    # destination window's rows.
+    win_lu: Optional[torch.Tensor] = None
+    win_chunk: Optional[torch.Tensor] = None
+    win_first: Optional[torch.Tensor] = None
+    win_stride: int = 0
 
     @property
     def capacity(self) -> int:
@@ -82,8 +94,9 @@ class EdgeSet(_Tree):
         non-decreasing over the valid edges, padding last) with its
         source-side inverse: inv_perm is the argsort of v over the valid
         edges, inv_dst = v[inv_perm] with the source-row count as the
-        padding sentinel."""
-        return self.inv_perm is not None
+        padding sentinel. Window-chunked lists carry the inverse too, but
+        their padding holes sit mid-array, so they are not."""
+        return self.inv_perm is not None and self.win_lu is None
 
     def num_valid(self):
         return self.mask.sum()
@@ -96,6 +109,10 @@ class EdgeSet(_Tree):
             mask=_convert(e.mask, False),
             inv_perm=_convert(getattr(e, "inv_perm", None), False),
             inv_dst=_convert(getattr(e, "inv_dst", None), False),
+            win_lu=_convert(getattr(e, "win_lu", None), True),
+            win_chunk=_convert(getattr(e, "win_chunk", None), True),
+            win_first=_convert(getattr(e, "win_first", None), True),
+            win_stride=int(getattr(e, "win_stride", 0)),
         )
 
 
@@ -313,4 +330,79 @@ class PackedBatch(_Tree):
             orig=_convert(b.orig, False),
             scen_mask=_convert(b.scen_mask, False),
             agent_idx=_convert(b.agent_idx, False),
+        )
+
+
+@dataclasses.dataclass
+class RoiPackedBatch(_Tree):
+    """LaneRCNN's pack: every RoI subgraph's nodes flattened RoI-major (the
+    reference's subgraph_gather, reference lanercnn.py:122-231), the shared
+    global lane graph, the RoI↔graph pool edges and the interest-RoI decode
+    layout. Shapes: M RoI-node, R RoI, MI interest-node, B scenario and N
+    global-node capacities, T history steps."""
+
+    node_feats: torch.Tensor  # [M, 8] ctr, dir, turn, control, intersect
+    node_mask: torch.Tensor  # [M] bool
+    node_roi: torch.Tensor  # [M] RoI row
+    agent_feat: torch.Tensor  # [R, 80] 20 x (traj xy, delta xy)
+    agent_vel: torch.Tensor  # [R]
+    roi_mask: torch.Tensor  # [R] bool
+    roi_scen: torch.Tensor  # [R]
+    edges: Dict[str, EdgeSet]  # relations within [M]
+    a2m: EdgeSet  # u → RoI rows [R], v → RoI-node rows [M]
+    graph: LaneGraphBatch  # the global lane graph
+    r2g: EdgeSet  # u → global-node rows [N], v → RoI-node rows [M]
+    g2r: EdgeSet  # u → RoI-node rows [M], v → global-node rows [N]
+    int_node_idx: torch.Tensor  # [MI] RoI-node row
+    int_node_scen: torch.Tensor  # [MI] scenario row
+    int_node_mask: torch.Tensor  # [MI] bool
+    a2r: EdgeSet  # u → interest-node rows [MI], v → trajectory-point rows [B*T]
+    agt_ctrs: torch.Tensor  # [B, 2] focal agent, agent frame
+    agt_dirs: torch.Tensor  # [B, 2] unit last-step heading (0 if still)
+    agt_vels: torch.Tensor  # [B]
+    agt_trajs: torch.Tensor  # [B, T, 2]
+    agt_traj_dirs: torch.Tensor  # [B, T, 2]
+    gt_preds: torch.Tensor  # [B, T_pred, 2]
+    has_preds: torch.Tensor  # [B, T_pred] bool
+    scen_mask: torch.Tensor  # [B] bool
+    bands: Optional[Dict[str, torch.Tensor]] = None
+    tables: Optional[Dict[str, torch.Tensor]] = None
+    table_inv: Optional[EdgeSet] = None
+    plan_lu: Optional[torch.Tensor] = None
+    plan_lv: Optional[torch.Tensor] = None
+    plan_rel: Optional[torch.Tensor] = None
+    plan_scen: int = 0
+
+    @property
+    def num_scenarios(self) -> int:
+        return self.scen_mask.shape[0]
+
+    @classmethod
+    def from_numpy(cls, b) -> "RoiPackedBatch":
+        """Any RoI pack with these fields and numpy (or torch) leaves → a
+        RoiPackedBatch of CPU tensors."""
+        bands = getattr(b, "bands", None)
+        tables = getattr(b, "tables", None)
+        table_inv = getattr(b, "table_inv", None)
+        plain = {f: _convert(getattr(b, f), False) for f in (
+            "node_feats", "node_mask", "node_roi", "agent_feat", "agent_vel", "roi_mask",
+            "roi_scen", "int_node_idx", "int_node_scen", "int_node_mask", "agt_ctrs",
+            "agt_dirs", "agt_vels", "agt_trajs", "agt_traj_dirs", "gt_preds", "has_preds",
+            "scen_mask")}
+        return cls(
+            **plain,
+            edges={k: EdgeSet.from_numpy(e) for k, e in b.edges.items()},
+            a2m=EdgeSet.from_numpy(b.a2m),
+            graph=LaneGraphBatch.from_numpy(b.graph),
+            r2g=EdgeSet.from_numpy(b.r2g),
+            g2r=EdgeSet.from_numpy(b.g2r),
+            a2r=EdgeSet.from_numpy(b.a2r),
+            bands=None if bands is None else {k: _convert(m, False) for k, m in bands.items()},
+            tables=None if tables is None else {
+                k: _convert(t, False) for k, t in tables.items()},
+            table_inv=None if table_inv is None else EdgeSet.from_numpy(table_inv),
+            plan_lu=_convert(getattr(b, "plan_lu", None), True),
+            plan_lv=_convert(getattr(b, "plan_lv", None), True),
+            plan_rel=_convert(getattr(b, "plan_rel", None), True),
+            plan_scen=int(getattr(b, "plan_scen", 0)),
         )

@@ -31,7 +31,7 @@ from torch import nn
 from lanegcn_tpu_torch.config import ModelConfig
 from lanegcn_tpu_torch.graph import EdgeSet, LaneGraphBatch, PairPlan
 from lanegcn_tpu_torch.models.layers import Dense, GroupNorm, Linear
-from lanegcn_tpu_torch.models.map_net import LaneConvStack
+from lanegcn_tpu_torch.models.map_net import LaneConvStack, graph_inputs
 from lanegcn_tpu_torch.ops import masked_gather, scatter_add
 from lanegcn_tpu_torch.ops.edge_mlp import fused_edge_mlp
 from lanegcn_tpu_torch.ops.row_tail import fused_row_tail
@@ -123,7 +123,7 @@ class M2M(nn.Module):
         self.fuse = LaneConvStack(cfg, cfg.num_fuse_layers, dtype=dtype)
 
     def forward(self, nodes, graph: LaneGraphBatch):
-        return self.fuse(nodes, graph)
+        return self.fuse(nodes, **graph_inputs(graph))
 
 
 class M2A(nn.Module):

@@ -18,17 +18,21 @@ the pack carries:
 - the intra-lane band edges (v = u + 2^s, the pack's band masks) and the
   whole layer tail: the fused `lane_layer` kernel.
 
-Packs without band masks (split_bands=False) are not ported yet and raise
-NotImplementedError.
+One stack serves every node space: MapNet's and M2M's lane graph, and
+LaneRCNN's RoI subgraphs and global graph (the stack takes the relation
+fields, not a pack). Packs without band masks (split_bands=False) are not
+ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
 
 from lanegcn_tpu_torch.config import ModelConfig, band_shift, relation_names
-from lanegcn_tpu_torch.graph import EdgeSet, LaneGraphBatch
+from lanegcn_tpu_torch.graph import EdgeSet, LaneGraphBatch, PairPlan
 from lanegcn_tpu_torch.models.layers import Dense, GroupNorm, Linear
 from lanegcn_tpu_torch.ops import masked_gather, scatter_add
 from lanegcn_tpu_torch.ops.lane_layer import fused_lane_layer
@@ -58,33 +62,39 @@ class LaneConvStack(nn.ModuleDict):
         self.dtype = dtype
         self.names = names
 
-    def forward(self, feat: torch.Tensor, graph: LaneGraphBatch) -> torch.Tensor:
-        if not graph.bands:
+    def forward(self, feat: torch.Tensor, edges: Dict[str, EdgeSet],
+                bands: Dict[str, torch.Tensor] | None,
+                tables: Dict[str, torch.Tensor] | None = None,
+                plan: Tuple | None = None, spill: PairPlan | None = None) -> torch.Tensor:
+        """feat [N, C] over one node space and that space's relations: the
+        residue lists `edges`, the band masks, the neighbour tables, the
+        window plan (lu, lv, rel, windows) and the spill plan, as a pack
+        carries them (`graph_inputs` for a LaneGraphBatch)."""
+        if not bands:
             raise NotImplementedError("packs without band masks are not ported yet")
         dt = self.dtype
         fuse = self
         names = self.names
         num_nodes = feat.shape[0]
-        band_rel = [(r, nm) for r, nm in enumerate(names) if nm in graph.bands]
+        band_rel = [(r, nm) for r, nm in enumerate(names) if nm in bands]
         shifts = [band_shift(nm) for _, nm in band_rel]
-        band_masks = torch.stack([graph.bands[nm] for _, nm in band_rel], 0).contiguous()
+        band_masks = torch.stack([bands[nm] for _, nm in band_rel], 0).contiguous()
         band_idx = [r for r, _ in band_rel]
 
-        plan = graph.plan_lu is not None
         groups = None
-        if plan:
-            num_win = graph.plan_scen
-            ecap = graph.plan_lu.shape[0] // num_win
+        if plan is not None:
+            plan_lu, plan_lv, plan_rel, num_win = plan
+            ecap = plan_lu.shape[0] // num_win
             lr = tuple(r for r, nm in enumerate(names) if nm in ("left", "right"))
             dil = tuple(r for r, nm in enumerate(names) if nm not in ("left", "right"))
             if ecap >= GROUPED_MIN_CAP and lr and dil:
                 groups = (lr, dil)
 
-        tbl_rel = [r for r, nm in enumerate(names) if graph.tables and nm in graph.tables]
+        tbl_rel = [r for r, nm in enumerate(names) if tables and nm in tables]
         if tbl_rel:
-            tbl_stack = torch.stack([graph.tables[names[r]] for r in tbl_rel], 0)
-        edge_u = torch.cat([graph.edges[nm].u for nm in names])
-        edge_m = torch.cat([graph.edges[nm].mask for nm in names])
+            tbl_stack = torch.stack([tables[names[r]] for r in tbl_rel], 0)
+        edge_u = torch.cat([edges[nm].u for nm in names])
+        edge_m = torch.cat([edges[nm].mask for nm in names])
 
         for i in range(self.num_layers):
             temp = fuse["ctr"][i](feat)
@@ -96,19 +106,19 @@ class LaneConvStack(nn.ModuleDict):
                 temp = temp + torch.einsum("rnc,rcd->nd", xg.to(dt), w_rel[tbl_rel].to(dt))
             msgs = []
             for r, nm in enumerate(names):
-                e: EdgeSet = graph.edges[nm]
+                e: EdgeSet = edges[nm]
                 src = masked_gather(feat, e.v, e.mask)
                 msgs.append(src.to(dt) @ w_rel[r].to(dt))
             temp = scatter_add(torch.cat(msgs), edge_u, num_nodes, mask=edge_m, out=temp)
             w_dt = w_rel.to(dt).contiguous()
-            if plan:
+            if plan is not None:
                 temp = scenario_aggregate(
                     feat.to(dt).contiguous(), temp.to(dt).contiguous(), w_dt,
-                    graph.plan_lu, graph.plan_lv, graph.plan_rel, num_win, groups,
+                    plan_lu, plan_lv, plan_rel, num_win, groups,
                 )
-            if graph.spill_pair is not None:
+            if spill is not None:
                 temp = pair_aggregate(feat.to(dt).contiguous(), temp.to(dt).contiguous(), w_dt,
-                                      graph.spill_pair)
+                                      spill)
             norm, ctr2 = fuse["norm"][i], fuse["ctr2"][i]
             feat = fused_lane_layer(
                 feat.to(dt).contiguous(), temp.to(dt).contiguous(), band_masks,
@@ -116,6 +126,16 @@ class LaneConvStack(nn.ModuleDict):
                 norm.weight, norm.bias, ctr2.norm.weight, ctr2.norm.bias, shifts,
             )
         return feat
+
+
+def graph_inputs(graph) -> dict:
+    """A LaneConvStack's relation inputs from a LaneGraphBatch (the LaneGCN
+    pack's graph, or LaneRCNN's global graph)."""
+    plan = None
+    if graph.plan_lu is not None:
+        plan = (graph.plan_lu, graph.plan_lv, graph.plan_rel, graph.plan_scen)
+    return dict(edges=graph.edges, bands=graph.bands, tables=graph.tables, plan=plan,
+                spill=graph.spill_pair)
 
 
 class MapNet(nn.Module):
@@ -132,4 +152,4 @@ class MapNet(nn.Module):
 
     def forward(self, graph: LaneGraphBatch) -> torch.Tensor:
         feat = torch.relu(self.input(graph.ctrs) + self.seg(graph.feats))
-        return self.fuse(feat, graph)
+        return self.fuse(feat, **graph_inputs(graph))

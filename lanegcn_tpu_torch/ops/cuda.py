@@ -10,9 +10,10 @@ Every C entry point returns `cudaGetLastError()` after its launch; `call`
 raises when that is not 0, so a refused launch never passes silently.
 
 `LAUNCHES` counts launches per C entry point (`lane_layer_fwd`,
-`lane_layer_bwd`, ..., `pair_agg_bwd_s`, `edge_mlp_bwd`): `call` adds one where it launches the entry, and
-nothing else does. An entry may run several kernels (a backward's passes
-and its partial-sum reduction); it counts once per call.
+`lane_layer_bwd`, ..., `edge_mlp_pool_fwd`, `window_scatter_fwd`): `call`
+adds one where it launches the entry, and nothing else does. An entry may
+run several kernels (a backward's passes and its partial-sum reduction); it
+counts once per call.
 """
 
 from __future__ import annotations
@@ -33,9 +34,10 @@ ENTRIES = {
     "lane_layer": ("lane_layer_fwd", "lane_layer_bwd"),
     "scenario_agg": ("scenario_agg_fwd", "scenario_agg_bwd"),
     "win_edge": ("win_edge_fwd", "win_edge_bwd_d", "win_edge_bwd_s"),
-    "row_tail": ("row_tail_fwd", "row_tail_bwd"),
+    "row_tail": ("row_tail_fwd", "row_tail_bwd", "row_tail2_fwd"),
     "pair_agg": ("pair_agg_fwd", "pair_agg_bwd_d", "pair_agg_bwd_s"),
-    "edge_mlp": ("edge_mlp_fwd", "edge_mlp_bwd"),
+    "edge_mlp": ("edge_mlp_fwd", "edge_mlp_bwd", "edge_mlp_pool_fwd"),
+    "window_scatter": ("window_scatter_fwd",),
 }
 
 KERNELS = tuple(ENTRIES)
@@ -154,6 +156,13 @@ def num_sms(device: torch.device) -> int:
     """Streaming multiprocessors of the card: the block count of the
     backward passes that keep one parameter-gradient partial per block."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when a forward-only kernel would have to carry a gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{name}: the kernel's backward is not ported yet; "
+                                  "call it under torch.no_grad()")
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> int:

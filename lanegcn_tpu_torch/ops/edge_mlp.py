@@ -1,15 +1,19 @@
-"""Att's fused per-edge MLP over a flat edge list: the `edge_mlp` CUDA
-kernels (csrc/edge_mlp.cu, forward and backward) and their plain versions.
+"""The fused per-edge MLP over a flat edge list: the `edge_mlp` CUDA kernels
+(csrc/edge_mlp.cu) and their plain versions.
 
 Per row e of the list (padding rows included):
-    t1 = relu(d[e] @ Wd + bd);  t2 = relu(GN(t1 @ Wdo))
-    s  = t2 @ K1 + qg[e] + cg[e];  e1 = relu(GN(s));  out[e] = e1 @ Wout
+    t1 = relu(d[e] @ Wd + bd);  t2 = relu(GN(t1 @ Wdo))   [has_dist2]
+    s  = t2 @ K1 + cg[e] (+ qg[e] with has_query);  e1 = relu(GN(s))
+    out[e] = e1 @ Wout
 
-Counterpart of lanegcn_tpu/ops/pallas_edge_mlp.py `fused_edge_mlp` with
-has_dist2 and has_query (the Att configuration); the gathers before it and
-the destination scatter after it stay outside. The public op runs through a
+Counterpart of lanegcn_tpu/ops/pallas_edge_mlp.py `fused_edge_mlp` in its
+two configurations: Att's (has_dist2 and has_query, d [E, 2]) and
+LanePooling's (neither; t2 = t1, d [E, 4]). The gathers before it and the
+destination scatter after it stay outside. Att's op runs through a
 `torch.autograd.Function` whose backward is the `edge_mlp_bwd` kernel on
-CUDA tensors and `edge_mlp_bwd_plain` on CPU tensors.
+CUDA tensors and `edge_mlp_bwd_plain` on CPU tensors. LanePooling's is
+forward only (`edge_mlp_pool_fwd`; LaneRCNN's training path is not ported
+yet): a CUDA call that would need a gradient raises.
 """
 
 from __future__ import annotations
@@ -26,15 +30,20 @@ PART = 3 * C * C + 7 * C  # dWdo, dK1, dWout, dbd, dgdow, dgdob, dgchw, dgchb, d
 
 
 def edge_mlp_plain(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
+                   has_dist2: bool = True, has_query: bool = True,
                    eps: float = 1e-5) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch: d and the weights rounded to the
+    """The kernels' arithmetic in PyTorch: d and the weights rounded to the
     activation dtype, fp32 products and statistics, t1/t2/e1 and the output
-    rounded to the activation dtype."""
+    rounded to the activation dtype. Without has_dist2, kdo/gdow/gdob are
+    not read; without has_query, qg is not."""
     dt = cg.dtype
     rnd = lambda x: x.to(dt).float()
-    t1 = rnd(torch.relu(rnd(d) @ rnd(kd) + bd.float()))
-    t2 = rnd(torch.relu(group_norm(t1 @ rnd(kdo), gdow, gdob, 1, eps)))
-    s = t2 @ rnd(k1) + cg.float() + qg.float()
+    t = rnd(torch.relu(rnd(d) @ rnd(kd) + bd.float()))
+    if has_dist2:
+        t = rnd(torch.relu(group_norm(t @ rnd(kdo), gdow, gdob, 1, eps)))
+    s = t @ rnd(k1) + cg.float()
+    if has_query:
+        s = s + qg.float()
     e1 = rnd(torch.relu(group_norm(s, gchw, gchb, 1, eps)))
     return (e1 @ rnd(kout)).to(dt)
 
@@ -139,7 +148,7 @@ class _EdgeMlp(torch.autograd.Function):
         ctx.save_for_backward(*args)
         ctx.eps = eps
         if cg.device.type == "cpu":
-            return edge_mlp_plain(*args, eps)
+            return edge_mlp_plain(*args, True, True, eps)
         return _fwd_cuda(*args, eps)
 
     @staticmethod
@@ -151,21 +160,56 @@ class _EdgeMlp(torch.autograd.Function):
         return (*(x.to(p.dtype) for x, p in zip(grads, saved)), None)
 
 
+def _pool_fwd_cuda(d, cg, kd, bd, k1, gchw, gchb, kout, eps):
+    e, c = cg.shape
+    din = d.shape[1] if d.dim() == 2 else 0
+    if (c != C or tuple(d.shape) != (e, din) or din not in (2, 4)
+            or tuple(kd.shape) != (din, c) or tuple(k1.shape) != (c, c)
+            or tuple(kout.shape) != (c, c)
+            or any(tuple(p.shape) != (c,) for p in (bd, gchw, gchb))):
+        raise ValueError(f"edge_mlp: bad shapes d {d.shape} cg {cg.shape} kd {kd.shape}")
+    if d.dtype != torch.float32:
+        raise TypeError("edge_mlp: d must be float32")
+    dt = cg.dtype
+    ws = [w.to(dt).contiguous() for w in (kd, k1, kout)]
+    vs = [p.float().contiguous() for p in (bd, gchw, gchb)]
+    code = cuda.check_cuda("edge_mlp", cg, d, *ws, *vs)
+    out = torch.empty_like(cg)
+    cuda.call(
+        "edge_mlp", "edge_mlp_pool_fwd",
+        cuda.ptr(d), cuda.ptr(cg), cuda.ptr(ws[0]), cuda.ptr(vs[0]), cuda.ptr(ws[1]),
+        cuda.ptr(vs[1]), cuda.ptr(vs[2]), cuda.ptr(ws[2]), cuda.ptr(out), ctypes.c_int(e),
+        ctypes.c_int(din), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+    )
+    return out
+
+
 def fused_edge_mlp(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
+                   has_dist2: bool = True, has_query: bool = True,
                    eps: float = 1e-5) -> torch.Tensor:
-    """The per-edge chain of Att; returns e2 [E, 128] for the caller's masked
+    """The per-edge chain; returns e2 [E, 128] for the caller's masked
     destination scatter.
 
-    d [E, 2] fp32 (the edge's centre offset); qg/cg [E, 128] in one
-    activation dtype (the gathered query and context projections); kd
-    [2, 128], kdo/k1/kout [128, 128] (in, out), cast to the activation dtype
-    inside; bd and the GN affines [128] fp32. CPU tensors take the plain
-    version; CUDA tensors launch the kernel.
+    Att (has_dist2, has_query): d [E, 2] fp32 (the edge's centre offset);
+    qg/cg [E, 128] in one activation dtype (the gathered query and context
+    projections); kd [2, 128], kdo/k1/kout [128, 128] (in, out), cast to the
+    activation dtype inside; bd and the GN affines [128] fp32.
+    LanePooling (neither flag): qg, kdo, gdow and gdob None; d [E, 4] fp32
+    (the relative pose), kd [4, 128]. CPU tensors take the plain version;
+    CUDA tensors launch the kernel.
     """
     if cg.device.type not in ("cpu", "cuda"):
         raise ValueError(f"edge_mlp: unsupported device {cg.device}")
-    return _EdgeMlp.apply(d.contiguous(), qg.contiguous(), cg.contiguous(), kd, bd, kdo, gdow,
-                          gdob, k1, gchw, gchb, kout, eps)
+    if has_dist2 and has_query:
+        return _EdgeMlp.apply(d.contiguous(), qg.contiguous(), cg.contiguous(), kd, bd, kdo,
+                              gdow, gdob, k1, gchw, gchb, kout, eps)
+    if has_dist2 or has_query:
+        raise NotImplementedError("edge_mlp: only Att's and LanePooling's configurations")
+    if cg.device.type == "cpu":
+        return edge_mlp_plain(d, None, cg, kd, bd, None, None, None, k1, gchw, gchb, kout,
+                              False, False, eps)
+    cuda.check_no_grad("edge_mlp_pool", d, cg, kd, bd, k1, gchw, gchb, kout)
+    return _pool_fwd_cuda(d.contiguous(), cg.contiguous(), kd, bd, k1, gchw, gchb, kout, eps)
 
 
 def _live_rows(*rows) -> int:
@@ -178,17 +222,22 @@ def _live_rows(*rows) -> int:
     return n_live + int(n_live < live.numel())
 
 
-def work(d, qg, cg) -> dict:
-    """Bytes moved and operations done at these inputs: d, qg, cg read and
-    the output written whole, the weights read once; the chain's products
-    (d @ Wd and three [128 x 128]) run once per row with a nonzero input
-    and once for all the all-zero (padding) rows together."""
+def work(d, qg, cg, has_dist2: bool = True) -> dict:
+    """Bytes moved and operations done at these inputs: d, cg (and qg, where
+    given) read and the output written whole, the weights read once; the
+    chain's products (d @ Wd and three [128 x 128], two without has_dist2)
+    run once per row with a nonzero input and once for all the all-zero
+    (padding) rows together."""
     e, c = cg.shape
+    din = d.shape[1]
     db = cg.element_size()
-    rows = _live_rows(d, qg, cg)
+    rows = _live_rows(*(x for x in (d, qg, cg) if x is not None))
+    mats = 3 if has_dist2 else 2
+    acts = 2 + (qg is not None)
     return {
-        "bytes": e * (2 * 4 + 3 * c * db) + (3 * c * c + 2 * c) * db + 5 * c * 4,
-        "flops": 2 * rows * (2 * c + 3 * c * c),
+        "bytes": e * (din * 4 + acts * c * db) + (mats * c * c + din * c) * db
+        + (2 * mats - 1) * c * 4,
+        "flops": 2 * rows * (din * c + mats * c * c),
         "rows": e,
         "live_rows": rows,
     }

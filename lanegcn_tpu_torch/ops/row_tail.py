@@ -1,12 +1,15 @@
-"""Fused residual row tail, K = 1: the `row_tail` CUDA kernels
-(csrc/row_tail.cu, forward and backward) and their plain versions.
+"""Fused residual row tails: the `row_tail` CUDA kernels (csrc/row_tail.cu)
+and their plain versions.
 
-    out = relu(GN2(relu(GN1(x)) @ W) + res)
+    K = 1:  out = relu(GN2(relu(GN1(x)) @ W) + res)
+    K = 2:  out = relu(GN3(relu(GN2(relu(GN1(x)) @ W1)) @ W2) + res)
 
-Counterpart of lanegcn_tpu/ops/pallas_row_tail.py `fused_row_tail`. The
-public op runs through a `torch.autograd.Function`: its backward is the
+Counterparts of lanegcn_tpu/ops/pallas_row_tail.py `fused_row_tail` (Att's
+tail) and `fused_row_tail2` (LaneRCNN's LanePooling tail). The K = 1 op
+runs through a `torch.autograd.Function`: its backward is the
 `row_tail_bwd` kernel on CUDA tensors and `row_tail_bwd_plain` on CPU
-tensors.
+tensors. K = 2 is forward only (LaneRCNN's training path is not ported
+yet): a CUDA call that would need a gradient raises.
 """
 
 from __future__ import annotations
@@ -138,6 +141,50 @@ def fused_row_tail(x, res, w, g1w, g1b, g2w, g2b, eps: float = 1e-5) -> torch.Te
                           eps)
 
 
+def row_tail2_plain(x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """The K = 2 kernel's arithmetic: h1 and h2 rounded to x's dtype, fp32
+    products and statistics, one rounding of the output."""
+    dt = x.dtype
+    h = torch.relu(group_norm(x, g1w, g1b, 1, eps)).to(dt).float()
+    t = h @ w1.to(dt).float()
+    h = torch.relu(group_norm(t, g2w, g2b, 1, eps)).to(dt).float()
+    t = h @ w2.to(dt).float()
+    y = group_norm(t, g3w, g3b, 1, eps)
+    return torch.relu(y + res.float()).to(dt)
+
+
+def _fwd2_cuda(x, res, w1, w2, gns, eps):
+    for w in (w1, w2):
+        _check(x, res, w, gns)
+    gn = torch.stack([g.float() for g in gns]).contiguous()
+    code = cuda.check_cuda("row_tail", x, res, w1, w2, gn)
+    out = torch.empty_like(x)
+    cuda.call(
+        "row_tail", "row_tail2_fwd",
+        cuda.ptr(x), cuda.ptr(res), cuda.ptr(w1), cuda.ptr(w2), cuda.ptr(gn), cuda.ptr(out),
+        ctypes.c_int(x.shape[0]), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+    )
+    return out
+
+
+def fused_row_tail2(x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """The two-Linear tail of LanePooling (reference lanercnn.py:497-505).
+
+    x/res [N, 128] in one dtype; w1/w2 [128, 128] (in, out), cast to x's
+    dtype; GN affines [128] fp32. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    args = (g1w, g1b, g2w, g2b, g3w, g3b)
+    if x.device.type == "cpu":
+        return row_tail2_plain(x, res, w1, w2, *args, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"row_tail: unsupported device {x.device}")
+    cuda.check_no_grad("row_tail2", x, res, w1, w2, *args)
+    return _fwd2_cuda(x.contiguous(), res.contiguous(), w1.to(x.dtype).contiguous(),
+                      w2.to(x.dtype).contiguous(), args, eps)
+
+
 def work(n: int, itemsize: int) -> dict:
     c = C
     return {"bytes": 3 * n * c * itemsize + c * c * itemsize + 4 * c * 4,
@@ -151,3 +198,11 @@ def work_bwd(n: int, itemsize: int) -> dict:
     c = C
     return {"bytes": 5 * n * c * itemsize + c * c * (itemsize + 4) + 8 * c * 4,
             "flops": 3 * 2 * n * c * c}
+
+
+def work2(n: int, itemsize: int) -> dict:
+    """K = 2: x and res read and out written once, both weights read; two
+    [N, 128] x [128, 128] products."""
+    c = C
+    return {"bytes": 3 * n * c * itemsize + 2 * c * c * itemsize + 6 * c * 4,
+            "flops": 2 * 2 * n * c * c}

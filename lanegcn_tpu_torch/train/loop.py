@@ -2,10 +2,12 @@
 (reference train.py:161-255; the port's counterpart of
 lanegcn_tpu/train/loop.py).
 
-`make_eval_step` is the serving entry point: forward, then pred_loss, then
-agent_metrics, on one packed batch. `make_train_step` adds the backward
-(through the kernels' hand-written backward passes) and the flat Adam step
-with the StepLR schedule and the NaN guard.
+`make_eval_step` is the serving entry point: forward, then the loss, then
+the metrics (LaneGCN's pred_loss and agent_metrics by default, LaneRCNN's
+roi_loss and roi_metrics when given), on one packed batch.
+`make_train_step` adds the backward (through the kernels' hand-written
+backward passes) and the flat Adam step with the StepLR schedule and the
+NaN guard.
 """
 
 from __future__ import annotations
@@ -17,15 +19,17 @@ import torch
 
 from lanegcn_tpu_torch.config import Config
 from lanegcn_tpu_torch.device import resolve_device
-from lanegcn_tpu_torch.graph import PackedBatch
+from lanegcn_tpu_torch.graph import PackedBatch, RoiPackedBatch
 from lanegcn_tpu_torch.models.lanegcn import LaneGCN, agent_metrics, pred_loss
 from lanegcn_tpu_torch.train.optimizer import FusedAdam, make_optimizer
 
 
-def _on_device(batch, device) -> PackedBatch:
-    """A PackedBatch on `device` from a PackedBatch or the packer's numpy pack."""
-    if not isinstance(batch, PackedBatch) or not isinstance(batch.rot, torch.Tensor):
-        batch = PackedBatch.from_numpy(batch)
+def _on_device(batch, device):
+    """A PackedBatch or RoiPackedBatch on `device`, from one of those or the
+    packers' numpy packs (either framework's)."""
+    kind = RoiPackedBatch if hasattr(batch, "r2g") else PackedBatch
+    if not isinstance(batch, kind) or not isinstance(batch.scen_mask, torch.Tensor):
+        batch = kind.from_numpy(batch)
     return batch.to(device)
 
 
@@ -89,22 +93,28 @@ def make_train_step(config: Config, net, state: TrainState, device=None) -> Call
     return train_step
 
 
-def make_eval_step(config: Config, net, device=None) -> Callable:
-    """Returns fn(batch) → (out, metrics).
+def make_eval_step(config: Config, net, device=None, loss_fn=None,
+                   metrics_fn=None) -> Callable:
+    """Returns fn(batch) → (out, metrics): the forward, loss_fn (default
+    pred_loss) and metrics_fn (default agent_metrics), as the JAX
+    package's make_eval_step takes them (LaneRCNN: roi_loss, roi_metrics).
 
     The step runs on `device` (default `cuda`; raises without CUDA unless
-    device="cpu"), moves `net` there, and accepts a PackedBatch on any
-    device or with numpy leaves (as the packer returns it).
+    device="cpu"), moves `net` there, and accepts a PackedBatch or a
+    RoiPackedBatch on any device or with numpy leaves (as the packers
+    return them).
     """
     device = resolve_device(device)
     net.to(device).eval()
+    loss_fn = loss_fn or pred_loss
+    metrics_fn = metrics_fn or agent_metrics
 
     @torch.no_grad()
     def eval_step(batch) -> tuple:
         batch = _on_device(batch, device)
         out = net(batch)
-        metrics = dict(pred_loss(out, batch, config.loss))
-        metrics.update(agent_metrics(out, batch))
+        metrics = dict(loss_fn(out, batch, config.loss))
+        metrics.update(metrics_fn(out, batch))
         return out, metrics
 
     return eval_step

@@ -1,4 +1,4 @@
-"""Weight bridge: JAX LaneGCN params → the port's state_dict.
+"""Weight bridge: JAX LaneGCN and LaneRCNN params → the port's state_dicts.
 
 The port's module tree uses the reference torch LaneGCN's names (for
 example `map_net.fuse.pre0.3.weight`, `a2m.att.1.ctx.0.linear.weight`), so
@@ -6,8 +6,9 @@ a state_dict keyed by the reference names loads with
 `load_state_dict(strict=True)`: that is the whole bridge, and a published
 reference checkpoint's state_dict would load the same way.
 
-The name/layout table below is the port's own copy of the JAX package's
-(lanegcn_tpu/utils/torch_import.py): Dense kernels [in, out] become
+The name/layout tables below are the port's own copies of the JAX
+package's (lanegcn_tpu/utils/torch_import.py `lanegcn_table`,
+`lanercnn_table`): Dense kernels [in, out] become
 Linear weights [out, in]; conv kernels [k, in, out] become [out, in, k];
 norm vectors copy; the stacked relation kernel [R, C, C] splits into the
 14 per-relation Linear weights.
@@ -161,6 +162,62 @@ def lanegcn_table(cfg: ModelConfig) -> List[Entry]:
     return entries
 
 
+def _pooling(t: str, f: Tuple[str, ...]) -> List[Entry]:
+    """Reference LanePooling (lanercnn.py:433-514) → our models.lanercnn
+    LanePooling. ctx.0 consumes concat([ctx_feat, relpose]) (lanercnn.py:499);
+    the tail is norm (GN1) → mlp.0 (linear and GN2) → mlp.1 (linear and GN3)."""
+    return (
+        _dense(f"{t}.input", f + ("input",), bias=False)
+        + _dense(f"{t}.relpose.0", f + ("relpose",))
+        + _linear_block(f"{t}.ctx.0", f + ("ctx_hidden",))
+        + _dense(f"{t}.ctx.1", f + ("ctx_out",), bias=False)
+        + _linear_block(f"{t}.mlp.0", f + ("mlp1",))
+        + _linear_block(f"{t}.mlp.1", f + ("mlp2",))
+        + _norm(f"{t}.norm", f + ("norm",))
+    )
+
+
+def lanercnn_table(cfg: ModelConfig) -> List[Entry]:
+    """Full LaneRCNN Net mapping (reference lanercnn.py:85-119 module tree:
+    input → roi_net1 → interactor → roi_net2 → decode)."""
+    entries: List[Entry] = []
+
+    # LaneInput (lanercnn.py:280-351).
+    entries.append(("input.map_fc.weight", ("input", "map_fc", "kernel"), _LIN, None))
+    entries.append(("input.agt_fc.weight", ("input", "agt_fc", "kernel"), _LIN, None))
+    entries += _norm("input.bn", ("input", "bn"))
+
+    # roi_net1 / roi_net2 (lanercnn.py:354-430): input Linear + fuse stack.
+    for mod in ("roi_net1", "roi_net2"):
+        entries += _linear_block(f"{mod}.input", (mod, "input"))
+        entries += _fuse_stack(f"{mod}.fuse", (mod, "fuse"), cfg.num_scales, cfg.num_fuse_layers)
+
+    # Interactor (lanercnn.py:603-642): embeds + 2 poolings + global stack.
+    entries += _dense("interactor.input.0", ("interactor", "input_dense"))
+    entries += _linear_block("interactor.input.2", ("interactor", "input_out"))
+    entries += _dense("interactor.seg.0", ("interactor", "seg_dense"))
+    entries += _linear_block("interactor.seg.2", ("interactor", "seg_out"))
+    entries += _pooling("interactor.roi2graph", ("interactor", "roi2graph"))
+    entries += _fuse_stack("interactor.global_graph_net.fuse", ("interactor", "global_graph"),
+                           cfg.num_scales, cfg.num_fuse_layers)
+    entries += _pooling("interactor.graph2roi", ("interactor", "graph2roi"))
+
+    # Decode (lanercnn.py:740-924).
+    entries += _linear_block("decode.pred.0", ("decode", "pred_hidden"))
+    entries += _dense("decode.pred.1", ("decode", "pred_out"))
+    entries += _dense("decode.agt_layer1.0", ("decode", "agt1_dense"))
+    entries += _linear_block("decode.agt_layer1.2", ("decode", "agt1_out"))
+    entries += _dense("decode.agt_layer2.0", ("decode", "agt2_dense"))
+    entries += _linear_block("decode.agt_layer2.2", ("decode", "agt2_out"))
+    entries += _pooling("decode.lane_pool", ("decode", "lane_pool"))
+    entries += _linear_block("decode.refinement.0", ("decode", "refine_hidden"))
+    entries += _dense("decode.refinement.1", ("decode", "refine_out"))
+    return entries
+
+
+TABLES = {"lanegcn": lanegcn_table, "lanercnn": lanercnn_table}
+
+
 def _to_torch(value: np.ndarray, kind: str) -> np.ndarray:
     if kind == _LIN:
         return np.ascontiguousarray(value.T)
@@ -176,11 +233,12 @@ def _get_leaf(tree: Dict, path: Tuple[str, ...]):
     return node
 
 
-def export_state_dict(params: Dict, cfg: ModelConfig) -> Dict[str, np.ndarray]:
-    """JAX params (nested dict of arrays) → reference-named state_dict
-    (numpy, torch layouts)."""
+def export_state_dict(params: Dict, cfg: ModelConfig,
+                      model: str = "lanegcn") -> Dict[str, np.ndarray]:
+    """JAX params (nested dict of arrays) of `model` ("lanegcn" or
+    "lanercnn") → reference-named state_dict (numpy, torch layouts)."""
     out: Dict[str, np.ndarray] = {}
-    for tkey, fpath, kind, rel in lanegcn_table(cfg):
+    for tkey, fpath, kind, rel in TABLES[model](cfg):
         leaf = np.asarray(_get_leaf(params, fpath), np.float32)
         if rel is not None:
             leaf = leaf[rel]
@@ -188,8 +246,9 @@ def export_state_dict(params: Dict, cfg: ModelConfig) -> Dict[str, np.ndarray]:
     return out
 
 
-def load_jax_params(net: torch.nn.Module, params: Dict, cfg: ModelConfig) -> None:
-    """Copy JAX params into the port's LaneGCN (strict: every name and
-    shape must match)."""
-    sd = {k: torch.tensor(v) for k, v in export_state_dict(params, cfg).items()}
+def load_jax_params(net: torch.nn.Module, params: Dict, cfg: ModelConfig,
+                    model: str = "lanegcn") -> None:
+    """Copy JAX params into the port's LaneGCN or LaneRCNN (`model`;
+    strict: every name and shape must match)."""
+    sd = {k: torch.tensor(v) for k, v in export_state_dict(params, cfg, model).items()}
     net.load_state_dict(sd, strict=True)

@@ -8,12 +8,16 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from lanegcn_tpu_torch.config import Config
 from lanegcn_tpu_torch.device import resolve_device
+from lanegcn_tpu_torch.data.packing import window_chunked_edges
+from lanegcn_tpu_torch.graph import EdgeSet
 from lanegcn_tpu_torch.models.lanegcn import LaneGCN
+from lanegcn_tpu_torch.models.lanercnn import LaneRCNN
 from lanegcn_tpu_torch.train.loop import init_state, make_eval_step, make_train_step
 
 REPO = Path(__file__).resolve().parents[1]
@@ -40,8 +44,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ("lanegcn_tpu_torch.ops.lane_layer", "lanegcn_tpu_torch.ops.scenario_agg",
                  "lanegcn_tpu_torch.ops.win_edge", "lanegcn_tpu_torch.ops.row_tail",
                  "lanegcn_tpu_torch.ops.pair_agg", "lanegcn_tpu_torch.ops.edge_mlp",
-                 "lanegcn_tpu_torch.ops.scatter", "lanegcn_tpu_torch.data.packing", "lanegcn_tpu_torch.train.loop",
-                 "lanegcn_tpu_torch.train.optimizer", "lanegcn_tpu_torch.utils.weights"):
+                 "lanegcn_tpu_torch.ops.window_scatter", "lanegcn_tpu_torch.ops.scatter",
+                 "lanegcn_tpu_torch.data.packing", "lanegcn_tpu_torch.data.packing_roi",
+                 "lanegcn_tpu_torch.data.lane_roi", "lanegcn_tpu_torch.models.lanercnn",
+                 "lanegcn_tpu_torch.train.loop", "lanegcn_tpu_torch.train.optimizer",
+                 "lanegcn_tpu_torch.utils.weights"):
         assert name in res["modules"], name
     assert res["banned"] == [], res["banned"]
 
@@ -52,7 +59,7 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["resolve_device", "LaneGCN", "make_eval_step",
+@pytest.mark.parametrize("entry", ["resolve_device", "LaneGCN", "LaneRCNN", "make_eval_step",
                                    "init_state", "make_train_step"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     cfg = Config()
@@ -61,6 +68,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
             resolve_device()
         elif entry == "LaneGCN":
             LaneGCN(cfg.model)
+        elif entry == "LaneRCNN":
+            LaneRCNN(cfg.model)
         elif entry == "make_eval_step":
             make_eval_step(cfg, torch.nn.Linear(1, 1))
         elif entry == "init_state":
@@ -69,3 +78,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
             make_train_step(cfg, torch.nn.Linear(1, 1), None)
     # Asking for the CPU is the one way to run them here.
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_window_chunked_edge_set_is_not_dst_sorted():
+    """A window-chunked list carries the source-side inverse, as a
+    destination-sorted one does, but its padding sits between windows, so
+    it must not claim to be destination-sorted; the same edges padded flat
+    and sorted do."""
+    u = np.array([5, 700, 3, 900, 5, 260])
+    v = np.arange(6)
+    chunked = EdgeSet.from_numpy(window_chunked_edges(u, v, 2048, 256, 6)[0])
+    assert chunked.inv_perm is not None and chunked.win_lu is not None
+    assert not chunked.dst_sorted
+    mask = chunked.mask.numpy()
+    assert not mask[: mask.sum()].all()  # a padding hole before the last edge
+    flat = EdgeSet(u=chunked.u, v=chunked.v, mask=chunked.mask, inv_perm=chunked.inv_perm,
+                   inv_dst=chunked.inv_dst)
+    assert flat.dst_sorted
