@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and drive its LaneGCN eval and train paths on
 one GPU, on each of the three LaneGCN pack geometries the port serves, then
-its LaneRCNN eval path.
+its LaneRCNN eval and train paths.
 
     python3 chip_smoke.py            # one card, no arguments
 
@@ -13,11 +13,12 @@ Geometries (lanegcn_tpu_torch/config.py), driven in this order:
               spill_pairs on (the residue rides the spill plan, pair_agg).
   contiguous  contiguous_pack_config(32), the CLI's default: no windows,
               left/right neighbour tables, flat fusion lists (edge_mlp).
-  lanercnn    lanercnn_pack_config(256), LaneRCNN (serve only): 256-row RoI
-              windows with an ungrouped 512-slot plan, 768-row global
-              windows with a 2048-slot plan, window-chunked pool edges
-              (window_scatter), LanePooling's edge chain (edge_mlp_pool)
-              and two-Linear tail (row_tail2).
+  lanercnn    lanercnn_pack_config(256), LaneRCNN (get_model("lanercnn"):
+              AdamW, weight decay 0.01): 256-row RoI windows with an
+              ungrouped 512-slot plan, 768-row global windows with a
+              2048-slot plan, window-chunked pool edges (window_scatter),
+              LanePooling's edge chain (edge_mlp_pool) and two-Linear tail
+              (row_tail2), each with its backward kernel.
 
 Phases, one JSON line each (tagged with the geometry); any failure raises
 and exits non-zero:
@@ -45,9 +46,11 @@ and exits non-zero:
           row_tail2 (its three row counts) and edge_mlp_pool.
   kernel_bwd  the same kernels' backwards against their plain backwards on
           the inputs and cotangent one bf16 train step hands them, with a
-          rerun that must be bitwise equal. A few rows whose ReLU
-          pre-activation ties at zero on the plain side (see TIE_EPS) may
-          get a zero cotangent before the comparison.
+          rerun that must be bitwise equal (lanercnn: lane_layer_bwd and
+          scenario_agg_bwd at the RoI and global shapes, window_scatter_bwd
+          beside one `index_select` call, row_tail2_bwd, edge_mlp_pool_bwd).
+          A few rows whose ReLU pre-activation ties at zero on the plain
+          side (see TIE_EPS) may get a zero cotangent before the comparison.
   parity  the full float32 forward + loss on the card (kernels) against the
           same on the CPU (plain versions), 8 scenarios of the geometry,
           same weights; on lanercnn the segmented-NMS picks must be equal,
@@ -56,7 +59,7 @@ and exits non-zero:
           the CPU from the same weights: the loss, every parameter's gradient
           (same names, none missing) and the parameters after the step (the
           share of elements apart, beside a control with perturbed
-          gradients).
+          gradients); on lanercnn (AdamW) the NMS picks must be equal.
   serve   make_eval_step in bfloat16 over the 2 packs, several rounds: ms per
           pack, scen/s, loss/ade/fde/mr, peak device memory, and the kernel
           launch counts of that run, asserted per forward (the geometry's
@@ -68,9 +71,13 @@ and exits non-zero:
           steps, then 20 steps alternating the packs: ms per step, scen/s,
           first and last loss (finite), skipped steps (0), peak device
           memory, and the launch counts, asserted per step (`per_train_step`).
+  remat   (lanercnn) one train step with remat=False and one with remat=True
+          from the same weights on the same pack: the losses within the bf16
+          tolerance, each step's peak memory (remat's must be lower), the
+          remat step's launches with the LanePooling forwards doubled
+          (`per_remat_step`).
   profile_train  the same profile over one train step.
-The lanercnn geometry runs pack, kernel, parity, serve and profile.
-Then the `kernels` summary line (all fifteen kernels, each from the first
+Then the `kernels` summary line (all eighteen kernels, each from the first
 geometry that checks it, with the launches of that geometry's serve or
 train run, and under `also_checked` its checks on the later geometries),
 the nvidia-smi name/power-limit line, and last the `ok` line with the
@@ -81,6 +88,7 @@ Weights are random (seeded); no dataset or checkpoint is needed.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -145,17 +153,28 @@ KERNEL_META = {
                   "lanegcn_tpu/ops/pallas_row_tail.py:152", ("row_tail2_fwd",)),
     "edge_mlp_pool": ("lanegcn_tpu_torch/csrc/edge_mlp.cu",
                       "lanegcn_tpu/ops/pallas_edge_mlp.py:226", ("edge_mlp_pool_fwd",)),
+    "window_scatter_bwd": ("lanegcn_tpu_torch/csrc/window_scatter.cu",
+                           "lanegcn_tpu/ops/pallas_window_scatter.py:111",
+                           ("window_scatter_bwd",)),
+    "row_tail2_bwd": ("lanegcn_tpu_torch/csrc/row_tail.cu",
+                      "lanegcn_tpu/ops/pallas_row_tail.py:169", ("row_tail2_bwd",)),
+    "edge_mlp_pool_bwd": ("lanegcn_tpu_torch/csrc/edge_mlp.cu",
+                          "lanegcn_tpu/ops/pallas_edge_mlp.py:246", ("edge_mlp_pool_bwd",)),
 }
 # Each geometry: its model, its pack config (by name in
 # lanegcn_tpu_torch.config), the scenarios per pack, the kernels it runs at
 # shapes of its own (checked against their plain versions on its inputs)
 # and the launches of each C entry point per eval forward and per train
-# step (every other entry: 0; None: the geometry serves only).
+# step (every other entry: 0).
 _WINDOWED_FWD = {"lane_layer_fwd": 8, "scenario_agg_fwd": 8, "win_edge_fwd": 6,
                  "row_tail_fwd": 6}
 _WINDOWED_BWD = {"lane_layer_bwd": 8, "scenario_agg_bwd": 8, "win_edge_bwd_d": 6,
                  "win_edge_bwd_s": 6, "row_tail_bwd": 6}
 _CONTIGUOUS_FWD = {"lane_layer_fwd": 8, "edge_mlp_fwd": 6, "row_tail_fwd": 6}
+_RCNN_FWD = {"lane_layer_fwd": 12, "scenario_agg_fwd": 12, "window_scatter_fwd": 2,
+             "edge_mlp_pool_fwd": 3, "row_tail2_fwd": 3}
+_RCNN_BWD = {"lane_layer_bwd": 12, "scenario_agg_bwd": 12, "window_scatter_bwd": 2,
+             "edge_mlp_pool_bwd": 3, "row_tail2_bwd": 3}
 GEOMETRIES = {
     "windowed": dict(model="lanegcn", config="windowed_pack_config", s=256,
                      kernels=("lane_layer", "scenario_agg", "win_edge", "row_tail"),
@@ -172,14 +191,15 @@ GEOMETRIES = {
                                        "edge_mlp_bwd": 6, "row_tail_bwd": 6}),
     # LaneRCNN: 12 LaneConv layers (RoI stack, global stack, RoI stack; the
     # RoI plan is ungrouped, 512 slots per 256-row window), three
-    # LanePoolings (r2g and g2r window-chunked, a2r flat).
+    # LanePoolings (r2g and g2r window-chunked, a2r flat). With remat the
+    # LanePoolings' forwards run again in the backward.
     "lanercnn": dict(model="lanercnn", config="lanercnn_pack_config", s=256,
                      kernels=("lane_layer", "scenario_agg", "window_scatter", "row_tail2",
                               "edge_mlp_pool"),
-                     per_forward={"lane_layer_fwd": 12, "scenario_agg_fwd": 12,
-                                  "window_scatter_fwd": 2, "edge_mlp_pool_fwd": 3,
-                                  "row_tail2_fwd": 3},
-                     per_train_step=None),
+                     per_forward=_RCNN_FWD,
+                     per_train_step={**_RCNN_FWD, **_RCNN_BWD},
+                     per_remat_step={**_RCNN_FWD, **_RCNN_BWD, "window_scatter_fwd": 4,
+                                     "edge_mlp_pool_fwd": 6, "row_tail2_fwd": 6}),
 }
 
 
@@ -314,7 +334,7 @@ def backward_capture():
     """The backward kernels' launchers as the autograd Functions call them
     (inputs and cotangent of one train step)."""
     from lanegcn_tpu_torch.ops import edge_mlp, lane_layer, pair_agg, row_tail, scenario_agg
-    from lanegcn_tpu_torch.ops import win_edge
+    from lanegcn_tpu_torch.ops import win_edge, window_scatter
 
     return Capture([
         (lane_layer, "lane_layer_bwd_cuda", "lane_layer_bwd"),
@@ -323,6 +343,9 @@ def backward_capture():
         (row_tail, "row_tail_bwd_cuda", "row_tail_bwd"),
         (pair_agg, "pair_agg_bwd_cuda", "pair_agg_bwd"),
         (edge_mlp, "edge_mlp_bwd_cuda", "edge_mlp_bwd"),
+        (window_scatter, "window_scatter_bwd_cuda", "window_scatter_bwd"),
+        (row_tail, "row_tail2_bwd_cuda", "row_tail2_bwd"),
+        (edge_mlp, "edge_mlp_pool_bwd_cuda", "edge_mlp_pool_bwd"),
     ])
 
 
@@ -349,12 +372,19 @@ def forward_ops(names):
 def library_call(name, a):
     """One PyTorch call that computes the kernel's function on the same
     inputs (a yardstick the port never calls), or None where there is none.
-    window_scatter: index_add over the valid edges' flat destinations
-    (precomputed, outside the timing)."""
-    if name != "window_scatter":
+    window_scatter: index_add over the valid edges' flat destinations;
+    window_scatter_bwd: index_select of g's rows at every edge's
+    destination (padding clamped to the last row); the indices are
+    precomputed, outside the timing."""
+    if name not in ("window_scatter", "window_scatter_bwd"):
         return None
     from lanegcn_tpu_torch.ops import window_scatter
 
+    if name == "window_scatter_bwd":
+        g, lu, wchunk, stride = a[:4]
+        n = g.shape[0]
+        dst = window_scatter.flat_destinations(lu, wchunk, stride, n).clamp(max=n - 1)
+        return lambda: g.index_select(0, dst)
     msg, temp, lu, wchunk, stride = a[:5]
     dst = window_scatter.flat_destinations(lu, wchunk, stride, temp.shape[0])
     keep = (dst < temp.shape[0]).nonzero().squeeze(1)
@@ -365,7 +395,7 @@ def library_call(name, a):
 def backward_ops(names):
     """{kernel_bwd: (kernel launcher, plain backward)} for the named kernels."""
     from lanegcn_tpu_torch.ops import edge_mlp, lane_layer, pair_agg, row_tail, scenario_agg
-    from lanegcn_tpu_torch.ops import win_edge
+    from lanegcn_tpu_torch.ops import win_edge, window_scatter
 
     ops = {
         "lane_layer": (lane_layer.lane_layer_bwd_cuda, lane_layer.lane_layer_bwd_plain),
@@ -375,6 +405,13 @@ def backward_ops(names):
         "row_tail": (row_tail.row_tail_bwd_cuda, row_tail.row_tail_bwd_plain),
         "pair_agg": (pair_agg.pair_agg_bwd_cuda, pair_agg.pair_agg_bwd_plain),
         "edge_mlp": (edge_mlp.edge_mlp_bwd_cuda, edge_mlp.edge_mlp_bwd_plain),
+        "window_scatter": (window_scatter.window_scatter_bwd_cuda,
+                           window_scatter.window_scatter_bwd_plain),
+        "row_tail2": (row_tail.row_tail2_bwd_cuda, row_tail.row_tail2_bwd_plain),
+        # The model skips dd (d is pack data); the check asks for it, so
+        # that the kernel's dd is held to the plain one too.
+        "edge_mlp_pool": (lambda *a: edge_mlp.edge_mlp_pool_bwd_cuda(*a[:10], True),
+                          lambda *a: edge_mlp.edge_mlp_pool_bwd_plain(*a[:10])),
     }
     return {f"{name}_bwd": ops[name] for name in names}
 
@@ -435,9 +472,9 @@ def compare(name, tag, out_k, out_p):
 # tolerances again. scenario_agg_bwd and pair_agg_bwd are linear: they have
 # no ties.
 TIE_OUTPUTS = {"row_tail_bwd": (0, 1), "lane_layer_bwd": (1,), "win_edge_bwd": (0, 1),
-               "edge_mlp_bwd": (0, 1, 2)}
+               "edge_mlp_bwd": (0, 1, 2), "row_tail2_bwd": (0, 1), "edge_mlp_pool_bwd": (0, 1)}
 COTANGENT_ARG = {"row_tail_bwd": 7, "lane_layer_bwd": 9, "win_edge_bwd": 13,
-                 "edge_mlp_bwd": 12}
+                 "edge_mlp_bwd": 12, "row_tail2_bwd": 10, "edge_mlp_pool_bwd": 8}
 TIE_EPS = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 TIE_SHARE = 1e-4
 
@@ -472,6 +509,19 @@ def relu_pre(name, a):
         h_pre = group_norm(x.float(), g1w, g1b)
         y = group_norm(torch.relu(h_pre).to(dt).float() @ w.to(dt).float(), g2w, g2b)
         return [(h_pre, None), (y + res.float(), None)]
+    if name == "row_tail2_bwd":
+        x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b = a[:10]
+        dt = x.dtype
+        h1_pre = group_norm(x.float(), g1w, g1b)
+        h2_pre = group_norm(torch.relu(h1_pre).to(dt).float() @ w1.to(dt).float(), g2w, g2b)
+        y = group_norm(torch.relu(h2_pre).to(dt).float() @ w2.to(dt).float(), g3w, g3b)
+        return [(h1_pre, None), (h2_pre, None), (y + res.float(), None)]
+    if name == "edge_mlp_pool_bwd":
+        d, cg, kd, bd, k1, gchw, gchb = a[:7]
+        rnd = lambda x: x.to(cg.dtype).float()
+        t1_pre = rnd(d) @ rnd(kd) + bd.float()
+        s_pre = group_norm(rnd(torch.relu(t1_pre)) @ rnd(k1) + cg.float(), gchw, gchb)
+        return [(t1_pre, None), (s_pre, None)]
     if name == "edge_mlp_bwd":
         d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb = a[:11]
         rnd = lambda x: x.to(cg.dtype).float()
@@ -525,13 +575,14 @@ def kernel_phase(phase, geom, ops, calls, counts):
     a rerun of the kernel that must be bitwise equal; returns per-kernel
     results of the call shape with the most rows (N rows; A2M for win_edge
     and edge_mlp), with `ms_per_step`: the kernel time of every call shape
-    times its calls in the captured step."""
+    times its calls in the captured step, and `by_call`: each call shape's
+    errors, times and bound."""
     import torch
 
     summary = {}
     for name, (fn, plain) in ops.items():
         check(bool(calls[name]), f"{name}: the path never called this kernel")
-        per_step = 0.0
+        per_step, by_call = 0.0, []
         shapes = list(calls[name].items())
         main_call = max(range(len(shapes)), key=lambda i: (shapes[i][0][0][0], -i))
         for ci, (key, args) in enumerate(shapes):
@@ -580,9 +631,16 @@ def kernel_phase(phase, geom, ops, calls, counts):
                     res["work"] = work_of(name, a)
             emit(res)
             per_step += res["ms"] * counts[name][key]
+            by_call.append({"shape": res["bfloat16"]["shape"], "calls_per_step": counts[name][key],
+                            "err_over_tol": res["bfloat16"]["err_over_tol"],
+                            "err_over_tol_fp32": res["float32"]["err_over_tol"],
+                            "ms": res["ms"], "plain_ms": res["plain_ms"],
+                            "bound_ms": res["work"]["bound_ms"],
+                            "library_ms": res["library_ms"]})
             if ci == main_call:
                 summary[name] = res
         summary[name]["ms_per_step"] = per_step
+        summary[name]["by_call"] = by_call
     return summary
 
 
@@ -607,6 +665,9 @@ def work_of(name, a):
         "window_scatter": lambda: window_scatter.work(a[0], a[1], a[2]),
         "row_tail2": lambda: row_tail.work2(a[0].shape[0], a[0].element_size()),
         "edge_mlp_pool": lambda: edge_mlp.work(a[0], a[1], a[2], a[12]),
+        "window_scatter_bwd": lambda: window_scatter.work_bwd(a[0], a[1], a[2], a[3]),
+        "row_tail2_bwd": lambda: row_tail.work2_bwd(a[0].shape[0], a[0].element_size()),
+        "edge_mlp_pool_bwd": lambda: edge_mlp.work_pool_bwd(a[0], a[1], a[8]),
     }
     w = works[name]()
     t_bytes = w["bytes"] / PEAK_HBM_BYTES * 1e3
@@ -653,12 +714,49 @@ def parity_phase(geom):
         check(err[k] <= tol[k], f"parity {k}: {err[k]} > {tol[k]}")
 
 
+@contextlib.contextmanager
+def nms_recorder(picks, key):
+    """Within the block, records the first segmented_nms call's picks and
+    arguments (on the CPU) under picks[key]."""
+    import torch
+    from lanegcn_tpu_torch.models import lanercnn
+
+    nms = lanercnn.segmented_nms
+
+    def rec(*a):
+        sel = nms(*a)
+        picks.setdefault(key, (
+            sel.cpu(), [x.detach().cpu() if isinstance(x, torch.Tensor) else x for x in a]))
+        return sel
+
+    lanercnn.segmented_nms = rec
+    try:
+        yield
+    finally:
+        lanercnn.segmented_nms = nms
+
+
+def nms_report(picks):
+    """The card's and the CPU's NMS picks compared, beside the smallest gap
+    between a picked logit and another node's logit of its segment (CPU
+    side), so that a near-tie flip can be told from a bug."""
+    import torch
+
+    sel_g, sel_c = picks["cuda"][0], picks["cpu"][0]
+    xy, logits, seg, mask, num_seg = picks["cpu"][1][:5]
+    l = logits.float()
+    onehot = (seg[None, :] == torch.arange(num_seg)[:, None]) & mask[None, :]  # [B, MI]
+    other = onehot[:, None, :] & (torch.arange(l.shape[0])[None, None, :] != sel_c[:, :, None])
+    other &= onehot.any(1)[:, None, None]
+    gap = (l[sel_c][:, :, None] - l[None, None, :]).abs()[other]
+    return {"nms_picks": list(sel_c.shape), "nms_picks_differ": int((sel_g != sel_c).sum()),
+            "min_logit_gap_at_picks": float(gap.min()) if gap.numel() else None}
+
+
 def roi_parity_phase(geom):
     """LaneRCNN's full float32 forward + roi_loss: card (kernels) vs CPU
     (plain versions), 8 scenarios, same weights; the segmented-NMS picks
-    must be equal on both sides. The smallest gap between a picked logit
-    and another node's logit of its segment (CPU side) is printed beside
-    them, so that a near-tie flip can be told from a bug."""
+    must be equal on both sides (`nms_report`)."""
     import torch
     from lanegcn_tpu_torch.graph import RoiPackedBatch
     from lanegcn_tpu_torch.models import lanercnn
@@ -671,20 +769,12 @@ def roi_parity_phase(geom):
     net_gpu = lanercnn.LaneRCNN(cfg.model, dtype=torch.float32, device="cuda", seed=1)
     net_cpu = lanercnn.LaneRCNN(cfg.model, dtype=torch.float32, device="cpu", seed=1)
     net_cpu.load_state_dict({k: v.cpu() for k, v in net_gpu.state_dict().items()})
-    nms, picks = lanercnn.segmented_nms, {}
+    picks = {}
 
     def run(net, device):
-        def rec(*a):
-            sel = nms(*a)
-            picks[device] = (sel.cpu(), [x.cpu() if isinstance(x, torch.Tensor) else x for x in a])
-            return sel
-
-        lanercnn.segmented_nms = rec
-        try:
+        with nms_recorder(picks, device):
             return make_eval_step(cfg, net, device=device, loss_fn=lanercnn.roi_loss,
                                   metrics_fn=lanercnn.roi_metrics)(batch)
-        finally:
-            lanercnn.segmented_nms = nms
 
     out_g, m_g = run(net_gpu, "cuda")
     out_c, m_c = run(net_cpu, "cpu")
@@ -697,18 +787,10 @@ def roi_parity_phase(geom):
     # layers, 1e-3 relative; the trajectories' scale is their largest
     # element (Decode's divisions are well away from zero at these inputs).
     tol = {k: 1e-3 * scale[k] for k in err}
-    sel_g, sel_c = picks["cuda"][0], picks["cpu"][0]
-    xy, logits, seg, mask, num_seg = picks["cpu"][1][:5]
-    l = logits.float()
-    onehot = (seg[None, :] == torch.arange(num_seg)[:, None]) & mask[None, :]  # [B, MI]
-    other = onehot[:, None, :] & (torch.arange(l.shape[0])[None, None, :] != sel_c[:, :, None])
-    other &= onehot.any(1)[:, None, None]
-    gap = (l[sel_c][:, :, None] - l[None, None, :]).abs()[other]
+    nms = nms_report(picks)
     emit({"phase": "parity", "geometry": geom, "scenarios": s, "max_abs_err": err, "tol": tol,
-          "loss_gpu": loss_g, "loss_cpu": loss_c, "nms_picks": list(sel_c.shape),
-          "nms_picks_differ": int((sel_g != sel_c).sum()),
-          "min_logit_gap_at_picks": float(gap.min()) if gap.numel() else None})
-    check(torch.equal(sel_g, sel_c), f"parity: {int((sel_g != sel_c).sum())} NMS picks differ")
+          "loss_gpu": loss_g, "loss_cpu": loss_c, **nms})
+    check(nms["nms_picks_differ"] == 0, f"parity: {nms['nms_picks_differ']} NMS picks differ")
     for k in err:
         check(err[k] <= tol[k], f"parity {k}: {err[k]} > {tol[k]}")
 
@@ -740,24 +822,36 @@ PARAM_FAR_SHARE = 1e-3
 
 def train_parity_phase(geom):
     """One float32 make_train_step, 8 scenarios: card vs CPU from the same
-    weights. Loss, every gradient, and the parameters after the step."""
+    weights, with the model's optimizer (get_model: LaneRCNN's AdamW).
+    Loss, every gradient, and the parameters after the step; on LaneRCNN
+    the NMS picks of the two forwards must be equal."""
     import torch
-    from lanegcn_tpu_torch.graph import PackedBatch
-    from lanegcn_tpu_torch.models.lanegcn import LaneGCN
+    from lanegcn_tpu_torch.graph import PackedBatch, RoiPackedBatch
+    from lanegcn_tpu_torch.models.registry import get_model
     from lanegcn_tpu_torch.train.loop import init_state, make_train_step
 
     s = 8
+    family = GEOMETRIES[geom]["model"]
+    roi = family == "lanercnn"
     cfg = pack_config(geom, s)
-    packs, _, _, _ = make_packs(cfg, 1, s, seed0=20_000)
-    batch = PackedBatch.from_numpy(packs[0])
-    net_g = LaneGCN(cfg.model, dtype=torch.float32, device="cuda", seed=2)
-    net_c = LaneGCN(cfg.model, dtype=torch.float32, device="cpu", seed=2)
+    # The RoI pack is the parity phase's (seeds 20,000-20,007 overflow
+    # lanercnn_pack_config(8)'s RoI capacity: one scenario is skipped).
+    packs, _, _, _ = make_packs(cfg, 1, s, seed0=10_000 if roi else 20_000, roi=roi)
+    batch = (RoiPackedBatch if roi else PackedBatch).from_numpy(packs[0])
+    bundle = get_model(family, cfg, device="cuda", seed=2)
+    cfg = bundle.config
+    net_g = bundle.net
+    net_c = get_model(family, cfg, device="cpu", seed=2).net
     net_c.load_state_dict({k: v.cpu() for k, v in net_g.state_dict().items()})
     start = {k: v.clone() for k, v in net_c.state_dict().items()}
+    fns = dict(loss_fn=bundle.loss_fn, metrics_fn=bundle.metrics_fn)
     net_g, state_g = init_state(cfg, net=net_g)
     net_c, state_c = init_state(cfg, net=net_c, device="cpu")
-    m_g = make_train_step(cfg, net_g, state_g)(batch, 0.0)
-    m_c = make_train_step(cfg, net_c, state_c, device="cpu")(batch, 0.0)
+    picks = {}
+    with nms_recorder(picks, "cuda"):
+        m_g = make_train_step(cfg, net_g, state_g, **fns)(batch, 0.0)
+    with nms_recorder(picks, "cpu"):
+        m_c = make_train_step(cfg, net_c, state_c, device="cpu", **fns)(batch, 0.0)
     loss_g, loss_c = float(m_g["loss"]), float(m_c["loss"])
     grads_g = {n: p.grad for n, p in net_g.named_parameters()}
     grads_c = {n: p.grad for n, p in net_c.named_parameters()}
@@ -776,7 +870,7 @@ def train_parity_phase(geom):
 
     # The control: the CPU's step from the same start, each gradient leaf
     # moved by uniform noise of GRAD_TOL of its scale.
-    net_x = LaneGCN(cfg.model, dtype=torch.float32, device="cpu", seed=2)
+    net_x = get_model(family, cfg, device="cpu", seed=2).net
     net_x.load_state_dict(start)
     net_x, state_x = init_state(cfg, net=net_x, device="cpu")
     gen = torch.Generator().manual_seed(0)
@@ -794,14 +888,18 @@ def train_parity_phase(geom):
     p_err, n_far = apart(net_g)
     _, n_far_control = apart(net_x)
     n_params = sum(p.numel() for p in net_c.parameters())
-    emit({"phase": "train_parity", "geometry": geom, "scenarios": s, "loss_gpu": loss_g,
-          "loss_cpu": loss_c,
+    nms = nms_report(picks) if roi else {}
+    emit({"phase": "train_parity", "geometry": geom, "scenarios": s, "opt": cfg.train.opt,
+          "weight_decay": cfg.train.weight_decay, "loss_gpu": loss_g, "loss_cpu": loss_c,
           "leaves": len(grads_g), "grad_tol_rel": GRAD_TOL, "grad_floor": GRAD_FLOOR * top,
           "worst_grad_err_over_tol": worst, "worst_grad_leaf": worst_name,
           "worst_leaves": [[n, *shares[n]] for n in ranked[:5]],
           "param_max_abs_err": p_err, "param_max_tol": 2 * lr, "param_far": PARAM_FAR,
           "params_far": n_far, "params_far_limit": PARAM_FAR_SHARE * n_params,
-          "params_far_control": n_far_control, "params": n_params})
+          "params_far_control": n_far_control, "params": n_params, **nms})
+    if roi:
+        check(nms["nms_picks_differ"] == 0,
+              f"train_parity: {nms['nms_picks_differ']} NMS picks differ")
     check(abs(loss_g - loss_c) <= 1e-3 * max(1.0, abs(loss_c)),
           f"train_parity loss: {loss_g} vs {loss_c}")
     check(worst <= 1.0, f"train_parity: {worst_name}'s gradient error is {worst} x its "
@@ -850,7 +948,7 @@ def profile_phase(phase, geom, step, items) -> None:
         if t1 > end:
             busy += t1 - max(t0, end)
             end = t1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:20]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:40]
     emit({"phase": phase, "geometry": geom, "steps": len(items), "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy / 1e3, "idle_share": 1.0 - busy / wall_us,
           "host_syncs_per_step": {k: v / len(items) for k, v in syncs.items()},
@@ -923,8 +1021,20 @@ def drive(geom):
     train_parity_phase(geom)
 
     serve = serve_phase(geom, step, batches, results, pack_s)
+    train = train_phase(geom, tstep, batches, results)
+    profile_phase("profile_train", geom, lambda b: tstep(b, 0.5), batches[:1])
+    return results, serve, train
 
-    # --- train: the train path, counted ---
+
+def train_phase(geom, tstep, batches, results):
+    """The train path: 2 warm steps, then 20 counted steps alternating the
+    packs (every launch count from 0 just before, read just after);
+    returns the launch counts and the number of steps."""
+    import torch
+    from lanegcn_tpu_torch.ops import cuda
+
+    spec = GEOMETRIES[geom]
+    s = spec["s"]
     for i in range(2):
         tstep(batches[i % 2], (1 + i) / 100.0)
     torch.cuda.synchronize()
@@ -949,8 +1059,7 @@ def drive(geom):
     check(all(math.isfinite(x) for x in losses), f"{geom}: non-finite train loss: {losses}")
     check(skipped == 0, f"{geom}: the NaN guard skipped {skipped} of {steps} steps")
     check_counts(train_counts, spec["per_train_step"], steps, f"{geom} train")
-    profile_phase("profile_train", geom, lambda b: tstep(b, 0.5), batches[:1])
-    return results, serve, (train_counts, steps)
+    return train_counts, steps
 
 
 def serve_phase(geom, step, batches, results, pack_s):
@@ -994,13 +1103,13 @@ def serve_phase(geom, step, batches, results, pack_s):
 
 
 def drive_lanercnn(geom):
-    """LaneRCNN's phases (serve only: pack, kernel, parity, serve,
-    profile); returns its kernel results, the serve run's launch counts and
-    None for the train run."""
+    """LaneRCNN's phases: pack, kernel, kernel_bwd, parity, train_parity,
+    serve (+ profile), train, remat and profile_train; returns its kernel
+    results and the serve and train runs' launch counts."""
     import torch
     from lanegcn_tpu_torch.graph import RoiPackedBatch
-    from lanegcn_tpu_torch.models.lanercnn import LaneRCNN, roi_loss, roi_metrics
-    from lanegcn_tpu_torch.train.loop import make_eval_step
+    from lanegcn_tpu_torch.models.registry import get_model
+    from lanegcn_tpu_torch.train.loop import init_state, make_eval_step, make_train_step
 
     spec = GEOMETRIES[geom]
     s = spec["s"]
@@ -1033,8 +1142,9 @@ def drive_lanercnn(geom):
           "residue_list_slots": sum(rc.edge_capacity(nm) for nm in packs[0].edges),
           "dropped": 0})
 
-    net = LaneRCNN(cfg.model, dtype=torch.bfloat16, device="cuda", seed=0)
-    step = make_eval_step(cfg, net, loss_fn=roi_loss, metrics_fn=roi_metrics)
+    serve_bundle = get_model("lanercnn", cfg, dtype=torch.bfloat16, seed=0)
+    fns = dict(loss_fn=serve_bundle.loss_fn, metrics_fn=serve_bundle.metrics_fn)
+    step = make_eval_step(cfg, serve_bundle.net, **fns)
 
     # --- kernels against their plain versions, on the eval path's inputs ---
     with forward_capture() as cap:
@@ -1043,9 +1153,72 @@ def drive_lanercnn(geom):
     results = kernel_phase("kernel", geom, forward_ops(spec["kernels"]), cap.calls, cap.counts)
     del cap
 
+    # --- backward kernels against their plain backwards, on a train step's inputs ---
+    bundle = get_model("lanercnn", cfg, dtype=torch.bfloat16, seed=0)
+    tcfg = bundle.config  # AdamW, weight decay 0.01
+    net_t, state = init_state(tcfg, net=bundle.net)
+    tstep = make_train_step(tcfg, net_t, state, **fns)
+    with backward_capture() as cap:
+        tstep(batches[0], 0.0)
+    torch.cuda.synchronize()
+    results.update(kernel_phase("kernel_bwd", geom, backward_ops(spec["kernels"]), cap.calls,
+                                cap.counts))
+    del cap
+
     # --- card vs CPU, float32 ---
     roi_parity_phase(geom)
-    return results, serve_phase(geom, step, batches, results, pack_s), None
+    train_parity_phase(geom)
+
+    serve = serve_phase(geom, step, batches, results, pack_s)
+    train = train_phase(geom, tstep, batches, results)
+    remat_phase(geom, tcfg, batches[0], fns)
+    profile_phase("profile_train", geom, lambda b: tstep(b, 0.5), batches[:1])
+    return results, serve, train
+
+
+def remat_phase(geom, cfg, batch, fns):
+    """One bf16 train step with remat=False and one with remat=True, from
+    the same weights on the same pack: the losses within the bf16 tolerance
+    (the forwards are the same ops; only index_add_'s atomic order differs),
+    each step's peak memory (remat's must be lower: the LanePoolings' [E,
+    128] tensors are not kept), and the remat step's launches, the
+    LanePooling forwards doubled."""
+    import torch
+    from lanegcn_tpu_torch.models.lanercnn import LaneRCNN
+    from lanegcn_tpu_torch.ops import cuda
+    from lanegcn_tpu_torch.train.loop import init_state, make_train_step
+
+    res = {}
+    for remat in (False, True):
+        net, state = init_state(cfg, net=LaneRCNN(cfg.model, dtype=torch.bfloat16, seed=5,
+                                                  remat=remat))
+        step = make_train_step(cfg, net, state, **fns)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = step(batch, 0.0)
+        torch.cuda.synchronize()
+        res[remat] = {"loss": float(m["loss"]), "skipped": float(m["skipped"]),
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "launches": cuda.launch_counts()}
+        del net, state, step, m
+    plain, rem = res[False], res[True]
+    tol = TOL["bfloat16"] * max(1.0, abs(plain["loss"]))
+    emit({"phase": "remat", "geometry": geom, "loss": plain["loss"], "loss_remat": rem["loss"],
+          "loss_tol": tol, "peak_mem_gib": plain["peak_mem_gib"],
+          "peak_mem_gib_remat": rem["peak_mem_gib"], "ms_one_step": plain["ms"],
+          "ms_one_step_remat": rem["ms"], "launches_remat": rem["launches"]})
+    check(all(math.isfinite(r["loss"]) and r["skipped"] == 0 for r in res.values()),
+          f"remat: non-finite or skipped step {res}")
+    check(abs(rem["loss"] - plain["loss"]) <= tol,
+          f"remat: loss {rem['loss']} vs {plain['loss']} (tolerance {tol})")
+    check(rem["peak_mem_gib"] < plain["peak_mem_gib"],
+          f"remat: peak {rem['peak_mem_gib']} GiB is not below {plain['peak_mem_gib']} GiB")
+    check_counts(plain["launches"], GEOMETRIES[geom]["per_train_step"], 1, f"{geom} step")
+    check_counts(rem["launches"], GEOMETRIES[geom]["per_remat_step"], 1, f"{geom} remat step")
 
 
 def main() -> None:
@@ -1100,7 +1273,8 @@ def main() -> None:
                     "max_abs_err_fp32": res["float32"]["max_abs_err"],
                     "err_over_tol_fp32": res["float32"]["err_over_tol"],
                     "ms": res["ms"], "plain_ms": res["plain_ms"],
-                    "bound_ms": res["work"]["bound_ms"], "bound_by": res["work"]["bound_by"]}
+                    "bound_ms": res["work"]["bound_ms"], "bound_by": res["work"]["bound_by"],
+                    "by_call": res["by_call"]}
                 continue
             kernels[name] = {
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1120,8 +1294,7 @@ def main() -> None:
     # Every kernel's launches on every path, beside its home geometry's count.
     for k in kernels:
         entry, bwd = KERNEL_META[k["name"]][2][0], k["name"].endswith("_bwd")
-        k["launches_by_geometry"] = {g: p[int(bwd)][0][entry] for g, p in paths.items()
-                                     if p[int(bwd)] is not None}
+        k["launches_by_geometry"] = {g: p[int(bwd)][0][entry] for g, p in paths.items()}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

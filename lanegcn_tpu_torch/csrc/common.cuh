@@ -328,6 +328,30 @@ __device__ __forceinline__ void reduce_warp_vecs(const float4 (&v)[NV], float* r
   __syncthreads();
 }
 
+// The same per-warp column sums kept in shared memory instead of registers,
+// for kernels whose registers hold two [C x C] gradients: vec_s [NT/32][NV][C],
+// each lane adding into its own warp's columns lane*4..+3 (no barrier needed).
+template <int NV>
+__device__ __forceinline__ void zero_warp_vecs(float* vec_s) {
+  for (int i = threadIdx.x; i < NT / 32 * NV * C; i += NT) vec_s[i] = 0.f;
+}
+template <int NV>
+__device__ __forceinline__ void add_warp_vec(float* vec_s, int q, float4 v) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float4* p = reinterpret_cast<float4*>(vec_s + (warp * NV + q) * C + lane * 4);
+  *p = add4(*p, v);
+}
+// out[q*C + c] = Σ over the warps, in warp order (as reduce_warp_vecs).
+template <int NV>
+__device__ __forceinline__ void sum_warp_vecs(const float* vec_s, float* out) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < NV * C; i += NT) {
+    float s = 0.f;
+    for (int w = 0; w < NT / 32; ++w) s += vec_s[w * NV * C + i];
+    out[i] = s;
+  }
+}
+
 // out[i] = Σ_{p < np} part[p*m + i], summed in p order.
 __global__ void reduce_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
                                        int np, long m) {

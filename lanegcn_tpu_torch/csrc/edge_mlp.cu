@@ -1,11 +1,12 @@
-// Fused per-edge MLP over a flat edge list: Att's forward and backward, and
-// LanePooling's forward.
+// Fused per-edge MLP over a flat edge list: Att's and LanePooling's, forward
+// and backward.
 //
 // Replaces lanegcn_tpu/ops/pallas_edge_mlp.py `_fwd_kernel` / `_fwd_impl`
 // and `_bwd_kernel` / `_bwd_impl` (the Pallas kernels behind
 // `fused_edge_mlp`) in the Att configuration (has_dist2, has_query), and
-// `_fwd_kernel` / `_fwd_impl` in LanePooling's (no dist_out stage, no query,
-// d [E, 4]: edge_mlp_pool_fwd, below). Att's chain: per row
+// `_fwd_kernel` / `_fwd_impl` and `_bwd_kernel` / `_bwd_impl` in
+// LanePooling's (no dist_out stage, no query, d [E, 4]: edge_mlp_pool_fwd and
+// edge_mlp_pool_bwd, below). Att's chain: per row
 // e of the list, padding included, the chain of edge_chain.cuh from
 //
 //   t1 = rnd(relu(rnd(d[e]) @ rnd(Wd) + bd)),  s = t2 @ K1 + qg[e] + cg[e],
@@ -49,6 +50,29 @@
 // matrix rate, product-bound on the CUDA cores used here. About 11 % of the
 // rows at the 256-scenario pack are padding; each gives one constant row
 // that the caller's scatter drops.
+//
+// edge_mlp_pool_bwd: that chain run backwards from the cotangent g of out,
+// recomputed per tile (only the inputs are saved), with d_t1 = d_t2 (no
+// dist_out stage, pallas_edge_mlp.py:168-169):
+//
+//   d_e1 = g @ Woutᵀ;  dWout += e1ᵀ g;  d_gn = d_e1 ⊙ [e1 > 0]
+//   d_s = rnd(GN_chᵀ(d_gn)) = dcg;  dK1 += t1ᵀ d_s;  dgchw += Σ d_gn·nrm_s, dgchb += Σ d_gn
+//   d_t1p = d_s @ K1ᵀ ⊙ [t1 > 0];  dbd += Σ d_t1p;  dWd += rnd(d)ᵀ rnd(d_t1p)
+//   dd = rnd(d_t1p) @ Wdᵀ   (only when the caller asks: d is pack data in the model)
+//
+// Unlike edge_mlp_bwd's workspace slices, nothing per tile goes to device
+// memory but dcg (and dd): one block per SM walks the tiles (16,384 at E =
+// 1,048,576) with dK1 and dWout in registers (an 8 x 8 block of each per
+// thread) and the vector sums (dbd, dgchw, dgchb, the DIN rows of dWd) per
+// warp in shared memory, and writes one partial per block at the end;
+// reduce_partials sums the partials in block order (no float atomics,
+// bitwise reruns). Shared memory: four fp32 tiles (t1, nrm_s then d_t1,
+// e1, g then d_e1 then d_s), one 64 KB weight slot (K1, Woutᵀ, K1ᵀ in turn)
+// and the vector sums: 224 KB, one block per SM. What bounds it: d, cg and
+// g read and dcg written once (0.82 GB at E = 1,048,576 in bf16, ~0.25 ms)
+// against three [128 x 128] products per row (the forward's K1 recomputed,
+// two transposed) and two weight gradients: memory-bound at the card's
+// bf16 matrix rate, product-bound on the CUDA cores used here.
 #include "edge_chain.cuh"
 
 using namespace lgk;
@@ -273,6 +297,136 @@ int launch_bwd(const float* d, const void* qg, const void* cg, const void* g, co
   return (int)reduce_partials(part, grads, blocks, EM_PART, stream);
 }
 
+// LanePooling's chain backwards (see the header); part holds blocks rows of
+// [2*C*C + (3 + DIN)*C]: dK1, dWout (in, out), dbd, dgchw, dgchb, dWd rows.
+template <typename T, int DIN>
+__global__ void __launch_bounds__(NT, 1)
+edge_mlp_pool_bwd_kernel(const float* __restrict__ d, const T* __restrict__ cg,
+                         const T* __restrict__ g, const T* __restrict__ kd,
+                         const float* __restrict__ bd, const T* __restrict__ k1,
+                         const float* __restrict__ gchw, const float* __restrict__ gchb,
+                         const T* __restrict__ kout, float* __restrict__ dd, T* __restrict__ dcg,
+                         float* __restrict__ part, int e, float eps) {
+  constexpr int NV = 3 + DIN;  // dbd, dgchw, dgchb, dWd rows
+  extern __shared__ float4 smem4[];
+  float* A_s = reinterpret_cast<float*>(smem4);  // [EB][LDA] t1
+  float* B_s = A_s + EB * LDA;                   // nrm_s, then d_t1
+  float* C_s = B_s + EB * LDA;                   // e1
+  float* D_s = C_s + EB * LDA;                   // g, then d_e1, then rnd(d_s)
+  float* W_s = D_s + EB * LDA;                   // [C][C] K1, Woutᵀ, K1ᵀ in turn
+  float* st_s = W_s + C * C;                     // [EB] 1/std of GN_ch
+  float* vec_s = st_s + EB;                      // [NT/32][NV][C]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float ones[4] = {1.f, 1.f, 1.f, 1.f};
+  float accK1[8][8], accOut[8][8];
+  zero_tn(accK1);
+  zero_tn(accOut);
+  zero_warp_vecs<NV>(vec_s);
+  const int ntiles = (e + EB - 1) / EB;
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long row0 = (long)tile * EB;
+    __syncthreads();  // the previous tile is done with the tiles and W_s
+    tile_t1<T, DIN>(A_s, d, kd, bd, row0, e);  // A = t1 (0 past e)
+    load_weight<T>(W_s, k1);
+    __syncthreads();
+    float acc[4][8];
+    zero_acc(acc);
+    mm_64x128(A_s, 0, ones, W_s, acc);  // t1 @ K1
+    store_acc(B_s, acc);
+    __syncthreads();
+    for (int r = warp; r < EB; r += NT / 32) {  // B = nrm_s, C = e1, D = g
+      const long row = row0 + r;
+      float* pb = B_s + r * LDA + lane * 4;
+      float4 sv = *reinterpret_cast<float4*>(pb);
+      if (row < e) sv = add4(sv, load4<T>(cg + row * C + lane * 4));
+      const float2 st = gn_stats(sv, eps);
+      const float4 nrm = gn_nrm(sv, st);
+      *reinterpret_cast<float4*>(pb) = nrm;
+      *reinterpret_cast<float4*>(C_s + r * LDA + lane * 4) =
+          rnd4<T>(relu4(gn_affine(nrm, gchw, gchb)));
+      *reinterpret_cast<float4*>(D_s + r * LDA + lane * 4) =
+          row < e ? load4<T>(g + row * C + lane * 4) : zero4();
+      if (lane == 0) st_s[r] = st.y;
+    }
+    load_weight_t<T>(W_s, kout);
+    __syncthreads();
+    zero_acc(acc);
+    mm_64x128(D_s, 0, ones, W_s, acc);  // d_e1 = g @ Woutᵀ
+    mm_tn(C_s, D_s, EB, accOut);        // dWout += e1ᵀ g
+    __syncthreads();
+    store_acc(D_s, acc);
+    __syncthreads();
+    for (int r = warp; r < EB; r += NT / 32) {  // D = rnd(d_s) = dcg
+      const long row = row0 + r;
+      float4* pd = reinterpret_cast<float4*>(D_s + r * LDA + lane * 4);
+      float4 ds = zero4();
+      if (row < e) {
+        const float4 nrm = *reinterpret_cast<const float4*>(B_s + r * LDA + lane * 4);
+        const float4 e1 = *reinterpret_cast<const float4*>(C_s + r * LDA + lane * 4);
+        const float4 dgn = pos_mask4(*pd, e1);
+        add_warp_vec<NV>(vec_s, 1, mul4(dgn, nrm));
+        add_warp_vec<NV>(vec_s, 2, dgn);
+        ds = rnd4<T>(gn_bwd_row(dgn, nrm, st_s[r], gchw));
+        store4<T>(dcg + row * C + lane * 4, ds);
+      }
+      *pd = ds;
+    }
+    load_weight_t<T>(W_s, k1);
+    __syncthreads();
+    zero_acc(acc);
+    mm_64x128(D_s, 0, ones, W_s, acc);  // d_t1 = rnd(d_s) @ K1ᵀ
+    mm_tn(A_s, D_s, EB, accK1);         // dK1 += t1ᵀ rnd(d_s)
+    __syncthreads();
+    store_acc(B_s, acc);
+    __syncthreads();
+    for (int r = warp; r < EB; r += NT / 32) {  // d_t1p = d_t1 ⊙ [t1 > 0]
+      const long row = row0 + r;
+      if (row >= e) break;
+      const float4 t1 = *reinterpret_cast<const float4*>(A_s + r * LDA + lane * 4);
+      const float4 d_t1p = pos_mask4(*reinterpret_cast<const float4*>(B_s + r * LDA + lane * 4),
+                                     t1);
+      add_warp_vec<NV>(vec_s, 0, d_t1p);
+      const float4 d1 = rnd4<T>(d_t1p);
+#pragma unroll
+      for (int k = 0; k < DIN; ++k) {
+        const float a = rnd<T>(d[row * DIN + k]);
+        add_warp_vec<NV>(vec_s, 3 + k, make_float4(a * d1.x, a * d1.y, a * d1.z, a * d1.w));
+        if (dd) {
+          const float4 kk = load4<T>(kd + k * C + lane * 4);
+          const float sk = warp_sum(d1.x * kk.x + d1.y * kk.y + d1.z * kk.z + d1.w * kk.w);
+          if (lane == 0) dd[row * DIN + k] = sk;
+        }
+      }
+    }
+  }
+  float* P = part + (long)blockIdx.x * (2 * C * C + NV * C);
+  store_tn(P, accK1, false);
+  store_tn(P + C * C, accOut, false);
+  sum_warp_vecs<NV>(vec_s, P + 2 * C * C);
+}
+
+template <typename T, int DIN>
+int launch_pool_bwd(const float* d, const void* cg, const void* g, const void* kd,
+                    const float* bd, const void* k1, const float* gchw, const float* gchb,
+                    const void* kout, float* dd, void* dcg, float* part, float* grads, int e,
+                    int blocks, float eps, cudaStream_t stream) {
+  const int smem = (4 * EB * LDA + C * C + EB + NT / 32 * (3 + DIN) * C) * (int)sizeof(float);
+  cudaError_t err = set_smem((const void*)edge_mlp_pool_bwd_kernel<T, DIN>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (e + EB - 1) / EB;
+  if (blocks > tiles) blocks = tiles;
+  if (blocks > 0) {
+    edge_mlp_pool_bwd_kernel<T, DIN><<<blocks, NT, smem, stream>>>(
+        d, (const T*)cg, (const T*)g, (const T*)kd, bd, (const T*)k1, gchw, gchb,
+        (const T*)kout, dd, (T*)dcg, part, e, eps);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)reduce_partials(part, grads, blocks, 2 * C * C + (3 + DIN) * C, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (qg, cg, kd [2, C], kdo, k1, kout (in,
@@ -331,5 +485,34 @@ extern "C" int edge_mlp_bwd(const void* d, const void* qg, const void* cg, const
   if (dtype == 1)
     return launch_bwd<bf16>(dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg, dcg,
                             pt, gr, e, blocks, eps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// LanePooling's backward. g: the output cotangent [e, 128] in the activation
+// dtype; dd fp32 [e, din], or null to skip it; dcg [e, 128] in the activation
+// dtype; part: fp32 [blocks, 2*C*C + (3 + din)*C]; grads: fp32
+// [2*C*C + (3 + din)*C] = dK1, dWout (in, out), dbd, dgchw, dgchb, then the
+// din rows of dWd, the partials' sum in block order.
+extern "C" int edge_mlp_pool_bwd(const void* d, const void* cg, const void* g, const void* kd,
+                                 const void* bd, const void* k1, const void* gchw,
+                                 const void* gchb, const void* kout, void* dd, void* dcg,
+                                 void* part, void* grads, int e, int din, int blocks, float eps,
+                                 int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const float *dp = (const float*)d, *b = (const float*)bd, *g2 = (const float*)gchw,
+              *g3 = (const float*)gchb;
+  float *ddp = (float*)dd, *pt = (float*)part, *gr = (float*)grads;
+  if (dtype == 0 && din == 2)
+    return launch_pool_bwd<float, 2>(dp, cg, g, kd, b, k1, g2, g3, kout, ddp, dcg, pt, gr, e,
+                                     blocks, eps, st);
+  if (dtype == 0 && din == 4)
+    return launch_pool_bwd<float, 4>(dp, cg, g, kd, b, k1, g2, g3, kout, ddp, dcg, pt, gr, e,
+                                     blocks, eps, st);
+  if (dtype == 1 && din == 2)
+    return launch_pool_bwd<bf16, 2>(dp, cg, g, kd, b, k1, g2, g3, kout, ddp, dcg, pt, gr, e,
+                                    blocks, eps, st);
+  if (dtype == 1 && din == 4)
+    return launch_pool_bwd<bf16, 4>(dp, cg, g, kd, b, k1, g2, g3, kout, ddp, dcg, pt, gr, e,
+                                    blocks, eps, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,4 @@
-// Fused residual row tails, K = 1 (forward and backward) and K = 2 (forward).
+// Fused residual row tails, K = 1 and K = 2, forward and backward.
 //
 // Replaces lanegcn_tpu/ops/pallas_row_tail.py `_fwd_kernel` / `_fwd_impl`
 // (the Pallas kernel behind `fused_row_tail`), the tail every Att stage runs
@@ -40,6 +40,27 @@
 // memory once (160 MB at N = 208,896 in bf16) against 13.7 GFLOP, so at
 // the card's bf16 matrix rate it is memory-bound; on the CUDA cores in fp32
 // that this version uses, the two products dominate.
+//
+// K = 2 backward (`row_tail2_bwd`): replaces `_bwd_kernel` / `_bwd_impl` at
+// K = 2. Per 64-row tile it recomputes the chain and runs back through
+// GN3 → W2 → GN2 → W1 → GN1:
+//
+//   d_y = g ⊙ [y + res > 0] (= dres);  d_t2 = rnd(GN3ᵀ(d_y));  dW2 += h2ᵀ d_t2
+//   d_h2 = d_t2 @ W2ᵀ ⊙ [h2_pre > 0]; d_t1 = rnd(GN2ᵀ(d_h2));  dW1 += h1ᵀ d_t1
+//   d_h1 = d_t1 @ W1ᵀ ⊙ [h1_pre > 0]; dx = GN1ᵀ(d_h1)
+//
+// with h1, h2 and each d_t rounded to x's dtype before its products, as the
+// Pallas backward rounds them. Shared memory: four fp32 tiles (x/h1, t1 then
+// d_t1 then d_h1, h2, t2 then d_t2 then d_h2), one 64 KB weight slot loaded
+// with W1, W2, W2ᵀ and W1ᵀ in turn (all four at once would take 256 KB),
+// and the six GN vector sums per warp: 220 KB, one block per SM. One block
+// per SM walks the tiles with dW1 and dW2 in registers (an 8 x 8 block of
+// each per thread) and writes one partial per block; reduce_partials sums
+// the partials in block order (no float atomics, bitwise reruns). What
+// bounds it: x, res and g read and dx, dres written (267 MB at N = 208,896
+// in bf16) against six [N x 128] x [128 x 128] products (41.1 GFLOP):
+// memory-bound at the card's bf16 matrix rate, product-bound on the CUDA
+// cores this version uses.
 #include "tail_bwd.cuh"
 
 using namespace lgk;
@@ -168,6 +189,163 @@ int launch(const void* x, const void* res, const void* w, const float* g1w, cons
   return (int)cudaGetLastError();
 }
 
+constexpr int TAIL2_PART = 2 * C * C + 6 * C;  // dW1, dW2, dg1w, dg1b, dg2w, dg2b, dg3w, dg3b
+
+inline int tail2_bwd_smem() {
+  return (4 * TM * LDA + C * C + 2 * TM + NT / 32 * 6 * C) * (int)sizeof(float);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT, 1)
+row_tail2_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __restrict__ g,
+                     const T* __restrict__ w1, const T* __restrict__ w2,
+                     const float* __restrict__ gn, T* __restrict__ dx, T* __restrict__ dres,
+                     float* __restrict__ part, int n, float eps) {
+  extern __shared__ float4 smem4[];
+  float* A_s = reinterpret_cast<float*>(smem4);  // [TM][LDA] x, then h1
+  float* B_s = A_s + TM * LDA;                   // t1, then rnd(d_t1), then d_h1
+  float* C_s = B_s + TM * LDA;                   // h2
+  float* D_s = C_s + TM * LDA;                   // t2, then rnd(d_t2), then d_h2
+  float* W_s = D_s + TM * LDA;                   // [C][C] W1, W2, W2ᵀ, W1ᵀ in turn
+  float* st_s = W_s + C * C;                     // [TM][2] GN1 mean, inv
+  float* vec_s = st_s + 2 * TM;                  // [NT/32][6][C] GN vector sums
+  const float *g1w = gn, *g1b = gn + C, *g2w = gn + 2 * C, *g2b = gn + 3 * C,
+              *g3w = gn + 4 * C, *g3b = gn + 5 * C;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float accW1[8][8], accW2[8][8];
+  zero_tn(accW1);
+  zero_tn(accW2);
+  zero_warp_vecs<6>(vec_s);
+  const float ones[4] = {1.f, 1.f, 1.f, 1.f};
+  const int ntiles = (n + TM - 1) / TM;
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long row0 = (long)tile * TM;
+    __syncthreads();  // the previous tile is done with the tiles and W_s
+    for (int idx = threadIdx.x; idx < TM * (C / 4); idx += NT) {
+      const int r = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
+      const long gr = row0 + r;
+      *reinterpret_cast<float4*>(A_s + r * LDA + c4) = gr < n ? load4<T>(x + gr * C + c4) : zero4();
+    }
+    load_weight<T>(W_s, w1);
+    __syncthreads();
+    // h1 = rnd(relu(GN1(x))) in place; rows past n hold 0.
+    for (int r = warp; r < TM; r += NT / 32) {
+      float4* p = reinterpret_cast<float4*>(A_s + r * LDA + lane * 4);
+      const float2 st = gn_stats(*p, eps);
+      const float4 h = rnd4<T>(relu4(gn_affine(gn_nrm(*p, st), g1w, g1b)));
+      *p = (row0 + r < n) ? h : zero4();
+      if (lane == 0) {
+        st_s[2 * r] = st.x;
+        st_s[2 * r + 1] = st.y;
+      }
+    }
+    __syncthreads();
+    float acc[4][8];
+    zero_acc(acc);
+    mm_64x128(A_s, 0, ones, W_s, acc);  // t1 = h1 @ W1
+    store_acc(B_s, acc);
+    __syncthreads();
+    // h2 = rnd(relu(GN2(t1))); rows past n hold 0.
+    for (int r = warp; r < TM; r += NT / 32) {
+      const float4 t1 = *reinterpret_cast<const float4*>(B_s + r * LDA + lane * 4);
+      const float4 h = rnd4<T>(relu4(gn_row(t1, g2w, g2b, eps)));
+      *reinterpret_cast<float4*>(C_s + r * LDA + lane * 4) = (row0 + r < n) ? h : zero4();
+    }
+    load_weight<T>(W_s, w2);
+    __syncthreads();
+    zero_acc(acc);
+    mm_64x128(C_s, 0, ones, W_s, acc);  // t2 = h2 @ W2
+    store_acc(D_s, acc);
+    __syncthreads();
+    // d_y = g ⊙ [y + res > 0] → dres; GN3 backward → rnd(d_t2) in place of t2.
+    for (int r = warp; r < TM; r += NT / 32) {
+      float4* p = reinterpret_cast<float4*>(D_s + r * LDA + lane * 4);
+      const long gr = row0 + r;
+      float4 dt = zero4();
+      if (gr < n) {
+        const float2 st = gn_stats(*p, eps);
+        const float4 nrm = gn_nrm(*p, st);
+        const float4 y = gn_affine(nrm, g3w, g3b);
+        const float4 rv = load4<T>(res + gr * C + lane * 4);
+        const float4 d_y = pos_mask4(load4<T>(g + gr * C + lane * 4), add4(y, rv));
+        add_warp_vec<6>(vec_s, 4, mul4(d_y, nrm));
+        add_warp_vec<6>(vec_s, 5, d_y);
+        dt = rnd4<T>(gn_bwd_row(d_y, nrm, st.y, g3w));
+        store4<T>(dres + gr * C + lane * 4, d_y);
+      }
+      *p = dt;
+    }
+    load_weight_t<T>(W_s, w2);
+    __syncthreads();
+    zero_acc(acc);
+    mm_64x128(D_s, 0, ones, W_s, acc);  // rnd(d_t2) @ W2ᵀ
+    mm_tn(C_s, D_s, TM, accW2);         // dW2 += h2ᵀ rnd(d_t2)
+    __syncthreads();
+    store_acc(D_s, acc);
+    __syncthreads();
+    // d_h2 = (rnd(d_t2) @ W2ᵀ) ⊙ [h2_pre > 0], GN2 backward → rnd(d_t1) in place of t1.
+    for (int r = warp; r < TM; r += NT / 32) {
+      float4* p = reinterpret_cast<float4*>(B_s + r * LDA + lane * 4);
+      float4 dt = zero4();
+      if (row0 + r < n) {
+        const float2 st = gn_stats(*p, eps);
+        const float4 nrm = gn_nrm(*p, st);
+        const float4 d_h = pos_mask4(*reinterpret_cast<const float4*>(D_s + r * LDA + lane * 4),
+                                     gn_affine(nrm, g2w, g2b));
+        add_warp_vec<6>(vec_s, 2, mul4(d_h, nrm));
+        add_warp_vec<6>(vec_s, 3, d_h);
+        dt = rnd4<T>(gn_bwd_row(d_h, nrm, st.y, g2w));
+      }
+      *p = dt;
+    }
+    load_weight_t<T>(W_s, w1);
+    __syncthreads();
+    zero_acc(acc);
+    mm_64x128(B_s, 0, ones, W_s, acc);  // rnd(d_t1) @ W1ᵀ
+    mm_tn(A_s, B_s, TM, accW1);         // dW1 += h1ᵀ rnd(d_t1)
+    __syncthreads();
+    store_acc(B_s, acc);
+    __syncthreads();
+    // d_h1 = (rnd(d_t1) @ W1ᵀ) ⊙ [h1_pre > 0], GN1 backward → dx.
+    for (int r = warp; r < TM; r += NT / 32) {
+      const long gr = row0 + r;
+      if (gr >= n) break;
+      const float2 st = make_float2(st_s[2 * r], st_s[2 * r + 1]);
+      const float4 nrm = gn_nrm(load4<T>(x + gr * C + lane * 4), st);
+      const float4 d_h = pos_mask4(*reinterpret_cast<const float4*>(B_s + r * LDA + lane * 4),
+                                   gn_affine(nrm, g1w, g1b));
+      add_warp_vec<6>(vec_s, 0, mul4(d_h, nrm));
+      add_warp_vec<6>(vec_s, 1, d_h);
+      store4<T>(dx + gr * C + lane * 4, gn_bwd_row(d_h, nrm, st.y, g1w));
+    }
+  }
+  float* P = part + (long)blockIdx.x * TAIL2_PART;
+  store_tn(P, accW1, false);
+  store_tn(P + C * C, accW2, false);
+  sum_warp_vecs<6>(vec_s, P + 2 * C * C);
+}
+
+template <typename T>
+int launch2_bwd(const void* x, const void* res, const void* g, const void* w1, const void* w2,
+                const float* gn, void* dx, void* dres, float* part, float* grads, int n,
+                int blocks, float eps, cudaStream_t stream) {
+  const int smem = tail2_bwd_smem();
+  cudaError_t err = set_smem((const void*)row_tail2_bwd_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int ntiles = (n + TM - 1) / TM;
+  if (blocks > ntiles) blocks = ntiles;
+  if (blocks > 0) {
+    row_tail2_bwd_kernel<T><<<blocks, NT, smem, stream>>>(
+        (const T*)x, (const T*)res, (const T*)g, (const T*)w1, (const T*)w2, gn, (T*)dx,
+        (T*)dres, part, n, eps);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)reduce_partials(part, grads, blocks, TAIL2_PART, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, res, w, out); GN vectors fp32 [128].
@@ -215,5 +393,23 @@ extern "C" int row_tail_bwd(const void* x, const void* res, const void* g, const
     return launch_tail_bwd<bf16, bf16>((const bf16*)x, (const bf16*)res, (const bf16*)g,
                                        (const bf16*)w, a, b, c, d, (bf16*)dx, (bf16*)dres,
                                        nullptr, nullptr, p, gr, n, blocks, eps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K = 2 backward. g: the output cotangent in x's dtype; dx, dres [n, 128] in
+// x's dtype; gn as row_tail2_fwd; part: blocks * (2*C*C + 6*C) fp32
+// workspace; grads: fp32 [2*C*C + 6*C] = dW1, dW2 (in, out), then the GN1,
+// GN2 and GN3 weight and bias gradients.
+extern "C" int row_tail2_bwd(const void* x, const void* res, const void* g, const void* w1,
+                             const void* w2, const void* gn, void* dx, void* dres, void* part,
+                             void* grads, int n, int blocks, float eps, int dtype,
+                             void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* gv = (const float*)gn;
+  float *p = (float*)part, *gr = (float*)grads;
+  if (dtype == 0)
+    return launch2_bwd<float>(x, res, g, w1, w2, gv, dx, dres, p, gr, n, blocks, eps, st);
+  if (dtype == 1)
+    return launch2_bwd<bf16>(x, res, g, w1, w2, gv, dx, dres, p, gr, n, blocks, eps, st);
   return (int)cudaErrorInvalidValue;
 }

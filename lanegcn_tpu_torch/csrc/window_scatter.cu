@@ -1,4 +1,5 @@
-// Window-chunked scatter-add of LanePooling's per-edge messages, forward.
+// Window-chunked scatter-add of LanePooling's per-edge messages, forward
+// and backward.
 //
 // Replaces lanegcn_tpu/ops/pallas_window_scatter.py `_fwd_kernel` /
 // `_pallas_fwd` (the Pallas kernel behind `window_scatter_add`):
@@ -23,6 +24,18 @@
 // at 935,627 live r2g edges into 208,896 rows in bf16, ~0.1 ms at the card's
 // 3.35 TB/s). Each lane loads 8 (bf16) or 16 (fp32) consecutive bytes, so a
 // warp reads a message row as one 256- or 512-byte transaction.
+//
+// Backward (`window_scatter_bwd`): replaces pallas_window_scatter.py
+// `_bwd_kernel` / `_pallas_bwd`, the one-hot [512 x stride] x [stride x 128]
+// matmul per chunk. The cotangent of temp is the output cotangent g itself
+// (the wrapper passes it on); the messages' is a row gather,
+//
+//   d_msg[e] = g[wchunk[e / 512] * stride + lu[e]]   (lu[e] >= 0),  0 on padding,
+//
+// a warp per edge row, each lane copying its 4 channels (no arithmetic, no
+// rounding: d_msg is bitwise g's row). What bounds it: bytes only, the
+// valid edges' rows of g read and every d_msg row written (0.51 GB at
+// 935,627 live of 1,048,576 r2g edges in bf16, ~0.15 ms at 3.35 TB/s).
 #include "common.cuh"
 
 using namespace lgk;
@@ -79,6 +92,21 @@ window_scatter_kernel(const T* __restrict__ msg, const T* __restrict__ temp,
   }
 }
 
+// d_msg row e = g row dst(e), or zeros on padding; a warp per row.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+window_scatter_bwd_kernel(const T* __restrict__ g, const int* __restrict__ lu,
+                          const int* __restrict__ wchunk, T* __restrict__ dmsg, int stride,
+                          long e) {
+  const long row = (long)blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
+  if (row >= e) return;
+  const int c = (threadIdx.x & 31) * 4;
+  const int l = lu[row];
+  float4 v = zero4();
+  if (l >= 0) v = load4<T>(g + ((long)wchunk[row / WCH] * stride + l) * C + c);
+  store4<T>(dmsg + row * C + c, v);
+}
+
 template <typename T>
 int launch(const void* msg, const void* temp, const int* lu, const int* wchunk, void* out,
            int num_win, int stride, int nch, cudaStream_t stream) {
@@ -86,6 +114,18 @@ int launch(const void* msg, const void* temp, const int* lu, const int* wchunk, 
     const dim3 grid((stride + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, num_win);
     window_scatter_kernel<T><<<grid, NT, 0, stream>>>((const T*)msg, (const T*)temp, lu,
                                                       wchunk, (T*)out, stride, nch);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* g, const int* lu, const int* wchunk, void* dmsg, int stride, int nch,
+               cudaStream_t stream) {
+  const long e = (long)nch * WCH;
+  const long blocks = (e + NT / 32 - 1) / (NT / 32);
+  if (blocks > 0) {
+    window_scatter_bwd_kernel<T><<<(unsigned)blocks, NT, 0, stream>>>((const T*)g, lu, wchunk,
+                                                                      (T*)dmsg, stride, e);
   }
   return (int)cudaGetLastError();
 }
@@ -102,5 +142,16 @@ extern "C" int window_scatter_fwd(const void* msg, const void* temp, const void*
   const int *l = (const int*)lu, *wc = (const int*)wchunk;
   if (dtype == 0) return launch<float>(msg, temp, l, wc, out, num_win, stride, nch, st);
   if (dtype == 1) return launch<bf16>(msg, temp, l, wc, out, num_win, stride, nch, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Backward: dmsg [nch*512, 128] = the rows of g [num_win*stride, 128] at each
+// edge's destination, zeros on padding; dtype as window_scatter_fwd (g, dmsg).
+extern "C" int window_scatter_bwd(const void* g, const void* lu, const void* wchunk, void* dmsg,
+                                  int stride, int nch, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int *l = (const int*)lu, *wc = (const int*)wchunk;
+  if (dtype == 0) return launch_bwd<float>(g, l, wc, dmsg, stride, nch, st);
+  if (dtype == 1) return launch_bwd<bf16>(g, l, wc, dmsg, stride, nch, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -33,6 +33,8 @@ class LaneGCN(nn.Module):
     from a torch.Generator seeded with `seed`.
     """
 
+    family = "lanegcn"  # its weight table (utils/weights.py TABLES)
+
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
                  device=None, seed: int = 0):
         super().__init__()

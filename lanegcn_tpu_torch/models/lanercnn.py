@@ -12,9 +12,13 @@ stacks are `LaneConvStack` on their own node space. LanePooling runs its
 per-edge chain in the `edge_mlp` kernel (LanePooling's configuration), the
 scatter into its target rows in the `window_scatter` kernel where the pool
 edges are window-chunked (r2g, g2r) and `scatter_add` where they are flat
-(a2r), and its two-Linear tail in the K = 2 `row_tail` kernel. Module names
-follow the reference LaneRCNN, so a state_dict keyed by them loads with
-strict=True (utils/weights.py `lanercnn_table`).
+(a2r), and its two-Linear tail in the K = 2 `row_tail` kernel; each of the
+three runs through an autograd Function with a backward kernel, so the
+model trains. With remat=True the three LanePoolings run under activation
+checkpointing (their per-edge [E, 128] tensors are recomputed in the
+backward instead of kept). Module names follow the reference LaneRCNN, so
+a state_dict keyed by them loads with strict=True (utils/weights.py
+`lanercnn_table`).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lanegcn_tpu_torch.config import LossConfig, ModelConfig
 from lanegcn_tpu_torch.device import resolve_device
@@ -116,12 +121,22 @@ class LanePooling(nn.Module):
         )
 
 
+def _pool(stage: LanePooling, remat: bool, *args) -> torch.Tensor:
+    """One LanePooling, rematerialized in the backward when remat is set
+    (the JAX package's nn.remat, lanercnn.py:203, :377)."""
+    if remat:
+        return checkpoint(stage, *args, use_reentrant=False)
+    return stage(*args)
+
+
 class Interactor(nn.Module):
     """RoI → global graph → RoI interaction (reference lanercnn.py:603-642)."""
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         n = cfg.n_map
+        self.remat = remat
         self.input = _embed(n, dtype)
         self.seg = _embed(n, dtype)
         self.roi2graph = LanePooling(n, dtype)
@@ -134,9 +149,11 @@ class Interactor(nn.Module):
         graph_input = torch.relu(self.input(g.ctrs) + self.seg(g.feats))
         roi_pose = batch.node_feats[:, :4]
         graph_pose = torch.cat([g.ctrs, g.feats], dim=-1)
-        graph_feat = self.roi2graph(roi_feat, roi_pose, graph_input, graph_pose, batch.r2g)
+        graph_feat = _pool(self.roi2graph, self.remat, roi_feat, roi_pose, graph_input,
+                           graph_pose, batch.r2g)
         graph_feat = self.global_graph_net["fuse"](graph_feat, **graph_inputs(g))
-        return self.graph2roi(graph_feat, graph_pose, roi_feat, roi_pose, batch.g2r)
+        return _pool(self.graph2roi, self.remat, graph_feat, graph_pose, roi_feat, roi_pose,
+                     batch.g2r)
 
 
 def segmented_nms(xy, logits, seg, mask, num_seg: int, k: int = 6,
@@ -198,9 +215,11 @@ def _sample_d1_traj(s, a0, a1, a2, b0, b1, b2):
 class Decode(nn.Module):
     """Anchor-based decoding (reference lanercnn.py:740-924)."""
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         n = cfg.n_actor
         self.pred = nn.Sequential(Linear(cfg.n_map, n, dtype=dtype), Dense(n, 5, dtype=dtype))
         self.agt_layer1 = _embed(n, dtype)
@@ -253,7 +272,8 @@ class Decode(nn.Module):
         agt_feat = torch.relu(self.agt_layer1(traj_pts) + self.agt_layer2(traj_dirs))
         ctx_pose = torch.cat([traj_pts, traj_dirs], dim=-1)
         tgt_pose = torch.cat([anc_ctrs, anc_dirs], dim=-1)
-        int_feats = self.lane_pool(agt_feat, ctx_pose, int_feats, tgt_pose, batch.a2r)
+        int_feats = _pool(self.lane_pool, self.remat, agt_feat, ctx_pose, int_feats, tgt_pose,
+                          batch.a2r)
 
         traj_feats = int_feats[sel]  # [B, k, C]
         delta = self.refinement(traj_feats.reshape(b * k, -1)).reshape(b, k, t_pred, 2)
@@ -270,25 +290,59 @@ class Decode(nn.Module):
         return pred_logits, pred_ctrs, trajs
 
 
+class PredHead(nn.Module):
+    """Standalone per-node 5-dim goal head (reference PredHead
+    lanercnn.py:647-662, commented out of the reference Net: Decode's
+    `pred` holds the same Linear + Dense). [nodes, n_map] → [nodes, 5]."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.pred = nn.Sequential(Linear(cfg.n_map, cfg.n_actor, dtype=dtype),
+                                  Dense(cfg.n_actor, 5, dtype=dtype))
+
+    def forward(self, roi_feat: torch.Tensor) -> torch.Tensor:
+        return self.pred(roi_feat)
+
+
+class RefineHead(nn.Module):
+    """Standalone per-node refinement head (reference RefineHead
+    lanercnn.py:664-680, commented out of the reference Net).
+    [nodes, n_map] → [nodes, num_mods, num_preds, 2]."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.refinement = nn.Sequential(
+            Linear(cfg.n_map, cfg.n_actor, dtype=dtype),
+            Dense(cfg.n_actor, cfg.num_mods * cfg.num_preds * 2, dtype=dtype))
+
+    def forward(self, roi_feat: torch.Tensor) -> torch.Tensor:
+        return self.refinement(roi_feat).reshape(-1, self.cfg.num_mods, self.cfg.num_preds, 2)
+
+
 class LaneRCNN(nn.Module):
     """The LaneRCNN Net with the reference's module names.
 
     dtype is the compute dtype (parameters stay fp32); device defaults to
     `cuda` (raises without CUDA unless device="cpu"); parameters are drawn
-    from a torch.Generator seeded with `seed`.
+    from a torch.Generator seeded with `seed`; remat rematerializes the
+    three LanePoolings in the backward (less memory, one more pooling
+    forward each).
     """
 
+    family = "lanercnn"  # its weight table (utils/weights.py TABLES)
+
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, remat: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = dtype
         self.input = LaneInput(cfg, dtype)
         self.roi_net1 = LaneRoI(cfg, dtype)
-        self.interactor = Interactor(cfg, dtype)
+        self.interactor = Interactor(cfg, dtype, remat)
         self.roi_net2 = LaneRoI(cfg, dtype)
-        self.decode = Decode(cfg, dtype)
+        self.decode = Decode(cfg, dtype, remat)
         init_parameters(self, seed)
         self.to(device)
 
@@ -349,6 +403,38 @@ def roi_loss(out: Dict[str, torch.Tensor], batch: RoiPackedBatch,
             "reg_loss": reg_goal + reg_traj, "num_reg": num_goal + num_traj,
             "reg_goal_loss": reg_goal, "num_reg_goal": num_goal,
             "reg_traj_loss": reg_traj, "num_reg_traj": num_traj}
+
+
+def roi_loss_for_goals(out: Dict[str, torch.Tensor], batch: RoiPackedBatch,
+                       cfg: LossConfig) -> Dict[str, torch.Tensor]:
+    """Goal-only loss (reference RoiLossForGoals lanercnn.py:926-1202,
+    superseded by RoiLoss on the active path): roi_loss's BCE and best-mode
+    goal SmoothL1, no trajectory term; `goals_to_eval` [B, 2] is the best
+    mode's goal."""
+    logits, goals = out["pred_logics"], out["pred_goals"]
+    gt, has, valid = batch.gt_preds, batch.has_preds, batch.scen_mask
+    t, k = gt.shape[1], logits.shape[1]
+    dev = gt.device
+
+    last = has.float() + 0.1 * torch.arange(t, dtype=torch.float32, device=dev) / float(t)
+    last_idcs = last.argmax(1)
+    gt_last = torch.gather(gt, 1, last_idcs[:, None, None].expand(-1, 1, 2))[:, 0]
+    min_idcs = (goals - gt_last[:, None, :]).square().sum(-1).sqrt().argmin(1)
+
+    onehot = torch.nn.functional.one_hot(min_idcs, k).float()
+    bce = torch.clamp_min(logits, 0) - logits * onehot + torch.log1p(torch.exp(-logits.abs()))
+    cls_loss = torch.where(valid[:, None], bce, 0.0).sum()
+    num_cls = valid.float().sum()
+
+    has_goal = torch.gather(has, 1, last_idcs[:, None])[:, 0] & valid
+    goal_best = torch.gather(goals, 1, min_idcs[:, None, None].expand(-1, 1, 2))[:, 0]
+    reg_loss = cfg.reg_coef * torch.where(
+        has_goal[:, None], smooth_l1(goal_best - gt_last), 0.0).sum()
+    num_reg = has_goal.float().sum()
+
+    loss = cls_loss / (num_cls + 1e-10) + reg_loss / (num_reg + 1e-10)
+    return {"loss": loss, "cls_loss": cls_loss, "num_cls": num_cls, "reg_loss": reg_loss,
+            "num_reg": num_reg, "goals_to_eval": goal_best}
 
 
 def roi_metrics(out: Dict[str, torch.Tensor], batch: RoiPackedBatch) -> Dict[str, torch.Tensor]:

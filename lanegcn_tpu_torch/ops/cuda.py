@@ -10,7 +10,7 @@ Every C entry point returns `cudaGetLastError()` after its launch; `call`
 raises when that is not 0, so a refused launch never passes silently.
 
 `LAUNCHES` counts launches per C entry point (`lane_layer_fwd`,
-`lane_layer_bwd`, ..., `edge_mlp_pool_fwd`, `window_scatter_fwd`): `call`
+`lane_layer_bwd`, ..., `edge_mlp_pool_bwd`, `window_scatter_bwd`): `call`
 adds one where it launches the entry, and nothing else does. An entry may
 run several kernels (a backward's passes and its partial-sum reduction); it
 counts once per call.
@@ -34,10 +34,10 @@ ENTRIES = {
     "lane_layer": ("lane_layer_fwd", "lane_layer_bwd"),
     "scenario_agg": ("scenario_agg_fwd", "scenario_agg_bwd"),
     "win_edge": ("win_edge_fwd", "win_edge_bwd_d", "win_edge_bwd_s"),
-    "row_tail": ("row_tail_fwd", "row_tail_bwd", "row_tail2_fwd"),
+    "row_tail": ("row_tail_fwd", "row_tail_bwd", "row_tail2_fwd", "row_tail2_bwd"),
     "pair_agg": ("pair_agg_fwd", "pair_agg_bwd_d", "pair_agg_bwd_s"),
-    "edge_mlp": ("edge_mlp_fwd", "edge_mlp_bwd", "edge_mlp_pool_fwd"),
-    "window_scatter": ("window_scatter_fwd",),
+    "edge_mlp": ("edge_mlp_fwd", "edge_mlp_bwd", "edge_mlp_pool_fwd", "edge_mlp_pool_bwd"),
+    "window_scatter": ("window_scatter_fwd", "window_scatter_bwd"),
 }
 
 KERNELS = tuple(ENTRIES)
@@ -158,11 +158,14 @@ def num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
-    """Raise when a forward-only kernel would have to carry a gradient."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(f"{name}: the kernel's backward is not ported yet; "
-                                  "call it under torch.no_grad()")
+def param(t: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A parameter as a kernel reads it: contiguous, in `dtype`, its data
+    16-byte aligned for the kernels' float4 loads. Under the flat optimizer
+    every parameter is a view into one buffer at its own offset (a 5-float
+    bias shifts all later ones by 4 bytes), so it is copied when it is not
+    aligned."""
+    t = t.to(dtype).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> int:

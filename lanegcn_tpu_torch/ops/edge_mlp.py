@@ -9,11 +9,10 @@ Per row e of the list (padding rows included):
 Counterpart of lanegcn_tpu/ops/pallas_edge_mlp.py `fused_edge_mlp` in its
 two configurations: Att's (has_dist2 and has_query, d [E, 2]) and
 LanePooling's (neither; t2 = t1, d [E, 4]). The gathers before it and the
-destination scatter after it stay outside. Att's op runs through a
-`torch.autograd.Function` whose backward is the `edge_mlp_bwd` kernel on
-CUDA tensors and `edge_mlp_bwd_plain` on CPU tensors. LanePooling's is
-forward only (`edge_mlp_pool_fwd`; LaneRCNN's training path is not ported
-yet): a CUDA call that would need a gradient raises.
+destination scatter after it stay outside. Each configuration runs
+through a `torch.autograd.Function`: Att's backward is the `edge_mlp_bwd`
+kernel on CUDA tensors and `edge_mlp_bwd_plain` on CPU tensors,
+LanePooling's the `edge_mlp_pool_bwd` kernel and `edge_mlp_pool_bwd_plain`.
 """
 
 from __future__ import annotations
@@ -91,8 +90,8 @@ def _check(d, qg, cg, kd, weights, vectors):
 def _prep(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, *rows):
     _check(d, qg, cg, kd, (kdo, k1, kout), (bd, gdow, gdob, gchw, gchb))
     dt = cg.dtype
-    ws = [w.to(dt).contiguous() for w in (kd, kdo, k1, kout)]
-    vs = [p.float().contiguous() for p in (bd, gdow, gdob, gchw, gchb)]
+    ws = [cuda.param(w, dt) for w in (kd, kdo, k1, kout)]
+    vs = [cuda.param(p) for p in (bd, gdow, gdob, gchw, gchb)]
     code = cuda.check_cuda("edge_mlp", qg, cg, *rows, d, *ws, *vs)
     return ws, vs, code
 
@@ -160,7 +159,30 @@ class _EdgeMlp(torch.autograd.Function):
         return (*(x.to(p.dtype) for x, p in zip(grads, saved)), None)
 
 
-def _pool_fwd_cuda(d, cg, kd, bd, k1, gchw, gchb, kout, eps):
+def edge_mlp_pool_bwd_plain(d, cg, kd, bd, k1, gchw, gchb, kout, g, eps: float = 1e-5):
+    """LanePooling's backward kernel's arithmetic (no dist_out stage, so
+    d_t1 = d_t2): recompute the chain, then back through Wout, GN(ch), K1,
+    the ReLU and Wd, rounding the cotangent, d_s and d_t1p to the activation
+    dtype before their products. Returns dd fp32 [E, din] and dcg in the
+    activation dtype, then fp32 dWd, dbd, dK1, dgchw, dgchb, dWout: one
+    gradient per input, in the inputs' order."""
+    dt = cg.dtype
+    rnd = lambda x: x.to(dt).float()
+    w_d, w_1, w_out = (rnd(w) for w in (kd, k1, kout))
+    dr = rnd(d)
+    t1 = rnd(torch.relu(dr @ w_d + bd.float()))
+    nrm_s, inv_s = gn_stats(t1 @ w_1 + cg.float(), eps)
+    e1 = rnd(torch.relu(nrm_s * gchw.float() + gchb.float()))
+    d_e2 = rnd(g)
+    d_gn_s = torch.where(e1 > 0, d_e2 @ w_out.t(), 0.0)
+    d_s = rnd(gn_bwd(d_gn_s, nrm_s, inv_s, gchw))
+    d_t1p = torch.where(t1 > 0, d_s @ w_1.t(), 0.0)
+    d_t1 = rnd(d_t1p)
+    return (d_t1 @ w_d.t(), d_s.to(dt), dr.t() @ d_t1, d_t1p.sum(0), t1.t() @ d_s,
+            (d_gn_s * nrm_s).sum(0), d_gn_s.sum(0), e1.t() @ d_e2)
+
+
+def _pool_prep(d, cg, kd, bd, k1, gchw, gchb, kout, *rows):
     e, c = cg.shape
     din = d.shape[1] if d.dim() == 2 else 0
     if (c != C or tuple(d.shape) != (e, din) or din not in (2, 4)
@@ -171,17 +193,80 @@ def _pool_fwd_cuda(d, cg, kd, bd, k1, gchw, gchb, kout, eps):
     if d.dtype != torch.float32:
         raise TypeError("edge_mlp: d must be float32")
     dt = cg.dtype
-    ws = [w.to(dt).contiguous() for w in (kd, k1, kout)]
-    vs = [p.float().contiguous() for p in (bd, gchw, gchb)]
-    code = cuda.check_cuda("edge_mlp", cg, d, *ws, *vs)
+    ws = [cuda.param(w, dt) for w in (kd, k1, kout)]
+    vs = [cuda.param(p) for p in (bd, gchw, gchb)]
+    code = cuda.check_cuda("edge_mlp", cg, *rows, d, *ws, *vs)
+    return ws, vs, code
+
+
+def _pool_fwd_cuda(d, cg, kd, bd, k1, gchw, gchb, kout, eps):
+    ws, vs, code = _pool_prep(d, cg, kd, bd, k1, gchw, gchb, kout)
     out = torch.empty_like(cg)
     cuda.call(
         "edge_mlp", "edge_mlp_pool_fwd",
         cuda.ptr(d), cuda.ptr(cg), cuda.ptr(ws[0]), cuda.ptr(vs[0]), cuda.ptr(ws[1]),
-        cuda.ptr(vs[1]), cuda.ptr(vs[2]), cuda.ptr(ws[2]), cuda.ptr(out), ctypes.c_int(e),
-        ctypes.c_int(din), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+        cuda.ptr(vs[1]), cuda.ptr(vs[2]), cuda.ptr(ws[2]), cuda.ptr(out), ctypes.c_int(cg.shape[0]),
+        ctypes.c_int(d.shape[1]), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
     )
     return out
+
+
+def edge_mlp_pool_bwd_cuda(d, cg, kd, bd, k1, gchw, gchb, kout, g, eps: float = 1e-5,
+                           need_dd: bool = True):
+    """The `edge_mlp_pool_bwd` kernel; the same outputs as
+    `edge_mlp_pool_bwd_plain`, except dd is None when not `need_dd` (the
+    kernel then skips it)."""
+    if g.shape != cg.shape or g.dtype != cg.dtype:
+        raise ValueError(f"edge_mlp: cotangent {g.shape} {g.dtype} for {cg.shape} {cg.dtype}")
+    ws, vs, code = _pool_prep(d, cg, kd, bd, k1, gchw, gchb, kout, g)
+    dev = cg.device
+    e, din = d.shape
+    part_size = 2 * C * C + (3 + din) * C
+    blocks = cuda.num_sms(dev)
+    dd = torch.empty(d.shape, dtype=torch.float32, device=dev) if need_dd else None
+    dcg = torch.empty_like(cg)
+    part = torch.empty(blocks * part_size, dtype=torch.float32, device=dev)
+    grads = torch.empty(part_size, dtype=torch.float32, device=dev)
+    cuda.call(
+        "edge_mlp", "edge_mlp_pool_bwd",
+        cuda.ptr(d), cuda.ptr(cg), cuda.ptr(g), cuda.ptr(ws[0]), cuda.ptr(vs[0]),
+        cuda.ptr(ws[1]), cuda.ptr(vs[1]), cuda.ptr(vs[2]), cuda.ptr(ws[2]), cuda.ptr(dd),
+        cuda.ptr(dcg), cuda.ptr(part), cuda.ptr(grads), ctypes.c_int(e), ctypes.c_int(din),
+        ctypes.c_int(blocks), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+    )
+    mats = grads[:2 * C * C].view(2, C, C)
+    vecs = grads[2 * C * C:].view(3 + din, C)
+    return dd, dcg, vecs[3:], vecs[0], mats[0], vecs[1], vecs[2], mats[1]
+
+
+class _EdgeMlpPool(torch.autograd.Function):
+    """LanePooling's configuration, as `_EdgeMlp`: the plain versions on CPU
+    tensors, the kernels on CUDA tensors; each gradient in its input's
+    dtype. The kernel skips dd when d needs no gradient (in the model d is
+    the pack's poses)."""
+
+    @staticmethod
+    def forward(ctx, d, cg, kd, bd, k1, gchw, gchb, kout, eps):
+        args = (d, cg, kd, bd, k1, gchw, gchb, kout)
+        if cg.device.type == "cpu":
+            out = edge_mlp_plain(d, None, cg, kd, bd, None, None, None, k1, gchw, gchb, kout,
+                                 False, False, eps)
+        else:
+            out = _pool_fwd_cuda(*args, eps)
+        ctx.save_for_backward(*args)  # after the launch, as _RowTail2
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        cg = saved[1]
+        g = g.to(cg.dtype).contiguous()
+        if cg.device.type == "cpu":
+            grads = edge_mlp_pool_bwd_plain(*saved, g, ctx.eps)
+        else:
+            grads = edge_mlp_pool_bwd_cuda(*saved, g, ctx.eps, ctx.needs_input_grad[0])
+        return (*(None if x is None else x.to(p.dtype) for x, p in zip(grads, saved)), None)
 
 
 def fused_edge_mlp(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
@@ -205,11 +290,7 @@ def fused_edge_mlp(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
                               gdow, gdob, k1, gchw, gchb, kout, eps)
     if has_dist2 or has_query:
         raise NotImplementedError("edge_mlp: only Att's and LanePooling's configurations")
-    if cg.device.type == "cpu":
-        return edge_mlp_plain(d, None, cg, kd, bd, None, None, None, k1, gchw, gchb, kout,
-                              False, False, eps)
-    cuda.check_no_grad("edge_mlp_pool", d, cg, kd, bd, k1, gchw, gchb, kout)
-    return _pool_fwd_cuda(d.contiguous(), cg.contiguous(), kd, bd, k1, gchw, gchb, kout, eps)
+    return _EdgeMlpPool.apply(d.contiguous(), cg.contiguous(), kd, bd, k1, gchw, gchb, kout, eps)
 
 
 def _live_rows(*rows) -> int:
@@ -255,6 +336,25 @@ def work_bwd(d, qg, cg, g) -> dict:
     return {
         "bytes": e * (2 * 4 * 2 + 5 * c * db) + (3 * c * c + 2 * c) * (db + 4) + 10 * c * 4,
         "flops": 2 * rows * (9 * c * c + 6 * c),
+        "rows": e,
+        "live_rows": rows,
+    }
+
+
+def work_pool_bwd(d, cg, g) -> dict:
+    """LanePooling's backward at these inputs, dd included (the model skips
+    it, d being pack data; `chip_smoke.py` asks for it to check it): d, cg
+    and g read and dd and dcg written whole, the weights read and their
+    gradients written; per row whose cotangent is nonzero five [128 x 128]
+    products (K1 recomputed, d_e1, d_t1, dK1, dWout) and three with Wd (t1
+    recomputed, dWd, dd)."""
+    e, c = cg.shape
+    din = d.shape[1]
+    db = cg.element_size()
+    rows = int((g != 0).any(1).sum())
+    return {
+        "bytes": e * (2 * din * 4 + 3 * c * db) + (2 * c * c + din * c) * (db + 4) + 6 * c * 4,
+        "flops": 2 * rows * (5 * c * c + 3 * din * c),
         "rows": e,
         "live_rows": rows,
     }

@@ -116,7 +116,7 @@ def _fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, shifts, eps, save_te
     _check(feat, pre, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts)
     n = feat.shape[0]
     masks = _mask_bytes(masks)
-    gns = [g.float().contiguous() for g in (g1w, g1b, g2w, g2b)]
+    gns = [cuda.param(g) for g in (g1w, g1b, g2w, g2b)]
     code = cuda.check_cuda("lane_layer", feat, pre, masks, wb, w2, *gns)
     out = torch.empty_like(feat)
     temp = torch.empty(n, C, dtype=torch.float32, device=feat.device) if save_temp else None
@@ -141,7 +141,7 @@ def lane_layer_bwd_cuda(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, g,
             or g.shape != feat.shape or g.dtype != feat.dtype):
         raise ValueError("lane_layer: temp must be fp32 and g in feat's dtype, both [N, 128]")
     masks = _mask_bytes(masks)
-    gns = [t.float().contiguous() for t in (g1w, g1b, g2w, g2b)]
+    gns = [cuda.param(t) for t in (g1w, g1b, g2w, g2b)]
     code = cuda.check_cuda("lane_layer", feat, temp, masks, wb, w2, g, *gns)
     dev = feat.device
     tail_blocks = cuda.num_sms(dev)

@@ -5,11 +5,10 @@ and their plain versions.
     K = 2:  out = relu(GN3(relu(GN2(relu(GN1(x)) @ W1)) @ W2) + res)
 
 Counterparts of lanegcn_tpu/ops/pallas_row_tail.py `fused_row_tail` (Att's
-tail) and `fused_row_tail2` (LaneRCNN's LanePooling tail). The K = 1 op
-runs through a `torch.autograd.Function`: its backward is the
-`row_tail_bwd` kernel on CUDA tensors and `row_tail_bwd_plain` on CPU
-tensors. K = 2 is forward only (LaneRCNN's training path is not ported
-yet): a CUDA call that would need a gradient raises.
+tail) and `fused_row_tail2` (LaneRCNN's LanePooling tail). Both run
+through a `torch.autograd.Function`: the backward is the `row_tail_bwd`
+(K = 1) or `row_tail2_bwd` (K = 2) kernel on CUDA tensors and
+`row_tail_bwd_plain` / `row_tail2_bwd_plain` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ from lanegcn_tpu_torch.ops.norm import gn_bwd, gn_stats, group_norm
 
 C = 128
 PART = C * C + 4 * C  # a backward partial: dW, dg1w, dg1b, dg2w, dg2b
+PART2 = 2 * C * C + 6 * C  # K = 2: dW1, dW2, then the three GNs' weight and bias
 
 
 def row_tail_plain(x, res, w, g1w, g1b, g2w, g2b, eps: float = 1e-5) -> torch.Tensor:
@@ -75,7 +75,7 @@ def _check(x, res, w, gns):
 
 def _fwd_cuda(x, res, w, g1w, g1b, g2w, g2b, eps):
     _check(x, res, w, (g1w, g1b, g2w, g2b))
-    gns = [g.float().contiguous() for g in (g1w, g1b, g2w, g2b)]
+    gns = [cuda.param(g) for g in (g1w, g1b, g2w, g2b)]
     code = cuda.check_cuda("row_tail", x, res, w, *gns)
     out = torch.empty_like(x)
     cuda.call(
@@ -91,7 +91,7 @@ def row_tail_bwd_cuda(x, res, w, g1w, g1b, g2w, g2b, g, eps: float = 1e-5):
     _check(x, res, w, (g1w, g1b, g2w, g2b))
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"row_tail: cotangent {g.shape} {g.dtype} for x {x.shape} {x.dtype}")
-    gns = [t.float().contiguous() for t in (g1w, g1b, g2w, g2b)]
+    gns = [cuda.param(t) for t in (g1w, g1b, g2w, g2b)]
     code = cuda.check_cuda("row_tail", x, res, g, w, *gns)
     blocks = cuda.num_sms(x.device)
     dx, dres = torch.empty_like(x), torch.empty_like(x)
@@ -154,10 +154,45 @@ def row_tail2_plain(x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b,
     return torch.relu(y + res.float()).to(dt)
 
 
-def _fwd2_cuda(x, res, w1, w2, gns, eps):
+def row_tail2_bwd_plain(x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b, g,
+                        eps: float = 1e-5):
+    """The K = 2 backward kernel's arithmetic: the chain recomputed, then
+    back through GN3, W2, GN2, W1 and GN1 with h1, h2 and each d_t rounded
+    to x's dtype before their products. Returns (dx, dres) in x's dtype,
+    then fp32 dW1, dW2 [128, 128] (in, out) and the six GN vector
+    gradients: one gradient per input, in the inputs' order."""
+    dt = x.dtype
+    rnd = lambda t: t.to(dt).float()
+    w1f, w2f = rnd(w1), rnd(w2)
+    nrm1, inv1 = gn_stats(x.float(), eps)
+    h1_pre = nrm1 * g1w.float() + g1b.float()
+    h1 = rnd(torch.relu(h1_pre))
+    nrm2, inv2 = gn_stats(h1 @ w1f, eps)
+    h2_pre = nrm2 * g2w.float() + g2b.float()
+    h2 = rnd(torch.relu(h2_pre))
+    nrm3, inv3 = gn_stats(h2 @ w2f, eps)
+    y = nrm3 * g3w.float() + g3b.float()
+    d_y = torch.where(y + res.float() > 0, g.float(), 0.0)
+    d_t2 = rnd(gn_bwd(d_y, nrm3, inv3, g3w))
+    d_h2 = torch.where(h2_pre > 0, d_t2 @ w2f.t(), 0.0)
+    d_t1 = rnd(gn_bwd(d_h2, nrm2, inv2, g2w))
+    d_h1 = torch.where(h1_pre > 0, d_t1 @ w1f.t(), 0.0)
+    d_x = gn_bwd(d_h1, nrm1, inv1, g1w)
+    return (d_x.to(dt), d_y.to(dt), h1.t() @ d_t1, h2.t() @ d_t2,
+            (d_h1 * nrm1).sum(0), d_h1.sum(0), (d_h2 * nrm2).sum(0), d_h2.sum(0),
+            (d_y * nrm3).sum(0), d_y.sum(0))
+
+
+def _check2(x, res, w1, w2, gns):
+    """The K = 2 kernels' weights as they read them and the six GN affines
+    stacked [6, 128] fp32."""
     for w in (w1, w2):
         _check(x, res, w, gns)
-    gn = torch.stack([g.float() for g in gns]).contiguous()
+    return cuda.param(w1, x.dtype), cuda.param(w2, x.dtype), torch.stack([g.float() for g in gns])
+
+
+def _fwd2_cuda(x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b, eps):
+    w1, w2, gn = _check2(x, res, w1, w2, (g1w, g1b, g2w, g2b, g3w, g3b))
     code = cuda.check_cuda("row_tail", x, res, w1, w2, gn)
     out = torch.empty_like(x)
     cuda.call(
@@ -168,21 +203,62 @@ def _fwd2_cuda(x, res, w1, w2, gns, eps):
     return out
 
 
+def row_tail2_bwd_cuda(x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b, g, eps: float = 1e-5):
+    """The `row_tail2_bwd` kernel; the same outputs as `row_tail2_bwd_plain`."""
+    w1, w2, gn = _check2(x, res, w1, w2, (g1w, g1b, g2w, g2b, g3w, g3b))
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError(f"row_tail: cotangent {g.shape} {g.dtype} for x {x.shape} {x.dtype}")
+    code = cuda.check_cuda("row_tail", x, res, g, w1, w2, gn)
+    blocks = cuda.num_sms(x.device)
+    dx, dres = torch.empty_like(x), torch.empty_like(x)
+    part = torch.empty(blocks * PART2, dtype=torch.float32, device=x.device)
+    grads = torch.empty(PART2, dtype=torch.float32, device=x.device)
+    cuda.call(
+        "row_tail", "row_tail2_bwd",
+        cuda.ptr(x), cuda.ptr(res), cuda.ptr(g), cuda.ptr(w1), cuda.ptr(w2), cuda.ptr(gn),
+        cuda.ptr(dx), cuda.ptr(dres), cuda.ptr(part), cuda.ptr(grads), ctypes.c_int(x.shape[0]),
+        ctypes.c_int(blocks), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+    )
+    dgn = grads[2 * C * C:].view(6, C)
+    return (dx, dres, grads[:C * C].view(C, C), grads[C * C:2 * C * C].view(C, C),
+            *dgn.unbind(0))
+
+
+class _RowTail2(torch.autograd.Function):
+    """K = 2, as `_RowTail`: the plain versions on CPU tensors, the kernels
+    on CUDA tensors; each cotangent in its primal's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b, eps):
+        args = (x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b)
+        out = (row_tail2_plain if x.device.type == "cpu" else _fwd2_cuda)(*args, eps)
+        # Saved after the launch: a checkpointed recompute stops at the
+        # region's last save, so the kernel runs again before it.
+        ctx.save_for_backward(*args)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        x = saved[0]
+        bwd = row_tail2_bwd_plain if x.device.type == "cpu" else row_tail2_bwd_cuda
+        grads = bwd(*saved, g.to(x.dtype).contiguous(), ctx.eps)
+        return (*(d.to(p.dtype) for d, p in zip(grads, saved)), None)
+
+
 def fused_row_tail2(x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b,
                     eps: float = 1e-5) -> torch.Tensor:
     """The two-Linear tail of LanePooling (reference lanercnn.py:497-505).
 
     x/res [N, 128] in one dtype; w1/w2 [128, 128] (in, out), cast to x's
-    dtype; GN affines [128] fp32. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
-    args = (g1w, g1b, g2w, g2b, g3w, g3b)
-    if x.device.type == "cpu":
-        return row_tail2_plain(x, res, w1, w2, *args, eps)
-    if x.device.type != "cuda":
+    dtype (their gradients flow back through the casts); GN affines [128]
+    fp32. CPU tensors take the plain versions; CUDA tensors launch the
+    kernels."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"row_tail: unsupported device {x.device}")
-    cuda.check_no_grad("row_tail2", x, res, w1, w2, *args)
-    return _fwd2_cuda(x.contiguous(), res.contiguous(), w1.to(x.dtype).contiguous(),
-                      w2.to(x.dtype).contiguous(), args, eps)
+    return _RowTail2.apply(x.contiguous(), res.contiguous(), w1.to(x.dtype).contiguous(),
+                           w2.to(x.dtype).contiguous(), g1w, g1b, g2w, g2b, g3w, g3b, eps)
 
 
 def work(n: int, itemsize: int) -> dict:
@@ -206,3 +282,13 @@ def work2(n: int, itemsize: int) -> dict:
     c = C
     return {"bytes": 3 * n * c * itemsize + 2 * c * c * itemsize + 6 * c * 4,
             "flops": 2 * 2 * n * c * c}
+
+
+def work2_bwd(n: int, itemsize: int) -> dict:
+    """K = 2 backward: x, res and g read and dx, dres written once, both
+    weights read and their gradients and the six GN vectors written; six
+    [N, 128] x [128, 128] products (t1 and t2 recomputed, d_h2 and d_h1,
+    dW2 and dW1)."""
+    c = C
+    return {"bytes": 5 * n * c * itemsize + 2 * c * c * (itemsize + 4) + 12 * c * 4,
+            "flops": 6 * 2 * n * c * c}

@@ -115,8 +115,8 @@ def _fwd_cuda(pd, qd, ps, cs, temp, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, p
     _check(pd, qd, ps, cs, temp, (kdo, k1, kout), (bd, gdow, gdob, gchw, gchb), plan)
     nd, c = pd.shape
     dt = pd.dtype
-    ws = [w.to(dt).contiguous() for w in (kdo, k1, kout)]
-    vs = [p.float().contiguous() for p in (bd, gdow, gdob, gchw, gchb)]
+    ws = [cuda.param(w, dt) for w in (kdo, k1, kout)]
+    vs = [cuda.param(p) for p in (bd, gdow, gdob, gchw, gchb)]
     code = cuda.check_cuda("win_edge", pd, qd, ps, cs, temp, plan.idx, plan.meta, *ws, *vs)
     out = temp.clone()
     acc = out if dt == torch.float32 else torch.empty(nd, c, dtype=torch.float32,
@@ -150,8 +150,8 @@ def win_edge_bwd_cuda(pd, qd, ps, cs, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
     ns = ps.shape[0]
     dt = pd.dtype
     dev = pd.device
-    ws = [w.to(dt).contiguous() for w in (kdo, k1, kout)]
-    vs = [p.float().contiguous() for p in (bd, gdow, gdob, gchw, gchb)]
+    ws = [cuda.param(w, dt) for w in (kdo, k1, kout)]
+    vs = [cuda.param(p) for p in (bd, gdow, gdob, gchw, gchb)]
     code = cuda.check_cuda("win_edge", pd, qd, ps, cs, g, plan.idx, plan.meta, *ws, *vs)
     f32 = dict(dtype=torch.float32, device=dev)
     dpd, dqd = torch.zeros_like(pd), torch.zeros_like(qd)

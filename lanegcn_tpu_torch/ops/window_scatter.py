@@ -1,11 +1,11 @@
 """LanePooling's scatter of per-edge messages into a windowed node layout:
-the `window_scatter` CUDA kernel (csrc/window_scatter.cu, forward) and its
-plain version.
+the `window_scatter` CUDA kernels (csrc/window_scatter.cu, forward and
+backward) and their plain versions.
 
     out = temp;  out[wchunk[e // 512] * stride + lu[e]] += msg[e]  (lu[e] >= 0)
 
 Counterpart of lanegcn_tpu/ops/pallas_window_scatter.py `window_scatter_add`
-(its forward). The edges come window-chunked (data/packing.py
+and its VJP. The edges come window-chunked (data/packing.py
 `window_chunked_edges`): destination-sorted, each destination window's
 edges filling whole WCHUNK-edge chunks, `wchunk` non-decreasing, lu = -1 on
 padding. The sum is taken in fp32 and added to temp, then rounded once to
@@ -14,9 +14,10 @@ reaches keep temp; the output is a new tensor. The TPU kernel's `first`
 flags are not needed: with `wchunk` non-decreasing, a window's chunks are
 found by binary search.
 
-Forward only: LaneRCNN's training path (this op's backward,
-d_msg[e] = g[dst[e]]) is not ported yet, so a CUDA call that would need a
-gradient raises.
+The op runs through a `torch.autograd.Function`: its backward passes the
+output cotangent g on to temp and gathers it for the messages,
+d_msg[e] = g[dst[e]] (zeros on padding), in the `window_scatter_bwd`
+kernel on CUDA tensors and `window_scatter_bwd_plain` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -49,6 +50,16 @@ def window_scatter_plain(msg, temp, lu, wchunk, stride: int) -> torch.Tensor:
     return (temp.float() + add).to(temp.dtype)
 
 
+def window_scatter_bwd_plain(g, lu, wchunk, stride: int) -> torch.Tensor:
+    """The backward kernel's function in PyTorch: d_msg [E, 128] in g's
+    dtype, g's row at each edge's destination, zeros on padding."""
+    n = g.shape[0]
+    dst = flat_destinations(lu, wchunk, stride, n)
+    valid = (dst < n)[:, None]
+    return torch.where(valid, g.index_select(0, dst.clamp(max=n - 1)),
+                       torch.zeros((), dtype=g.dtype, device=g.device))
+
+
 def _check(msg, temp, lu, wchunk, stride: int):
     e, c = msg.shape
     n = temp.shape[0]
@@ -75,21 +86,59 @@ def _fwd_cuda(msg, temp, lu, wchunk, stride: int):
     return out
 
 
+def window_scatter_bwd_cuda(g, lu, wchunk, stride: int) -> torch.Tensor:
+    """The `window_scatter_bwd` kernel; the same output as
+    `window_scatter_bwd_plain`."""
+    e = lu.shape[0]
+    if (g.shape[1] != 128 or e % WCHUNK or stride <= 0 or g.shape[0] % stride
+            or tuple(lu.shape) != (e, 1) or tuple(wchunk.shape) != (e // WCHUNK,)):
+        raise ValueError(f"window_scatter: bad shapes g {g.shape} lu {lu.shape} "
+                         f"wchunk {wchunk.shape} stride {stride}")
+    if lu.dtype != torch.int32 or wchunk.dtype != torch.int32:
+        raise TypeError("window_scatter: lu and wchunk must be int32")
+    code = cuda.check_cuda("window_scatter", g, lu, wchunk)
+    dmsg = torch.empty((e, g.shape[1]), dtype=g.dtype, device=g.device)
+    cuda.call(
+        "window_scatter", "window_scatter_bwd",
+        cuda.ptr(g), cuda.ptr(lu), cuda.ptr(wchunk), cuda.ptr(dmsg), ctypes.c_int(stride),
+        ctypes.c_int(wchunk.shape[0]), ctypes.c_int(code), cuda.stream(),
+    )
+    return dmsg
+
+
+class _WindowScatter(torch.autograd.Function):
+    """Forward: the plain version on CPU tensors, the kernel on CUDA tensors.
+    Backward: d_temp = g; d_msg from `window_scatter_bwd_plain` /
+    `window_scatter_bwd_cuda`, in msg's dtype."""
+
+    @staticmethod
+    def forward(ctx, msg, temp, lu, wchunk, stride):
+        fwd = window_scatter_plain if temp.device.type == "cpu" else _fwd_cuda
+        out = fwd(msg, temp, lu, wchunk, stride)
+        ctx.save_for_backward(lu, wchunk)  # after the launch, as row_tail's _RowTail2
+        ctx.stride = stride
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        lu, wchunk = ctx.saved_tensors
+        g = g.contiguous()
+        bwd = window_scatter_bwd_plain if g.device.type == "cpu" else window_scatter_bwd_cuda
+        return bwd(g, lu, wchunk, ctx.stride), g, None, None, None
+
+
 def window_scatter_add(msg, temp, lu, wchunk, stride: int) -> torch.Tensor:
     """temp + the window-chunked messages scattered into their rows.
 
     msg [E, 128] and temp [N, 128] in one dtype (N = windows x stride);
     lu [E, 1] and wchunk [E / 512] int32 as the packer emits them
-    (EdgeSet.win_lu / win_chunk). CPU tensors take the plain version; CUDA
-    tensors launch the kernel.
+    (EdgeSet.win_lu / win_chunk). CPU tensors take the plain versions; CUDA
+    tensors launch the kernels. Gradients flow to msg and temp.
     """
-    if temp.device.type == "cpu":
-        return window_scatter_plain(msg, temp, lu, wchunk, stride)
-    if temp.device.type != "cuda":
+    if temp.device.type not in ("cpu", "cuda"):
         raise ValueError(f"window_scatter: unsupported device {temp.device}")
-    cuda.check_no_grad("window_scatter", msg, temp)
-    return _fwd_cuda(msg.contiguous(), temp.contiguous(), lu.contiguous(),
-                     wchunk.contiguous(), stride)
+    return _WindowScatter.apply(msg.contiguous(), temp.contiguous(), lu.contiguous(),
+                                wchunk.contiguous(), stride)
 
 
 def work(msg, temp, lu) -> dict:
@@ -107,3 +156,16 @@ def work(msg, temp, lu) -> dict:
         "edges": e,
         "live_edges": live,
     }
+
+
+def work_bwd(g, lu, wchunk, stride: int) -> dict:
+    """The backward's bytes at these inputs: each row of g that some valid
+    edge points at read once, every d_msg row written, lu and the chunk
+    windows read; no arithmetic (a row gather)."""
+    e = lu.shape[0]
+    n, c = g.shape
+    db = g.element_size()
+    dst = flat_destinations(lu, wchunk, stride, n)
+    rows = int(torch.unique(dst[dst < n]).numel())
+    return {"bytes": rows * c * db + e * c * db + e * 4 + (e // WCHUNK) * 4, "flops": 0,
+            "edges": e, "live_edges": int((lu >= 0).sum()), "rows_read": rows}

@@ -6,8 +6,8 @@ lanegcn_tpu/train/loop.py).
 the metrics (LaneGCN's pred_loss and agent_metrics by default, LaneRCNN's
 roi_loss and roi_metrics when given), on one packed batch.
 `make_train_step` adds the backward (through the kernels' hand-written
-backward passes) and the flat Adam step with the StepLR schedule and the
-NaN guard.
+backward passes) and the flat Adam(W) step with the StepLR schedule and
+the NaN guard; it takes the same loss_fn and metrics_fn.
 """
 
 from __future__ import annotations
@@ -45,11 +45,11 @@ class TrainState:
 
 
 def init_state(config: Config, net=None, dtype=torch.float32,
-               device=None) -> Tuple[LaneGCN, TrainState]:
-    """A LaneGCN (compute dtype `dtype`, fp32 params initialised from
-    config.train.seed; or `net`, e.g. with loaded weights) on `device`
-    (default `cuda`; raises without CUDA unless device="cpu") and its
-    TrainState."""
+               device=None) -> Tuple[torch.nn.Module, TrainState]:
+    """`net` (a LaneGCN or a LaneRCNN, e.g. with loaded weights) or, by
+    default, a LaneGCN (compute dtype `dtype`, fp32 params initialised from
+    config.train.seed) on `device` (default `cuda`; raises without CUDA
+    unless device="cpu"), and its TrainState."""
     device = resolve_device(device)
     if net is None:
         net = LaneGCN(config.model, dtype=dtype, device=device, seed=config.train.seed)
@@ -58,26 +58,30 @@ def init_state(config: Config, net=None, dtype=torch.float32,
     return net, TrainState(opt, lr_fn)
 
 
-def make_train_step(config: Config, net, state: TrainState, device=None) -> Callable:
+def make_train_step(config: Config, net, state: TrainState, device=None, loss_fn=None,
+                    metrics_fn=None) -> Callable:
     """Returns fn(batch, epoch) → metrics.
 
-    One step: forward, pred_loss, backward, then the flat Adam update at
-    lr_fn(epoch) (fractional epoch). Where the JAX step returns new params
-    and optimizer state, this one updates `net`'s parameters and `state` in
-    place. The metrics are device tensors (no host sync): the losses,
-    agent_metrics, `lr`, and `skipped` (1 when the NaN guard dropped the
-    update) when config.train.nan_guard is set.
+    One step: forward, loss_fn (default pred_loss; LaneRCNN: roi_loss),
+    backward, then the flat Adam(W) update at lr_fn(epoch) (fractional
+    epoch). Where the JAX step returns new params and optimizer state, this
+    one updates `net`'s parameters and `state` in place. The metrics are
+    device tensors (no host sync): the losses, metrics_fn's (default
+    agent_metrics; LaneRCNN: roi_metrics), `lr`, and `skipped` (1 when the
+    NaN guard dropped the update) when config.train.nan_guard is set.
     """
     device = resolve_device(device)
     net.to(device).train()
     guard = config.train.nan_guard
+    loss_fn = loss_fn or pred_loss
+    metrics_fn = metrics_fn or agent_metrics
 
     def train_step(batch, epoch) -> Dict[str, torch.Tensor]:
         batch = _on_device(batch, device)
         for p in state.opt.params:
             p.grad = None
         out = net(batch)
-        losses = pred_loss(out, batch, config.loss)
+        losses = loss_fn(out, batch, config.loss)
         losses["loss"].backward()
         lr = state.lr_fn(epoch, device)
         ok = state.opt.step(lr, losses["loss"] if guard else None)
@@ -85,7 +89,7 @@ def make_train_step(config: Config, net, state: TrainState, device=None) -> Call
         if guard:
             metrics["skipped"] = 1.0 - ok.float()
         with torch.no_grad():
-            metrics.update(agent_metrics({k: v.detach() for k, v in out.items()}, batch))
+            metrics.update(metrics_fn({k: v.detach() for k, v in out.items()}, batch))
         metrics["lr"] = lr
         state.step += 1
         return metrics
@@ -162,10 +166,13 @@ def train_epochs(
     log_every: int = 50,
     log_fn=print,
     device=None,
+    loss_fn=None,
+    metrics_fn=None,
 ) -> Tuple[TrainState, Dict[str, float]]:
     """Simple single-process loop over an iterable of packed batches; the
-    epoch passed to each step is step / steps_per_epoch."""
-    train_step = make_train_step(config, net, state, device)
+    epoch passed to each step is step / steps_per_epoch; loss_fn and
+    metrics_fn as make_train_step takes them."""
+    train_step = make_train_step(config, net, state, device, loss_fn, metrics_fn)
     acc = MetricAccumulator()
     t0 = time.time()
     for batch in batches:

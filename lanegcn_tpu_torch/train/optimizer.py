@@ -10,9 +10,10 @@ the port's counterpart of lanegcn_tpu/train/optimizer.py.
   p ← p − lr·coef·u.
 - lr coefficients: TrainConfig.lr_coef's (path-prefix, coef) rules, first
   match wins, matched against each parameter's flax path ('a/b/c') from the
-  port's own name table (utils/weights.py), so one TrainConfig means the
-  same in both packages; the 14 relation weights that split one stacked
-  JAX leaf share its coefficient.
+  port's own name table of the net's family (utils/weights.py TABLES:
+  LaneGCN's or LaneRCNN's), so one TrainConfig means the same in both
+  packages; the 14 relation weights that split one stacked JAX leaf share
+  its coefficient.
 - The NaN guard: when the loss or any gradient is non-finite, params, the
   moments and the count stay bitwise unchanged (a select on the flat
   buffers, no `.item()`).
@@ -51,10 +52,11 @@ def step_lr(lrs: Sequence[float], boundaries: Sequence[float]) -> Callable:
 
 def flax_paths(net) -> Dict[str, str]:
     """Torch parameter name → the flax path ('a/b/c') of the JAX leaf it
-    comes from (the port's weight table)."""
-    from lanegcn_tpu_torch.utils.weights import lanegcn_table
+    comes from, from the weight table of the net's family (`net.family`:
+    "lanegcn" or "lanercnn")."""
+    from lanegcn_tpu_torch.utils.weights import TABLES
 
-    return {tkey: "/".join(fpath) for tkey, fpath, _, _ in lanegcn_table(net.cfg)}
+    return {tkey: "/".join(fpath) for tkey, fpath, _, _ in TABLES[net.family](net.cfg)}
 
 
 def coef_of(path: str, rules: Sequence[Tuple[str, float]]) -> float:

@@ -215,7 +215,18 @@ def lanercnn_table(cfg: ModelConfig) -> List[Entry]:
     return entries
 
 
-TABLES = {"lanegcn": lanegcn_table, "lanercnn": lanercnn_table}
+def pred_head_table(cfg: ModelConfig) -> List[Entry]:
+    """LaneRCNN's standalone PredHead (models.lanercnn, JAX `hidden`/`out`)."""
+    return _linear_block("pred.0", ("hidden",)) + _dense("pred.1", ("out",))
+
+
+def refine_head_table(cfg: ModelConfig) -> List[Entry]:
+    """LaneRCNN's standalone RefineHead (models.lanercnn, JAX `hidden`/`out`)."""
+    return _linear_block("refinement.0", ("hidden",)) + _dense("refinement.1", ("out",))
+
+
+TABLES = {"lanegcn": lanegcn_table, "lanercnn": lanercnn_table,
+          "pred_head": pred_head_table, "refine_head": refine_head_table}
 
 
 def _to_torch(value: np.ndarray, kind: str) -> np.ndarray:
@@ -235,8 +246,8 @@ def _get_leaf(tree: Dict, path: Tuple[str, ...]):
 
 def export_state_dict(params: Dict, cfg: ModelConfig,
                       model: str = "lanegcn") -> Dict[str, np.ndarray]:
-    """JAX params (nested dict of arrays) of `model` ("lanegcn" or
-    "lanercnn") → reference-named state_dict (numpy, torch layouts)."""
+    """JAX params (nested dict of arrays) of `model` (a key of TABLES) →
+    reference-named state_dict (numpy, torch layouts)."""
     out: Dict[str, np.ndarray] = {}
     for tkey, fpath, kind, rel in TABLES[model](cfg):
         leaf = np.asarray(_get_leaf(params, fpath), np.float32)
@@ -248,7 +259,8 @@ def export_state_dict(params: Dict, cfg: ModelConfig,
 
 def load_jax_params(net: torch.nn.Module, params: Dict, cfg: ModelConfig,
                     model: str = "lanegcn") -> None:
-    """Copy JAX params into the port's LaneGCN or LaneRCNN (`model`;
-    strict: every name and shape must match)."""
+    """Copy JAX params into the port's LaneGCN, LaneRCNN or one of
+    LaneRCNN's standalone heads (`model`, a key of TABLES; strict: every
+    name and shape must match)."""
     sd = {k: torch.tensor(v) for k, v in export_state_dict(params, cfg, model).items()}
     net.load_state_dict(sd, strict=True)

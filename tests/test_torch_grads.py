@@ -1,4 +1,4 @@
-"""Gradients of the port's four kernel ops on CPU tensors — their
+"""Gradients of the port's kernel ops on CPU tensors — their
 `torch.autograd.Function`s running the plain backward versions — against
 the JAX package's hand-written VJPs of the Pallas kernels, run as the JAX
 tests run them on the CPU (interpret mode), and against torch.autograd of
@@ -26,8 +26,10 @@ from lanegcn_tpu.ops.pallas_row_tail import fused_row_tail as jax_row_tail
 from lanegcn_tpu.ops.pallas_scenario_agg import scenario_aggregate as jax_scenario_agg
 from lanegcn_tpu.ops.pallas_win_edge import win_edge_mlp as jax_win_edge
 
+from lanegcn_tpu_torch.data.packing import window_chunked_edges
 from lanegcn_tpu_torch.graph import PairPlan
-from lanegcn_tpu_torch.ops import lane_layer, row_tail, scenario_agg, win_edge
+from lanegcn_tpu_torch.ops import edge_mlp, lane_layer, row_tail, scenario_agg, win_edge
+from lanegcn_tpu_torch.ops import window_scatter
 
 C = 128
 REL = 2e-5
@@ -260,7 +262,9 @@ def test_public_ops_backprop_through_their_function(monkeypatch):
         monkeypatch.setattr(mod, name, wrapper)
 
     for mod, name in ((row_tail, "row_tail_bwd_plain"), (lane_layer, "lane_layer_bwd_plain"),
-                      (scenario_agg, "scenario_agg_bwd_plain"), (win_edge, "win_edge_bwd_plain")):
+                      (scenario_agg, "scenario_agg_bwd_plain"), (win_edge, "win_edge_bwd_plain"),
+                      (window_scatter, "window_scatter_bwd_plain"),
+                      (row_tail, "row_tail2_bwd_plain"), (edge_mlp, "edge_mlp_pool_bwd_plain")):
         counted(mod, name)
     t = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).requires_grad_(True)
     gn = [torch.ones(C), torch.zeros(C), torch.ones(C), torch.zeros(C)]
@@ -279,10 +283,22 @@ def test_public_ops_backprop_through_their_function(monkeypatch):
                      dst_stride=32, src_stride=16)
     outs["win_edge_bwd_plain"] = win_edge.win_edge_mlp(
         *(torch.from_numpy(a).requires_grad_(True) for a in arrays), pplan)
+    es, _ = window_chunked_edges(rng.randint(0, 256, 300), rng.randint(0, 50, 300), 1024, 128,
+                                 50)
+    outs["window_scatter_bwd_plain"] = window_scatter.window_scatter_add(
+        t(1024, C), t(256, C), torch.from_numpy(es.win_lu), torch.from_numpy(es.win_chunk), 128)
+    outs["row_tail2_bwd_plain"] = row_tail.fused_row_tail2(t(70, C), t(70, C), t(C, C), t(C, C),
+                                                           *gn, torch.ones(C), torch.zeros(C))
+    outs["edge_mlp_pool_bwd_plain"] = edge_mlp.fused_edge_mlp(
+        t(90, 4), None, t(90, C), t(4, C), t(C), None, None, None, t(C, C), torch.ones(C),
+        torch.zeros(C), t(C, C), False, False)
     functions = {"row_tail_bwd_plain": "_RowTailBackward",
                  "lane_layer_bwd_plain": "_LaneLayerBackward",
                  "scenario_agg_bwd_plain": "_ScenarioAggBackward",
-                 "win_edge_bwd_plain": "_WinEdgeBackward"}
+                 "win_edge_bwd_plain": "_WinEdgeBackward",
+                 "window_scatter_bwd_plain": "_WindowScatterBackward",
+                 "row_tail2_bwd_plain": "_RowTail2Backward",
+                 "edge_mlp_pool_bwd_plain": "_EdgeMlpPoolBackward"}
     for name, out in outs.items():
         assert type(out.grad_fn).__name__ == functions[name], (name, out.grad_fn)
         out.sum().backward()

@@ -18,6 +18,7 @@ from lanegcn_tpu_torch.data.packing import window_chunked_edges
 from lanegcn_tpu_torch.graph import EdgeSet
 from lanegcn_tpu_torch.models.lanegcn import LaneGCN
 from lanegcn_tpu_torch.models.lanercnn import LaneRCNN
+from lanegcn_tpu_torch.models.registry import get_model
 from lanegcn_tpu_torch.train.loop import init_state, make_eval_step, make_train_step
 
 REPO = Path(__file__).resolve().parents[1]
@@ -47,6 +48,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "lanegcn_tpu_torch.ops.window_scatter", "lanegcn_tpu_torch.ops.scatter",
                  "lanegcn_tpu_torch.data.packing", "lanegcn_tpu_torch.data.packing_roi",
                  "lanegcn_tpu_torch.data.lane_roi", "lanegcn_tpu_torch.models.lanercnn",
+                 "lanegcn_tpu_torch.models.registry",
                  "lanegcn_tpu_torch.train.loop", "lanegcn_tpu_torch.train.optimizer",
                  "lanegcn_tpu_torch.utils.weights"):
         assert name in res["modules"], name
@@ -60,7 +62,7 @@ def no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "LaneGCN", "LaneRCNN", "make_eval_step",
-                                   "init_state", "make_train_step"])
+                                   "init_state", "make_train_step", "get_model"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     cfg = Config()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -74,6 +76,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
             make_eval_step(cfg, torch.nn.Linear(1, 1))
         elif entry == "init_state":
             init_state(cfg)
+        elif entry == "get_model":
+            get_model("lanercnn", cfg)
         else:
             make_train_step(cfg, torch.nn.Linear(1, 1), None)
     # Asking for the CPU is the one way to run them here.
