@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and drive its LaneGCN eval and train paths on
 one GPU, on each of the three LaneGCN pack geometries the port serves, then
-its LaneRCNN eval and train paths.
+its LaneRCNN eval and train paths, then LaneGCN with the window plan inside
+the LaneConv layer kernel.
 
     python3 chip_smoke.py            # one card, no arguments
 
@@ -19,6 +20,10 @@ Geometries (lanegcn_tpu_torch/config.py), driven in this order:
               2048-slot plan, window-chunked pool edges (window_scatter),
               LanePooling's edge chain (edge_mlp_pool) and two-Linear tail
               (row_tail2), each with its backward kernel.
+  merged      bench_pack_config(256) with ModelConfig(merge_plan_agg="auto"):
+              the window plan runs inside the LaneConv layer kernel
+              (lane_plan and lane_plan_bwd) in place of lane_layer and
+              scenario_agg.
 
 Phases, one JSON line each (tagged with the geometry); any failure raises
 and exits non-zero:
@@ -36,21 +41,26 @@ and exits non-zero:
           (captured from one forward), in float32 (TF32 off) and bfloat16:
           the error beside its tolerance and the output's scale, kernel and
           plain times (CUDA events, median of 25 runs), and the bound from
-          the work these inputs need; lane_layer's saved fp32 temp against
-          the plain temp. windowed: lane_layer, scenario_agg, win_edge,
-          row_tail; bench: pair_agg (its other kernels run at the windowed
-          shapes); contiguous: lane_layer (no node windows), row_tail (A2M
-          and 512 actor rows) and edge_mlp; lanercnn: lane_layer and
-          scenario_agg at the RoI and global shapes, window_scatter (both
-          pool scatters, beside one `index_add` call on the same inputs),
-          row_tail2 (its three row counts) and edge_mlp_pool.
+          the work these inputs need; lane_layer's and lane_plan's saved
+          fp32 temp against the plain temp. windowed: lane_layer,
+          scenario_agg, win_edge, row_tail; bench: pair_agg (its other
+          kernels run at the windowed shapes); contiguous: lane_layer (no
+          node windows), row_tail (A2M and 512 actor rows) and edge_mlp;
+          lanercnn: lane_layer and scenario_agg at the RoI and global
+          shapes, window_scatter (both pool scatters, beside one `index_add`
+          call on the same inputs), row_tail2 (its three row counts) and
+          edge_mlp_pool; merged: lane_plan.
   kernel_bwd  the same kernels' backwards against their plain backwards on
           the inputs and cotangent one bf16 train step hands them, with a
           rerun that must be bitwise equal (lanercnn: lane_layer_bwd and
           scenario_agg_bwd at the RoI and global shapes, window_scatter_bwd
-          beside one `index_select` call, row_tail2_bwd, edge_mlp_pool_bwd).
-          A few rows whose ReLU pre-activation ties at zero on the plain
-          side (see TIE_EPS) may get a zero cotangent before the comparison.
+          beside one `index_select` call, row_tail2_bwd, edge_mlp_pool_bwd;
+          merged: lane_plan_bwd). A few rows whose ReLU pre-activation ties
+          at zero on the plain side (see TIE_EPS) may get a zero cotangent
+          before the comparison.
+  kernel_step  segment_sum on every call shape of that train step (the
+          scatters' forwards and the gathers' backwards), fp32 and bf16, a
+          bitwise rerun, beside one `index_add` call on the same inputs.
   parity  the full float32 forward + loss on the card (kernels) against the
           same on the CPU (plain versions), 8 scenarios of the geometry,
           same weights; on lanercnn the segmented-NMS picks must be equal,
@@ -66,18 +76,26 @@ and exits non-zero:
           `per_forward` in GEOMETRIES).
   profile device time by kernel name over one forward per pack (torch.profiler,
           after the counted serve run), the device's idle share and the host
-          syncs (nonzero / item calls) per step.
+          syncs (nonzero / item calls) per step; no nonzero asserted.
   train   make_train_step in bfloat16 over fp32 params on the 2 packs: 2 warm
           steps, then 20 steps alternating the packs: ms per step, scen/s,
           first and last loss (finite), skipped steps (0), peak device
           memory, and the launch counts, asserted per step (`per_train_step`).
   remat   (lanercnn) one train step with remat=False and one with remat=True
-          from the same weights on the same pack: the losses within the bf16
-          tolerance, each step's peak memory (remat's must be lower), the
-          remat step's launches with the LanePooling forwards doubled
-          (`per_remat_step`).
+          from the same weights on the same pack: the losses bitwise equal,
+          both steps' NMS picks equal (with the smallest logit gap), each
+          step's peak memory (remat's must be lower), the remat step's
+          launches with the LanePooling forwards doubled (`per_remat_step`).
   profile_train  the same profile over one train step.
-Then the `kernels` summary line (all eighteen kernels, each from the first
+  rerun   two bf16 train steps from the same fresh weights on the same pack:
+          loss, every gradient and every parameter after the step bitwise
+          equal; then one under torch.use_deterministic_algorithms(True,
+          warn_only=True), listing what PyTorch flags as nondeterministic.
+  ab      (merged) the device busy time per serve forward and per train
+          step of the merged layer and of the separate kernels, same packs
+          and weights, profiled in turns (separate, merged, merged,
+          separate).
+Then the `kernels` summary line (all 21 kernels, each from the first
 geometry that checks it, with the launches of that geometry's serve or
 train run, and under `also_checked` its checks on the later geometries),
 the nvidia-smi name/power-limit line, and last the `ok` line with the
@@ -160,35 +178,56 @@ KERNEL_META = {
                       "lanegcn_tpu/ops/pallas_row_tail.py:169", ("row_tail2_bwd",)),
     "edge_mlp_pool_bwd": ("lanegcn_tpu_torch/csrc/edge_mlp.cu",
                           "lanegcn_tpu/ops/pallas_edge_mlp.py:246", ("edge_mlp_pool_bwd",)),
+    "segment_sum": ("lanegcn_tpu_torch/csrc/segment_sum.cu",
+                    "lanegcn_tpu/ops/pallas_scatter.py:29", ("segment_sum",)),
+    "lane_plan": ("lanegcn_tpu_torch/csrc/lane_plan.cu",
+                  "lanegcn_tpu/ops/pallas_lane_layer.py:709", ("lane_plan_fwd",)),
+    "lane_plan_bwd": ("lanegcn_tpu_torch/csrc/lane_plan.cu",
+                      "lanegcn_tpu/ops/pallas_lane_layer.py:771", ("lane_plan_bwd",)),
 }
 # Each geometry: its model, its pack config (by name in
-# lanegcn_tpu_torch.config), the scenarios per pack, the kernels it runs at
-# shapes of its own (checked against their plain versions on its inputs)
-# and the launches of each C entry point per eval forward and per train
-# step (every other entry: 0).
+# lanegcn_tpu_torch.config) and ModelConfig fields, the scenarios per pack,
+# the kernels it runs at shapes of its own (checked against their plain
+# versions on the eval path's inputs and, backwards, on a train step's), the
+# kernels checked on a train step's calls (`step_kernels`: segment_sum runs
+# in the forward's scatters and in the gathers' backward) and the launches
+# of each C entry point per eval forward and per train step (every other
+# entry: 0).
 _WINDOWED_FWD = {"lane_layer_fwd": 8, "scenario_agg_fwd": 8, "win_edge_fwd": 6,
-                 "row_tail_fwd": 6}
-_WINDOWED_BWD = {"lane_layer_bwd": 8, "scenario_agg_bwd": 8, "win_edge_bwd_d": 6,
-                 "win_edge_bwd_s": 6, "row_tail_bwd": 6}
-_CONTIGUOUS_FWD = {"lane_layer_fwd": 8, "edge_mlp_fwd": 6, "row_tail_fwd": 6}
+                 "row_tail_fwd": 6, "segment_sum": 8}
+_WINDOWED_STEP = {**_WINDOWED_FWD, "lane_layer_bwd": 8, "scenario_agg_bwd": 8,
+                  "win_edge_bwd_d": 6, "win_edge_bwd_s": 6, "row_tail_bwd": 6,
+                  "segment_sum": 16}
+_PAIR_BWD = {"pair_agg_bwd_d": 8, "pair_agg_bwd_s": 8}
+# merge_plan_agg="auto": the plan inside the layer kernel, so no lane_layer
+# and no scenario_agg launch.
+_SEPARATE = ("lane_layer", "scenario_agg")
+_MERGED_FWD = {**{k: v for k, v in _WINDOWED_FWD.items() if not k.startswith(_SEPARATE)},
+               "pair_agg_fwd": 8, "lane_plan_fwd": 8}
+_MERGED_STEP = {**{k: v for k, v in _WINDOWED_STEP.items() if not k.startswith(_SEPARATE)},
+                "pair_agg_fwd": 8, **_PAIR_BWD, "lane_plan_fwd": 8, "lane_plan_bwd": 8}
+_CONTIGUOUS_FWD = {"lane_layer_fwd": 8, "edge_mlp_fwd": 6, "row_tail_fwd": 6, "segment_sum": 14}
 _RCNN_FWD = {"lane_layer_fwd": 12, "scenario_agg_fwd": 12, "window_scatter_fwd": 2,
-             "edge_mlp_pool_fwd": 3, "row_tail2_fwd": 3}
-_RCNN_BWD = {"lane_layer_bwd": 12, "scenario_agg_bwd": 12, "window_scatter_bwd": 2,
-             "edge_mlp_pool_bwd": 3, "row_tail2_bwd": 3}
+             "edge_mlp_pool_fwd": 3, "row_tail2_fwd": 3, "segment_sum": 14}
+_RCNN_STEP = {**_RCNN_FWD, "lane_layer_bwd": 12, "scenario_agg_bwd": 12,
+              "window_scatter_bwd": 2, "edge_mlp_pool_bwd": 3, "row_tail2_bwd": 3,
+              "segment_sum": 30}
 GEOMETRIES = {
     "windowed": dict(model="lanegcn", config="windowed_pack_config", s=256,
                      kernels=("lane_layer", "scenario_agg", "win_edge", "row_tail"),
-                     per_forward=_WINDOWED_FWD,
-                     per_train_step={**_WINDOWED_FWD, **_WINDOWED_BWD}),
+                     step_kernels=("segment_sum",),
+                     per_forward=_WINDOWED_FWD, per_train_step=_WINDOWED_STEP),
     "bench": dict(model="lanegcn", config="bench_pack_config", s=256, kernels=("pair_agg",),
+                  step_kernels=("segment_sum",),
                   per_forward={**_WINDOWED_FWD, "pair_agg_fwd": 8},
-                  per_train_step={**_WINDOWED_FWD, **_WINDOWED_BWD, "pair_agg_fwd": 8,
-                                  "pair_agg_bwd_d": 8, "pair_agg_bwd_s": 8}),
+                  per_train_step={**_WINDOWED_STEP, "pair_agg_fwd": 8, **_PAIR_BWD}),
     "contiguous": dict(model="lanegcn", config="contiguous_pack_config", s=32,
                        kernels=("lane_layer", "row_tail", "edge_mlp"),
+                       step_kernels=("segment_sum",),
                        per_forward=_CONTIGUOUS_FWD,
                        per_train_step={**_CONTIGUOUS_FWD, "lane_layer_bwd": 8,
-                                       "edge_mlp_bwd": 6, "row_tail_bwd": 6}),
+                                       "edge_mlp_bwd": 6, "row_tail_bwd": 6,
+                                       "segment_sum": 42}),
     # LaneRCNN: 12 LaneConv layers (RoI stack, global stack, RoI stack; the
     # RoI plan is ungrouped, 512 slots per 256-row window), three
     # LanePoolings (r2g and g2r window-chunked, a2r flat). With remat the
@@ -196,10 +235,18 @@ GEOMETRIES = {
     "lanercnn": dict(model="lanercnn", config="lanercnn_pack_config", s=256,
                      kernels=("lane_layer", "scenario_agg", "window_scatter", "row_tail2",
                               "edge_mlp_pool"),
-                     per_forward=_RCNN_FWD,
-                     per_train_step={**_RCNN_FWD, **_RCNN_BWD},
-                     per_remat_step={**_RCNN_FWD, **_RCNN_BWD, "window_scatter_fwd": 4,
-                                     "edge_mlp_pool_fwd": 6, "row_tail2_fwd": 6}),
+                     step_kernels=("segment_sum",),
+                     per_forward=_RCNN_FWD, per_train_step=_RCNN_STEP,
+                     per_remat_step={**_RCNN_STEP, "window_scatter_fwd": 4,
+                                     "edge_mlp_pool_fwd": 6, "row_tail2_fwd": 6,
+                                     "segment_sum": 31}),
+    # The bench geometry with the window plan inside the LaneConv layer
+    # kernel (merge_plan_agg="auto"); the `ab` phase profiles it beside the
+    # separate kernels on the same packs and weights.
+    "merged": dict(model="lanegcn", config="bench_pack_config", s=256,
+                   model_fields=dict(merge_plan_agg="auto"), kernels=("lane_plan",),
+                   step_kernels=("segment_sum",), per_forward=_MERGED_FWD,
+                   per_train_step=_MERGED_STEP),
 }
 
 
@@ -320,6 +367,7 @@ def forward_capture():
     return Capture([
         (map_net, "fused_lane_layer", "lane_layer"),
         (map_net, "scenario_aggregate", "scenario_agg"),
+        (map_net, "fused_lane_layer_plan", "lane_plan"),
         (map_net, "pair_aggregate", "pair_agg"),
         (fusion, "win_edge_mlp", "win_edge"),
         (fusion, "fused_row_tail", "row_tail"),
@@ -332,11 +380,14 @@ def forward_capture():
 
 def backward_capture():
     """The backward kernels' launchers as the autograd Functions call them
-    (inputs and cotangent of one train step)."""
+    (inputs and cotangent of one train step), and the segment sum as the
+    scatters and the gathers' backward call it in that step."""
     from lanegcn_tpu_torch.ops import edge_mlp, lane_layer, pair_agg, row_tail, scenario_agg
-    from lanegcn_tpu_torch.ops import win_edge, window_scatter
+    from lanegcn_tpu_torch.ops import segment_sum, win_edge, window_scatter
 
     return Capture([
+        (segment_sum, "sorted_segment_sum", "segment_sum"),
+        (lane_layer, "lane_plan_bwd_cuda", "lane_plan_bwd"),
         (lane_layer, "lane_layer_bwd_cuda", "lane_layer_bwd"),
         (scenario_agg, "scenario_agg_bwd_cuda", "scenario_agg_bwd"),
         (win_edge, "win_edge_bwd_cuda", "win_edge_bwd"),
@@ -352,10 +403,12 @@ def backward_capture():
 def forward_ops(names):
     """{kernel: (public op, plain version)} for the named forward kernels."""
     from lanegcn_tpu_torch.ops import edge_mlp, lane_layer, pair_agg, row_tail, scenario_agg
-    from lanegcn_tpu_torch.ops import win_edge, window_scatter
+    from lanegcn_tpu_torch.ops import segment_sum, win_edge, window_scatter
 
     ops = {
         "lane_layer": (lane_layer.fused_lane_layer, lane_layer.lane_layer_plain),
+        "lane_plan": (lane_layer.fused_lane_layer_plan, lane_layer.lane_plan_plain),
+        "segment_sum": (segment_sum.sorted_segment_sum, segment_sum.segment_sum_plain),
         "scenario_agg": (scenario_agg.scenario_aggregate, scenario_agg.scenario_agg_plain),
         "win_edge": (win_edge.win_edge_mlp, win_edge.win_edge_plain),
         "row_tail": (row_tail.fused_row_tail, row_tail.row_tail_plain),
@@ -374,12 +427,19 @@ def library_call(name, a):
     inputs (a yardstick the port never calls), or None where there is none.
     window_scatter: index_add over the valid edges' flat destinations;
     window_scatter_bwd: index_select of g's rows at every edge's
-    destination (padding clamped to the last row); the indices are
+    destination (padding clamped to the last row); segment_sum: index_add
+    of the kept edges' rows into out (or zeros); the indices are
     precomputed, outside the timing."""
-    if name not in ("window_scatter", "window_scatter_bwd"):
+    if name not in ("window_scatter", "window_scatter_bwd", "segment_sum"):
         return None
     from lanegcn_tpu_torch.ops import window_scatter
 
+    if name == "segment_sum":
+        data, seg, n = a[:3]
+        base = a[3] if len(a) > 3 and a[3] is not None else data.new_zeros((n,) + data.shape[1:])
+        keep = (seg < n).nonzero().squeeze(1)
+        seg_k, data_k = seg[keep], data[keep]
+        return lambda: base.index_add(0, seg_k, data_k)
     if name == "window_scatter_bwd":
         g, lu, wchunk, stride = a[:4]
         n = g.shape[0]
@@ -399,6 +459,7 @@ def backward_ops(names):
 
     ops = {
         "lane_layer": (lane_layer.lane_layer_bwd_cuda, lane_layer.lane_layer_bwd_plain),
+        "lane_plan": (lane_layer.lane_plan_bwd_cuda, lane_layer.lane_plan_bwd_plain),
         "scenario_agg": (scenario_agg.scenario_agg_bwd_cuda,
                          scenario_agg.scenario_agg_bwd_plain),
         "win_edge": (win_edge.win_edge_bwd_cuda, win_edge.win_edge_bwd_plain),
@@ -472,9 +533,11 @@ def compare(name, tag, out_k, out_p):
 # tolerances again. scenario_agg_bwd and pair_agg_bwd are linear: they have
 # no ties.
 TIE_OUTPUTS = {"row_tail_bwd": (0, 1), "lane_layer_bwd": (1,), "win_edge_bwd": (0, 1),
-               "edge_mlp_bwd": (0, 1, 2), "row_tail2_bwd": (0, 1), "edge_mlp_pool_bwd": (0, 1)}
+               "edge_mlp_bwd": (0, 1, 2), "row_tail2_bwd": (0, 1), "edge_mlp_pool_bwd": (0, 1),
+               "lane_plan_bwd": (1,)}
 COTANGENT_ARG = {"row_tail_bwd": 7, "lane_layer_bwd": 9, "win_edge_bwd": 13,
-                 "edge_mlp_bwd": 12, "row_tail2_bwd": 10, "edge_mlp_pool_bwd": 8}
+                 "edge_mlp_bwd": 12, "row_tail2_bwd": 10, "edge_mlp_pool_bwd": 8,
+                 "lane_plan_bwd": 15}
 TIE_EPS = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 TIE_SHARE = 1e-4
 
@@ -500,10 +563,10 @@ def relu_pre(name, a):
     from lanegcn_tpu_torch.ops import win_edge
     from lanegcn_tpu_torch.ops.norm import group_norm
 
-    if name in ("row_tail_bwd", "lane_layer_bwd"):
+    if name in ("row_tail_bwd", "lane_layer_bwd", "lane_plan_bwd"):
         if name == "row_tail_bwd":
             x, res, w, g1w, g1b, g2w, g2b = a[:7]
-        else:  # lane_layer_bwd: the tail of temp, with feat as the residual
+        else:  # lane_layer_bwd, lane_plan_bwd: the tail of temp, with feat as the residual
             res, x, _, _, w, g1w, g1b, g2w, g2b = a[:9]
         dt = res.dtype
         h_pre = group_norm(x.float(), g1w, g1b)
@@ -555,19 +618,23 @@ def near_zero_rows(name, tag, a, n_rows):
     return near
 
 
-def check_temp(a, out):
-    """The lane_layer forward kernel's saved fp32 temp, which every
-    lane_layer_bwd consumes, against the plain temp under the float32
+def check_temp(name, a, out):
+    """The forward kernel's saved fp32 temp (lane_layer, lane_plan), which
+    its backward consumes, against the plain temp under the float32
     tolerances in both dtypes (both sum products of the same dtype-valued
     operands in fp32; only the order differs), and the out of that launch
     bitwise equal to the eval path's `out`."""
     import torch
     from lanegcn_tpu_torch.ops import lane_layer
 
-    out_t, temp = lane_layer._fwd_cuda(*a[:10], 1e-5, save_temp=True)
-    check(torch.equal(out_t, out), "lane_layer: out with save_temp differs from out without")
-    return compare("lane_layer temp", "float32", temp,
-                   lane_layer._temp_plain(a[0], a[1], a[2], a[3], a[9]))
+    if name == "lane_layer":
+        out_t, temp = lane_layer._fwd_cuda(*a[:10], 1e-5, save_temp=True)
+        plain = lane_layer._temp_plain(a[0], a[1], a[2], a[3], a[9])
+    else:
+        out_t, temp = lane_layer._plan_fwd_cuda(*a[:16], 1e-5, save_temp=True)
+        plain = lane_layer._plan_temp_plain(a[0], a[1], a[2], a[3], a[14], *a[9:14], a[15])
+    check(torch.equal(out_t, out), f"{name}: out with save_temp differs from out without")
+    return compare(f"{name} temp", "float32", temp, plain)
 
 
 def kernel_phase(phase, geom, ops, calls, counts):
@@ -615,8 +682,8 @@ def kernel_phase(phase, geom, ops, calls, counts):
                 torch.cuda.synchronize()
                 res[tag] = compare(name, tag, out_k, out_p)
                 res[tag]["tie_rows"] = ties
-                if name == "lane_layer":
-                    res[tag]["temp"] = check_temp(a, out_k)
+                if name in ("lane_layer", "lane_plan"):
+                    res[tag]["temp"] = check_temp(name, a, out_k)
                 outs = out_k if isinstance(out_k, (tuple, list)) else (out_k,)
                 agains = again if isinstance(again, (tuple, list)) else (again,)
                 check(all(torch.equal(x, y) for x, y in zip(outs, agains)),
@@ -646,10 +713,15 @@ def kernel_phase(phase, geom, ops, calls, counts):
 
 def work_of(name, a):
     from lanegcn_tpu_torch.ops import edge_mlp, lane_layer, pair_agg, row_tail, scenario_agg
-    from lanegcn_tpu_torch.ops import win_edge, window_scatter
+    from lanegcn_tpu_torch.ops import segment_sum, win_edge, window_scatter
 
     works = {
         "lane_layer": lambda: lane_layer.work(a[0], a[2]),
+        "lane_plan": lambda: lane_layer.work_plan(a[0], a[2], a[10], a[12], a[9], a[13],
+                                                  a[15] if len(a) > 15 else None),
+        "lane_plan_bwd": lambda: lane_layer.work_plan_bwd(a[0], a[2], a[10], a[12], a[9],
+                                                          a[13], a[14]),
+        "segment_sum": lambda: segment_sum.work(a[0], a[1], a[2], a[3] if len(a) > 3 else None),
         "scenario_agg": lambda: scenario_agg.work(a[0], a[3], a[4], a[5], a[2], a[6], a[7]),
         "win_edge": lambda: win_edge.work(a[0], a[2], a[13]),
         "row_tail": lambda: row_tail.work(a[0].shape[0], a[0].element_size()),
@@ -680,8 +752,10 @@ def work_of(name, a):
 def pack_config(geom, s):
     from lanegcn_tpu_torch import config
 
-    field = "roi_pack" if GEOMETRIES[geom]["model"] == "lanercnn" else "pack"
-    return config.Config(**{field: getattr(config, GEOMETRIES[geom]["config"])(s)})
+    spec = GEOMETRIES[geom]
+    field = "roi_pack" if spec["model"] == "lanercnn" else "pack"
+    model = config.ModelConfig(**spec.get("model_fields", {}))
+    return config.Config(model=model, **{field: getattr(config, spec["config"])(s)})
 
 
 def parity_phase(geom):
@@ -736,14 +810,15 @@ def nms_recorder(picks, key):
         lanercnn.segmented_nms = nms
 
 
-def nms_report(picks):
-    """The card's and the CPU's NMS picks compared, beside the smallest gap
-    between a picked logit and another node's logit of its segment (CPU
-    side), so that a near-tie flip can be told from a bug."""
+def nms_report(picks, a="cuda", b="cpu"):
+    """Two runs' NMS picks compared (the card's and the CPU's by default),
+    beside the smallest gap between a picked logit and another node's logit
+    of its segment (run b's side), so that a near-tie flip can be told from
+    a bug."""
     import torch
 
-    sel_g, sel_c = picks["cuda"][0], picks["cpu"][0]
-    xy, logits, seg, mask, num_seg = picks["cpu"][1][:5]
+    sel_g, sel_c = picks[a][0], picks[b][0]
+    xy, logits, seg, mask, num_seg = picks[b][1][:5]
     l = logits.float()
     onehot = (seg[None, :] == torch.arange(num_seg)[:, None]) & mask[None, :]  # [B, MI]
     other = onehot[:, None, :] & (torch.arange(l.shape[0])[None, None, :] != sel_c[:, :, None])
@@ -911,16 +986,17 @@ def train_parity_phase(geom):
           f"{n_far_control} params, so the params check cannot tell gradients apart")
 
 
-# Host calls that wait for the device: `nonzero` (the masked scatter_add)
-# and `_local_scalar_dense` (.item()).
+# Host calls that wait for the device: `nonzero` (a compaction) and
+# `_local_scalar_dense` (.item()). A step must make no `nonzero` call.
 HOST_SYNCS = ("aten::nonzero", "aten::_local_scalar_dense")
 
 
-def profile_phase(phase, geom, step, items) -> None:
+def profile_phase(phase, geom, step, items, top_n=40) -> dict:
     """torch.profiler (CUPTI) over step(item) for each item: device time by
     kernel name, the device's idle share of the host wall time (which
     includes the profiler's own overhead, so the share is an upper bound),
-    and the host syncs per step."""
+    and the host syncs per step (no `nonzero`, asserted); returns the
+    emitted numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -948,11 +1024,16 @@ def profile_phase(phase, geom, step, items) -> None:
         if t1 > end:
             busy += t1 - max(t0, end)
             end = t1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:40]
-    emit({"phase": phase, "geometry": geom, "steps": len(items), "wall_ms": wall_us / 1e3,
-          "device_busy_ms": busy / 1e3, "idle_share": 1.0 - busy / wall_us,
-          "host_syncs_per_step": {k: v / len(items) for k, v in syncs.items()},
-          "by_name": [[name[:90], n, us / 1e3] for name, (n, us) in top]})
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top_n]
+    res = {"phase": phase, "geometry": geom, "steps": len(items), "wall_ms": wall_us / 1e3,
+           "device_busy_ms": busy / 1e3, "busy_ms_per_step": busy / 1e3 / len(items),
+           "idle_share": 1.0 - busy / wall_us,
+           "host_syncs_per_step": {k: v / len(items) for k, v in syncs.items()},
+           "by_name": [[name[:90], n, us / 1e3] for name, (n, us) in top]}
+    emit(res)
+    check(syncs["aten::nonzero"] == 0,
+          f"{phase}: {syncs['aten::nonzero']} nonzero host syncs in {len(items)} steps")
+    return res
 
 
 def check_counts(counts, per, steps, what):
@@ -1012,8 +1093,7 @@ def drive(geom):
     with backward_capture() as cap:
         tstep(batches[0], 0.0)
     torch.cuda.synchronize()
-    results.update(kernel_phase("kernel_bwd", geom, backward_ops(spec["kernels"]), cap.calls,
-                                cap.counts))
+    results.update(step_kernel_phases(geom, cap))
     del cap
 
     # --- card vs CPU, float32 ---
@@ -1023,7 +1103,108 @@ def drive(geom):
     serve = serve_phase(geom, step, batches, results, pack_s)
     train = train_phase(geom, tstep, batches, results)
     profile_phase("profile_train", geom, lambda b: tstep(b, 0.5), batches[:1])
+    rerun_phase(geom, cfg, lambda: LaneGCN(cfg.model, dtype=torch.bfloat16, device="cuda",
+                                           seed=0), batches[0], {})
+    if "model_fields" in spec:
+        ab_phase(geom, batches)
     return results, serve, train
+
+
+def step_kernel_phases(geom, cap):
+    """kernel_bwd (the backward kernels on one train step's inputs and
+    cotangents) and kernel_step (the geometry's step_kernels on that step's
+    calls) from one backward_capture."""
+    spec = GEOMETRIES[geom]
+    results = kernel_phase("kernel_bwd", geom, backward_ops(spec["kernels"]), cap.calls,
+                           cap.counts)
+    results.update(kernel_phase("kernel_step", geom, forward_ops(spec["step_kernels"]),
+                                cap.calls, cap.counts))
+    return results
+
+
+def rerun_phase(geom, cfg, make_net, batch, fns):
+    """Two bf16 train steps, each from the same fresh weights (make_net) on
+    the same pack: the loss, every gradient and every parameter after the
+    step must be bitwise equal. Then a third under
+    torch.use_deterministic_algorithms(True, warn_only=True), which lists
+    what PyTorch itself names nondeterministic in the step (the flag is off
+    again after it)."""
+    import warnings
+
+    import torch
+    from lanegcn_tpu_torch.train.loop import init_state, make_train_step
+
+    runs, flagged = [], []
+    for k in range(3):
+        net, state = init_state(cfg, net=make_net())
+        step = make_train_step(cfg, net, state, **fns)
+        torch.cuda.synchronize()
+        if k < 2:
+            m = step(batch, 0.0)
+        else:
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    m = step(batch, 0.0)
+                    torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            flagged = sorted({str(w.message).splitlines()[0][:160] for w in caught})
+        torch.cuda.synchronize()
+        runs.append((m["loss"].clone(),
+                     {n: p.grad.clone() for n, p in net.named_parameters() if p.grad is not None},
+                     {n: p.detach().clone() for n, p in net.named_parameters()}))
+        del net, state, step, m
+    (l0, g0, p0), (l1, g1, p1), (l2, _, _) = runs
+    grads_apart = sorted(n for n in g0 if n not in g1 or not torch.equal(g0[n], g1[n]))
+    params_apart = sorted(n for n in p0 if not torch.equal(p0[n], p1[n]))
+    emit({"phase": "rerun", "geometry": geom, "loss": [float(l0), float(l1)],
+          "loss_bitwise_equal": bool(torch.equal(l0, l1)), "grad_leaves": len(g0),
+          "grad_leaves_apart": grads_apart[:8], "params_apart": params_apart[:8],
+          "loss_under_deterministic_flag": float(l2),
+          "equal_under_deterministic_flag": bool(torch.equal(l0, l2)),
+          "flagged_nondeterministic": flagged})
+    check(torch.equal(l0, l1), f"rerun: loss {float(l0)!r} then {float(l1)!r}")
+    check(len(g0) == len(g1) and not grads_apart,
+          f"rerun: {len(grads_apart)} gradient leaves differ, e.g. {grads_apart[:3]}")
+    check(not params_apart, f"rerun: {len(params_apart)} parameters differ after the step")
+
+
+def ab_phase(geom, batches):
+    """The merged layer against the separate kernels on the same packs and
+    weights: the device busy time per serve forward (both packs) and per
+    train step (one pack), profiled in turns (separate, merged, merged,
+    separate); the separate side is the bench geometry's configuration."""
+    import dataclasses
+
+    import torch
+    from lanegcn_tpu_torch.models.lanegcn import LaneGCN
+    from lanegcn_tpu_torch.train.loop import init_state, make_eval_step, make_train_step
+
+    cfg = pack_config(geom, GEOMETRIES[geom]["s"])
+    steps = {}
+    for merge in ("off", "auto"):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, merge_plan_agg=merge))
+        serve = make_eval_step(c, LaneGCN(c.model, dtype=torch.bfloat16, device="cuda", seed=0))
+        net, state = init_state(c, dtype=torch.bfloat16)
+        train = make_train_step(c, net, state)
+        serve(batches[0])
+        train(batches[0], 0.0)
+        steps[merge] = (serve, train)
+    busy = {"off": {"serve": [], "train": []}, "auto": {"serve": [], "train": []}}
+    for merge in ("off", "auto", "auto", "off"):
+        serve, train = steps[merge]
+        for kind, fn, items in (("serve", serve, batches), ("train", lambda b: train(b, 0.5),
+                                                             batches[:1])):
+            r = profile_phase(f"ab_{kind}", f"{geom}:{merge}", fn, items, top_n=8)
+            busy[merge][kind].append(r["busy_ms_per_step"])
+    mean = {m: {k: statistics.mean(v) for k, v in d.items()} for m, d in busy.items()}
+    emit({"phase": "ab", "geometry": geom, "order": ["separate", "merged", "merged", "separate"],
+          "busy_ms_separate": busy["off"], "busy_ms_merged": busy["auto"],
+          "serve_busy_ms": {"separate": mean["off"]["serve"], "merged": mean["auto"]["serve"]},
+          "train_busy_ms": {"separate": mean["off"]["train"], "merged": mean["auto"]["train"]},
+          "merged_over_separate": {k: mean["auto"][k] / mean["off"][k] for k in mean["off"]}})
 
 
 def train_phase(geom, tstep, batches, results):
@@ -1161,8 +1342,7 @@ def drive_lanercnn(geom):
     with backward_capture() as cap:
         tstep(batches[0], 0.0)
     torch.cuda.synchronize()
-    results.update(kernel_phase("kernel_bwd", geom, backward_ops(spec["kernels"]), cap.calls,
-                                cap.counts))
+    results.update(step_kernel_phases(geom, cap))
     del cap
 
     # --- card vs CPU, float32 ---
@@ -1173,22 +1353,25 @@ def drive_lanercnn(geom):
     train = train_phase(geom, tstep, batches, results)
     remat_phase(geom, tcfg, batches[0], fns)
     profile_phase("profile_train", geom, lambda b: tstep(b, 0.5), batches[:1])
+    rerun_phase(geom, tcfg, lambda: get_model("lanercnn", cfg, dtype=torch.bfloat16,
+                                              seed=0).net, batches[0], fns)
     return results, serve, train
 
 
 def remat_phase(geom, cfg, batch, fns):
     """One bf16 train step with remat=False and one with remat=True, from
-    the same weights on the same pack: the losses within the bf16 tolerance
-    (the forwards are the same ops; only index_add_'s atomic order differs),
-    each step's peak memory (remat's must be lower: the LanePoolings' [E,
-    128] tensors are not kept), and the remat step's launches, the
-    LanePooling forwards doubled."""
+    the same weights on the same pack: the losses bitwise equal (the
+    forwards are the same ops, and every sum runs in a fixed order), both
+    steps' NMS picks equal beside the smallest logit gap around them, each
+    step's peak memory (remat's must be lower: the LanePoolings' [E, 128]
+    tensors are not kept), and the remat step's launches, the LanePooling
+    forwards doubled."""
     import torch
     from lanegcn_tpu_torch.models.lanercnn import LaneRCNN
     from lanegcn_tpu_torch.ops import cuda
     from lanegcn_tpu_torch.train.loop import init_state, make_train_step
 
-    res = {}
+    res, picks = {}, {}
     for remat in (False, True):
         net, state = init_state(cfg, net=LaneRCNN(cfg.model, dtype=torch.bfloat16, seed=5,
                                                   remat=remat))
@@ -1198,23 +1381,27 @@ def remat_phase(geom, cfg, batch, fns):
         torch.cuda.reset_peak_memory_stats()
         cuda.reset_launch_counts()
         t0 = time.perf_counter()
-        m = step(batch, 0.0)
+        with nms_recorder(picks, "remat" if remat else "plain"):
+            m = step(batch, 0.0)
         torch.cuda.synchronize()
-        res[remat] = {"loss": float(m["loss"]), "skipped": float(m["skipped"]),
+        res[remat] = {"loss": float(m["loss"]), "loss_t": m["loss"].clone(),
+                      "skipped": float(m["skipped"]),
                       "ms": (time.perf_counter() - t0) * 1e3,
                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                       "launches": cuda.launch_counts()}
         del net, state, step, m
     plain, rem = res[False], res[True]
-    tol = TOL["bfloat16"] * max(1.0, abs(plain["loss"]))
+    nms = nms_report(picks, "remat", "plain")
     emit({"phase": "remat", "geometry": geom, "loss": plain["loss"], "loss_remat": rem["loss"],
-          "loss_tol": tol, "peak_mem_gib": plain["peak_mem_gib"],
-          "peak_mem_gib_remat": rem["peak_mem_gib"], "ms_one_step": plain["ms"],
-          "ms_one_step_remat": rem["ms"], "launches_remat": rem["launches"]})
+          "loss_bitwise_equal": bool(torch.equal(plain["loss_t"], rem["loss_t"])),
+          "peak_mem_gib": plain["peak_mem_gib"], "peak_mem_gib_remat": rem["peak_mem_gib"],
+          "ms_one_step": plain["ms"], "ms_one_step_remat": rem["ms"],
+          "launches_remat": rem["launches"], **nms})
     check(all(math.isfinite(r["loss"]) and r["skipped"] == 0 for r in res.values()),
           f"remat: non-finite or skipped step {res}")
-    check(abs(rem["loss"] - plain["loss"]) <= tol,
-          f"remat: loss {rem['loss']} vs {plain['loss']} (tolerance {tol})")
+    check(nms["nms_picks_differ"] == 0, f"remat: {nms['nms_picks_differ']} NMS picks differ")
+    check(torch.equal(plain["loss_t"], rem["loss_t"]),
+          f"remat: loss {rem['loss']!r} vs {plain['loss']!r}, not bitwise equal")
     check(rem["peak_mem_gib"] < plain["peak_mem_gib"],
           f"remat: peak {rem['peak_mem_gib']} GiB is not below {plain['peak_mem_gib']} GiB")
     check_counts(plain["launches"], GEOMETRIES[geom]["per_train_step"], 1, f"{geom} step")

@@ -41,18 +41,11 @@
 // slice of tiles into an 8 x 8 register block per thread, so the partial
 // workspace is splits x 12 x 64 KB rather than one [12, 128, 128] per tile;
 // a second pass sums the partials in split order (deterministic).
-#include "tail_bwd.cuh"
+#include "lane_band.cuh"
 
 using namespace lgk;
 
 namespace {
-
-constexpr int HALO = 32;
-constexpr int MAXJ = 16;
-
-struct Shifts {
-  int s[MAXJ];
-};
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
@@ -64,71 +57,16 @@ lane_layer_kernel(const T* __restrict__ feat, const T* __restrict__ pre,
                   float* __restrict__ temp_out, int n, int nj, Shifts sh, float eps) {
   extern __shared__ float4 smem4[];
   float* X_s = reinterpret_cast<float*>(smem4);   // [TM + 2*HALO][LDA]
-  float* T_s = X_s + (TM + 2 * HALO) * LDA;       // [TM][LDA]
+  float* T_s = X_s + HALO_TILE;                   // [TM][LDA]
   float* W_s = T_s + TM * LDA;                    // [C][C]
   const long tile0 = (long)blockIdx.x * TM;
 
-  // feat rows tile0-HALO .. tile0+TM+HALO-1, zero outside [0, n).
-  for (int idx = threadIdx.x; idx < (TM + 2 * HALO) * (C / 4); idx += NT) {
-    const int r = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
-    const long g = tile0 - HALO + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (g >= 0 && g < n) v = load4<T>(feat + g * C + c4);
-    *reinterpret_cast<float4*>(X_s + r * LDA + c4) = v;
-  }
-
+  load_halo<T>(X_s, feat, tile0, n);
   float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long g = tile0 + mm_row(i);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = (g < n) ? to_f<T>(pre[g * C + mm_col(j)]) : 0.f;
-  }
-
-  for (int j = 0; j < nj; ++j) {
-    __syncthreads();  // previous product done with W_s (and X_s loaded)
-    load_weight<T>(W_s, wb + (long)j * C * C);
-    float m[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long g = tile0 + mm_row(i);
-      m[i] = (g < n && masks[(long)j * n + g]) ? 1.f : 0.f;
-    }
-    __syncthreads();
-    mm_64x128(X_s, HALO + sh.s[j], m, W_s, acc);
-  }
-
+  band_fwd<T>(X_s, W_s, pre, masks, wb, tile0, n, nj, sh, acc);
   store_acc(T_s, acc);
   __syncthreads();
-  if (temp_out) {
-    for (int idx = threadIdx.x; idx < TM * (C / 4); idx += NT) {
-      const int r = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
-      const long g = tile0 + r;
-      if (g < n)
-        *reinterpret_cast<float4*>(temp_out + g * C + c4) =
-            *reinterpret_cast<const float4*>(T_s + r * LDA + c4);
-    }
-    __syncthreads();
-  }
-  gn_relu_rows<T>(T_s, TM, g1w, g1b, eps);  // h = relu(GN1(temp)), rounded to T
-  load_weight<T>(W_s, w2);
-  __syncthreads();
-  const float ones[4] = {1.f, 1.f, 1.f, 1.f};
-  zero_acc(acc);
-  mm_64x128(T_s, 0, ones, W_s, acc);          // z = h @ W2
-  __syncthreads();
-  store_acc(T_s, acc);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < TM; r += NT / 32) {
-    const long g = tile0 + r;
-    if (g >= n) break;
-    const float4 z = *reinterpret_cast<const float4*>(T_s + r * LDA + lane * 4);
-    const float4 res = *reinterpret_cast<const float4*>(X_s + (HALO + r) * LDA + lane * 4);
-    const float4 y = gn_row(z, g2w, g2b, eps);
-    store4<T>(out + g * C + lane * 4, relu4(add4(y, res)));
-  }
+  layer_tail<T>(X_s, T_s, W_s, w2, g1w, g1b, g2w, g2b, out, temp_out, tile0, n, eps);
 }
 
 template <typename T>
@@ -136,7 +74,7 @@ int launch(const void* feat, const void* pre, const uint8_t* masks, const void* 
            const void* w2, const float* g1w, const float* g1b, const float* g2w,
            const float* g2b, void* out, float* temp_out, int n, int nj, const Shifts& sh,
            float eps, cudaStream_t stream) {
-  const int smem = ((TM + 2 * HALO) * LDA + TM * LDA + C * C) * (int)sizeof(float);
+  const int smem = (HALO_TILE + TM * LDA + C * C) * (int)sizeof(float);
   cudaError_t err = set_smem((const void*)lane_layer_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n + TM - 1) / TM;
@@ -158,34 +96,12 @@ band_t_kernel(const float* __restrict__ dtemp, const float* __restrict__ dy,
               int n, int nj, Shifts sh) {
   extern __shared__ float4 smem4[];
   float* D_s = reinterpret_cast<float*>(smem4);  // [TM + 2*HALO][LDA]
-  float* W_s = D_s + (TM + 2 * HALO) * LDA;      // [C][C] Wb_jᵀ
+  float* W_s = D_s + HALO_TILE;                  // [C][C] Wb_jᵀ
   const long tile0 = (long)blockIdx.x * TM;
 
-  for (int idx = threadIdx.x; idx < (TM + 2 * HALO) * (C / 4); idx += NT) {
-    const int r = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
-    const long g = tile0 - HALO + r;
-    *reinterpret_cast<float4*>(D_s + r * LDA + c4) =
-        (g >= 0 && g < n) ? *reinterpret_cast<const float4*>(dtemp + g * C + c4) : zero4();
-  }
+  load_halo<float>(D_s, dtemp, tile0, n);
   float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long g = tile0 + mm_row(i);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = (g < n) ? dy[g * C + mm_col(j)] : 0.f;
-  }
-  for (int j = 0; j < nj; ++j) {
-    __syncthreads();  // the previous product is done with W_s (and D_s is loaded)
-    load_weight_t<T>(W_s, wb + (long)j * C * C);
-    float m[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long src = tile0 + mm_row(i) - sh.s[j];
-      m[i] = (src >= 0 && src < n && masks[(long)j * n + src]) ? 1.f : 0.f;
-    }
-    __syncthreads();
-    mm_64x128(D_s, HALO - sh.s[j], m, W_s, acc);
-  }
+  band_t<T>(D_s, W_s, dy, masks, wb, tile0, n, nj, sh, acc);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const long g = tile0 + mm_row(i);
@@ -194,40 +110,6 @@ band_t_kernel(const float* __restrict__ dtemp, const float* __restrict__ dy,
       store4<T>(dx + g * C + mm_col(4), make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
     }
   }
-}
-
-// dWb pass: block (p, j) sums (band_j[u] · feat[u + s_j])ᵀ rnd(d_temp[u]) over
-// the tiles p, p + splits, ... and writes its partial part[p][j] [C][C].
-template <typename T>
-__global__ void __launch_bounds__(NT)
-band_dw_kernel(const T* __restrict__ feat, const float* __restrict__ dtemp,
-               const uint8_t* __restrict__ masks, float* __restrict__ part, int n, int nj,
-               Shifts sh) {
-  extern __shared__ float4 smem4[];
-  float* A_s = reinterpret_cast<float*>(smem4);  // [TM][LDA] band_j[u] · feat[u + s_j]
-  float* B_s = A_s + TM * LDA;                   // [TM][LDA] rnd(d_temp[u])
-  const int j = blockIdx.y, s = sh.s[j];
-  const int ntiles = (n + TM - 1) / TM;
-  float accW[8][8];
-  zero_tn(accW);
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    __syncthreads();  // the previous tile's product is done
-    for (int idx = threadIdx.x; idx < TM * (C / 4); idx += NT) {
-      const int r = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
-      const long u = (long)tile * TM + r;
-      float4 a = zero4(), b = zero4();
-      if (u < n) {
-        b = rnd4<T>(*reinterpret_cast<const float4*>(dtemp + u * C + c4));
-        const long v = u + s;
-        if (v >= 0 && v < n && masks[(long)j * n + u]) a = load4<T>(feat + v * C + c4);
-      }
-      *reinterpret_cast<float4*>(A_s + r * LDA + c4) = a;
-      *reinterpret_cast<float4*>(B_s + r * LDA + c4) = b;
-    }
-    __syncthreads();
-    mm_tn(A_s, B_s, TM, accW);
-  }
-  store_tn(part + ((long)blockIdx.x * nj + j) * C * C, accW, false);
 }
 
 template <typename T>
@@ -241,34 +123,15 @@ int launch_bwd(const T* feat, const float* temp, const uint8_t* masks, const T* 
                                       stream);
   if (err != 0) return err;
   const int ntiles = (n + TM - 1) / TM;
-  const int smem_t = ((TM + 2 * HALO) * LDA + C * C) * (int)sizeof(float);
+  const int smem_t = (HALO_TILE + C * C) * (int)sizeof(float);
   cudaError_t e = set_smem((const void*)band_t_kernel<T>, smem_t);
-  if (e != cudaSuccess) return (int)e;
-  const int smem_w = 2 * TM * LDA * (int)sizeof(float);
-  e = set_smem((const void*)band_dw_kernel<T>, smem_w);
   if (e != cudaSuccess) return (int)e;
   if (ntiles > 0) {
     band_t_kernel<T><<<ntiles, NT, smem_t, stream>>>(dtemp, dy, masks, wb, dx, n, nj, sh);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  if (nj > 0 && splits > 0) {
-    band_dw_kernel<T><<<dim3(splits, nj), NT, smem_w, stream>>>(feat, dtemp, masks, part_band,
-                                                                 n, nj, sh);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)reduce_partials(part_band, dwb, splits, (long)nj * C * C, stream);
-}
-
-int make_shifts(int nj, const int* shifts, Shifts* sh) {
-  if (nj < 0 || nj > MAXJ) return (int)cudaErrorInvalidValue;
-  for (int j = 0; j < MAXJ; ++j) sh->s[j] = 0;
-  for (int j = 0; j < nj; ++j) {
-    if (shifts[j] < -HALO || shifts[j] > HALO) return (int)cudaErrorInvalidValue;
-    sh->s[j] = shifts[j];
-  }
-  return 0;
+  return launch_band_dw<T>(feat, dtemp, masks, part_band, dwb, n, nj, sh, splits, stream);
 }
 
 }  // namespace

@@ -43,19 +43,11 @@
 // Groups and chunk ends are honoured exactly as in the forward. What bounds
 // it: two products on the applied edges (22.9 GFLOP at the 256-scenario
 // pack) against ~150 MB: memory-bound at the bf16 matrix rate.
-#include "common.cuh"
+#include "plan.cuh"
 
 using namespace lgk;
 
 namespace {
-
-constexpr int EB = 64;      // edges per step
-constexpr int PCHUNK = 512; // slot chunk of the plan layout
-constexpr int MAXG = 4;
-
-struct Groups {
-  unsigned int mask[MAXG];
-};
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
@@ -178,100 +170,6 @@ int launch(const void* feat, const void* temp, const void* w_rel, const int* lu,
   return (int)cudaGetLastError();
 }
 
-// Whether plan slot `slot` of window w is applied (the forward kernel's
-// rule): inside a visited chunk, both rows in the window, its relation in
-// the chunk's group. Returns the relation, or -1.
-__device__ __forceinline__ int applied_rel(const int* lu, const int* lv, const int* rel,
-                                           const int* ends_w, const Groups& groups, long w,
-                                           int slot, int ecap, int stride, int num_rel,
-                                           int num_groups, int* u, int* v) {
-  if (slot >= ecap) return -1;
-  const int ck = slot / PCHUNK;
-  int gi = 0;
-  while (gi < num_groups - 1 && ck >= ends_w[gi]) ++gi;
-  const long e = w * ecap + slot;
-  *u = lu[e];
-  *v = lv[e];
-  const int r = rel[e];
-  const bool ok = *u >= 0 && *u < stride && *v >= 0 && *v < stride && r >= 0 && r < num_rel &&
-                  ((groups.mask[gi] >> r) & 1u);
-  return ok ? r : -1;
-}
-
-// dW_rel pass: block (p, r) sums feat[v]ᵀ g[u] over the applied edges of
-// relation r in windows p, p + splits, ..., 64 compacted edges per product,
-// and writes its partial part[p][r] [C][C].
-template <typename T>
-__global__ void __launch_bounds__(NT)
-scenario_agg_dw_kernel(const T* __restrict__ feat, const T* __restrict__ g,
-                       const int* __restrict__ lu, const int* __restrict__ lv,
-                       const int* __restrict__ rel, const int* __restrict__ ends, Groups groups,
-                       float* __restrict__ part, int num_win, int stride, int ecap, int num_rel,
-                       int num_groups) {
-  extern __shared__ float4 smem4[];
-  float* A_s = reinterpret_cast<float*>(smem4);  // [EB][LDA] feat[v]
-  float* B_s = A_s + EB * LDA;                   // [EB][LDA] g[u]
-  int* pu_s = reinterpret_cast<int*>(B_s + EB * LDA);  // [2*EB] pending dst rows (global)
-  int* pv_s = pu_s + 2 * EB;                            // [2*EB] pending src rows (global)
-  int* cnt_s = pv_s + 2 * EB;                           // [2] per-warp selected counts
-  const int r = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float accW[8][8];
-  zero_tn(accW);
-  int fill = 0;  // pending edges (the same value in every thread)
-
-  auto flush = [&](int count) {
-    __syncthreads();  // pending rows written
-    for (int idx = threadIdx.x; idx < EB * (C / 4); idx += NT) {
-      const int e = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
-      float4 a = zero4(), b = zero4();
-      if (e < count) {
-        a = load4<T>(feat + (long)pv_s[e] * C + c4);
-        b = load4<T>(g + (long)pu_s[e] * C + c4);
-      }
-      *reinterpret_cast<float4*>(A_s + e * LDA + c4) = a;
-      *reinterpret_cast<float4*>(B_s + e * LDA + c4) = b;
-    }
-    __syncthreads();
-    mm_tn(A_s, B_s, EB, accW);
-  };
-
-  for (int w = blockIdx.x; w < num_win; w += gridDim.x) {
-    const int* ends_w = ends + (long)w * num_groups;
-    const int nsteps = min(ends_w[num_groups - 1] * (PCHUNK / EB), (ecap + EB - 1) / EB);
-    const long base = (long)w * stride;
-    for (int step = 0; step < nsteps; ++step) {
-      bool sel = false;
-      int u = -1, v = -1;
-      if (threadIdx.x < EB)
-        sel = applied_rel(lu, lv, rel, ends_w, groups, w, step * EB + threadIdx.x, ecap, stride,
-                          num_rel, num_groups, &u, &v) == r;
-      const unsigned int ballot = __ballot_sync(0xffffffffu, sel);
-      __syncthreads();  // the previous step is done with cnt_s and the pending rows
-      if (warp < 2 && lane == 0) cnt_s[warp] = __popc(ballot);
-      __syncthreads();
-      const int total = cnt_s[0] + cnt_s[1];
-      if (sel) {
-        const int pos = fill + (warp == 1 ? cnt_s[0] : 0) + __popc(ballot & ((1u << lane) - 1u));
-        pu_s[pos] = (int)(base + u);
-        pv_s[pos] = (int)(base + v);
-      }
-      fill += total;
-      if (fill >= EB) {
-        flush(EB);
-        __syncthreads();  // the product is done reading the pending rows' data
-        if (threadIdx.x < fill - EB) {
-          pu_s[threadIdx.x] = pu_s[EB + threadIdx.x];
-          pv_s[threadIdx.x] = pv_s[EB + threadIdx.x];
-        }
-        fill -= EB;
-      }
-    }
-  }
-  if (fill > 0) flush(fill);
-  store_tn(part + ((long)blockIdx.x * num_rel + r) * C * C, accW, false);
-}
-
 template <typename T>
 int launch_bwd(const void* feat, const void* g, const void* w_rel_t, const int* lu,
                const int* lv, const int* rel, const int* ends, const Groups& groups,
@@ -282,24 +180,8 @@ int launch_bwd(const void* feat, const void* g, const void* w_rel_t, const int* 
   int err = launch<T>(g, nullptr, w_rel_t, lv, lu, rel, ends, groups, dfeat, num_win, stride,
                       ecap, num_rel, num_groups, stream);
   if (err != 0) return err;
-  const int smem = 2 * EB * LDA * (int)sizeof(float) + (4 * EB + 2) * (int)sizeof(int);
-  cudaError_t e = set_smem((const void*)scenario_agg_dw_kernel<T>, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (splits > 0 && num_rel > 0) {
-    scenario_agg_dw_kernel<T><<<dim3(splits, num_rel), NT, smem, stream>>>(
-        (const T*)feat, (const T*)g, lu, lv, rel, ends, groups, part, num_win, stride, ecap,
-        num_rel, num_groups);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)reduce_partials(part, dw, splits, (long)num_rel * C * C, stream);
-}
-
-int make_groups(int num_groups, int num_rel, const void* group_masks, Groups* g) {
-  if (num_groups < 1 || num_groups > MAXG || num_rel > 32) return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < MAXG; ++i)
-    g->mask[i] = i < num_groups ? ((const unsigned int*)group_masks)[i] : 0u;
-  return 0;
+  return launch_plan_dw<T, T>((const T*)feat, (const T*)g, lu, lv, rel, ends, groups, part, dw,
+                              num_win, stride, ecap, num_rel, num_groups, splits, stream);
 }
 
 }  // namespace

@@ -45,8 +45,8 @@ def _pad_edges_sorted(
     indices_are_sorted), and the EdgeSet carries inv_perm/inv_dst — the
     argsort of v with padding routed to the num_src drop sentinel — so the
     source gather's backward is one permute + one sorted scatter (the JAX
-    package's ops.table_gather.sorted_transpose_gather; the port's model
-    gathers with masked_gather and does not read them)."""
+    package's ops.table_gather.sorted_transpose_gather; the port's
+    ops/scatter.py `src_order`)."""
     order = np.argsort(u, kind="stable")
     u, v = np.asarray(u)[order], np.asarray(v)[order]
     es, dropped = _pad_edges(u, v, capacity)

@@ -220,9 +220,9 @@ class LaneGraphBatch(_Tree):
     holds the residue lists; plan_lu/plan_lv/plan_rel are the window edge
     plan ([W*ECAP, 1] int32 window-local rows, -1 padding) over plan_scen
     windows. `tables[nm][u]` is the source row of u's neighbour in relation
-    nm (>= N: none) and `table_inv` their combined inverse (read by the JAX
-    package's table-gather backward; the port's `masked_gather` does not
-    need it); `spill_pair` is the window plan's residue as a
+    nm (>= N: none) and `table_inv` their combined inverse (the order of the
+    table gather's backward, ops/scatter.py `table_order`); `spill_pair` is
+    the window plan's residue as a
     (dst-window, src-window) chunk-pair plan with a relation column.
     """
 

@@ -32,7 +32,7 @@ from lanegcn_tpu_torch.config import ModelConfig
 from lanegcn_tpu_torch.graph import EdgeSet, LaneGraphBatch, PairPlan
 from lanegcn_tpu_torch.models.layers import Dense, GroupNorm, Linear
 from lanegcn_tpu_torch.models.map_net import LaneConvStack, graph_inputs
-from lanegcn_tpu_torch.ops import masked_gather, scatter_add
+from lanegcn_tpu_torch.ops.scatter import dst_order, masked_gather, scatter_add, src_order
 from lanegcn_tpu_torch.ops.edge_mlp import fused_edge_mlp
 from lanegcn_tpu_torch.ops.row_tail import fused_row_tail
 from lanegcn_tpu_torch.ops.win_edge import win_edge_mlp
@@ -86,10 +86,13 @@ class Att(nn.Module):
             u, v, mask = edges.u, edges.v, edges.mask
             # The centre offset per edge (centers are data: no gradient).
             d = masked_gather(agt_ctrs, u, mask) - masked_gather(ctx_ctrs, v, mask)
-            qg = masked_gather(qd, u, mask)
-            cg = masked_gather(cs, v, mask)
+            # The lists' own orders (destination-sorted, with the source
+            # inverse) for the scatter and the gathers' backward.
+            by_dst = dst_order(edges, agts.shape[0])
+            qg = masked_gather(qd, u, mask, by_dst)
+            cg = masked_gather(cs, v, mask, src_order(edges, ctx.shape[0]))
             edge_out = fused_edge_mlp(d.float(), qg.to(dt), cg.to(dt), kd, bd, *chain)
-            agts = scatter_add(edge_out, u, agts.shape[0], mask=mask, out=temp)
+            agts = scatter_add(edge_out, u, agts.shape[0], mask=mask, out=temp, order=by_dst)
         return fused_row_tail(
             agts.to(dt).contiguous(), res.to(dt).contiguous(), self.linear.linear.kernel,
             self.norm.weight, self.norm.bias, self.linear.norm.weight, self.linear.norm.bias,

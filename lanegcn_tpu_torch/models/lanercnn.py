@@ -35,7 +35,7 @@ from lanegcn_tpu_torch.graph import EdgeSet, RoiPackedBatch
 from lanegcn_tpu_torch.models.layers import Dense, GroupNorm, Linear, init_parameters
 from lanegcn_tpu_torch.models.lanegcn import smooth_l1
 from lanegcn_tpu_torch.models.map_net import LaneConvStack, graph_inputs
-from lanegcn_tpu_torch.ops import masked_gather, scatter_add
+from lanegcn_tpu_torch.ops.scatter import dst_order, masked_gather, scatter_add, src_order
 from lanegcn_tpu_torch.ops.edge_mlp import fused_edge_mlp
 from lanegcn_tpu_torch.ops.row_tail import fused_row_tail2
 from lanegcn_tpu_torch.ops.window_scatter import window_scatter_add
@@ -59,8 +59,10 @@ class LaneInput(nn.Module):
         map_feats = self.map_fc(batch.node_feats)
         agt = self.agt_fc(batch.agent_feat)
         a2m = batch.a2m
-        msg = masked_gather(agt, a2m.u, a2m.mask)
-        map_feats = scatter_add(msg, a2m.v, map_feats.shape[0], mask=a2m.mask, out=map_feats)
+        msg = masked_gather(agt, a2m.u, a2m.mask, dst_order(a2m, agt.shape[0]))
+        m = map_feats.shape[0]  # a scatter by source: the pack's inverse where it has one
+        map_feats = scatter_add(msg, a2m.v, m, mask=a2m.mask, out=map_feats,
+                                order=src_order(a2m, m))
         return torch.relu(self.bn(map_feats))
 
 
@@ -102,7 +104,8 @@ class LanePooling(nn.Module):
         k_ch = ctx_hidden.linear.kernel  # [2n, n]: context | relative-pose segments
         # The context segment applies per context row, densely, before the
         # edge gather (reference lanercnn.py:497-505).
-        cg = masked_gather(context_feat.to(dt) @ k_ch[:n].to(dt), edges.v, edges.mask)
+        cg = masked_gather(context_feat.to(dt) @ k_ch[:n].to(dt), edges.v, edges.mask,
+                           src_order(edges, context_feat.shape[0]))
         ctx = fused_edge_mlp(d.float(), None, cg.to(dt), relpose.kernel, relpose.bias, None, None,
                              None, k_ch[n:], ctx_hidden.norm.weight, ctx_hidden.norm.bias,
                              ctx_out.kernel, False, False)
@@ -111,7 +114,8 @@ class LanePooling(nn.Module):
             tgt = window_scatter_add(ctx.to(tgt.dtype), tgt, edges.win_lu, edges.win_chunk,
                                      edges.win_stride)
         else:
-            tgt = scatter_add(ctx, edges.u, tgt.shape[0], mask=edges.mask, out=tgt)
+            tgt = scatter_add(ctx, edges.u, tgt.shape[0], mask=edges.mask, out=tgt,
+                              order=dst_order(edges, tgt.shape[0]))
         # GN → ReLU → mlp.0 → mlp.1 → +res → ReLU (reference lanercnn.py:497-505).
         mlp1, mlp2 = self.mlp
         return fused_row_tail2(

@@ -10,13 +10,19 @@ the pack carries:
 - the neighbour tables (left/right of the contiguous layout): one stacked
   row gather (`masked_gather`, which computes what the JAX package's
   `stacked_table_gather` does) and one relation-contracting einsum;
-- the residue lists: masked_gather → per-relation matmul → one scatter_add;
+- the residue lists: one masked_gather of all relations' lists →
+  per-relation matmul → one scatter_add, both in an order sorted once per
+  call (ops/scatter.py) and shared by the layers;
 - the window plan's edges (both endpoints in one node window): the
-  `scenario_agg` kernel;
+  `scenario_agg` kernel, or, with `ModelConfig.merge_plan_agg` and a node
+  window that can be the layer's tile (`merge_plan`), inside the layer
+  kernel (`lane_plan`); a plan that is not group-aligned raises
+  (`check_plan_groups`) instead of losing edges;
 - the spill plan (the window plan's residue as (dst-window, src-window)
   chunk pairs): the `pair_agg` kernel;
 - the intra-lane band edges (v = u + 2^s, the pack's band masks) and the
-  whole layer tail: the fused `lane_layer` kernel.
+  whole layer tail: the fused `lane_layer` kernel (`lane_plan` when
+  merged).
 
 One stack serves every node space: MapNet's and M2M's lane graph, and
 LaneRCNN's RoI subgraphs and global graph (the stack takes the relation
@@ -34,10 +40,11 @@ from torch import nn
 from lanegcn_tpu_torch.config import ModelConfig, band_shift, relation_names
 from lanegcn_tpu_torch.graph import EdgeSet, LaneGraphBatch, PairPlan
 from lanegcn_tpu_torch.models.layers import Dense, GroupNorm, Linear
-from lanegcn_tpu_torch.ops import masked_gather, scatter_add
-from lanegcn_tpu_torch.ops.lane_layer import fused_lane_layer
+from lanegcn_tpu_torch.ops.lane_layer import fused_lane_layer, fused_lane_layer_plan
 from lanegcn_tpu_torch.ops.pair_agg import pair_aggregate
-from lanegcn_tpu_torch.ops.scenario_agg import GROUPED_MIN_CAP, scenario_aggregate
+from lanegcn_tpu_torch.ops.scatter import masked_gather, order_by, scatter_add, table_order
+from lanegcn_tpu_torch.ops.scenario_agg import _CHUNK as PLAN_CHUNK
+from lanegcn_tpu_torch.ops.scenario_agg import GROUPED_MIN_CAP, plan_applied, scenario_aggregate
 
 
 class LaneConvStack(nn.ModuleDict):
@@ -65,11 +72,13 @@ class LaneConvStack(nn.ModuleDict):
     def forward(self, feat: torch.Tensor, edges: Dict[str, EdgeSet],
                 bands: Dict[str, torch.Tensor] | None,
                 tables: Dict[str, torch.Tensor] | None = None,
-                plan: Tuple | None = None, spill: PairPlan | None = None) -> torch.Tensor:
+                plan: Tuple | None = None, spill: PairPlan | None = None,
+                table_inv: EdgeSet | None = None) -> torch.Tensor:
         """feat [N, C] over one node space and that space's relations: the
-        residue lists `edges`, the band masks, the neighbour tables, the
-        window plan (lu, lv, rel, windows) and the spill plan, as a pack
-        carries them (`graph_inputs` for a LaneGraphBatch)."""
+        residue lists `edges`, the band masks, the neighbour tables (with
+        their inverse `table_inv`, when the pack has one), the window plan
+        (lu, lv, rel, windows) and the spill plan, as a pack carries them
+        (`graph_inputs` for a LaneGraphBatch)."""
         if not bands:
             raise NotImplementedError("packs without band masks are not ported yet")
         dt = self.dtype
@@ -80,21 +89,33 @@ class LaneConvStack(nn.ModuleDict):
         shifts = [band_shift(nm) for _, nm in band_rel]
         band_masks = torch.stack([bands[nm] for _, nm in band_rel], 0).contiguous()
         band_idx = [r for r, _ in band_rel]
+        grad = torch.is_grad_enabled()
 
-        groups = None
+        groups, merge = None, False
         if plan is not None:
             plan_lu, plan_lv, plan_rel, num_win = plan
-            ecap = plan_lu.shape[0] // num_win
-            lr = tuple(r for r, nm in enumerate(names) if nm in ("left", "right"))
-            dil = tuple(r for r, nm in enumerate(names) if nm not in ("left", "right"))
-            if ecap >= GROUPED_MIN_CAP and lr and dil:
-                groups = (lr, dil)
+            groups = plan_groups(names, plan_lu.shape[0] // num_win)
+            check_plan_groups(plan_lu, plan_rel, num_win, groups, len(names))
+            merge = merge_plan(self.cfg, num_nodes, plan_lu.shape[0], num_win)
 
         tbl_rel = [r for r, nm in enumerate(names) if tables and nm in tables]
         if tbl_rel:
             tbl_stack = torch.stack([tables[names[r]] for r in tbl_rel], 0)
+            tbl_mask = tbl_stack < num_nodes
+            tbl_order = None
+            if grad:  # the gathers' backward: the pack's inverse, else one sort
+                tbl_order = (table_order(table_inv, len(tbl_rel), num_nodes)
+                             if table_inv is not None
+                             else order_by(tbl_stack, tbl_mask, num_nodes))
+        # The residue lists of all relations as one list, in destination
+        # order for the scatter and (when training) in source order for the
+        # gather's backward: one sort each per call, shared by the layers.
+        caps = [edges[nm].u.shape[0] for nm in names]
         edge_u = torch.cat([edges[nm].u for nm in names])
+        edge_v = torch.cat([edges[nm].v for nm in names])
         edge_m = torch.cat([edges[nm].mask for nm in names])
+        dst = order_by(edge_u, edge_m, num_nodes)
+        src = order_by(edge_v, edge_m, num_nodes) if grad else None
 
         for i in range(self.num_layers):
             temp = fuse["ctr"][i](feat)
@@ -102,16 +123,13 @@ class LaneConvStack(nn.ModuleDict):
             w_rel = torch.stack([fuse[nm][i].kernel for nm in names], 0)
             if tbl_rel:
                 # temp[u] += Σ_r feat[tables[r, u]] @ W_r over the tabled relations.
-                xg = masked_gather(feat, tbl_stack, tbl_stack < num_nodes)
+                xg = masked_gather(feat, tbl_stack, tbl_mask, tbl_order)
                 temp = temp + torch.einsum("rnc,rcd->nd", xg.to(dt), w_rel[tbl_rel].to(dt))
-            msgs = []
-            for r, nm in enumerate(names):
-                e: EdgeSet = edges[nm]
-                src = masked_gather(feat, e.v, e.mask)
-                msgs.append(src.to(dt) @ w_rel[r].to(dt))
-            temp = scatter_add(torch.cat(msgs), edge_u, num_nodes, mask=edge_m, out=temp)
+            rows = masked_gather(feat, edge_v, edge_m, src).to(dt).split(caps)
+            msgs = torch.cat([x @ w_rel[r].to(dt) for r, x in enumerate(rows)])
+            temp = scatter_add(msgs, edge_u, num_nodes, mask=edge_m, out=temp, order=dst)
             w_dt = w_rel.to(dt).contiguous()
-            if plan is not None:
+            if plan is not None and not merge:
                 temp = scenario_aggregate(
                     feat.to(dt).contiguous(), temp.to(dt).contiguous(), w_dt,
                     plan_lu, plan_lv, plan_rel, num_win, groups,
@@ -120,12 +138,44 @@ class LaneConvStack(nn.ModuleDict):
                 temp = pair_aggregate(feat.to(dt).contiguous(), temp.to(dt).contiguous(), w_dt,
                                       spill)
             norm, ctr2 = fuse["norm"][i], fuse["ctr2"][i]
-            feat = fused_lane_layer(
-                feat.to(dt).contiguous(), temp.to(dt).contiguous(), band_masks,
-                w_dt[band_idx].contiguous(), ctr2.linear.kernel.to(dt).contiguous(),
-                norm.weight, norm.bias, ctr2.norm.weight, ctr2.norm.bias, shifts,
-            )
+            layer = (feat.to(dt).contiguous(), temp.to(dt).contiguous(), band_masks,
+                     w_dt[band_idx].contiguous(), ctr2.linear.kernel.to(dt).contiguous(),
+                     norm.weight, norm.bias, ctr2.norm.weight, ctr2.norm.bias)
+            if merge:
+                feat = fused_lane_layer_plan(*layer, w_dt, plan_lu, plan_lv, plan_rel, num_win,
+                                             shifts, groups)
+            else:
+                feat = fused_lane_layer(*layer, shifts)
         return feat
+
+
+def plan_groups(names, ecap: int):
+    """The window plan's relation groups: (left/right, the dilated ones) when
+    the plan is built grouped (ecap ≥ GROUPED_MIN_CAP, the packer's rule),
+    else None (one group)."""
+    lr = tuple(r for r, nm in enumerate(names) if nm in ("left", "right"))
+    dil = tuple(r for r, nm in enumerate(names) if nm not in ("left", "right"))
+    return (lr, dil) if ecap >= GROUPED_MIN_CAP and lr and dil else None
+
+
+def check_plan_groups(lu, rel, num_win: int, groups, num_rel: int) -> None:
+    """Raise if a valid plan slot lies outside its relation group's chunks
+    (or past the last visited chunk): the plan kernels would drop it without
+    a word. torch._assert_async: no host sync on the card, an immediate
+    error on the CPU."""
+    dropped = (lu.reshape(-1) >= 0) & ~plan_applied(lu, rel, num_win, groups, num_rel)
+    torch._assert_async(~dropped.any(), "window plan is not group-aligned: valid slots lie "
+                        "outside their relation group's chunks and would be dropped")
+
+
+def merge_plan(cfg: ModelConfig, num_nodes: int, plan_slots: int, num_win: int) -> bool:
+    """Whether the window plan runs inside the layer kernel
+    (`fused_lane_layer_plan`): the config asks for it and the node tile can
+    be the window stride (the JAX package's gate, models/map_net.py)."""
+    stride = num_nodes // num_win
+    return (cfg.merge_plan_agg != "off" and num_nodes % num_win == 0 and stride % 128 == 0
+            and stride >= 512 and plan_slots % num_win == 0
+            and (plan_slots // num_win) % PLAN_CHUNK == 0)
 
 
 def graph_inputs(graph) -> dict:
@@ -135,7 +185,7 @@ def graph_inputs(graph) -> dict:
     if graph.plan_lu is not None:
         plan = (graph.plan_lu, graph.plan_lv, graph.plan_rel, graph.plan_scen)
     return dict(edges=graph.edges, bands=graph.bands, tables=graph.tables, plan=plan,
-                spill=graph.spill_pair)
+                spill=graph.spill_pair, table_inv=graph.table_inv)
 
 
 class MapNet(nn.Module):

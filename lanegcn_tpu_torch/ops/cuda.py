@@ -10,10 +10,10 @@ Every C entry point returns `cudaGetLastError()` after its launch; `call`
 raises when that is not 0, so a refused launch never passes silently.
 
 `LAUNCHES` counts launches per C entry point (`lane_layer_fwd`,
-`lane_layer_bwd`, ..., `edge_mlp_pool_bwd`, `window_scatter_bwd`): `call`
-adds one where it launches the entry, and nothing else does. An entry may
-run several kernels (a backward's passes and its partial-sum reduction); it
-counts once per call.
+`lane_layer_bwd`, ..., `window_scatter_bwd`, `segment_sum`, `lane_plan_fwd`,
+`lane_plan_bwd`): `call` adds one where it launches the entry, and nothing
+else does. An entry may run several kernels (a backward's passes and its
+partial-sum reductions); it counts once per call.
 """
 
 from __future__ import annotations
@@ -38,6 +38,8 @@ ENTRIES = {
     "pair_agg": ("pair_agg_fwd", "pair_agg_bwd_d", "pair_agg_bwd_s"),
     "edge_mlp": ("edge_mlp_fwd", "edge_mlp_bwd", "edge_mlp_pool_fwd", "edge_mlp_pool_bwd"),
     "window_scatter": ("window_scatter_fwd", "window_scatter_bwd"),
+    "segment_sum": ("segment_sum",),
+    "lane_plan": ("lane_plan_fwd", "lane_plan_bwd"),
 }
 
 KERNELS = tuple(ENTRIES)

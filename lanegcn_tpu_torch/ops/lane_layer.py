@@ -9,6 +9,10 @@ When a gradient is wanted the public op runs through a
 `torch.autograd.Function`: its forward also keeps temp (fp32; on the card
 the forward kernel writes it, bitwise its own value) and its backward is the
 `lane_layer_bwd` kernel on CUDA tensors, `lane_layer_bwd_plain` on CPU ones.
+
+`fused_lane_layer_plan` (the `lane_plan` kernels, csrc/lane_plan.cu) is the
+same layer with the window plan's aggregate added into temp inside it, the
+counterpart of `fused_lane_layer_plan` there; see its section below.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import torch
 from lanegcn_tpu_torch.ops import cuda
 from lanegcn_tpu_torch.ops.norm import group_norm
 from lanegcn_tpu_torch.ops.row_tail import PART, tail_bwd_plain
+from lanegcn_tpu_torch.ops.scenario_agg import (
+    _CHUNK as _PLAN_CHUNK, _group_args, _per_relation, plan_edge_count, plan_edges)
 
 C = 128
 HALO = 32
@@ -59,6 +65,23 @@ def lane_layer_plain(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b,
     return _tail_plain(feat, temp, w2, g1w, g1b, g2w, g2b, eps)
 
 
+def _band_bwd_plain(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, g, shifts, eps):
+    """lane_layer_bwd_plain before its roundings: fp32 d_temp and dx, then
+    dWb, dW2 and the four GN vector gradients."""
+    d_temp, d_y, dw2, *dgn = tail_bwd_plain(temp, feat, w2, g1w, g1b, g2w, g2b, g, eps)
+    f = feat.float()
+    dt_r = d_temp.to(feat.dtype).float()
+    dx = d_y
+    dwb = []
+    for j, s in enumerate(shifts):
+        m = masks[j].to(torch.float32)[:, None]
+        dx = dx + _shift_rows(d_temp * m, -s) @ wb[j].float().t()
+        dwb.append((_shift_rows(f, s) * m).t() @ dt_r)
+    dwb = torch.stack(dwb) if dwb else torch.zeros(0, C, C, dtype=torch.float32,
+                                                   device=feat.device)
+    return d_temp, dx, dwb, dw2, dgn
+
+
 def lane_layer_bwd_plain(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, g,
                          shifts: Sequence[int], eps: float = 1e-5):
     """The backward kernel's arithmetic, from the forward's fp32 temp:
@@ -71,17 +94,8 @@ def lane_layer_bwd_plain(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, g,
     the four GN vector gradients.
     """
     dt = feat.dtype
-    d_temp, d_y, dw2, *dgn = tail_bwd_plain(temp, feat, w2, g1w, g1b, g2w, g2b, g, eps)
-    f = feat.float()
-    dt_r = d_temp.to(dt).float()
-    dx = d_y
-    dwb = []
-    for j, s in enumerate(shifts):
-        m = masks[j].to(torch.float32)[:, None]
-        dx = dx + _shift_rows(d_temp * m, -s) @ wb[j].float().t()
-        dwb.append((_shift_rows(f, s) * m).t() @ dt_r)
-    dwb = torch.stack(dwb) if dwb else torch.zeros(0, C, C, dtype=torch.float32,
-                                                   device=feat.device)
+    d_temp, dx, dwb, dw2, dgn = _band_bwd_plain(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b,
+                                                g, shifts, eps)
     return (dx.to(dt), d_temp.to(dt), dwb, dw2, *dgn)
 
 
@@ -243,3 +257,242 @@ def work_bwd(feat, masks) -> dict:
         "flops": 2 * 2 * c * c * band_rows + 3 * 2 * c * c * n,
         "band_rows": band_rows,
     }
+
+
+# ---------------------------------------------------------------------------
+# The layer with the window plan's aggregate inside it: `lane_plan`
+# (csrc/lane_plan.cu, forward and backward), counterpart of
+# pallas_lane_layer.py `fused_lane_layer_plan`.
+#
+#     temp = pre + band_conv(feat) + Σ_{applied slots (u ← v, r)} rnd(feat[v] @ W_r)
+#     out  = relu(GN2(relu(GN1(temp)) @ W2) + feat)
+#
+# Node rows are num_win windows of t = N / num_win rows (t % 128 == 0); the
+# plan is [num_win * ECAP, 1] int32 lu/lv/rel (ECAP % 512 == 0), window-local,
+# with the chunk-aligned relation groups `scenario_agg` reads
+# (group_chunk_ends). Each plan message is rounded to the activation dtype
+# before its fp32 sum, as the TPU kernel rounds it. The backward:
+#
+#     d_msg = rnd(d_temp[u]);  dfeat[v] += rnd(d_msg @ W_rᵀ);  dW_r += rnd(feat[v])ᵀ d_msg
+#
+# in fp32, on top of lane_layer's backward. The TPU kernel rounds dfeat to the
+# activation dtype after every 512-slot chunk; the port sums it in fp32 and
+# rounds once, as scenario_agg does.
+
+
+def _plan_check(feat, w_rel, lu, lv, rel, num_win):
+    n, c = feat.shape
+    r_num = w_rel.shape[0]
+    if (num_win <= 0 or n % num_win or (n // num_win) % 128 or lu.shape[0] % num_win
+            or (lu.shape[0] // num_win) % _PLAN_CHUNK or tuple(w_rel.shape) != (r_num, c, c)
+            or lv.shape != lu.shape or rel.shape != lu.shape or lu.numel() != lu.shape[0]):
+        raise ValueError(f"lane_plan: bad shapes feat {tuple(feat.shape)} w_rel "
+                         f"{tuple(w_rel.shape)} plan {tuple(lu.shape)} windows {num_win}: the "
+                         f"window stride must be a multiple of 128 and the plan's slots per "
+                         f"window of {_PLAN_CHUNK}")
+    if w_rel.dtype != feat.dtype:
+        raise TypeError("lane_plan: w_rel must be in feat's dtype")
+    for t in (lu, lv, rel):
+        if t.dtype != torch.int32:
+            raise TypeError("lane_plan: plan indices must be int32")
+
+
+def _plan_rows(feat, w_rel, lu, lv, rel, num_win, groups):
+    """The applied plan edges: flat (u, v) rows by relation, and the counts."""
+    u, v, counts = plan_edges(lu, lv, rel, num_win, feat.shape[0] // num_win, groups,
+                              w_rel.shape[0])
+    k = sum(counts)
+    return u[:k], v[:k], counts
+
+
+def _plan_temp_plain(feat, pre, masks, wb, shifts, w_rel, lu, lv, rel, num_win, groups):
+    """pre + the band products + the rounded plan messages, fp32."""
+    temp = _temp_plain(feat, pre, masks, wb, shifts)
+    u, v, counts = _plan_rows(feat, w_rel, lu, lv, rel, num_win, groups)
+    msg = _per_relation(feat[v].float(), w_rel, counts).to(feat.dtype).float()
+    return temp.index_add(0, u, msg)
+
+
+def lane_plan_plain(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, rel,
+                    num_win: int, shifts: Sequence[int], groups=None,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """The forward kernel's arithmetic in PyTorch (lane_layer_plain with the
+    rounded plan messages added into temp)."""
+    temp = _plan_temp_plain(feat, pre, masks, wb, shifts, w_rel, lu, lv, rel, num_win, groups)
+    return _tail_plain(feat, temp, w2, g1w, g1b, g2w, g2b, eps)
+
+
+def lane_plan_bwd_plain(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, rel,
+                        num_win: int, groups, g, shifts: Sequence[int], eps: float = 1e-5):
+    """The backward kernel's arithmetic, from the forward's fp32 temp:
+    lane_layer_bwd_plain's, plus the plan's transpose into dx (fp32, one
+    rounding) and dW_rel. Returns (dx, dpre) in feat's dtype, then fp32 dWb,
+    dW2, the four GN vector gradients and dW_rel [R, 128, 128]."""
+    dt = feat.dtype
+    d_temp, dx, dwb, dw2, dgn = _band_bwd_plain(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b,
+                                                g, shifts, eps)
+    u, v, counts = _plan_rows(feat, w_rel, lu, lv, rel, num_win, groups)
+    d_msg = d_temp[u].to(dt).float()
+    d_gath = _per_relation(d_msg, w_rel, counts, transpose=True).to(dt).float()
+    dx = dx.index_add(0, v, d_gath)
+    gath = feat[v].float()
+    dwr = torch.zeros(w_rel.shape, dtype=torch.float32, device=feat.device)
+    o = 0
+    for r, cnt in enumerate(counts):
+        dwr[r] = gath[o:o + cnt].t() @ d_msg[o:o + cnt]
+        o += cnt
+    return (dx.to(dt), d_temp.to(dt), dwb, dw2, *dgn, dwr)
+
+
+def _plan_fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, rel, num_win,
+                   shifts, groups, eps, save_temp=False):
+    """The forward kernel; returns out, or (out, temp fp32) with save_temp."""
+    _check(feat, pre, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts)
+    _plan_check(feat, w_rel, lu, lv, rel, num_win)
+    n = feat.shape[0]
+    r_num = w_rel.shape[0]
+    groups, ends, gmasks = _group_args(lu, rel, num_win, groups, r_num)
+    masks = _mask_bytes(masks)
+    gns = [cuda.param(t) for t in (g1w, g1b, g2w, g2b)]
+    wb, w2, w_rel = (cuda.param(t, t.dtype) for t in (wb, w2, w_rel))
+    code = cuda.check_cuda("lane_plan", feat, pre, masks, wb, w2, w_rel, *gns, lu, lv, rel, ends)
+    out = torch.empty_like(feat)
+    temp = torch.empty(n, C, dtype=torch.float32, device=feat.device) if save_temp else None
+    sh = _shift_array(shifts)
+    cuda.call(
+        "lane_plan", "lane_plan_fwd",
+        cuda.ptr(feat), cuda.ptr(pre), cuda.ptr(masks), cuda.ptr(wb), cuda.ptr(w2),
+        *(cuda.ptr(t) for t in gns), cuda.ptr(w_rel), cuda.ptr(lu), cuda.ptr(lv), cuda.ptr(rel),
+        cuda.ptr(ends), ctypes.cast(gmasks, ctypes.c_void_p), cuda.ptr(out), cuda.ptr(temp),
+        ctypes.c_int(n), ctypes.c_int(len(shifts)), ctypes.cast(sh, ctypes.c_void_p),
+        ctypes.c_int(num_win), ctypes.c_int(lu.shape[0] // num_win), ctypes.c_int(r_num),
+        ctypes.c_int(len(groups)), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+    )
+    return (out, temp) if save_temp else out
+
+
+def lane_plan_bwd_cuda(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, rel,
+                       num_win: int, groups, g, shifts: Sequence[int], eps: float = 1e-5):
+    """The `lane_plan_bwd` kernel; the same outputs as `lane_plan_bwd_plain`."""
+    _check(feat, feat, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts)
+    _plan_check(feat, w_rel, lu, lv, rel, num_win)
+    n = feat.shape[0]
+    j, r_num = len(shifts), w_rel.shape[0]
+    if (temp.shape != feat.shape or temp.dtype != torch.float32
+            or g.shape != feat.shape or g.dtype != feat.dtype):
+        raise ValueError("lane_plan: temp must be fp32 and g in feat's dtype, both [N, 128]")
+    groups, ends, gmasks = _group_args(lu, rel, num_win, groups, r_num)
+    masks = _mask_bytes(masks)
+    gns = [cuda.param(t) for t in (g1w, g1b, g2w, g2b)]
+    wb, w2, w_rel = (cuda.param(t, t.dtype) for t in (wb, w2, w_rel))
+    code = cuda.check_cuda("lane_plan", feat, temp, masks, wb, w2, w_rel, g, *gns, lu, lv, rel,
+                           ends)
+    dev = feat.device
+    tail_blocks = cuda.num_sms(dev)
+    splits = max(1, 2 * tail_blocks // max(j, 1))
+    splits_rel = max(1, 2 * tail_blocks // r_num)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx, dpre = torch.empty_like(feat), torch.empty_like(feat)
+    d_temp, d_y = torch.empty(n, C, **f32), torch.empty(n, C, **f32)
+    part_tail = torch.empty(tail_blocks * PART, **f32)
+    part_band = torch.empty(splits * j * C * C, **f32)
+    part_rel = torch.empty(splits_rel * r_num * C * C, **f32)
+    grads_tail = torch.empty(PART, **f32)
+    dwb = torch.empty(j, C, C, **f32)
+    dwr = torch.empty(r_num, C, C, **f32)
+    sh = _shift_array(shifts)
+    cuda.call(
+        "lane_plan", "lane_plan_bwd",
+        cuda.ptr(feat), cuda.ptr(temp), cuda.ptr(masks), cuda.ptr(wb), cuda.ptr(w2),
+        *(cuda.ptr(t) for t in gns), cuda.ptr(w_rel), cuda.ptr(lu), cuda.ptr(lv), cuda.ptr(rel),
+        cuda.ptr(ends), ctypes.cast(gmasks, ctypes.c_void_p), cuda.ptr(g), cuda.ptr(dx),
+        cuda.ptr(dpre), cuda.ptr(d_temp), cuda.ptr(d_y), cuda.ptr(part_tail),
+        cuda.ptr(part_band), cuda.ptr(part_rel), cuda.ptr(grads_tail), cuda.ptr(dwb),
+        cuda.ptr(dwr), ctypes.c_int(n), ctypes.c_int(j), ctypes.cast(sh, ctypes.c_void_p),
+        ctypes.c_int(num_win), ctypes.c_int(lu.shape[0] // num_win), ctypes.c_int(r_num),
+        ctypes.c_int(len(groups)), ctypes.c_int(tail_blocks), ctypes.c_int(splits),
+        ctypes.c_int(splits_rel), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+    )
+    dgn = grads_tail[C * C:].view(4, C)
+    return (dx, dpre, dwb, grads_tail[: C * C].view(C, C), dgn[0], dgn[1], dgn[2], dgn[3], dwr)
+
+
+class _LanePlan(torch.autograd.Function):
+    """Forward: the plain version on CPU tensors, the kernel (with temp) on
+    CUDA tensors. Backward: `lane_plan_bwd_plain` / `lane_plan_bwd_cuda`;
+    gradients go to feat, pre, wb, w2, the GN vectors and w_rel, each in its
+    primal's dtype; the masks and the plan get None."""
+
+    @staticmethod
+    def forward(ctx, feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, rel, num_win,
+                shifts, groups, eps):
+        if feat.device.type == "cpu":
+            temp = _plan_temp_plain(feat, pre, masks, wb, shifts, w_rel, lu, lv, rel, num_win,
+                                    groups)
+            out = _tail_plain(feat, temp, w2, g1w, g1b, g2w, g2b, eps)
+        else:
+            out, temp = _plan_fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu,
+                                       lv, rel, num_win, shifts, groups, eps, save_temp=True)
+        ctx.save_for_backward(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, rel)
+        ctx.num_win, ctx.shifts, ctx.groups, ctx.eps = num_win, tuple(shifts), groups, eps
+        ctx.pre_dtype = pre.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, rel = ctx.saved_tensors
+        bwd = lane_plan_bwd_plain if feat.device.type == "cpu" else lane_plan_bwd_cuda
+        dx, dpre, dwb, dw2, *dgn, dwr = bwd(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel,
+                                            lu, lv, rel, ctx.num_win, ctx.groups,
+                                            g.to(feat.dtype).contiguous(), ctx.shifts, ctx.eps)
+        return (dx, dpre.to(ctx.pre_dtype), None, dwb.to(wb.dtype), dw2.to(w2.dtype),
+                *(d.to(p.dtype) for d, p in zip(dgn, (g1w, g1b, g2w, g2b))),
+                dwr.to(w_rel.dtype), None, None, None, None, None, None, None)
+
+
+def fused_lane_layer_plan(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, rel,
+                          num_win: int, shifts: Sequence[int], groups=None,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """relu(GN2(relu(GN1(pre + band_conv(feat) + plan_agg(feat))) @ w2) + feat).
+
+    fused_lane_layer's arguments, plus w_rel [R, 128, 128] (in, out) in
+    feat's dtype and the window plan lu/lv/rel [num_win*ECAP, 1] int32 with
+    its relation groups (None: one group). N = num_win * t with t % 128 ==
+    0; ECAP % 512 == 0. CPU tensors take the plain version; CUDA tensors
+    launch the kernel.
+    """
+    if feat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lane_plan: unsupported device {feat.device}")
+    _plan_check(feat, w_rel, lu, lv, rel, num_win)
+    args = (feat.contiguous(), pre.contiguous(), masks, wb.contiguous(), w2.contiguous(),
+            g1w, g1b, g2w, g2b, w_rel.contiguous(), lu, lv, rel)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _LanePlan.apply(*args, num_win, tuple(shifts), groups, eps)
+    if feat.device.type == "cpu":
+        return lane_plan_plain(*args, num_win, shifts, groups, eps)
+    return _plan_fwd_cuda(*args, num_win, shifts, groups, eps)
+
+
+def work_plan(feat, masks, lu, rel, w_rel, num_win: int, groups=None) -> dict:
+    """`work`'s bytes and operations plus the plan's: its indices and W_rel
+    read once, one [128, 128] product per applied edge (its source rows are
+    feat's, already counted)."""
+    w = work(feat, masks)
+    edges = plan_edge_count(lu, rel, num_win, groups, w_rel.shape[0])
+    c, db = feat.shape[1], feat.element_size()
+    w["bytes"] += 3 * lu.shape[0] * 4 + w_rel.numel() * db
+    w["flops"] += 2 * edges * c * c
+    w["edges"] = edges
+    return w
+
+
+def work_plan_bwd(feat, masks, lu, rel, w_rel, num_win: int, groups=None) -> dict:
+    """`work_bwd`'s plus the plan's: its indices and W_rel read, dW_rel
+    written, two [128, 128] products per applied edge (dfeat and dW_rel)."""
+    w = work_bwd(feat, masks)
+    edges = plan_edge_count(lu, rel, num_win, groups, w_rel.shape[0])
+    c, db = feat.shape[1], feat.element_size()
+    w["bytes"] += 3 * lu.shape[0] * 4 + w_rel.numel() * (db + 4)
+    w["flops"] += 2 * 2 * edges * c * c
+    w["edges"] = edges
+    return w

@@ -72,24 +72,51 @@ def _applied(lu, rel, num_win: int, groups) -> torch.Tensor:
     return ok.reshape(-1) & (lu.reshape(-1) >= 0)
 
 
+def plan_edges(lu, lv, rel, num_win: int, stride: int, groups, num_rel: int):
+    """The slots the kernels apply (`_applied`), as flat destination and
+    source rows sorted by relation (slot order within one), and the number
+    of edges of each relation (host ints: the plain versions run on CPU
+    tensors). No nonzero: the applied slots are those the sort puts first."""
+    ecap = lu.shape[0] // num_win
+    lu_f, lv_f, rel_f = lu.reshape(-1).long(), lv.reshape(-1).long(), rel.reshape(-1).long()
+    ok = _applied(lu_f, rel_f, num_win, _groups(groups, num_rel))
+    key = torch.where(ok, rel_f, num_rel)
+    order = torch.sort(key, stable=True).indices
+    counts = torch.bincount(key, minlength=num_rel + 1)[:num_rel].tolist()
+    base = torch.arange(num_win, device=lu.device).repeat_interleave(ecap) * stride
+    return (base + lu_f)[order], (base + lv_f)[order], counts
+
+
+def plan_applied(lu, rel, num_win: int, groups, num_rel: int) -> torch.Tensor:
+    """[W*ECAP] bool: the slots the kernels apply."""
+    return _applied(lu.reshape(-1).long(), rel.reshape(-1).long(), num_win,
+                    _groups(groups, num_rel))
+
+
+def plan_edge_count(lu, rel, num_win: int, groups, num_rel: int) -> int:
+    """The number of slots the kernels apply."""
+    return int(plan_applied(lu, rel, num_win, groups, num_rel).sum())
+
+
+def _per_relation(x, w_rel, counts, transpose=False):
+    """x's rows, in relation runs of `counts`, each run times its W_r (or
+    W_rᵀ) in fp32."""
+    outs, o = [], 0
+    for r, c in enumerate(counts):
+        w = w_rel[r].float()
+        outs.append(x[o:o + c] @ (w.t() if transpose else w))
+        o += c
+    return torch.cat(outs) if outs else x[:0]
+
+
 def scenario_agg_plain(feat, temp, w_rel, lu, lv, rel, num_win: int, groups=None):
     """The kernel's arithmetic in PyTorch: fp32 messages, fp32 sum into temp,
     one rounding to temp's dtype."""
-    n, c = feat.shape
-    ecap = lu.shape[0] // num_win
-    groups = _groups(groups, w_rel.shape[0])
-    lu_f, lv_f, rel_f = lu.reshape(-1).long(), lv.reshape(-1).long(), rel.reshape(-1).long()
-    ok = _applied(lu_f, rel_f, num_win, groups)
-    base = torch.arange(num_win, device=feat.device).repeat_interleave(ecap) * (n // num_win)
-    sel = ok.nonzero().squeeze(1)
-    src = feat[(base + lv_f)[sel]].float()
-    r_sel = rel_f[sel]
-    msg = torch.zeros(sel.shape[0], c, dtype=torch.float32, device=feat.device)
-    for r in range(w_rel.shape[0]):
-        m = (r_sel == r).nonzero().squeeze(1)
-        if m.numel():
-            msg[m] = src[m] @ w_rel[r].float()
-    out = temp.to(torch.float32, copy=True).index_add_(0, (base + lu_f)[sel], msg)
+    n = feat.shape[0]
+    u, v, counts = plan_edges(lu, lv, rel, num_win, n // num_win, groups, w_rel.shape[0])
+    k = sum(counts)
+    msg = _per_relation(feat[v[:k]].float(), w_rel, counts)
+    out = temp.to(torch.float32, copy=True).index_add_(0, u[:k], msg)
     return out.to(temp.dtype)
 
 
@@ -98,22 +125,17 @@ def scenario_agg_bwd_plain(feat, w_rel, lu, lv, rel, num_win: int, groups, g):
     r), dfeat[v] += g[u] @ W_rᵀ (fp32 sums, one rounding to feat's dtype)
     and dW_r += feat[v]ᵀ g[u] (fp32). Returns (dfeat, dW_rel [R, 128, 128])."""
     n, c = feat.shape
-    ecap = lu.shape[0] // num_win
-    groups = _groups(groups, w_rel.shape[0])
-    lu_f, lv_f, rel_f = lu.reshape(-1).long(), lv.reshape(-1).long(), rel.reshape(-1).long()
-    ok = _applied(lu_f, rel_f, num_win, groups)
-    base = torch.arange(num_win, device=feat.device).repeat_interleave(ecap) * (n // num_win)
-    sel = ok.nonzero().squeeze(1)
-    u, v, r_sel = (base + lu_f)[sel], (base + lv_f)[sel], rel_f[sel]
+    u, v, counts = plan_edges(lu, lv, rel, num_win, n // num_win, groups, w_rel.shape[0])
+    k = sum(counts)
+    u, v = u[:k], v[:k]
     d_msg = g.to(feat.dtype)[u].float()
     gath = feat[v].float()
-    d_gath = torch.zeros_like(gath)
     dw = torch.zeros(w_rel.shape, dtype=torch.float32, device=feat.device)
-    for r in range(w_rel.shape[0]):
-        m = (r_sel == r).nonzero().squeeze(1)
-        if m.numel():
-            dw[r] = gath[m].t() @ d_msg[m]
-            d_gath[m] = d_msg[m] @ w_rel[r].float().t()
+    o = 0
+    for r, cnt in enumerate(counts):
+        dw[r] = gath[o:o + cnt].t() @ d_msg[o:o + cnt]
+        o += cnt
+    d_gath = _per_relation(d_msg, w_rel, counts, transpose=True)
     dfeat = torch.zeros(n, c, dtype=torch.float32, device=feat.device).index_add_(0, v, d_gath)
     return dfeat.to(feat.dtype), dw
 

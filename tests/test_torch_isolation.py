@@ -46,6 +46,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "lanegcn_tpu_torch.ops.win_edge", "lanegcn_tpu_torch.ops.row_tail",
                  "lanegcn_tpu_torch.ops.pair_agg", "lanegcn_tpu_torch.ops.edge_mlp",
                  "lanegcn_tpu_torch.ops.window_scatter", "lanegcn_tpu_torch.ops.scatter",
+                 "lanegcn_tpu_torch.ops.segment_sum",
                  "lanegcn_tpu_torch.data.packing", "lanegcn_tpu_torch.data.packing_roi",
                  "lanegcn_tpu_torch.data.lane_roi", "lanegcn_tpu_torch.models.lanercnn",
                  "lanegcn_tpu_torch.models.registry",
@@ -53,6 +54,21 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "lanegcn_tpu_torch.utils.weights"):
         assert name in res["modules"], name
     assert res["banned"] == [], res["banned"]
+
+
+def test_gpu_scripts_import_no_jax():
+    """chip_smoke.py and tree_profile.py, beside every port module, import
+    neither JAX nor the JAX package."""
+    probe = _PROBE + """
+import chip_smoke, tree_profile
+banned = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "lanegcn_tpu"))
+print(json.dumps({"banned": banned}))
+"""
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"banned": []}
 
 
 @pytest.fixture
