@@ -9,8 +9,9 @@ the other tree ("old", where it has that kernel) are built side by side
 with the same nvcc flags. Both run through this checkout's wrappers (the
 C interfaces must match) on the same inputs, captured from one bf16 eval
 forward and one bf16 train step of the geometry that runs the kernel:
-win_edge on windowed_pack_config(256), edge_mlp on
-contiguous_pack_config(32). Each call shape (A2M, M2A, A2A) of the forward
+win_edge and lane_layer on windowed_pack_config(256), edge_mlp on
+contiguous_pack_config(32), lane_plan on the merged geometry and band_conv
+on the unfused one (chip_smoke.py GEOMETRIES). Each call shape (A2M, M2A, A2A) of the forward
 and of the backward runs once per build (the largest difference between
 the two builds' outputs is printed; `chip_smoke.py` holds each kernel to
 its plain version) and is then timed in ROUNDS rounds, the order of old
@@ -37,7 +38,9 @@ import chip_smoke as cs
 ROUNDS = 8
 # kernel library: (geometry whose forward and train step run it, the
 # forward op's capture name)
-TARGETS = {"win_edge": ("windowed", "win_edge"), "edge_mlp": ("contiguous", "edge_mlp")}
+TARGETS = {"win_edge": ("windowed", "win_edge"), "edge_mlp": ("contiguous", "edge_mlp"),
+           "lane_layer": ("windowed", "lane_layer"), "lane_plan": ("merged", "lane_plan"),
+           "band_conv": ("unfused", "band_conv")}
 
 
 def build_old(old_root: Path, name: str):
@@ -67,7 +70,8 @@ def capture(geom):
     from lanegcn_tpu_torch.train.loop import init_state, make_eval_step, make_train_step
 
     cfg = cs.pack_config(geom, cs.GEOMETRIES[geom]["s"])
-    packs, _, _, _ = cs.make_packs(cfg, 1, cs.GEOMETRIES[geom]["s"], seed0=0)
+    packs, _, _, _ = cs.make_packs(cfg, 1, cs.GEOMETRIES[geom]["s"], seed0=0,
+                                   pack_kw=cs.pack_kwargs(geom))
     batch = PackedBatch.from_numpy(packs[0]).to("cuda")
     net = LaneGCN(cfg.model, dtype=torch.bfloat16, device="cuda", seed=0)
     with cs.forward_capture() as fwd:

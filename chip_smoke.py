@@ -2,7 +2,8 @@
 """Build the port's CUDA kernels and drive its LaneGCN eval and train paths on
 one GPU, on each of the three LaneGCN pack geometries the port serves, then
 its LaneRCNN eval and train paths, then LaneGCN with the window plan inside
-the LaneConv layer kernel.
+the LaneConv layer kernel, with the unfused LaneConv layer, and on packs
+without band masks.
 
     python3 chip_smoke.py            # one card, no arguments
 
@@ -24,6 +25,14 @@ Geometries (lanegcn_tpu_torch/config.py), driven in this order:
               the window plan runs inside the LaneConv layer kernel
               (lane_plan and lane_plan_bwd) in place of lane_layer and
               scenario_agg.
+  unfused     windowed_pack_config(256) with ModelConfig(pallas_bands="off"):
+              the unfused LaneConv layer, band_conv (and band_conv_bwd)
+              then the row tail, in place of lane_layer.
+  flat        flat_pack_config(32) packed with split_bands=False,
+              split_tables=False, scenario_plan=False (the JAX CLI's
+              explicit graph-parallel pack): no band masks, tables or
+              plan; every relation rides the residue lists and each
+              LaneConv layer runs the row tail.
 
 Phases, one JSON line each (tagged with the geometry); any failure raises
 and exits non-zero:
@@ -49,15 +58,17 @@ and exits non-zero:
           lanercnn: lane_layer and scenario_agg at the RoI and global
           shapes, window_scatter (both pool scatters, beside one `index_add`
           call on the same inputs), row_tail2 (its three row counts) and
-          edge_mlp_pool; merged: lane_plan.
+          edge_mlp_pool; merged: lane_plan; unfused: band_conv and
+          row_tail (the LaneConv tails at N rows beside Att's); flat:
+          row_tail (the LaneConv tails).
   kernel_bwd  the same kernels' backwards against their plain backwards on
           the inputs and cotangent one bf16 train step hands them, with a
           rerun that must be bitwise equal (lanercnn: lane_layer_bwd and
           scenario_agg_bwd at the RoI and global shapes, window_scatter_bwd
           beside one `index_select` call, row_tail2_bwd, edge_mlp_pool_bwd;
-          merged: lane_plan_bwd). A few rows whose ReLU pre-activation ties
-          at zero on the plain side (see TIE_EPS) may get a zero cotangent
-          before the comparison.
+          merged: lane_plan_bwd; unfused: band_conv_bwd). A few rows whose
+          ReLU pre-activation ties at zero on the plain side (see TIE_EPS)
+          may get a zero cotangent before the comparison.
   kernel_step  segment_sum on every call shape of that train step (the
           scatters' forwards and the gathers' backwards), fp32 and bf16, a
           bitwise rerun, beside one `index_add` call on the same inputs.
@@ -91,11 +102,12 @@ and exits non-zero:
           loss, every gradient and every parameter after the step bitwise
           equal; then one under torch.use_deterministic_algorithms(True,
           warn_only=True), listing what PyTorch flags as nondeterministic.
-  ab      (merged) the device busy time per serve forward and per train
-          step of the merged layer and of the separate kernels, same packs
-          and weights, profiled in turns (separate, merged, merged,
-          separate).
-Then the `kernels` summary line (all 21 kernels, each from the first
+  ab      (merged, unfused) the device busy time per serve forward and
+          per train step of two settings of one ModelConfig field, same
+          packs and weights, profiled in turns: merged, the separate
+          kernels against the merged layer (merge_plan_agg); unfused, the
+          fused layer against the unfused one (pallas_bands).
+Then the `kernels` summary line (all 23 kernels, each from the first
 geometry that checks it, with the launches of that geometry's serve or
 train run, and under `also_checked` its checks on the later geometries),
 the nvidia-smi name/power-limit line, and last the `ok` line with the
@@ -184,6 +196,10 @@ KERNEL_META = {
                   "lanegcn_tpu/ops/pallas_lane_layer.py:709", ("lane_plan_fwd",)),
     "lane_plan_bwd": ("lanegcn_tpu_torch/csrc/lane_plan.cu",
                       "lanegcn_tpu/ops/pallas_lane_layer.py:771", ("lane_plan_bwd",)),
+    "band_conv": ("lanegcn_tpu_torch/csrc/band_conv.cu",
+                  "lanegcn_tpu/ops/pallas_band_conv.py:131", ("band_conv_fwd",)),
+    "band_conv_bwd": ("lanegcn_tpu_torch/csrc/band_conv.cu",
+                      "lanegcn_tpu/ops/pallas_band_conv.py:153", ("band_conv_bwd",)),
 }
 # Each geometry: its model, its pack config (by name in
 # lanegcn_tpu_torch.config) and ModelConfig fields, the scenarios per pack,
@@ -207,6 +223,16 @@ _MERGED_FWD = {**{k: v for k, v in _WINDOWED_FWD.items() if not k.startswith(_SE
 _MERGED_STEP = {**{k: v for k, v in _WINDOWED_STEP.items() if not k.startswith(_SEPARATE)},
                 "pair_agg_fwd": 8, **_PAIR_BWD, "lane_plan_fwd": 8, "lane_plan_bwd": 8}
 _CONTIGUOUS_FWD = {"lane_layer_fwd": 8, "edge_mlp_fwd": 6, "row_tail_fwd": 6, "segment_sum": 14}
+# pallas_bands="off" on the windowed packs: band_conv and the row tail in
+# place of lane_layer (8 LaneConv tails beside Att's 6).
+_UNFUSED_FWD = {**{k: v for k, v in _WINDOWED_FWD.items() if not k.startswith("lane_layer")},
+                "band_conv_fwd": 8, "row_tail_fwd": 14}
+_UNFUSED_STEP = {**{k: v for k, v in _WINDOWED_STEP.items() if not k.startswith("lane_layer")},
+                 "band_conv_fwd": 8, "band_conv_bwd": 8, "row_tail_fwd": 14, "row_tail_bwd": 14}
+# The flat packs: no bands, no tables, no plan; every relation rides the
+# residue lists (one scatter per layer, and its gather's backward), and
+# the LaneConv tails run as row tails.
+_FLAT_FWD = {"row_tail_fwd": 14, "edge_mlp_fwd": 6, "segment_sum": 14}
 _RCNN_FWD = {"lane_layer_fwd": 12, "scenario_agg_fwd": 12, "window_scatter_fwd": 2,
              "edge_mlp_pool_fwd": 3, "row_tail2_fwd": 3, "segment_sum": 14}
 _RCNN_STEP = {**_RCNN_FWD, "lane_layer_bwd": 12, "scenario_agg_bwd": 12,
@@ -246,7 +272,23 @@ GEOMETRIES = {
     "merged": dict(model="lanegcn", config="bench_pack_config", s=256,
                    model_fields=dict(merge_plan_agg="auto"), kernels=("lane_plan",),
                    step_kernels=("segment_sum",), per_forward=_MERGED_FWD,
-                   per_train_step=_MERGED_STEP),
+                   per_train_step=_MERGED_STEP,
+                   ab=("merge_plan_agg", ("off", "separate"), ("auto", "merged"))),
+    # The windowed packs with the unfused LaneConv layer (pallas_bands="off"):
+    # band_conv, then the row tail; `ab` profiles it beside the fused layer
+    # on the same packs and weights.
+    "unfused": dict(model="lanegcn", config="windowed_pack_config", s=256,
+                    model_fields=dict(pallas_bands="off"), kernels=("band_conv", "row_tail"),
+                    step_kernels=("segment_sum",), per_forward=_UNFUSED_FWD,
+                    per_train_step=_UNFUSED_STEP,
+                    ab=("pallas_bands", ("auto", "fused"), ("off", "unfused"))),
+    # The pack the JAX CLI's explicit graph-parallel path trains on, for
+    # one device: contiguous nodes without band masks, tables or plan.
+    "flat": dict(model="lanegcn", config="flat_pack_config", s=32,
+                 pack_kwargs=dict(split_bands=False, split_tables=False, scenario_plan=False),
+                 kernels=("row_tail",), step_kernels=("segment_sum",), per_forward=_FLAT_FWD,
+                 per_train_step={**_FLAT_FWD, "row_tail_bwd": 14, "edge_mlp_bwd": 6,
+                                 "segment_sum": 34}),
 }
 
 
@@ -260,11 +302,12 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def make_packs(cfg, num_packs: int, s: int, seed0: int, roi: bool = False):
-    """Synthetic urban scenarios packed for LaneGCN (16 actors, pack_batch)
-    or, with roi, for LaneRCNN (12 actors with their LaneRoIs,
-    pack_roi_batch); zero drops of any kind (the RoI pack's global-graph
-    lists included) and no skipped scenario asserted."""
+def make_packs(cfg, num_packs: int, s: int, seed0: int, roi: bool = False, pack_kw=None):
+    """Synthetic urban scenarios packed for LaneGCN (16 actors, pack_batch
+    with the keyword arguments pack_kw) or, with roi, for LaneRCNN (12
+    actors with their LaneRoIs, pack_roi_batch); zero drops of any kind (the
+    RoI pack's global-graph lists included) and no skipped scenario
+    asserted."""
     from lanegcn_tpu_torch.data.packing import pack_batch
     from lanegcn_tpu_torch.data.packing_roi import pack_roi_batch
     from lanegcn_tpu_torch.data.synthetic import make_roi_scenario, make_urban_scenario
@@ -284,7 +327,7 @@ def make_packs(cfg, num_packs: int, s: int, seed0: int, roi: bool = False):
         if roi:
             b, st = pack_roi_batch(part, cfg.roi_pack, cfg.model)
         else:
-            b, st = pack_batch(part, cfg.pack, cfg.model)
+            b, st = pack_batch(part, cfg.pack, cfg.model, **(pack_kw or {}))
         packs.append(b)
         stats.append(st)
     pack_s = time.perf_counter() - t0
@@ -366,6 +409,8 @@ def forward_capture():
 
     return Capture([
         (map_net, "fused_lane_layer", "lane_layer"),
+        (map_net, "band_conv", "band_conv"),
+        (map_net, "fused_row_tail", "row_tail"),
         (map_net, "scenario_aggregate", "scenario_agg"),
         (map_net, "fused_lane_layer_plan", "lane_plan"),
         (map_net, "pair_aggregate", "pair_agg"),
@@ -382,11 +427,12 @@ def backward_capture():
     """The backward kernels' launchers as the autograd Functions call them
     (inputs and cotangent of one train step), and the segment sum as the
     scatters and the gathers' backward call it in that step."""
-    from lanegcn_tpu_torch.ops import edge_mlp, lane_layer, pair_agg, row_tail, scenario_agg
-    from lanegcn_tpu_torch.ops import segment_sum, win_edge, window_scatter
+    from lanegcn_tpu_torch.ops import band_conv, edge_mlp, lane_layer, pair_agg, row_tail
+    from lanegcn_tpu_torch.ops import scenario_agg, segment_sum, win_edge, window_scatter
 
     return Capture([
         (segment_sum, "sorted_segment_sum", "segment_sum"),
+        (band_conv, "band_conv_bwd_cuda", "band_conv_bwd"),
         (lane_layer, "lane_plan_bwd_cuda", "lane_plan_bwd"),
         (lane_layer, "lane_layer_bwd_cuda", "lane_layer_bwd"),
         (scenario_agg, "scenario_agg_bwd_cuda", "scenario_agg_bwd"),
@@ -402,11 +448,12 @@ def backward_capture():
 
 def forward_ops(names):
     """{kernel: (public op, plain version)} for the named forward kernels."""
-    from lanegcn_tpu_torch.ops import edge_mlp, lane_layer, pair_agg, row_tail, scenario_agg
-    from lanegcn_tpu_torch.ops import segment_sum, win_edge, window_scatter
+    from lanegcn_tpu_torch.ops import band_conv, edge_mlp, lane_layer, pair_agg, row_tail
+    from lanegcn_tpu_torch.ops import scenario_agg, segment_sum, win_edge, window_scatter
 
     ops = {
         "lane_layer": (lane_layer.fused_lane_layer, lane_layer.lane_layer_plain),
+        "band_conv": (band_conv.band_conv, band_conv.band_conv_plain),
         "lane_plan": (lane_layer.fused_lane_layer_plan, lane_layer.lane_plan_plain),
         "segment_sum": (segment_sum.sorted_segment_sum, segment_sum.segment_sum_plain),
         "scenario_agg": (scenario_agg.scenario_aggregate, scenario_agg.scenario_agg_plain),
@@ -454,11 +501,12 @@ def library_call(name, a):
 
 def backward_ops(names):
     """{kernel_bwd: (kernel launcher, plain backward)} for the named kernels."""
-    from lanegcn_tpu_torch.ops import edge_mlp, lane_layer, pair_agg, row_tail, scenario_agg
-    from lanegcn_tpu_torch.ops import win_edge, window_scatter
+    from lanegcn_tpu_torch.ops import band_conv, edge_mlp, lane_layer, pair_agg, row_tail
+    from lanegcn_tpu_torch.ops import scenario_agg, win_edge, window_scatter
 
     ops = {
         "lane_layer": (lane_layer.lane_layer_bwd_cuda, lane_layer.lane_layer_bwd_plain),
+        "band_conv": (band_conv.band_conv_bwd_cuda, band_conv.band_conv_bwd_plain),
         "lane_plan": (lane_layer.lane_plan_bwd_cuda, lane_layer.lane_plan_bwd_plain),
         "scenario_agg": (scenario_agg.scenario_agg_bwd_cuda,
                          scenario_agg.scenario_agg_bwd_plain),
@@ -712,11 +760,13 @@ def kernel_phase(phase, geom, ops, calls, counts):
 
 
 def work_of(name, a):
-    from lanegcn_tpu_torch.ops import edge_mlp, lane_layer, pair_agg, row_tail, scenario_agg
-    from lanegcn_tpu_torch.ops import segment_sum, win_edge, window_scatter
+    from lanegcn_tpu_torch.ops import band_conv, edge_mlp, lane_layer, pair_agg, row_tail
+    from lanegcn_tpu_torch.ops import scenario_agg, segment_sum, win_edge, window_scatter
 
     works = {
         "lane_layer": lambda: lane_layer.work(a[0], a[2]),
+        "band_conv": lambda: band_conv.work(a[0], a[1]),
+        "band_conv_bwd": lambda: band_conv.work_bwd(a[0], a[1]),
         "lane_plan": lambda: lane_layer.work_plan(a[0], a[2], a[10], a[12], a[9], a[13],
                                                   a[15] if len(a) > 15 else None),
         "lane_plan_bwd": lambda: lane_layer.work_plan_bwd(a[0], a[2], a[10], a[12], a[9],
@@ -749,6 +799,11 @@ def work_of(name, a):
     return w
 
 
+def pack_kwargs(geom):
+    """The geometry's pack_batch keyword arguments."""
+    return GEOMETRIES[geom].get("pack_kwargs", {})
+
+
 def pack_config(geom, s):
     from lanegcn_tpu_torch import config
 
@@ -767,7 +822,7 @@ def parity_phase(geom):
 
     s = 8
     cfg = pack_config(geom, s)
-    packs, _, _, _ = make_packs(cfg, 1, s, seed0=10_000)
+    packs, _, _, _ = make_packs(cfg, 1, s, seed0=10_000, pack_kw=pack_kwargs(geom))
     batch = PackedBatch.from_numpy(packs[0])
     net_gpu = LaneGCN(cfg.model, dtype=torch.float32, device="cuda", seed=1)
     net_cpu = LaneGCN(cfg.model, dtype=torch.float32, device="cpu", seed=1)
@@ -911,7 +966,8 @@ def train_parity_phase(geom):
     cfg = pack_config(geom, s)
     # The RoI pack is the parity phase's (seeds 20,000-20,007 overflow
     # lanercnn_pack_config(8)'s RoI capacity: one scenario is skipped).
-    packs, _, _, _ = make_packs(cfg, 1, s, seed0=10_000 if roi else 20_000, roi=roi)
+    packs, _, _, _ = make_packs(cfg, 1, s, seed0=10_000 if roi else 20_000, roi=roi,
+                                pack_kw=pack_kwargs(geom))
     batch = (RoiPackedBatch if roi else PackedBatch).from_numpy(packs[0])
     bundle = get_model(family, cfg, device="cuda", seed=2)
     cfg = bundle.config
@@ -1059,7 +1115,7 @@ def drive(geom):
     cfg = pack_config(geom, s)
 
     # --- pack ---
-    packs, stats, gen_s, pack_s = make_packs(cfg, 2, s, seed0=0)
+    packs, stats, gen_s, pack_s = make_packs(cfg, 2, s, seed0=0, pack_kw=pack_kwargs(geom))
     t0 = time.perf_counter()
     batches = [PackedBatch.from_numpy(b).to("cuda") for b in packs]
     torch.cuda.synchronize()
@@ -1105,7 +1161,7 @@ def drive(geom):
     profile_phase("profile_train", geom, lambda b: tstep(b, 0.5), batches[:1])
     rerun_phase(geom, cfg, lambda: LaneGCN(cfg.model, dtype=torch.bfloat16, device="cuda",
                                            seed=0), batches[0], {})
-    if "model_fields" in spec:
+    if "ab" in spec:
         ab_phase(geom, batches)
     return results, serve, train
 
@@ -1172,39 +1228,44 @@ def rerun_phase(geom, cfg, make_net, batch, fns):
 
 
 def ab_phase(geom, batches):
-    """The merged layer against the separate kernels on the same packs and
-    weights: the device busy time per serve forward (both packs) and per
-    train step (one pack), profiled in turns (separate, merged, merged,
-    separate); the separate side is the bench geometry's configuration."""
+    """Two settings of one ModelConfig field (the geometry's `ab`: the
+    field, then the base and the other (value, label)) on the same packs
+    and weights: the device busy time per serve forward (both packs) and
+    per train step (one pack), profiled in turns (base, other, other,
+    base). merged: the separate kernels (the bench geometry's
+    configuration) against the merged layer; unfused: the fused layer (the
+    windowed geometry's) against the unfused one."""
     import dataclasses
 
     import torch
     from lanegcn_tpu_torch.models.lanegcn import LaneGCN
     from lanegcn_tpu_torch.train.loop import init_state, make_eval_step, make_train_step
 
+    field, (base, base_label), (other, label) = GEOMETRIES[geom]["ab"]
     cfg = pack_config(geom, GEOMETRIES[geom]["s"])
     steps = {}
-    for merge in ("off", "auto"):
-        c = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, merge_plan_agg=merge))
+    for value in (base, other):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **{field: value}))
         serve = make_eval_step(c, LaneGCN(c.model, dtype=torch.bfloat16, device="cuda", seed=0))
         net, state = init_state(c, dtype=torch.bfloat16)
         train = make_train_step(c, net, state)
         serve(batches[0])
         train(batches[0], 0.0)
-        steps[merge] = (serve, train)
-    busy = {"off": {"serve": [], "train": []}, "auto": {"serve": [], "train": []}}
-    for merge in ("off", "auto", "auto", "off"):
-        serve, train = steps[merge]
+        steps[value] = (serve, train)
+    busy = {v: {"serve": [], "train": []} for v in (base, other)}
+    for value in (base, other, other, base):
+        serve, train = steps[value]
         for kind, fn, items in (("serve", serve, batches), ("train", lambda b: train(b, 0.5),
                                                              batches[:1])):
-            r = profile_phase(f"ab_{kind}", f"{geom}:{merge}", fn, items, top_n=8)
-            busy[merge][kind].append(r["busy_ms_per_step"])
-    mean = {m: {k: statistics.mean(v) for k, v in d.items()} for m, d in busy.items()}
-    emit({"phase": "ab", "geometry": geom, "order": ["separate", "merged", "merged", "separate"],
-          "busy_ms_separate": busy["off"], "busy_ms_merged": busy["auto"],
-          "serve_busy_ms": {"separate": mean["off"]["serve"], "merged": mean["auto"]["serve"]},
-          "train_busy_ms": {"separate": mean["off"]["train"], "merged": mean["auto"]["train"]},
-          "merged_over_separate": {k: mean["auto"][k] / mean["off"][k] for k in mean["off"]}})
+            r = profile_phase(f"ab_{kind}", f"{geom}:{value}", fn, items, top_n=8)
+            busy[value][kind].append(r["busy_ms_per_step"])
+    mean = {v: {k: statistics.mean(x) for k, x in d.items()} for v, d in busy.items()}
+    emit({"phase": "ab", "geometry": geom, "field": field,
+          "order": [base_label, label, label, base_label],
+          f"busy_ms_{base_label}": busy[base], f"busy_ms_{label}": busy[other],
+          "serve_busy_ms": {base_label: mean[base]["serve"], label: mean[other]["serve"]},
+          "train_busy_ms": {base_label: mean[base]["train"], label: mean[other]["train"]},
+          f"{label}_over_{base_label}": {k: mean[other][k] / mean[base][k] for k in mean[base]}})
 
 
 def train_phase(geom, tstep, batches, results):

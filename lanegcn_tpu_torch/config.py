@@ -28,34 +28,29 @@ class ModelConfig:
     num_fuse_layers: int = 4   # residual LaneConv blocks in MapNet / M2M
     num_att_layers: int = 2    # Att repetitions per fusion stage
     pred_range: Tuple[float, float, float, float] = (-100.0, 100.0, -100.0, 100.0)
-    # Banded LaneConv aggregation backend (ops/pallas_band_conv.py):
-    # "auto" = fused Pallas kernel on TPU, XLA einsum elsewhere;
-    # "on"/"off" force it; "interpret" runs the kernel in interpret mode
-    # (CPU-testable end-to-end). The kernel is single-device — keep "off"
-    # under explicit graph-axis sharding (GSPMD cannot partition it).
+    # The LaneConv layer (models/map_net.py LaneConvStack). "auto", "on" and
+    # "interpret" (the JAX package's names, kept so one config reads in
+    # both) run the fused layer: the band products and the layer tail in one
+    # kernel (ops/lane_layer.py, csrc/lane_layer.cu). "off" runs the
+    # unfused layer: the band sum as its own kernel (ops/band_conv.py,
+    # csrc/band_conv.cu), then the tail as the row tail kernel
+    # (ops/row_tail.py). A pack without band masks (split_bands=False)
+    # always takes the unfused layer. Both layers hold the same parameters.
     pallas_bands: str = "auto"
-    # Fusion-stage edge MLP backend (ops/pallas_edge_mlp.py): same mode
-    # semantics. Fuses the Att/LanePooling per-edge chain (dist MLP + 3-way
-    # add + GN + relu + ctx_out) into one kernel so the [E, C]
-    # intermediates never round-trip HBM.
+    # Kept for configs written for the JAX package, which selects its
+    # fusion edge MLP and window-plan backends with them; the port always
+    # runs its kernels for both (ops/edge_mlp.py, ops/win_edge.py,
+    # ops/scenario_agg.py) and reads neither field.
     pallas_edge: str = "auto"
-    # Scenario-blocked overflow aggregation backend
-    # (ops/pallas_scenario_agg.py): consumes the packer's scenario edge plan
-    # (PackConfig.node_stride + max_plan_edges) and replaces the
-    # gather + per-relation matmul + XLA scatter per LaneConv layer with
-    # one-hot MXU matmuls per scenario. "auto" = Pallas on TPU, XLA
-    # reference elsewhere; "on"/"interpret"/"off" force.
     scenario_agg: str = "auto"
-    # Merge the scenario plan INTO the fused LaneConv layer kernel
-    # (ops/pallas_lane_layer.fused_lane_layer_plan) when the node tile can
-    # equal the window stride. A/B'd on TPU v5e (round 5): the merge saves
-    # 2.5 GB/step of window round-trips but measures 1.3% SLOWER than the
-    # separate kernels (130.3 vs 128.7 ms) — the layer part drops from
-    # 1024-row to 768-row tiles (272 grid steps vs 204) and the in-kernel
-    # plan serializes with the band matmuls, costing more than the saved
-    # traffic. Default "off"; "auto" enables when geometry allows
-    # (stride >= 512, plan cap a chunk multiple) — parity pinned by
-    # tests/test_pallas_kernels.py::test_plan_merged_layer_matches_separate_kernels.
+    # Run the window plan's aggregate inside the fused LaneConv layer kernel
+    # (ops/lane_layer.fused_lane_layer_plan, csrc/lane_plan.cu) when the
+    # node tile can be the window stride (stride >= 512, the plan's slots
+    # per window a chunk multiple); "off" runs scenario_agg and the layer
+    # kernel apart. On an NVIDIA H100 80GB HBM3 at 700 W the merged layer
+    # took 0.939 of the separate kernels' device busy time per serve
+    # forward and 0.977 per train step (PERF.md, chip_smoke.py `ab`). The
+    # default stays "off", as in the JAX package.
     merge_plan_agg: str = "off"
 
     @property
@@ -333,6 +328,18 @@ def contiguous_pack_config(b: int) -> PackConfig:
         max_m2a_edges=1024 * b,
         max_a2a_edges=384 * b,
     )
+
+
+def flat_pack_config(b: int) -> PackConfig:
+    """The flat geometry: `contiguous_pack_config(b)` for packs built with
+    pack_batch(split_bands=False, split_tables=False, scenario_plan=False),
+    as the JAX package's CLI packs for its explicit graph-parallel path
+    (lanegcn_tpu/cli.py `_pack_and_partition`). Without tables left/right
+    ride the residue lists whole, so their lists hold 512·b slots (at the
+    tabled layout's 256·b, 32 urban scenarios drop 20-40 % of them,
+    tests/test_torch_band_conv.py); the other capacities are
+    contiguous_pack_config's."""
+    return dataclasses.replace(contiguous_pack_config(b), max_edges_lr=512 * b)
 
 
 def lanercnn_pack_config(s: int) -> RoiPackConfig:

@@ -1,15 +1,20 @@
 // The band part and the row tail of the fused LaneConv layer, shared by
-// lane_layer.cu (the layer alone) and lane_plan.cu (the layer with the window
-// plan's aggregate inside it). Per 64-row tile of node rows u:
+// lane_layer.cu (the layer alone), lane_plan.cu (the layer with the window
+// plan's aggregate inside it) and band_conv.cu (the band sum alone, the
+// unfused layer's). Per 64-row tile of node rows u:
 //
 //   forward   acc  = pre + Σ_{j<J} band_j[u] · feat[u + s_j] @ Wb_j   (|s_j| ≤ 32, rows
-//                                                                      outside [0,N) read 0)
+//                                                                      outside [0,N) read 0;
+//                                                                      no pre: 0)
 //             out  = relu(GN2(relu(GN1(temp)) @ W2) + feat)            (layer_tail, from T_s)
-//   backward  acc  = d_y[p] + Σ_j band_j[p − s_j] · d_temp[p − s_j] @ Wb_jᵀ
+//   backward  acc  = d_y[p] + Σ_j band_j[p − s_j] · d_temp[p − s_j] @ Wb_jᵀ   (no d_y: 0)
 //             dWb_j = Σ_u (band_j[u] · feat[u + s_j])ᵀ rnd(d_temp[u])   (band_dw_kernel)
 //
+// d_temp is the fp32 d_temp of the layer kernels' row pass, or band_conv's
+// cotangent in the activation dtype (the template parameter D).
+//
 // A tile block holds its 64 rows plus a ±32-row halo of feat (forward) or of
-// the fp32 d_temp (backward) in shared memory once, and reuses it for all J
+// d_temp (backward) in shared memory once, and reuses it for all J
 // shifted products; the products run on CUDA cores in fp32 (mm_64x128).
 #pragma once
 
@@ -49,8 +54,21 @@ __device__ __forceinline__ void load_halo(float* S_s, const S* src, long tile0, 
   }
 }
 
+// dst rows tile0 + mm_row(i) (those below n) = acc, rounded to T.
+template <typename T>
+__device__ __forceinline__ void store_rows(T* dst, const float acc[4][8], long tile0, int n) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long g = tile0 + mm_row(i);
+    if (g < n) {
+      store4<T>(dst + g * C + mm_col(0), make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+      store4<T>(dst + g * C + mm_col(4), make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
+    }
+  }
+}
+
 // acc = pre + Σ_j band_j[u] · X_s[u + s_j] @ Wb_j over the tile's rows (X_s:
-// the feat halo tile, loaded; W_s: [C][C] scratch).
+// the feat halo tile, loaded; W_s: [C][C] scratch; pre may be null).
 template <typename T>
 __device__ __forceinline__ void band_fwd(const float* X_s, float* W_s, const T* pre,
                                          const uint8_t* masks, const T* wb, long tile0, int n,
@@ -59,7 +77,8 @@ __device__ __forceinline__ void band_fwd(const float* X_s, float* W_s, const T* 
   for (int i = 0; i < 4; ++i) {
     const long g = tile0 + mm_row(i);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = (g < n) ? to_f<T>(pre[g * C + mm_col(j)]) : 0.f;
+    for (int j = 0; j < 8; ++j)
+      acc[i][j] = (pre && g < n) ? to_f<T>(pre[g * C + mm_col(j)]) : 0.f;
   }
   for (int j = 0; j < nj; ++j) {
     __syncthreads();  // previous product done with W_s (and X_s loaded)
@@ -117,7 +136,8 @@ __device__ __forceinline__ void layer_tail(const float* X_s, float* T_s, float* 
 }
 
 // acc = d_y[p] + Σ_j band_j[p − s_j] · d_temp[p − s_j] @ Wb_jᵀ over the tile's
-// rows p (D_s: the fp32 d_temp halo tile, loaded; W_s: [C][C] scratch).
+// rows p (D_s: the d_temp halo tile in fp32, loaded; W_s: [C][C] scratch; dy
+// may be null).
 template <typename T>
 __device__ __forceinline__ void band_t(const float* D_s, float* W_s, const float* dy,
                                        const uint8_t* masks, const T* wb, long tile0, int n,
@@ -126,7 +146,7 @@ __device__ __forceinline__ void band_t(const float* D_s, float* W_s, const float
   for (int i = 0; i < 4; ++i) {
     const long g = tile0 + mm_row(i);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = (g < n) ? dy[g * C + mm_col(j)] : 0.f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = (dy && g < n) ? dy[g * C + mm_col(j)] : 0.f;
   }
   for (int j = 0; j < nj; ++j) {
     __syncthreads();  // the previous product is done with W_s (and D_s is loaded)
@@ -142,11 +162,43 @@ __device__ __forceinline__ void band_t(const float* D_s, float* W_s, const float
   }
 }
 
+// Band pass: dx[p] = d_y[p] + Σ_j band_j[p − s_j] · d_temp[p − s_j] @ Wb_jᵀ
+// (rows p − s_j outside [0, n) give 0), stored in T. A block owns 64 rows p
+// and loads the d_temp rows p − HALO .. p + TM + HALO − 1 once for all J
+// products.
+template <typename T, typename D>
+__global__ void __launch_bounds__(NT)
+band_t_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
+              const uint8_t* __restrict__ masks, const T* __restrict__ wb, T* __restrict__ dx,
+              int n, int nj, Shifts sh) {
+  extern __shared__ float4 smem4[];
+  float* D_s = reinterpret_cast<float*>(smem4);  // [TM + 2*HALO][LDA]
+  float* W_s = D_s + HALO_TILE;                  // [C][C] Wb_jᵀ
+  const long tile0 = (long)blockIdx.x * TM;
+
+  load_halo<D>(D_s, dtemp, tile0, n);
+  float acc[4][8];
+  band_t<T>(D_s, W_s, dy, masks, wb, tile0, n, nj, sh, acc);
+  store_rows<T>(dx, acc, tile0, n);
+}
+
+template <typename T, typename D>
+int launch_band_t(const D* dtemp, const float* dy, const uint8_t* masks, const T* wb, T* dx,
+                  int n, int nj, const Shifts& sh, cudaStream_t stream) {
+  const int ntiles = (n + TM - 1) / TM;
+  const int smem = (HALO_TILE + C * C) * (int)sizeof(float);
+  cudaError_t e = set_smem((const void*)band_t_kernel<T, D>, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (ntiles > 0)
+    band_t_kernel<T, D><<<ntiles, NT, smem, stream>>>(dtemp, dy, masks, wb, dx, n, nj, sh);
+  return (int)cudaGetLastError();
+}
+
 // dWb pass: block (p, j) sums (band_j[u] · feat[u + s_j])ᵀ rnd(d_temp[u]) over
 // the tiles p, p + splits, ... and writes its partial part[p][j] [C][C].
-template <typename T>
+template <typename T, typename D>
 __global__ void __launch_bounds__(NT)
-band_dw_kernel(const T* __restrict__ feat, const float* __restrict__ dtemp,
+band_dw_kernel(const T* __restrict__ feat, const D* __restrict__ dtemp,
                const uint8_t* __restrict__ masks, float* __restrict__ part, int n, int nj,
                Shifts sh) {
   extern __shared__ float4 smem4[];
@@ -163,7 +215,7 @@ band_dw_kernel(const T* __restrict__ feat, const float* __restrict__ dtemp,
       const long u = (long)tile * TM + r;
       float4 a = zero4(), b = zero4();
       if (u < n) {
-        b = rnd4<T>(*reinterpret_cast<const float4*>(dtemp + u * C + c4));
+        b = rnd4<T>(load4<D>(dtemp + u * C + c4));
         const long v = u + s;
         if (v >= 0 && v < n && masks[(long)j * n + u]) a = load4<T>(feat + v * C + c4);
       }
@@ -178,15 +230,15 @@ band_dw_kernel(const T* __restrict__ feat, const float* __restrict__ dtemp,
 
 // The dWb pass on `splits` x nj blocks, then its partials summed in split
 // order into dwb [nj, C, C].
-template <typename T>
-int launch_band_dw(const T* feat, const float* dtemp, const uint8_t* masks, float* part,
+template <typename T, typename D>
+int launch_band_dw(const T* feat, const D* dtemp, const uint8_t* masks, float* part,
                    float* dwb, int n, int nj, const Shifts& sh, int splits, cudaStream_t stream) {
   const int smem = 2 * TM * LDA * (int)sizeof(float);
-  cudaError_t e = set_smem((const void*)band_dw_kernel<T>, smem);
+  cudaError_t e = set_smem((const void*)band_dw_kernel<T, D>, smem);
   if (e != cudaSuccess) return (int)e;
   if (nj > 0 && splits > 0) {
-    band_dw_kernel<T><<<dim3(splits, nj), NT, smem, stream>>>(feat, dtemp, masks, part, n, nj,
-                                                               sh);
+    band_dw_kernel<T, D><<<dim3(splits, nj), NT, smem, stream>>>(feat, dtemp, masks, part, n,
+                                                                  nj, sh);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

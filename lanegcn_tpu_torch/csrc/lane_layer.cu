@@ -86,32 +86,6 @@ int launch(const void* feat, const void* pre, const uint8_t* masks, const void* 
   return (int)cudaGetLastError();
 }
 
-// Band pass: dx[p] = d_y[p] + Σ_j band_j[p − s_j] · d_temp[p − s_j] @ Wb_jᵀ
-// (rows p − s_j outside [0, n) give 0). A block owns 64 rows p and loads the
-// fp32 d_temp rows p − HALO .. p + TM + HALO − 1 once for all J products.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-band_t_kernel(const float* __restrict__ dtemp, const float* __restrict__ dy,
-              const uint8_t* __restrict__ masks, const T* __restrict__ wb, T* __restrict__ dx,
-              int n, int nj, Shifts sh) {
-  extern __shared__ float4 smem4[];
-  float* D_s = reinterpret_cast<float*>(smem4);  // [TM + 2*HALO][LDA]
-  float* W_s = D_s + HALO_TILE;                  // [C][C] Wb_jᵀ
-  const long tile0 = (long)blockIdx.x * TM;
-
-  load_halo<float>(D_s, dtemp, tile0, n);
-  float acc[4][8];
-  band_t<T>(D_s, W_s, dy, masks, wb, tile0, n, nj, sh, acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long g = tile0 + mm_row(i);
-    if (g < n) {
-      store4<T>(dx + g * C + mm_col(0), make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-      store4<T>(dx + g * C + mm_col(4), make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
-    }
-  }
-}
-
 template <typename T>
 int launch_bwd(const T* feat, const float* temp, const uint8_t* masks, const T* wb,
                const T* w2, const float* g1w, const float* g1b, const float* g2w,
@@ -122,15 +96,8 @@ int launch_bwd(const T* feat, const float* temp, const uint8_t* masks, const T* 
                                       dtemp, dy, part_tail, grads_tail, n, tail_blocks, eps,
                                       stream);
   if (err != 0) return err;
-  const int ntiles = (n + TM - 1) / TM;
-  const int smem_t = (HALO_TILE + C * C) * (int)sizeof(float);
-  cudaError_t e = set_smem((const void*)band_t_kernel<T>, smem_t);
-  if (e != cudaSuccess) return (int)e;
-  if (ntiles > 0) {
-    band_t_kernel<T><<<ntiles, NT, smem_t, stream>>>(dtemp, dy, masks, wb, dx, n, nj, sh);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
+  err = launch_band_t<T, float>(dtemp, dy, masks, wb, dx, n, nj, sh, stream);
+  if (err != 0) return err;
   return launch_band_dw<T>(feat, dtemp, masks, part_band, dwb, n, nj, sh, splits, stream);
 }
 

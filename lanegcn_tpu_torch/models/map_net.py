@@ -7,6 +7,9 @@ Per node u and layer:
 
 The port runs the JAX package's formulation, in its order, for whatever
 the pack carries:
+- the intra-lane band edges (v = u + 2^s, the pack's band masks): in the
+  unfused layer (`ModelConfig(pallas_bands="off")`) the `band_conv` kernel
+  adds them into temp; in the fused one, the layer kernel below;
 - the neighbour tables (left/right of the contiguous layout): one stacked
   row gather (`masked_gather`, which computes what the JAX package's
   `stacked_table_gather` does) and one relation-contracting einsum;
@@ -14,20 +17,24 @@ the pack carries:
   per-relation matmul → one scatter_add, both in an order sorted once per
   call (ops/scatter.py) and shared by the layers;
 - the window plan's edges (both endpoints in one node window): the
-  `scenario_agg` kernel, or, with `ModelConfig.merge_plan_agg` and a node
-  window that can be the layer's tile (`merge_plan`), inside the layer
-  kernel (`lane_plan`); a plan that is not group-aligned raises
-  (`check_plan_groups`) instead of losing edges;
+  `scenario_agg` kernel, or, in the fused layer with
+  `ModelConfig.merge_plan_agg` and a node window that can be the layer's
+  tile (`merge_plan`), inside the layer kernel (`lane_plan`); a plan that
+  is not group-aligned raises (`check_plan_groups`) instead of losing
+  edges;
 - the spill plan (the window plan's residue as (dst-window, src-window)
   chunk pairs): the `pair_agg` kernel;
-- the intra-lane band edges (v = u + 2^s, the pack's band masks) and the
-  whole layer tail: the fused `lane_layer` kernel (`lane_plan` when
-  merged).
+- the layer tail relu(GN(temp)) → Linear → + res → relu: in the fused
+  layer (`pallas_bands` "auto", "on" or "interpret", with band masks) the
+  `lane_layer` kernel computes the band products and the tail together
+  (`lane_plan` when merged); in the unfused layer (`pallas_bands="off"`,
+  or a pack without band masks, `split_bands=False`) the `row_tail` kernel
+  computes the tail.
 
 One stack serves every node space: MapNet's and M2M's lane graph, and
 LaneRCNN's RoI subgraphs and global graph (the stack takes the relation
-fields, not a pack). Packs without band masks (split_bands=False) are not
-ported yet and raise NotImplementedError.
+fields, not a pack). Both layers hold the same parameters, so one state
+dict loads into either.
 """
 
 from __future__ import annotations
@@ -40,8 +47,10 @@ from torch import nn
 from lanegcn_tpu_torch.config import ModelConfig, band_shift, relation_names
 from lanegcn_tpu_torch.graph import EdgeSet, LaneGraphBatch, PairPlan
 from lanegcn_tpu_torch.models.layers import Dense, GroupNorm, Linear
+from lanegcn_tpu_torch.ops.band_conv import band_conv
 from lanegcn_tpu_torch.ops.lane_layer import fused_lane_layer, fused_lane_layer_plan
 from lanegcn_tpu_torch.ops.pair_agg import pair_aggregate
+from lanegcn_tpu_torch.ops.row_tail import fused_row_tail
 from lanegcn_tpu_torch.ops.scatter import masked_gather, order_by, scatter_add, table_order
 from lanegcn_tpu_torch.ops.scenario_agg import _CHUNK as PLAN_CHUNK
 from lanegcn_tpu_torch.ops.scenario_agg import GROUPED_MIN_CAP, plan_applied, scenario_aggregate
@@ -79,16 +88,16 @@ class LaneConvStack(nn.ModuleDict):
         their inverse `table_inv`, when the pack has one), the window plan
         (lu, lv, rel, windows) and the spill plan, as a pack carries them
         (`graph_inputs` for a LaneGraphBatch)."""
-        if not bands:
-            raise NotImplementedError("packs without band masks are not ported yet")
         dt = self.dtype
         fuse = self
         names = self.names
         num_nodes = feat.shape[0]
-        band_rel = [(r, nm) for r, nm in enumerate(names) if nm in bands]
+        band_rel = [(r, nm) for r, nm in enumerate(names) if bands and nm in bands]
         shifts = [band_shift(nm) for _, nm in band_rel]
-        band_masks = torch.stack([bands[nm] for _, nm in band_rel], 0).contiguous()
         band_idx = [r for r, _ in band_rel]
+        if band_rel:
+            band_masks = torch.stack([bands[nm] for _, nm in band_rel], 0).contiguous()
+        fused = bool(band_rel) and self.cfg.pallas_bands != "off"
         grad = torch.is_grad_enabled()
 
         groups, merge = None, False
@@ -96,7 +105,7 @@ class LaneConvStack(nn.ModuleDict):
             plan_lu, plan_lv, plan_rel, num_win = plan
             groups = plan_groups(names, plan_lu.shape[0] // num_win)
             check_plan_groups(plan_lu, plan_rel, num_win, groups, len(names))
-            merge = merge_plan(self.cfg, num_nodes, plan_lu.shape[0], num_win)
+            merge = fused and merge_plan(self.cfg, num_nodes, plan_lu.shape[0], num_win)
 
         tbl_rel = [r for r, nm in enumerate(names) if tables and nm in tables]
         if tbl_rel:
@@ -121,6 +130,10 @@ class LaneConvStack(nn.ModuleDict):
             temp = fuse["ctr"][i](feat)
             # Stacked relation kernel [R, C, C] in (in, out) layout.
             w_rel = torch.stack([fuse[nm][i].kernel for nm in names], 0)
+            w_dt = w_rel.to(dt).contiguous()
+            if band_rel and not fused:
+                temp = temp + band_conv(feat.to(dt).contiguous(), band_masks,
+                                        w_dt[band_idx].contiguous(), shifts)
             if tbl_rel:
                 # temp[u] += Σ_r feat[tables[r, u]] @ W_r over the tabled relations.
                 xg = masked_gather(feat, tbl_stack, tbl_mask, tbl_order)
@@ -128,7 +141,6 @@ class LaneConvStack(nn.ModuleDict):
             rows = masked_gather(feat, edge_v, edge_m, src).to(dt).split(caps)
             msgs = torch.cat([x @ w_rel[r].to(dt) for r, x in enumerate(rows)])
             temp = scatter_add(msgs, edge_u, num_nodes, mask=edge_m, out=temp, order=dst)
-            w_dt = w_rel.to(dt).contiguous()
             if plan is not None and not merge:
                 temp = scenario_aggregate(
                     feat.to(dt).contiguous(), temp.to(dt).contiguous(), w_dt,
@@ -138,14 +150,19 @@ class LaneConvStack(nn.ModuleDict):
                 temp = pair_aggregate(feat.to(dt).contiguous(), temp.to(dt).contiguous(), w_dt,
                                       spill)
             norm, ctr2 = fuse["norm"][i], fuse["ctr2"][i]
-            layer = (feat.to(dt).contiguous(), temp.to(dt).contiguous(), band_masks,
-                     w_dt[band_idx].contiguous(), ctr2.linear.kernel.to(dt).contiguous(),
-                     norm.weight, norm.bias, ctr2.norm.weight, ctr2.norm.bias)
-            if merge:
-                feat = fused_lane_layer_plan(*layer, w_dt, plan_lu, plan_lv, plan_rel, num_win,
-                                             shifts, groups)
+            if fused:
+                layer = (feat.to(dt).contiguous(), temp.to(dt).contiguous(), band_masks,
+                         w_dt[band_idx].contiguous(), ctr2.linear.kernel.to(dt).contiguous(),
+                         norm.weight, norm.bias, ctr2.norm.weight, ctr2.norm.bias)
+                if merge:
+                    feat = fused_lane_layer_plan(*layer, w_dt, plan_lu, plan_lv, plan_rel,
+                                                 num_win, shifts, groups)
+                else:
+                    feat = fused_lane_layer(*layer, shifts)
             else:
-                feat = fused_lane_layer(*layer, shifts)
+                feat = fused_row_tail(temp.to(dt).contiguous(), feat.to(dt).contiguous(),
+                                      ctr2.linear.kernel, norm.weight, norm.bias,
+                                      ctr2.norm.weight, ctr2.norm.bias)
         return feat
 
 
@@ -170,8 +187,9 @@ def check_plan_groups(lu, rel, num_win: int, groups, num_rel: int) -> None:
 
 def merge_plan(cfg: ModelConfig, num_nodes: int, plan_slots: int, num_win: int) -> bool:
     """Whether the window plan runs inside the layer kernel
-    (`fused_lane_layer_plan`): the config asks for it and the node tile can
-    be the window stride (the JAX package's gate, models/map_net.py)."""
+    (`fused_lane_layer_plan`), when the layer is the fused one: the config
+    asks for it and the node tile can be the window stride (the JAX
+    package's gate, models/map_net.py)."""
     stride = num_nodes // num_win
     return (cfg.merge_plan_agg != "off" and num_nodes % num_win == 0 and stride % 128 == 0
             and stride >= 512 and plan_slots % num_win == 0

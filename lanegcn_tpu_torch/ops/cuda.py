@@ -11,8 +11,8 @@ raises when that is not 0, so a refused launch never passes silently.
 
 `LAUNCHES` counts launches per C entry point (`lane_layer_fwd`,
 `lane_layer_bwd`, ..., `window_scatter_bwd`, `segment_sum`, `lane_plan_fwd`,
-`lane_plan_bwd`): `call` adds one where it launches the entry, and nothing
-else does. An entry may run several kernels (a backward's passes and its
+`lane_plan_bwd`, `band_conv_fwd`, `band_conv_bwd`): `call` adds one where
+it launches the entry, and nothing else does. An entry may run several kernels (a backward's passes and its
 partial-sum reductions); it counts once per call.
 """
 
@@ -40,6 +40,7 @@ ENTRIES = {
     "window_scatter": ("window_scatter_fwd", "window_scatter_bwd"),
     "segment_sum": ("segment_sum",),
     "lane_plan": ("lane_plan_fwd", "lane_plan_bwd"),
+    "band_conv": ("band_conv_fwd", "band_conv_bwd"),
 }
 
 KERNELS = tuple(ENTRIES)

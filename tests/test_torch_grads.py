@@ -28,7 +28,7 @@ from lanegcn_tpu.ops.pallas_win_edge import win_edge_mlp as jax_win_edge
 
 from lanegcn_tpu_torch.data.packing import window_chunked_edges
 from lanegcn_tpu_torch.graph import PairPlan
-from lanegcn_tpu_torch.ops import edge_mlp, lane_layer, row_tail, scenario_agg, win_edge
+from lanegcn_tpu_torch.ops import band_conv, edge_mlp, lane_layer, row_tail, scenario_agg, win_edge
 from lanegcn_tpu_torch.ops import window_scatter
 
 C = 128
@@ -264,7 +264,8 @@ def test_public_ops_backprop_through_their_function(monkeypatch):
     for mod, name in ((row_tail, "row_tail_bwd_plain"), (lane_layer, "lane_layer_bwd_plain"),
                       (scenario_agg, "scenario_agg_bwd_plain"), (win_edge, "win_edge_bwd_plain"),
                       (window_scatter, "window_scatter_bwd_plain"),
-                      (row_tail, "row_tail2_bwd_plain"), (edge_mlp, "edge_mlp_pool_bwd_plain")):
+                      (row_tail, "row_tail2_bwd_plain"), (edge_mlp, "edge_mlp_pool_bwd_plain"),
+                      (band_conv, "band_conv_bwd_plain")):
         counted(mod, name)
     t = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).requires_grad_(True)
     gn = [torch.ones(C), torch.zeros(C), torch.ones(C), torch.zeros(C)]
@@ -274,6 +275,8 @@ def test_public_ops_backprop_through_their_function(monkeypatch):
             t(64, C), t(64, C), torch.ones(2, 64, dtype=torch.bool), t(2, C, C), t(C, C), *gn,
             (1, -2)),
     }
+    outs["band_conv_bwd_plain"] = band_conv.band_conv(
+        t(64, C), torch.ones(2, 64, dtype=torch.bool), t(2, C, C), (1, -2))
     arrays, plan, _ = _plan_case(16, 2, 256, 256, False, [20, 3])
     feat, temp, w_rel = (torch.from_numpy(a).requires_grad_(True) for a in arrays)
     outs["scenario_agg_bwd_plain"] = scenario_agg.scenario_aggregate(
@@ -298,7 +301,8 @@ def test_public_ops_backprop_through_their_function(monkeypatch):
                  "win_edge_bwd_plain": "_WinEdgeBackward",
                  "window_scatter_bwd_plain": "_WindowScatterBackward",
                  "row_tail2_bwd_plain": "_RowTail2Backward",
-                 "edge_mlp_pool_bwd_plain": "_EdgeMlpPoolBackward"}
+                 "edge_mlp_pool_bwd_plain": "_EdgeMlpPoolBackward",
+                 "band_conv_bwd_plain": "_BandConvBackward"}
     for name, out in outs.items():
         assert type(out.grad_fn).__name__ == functions[name], (name, out.grad_fn)
         out.sum().backward()

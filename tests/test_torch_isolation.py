@@ -46,7 +46,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "lanegcn_tpu_torch.ops.win_edge", "lanegcn_tpu_torch.ops.row_tail",
                  "lanegcn_tpu_torch.ops.pair_agg", "lanegcn_tpu_torch.ops.edge_mlp",
                  "lanegcn_tpu_torch.ops.window_scatter", "lanegcn_tpu_torch.ops.scatter",
-                 "lanegcn_tpu_torch.ops.segment_sum",
+                 "lanegcn_tpu_torch.ops.segment_sum", "lanegcn_tpu_torch.ops.band_conv",
                  "lanegcn_tpu_torch.data.packing", "lanegcn_tpu_torch.data.packing_roi",
                  "lanegcn_tpu_torch.data.lane_roi", "lanegcn_tpu_torch.models.lanercnn",
                  "lanegcn_tpu_torch.models.registry",
