@@ -2,7 +2,7 @@
 """Time two builds of the port's CUDA kernels against each other on one GPU.
 
     git archive <commit> | tar -x -C build/ab_old     # the other tree
-    python3 chip_ab.py build/ab_old [kernel ...]       # default: win_edge edge_mlp
+    python3 chip_ab.py build/ab_old [kernel ...]       # default: every target
 
 For each named kernel library, the sources of this checkout ("new") and of
 the other tree ("old", where it has that kernel) are built side by side
@@ -11,11 +11,19 @@ C interfaces must match) on the same inputs, captured from one bf16 eval
 forward and one bf16 train step of the geometry that runs the kernel:
 win_edge and lane_layer on windowed_pack_config(256), edge_mlp on
 contiguous_pack_config(32), lane_plan on the merged geometry and band_conv
-on the unfused one (chip_smoke.py GEOMETRIES). Each call shape (A2M, M2A, A2A) of the forward
-and of the backward runs once per build (the largest difference between
-the two builds' outputs is printed; `chip_smoke.py` holds each kernel to
-its plain version) and is then timed in ROUNDS rounds, the order of old
-and new alternating from round to round; each round's time is a median of 25 runs (CUDA events). A kernel
+on the unfused one (chip_smoke.py GEOMETRIES); segment_sum on every call
+shape of one bf16 train step (the scatters' forwards and the gathers'
+backwards) of the windowed, LaneRCNN and flat geometries. Each call shape
+(A2M, M2A, A2A) of the forward and of the backward runs once per build (the
+largest difference between the two builds' outputs is printed;
+`chip_smoke.py` holds each kernel to its plain version) and is then timed
+in ROUNDS rounds, the order of old and new alternating from round to round:
+each round the wrapper and, beside it, its bare C entries (`bare_ms`), each
+a median of 25 runs (CUDA events).
+Then each build's device time per call of every CUDA kernel it launches
+(a backward's passes and partial sums) is read from torch.profiler, and
+the host time of one call (the wrapper and its launches) from the host
+clock. A kernel
 only this checkout has is timed alone in the same rounds, so its spread
 shows the noise within the call.
 
@@ -36,11 +44,12 @@ from pathlib import Path
 import chip_smoke as cs
 
 ROUNDS = 8
-# kernel library: (geometry whose forward and train step run it, the
+# kernel library: (geometries whose forward and train step run it, the
 # forward op's capture name)
-TARGETS = {"win_edge": ("windowed", "win_edge"), "edge_mlp": ("contiguous", "edge_mlp"),
-           "lane_layer": ("windowed", "lane_layer"), "lane_plan": ("merged", "lane_plan"),
-           "band_conv": ("unfused", "band_conv")}
+TARGETS = {"win_edge": (("windowed",), "win_edge"), "edge_mlp": (("contiguous",), "edge_mlp"),
+           "lane_layer": (("windowed",), "lane_layer"), "lane_plan": (("merged",), "lane_plan"),
+           "band_conv": (("unfused",), "band_conv"),
+           "segment_sum": (("windowed", "lanercnn", "flat"), "segment_sum")}
 
 
 def build_old(old_root: Path, name: str):
@@ -61,24 +70,98 @@ def build_old(old_root: Path, name: str):
     return ctypes.CDLL(str(out))
 
 
+def bare_ms(fn, runs: int = 25) -> float:
+    """CUDA-event time of the C entries that one call of the wrapper `fn`
+    launches, without the wrapper: each entry is timed alone (median of
+    `runs`, uncounted) inside that call, on the arguments and tensors the
+    wrapper made for it, then launched as usual. The wrapper's time less
+    this one is what its host path adds."""
+    from lanegcn_tpu_torch.ops import cuda
+
+    launch, times = cuda.call, []
+
+    def timed(name, entry, *args):
+        c_fn = getattr(cuda.lib(name), entry)
+        if c_fn.argtypes is None:
+            c_fn.argtypes = [type(x) for x in args]
+            c_fn.restype = ctypes.c_int
+        times.append(cs.time_ms(lambda: c_fn(*args), runs))
+        return launch(name, entry, *args)
+
+    cuda.call = timed
+    try:
+        fn()
+    finally:
+        cuda.call = launch
+    return sum(times)
+
+
+def device_ms_by_kernel(fn, calls: int = 5) -> dict:
+    """Device time per call of each CUDA kernel that fn launches
+    (torch.profiler over `calls` calls after one warm call), by kernel
+    name (cut to 60 characters), largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name[:60]] = by.get(e.name[:60], 0.0) + (e.time_range.end - e.time_range.start)
+    return {k: v / 1e3 / calls for k, v in sorted(by.items(), key=lambda kv: -kv[1])}
+
+
+def host_ms(fn, runs: int = 25) -> float:
+    """Median host time of one call of fn (the wrapper's Python and the
+    launches, without waiting for the device), the device drained before
+    each call."""
+    import torch
+
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def capture(geom):
     """(forward calls, backward calls) of one eval forward and one train step
     at bf16, keyed by kernel then by input shapes."""
     import torch
-    from lanegcn_tpu_torch.graph import PackedBatch
+    from lanegcn_tpu_torch.graph import PackedBatch, RoiPackedBatch
     from lanegcn_tpu_torch.models.lanegcn import LaneGCN
+    from lanegcn_tpu_torch.models.registry import get_model
     from lanegcn_tpu_torch.train.loop import init_state, make_eval_step, make_train_step
 
-    cfg = cs.pack_config(geom, cs.GEOMETRIES[geom]["s"])
-    packs, _, _, _ = cs.make_packs(cfg, 1, cs.GEOMETRIES[geom]["s"], seed0=0,
+    spec = cs.GEOMETRIES[geom]
+    cfg = cs.pack_config(geom, spec["s"])
+    roi = spec["model"] == "lanercnn"
+    packs, _, _, _ = cs.make_packs(cfg, 1, spec["s"], seed0=0, roi=roi,
                                    pack_kw=cs.pack_kwargs(geom))
-    batch = PackedBatch.from_numpy(packs[0]).to("cuda")
-    net = LaneGCN(cfg.model, dtype=torch.bfloat16, device="cuda", seed=0)
+    if roi:
+        batch = RoiPackedBatch.from_numpy(packs[0]).to("cuda")
+        bundle = get_model("lanercnn", cfg, dtype=torch.bfloat16, seed=0)
+        fns = dict(loss_fn=bundle.loss_fn, metrics_fn=bundle.metrics_fn)
+        net, tcfg = bundle.net, bundle.config
+        net_t, state = init_state(tcfg, net=get_model("lanercnn", cfg, dtype=torch.bfloat16,
+                                                      seed=0).net)
+    else:
+        batch = PackedBatch.from_numpy(packs[0]).to("cuda")
+        fns, tcfg = {}, cfg
+        net = LaneGCN(cfg.model, dtype=torch.bfloat16, device="cuda", seed=0)
+        net_t, state = init_state(cfg, dtype=torch.bfloat16)
     with cs.forward_capture() as fwd:
-        make_eval_step(cfg, net)(batch)
-    net_t, state = init_state(cfg, dtype=torch.bfloat16)
+        make_eval_step(cfg, net, **fns)(batch)
     with cs.backward_capture() as bwd:
-        make_train_step(cfg, net_t, state)(batch, 0.0)
+        make_train_step(tcfg, net_t, state, **fns)(batch, 0.0)
     torch.cuda.synchronize()
     return fwd.calls, bwd.calls
 
@@ -103,17 +186,26 @@ def main() -> None:
     cs.emit({"phase": "build", "seconds": time.perf_counter() - t0,
              "old_present": {n: v["old"] is not None for n, v in libs.items()}})
 
-    for name in names:
-        geom, fwd_name = TARGETS[name]
+    for name, geom in [(n, g) for n in names for g in TARGETS[n][0]]:
+        fwd_name = TARGETS[name][1]
         fwd_calls, bwd_calls = capture(geom)
-        ops = {**cs.forward_ops([fwd_name]), **cs.backward_ops([fwd_name])}
-        calls = {fwd_name: fwd_calls[fwd_name], f"{fwd_name}_bwd": bwd_calls[f"{fwd_name}_bwd"]}
+        if name == "segment_sum":  # the train step's calls: scatters and gathers' backwards
+            ops, calls = cs.forward_ops([name]), {name: bwd_calls[name]}
+        else:
+            ops = {**cs.forward_ops([fwd_name]), **cs.backward_ops([fwd_name])}
+            calls = {fwd_name: fwd_calls[fwd_name],
+                     f"{fwd_name}_bwd": bwd_calls[f"{fwd_name}_bwd"]}
         versions = [v for v in ("old", "new") if libs[name][v] is not None]
         for kname, (fn, _) in ops.items():
             for ci, (key, args) in enumerate(calls[kname].items()):
                 a = cs.cast_args(args, torch.bfloat16)
                 res = {"phase": "ab", "kernel": kname, "geometry": geom, "call": ci,
                        "rows": key[0][0], "gpu": smi}
+                if kname == "segment_sum":
+                    res["rows"] = a[2]
+                    res["edges_kept"] = int((a[1] < a[2]).sum())
+                    res["edge_slots"] = a[0].shape[0]
+                    res["with_out"] = len(a) > 3 and a[3] is not None
                 outs = {}
                 for v in versions:
                     cuda._LIBS[name] = libs[name][v]
@@ -125,10 +217,14 @@ def main() -> None:
                         for x, y in zip(outs["old"], outs["new"]))
                 del outs
                 samples = {v: [] for v in versions}
+                bare = {v: [] for v in versions}
                 for r in range(ROUNDS):
                     for v in (versions if r % 2 == 0 else versions[::-1]):
                         cuda._LIBS[name] = libs[name][v]
                         samples[v].append(cs.time_ms(lambda: fn(*a)))
+                        bare[v].append(bare_ms(lambda: fn(*a)))
+                for v in versions:
+                    res[f"{v}_bare_ms_median"] = statistics.median(bare[v])
                 for v in versions:
                     res[f"{v}_ms_median"] = statistics.median(samples[v])
                     res[f"{v}_ms_min"] = min(samples[v])
@@ -136,6 +232,10 @@ def main() -> None:
                     res[f"{v}_ms_rounds"] = samples[v]
                 if len(versions) == 2:
                     res["new_over_old"] = res["new_ms_median"] / res["old_ms_median"]
+                for v in versions:  # device time of each pass (CUDA kernel) per call
+                    cuda._LIBS[name] = libs[name][v]
+                    res[f"{v}_device_ms_by_kernel"] = device_ms_by_kernel(lambda: fn(*a))
+                    res[f"{v}_host_ms"] = host_ms(lambda: fn(*a))
                 cs.emit(res)
         cuda._LIBS[name] = libs[name]["new"]
         del fwd_calls, bwd_calls, calls

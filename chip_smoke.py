@@ -66,12 +66,20 @@ and exits non-zero:
           rerun that must be bitwise equal (lanercnn: lane_layer_bwd and
           scenario_agg_bwd at the RoI and global shapes, window_scatter_bwd
           beside one `index_select` call, row_tail2_bwd, edge_mlp_pool_bwd;
-          merged: lane_plan_bwd; unfused: band_conv_bwd). A few rows whose
+          merged: lane_plan_bwd; unfused: band_conv_bwd), and
+          lane_layer_bwd, band_conv_bwd and row_tail_bwd again on their
+          largest call cut to 1,000 and 20,000 rows (`RAGGED_ROWS`: no
+          multiple of their tensor-core passes' row blocks). A few rows whose
           ReLU pre-activation ties at zero on the plain side (see TIE_EPS)
           may get a zero cotangent before the comparison.
   kernel_step  segment_sum on every call shape of that train step (the
           scatters' forwards and the gathers' backwards), fp32 and bf16, a
-          bitwise rerun, beside one `index_add` call on the same inputs.
+          bitwise rerun, beside one `index_add` call on the same inputs; on
+          the windowed geometry also the edge cases of its block partition
+          (`SEGMENT_CASES`: a run longer than a block's rows, runs across
+          block boundaries, every edge dropped, no edges, a row count that
+          is no multiple of the block's, rows of 6 channels, 128-row
+          blocks), each with and without `out`.
   parity  the full float32 forward + loss on the card (kernels) against the
           same on the CPU (plain versions), 8 scenarios of the geometry,
           same weights; on lanercnn the segmented-NMS picks must be equal,
@@ -126,6 +134,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -1166,13 +1176,85 @@ def drive(geom):
     return results, serve, train
 
 
+# segment_sum's edge cases (name, num_segments, seg, channels): the kernel's
+# blocks own 32 destination rows each below 32,768 rows and 128 from there
+# ("128-row-blocks"), and take 16-byte chunks where a row allows them.
+SEGMENT_CASES = (
+    ("long-run", 700, lambda rng: np.sort(np.concatenate([np.full(600, 5),
+                                                          rng.integers(0, 700, 301)])), 128),
+    ("across-blocks", 1000, lambda rng: np.concatenate([np.sort(rng.integers(250, 270, 502)),
+                                                        np.full(20, 1000)]), 128),
+    ("all-dropped", 300, lambda rng: np.array([300] * 50 + [305] * 5), 128),
+    ("no-edges", 301, lambda rng: np.zeros(0, np.int64), 128),
+    ("ragged-rows", 777, lambda rng: np.sort(rng.integers(0, 790, 2003)), 128),
+    ("6-channels", 300, lambda rng: np.sort(rng.integers(0, 300, 907)), 6),
+    ("128-row-blocks", 40003, lambda rng: np.sort(np.concatenate([
+        rng.integers(120, 140, 500), np.full(300, 20000), rng.integers(0, 40010, 2000)])), 128),
+)
+
+
+def segment_case_calls():
+    """{shapes: args} and {shapes: 0} of SEGMENT_CASES, with and without
+    out, bf16 on the card (kernel_phase casts them to fp32 too)."""
+    import torch
+
+    rng = np.random.default_rng(11)
+    calls, counts = {}, {}
+    for _, n, make, c in SEGMENT_CASES:
+        seg = torch.as_tensor(make(rng).astype(np.int64), device="cuda")
+        data = torch.as_tensor(rng.normal(size=(seg.shape[0], c)), dtype=torch.bfloat16,
+                               device="cuda")
+        out = torch.as_tensor(rng.normal(size=(n, c)), dtype=torch.bfloat16, device="cuda")
+        for args in ([data, seg, n], [data, seg, n, out]):
+            key = tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+            calls[key], counts[key] = args, 0
+    return calls, counts
+
+
+# Row counts that are no multiple of the tensor-core backward passes' row
+# blocks (192 rows in the band passes, 128 in the row pass), so that their
+# partial tiles run: the row guards and the zeroed halo and mask rows.
+RAGGED_ROWS = (1000, 20000)
+RAGGED_BWD = ("lane_layer_bwd", "band_conv_bwd", "row_tail_bwd")
+
+
+def ragged_calls(calls):
+    """{kernel: {shapes: args}}: each RAGGED_BWD kernel's captured call with
+    the most rows cut to each of RAGGED_ROWS rows (every [N, ...] tensor to
+    its first n rows, every [J, N] band mask to its first n columns)."""
+    import torch
+
+    cut = {}
+    for name in RAGGED_BWD:
+        if not calls.get(name):
+            continue
+        args = max(calls[name].values(), key=lambda a: a[0].shape[0])
+        big = args[0].shape[0]
+        cut[name] = {}
+        for n in (n for n in RAGGED_ROWS if n < big):
+            part = [a if not isinstance(a, torch.Tensor)
+                    else a[:n].clone() if a.shape[0] == big
+                    else a[:, :n].contiguous() if a.dim() == 2 and a.shape[1] == big
+                    else a for a in args]
+            cut[name][tuple(tuple(a.shape) for a in part if isinstance(a, torch.Tensor))] = part
+    return cut
+
+
 def step_kernel_phases(geom, cap):
     """kernel_bwd (the backward kernels on one train step's inputs and
-    cotangents) and kernel_step (the geometry's step_kernels on that step's
-    calls) from one backward_capture."""
+    cotangents, and RAGGED_BWD's calls cut to RAGGED_ROWS) and kernel_step
+    (the geometry's step_kernels on that step's calls, and SEGMENT_CASES on
+    the windowed geometry) from one backward_capture."""
     spec = GEOMETRIES[geom]
+    for name, calls in ragged_calls(cap.calls).items():
+        cap.calls[name].update(calls)
+        cap.counts[name].update(dict.fromkeys(calls, 0))
     results = kernel_phase("kernel_bwd", geom, backward_ops(spec["kernels"]), cap.calls,
                            cap.counts)
+    if geom == "windowed":
+        calls, counts = segment_case_calls()
+        cap.calls["segment_sum"].update(calls)
+        cap.counts["segment_sum"].update(counts)
     results.update(kernel_phase("kernel_step", geom, forward_ops(spec["step_kernels"]),
                                 cap.calls, cap.counts))
     return results

@@ -12,6 +12,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace lgk {
 
@@ -371,5 +372,217 @@ inline cudaError_t reduce_partials(const float* part, float* out, int np, long m
   reduce_partials_kernel<<<(unsigned)blocks, threads, 0, stream>>>(part, out, np, m);
   return cudaGetLastError();
 }
+
+
+// ---------------------------------------------------------------------------
+// Tensor-core products (bf16 operands, fp32 accumulators), for the bf16
+// instantiations of the backward passes. A warpgroup (4 warps, 128 threads)
+// issues `wgmma.mma_async` m64n128k16: a 64-row tile of A against a
+// [16 x 128] slice of B, summed into 64 fp32 registers per thread. B, and A
+// where it is not in registers, is read from shared memory through a
+// descriptor, in wgmma's layout without swizzle: the matrix is cut into 8 x 8
+// core matrices, each 8 rows of 16 bytes (8 consecutive columns) held in 128
+// contiguous bytes; `Tiles` names where each core matrix sits. The same
+// copy of a matrix serves as a K-major operand (K along its columns) and as
+// an MN-major one (K along its rows): only the descriptor differs. The fp32
+// instantiations keep the CUDA-core products above: wgmma has no fp32
+// operands (TF32 would round them), and the fp32 path is what the parity
+// checks hold to the CPU.
+namespace tc {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// A bf16 matrix of 8 x 8 core matrices in shared memory: core matrix
+// (rb, cb) (rows 8rb.., columns 8cb..) at addr + rb*rs + cb*cs bytes.
+struct Tiles {
+  uint32_t addr, rs, cs;
+};
+
+// Core-tiled [rows x 128] bf16 matrix: row blocks 128 bytes apart, column
+// blocks one column of row blocks plus 16 bytes apart (so that a warp
+// storing one row's 128 columns, 8 bytes a lane, hits every bank once per
+// 128 bytes).
+__host__ __device__ constexpr uint32_t tiles_cs(int rows) { return rows / 8 * 128 + 16; }
+__host__ __device__ constexpr int tiles_bytes(int rows) { return 16 * (int)tiles_cs(rows); }
+__device__ __forceinline__ Tiles tiles(const void* p, int rows) {
+  return Tiles{smem_u32(p), 128u, tiles_cs(rows)};
+}
+// Byte offset of element (r, c) within its Tiles.
+__device__ __forceinline__ uint32_t tile_off(const Tiles& t, int r, int c) {
+  return (r >> 3) * t.rs + (c >> 3) * t.cs + (r & 7) * 16 + (c & 7) * 2;
+}
+
+// Descriptor of the operand slice for k step ks (K = 16ks .. 16ks+15) and
+// the 64 (A) or 128 (B) rows of M/N from mn0. k_cols: K runs along the
+// matrix's columns (K-major); else along its rows (MN-major). Without
+// swizzle, LBO is the byte stride between core matrices along K and SBO
+// along M/N.
+__device__ __forceinline__ uint64_t desc(const Tiles& t, bool k_cols, int ks, int mn0) {
+  uint32_t addr, lbo, sbo;
+  if (k_cols) {
+    addr = t.addr + (mn0 >> 3) * t.rs + 2 * ks * t.cs;
+    lbo = t.cs;
+    sbo = t.rs;
+  } else {
+    addr = t.addr + (mn0 >> 3) * t.cs + 2 * ks * t.rs;
+    lbo = t.rs;
+    sbo = t.cs;
+  }
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// Shared-memory writes made by the threads visible to wgmma's reads (the
+// async proxy); every writer calls it before the barrier that precedes the
+// products.
+__device__ __forceinline__ void fence_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accumulator registers across the
+// asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A B for one k step, A and B from shared memory; TA/TB: 1 where the
+// operand is MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d += A B for one k step, A in registers (the m16n8k16 A fragment of the
+// warp's 16 rows), B from shared memory.
+template <int TB>
+__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+// acc (this warpgroup's 64 rows of M from m0) += A B over K = 16*KS, both
+// operands from shared memory (a_kcols / b_kcols: K along the columns);
+// issued and committed, not waited for.
+template <int KS, bool A_KCOLS, bool B_KCOLS>
+__device__ __forceinline__ void mm(float (&acc)[64], const Tiles& a, int m0, const Tiles& b) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    mma_ss<A_KCOLS ? 0 : 1, B_KCOLS ? 0 : 1>(acc, desc(a, A_KCOLS, ks, m0),
+                                             desc(b, B_KCOLS, ks, 0));
+}
+
+// Row (0..63 of the warpgroup's tile) and column of accumulator element i.
+__device__ __forceinline__ int acc_row(int i) {
+  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) + ((i & 2) << 2);
+}
+__device__ __forceinline__ int acc_col(int i) { return (i >> 2) * 8 + (threadIdx.x & 3) * 2 + (i & 1); }
+
+__device__ __forceinline__ void zero(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+}
+
+// The A fragment (rows row0 .. row0+15, K = k0 .. k0+15) of a row-major bf16
+// tile with row stride ld elements (16-byte aligned rows), at any row offset.
+__device__ __forceinline__ void ldm_a(uint32_t (&a)[4], const bf16* tile, int ld, int row0,
+                                      int k0) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t p = smem_u32(tile + (row0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(p));
+}
+
+// 8 bf16 of one 16-byte chunk from 8 floats (round to nearest even).
+__device__ __forceinline__ uint4 pack8(float4 a, float4 b) {
+  uint4 u;
+  __nv_bfloat162 h[4] = {__floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
+                         __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
+  memcpy(&u, h, 16);
+  return u;
+}
+
+// Four floats as 4 bf16 (8 bytes) at byte offset off of a shared matrix.
+__device__ __forceinline__ void st_bf4(uint8_t* base, uint32_t off, float4 v) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(base + off);
+  q[0] = __floats2bfloat162_rn(v.x, v.y);
+  q[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
+// A [128 x 128] bf16 matrix (row-major in device memory) into core tiles
+// `t` at shared pointer dst: 8 neighbouring threads fill one core matrix.
+__device__ __forceinline__ void load_tiles_128(uint8_t* dst, const Tiles& t, const bf16* src) {
+  for (int i = threadIdx.x; i < C * C / 8; i += NT) {
+    const int r = ((i >> 7) << 3) + (i & 7), cb = (i >> 3) & 15;
+    *reinterpret_cast<uint4*>(dst + tile_off(t, r, cb * 8)) =
+        *reinterpret_cast<const uint4*>(src + r * C + cb * 8);
+  }
+}
+
+}  // namespace tc
 
 }  // namespace lgk

@@ -13,9 +13,22 @@
 // d_temp is the fp32 d_temp of the layer kernels' row pass, or band_conv's
 // cotangent in the activation dtype (the template parameter D).
 //
-// A tile block holds its 64 rows plus a ±32-row halo of feat (forward) or of
+// A tile block holds its rows plus a ±32-row halo of feat (forward) or of
 // d_temp (backward) in shared memory once, and reuses it for all J
-// shifted products; the products run on CUDA cores in fp32 (mm_64x128).
+// shifted products. What bounds both directions is the products (12 band
+// products per masked row, ~57 GFLOP a pass at the 256-scenario pack,
+// against ~160-320 MB moved), so they belong on the tensor cores.
+//
+// The forward (band_fwd, and lane_plan.cu's band_t inside its plan tile)
+// and every fp32 instantiation run the products on CUDA cores in fp32
+// (mm_64x128 / mm_tn on 64-row tiles): the fp32 path is what the parity
+// checks hold to the CPU, and wgmma has no fp32 operands. The bf16
+// backward passes run on wgmma (common.cuh `tc`): band_t_tc_kernel (dx,
+// 192-row blocks of three warpgroups, A through registers at the shifted
+// rows, fp32 d_temp split into bf16 hi + lo) and band_dw_tc_kernel (dWb,
+// both operands MN-major from a cp.async ring of shared core tiles);
+// tail_bwd.cuh's row pass likewise. The forwards are later work on the
+// same helper.
 #pragma once
 
 #include "tail_bwd.cuh"
@@ -182,19 +195,202 @@ band_t_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
   store_rows<T>(dx, acc, tile0, n);
 }
 
+// The bf16 dx pass on tensor cores. A block of DX_WGS = 3 warpgroups owns
+// DX_ROWS = 192 rows p (warpgroup g: rows 64g .. 64g+63) and holds the
+// cotangent rows p − HALO .. p + DX_ROWS + HALO − 1 once, as a row-major
+// bf16 halo tile. The shifts (±1 .. ±32) put the A operand of relation j
+// at row offset HALO − s_j of that tile, which no shared-memory descriptor
+// can address (its rows come in aligned 8-row core matrices), so A goes
+// through registers: `ldmatrix` at any row offset from the padded tile
+// (272-byte rows: 8 rows of one 16-byte column hit 8 distinct bank
+// groups), the fragment's rows zeroed where band_j[p − s_j] is 0, then
+// wgmma's register-A form against Wb_jᵀ, which is Wb_j K-major in core
+// tiles. A warpgroup skips a relation none of its rows has. The Wb_j
+// stream through two shared buffers by cp.async, j + 1 loading while j
+// multiplies (one barrier per relation); three warpgroups share each
+// weight load and each halo row. fp32 d_temp (lane_layer's) is split into
+// bf16 hi and lo = rnd(d_temp − hi) and both go through the product into
+// one fp32 accumulator: the operand then carries ~16 bits, where one
+// rounding to bf16 would carry 8 and sit outside the fp32 plain backward's
+// tolerance. A bf16 cotangent (band_conv's) is exact in hi alone.
+constexpr int DX_WGS = 3;                      // warpgroups per block
+constexpr int DX_THREADS = 128 * DX_WGS;
+constexpr int DX_ROWS = 64 * DX_WGS;           // output rows per block
+constexpr int DX_HROWS = DX_ROWS + 2 * HALO;   // halo tile rows
+constexpr int DX_HLD = C + 8;                  // halo tile row stride (elements)
+
+template <typename D>
+inline int band_t_tc_smem() {
+  const int halves = std::is_same<D, float>::value ? 2 : 1;
+  return halves * DX_HROWS * DX_HLD * (int)sizeof(bf16) + 2 * tc::tiles_bytes(C) +
+         MAXJ * DX_HROWS;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(tc::smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Wb_j (row-major [C][C] bf16) into core tiles by cp.async, one commit group.
+__device__ __forceinline__ void prefetch_weight(uint8_t* dst, const tc::Tiles& t,
+                                                const bf16* src) {
+  for (int i = threadIdx.x; i < C * C / 8; i += blockDim.x) {
+    const int r = ((i >> 7) << 3) + (i & 7), cb = (i >> 3) & 15;
+    cp_async16(dst + tc::tile_off(t, r, cb * 8), src + r * C + cb * 8);
+  }
+  cp_async_commit();
+}
+
+template <typename D>
+__global__ void __launch_bounds__(DX_THREADS, 1)
+band_t_tc_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
+                 const uint8_t* __restrict__ masks, const bf16* __restrict__ wb,
+                 bf16* __restrict__ dx, int n, int nj, Shifts sh) {
+  constexpr bool SPLIT = std::is_same<D, float>::value;
+  extern __shared__ float4 smem4[];
+  bf16* Hi_s = reinterpret_cast<bf16*>(smem4);        // [DX_HROWS][DX_HLD] hi
+  bf16* Lo_s = Hi_s + DX_HROWS * DX_HLD;              // lo (SPLIT only)
+  uint8_t* W_b = reinterpret_cast<uint8_t*>(Hi_s + (SPLIT ? 2 : 1) * DX_HROWS * DX_HLD);
+  uint8_t* M_s = W_b + 2 * tc::tiles_bytes(C);        // [MAXJ][DX_HROWS] band masks
+  __shared__ uint8_t act_s[MAXJ][DX_WGS];             // relation j in warpgroup g's rows
+  const tc::Tiles Wt = tc::tiles(W_b, C);  // the strides of both weight buffers
+  const long tile0 = (long)blockIdx.x * DX_ROWS;
+  const int lane = threadIdx.x & 31, wg = threadIdx.x >> 7, wr = (threadIdx.x >> 5) & 3;
+
+  if (nj > 0) prefetch_weight(W_b, Wt, wb);
+  // The halo tile: hi (and lo) of rows tile0 − HALO + r, zero outside [0, n),
+  // HALO_BATCH loads in flight per thread.
+  constexpr int HALO_BATCH = 8, HALO_ITEMS = DX_HROWS * (C / 4);
+  for (int i0 = threadIdx.x; i0 < HALO_ITEMS; i0 += HALO_BATCH * DX_THREADS) {
+    float4 v[HALO_BATCH];
+#pragma unroll
+    for (int k = 0; k < HALO_BATCH; ++k) {
+      const int idx = i0 + k * DX_THREADS, r = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
+      const long gr = tile0 - HALO + r;
+      v[k] = (idx < HALO_ITEMS && gr >= 0 && gr < n) ? load4<D>(dtemp + gr * C + c4) : zero4();
+    }
+#pragma unroll
+    for (int k = 0; k < HALO_BATCH; ++k) {
+      const int idx = i0 + k * DX_THREADS, r = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
+      if (idx >= HALO_ITEMS) break;
+      __nv_bfloat162* hp = reinterpret_cast<__nv_bfloat162*>(Hi_s + r * DX_HLD + c4);
+      hp[0] = __floats2bfloat162_rn(v[k].x, v[k].y);
+      hp[1] = __floats2bfloat162_rn(v[k].z, v[k].w);
+      if (SPLIT) {
+        const float2 h0 = __bfloat1622float2(hp[0]), h1 = __bfloat1622float2(hp[1]);
+        __nv_bfloat162* lp = reinterpret_cast<__nv_bfloat162*>(Lo_s + r * DX_HLD + c4);
+        lp[0] = __floats2bfloat162_rn(v[k].x - h0.x, v[k].y - h0.y);
+        lp[1] = __floats2bfloat162_rn(v[k].z - h1.x, v[k].w - h1.y);
+      }
+    }
+  }
+  constexpr int MASK_PER = (MAXJ * DX_HROWS + DX_THREADS - 1) / DX_THREADS;
+#pragma unroll
+  for (int k = 0; k < MASK_PER; ++k) {
+    const int idx = threadIdx.x + k * DX_THREADS;
+    if (idx < nj * DX_HROWS) {
+      const int j = idx / DX_HROWS, r = idx % DX_HROWS;
+      const long gr = tile0 - HALO + r;
+      M_s[idx] = (gr >= 0 && gr < n) ? masks[(long)j * n + gr] : 0;
+    }
+  }
+  __syncthreads();
+  for (int q = threadIdx.x >> 5; q < DX_WGS * nj; q += DX_THREADS / 32) {
+    const int j = q / DX_WGS, w = q % DX_WGS;
+    const uint8_t* m = M_s + j * DX_HROWS + HALO + 64 * w - sh.s[j];
+    const bool any = __any_sync(0xffffffffu, (m[lane] | m[lane + 32]) != 0);
+    if (lane == 0) act_s[j][w] = any;
+  }
+
+  // acc = d_y (or 0) at this thread's rows and columns.
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const long gr = tile0 + 64 * wg + tc::acc_row(i);
+    float2 v = make_float2(0.f, 0.f);
+    if (dy && gr < n) v = *reinterpret_cast<const float2*>(dy + gr * C + tc::acc_col(i));
+    acc[i] = v.x;
+    acc[i + 1] = v.y;
+  }
+  const int row0 = 64 * wg + 16 * wr;  // this warp's first output row in the tile
+  const int g8 = (lane >> 2);           // the fragment's rows row0 + g8, row0 + g8 + 8
+  for (int j = 0; j < nj; ++j) {
+    cp_async_wait<0>();  // Wb_j, the one group in flight
+    tc::fence_smem();
+    // Wb_j (and, at j = 0, the halo, masks and flags) in place for every
+    // thread, and every warpgroup done with j − 1, whose buffer Wb_{j+1}
+    // now takes.
+    __syncthreads();
+    if (j + 1 < nj)
+      prefetch_weight(W_b + ((j + 1) & 1) * tc::tiles_bytes(C), Wt, wb + (long)(j + 1) * C * C);
+    if (act_s[j][wg]) {
+      const int hr = HALO + row0 - sh.s[j];  // halo row of the warp's first A row
+      const bool m0 = M_s[j * DX_HROWS + hr + g8] != 0;
+      const bool m1 = M_s[j * DX_HROWS + hr + g8 + 8] != 0;
+      uint32_t ahi[C / 16][4], alo[SPLIT ? C / 16 : 1][4];
+#pragma unroll
+      for (int ks = 0; ks < C / 16; ++ks) {
+        tc::ldm_a(ahi[ks], Hi_s, DX_HLD, hr, ks * 16);
+        if (!m0) ahi[ks][0] = ahi[ks][2] = 0u;
+        if (!m1) ahi[ks][1] = ahi[ks][3] = 0u;
+        if constexpr (SPLIT) {
+          tc::ldm_a(alo[ks], Lo_s, DX_HLD, hr, ks * 16);
+          if (!m0) alo[ks][0] = alo[ks][2] = 0u;
+          if (!m1) alo[ks][1] = alo[ks][3] = 0u;
+        }
+      }
+      const tc::Tiles Wj = tc::tiles(W_b + (j & 1) * tc::tiles_bytes(C), C);
+      tc::fence_acc(acc);
+      tc::fence();
+#pragma unroll
+      for (int ks = 0; ks < C / 16; ++ks) {
+        const uint64_t db = tc::desc(Wj, true, ks, 0);
+        tc::mma_rs<0>(acc, ahi[ks], db);
+        if constexpr (SPLIT) tc::mma_rs<0>(acc, alo[ks], db);
+      }
+      tc::commit();
+      tc::wait_all();
+      tc::fence_acc(acc);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const long gr = tile0 + 64 * wg + tc::acc_row(i);
+    if (gr < n)
+      *reinterpret_cast<__nv_bfloat162*>(dx + gr * C + tc::acc_col(i)) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
+}
+
 template <typename T, typename D>
 int launch_band_t(const D* dtemp, const float* dy, const uint8_t* masks, const T* wb, T* dx,
                   int n, int nj, const Shifts& sh, cudaStream_t stream) {
-  const int ntiles = (n + TM - 1) / TM;
-  const int smem = (HALO_TILE + C * C) * (int)sizeof(float);
-  cudaError_t e = set_smem((const void*)band_t_kernel<T, D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (ntiles > 0)
-    band_t_kernel<T, D><<<ntiles, NT, smem, stream>>>(dtemp, dy, masks, wb, dx, n, nj, sh);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int smem = band_t_tc_smem<D>();
+    cudaError_t e = set_smem((const void*)band_t_tc_kernel<D>, smem);
+    if (e != cudaSuccess) return (int)e;
+    const int ntiles = (n + DX_ROWS - 1) / DX_ROWS;
+    if (ntiles > 0)
+      band_t_tc_kernel<D><<<ntiles, DX_THREADS, smem, stream>>>(dtemp, dy, masks, wb, dx, n, nj,
+                                                                 sh);
+  } else {
+    const int ntiles = (n + TM - 1) / TM;
+    const int smem = (HALO_TILE + C * C) * (int)sizeof(float);
+    cudaError_t e = set_smem((const void*)band_t_kernel<T, D>, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (ntiles > 0)
+      band_t_kernel<T, D><<<ntiles, NT, smem, stream>>>(dtemp, dy, masks, wb, dx, n, nj, sh);
+  }
   return (int)cudaGetLastError();
 }
 
-// dWb pass: block (p, j) sums (band_j[u] · feat[u + s_j])ᵀ rnd(d_temp[u]) over
+// The fp32 dWb pass: block (p, j) sums (band_j[u] · feat[u + s_j])ᵀ rnd(d_temp[u]) over
 // the tiles p, p + splits, ... and writes its partial part[p][j] [C][C].
 template <typename T, typename D>
 __global__ void __launch_bounds__(NT)
@@ -228,17 +424,129 @@ band_dw_kernel(const T* __restrict__ feat, const D* __restrict__ dtemp,
   store_tn(part + ((long)blockIdx.x * nj + j) * C * C, accW, false);
 }
 
+// The bf16 dWb pass on tensor cores: the same (split, j) blocks and the
+// same sum, dWb_j = Aᵀ B over node rows u, with K running over the rows.
+// Per 64-row stage the block copies A = band_j[u] · feat[u + s_j] and
+// B = rnd(d_temp[u]) (the row pass's dpre, already rounded to bf16) into
+// shared core tiles (u along the rows, channels along the columns: both
+// operands MN-major, which wgmma takes for 16-bit types); warpgroup g owns
+// input channels 64g .. 64g+63 of dWb_j, 64 fp32 accumulators per thread
+// across all of the block's stages. What bounds it is the loads (each of
+// the 12 relations' blocks reads feat and dpre), so the copies are
+// cp.async into a ring of DW_STAGES stages, two stages in flight while the
+// tensor cores work on a third; a row whose band mask is 0 (or whose
+// shifted source falls outside [0, n)) is a zero-filled copy, its mask
+// byte loaded a stage before the copy is issued.
+constexpr int DW_ROWS = 64;   // node rows per stage
+constexpr int DW_STAGES = 3;  // stages in the ring
+
+inline int band_dw_tc_smem() { return DW_STAGES * 2 * tc::tiles_bytes(DW_ROWS); }
+
+// 16 bytes from src, or zeros where bytes is 0 (src then unread).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(tc::smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(NT)
+band_dw_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ dt,
+                  const uint8_t* __restrict__ masks, float* __restrict__ part, int n, int nj,
+                  Shifts sh) {
+  extern __shared__ float4 smem4[];
+  uint8_t* buf = reinterpret_cast<uint8_t*>(smem4);  // [DW_STAGES][A, B] core tiles
+  constexpr int TB = tc::tiles_bytes(DW_ROWS);
+  constexpr int PER = DW_ROWS * C / 8 / NT;  // 16-byte chunks per thread per operand
+  const int j = blockIdx.y, s = sh.s[j], wg = threadIdx.x >> 7;
+  const int ntiles = (n + DW_ROWS - 1) / DW_ROWS, step = gridDim.x;
+  const tc::Tiles t0 = tc::tiles(buf, DW_ROWS);  // offsets are the same in every stage
+
+  // This thread's chunk k of a stage: chunk i = threadIdx.x + k*NT is row
+  // ((i >> 7) << 3) + (i & 7), columns 8 * ((i >> 3) & 15) ...
+  auto row_of = [](int k) {
+    const int i = threadIdx.x + k * NT;
+    return ((i >> 7) << 3) + (i & 7);
+  };
+  auto col_of = [](int k) { return (((threadIdx.x + k * NT) >> 3) & 15) * 8; };
+  uint8_t mk[PER];  // band_j of the rows of the next stage to issue
+  auto load_masks = [&](int tile) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const long u = (long)tile * DW_ROWS + row_of(k);
+      mk[k] = (tile < ntiles && u < n) ? masks[(long)j * n + u] : 0;
+    }
+  };
+  auto issue = [&](int tile, int stage) {  // one commit group, empty past the last tile
+    uint8_t* A_b = buf + stage * 2 * TB;
+    if (tile < ntiles) {
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int r = row_of(k), c = col_of(k);
+        const uint32_t off = tc::tile_off(t0, r, c);
+        const long u = (long)tile * DW_ROWS + r, v = u + s;
+        const bool b_in = u < n, a_in = b_in && mk[k] && v >= 0 && v < n;
+        cp_async16_zfill(A_b + off, a_in ? feat + v * C + c : feat, a_in ? 16 : 0);
+        cp_async16_zfill(A_b + TB + off, b_in ? dt + u * C + c : dt, b_in ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[64];
+  tc::zero(acc);
+  const int first = blockIdx.x;
+  load_masks(first);
+  issue(first, 0);
+  load_masks(first + step);
+  issue(first + step, 1);
+  load_masks(first + 2 * step);
+  for (int k = 0; first + k * step < ntiles; ++k) {
+    cp_async_wait<1>();  // stage k landed (k + 1 may be in flight)
+    tc::fence_smem();
+    // stage k in place for every thread; every warpgroup done with k − 1,
+    // whose buffer stage k + 2 now takes
+    __syncthreads();
+    issue(first + (k + 2) * step, (k + 2) % DW_STAGES);
+    load_masks(first + (k + 3) * step);
+    const int st = k % DW_STAGES;
+    const tc::Tiles A = tc::tiles(buf + st * 2 * TB, DW_ROWS),
+                    B = tc::tiles(buf + st * 2 * TB + TB, DW_ROWS);
+    tc::fence_acc(acc);
+    tc::fence();
+    tc::mm<DW_ROWS / 16, false, false>(acc, A, 64 * wg, B);
+    tc::commit();
+    tc::wait_all();
+    tc::fence_acc(acc);
+  }
+  cp_async_wait<0>();  // no copy lands after the block is gone
+  float* P = part + ((long)blockIdx.x * nj + j) * C * C;
+#pragma unroll
+  for (int i = 0; i < 64; i += 2)
+    *reinterpret_cast<float2*>(P + (64 * wg + tc::acc_row(i)) * C + tc::acc_col(i)) =
+        make_float2(acc[i], acc[i + 1]);
+}
+
 // The dWb pass on `splits` x nj blocks, then its partials summed in split
 // order into dwb [nj, C, C].
 template <typename T, typename D>
 int launch_band_dw(const T* feat, const D* dtemp, const uint8_t* masks, float* part,
                    float* dwb, int n, int nj, const Shifts& sh, int splits, cudaStream_t stream) {
-  const int smem = 2 * TM * LDA * (int)sizeof(float);
-  cudaError_t e = set_smem((const void*)band_dw_kernel<T, D>, smem);
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t e;
   if (nj > 0 && splits > 0) {
-    band_dw_kernel<T, D><<<dim3(splits, nj), NT, smem, stream>>>(feat, dtemp, masks, part, n,
-                                                                  nj, sh);
+    if constexpr (std::is_same<T, bf16>::value) {
+      static_assert(std::is_same<D, bf16>::value, "the bf16 dWb pass reads rnd(d_temp) in bf16");
+      const int smem = band_dw_tc_smem();
+      e = set_smem((const void*)band_dw_tc_kernel, smem);
+      if (e != cudaSuccess) return (int)e;
+      band_dw_tc_kernel<<<dim3(splits, nj), NT, smem, stream>>>(feat, dtemp, masks, part, n, nj,
+                                                                 sh);
+    } else {
+      const int smem = 2 * TM * LDA * (int)sizeof(float);
+      e = set_smem((const void*)band_dw_kernel<T, D>, smem);
+      if (e != cudaSuccess) return (int)e;
+      band_dw_kernel<T, D><<<dim3(splits, nj), NT, smem, stream>>>(feat, dtemp, masks, part, n,
+                                                                    nj, sh);
+    }
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

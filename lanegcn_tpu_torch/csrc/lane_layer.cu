@@ -10,10 +10,10 @@
 // What bounds it: a [128 x 128] band product on every row its mask selects
 // and the second product on every row (64 GFLOP at the 256-scenario bench
 // pack, N = 208,896, ~8 masked band rows per row) against ~163 MB of
-// traffic, so it is compute-bound on the card's matrix rate. This first version runs the
-// products on CUDA cores in fp32 (register-blocked 4 x 8 per thread), so it
-// sits far below the bf16 tensor-core bound; moving the products to wgmma is
-// later work. What the design keeps out of device memory: each block loads
+// traffic, so it is compute-bound on the card's matrix rate. The forward
+// still runs the products on CUDA cores in fp32 (register-blocked 4 x 8 per
+// thread), so it sits far below the bf16 tensor-core bound; moving them to
+// wgmma, on the helper the backward uses (common.cuh `tc`), is later work. What the design keeps out of device memory: each block loads
 // its 64-row tile plus a ±32-row halo of feat ONCE into shared memory and
 // reuses it for all 12 shifted products and the residual; temp, the GN
 // statistics, h and z never leave shared memory / registers. The band masks
@@ -31,16 +31,22 @@
 //
 // What bounds it: two band products on the masked band rows (2 x 56.7 GFLOP
 // at the 256-scenario pack) and three [N x 128] x [128 x 128] products
-// against ~323 MB: operation-bound at the bf16 matrix rate, and far from it
-// on the CUDA cores this version uses. The halo: the band transpose reads
+// against ~323 MB: operation-bound at the bf16 matrix rate. The bf16
+// instantiation runs all three passes on the tensor cores (wgmma:
+// tail_bwd.cuh's tail_bwd_tc_kernel, lane_band.cuh's band_t_tc_kernel and
+// band_dw_tc_kernel); the dx pass splits the fp32 d_temp into bf16 hi and
+// lo so that its operand keeps ~16 bits. The fp32 instantiation keeps the
+// CUDA-core products (mm_64x128, mm_tn), exact to fp32 reorder for the
+// parity checks. The halo: the band transpose reads
 // d_temp at ±32 rows, which the TPU kernel recomputed per 1024-row tile
 // (+6 %); a 64-row tile here would recompute 2x the tail, so the row pass
 // writes d_temp once (fp32, 107 MB) and the band pass reads it with its halo
 // from L2/HBM. Parameter gradients: the row pass keeps dW2/dGN per block
 // (one block per SM); dWb runs as (split, j) blocks, each summing its
-// slice of tiles into an 8 x 8 register block per thread, so the partial
-// workspace is splits x 12 x 64 KB rather than one [12, 128, 128] per tile;
-// a second pass sums the partials in split order (deterministic).
+// slice of tiles into registers (an 8 x 8 block per thread in fp32, a
+// warpgroup's 64 wgmma accumulators in bf16), so the partial workspace is
+// splits x 12 x 64 KB rather than one [12, 128, 128] per tile; a second
+// pass sums the partials in split order (deterministic).
 #include "lane_band.cuh"
 
 using namespace lgk;
@@ -98,7 +104,9 @@ int launch_bwd(const T* feat, const float* temp, const uint8_t* masks, const T* 
   if (err != 0) return err;
   err = launch_band_t<T, float>(dtemp, dy, masks, wb, dx, n, nj, sh, stream);
   if (err != 0) return err;
-  return launch_band_dw<T>(feat, dtemp, masks, part_band, dwb, n, nj, sh, splits, stream);
+  // dWb's operand rnd(d_temp) is dpre, which the row pass wrote in T: half
+  // the bytes of d_temp in bf16, each of the 12 relations' blocks reads it.
+  return launch_band_dw<T, T>(feat, dpre, masks, part_band, dwb, n, nj, sh, splits, stream);
 }
 
 }  // namespace

@@ -273,7 +273,8 @@ int launch_bwd(const T* feat, const float* temp, const uint8_t* masks, const T* 
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  err = launch_band_dw<T>(feat, dtemp, masks, part_band, dwb, n, nj, sh, splits, stream);
+  // dWb reads rnd(d_temp) as the row pass wrote it into dpre (in T).
+  err = launch_band_dw<T, T>(feat, dpre, masks, part_band, dwb, n, nj, sh, splits, stream);
   if (err != 0) return err;
   return launch_plan_dw<T, float>(feat, dtemp, pa.ldst, pa.lsrc, pa.rel, pa.ends, pa.groups,
                                   part_rel, dwr, num_win, pa.stride, pa.ecap, pa.num_rel,

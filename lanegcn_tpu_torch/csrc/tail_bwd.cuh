@@ -13,12 +13,25 @@
 // with dGN2 = (Σ d_y·nrm2, Σ d_y) and dGN1 = (Σ d_h·nrm1, Σ d_h). h and d_z
 // are rounded to T before the products, as the Pallas backward rounds them.
 //
-// A fixed number of blocks (one per SM) walks the 64-row tiles; each keeps
-// its dW in registers (an 8 x 8 block per thread) and its dGN column sums per
-// warp, and writes them once as its partial [C*C + 4*C]; reduce_partials then
-// sums the partials in block order. Shared memory: x/h and z/d_z/d_h tiles,
-// W and Wᵀ (resident for the whole launch), per-row GN1 statistics.
+// What bounds it: bytes on the card's matrix units (x, res and g read, dx
+// and d_y written, ~590 MB at 208,896 fp32-temp rows, against three
+// [N x 128] x [128 x 128] products, ~20 GFLOP), once the products run on
+// tensor cores; on CUDA cores in fp32 the products bound it instead.
+//
+// A fixed number of blocks (one per SM) walks the row tiles; each keeps
+// its dW in registers and its dGN column sums per warp, and writes them
+// once as its partial [C*C + 4*C]; reduce_partials then sums the partials
+// in block order, so a rerun is bitwise equal. Two instantiations:
+//   fp32 (tail_bwd_kernel, T = float): 64-row tiles, the products on CUDA
+//     cores (mm_64x128, mm_tn; dW an 8 x 8 block per thread), x/h and
+//     z/d_z/d_h tiles, W and Wᵀ resident in fp32. It serves the parity
+//     checks, which hold the card to the CPU in full fp32: wgmma has no
+//     fp32 operands.
+//   bf16 (tail_bwd_tc_kernel, T = bf16, the path that trains): 128-row
+//     tiles, the three products on wgmma (common.cuh `tc`); below.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -129,6 +142,166 @@ tail_bwd_kernel(const TX* __restrict__ x, const T* __restrict__ res, const T* __
   reduce_warp_vecs<4>(vecs, X_s, P + C * C);
 }
 
+// The bf16 row pass on tensor cores. The same arithmetic per row, on
+// 128-row tiles: h and rnd(d_z) are stored in bf16 (the values the CUDA-core
+// path rounds them to), and the three products run as wgmma, warpgroup g
+// owning rows 64g .. 64g+63 of z and of rnd(d_z) @ Wᵀ and input channels
+// 64g .. 64g+63 of dW (its 64 accumulators per thread live across the
+// block's tiles). One bf16 copy of W in core tiles serves both z = h @ W
+// (W MN-major) and rnd(d_z) @ Wᵀ (W K-major). z and d_h come back through
+// an fp32 row tile for the per-row GroupNorm work, which stays a warp per
+// row as above.
+constexpr int TC_ROWS = 128;
+constexpr int ROW_AHEAD = 4;  // rows a warp loads before it works on the first
+
+inline int tail_bwd_tc_smem() {
+  return 3 * tc::tiles_bytes(TC_ROWS) + (TC_ROWS * LDA + 2 * TC_ROWS) * (int)sizeof(float);
+}
+
+template <typename TX>
+__global__ void __launch_bounds__(NT, 1)
+tail_bwd_tc_kernel(const TX* __restrict__ x, const bf16* __restrict__ res,
+                   const bf16* __restrict__ g, const bf16* __restrict__ w,
+                   const float* __restrict__ g1w, const float* __restrict__ g1b,
+                   const float* __restrict__ g2w, const float* __restrict__ g2b,
+                   bf16* __restrict__ dx, bf16* __restrict__ dy, float* __restrict__ dx32,
+                   float* __restrict__ dy32, float* __restrict__ part, int n, float eps) {
+  extern __shared__ float4 smem4[];
+  uint8_t* W_b = reinterpret_cast<uint8_t*>(smem4);   // W, core tiles
+  uint8_t* H_b = W_b + tc::tiles_bytes(TC_ROWS);      // h tile
+  uint8_t* Z_b = H_b + tc::tiles_bytes(TC_ROWS);      // rnd(d_z) tile
+  float* R_s = reinterpret_cast<float*>(Z_b + tc::tiles_bytes(TC_ROWS));  // [TC_ROWS][LDA]
+  float* st_s = R_s + TC_ROWS * LDA;                  // [TC_ROWS][2] GN1 mean, inv
+  const tc::Tiles Wt = tc::tiles(W_b, C), Ht = tc::tiles(H_b, TC_ROWS),
+                  Zt = tc::tiles(Z_b, TC_ROWS);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wg = threadIdx.x >> 7;
+  tc::load_tiles_128(W_b, Wt, w);
+
+  float accW[64], acc[64];
+  tc::zero(accW);
+  float4 v1w = zero4(), v1b = zero4(), v2w = zero4(), v2b = zero4();
+  const int ntiles = (n + TC_ROWS - 1) / TC_ROWS;
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long row0 = (long)tile * TC_ROWS;
+    __syncthreads();  // the previous tile is done with H/Z/R
+    // h = rnd(relu(GN1(x))) into H; rows past n hold 0. A warp's rows go
+    // ROW_AHEAD at a time, their loads issued before the first is used.
+    for (int r0 = warp; r0 < TC_ROWS; r0 += ROW_AHEAD * (NT / 32)) {
+      float4 xv[ROW_AHEAD];
+#pragma unroll
+      for (int k = 0; k < ROW_AHEAD; ++k) {
+        const long gr = row0 + r0 + k * (NT / 32);
+        xv[k] = gr < n ? load4<TX>(x + gr * C + lane * 4) : zero4();
+      }
+#pragma unroll
+      for (int k = 0; k < ROW_AHEAD; ++k) {
+        const int r = r0 + k * (NT / 32);
+        const float2 st = gn_stats(xv[k], eps);
+        const float4 h = relu4(gn_affine(gn_nrm(xv[k], st), g1w, g1b));
+        tc::st_bf4(H_b, tc::tile_off(Ht, r, lane * 4), row0 + r < n ? h : zero4());
+        if (lane == 0) {
+          st_s[2 * r] = st.x;
+          st_s[2 * r + 1] = st.y;
+        }
+      }
+    }
+    tc::fence_smem();
+    __syncthreads();
+    tc::zero(acc);
+    tc::fence_acc(acc);
+    tc::fence();
+    tc::mm<C / 16, true, false>(acc, Ht, 64 * wg, Wt);  // z = h @ W
+    tc::commit();
+    tc::wait_all();
+    tc::fence_acc(acc);
+#pragma unroll
+    for (int i = 0; i < 64; i += 2)
+      *reinterpret_cast<float2*>(R_s + (64 * wg + tc::acc_row(i)) * LDA + tc::acc_col(i)) =
+          make_float2(acc[i], acc[i + 1]);
+    __syncthreads();
+    // d_y, GN2 backward → rnd(d_z) into Z.
+    for (int r0 = warp; r0 < TC_ROWS; r0 += ROW_AHEAD * (NT / 32)) {
+      float4 rv[ROW_AHEAD], gv[ROW_AHEAD];
+#pragma unroll
+      for (int k = 0; k < ROW_AHEAD; ++k) {
+        const long gr = row0 + r0 + k * (NT / 32);
+        rv[k] = gr < n ? load4<bf16>(res + gr * C + lane * 4) : zero4();
+        gv[k] = gr < n ? load4<bf16>(g + gr * C + lane * 4) : zero4();
+      }
+#pragma unroll
+      for (int k = 0; k < ROW_AHEAD; ++k) {
+        const int r = r0 + k * (NT / 32);
+        const long gr = row0 + r;
+        float4 dz = zero4();
+        if (gr < n) {
+          const float4 zv = *reinterpret_cast<const float4*>(R_s + r * LDA + lane * 4);
+          const float2 st = gn_stats(zv, eps);
+          const float4 nrm = gn_nrm(zv, st);
+          const float4 y = gn_affine(nrm, g2w, g2b);
+          const float4 d_y = pos_mask4(gv[k], add4(y, rv[k]));
+          v2w = add4(v2w, mul4(d_y, nrm));
+          v2b = add4(v2b, d_y);
+          dz = gn_bwd_row(d_y, nrm, st.y, g2w);
+          if (dy) store4<bf16>(dy + gr * C + lane * 4, d_y);
+          if (dy32) *reinterpret_cast<float4*>(dy32 + gr * C + lane * 4) = d_y;
+        }
+        tc::st_bf4(Z_b, tc::tile_off(Zt, r, lane * 4), dz);
+      }
+    }
+    tc::fence_smem();
+    __syncthreads();
+    tc::zero(acc);
+    tc::fence_acc(acc);
+    tc::fence_acc(accW);
+    tc::fence();
+    tc::mm<C / 16, true, true>(acc, Zt, 64 * wg, Wt);                 // rnd(d_z) @ Wᵀ
+    tc::mm<TC_ROWS / 16, false, false>(accW, Ht, 64 * wg, Zt);        // dW += hᵀ rnd(d_z)
+    tc::commit();
+    tc::wait_all();
+    tc::fence_acc(acc);
+    tc::fence_acc(accW);
+#pragma unroll
+    for (int i = 0; i < 64; i += 2)
+      *reinterpret_cast<float2*>(R_s + (64 * wg + tc::acc_row(i)) * LDA + tc::acc_col(i)) =
+          make_float2(acc[i], acc[i + 1]);
+    __syncthreads();
+    // d_h = (rnd(d_z) @ Wᵀ) ⊙ [h_pre > 0], GN1 backward → d_x.
+    for (int r0 = warp; r0 < TC_ROWS; r0 += ROW_AHEAD * (NT / 32)) {
+      float4 xv[ROW_AHEAD];
+#pragma unroll
+      for (int k = 0; k < ROW_AHEAD; ++k) {
+        const long gr = row0 + r0 + k * (NT / 32);
+        xv[k] = gr < n ? load4<TX>(x + gr * C + lane * 4) : zero4();
+      }
+#pragma unroll
+      for (int k = 0; k < ROW_AHEAD; ++k) {
+        const int r = r0 + k * (NT / 32);
+        const long gr = row0 + r;
+        if (gr < n) {
+          const float2 st = make_float2(st_s[2 * r], st_s[2 * r + 1]);
+          const float4 nrm = gn_nrm(xv[k], st);
+          const float4 d_h = pos_mask4(
+              *reinterpret_cast<const float4*>(R_s + r * LDA + lane * 4), gn_affine(nrm, g1w, g1b));
+          v1w = add4(v1w, mul4(d_h, nrm));
+          v1b = add4(v1b, d_h);
+          const float4 d_x = gn_bwd_row(d_h, nrm, st.y, g1w);
+          store4<bf16>(dx + gr * C + lane * 4, d_x);
+          if (dx32) *reinterpret_cast<float4*>(dx32 + gr * C + lane * 4) = d_x;
+        }
+      }
+    }
+  }
+  float* P = part + (long)blockIdx.x * TAIL_PART;
+#pragma unroll
+  for (int i = 0; i < 64; i += 2)
+    *reinterpret_cast<float2*>(P + (64 * wg + tc::acc_row(i)) * C + tc::acc_col(i)) =
+        make_float2(accW[i], accW[i + 1]);
+  const float4 vecs[4] = {v1w, v1b, v2w, v2b};
+  reduce_warp_vecs<4>(vecs, R_s, P + C * C);
+}
+
 // Launches the row pass on `blocks` blocks and sums their partials into
 // grads [C*C + 4*C] (part: blocks * TAIL_PART floats of workspace).
 template <typename T, typename TX>
@@ -136,14 +309,29 @@ int launch_tail_bwd(const TX* x, const T* res, const T* g, const T* w, const flo
                     const float* g1b, const float* g2w, const float* g2b, T* dx, T* dy,
                     float* dx32, float* dy32, float* part, float* grads, int n, int blocks,
                     float eps, cudaStream_t stream) {
-  const int smem = tail_bwd_smem();
-  cudaError_t err = set_smem((const void*)tail_bwd_kernel<T, TX>, smem);
+  constexpr bool TC = std::is_same<T, bf16>::value;
+  const void* kernel;
+  int smem, rows;
+  if constexpr (TC) {
+    kernel = (const void*)tail_bwd_tc_kernel<TX>;
+    smem = tail_bwd_tc_smem();
+    rows = TC_ROWS;
+  } else {
+    kernel = (const void*)tail_bwd_kernel<T, TX>;
+    smem = tail_bwd_smem();
+    rows = TM;
+  }
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const int ntiles = (n + TM - 1) / TM;
+  const int ntiles = (n + rows - 1) / rows;
   if (blocks > ntiles) blocks = ntiles;
   if (blocks > 0) {
-    tail_bwd_kernel<T, TX><<<blocks, NT, smem, stream>>>(x, res, g, w, g1w, g1b, g2w, g2b, dx,
-                                                         dy, dx32, dy32, part, n, eps);
+    if constexpr (TC)
+      tail_bwd_tc_kernel<TX><<<blocks, NT, smem, stream>>>(x, res, g, w, g1w, g1b, g2w, g2b, dx,
+                                                           dy, dx32, dy32, part, n, eps);
+    else
+      tail_bwd_kernel<T, TX><<<blocks, NT, smem, stream>>>(x, res, g, w, g1w, g1b, g2w, g2b,
+                                                           dx, dy, dx32, dy32, part, n, eps);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -79,7 +79,7 @@ def _fwd_cuda(feat, masks, w, shifts):
     cuda.call(
         "band_conv", "band_conv_fwd",
         cuda.ptr(feat), cuda.ptr(masks), cuda.ptr(w), cuda.ptr(out),
-        ctypes.c_int(feat.shape[0]), ctypes.c_int(len(shifts)), ctypes.cast(sh, ctypes.c_void_p),
+        ctypes.c_int(feat.shape[0]), ctypes.c_int(len(shifts)), sh,
         ctypes.c_int(code), cuda.stream(),
     )
     return out
@@ -106,7 +106,7 @@ def band_conv_bwd_cuda(feat, masks, w, g, shifts: Sequence[int]):
     cuda.call(
         "band_conv", "band_conv_bwd",
         cuda.ptr(feat), cuda.ptr(masks), cuda.ptr(w), cuda.ptr(g), cuda.ptr(dx), cuda.ptr(part),
-        cuda.ptr(dw), ctypes.c_int(n), ctypes.c_int(j), ctypes.cast(sh, ctypes.c_void_p),
+        cuda.ptr(dw), ctypes.c_int(n), ctypes.c_int(j), sh,
         ctypes.c_int(splits), ctypes.c_int(code), cuda.stream(),
     )
     return dx, dw

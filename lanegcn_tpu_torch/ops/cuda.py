@@ -133,19 +133,25 @@ def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
-def stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream(device: torch.device | None = None) -> ctypes.c_void_p:
+    """PyTorch's current stream on `device` (default: the current device),
+    as the kernels take it: the raw handle, without a Stream object."""
+    idx = device.index if device is not None else None
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if idx is None else idx))
 
 
 def call(name: str, entry: str, *args) -> None:
     """Launch one C entry of kernel library `name` and count the entry.
 
     Arguments are ctypes values (c_void_p for pointers, c_int, c_float);
-    raises if the entry reports a CUDA error.
+    raises if the entry reports a CUDA error. The entry's argument types are
+    set at its first call (ctypes keeps the function object on the library).
     """
     fn = getattr(lib(name), entry)
-    fn.argtypes = [type(a) for a in args]
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        fn.argtypes = [type(a) for a in args]
+        fn.restype = ctypes.c_int
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} from {entry}")
@@ -155,31 +161,42 @@ def call(name: str, entry: str, *args) -> None:
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+_SMS: Dict[int, int] = {}
+
+
 def num_sms(device: torch.device) -> int:
     """Streaming multiprocessors of the card: the block count of the
-    backward passes that keep one parameter-gradient partial per block."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    backward passes that keep one parameter-gradient partial per block
+    (read once per device)."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
-def param(t: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+def param(t: torch.Tensor, dtype: torch.dtype = torch.float32, align: int = 16) -> torch.Tensor:
     """A parameter as a kernel reads it: contiguous, in `dtype`, its data
-    16-byte aligned for the kernels' float4 loads. Under the flat optimizer
-    every parameter is a view into one buffer at its own offset (a 5-float
-    bias shifts all later ones by 4 bytes), so it is copied when it is not
-    aligned."""
+    `align`-byte aligned (16 for the kernels' float4 loads; a kernel that
+    reads the vector element by element passes the element size). Under
+    the flat optimizer every parameter is a view into one buffer at its own
+    offset (a 5-float bias shifts all later ones by 4 bytes), so it is
+    copied when it is not aligned."""
     t = t.to(dtype).contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return t if t.data_ptr() % align == 0 else t.clone()
 
 
-def check_cuda(name: str, *tensors: torch.Tensor) -> int:
-    """Validate the tensors a kernel reads; returns the activation dtype code."""
+def check_cuda(name: str, *tensors: torch.Tensor | None) -> int:
+    """Validate the tensors a kernel reads (None, an absent optional input,
+    is skipped); returns the first tensor's dtype code."""
     dev = tensors[0].device
     for t in tensors:
+        if t is None:
+            continue
         if t.device != dev:
             raise ValueError(f"{name}: tensors on different devices ({t.device}, {dev})")
         if not t.is_contiguous():
             raise ValueError(f"{name}: kernel inputs must be contiguous")
-    dt = tensors[0].dtype
-    if dt not in DTYPE_CODE:
-        raise TypeError(f"{name}: dtype {dt} not supported (float32, bfloat16)")
-    return DTYPE_CODE[dt]
+    code = DTYPE_CODE.get(tensors[0].dtype)
+    if code is None:
+        raise TypeError(f"{name}: dtype {tensors[0].dtype} not supported (float32, bfloat16)")
+    return code

@@ -121,8 +121,24 @@ def _mask_bytes(masks):
     return masks.contiguous()
 
 
+_SHIFT_ARRAYS = {}  # shift tuple: (its C int array, the array's address)
+
+
 def _shift_array(shifts):
-    return (ctypes.c_int * max(len(shifts), 1))(*shifts)
+    """The address of the shifts as a C int array, made once per shift list
+    (the layer passes the same list at every launch)."""
+    key = tuple(shifts)
+    if key not in _SHIFT_ARRAYS:
+        arr = (ctypes.c_int * max(len(key), 1))(*key)
+        _SHIFT_ARRAYS[key] = (arr, ctypes.cast(arr, ctypes.c_void_p))
+    return _SHIFT_ARRAYS[key][1]
+
+
+def _gn_params(*gns):
+    """The GroupNorm vectors as the layer kernels read them: fp32 and
+    contiguous. The kernels read them element by element, so a vector 4
+    bytes off a 16-byte boundary (the flat optimizer's views) is not copied."""
+    return [cuda.param(t, align=4) for t in gns]
 
 
 def _fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, shifts, eps, save_temp=False):
@@ -130,7 +146,7 @@ def _fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, shifts, eps, save_te
     _check(feat, pre, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts)
     n = feat.shape[0]
     masks = _mask_bytes(masks)
-    gns = [cuda.param(g) for g in (g1w, g1b, g2w, g2b)]
+    gns = _gn_params(g1w, g1b, g2w, g2b)
     code = cuda.check_cuda("lane_layer", feat, pre, masks, wb, w2, *gns)
     out = torch.empty_like(feat)
     temp = torch.empty(n, C, dtype=torch.float32, device=feat.device) if save_temp else None
@@ -139,7 +155,7 @@ def _fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, shifts, eps, save_te
         "lane_layer", "lane_layer_fwd",
         cuda.ptr(feat), cuda.ptr(pre), cuda.ptr(masks), cuda.ptr(wb), cuda.ptr(w2),
         *(cuda.ptr(g) for g in gns), cuda.ptr(out), cuda.ptr(temp),
-        ctypes.c_int(n), ctypes.c_int(len(shifts)), ctypes.cast(sh, ctypes.c_void_p),
+        ctypes.c_int(n), ctypes.c_int(len(shifts)), sh,
         ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
     )
     return (out, temp) if save_temp else out
@@ -155,30 +171,31 @@ def lane_layer_bwd_cuda(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, g,
             or g.shape != feat.shape or g.dtype != feat.dtype):
         raise ValueError("lane_layer: temp must be fp32 and g in feat's dtype, both [N, 128]")
     masks = _mask_bytes(masks)
-    gns = [cuda.param(t) for t in (g1w, g1b, g2w, g2b)]
+    gns = _gn_params(g1w, g1b, g2w, g2b)
     code = cuda.check_cuda("lane_layer", feat, temp, masks, wb, w2, g, *gns)
     dev = feat.device
     tail_blocks = cuda.num_sms(dev)
     splits = max(1, 2 * tail_blocks // max(j, 1))
     f32 = dict(dtype=torch.float32, device=dev)
     dx, dpre = torch.empty_like(feat), torch.empty_like(feat)
-    d_temp, d_y = torch.empty(n, C, **f32), torch.empty(n, C, **f32)
-    part_tail = torch.empty(tail_blocks * PART, **f32)
-    part_band = torch.empty(splits * j * C * C, **f32)
-    grads_tail = torch.empty(PART, **f32)
-    dwb = torch.empty(j, C, C, **f32)
-    sh = _shift_array(shifts)
+    # The workspaces (d_temp, d_y and both passes' partials) in one
+    # allocation, passed by address; the outputs in their own, so that a
+    # gradient kept after the call holds no workspace.
+    work = torch.empty(2 * n * C + tail_blocks * PART + splits * j * C * C, **f32)
+    at = work.data_ptr()
+    ws = [ctypes.c_void_p(at + 4 * off) for off in
+          (0, n * C, 2 * n * C, 2 * n * C + tail_blocks * PART)]
+    grads = torch.empty(PART + j * C * C, **f32)
+    dw2, dgn, dwb = grads.split([C * C, 4 * C, j * C * C])
     cuda.call(
         "lane_layer", "lane_layer_bwd",
         cuda.ptr(feat), cuda.ptr(temp), cuda.ptr(masks), cuda.ptr(wb), cuda.ptr(w2),
-        *(cuda.ptr(t) for t in gns), cuda.ptr(g), cuda.ptr(dx), cuda.ptr(dpre),
-        cuda.ptr(d_temp), cuda.ptr(d_y), cuda.ptr(part_tail), cuda.ptr(part_band),
-        cuda.ptr(grads_tail), cuda.ptr(dwb), ctypes.c_int(n), ctypes.c_int(j),
-        ctypes.cast(sh, ctypes.c_void_p), ctypes.c_int(tail_blocks), ctypes.c_int(splits),
+        *(cuda.ptr(t) for t in gns), cuda.ptr(g), cuda.ptr(dx), cuda.ptr(dpre), *ws,
+        cuda.ptr(grads), cuda.ptr(dwb), ctypes.c_int(n), ctypes.c_int(j),
+        _shift_array(shifts), ctypes.c_int(tail_blocks), ctypes.c_int(splits),
         ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
     )
-    dgn = grads_tail[C * C:].view(4, C)
-    return dx, dpre, dwb, grads_tail[: C * C].view(C, C), dgn[0], dgn[1], dgn[2], dgn[3]
+    return (dx, dpre, dwb.view(j, C, C), dw2.view(C, C), *dgn.view(4, C).unbind(0))
 
 
 class _LaneLayer(torch.autograd.Function):
@@ -353,7 +370,7 @@ def _plan_fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, 
     r_num = w_rel.shape[0]
     groups, ends, gmasks = _group_args(lu, rel, num_win, groups, r_num)
     masks = _mask_bytes(masks)
-    gns = [cuda.param(t) for t in (g1w, g1b, g2w, g2b)]
+    gns = _gn_params(g1w, g1b, g2w, g2b)
     wb, w2, w_rel = (cuda.param(t, t.dtype) for t in (wb, w2, w_rel))
     code = cuda.check_cuda("lane_plan", feat, pre, masks, wb, w2, w_rel, *gns, lu, lv, rel, ends)
     out = torch.empty_like(feat)
@@ -364,7 +381,7 @@ def _plan_fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, 
         cuda.ptr(feat), cuda.ptr(pre), cuda.ptr(masks), cuda.ptr(wb), cuda.ptr(w2),
         *(cuda.ptr(t) for t in gns), cuda.ptr(w_rel), cuda.ptr(lu), cuda.ptr(lv), cuda.ptr(rel),
         cuda.ptr(ends), ctypes.cast(gmasks, ctypes.c_void_p), cuda.ptr(out), cuda.ptr(temp),
-        ctypes.c_int(n), ctypes.c_int(len(shifts)), ctypes.cast(sh, ctypes.c_void_p),
+        ctypes.c_int(n), ctypes.c_int(len(shifts)), sh,
         ctypes.c_int(num_win), ctypes.c_int(lu.shape[0] // num_win), ctypes.c_int(r_num),
         ctypes.c_int(len(groups)), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
     )
@@ -383,7 +400,7 @@ def lane_plan_bwd_cuda(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu,
         raise ValueError("lane_plan: temp must be fp32 and g in feat's dtype, both [N, 128]")
     groups, ends, gmasks = _group_args(lu, rel, num_win, groups, r_num)
     masks = _mask_bytes(masks)
-    gns = [cuda.param(t) for t in (g1w, g1b, g2w, g2b)]
+    gns = _gn_params(g1w, g1b, g2w, g2b)
     wb, w2, w_rel = (cuda.param(t, t.dtype) for t in (wb, w2, w_rel))
     code = cuda.check_cuda("lane_plan", feat, temp, masks, wb, w2, w_rel, g, *gns, lu, lv, rel,
                            ends)
@@ -408,7 +425,7 @@ def lane_plan_bwd_cuda(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu,
         cuda.ptr(ends), ctypes.cast(gmasks, ctypes.c_void_p), cuda.ptr(g), cuda.ptr(dx),
         cuda.ptr(dpre), cuda.ptr(d_temp), cuda.ptr(d_y), cuda.ptr(part_tail),
         cuda.ptr(part_band), cuda.ptr(part_rel), cuda.ptr(grads_tail), cuda.ptr(dwb),
-        cuda.ptr(dwr), ctypes.c_int(n), ctypes.c_int(j), ctypes.cast(sh, ctypes.c_void_p),
+        cuda.ptr(dwr), ctypes.c_int(n), ctypes.c_int(j), sh,
         ctypes.c_int(num_win), ctypes.c_int(lu.shape[0] // num_win), ctypes.c_int(r_num),
         ctypes.c_int(len(groups)), ctypes.c_int(tail_blocks), ctypes.c_int(splits),
         ctypes.c_int(splits_rel), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),

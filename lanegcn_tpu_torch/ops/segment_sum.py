@@ -49,18 +49,17 @@ def _check(data, seg, num_segments, out):
 def segment_sum_cuda(data, seg, num_segments: int, out=None):
     """The `segment_sum` kernel; the same output as `segment_sum_plain`."""
     _check(data, seg, num_segments, out)
-    data = data.contiguous()
-    seg = seg.to(torch.int64).contiguous()
-    base = None if out is None else out.contiguous()
-    code = cuda.check_cuda("segment_sum", data, seg, *(() if base is None else (base,)))
-    shape = (num_segments,) + tuple(data.shape[1:])
-    res = torch.empty(shape, dtype=data.dtype, device=data.device)
-    cols = math.prod(data.shape[1:])
+    data, seg = data.contiguous(), seg.to(torch.int64).contiguous()
+    out = None if out is None else out.contiguous()
+    code = cuda.check_cuda("segment_sum", data, seg, out)
+    dev = data.device
+    res = torch.empty((num_segments,) + data.shape[1:], dtype=data.dtype, device=dev)
     cuda.call(
         "segment_sum", "segment_sum",
-        cuda.ptr(data), cuda.ptr(seg), cuda.ptr(base), cuda.ptr(res),
-        ctypes.c_longlong(data.shape[0]), ctypes.c_int(num_segments), ctypes.c_int(cols),
-        ctypes.c_int(code), cuda.stream(),
+        cuda.ptr(data), cuda.ptr(seg), cuda.ptr(out), cuda.ptr(res),
+        ctypes.c_longlong(data.shape[0]), ctypes.c_int(num_segments),
+        ctypes.c_int(math.prod(data.shape[1:])),
+        ctypes.c_int(code), cuda.stream(dev),
     )
     return res
 

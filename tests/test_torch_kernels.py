@@ -73,6 +73,90 @@ def test_lane_layer_matches_pallas(ends):
     _close(out, ref)
 
 
+# The bf16 lane_layer_bwd kernel's dx pass runs the band transpose on tensor
+# cores, whose operands are bf16, while d_temp is fp32 (as in the Pallas
+# backward). It splits d_temp into bf16 hi + lo and sums both products in
+# one fp32 accumulator. Held here, in torch, before any run on a card: the
+# emulated split dx against the plain backward's fp32 dx within 1/16 of the
+# tolerance chip_smoke.py holds the bf16 kernel to (TOL 3e-2 per element of
+# rms + |plain|, RMS_TOL 1e-2), on the band masks of a real pack.
+SPLIT_TOL, SPLIT_RMS_TOL = 3e-2 / 16, 1e-2 / 16
+
+
+def _small_pack_bands():
+    """Band masks [J, N] and shifts of a 3-scenario windowed pack with
+    256-row node windows."""
+    import dataclasses
+
+    from lanegcn_tpu_torch.config import ModelConfig, band_shift, windowed_pack_config
+    from lanegcn_tpu_torch.data.packing import pack_batch
+    from lanegcn_tpu_torch.data.synthetic import make_urban_scenario
+    from lanegcn_tpu_torch.graph import PackedBatch
+
+    model = ModelConfig(n_actor=32, n_map=32, num_fuse_layers=2, num_att_layers=1)
+    scens = [make_urban_scenario(seed=40 + i, num_corridors=3, num_actors=6) for i in range(3)]
+    cfg = dataclasses.replace(windowed_pack_config(3), node_stride=256, max_nodes=1024)
+    b, st = pack_batch(scens, cfg, model)
+    assert st["packed_scenarios"] == 3
+    bands = PackedBatch.from_numpy(b).graph.bands
+    names = sorted(bands, key=lambda nm: (band_shift(nm) < 0, abs(band_shift(nm))))
+    return torch.stack([bands[nm] for nm in names]), tuple(band_shift(nm) for nm in names)
+
+
+def test_lane_layer_bwd_split_dx_matches_plain_and_jax_vjp():
+    from lanegcn_tpu_torch.ops.lane_layer import (_band_bwd_plain, _shift_rows, _temp_plain,
+                                                  lane_layer_bwd_plain)
+    from lanegcn_tpu_torch.ops.row_tail import tail_bwd_plain
+
+    masks, shifts = _small_pack_bands()
+    n, j = masks.shape[1], len(shifts)
+    assert n == 1024 and j == 12 and masks.any(1).all()
+    rng = np.random.RandomState(3)
+    feat = rng.randn(n, C).astype(np.float32)
+    pre = rng.randn(n, C).astype(np.float32)
+    wb = (rng.randn(j, C, C) / np.sqrt(C)).astype(np.float32)
+    w2 = (rng.randn(C, C) / np.sqrt(C)).astype(np.float32)
+    gn = [(1.0 + 0.1 * rng.randn(C)).astype(np.float32), (0.1 * rng.randn(C)).astype(np.float32),
+          (1.0 + 0.1 * rng.randn(C)).astype(np.float32), (0.1 * rng.randn(C)).astype(np.float32)]
+    g = rng.randn(n, C).astype(np.float32)
+
+    # The split product, in bf16 as the kernel runs it.
+    bf = torch.bfloat16
+    tf, tpre, twb, tw2, tg = (_t(a).to(bf) for a in (feat, pre, wb, w2, g))
+    tgn = [_t(a) for a in gn]
+    temp = _temp_plain(tf, tpre, masks, twb, shifts)
+    d_temp, d_y, *_ = tail_bwd_plain(temp, tf, tw2, *tgn, tg)
+    hi = d_temp.to(bf)
+    lo = (d_temp - hi.float()).to(bf)
+    dx = d_y.clone()
+    for jj, s in enumerate(shifts):
+        m = masks[jj].float()[:, None]
+        w_t = twb[jj].float().t()
+        dx = dx + _shift_rows(hi.float() * m, -s) @ w_t + _shift_rows(lo.float() * m, -s) @ w_t
+    want = _band_bwd_plain(tf, temp, masks, twb, tw2, *tgn, tg, shifts, 1e-5)[1]
+    rms = float(want.square().mean().sqrt())
+    err = (dx - want).abs()
+    assert float((err / (SPLIT_TOL * (rms + want.abs()))).max()) <= 1.0
+    assert float(err.square().mean().sqrt()) <= SPLIT_RMS_TOL * rms
+
+    # The plain backward (fp32) against the Pallas VJP at the same pack.
+    jm = _j(masks.numpy().astype(np.float32))
+    args = tuple(map(_j, (feat, pre, wb, w2, *gn)))
+    _, vjp = jax.vjp(lambda f, p, b_, w, a, b, c, d: jax_lane_layer(
+        f, p, jm, b_, w, a, b, c, d, shifts, 1e-5, True), *args)
+    ref = vjp(_j(g))
+    t32 = [_t(a) for a in (feat, pre, wb, w2)]
+    temp32 = _temp_plain(t32[0], t32[1], masks, t32[2], shifts)
+    got = lane_layer_bwd_plain(t32[0], temp32, masks, t32[2], t32[3], *tgn, _t(g), shifts)
+    # (dx, dpre, dwb, dw2, dg1w, dg1b, dg2w, dg2b) against the VJP's (feat,
+    # pre, wb, w2, g1w, g1b, g2w, g2b)
+    # at tests/test_torch_grads.py's bound: 2e-5 of max(1, max |ref|)
+    for nm, a, b in zip(("dx", "dpre", "dwb", "dw2", "dg1w", "dg1b", "dg2w", "dg2b"), got, ref):
+        b = np.asarray(b, np.float32)
+        err = float(np.abs(a.numpy() - b).max())
+        assert err <= 2e-5 * max(1.0, float(np.abs(b).max())), (nm, err)
+
+
 # --- scenario_agg ------------------------------------------------------------
 
 R = 14

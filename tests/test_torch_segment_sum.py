@@ -79,6 +79,52 @@ def test_sorted_segment_sum_matches_jax(tag, with_out):
     assert not got[10:30].float().any() or with_out  # the empty rows stay empty
 
 
+# The kernel's block partition (csrc/segment_sum.cu: 32 destination rows a
+# block below 32,768 rows, 128 from there, each block's edges found by two
+# searches, a run table per block): the same cases run against the kernel
+# in chip_smoke.py's kernel_step.
+BLOCK_CASES = {
+    "run-longer-than-a-block": (700, lambda rng: np.sort(np.concatenate(
+        [np.full(600, 5), rng.integers(0, 700, 301)]))),
+    "runs-across-blocks": (1000, lambda rng: np.concatenate(
+        [np.sort(rng.integers(250, 270, 502)), np.full(20, 1000)])),
+    "all-dropped": (300, lambda rng: np.array([300] * 50 + [305] * 5)),
+    "no-edges": (301, lambda rng: np.zeros(0, np.int64)),
+    "rows-not-a-block-multiple": (777, lambda rng: np.sort(rng.integers(0, 790, 2003))),
+    "128-row-blocks": (40003, lambda rng: np.sort(np.concatenate(
+        [rng.integers(120, 140, 500), np.full(300, 20000), rng.integers(0, 40010, 2000)]))),
+}
+
+
+@pytest.mark.parametrize("with_out", [False, True], ids=["sum", "into-out"])
+@pytest.mark.parametrize("tag", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(BLOCK_CASES))
+def test_sorted_segment_sum_block_partition_matches_jax(case, tag, with_out):
+    n, make = BLOCK_CASES[case]
+    rng = np.random.default_rng(12)
+    seg = make(rng).astype(np.int32)
+    data = rng.normal(size=(len(seg), 128)).astype(np.float32)
+    out = rng.normal(size=(n, 128)).astype(np.float32)
+    tdt, jdt = DTYPES[tag]
+    jd, td = jnp.asarray(data, jdt), torch.from_numpy(data).to(tdt)
+    if with_out:
+        ref = jax_scatter_add_sorted(jd, jnp.asarray(seg), n, out=jnp.asarray(out, jdt),
+                                     interpret=True)
+        got = segment_sum.sorted_segment_sum(td, torch.from_numpy(seg).long(), n,
+                                             torch.from_numpy(out).to(tdt))
+    else:
+        ref = jax_sorted_segment_sum(jd, jnp.asarray(seg), n, interpret=True)
+        got = segment_sum.sorted_segment_sum(td, torch.from_numpy(seg).long(), n)
+    assert got.shape == (n, 128) and got.dtype == tdt
+    _close(got, ref, tag)
+    kept = seg[seg < n]
+    empty = np.setdiff1d(np.arange(n), kept)
+    base = out if with_out else np.zeros_like(out)
+    # rows without edges are base's rows (or zeros), exactly
+    np.testing.assert_array_equal(got[torch.from_numpy(empty)].float().numpy(),
+                                  torch.from_numpy(base[empty]).to(tdt).float().numpy())
+
+
 def test_scatter_add_sorted_vjp_matches_jax():
     data, seg, out, n = _segments(2, c=16)
     mask = np.random.default_rng(3).random(len(seg)) < 0.8

@@ -8,8 +8,11 @@ parent unpacked under build/) can be compared on one card in one call.
     # e.g. for d in build/parent . . build/parent; do python3 tree_profile.py $d; done
 
 Geometries: windowed (windowed_pack_config(256)), bench
-(bench_pack_config(256)), contiguous (contiguous_pack_config(32)) and
-lanercnn (lanercnn_pack_config(256), get_model("lanercnn")), the packs
+(bench_pack_config(256)), contiguous (contiguous_pack_config(32)),
+lanercnn (lanercnn_pack_config(256), get_model("lanercnn")), unfused
+(windowed's packs with ModelConfig(pallas_bands="off")), merged (bench's
+packs with merge_plan_agg="auto") and flat (flat_pack_config(32) packed
+without bands, tables or plan), the packs
 made from the same seeds for every tree. For each: 2 packs, bf16 weights
 from seed 0; the eval step and the train step warmed up, then
 torch.profiler over one forward per pack and over one train step: the
@@ -22,6 +25,7 @@ Needs CUDA; uses only the package under DIR (and numpy).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -30,7 +34,12 @@ import time
 
 GEOMETRIES = {"windowed": ("windowed_pack_config", 256), "bench": ("bench_pack_config", 256),
               "contiguous": ("contiguous_pack_config", 32),
-              "lanercnn": ("lanercnn_pack_config", 256)}
+              "lanercnn": ("lanercnn_pack_config", 256),
+              "unfused": ("windowed_pack_config", 256),
+              "merged": ("bench_pack_config", 256), "flat": ("flat_pack_config", 32)}
+# ModelConfig fields and pack_batch keyword arguments a geometry sets
+MODEL_FIELDS = {"unfused": {"pallas_bands": "off"}, "merged": {"merge_plan_agg": "auto"}}
+PACK_KWARGS = {"flat": {"split_bands": False, "split_tables": False, "scenario_plan": False}}
 SYNCS = ("aten::nonzero", "aten::_local_scalar_dense")
 
 
@@ -73,6 +82,8 @@ def run(tree, geom):
     roi = geom == "lanercnn"
     field = "roi_pack" if roi else "pack"
     cfg = config.Config(**{field: getattr(config, name)(s)})
+    if geom in MODEL_FIELDS:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **MODEL_FIELDS[geom]))
     if roi:
         from lanegcn_tpu_torch.data.packing_roi import pack_roi_batch as pack
         from lanegcn_tpu_torch.graph import RoiPackedBatch as Batch
@@ -83,8 +94,9 @@ def run(tree, geom):
         from lanegcn_tpu_torch.graph import PackedBatch as Batch
         scens = [make_urban_scenario(seed=i, num_corridors=7, num_actors=16)
                  for i in range(2 * s)]
-    batches = [Batch.from_numpy(pack(scens[p * s:(p + 1) * s], getattr(cfg, field),
-                                     cfg.model)[0]).to("cuda") for p in range(2)]
+    batches = [Batch.from_numpy(pack(scens[p * s:(p + 1) * s], getattr(cfg, field), cfg.model,
+                                     **PACK_KWARGS.get(geom, {}))[0]).to("cuda")
+               for p in range(2)]
     bundle = get_model("lanercnn" if roi else "lanegcn", cfg, dtype=torch.bfloat16, seed=0)
     fns = dict(loss_fn=bundle.loss_fn, metrics_fn=bundle.metrics_fn)
     serve = make_eval_step(bundle.config, bundle.net, **fns)
