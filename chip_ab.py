@@ -6,14 +6,17 @@
 
 For each named kernel library, the sources of this checkout ("new") and of
 the other tree ("old", where it has that kernel) are built side by side
-with the same nvcc flags. Both run through this checkout's wrappers (the
-C interfaces must match) on the same inputs, captured from one bf16 eval
+with the same nvcc flags. Both run through this checkout's wrappers where
+the C interfaces match, on the same inputs, captured from one bf16 eval
 forward and one bf16 train step of the geometry that runs the kernel:
 win_edge and lane_layer on windowed_pack_config(256), edge_mlp on
 contiguous_pack_config(32), lane_plan on the merged geometry and band_conv
 on the unfused one (chip_smoke.py GEOMETRIES); segment_sum on every call
 shape of one bf16 train step (the scatters' forwards and the gathers'
-backwards) of the windowed, LaneRCNN and flat geometries. Each call shape
+backwards) of the windowed, LaneRCNN and flat geometries; scenario_agg
+and its backward on the windowed and LaneRCNN geometries, the other tree
+through its own wrappers (`OWN_WRAPPERS`: the C interfaces differ), with
+the time of this checkout's plan preparation beside (`new_prep_ms`). Each call shape
 (A2M, M2A, A2A) of the forward and of the backward runs once per build (the
 largest difference between the two builds' outputs is printed;
 `chip_smoke.py` holds each kernel to its plain version) and is then timed
@@ -49,7 +52,15 @@ ROUNDS = 8
 TARGETS = {"win_edge": (("windowed",), "win_edge"), "edge_mlp": (("contiguous",), "edge_mlp"),
            "lane_layer": (("windowed",), "lane_layer"), "lane_plan": (("merged",), "lane_plan"),
            "band_conv": (("unfused",), "band_conv"),
-           "segment_sum": (("windowed", "lanercnn", "flat"), "segment_sum")}
+           "segment_sum": (("windowed", "lanercnn", "flat"), "segment_sum"),
+           "scenario_agg": (("windowed", "lanercnn"), "scenario_agg")}
+# Kernel libraries whose C interface changed: the other tree's calls go
+# through its own wrapper module (ops/<name>.py under that tree, loaded
+# beside this checkout's package, its `cuda.call`s landing on the other
+# build), with the leading arguments it takes: {name: {kernel: (wrapper,
+# arguments)}}.
+OWN_WRAPPERS = {"scenario_agg": {"scenario_agg": ("scenario_aggregate", 8),
+                                 "scenario_agg_bwd": ("scenario_agg_bwd_cuda", 8)}}
 
 
 def build_old(old_root: Path, name: str):
@@ -68,6 +79,22 @@ def build_old(old_root: Path, name: str):
         raise RuntimeError(f"nvcc failed for the other tree's {name}.cu:\n{proc.stdout}"
                            f"{proc.stderr}")
     return ctypes.CDLL(str(out))
+
+
+def old_wrappers(old_root: Path, name: str):
+    """{kernel: function} calling the other tree's own wrappers of library
+    `name` (OWN_WRAPPERS), or {} where it has none or the interface is
+    shared."""
+    import importlib.util
+
+    src = old_root / "lanegcn_tpu_torch" / "ops" / f"{name}.py"
+    if name not in OWN_WRAPPERS or not src.exists():
+        return {}
+    spec = importlib.util.spec_from_file_location(f"ab_old_{name}", src)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return {k: (lambda *a, _f=getattr(mod, attr), _n=n: _f(*a[:_n]))
+            for k, (attr, n) in OWN_WRAPPERS[name].items()}
 
 
 def bare_ms(fn, runs: int = 25) -> float:
@@ -132,6 +159,17 @@ def host_ms(fn, runs: int = 25) -> float:
     return statistics.median(times)
 
 
+def prep_ms(a) -> float:
+    """CUDA-event time of this checkout's plan preparation for scenario_agg's
+    captured forward call `a` (with the backward's source order), which a
+    LaneConv stack makes once for its layers and their backwards."""
+    from lanegcn_tpu_torch.ops import scenario_agg
+
+    feat, _, w_rel, lu, lv, rel, num_win, groups = a[:8]
+    return cs.time_ms(lambda: scenario_agg.prepare_plan(
+        lu, lv, rel, num_win, feat.shape[0] // num_win, groups, w_rel.shape[0]))
+
+
 def capture(geom):
     """(forward calls, backward calls) of one eval forward and one train step
     at bf16, keyed by kernel then by input shapes."""
@@ -183,6 +221,7 @@ def main() -> None:
     t0 = time.perf_counter()
     cuda.build_all()  # the model's other kernels run in the captures
     libs = {n: {"new": cuda.lib(n), "old": build_old(old_root, n)} for n in names}
+    old_fns = {n: old_wrappers(old_root, n) for n in names}
     cs.emit({"phase": "build", "seconds": time.perf_counter() - t0,
              "old_present": {n: v["old"] is not None for n, v in libs.items()}})
 
@@ -206,10 +245,13 @@ def main() -> None:
                     res["edges_kept"] = int((a[1] < a[2]).sum())
                     res["edge_slots"] = a[0].shape[0]
                     res["with_out"] = len(a) > 3 and a[3] is not None
+                fns = {v: old_fns[name].get(kname, fn) if v == "old" else fn for v in versions}
+                if name == "scenario_agg" and kname == "scenario_agg":
+                    res["new_prep_ms"] = prep_ms(a)
                 outs = {}
                 for v in versions:
                     cuda._LIBS[name] = libs[name][v]
-                    out = fn(*a)
+                    out = fns[v](*a)
                     outs[v] = out if isinstance(out, (tuple, list)) else (out,)
                 if len(versions) == 2:
                     res["old_vs_new_max_abs"] = max(
@@ -221,8 +263,8 @@ def main() -> None:
                 for r in range(ROUNDS):
                     for v in (versions if r % 2 == 0 else versions[::-1]):
                         cuda._LIBS[name] = libs[name][v]
-                        samples[v].append(cs.time_ms(lambda: fn(*a)))
-                        bare[v].append(bare_ms(lambda: fn(*a)))
+                        samples[v].append(cs.time_ms(lambda: fns[v](*a)))
+                        bare[v].append(bare_ms(lambda: fns[v](*a)))
                 for v in versions:
                     res[f"{v}_bare_ms_median"] = statistics.median(bare[v])
                 for v in versions:
@@ -234,8 +276,8 @@ def main() -> None:
                     res["new_over_old"] = res["new_ms_median"] / res["old_ms_median"]
                 for v in versions:  # device time of each pass (CUDA kernel) per call
                     cuda._LIBS[name] = libs[name][v]
-                    res[f"{v}_device_ms_by_kernel"] = device_ms_by_kernel(lambda: fn(*a))
-                    res[f"{v}_host_ms"] = host_ms(lambda: fn(*a))
+                    res[f"{v}_device_ms_by_kernel"] = device_ms_by_kernel(lambda: fns[v](*a))
+                    res[f"{v}_host_ms"] = host_ms(lambda: fns[v](*a))
                 cs.emit(res)
         cuda._LIBS[name] = libs[name]["new"]
         del fwd_calls, bwd_calls, calls

@@ -52,7 +52,11 @@ and exits non-zero:
           plain times (CUDA events, median of 25 runs), and the bound from
           the work these inputs need; lane_layer's and lane_plan's saved
           fp32 temp against the plain temp. windowed: lane_layer,
-          scenario_agg, win_edge, row_tail; bench: pair_agg (its other
+          scenario_agg (and its edge cases, `PLAN_CASES`: an empty plan,
+          whose output must be temp bitwise, one relation only, relation
+          runs that straddle the kernels' 64-edge tiles, a window with all
+          2,048 slots applied, 300 edges into one row, a grouped plan that
+          drops misplaced edges), win_edge, row_tail; bench: pair_agg (its other
           kernels run at the windowed shapes); contiguous: lane_layer (no
           node windows), row_tail (A2M and 512 actor rows) and edge_mlp;
           lanercnn: lane_layer and scenario_agg at the RoI and global
@@ -66,7 +70,8 @@ and exits non-zero:
           rerun that must be bitwise equal (lanercnn: lane_layer_bwd and
           scenario_agg_bwd at the RoI and global shapes, window_scatter_bwd
           beside one `index_select` call, row_tail2_bwd, edge_mlp_pool_bwd;
-          merged: lane_plan_bwd; unfused: band_conv_bwd), and
+          merged: lane_plan_bwd; unfused: band_conv_bwd; windowed:
+          scenario_agg_bwd on `PLAN_CASES` too), and
           lane_layer_bwd, band_conv_bwd and row_tail_bwd again on their
           largest call cut to 1,000 and 20,000 rows (`RAGGED_ROWS`: no
           multiple of their tensor-core passes' row blocks). A few rows whose
@@ -95,7 +100,7 @@ and exits non-zero:
           `per_forward` in GEOMETRIES).
   profile device time by kernel name over one forward per pack (torch.profiler,
           after the counted serve run), the device's idle share and the host
-          syncs (nonzero / item calls) per step; no nonzero asserted.
+          syncs (nonzero / item calls) per step; none of either asserted.
   train   make_train_step in bfloat16 over fp32 params on the 2 packs: 2 warm
           steps, then 20 steps alternating the packs: ms per step, scen/s,
           first and last loss (finite), skipped steps (0), peak device
@@ -1061,8 +1066,8 @@ def profile_phase(phase, geom, step, items, top_n=40) -> dict:
     """torch.profiler (CUPTI) over step(item) for each item: device time by
     kernel name, the device's idle share of the host wall time (which
     includes the profiler's own overhead, so the share is an upper bound),
-    and the host syncs per step (no `nonzero`, asserted); returns the
-    emitted numbers."""
+    and the host syncs per step (no `nonzero` or `_local_scalar_dense`,
+    asserted); returns the emitted numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1097,8 +1102,8 @@ def profile_phase(phase, geom, step, items, top_n=40) -> dict:
            "host_syncs_per_step": {k: v / len(items) for k, v in syncs.items()},
            "by_name": [[name[:90], n, us / 1e3] for name, (n, us) in top]}
     emit(res)
-    check(syncs["aten::nonzero"] == 0,
-          f"{phase}: {syncs['aten::nonzero']} nonzero host syncs in {len(items)} steps")
+    for name in HOST_SYNCS:
+        check(syncs[name] == 0, f"{phase}: {syncs[name]} {name} host syncs in {len(items)} steps")
     return res
 
 
@@ -1150,6 +1155,11 @@ def drive(geom):
     with forward_capture() as cap:
         step(batches[0])
     torch.cuda.synchronize()
+    if geom == "windowed":
+        calls, counts, empty = plan_case_calls(backward=False)
+        cap.calls["scenario_agg"].update(calls)
+        cap.counts["scenario_agg"].update(counts)
+        check_empty_plan(calls[empty])
     results = kernel_phase("kernel", geom, forward_ops(spec["kernels"]), cap.calls, cap.counts)
     del cap
 
@@ -1211,6 +1221,97 @@ def segment_case_calls():
     return calls, counts
 
 
+# scenario_agg's edge cases (name, windows, window rows, plan slots per
+# window, grouped, fill): the kernels walk the applied edges in 64-edge tiles
+# of one relation each (runs that end inside, at and past a tile boundary),
+# write each message at its destination position and sum the positions of a
+# row in a fixed order (a row with 300 edges); a grouped plan drops the
+# edges outside their chunk's relation group ("unaligned-groups"), and an
+# empty plan leaves temp as it is (bitwise). `fill(rng, lu, lv, rel)` writes
+# the [windows, slots] plan.
+def _plan_runs(runs, hot=None, window=0):
+    """Fill window `window` with relation runs {relation: edges}, in
+    relation order (every destination `hot` where given)."""
+    def fill(rng, lu, lv, rel, stride):
+        o = 0
+        for r, k in runs.items():
+            lu[window, o:o + k] = rng.integers(0, stride, k) if hot is None else hot
+            lv[window, o:o + k] = rng.integers(0, stride, k)
+            rel[window, o:o + k] = r
+            o += k
+    return fill
+
+
+def _plan_grouped(per_window, misplace=False):
+    """Grouped layout: per window (left/right edges, dilated edges), the
+    dilated ones from the next 512-slot chunk; `misplace` moves one dilated
+    relation into each window's left/right chunk and one left/right
+    relation into its dilated chunk (both dropped)."""
+    def fill(rng, lu, lv, rel, stride):
+        for w, (k_lr, k_dil) in enumerate(per_window):
+            lu[w, :k_lr] = rng.integers(0, stride, k_lr)
+            lv[w, :k_lr] = rng.integers(0, stride, k_lr)
+            rel[w, :k_lr] = rng.choice([12, 13], k_lr)
+            o = -(-k_lr // 512) * 512
+            lu[w, o:o + k_dil] = rng.integers(0, stride, k_dil)
+            lv[w, o:o + k_dil] = rng.integers(0, stride, k_dil)
+            rel[w, o:o + k_dil] = np.sort(rng.integers(0, 12, k_dil))
+            if misplace and k_lr and k_dil:
+                rel[w, 0], rel[w, o] = 3, 13
+    return fill
+
+
+PLAN_CASES = (
+    ("empty", 4, 768, 2048, True, lambda *a: None),
+    ("one-relation", 5, 512, 1024, False, _plan_runs({5: 900})),
+    ("tile-straddle", 6, 256, 1024, False, _plan_runs({0: 63, 1: 64, 2: 65, 3: 129, 9: 1})),
+    ("full-window", 2, 768, 2048, True, _plan_grouped([(1024, 1024), (300, 700)])),
+    ("hot-row", 2, 1024, 1024, False, _plan_runs({2: 100, 7: 150, 12: 50}, hot=7)),
+    ("unaligned-groups", 3, 768, 2048, True,
+     _plan_grouped([(600, 900), (40, 300), (0, 0)], misplace=True)),
+)
+
+
+def plan_case_calls(backward: bool):
+    """{shapes: args} and {shapes: 0} of PLAN_CASES, bf16 on the card
+    (kernel_phase casts them to fp32 too), as scenario_agg's forward
+    (feat, temp, w_rel, lu, lv, rel, windows, groups) or backward launcher
+    (feat, w_rel, lu, lv, rel, windows, groups, g) takes them; and the key
+    of the empty plan."""
+    import torch
+
+    rng = np.random.default_rng(13)
+    calls, counts, empty = {}, {}, None
+    bf = lambda *shape, scale=1.0: torch.as_tensor(rng.normal(size=shape) * scale,
+                                                   dtype=torch.bfloat16, device="cuda")
+    for name, num_win, stride, ecap, grouped, fill in PLAN_CASES:
+        lu = np.full((num_win, ecap), -1, np.int32)
+        lv, rel = lu.copy(), lu.copy()
+        fill(rng, lu, lv, rel, stride)
+        plan = [torch.as_tensor(x.reshape(-1, 1), device="cuda") for x in (lu, lv, rel)]
+        groups = (tuple(range(12, 14)), tuple(range(12))) if grouped else None
+        n = num_win * stride
+        feat, w_rel = bf(n, 128), bf(14, 128, 128, scale=128 ** -0.5)
+        args = ([feat, w_rel, *plan, num_win, groups, bf(n, 128)] if backward
+                else [feat, bf(n, 128), w_rel, *plan, num_win, groups])
+        key = tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+        calls[key], counts[key] = args, 0
+        if name == "empty":
+            empty = key
+    return calls, counts, empty
+
+
+def check_empty_plan(fwd_args):
+    """The empty plan's forward returns temp bitwise, in both dtypes."""
+    import torch
+    from lanegcn_tpu_torch.ops import scenario_agg
+
+    for dtype in (torch.float32, torch.bfloat16):
+        a = cast_args(fwd_args, dtype)
+        check(torch.equal(scenario_agg.scenario_aggregate(*a), a[1]),
+              f"scenario_agg {dtype}: the empty plan's output is not temp")
+
+
 # Row counts that are no multiple of the tensor-core backward passes' row
 # blocks (192 rows in the band passes, 128 in the row pass), so that their
 # partial tiles run: the row guards and the zeroed halo and mask rows.
@@ -1249,6 +1350,10 @@ def step_kernel_phases(geom, cap):
     for name, calls in ragged_calls(cap.calls).items():
         cap.calls[name].update(calls)
         cap.counts[name].update(dict.fromkeys(calls, 0))
+    if geom == "windowed":
+        calls, counts, _ = plan_case_calls(backward=True)
+        cap.calls["scenario_agg_bwd"].update(calls)
+        cap.counts["scenario_agg_bwd"].update(counts)
     results = kernel_phase("kernel_bwd", geom, backward_ops(spec["kernels"]), cap.calls,
                            cap.counts)
     if geom == "windowed":

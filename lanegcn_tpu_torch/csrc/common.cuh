@@ -557,15 +557,6 @@ __device__ __forceinline__ void ldm_a(uint32_t (&a)[4], const bf16* tile, int ld
                : "r"(p));
 }
 
-// 8 bf16 of one 16-byte chunk from 8 floats (round to nearest even).
-__device__ __forceinline__ uint4 pack8(float4 a, float4 b) {
-  uint4 u;
-  __nv_bfloat162 h[4] = {__floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
-                         __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
-  memcpy(&u, h, 16);
-  return u;
-}
-
 // Four floats as 4 bf16 (8 bytes) at byte offset off of a shared matrix.
 __device__ __forceinline__ void st_bf4(uint8_t* base, uint32_t off, float4 v) {
   __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(base + off);
@@ -584,5 +575,25 @@ __device__ __forceinline__ void load_tiles_128(uint8_t* dst, const Tiles& t, con
 }
 
 }  // namespace tc
+
+// Asynchronous 16-byte copies from device to shared memory (cp.async), in
+// commit groups that a thread waits for; the copies feed the tensor-core
+// passes' operand tiles.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(tc::smem_u32(dst)), "l"(src)
+               : "memory");
+}
+// 16 bytes from src, or zeros where bytes is 0 (src then unread).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(tc::smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 }  // namespace lgk

@@ -226,17 +226,6 @@ inline int band_t_tc_smem() {
          MAXJ * DX_HROWS;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(tc::smem_u32(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Wb_j (row-major [C][C] bf16) into core tiles by cp.async, one commit group.
 __device__ __forceinline__ void prefetch_weight(uint8_t* dst, const tc::Tiles& t,
                                                 const bf16* src) {
@@ -441,13 +430,6 @@ constexpr int DW_ROWS = 64;   // node rows per stage
 constexpr int DW_STAGES = 3;  // stages in the ring
 
 inline int band_dw_tc_smem() { return DW_STAGES * 2 * tc::tiles_bytes(DW_ROWS); }
-
-// 16 bytes from src, or zeros where bytes is 0 (src then unread).
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(tc::smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
 
 __global__ void __launch_bounds__(NT)
 band_dw_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ dt,

@@ -1,13 +1,15 @@
-// The window edge plan, shared by scenario_agg.cu (the plan's aggregate as
-// its own kernel) and lane_plan.cu (the plan inside the LaneConv layer).
+// The window edge plan as lane_plan.cu (the plan inside the LaneConv layer)
+// walks it. (scenario_agg.cu, the plan's aggregate as its own kernel, takes
+// the plan prepared by ops/scenario_agg.py `prepare_plan`, which applies the
+// same rule on the device before the kernels run.)
 //
 // Per window w (node rows [w*stride, (w+1)*stride)) the plan holds ecap slots
 // (lu, lv, rel: window-local destination and source rows and the relation;
 // lu = -1 is padding), prefix-dense and, with relation groups, chunk-aligned
 // per group: group g owns the 512-slot chunks [ends[w][g-1], ends[w][g]) and a
 // chunk applies only its group's relations. Chunks past the last group's end
-// are skipped. `applied_rel` is that rule for one slot; every kernel that
-// walks the plan uses it, so they all apply the same edges.
+// are skipped. `applied_rel` is that rule for one slot (the plain versions'
+// `_applied_edges`), so every kernel applies the same edges.
 #pragma once
 
 #include "common.cuh"
@@ -29,8 +31,7 @@ inline int make_groups(int num_groups, int num_rel, const void* group_masks, Gro
   return 0;
 }
 
-// Whether plan slot `slot` of window w is applied (the forward kernel's
-// rule): inside a visited chunk, both rows in the window, its relation in
+// Whether plan slot `slot` of window w is applied: inside a visited chunk, both rows in the window, its relation in
 // the chunk's group. Returns the relation, or -1.
 __device__ __forceinline__ int applied_rel(const int* lu, const int* lv, const int* rel,
                                            const int* ends_w, const Groups& groups, long w,
@@ -64,15 +65,15 @@ __device__ __forceinline__ int plan_steps(const int* ends_w, int num_groups, int
 
 // dW_rel pass: block (p, r) sums feat[v]ᵀ rnd(g[u]) over the applied edges of
 // relation r in windows p, p + splits, ..., 64 compacted edges per product,
-// and writes its partial part[p][r] [C][C]. g is T (scenario_agg: the output
-// cotangent) or fp32 (lane_plan: d_temp, rounded to T as it is read).
+// and writes its partial part[p][r] [C][C]. g is lane_plan's fp32 d_temp,
+// rounded to T as it is read.
 template <typename T, typename G>
 __global__ void __launch_bounds__(NT)
-scenario_agg_dw_kernel(const T* __restrict__ feat, const G* __restrict__ g,
-                       const int* __restrict__ lu, const int* __restrict__ lv,
-                       const int* __restrict__ rel, const int* __restrict__ ends, Groups groups,
-                       float* __restrict__ part, int num_win, int stride, int ecap, int num_rel,
-                       int num_groups) {
+plan_dw_kernel(const T* __restrict__ feat, const G* __restrict__ g,
+               const int* __restrict__ lu, const int* __restrict__ lv,
+               const int* __restrict__ rel, const int* __restrict__ ends, Groups groups,
+               float* __restrict__ part, int num_win, int stride, int ecap, int num_rel,
+               int num_groups) {
   extern __shared__ float4 smem4[];
   float* A_s = reinterpret_cast<float*>(smem4);  // [EB][LDA] feat[v]
   float* B_s = A_s + EB * LDA;                   // [EB][LDA] g[u]
@@ -147,10 +148,10 @@ int launch_plan_dw(const T* feat, const G* g, const int* lu, const int* lv, cons
                    int stride, int ecap, int num_rel, int num_groups, int splits,
                    cudaStream_t stream) {
   const int smem = plan_dw_smem();
-  cudaError_t e = set_smem((const void*)scenario_agg_dw_kernel<T, G>, smem);
+  cudaError_t e = set_smem((const void*)plan_dw_kernel<T, G>, smem);
   if (e != cudaSuccess) return (int)e;
   if (splits > 0 && num_rel > 0) {
-    scenario_agg_dw_kernel<T, G><<<dim3(splits, num_rel), NT, smem, stream>>>(
+    plan_dw_kernel<T, G><<<dim3(splits, num_rel), NT, smem, stream>>>(
         feat, g, lu, lv, rel, ends, groups, part, num_win, stride, ecap, num_rel, num_groups);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;

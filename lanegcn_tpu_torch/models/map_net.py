@@ -17,7 +17,8 @@ the pack carries:
   per-relation matmul → one scatter_add, both in an order sorted once per
   call (ops/scatter.py) and shared by the layers;
 - the window plan's edges (both endpoints in one node window): the
-  `scenario_agg` kernel, or, in the fused layer with
+  `scenario_agg` kernel (its plan prepared once per call and shared by the
+  layers), or, in the fused layer with
   `ModelConfig.merge_plan_agg` and a node window that can be the layer's
   tile (`merge_plan`), inside the layer kernel (`lane_plan`); a plan that
   is not group-aligned raises (`check_plan_groups`) instead of losing
@@ -53,7 +54,8 @@ from lanegcn_tpu_torch.ops.pair_agg import pair_aggregate
 from lanegcn_tpu_torch.ops.row_tail import fused_row_tail
 from lanegcn_tpu_torch.ops.scatter import masked_gather, order_by, scatter_add, table_order
 from lanegcn_tpu_torch.ops.scenario_agg import _CHUNK as PLAN_CHUNK
-from lanegcn_tpu_torch.ops.scenario_agg import GROUPED_MIN_CAP, plan_applied, scenario_aggregate
+from lanegcn_tpu_torch.ops.scenario_agg import (GROUPED_MIN_CAP, plan_applied, prepare_plan,
+                                                 scenario_aggregate)
 
 
 class LaneConvStack(nn.ModuleDict):
@@ -100,12 +102,15 @@ class LaneConvStack(nn.ModuleDict):
         fused = bool(band_rel) and self.cfg.pallas_bands != "off"
         grad = torch.is_grad_enabled()
 
-        groups, merge = None, False
+        groups, merge, prep = None, False, None
         if plan is not None:
             plan_lu, plan_lv, plan_rel, num_win = plan
             groups = plan_groups(names, plan_lu.shape[0] // num_win)
             check_plan_groups(plan_lu, plan_rel, num_win, groups, len(names))
             merge = fused and merge_plan(self.cfg, num_nodes, plan_lu.shape[0], num_win)
+            if not merge:  # scenario_agg's tiles and orders, shared by the layers
+                prep = prepare_plan(plan_lu, plan_lv, plan_rel, num_win, num_nodes // num_win,
+                                    groups, len(names), backward=grad)
 
         tbl_rel = [r for r, nm in enumerate(names) if tables and nm in tables]
         if tbl_rel:
@@ -144,7 +149,7 @@ class LaneConvStack(nn.ModuleDict):
             if plan is not None and not merge:
                 temp = scenario_aggregate(
                     feat.to(dt).contiguous(), temp.to(dt).contiguous(), w_dt,
-                    plan_lu, plan_lv, plan_rel, num_win, groups,
+                    plan_lu, plan_lv, plan_rel, num_win, groups, prep,
                 )
             if spill is not None:
                 temp = pair_aggregate(feat.to(dt).contiguous(), temp.to(dt).contiguous(), w_dt,

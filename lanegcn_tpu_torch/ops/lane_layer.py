@@ -286,7 +286,7 @@ def work_bwd(feat, masks) -> dict:
 #
 # Node rows are num_win windows of t = N / num_win rows (t % 128 == 0); the
 # plan is [num_win * ECAP, 1] int32 lu/lv/rel (ECAP % 512 == 0), window-local,
-# with the chunk-aligned relation groups `scenario_agg` reads
+# with the chunk-aligned relation groups of `scenario_agg`
 # (group_chunk_ends). Each plan message is rounded to the activation dtype
 # before its fp32 sum, as the TPU kernel rounds it. The backward:
 #

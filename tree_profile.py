@@ -19,6 +19,9 @@ torch.profiler over one forward per pack and over one train step: the
 device's busy time (the union of its kernels' intervals) per step, the
 idle share of the host's wall time and the host syncs (`nonzero`,
 `.item()`) per step; then the host clock over 10 un-profiled train steps.
+Peak device memory (`max_memory_allocated`, the packs, both models and the
+optimizer state included) over the profiled forwards and over the 10
+train steps.
 One JSON line per geometry and step kind; the last line names the card.
 Needs CUDA; uses only the package under DIR (and numpy).
 """
@@ -106,15 +109,20 @@ def run(tree, geom):
     for b in batches:
         serve(b)
         train(b, 0.0)
-    out = [("serve", profile(serve, batches)),
-           ("train", profile(lambda b: train(b, 0.5), batches[:1]))]
+    gib = lambda: torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    out = [("serve", profile(serve, batches))]
+    out[0][1]["peak_mem_gib"] = gib()
+    out.append(("train", profile(lambda b: train(b, 0.5), batches[:1])))
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     steps = 10
     for i in range(steps):
         train(batches[i % 2], 0.5)
     torch.cuda.synchronize()
     out[1][1]["host_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / steps
+    out[1][1]["peak_mem_gib"] = gib()
     for kind, res in out:
         print(json.dumps({"tree": tree, "geometry": geom, "step": kind, **res}), flush=True)
 
