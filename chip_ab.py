@@ -16,7 +16,11 @@ shape of one bf16 train step (the scatters' forwards and the gathers'
 backwards) of the windowed, LaneRCNN and flat geometries; scenario_agg
 and its backward on the windowed and LaneRCNN geometries, the other tree
 through its own wrappers (`OWN_WRAPPERS`: the C interfaces differ), with
-the time of this checkout's plan preparation beside (`new_prep_ms`). Each call shape
+the time of this checkout's plan preparation beside (`new_prep_ms`); the
+win_edge backward likewise (its C interface changed: the other tree's
+through its own wrapper, and this checkout's pair-plan preparation timed
+beside, `new_prep_ms`, the call itself handed the preparation the train step
+made, as a fusion stage hands it to its Att layers). Each call shape
 (A2M, M2A, A2A) of the forward and of the backward runs once per build (the
 largest difference between the two builds' outputs is printed;
 `chip_smoke.py` holds each kernel to its plain version) and is then timed
@@ -60,7 +64,8 @@ TARGETS = {"win_edge": (("windowed",), "win_edge"), "edge_mlp": (("contiguous",)
 # build), with the leading arguments it takes: {name: {kernel: (wrapper,
 # arguments)}}.
 OWN_WRAPPERS = {"scenario_agg": {"scenario_agg": ("scenario_aggregate", 8),
-                                 "scenario_agg_bwd": ("scenario_agg_bwd_cuda", 8)}}
+                                 "scenario_agg_bwd": ("scenario_agg_bwd_cuda", 8)},
+                "win_edge": {"win_edge_bwd": ("win_edge_bwd_cuda", 14)}}
 
 
 def build_old(old_root: Path, name: str):
@@ -170,6 +175,17 @@ def prep_ms(a) -> float:
         lu, lv, rel, num_win, feat.shape[0] // num_win, groups, w_rel.shape[0]))
 
 
+def pair_prep_ms(a) -> float:
+    """CUDA-event time of this checkout's pair-plan preparation for
+    win_edge's captured backward call `a`, which a fusion stage makes once
+    for its Att layers (the timed wrapper call is handed it, as in the
+    model)."""
+    from lanegcn_tpu_torch.ops import win_edge
+
+    pd, ps, plan = a[0], a[2], a[12]
+    return cs.time_ms(lambda: win_edge.prepare_pair(plan, pd.shape[0], ps.shape[0]))
+
+
 def capture(geom):
     """(forward calls, backward calls) of one eval forward and one train step
     at bf16, keyed by kernel then by input shapes."""
@@ -248,6 +264,8 @@ def main() -> None:
                 fns = {v: old_fns[name].get(kname, fn) if v == "old" else fn for v in versions}
                 if name == "scenario_agg" and kname == "scenario_agg":
                     res["new_prep_ms"] = prep_ms(a)
+                if kname == "win_edge_bwd":
+                    res["new_prep_ms"] = pair_prep_ms(a)
                 outs = {}
                 for v in versions:
                     cuda._LIBS[name] = libs[name][v]

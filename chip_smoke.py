@@ -51,8 +51,11 @@ and exits non-zero:
           the error beside its tolerance and the output's scale, kernel and
           plain times (CUDA events, median of 25 runs), and the bound from
           the work these inputs need; lane_layer's and lane_plan's saved
-          fp32 temp against the plain temp. windowed: lane_layer,
-          scenario_agg (and its edge cases, `PLAN_CASES`: an empty plan,
+          fp32 temp against the plain temp. windowed: lane_layer (and its
+          edge cases, `LANE_ROWS`: its largest call cut to 1, 191 and 193
+          rows, around the bf16 kernel's 192-row blocks, and to 385 rows
+          with one relation's band mask all zero; each without and with
+          the saved temp), scenario_agg (and its edge cases, `PLAN_CASES`: an empty plan,
           whose output must be temp bitwise, one relation only, relation
           runs that straddle the kernels' 64-edge tiles, a window with all
           2,048 slots applied, 300 edges into one row, a grouped plan that
@@ -71,7 +74,9 @@ and exits non-zero:
           scenario_agg_bwd at the RoI and global shapes, window_scatter_bwd
           beside one `index_select` call, row_tail2_bwd, edge_mlp_pool_bwd;
           merged: lane_plan_bwd; unfused: band_conv_bwd; windowed:
-          scenario_agg_bwd on `PLAN_CASES` too), and
+          scenario_agg_bwd on `PLAN_CASES` too, and win_edge_bwd on
+          `WIN_CASES`: an empty plan, a destination window no edge reaches,
+          tail chunks all padding, runs of many chunks), and
           lane_layer_bwd, band_conv_bwd and row_tail_bwd again on their
           largest call cut to 1,000 and 20,000 rows (`RAGGED_ROWS`: no
           multiple of their tensor-core passes' row blocks). A few rows whose
@@ -179,8 +184,7 @@ KERNEL_META = {
     "scenario_agg_bwd": ("lanegcn_tpu_torch/csrc/scenario_agg.cu",
                          "lanegcn_tpu/ops/pallas_scenario_agg.py:292", ("scenario_agg_bwd",)),
     "win_edge_bwd": ("lanegcn_tpu_torch/csrc/win_edge.cu",
-                     "lanegcn_tpu/ops/pallas_win_edge.py:316",
-                     ("win_edge_bwd_d", "win_edge_bwd_s")),
+                     "lanegcn_tpu/ops/pallas_win_edge.py:316", ("win_edge_bwd",)),
     "row_tail_bwd": ("lanegcn_tpu_torch/csrc/row_tail.cu",
                      "lanegcn_tpu/ops/pallas_row_tail.py:169", ("row_tail_bwd",)),
     "pair_agg": ("lanegcn_tpu_torch/csrc/pair_agg.cu",
@@ -227,8 +231,7 @@ KERNEL_META = {
 _WINDOWED_FWD = {"lane_layer_fwd": 8, "scenario_agg_fwd": 8, "win_edge_fwd": 6,
                  "row_tail_fwd": 6, "segment_sum": 8}
 _WINDOWED_STEP = {**_WINDOWED_FWD, "lane_layer_bwd": 8, "scenario_agg_bwd": 8,
-                  "win_edge_bwd_d": 6, "win_edge_bwd_s": 6, "row_tail_bwd": 6,
-                  "segment_sum": 16}
+                  "win_edge_bwd": 6, "row_tail_bwd": 6, "segment_sum": 16}
 _PAIR_BWD = {"pair_agg_bwd_d": 8, "pair_agg_bwd_s": 8}
 # merge_plan_agg="auto": the plan inside the layer kernel, so no lane_layer
 # and no scenario_agg launch.
@@ -384,9 +387,11 @@ def cast_args(args, dtype):
 
 
 class Capture:
-    """Records, per input shape, the first call's arguments of each wrapped
-    function (module attribute), then calls through. `targets` lists
-    (module, attribute, kernel name)."""
+    """Records, per input shape, the first call's positional arguments of
+    each wrapped function (module attribute), then calls through (keyword
+    arguments too: win_edge's `prep` is not recorded, and the recorded call
+    prepares the plan itself). `targets` lists (module, attribute, kernel
+    name)."""
 
     def __init__(self, targets):
         self.targets = targets
@@ -401,14 +406,14 @@ class Capture:
             fn = getattr(mod, attr)
             self.saved.append((mod, attr, fn))
 
-            def rec(*args, _fn=fn, _name=name):
+            def rec(*args, _fn=fn, _name=name, **kw):
                 key = tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
                 self.counts[_name][key] = self.counts[_name].get(key, 0) + 1
                 if key not in self.calls[_name]:
                     self.calls[_name][key] = [
                         a.clone() if isinstance(a, torch.Tensor) else a for a in args
                     ]
-                return _fn(*args)
+                return _fn(*args, **kw)
 
             setattr(mod, attr, rec)
         return self
@@ -1160,6 +1165,9 @@ def drive(geom):
         cap.calls["scenario_agg"].update(calls)
         cap.counts["scenario_agg"].update(counts)
         check_empty_plan(calls[empty])
+        calls, counts = lane_case_calls(cap.calls["lane_layer"])
+        cap.calls["lane_layer"].update(calls)
+        cap.counts["lane_layer"].update(counts)
     results = kernel_phase("kernel", geom, forward_ops(spec["kernels"]), cap.calls, cap.counts)
     del cap
 
@@ -1319,26 +1327,112 @@ RAGGED_ROWS = (1000, 20000)
 RAGGED_BWD = ("lane_layer_bwd", "band_conv_bwd", "row_tail_bwd")
 
 
-def ragged_calls(calls):
-    """{kernel: {shapes: args}}: each RAGGED_BWD kernel's captured call with
-    the most rows cut to each of RAGGED_ROWS rows (every [N, ...] tensor to
-    its first n rows, every [J, N] band mask to its first n columns)."""
+def cut_rows(args, n):
+    """A captured call's arguments with every [N, ...] tensor cut to its
+    first n rows and every [J, N] band mask to its first n columns (N: the
+    first argument's rows)."""
     import torch
 
+    big = args[0].shape[0]
+    return [a if not isinstance(a, torch.Tensor)
+            else a[:n].clone() if a.shape[0] == big
+            else a[:, :n].contiguous() if a.dim() == 2 and a.shape[1] == big
+            else a for a in args]
+
+
+def shape_key(args):
+    import torch
+
+    return tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+
+
+def ragged_calls(calls):
+    """{kernel: {shapes: args}}: each RAGGED_BWD kernel's captured call with
+    the most rows cut to each of RAGGED_ROWS rows."""
     cut = {}
     for name in RAGGED_BWD:
         if not calls.get(name):
             continue
         args = max(calls[name].values(), key=lambda a: a[0].shape[0])
-        big = args[0].shape[0]
         cut[name] = {}
-        for n in (n for n in RAGGED_ROWS if n < big):
-            part = [a if not isinstance(a, torch.Tensor)
-                    else a[:n].clone() if a.shape[0] == big
-                    else a[:, :n].contiguous() if a.dim() == 2 and a.shape[1] == big
-                    else a for a in args]
-            cut[name][tuple(tuple(a.shape) for a in part if isinstance(a, torch.Tensor))] = part
+        for n in (n for n in RAGGED_ROWS if n < args[0].shape[0]):
+            part = cut_rows(args, n)
+            cut[name][shape_key(part)] = part
     return cut
+
+
+# lane_layer's edge cases: the bf16 forward's blocks own 192 rows (three
+# warpgroups of 64), so its captured call with the most rows is cut to one
+# row, one row short of a block and one row past it (LANE_ROWS), and to two
+# blocks and a row with relation 0's band mask all zero (every warpgroup
+# skips that relation). kernel_phase runs each without temp_out and, through
+# check_temp, with it.
+LANE_ROWS = (1, 191, 193)
+LANE_ZERO_REL_ROWS = 385
+
+
+def lane_case_calls(calls):
+    """{shapes: args} and {shapes: 0} of lane_layer's edge cases, cut from
+    its captured forward calls."""
+    args = max(calls.values(), key=lambda a: a[0].shape[0])
+    cases, counts = {}, {}
+    for n in LANE_ROWS + (LANE_ZERO_REL_ROWS,):
+        part = cut_rows(args, n)
+        if n == LANE_ZERO_REL_ROWS:
+            part[2] = part[2].clone()
+            part[2][0] = 0
+        cases[shape_key(part)], counts[shape_key(part)] = part, 0
+    return cases, counts
+
+
+# win_edge_bwd's edge cases (name, destination windows x rows, source
+# windows x rows, slot capacity, edges, destination window left untouched):
+# the kernel walks the valid edges in 64-edge tiles of the destination
+# order and sums dPd/dQd and dPs/dCs over the destination and the source
+# orders: an empty plan (all four zero), a destination window no edge
+# reaches (its rows zero), a capacity far past the edges (tail chunks all
+# padding), and an M2A-like plan (two destination windows, one run of
+# many chunks each, into 768-row source windows).
+WIN_CASES = (
+    ("empty", (3, 128), (4, 128), 1024, 0, None),
+    ("untouched-window", (6, 128), (3, 768), 4096, 3000, 2),
+    ("padding-chunks", (4, 128), (4, 128), 8192, 300, None),
+    ("long-runs", (2, 128), (8, 768), 8192, 5000, None),
+)
+
+
+def win_case_calls(dev="cuda"):
+    """{shapes: args} and {shapes: 0} of WIN_CASES as win_edge_bwd's
+    launcher takes them (pd, qd, ps, cs, bd, kdo, gdow, gdob, k1, gchw,
+    gchb, kout, plan, g), bf16 rows on the card (kernel_phase casts them to
+    fp32 too), fp32 weights and vectors as the model hands them."""
+    import torch
+    from lanegcn_tpu_torch.data.packing import build_pair_plan
+    from lanegcn_tpu_torch.graph import PairPlan
+
+    rng = np.random.default_rng(17)
+    calls, counts = {}, {}
+    for _, (nwd, sd), (nws, ss), cap, n_edges, skip in WIN_CASES:
+        nd, ns = nwd * sd, nws * ss
+        u, v = rng.integers(0, nd, n_edges), rng.integers(0, ns, n_edges)
+        if skip is not None:
+            keep = u // sd != skip
+            u, v = u[keep], v[keep]
+        d, dropped = build_pair_plan(u, v, sd, ss, cap, 128)
+        check(dropped == 0, f"win_edge case: {dropped} edges dropped")
+        idx = np.concatenate([d["lu"], d["lv"]], axis=1)
+        meta = np.stack([d[k] for k in ("dwin", "swin", "first", "sperm", "sswin", "sfirst")])
+        plan = PairPlan(idx=torch.as_tensor(idx, device=dev), meta=torch.as_tensor(meta, device=dev),
+                        chunk=128, dst_stride=sd, src_stride=ss)
+        rows = lambda k: torch.as_tensor(rng.normal(size=(k, 128)) * 0.5, dtype=torch.bfloat16,
+                                         device=dev)
+        f32 = lambda *shape, loc=0.0: torch.as_tensor(rng.normal(size=shape) * 0.1 + loc,
+                                                     dtype=torch.float32, device=dev)
+        w = lambda: f32(128, 128) * 0.9
+        args = [rows(nd), rows(nd), rows(ns), rows(ns), f32(128), w(), f32(128, loc=1.0),
+                f32(128), w(), f32(128, loc=1.0), f32(128), w(), plan, rows(nd)]
+        calls[shape_key(args)], counts[shape_key(args)] = args, 0
+    return calls, counts
 
 
 def step_kernel_phases(geom, cap):
@@ -1354,6 +1448,9 @@ def step_kernel_phases(geom, cap):
         calls, counts, _ = plan_case_calls(backward=True)
         cap.calls["scenario_agg_bwd"].update(calls)
         cap.counts["scenario_agg_bwd"].update(counts)
+        calls, counts = win_case_calls()
+        cap.calls["win_edge_bwd"].update(calls)
+        cap.counts["win_edge_bwd"].update(counts)
     results = kernel_phase("kernel_bwd", geom, backward_ops(spec["kernels"]), cap.calls,
                            cap.counts)
     if geom == "windowed":

@@ -546,6 +546,47 @@ __device__ __forceinline__ void zero(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) d[i] = 0.f;
 }
 
+// Which of the thread's two accumulator rows (acc_row(i): 0 for the row
+// g, 1 for the row g + 8) element i lies in.
+__device__ __forceinline__ int acc_half(int i) { return (i >> 1) & 1; }
+
+// x summed over the 4 lanes of the thread's quad (one accumulator row's 128 columns).
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Single-group GroupNorm statistics of the thread's two accumulator rows
+// (mean and 1/sqrt(biased var + eps), two passes as gn_row): a row's 128
+// columns sit in the 4 lanes of a quad, 32 in each, so two xor shuffles
+// finish each sum.
+__device__ __forceinline__ void acc_row_stats(const float (&d)[64], float eps, float (&mu)[2],
+                                              float (&inv)[2]) {
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[acc_half(i)] += d[i];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mu[h] = quad_sum(s[h]) * (1.f / C);
+    s[h] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const float x = d[i] - mu[acc_half(i)];
+    s[acc_half(i)] += x * x;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) inv[h] = rsqrtf(quad_sum(s[h]) * (1.f / C) + eps);
+}
+
+// Two fp32 values as one register of bf16x2 (the register-A fragment's element pair).
+__device__ __forceinline__ uint32_t pack_bf2(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  uint32_t u;
+  memcpy(&u, &h, 4);
+  return u;
+}
+
 // The A fragment (rows row0 .. row0+15, K = k0 .. k0+15) of a row-major bf16
 // tile with row stride ld elements (16-byte aligned rows), at any row offset.
 __device__ __forceinline__ void ldm_a(uint32_t (&a)[4], const bf16* tile, int ld, int row0,

@@ -19,16 +19,19 @@
 // products per masked row, ~57 GFLOP a pass at the 256-scenario pack,
 // against ~160-320 MB moved), so they belong on the tensor cores.
 //
-// The forward (band_fwd, and lane_plan.cu's band_t inside its plan tile)
-// and every fp32 instantiation run the products on CUDA cores in fp32
-// (mm_64x128 / mm_tn on 64-row tiles): the fp32 path is what the parity
-// checks hold to the CPU, and wgmma has no fp32 operands. The bf16
-// backward passes run on wgmma (common.cuh `tc`): band_t_tc_kernel (dx,
-// 192-row blocks of three warpgroups, A through registers at the shifted
-// rows, fp32 d_temp split into bf16 hi + lo) and band_dw_tc_kernel (dWb,
-// both operands MN-major from a cp.async ring of shared core tiles);
-// tail_bwd.cuh's row pass likewise. The forwards are later work on the
-// same helper.
+// band_fwd / layer_tail (the forward on 64-row tiles), lane_plan.cu's
+// band_t inside its plan tile, and every fp32 instantiation run the
+// products on CUDA cores in fp32 (mm_64x128 / mm_tn): the fp32 path is what
+// the parity checks hold to the CPU, and wgmma has no fp32 operands. The
+// bf16 backward passes run on wgmma (common.cuh `tc`): band_t_tc_kernel
+// (dx, 192-row blocks of three warpgroups, A through registers at the
+// shifted rows, fp32 d_temp split into bf16 hi + lo) and band_dw_tc_kernel
+// (dWb, both operands MN-major from a cp.async ring of shared core tiles);
+// tail_bwd.cuh's row pass likewise. The bf16 forward of lane_layer.cu
+// (lane_layer_tc_kernel) mirrors band_t_tc_kernel with its 192-row blocks,
+// halo tile and weight buffers (DX_*, prefetch_weight). The bf16 forwards
+// of band_conv.cu and lane_plan.cu still run band_fwd (and layer_tail) on
+// CUDA cores: moving them onto the same products is queued.
 #pragma once
 
 #include "tail_bwd.cuh"
@@ -195,7 +198,8 @@ band_t_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
   store_rows<T>(dx, acc, tile0, n);
 }
 
-// The bf16 dx pass on tensor cores. A block of DX_WGS = 3 warpgroups owns
+// The bf16 dx pass on tensor cores (its block shape, halo tile and weight
+// buffers are lane_layer.cu's bf16 forward's too). A block of DX_WGS = 3 warpgroups owns
 // DX_ROWS = 192 rows p (warpgroup g: rows 64g .. 64g+63) and holds the
 // cotangent rows p − HALO .. p + DX_ROWS + HALO − 1 once, as a row-major
 // bf16 halo tile. The shifts (±1 .. ±32) put the A operand of relation j

@@ -5,21 +5,40 @@
 //
 //   temp = pre + Σ_{j<J} band_j[u] · feat[u + s_j] @ Wb_j   (|s_j| ≤ 32, rows
 //                                                           outside [0,N) read 0)
-//   out  = relu(GN2(relu(GN1(temp)) @ W2) + feat)
+//   out  = relu(GN2(rnd(relu(GN1(temp))) @ W2) + feat)
 //
 // What bounds it: a [128 x 128] band product on every row its mask selects
 // and the second product on every row (64 GFLOP at the 256-scenario bench
 // pack, N = 208,896, ~8 masked band rows per row) against ~163 MB of
-// traffic, so it is compute-bound on the card's matrix rate. The forward
-// still runs the products on CUDA cores in fp32 (register-blocked 4 x 8 per
-// thread), so it sits far below the bf16 tensor-core bound; moving them to
-// wgmma, on the helper the backward uses (common.cuh `tc`), is later work. What the design keeps out of device memory: each block loads
-// its 64-row tile plus a ±32-row halo of feat ONCE into shared memory and
-// reuses it for all 12 shifted products and the residual; temp, the GN
-// statistics, h and z never leave shared memory / registers. The band masks
-// stay compact ([J, N] bytes) instead of padded planes. For training the
-// forward also writes temp (fp32, bitwise its own value) when the caller
-// passes `temp_out`; the eval path passes none.
+// traffic: at the bf16 tensor-core rate it is operation-bound (0.065 ms).
+// For training the forward also writes temp (fp32, bitwise the value the
+// tail consumed) when the caller passes `temp_out`; the eval path passes
+// none. Two instantiations:
+//   bf16 (lane_layer_tc_kernel, the path that serves and trains): every
+//     product on wgmma (common.cuh `tc`), the layout of lane_band.cuh's
+//     band_t_tc_kernel mirrored. A block of three warpgroups owns 192 rows
+//     u (warpgroup g: rows 64g .. 64g+63) and holds feat rows u − 32 ..
+//     u + 223 once, as a row-major bf16 halo tile (272-byte rows): the A
+//     operand of relation j sits at row offset 32 + s_j, which no
+//     shared-memory descriptor can address (8-row core matrices), so it goes
+//     through registers by `ldmatrix`, the fragment's rows zeroed where
+//     band_j[u] is 0; Wb_j is the B operand, read MN-major from core tiles.
+//     A warpgroup skips a relation none of its rows has. The weights stream
+//     through two shared buffers by cp.async, j + 1 (and W2 after the last
+//     relation) loading while j multiplies. The accumulator starts from pre
+//     and ends as temp, in registers; GN1 takes each row's statistics from
+//     its quad of lanes (a row's 128 columns sit in 4 lanes), and
+//     h = rnd(relu(GN1(temp))) becomes the A fragments of z = h @ W2 in the
+//     registers it was computed in (one k16 slice of an m64n128 accumulator
+//     is the register-A fragment's layout); GN2, the residual from the halo
+//     tile and the ReLU follow in registers, stored in bf16.
+//   fp32 (lane_layer_kernel, the parity path): 64-row tiles with a ±32-row
+//     fp32 halo, the band products and the tail on CUDA cores in fp32
+//     (lane_band.cuh band_fwd, layer_tail; register-blocked 4 x 8 per
+//     thread); wgmma has no fp32 operands, and this path is what the parity
+//     checks hold to the CPU. lane_plan.cu and band_conv.cu run the same
+//     band_fwd / layer_tail in both dtypes.
+// The band masks stay compact ([J, N] bytes) instead of padded planes.
 //
 // Backward (`lane_layer_bwd`): replaces pallas_lane_layer.py `_bwd_kernel` /
 // `_bwd_impl`. It consumes the saved temp:
@@ -75,19 +94,179 @@ lane_layer_kernel(const T* __restrict__ feat, const T* __restrict__ pre,
   layer_tail<T>(X_s, T_s, W_s, w2, g1w, g1b, g2w, g2b, out, temp_out, tile0, n, eps);
 }
 
+// The bf16 forward on tensor cores: DX_WGS = 3 warpgroups, DX_ROWS = 192
+// rows u a block, the feat halo tile of band_t_tc_kernel's shape (rows
+// u − HALO .. u + DX_ROWS + HALO − 1, stride DX_HLD), the band masks of the
+// block's own rows (the forward masks by band_j[u]; the dx pass by
+// band_j[p − s_j]) and the GN vectors in shared memory.
+inline int lane_layer_tc_smem() {
+  return DX_HROWS * DX_HLD * (int)sizeof(bf16) + 2 * tc::tiles_bytes(C) +
+         4 * C * (int)sizeof(float) + MAXJ * DX_ROWS;
+}
+
+__global__ void __launch_bounds__(DX_THREADS, 1)
+lane_layer_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ pre,
+                     const uint8_t* __restrict__ masks, const bf16* __restrict__ wb,
+                     const bf16* __restrict__ w2, const float* __restrict__ g1w,
+                     const float* __restrict__ g1b, const float* __restrict__ g2w,
+                     const float* __restrict__ g2b, bf16* __restrict__ out,
+                     float* __restrict__ temp_out, int n, int nj, Shifts sh, float eps) {
+  extern __shared__ float4 smem4[];
+  bf16* X_s = reinterpret_cast<bf16*>(smem4);                        // [DX_HROWS][DX_HLD] feat
+  uint8_t* W_b = reinterpret_cast<uint8_t*>(X_s + DX_HROWS * DX_HLD);  // [2] weight core tiles
+  float* gn_s = reinterpret_cast<float*>(W_b + 2 * tc::tiles_bytes(C));  // g1w, g1b, g2w, g2b
+  uint8_t* M_s = reinterpret_cast<uint8_t*>(gn_s + 4 * C);          // [MAXJ][DX_ROWS] band_j[u]
+  __shared__ uint8_t act_s[MAXJ][DX_WGS];  // relation j in warpgroup g's rows
+  const tc::Tiles Wt = tc::tiles(W_b, C);  // the strides of both weight buffers
+  constexpr int WB = tc::tiles_bytes(C);
+  const long tile0 = (long)blockIdx.x * DX_ROWS;
+  const int lane = threadIdx.x & 31, wg = threadIdx.x >> 7, wr = (threadIdx.x >> 5) & 3;
+
+  // The halo tile by cp.async (zeros outside [0, n)) and the first weight
+  // (Wb_0, or W2 without relations) in one commit group.
+  for (int i = threadIdx.x; i < DX_HROWS * (C / 8); i += DX_THREADS) {
+    const int r = i >> 4, c = (i & 15) * 8;
+    const long gr = tile0 - HALO + r;
+    const bool in = gr >= 0 && gr < n;
+    cp_async16_zfill(X_s + r * DX_HLD + c, in ? feat + gr * C + c : feat, in ? 16 : 0);
+  }
+  prefetch_weight(W_b, Wt, nj > 0 ? wb : w2);
+  for (int i = threadIdx.x; i < 4 * C; i += DX_THREADS) {
+    const float* v = i < C ? g1w : i < 2 * C ? g1b : i < 3 * C ? g2w : g2b;
+    gn_s[i] = v[i & (C - 1)];
+  }
+  for (int idx = threadIdx.x; idx < nj * DX_ROWS; idx += DX_THREADS) {
+    const int j = idx / DX_ROWS, r = idx % DX_ROWS;
+    M_s[idx] = tile0 + r < n ? masks[(long)j * n + tile0 + r] : 0;
+  }
+  // acc = pre at this thread's rows and columns (0 past n).
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const long gr = tile0 + 64 * wg + tc::acc_row(i);
+    float2 v = make_float2(0.f, 0.f);
+    if (gr < n)
+      v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(pre + gr * C + tc::acc_col(i)));
+    acc[i] = v.x;
+    acc[i + 1] = v.y;
+  }
+  __syncthreads();
+  for (int q = threadIdx.x >> 5; q < DX_WGS * nj; q += DX_THREADS / 32) {
+    const int j = q / DX_WGS, w = q % DX_WGS;
+    const uint8_t* m = M_s + j * DX_ROWS + 64 * w;
+    const bool any = __any_sync(0xffffffffu, (m[lane] | m[lane + 32]) != 0);
+    if (lane == 0) act_s[j][w] = any;
+  }
+
+  const int row0 = 64 * wg + 16 * wr;  // this warp's first row in the block
+  const int g8 = lane >> 2;             // the fragment's rows row0 + g8, row0 + g8 + 8
+  for (int j = 0; j < nj; ++j) {
+    cp_async_wait<0>();  // weight j, the one group in flight
+    tc::fence_smem();
+    // Wb_j (and, at j = 0, the halo, masks and flags) in place for every
+    // thread, and every warpgroup done with j − 1, whose buffer the next
+    // weight (Wb_{j+1}, or W2 after the last relation) now takes.
+    __syncthreads();
+    prefetch_weight(W_b + ((j + 1) & 1) * WB, Wt, j + 1 < nj ? wb + (long)(j + 1) * C * C : w2);
+    if (act_s[j][wg]) {
+      const int hr = HALO + row0 + sh.s[j];  // halo row of the warp's first A row
+      const bool m0 = M_s[j * DX_ROWS + row0 + g8] != 0;
+      const bool m1 = M_s[j * DX_ROWS + row0 + g8 + 8] != 0;
+      uint32_t a[C / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < C / 16; ++ks) {
+        tc::ldm_a(a[ks], X_s, DX_HLD, hr, ks * 16);
+        if (!m0) a[ks][0] = a[ks][2] = 0u;
+        if (!m1) a[ks][1] = a[ks][3] = 0u;
+      }
+      const tc::Tiles Wj = tc::tiles(W_b + (j & 1) * WB, C);
+      tc::fence_acc(acc);
+      tc::fence();
+#pragma unroll
+      for (int ks = 0; ks < C / 16; ++ks) tc::mma_rs<1>(acc, a[ks], tc::desc(Wj, false, ks, 0));
+      tc::commit();
+      tc::wait_all();
+      tc::fence_acc(acc);
+    }
+  }
+  cp_async_wait<0>();  // W2
+  tc::fence_smem();
+  __syncthreads();  // W2 (and, without relations, the halo and vectors) in place
+
+  // The tail. acc holds temp.
+  if (temp_out) {
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const long gr = tile0 + 64 * wg + tc::acc_row(i);
+      if (gr < n)
+        *reinterpret_cast<float2*>(temp_out + gr * C + tc::acc_col(i)) =
+            make_float2(acc[i], acc[i + 1]);
+    }
+  }
+  // h = rnd(relu(GN1(temp))) as the A fragments of z = h @ W2: fragment
+  // register q of k slice ks holds accumulator elements 8ks + 2q, + 1.
+  float mu[2], inv[2];
+  tc::acc_row_stats(acc, eps, mu, inv);
+  uint32_t ha[C / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < C / 16; ++ks) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = 8 * ks + 2 * q, h = tc::acc_half(i), c = tc::acc_col(i);
+      const float x0 = (acc[i] - mu[h]) * inv[h] * gn_s[c] + gn_s[C + c];
+      const float x1 = (acc[i + 1] - mu[h]) * inv[h] * gn_s[c + 1] + gn_s[C + c + 1];
+      ha[ks][q] = tc::pack_bf2(fmaxf(x0, 0.f), fmaxf(x1, 0.f));
+    }
+  }
+  const tc::Tiles W2t = tc::tiles(W_b + (nj & 1) * WB, C);
+  tc::zero(acc);  // z
+  tc::fence_acc(acc);
+  tc::fence();
+#pragma unroll
+  for (int ks = 0; ks < C / 16; ++ks) tc::mma_rs<1>(acc, ha[ks], tc::desc(W2t, false, ks, 0));
+  tc::commit();
+  tc::wait_all();
+  tc::fence_acc(acc);
+  // out = relu(GN2(z) + feat), the residual from the halo tile.
+  tc::acc_row_stats(acc, eps, mu, inv);
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int r = 64 * wg + tc::acc_row(i), c = tc::acc_col(i), h = tc::acc_half(i);
+    const long gr = tile0 + r;
+    const float2 res = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(X_s + (HALO + r) * DX_HLD + c));
+    const float y0 = (acc[i] - mu[h]) * inv[h] * gn_s[2 * C + c] + gn_s[3 * C + c] + res.x;
+    const float y1 =
+        (acc[i + 1] - mu[h]) * inv[h] * gn_s[2 * C + c + 1] + gn_s[3 * C + c + 1] + res.y;
+    if (gr < n)
+      *reinterpret_cast<__nv_bfloat162*>(out + gr * C + c) =
+          __floats2bfloat162_rn(fmaxf(y0, 0.f), fmaxf(y1, 0.f));
+  }
+}
+
 template <typename T>
 int launch(const void* feat, const void* pre, const uint8_t* masks, const void* wb,
            const void* w2, const float* g1w, const float* g1b, const float* g2w,
            const float* g2b, void* out, float* temp_out, int n, int nj, const Shifts& sh,
            float eps, cudaStream_t stream) {
-  const int smem = (HALO_TILE + TM * LDA + C * C) * (int)sizeof(float);
-  cudaError_t err = set_smem((const void*)lane_layer_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + TM - 1) / TM;
-  if (blocks > 0) {
-    lane_layer_kernel<T><<<blocks, NT, smem, stream>>>(
-        (const T*)feat, (const T*)pre, masks, (const T*)wb, (const T*)w2, g1w, g1b, g2w,
-        g2b, (T*)out, temp_out, n, nj, sh, eps);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int smem = lane_layer_tc_smem();
+    cudaError_t err = set_smem((const void*)lane_layer_tc_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (n + DX_ROWS - 1) / DX_ROWS;
+    if (blocks > 0)
+      lane_layer_tc_kernel<<<blocks, DX_THREADS, smem, stream>>>(
+          (const bf16*)feat, (const bf16*)pre, masks, (const bf16*)wb, (const bf16*)w2, g1w, g1b,
+          g2w, g2b, (bf16*)out, temp_out, n, nj, sh, eps);
+  } else {
+    const int smem = (HALO_TILE + TM * LDA + C * C) * (int)sizeof(float);
+    cudaError_t err = set_smem((const void*)lane_layer_kernel<T>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (n + TM - 1) / TM;
+    if (blocks > 0)
+      lane_layer_kernel<T><<<blocks, NT, smem, stream>>>(
+          (const T*)feat, (const T*)pre, masks, (const T*)wb, (const T*)w2, g1w, g1b, g2w, g2b,
+          (T*)out, temp_out, n, nj, sh, eps);
   }
   return (int)cudaGetLastError();
 }

@@ -12,7 +12,8 @@ the pack carries:
   centers (d@Wd = ctr_u@Wd − ctr_v@Wd), so every per-edge input folds into
   dense per-row projections and the gathers, the edge MLP and the
   destination scatter run in the `win_edge` kernel over the pack's
-  window-pair plan;
+  window-pair plan; when training, each fusion stage prepares the plan for
+  the backward once (`prepare_pair`) and its Att layers share it;
 - the edge-list branch (flat fusion lists): the query and context
   projections run densely per row and are gathered per edge
   (`masked_gather`, which computes what the JAX package's
@@ -35,7 +36,7 @@ from lanegcn_tpu_torch.models.map_net import LaneConvStack, graph_inputs
 from lanegcn_tpu_torch.ops.scatter import dst_order, masked_gather, scatter_add, src_order
 from lanegcn_tpu_torch.ops.edge_mlp import fused_edge_mlp
 from lanegcn_tpu_torch.ops.row_tail import fused_row_tail
-from lanegcn_tpu_torch.ops.win_edge import win_edge_mlp
+from lanegcn_tpu_torch.ops.win_edge import prepare_pair, win_edge_mlp
 
 
 class Att(nn.Module):
@@ -57,10 +58,11 @@ class Att(nn.Module):
         self.linear = Linear(n_agt, n_agt, act=False, dtype=dtype)
 
     def forward(self, agts, agt_ctrs, ctx, ctx_ctrs, pair: PairPlan | None,
-                edges: EdgeSet | None = None):
+                edges: EdgeSet | None = None, prep=None):
         """agts [A, n_agt] (destinations), ctx [S, n_ctx] (sources), their
-        centers; `pair`, the window-pair plan of the fusion edges, or None
-        and `edges`, the same edges as a list (u → agts rows, v → ctx rows)."""
+        centers; `pair`, the window-pair plan of the fusion edges (with
+        `prep`, its `prepare_pair` for the backward, or None), or None and
+        `edges`, the same edges as a list (u → agts rows, v → ctx rows)."""
         if self.n_agt != self.n_ctx:
             raise NotImplementedError("Att with n_agt != n_ctx is not ported yet")
         res = agts
@@ -81,7 +83,8 @@ class Att(nn.Module):
             pd = agt_ctrs.to(dt) @ kd.to(dt)
             ps = -(ctx_ctrs.to(dt) @ kd.to(dt))
             agts = win_edge_mlp(pd.contiguous(), qd.contiguous(), ps.contiguous(),
-                                cs.contiguous(), temp.to(dt).contiguous(), bd, *chain, pair)
+                                cs.contiguous(), temp.to(dt).contiguous(), bd, *chain, pair,
+                                prep=prep)
         else:
             u, v, mask = edges.u, edges.v, edges.mask
             # The centre offset per edge (centers are data: no gradient).
@@ -99,6 +102,14 @@ class Att(nn.Module):
         )
 
 
+def pair_prep(pair: PairPlan | None, nd: int, ns: int):
+    """The stage's pair plan prepared for win_edge's backward, once for its
+    Att layers; None without a plan or a gradient (serving)."""
+    if pair is None or not torch.is_grad_enabled():
+        return None
+    return prepare_pair(pair, nd, ns)
+
+
 class A2M(nn.Module):
     """Actor → lane-node fusion (reference lanegcn.py:366-407)."""
 
@@ -112,8 +123,9 @@ class A2M(nn.Module):
         meta = torch.cat(
             [graph.turn, graph.control[:, None], graph.intersect[:, None]], dim=-1)
         nodes = self.meta(torch.cat([nodes, meta.to(nodes.dtype)], dim=-1))
+        prep = pair_prep(pair, nodes.shape[0], actors.shape[0])
         for att in self.att:
-            nodes = att(nodes, graph.ctrs, actors, actor_ctrs, pair, edges)
+            nodes = att(nodes, graph.ctrs, actors, actor_ctrs, pair, edges, prep)
         return nodes
 
 
@@ -138,8 +150,9 @@ class M2A(nn.Module):
             [Att(cfg.n_actor, cfg.n_map, dtype=dtype) for _ in range(cfg.num_att_layers)])
 
     def forward(self, actors, actor_ctrs, nodes, node_ctrs, edges: EdgeSet, pair):
+        prep = pair_prep(pair, actors.shape[0], nodes.shape[0])
         for att in self.att:
-            actors = att(actors, actor_ctrs, nodes, node_ctrs, pair, edges)
+            actors = att(actors, actor_ctrs, nodes, node_ctrs, pair, edges, prep)
         return actors
 
 
@@ -152,6 +165,7 @@ class A2A(nn.Module):
             [Att(cfg.n_actor, cfg.n_actor, dtype=dtype) for _ in range(cfg.num_att_layers)])
 
     def forward(self, actors, actor_ctrs, edges: EdgeSet, pair):
+        prep = pair_prep(pair, actors.shape[0], actors.shape[0])
         for att in self.att:
-            actors = att(actors, actor_ctrs, actors, actor_ctrs, pair, edges)
+            actors = att(actors, actor_ctrs, actors, actor_ctrs, pair, edges, prep)
         return actors

@@ -33,7 +33,7 @@ import torch
 ENTRIES = {
     "lane_layer": ("lane_layer_fwd", "lane_layer_bwd"),
     "scenario_agg": ("scenario_agg_fwd", "scenario_agg_bwd"),
-    "win_edge": ("win_edge_fwd", "win_edge_bwd_d", "win_edge_bwd_s"),
+    "win_edge": ("win_edge_fwd", "win_edge_bwd"),
     "row_tail": ("row_tail_fwd", "row_tail_bwd", "row_tail2_fwd", "row_tail2_bwd"),
     "pair_agg": ("pair_agg_fwd", "pair_agg_bwd_d", "pair_agg_bwd_s"),
     "edge_mlp": ("edge_mlp_fwd", "edge_mlp_bwd", "edge_mlp_pool_fwd", "edge_mlp_pool_bwd"),
@@ -155,7 +155,7 @@ def call(name: str, entry: str, *args) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} from {entry}")
-    LAUNCHES[entry] += 1
+    LAUNCHES[entry] = LAUNCHES.get(entry, 0) + 1
 
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

@@ -147,6 +147,8 @@ def _fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, shifts, eps, save_te
     n = feat.shape[0]
     masks = _mask_bytes(masks)
     gns = _gn_params(g1w, g1b, g2w, g2b)
+    # The bf16 kernel copies feat rows and the weights by 16-byte cp.async.
+    feat, wb, w2 = (cuda.param(t, t.dtype) for t in (feat, wb, w2))
     code = cuda.check_cuda("lane_layer", feat, pre, masks, wb, w2, *gns)
     out = torch.empty_like(feat)
     temp = torch.empty(n, C, dtype=torch.float32, device=feat.device) if save_temp else None
