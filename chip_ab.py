@@ -9,7 +9,8 @@ the other tree ("old", where it has that kernel) are built side by side
 with the same nvcc flags. Both run through this checkout's wrappers where
 the C interfaces match, on the same inputs, captured from one bf16 eval
 forward and one bf16 train step of the geometry that runs the kernel:
-win_edge and lane_layer on windowed_pack_config(256), edge_mlp on
+win_edge and lane_layer on windowed_pack_config(256), pair_agg on
+bench_pack_config(256) (the spill plan), edge_mlp on
 contiguous_pack_config(32), lane_plan on the merged geometry and band_conv
 on the unfused one (chip_smoke.py GEOMETRIES); segment_sum on every call
 shape of one bf16 train step (the scatters' forwards and the gathers'
@@ -17,10 +18,13 @@ backwards) of the windowed, LaneRCNN and flat geometries; scenario_agg
 and its backward on the windowed and LaneRCNN geometries, the other tree
 through its own wrappers (`OWN_WRAPPERS`: the C interfaces differ), with
 the time of this checkout's plan preparation beside (`new_prep_ms`); the
-win_edge backward likewise (its C interface changed: the other tree's
-through its own wrapper, and this checkout's pair-plan preparation timed
-beside, `new_prep_ms`, the call itself handed the preparation the train step
-made, as a fusion stage hands it to its Att layers). Each call shape
+win_edge forward and backward likewise (their C interfaces changed: the
+other tree's through its own wrappers, and for the backward this
+checkout's pair-plan preparation timed beside, `new_prep_ms`, the call
+itself handed the preparation the train step made, as a fusion stage hands
+it to its Att layers); the pair_agg backward likewise (the spill plan's
+`prepare_spill` timed beside, the call handed the one the LaneConv stack
+made). Each call shape
 (A2M, M2A, A2A) of the forward and of the backward runs once per build (the
 largest difference between the two builds' outputs is printed;
 `chip_smoke.py` holds each kernel to its plain version) and is then timed
@@ -57,7 +61,8 @@ TARGETS = {"win_edge": (("windowed",), "win_edge"), "edge_mlp": (("contiguous",)
            "lane_layer": (("windowed",), "lane_layer"), "lane_plan": (("merged",), "lane_plan"),
            "band_conv": (("unfused",), "band_conv"),
            "segment_sum": (("windowed", "lanercnn", "flat"), "segment_sum"),
-           "scenario_agg": (("windowed", "lanercnn"), "scenario_agg")}
+           "scenario_agg": (("windowed", "lanercnn"), "scenario_agg"),
+           "pair_agg": (("bench",), "pair_agg")}
 # Kernel libraries whose C interface changed: the other tree's calls go
 # through its own wrapper module (ops/<name>.py under that tree, loaded
 # beside this checkout's package, its `cuda.call`s landing on the other
@@ -65,7 +70,9 @@ TARGETS = {"win_edge": (("windowed",), "win_edge"), "edge_mlp": (("contiguous",)
 # arguments)}}.
 OWN_WRAPPERS = {"scenario_agg": {"scenario_agg": ("scenario_aggregate", 8),
                                  "scenario_agg_bwd": ("scenario_agg_bwd_cuda", 8)},
-                "win_edge": {"win_edge_bwd": ("win_edge_bwd_cuda", 14)}}
+                "win_edge": {"win_edge": ("win_edge_mlp", 14),
+                             "win_edge_bwd": ("win_edge_bwd_cuda", 14)},
+                "pair_agg": {"pair_agg_bwd": ("pair_agg_bwd_cuda", 4)}}
 
 
 def build_old(old_root: Path, name: str):
@@ -186,6 +193,16 @@ def pair_prep_ms(a) -> float:
     return cs.time_ms(lambda: win_edge.prepare_pair(plan, pd.shape[0], ps.shape[0]))
 
 
+def spill_prep_ms(a) -> float:
+    """CUDA-event time of this checkout's spill-plan preparation for
+    pair_agg's captured backward call `a`, which a LaneConv stack makes once
+    for its layers (the timed wrapper call is handed it, as in the model)."""
+    from lanegcn_tpu_torch.ops import pair_agg
+
+    feat, w_rel, plan = a[:3]
+    return cs.time_ms(lambda: pair_agg.prepare_spill(plan, feat.shape[0], w_rel.shape[0]))
+
+
 def capture(geom):
     """(forward calls, backward calls) of one eval forward and one train step
     at bf16, keyed by kernel then by input shapes."""
@@ -266,6 +283,8 @@ def main() -> None:
                     res["new_prep_ms"] = prep_ms(a)
                 if kname == "win_edge_bwd":
                     res["new_prep_ms"] = pair_prep_ms(a)
+                if kname == "pair_agg_bwd":
+                    res["new_prep_ms"] = spill_prep_ms(a)
                 outs = {}
                 for v in versions:
                     cuda._LIBS[name] = libs[name][v]

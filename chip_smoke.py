@@ -59,8 +59,14 @@ and exits non-zero:
           whose output must be temp bitwise, one relation only, relation
           runs that straddle the kernels' 64-edge tiles, a window with all
           2,048 slots applied, 300 edges into one row, a grouped plan that
-          drops misplaced edges), win_edge, row_tail; bench: pair_agg (its other
-          kernels run at the windowed shapes); contiguous: lane_layer (no
+          drops misplaced edges), win_edge (and `WIN_CASES`: an empty plan,
+          whose output must be temp bitwise, a destination window no edge
+          reaches, tail chunks all padding, runs of many chunks, runs of
+          one chunk), row_tail; bench: pair_agg (and `SPILL_CASES`: an
+          empty spill plan, whose output must be temp bitwise, a relation
+          with one edge beside relations with none, runs of one chunk, one
+          window's run of many chunks; its other kernels run at the
+          windowed shapes); contiguous: lane_layer (no
           node windows), row_tail (A2M and 512 actor rows) and edge_mlp;
           lanercnn: lane_layer and scenario_agg at the RoI and global
           shapes, window_scatter (both pool scatters, beside one `index_add`
@@ -75,8 +81,7 @@ and exits non-zero:
           beside one `index_select` call, row_tail2_bwd, edge_mlp_pool_bwd;
           merged: lane_plan_bwd; unfused: band_conv_bwd; windowed:
           scenario_agg_bwd on `PLAN_CASES` too, and win_edge_bwd on
-          `WIN_CASES`: an empty plan, a destination window no edge reaches,
-          tail chunks all padding, runs of many chunks), and
+          `WIN_CASES`; bench: pair_agg_bwd on `SPILL_CASES` too), and
           lane_layer_bwd, band_conv_bwd and row_tail_bwd again on their
           largest call cut to 1,000 and 20,000 rows (`RAGGED_ROWS`: no
           multiple of their tensor-core passes' row blocks). A few rows whose
@@ -190,8 +195,7 @@ KERNEL_META = {
     "pair_agg": ("lanegcn_tpu_torch/csrc/pair_agg.cu",
                  "lanegcn_tpu/ops/pallas_pair_agg.py:138", ("pair_agg_fwd",)),
     "pair_agg_bwd": ("lanegcn_tpu_torch/csrc/pair_agg.cu",
-                     "lanegcn_tpu/ops/pallas_pair_agg.py:171",
-                     ("pair_agg_bwd_d", "pair_agg_bwd_s")),
+                     "lanegcn_tpu/ops/pallas_pair_agg.py:171", ("pair_agg_bwd",)),
     "edge_mlp": ("lanegcn_tpu_torch/csrc/edge_mlp.cu",
                  "lanegcn_tpu/ops/pallas_edge_mlp.py:226", ("edge_mlp_fwd",)),
     "edge_mlp_bwd": ("lanegcn_tpu_torch/csrc/edge_mlp.cu",
@@ -232,7 +236,7 @@ _WINDOWED_FWD = {"lane_layer_fwd": 8, "scenario_agg_fwd": 8, "win_edge_fwd": 6,
                  "row_tail_fwd": 6, "segment_sum": 8}
 _WINDOWED_STEP = {**_WINDOWED_FWD, "lane_layer_bwd": 8, "scenario_agg_bwd": 8,
                   "win_edge_bwd": 6, "row_tail_bwd": 6, "segment_sum": 16}
-_PAIR_BWD = {"pair_agg_bwd_d": 8, "pair_agg_bwd_s": 8}
+_PAIR_BWD = {"pair_agg_bwd": 8}
 # merge_plan_agg="auto": the plan inside the layer kernel, so no lane_layer
 # and no scenario_agg launch.
 _SEPARATE = ("lane_layer", "scenario_agg")
@@ -1168,6 +1172,15 @@ def drive(geom):
         calls, counts = lane_case_calls(cap.calls["lane_layer"])
         cap.calls["lane_layer"].update(calls)
         cap.counts["lane_layer"].update(counts)
+        calls, counts, empty = win_case_calls(forward=True)
+        cap.calls["win_edge"].update(calls)
+        cap.counts["win_edge"].update(counts)
+        check_empty_win(calls[empty])
+    if geom == "bench":
+        calls, counts, empty = spill_case_calls(backward=False)
+        cap.calls["pair_agg"].update(calls)
+        cap.counts["pair_agg"].update(counts)
+        check_empty_spill(calls[empty])
     results = kernel_phase("kernel", geom, forward_ops(spec["kernels"]), cap.calls, cap.counts)
     del cap
 
@@ -1385,36 +1398,47 @@ def lane_case_calls(calls):
     return cases, counts
 
 
-# win_edge_bwd's edge cases (name, destination windows x rows, source
-# windows x rows, slot capacity, edges, destination window left untouched):
-# the kernel walks the valid edges in 64-edge tiles of the destination
-# order and sums dPd/dQd and dPs/dCs over the destination and the source
-# orders: an empty plan (all four zero), a destination window no edge
-# reaches (its rows zero), a capacity far past the edges (tail chunks all
-# padding), and an M2A-like plan (two destination windows, one run of
-# many chunks each, into 768-row source windows).
+# win_edge's edge cases (name, destination windows x rows, source windows x
+# rows, slot capacity, edges, destination window left untouched), for the
+# forward and the backward. The forward's chain pass takes the plan's
+# 64-slot tiles in turn and skips those without an edge; its sum pass
+# finds each destination window's chunks by a search in dwin and adds a
+# row's edges in slot order. The backward walks the valid edges in 64-edge
+# tiles of the destination order and sums dPd/dQd and dPs/dCs over the
+# destination and the source orders. The cases: an empty plan (the
+# forward's output is temp, the backward's four zero), a destination
+# window no edge reaches (temp / zero rows), a capacity far past the edges
+# (tail chunks all padding), an M2A-like plan (two destination windows,
+# one run of many chunks each, into 768-row source windows), and runs of
+# one chunk (each destination window's edges from one source window,
+# fewer than a chunk).
 WIN_CASES = (
     ("empty", (3, 128), (4, 128), 1024, 0, None),
     ("untouched-window", (6, 128), (3, 768), 4096, 3000, 2),
     ("padding-chunks", (4, 128), (4, 128), 8192, 300, None),
     ("long-runs", (2, 128), (8, 768), 8192, 5000, None),
+    ("one-chunk-runs", (8, 128), (8, 768), 4096, 600, None),
 )
 
 
-def win_case_calls(dev="cuda"):
-    """{shapes: args} and {shapes: 0} of WIN_CASES as win_edge_bwd's
-    launcher takes them (pd, qd, ps, cs, bd, kdo, gdow, gdob, k1, gchw,
-    gchb, kout, plan, g), bf16 rows on the card (kernel_phase casts them to
-    fp32 too), fp32 weights and vectors as the model hands them."""
+def win_case_calls(dev="cuda", forward=False):
+    """{shapes: args} and {shapes: 0} of WIN_CASES as win_edge's forward op
+    (pd, qd, ps, cs, temp, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, plan)
+    or its backward launcher (pd, qd, ps, cs, bd, ..., kout, plan, g) takes
+    them, bf16 rows on the card (kernel_phase casts them to fp32 too), fp32
+    weights and vectors as the model hands them; and the key of the empty
+    plan."""
     import torch
     from lanegcn_tpu_torch.data.packing import build_pair_plan
     from lanegcn_tpu_torch.graph import PairPlan
 
     rng = np.random.default_rng(17)
-    calls, counts = {}, {}
-    for _, (nwd, sd), (nws, ss), cap, n_edges, skip in WIN_CASES:
+    calls, counts, empty = {}, {}, None
+    for name, (nwd, sd), (nws, ss), cap, n_edges, skip in WIN_CASES:
         nd, ns = nwd * sd, nws * ss
         u, v = rng.integers(0, nd, n_edges), rng.integers(0, ns, n_edges)
+        if name == "one-chunk-runs":
+            v = u // sd * ss + v % ss
         if skip is not None:
             keep = u // sd != skip
             u, v = u[keep], v[keep]
@@ -1429,10 +1453,93 @@ def win_case_calls(dev="cuda"):
         f32 = lambda *shape, loc=0.0: torch.as_tensor(rng.normal(size=shape) * 0.1 + loc,
                                                      dtype=torch.float32, device=dev)
         w = lambda: f32(128, 128) * 0.9
-        args = [rows(nd), rows(nd), rows(ns), rows(ns), f32(128), w(), f32(128, loc=1.0),
-                f32(128), w(), f32(128, loc=1.0), f32(128), w(), plan, rows(nd)]
+        params = [f32(128), w(), f32(128, loc=1.0), f32(128), w(), f32(128, loc=1.0), f32(128),
+                  w()]
+        args = ([rows(nd), rows(nd), rows(ns), rows(ns), rows(nd), *params, plan] if forward
+                else [rows(nd), rows(nd), rows(ns), rows(ns), *params, plan, rows(nd)])
         calls[shape_key(args)], counts[shape_key(args)] = args, 0
-    return calls, counts
+        if name == "empty":
+            empty = shape_key(args)
+    return calls, counts, empty
+
+
+def check_empty_win(fwd_args):
+    """The empty pair plan's forward returns temp bitwise, in both dtypes."""
+    import torch
+    from lanegcn_tpu_torch.ops import win_edge
+
+    for dtype in (torch.float32, torch.bfloat16):
+        a = cast_args(fwd_args, dtype)
+        check(torch.equal(win_edge.win_edge_mlp(*a), a[4]),
+              f"win_edge {dtype}: the empty plan's output is not temp")
+
+
+# pair_agg's edge cases on the spill plan (name, windows of 768 rows, slot
+# capacity, {relation: edges}, destination window of every edge or None,
+# each destination window's edges from its own source window): the
+# backward walks the valid slots in 64-edge tiles of one relation each,
+# writes each message at its source position and sums a row's positions in
+# a fixed order; the forward walks each destination window's run of chunks
+# relation by relation. An empty plan (the forward's output is temp
+# bitwise, the backward's zero), a relation with one edge beside relations
+# with none, runs of one chunk, and one destination window's run of many
+# chunks.
+SPILL_CASES = (
+    ("empty", 4, 1024, {}, None, False),
+    ("one-edge-relation", 6, 8192, {0: 700, 5: 1, 13: 400}, None, False),
+    ("one-chunk-runs", 8, 4096, {2: 300, 9: 200}, None, True),
+    ("long-run", 5, 8192, {1: 1500, 7: 1500}, 2, False),
+)
+
+
+def spill_case_calls(backward: bool):
+    """{shapes: args} and {shapes: 0} of SPILL_CASES, bf16 on the card
+    (kernel_phase casts them to fp32 too), as pair_agg's forward op (feat,
+    temp, w_rel, plan) or its backward launcher (feat, w_rel, plan, g)
+    takes them; and the key of the empty plan."""
+    import torch
+    from lanegcn_tpu_torch.data.packing import build_pair_plan
+    from lanegcn_tpu_torch.graph import PairPlan
+
+    rng = np.random.default_rng(19)
+    stride, calls, counts, empty = 768, {}, {}, None
+    bf = lambda *shape, scale=1.0: torch.as_tensor(rng.normal(size=shape) * scale,
+                                                   dtype=torch.bfloat16, device="cuda")
+    for name, num_win, cap, rels, dst_win, same_win in SPILL_CASES:
+        n = num_win * stride
+        k = sum(rels.values())
+        u, v = rng.integers(0, n, k), rng.integers(0, n, k)
+        if dst_win is not None:
+            u = dst_win * stride + u % stride
+        if same_win:
+            v = u // stride * stride + v % stride
+        rel = np.repeat(np.array(list(rels), np.int32), list(rels.values()))
+        d, dropped, _ = build_pair_plan(u, v, stride, stride, cap, 128, rel=rel,
+                                        return_residue=True)
+        check(dropped == 0, f"pair_agg case {name}: {dropped} edges dropped")
+        idx = np.concatenate([d["lu"], d["lv"], d["rel"]], axis=1)
+        meta = np.stack([d[x] for x in ("dwin", "swin", "first", "sperm", "sswin", "sfirst")])
+        plan = PairPlan(idx=torch.as_tensor(idx, device="cuda"),
+                        meta=torch.as_tensor(meta, device="cuda"), chunk=128,
+                        dst_stride=stride, src_stride=stride)
+        feat, w_rel = bf(n, 128), bf(14, 128, 128, scale=128 ** -0.5)
+        args = [feat, w_rel, plan, bf(n, 128)] if backward else [feat, bf(n, 128), w_rel, plan]
+        key = shape_key(args)
+        calls[key], counts[key] = args, 0
+        if name == "empty":
+            empty = key
+    return calls, counts, empty
+
+
+def check_empty_spill(fwd_args):
+    """The empty spill plan's forward returns temp bitwise, in both dtypes."""
+    import torch
+    from lanegcn_tpu_torch.ops import pair_agg
+
+    for dtype in (torch.float32, torch.bfloat16):
+        a = cast_args(fwd_args, dtype)
+        check(torch.equal(pair_agg.pair_aggregate(*a), a[1]),
+              f"pair_agg {dtype}: the empty plan's output is not temp")
 
 
 def step_kernel_phases(geom, cap):
@@ -1448,9 +1555,13 @@ def step_kernel_phases(geom, cap):
         calls, counts, _ = plan_case_calls(backward=True)
         cap.calls["scenario_agg_bwd"].update(calls)
         cap.counts["scenario_agg_bwd"].update(counts)
-        calls, counts = win_case_calls()
+        calls, counts, _ = win_case_calls()
         cap.calls["win_edge_bwd"].update(calls)
         cap.counts["win_edge_bwd"].update(counts)
+    if geom == "bench":
+        calls, counts, _ = spill_case_calls(backward=True)
+        cap.calls["pair_agg_bwd"].update(calls)
+        cap.counts["pair_agg_bwd"].update(counts)
     results = kernel_phase("kernel_bwd", geom, backward_ops(spec["kernels"]), cap.calls,
                            cap.counts)
     if geom == "windowed":

@@ -26,27 +26,27 @@
 // element, no float atomics, a fixed order, so reruns are bitwise equal.
 // Windows no run targets keep temp: the wrapper hands in out = temp.clone().
 //
-// pair_agg_bwd_d: per valid slot (u ← v, relation r)
-//   d_gath[slot] = g[u] @ W_rᵀ  (rounded to feat's dtype)   dW_r += feat[v]ᵀ g[u]
-// A (split, relation) grid of blocks walks chunks split, split + splits, ...,
-// compacts its relation's slots 64 at a time, and per 64 edges runs both
-// products with W_rᵀ resident in shared memory: d_gath rows go to their slots
-// (zero-initialised by the wrapper, so padding slots stay zero), dW_r to an
-// 8 x 8 register block per thread, written once as the block's partial;
-// reduce_partials sums the partials in split order.
-//
-// pair_agg_bwd_s: a block per (source-window run of the chunks in `sperm`
-// order, 32-channel slice) adds the saved d_gath rows of its run's slots into
-// an fp32 shared slice of dfeat in slot order (each row owned by one warp)
-// and rounds once. Windows no run reads keep the zeros the wrapper
-// allocates. dtemp is g itself (wrapper).
+// pair_agg_bwd: the spill plan has the window plan's contract (out[u] +=
+// W_r · feat[v] over listed edges with global rows), so its backward is
+// scenario_agg's, rel_agg.cuh's passes over the plan as ops/pair_agg.py
+// `prepare_spill` lists it (once per LaneConv stack call, beside the window
+// plan's preparation): the valid slots in relation order, cut into 64-edge
+// tiles of one relation each, with each edge's position in source order.
+//   dfeat[v] = Σ g[u] @ W_rᵀ: the messages on wgmma (bf16; CUDA cores in
+//     fp32) written as fp32 rows at their source positions, then the
+//     fixed-order segment sum into dfeat from zero, rounded once;
+//   dW_r = Σ feat[v]ᵀ g[u]: per relation run on wgmma (bf16), one partial
+//     per (block, relation) run, summed in block order.
+// It holds no window in shared memory, so it takes any window stride. The
+// entry point is pair_agg's own, so that launch counts (and the kernels'
+// SpillPlan instantiation, in a profile) tell it from the window plan's.
 //
 // What bounds it: one (forward) or two (backward) [E x 128] x [128 x 128]
 // products on the valid spill edges (29,784 at the 256-scenario bench pack:
 // 1 GFLOP) against ~110 MB (temp read and out written whole, feat at the
-// rows the edges read): memory-bound at the card's rates. This first version
-// runs the products on CUDA cores in fp32.
-#include "common.cuh"
+// rows the edges read): memory-bound at the card's rates. The forward runs
+// the products on CUDA cores in fp32.
+#include "rel_agg.cuh"
 
 using namespace lgk;
 
@@ -67,10 +67,10 @@ __device__ __forceinline__ int slot_edge(const int* idx, long slot, long base_d,
 }
 
 // Appends the selected values of threads 0..EB-1 (sel) to the pending lists
-// p0/p1/p2 (2*EB entries each) at `fill`, in thread order; returns the new
+// p0/p1 (2*EB entries each) at `fill`, in thread order; returns the new
 // fill. Every thread of the block calls it.
-__device__ __forceinline__ int compact(bool sel, int a0, int a1, int a2, int* p0, int* p1,
-                                       int* p2, int* cnt_s, int fill) {
+__device__ __forceinline__ int compact(bool sel, int a0, int a1, int* p0, int* p1, int* cnt_s,
+                                       int fill) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned int ballot = __ballot_sync(0xffffffffu, sel);
   __syncthreads();  // the previous step is done with cnt_s and the pending lists
@@ -80,18 +80,16 @@ __device__ __forceinline__ int compact(bool sel, int a0, int a1, int a2, int* p0
     const int pos = fill + (warp == 1 ? cnt_s[0] : 0) + __popc(ballot & ((1u << lane) - 1u));
     p0[pos] = a0;
     p1[pos] = a1;
-    if (p2) p2[pos] = a2;
   }
   return fill + cnt_s[0] + cnt_s[1];
 }
 
 // Moves pending entries [EB, fill) to [0, fill - EB) after a flush of EB.
-__device__ __forceinline__ int drop_flushed(int* p0, int* p1, int* p2, int fill) {
+__device__ __forceinline__ int drop_flushed(int* p0, int* p1, int fill) {
   __syncthreads();  // the flush is done reading the pending lists
   if (threadIdx.x < fill - EB) {
     p0[threadIdx.x] = p0[EB + threadIdx.x];
     p1[threadIdx.x] = p1[EB + threadIdx.x];
-    if (p2) p2[threadIdx.x] = p2[EB + threadIdx.x];
   }
   return fill - EB;
 }
@@ -180,10 +178,10 @@ pair_agg_fwd_kernel(const T* __restrict__ feat, const T* __restrict__ temp,
         if (threadIdx.x < EB && h + threadIdx.x < chunk)
           sel = slot_edge(idx, (long)kk * chunk + h + threadIdx.x, base_d, base_s, sd, ss, n,
                           num_rel, &lu, &v) == r;
-        fill = compact(sel, lu, v, 0, pu_s, pv_s, nullptr, cnt_s, fill);
+        fill = compact(sel, lu, v, pu_s, pv_s, cnt_s, fill);
         if (fill >= EB) {
           flush(EB);
-          fill = drop_flushed(pu_s, pv_s, nullptr, fill);
+          fill = drop_flushed(pu_s, pv_s, fill);
         }
       }
     }
@@ -193,136 +191,6 @@ pair_agg_fwd_kernel(const T* __restrict__ feat, const T* __restrict__ temp,
   for (int i = threadIdx.x; i < rows_d * SLICE; i += NT) {
     const int r = i / SLICE, c = i % SLICE;
     out[(base_d + r) * C + cs + c] = from_f<T>(acc_s[i]);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-pair_agg_bwd_d_kernel(const T* __restrict__ feat, const T* __restrict__ g,
-                      const T* __restrict__ w_rel_t, const int* __restrict__ idx,
-                      const int* __restrict__ meta, T* __restrict__ d_gath,
-                      float* __restrict__ part, int nc, int chunk, int sd, int ss, int n,
-                      int num_rel) {
-  const int* dwin = meta;
-  const int* swin = meta + nc;
-  const int r = blockIdx.y;
-
-  extern __shared__ float4 smem4[];
-  float* A_s = reinterpret_cast<float*>(smem4);  // [EB][LDA] feat[v]
-  float* B_s = A_s + EB * LDA;                   // [EB][LDA] g[u]
-  float* W_s = B_s + EB * LDA;                   // [C][C] W_rᵀ
-  int* ps_s = reinterpret_cast<int*>(W_s + C * C);  // [2*EB] pending slots
-  int* pu_s = ps_s + 2 * EB;                        // [2*EB] pending global dst rows
-  int* pv_s = pu_s + 2 * EB;                        // [2*EB] pending global src rows
-  int* cnt_s = pv_s + 2 * EB;                       // [2]
-  load_weight<T>(W_s, w_rel_t + (long)r * C * C);
-
-  float accW[8][8];
-  zero_tn(accW);
-  const float ones[4] = {1.f, 1.f, 1.f, 1.f};
-
-  auto flush = [&](int count) {
-    __syncthreads();  // pending rows (and W_s) written
-    for (int i = threadIdx.x; i < EB * (C / 4); i += NT) {
-      const int e = i / (C / 4), c4 = (i % (C / 4)) * 4;
-      float4 a = zero4(), b = zero4();
-      if (e < count) {
-        a = load4<T>(feat + (long)pv_s[e] * C + c4);
-        b = load4<T>(g + (long)pu_s[e] * C + c4);
-      }
-      *reinterpret_cast<float4*>(A_s + e * LDA + c4) = a;
-      *reinterpret_cast<float4*>(B_s + e * LDA + c4) = b;
-    }
-    __syncthreads();
-    mm_tn(A_s, B_s, EB, accW);  // dW_r += feat[v]ᵀ g[u]
-    float acc[4][8];
-    zero_acc(acc);
-    mm_64x128(B_s, 0, ones, W_s, acc);  // d_gath = g[u] @ W_rᵀ
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int e = mm_row(i);
-      if (e < count) {
-        T* row = d_gath + (long)ps_s[e] * C;
-        store4<T>(row + mm_col(0), make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-        store4<T>(row + mm_col(4), make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
-      }
-    }
-  };
-
-  int fill = 0;
-  for (int kk = blockIdx.x; kk < nc; kk += gridDim.x) {
-    const long base_d = (long)dwin[kk] * sd, base_s = (long)swin[kk] * ss;
-    for (int h = 0; h < chunk; h += EB) {
-      bool sel = false;
-      int slot = -1, u = -1, v = -1;
-      if (threadIdx.x < EB && h + threadIdx.x < chunk) {
-        slot = kk * chunk + h + threadIdx.x;
-        int lu;
-        sel = slot_edge(idx, slot, base_d, base_s, sd, ss, n, num_rel, &lu, &v) == r;
-        u = (int)(base_d + lu);
-      }
-      fill = compact(sel, slot, u, v, ps_s, pu_s, pv_s, cnt_s, fill);
-      if (fill >= EB) {
-        flush(EB);
-        fill = drop_flushed(ps_s, pu_s, pv_s, fill);
-      }
-    }
-  }
-  if (fill > 0) flush(fill);
-  store_tn(part + ((long)blockIdx.x * num_rel + r) * C * C, accW, false);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-pair_agg_bwd_s_kernel(const T* __restrict__ d_gath, const int* __restrict__ idx,
-                      const int* __restrict__ meta, T* __restrict__ dfeat, int nc, int chunk,
-                      int sd, int ss, int n, int num_rel) {
-  const int* dwin = meta;
-  const int* sperm = meta + 3 * nc;
-  const int* sswin = meta + 4 * nc;
-  const int* sfirst = meta + 5 * nc;
-  const int i0 = blockIdx.x;
-  if (sfirst[i0] != 1) return;
-  int i_end = i0 + 1;
-  while (i_end < nc && sfirst[i_end] != 1) ++i_end;
-
-  extern __shared__ float4 smem4[];
-  float* acc_s = reinterpret_cast<float*>(smem4);  // [ss][SLICE]
-  for (int i = threadIdx.x; i < ss * SLICE; i += NT) acc_s[i] = 0.f;
-  __syncthreads();
-  const long base_s = (long)sswin[i0] * ss;
-  const int cs = blockIdx.y * SLICE;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // Slot order; warp w owns the window rows ≡ w (mod 8), lane = channel.
-  for (int i = i0; i < i_end; ++i) {
-    const int kk = sperm[i];
-    const long base_d = (long)dwin[kk] * sd;
-    for (int e0 = 0; e0 < chunk; e0 += 8) {
-      int vv[8];
-      float val[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        vv[q] = -1;
-        val[q] = 0.f;
-        if (e0 + q < chunk) {
-          const long slot = (long)kk * chunk + e0 + q;
-          int lu, v;
-          if (slot_edge(idx, slot, base_d, base_s, sd, ss, n, num_rel, &lu, &v) >= 0 &&
-              (v - base_s) % (NT / 32) == warp) {
-            vv[q] = (int)(v - base_s);
-            val[q] = to_f<T>(d_gath[slot * C + cs + lane]);
-          }
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (vv[q] >= 0) acc_s[vv[q] * SLICE + lane] += val[q];
-    }
-  }
-  __syncthreads();
-  const int rows_s = (int)min((long)ss, (long)n - base_s);
-  for (int i = threadIdx.x; i < rows_s * SLICE; i += NT) {
-    dfeat[(base_s + i / SLICE) * C + cs + i % SLICE] = from_f<T>(acc_s[i]);
   }
 }
 
@@ -342,36 +210,6 @@ int launch_fwd(const void* feat, const void* temp, const void* w_rel, const int*
     pair_agg_fwd_kernel<T><<<dim3(nc, C / SLICE), NT, smem, stream>>>(
         (const T*)feat, (const T*)temp, (const T*)w_rel, idx, meta, (T*)out, nc, chunk, sd, ss,
         n, num_rel);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_bwd_d(const void* feat, const void* g, const void* w_rel_t, const int* idx,
-                 const int* meta, void* d_gath, float* part, float* dw, int nc, int chunk,
-                 int sd, int ss, int n, int num_rel, int splits, cudaStream_t stream) {
-  const int smem = (2 * EB * LDA + C * C) * (int)sizeof(float) + (6 * EB + 2) * (int)sizeof(int);
-  cudaError_t err = set_smem((const void*)pair_agg_bwd_d_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (splits > 0 && num_rel > 0) {
-    pair_agg_bwd_d_kernel<T><<<dim3(splits, num_rel), NT, smem, stream>>>(
-        (const T*)feat, (const T*)g, (const T*)w_rel_t, idx, meta, (T*)d_gath, part, nc, chunk,
-        sd, ss, n, num_rel);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)reduce_partials(part, dw, splits, (long)num_rel * C * C, stream);
-}
-
-template <typename T>
-int launch_bwd_s(const void* d_gath, const int* idx, const int* meta, void* dfeat, int nc,
-                 int chunk, int sd, int ss, int n, int num_rel, cudaStream_t stream) {
-  const int smem = ss * SLICE * (int)sizeof(float);
-  cudaError_t err = set_smem((const void*)pair_agg_bwd_s_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (nc > 0) {
-    pair_agg_bwd_s_kernel<T><<<dim3(nc, C / SLICE), NT, smem, stream>>>(
-        (const T*)d_gath, idx, meta, (T*)dfeat, nc, chunk, sd, ss, n, num_rel);
   }
   return (int)cudaGetLastError();
 }
@@ -396,35 +234,33 @@ extern "C" int pair_agg_fwd(const void* feat, const void* temp, const void* w_re
   return (int)cudaErrorInvalidValue;
 }
 
-// Destination pass of the backward. g: the output cotangent in feat's dtype;
-// w_rel_t: [R, C, C] with each relation's weight transposed, in feat's dtype;
-// d_gath [nc*chunk, 128] in feat's dtype, zero on entry; part: splits * R *
-// C*C fp32 workspace; dw: fp32 [R, C, C] (in, out), the partials' sum.
-extern "C" int pair_agg_bwd_d(const void* feat, const void* g, const void* w_rel_t,
-                              const void* idx, const void* meta, void* d_gath, void* part,
-                              void* dw, int nc, int chunk, int sd, int ss, int n, int num_rel,
-                              int splits, int dtype, void* stream) {
+// Backward, over the spill plan prepared by ops/pair_agg.py `prepare_spill`
+// (a PlanPrep over `slots` = nc*chunk plan slots, as scenario_agg_bwd takes
+// it): g the output cotangent in feat's dtype; w_rel [R, C, C] (in, out), not
+// transposed; dst / src int32 [slots], the valid edges' global rows in
+// relation order; tiles / rel_tiles the relation-pure tile table; spos /
+// sseg each edge's position in source order and the source row of each;
+// ws fp32 [slots, C]; dfeat [n, C] in feat's dtype; part fp32 (blocks + R) *
+// C*C; dw fp32 [R, C, C]. The cotangent of temp is g itself (the wrapper
+// returns it).
+extern "C" int pair_agg_bwd(const void* feat, const void* g, const void* w_rel, const void* dst,
+                            const void* src, const void* tiles, const void* rel_tiles,
+                            const void* spos, const void* sseg, void* ws, void* dfeat, void* part,
+                            void* dw, int n, long long slots, int num_rel, int blocks, int dtype,
+                            void* stream) {
+  if (n < 0 || slots < 0 || num_rel < 1 || blocks < 1 || blocks > agg::MAX_BLOCKS)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int *ix = (const int*)idx, *mt = (const int*)meta;
-  float *pt = (float*)part, *w = (float*)dw;
+  const int *d = (const int*)dst, *s = (const int*)src, *t = (const int*)tiles,
+            *rt = (const int*)rel_tiles, *sp = (const int*)spos;
+  const long long* ss = (const long long*)sseg;
   if (dtype == 0)
-    return launch_bwd_d<float>(feat, g, w_rel_t, ix, mt, d_gath, pt, w, nc, chunk, sd, ss, n,
-                               num_rel, splits, st);
+    return agg::launch_bwd<agg::SpillPlan, float>(feat, g, w_rel, d, s, t, rt, sp, ss,
+                                                  (float*)ws, dfeat, (float*)part, (float*)dw, n,
+                                                  slots, num_rel, blocks, st);
   if (dtype == 1)
-    return launch_bwd_d<bf16>(feat, g, w_rel_t, ix, mt, d_gath, pt, w, nc, chunk, sd, ss, n,
-                              num_rel, splits, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-// Source pass of the backward: dfeat [n, 128] in feat's dtype, zero on entry.
-extern "C" int pair_agg_bwd_s(const void* d_gath, const void* idx, const void* meta,
-                              void* dfeat, int nc, int chunk, int sd, int ss, int n, int num_rel,
-                              int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int *ix = (const int*)idx, *mt = (const int*)meta;
-  if (dtype == 0)
-    return launch_bwd_s<float>(d_gath, ix, mt, dfeat, nc, chunk, sd, ss, n, num_rel, st);
-  if (dtype == 1)
-    return launch_bwd_s<bf16>(d_gath, ix, mt, dfeat, nc, chunk, sd, ss, n, num_rel, st);
+    return agg::launch_bwd<agg::SpillPlan, bf16>(feat, g, w_rel, d, s, t, rt, sp, ss, (float*)ws,
+                                                 dfeat, (float*)part, (float*)dw, n, slots,
+                                                 num_rel, blocks, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -39,10 +39,12 @@
 namespace lgk {
 namespace seg {
 
-// The first e in [0, n) with seg[e] ≥ key (n if none), found by one warp:
-// 32 probes a step, so ~log32(n) dependent loads where a binary search takes
-// log2(n) (4 steps instead of 19 at 274,432 edges). Every lane returns it.
-__device__ __forceinline__ long warp_lower_bound(const long long* seg, long n, long long key) {
+// The first e in [0, n) with seg[e] ≥ key (n if none; seg non-decreasing),
+// found by one warp: 32 probes a step, so ~log32(n) dependent loads where a
+// binary search takes log2(n) (4 steps instead of 19 at 274,432 edges).
+// Every lane returns it.
+template <typename K>
+__device__ __forceinline__ long warp_lower_bound(const K* seg, long n, long long key) {
   const int lane = threadIdx.x & 31;
   long lo = 0, hi = n;  // the answer lies in [lo, hi]
   while (hi - lo > 32) {

@@ -8,26 +8,479 @@
 //   t2 = relu(GN(t1 @ Wdo))                (rounded)
 //   s  = t2 @ K1 + Cs[v] + Qd[u]
 //   e1 = relu(GN(s))                       (rounded)
-//   out[u] += e1 @ Wout                    (fp32 accumulation, rounded once)
+//   out[u] = temp[u] + Σ e1 @ Wout         (fp32 sum, rounded once)
 //
-// with u = dw*sd + lu, v = sw*ss + lv. Destination windows that no chunk
-// touches keep temp: the wrapper hands in out = temp.clone(), and a block
-// rewrites only its own window.
+// with u = dw*sd + lu, v = sw*ss + lv; a slot is an edge when lu and lv lie
+// in their windows and u, v in the arrays (padding slots, lu = -1, do not).
 //
 // What bounds it: three [E x 128] x [128 x 128] products per valid edge
-// (2.1 GFLOP for A2M at 256 scenarios) against ~118 MB of traffic (temp
-// read and out written whole, Pd/Qd/Ps/Cs at the rows the edges gather),
-// so at the card's bf16 matrix rate it is memory-bound; this first
-// version runs the products on CUDA cores in fp32, which makes the products
-// the larger cost. The design keeps every per-edge intermediate on chip:
-// the gathers are indexed row loads straight into shared memory, the chain
-// runs 64 edges at a time in shared memory, and the destination scatter
-// accumulates into an fp32 window buffer. Chunks are sorted by (dwin, swin)
-// and `first` marks each destination window's run: one block owns one run,
-// so no two blocks write the same window and the sum needs no atomics (a
-// fixed order: deterministic). Padding edges (lu = -1) and empty halves
-// contribute nothing.
+// (0.8 GFLOP at A2M's ~21k edges of the 256-scenario pack) against temp read
+// and out written whole (~107 MB at A2M's 208,896 rows, bf16) and Pd/Qd/
+// Ps/Cs at the rows the edges gather: bytes, at the card's rates. The TPU
+// kernel walked one destination window's chunks in order and kept the
+// window in VMEM; ported that way (one block per destination-window run,
+// the chain on CUDA cores) M2A and A2A gave 32 of the card's 132 SMs work.
+// Here the forward takes no preparation (serving makes none) and runs two
+// passes over the plan as the packer lays it out:
+//   1. the chain over the plan's own 64-slot tiles, the tiles dealt out in
+//      turn to every warpgroup of a persistent grid (whatever the window
+//      count) and tiles without an edge skipped: t1 gathered into shared
+//      memory, z = t1 @ Wdo on wgmma, t2 and e1 made on the accumulators
+//      in registers and fed back as register-A fragments of s = t2 @ K1
+//      and e2 = e1 @ Wout (bf16: win_edge_fwd_tc_kernel, sharing the
+//      chain's helpers with the backward's recompute; fp32, the parity
+//      path: edge_chain.cuh's chain_fwd on CUDA cores). Each edge's fp32 e2
+//      row goes to its slot of a workspace [slots, 128]: written once, no
+//      atomics.
+//   2. win_edge_sum_kernel: a block per 32 destination rows of a window
+//      (items of a persistent grid) finds the window's chunks by a search
+//      in dwin (non-decreasing: the packer sorts chunks by (dwin, swin) and
+//      parks its idle tail chunks on the last window), walks their slots
+//      in slot order, and adds each edge's row into its destination row,
+//      from temp, in fp32; each row is written once, rounded once. Rows no
+//      edge reaches come out as temp. A row's edges add in slot order, the
+//      order of the plain version's index_add_: reruns are bitwise equal.
 //
+#include <type_traits>
+
+#include "edge_chain.cuh"
+#include "segment_sum.cuh"
+
+using namespace lgk;
+
+namespace {
+
+constexpr int TE = 64;                   // edges (plan slots) per tile
+constexpr int WB = tc::tiles_bytes(C);   // a [128 x 128] weight's core tiles
+constexpr int TB = tc::tiles_bytes(TE);  // a [TE x 128] edge tile's
+
+// Plan slot `slot`: whether it is an edge, and its global rows (meta: dwin,
+// swin, ... over the nc chunks).
+__device__ __forceinline__ bool slot_rows(const int* idx, const int* meta, long slot, int nc,
+                                          int chunk, int icol, int sd, int ss, int nd, int ns,
+                                          int* u, int* v) {
+  const long k = slot / chunk;
+  const int lu = idx[slot * icol], lv = idx[slot * icol + 1];
+  const long gu = (long)meta[k] * sd + lu, gv = (long)meta[nc + k] * ss + lv;
+  *u = (int)gu;
+  *v = (int)gv;
+  return lu >= 0 && lu < sd && lv >= 0 && lv < ss && gu < nd && gv < ns;
+}
+
+// t1 = rnd(relu(Pd[u] + Ps[v] + bd)) for the tile's edges into A_s (0 where
+// lu_s is -1); lu_s / lv_s hold rows relative to base_d / base_s.
+template <typename T>
+__device__ __forceinline__ void gather_t1(float* A_s, const int* lu_s, const int* lv_s,
+                                          const T* pd, const T* ps, const float* bd,
+                                          long base_d, long base_s) {
+  for (int i = threadIdx.x; i < TE * (C / 4); i += NT) {
+    const int r = i / (C / 4), c4 = (i % (C / 4)) * 4;
+    float4 t = zero4();
+    if (lu_s[r] >= 0) {
+      const float4 a = load4<T>(pd + (base_d + lu_s[r]) * C + c4);
+      const float4 b = load4<T>(ps + (base_s + lv_s[r]) * C + c4);
+      t = rnd4<T>(relu4(add4(add4(a, b), *reinterpret_cast<const float4*>(bd + c4))));
+    }
+    *reinterpret_cast<float4*>(A_s + r * LDA + c4) = t;
+  }
+}
+
+// --- the bf16 chain on tensor cores, shared by the forward and the
+// backward's recompute -----------------------------------------------------
+
+// The warpgroup's 128 threads (named barrier 1 + warpgroup).
+__device__ __forceinline__ void wg_sync() {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (threadIdx.x >> 7)) : "memory");
+}
+
+__device__ __forceinline__ float2 ld_bf2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 unpack_bf2(uint32_t u) {
+  __nv_bfloat162 h;
+  memcpy(&h, &u, 4);
+  return __bfloat1622float2(h);
+}
+
+// Wdo | K1 | Wout into core tiles at W_b (one cp.async group, not waited
+// for), by the block's `threads` threads.
+__device__ __forceinline__ void load_chain_weights(uint8_t* W_b, const bf16* kdo, const bf16* k1,
+                                                   const bf16* kout, int threads) {
+  const tc::Tiles t = tc::tiles(W_b, C);
+  for (int i = threadIdx.x; i < 3 * C * C / 8; i += threads) {
+    const int m = i / (C * C / 8), j = i % (C * C / 8);
+    const int r = ((j >> 7) << 3) + (j & 7), c = ((j >> 3) & 15) * 8;
+    const bf16* src = m == 0 ? kdo : m == 1 ? k1 : kout;
+    cp_async16(W_b + m * WB + tc::tile_off(t, r, c), src + r * C + c);
+  }
+  cp_async_commit();
+}
+
+// rnd(relu(Pd[u] + Ps[v] + bd)) of 8 channels: 16 bytes of a Pd row and of a
+// Ps row, bd at the same channels.
+__device__ __forceinline__ uint4 t1_pack8(const bf16* pd_row, const bf16* ps_row,
+                                          const float* bd) {
+  const uint4 a = *reinterpret_cast<const uint4*>(pd_row);
+  const uint4 b = *reinterpret_cast<const uint4*>(ps_row);
+  const uint32_t* ap = &a.x;
+  const uint32_t* bp = &b.x;
+  uint4 o;
+  uint32_t* op = &o.x;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float2 x = unpack_bf2(ap[q]), y = unpack_bf2(bp[q]);
+    op[q] = tc::pack_bf2(fmaxf(x.x + y.x + bd[2 * q], 0.f), fmaxf(x.y + y.y + bd[2 * q + 1], 0.f));
+  }
+  return o;
+}
+
+// t2 = rnd(relu(GN_do(z))) from z's accumulator as bf16 pairs: t2[i / 2]
+// holds elements i and i + 1, which is also the register-A fragment of
+// t2 @ K1 (k slice ks: t2[4ks .. 4ks + 3]). mu / inv: z's row statistics.
+__device__ __forceinline__ void t2_from_z(const float (&acc)[64], const float* w, const float* b,
+                                          float eps, float (&mu)[2], float (&inv)[2],
+                                          uint32_t (&t2)[32]) {
+  tc::acc_row_stats(acc, eps, mu, inv);
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int h = tc::acc_half(i), c = tc::acc_col(i);
+    t2[i / 2] = tc::pack_bf2(fmaxf((acc[i] - mu[h]) * inv[h] * w[c] + b[c], 0.f),
+                             fmaxf((acc[i + 1] - mu[h]) * inv[h] * w[c + 1] + b[c + 1], 0.f));
+  }
+}
+
+// s += Cs[v] + Qd[u] on the thread's edge rows (ok); then acc ← nrm_s, GN_ch's
+// normalised rows, and e1 = rnd(relu(nrm_s ⊙ w + b)) as bf16 pairs (the
+// register-A fragments of e1 @ Wout). inv: s's 1/sqrt(var + eps) per row.
+__device__ __forceinline__ void e1_from_s(float (&acc)[64], const bool (&ok)[2],
+                                          const int (&uu)[2], const int (&vv)[2],
+                                          const bf16* cs, const bf16* qd, const float* w,
+                                          const float* b, float eps, float (&inv)[2],
+                                          uint32_t (&e1)[32]) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int h = tc::acc_half(i), c = tc::acc_col(i);
+    if (ok[h]) {
+      const float2 cv = ld_bf2(cs + (long)vv[h] * C + c), qv = ld_bf2(qd + (long)uu[h] * C + c);
+      acc[i] = acc[i] + cv.x + qv.x;
+      acc[i + 1] = acc[i + 1] + cv.y + qv.y;
+    }
+  }
+  float mu[2];
+  tc::acc_row_stats(acc, eps, mu, inv);
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int h = tc::acc_half(i), c = tc::acc_col(i);
+    acc[i] = (acc[i] - mu[h]) * inv[h];
+    acc[i + 1] = (acc[i + 1] - mu[h]) * inv[h];
+    e1[i / 2] = tc::pack_bf2(fmaxf(acc[i] * w[c] + b[c], 0.f),
+                             fmaxf(acc[i + 1] * w[c + 1] + b[c + 1], 0.f));
+  }
+}
+
+// acc += A B with A the warpgroup's 64 rows as register-A fragments (a:
+// bf16 pairs of an m64n128 accumulator's layout) and B a [128 x 128] weight
+// read MN-major from core tiles; issued, committed and waited for.
+__device__ __forceinline__ void mm_frag(float (&acc)[64], const uint32_t (&a)[32],
+                                        const tc::Tiles& b) {
+  tc::fence_acc(acc);
+  tc::fence();
+#pragma unroll
+  for (int ks = 0; ks < C / 16; ++ks)
+    tc::mma_rs<1>(acc, *reinterpret_cast<const uint32_t(*)[4]>(&a[4 * ks]),
+                  tc::desc(b, false, ks, 0));
+  tc::commit();
+  tc::wait_all();
+  tc::fence_acc(acc);
+}
+
+// --- the forward's chain pass --------------------------------------------
+
+// fp32 (the parity path): edge_chain.cuh's chain_fwd on CUDA cores. Block b
+// takes the plan's 64-slot tiles b, b + B, ..., skips a tile without an
+// edge, and writes each edge's e2 row at its slot of ws.
+__global__ void __launch_bounds__(NT)
+win_edge_fwd_kernel(const float* __restrict__ pd, const float* __restrict__ qd,
+                    const float* __restrict__ ps, const float* __restrict__ cs,
+                    const float* __restrict__ bd, const float* __restrict__ kdo,
+                    const float* __restrict__ gdow, const float* __restrict__ gdob,
+                    const float* __restrict__ k1, const float* __restrict__ gchw,
+                    const float* __restrict__ gchb, const float* __restrict__ kout,
+                    const int* __restrict__ idx, const int* __restrict__ meta,
+                    float* __restrict__ ws, int nc, int chunk, int icol, int sd, int ss, int nd,
+                    int ns, float eps) {
+  extern __shared__ float4 smem4[];
+  float* A_s = reinterpret_cast<float*>(smem4);       // [TE][LDA]
+  float* W_s = A_s + TE * LDA;                        // [C][C]
+  int* lu_s = reinterpret_cast<int*>(W_s + C * C);    // the tile's global rows (-1: no edge)
+  int* lv_s = lu_s + TE;
+  const long slots = (long)nc * chunk, ntiles = (slots + TE - 1) / TE;
+  const Chain<float> w{kdo, gdow, gdob, k1, gchw, gchb, kout, eps};
+  const int lane = threadIdx.x & 31;
+  float mm[4][8];
+  for (long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    __syncthreads();  // the previous tile is done with the rows and the tiles
+    int ok = 0;
+    if (threadIdx.x < TE) {
+      const long p = t * TE + threadIdx.x;
+      int u = -1, v = -1;
+      ok = p < slots && slot_rows(idx, meta, p, nc, chunk, icol, sd, ss, nd, ns, &u, &v);
+      lu_s[threadIdx.x] = ok ? u : -1;
+      lv_s[threadIdx.x] = ok ? v : -1;
+    }
+    if (!__syncthreads_or(ok)) continue;
+    gather_t1<float>(A_s, lu_s, lv_s, pd, ps, bd, 0, 0);
+    chain_fwd<float>(A_s, W_s, w,
+                     [&](int r, float4 s) {  // s += Cs[v] + Qd[u]
+                       if (lu_s[r] >= 0) {
+                         s = add4(s, load4<float>(cs + (long)lv_s[r] * C + lane * 4));
+                         s = add4(s, load4<float>(qd + (long)lu_s[r] * C + lane * 4));
+                       }
+                       return s;
+                     },
+                     mm);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = mm_row(i);
+      if (lu_s[r] >= 0) {
+        float* row = ws + (t * TE + r) * C;
+        *reinterpret_cast<float4*>(row + mm_col(0)) =
+            make_float4(mm[i][0], mm[i][1], mm[i][2], mm[i][3]);
+        *reinterpret_cast<float4*>(row + mm_col(4)) =
+            make_float4(mm[i][4], mm[i][5], mm[i][6], mm[i][7]);
+      }
+    }
+  }
+}
+
+// bf16 (the path that serves and trains): the chain on wgmma. A block of
+// FW_WGS warpgroups holds the three weights once as core tiles; warpgroup g
+// of block b takes tiles b·FW_WGS + g, then every FW_WGS·B-th one, each with
+// its own t1 tile and barrier, so the warpgroups never wait for each other.
+// Per tile: the slots' rows (a ballot skips a tile without an edge), t1
+// gathered by 16-byte loads into core tiles, z = t1 @ Wdo from shared
+// memory, then t2 and e1 straight from the accumulators as register-A
+// fragments of t2 @ K1 and e1 @ Wout; e2's fp32 rows to ws.
+constexpr int FW_WGS = 3;
+constexpr int FW_THREADS = 128 * FW_WGS;
+
+inline int fwd_tc_smem() {
+  return 3 * WB + FW_WGS * TB + 5 * C * (int)sizeof(float) +
+         FW_WGS * (2 * TE + 2) * (int)sizeof(int);
+}
+
+__global__ void __launch_bounds__(FW_THREADS, 1)
+win_edge_fwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
+                       const bf16* __restrict__ ps, const bf16* __restrict__ cs,
+                       const float* __restrict__ bd, const bf16* __restrict__ kdo,
+                       const float* __restrict__ gdow, const float* __restrict__ gdob,
+                       const bf16* __restrict__ k1, const float* __restrict__ gchw,
+                       const float* __restrict__ gchb, const bf16* __restrict__ kout,
+                       const int* __restrict__ idx, const int* __restrict__ meta,
+                       float* __restrict__ ws, int nc, int chunk, int icol, int sd, int ss,
+                       int nd, int ns, float eps) {
+  extern __shared__ float4 smem4[];
+  uint8_t* W_b = reinterpret_cast<uint8_t*>(smem4);                 // Wdo | K1 | Wout
+  uint8_t* T_b = W_b + 3 * WB;                                      // [FW_WGS] t1 tiles
+  float* vec_s = reinterpret_cast<float*>(T_b + FW_WGS * TB);       // bd, gdow, gdob, gchw, gchb
+  int* row_s = reinterpret_cast<int*>(vec_s + 5 * C);               // [FW_WGS][u, v][TE]
+  int* any_s = row_s + FW_WGS * 2 * TE;                             // [FW_WGS][2]
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const tc::Tiles Wdo = tc::tiles(W_b, C), K1 = tc::tiles(W_b + WB, C),
+                  Wout = tc::tiles(W_b + 2 * WB, C);
+  uint8_t* T1_b = T_b + wg * TB;
+  const tc::Tiles T1 = tc::tiles(T1_b, TE);
+  int* U_s = row_s + wg * 2 * TE;
+  int* V_s = U_s + TE;
+  int* F_s = any_s + 2 * wg;  // whether each half of the tile holds an edge
+  const float* bd_s = vec_s;
+  const float* gdow_s = vec_s + C;
+  const float* gdob_s = vec_s + 2 * C;
+  const float* gchw_s = vec_s + 3 * C;
+  const float* gchb_s = vec_s + 4 * C;
+
+  load_chain_weights(W_b, kdo, k1, kout, FW_THREADS);
+  for (int i = threadIdx.x; i < 5 * C; i += FW_THREADS) {
+    const float* v = i < C ? bd : i < 2 * C ? gdow : i < 3 * C ? gdob : i < 4 * C ? gchw : gchb;
+    vec_s[i] = v[i & (C - 1)];
+  }
+  cp_async_wait<0>();
+  tc::fence_smem();
+  __syncthreads();  // the weights and vectors in place
+
+  const long slots = (long)nc * chunk, ntiles = (slots + TE - 1) / TE;
+  const int r0 = tc::acc_row(0);  // this thread's rows of a tile: r0 and r0 + 8
+  for (long t = (long)blockIdx.x * FW_WGS + wg; t < ntiles; t += (long)gridDim.x * FW_WGS) {
+    wg_sync();  // the warpgroup is done with the previous tile's rows, flags and t1
+    if (tid < TE) {
+      const long p = t * TE + tid;
+      int u = -1, v = -1;
+      const bool ok = p < slots && slot_rows(idx, meta, p, nc, chunk, icol, sd, ss, nd, ns, &u, &v);
+      U_s[tid] = ok ? u : -1;
+      V_s[tid] = ok ? v : -1;
+      const unsigned any = __ballot_sync(0xffffffffu, ok);
+      if ((tid & 31) == 0) F_s[tid >> 5] = any != 0u;
+    }
+    wg_sync();
+    if (!(F_s[0] | F_s[1])) continue;  // no edge in the tile (the same for the warpgroup)
+    // t1 into T1: 8 neighbouring threads fill one core matrix (8 rows, 16 bytes).
+#pragma unroll
+    for (int k = 0; k < TE * C / 8 / 128; ++k) {
+      const int r = 8 * k + (tid & 7), c = (tid >> 3) * 8;
+      const int u = U_s[r];
+      const uint4 o = u >= 0 ? t1_pack8(pd + (long)u * C + c, ps + (long)V_s[r] * C + c, bd_s + c)
+                             : make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(T1_b + tc::tile_off(T1, r, c)) = o;
+    }
+    tc::fence_smem();
+    wg_sync();  // t1 in place
+
+    const int ua = U_s[r0], ub = U_s[r0 + 8];
+    const bool ok[2] = {ua >= 0, ub >= 0};
+    const int uu[2] = {ua, ub}, vv[2] = {V_s[r0], V_s[r0 + 8]};
+    float acc[64], mu[2], inv[2];
+    uint32_t a[32];
+    tc::zero(acc);  // z = t1 @ Wdo
+    tc::fence_acc(acc);
+    tc::fence();
+    tc::mm<C / 16, true, false>(acc, T1, 0, Wdo);
+    tc::commit();
+    tc::wait_all();
+    tc::fence_acc(acc);
+    t2_from_z(acc, gdow_s, gdob_s, eps, mu, inv, a);
+    tc::zero(acc);  // s = t2 @ K1
+    mm_frag(acc, a, K1);
+    e1_from_s(acc, ok, uu, vv, cs, qd, gchw_s, gchb_s, eps, inv, a);
+    tc::zero(acc);  // e2 = e1 @ Wout
+    mm_frag(acc, a, Wout);
+    float* row[2] = {ws + (t * TE + r0) * C, ws + (t * TE + r0 + 8) * C};
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int h = tc::acc_half(i);
+      if (ok[h])
+        *reinterpret_cast<float2*>(row[h] + tc::acc_col(i)) = make_float2(acc[i], acc[i + 1]);
+    }
+  }
+}
+
+// --- the forward's sum pass -----------------------------------------------
+
+constexpr int SUM_ROWS = 32;     // destination rows of an item: 4 a warp
+constexpr int SUM_STAGE = 1024;  // plan slots staged at a time: 4 a thread
+
+// out[u] = rnd(temp[u] + Σ ws[slot] over u's edges in slot order). Item i of
+// the ⌈nd / sd⌉·⌈sd / SUM_ROWS⌉ items is rows 32j .. 32j + 31 of window w
+// (i = w·⌈sd / SUM_ROWS⌉ + j); block b takes items b, b + B, .... The window's
+// chunks [k0, k1) are found by two warp searches in dwin, and their slots
+// are staged SUM_STAGE at a time as each slot's row within the item (-1: no
+// edge, or an edge into another item's rows). Warp w owns the item's rows
+// 4w .. 4w + 3 (lane: 4 channels, kept in registers), scans the staged rows
+// 32 at a time by ballot and adds its hits in slot order, loading up to
+// four hits' rows before adding them.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+win_edge_sum_kernel(const float* __restrict__ ws, const T* __restrict__ temp,
+                    const int* __restrict__ idx, const int* __restrict__ meta,
+                    T* __restrict__ out, int nc, int chunk, int icol, int sd, int ss, int nd,
+                    int ns) {
+  __shared__ signed char row_s[SUM_STAGE];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per_win = (sd + SUM_ROWS - 1) / SUM_ROWS;
+  const long items = (long)((nd + sd - 1) / sd) * per_win;
+  for (long it = blockIdx.x; it < items; it += gridDim.x) {
+    const int w = (int)(it / per_win), r_lo = (int)(it % per_win) * SUM_ROWS;
+    const long g0 = (long)w * sd + r_lo;  // the item's first row
+    const int rows = (int)min((long)min(SUM_ROWS, sd - r_lo), (long)nd - g0);
+    if (rows <= 0) continue;  // past the last row (the same for the block)
+    float4 acc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = 4 * warp + j;
+      acc[j] = r < rows ? load4<T>(temp + (g0 + r) * C + lane * 4) : zero4();
+    }
+    const long s_lo = seg::warp_lower_bound(meta, nc, w) * chunk;
+    const long s_hi = seg::warp_lower_bound(meta, nc, w + 1) * chunk;
+    for (long s0 = s_lo; s0 < s_hi; s0 += SUM_STAGE) {
+      __syncthreads();  // every warp is done with the previous stage
+      for (int q = threadIdx.x; q < SUM_STAGE; q += NT) {
+        const long p = s0 + q;
+        int u, v, r = -1;
+        if (p < s_hi && slot_rows(idx, meta, p, nc, chunk, icol, sd, ss, nd, ns, &u, &v) &&
+            u >= g0 && u < g0 + rows)
+          r = (int)(u - g0);
+        row_s[q] = (signed char)r;
+      }
+      __syncthreads();
+      const int staged = (int)min((long)SUM_STAGE, s_hi - s0);
+      for (int q0 = 0; q0 < staged; q0 += 32) {
+        const int r = row_s[q0 + lane];
+        unsigned hits = __ballot_sync(0xffffffffu, r >= 0 && (r >> 2) == warp);
+        while (hits) {
+          int b[4];
+          float4 x[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            b[j] = hits ? __ffs(hits) - 1 : -1;
+            hits &= hits - 1u;
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (b[j] >= 0)
+              x[j] = *reinterpret_cast<const float4*>(ws + (s0 + q0 + b[j]) * C + lane * 4);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (b[j] < 0) continue;
+            const int rr = row_s[q0 + b[j]] & 3;
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if (k == rr) acc[k] = add4(acc[k], x[j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = 4 * warp + j;
+      if (r < rows) store4<T>(out + (g0 + r) * C + lane * 4, acc[j]);
+    }
+  }
+}
+
+template <typename T>
+int launch_fwd(const T* pd, const T* qd, const T* ps, const T* cs, const T* temp,
+               const float* bd, const T* kdo, const float* gdow, const float* gdob, const T* k1,
+               const float* gchw, const float* gchb, const T* kout, const int* idx,
+               const int* meta, float* ws, T* out, int nc, int chunk, int sd, int ss, int icol,
+               int nd, int ns, int blocks, float eps, cudaStream_t stream) {
+  cudaError_t e;
+  if (nc > 0) {
+    if constexpr (std::is_same<T, bf16>::value) {
+      const int smem = fwd_tc_smem();
+      e = set_smem((const void*)win_edge_fwd_tc_kernel, smem);
+      if (e != cudaSuccess) return (int)e;
+      win_edge_fwd_tc_kernel<<<blocks, FW_THREADS, smem, stream>>>(
+          pd, qd, ps, cs, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, idx, meta, ws, nc, chunk,
+          icol, sd, ss, nd, ns, eps);
+    } else {
+      const int smem = (TE * LDA + C * C) * (int)sizeof(float) + 2 * TE * (int)sizeof(int);
+      e = set_smem((const void*)win_edge_fwd_kernel, smem);
+      if (e != cudaSuccess) return (int)e;
+      win_edge_fwd_kernel<<<2 * blocks, NT, smem, stream>>>(
+          pd, qd, ps, cs, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, idx, meta, ws, nc, chunk,
+          icol, sd, ss, nd, ns, eps);
+    }
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long items = (long)((nd + sd - 1) / sd) * ((sd + SUM_ROWS - 1) / SUM_ROWS);
+  const long grid = items < 8L * blocks ? items : 8L * blocks;  // 8 blocks an SM
+  if (grid > 0)
+    win_edge_sum_kernel<T><<<(unsigned)grid, NT, 0, stream>>>(ws, temp, idx, meta, out, nc,
+                                                              chunk, icol, sd, ss, nd, ns);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // Backward (`win_edge_bwd`): replaces pallas_win_edge.py `_bwd_d_kernel` /
 // `_bwd_s_kernel` (`_pallas_bwd`). Per valid edge, recompute t1, z, t2, s,
 // e1 (three products), then
@@ -60,163 +513,7 @@
 // ~21k edges) against dPd/dQd/dPs/dCs written whole (~110 MB at 208,896
 // rows): bytes, at the card's rates. The chain itself, forward and
 // backward, is edge_chain.cuh's in fp32, shared with edge_mlp.cu.
-#include <type_traits>
-
-#include "edge_chain.cuh"
-#include "segment_sum.cuh"
-
-using namespace lgk;
-
-namespace {
-
-constexpr int EB = 64;  // edges per step
-
-// Reads slot lu/lv of one 64-edge step into lu_s/lv_s (-1 where invalid);
-// returns whether any edge of the step is valid. Ends with a barrier.
-__device__ __forceinline__ bool load_step(const int* idx, int* lu_s, int* lv_s, int* any_s,
-                                          int kk, int h, int chunk, int icol, int sd, int ss,
-                                          long base_d, long base_s, int nd, int ns) {
-  __syncthreads();  // the previous step is done with lu_s / the tiles
-  if (threadIdx.x == 0) *any_s = 0;
-  __syncthreads();
-  if (threadIdx.x < EB) {
-    int u = -1, v = -1;
-    if (h * EB + threadIdx.x < chunk) {
-      const long e = (long)kk * chunk + h * EB + threadIdx.x;
-      u = idx[e * icol];
-      v = idx[e * icol + 1];
-    }
-    const bool ok =
-        u >= 0 && u < sd && v >= 0 && v < ss && base_d + u < nd && base_s + v < ns;
-    lu_s[threadIdx.x] = ok ? u : -1;
-    lv_s[threadIdx.x] = ok ? v : -1;
-    if (ok) *any_s = 1;
-  }
-  __syncthreads();
-  return *any_s != 0;
-}
-
-// t1 = rnd(relu(Pd[u] + Ps[v] + bd)) for the step's edges into A_s (0 where invalid).
-template <typename T>
-__device__ __forceinline__ void gather_t1(float* A_s, const int* lu_s, const int* lv_s,
-                                          const T* pd, const T* ps, const float* bd,
-                                          long base_d, long base_s) {
-  for (int i = threadIdx.x; i < EB * (C / 4); i += NT) {
-    const int r = i / (C / 4), c4 = (i % (C / 4)) * 4;
-    float4 t = zero4();
-    if (lu_s[r] >= 0) {
-      const float4 a = load4<T>(pd + (base_d + lu_s[r]) * C + c4);
-      const float4 b = load4<T>(ps + (base_s + lv_s[r]) * C + c4);
-      t = rnd4<T>(relu4(add4(add4(a, b), *reinterpret_cast<const float4*>(bd + c4))));
-    }
-    *reinterpret_cast<float4*>(A_s + r * LDA + c4) = t;
-  }
-}
-
-// acc_out[(base_d + lu) * C + c] += X_s[e][c] over the step's valid edges in
-// edge order (one thread per channel of the first C threads).
-__device__ __forceinline__ void scatter_rows(float* acc_out, const float* X_s, const int* lu_s,
-                                             long base_d) {
-  if (threadIdx.x < C) {
-    for (int e = 0; e < EB; ++e) {
-      const int u = lu_s[e];
-      if (u >= 0) acc_out[(base_d + u) * C + threadIdx.x] += X_s[e * LDA + threadIdx.x];
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-win_edge_kernel(const T* __restrict__ pd, const T* __restrict__ qd, const T* __restrict__ ps,
-                const T* __restrict__ cs, const T* __restrict__ temp,
-                const float* __restrict__ bd, const T* __restrict__ kdo,
-                const float* __restrict__ gdow, const float* __restrict__ gdob,
-                const T* __restrict__ k1, const float* __restrict__ gchw,
-                const float* __restrict__ gchb, const T* __restrict__ kout,
-                const int* __restrict__ idx, const int* __restrict__ meta, float* acc,
-                T* out, int write_out, int nc, int chunk, int sd, int ss, int icol, int nd,
-                int ns, float eps) {
-  const int* dwin = meta;
-  const int* swin = meta + nc;
-  const int* first = meta + 2 * nc;
-  const int k = blockIdx.x;
-  if (first[k] != 1) return;
-  int k_end = k + 1;
-  while (k_end < nc && first[k_end] != 1) ++k_end;
-
-  extern __shared__ float4 smem4[];
-  float* A_s = reinterpret_cast<float*>(smem4);  // [EB][LDA]
-  float* W_s = A_s + EB * LDA;                   // [C][C]
-  int* lu_s = reinterpret_cast<int*>(W_s + C * C);
-  int* lv_s = lu_s + EB;
-  int* any_s = lv_s + EB;
-
-  const long base_d = (long)dwin[k] * sd;
-  const int rows_d = (int)min((long)sd, (long)nd - base_d);
-  for (int i = threadIdx.x; i < rows_d * (C / 4); i += NT) {
-    const long o = (base_d + i / (C / 4)) * C + (i % (C / 4)) * 4;
-    *reinterpret_cast<float4*>(acc + o) = load4<T>(temp + o);
-  }
-
-  const Chain<T> w{kdo, gdow, gdob, k1, gchw, gchb, kout, eps};
-  const int lane = threadIdx.x & 31;
-  float mm[4][8];
-
-  for (int kk = k; kk < k_end; ++kk) {
-    const long base_s = (long)swin[kk] * ss;
-    // s += Cs[v] + Qd[u]
-    auto qc = [&](int r, float4 s) {
-      if (lu_s[r] >= 0) {
-        s = add4(s, load4<T>(cs + (base_s + lv_s[r]) * C + lane * 4));
-        s = add4(s, load4<T>(qd + (base_d + lu_s[r]) * C + lane * 4));
-      }
-      return s;
-    };
-    for (int h = 0; h * EB < chunk; ++h) {
-      // (the first barrier also makes the acc init visible)
-      if (!load_step(idx, lu_s, lv_s, any_s, kk, h, chunk, icol, sd, ss, base_d, base_s, nd, ns))
-        continue;
-      gather_t1<T>(A_s, lu_s, lv_s, pd, ps, bd, base_d, base_s);  // t1
-      chain_fwd<T>(A_s, W_s, w, qc, mm);                          // e2 = e1 @ Wout
-      __syncthreads();
-      store_acc(A_s, mm);
-      __syncthreads();
-      scatter_rows(acc, A_s, lu_s, base_d);  // out[u] += e2, in edge order
-    }
-  }
-  __syncthreads();
-  if (write_out) {
-    for (int i = threadIdx.x; i < rows_d * (C / 4); i += NT) {
-      const long o = (base_d + i / (C / 4)) * C + (i % (C / 4)) * 4;
-      store4<T>(out + o, *reinterpret_cast<const float4*>(acc + o));
-    }
-  }
-}
-
-template <typename T>
-int launch(const void* pd, const void* qd, const void* ps, const void* cs, const void* temp,
-           const float* bd, const void* kdo, const float* gdow, const float* gdob,
-           const void* k1, const float* gchw, const float* gchb, const void* kout,
-           const int* idx, const int* meta, float* acc, void* out, int write_out, int nc,
-           int chunk, int sd, int ss, int icol, int nd, int ns, float eps,
-           cudaStream_t stream) {
-  const int smem = (EB * LDA + C * C) * (int)sizeof(float) + (2 * EB + 4) * (int)sizeof(int);
-  cudaError_t err = set_smem((const void*)win_edge_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (nc > 0) {
-    win_edge_kernel<T><<<nc, NT, smem, stream>>>(
-        (const T*)pd, (const T*)qd, (const T*)ps, (const T*)cs, (const T*)temp, bd,
-        (const T*)kdo, gdow, gdob, (const T*)k1, gchw, gchb, (const T*)kout, idx, meta, acc,
-        (T*)out, write_out, nc, chunk, sd, ss, icol, nd, ns, eps);
-  }
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// Backward.
-
 constexpr int WE_PART = 3 * C * C + 5 * C;  // dWdo, dK1, dWout, dbd, dgdow, dgdob, dgchw, dgchb
-constexpr int TE = 64;                       // edges per tile
 
 // This block's tiles [x, y): an equal share of the ⌈e / TE⌉ tiles over the
 // destination-ordered edges, in order.
@@ -312,26 +609,10 @@ win_edge_bwd_kernel(const float* __restrict__ pd, const float* __restrict__ qd,
 // `act` at its destination position.
 constexpr int WE_WGS = 2;
 constexpr int WE_THREADS = 128 * WE_WGS;
-constexpr int WB = tc::tiles_bytes(C);   // a [128 x 128] weight's core tiles
-constexpr int TB = tc::tiles_bytes(TE);  // a [TE x 128] edge tile's
 
 inline int bwd_tc_smem() {
   return 3 * WB + WE_WGS * 3 * TB + 5 * C * (int)sizeof(float) +
          WE_WGS * 3 * TE * (int)sizeof(int);
-}
-
-// The warpgroup's 128 threads (named barrier 1 + warpgroup).
-__device__ __forceinline__ void wg_sync() {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (threadIdx.x >> 7)) : "memory");
-}
-
-__device__ __forceinline__ float2 ld_bf2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float2 unpack_bf2(uint32_t u) {
-  __nv_bfloat162 h;
-  memcpy(&h, &u, 4);
-  return __bfloat1622float2(h);
 }
 
 // v[k] += the sum over the tile's 64 rows of a[i]·b[i] (MUL) or a[i], for
@@ -422,13 +703,7 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
   const float* gchw_s = vec_s + 3 * C;
   const float* gchb_s = vec_s + 4 * C;
 
-  for (int i = threadIdx.x; i < 3 * C * C / 8; i += WE_THREADS) {
-    const int m = i / (C * C / 8), j = i % (C * C / 8);
-    const int r = ((j >> 7) << 3) + (j & 7), c = ((j >> 3) & 15) * 8;
-    const bf16* src = m == 0 ? kdo : m == 1 ? k1 : kout;
-    cp_async16(W_b + m * WB + tc::tile_off(Wdo, r, c), src + r * C + c);
-  }
-  cp_async_commit();
+  load_chain_weights(W_b, kdo, k1, kout, WE_THREADS);
   for (int i = threadIdx.x; i < 5 * C; i += WE_THREADS) {
     const float* v = i < C ? bd : i < 2 * C ? gdow : i < 3 * C ? gdob : i < 4 * C ? gchw : gchb;
     vec_s[i] = v[i & (C - 1)];
@@ -464,17 +739,7 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
       cp_async16_zfill(Y_b + off, u >= 0 ? g + (long)u * C + c : g, u >= 0 ? 16 : 0);
       uint4 o = make_uint4(0u, 0u, 0u, 0u);
       if (u >= 0) {
-        const uint4 a = *reinterpret_cast<const uint4*>(pd + (long)u * C + c);
-        const uint4 b = *reinterpret_cast<const uint4*>(ps + (long)v * C + c);
-        const uint32_t* ap = &a.x;
-        const uint32_t* bp = &b.x;
-        uint32_t* op = &o.x;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float2 x = unpack_bf2(ap[q]), y = unpack_bf2(bp[q]);
-          op[q] = tc::pack_bf2(fmaxf(x.x + y.x + bd_s[c + 2 * q], 0.f),
-                               fmaxf(x.y + y.y + bd_s[c + 2 * q + 1], 0.f));
-        }
+        o = t1_pack8(pd + (long)u * C + c, ps + (long)v * C + c, bd_s + c);
         *reinterpret_cast<uint4*>(act + (p0 + r) * 4 * C + c) = o;
       }
       *reinterpret_cast<uint4*>(T1_b + off) = o;
@@ -501,15 +766,13 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
     tc::wait_all();
     tc::fence_acc(acc);
     float muz[2], invz[2];
-    tc::acc_row_stats(acc, eps, muz, invz);
+    uint32_t d2[32];
+    t2_from_z(acc, gdow_s, gdob_s, eps, muz, invz, d2);  // t2
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
       const int h = tc::acc_half(i), c = tc::acc_col(i);
-      const uint32_t t2 =
-          tc::pack_bf2(fmaxf((acc[i] - muz[h]) * invz[h] * gdow_s[c] + gdob_s[c], 0.f),
-                       fmaxf((acc[i + 1] - muz[h]) * invz[h] * gdow_s[c + 1] + gdob_s[c + 1], 0.f));
-      *reinterpret_cast<uint32_t*>(X_b + tc::tile_off(X, r0 + 8 * h, c)) = t2;
-      if (ok[h]) *reinterpret_cast<uint32_t*>(act_r[h] + C + c) = t2;
+      *reinterpret_cast<uint32_t*>(X_b + tc::tile_off(X, r0 + 8 * h, c)) = d2[i / 2];
+      if (ok[h]) *reinterpret_cast<uint32_t*>(act_r[h] + C + c) = d2[i / 2];
     }
     tc::fence_smem();
     wg_sync();  // t2 in place
@@ -528,32 +791,18 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
     tc::fence_acc(acc2);
     // s += Cs[v] + Qd[u]; acc ← nrm_s; e1 = rnd(relu(nrm_s ⊙ gchw + gchb)) to
     // act; acc2 ← d_gn_s = d_e1 ⊙ [e1 > 0] (0 past the edges).
+    float invs[2];
+    e1_from_s(acc, ok, uu, vv, cs, qd, gchw_s, gchb_s, eps, invs, d2);
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
       const int h = tc::acc_half(i), c = tc::acc_col(i);
-      if (ok[h]) {
-        const float2 cv = ld_bf2(cs + (long)vv[h] * C + c), qv = ld_bf2(qd + (long)uu[h] * C + c);
-        acc[i] = acc[i] + cv.x + qv.x;
-        acc[i + 1] = acc[i + 1] + cv.y + qv.y;
-      }
-    }
-    float mus[2], invs[2];
-    tc::acc_row_stats(acc, eps, mus, invs);
-#pragma unroll
-    for (int i = 0; i < 64; i += 2) {
-      const int h = tc::acc_half(i), c = tc::acc_col(i);
-      acc[i] = (acc[i] - mus[h]) * invs[h];
-      acc[i + 1] = (acc[i + 1] - mus[h]) * invs[h];
-      const uint32_t e1 = tc::pack_bf2(fmaxf(acc[i] * gchw_s[c] + gchb_s[c], 0.f),
-                                       fmaxf(acc[i + 1] * gchw_s[c + 1] + gchb_s[c + 1], 0.f));
-      if (ok[h]) *reinterpret_cast<uint32_t*>(act_r[h] + 2 * C + c) = e1;
-      const float2 ef = unpack_bf2(e1);
+      if (ok[h]) *reinterpret_cast<uint32_t*>(act_r[h] + 2 * C + c) = d2[i / 2];
+      const float2 ef = unpack_bf2(d2[i / 2]);
       acc2[i] = ok[h] && ef.x > 0.f ? acc2[i] : 0.f;
       acc2[i + 1] = ok[h] && ef.y > 0.f ? acc2[i + 1] : 0.f;
     }
     col_sums<true>(va[3], acc2, acc);
     col_sums<false>(va[4], acc2, acc2);
-    uint32_t d2[32];
     gn_bwd_acc(acc2, acc, invs, gchw_s, d2);  // rnd(d_s)
     wg_sync();  // every warp's products are done with X (t2)
 #pragma unroll
@@ -769,27 +1018,33 @@ int launch_bwd(const T* pd, const T* qd, const T* ps, const T* cs, const T* g, c
 
 // dtype: 0 = float32, 1 = bfloat16 (pd, qd, ps, cs, temp, kdo, k1, kout, out);
 // bd and the GN vectors fp32 [128]; idx int32 [nc*chunk, icol] (lu, lv, ...);
-// meta int32 [6, nc] (dwin, swin, first, ...); acc fp32 [nd, 128], holding
-// temp for every window a run touches on exit; out is written from acc when
-// write_out is 1 (pass acc itself as out with write_out 0 for float32).
+// meta int32 [6, nc] (dwin, swin, ...; dwin non-decreasing, as the packer
+// emits it); ws fp32 [nc*chunk, 128] workspace; out [nd, 128], every row
+// written (temp's where no edge lands). blocks: the card's SMs (the chain
+// pass's persistent blocks: one per SM in bf16, two in fp32).
 extern "C" int win_edge_fwd(const void* pd, const void* qd, const void* ps, const void* cs,
                             const void* temp, const void* bd, const void* kdo,
                             const void* gdow, const void* gdob, const void* k1,
                             const void* gchw, const void* gchb, const void* kout,
-                            const void* idx, const void* meta, void* acc, void* out,
-                            int write_out, int nc, int chunk, int sd, int ss, int icol, int nd,
-                            int ns, float eps, int dtype, void* stream) {
+                            const void* idx, const void* meta, void* ws, void* out, int nc,
+                            int chunk, int sd, int ss, int icol, int nd, int ns, int blocks,
+                            float eps, int dtype, void* stream) {
+  if (nc < 0 || chunk < 1 || sd < 1 || ss < 1 || icol < 2 || nd < 0 || ns < 0 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float *b = (const float*)bd, *g0 = (const float*)gdow, *g1 = (const float*)gdob,
               *g2 = (const float*)gchw, *g3 = (const float*)gchb;
+  const int *ix = (const int*)idx, *mt = (const int*)meta;
   if (dtype == 0)
-    return launch<float>(pd, qd, ps, cs, temp, b, kdo, g0, g1, k1, g2, g3, kout,
-                         (const int*)idx, (const int*)meta, (float*)acc, out, write_out, nc,
-                         chunk, sd, ss, icol, nd, ns, eps, st);
+    return launch_fwd<float>((const float*)pd, (const float*)qd, (const float*)ps,
+                             (const float*)cs, (const float*)temp, b, (const float*)kdo, g0, g1,
+                             (const float*)k1, g2, g3, (const float*)kout, ix, mt, (float*)ws,
+                             (float*)out, nc, chunk, sd, ss, icol, nd, ns, blocks, eps, st);
   if (dtype == 1)
-    return launch<bf16>(pd, qd, ps, cs, temp, b, kdo, g0, g1, k1, g2, g3, kout,
-                        (const int*)idx, (const int*)meta, (float*)acc, out, write_out, nc,
-                        chunk, sd, ss, icol, nd, ns, eps, st);
+    return launch_fwd<bf16>((const bf16*)pd, (const bf16*)qd, (const bf16*)ps, (const bf16*)cs,
+                            (const bf16*)temp, b, (const bf16*)kdo, g0, g1, (const bf16*)k1, g2,
+                            g3, (const bf16*)kout, ix, mt, (float*)ws, (bf16*)out, nc, chunk, sd,
+                            ss, icol, nd, ns, blocks, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -24,7 +24,9 @@ the pack carries:
   is not group-aligned raises (`check_plan_groups`) instead of losing
   edges;
 - the spill plan (the window plan's residue as (dst-window, src-window)
-  chunk pairs): the `pair_agg` kernel;
+  chunk pairs): the `pair_agg` kernel (its backward on the plan prepared
+  once per call when a gradient is wanted, `prepare_spill`, and shared by
+  the layers);
 - the layer tail relu(GN(temp)) → Linear → + res → relu: in the fused
   layer (`pallas_bands` "auto", "on" or "interpret", with band masks) the
   `lane_layer` kernel computes the band products and the tail together
@@ -50,7 +52,7 @@ from lanegcn_tpu_torch.graph import EdgeSet, LaneGraphBatch, PairPlan
 from lanegcn_tpu_torch.models.layers import Dense, GroupNorm, Linear
 from lanegcn_tpu_torch.ops.band_conv import band_conv
 from lanegcn_tpu_torch.ops.lane_layer import fused_lane_layer, fused_lane_layer_plan
-from lanegcn_tpu_torch.ops.pair_agg import pair_aggregate
+from lanegcn_tpu_torch.ops.pair_agg import pair_aggregate, prepare_spill
 from lanegcn_tpu_torch.ops.row_tail import fused_row_tail
 from lanegcn_tpu_torch.ops.scatter import masked_gather, order_by, scatter_add, table_order
 from lanegcn_tpu_torch.ops.scenario_agg import _CHUNK as PLAN_CHUNK
@@ -112,6 +114,10 @@ class LaneConvStack(nn.ModuleDict):
                 prep = prepare_plan(plan_lu, plan_lv, plan_rel, num_win, num_nodes // num_win,
                                     groups, len(names), backward=grad)
 
+        spill_prep = None
+        if spill is not None and grad:  # pair_agg's backward walks it; serving makes none
+            spill_prep = prepare_spill(spill, num_nodes, len(names))
+
         tbl_rel = [r for r, nm in enumerate(names) if tables and nm in tables]
         if tbl_rel:
             tbl_stack = torch.stack([tables[names[r]] for r in tbl_rel], 0)
@@ -153,7 +159,7 @@ class LaneConvStack(nn.ModuleDict):
                 )
             if spill is not None:
                 temp = pair_aggregate(feat.to(dt).contiguous(), temp.to(dt).contiguous(), w_dt,
-                                      spill)
+                                      spill, prep=spill_prep)
             norm, ctr2 = fuse["norm"][i], fuse["ctr2"][i]
             if fused:
                 layer = (feat.to(dt).contiguous(), temp.to(dt).contiguous(), band_masks,

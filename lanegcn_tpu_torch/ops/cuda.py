@@ -35,7 +35,7 @@ ENTRIES = {
     "scenario_agg": ("scenario_agg_fwd", "scenario_agg_bwd"),
     "win_edge": ("win_edge_fwd", "win_edge_bwd"),
     "row_tail": ("row_tail_fwd", "row_tail_bwd", "row_tail2_fwd", "row_tail2_bwd"),
-    "pair_agg": ("pair_agg_fwd", "pair_agg_bwd_d", "pair_agg_bwd_s"),
+    "pair_agg": ("pair_agg_fwd", "pair_agg_bwd"),
     "edge_mlp": ("edge_mlp_fwd", "edge_mlp_bwd", "edge_mlp_pool_fwd", "edge_mlp_pool_bwd"),
     "window_scatter": ("window_scatter_fwd", "window_scatter_bwd"),
     "segment_sum": ("segment_sum",),

@@ -294,7 +294,7 @@ def fused_edge_mlp(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
 
 
 def _live_rows(*rows) -> int:
-    """Rows with a nonzero entry in any of `rows`, plus one if any row is all
+    """Rows with a non-zero entry in any of `rows`, plus one if any row is all
     zero: all-zero rows (the padding) share one output row."""
     live = torch.zeros(rows[0].shape[0], dtype=torch.bool, device=rows[0].device)
     for x in rows:
@@ -307,7 +307,7 @@ def work(d, qg, cg, has_dist2: bool = True) -> dict:
     """Bytes moved and operations done at these inputs: d, cg (and qg, where
     given) read and the output written whole, the weights read once; the
     chain's products (d @ Wd and three [128 x 128], two without has_dist2)
-    run once per row with a nonzero input and once for all the all-zero
+    run once per row with a non-zero input and once for all the all-zero
     (padding) rows together."""
     e, c = cg.shape
     din = d.shape[1]
@@ -329,7 +329,7 @@ def work_bwd(d, qg, cg, g) -> dict:
     read and dd, dqg, dcg written whole, the weights read and their
     gradients written; nine [128 x 128] products (three recomputed, three
     transposed, three weight gradients) and the Wd ones on the rows whose
-    cotangent is nonzero (a zero cotangent contributes nothing)."""
+    cotangent is non-zero (a zero cotangent contributes nothing)."""
     e, c = cg.shape
     db = cg.element_size()
     rows = int((g != 0).any(1).sum())
@@ -345,7 +345,7 @@ def work_pool_bwd(d, cg, g) -> dict:
     """LanePooling's backward at these inputs, dd included (the model skips
     it, d being pack data; `chip_smoke.py` asks for it to check it): d, cg
     and g read and dd and dcg written whole, the weights read and their
-    gradients written; per row whose cotangent is nonzero five [128 x 128]
+    gradients written; per row whose cotangent is non-zero five [128 x 128]
     products (K1 recomputed, d_e1, d_t1, dK1, dWout) and three with Wd (t1
     recomputed, dWd, dd)."""
     e, c = cg.shape

@@ -1,15 +1,25 @@
 """Window-pair aggregation of the LaneConv spill residue: the `pair_agg`
-CUDA kernels (csrc/pair_agg.cu: forward, backward destination and source
-passes) and their plain versions.
+CUDA kernels (csrc/pair_agg.cu: the forward, and the backward on the
+passes it shares with scenario_agg, csrc/rel_agg.cuh) and their plain
+versions.
 
     out[dwin*sd + lu] = temp + Σ_slots W_rel[rel] · feat[swin*ss + lv]
 
 Counterpart of lanegcn_tpu/ops/pallas_pair_agg.py `pair_aggregate`. The
 plan is the packer's spill plan (graph.PairPlan with the relation column:
 idx [NC*chunk, 3] = lu, lv, rel with -1 padding; meta [6, NC]). The public op
-runs through a `torch.autograd.Function` whose backward is the two backward
-kernels on CUDA tensors and `pair_agg_bwd_plain` on CPU tensors; temp's
-cotangent is the output's, unchanged.
+runs through a `torch.autograd.Function` whose backward is the
+`pair_agg_bwd` kernel on CUDA tensors and `pair_agg_bwd_plain` on CPU
+tensors; temp's cotangent is the output's, unchanged.
+
+The backward walks the plan as `prepare_spill` lists it (a
+scenario_agg.PlanPrep: the valid slots in relation order, their 64-edge
+single-relation tiles, their source positions), made once per LaneConv
+stack call when a gradient is wanted and shared by its layers. Both the
+kernels and the plain versions add a row's edges in relation order (slot
+order within a relation): the forward kernel walks its window's slots
+relation by relation, the backward sums over the source order of the
+relation-ordered edges.
 """
 
 from __future__ import annotations
@@ -17,66 +27,101 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from lanegcn_tpu_torch.graph import PairPlan
 from lanegcn_tpu_torch.ops import cuda
+from lanegcn_tpu_torch.ops.scenario_agg import (PlanPrep, _arange, _blocks, _per_relation,
+                                                 prepare_edges)
 
 C = 128
 # Shared memory of a forward block: an fp32 [dst_stride, 32] window slice
-# beside ~57 KB of tiles; of a source-pass block: an fp32 [src_stride, 32].
+# beside ~57 KB of tiles.
 MAX_STRIDE = 1344
 
 
-def _slots(plan: PairPlan, n: int, num_rel: int):
-    """(valid slot positions, global dst rows, global src rows, relations)."""
+def _slot_rows(plan: PairPlan, n: int, num_rel: int):
+    """Per plan slot: (valid, global dst row, global src row, relation). A
+    slot is valid when lu and lv lie inside their windows, rel is a
+    relation and both rows lie below n; the rows are read only where
+    valid."""
     lu = plan.idx[:, 0].long()
     lv = plan.idx[:, 1].long()
     rel = plan.idx[:, 2].long()
-    ch = torch.arange(lu.shape[0], device=lu.device) // plan.chunk
+    ch = _arange(lu.shape[0], lu.device) // plan.chunk
     u = plan.dwin.long()[ch] * plan.dst_stride + lu
     v = plan.swin.long()[ch] * plan.src_stride + lv
     ok = (lu >= 0) & (lu < plan.dst_stride) & (lv >= 0) & (lv < plan.src_stride)
     ok &= (rel >= 0) & (rel < num_rel) & (u < n) & (v < n)
-    sel = ok.nonzero().squeeze(1)
-    return sel, u[sel], v[sel], rel[sel]
+    return ok, u, v, rel
 
 
-def pair_agg_plain(feat, temp, w_rel, plan: PairPlan) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch: fp32 messages, fp32 sum into
-    temp, one rounding to temp's dtype."""
-    _, u, v, rel = _slots(plan, feat.shape[0], w_rel.shape[0])
-    src = feat[v].float()
-    msg = torch.zeros(src.shape, dtype=torch.float32, device=feat.device)
-    for r in range(w_rel.shape[0]):
-        m = (rel == r).nonzero().squeeze(1)
-        if m.numel():
-            msg[m] = src[m] @ w_rel[r].float()
-    out = temp.to(torch.float32, copy=True).index_add_(0, u, msg)
-    return out.to(temp.dtype)
+def prepare_spill(plan: PairPlan, n: int, num_rel: int) -> PlanPrep:
+    """The spill plan as the backward kernel walks it: its valid slots in
+    relation order (one stable sort; slot order within a relation), their
+    global rows, the relation-pure 64-edge tile table and each edge's
+    position in destination and source order. On the plan's device: no
+    host sync."""
+    ok, u, v, rel = _slot_rows(plan, n, num_rel)
+    return prepare_edges(ok, rel, u, v, n, num_rel)
 
 
-def pair_agg_bwd_plain(feat, w_rel, plan: PairPlan, g):
-    """The backward kernels' arithmetic: per valid slot (u ← v, relation r)
-    d_gath = g[u] @ W_rᵀ rounded to feat's dtype, dfeat[v] += d_gath (fp32
-    sums, one rounding to feat's dtype) and dW_r += feat[v]ᵀ g[u] (fp32).
-    Returns (dfeat, dW_rel [R, 128, 128])."""
+def _sorted_slots(plan: PairPlan, n: int, num_rel: int):
+    """Every plan slot in relation order, padding last: (global dst rows,
+    global src rows, n on padding; each relation's edge count, host ints)."""
+    ok, u, v, rel = _slot_rows(plan, n, num_rel)
+    key, order = torch.sort(torch.where(ok, rel, num_rel), stable=True)
+    live = key < num_rel
+    counts = torch.bincount(key, minlength=num_rel + 1)[:num_rel].tolist()
+    return torch.where(live, u[order], n), torch.where(live, v[order], n), counts
+
+
+def _pad(x):
+    """x with one zero row appended: the row a padding slot gathers, and
+    the dropped row it adds into."""
+    return F.pad(x, (0, 0, 0, 1))
+
+
+def _messages(x, w_rel, counts, slots, transpose=False):
+    """[slots] fp32 rows: each relation's run of x's rows times its W_r (or
+    W_rᵀ), then zero rows for the padding slots."""
+    msg = _per_relation(x[:sum(counts)], w_rel, counts, transpose)
+    return F.pad(msg, (0, 0, 0, slots - msg.shape[0]))
+
+
+def pair_agg_plain(feat, temp, w_rel, plan: PairPlan, prep=None) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch, over every plan slot: fp32
+    messages (zero rows on padding), fp32 sum into temp with each row's
+    edges in relation order, one rounding to temp's dtype. `prep` is
+    accepted and not used."""
+    n = feat.shape[0]
+    u, v, counts = _sorted_slots(plan, n, w_rel.shape[0])
+    msg = _messages(_pad(feat)[v].float(), w_rel, counts, u.shape[0])
+    out = _pad(temp.float()).index_add_(0, u, msg)
+    return out[:n].to(temp.dtype)
+
+
+def pair_agg_bwd_plain(feat, w_rel, plan: PairPlan, g, prep=None):
+    """The backward kernel's arithmetic, over every plan slot: per valid slot
+    (u ← v, relation r) dfeat[v] += g[u] @ W_rᵀ (fp32 sums over the
+    relation-ordered edges, one rounding to feat's dtype) and dW_r +=
+    feat[v]ᵀ g[u] (fp32); padding slots gather zero rows. `prep` is
+    accepted and not used. Returns (dfeat, dW_rel [R, 128, 128])."""
     n, c = feat.shape
-    _, u, v, rel = _slots(plan, n, w_rel.shape[0])
-    d_msg = g.to(feat.dtype)[u].float()
-    gath = feat[v].float()
-    d_gath = torch.zeros_like(gath)
+    u, v, counts = _sorted_slots(plan, n, w_rel.shape[0])
+    d_msg = _pad(g.to(feat.dtype))[u].float()
+    gath = _pad(feat)[v].float()
     dw = torch.zeros(w_rel.shape, dtype=torch.float32, device=feat.device)
-    for r in range(w_rel.shape[0]):
-        m = (rel == r).nonzero().squeeze(1)
-        if m.numel():
-            dw[r] = gath[m].t() @ d_msg[m]
-            d_gath[m] = d_msg[m] @ w_rel[r].float().t()
-    d_gath = d_gath.to(feat.dtype).float()
-    dfeat = torch.zeros(n, c, dtype=torch.float32, device=feat.device).index_add_(0, v, d_gath)
-    return dfeat.to(feat.dtype), dw
+    o = 0
+    for r, cnt in enumerate(counts):
+        dw[r] = gath[o:o + cnt].t() @ d_msg[o:o + cnt]
+        o += cnt
+    d_gath = _messages(d_msg, w_rel, counts, u.shape[0], transpose=True)
+    dfeat = torch.zeros(n + 1, c, dtype=torch.float32, device=feat.device).index_add_(0, v, d_gath)
+    return dfeat[:n].to(feat.dtype), dw
 
 
-def _check(feat, temp, w_rel, plan: PairPlan):
+def _check(feat, temp, w_rel, plan: PairPlan, fwd: bool = True):
     n, c = feat.shape
     r_num = w_rel.shape[0]
     nc = plan.num_chunks
@@ -85,19 +130,13 @@ def _check(feat, temp, w_rel, plan: PairPlan):
             or plan.idx.shape[0] != nc * plan.chunk or tuple(plan.meta.shape) != (6, nc)):
         raise ValueError(f"pair_agg: bad shapes feat {feat.shape} w_rel {w_rel.shape} "
                          f"plan idx {plan.idx.shape} meta {plan.meta.shape}")
-    if not 0 < plan.dst_stride <= MAX_STRIDE or not 0 < plan.src_stride <= MAX_STRIDE:
+    if fwd and not (0 < plan.dst_stride <= MAX_STRIDE and 0 < plan.src_stride <= MAX_STRIDE):
         raise ValueError(f"pair_agg: windows of {plan.dst_stride}/{plan.src_stride} rows "
                          f"exceed {MAX_STRIDE}")
     if temp.dtype != feat.dtype or w_rel.dtype != feat.dtype:
         raise TypeError("pair_agg: feat, temp and w_rel must share one dtype")
     if plan.idx.dtype != torch.int32 or plan.meta.dtype != torch.int32:
         raise TypeError("pair_agg: plan indices must be int32")
-
-
-def _plan_args(plan: PairPlan, n: int, r_num: int):
-    return (ctypes.c_int(plan.num_chunks), ctypes.c_int(plan.chunk),
-            ctypes.c_int(plan.dst_stride), ctypes.c_int(plan.src_stride), ctypes.c_int(n),
-            ctypes.c_int(r_num))
 
 
 def _fwd_cuda(feat, temp, w_rel, plan: PairPlan):
@@ -107,36 +146,39 @@ def _fwd_cuda(feat, temp, w_rel, plan: PairPlan):
     cuda.call(
         "pair_agg", "pair_agg_fwd",
         cuda.ptr(feat), cuda.ptr(temp), cuda.ptr(w_rel), cuda.ptr(plan.idx), cuda.ptr(plan.meta),
-        cuda.ptr(out), *_plan_args(plan, feat.shape[0], w_rel.shape[0]), ctypes.c_int(code),
+        cuda.ptr(out), ctypes.c_int(plan.num_chunks), ctypes.c_int(plan.chunk),
+        ctypes.c_int(plan.dst_stride), ctypes.c_int(plan.src_stride),
+        ctypes.c_int(feat.shape[0]), ctypes.c_int(w_rel.shape[0]), ctypes.c_int(code),
         cuda.stream(),
     )
     return out
 
 
-def pair_agg_bwd_cuda(feat, w_rel, plan: PairPlan, g):
-    """The `pair_agg_bwd_d` and `pair_agg_bwd_s` kernels; the same outputs as
-    `pair_agg_bwd_plain`."""
-    _check(feat, g, w_rel, plan)
-    n = feat.shape[0]
-    r_num = w_rel.shape[0]
-    dev = feat.device
-    w_t = w_rel.transpose(1, 2).contiguous()
-    code = cuda.check_cuda("pair_agg", feat, g, w_t, plan.idx, plan.meta)
-    splits = max(1, 2 * cuda.num_sms(dev) // r_num)
-    d_gath = torch.zeros(plan.idx.shape[0], C, dtype=feat.dtype, device=dev)
-    part = torch.empty(splits * r_num * C * C, dtype=torch.float32, device=dev)
-    dw = torch.empty(r_num, C, C, dtype=torch.float32, device=dev)
-    pa = _plan_args(plan, n, r_num)
+def pair_agg_bwd_cuda(feat, w_rel, plan: PairPlan, g, prep: PlanPrep | None = None):
+    """The `pair_agg_bwd` kernel; the same outputs as `pair_agg_bwd_plain`.
+    `prep`: the plan's `prepare_spill` for feat's rows (made here when
+    None; a LaneConv stack makes it once for its layers)."""
+    _check(feat, g, w_rel, plan, fwd=False)
+    n, r_num, slots = feat.shape[0], w_rel.shape[0], plan.idx.shape[0]
+    if prep is None:
+        prep = prepare_spill(plan, n, r_num)
+    if prep.dst.shape[0] != slots or prep.rel_edges.shape[0] != r_num + 1:
+        raise ValueError(f"pair_agg: the plan was prepared for {prep.dst.shape[0]} slots and "
+                         f"{prep.rel_edges.shape[0] - 1} relations, not {slots} and {r_num}")
+    feat, g, w_rel = (cuda.param(t, t.dtype) for t in (feat, g, w_rel))
+    code = cuda.check_cuda("pair_agg", feat, g, w_rel, *prep)
+    blocks = _blocks(feat.device)
+    f32 = dict(dtype=torch.float32, device=feat.device)
+    ws = torch.empty(slots, C, **f32)
+    dfeat = torch.empty_like(feat)
+    part = torch.empty((blocks + r_num) * C * C, **f32)
+    dw = torch.empty(r_num, C, C, **f32)
     cuda.call(
-        "pair_agg", "pair_agg_bwd_d",
-        cuda.ptr(feat), cuda.ptr(g), cuda.ptr(w_t), cuda.ptr(plan.idx), cuda.ptr(plan.meta),
-        cuda.ptr(d_gath), cuda.ptr(part), cuda.ptr(dw), *pa, ctypes.c_int(splits),
-        ctypes.c_int(code), cuda.stream(),
-    )
-    dfeat = torch.zeros_like(feat)
-    cuda.call(
-        "pair_agg", "pair_agg_bwd_s",
-        cuda.ptr(d_gath), cuda.ptr(plan.idx), cuda.ptr(plan.meta), cuda.ptr(dfeat), *pa,
+        "pair_agg", "pair_agg_bwd",
+        cuda.ptr(feat), cuda.ptr(g), cuda.ptr(w_rel), cuda.ptr(prep.dst), cuda.ptr(prep.src),
+        cuda.ptr(prep.tiles), cuda.ptr(prep.rel_tiles), cuda.ptr(prep.spos),
+        cuda.ptr(prep.sseg), cuda.ptr(ws), cuda.ptr(dfeat), cuda.ptr(part), cuda.ptr(dw),
+        ctypes.c_int(n), ctypes.c_longlong(slots), ctypes.c_int(r_num), ctypes.c_int(blocks),
         ctypes.c_int(code), cuda.stream(),
     )
     return dfeat, dw
@@ -144,13 +186,14 @@ def pair_agg_bwd_cuda(feat, w_rel, plan: PairPlan, g):
 
 class _PairAgg(torch.autograd.Function):
     """Forward: the plain version on CPU tensors, the kernel on CUDA tensors.
-    Backward: `pair_agg_bwd_plain` / `pair_agg_bwd_cuda`; temp's cotangent
-    is g unchanged; the plan gets None."""
+    Backward: `pair_agg_bwd_plain` / `pair_agg_bwd_cuda` on the plan's
+    `prepare_spill` (the caller's, else made in the backward); temp's
+    cotangent is g unchanged; the plan gets None."""
 
     @staticmethod
-    def forward(ctx, feat, temp, w_rel, plan):
+    def forward(ctx, feat, temp, w_rel, plan, prep):
         ctx.save_for_backward(feat, w_rel)
-        ctx.plan = plan
+        ctx.plan, ctx.prep = plan, prep
         if feat.device.type == "cpu":
             return pair_agg_plain(feat, temp, w_rel, plan)
         return _fwd_cuda(feat, temp, w_rel, plan)
@@ -159,21 +202,32 @@ class _PairAgg(torch.autograd.Function):
     def backward(ctx, g):
         feat, w_rel = ctx.saved_tensors
         bwd = pair_agg_bwd_plain if feat.device.type == "cpu" else pair_agg_bwd_cuda
-        dfeat, dw = bwd(feat, w_rel, ctx.plan, g.to(feat.dtype).contiguous())
-        return dfeat, g, dw.to(w_rel.dtype), None
+        dfeat, dw = bwd(feat, w_rel, ctx.plan, g.to(feat.dtype).contiguous(), ctx.prep)
+        return dfeat, g, dw.to(w_rel.dtype), None, None
 
 
-def pair_aggregate(feat, temp, w_rel, plan: PairPlan) -> torch.Tensor:
+def pair_aggregate(feat, temp, w_rel, plan: PairPlan, prep: PlanPrep | None = None) -> torch.Tensor:
     """temp + Σ spill-plan edges W_rel[rel] · feat[src] added to dst.
 
     feat/temp [N, 128] and w_rel [R, 128, 128] (in, out) in one dtype; plan:
-    the pack's `spill_pair` (int32 idx with the relation column, meta).
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    Destination windows no chunk touches keep temp.
+    the pack's `spill_pair` (int32 idx with the relation column, meta);
+    prep: the plan's `prepare_spill` for N rows and R relations, which the
+    backward walks (a LaneConv stack makes it once for its layers when a
+    gradient is wanted; None: the backward makes it). CPU tensors take the
+    plain version; CUDA tensors launch the kernel. Destination windows no
+    chunk touches keep temp.
     """
     if feat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"pair_agg: unsupported device {feat.device}")
-    return _PairAgg.apply(feat.contiguous(), temp.contiguous(), w_rel.contiguous(), plan)
+    return _PairAgg.apply(feat.contiguous(), temp.contiguous(), w_rel.contiguous(), plan, prep)
+
+
+def _edges_and_rows(feat, w_rel, plan: PairPlan):
+    """(valid edges, distinct destination rows, distinct source rows)."""
+    n = feat.shape[0]
+    ok, u, v, _ = _slot_rows(plan, n, w_rel.shape[0])
+    rows = lambda x: int((torch.where(ok, x, -1).unique() >= 0).sum())
+    return int(ok.sum()), rows(u), rows(v)
 
 
 def work(feat, w_rel, plan: PairPlan) -> dict:
@@ -183,15 +237,14 @@ def work(feat, w_rel, plan: PairPlan) -> dict:
     read once; the products run on valid slots only."""
     n, c = feat.shape
     db = feat.element_size()
-    sel, u, v, _ = _slots(plan, n, w_rel.shape[0])
-    src_rows = int(v.unique().numel())
+    edges, dst_rows, src_rows = _edges_and_rows(feat, w_rel, plan)
     return {
         "bytes": (2 * n + src_rows) * c * db + plan.idx.numel() * 4 + plan.meta.numel() * 4
         + w_rel.numel() * db,
-        "flops": 2 * int(sel.numel()) * c * c,
-        "edges": int(sel.numel()),
+        "flops": 2 * edges * c * c,
+        "edges": edges,
         "src_rows": src_rows,
-        "dst_rows": int(u.unique().numel()),
+        "dst_rows": dst_rows,
     }
 
 
@@ -199,17 +252,15 @@ def work_bwd(feat, w_rel, plan: PairPlan) -> dict:
     """The backward's bytes and operations at these inputs: g read at the
     distinct destination rows and feat at the distinct source rows of valid
     slots, dfeat written whole, the plan and W_rel read and dW_rel written;
-    two products (d_gath, dW_rel) per valid slot. `slot_bytes` is apart: the
-    d_gath rows the destination pass writes and the source pass reads back,
-    traffic of the two-pass design and not of the function."""
+    two products (dfeat, dW_rel) per valid slot. (The kernel's own traffic
+    adds the fp32 message workspace, 512 bytes an edge written and read, and
+    the prepared plan: not the function's.)"""
     n, c = feat.shape
     db = feat.element_size()
-    sel, u, v, _ = _slots(plan, n, w_rel.shape[0])
-    e = int(sel.numel())
+    edges, dst_rows, src_rows = _edges_and_rows(feat, w_rel, plan)
     return {
-        "bytes": (n + int(u.unique().numel()) + int(v.unique().numel())) * c * db
+        "bytes": (n + dst_rows + src_rows) * c * db
         + plan.idx.numel() * 4 + plan.meta.numel() * 4 + w_rel.numel() * (db + 4),
-        "flops": 2 * 2 * e * c * c,
-        "edges": e,
-        "slot_bytes": 2 * e * c * db,
+        "flops": 2 * 2 * edges * c * c,
+        "edges": edges,
     }

@@ -135,8 +135,8 @@ def plan_edges(lu, lv, rel, num_win: int, stride: int, groups, num_rel: int):
     """The slots the kernels apply (`_applied_edges`), as flat destination
     and source rows sorted by relation (slot order within one), and the
     number of edges of each relation (host ints: the plain versions run on
-    CPU tensors). No nonzero: the applied slots are those the sort puts
-    first."""
+    CPU tensors). No compaction that syncs the host: the applied slots
+    are those the sort puts first."""
     ok = _applied_edges(lu, lv, rel, num_win, stride, groups, num_rel)
     key = torch.where(ok, rel.reshape(-1).long(), num_rel)
     order = torch.sort(key, stable=True).indices
@@ -202,14 +202,24 @@ def prepare_plan(lu, lv, rel, num_win: int, stride: int, groups, num_rel: int,
     """The plan's applied edges in relation order, their single-relation
     tiles and their destination (and, with `backward`, source) positions.
     Sorts, searches and scatters on the plan's device: no host sync."""
-    n, slots, dev = num_win * stride, lu.shape[0], lu.device
     lu_f, lv_f, rel_f = lu.reshape(-1), lv.reshape(-1), rel.reshape(-1).long()
     ok = _applied_edges(lu_f, lv_f, rel_f, num_win, stride, groups, num_rel)
-    key, order = torch.sort(torch.where(ok, rel_f, num_rel), stable=True)
+    return prepare_edges(ok, rel_f, _rows(lu, num_win, stride), _rows(lv, num_win, stride),
+                         num_win * stride, num_rel, backward)
+
+
+def prepare_edges(ok, rel, u, v, n: int, num_rel: int, backward: bool = True) -> PlanPrep:
+    """A PlanPrep from one entry per plan slot: whether the slot is an edge
+    the kernels apply (`ok`), its relation and its global destination and
+    source rows (read only where ok). The edges in relation order (one stable
+    sort; slot order within a relation), the tile table and the positions:
+    the window plan's (`prepare_plan`) and the spill plan's
+    (ops/pair_agg.py `prepare_spill`)."""
+    slots, dev = ok.shape[0], ok.device
+    key, order = torch.sort(torch.where(ok, rel.long(), num_rel), stable=True)
     live = key < num_rel
-    win = order // (slots // num_win) * stride
-    dst = torch.where(live, win + lu_f[order], n)
-    src = torch.where(live, win + lv_f[order], n)
+    dst = torch.where(live, u[order], n)
+    src = torch.where(live, v[order], n)
     rel_edges = torch.searchsorted(key, _arange(num_rel + 1, dev))  # [R+1]
     rel_tiles = F.pad(((rel_edges.diff() + TILE - 1) // TILE).cumsum(0), (1, 0))
     # Tile t: relation r_t (num_rel past the live tiles), its first edge and

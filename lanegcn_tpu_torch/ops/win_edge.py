@@ -14,12 +14,14 @@ distance embedding's signs into Pd/Ps. The public op runs through a
 CUDA tensors and `win_edge_bwd_plain` on CPU tensors; temp's cotangent is
 the output's, unchanged.
 
-The backward walks the plan's valid edges as `prepare_pair` lists them
-(once per plan and step: a fusion stage's two Att layers share it): in
-destination order (a stable sort of the slots by destination row), each
-with its position in source order. Both the kernel and the plain version
-sum dPd/dQd over the destination order and dPs/dCs over the source order,
-so a row's edges always add up in one fixed order.
+The forward takes the plan as the packer lays it out (no preparation: a
+serving step makes none): the chain per plan slot, then each destination
+row's edges added in slot order. The backward walks the plan's valid edges
+as `prepare_pair` lists them (once per plan and step: a fusion stage's two
+Att layers share it): in destination order (a stable sort of the slots by
+destination row), each with its position in source order. Both the kernel
+and the plain version sum dPd/dQd over the destination order and dPs/dCs
+over the source order, so a row's edges always add up in one fixed order.
 """
 
 from __future__ import annotations
@@ -65,17 +67,23 @@ class PairPrep(NamedTuple):
     ns: int
 
 
-def prepare_pair(plan: PairPlan, nd: int, ns: int) -> PairPrep:
-    """The plan's valid slots (window-local rows inside their windows, global
-    rows below nd / ns) in destination and source order. Sorts and scatters
-    on the plan's device: no host sync."""
+def _slot_rows(plan: PairPlan, nd: int, ns: int):
+    """Per plan slot: (valid, global dst row, global src row). A slot is valid
+    when its window-local rows lie inside their windows and its global rows
+    below nd / ns; the rows are read only where valid."""
     lu, lv = plan.idx[:, 0].long(), plan.idx[:, 1].long()
-    slots, dev = lu.shape[0], lu.device
-    ch = _arange(slots, dev) // plan.chunk
+    ch = _arange(lu.shape[0], lu.device) // plan.chunk
     u = plan.dwin.long()[ch] * plan.dst_stride + lu
     v = plan.swin.long()[ch] * plan.src_stride + lv
     ok = (lu >= 0) & (lu < plan.dst_stride) & (lv >= 0) & (lv < plan.src_stride)
-    ok &= (u < nd) & (v < ns)
+    return ok & (u < nd) & (v < ns), u, v
+
+
+def prepare_pair(plan: PairPlan, nd: int, ns: int) -> PairPrep:
+    """The plan's valid slots in destination and source order. Sorts and
+    scatters on the plan's device: no host sync."""
+    ok, u, v = _slot_rows(plan, nd, ns)
+    slots, dev = ok.shape[0], ok.device
     dseg, dperm = torch.sort(torch.where(ok, u, nd), stable=True)
     ev = torch.where(ok, v, ns)[dperm]
     sseg, sperm = torch.sort(ev, stable=True)
@@ -110,14 +118,15 @@ def _pad(x):
 def win_edge_plain(pd, qd, ps, cs, temp, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
                    plan: PairPlan, eps: float = 1e-5) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch: fp32 products of dtype-valued
-    operands, t1/t2/e1 rounded to the activation dtype, fp32 scatter into
-    temp (each row's edges in slot order) and one rounding. Runs over every
-    plan slot in destination order; the slots past the valid edges gather a
-    zero row and add into a dropped row (no compaction, no host sync)."""
+    operands, t1/t2/e1 rounded to the activation dtype, fp32 sum into temp
+    (each row's edges in slot order) and one rounding. Runs over every plan
+    slot in slot order, as the kernel does; a padding slot gathers a zero
+    row and adds into a dropped row (no compaction, no sort, no host
+    sync)."""
     dt = pd.dtype
-    nd = pd.shape[0]
-    prep = prepare_pair(plan, nd, ps.shape[0])
-    u, v = prep.eu.long(), prep.ev.long()
+    nd, ns = pd.shape[0], ps.shape[0]
+    ok, u, v = _slot_rows(plan, nd, ns)
+    u, v = torch.where(ok, u, nd), torch.where(ok, v, ns)
     rnd = lambda x: x.to(dt).float()
     t1 = rnd(torch.relu(_pad(pd)[u].float() + _pad(ps)[v].float() + bd.float()))
     t2 = rnd(torch.relu(group_norm(t1 @ kdo.to(dt).float(), gdow, gdob, 1, eps)))
@@ -191,21 +200,22 @@ def _plan_args(plan: PairPlan, nd: int, ns: int):
 def _fwd_cuda(pd, qd, ps, cs, temp, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, plan, eps):
     _check(pd, qd, ps, cs, temp, (kdo, k1, kout), (bd, gdow, gdob, gchw, gchb), plan)
     nd, c = pd.shape
-    dt = pd.dtype
+    dt, dev = pd.dtype, pd.device
     ws = [cuda.param(w, dt) for w in (kdo, k1, kout)]
     vs = [cuda.param(p) for p in (bd, gdow, gdob, gchw, gchb)]
+    # The kernel copies rows by 16-byte loads.
+    pd, qd, ps, cs, temp = (cuda.param(t, dt) for t in (pd, qd, ps, cs, temp))
     code = cuda.check_cuda("win_edge", pd, qd, ps, cs, temp, plan.idx, plan.meta, *ws, *vs)
-    out = temp.clone()
-    acc = out if dt == torch.float32 else torch.empty(nd, c, dtype=torch.float32,
-                                                     device=pd.device)
+    # Each edge's fp32 e2 row at its plan slot, between the chain and the sum.
+    e2_rows = torch.empty(plan.idx.shape[0], c, dtype=torch.float32, device=dev)
+    out = torch.empty_like(temp)
     cuda.call(
         "win_edge", "win_edge_fwd",
         cuda.ptr(pd), cuda.ptr(qd), cuda.ptr(ps), cuda.ptr(cs), cuda.ptr(temp),
         cuda.ptr(vs[0]), cuda.ptr(ws[0]), cuda.ptr(vs[1]), cuda.ptr(vs[2]), cuda.ptr(ws[1]),
         cuda.ptr(vs[3]), cuda.ptr(vs[4]), cuda.ptr(ws[2]), cuda.ptr(plan.idx),
-        cuda.ptr(plan.meta), cuda.ptr(acc), cuda.ptr(out), ctypes.c_int(int(acc is not out)),
-        *_plan_args(plan, nd, ps.shape[0]), ctypes.c_float(eps), ctypes.c_int(code),
-        cuda.stream(),
+        cuda.ptr(plan.meta), cuda.ptr(e2_rows), cuda.ptr(out), *_plan_args(plan, nd, ps.shape[0]),
+        ctypes.c_int(cuda.num_sms(dev)), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
     )
     return out
 
@@ -296,8 +306,7 @@ def win_edge_mlp(pd, qd, ps, cs, temp, bd, kdo, gdow, gdob, k1, gchw, gchb, kout
     prep: the plan's `prepare_pair` for these row counts, which the
     backward walks (a fusion stage makes it once for its Att layers; None:
     the backward makes it). CPU tensors take the plain version; CUDA tensors
-    launch the kernel. Destination windows no chunk touches keep temp: the
-    kernel updates a clone of temp.
+    launch the kernel. Rows no edge reaches keep temp.
     """
     if pd.device.type not in ("cpu", "cuda"):
         raise ValueError(f"win_edge: unsupported device {pd.device}")
@@ -310,7 +319,9 @@ def work(pd, ps, plan: PairPlan) -> dict:
     the plan's data: pd/qd are read at the distinct destination rows of
     valid edges and ps/cs at their distinct source rows; temp is read and
     the output written whole; the plan and the weights are read once; the
-    three products run on valid edges only."""
+    three products run on valid edges only. `slot_bytes` is apart: the fp32
+    e2 rows the chain pass writes and the sum pass reads back, traffic of the
+    kernel's design and not of the function."""
     nd, c = pd.shape
     db = pd.element_size()
     e, u, v = _edge_rows(plan, nd, ps.shape[0])
@@ -322,6 +333,7 @@ def work(pd, ps, plan: PairPlan) -> dict:
         "edges": e,
         "dst_rows": dst_rows,
         "src_rows": src_rows,
+        "slot_bytes": 2 * e * c * 4,
     }
 
 

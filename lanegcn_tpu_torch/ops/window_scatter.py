@@ -40,14 +40,15 @@ def flat_destinations(lu, wchunk, stride: int, n: int) -> torch.Tensor:
 
 
 def window_scatter_plain(msg, temp, lu, wchunk, stride: int) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch: the messages summed in fp32 in
-    edge order, added to temp, one rounding to temp's dtype."""
+    """The kernel's arithmetic in PyTorch, over every edge slot: the
+    messages summed in fp32 in edge order (a padding slot, or a row past
+    n, adds into a dropped row n), added to temp, one rounding to temp's
+    dtype."""
     n, c = temp.shape
-    dst = flat_destinations(lu, wchunk, stride, n)
-    keep = (dst < n).nonzero().squeeze(1)
-    add = torch.zeros(n, c, dtype=torch.float32, device=temp.device)
-    add.index_add_(0, dst[keep], msg[keep].float())
-    return (temp.float() + add).to(temp.dtype)
+    dst = flat_destinations(lu, wchunk, stride, n).clamp(max=n)
+    add = torch.zeros(n + 1, c, dtype=torch.float32, device=temp.device)
+    add.index_add_(0, dst, msg.float())
+    return (temp.float() + add[:n]).to(temp.dtype)
 
 
 def window_scatter_bwd_plain(g, lu, wchunk, stride: int) -> torch.Tensor:

@@ -4,7 +4,11 @@ fusion lists (`masked_gather`) against the JAX package, forward and
 gradients, on CPU tensors (the plain versions and their autograd
 Functions). The Pallas kernels run as the JAX tests run them on the CPU:
 interpret mode; the JAX package's gathers (`stacked_table_gather`,
-`sorted_transpose_gather`, with hand-written VJPs) are XLA.
+`sorted_transpose_gather`, with hand-written VJPs) are XLA. The spill
+plan's preparation for the backward kernel (`prepare_spill`: relation
+order, tiles, positions) against a numpy reference, the backward kernel's
+passes emulated on it, one preparation per LaneConv stack call, and no
+`nonzero` in the plain versions.
 
 Inputs come from a numpy seed and feed both sides; everything is float32.
 Tolerances: forwards within 1e-5 absolute (1e-5 relative on the
@@ -27,7 +31,8 @@ from lanegcn_tpu.ops.table_gather import sorted_transpose_gather as jax_stg
 from lanegcn_tpu.ops.table_gather import stacked_table_gather as jax_table_gather
 
 from lanegcn_tpu_torch.graph import PairPlan
-from lanegcn_tpu_torch.ops import edge_mlp, masked_gather, pair_agg
+from lanegcn_tpu_torch.ops import edge_mlp, masked_gather, pair_agg, scenario_agg, window_scatter
+from lanegcn_tpu_torch.ops.segment_sum import segment_sum_plain
 
 C = 128
 ATOL = 1e-5
@@ -72,16 +77,26 @@ WIN, STRIDE, R, CHUNK = 5, 64, 14, 16
 N = WIN * STRIDE
 
 
-def _spill_case(seed, n_edges, cap, skip_dst, skip_src):
+def _spill_case(seed, n_edges, cap, skip_dst, skip_src, rels=None, dst_win=None):
+    """A spill plan and inputs; `rels` {relation: edges} fixes the relation
+    counts, `dst_win` sends every edge into that destination window (one
+    run of many chunks)."""
     rng = np.random.RandomState(seed)
+    if rels is not None:
+        n_edges = sum(rels.values())
     u = rng.randint(0, N, n_edges).astype(np.int64)
     v = rng.randint(0, N, n_edges).astype(np.int64)
+    if dst_win is not None:
+        u = dst_win * STRIDE + u % STRIDE
     keep = np.ones(n_edges, bool)
     if skip_dst is not None:
         keep &= (u // STRIDE != skip_dst) & (v // STRIDE != skip_src)
     u, v = u[keep], v[keep]
     # Relation-major order within a window pair, as the packer's residue is.
-    rel = np.sort(rng.randint(0, R, len(u))).astype(np.int32)
+    if rels is not None:
+        rel = np.repeat(np.array(list(rels), np.int32), list(rels.values()))
+    else:
+        rel = np.sort(rng.randint(0, R, len(u))).astype(np.int32)
     d, dropped, _ = build_pair_plan(u, v, STRIDE, STRIDE, cap, CHUNK, rel=rel,
                                     return_residue=True)
     assert dropped == 0
@@ -99,10 +114,17 @@ def _spill_case(seed, n_edges, cap, skip_dst, skip_src):
     dict(n_edges=40, cap=2048, skip_dst=None, skip_src=None),
     # No edge at all: one run of padding chunks.
     dict(n_edges=0, cap=256, skip_dst=None, skip_src=None),
-], ids=["untouched-windows", "padding-chunks", "empty-plan"])
+    # Relation 3 has one edge, relations 1, 2, 4.. none.
+    dict(n_edges=151, cap=1024, skip_dst=None, skip_src=None, rels={0: 90, 3: 1, 13: 60}),
+    # Every edge into destination window 1: one run of many chunks.
+    dict(n_edges=400, cap=1024, skip_dst=None, skip_src=None, dst_win=1),
+], ids=["untouched-windows", "padding-chunks", "empty-plan", "one-edge-relation", "long-run"])
 def test_pair_agg_matches_pallas(case):
+    """The plain forward and backward (in the relation order the kernels
+    sum in, over every plan slot) and their autograd Function against the
+    Pallas kernel and its VJP in interpret mode."""
     arrays, idx, meta, g = _spill_case(21, case["n_edges"], case["cap"], case["skip_dst"],
-                                       case["skip_src"])
+                                       case["skip_src"], case.get("rels"), case.get("dst_win"))
     jplan = JPairPlan(idx=jnp.asarray(idx), meta=jnp.asarray(meta), chunk=CHUNK,
                       dst_stride=STRIDE, src_stride=STRIDE)
     ref, vjp = jax.vjp(lambda *a: jax_pair_agg(*a, jplan, mode="interpret"),
@@ -128,6 +150,192 @@ def test_pair_agg_matches_pallas(case):
     if case["n_edges"] == 0:
         np.testing.assert_array_equal(out.detach().numpy(), arrays[1])
         assert not grads[0].any() and not grads[2].any()
+
+
+# --- the spill plan prepared for the backward kernel ---------------------------
+
+# (edges or {relation: edges}, slot capacity, destination window of every
+# edge or None, rows cut off the end of the arrays)
+PREP_CASES = {
+    "empty": (0, 256, None, 0),
+    "padding-chunks": (40, 2048, None, 0),
+    # relation 3: one edge; relations 1, 2, 4 .. 12: none
+    "one-edge-relation": ({0: 90, 3: 1, 13: 60}, 1024, None, 0),
+    # rows past n: the edges into or out of the last 40 rows are dropped
+    "rows-past-n": (300, 1024, None, 40),
+    "long-run": (400, 1024, 1, 0),
+}
+
+
+def _prep_case(name):
+    spec, cap, dst_win, cut = PREP_CASES[name]
+    rels = spec if isinstance(spec, dict) else None
+    arrays, idx, meta, g = _spill_case(31, 0 if rels else spec, cap, None, None, rels, dst_win)
+    n = N - cut
+    plan = PairPlan(idx=torch.from_numpy(idx), meta=torch.from_numpy(meta), chunk=CHUNK,
+                    dst_stride=STRIDE, src_stride=STRIDE)
+    feat, _, w_rel = (torch.from_numpy(a) for a in arrays)
+    return plan, idx, meta, n, feat[:n].contiguous(), w_rel, torch.from_numpy(g[:n].copy())
+
+
+def _reference_spill(idx, meta, n):
+    """prepare_spill in numpy, slot by slot: the valid rule, the stable
+    relation order, the tiles, and the stable destination and source
+    orders."""
+    tile = scenario_agg.TILE
+    ok, us, vs = [], [], []
+    for slot in range(idx.shape[0]):
+        lu, lv, r = (int(x) for x in idx[slot])
+        ch = slot // CHUNK
+        u, v = int(meta[0, ch]) * STRIDE + lu, int(meta[1, ch]) * STRIDE + lv
+        ok.append(0 <= lu < STRIDE and 0 <= lv < STRIDE and 0 <= r < R and u < n and v < n)
+        us.append(u)
+        vs.append(v)
+    ok = np.array(ok)
+    key = np.where(ok, idx[:, 2], R)
+    order = np.argsort(key, kind="stable")[: int(ok.sum())]
+    u, v = np.array(us)[order], np.array(vs)[order]
+    counts = np.bincount(key[order], minlength=R)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    tiles = [(r, starts[r] + j, min(tile, counts[r] - j))
+             for r in range(R) for j in range(0, counts[r], tile)]
+    ntiles = np.concatenate([[0], np.cumsum(-(-counts // tile))])
+    dperm, sperm = np.argsort(u, kind="stable"), np.argsort(v, kind="stable")
+    dpos, spos = np.empty_like(dperm), np.empty_like(sperm)
+    dpos[dperm], spos[sperm] = np.arange(len(u)), np.arange(len(u))
+    return dict(u=u, v=v, rel_edges=starts, rel_tiles=ntiles,
+                tiles=np.array(tiles, np.int64).reshape(-1, 3), dpos=dpos, dseg=u[dperm],
+                spos=spos, sseg=v[sperm])
+
+
+@pytest.mark.parametrize("name", list(PREP_CASES))
+def test_prepare_spill_matches_numpy_reference(name):
+    plan, idx, meta, n, *_ = _prep_case(name)
+    ref = _reference_spill(idx, meta, n)
+    p = pair_agg.prepare_spill(plan, n, R)
+    slots, e = idx.shape[0], len(ref["u"])
+    np.testing.assert_array_equal(p.dst[:e].numpy(), ref["u"])
+    np.testing.assert_array_equal(p.src[:e].numpy(), ref["v"])
+    assert (p.dst[e:] == n).all() and (p.src[e:] == n).all()
+    np.testing.assert_array_equal(p.rel_edges.numpy(), ref["rel_edges"])
+    np.testing.assert_array_equal(p.rel_tiles.numpy(), ref["rel_tiles"])
+    t = len(ref["tiles"])
+    assert p.tiles.shape == (-(-slots // scenario_agg.TILE) + R, 3)
+    np.testing.assert_array_equal(p.tiles[:t].numpy(), ref["tiles"])
+    assert (p.tiles[t:, 0] == -1).all() and (p.tiles[t:, 1:] == 0).all()
+    for k in ("dpos", "spos", "dseg", "sseg"):
+        np.testing.assert_array_equal(getattr(p, k)[:e].numpy(), ref[k], err_msg=k)
+    assert (p.dseg[e:] == n).all() and (p.sseg[e:] == n).all()
+    if name == "empty":
+        assert e == 0 and t == 0
+    if name == "one-edge-relation":
+        counts = np.diff(ref["rel_edges"])
+        assert counts[3] == 1 and counts[1] == 0 and (e, t) == (151, 2 + 1 + 1)
+    if name == "rows-past-n":
+        assert 0 < e < int((idx[:, 0] >= 0).sum())
+    if name == "long-run":
+        assert (ref["u"] // STRIDE == 1).all() and int(plan.first.sum()) == 1
+        assert int((meta[0] == 1).sum()) > 3  # the run spans several chunks
+
+
+@pytest.mark.parametrize("name", list(PREP_CASES))
+def test_spill_backward_passes_emulated_match_the_plain_version(name):
+    """The backward kernel's passes over prepare_spill, on the CPU: each
+    edge's fp32 message g[u] @ W_rᵀ at its source position, then the segment
+    sum over the source order, is bitwise pair_agg_bwd_plain's dfeat; dW_r
+    summed tile by tile over the relation-pure tiles matches its dW."""
+    plan, _, _, n, feat, w_rel, g = _prep_case(name)
+    p = pair_agg.prepare_spill(plan, n, R)
+    e = int(p.rel_edges[-1])
+    dst, src = p.dst[:e].long(), p.src[:e].long()
+    counts = (p.rel_edges[1:] - p.rel_edges[:-1]).tolist()
+    ws = torch.zeros(plan.idx.shape[0], C)
+    ws[p.spos[:e].long()] = scenario_agg._per_relation(g[dst], w_rel, counts, transpose=True)
+    dfeat = segment_sum_plain(ws, p.sseg, n)
+    plain_dfeat, plain_dw = pair_agg.pair_agg_bwd_plain(feat, w_rel, plan, g)
+    assert torch.equal(dfeat, plain_dfeat)
+    dw = torch.zeros(R, C, C)
+    for r, first, cnt in p.tiles.tolist():
+        if r >= 0:
+            rows = slice(first, first + cnt)
+            dw[r] += feat[p.src[rows].long()].t() @ g[p.dst[rows].long()]
+    _close_grad(dw, plain_dw.numpy(), f"{name} dW_rel by tiles")
+
+
+def test_stack_prepares_the_spill_plan_once_per_call(monkeypatch):
+    """One prepare_spill per LaneConvStack call when a gradient is wanted,
+    handed to every layer's pair_aggregate and used by its backward; none
+    when serving."""
+    import dataclasses
+
+    from lanegcn_tpu_torch.config import ModelConfig, bench_pack_config
+    from lanegcn_tpu_torch.data.packing import pack_batch
+    from lanegcn_tpu_torch.data.synthetic import make_urban_scenario
+    from lanegcn_tpu_torch.graph import PackedBatch
+    from lanegcn_tpu_torch.models import map_net
+    from lanegcn_tpu_torch.models.layers import init_parameters
+
+    model = ModelConfig(n_actor=32, n_map=32, num_fuse_layers=2, num_att_layers=1,
+                        merge_plan_agg="off")
+    scens = [make_urban_scenario(seed=40 + i, num_corridors=3, num_actors=6) for i in range(2)]
+    # A small window plan, so that its residue rides the spill plan.
+    cfg = dataclasses.replace(bench_pack_config(2), max_plan_edges=512)
+    b, st = pack_batch(scens, cfg, model)
+    assert st["spill_pair_edges"] > 0
+    graph = PackedBatch.from_numpy(b).graph
+    stack = map_net.LaneConvStack(model, 2)
+    init_parameters(stack, seed=0)
+    made, seen, used = [], [], []
+    prepare, aggregate, bwd = map_net.prepare_spill, map_net.pair_aggregate, \
+        pair_agg.pair_agg_bwd_plain
+
+    def counted_prepare(*a):
+        made.append(prepare(*a))
+        return made[-1]
+
+    def counted_aggregate(*a, prep=None):
+        seen.append(prep)
+        return aggregate(*a, prep=prep)
+
+    def counted_bwd(*a):
+        used.append(a[-1])
+        return bwd(*a)
+
+    monkeypatch.setattr(map_net, "prepare_spill", counted_prepare)
+    monkeypatch.setattr(map_net, "pair_aggregate", counted_aggregate)
+    monkeypatch.setattr(pair_agg, "pair_agg_bwd_plain", counted_bwd)
+    feat = torch.randn(graph.capacity, 32, requires_grad=True)
+    out = stack(feat, **map_net.graph_inputs(graph))
+    out.square().mean().backward()
+    assert len(made) == 1 and len(seen) == 2 and all(s is made[0] for s in seen)
+    assert len(used) == 2 and all(u is made[0] for u in used)
+    with torch.no_grad():
+        stack(feat, **map_net.graph_inputs(graph))
+    assert len(made) == 1 and len(seen) == 4 and seen[2] is None and seen[3] is None
+
+
+def test_plain_versions_make_no_nonzero():
+    """pair_agg's and window_scatter's plain versions run over every slot
+    (zero padding rows, no compaction): no aten::nonzero."""
+    from torch.profiler import ProfilerActivity, profile
+
+    plan, _, _, n, feat, w_rel, g = _prep_case("rows-past-n")
+    rng = np.random.RandomState(3)
+    lu = np.full((2 * window_scatter.WCHUNK, 1), -1, np.int32)
+    lu[:300, 0] = rng.randint(0, 64, 300)
+    lu[512:600, 0] = rng.randint(0, 64, 88)
+    wchunk = torch.tensor([0, 2], dtype=torch.int32)
+    msg = torch.randn(lu.shape[0], C)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pair_agg.pair_agg_plain(feat, g, w_rel, plan)
+        pair_agg.pair_agg_bwd_plain(feat, w_rel, plan, g)
+        out = window_scatter.window_scatter_plain(msg, torch.zeros(3 * 64, C),
+                                                  torch.from_numpy(lu), wchunk, 64)
+    assert "aten::nonzero" not in {e.name for e in prof.events()}
+    ref = torch.zeros(3 * 64, C)
+    for e in np.flatnonzero(lu[:, 0] >= 0):
+        ref[int(wchunk[e // 512]) * 64 + int(lu[e, 0])] += msg[e]
+    _close_fwd(out, ref.numpy(), rtol=1e-6)
 
 
 # --- fused_edge_mlp ---------------------------------------------------------------

@@ -1,9 +1,11 @@
-"""win_edge's backward in the port: the pair-plan preparation against a
-numpy reference, the plain backward (in its fixed destination and source
-orders) and the public op against the Pallas kernel's VJP in interpret
-mode, one preparation per fusion stage, and the accumulator layouts the
-bf16 kernels' register code relies on (csrc/win_edge.cu, csrc/lane_layer.cu).
-Small widths and plans; one JAX import for the file."""
+"""win_edge in the port: the pair-plan preparation against a numpy
+reference, the plain forward (over the plan's slots, in slot order) and
+backward (in its fixed destination and source orders) and the public op
+against the Pallas kernel and its VJP in interpret mode, the forward
+kernel's sum pass emulated on the CPU, one preparation per fusion stage,
+and the accumulator layouts the bf16 kernels' register code relies on
+(csrc/win_edge.cu, csrc/lane_layer.cu). Small widths and plans; one JAX
+import for the file."""
 
 import dataclasses
 
@@ -38,6 +40,9 @@ CASES = {
     "empty": ((5, 32), (3, 16), 0, 256, None, (0, 0)),
     # M2A-like: two destination windows, each one run of many chunks.
     "m2a-like": ((2, 32), (6, 64), 600, 1024, None, (0, 0)),
+    # Each destination window's edges come from one source window and fill
+    # less than a chunk: runs of one chunk.
+    "one-chunk-runs": ((5, 32), (5, 16), 50, 1024, None, (0, 0)),
 }
 
 
@@ -47,6 +52,8 @@ def _case(name, seed=21):
     full_d, full_s = nwd * sd, nws * ss
     u = rng.randint(0, full_d, n_edges)
     v = rng.randint(0, full_s, n_edges)
+    if name == "one-chunk-runs":
+        v = u // sd * ss + v % ss
     if skip is not None:
         keep = u // sd != skip
         u, v = u[keep], v[keep]
@@ -110,6 +117,8 @@ def test_prepare_pair_matches_numpy(name):
         assert 0 < e < int((c["idx"][:, 0] >= 0).sum())
     if name == "empty":
         assert e == 0
+    if name == "one-chunk-runs":
+        assert int(c["meta"][2].sum()) == 5 and int((c["meta"][0] == c["meta"][0, 0]).sum()) == 1
 
 
 def _jax_reference(c):
@@ -161,6 +170,7 @@ def test_win_edge_bwd_plain_matches_pallas_vjp(name):
     t = [torch.from_numpy(a) for a in c["arrays"]]
     g = torch.from_numpy(c["g"])
     prep = win_edge.prepare_pair(plan, c["nd"], c["ns"])
+    _close(win_edge.win_edge_plain(*t, plan), ref_out, f"{name} plain out")
     got = win_edge.win_edge_bwd_plain(*t[:4], *t[5:], plan, g, 1e-5, prep)
     ref_no_temp = ref[:4] + ref[5:]
     for nm, a, b in zip(NAMES, got, ref_no_temp):
@@ -179,6 +189,50 @@ def test_win_edge_bwd_plain_matches_pallas_vjp(name):
         assert not got[0][w].any() and not got[1][w].any()
     if name == "empty":
         assert all(not x.any() for x in got)
+
+
+SUM_ROWS = 32  # csrc/win_edge.cu: destination rows of a sum-pass item
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_forward_sum_pass_emulated_is_bitwise_the_plain_version(name):
+    """The forward kernel's sum pass on the CPU: per item (32 rows of one
+    destination window), the window's chunks found by searching dwin, their
+    slots walked in slot order, each edge's e2 row (written at its slot by
+    the chain pass) added into its row from temp. Every row is written by
+    exactly one item, and the result is bitwise win_edge_plain's."""
+    c = _case(name)
+    plan = _plan(c)
+    t = [torch.from_numpy(a) for a in c["arrays"]]
+    pd, qd, ps, cs, temp, bd, kdo, gdow, gdob, k1, gchw, gchb, kout = t
+    nd, ns, sd = c["nd"], c["ns"], c["sd"]
+    ok, u, v = win_edge._slot_rows(plan, nd, ns)
+    # The chain pass: e2 of every valid slot, at the slot (the plain chain).
+    uu, vv = torch.where(ok, u, nd), torch.where(ok, v, ns)
+    pad = win_edge._pad
+    t1 = torch.relu(pad(pd)[uu] + pad(ps)[vv] + bd)
+    t2 = torch.relu(win_edge.group_norm(t1 @ kdo, gdow, gdob, 1, 1e-5))
+    e1 = torch.relu(win_edge.group_norm(t2 @ k1 + pad(cs)[vv] + pad(qd)[uu], gchw, gchb, 1,
+                                        1e-5))
+    ws = torch.where(ok[:, None], e1 @ kout, torch.nan)  # slots without an edge are never read
+    dwin = plan.dwin
+    out = torch.full_like(temp, torch.nan)
+    per_win = -(-sd // SUM_ROWS)
+    for item in range(-(-nd // sd) * per_win):
+        w, r_lo = item // per_win, item % per_win * SUM_ROWS
+        g0 = w * sd + r_lo
+        rows = min(SUM_ROWS, sd - r_lo, nd - g0)
+        if rows <= 0:
+            continue
+        acc = temp[g0:g0 + rows].clone()
+        k0 = int(torch.searchsorted(dwin, w))
+        k1_ = int(torch.searchsorted(dwin, w + 1))
+        for slot in range(k0 * CHUNK, k1_ * CHUNK):
+            if ok[slot] and g0 <= u[slot] < g0 + rows:
+                acc[int(u[slot]) - g0] += ws[slot]
+        assert torch.isnan(out[g0:g0 + rows]).all()  # each row written once
+        out[g0:g0 + rows] = acc
+    assert torch.equal(out, win_edge.win_edge_plain(*t, plan))
 
 
 def test_prepare_pair_makes_no_host_sync():

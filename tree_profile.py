@@ -18,7 +18,8 @@ from seed 0; the eval step and the train step warmed up, then
 torch.profiler over one forward per pack and over one train step: the
 device's busy time (the union of its kernels' intervals) per step, the
 idle share of the host's wall time and the host syncs (`nonzero`,
-`.item()`) per step; then the host clock over 10 un-profiled train steps.
+`.item()`) per step; then the host clock over 10 un-profiled serve
+forwards and 10 un-profiled train steps.
 Peak device memory (`max_memory_allocated`, the packs, both models and the
 optimizer state included) over the profiled forwards and over the 10
 train steps.
@@ -113,11 +114,16 @@ def run(tree, geom):
     torch.cuda.reset_peak_memory_stats()
     out = [("serve", profile(serve, batches))]
     out[0][1]["peak_mem_gib"] = gib()
+    steps = 10
+    t0 = time.perf_counter()
+    for i in range(steps):
+        serve(batches[i % 2])
+    torch.cuda.synchronize()
+    out[0][1]["host_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / steps
     out.append(("train", profile(lambda b: train(b, 0.5), batches[:1])))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    steps = 10
     for i in range(steps):
         train(batches[i % 2], 0.5)
     torch.cuda.synchronize()
