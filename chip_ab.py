@@ -22,9 +22,11 @@ win_edge forward and backward likewise (their C interfaces changed: the
 other tree's through its own wrappers, and for the backward this
 checkout's pair-plan preparation timed beside, `new_prep_ms`, the call
 itself handed the preparation the train step made, as a fusion stage hands
-it to its Att layers); the pair_agg backward likewise (the spill plan's
-`prepare_spill` timed beside, the call handed the one the LaneConv stack
-made). Each call shape
+it to its Att layers); the pair_agg forward and backward likewise (the
+spill plan's `prepare_spill` timed beside, forward-only for the forward,
+the call handed the one a LaneGCN forward made); row_tail's forward and
+backward at K = 1 on the windowed geometry (Att's tails) and at K = 2 on
+LaneRCNN's (LanePooling's tail, `row_tail2`). Each call shape
 (A2M, M2A, A2A) of the forward and of the backward runs once per build (the
 largest difference between the two builds' outputs is printed;
 `chip_smoke.py` holds each kernel to its plain version) and is then timed
@@ -55,14 +57,16 @@ from pathlib import Path
 import chip_smoke as cs
 
 ROUNDS = 8
-# kernel library: (geometries whose forward and train step run it, the
-# forward op's capture name)
-TARGETS = {"win_edge": (("windowed",), "win_edge"), "edge_mlp": (("contiguous",), "edge_mlp"),
-           "lane_layer": (("windowed",), "lane_layer"), "lane_plan": (("merged",), "lane_plan"),
-           "band_conv": (("unfused",), "band_conv"),
-           "segment_sum": (("windowed", "lanercnn", "flat"), "segment_sum"),
-           "scenario_agg": (("windowed", "lanercnn"), "scenario_agg"),
-           "pair_agg": (("bench",), "pair_agg")}
+# kernel library: ((geometry whose forward and train step run it, the
+# forward op's capture name there), ...)
+TARGETS = {"win_edge": (("windowed", "win_edge"),), "edge_mlp": (("contiguous", "edge_mlp"),),
+           "lane_layer": (("windowed", "lane_layer"),), "lane_plan": (("merged", "lane_plan"),),
+           "band_conv": (("unfused", "band_conv"),),
+           "segment_sum": (("windowed", "segment_sum"), ("lanercnn", "segment_sum"),
+                           ("flat", "segment_sum")),
+           "scenario_agg": (("windowed", "scenario_agg"), ("lanercnn", "scenario_agg")),
+           "pair_agg": (("bench", "pair_agg"),),
+           "row_tail": (("windowed", "row_tail"), ("lanercnn", "row_tail2"))}
 # Kernel libraries whose C interface changed: the other tree's calls go
 # through its own wrapper module (ops/<name>.py under that tree, loaded
 # beside this checkout's package, its `cuda.call`s landing on the other
@@ -72,7 +76,8 @@ OWN_WRAPPERS = {"scenario_agg": {"scenario_agg": ("scenario_aggregate", 8),
                                  "scenario_agg_bwd": ("scenario_agg_bwd_cuda", 8)},
                 "win_edge": {"win_edge": ("win_edge_mlp", 14),
                              "win_edge_bwd": ("win_edge_bwd_cuda", 14)},
-                "pair_agg": {"pair_agg_bwd": ("pair_agg_bwd_cuda", 4)}}
+                "pair_agg": {"pair_agg": ("pair_aggregate", 4),
+                             "pair_agg_bwd": ("pair_agg_bwd_cuda", 4)}}
 
 
 def build_old(old_root: Path, name: str):
@@ -193,14 +198,15 @@ def pair_prep_ms(a) -> float:
     return cs.time_ms(lambda: win_edge.prepare_pair(plan, pd.shape[0], ps.shape[0]))
 
 
-def spill_prep_ms(a) -> float:
-    """CUDA-event time of this checkout's spill-plan preparation for
-    pair_agg's captured backward call `a`, which a LaneConv stack makes once
-    for its layers (the timed wrapper call is handed it, as in the model)."""
+def spill_prep_ms(feat, w_rel, plan, backward: bool) -> float:
+    """CUDA-event time of this checkout's spill-plan preparation (with the
+    source order for the backward, forward-only for serving), which a
+    LaneGCN forward makes once for both stacks (the timed wrapper call is
+    handed it, as in the model)."""
     from lanegcn_tpu_torch.ops import pair_agg
 
-    feat, w_rel, plan = a[:3]
-    return cs.time_ms(lambda: pair_agg.prepare_spill(plan, feat.shape[0], w_rel.shape[0]))
+    return cs.time_ms(lambda: pair_agg.prepare_spill(plan, feat.shape[0], w_rel.shape[0],
+                                                     backward))
 
 
 def capture(geom):
@@ -258,8 +264,7 @@ def main() -> None:
     cs.emit({"phase": "build", "seconds": time.perf_counter() - t0,
              "old_present": {n: v["old"] is not None for n, v in libs.items()}})
 
-    for name, geom in [(n, g) for n in names for g in TARGETS[n][0]]:
-        fwd_name = TARGETS[name][1]
+    for name, geom, fwd_name in [(n, g, f) for n in names for g, f in TARGETS[n]]:
         fwd_calls, bwd_calls = capture(geom)
         if name == "segment_sum":  # the train step's calls: scatters and gathers' backwards
             ops, calls = cs.forward_ops([name]), {name: bwd_calls[name]}
@@ -283,8 +288,10 @@ def main() -> None:
                     res["new_prep_ms"] = prep_ms(a)
                 if kname == "win_edge_bwd":
                     res["new_prep_ms"] = pair_prep_ms(a)
+                if kname == "pair_agg":
+                    res["new_prep_ms"] = spill_prep_ms(a[0], a[2], a[3], False)
                 if kname == "pair_agg_bwd":
-                    res["new_prep_ms"] = spill_prep_ms(a)
+                    res["new_prep_ms"] = spill_prep_ms(a[0], a[1], a[2], True)
                 outs = {}
                 for v in versions:
                     cuda._LIBS[name] = libs[name][v]

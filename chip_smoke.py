@@ -62,16 +62,19 @@ and exits non-zero:
           drops misplaced edges), win_edge (and `WIN_CASES`: an empty plan,
           whose output must be temp bitwise, a destination window no edge
           reaches, tail chunks all padding, runs of many chunks, runs of
-          one chunk), row_tail; bench: pair_agg (and `SPILL_CASES`: an
-          empty spill plan, whose output must be temp bitwise, a relation
-          with one edge beside relations with none, runs of one chunk, one
-          window's run of many chunks; its other kernels run at the
-          windowed shapes); contiguous: lane_layer (no
+          one chunk), row_tail (and `TAIL_ROWS`: its largest call cut to
+          1, 63 and 65 rows, around the bf16 kernel's 64-row tiles); bench:
+          pair_agg (and `SPILL_CASES`: an empty spill plan, whose output
+          must be temp bitwise, tail chunks all padding, a relation with
+          one edge beside relations with none, rows past n, runs of one
+          chunk, one window's run of many chunks, 1,536-row windows) and
+          row_tail; contiguous: lane_layer (no
           node windows), row_tail (A2M and 512 actor rows) and edge_mlp;
           lanercnn: lane_layer and scenario_agg at the RoI and global
           shapes, window_scatter (both pool scatters, beside one `index_add`
-          call on the same inputs), row_tail2 (its three row counts) and
-          edge_mlp_pool; merged: lane_plan; unfused: band_conv and
+          call on the same inputs), row_tail2 (its three row counts, and
+          `TAIL_ROWS`: 1, 63, 65 and 12,345 rows) and edge_mlp_pool;
+          merged: lane_plan and row_tail; unfused: band_conv and
           row_tail (the LaneConv tails at N rows beside Att's); flat:
           row_tail (the LaneConv tails).
   kernel_bwd  the same kernels' backwards against their plain backwards on
@@ -265,7 +268,8 @@ GEOMETRIES = {
                      kernels=("lane_layer", "scenario_agg", "win_edge", "row_tail"),
                      step_kernels=("segment_sum",),
                      per_forward=_WINDOWED_FWD, per_train_step=_WINDOWED_STEP),
-    "bench": dict(model="lanegcn", config="bench_pack_config", s=256, kernels=("pair_agg",),
+    "bench": dict(model="lanegcn", config="bench_pack_config", s=256,
+                  kernels=("pair_agg", "row_tail"),
                   step_kernels=("segment_sum",),
                   per_forward={**_WINDOWED_FWD, "pair_agg_fwd": 8},
                   per_train_step={**_WINDOWED_STEP, "pair_agg_fwd": 8, **_PAIR_BWD}),
@@ -292,7 +296,7 @@ GEOMETRIES = {
     # kernel (merge_plan_agg="auto"); the `ab` phase profiles it beside the
     # separate kernels on the same packs and weights.
     "merged": dict(model="lanegcn", config="bench_pack_config", s=256,
-                   model_fields=dict(merge_plan_agg="auto"), kernels=("lane_plan",),
+                   model_fields=dict(merge_plan_agg="auto"), kernels=("lane_plan", "row_tail"),
                    step_kernels=("segment_sum",), per_forward=_MERGED_FWD,
                    per_train_step=_MERGED_STEP,
                    ab=("merge_plan_agg", ("off", "separate"), ("auto", "merged"))),
@@ -603,28 +607,163 @@ def compare(name, tag, out_k, out_p):
 # share cap does the bounding. At most TIE_SHARE of the rows (at least 1)
 # are excused: their cotangent is zeroed and every output is held to the
 # tolerances again. scenario_agg_bwd and pair_agg_bwd are linear: they have
-# no ties.
+# no ties. In bfloat16, win_edge_bwd's source-side outputs (dPs, dCs:
+# TIE_SRC_OUTPUTS) sum only the edges from a source row (often one), so a
+# near tie on one of them shows there undiluted: a ReLU pre-activation near
+# zero, or an fp32 value near a bf16 rounding midpoint, which the kernel's
+# and the plain version's fp32 sums, in different orders, round to
+# different sides (one bf16 ulp of a GN backward's output moves a channel
+# of a loud row by more than the tolerance where that channel is small). A
+# source row that misses is excused only if its kernel rows meet the
+# tolerance against a second evaluation of the plain arithmetic: the row's
+# edges one at a time (`edge_chain`), as they come, or with one near tie
+# on one edge taken the other way (a ReLU pre-activation within TIE_EPS of
+# zero, relative to its row's RMS, or a rounding within ROUND_EPS of a
+# bf16 ulp from the midpoint). A dropped, doubled or misrouted edge is
+# none of these. The destination rows of its edges then join the excused
+# rows (under the same cap); a source row that nothing explains fails. In
+# float32 a source-side miss is never excused.
 TIE_OUTPUTS = {"row_tail_bwd": (0, 1), "lane_layer_bwd": (1,), "win_edge_bwd": (0, 1),
                "edge_mlp_bwd": (0, 1, 2), "row_tail2_bwd": (0, 1), "edge_mlp_pool_bwd": (0, 1),
                "lane_plan_bwd": (1,)}
+TIE_SRC_OUTPUTS = {"win_edge_bwd": (2, 3)}
 COTANGENT_ARG = {"row_tail_bwd": 7, "lane_layer_bwd": 9, "win_edge_bwd": 13,
                  "edge_mlp_bwd": 12, "row_tail2_bwd": 10, "edge_mlp_pool_bwd": 8,
                  "lane_plan_bwd": 15}
 TIE_EPS = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 TIE_SHARE = 1e-4
+# A rounding near tie: the fp32 value lies within ROUND_EPS of a bf16 ulp
+# of the midpoint between its two bf16 neighbours. One fp32 ulp is 2^-16 of
+# a bf16 ulp; a 128-term sum reordered moves it by ~10 fp32 ulps, and a GN
+# backward's mean subtraction amplifies that up to ~100x.
+ROUND_EPS = 2.0 ** -6
+MAX_SRC_TIES = 64  # source rows that may miss in one call (the share cap is tighter)
+MAX_FLIPS = 32     # near ties tried per source row, nearest first
 
 
-def tie_rows(name, tag, out_k, out_p):
-    """Rows (of the cotangent) where a row-aligned output misses its tolerance."""
+def tie_rows(name, tag, out_k, out_p, a):
+    """Rows (of the cotangent) where a row-aligned output misses its
+    tolerance and, in bfloat16 (TIE_SRC_OUTPUTS), the destination rows of
+    the edges from each source row that misses and `src_tie` explains (a
+    source row that it does not explain fails); and {source row: how it
+    was explained}."""
     import torch
+    from lanegcn_tpu_torch.ops import win_edge
+
+    def miss(i):
+        ref = out_p[i].float()
+        rms = float(ref.square().mean().sqrt())
+        return ((out_k[i].float() - ref).abs() > TOL[tag] * (rms + ref.abs())).any(1)
 
     bad = None
     for i in TIE_OUTPUTS[name]:
-        ref = out_p[i].float()
-        rms = float(ref.square().mean().sqrt())
-        miss = ((out_k[i].float() - ref).abs() > TOL[tag] * (rms + ref.abs())).any(1)
-        bad = miss if bad is None else bad | miss
-    return torch.nonzero(bad).squeeze(1)
+        bad = miss(i) if bad is None else bad | miss(i)
+    outs = TIE_SRC_OUTPUTS.get(name, ()) if tag == "bfloat16" else ()
+    src = (torch.nonzero(torch.stack([miss(i) for i in outs]).any(0)).squeeze(1).tolist()
+           if outs else [])
+    how = {}
+    if src:
+        check(len(src) <= MAX_SRC_TIES, f"{name} {tag}: {len(src)} source rows miss the "
+              f"tolerance, more than near ties explain ({MAX_SRC_TIES})")
+        _, u, v = win_edge._edge_rows(a[12], a[0].shape[0], a[2].shape[0])
+        for r in src:
+            dst = u[v == r]
+            how[r] = src_tie(a, out_k, out_p, outs, tag, r, dst)
+            check(how[r] is not None, f"{name} {tag}: source row {r} misses the tolerance in "
+                  f"outputs {outs}, and neither its edges one at a time nor one near tie "
+                  f"taken the other way on one of them explain it")
+            bad[dst] = True
+    return torch.nonzero(bad).squeeze(1), how
+
+
+def src_tie(a, out_k, out_p, outs, tag, r, dst):
+    """How win_edge_bwd's kernel rows r of `outs` (dPs, dCs) meet the
+    tolerance against the plain arithmetic over the row's edges (their
+    destination rows `dst`) evaluated one edge at a time, as {"by": "one at
+    a time" or the near tie taken the other way, "edges", "vs_plain",
+    "vs_evaluation": the worst error over the tolerance}; or None."""
+    import torch
+
+    ref = [out_p[i].float() for i in outs]
+    scale = TOL[tag] * torch.cat([x[r].abs() + float(x.square().mean().sqrt()) for x in ref])
+    kern = torch.cat([out_k[i][r].float() for i in outs])
+    worst = lambda emu: float(((kern - emu).abs() / scale).max())
+    logs = [{} for _ in dst]
+    base = [edge_chain(a, int(k), r, log=lg) for k, lg in zip(dst, logs)]
+    total = sum(base)
+    how = {"edges": len(base), "vs_plain": worst(torch.cat([x[r] for x in ref]))}
+    if worst(total) <= 1:
+        return {"by": "one at a time", **how, "vs_evaluation": worst(total)}
+    cands = []
+    for j, lg in enumerate(logs):
+        for (kind, what), (x, y) in lg.items():
+            if kind == "relu":
+                near = x.abs() / x.square().mean().sqrt() / TIE_EPS[tag]
+            else:
+                o = bf16_other(y, x)
+                near = (x - (y + o) / 2).abs() / (y - o).abs() / ROUND_EPS
+                near = torch.where(y != 0, near, torch.full_like(near, 2.0))
+            cands += [(float(near[c]), j, kind, what, c)
+                      for c in torch.nonzero(near <= 1).squeeze(1).tolist()]
+    for near, j, kind, what, c in sorted(cands)[:MAX_FLIPS]:
+        emu = total - base[j] + edge_chain(a, int(dst[j]), r, flip=(kind, what, c))
+        if worst(emu) <= 1:
+            return {"by": f"{kind} {what}[{c}] of edge {int(dst[j])} <- {r} taken the other "
+                          f"way ({near:.3g} of its eps)", **how, "vs_evaluation": worst(emu)}
+    return None
+
+
+def bf16_other(y, x):
+    """The other bf16 neighbour of fp32 x, whose rounding is y."""
+    import torch
+
+    bits = y.to(torch.bfloat16).view(torch.int16)
+    step = torch.where(y.abs() < x.abs(), 1, -1).to(torch.int16)  # away from zero if y is nearer it
+    return (bits + step).view(torch.bfloat16).float()
+
+
+def edge_chain(a, k, r, flip=None, log=None):
+    """win_edge_bwd_plain's arithmetic for the one edge k <- r of its
+    inputs `a` (bfloat16): that edge's rows rnd(d_t1p) | rnd(d_s) [256]
+    fp32, which its dPs and dCs rows sum. `log` gets each ReLU's
+    pre-activation (("relu", name): (pre, None)) and each rounding's fp32
+    value and result (("round", name): (x, y)); `flip` = (kind, name, c)
+    takes that one the other way at channel c."""
+    import torch
+    from lanegcn_tpu_torch.ops.norm import gn_bwd, gn_stats
+
+    pd, qd, ps, cs, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, _, g = a[:14]
+    dt, f = pd.dtype, (lambda x: x.float())
+
+    def relu(name, pre):
+        if log is not None:
+            log[("relu", name)] = (pre[0], None)
+        if flip is not None and flip[:2] == ("relu", name):
+            pre = pre.clone()
+            pre[0, flip[2]] = -pre[0, flip[2]]
+        return torch.relu(pre)
+
+    def rnd(name, x):
+        y = x.to(dt).float()
+        if log is not None:
+            log[("round", name)] = (x[0], y[0])
+        if flip is not None and flip[:2] == ("round", name):
+            y = y.clone()
+            y[0, flip[2]] = bf16_other(y[0, flip[2]], x[0, flip[2]])
+        return y
+
+    w_do, w_1, w_out = (f(w.to(dt)) for w in (kdo, k1, kout))
+    t1 = rnd("t1", relu("t1", f(pd[k:k + 1]) + f(ps[r:r + 1]) + f(bd)))
+    nrm_z, inv_z = gn_stats(t1 @ w_do)
+    t2 = rnd("t2", relu("z", nrm_z * f(gdow) + f(gdob)))
+    nrm_s, inv_s = gn_stats(t2 @ w_1 + f(cs[r:r + 1]) + f(qd[k:k + 1]))
+    e1 = rnd("e1", relu("s", nrm_s * f(gchw) + f(gchb)))
+    d_gn_s = torch.where(e1 > 0, f(g[k:k + 1].to(dt)) @ w_out.t(), 0.0)
+    d_s = rnd("d_s", gn_bwd(d_gn_s, nrm_s, inv_s, gchw))
+    d_gn_z = torch.where(t2 > 0, d_s @ w_1.t(), 0.0)
+    d_z = rnd("d_z", gn_bwd(d_gn_z, nrm_z, inv_z, gdow))
+    d_t1p = rnd("d_t1p", torch.where(t1 > 0, d_z @ w_do.t(), 0.0))
+    return torch.cat([d_t1p, d_s], 1)[0]
 
 
 def relu_pre(name, a):
@@ -732,9 +871,9 @@ def kernel_phase(phase, geom, ops, calls, counts):
                 out_k = fn(*a)
                 out_p = plain(*a)
                 tag = str(dtype).split(".")[-1]
-                ties = 0
+                ties, src_ties = 0, {}
                 if name in TIE_OUTPUTS:
-                    rows = tie_rows(name, tag, out_k, out_p)
+                    rows, src_ties = tie_rows(name, tag, out_k, out_p, a)
                     ties = int(rows.numel())
                     if ties:
                         n_rows = a[COTANGENT_ARG[name]].shape[0]
@@ -754,6 +893,7 @@ def kernel_phase(phase, geom, ops, calls, counts):
                 torch.cuda.synchronize()
                 res[tag] = compare(name, tag, out_k, out_p)
                 res[tag]["tie_rows"] = ties
+                res[tag]["src_ties"] = {str(r): how for r, how in src_ties.items()}
                 if name in ("lane_layer", "lane_plan"):
                     res[tag]["temp"] = check_temp(name, a, out_k)
                 outs = out_k if isinstance(out_k, (tuple, list)) else (out_k,)
@@ -1176,6 +1316,7 @@ def drive(geom):
         cap.calls["win_edge"].update(calls)
         cap.counts["win_edge"].update(counts)
         check_empty_win(calls[empty])
+        add_tail_cases("row_tail", cap)
     if geom == "bench":
         calls, counts, empty = spill_case_calls(backward=False)
         cap.calls["pair_agg"].update(calls)
@@ -1398,6 +1539,23 @@ def lane_case_calls(calls):
     return cases, counts
 
 
+# The row tails' edge cases: the bf16 forward's warpgroups own 64-row tiles,
+# so the captured call with the most rows is cut to one row, one row short
+# of a tile and one row past it, and (K = 2) to a ragged count of many
+# tiles.
+TAIL_ROWS = {"row_tail": (1, 63, 65), "row_tail2": (1, 63, 65, 12345)}
+
+
+def add_tail_cases(name, cap):
+    """Adds TAIL_ROWS[name]'s cuts of the row tail's largest captured
+    forward call to the capture (0 calls a step each)."""
+    args = max(cap.calls[name].values(), key=lambda a: a[0].shape[0])
+    for n in TAIL_ROWS[name]:
+        part = cut_rows(args, n)
+        cap.calls[name][shape_key(part)] = part
+        cap.counts[name][shape_key(part)] = 0
+
+
 # win_edge's edge cases (name, destination windows x rows, source windows x
 # rows, slot capacity, edges, destination window left untouched), for the
 # forward and the backward. The forward's chain pass takes the plan's
@@ -1474,41 +1632,50 @@ def check_empty_win(fwd_args):
               f"win_edge {dtype}: the empty plan's output is not temp")
 
 
-# pair_agg's edge cases on the spill plan (name, windows of 768 rows, slot
-# capacity, {relation: edges}, destination window of every edge or None,
-# each destination window's edges from its own source window): the
-# backward walks the valid slots in 64-edge tiles of one relation each,
-# writes each message at its source position and sums a row's positions in
-# a fixed order; the forward walks each destination window's run of chunks
-# relation by relation. An empty plan (the forward's output is temp
-# bitwise, the backward's zero), a relation with one edge beside relations
-# with none, runs of one chunk, and one destination window's run of many
-# chunks.
+# pair_agg's edge cases on the spill plan (name, windows, rows a window,
+# slot capacity, {relation: edges}, destination window of every edge or
+# None, each destination window's edges from its own source window, rows
+# cut off the end of the node rows): both directions walk the valid slots
+# in 64-edge tiles of one relation each, write each message at its
+# destination (source) position and sum a row's positions in a fixed order
+# from temp (from zero). An empty plan (the forward's output is temp
+# bitwise, the backward's zero), a capacity far past the edges (tail chunks
+# all padding), a relation with one edge beside relations with none, rows
+# past n (the edges into and out of the last 100 rows are not valid), runs
+# of one chunk, one destination window's run of many chunks, and 1,536-row
+# windows (no window sits in shared memory: any stride is taken).
+# Each case has a row count of its own: the captures key calls by shapes.
 SPILL_CASES = (
-    ("empty", 4, 1024, {}, None, False),
-    ("one-edge-relation", 6, 8192, {0: 700, 5: 1, 13: 400}, None, False),
-    ("one-chunk-runs", 8, 4096, {2: 300, 9: 200}, None, True),
-    ("long-run", 5, 8192, {1: 1500, 7: 1500}, 2, False),
+    ("empty", 4, 768, 1024, {}, None, False, 0),
+    ("padding-chunks", 2, 768, 8192, {4: 150, 11: 50}, None, False, 0),
+    ("one-edge-relation", 6, 768, 8192, {0: 700, 5: 1, 13: 400}, None, False, 0),
+    ("rows-past-n", 5, 768, 8192, {3: 900, 8: 600}, None, False, 100),
+    ("one-chunk-runs", 8, 768, 4096, {2: 300, 9: 200}, None, True, 0),
+    ("long-run", 5, 768, 8192, {1: 1500, 7: 1500}, 2, False, 0),
+    ("1536-row-windows", 5, 1536, 8192, {0: 800, 6: 900, 12: 700}, None, False, 0),
 )
 
 
 def spill_case_calls(backward: bool):
     """{shapes: args} and {shapes: 0} of SPILL_CASES, bf16 on the card
     (kernel_phase casts them to fp32 too), as pair_agg's forward op (feat,
-    temp, w_rel, plan) or its backward launcher (feat, w_rel, plan, g)
-    takes them; and the key of the empty plan."""
+    temp, w_rel, plan, prep) or its backward launcher (feat, w_rel, plan, g,
+    prep) takes them, each with the plan's `prepare_spill` (forward-only for
+    the forward), as a LaneGCN forward hands it; and the key of the empty
+    plan."""
     import torch
     from lanegcn_tpu_torch.data.packing import build_pair_plan
     from lanegcn_tpu_torch.graph import PairPlan
+    from lanegcn_tpu_torch.ops import pair_agg
 
     rng = np.random.default_rng(19)
-    stride, calls, counts, empty = 768, {}, {}, None
+    calls, counts, empty = {}, {}, None
     bf = lambda *shape, scale=1.0: torch.as_tensor(rng.normal(size=shape) * scale,
                                                    dtype=torch.bfloat16, device="cuda")
-    for name, num_win, cap, rels, dst_win, same_win in SPILL_CASES:
-        n = num_win * stride
+    for name, num_win, stride, cap, rels, dst_win, same_win, cut in SPILL_CASES:
+        rows = num_win * stride
         k = sum(rels.values())
-        u, v = rng.integers(0, n, k), rng.integers(0, n, k)
+        u, v = rng.integers(0, rows, k), rng.integers(0, rows, k)
         if dst_win is not None:
             u = dst_win * stride + u % stride
         if same_win:
@@ -1522,9 +1689,13 @@ def spill_case_calls(backward: bool):
         plan = PairPlan(idx=torch.as_tensor(idx, device="cuda"),
                         meta=torch.as_tensor(meta, device="cuda"), chunk=128,
                         dst_stride=stride, src_stride=stride)
+        n = rows - cut
         feat, w_rel = bf(n, 128), bf(14, 128, 128, scale=128 ** -0.5)
-        args = [feat, w_rel, plan, bf(n, 128)] if backward else [feat, bf(n, 128), w_rel, plan]
+        prep = pair_agg.prepare_spill(plan, n, 14, backward=backward)
+        args = ([feat, w_rel, plan, bf(n, 128), prep] if backward
+                else [feat, bf(n, 128), w_rel, plan, prep])
         key = shape_key(args)
+        check(key not in calls, f"pair_agg case {name}: its shapes repeat another case's")
         calls[key], counts[key] = args, 0
         if name == "empty":
             empty = key
@@ -1787,6 +1958,7 @@ def drive_lanercnn(geom):
     with forward_capture() as cap:
         step(batches[0])
     torch.cuda.synchronize()
+    add_tail_cases("row_tail2", cap)
     results = kernel_phase("kernel", geom, forward_ops(spec["kernels"]), cap.calls, cap.counts)
     del cap
 

@@ -102,31 +102,6 @@ __device__ __forceinline__ void mm_64x128(const float* A_s, int row_off, const f
   }
 }
 
-// Channel-sliced products: a block owns SLICE of the C output channels of
-// a window held in shared memory; M_s rows are padded to MLD.
-constexpr int SLICE = 32;
-constexpr int MLD = SLICE + 1;
-
-// acc[i][j] += Σ_k scale[i] * G_s[row(i)][k] * W_s[k][col(j)] over a 64 x 32 tile
-// (W_s [C][SLICE]): thread t owns rows (t>>3)*2 + i, cols (t&7)*4 + j.
-__device__ __forceinline__ void mm_64x32(const float* G_s, const float scale[2],
-                                         const float* W_s, float acc[2][4]) {
-  const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
-  const float* a0 = G_s + tr * 2 * LDA;
-#pragma unroll 8
-  for (int k = 0; k < C; ++k) {
-    const float a[2] = {a0[k] * scale[0], a0[LDA + k] * scale[1]};
-    const float4 w = *reinterpret_cast<const float4*>(W_s + k * SLICE + tc * 4);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      acc[i][0] = fmaf(a[i], w.x, acc[i][0]);
-      acc[i][1] = fmaf(a[i], w.y, acc[i][1]);
-      acc[i][2] = fmaf(a[i], w.z, acc[i][2]);
-      acc[i][3] = fmaf(a[i], w.w, acc[i][3]);
-    }
-  }
-}
-
 __device__ __forceinline__ void zero_acc(float acc[4][8]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {

@@ -31,7 +31,8 @@
 //     h = rnd(relu(GN1(temp))) becomes the A fragments of z = h @ W2 in the
 //     registers it was computed in (one k16 slice of an m64n128 accumulator
 //     is the register-A fragment's layout); GN2, the residual from the halo
-//     tile and the ReLU follow in registers, stored in bf16.
+//     tile and the ReLU follow in registers, stored in bf16 (tail_fwd.cuh,
+//     shared with row_tail.cu's bf16 forward).
 //   fp32 (lane_layer_kernel, the parity path): 64-row tiles with a ±32-row
 //     fp32 halo, the band products and the tail on CUDA cores in fp32
 //     (lane_band.cuh band_fwd, layer_tail; register-blocked 4 x 8 per
@@ -67,6 +68,7 @@
 // splits x 12 x 64 KB rather than one [12, 128, 128] per tile; a second
 // pass sums the partials in split order (deterministic).
 #include "lane_band.cuh"
+#include "tail_fwd.cuh"
 
 using namespace lgk;
 
@@ -203,45 +205,23 @@ lane_layer_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ pre
             make_float2(acc[i], acc[i + 1]);
     }
   }
-  // h = rnd(relu(GN1(temp))) as the A fragments of z = h @ W2: fragment
-  // register q of k slice ks holds accumulator elements 8ks + 2q, + 1.
-  float mu[2], inv[2];
-  tc::acc_row_stats(acc, eps, mu, inv);
-  uint32_t ha[C / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < C / 16; ++ks) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = 8 * ks + 2 * q, h = tc::acc_half(i), c = tc::acc_col(i);
-      const float x0 = (acc[i] - mu[h]) * inv[h] * gn_s[c] + gn_s[C + c];
-      const float x1 = (acc[i + 1] - mu[h]) * inv[h] * gn_s[c + 1] + gn_s[C + c + 1];
-      ha[ks][q] = tc::pack_bf2(fmaxf(x0, 0.f), fmaxf(x1, 0.f));
-    }
-  }
-  const tc::Tiles W2t = tc::tiles(W_b + (nj & 1) * WB, C);
-  tc::zero(acc);  // z
-  tc::fence_acc(acc);
-  tc::fence();
-#pragma unroll
-  for (int ks = 0; ks < C / 16; ++ks) tc::mma_rs<1>(acc, ha[ks], tc::desc(W2t, false, ks, 0));
-  tc::commit();
-  tc::wait_all();
-  tc::fence_acc(acc);
+  // h = rnd(relu(GN1(temp))) as the A fragments of z = h @ W2, then
   // out = relu(GN2(z) + feat), the residual from the halo tile.
-  tc::acc_row_stats(acc, eps, mu, inv);
-#pragma unroll
-  for (int i = 0; i < 64; i += 2) {
-    const int r = 64 * wg + tc::acc_row(i), c = tc::acc_col(i), h = tc::acc_half(i);
-    const long gr = tile0 + r;
-    const float2 res = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(X_s + (HALO + r) * DX_HLD + c));
-    const float y0 = (acc[i] - mu[h]) * inv[h] * gn_s[2 * C + c] + gn_s[3 * C + c] + res.x;
-    const float y1 =
-        (acc[i + 1] - mu[h]) * inv[h] * gn_s[2 * C + c + 1] + gn_s[3 * C + c + 1] + res.y;
-    if (gr < n)
-      *reinterpret_cast<__nv_bfloat162*>(out + gr * C + c) =
-          __floats2bfloat162_rn(fmaxf(y0, 0.f), fmaxf(y1, 0.f));
-  }
+  uint32_t ha[C / 16][4];
+  tail::gn_relu_frags(acc, gn_s, gn_s + C, eps, ha);
+  tail::frag_mm(acc, ha, tc::tiles(W_b + (nj & 1) * WB, C));
+  const int r0 = 64 * wg;
+  tail::gn_res_relu(
+      acc, gn_s + 2 * C, gn_s + 3 * C, eps,
+      [&](int r, int c) {
+        return __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(X_s + (HALO + r0 + r) * DX_HLD + c));
+      },
+      [&](int r, int c, float y0, float y1) {
+        const long gr = tile0 + r0 + r;
+        if (gr < n)
+          *reinterpret_cast<__nv_bfloat162*>(out + gr * C + c) = __floats2bfloat162_rn(y0, y1);
+      });
 }
 
 template <typename T>

@@ -1,10 +1,10 @@
 // The passes of the plan aggregations over relation-pure edge tiles, shared
-// by scenario_agg.cu (the window plan) and pair_agg.cu (the spill plan's
-// backward). The wrapper prepares the plan on the device (ops/scenario_agg.py
-// `prepare_plan`, ops/pair_agg.py `prepare_spill`: a `PlanPrep`): its valid
-// edges (u ← v, relation r; global rows) sorted by relation, cut into 64-edge
-// tiles that each hold one relation, and each edge's position in destination
-// and in source order. Then
+// by scenario_agg.cu (the window plan) and pair_agg.cu (the spill plan),
+// forward and backward. The wrapper prepares the plan on the device
+// (ops/scenario_agg.py `prepare_plan`, ops/pair_agg.py `prepare_spill`: a
+// `PlanPrep`): its valid edges (u ← v, relation r; global rows) sorted by
+// relation, cut into 64-edge tiles that each hold one relation, and each
+// edge's position in destination and in source order. Then
 //
 //   forward   out[u] = temp[u] + Σ W_r · feat[v]
 //   backward  dfeat[v] = Σ g[u] @ W_rᵀ;   dW_r = Σ feat[v]ᵀ g[u]

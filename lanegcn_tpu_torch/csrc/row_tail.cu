@@ -7,13 +7,26 @@
 //   out = relu(GN2(relu(GN1(x)) @ W) + res)      (single-group GroupNorms)
 //
 // What bounds it: x, res and out are each read or written once (160 MB at
-// N = 208,896 in bf16) against 6.8 GFLOP, so at the card's bf16 matrix rate
-// it is memory-bound; this first version runs the product on CUDA cores in
-// fp32, whose rate is close enough to the memory time that the product, not
-// the traffic, may dominate. The design keeps the chain in one pass: a block
-// owns 64 rows, takes both GN statistics with one warp per row, and the
-// normalized rows, the product and its statistics stay in shared memory, so
-// each byte of x, res and out crosses device memory once.
+// N = 208,896 in bf16) against 6.8 GFLOP: memory-bound at the card's bf16
+// matrix rate. Two instantiations, each one pass over the rows:
+//   bf16 (row_tail_tc_kernel<K>, K = 1 and 2, the path that serves and
+//     trains): a persistent grid of RT_WGS warpgroups a block; each
+//     warpgroup walks 64-row tiles of its own and keeps the next tile's x
+//     and res in flight by cp.async (two stages of bf16 tiles) while the
+//     current one multiplies. The weight(s) sit once per block as bf16 core
+//     tiles (both of K = 2 side by side). x goes from its staged tile to the
+//     m64n128 accumulator layout; the chain runs in registers on
+//     tail_fwd.cuh's helpers (GN statistics per quad of lanes, h as the
+//     register-A fragments of h @ W on wgmma, GN, the residual, ReLU); the
+//     output goes back over res's staged tile and leaves in 16-byte rows.
+//     Rows past n load as zero and are not stored.
+//   fp32 (row_tail_kernel, row_tail2_kernel, the parity path: wgmma has no
+//     fp32 operands): a block owns 64 rows, takes both GN statistics with
+//     one warp per row, and the normalized rows and the product stay in
+//     shared memory in fp32; the product runs on CUDA cores.
+// The rounding points are the plain version's: h (and, K = 2, h2) rounded
+// to x's dtype before their products, fp32 statistics, one rounding of the
+// output.
 //
 // Backward (`row_tail_bwd`): replaces pallas_row_tail.py `_bwd_kernel` /
 // `_bwd_impl`. It recomputes the chain per row (nothing but the inputs is
@@ -31,15 +44,13 @@
 //
 //   out = relu(GN3(relu(GN2(relu(GN1(x)) @ W1)) @ W2) + res)
 //
-// The same block of 64 rows keeps the whole chain in shared memory: the
-// tile, then each product's result, in place, with one fp32 weight slot
-// (64 KB) that W2 overwrites once W1's product is done, so a block needs
-// 97 KB and two fit on an SM (both weights at once would take 162 KB and
-// one block per SM). h1 and h2 are rounded to x's dtype before their
-// products, as on the TPU. What bounds it: x, res and out cross device
-// memory once (160 MB at N = 208,896 in bf16) against 13.7 GFLOP, so at
-// the card's bf16 matrix rate it is memory-bound; on the CUDA cores in fp32
-// that this version uses, the two products dominate.
+// bf16: row_tail_tc_kernel<2>, h2 = rnd(relu(GN2(t1))) made on t1's
+// accumulators and fed to t2 = h2 @ W2 as register-A fragments. fp32: the
+// same block of 64 rows keeps the whole chain in shared memory, the tile,
+// then each product's result, in place, with one fp32 weight slot (64 KB)
+// that W2 overwrites once W1's product is done. What bounds it: x, res and
+// out cross device memory once (160 MB at N = 208,896 in bf16) against
+// 13.7 GFLOP: memory-bound at the card's bf16 matrix rate.
 //
 // K = 2 backward (`row_tail2_bwd`): replaces `_bwd_kernel` / `_bwd_impl` at
 // K = 2. Per 64-row tile it recomputes the chain and runs back through
@@ -62,6 +73,7 @@
 // memory-bound at the card's bf16 matrix rate, product-bound on the CUDA
 // cores this version uses.
 #include "tail_bwd.cuh"
+#include "tail_fwd.cuh"
 
 using namespace lgk;
 
@@ -160,33 +172,170 @@ row_tail2_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __
   }
 }
 
+// The bf16 forward on tensor cores, K products (K = 1: x → W → out; K = 2:
+// x → W1 → W2 → out). RT_WGS warpgroups a block, each on 64-row tiles of
+// its own (tile wg + RT_WGS·(block + grid·k)), synchronised by a named
+// barrier of its 128 threads; per warpgroup two stages of staged x and res
+// tiles (bf16 rows of RT_LD elements: a quad's 4-byte reads in the
+// accumulator layout hit 32 banks). vecs: the 2K + 2 GN weight and bias
+// vectors, GN1 first.
+constexpr int RT_WGS = 2;
+constexpr int RT_THREADS = 128 * RT_WGS;
+constexpr int RT_ROWS = 64;
+constexpr int RT_LD = C + 8;
+constexpr int RT_TILE = RT_ROWS * RT_LD;  // bf16 elements of one staged tile
+static_assert(RT_THREADS == NT, "tc::load_tiles_128 strides by NT threads");
+
+struct TailVecs {
+  const float* v[6];
+};
+
+template <int K>
+inline int row_tail_tc_smem() {
+  return K * tc::tiles_bytes(C) + (2 * K + 2) * C * (int)sizeof(float) +
+         RT_WGS * 2 * 2 * RT_TILE * (int)sizeof(bf16);
+}
+
+template <int K>
+__global__ void __launch_bounds__(RT_THREADS, 1)
+row_tail_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
+                   const bf16* __restrict__ w1, const bf16* __restrict__ w2, TailVecs vecs,
+                   bf16* __restrict__ out, int n, float eps) {
+  extern __shared__ float4 smem4[];
+  uint8_t* W_b = reinterpret_cast<uint8_t*>(smem4);                     // [K] weight core tiles
+  float* gn_s = reinterpret_cast<float*>(W_b + K * tc::tiles_bytes(C));  // [2K + 2][C]
+  bf16* S_s = reinterpret_cast<bf16*>(gn_s + (2 * K + 2) * C);          // [RT_WGS][2][x, res]
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+
+  tc::load_tiles_128(W_b, tc::tiles(W_b, C), w1);
+  if (K == 2) tc::load_tiles_128(W_b + tc::tiles_bytes(C), tc::tiles(W_b, C), w2);
+  for (int i = threadIdx.x; i < (2 * K + 2) * C; i += RT_THREADS) gn_s[i] = vecs.v[i / C][i % C];
+  tc::fence_smem();
+  __syncthreads();  // the weights (for wgmma) and the vectors in place
+
+  const int ntiles = (n + RT_ROWS - 1) / RT_ROWS, step = gridDim.x * RT_WGS;
+  bf16* stage0 = S_s + wg * 4 * RT_TILE;  // stage s: x at 2s·RT_TILE, res after it
+  auto bar = [&]() { asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory"); };
+  auto fetch = [&](int tile, int s) {  // one commit group: the tile's x and res rows
+    bf16* X = stage0 + 2 * s * RT_TILE;
+    const long row0 = (long)tile * RT_ROWS;
+    for (int i = t; i < RT_ROWS * (C / 8); i += 128) {
+      const int r = i >> 4, c = (i & 15) * 8;
+      const long gr = row0 + r;
+      const bool in = gr < n;
+      cp_async16_zfill(X + r * RT_LD + c, in ? x + gr * C + c : x, in ? 16 : 0);
+      cp_async16_zfill(X + RT_TILE + r * RT_LD + c, in ? res + gr * C + c : res, in ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  int tile = blockIdx.x * RT_WGS + wg;
+  if (tile < ntiles) fetch(tile, 0);
+  for (int k = 0; tile < ntiles; ++k, tile += step) {
+    const int s = k & 1;
+    cp_async_wait<0>();  // this tile, the one group in flight
+    // the tile in place for the warpgroup, which is done with the other
+    // stage (the previous tile's output copy), where the next tile goes
+    bar();
+    if (tile + step < ntiles) fetch(tile + step, s ^ 1);
+    const bf16* X = stage0 + 2 * s * RT_TILE;
+    bf16* R = stage0 + (2 * s + 1) * RT_TILE;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          X + tc::acc_row(i) * RT_LD + tc::acc_col(i)));
+      acc[i] = v.x;
+      acc[i + 1] = v.y;
+    }
+    uint32_t ha[C / 16][4];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {  // h_j = rnd(relu(GN_j(·))), then h_j @ W_j
+      tail::gn_relu_frags(acc, gn_s + 2 * j * C, gn_s + (2 * j + 1) * C, eps, ha);
+      tail::frag_mm(acc, ha, tc::tiles(W_b + j * tc::tiles_bytes(C), C));
+    }
+    // out = relu(GN(·) + res), over res in its staged tile
+    tail::gn_res_relu(
+        acc, gn_s + 2 * K * C, gn_s + (2 * K + 1) * C, eps,
+        [&](int r, int c) {
+          return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(R + r * RT_LD + c));
+        },
+        [&](int r, int c, float y0, float y1) {
+          *reinterpret_cast<__nv_bfloat162*>(R + r * RT_LD + c) = __floats2bfloat162_rn(y0, y1);
+        });
+    bar();  // the output tile complete
+    const long row0 = (long)tile * RT_ROWS;
+    for (int i = t; i < RT_ROWS * (C / 8); i += 128) {
+      const int r = i >> 4, c = (i & 15) * 8;
+      if (row0 + r < n)
+        *reinterpret_cast<uint4*>(out + (row0 + r) * C + c) =
+            *reinterpret_cast<const uint4*>(R + r * RT_LD + c);
+    }
+  }
+}
+
+// The bf16 forward's grid: one block per SM, or fewer where the tiles are
+// fewer than the SMs' warpgroups.
+inline int row_tail_tc_blocks(int n) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return -1;
+  const int tiles = (n + RT_ROWS - 1) / RT_ROWS;
+  return min(sms, (tiles + RT_WGS - 1) / RT_WGS);
+}
+
+template <int K>
+int launch_tc(const void* x, const void* res, const void* w1, const void* w2,
+              const TailVecs& vecs, void* out, int n, float eps, cudaStream_t stream) {
+  const int smem = row_tail_tc_smem<K>();
+  cudaError_t err = set_smem((const void*)row_tail_tc_kernel<K>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = row_tail_tc_blocks(n);
+  if (blocks < 0) return (int)cudaGetLastError();
+  if (blocks > 0)
+    row_tail_tc_kernel<K><<<blocks, RT_THREADS, smem, stream>>>(
+        (const bf16*)x, (const bf16*)res, (const bf16*)w1, (const bf16*)w2, vecs, (bf16*)out, n,
+        eps);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch2(const void* x, const void* res, const void* w1, const void* w2, const float* gn,
             void* out, int n, float eps, cudaStream_t stream) {
-  const int smem = (TM * LDA + C * C) * (int)sizeof(float);
-  cudaError_t err = set_smem((const void*)row_tail2_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + TM - 1) / TM;
-  if (blocks > 0) {
-    row_tail2_kernel<T><<<blocks, NT, smem, stream>>>((const T*)x, (const T*)res, (const T*)w1,
-                                                      (const T*)w2, gn, (T*)out, n, eps);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const TailVecs vecs{{gn, gn + C, gn + 2 * C, gn + 3 * C, gn + 4 * C, gn + 5 * C}};
+    return launch_tc<2>(x, res, w1, w2, vecs, out, n, eps, stream);
+  } else {
+    const int smem = (TM * LDA + C * C) * (int)sizeof(float);
+    cudaError_t err = set_smem((const void*)row_tail2_kernel<T>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (n + TM - 1) / TM;
+    if (blocks > 0)
+      row_tail2_kernel<T><<<blocks, NT, smem, stream>>>((const T*)x, (const T*)res,
+                                                        (const T*)w1, (const T*)w2, gn, (T*)out,
+                                                        n, eps);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* x, const void* res, const void* w, const float* g1w, const float* g1b,
            const float* g2w, const float* g2b, void* out, int n, float eps,
            cudaStream_t stream) {
-  const int smem = (TM * LDA + C * C) * (int)sizeof(float);
-  cudaError_t err = set_smem((const void*)row_tail_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + TM - 1) / TM;
-  if (blocks > 0) {
-    row_tail_kernel<T><<<blocks, NT, smem, stream>>>((const T*)x, (const T*)res, (const T*)w,
-                                                     g1w, g1b, g2w, g2b, (T*)out, n, eps);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const TailVecs vecs{{g1w, g1b, g2w, g2b, nullptr, nullptr}};
+    return launch_tc<1>(x, res, w, nullptr, vecs, out, n, eps, stream);
+  } else {
+    const int smem = (TM * LDA + C * C) * (int)sizeof(float);
+    cudaError_t err = set_smem((const void*)row_tail_kernel<T>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (n + TM - 1) / TM;
+    if (blocks > 0)
+      row_tail_kernel<T><<<blocks, NT, smem, stream>>>((const T*)x, (const T*)res, (const T*)w,
+                                                       g1w, g1b, g2w, g2b, (T*)out, n, eps);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 constexpr int TAIL2_PART = 2 * C * C + 6 * C;  // dW1, dW2, dg1w, dg1b, dg2w, dg2b, dg3w, dg3b

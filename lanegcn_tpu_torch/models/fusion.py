@@ -137,8 +137,10 @@ class M2M(nn.Module):
         super().__init__()
         self.fuse = LaneConvStack(cfg, cfg.num_fuse_layers, dtype=dtype)
 
-    def forward(self, nodes, graph: LaneGraphBatch):
-        return self.fuse(nodes, **graph_inputs(graph))
+    def forward(self, nodes, graph: LaneGraphBatch, spill_prep=None):
+        """spill_prep: the graph's spill plan prepared once for MapNet's and
+        this stack (`map_net.graph_spill`), or None to prepare it here."""
+        return self.fuse(nodes, **graph_inputs(graph), spill_prep=spill_prep)
 
 
 class M2A(nn.Module):

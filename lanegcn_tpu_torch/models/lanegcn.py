@@ -21,7 +21,7 @@ from lanegcn_tpu_torch.graph import PackedBatch
 from lanegcn_tpu_torch.models.actor_net import ActorNet
 from lanegcn_tpu_torch.models.fusion import A2A, A2M, M2A, M2M
 from lanegcn_tpu_torch.models.layers import init_parameters
-from lanegcn_tpu_torch.models.map_net import MapNet
+from lanegcn_tpu_torch.models.map_net import MapNet, graph_spill
 from lanegcn_tpu_torch.models.pred_net import PredNet
 
 
@@ -55,10 +55,12 @@ class LaneGCN(nn.Module):
         """Packed outputs: cls [A, K], reg [A, K, T, 2] (world frame), fp32."""
         actor_ctrs = batch.actors.ctrs
         actors = self.actor_net(batch.actors.feats.to(self.dtype))
-        nodes = self.map_net(batch.graph)
+        # The spill plan's preparation, once for MapNet's and M2M's stacks.
+        spill = graph_spill(batch.graph, len(self.map_net.fuse.names))
+        nodes = self.map_net(batch.graph, spill)
         fus = batch.fusion
         nodes = self.a2m(nodes, batch.graph, actors, actor_ctrs, fus.a2m, fus.pair_a2m)
-        nodes = self.m2m(nodes, batch.graph)
+        nodes = self.m2m(nodes, batch.graph, spill)
         actors = self.m2a(actors, actor_ctrs, nodes, batch.graph.ctrs, fus.m2a, fus.pair_m2a)
         actors = self.a2a(actors, actor_ctrs, fus.a2a, fus.pair_a2a)
         cls, reg = self.pred_net(actors, actor_ctrs)

@@ -24,9 +24,10 @@ the pack carries:
   is not group-aligned raises (`check_plan_groups`) instead of losing
   edges;
 - the spill plan (the window plan's residue as (dst-window, src-window)
-  chunk pairs): the `pair_agg` kernel (its backward on the plan prepared
-  once per call when a gradient is wanted, `prepare_spill`, and shared by
-  the layers);
+  chunk pairs): the `pair_agg` kernel, forward and backward on the plan
+  prepared once (`prepare_spill`, with the source order when a gradient is
+  wanted): by LaneGCN for MapNet's and M2M's stacks (`graph_spill`), else
+  by the stack once per call, and shared by the layers;
 - the layer tail relu(GN(temp)) → Linear → + res → relu: in the fused
   layer (`pallas_bands` "auto", "on" or "interpret", with band masks) the
   `lane_layer` kernel computes the band products and the tail together
@@ -56,8 +57,8 @@ from lanegcn_tpu_torch.ops.pair_agg import pair_aggregate, prepare_spill
 from lanegcn_tpu_torch.ops.row_tail import fused_row_tail
 from lanegcn_tpu_torch.ops.scatter import masked_gather, order_by, scatter_add, table_order
 from lanegcn_tpu_torch.ops.scenario_agg import _CHUNK as PLAN_CHUNK
-from lanegcn_tpu_torch.ops.scenario_agg import (GROUPED_MIN_CAP, plan_applied, prepare_plan,
-                                                 scenario_aggregate)
+from lanegcn_tpu_torch.ops.scenario_agg import (GROUPED_MIN_CAP, PlanPrep, plan_applied,
+                                                 prepare_plan, scenario_aggregate)
 
 
 class LaneConvStack(nn.ModuleDict):
@@ -86,12 +87,15 @@ class LaneConvStack(nn.ModuleDict):
                 bands: Dict[str, torch.Tensor] | None,
                 tables: Dict[str, torch.Tensor] | None = None,
                 plan: Tuple | None = None, spill: PairPlan | None = None,
-                table_inv: EdgeSet | None = None) -> torch.Tensor:
+                table_inv: EdgeSet | None = None,
+                spill_prep: PlanPrep | None = None) -> torch.Tensor:
         """feat [N, C] over one node space and that space's relations: the
         residue lists `edges`, the band masks, the neighbour tables (with
         their inverse `table_inv`, when the pack has one), the window plan
         (lu, lv, rel, windows) and the spill plan, as a pack carries them
-        (`graph_inputs` for a LaneGraphBatch)."""
+        (`graph_inputs` for a LaneGraphBatch); `spill_prep`: the spill plan
+        prepared for these N rows (`graph_spill`), or None to prepare it
+        here."""
         dt = self.dtype
         fuse = self
         names = self.names
@@ -114,9 +118,8 @@ class LaneConvStack(nn.ModuleDict):
                 prep = prepare_plan(plan_lu, plan_lv, plan_rel, num_win, num_nodes // num_win,
                                     groups, len(names), backward=grad)
 
-        spill_prep = None
-        if spill is not None and grad:  # pair_agg's backward walks it; serving makes none
-            spill_prep = prepare_spill(spill, num_nodes, len(names))
+        if spill is not None and spill_prep is None:  # pair_agg's tiles and orders
+            spill_prep = prepare_spill(spill, num_nodes, len(names), backward=grad)
 
         tbl_rel = [r for r, nm in enumerate(names) if tables and nm in tables]
         if tbl_rel:
@@ -159,7 +162,7 @@ class LaneConvStack(nn.ModuleDict):
                 )
             if spill is not None:
                 temp = pair_aggregate(feat.to(dt).contiguous(), temp.to(dt).contiguous(), w_dt,
-                                      spill, prep=spill_prep)
+                                      spill, spill_prep)
             norm, ctr2 = fuse["norm"][i], fuse["ctr2"][i]
             if fused:
                 layer = (feat.to(dt).contiguous(), temp.to(dt).contiguous(), band_masks,
@@ -207,6 +210,16 @@ def merge_plan(cfg: ModelConfig, num_nodes: int, plan_slots: int, num_win: int) 
             and (plan_slots // num_win) % PLAN_CHUNK == 0)
 
 
+def graph_spill(graph, num_rel: int) -> PlanPrep | None:
+    """The graph's spill plan prepared for pair_agg over its node rows (with
+    the source order when a gradient is wanted), once for every LaneConv
+    stack over that graph; None without a spill plan."""
+    if graph.spill_pair is None:
+        return None
+    return prepare_spill(graph.spill_pair, graph.ctrs.shape[0], num_rel,
+                         backward=torch.is_grad_enabled())
+
+
 def graph_inputs(graph) -> dict:
     """A LaneConvStack's relation inputs from a LaneGraphBatch (the LaneGCN
     pack's graph, or LaneRCNN's global graph)."""
@@ -229,6 +242,6 @@ class MapNet(nn.Module):
                                  Linear(c, c, act=False, dtype=dtype))
         self.fuse = LaneConvStack(cfg, cfg.num_fuse_layers, dtype=dtype)
 
-    def forward(self, graph: LaneGraphBatch) -> torch.Tensor:
+    def forward(self, graph: LaneGraphBatch, spill_prep: PlanPrep | None = None) -> torch.Tensor:
         feat = torch.relu(self.input(graph.ctrs) + self.seg(graph.feats))
-        return self.fuse(feat, **graph_inputs(graph))
+        return self.fuse(feat, **graph_inputs(graph), spill_prep=spill_prep)

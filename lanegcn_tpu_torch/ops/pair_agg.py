@@ -1,7 +1,6 @@
 """Window-pair aggregation of the LaneConv spill residue: the `pair_agg`
-CUDA kernels (csrc/pair_agg.cu: the forward, and the backward on the
-passes it shares with scenario_agg, csrc/rel_agg.cuh) and their plain
-versions.
+CUDA kernels (csrc/pair_agg.cu: the forward and the backward on the passes
+they share with scenario_agg, csrc/rel_agg.cuh) and their plain versions.
 
     out[dwin*sd + lu] = temp + Σ_slots W_rel[rel] · feat[swin*ss + lv]
 
@@ -12,14 +11,14 @@ runs through a `torch.autograd.Function` whose backward is the
 `pair_agg_bwd` kernel on CUDA tensors and `pair_agg_bwd_plain` on CPU
 tensors; temp's cotangent is the output's, unchanged.
 
-The backward walks the plan as `prepare_spill` lists it (a
+Both kernels walk the plan as `prepare_spill` lists it (a
 scenario_agg.PlanPrep: the valid slots in relation order, their 64-edge
-single-relation tiles, their source positions), made once per LaneConv
-stack call when a gradient is wanted and shared by its layers. Both the
-kernels and the plain versions add a row's edges in relation order (slot
-order within a relation): the forward kernel walks its window's slots
-relation by relation, the backward sums over the source order of the
-relation-ordered edges.
+single-relation tiles, their destination and, for the backward, source
+positions), made once per LaneGCN forward and shared by MapNet's and M2M's
+stacks, their layers and their backwards (a stack called without one makes
+its own). Both the kernels and the plain versions add a row's edges in
+relation order (slot order within a relation): the kernels sum over the
+destination (source) order of the relation-ordered edges.
 """
 
 from __future__ import annotations
@@ -35,9 +34,6 @@ from lanegcn_tpu_torch.ops.scenario_agg import (PlanPrep, _arange, _blocks, _per
                                                  prepare_edges)
 
 C = 128
-# Shared memory of a forward block: an fp32 [dst_stride, 32] window slice
-# beside ~57 KB of tiles.
-MAX_STRIDE = 1344
 
 
 def _slot_rows(plan: PairPlan, n: int, num_rel: int):
@@ -56,14 +52,14 @@ def _slot_rows(plan: PairPlan, n: int, num_rel: int):
     return ok, u, v, rel
 
 
-def prepare_spill(plan: PairPlan, n: int, num_rel: int) -> PlanPrep:
-    """The spill plan as the backward kernel walks it: its valid slots in
-    relation order (one stable sort; slot order within a relation), their
-    global rows, the relation-pure 64-edge tile table and each edge's
-    position in destination and source order. On the plan's device: no
-    host sync."""
+def prepare_spill(plan: PairPlan, n: int, num_rel: int, backward: bool = True) -> PlanPrep:
+    """The spill plan as the kernels walk it: its valid slots in relation
+    order (one stable sort; slot order within a relation), their global
+    rows, the relation-pure 64-edge tile table and each edge's position in
+    destination and (with `backward`) source order. On the plan's device:
+    no host sync."""
     ok, u, v, rel = _slot_rows(plan, n, num_rel)
-    return prepare_edges(ok, rel, u, v, n, num_rel)
+    return prepare_edges(ok, rel, u, v, n, num_rel, backward)
 
 
 def _sorted_slots(plan: PairPlan, n: int, num_rel: int):
@@ -121,7 +117,7 @@ def pair_agg_bwd_plain(feat, w_rel, plan: PairPlan, g, prep=None):
     return dfeat[:n].to(feat.dtype), dw
 
 
-def _check(feat, temp, w_rel, plan: PairPlan, fwd: bool = True):
+def _check(feat, temp, w_rel, plan: PairPlan):
     n, c = feat.shape
     r_num = w_rel.shape[0]
     nc = plan.num_chunks
@@ -130,43 +126,54 @@ def _check(feat, temp, w_rel, plan: PairPlan, fwd: bool = True):
             or plan.idx.shape[0] != nc * plan.chunk or tuple(plan.meta.shape) != (6, nc)):
         raise ValueError(f"pair_agg: bad shapes feat {feat.shape} w_rel {w_rel.shape} "
                          f"plan idx {plan.idx.shape} meta {plan.meta.shape}")
-    if fwd and not (0 < plan.dst_stride <= MAX_STRIDE and 0 < plan.src_stride <= MAX_STRIDE):
-        raise ValueError(f"pair_agg: windows of {plan.dst_stride}/{plan.src_stride} rows "
-                         f"exceed {MAX_STRIDE}")
     if temp.dtype != feat.dtype or w_rel.dtype != feat.dtype:
         raise TypeError("pair_agg: feat, temp and w_rel must share one dtype")
     if plan.idx.dtype != torch.int32 or plan.meta.dtype != torch.int32:
         raise TypeError("pair_agg: plan indices must be int32")
 
 
-def _fwd_cuda(feat, temp, w_rel, plan: PairPlan):
+def _prep_for(plan: PairPlan, n: int, r_num: int, prep, backward: bool) -> PlanPrep:
+    """`prep`, or the plan prepared now (with the source order where the
+    backward needs it); a prepared plan of other sizes raises."""
+    if prep is None or (backward and prep.spos is None):
+        prep = prepare_spill(plan, n, r_num, backward)
+    slots = plan.idx.shape[0]
+    if (prep.dst.shape[0], prep.rel_edges.shape[0] - 1, prep.rows) != (slots, r_num, n):
+        raise ValueError(f"pair_agg: the plan was prepared for {prep.dst.shape[0]} slots, "
+                         f"{prep.rel_edges.shape[0] - 1} relations and {prep.rows} rows, "
+                         f"not {slots}, {r_num} and {n}")
+    return prep
+
+
+def _fwd_cuda(feat, temp, w_rel, plan: PairPlan, prep: PlanPrep | None = None):
     _check(feat, temp, w_rel, plan)
-    code = cuda.check_cuda("pair_agg", feat, temp, w_rel, plan.idx, plan.meta)
-    out = temp.clone()
+    n, r_num, slots = feat.shape[0], w_rel.shape[0], plan.idx.shape[0]
+    prep = _prep_for(plan, n, r_num, prep, False)
+    feat, temp, w_rel = (cuda.param(t, t.dtype) for t in (feat, temp, w_rel))
+    code = cuda.check_cuda("pair_agg", feat, temp, w_rel, *prep[:7])
+    ws = torch.empty(slots, C, dtype=torch.float32, device=feat.device)
+    out = torch.empty_like(temp)
     cuda.call(
         "pair_agg", "pair_agg_fwd",
-        cuda.ptr(feat), cuda.ptr(temp), cuda.ptr(w_rel), cuda.ptr(plan.idx), cuda.ptr(plan.meta),
-        cuda.ptr(out), ctypes.c_int(plan.num_chunks), ctypes.c_int(plan.chunk),
-        ctypes.c_int(plan.dst_stride), ctypes.c_int(plan.src_stride),
-        ctypes.c_int(feat.shape[0]), ctypes.c_int(w_rel.shape[0]), ctypes.c_int(code),
-        cuda.stream(),
+        cuda.ptr(feat), cuda.ptr(temp), cuda.ptr(w_rel), cuda.ptr(prep.src),
+        cuda.ptr(prep.tiles), cuda.ptr(prep.rel_tiles), cuda.ptr(prep.dpos),
+        cuda.ptr(prep.dseg), cuda.ptr(ws), cuda.ptr(out), ctypes.c_int(n),
+        ctypes.c_longlong(slots), ctypes.c_int(r_num), ctypes.c_int(_blocks(feat.device)),
+        ctypes.c_int(code), cuda.stream(),
     )
     return out
 
 
 def pair_agg_bwd_cuda(feat, w_rel, plan: PairPlan, g, prep: PlanPrep | None = None):
     """The `pair_agg_bwd` kernel; the same outputs as `pair_agg_bwd_plain`.
-    `prep`: the plan's `prepare_spill` for feat's rows (made here when
-    None; a LaneConv stack makes it once for its layers)."""
-    _check(feat, g, w_rel, plan, fwd=False)
+    `prep`: the plan's `prepare_spill` for feat's rows with the source order
+    (made here when None or forward-only; a LaneGCN forward makes it once
+    for both stacks)."""
+    _check(feat, g, w_rel, plan)
     n, r_num, slots = feat.shape[0], w_rel.shape[0], plan.idx.shape[0]
-    if prep is None:
-        prep = prepare_spill(plan, n, r_num)
-    if prep.dst.shape[0] != slots or prep.rel_edges.shape[0] != r_num + 1:
-        raise ValueError(f"pair_agg: the plan was prepared for {prep.dst.shape[0]} slots and "
-                         f"{prep.rel_edges.shape[0] - 1} relations, not {slots} and {r_num}")
+    prep = _prep_for(plan, n, r_num, prep, True)
     feat, g, w_rel = (cuda.param(t, t.dtype) for t in (feat, g, w_rel))
-    code = cuda.check_cuda("pair_agg", feat, g, w_rel, *prep)
+    code = cuda.check_cuda("pair_agg", feat, g, w_rel, *prep[:9])
     blocks = _blocks(feat.device)
     f32 = dict(dtype=torch.float32, device=feat.device)
     ws = torch.empty(slots, C, **f32)
@@ -185,9 +192,10 @@ def pair_agg_bwd_cuda(feat, w_rel, plan: PairPlan, g, prep: PlanPrep | None = No
 
 
 class _PairAgg(torch.autograd.Function):
-    """Forward: the plain version on CPU tensors, the kernel on CUDA tensors.
-    Backward: `pair_agg_bwd_plain` / `pair_agg_bwd_cuda` on the plan's
-    `prepare_spill` (the caller's, else made in the backward); temp's
+    """Forward: the plain version on CPU tensors, the kernel on CUDA tensors,
+    on the plan's `prepare_spill` (the caller's, else made here). Backward:
+    `pair_agg_bwd_plain` / `pair_agg_bwd_cuda` on the same preparation
+    (made in the backward where it lacks the source order); temp's
     cotangent is g unchanged; the plan gets None."""
 
     @staticmethod
@@ -196,7 +204,7 @@ class _PairAgg(torch.autograd.Function):
         ctx.plan, ctx.prep = plan, prep
         if feat.device.type == "cpu":
             return pair_agg_plain(feat, temp, w_rel, plan)
-        return _fwd_cuda(feat, temp, w_rel, plan)
+        return _fwd_cuda(feat, temp, w_rel, plan, prep)
 
     @staticmethod
     def backward(ctx, g):
@@ -212,10 +220,10 @@ def pair_aggregate(feat, temp, w_rel, plan: PairPlan, prep: PlanPrep | None = No
     feat/temp [N, 128] and w_rel [R, 128, 128] (in, out) in one dtype; plan:
     the pack's `spill_pair` (int32 idx with the relation column, meta);
     prep: the plan's `prepare_spill` for N rows and R relations, which the
-    backward walks (a LaneConv stack makes it once for its layers when a
-    gradient is wanted; None: the backward makes it). CPU tensors take the
-    plain version; CUDA tensors launch the kernel. Destination windows no
-    chunk touches keep temp.
+    kernels walk (a LaneGCN forward makes it once for both stacks, with the
+    source order when a gradient is wanted; None: the kernels make what they
+    need). CPU tensors take the plain version; CUDA tensors launch the
+    kernel. Rows no edge reaches keep temp.
     """
     if feat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"pair_agg: unsupported device {feat.device}")
@@ -234,7 +242,9 @@ def work(feat, w_rel, plan: PairPlan) -> dict:
     """Bytes moved and operations done at these inputs. The work depends on
     the plan's data: feat is read at the distinct source rows of valid
     slots; temp is read and the output written whole; the plan and W_rel are
-    read once; the products run on valid slots only."""
+    read once; the products run on valid slots only. (The kernel's own
+    traffic adds the fp32 message workspace, 512 bytes an edge written and
+    read, and the prepared plan: not the function's.)"""
     n, c = feat.shape
     db = feat.element_size()
     edges, dst_rows, src_rows = _edges_and_rows(feat, w_rel, plan)

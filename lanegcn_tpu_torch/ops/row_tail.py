@@ -75,6 +75,7 @@ def _check(x, res, w, gns):
 
 def _fwd_cuda(x, res, w, g1w, g1b, g2w, g2b, eps):
     _check(x, res, w, (g1w, g1b, g2w, g2b))
+    w = cuda.param(w, x.dtype)
     gns = [cuda.param(g) for g in (g1w, g1b, g2w, g2b)]
     code = cuda.check_cuda("row_tail", x, res, w, *gns)
     out = torch.empty_like(x)
@@ -91,6 +92,7 @@ def row_tail_bwd_cuda(x, res, w, g1w, g1b, g2w, g2b, g, eps: float = 1e-5):
     _check(x, res, w, (g1w, g1b, g2w, g2b))
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"row_tail: cotangent {g.shape} {g.dtype} for x {x.shape} {x.dtype}")
+    w = cuda.param(w, x.dtype)
     gns = [cuda.param(t) for t in (g1w, g1b, g2w, g2b)]
     code = cuda.check_cuda("row_tail", x, res, g, w, *gns)
     blocks = cuda.num_sms(x.device)

@@ -176,6 +176,8 @@ class PlanPrep(NamedTuple):
                int64 the destination row at each position (n past E):
                the forward's segment sum
     spos, sseg the same in source order (the backward's dfeat), or None
+    rows       n, the node rows it was prepared for (the kernels' mark of a
+               position that holds no edge)
     """
 
     dst: torch.Tensor
@@ -187,6 +189,7 @@ class PlanPrep(NamedTuple):
     dseg: torch.Tensor
     spos: Optional[torch.Tensor]
     sseg: Optional[torch.Tensor]
+    rows: int
 
 
 def _positions(keys: torch.Tensor):
@@ -235,7 +238,7 @@ def prepare_edges(ok, rel, u, v, n: int, num_rel: int, backward: bool = True) ->
     spos, sseg = _positions(src) if backward else (None, None)
     i32 = lambda x: x.to(torch.int32)
     return PlanPrep(i32(dst), i32(src), i32(rel_edges), i32(rel_tiles), i32(tiles), dpos, dseg,
-                    spos, sseg)
+                    spos, sseg, n)
 
 
 def _per_relation(x, w_rel, counts, transpose=False):
@@ -307,9 +310,11 @@ def _group_args(lu, rel, num_win, groups, r_num):
 
 def _prep_for(lu, lv, rel, num_win, n, groups, r_num, prep, backward):
     """`prep`, or the plan prepared now (with the source order where the
-    backward needs it)."""
+    backward needs it); a plan prepared for other rows raises."""
     if prep is None or (backward and prep.spos is None):
         prep = prepare_plan(lu, lv, rel, num_win, n // num_win, groups, r_num, backward)
+    if prep.rows != n:
+        raise ValueError(f"scenario_agg: the plan was prepared for {prep.rows} rows, not {n}")
     return prep
 
 
@@ -344,7 +349,7 @@ def scenario_agg_bwd_cuda(feat, w_rel, lu, lv, rel, num_win: int, groups, g, pre
     n, r_num, slots = feat.shape[0], w_rel.shape[0], lu.shape[0]
     prep = _prep_for(lu, lv, rel, num_win, n, groups, r_num, prep, True)
     feat, g, w_rel = (cuda.param(t, t.dtype) for t in (feat, g, w_rel))
-    code = cuda.check_cuda("scenario_agg", feat, g, w_rel, *prep)
+    code = cuda.check_cuda("scenario_agg", feat, g, w_rel, *prep[:9])
     blocks = _blocks(feat.device)
     f32 = dict(dtype=torch.float32, device=feat.device)
     ws = torch.empty(slots, C, **f32)

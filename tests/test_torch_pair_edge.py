@@ -5,10 +5,10 @@ gradients, on CPU tensors (the plain versions and their autograd
 Functions). The Pallas kernels run as the JAX tests run them on the CPU:
 interpret mode; the JAX package's gathers (`stacked_table_gather`,
 `sorted_transpose_gather`, with hand-written VJPs) are XLA. The spill
-plan's preparation for the backward kernel (`prepare_spill`: relation
-order, tiles, positions) against a numpy reference, the backward kernel's
-passes emulated on it, one preparation per LaneConv stack call, and no
-`nonzero` in the plain versions.
+plan's preparation for the kernels (`prepare_spill`: relation order,
+tiles, positions) against a numpy reference, the forward and backward
+kernels' passes emulated on it, one preparation per LaneConv stack call
+and per LaneGCN forward, and no `nonzero` in the plain versions.
 
 Inputs come from a numpy seed and feed both sides; everything is float32.
 Tolerances: forwards within 1e-5 absolute (1e-5 relative on the
@@ -226,6 +226,7 @@ def test_prepare_spill_matches_numpy_reference(name):
     for k in ("dpos", "spos", "dseg", "sseg"):
         np.testing.assert_array_equal(getattr(p, k)[:e].numpy(), ref[k], err_msg=k)
     assert (p.dseg[e:] == n).all() and (p.sseg[e:] == n).all()
+    assert p.rows == n
     if name == "empty":
         assert e == 0 and t == 0
     if name == "one-edge-relation":
@@ -238,18 +239,46 @@ def test_prepare_spill_matches_numpy_reference(name):
         assert int((meta[0] == 1).sum()) > 3  # the run spans several chunks
 
 
+def test_spill_preparation_for_other_sizes_raises():
+    """A handed-in preparation is taken only for the plan's slots, the
+    weights' relations and feat's rows (its segment keys mark the positions
+    past the valid edges with n); a forward-only one is remade for the
+    backward."""
+    plan, _, _, n, *_ = _prep_case("rows-past-n")
+    fwd = pair_agg.prepare_spill(plan, n, R, backward=False)
+    assert pair_agg._prep_for(plan, n, R, fwd, False) is fwd
+    assert pair_agg._prep_for(plan, n, R, fwd, True).spos is not None
+    for rows, rels in ((n + 40, R), (n, R - 1)):
+        with pytest.raises(ValueError, match="prepared for"):
+            pair_agg._prep_for(plan, rows, rels, fwd, False)
+    other, *_ = _prep_case("padding-chunks")
+    with pytest.raises(ValueError, match="prepared for"):
+        pair_agg._prep_for(other, n, R, fwd, False)
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
 @pytest.mark.parametrize("name", list(PREP_CASES))
-def test_spill_backward_passes_emulated_match_the_plain_version(name):
-    """The backward kernel's passes over prepare_spill, on the CPU: each
-    edge's fp32 message g[u] @ W_rᵀ at its source position, then the segment
-    sum over the source order, is bitwise pair_agg_bwd_plain's dfeat; dW_r
-    summed tile by tile over the relation-pure tiles matches its dW."""
+def test_spill_passes_emulated_match_the_plain_version(name, direction):
+    """The kernels' passes over prepare_spill, on the CPU. Forward (over the
+    forward-only preparation): each edge's fp32 message W_r · feat[v] at its
+    destination position, then the segment sum over the destination order
+    from temp, is bitwise pair_agg_plain. Backward: each edge's fp32 message
+    g[u] @ W_rᵀ at its source position, then the segment sum over the source
+    order, is bitwise pair_agg_bwd_plain's dfeat; dW_r summed tile by tile
+    over the relation-pure tiles matches its dW."""
     plan, _, _, n, feat, w_rel, g = _prep_case(name)
-    p = pair_agg.prepare_spill(plan, n, R)
+    p = pair_agg.prepare_spill(plan, n, R, backward=direction == "backward")
     e = int(p.rel_edges[-1])
     dst, src = p.dst[:e].long(), p.src[:e].long()
     counts = (p.rel_edges[1:] - p.rel_edges[:-1]).tolist()
     ws = torch.zeros(plan.idx.shape[0], C)
+    if direction == "forward":
+        assert p.spos is None and p.sseg is None
+        temp = g * 0.5
+        ws[p.dpos[:e].long()] = scenario_agg._per_relation(feat[src], w_rel, counts)
+        out = segment_sum_plain(ws, p.dseg, n, temp)
+        assert torch.equal(out, pair_agg.pair_agg_plain(feat, temp, w_rel, plan))
+        return
     ws[p.spos[:e].long()] = scenario_agg._per_relation(g[dst], w_rel, counts, transpose=True)
     dfeat = segment_sum_plain(ws, p.sseg, n)
     plain_dfeat, plain_dw = pair_agg.pair_agg_bwd_plain(feat, w_rel, plan, g)
@@ -262,40 +291,41 @@ def test_spill_backward_passes_emulated_match_the_plain_version(name):
     _close_grad(dw, plain_dw.numpy(), f"{name} dW_rel by tiles")
 
 
-def test_stack_prepares_the_spill_plan_once_per_call(monkeypatch):
-    """One prepare_spill per LaneConvStack call when a gradient is wanted,
-    handed to every layer's pair_aggregate and used by its backward; none
-    when serving."""
+def _spill_world():
+    """A two-scenario bench pack whose window plan is cut small, so that its
+    residue rides the spill plan, and a narrow model config."""
     import dataclasses
 
     from lanegcn_tpu_torch.config import ModelConfig, bench_pack_config
     from lanegcn_tpu_torch.data.packing import pack_batch
     from lanegcn_tpu_torch.data.synthetic import make_urban_scenario
     from lanegcn_tpu_torch.graph import PackedBatch
-    from lanegcn_tpu_torch.models import map_net
-    from lanegcn_tpu_torch.models.layers import init_parameters
 
     model = ModelConfig(n_actor=32, n_map=32, num_fuse_layers=2, num_att_layers=1,
                         merge_plan_agg="off")
     scens = [make_urban_scenario(seed=40 + i, num_corridors=3, num_actors=6) for i in range(2)]
-    # A small window plan, so that its residue rides the spill plan.
     cfg = dataclasses.replace(bench_pack_config(2), max_plan_edges=512)
     b, st = pack_batch(scens, cfg, model)
     assert st["spill_pair_edges"] > 0
-    graph = PackedBatch.from_numpy(b).graph
-    stack = map_net.LaneConvStack(model, 2)
-    init_parameters(stack, seed=0)
+    return model, PackedBatch.from_numpy(b)
+
+
+def _count_spill(monkeypatch):
+    """Records every prepare_spill (with its `backward` flag), the prep each
+    pair_aggregate is handed and the prep each plain backward walks."""
+    from lanegcn_tpu_torch.models import map_net
+
     made, seen, used = [], [], []
     prepare, aggregate, bwd = map_net.prepare_spill, map_net.pair_aggregate, \
         pair_agg.pair_agg_bwd_plain
 
-    def counted_prepare(*a):
-        made.append(prepare(*a))
+    def counted_prepare(*a, **kw):
+        made.append(prepare(*a, **kw))
         return made[-1]
 
-    def counted_aggregate(*a, prep=None):
-        seen.append(prep)
-        return aggregate(*a, prep=prep)
+    def counted_aggregate(*a):
+        seen.append(a[4])
+        return aggregate(*a)
 
     def counted_bwd(*a):
         used.append(a[-1])
@@ -304,14 +334,53 @@ def test_stack_prepares_the_spill_plan_once_per_call(monkeypatch):
     monkeypatch.setattr(map_net, "prepare_spill", counted_prepare)
     monkeypatch.setattr(map_net, "pair_aggregate", counted_aggregate)
     monkeypatch.setattr(pair_agg, "pair_agg_bwd_plain", counted_bwd)
+    return made, seen, used
+
+
+def test_stack_prepares_the_spill_plan_once_per_call(monkeypatch):
+    """A LaneConvStack called alone makes one prepare_spill per call, with
+    the source order when a gradient is wanted and forward-only when
+    serving, handed to every layer's pair_aggregate and used by its
+    backward."""
+    from lanegcn_tpu_torch.models import map_net
+    from lanegcn_tpu_torch.models.layers import init_parameters
+
+    model, batch = _spill_world()
+    graph = batch.graph
+    stack = map_net.LaneConvStack(model, 2)
+    init_parameters(stack, seed=0)
+    made, seen, used = _count_spill(monkeypatch)
     feat = torch.randn(graph.capacity, 32, requires_grad=True)
     out = stack(feat, **map_net.graph_inputs(graph))
     out.square().mean().backward()
-    assert len(made) == 1 and len(seen) == 2 and all(s is made[0] for s in seen)
+    assert len(made) == 1 and made[0].spos is not None
+    assert len(seen) == 2 and all(s is made[0] for s in seen)
     assert len(used) == 2 and all(u is made[0] for u in used)
     with torch.no_grad():
         stack(feat, **map_net.graph_inputs(graph))
-    assert len(made) == 1 and len(seen) == 4 and seen[2] is None and seen[3] is None
+    assert len(made) == 2 and made[1].spos is None and made[1].sseg is None
+    assert len(seen) == 4 and seen[2] is made[1] and seen[3] is made[1]
+
+
+def test_lanegcn_prepares_the_spill_plan_once_per_forward(monkeypatch):
+    """A LaneGCN forward makes one prepare_spill in all, shared by MapNet's
+    and M2M's stacks (every layer's pair_aggregate) and by their backwards;
+    serving makes one forward-only."""
+    from lanegcn_tpu_torch.models.lanegcn import LaneGCN
+
+    model, batch = _spill_world()
+    net = LaneGCN(model, device="cpu", seed=0)
+    made, seen, used = _count_spill(monkeypatch)
+    out = net(batch)
+    (out["reg"].square().mean() + out["cls"].square().mean()).backward()
+    layers = 2 * model.num_fuse_layers  # MapNet's stack and M2M's
+    assert len(made) == 1 and made[0].spos is not None
+    assert len(seen) == layers and all(s is made[0] for s in seen)
+    assert len(used) == layers and all(u is made[0] for u in used)
+    with torch.no_grad():
+        net(batch)
+    assert len(made) == 2 and made[1].spos is None
+    assert len(seen) == 2 * layers and all(s is made[1] for s in seen[layers:])
 
 
 def test_plain_versions_make_no_nonzero():

@@ -1,0 +1,103 @@
+"""chip_smoke.py's excuse for win_edge_bwd's source-side misses (`tie_rows`,
+`src_tie`, `edge_chain`), on the CPU at a small size: a source row that
+misses only through a near tie is excused, a dropped or doubled edge is
+not, and in float32 nothing on the source side is excused. The "kernel"
+outputs are the plain version's with a fault or a tie put into one row."""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from lanegcn_tpu_torch.data.packing import build_pair_plan
+from lanegcn_tpu_torch.graph import PairPlan
+from lanegcn_tpu_torch.ops import win_edge
+
+C, CHUNK = 128, 16
+SD, SS, NWD, NWS = 32, 64, 5, 3  # windows x rows of the destination and source sides
+
+
+def _inputs(dtype):
+    rng = np.random.RandomState(3)
+    u, v = rng.randint(0, NWD * SD, 300), rng.randint(0, NWS * SS, 300)
+    lay, dropped = build_pair_plan(u, v, SD, SS, 1024, CHUNK)
+    assert dropped == 0
+    t = torch.from_numpy
+    plan = PairPlan(idx=t(np.concatenate([lay["lu"], lay["lv"]], 1)),
+                    meta=t(np.stack([lay[k] for k in ("dwin", "swin", "first", "sperm",
+                                                      "sswin", "sfirst")])),
+                    chunk=CHUNK, dst_stride=SD, src_stride=SS)
+    nd, ns = NWD * SD, NWS * SS
+    r = lambda *s: t((rng.randn(*s) * 0.3).astype(np.float32)).to(dtype)
+    a = [r(nd, C), r(nd, C), r(ns, C), r(ns, C), r(C), r(C, C), r(C) + 1.0, r(C), r(C, C),
+         r(C) + 1.0, r(C), r(C, C), plan, t(rng.randn(nd, C).astype(np.float32)).to(dtype)]
+    _, eu, ev = win_edge._edge_rows(plan, nd, ns)
+    return a, win_edge.win_edge_bwd_plain(*a), eu, ev
+
+
+def _with_row(out_p, other, r):
+    """The plain outputs with source row r of dPs and dCs taken from `other`."""
+    out = [o.clone() for o in out_p]
+    out[2][r], out[3][r] = other[2][r], other[3][r]
+    return out
+
+
+def _relu_tie(a, eu, ev):
+    """(source row, its one edge's destination row, the plain outputs of
+    inputs that flip that edge's s pre-activation nearest zero): the bias
+    moves for every edge, by less than any other edge's distance from zero
+    at that channel."""
+    counts = torch.bincount(ev)
+    s_pre = cs.relu_pre("win_edge_bwd", a)[2][0]
+    for e in range(eu.shape[0]):
+        if counts[ev[e]] == 1:
+            c = int(s_pre[e].abs().argmin())
+            b = a[10].float().clone()
+            b[c] -= 2 * s_pre[e, c]
+            flipped = list(a)
+            flipped[10] = b
+            return int(ev[e]), int(eu[e]), win_edge.win_edge_bwd_plain(*flipped)
+    raise AssertionError("no source row with one edge")
+
+
+def test_clean_outputs_excuse_nothing():
+    a, out_p, _, _ = _inputs(torch.bfloat16)
+    rows, how = cs.tie_rows("win_edge_bwd", "bfloat16", out_p, out_p, a)
+    assert rows.numel() == 0 and how == {}
+
+
+def test_a_relu_tie_on_a_one_edge_source_row_is_excused():
+    a, out_p, eu, ev = _inputs(torch.bfloat16)
+    r, dst, out_f = _relu_tie(a, eu, ev)
+    rows, how = cs.tie_rows("win_edge_bwd", "bfloat16", _with_row(out_p, out_f, r), out_p, a)
+    assert how[r]["vs_plain"] > 1 and how[r]["vs_evaluation"] <= 1
+    assert rows.tolist() == [dst]
+
+
+def test_the_one_edge_evaluation_matches_the_plain_rows():
+    a, out_p, eu, ev = _inputs(torch.bfloat16)
+    ref = [out_p[i].float() for i in (2, 3)]
+    for r in torch.unique(ev)[:40].tolist():
+        total = sum(cs.edge_chain(a, int(k), r) for k in eu[ev == r])
+        scale = cs.TOL["bfloat16"] * torch.cat([x[r].abs() + x.square().mean().sqrt()
+                                                for x in ref])
+        assert ((total - torch.cat([x[r] for x in ref])).abs() <= scale).all(), r
+
+
+@pytest.mark.parametrize("fault", ["dropped", "doubled"])
+def test_a_dropped_or_doubled_edge_is_not_excused(fault):
+    a, out_p, eu, ev = _inputs(torch.bfloat16)
+    for r in torch.unique(ev)[:12].tolist():
+        e = int(torch.nonzero(ev == r)[0])
+        g = a[13].clone()
+        g[eu[e]] = 0 if fault == "dropped" else 2 * g[eu[e]]
+        faulty = win_edge.win_edge_bwd_plain(*a[:13], g)
+        with pytest.raises(RuntimeError, match=f"source row {r} misses"):
+            cs.tie_rows("win_edge_bwd", "bfloat16", _with_row(out_p, faulty, r), out_p, a)
+
+
+def test_float32_excuses_no_source_row():
+    a, out_p, eu, ev = _inputs(torch.float32)
+    r, _, out_f = _relu_tie(a, eu, ev)
+    rows, how = cs.tie_rows("win_edge_bwd", "float32", _with_row(out_p, out_f, r), out_p, a)
+    assert rows.numel() == 0 and how == {}
