@@ -11,7 +11,9 @@ the C interfaces match, on the same inputs, captured from one bf16 eval
 forward and one bf16 train step of the geometry that runs the kernel:
 win_edge and lane_layer on windowed_pack_config(256), pair_agg on
 bench_pack_config(256) (the spill plan), edge_mlp on
-contiguous_pack_config(32), lane_plan on the merged geometry and band_conv
+contiguous_pack_config(32) (Att's flags) and on LaneRCNN's geometry
+(LanePooling's, `edge_mlp_pool`; the backward with dd, as chip_smoke.py
+checks it), lane_plan on the merged geometry and band_conv
 on the unfused one (chip_smoke.py GEOMETRIES); segment_sum on every call
 shape of one bf16 train step (the scatters' forwards and the gathers'
 backwards) of the windowed, LaneRCNN and flat geometries; scenario_agg
@@ -59,7 +61,8 @@ import chip_smoke as cs
 ROUNDS = 8
 # kernel library: ((geometry whose forward and train step run it, the
 # forward op's capture name there), ...)
-TARGETS = {"win_edge": (("windowed", "win_edge"),), "edge_mlp": (("contiguous", "edge_mlp"),),
+TARGETS = {"win_edge": (("windowed", "win_edge"),),
+           "edge_mlp": (("contiguous", "edge_mlp"), ("lanercnn", "edge_mlp_pool")),
            "lane_layer": (("windowed", "lane_layer"),), "lane_plan": (("merged", "lane_plan"),),
            "band_conv": (("unfused", "band_conv"),),
            "segment_sum": (("windowed", "segment_sum"), ("lanercnn", "segment_sum"),

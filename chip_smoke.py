@@ -73,7 +73,9 @@ and exits non-zero:
           lanercnn: lane_layer and scenario_agg at the RoI and global
           shapes, window_scatter (both pool scatters, beside one `index_add`
           call on the same inputs), row_tail2 (its three row counts, and
-          `TAIL_ROWS`: 1, 63, 65 and 12,345 rows) and edge_mlp_pool;
+          `TAIL_ROWS`: 1, 63, 65 and 12,345 rows) and edge_mlp_pool (and
+          `POOL_ROWS`: 1, 63, 65 and 12,345 rows, and an all-padding call,
+          whose rows must all equal row 0);
           merged: lane_plan and row_tail; unfused: band_conv and
           row_tail (the LaneConv tails at N rows beside Att's); flat:
           row_tail (the LaneConv tails).
@@ -81,7 +83,9 @@ and exits non-zero:
           the inputs and cotangent one bf16 train step hands them, with a
           rerun that must be bitwise equal (lanercnn: lane_layer_bwd and
           scenario_agg_bwd at the RoI and global shapes, window_scatter_bwd
-          beside one `index_select` call, row_tail2_bwd, edge_mlp_pool_bwd;
+          beside one `index_select` call, row_tail2_bwd, edge_mlp_pool_bwd
+          with `POOL_ROWS` and the all-padding call, whose outputs must all
+          be zero;
           merged: lane_plan_bwd; unfused: band_conv_bwd; windowed:
           scenario_agg_bwd on `PLAN_CASES` too, and win_edge_bwd on
           `WIN_CASES`; bench: pair_agg_bwd on `SPILL_CASES` too), and
@@ -1556,6 +1560,56 @@ def add_tail_cases(name, cap):
         cap.counts[name][shape_key(part)] = 0
 
 
+# LanePooling's edge MLP's edge cases: its bf16 kernels' warpgroups own
+# 64-row tiles (the backward's weight-gradient pass 128-edge tiles), so the
+# largest captured forward and backward call is cut to one row, one row
+# short of a tile, one past it and a ragged count of many tiles
+# (POOL_ROWS), and to POOL_PAD_ROWS rows made all padding (d = cg = 0, a
+# zero cotangent), which `check_pool_padding` also holds to its exact
+# answer: every output row equal to row 0, every gradient and dcg zero.
+POOL_ROWS = (1, 63, 65, 12345)
+POOL_PAD_ROWS = 3000
+POOL_PAD_ARGS = {"edge_mlp_pool": (0, 2), "edge_mlp_pool_bwd": (0, 1, 8)}  # d, cg (, g)
+
+
+def add_pool_cases(name, cap):
+    """Adds POOL_ROWS' cuts of the largest captured call of `name`
+    (edge_mlp_pool or edge_mlp_pool_bwd) and its all-padding call to the
+    capture (0 calls a step each); returns the all-padding call."""
+    import torch
+
+    args = max(cap.calls[name].values(), key=lambda a: a[0].shape[0])
+    pad = cut_rows(args, POOL_PAD_ROWS)
+    for i in POOL_PAD_ARGS[name]:
+        pad[i] = torch.zeros_like(pad[i])
+    for part in [cut_rows(args, n) for n in POOL_ROWS if n < args[0].shape[0]] + [pad]:
+        cap.calls[name][shape_key(part)] = part
+        cap.counts[name][shape_key(part)] = 0
+    return pad
+
+
+def check_pool_padding(geom, name, a):
+    """The all-padding call through the kernel in fp32 and bf16: the
+    forward's rows all equal to row 0; every output of the backward (dd,
+    dcg and the gradients) exactly zero."""
+    import torch
+
+    res = {"phase": "pool_padding", "geometry": geom, "name": name, "rows": POOL_PAD_ROWS}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = cast_args(a, dtype)
+        tag = str(dtype).split(".")[-1]
+        if name == "edge_mlp_pool":
+            out = forward_ops([name])[name][0](*x)
+            res[tag] = bool(torch.equal(out, out[:1].expand_as(out)))
+            check(res[tag], f"{name} {tag}: an all-padding call's rows differ from row 0")
+        else:
+            outs = backward_ops(["edge_mlp_pool"])[name][0](*x)
+            res[tag] = [float(o.abs().max()) for o in outs]
+            check(not any(res[tag]), f"{name} {tag}: an all-padding call's outputs are not "
+                  f"all zero: {res[tag]}")
+    emit(res)
+
+
 # win_edge's edge cases (name, destination windows x rows, source windows x
 # rows, slot capacity, edges, destination window left untouched), for the
 # forward and the backward. The forward's chain pass takes the plan's
@@ -1733,8 +1787,11 @@ def step_kernel_phases(geom, cap):
         calls, counts, _ = spill_case_calls(backward=True)
         cap.calls["pair_agg_bwd"].update(calls)
         cap.counts["pair_agg_bwd"].update(counts)
+    pool_pad = add_pool_cases("edge_mlp_pool_bwd", cap) if geom == "lanercnn" else None
     results = kernel_phase("kernel_bwd", geom, backward_ops(spec["kernels"]), cap.calls,
                            cap.counts)
+    if pool_pad is not None:
+        check_pool_padding(geom, "edge_mlp_pool_bwd", pool_pad)
     if geom == "windowed":
         calls, counts = segment_case_calls()
         cap.calls["segment_sum"].update(calls)
@@ -1959,8 +2016,10 @@ def drive_lanercnn(geom):
         step(batches[0])
     torch.cuda.synchronize()
     add_tail_cases("row_tail2", cap)
+    pool_pad = add_pool_cases("edge_mlp_pool", cap)
     results = kernel_phase("kernel", geom, forward_ops(spec["kernels"]), cap.calls, cap.counts)
-    del cap
+    check_pool_padding(geom, "edge_mlp_pool", pool_pad)
+    del cap, pool_pad
 
     # --- backward kernels against their plain backwards, on a train step's inputs ---
     bundle = get_model("lanercnn", cfg, dtype=torch.bfloat16, seed=0)

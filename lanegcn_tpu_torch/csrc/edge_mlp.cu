@@ -43,13 +43,24 @@
 //   out[e] = rnd(rnd(relu(GN_ch(s))) @ Wout)
 //
 // with d [E, 4] fp32 (relative pose, context minus target) and cg the
-// gathered context projection. The same tile and block as edge_mlp_fwd,
-// two [128 x 128] products per row instead of three. What bounds it: d and
-// cg read and out written (0.55 GB at E = 1,048,576 in bf16, ~0.16 ms)
-// against 2 x 2 x 128 x 128 flops per row: memory-bound at the card's bf16
-// matrix rate, product-bound on the CUDA cores used here. About 11 % of the
-// rows at the 256-scenario pack are padding; each gives one constant row
-// that the caller's scatter drops.
+// gathered context projection. What bounds it: d and cg read and out
+// written (0.55 GB at E = 1,048,576 in bf16, ~0.165 ms) against 2 x 2 x
+// 128 x 128 flops per row (69 GFLOP, ~0.07 ms at the bf16 matrix rate):
+// bytes. About 11 % of the rows at the 256-scenario pack are padding; each
+// gives one constant row that the caller's scatter drops.
+//   bf16 (edge_mlp_pool_tc_kernel, the path that serves and trains): a
+//     persistent grid of PF_WGS warpgroups a block, K1 and Wout held once
+//     per block as bf16 core tiles. Each warpgroup walks 64-row tiles of its
+//     own and keeps the next tile's d and cg rows in flight by cp.async
+//     while the current one multiplies. t1 is made in registers straight
+//     from d as the register-A fragments of s = t1 @ K1 (wgmma); cg is
+//     added on the accumulators, e1 made there (edge_tc.cuh e1_from_s) and
+//     fed to out = e1 @ Wout the same way; out leaves through cg's staged
+//     tile in 16-byte rows. No fp32 tile in shared memory, no block-wide
+//     barrier per tile.
+//   fp32 (edge_mlp_pool_kernel, the parity path: wgmma has no fp32
+//     operands): edge_mlp_fwd's block and tile, two [128 x 128] products per
+//     row on CUDA cores.
 //
 // edge_mlp_pool_bwd: that chain run backwards from the cotangent g of out,
 // recomputed per tile (only the inputs are saved), with d_t1 = d_t2 (no
@@ -60,20 +71,41 @@
 //   d_t1p = d_s @ K1ᵀ ⊙ [t1 > 0];  dbd += Σ d_t1p;  dWd += rnd(d)ᵀ rnd(d_t1p)
 //   dd = rnd(d_t1p) @ Wdᵀ   (only when the caller asks: d is pack data in the model)
 //
-// Unlike edge_mlp_bwd's workspace slices, nothing per tile goes to device
-// memory but dcg (and dd): one block per SM walks the tiles (16,384 at E =
-// 1,048,576) with dK1 and dWout in registers (an 8 x 8 block of each per
-// thread) and the vector sums (dbd, dgchw, dgchb, the DIN rows of dWd) per
-// warp in shared memory, and writes one partial per block at the end;
-// reduce_partials sums the partials in block order (no float atomics,
-// bitwise reruns). Shared memory: four fp32 tiles (t1, nrm_s then d_t1,
-// e1, g then d_e1 then d_s), one 64 KB weight slot (K1, Woutᵀ, K1ᵀ in turn)
-// and the vector sums: 224 KB, one block per SM. What bounds it: d, cg and
-// g read and dcg written once (0.82 GB at E = 1,048,576 in bf16, ~0.25 ms)
-// against three [128 x 128] products per row (the forward's K1 recomputed,
-// two transposed) and two weight gradients: memory-bound at the card's
-// bf16 matrix rate, product-bound on the CUDA cores used here.
+// What bounds it: d, cg and g read and dcg written once (0.82 GB at E =
+// 1,048,576 in bf16, ~0.25 ms) against five [128 x 128] products per row
+// (172 GFLOP, ~0.17 ms at the bf16 matrix rate): bytes.
+//   bf16, two passes over the rows:
+//   1. edge_mlp_pool_bwd_tc_kernel: the forward's persistent grid and row
+//      walk (the next tile's d, cg and g in flight by cp.async), the chain
+//      on wgmma: s = t1 @ K1 from t1's register fragments beside d_e1 =
+//      g @ Woutᵀ from g's staged tile (Wout K-major), the GN backward on
+//      the accumulators, d_t1 = rnd(d_s) @ K1ᵀ from d_s's fragments. dcg
+//      leaves through g's tile; the vector sums (dbd, dgchw, dgchb, the
+//      din rows of dWd) are column sums over a tile's rows by shuffles,
+//      kept per lane across the tiles and summed over the warps once per
+//      block; dd by quad sums.
+//   2. edge_mlp_pool_dw_tc_kernel: dK1 = t1ᵀ rnd(d_s) (y = 0) and dWout =
+//      e1ᵀ rnd(g) (y = 1) as split-K wgmma products over 128-edge tiles
+//      streamed through a cp.async ring, one fp32 partial per split: t1
+//      made again from d (the thread's Wd and bd columns in registers), e1
+//      by the chain again (d, cg), d_s read back from dcg. The two [128 x 128] fp32
+//      accumulators (128 registers a thread each for a warpgroup) do not
+//      fit beside the chain of pass 1, and a ring handing tiles to dW
+//      warpgroups would need ~170 registers a thread over three
+//      warpgroups; the second pass reads ~0.8 GB more at E = 1,048,576
+//      instead, and writes no activations.
+//   The partials are summed in block and split order (reduce_partials):
+//   no float atomics, bitwise reruns.
+//   fp32 (edge_mlp_pool_bwd_kernel, the parity path): one block per SM
+//   walks the tiles with dK1 and dWout in registers (an 8 x 8 block of each
+//   per thread) and the vector sums per warp in shared memory; four fp32
+//   tiles (t1, nrm_s then d_t1, e1, g then d_e1 then d_s) and one 64 KB
+//   weight slot (K1, Woutᵀ, K1ᵀ in turn): 224 KB, one block per SM. The
+//   products run on CUDA cores.
+#include <type_traits>
+
 #include "edge_chain.cuh"
+#include "edge_tc.cuh"
 
 using namespace lgk;
 
@@ -210,7 +242,7 @@ edge_mlp_bwd_kernel(const float* __restrict__ d, const T* __restrict__ qg,
 }
 
 // LanePooling's chain (no dist_out stage, no query): t1 from d [e, DIN],
-// s = t1 @ K1 + cg[e], out[e] = rnd(e1 @ Wout).
+// s = t1 @ K1 + cg[e], out[e] = rnd(e1 @ Wout); fp32, the parity path.
 template <typename T, int DIN>
 __global__ void __launch_bounds__(NT)
 edge_mlp_pool_kernel(const float* __restrict__ d, const T* __restrict__ cg,
@@ -241,22 +273,6 @@ edge_mlp_pool_kernel(const float* __restrict__ d, const T* __restrict__ cg,
       store4<T>(out + row * C + mm_col(4), make_float4(mm[i][4], mm[i][5], mm[i][6], mm[i][7]));
     }
   }
-}
-
-template <typename T, int DIN>
-int launch_pool(const float* d, const void* cg, const void* kd, const float* bd, const void* k1,
-                const float* gchw, const float* gchb, const void* kout, void* out, int e,
-                float eps, cudaStream_t stream) {
-  const int smem = (EB * LDA + C * C) * (int)sizeof(float);
-  cudaError_t err = set_smem((const void*)edge_mlp_pool_kernel<T, DIN>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (e + EB - 1) / EB;
-  if (tiles > 0) {
-    edge_mlp_pool_kernel<T, DIN><<<tiles, NT, smem, stream>>>(
-        d, (const T*)cg, (const T*)kd, bd, (const T*)k1, gchw, gchb, (const T*)kout, (T*)out, e,
-        eps);
-  }
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -297,8 +313,9 @@ int launch_bwd(const float* d, const void* qg, const void* cg, const void* g, co
   return (int)reduce_partials(part, grads, blocks, EM_PART, stream);
 }
 
-// LanePooling's chain backwards (see the header); part holds blocks rows of
-// [2*C*C + (3 + DIN)*C]: dK1, dWout (in, out), dbd, dgchw, dgchb, dWd rows.
+// LanePooling's chain backwards in fp32 (see the header); part holds
+// blocks rows of [2*C*C + (3 + DIN)*C]: dK1, dWout (in, out), dbd, dgchw,
+// dgchb, dWd rows.
 template <typename T, int DIN>
 __global__ void __launch_bounds__(NT, 1)
 edge_mlp_pool_bwd_kernel(const float* __restrict__ d, const T* __restrict__ cg,
@@ -407,24 +424,553 @@ edge_mlp_pool_bwd_kernel(const float* __restrict__ d, const T* __restrict__ cg,
   sum_warp_vecs<NV>(vec_s, P + 2 * C * C);
 }
 
+// --- LanePooling's chain on tensor cores (bf16) ----------------------------
+
+constexpr int PF_WGS = 3;                          // the forward's warpgroups a block
+constexpr int PF_THREADS = 128 * PF_WGS;
+constexpr int PW_WGS = 2;                          // the backward's
+constexpr int PW_THREADS = 128 * PW_WGS;
+constexpr int PT = 64;                             // rows of a warpgroup's chain tile
+constexpr int PD = PT * 4 * (int)sizeof(float);    // 64 rows of d (room for din 4)
+constexpr int PTB = tc::tiles_bytes(PT);           // a [64 x 128] bf16 tile in core tiles
+constexpr int PWB = tc::tiles_bytes(C);            // a [128 x 128] weight in core tiles
+constexpr int DT = 128;                            // edges of a weight-gradient tile
+constexpr int DTB = tc::tiles_bytes(DT);
+static_assert(PW_THREADS == NT, "tc::load_tiles_128 strides by NT threads");
+
+template <int DIN>
+constexpr int pool_fwd_smem() {
+  return 2 * PWB + (DIN + 3) * C * (int)sizeof(float) + PF_WGS * 2 * (PD + PTB);
+}
+template <int DIN>
+constexpr int pool_bwd_smem() {
+  return 2 * PWB + (DIN + 3) * C * (int)sizeof(float) + PW_WGS * 2 * (PD + 2 * PTB);
+}
+
+// The pool kernels' vectors in shared memory: rnd(Wd) [DIN][C], bd, gchw,
+// gchb; by the block's `threads` threads.
+template <int DIN>
+__device__ __forceinline__ void load_pool_vecs(float* vec_s, const bf16* kd, const float* bd,
+                                               const float* gchw, const float* gchb,
+                                               int threads) {
+  for (int i = threadIdx.x; i < (DIN + 3) * C; i += threads) {
+    const int k = i / C, j = i % C;
+    vec_s[i] = k < DIN ? __bfloat162float(kd[i]) : k == DIN ? bd[j] : k == DIN + 1 ? gchw[j]
+                                                                                    : gchb[j];
+  }
+}
+
+// Rows [row0, row0 + n) of d [e, DIN] (n·DIN contiguous floats) into D by
+// cp.async, zeros past e; thread t of `threads`.
+template <int DIN>
+__device__ __forceinline__ void fetch_d(float* D, const float* d, long row0, int n, int e, int t,
+                                        int threads) {
+  const long rows = e - row0 < n ? e - row0 : n;  // ≥ 1: the tile holds a row
+  const long valid = rows * DIN * (long)sizeof(float);
+  for (int j = t; j < n * DIN / 4; j += threads) {
+    const long left = valid - 16L * j;
+    const int nb = left >= 16 ? 16 : left > 0 ? (int)left : 0;
+    cp_async16_zfill(D + 4 * j, nb ? d + row0 * DIN + 4 * j : d, nb);
+  }
+}
+
+// Rows [row0, row0 + n) of a [e, C] bf16 matrix into core tiles at dst
+// (tc::tiles(dst, n)) by cp.async, zeros past e; thread t of `threads`
+// copies 16-byte chunks, a warp two whole rows at a time.
+__device__ __forceinline__ void fetch_rows(uint8_t* dst, const bf16* src, long row0, int n,
+                                           int e, int t, int threads) {
+  const tc::Tiles T = tc::tiles(dst, n);
+  for (int i = t; i < n * (C / 8); i += threads) {
+    const int r = i >> 4, c = (i & 15) * 8;
+    const bool in = row0 + r < e;
+    cp_async16_zfill(dst + tc::tile_off(T, r, c), in ? src + (row0 + r) * C + c : src,
+                     in ? 16 : 0);
+  }
+}
+
+// Rows [row0, row0 + n) of a staged core tile to dst [e, C] in 16-byte
+// chunks; rows past e are not written.
+__device__ __forceinline__ void store_rows(bf16* dst, const uint8_t* X_b, const tc::Tiles& X,
+                                           long row0, int n, int e, int t, int threads) {
+  for (int i = t; i < n * (C / 8); i += threads) {
+    const int r = i >> 4, c = (i & 15) * 8;
+    if (row0 + r < e)
+      *reinterpret_cast<uint4*>(dst + (row0 + r) * C + c) =
+          *reinterpret_cast<const uint4*>(X_b + tc::tile_off(X, r, c));
+  }
+}
+
+// The thread's two accumulator rows (r0 and r0 + 8 of a staged tile) of d,
+// rounded to bf16.
+template <int DIN>
+__device__ __forceinline__ void d_rows(float (&dr)[2][DIN], const float* D, int r0) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int k = 0; k < DIN; ++k) dr[h][k] = rnd<bf16>(D[(r0 + 8 * h) * DIN + k]);
+  }
+}
+
+// t1 = rnd(relu(dr @ rnd(Wd) + bd)) of the thread's two rows as bf16 pairs
+// in the accumulator layout: the register-A fragments of t1 @ K1. The DIN
+// products are summed in order with fmaf, as tile_t1.
+template <int DIN>
+__device__ __forceinline__ void t1_frags(const float (&dr)[2][DIN], const float* wd,
+                                         const float* bd, uint32_t (&a)[32]) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int h = tc::acc_half(i), c = tc::acc_col(i);
+    float x0 = dr[h][0] * wd[c], x1 = dr[h][0] * wd[c + 1];
+#pragma unroll
+    for (int k = 1; k < DIN; ++k) {
+      x0 = fmaf(dr[h][k], wd[k * C + c], x0);
+      x1 = fmaf(dr[h][k], wd[k * C + c + 1], x1);
+    }
+    a[i / 2] = tc::pack_bf2(fmaxf(x0 + bd[c], 0.f), fmaxf(x1 + bd[c + 1], 0.f));
+  }
+}
+
+// e1_from_s's row addition for LanePooling: s += cg, from its staged tile X
+// (the thread's rows r0 and r0 + 8).
+__device__ __forceinline__ auto add_staged(const uint8_t* X_b, const tc::Tiles& X, int r0) {
+  return [X_b, X, r0](int h, int c, float& x0, float& x1) {
+    const float2 v =
+        unpack_bf2(*reinterpret_cast<const uint32_t*>(X_b + tc::tile_off(X, r0 + 8 * h, c)));
+    x0 += v.x;
+    x1 += v.y;
+  };
+}
+
+// bf16 pairs (the accumulator layout of the thread's rows r0, r0 + 8) into
+// a staged core tile.
+__device__ __forceinline__ void put_pairs(uint8_t* X_b, const tc::Tiles& X, int r0,
+                                          const uint32_t (&a)[32]) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 2)
+    *reinterpret_cast<uint32_t*>(X_b + tc::tile_off(X, r0 + 8 * tc::acc_half(i), tc::acc_col(i))) =
+        a[i / 2];
+}
+
+// The forward (see the header). Warpgroup g of block b takes tiles
+// b·PF_WGS + g, then every PF_WGS·B-th one; per warpgroup two stages of
+// [d | cg] (cg's tile then takes the output).
+template <int DIN>
+__global__ void __launch_bounds__(PF_THREADS, 1)
+edge_mlp_pool_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ cg,
+                        const bf16* __restrict__ kd, const float* __restrict__ bd,
+                        const bf16* __restrict__ k1, const float* __restrict__ gchw,
+                        const float* __restrict__ gchb, const bf16* __restrict__ kout,
+                        bf16* __restrict__ out, int e, float eps) {
+  constexpr int STAGE = PD + PTB;
+  extern __shared__ float4 smem4[];
+  uint8_t* W_b = reinterpret_cast<uint8_t*>(smem4);                 // K1 | Wout
+  float* vec_s = reinterpret_cast<float*>(W_b + 2 * PWB);            // Wd, bd, gchw, gchb
+  uint8_t* S_b = reinterpret_cast<uint8_t*>(vec_s + (DIN + 3) * C);  // [PF_WGS][2][d | cg]
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const tc::Tiles K1 = tc::tiles(W_b, C), Wout = tc::tiles(W_b + PWB, C);
+  if (threadIdx.x < NT) {  // tc::load_tiles_128 strides by NT threads
+    tc::load_tiles_128(W_b, K1, k1);
+    tc::load_tiles_128(W_b + PWB, Wout, kout);
+  }
+  load_pool_vecs<DIN>(vec_s, kd, bd, gchw, gchb, PF_THREADS);
+  tc::fence_smem();
+  __syncthreads();  // the weights (for wgmma) and the vectors in place
+  const float *wd_s = vec_s, *bd_s = vec_s + DIN * C, *gw_s = bd_s + C, *gb_s = gw_s + C;
+
+  const int ntiles = (e + PT - 1) / PT, step = gridDim.x * PF_WGS, r0 = tc::acc_row(0);
+  uint8_t* stage0 = S_b + wg * 2 * STAGE;
+  auto fetch = [&](int tile, int s) {  // one commit group: the tile's d and cg rows
+    uint8_t* st = stage0 + s * STAGE;
+    fetch_d<DIN>(reinterpret_cast<float*>(st), d, (long)tile * PT, PT, e, t, 128);
+    fetch_rows(st + PD, cg, (long)tile * PT, PT, e, t, 128);
+    cp_async_commit();
+  };
+  int tile = blockIdx.x * PF_WGS + wg;
+  if (tile < ntiles) fetch(tile, 0);
+  for (int k = 0; tile < ntiles; ++k, tile += step) {
+    const int s = k & 1;
+    cp_async_wait<0>();  // this tile, the one group in flight
+    // the tile in place for the warpgroup, which is done with the other
+    // stage (the previous tile's output copy), where the next tile goes
+    wg_sync();
+    if (tile + step < ntiles) fetch(tile + step, s ^ 1);
+    const float* D = reinterpret_cast<const float*>(stage0 + s * STAGE);
+    uint8_t* X_b = stage0 + s * STAGE + PD;
+    const tc::Tiles X = tc::tiles(X_b, PT);
+    float dr[2][DIN], acc[64], inv[2];
+    uint32_t a[32];
+    d_rows<DIN>(dr, D, r0);
+    t1_frags<DIN>(dr, wd_s, bd_s, a);
+    tc::zero(acc);  // s = t1 @ K1
+    mm_frag(acc, a, K1);
+    e1_from_s(acc, add_staged(X_b, X, r0), gw_s, gb_s, eps, inv, a);
+    tc::zero(acc);  // out = e1 @ Wout, into cg's tile
+    mm_frag(acc, a, Wout);
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) a[i / 2] = tc::pack_bf2(acc[i], acc[i + 1]);
+    put_pairs(X_b, X, r0, a);
+    wg_sync();  // the output tile complete
+    store_rows(out, X_b, X, (long)tile * PT, PT, e, t, 128);
+  }
+}
+
+// The backward's chain pass (pass 1, see the header): the forward's grid
+// and walk, per warpgroup two stages of [d | cg | g] (g's tile then takes
+// dcg). part_v: [blocks][3 + DIN][C], the block's vector sums.
+template <int DIN>
+__global__ void __launch_bounds__(PW_THREADS, 1)
+edge_mlp_pool_bwd_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ cg,
+                            const bf16* __restrict__ g, const bf16* __restrict__ kd,
+                            const float* __restrict__ bd, const bf16* __restrict__ k1,
+                            const float* __restrict__ gchw, const float* __restrict__ gchb,
+                            const bf16* __restrict__ kout, float* __restrict__ dd,
+                            bf16* __restrict__ dcg, float* __restrict__ part_v, int e,
+                            float eps) {
+  constexpr int NV = 3 + DIN;  // dbd, dgchw, dgchb, the dWd rows
+  constexpr int STAGE = PD + 2 * PTB;
+  extern __shared__ float4 smem4[];
+  uint8_t* W_b = reinterpret_cast<uint8_t*>(smem4);                 // K1 | Wout
+  float* vec_s = reinterpret_cast<float*>(W_b + 2 * PWB);            // Wd, bd, gchw, gchb
+  uint8_t* S_b = reinterpret_cast<uint8_t*>(vec_s + (DIN + 3) * C);  // [PW_WGS][2][d | cg | g]
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const tc::Tiles K1 = tc::tiles(W_b, C), Wout = tc::tiles(W_b + PWB, C);
+  tc::load_tiles_128(W_b, K1, k1);
+  tc::load_tiles_128(W_b + PWB, Wout, kout);
+  load_pool_vecs<DIN>(vec_s, kd, bd, gchw, gchb, PW_THREADS);
+  tc::fence_smem();
+  __syncthreads();  // the weights (for wgmma) and the vectors in place
+  const float *wd_s = vec_s, *bd_s = vec_s + DIN * C, *gw_s = bd_s + C, *gb_s = gw_s + C;
+
+  const int ntiles = (e + PT - 1) / PT, step = gridDim.x * PW_WGS, r0 = tc::acc_row(0);
+  uint8_t* stage0 = S_b + wg * 2 * STAGE;
+  auto fetch = [&](int tile, int s) {  // one commit group: the tile's d, cg and g rows
+    uint8_t* st = stage0 + s * STAGE;
+    fetch_d<DIN>(reinterpret_cast<float*>(st), d, (long)tile * PT, PT, e, t, 128);
+    fetch_rows(st + PD, cg, (long)tile * PT, PT, e, t, 128);
+    fetch_rows(st + PD + PTB, g, (long)tile * PT, PT, e, t, 128);
+    cp_async_commit();
+  };
+  float va[NV][4];  // column sums (this lane's 4 columns)
+#pragma unroll
+  for (int k = 0; k < NV; ++k) va[k][0] = va[k][1] = va[k][2] = va[k][3] = 0.f;
+  int tile = blockIdx.x * PW_WGS + wg;
+  if (tile < ntiles) fetch(tile, 0);
+  for (int k = 0; tile < ntiles; ++k, tile += step) {
+    const int s = k & 1;
+    cp_async_wait<0>();
+    tc::fence_smem();  // g's tile for wgmma
+    wg_sync();         // as the forward's
+    if (tile + step < ntiles) fetch(tile + step, s ^ 1);
+    const long row0 = (long)tile * PT;
+    const float* D = reinterpret_cast<const float*>(stage0 + s * STAGE);
+    const uint8_t* X_b = stage0 + s * STAGE + PD;
+    uint8_t* Y_b = stage0 + s * STAGE + PD + PTB;
+    const tc::Tiles X = tc::tiles(X_b, PT), Y = tc::tiles(Y_b, PT);
+    const bool ok[2] = {row0 + r0 < e, row0 + r0 + 8 < e};
+    float dr[2][DIN], acc[64], acc2[64], inv[2];
+    uint32_t a[32];
+    d_rows<DIN>(dr, D, r0);
+    t1_frags<DIN>(dr, wd_s, bd_s, a);
+
+    // s = t1 @ K1 beside d_e1 = g @ Woutᵀ.
+    tc::zero(acc);
+    tc::zero(acc2);
+    tc::fence_acc(acc);
+    tc::fence_acc(acc2);
+    tc::fence();
+#pragma unroll
+    for (int ks = 0; ks < C / 16; ++ks)
+      tc::mma_rs<1>(acc, *reinterpret_cast<const uint32_t(*)[4]>(&a[4 * ks]),
+                    tc::desc(K1, false, ks, 0));
+    tc::mm<C / 16, true, true>(acc2, Y, 0, Wout);
+    tc::commit();
+    tc::wait_all();
+    tc::fence_acc(acc);
+    tc::fence_acc(acc2);
+    // s += cg; acc ← nrm_s, a ← e1; acc2 ← d_gn = d_e1 ⊙ [e1 > 0] (0 past e).
+    e1_from_s(acc, add_staged(X_b, X, r0), gw_s, gb_s, eps, inv, a);
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int h = tc::acc_half(i);
+      const float2 ef = unpack_bf2(a[i / 2]);
+      acc2[i] = ok[h] && ef.x > 0.f ? acc2[i] : 0.f;
+      acc2[i + 1] = ok[h] && ef.y > 0.f ? acc2[i + 1] : 0.f;
+    }
+    col_sums<true>(va[1], acc2, acc);    // dgchw
+    col_sums<false>(va[2], acc2, acc2);  // dgchb
+    gn_bwd_acc(acc2, acc, inv, gw_s, a);  // a ← rnd(d_s) = dcg
+    wg_sync();  // every warp's products are done with g's tile, which takes dcg
+    put_pairs(Y_b, Y, r0, a);
+
+    // d_t1 = rnd(d_s) @ K1ᵀ; d_t1p = d_t1 ⊙ [t1 > 0] (t1 made again).
+    tc::zero(acc);
+    mm_frag<true>(acc, a, K1);
+    t1_frags<DIN>(dr, wd_s, bd_s, a);
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int h = tc::acc_half(i);
+      const float2 tv = unpack_bf2(a[i / 2]);
+      acc[i] = ok[h] && tv.x > 0.f ? acc[i] : 0.f;
+      acc[i + 1] = ok[h] && tv.y > 0.f ? acc[i + 1] : 0.f;
+    }
+    col_sums<false>(va[0], acc, acc);  // dbd
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = rnd<bf16>(acc[i]);  // rnd(d_t1p)
+#pragma unroll
+    for (int kk = 0; kk < DIN; ++kk) {  // dWd row kk += Σ rnd(d)[kk] · rnd(d_t1p)
+      float dv[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) dv[i] = dr[tc::acc_half(i)][kk];
+      col_sums<true>(va[3 + kk], acc, dv);
+      if (dd) {  // dd[row][kk] = rnd(d_t1p) · rnd(Wd)[kk]
+        float p[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 64; ++i) p[tc::acc_half(i)] += acc[i] * wd_s[kk * C + tc::acc_col(i)];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          p[h] = tc::quad_sum(p[h]);
+          if ((t & 3) == 0 && ok[h]) dd[(row0 + r0 + 8 * h) * DIN + kk] = p[h];
+        }
+      }
+    }
+    wg_sync();  // dcg's tile complete
+    store_rows(dcg, Y_b, Y, row0, PT, e, t, 128);
+  }
+
+  // The block's vectors: each warp's columns, summed over the warps in order.
+  __syncthreads();
+  float* red_s = reinterpret_cast<float*>(S_b);  // [PW_THREADS / 32][NV][C]
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red_s[(warp * NV + k) * C + col_sum_col(j)] = va[k][j];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < NV * C; i += PW_THREADS) {
+    float sum = 0.f;
+    for (int w = 0; w < PW_THREADS / 32; ++w) sum += red_s[w * NV * C + i];
+    part_v[(long)blockIdx.x * NV * C + i] = sum;
+  }
+}
+
+// The backward's weight-gradient pass (pass 2, see the header): block
+// (split, y) sums Aᵀ B over the DT-edge tiles split, split + splits, ...,
+// y = 0: dK1 (A = t1, B = dcg), y = 1: dWout (A = e1, B = g), K running over
+// a tile's edges (rows past e zero-filled), both operands MN-major from
+// core tiles; warpgroup w owns input channels 64w .. 64w + 63. The tiles
+// stream through a ring of stages by cp.async, [d | B] (y = 0: DW0_STAGES,
+// three tiles in flight) or [d | B | cg] (y = 1: DW1_STAGES, what shared
+// memory holds beside K1); A is made in place by the block's threads: t1
+// from d, or e1 by the chain, each warpgroup on its 64 edges of the tile.
+// part: [splits][dK1, dWout].
+constexpr int DW0_STAGES = 4, DW1_STAGES = 2;
+constexpr int DW0_STAGE = 2 * PD + DTB, DW1_STAGE = 2 * PD + 2 * DTB;
+
+template <int DIN>
+constexpr int pool_dw_smem() {
+  return PWB + (DIN + 3) * C * (int)sizeof(float) + DTB +
+         (DW0_STAGES * DW0_STAGE > DW1_STAGES * DW1_STAGE ? DW0_STAGES * DW0_STAGE
+                                                          : DW1_STAGES * DW1_STAGE);
+}
+
+template <int DIN>
+__global__ void __launch_bounds__(PW_THREADS, 1)
+edge_mlp_pool_dw_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ cg,
+                           const bf16* __restrict__ g, const bf16* __restrict__ dcg,
+                           const bf16* __restrict__ kd, const float* __restrict__ bd,
+                           const bf16* __restrict__ k1, const float* __restrict__ gchw,
+                           const float* __restrict__ gchb, float* __restrict__ part, int e,
+                           float eps) {
+  extern __shared__ float4 smem4[];
+  uint8_t* W_b = reinterpret_cast<uint8_t*>(smem4);                  // K1 (y = 1)
+  float* vec_s = reinterpret_cast<float*>(W_b + PWB);                 // Wd, bd, gchw, gchb
+  uint8_t* A_b = reinterpret_cast<uint8_t*>(vec_s + (DIN + 3) * C);  // [DT x C]: t1 or e1
+  uint8_t* S_b = A_b + DTB;                                           // the ring
+  const int y = blockIdx.y, wg = threadIdx.x >> 7;
+  const tc::Tiles K1 = tc::tiles(W_b, C), A = tc::tiles(A_b, DT);
+  if (y == 1) tc::load_tiles_128(W_b, K1, k1);
+  load_pool_vecs<DIN>(vec_s, kd, bd, gchw, gchb, PW_THREADS);
+  tc::fence_smem();
+  __syncthreads();  // K1 (for wgmma) and the vectors in place
+  const float *wd_s = vec_s, *bd_s = vec_s + DIN * C, *gw_s = bd_s + C, *gb_s = gw_s + C;
+  const int ntiles = (e + DT - 1) / DT, step = gridDim.x, r0 = tc::acc_row(0);
+  float accw[64];
+  tc::zero(accw);
+
+  // y = 0: a thread makes the same 8 channels of t1 (chunk threadIdx.x % 16
+  // of rows threadIdx.x / 16 + 16j), so their rnd(Wd) columns and bd sit in
+  // registers for the whole walk.
+  static_assert(PW_THREADS % (C / 8) == 0, "a thread's t1 chunks share their channels");
+  const int c8 = (threadIdx.x & 15) * 8;
+  float wreg[DIN][8], breg[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    breg[q] = bd_s[c8 + q];
+#pragma unroll
+    for (int kk = 0; kk < DIN; ++kk) wreg[kk][q] = wd_s[kk * C + c8 + q];
+  }
+
+  // The walk with S stages of `stage` bytes (S − 1 tiles in flight).
+  auto walk = [&](auto stages, int stage) {
+    constexpr int S = decltype(stages)::value;
+    auto issue = [&](int tile, int st) {  // one commit group, empty past the last tile
+      uint8_t* p = S_b + st * stage;
+      if (tile < ntiles) {
+        const long row0 = (long)tile * DT;
+        fetch_d<DIN>(reinterpret_cast<float*>(p), d, row0, DT, e, threadIdx.x, PW_THREADS);
+        fetch_rows(p + 2 * PD, y == 0 ? dcg : g, row0, DT, e, threadIdx.x, PW_THREADS);
+        if (y == 1) fetch_rows(p + 2 * PD + DTB, cg, row0, DT, e, threadIdx.x, PW_THREADS);
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int j = 0; j < S - 1; ++j) issue(blockIdx.x + j * step, j);
+    for (int k = 0, tile = blockIdx.x; tile < ntiles; ++k, tile += step) {
+      cp_async_wait<S - 2>();  // tile k landed (the S − 2 after it may be in flight)
+      tc::fence_smem();
+      // tile k in place for every thread; both warpgroups done with tile
+      // k − 1's A and stage, where tile k + S − 1 goes
+      __syncthreads();
+      issue(tile + (S - 1) * step, (k + S - 1) % S);
+      const uint8_t* p = S_b + (k % S) * stage;
+      const float* D = reinterpret_cast<const float*>(p);
+      if (y == 0) {  // A = t1 = rnd(relu(rnd(d) @ rnd(Wd) + bd)), 8 channels a chunk
+#pragma unroll 2
+        for (int r = threadIdx.x >> 4; r < DT; r += PW_THREADS / 16) {
+          float dv[DIN];
+#pragma unroll
+          for (int kk = 0; kk < DIN; ++kk) dv[kk] = rnd<bf16>(D[r * DIN + kk]);
+          uint4 o;
+          uint32_t* op = &o.x;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            float x0 = dv[0] * wreg[0][2 * q], x1 = dv[0] * wreg[0][2 * q + 1];
+#pragma unroll
+            for (int kk = 1; kk < DIN; ++kk) {
+              x0 = fmaf(dv[kk], wreg[kk][2 * q], x0);
+              x1 = fmaf(dv[kk], wreg[kk][2 * q + 1], x1);
+            }
+            op[q] = tc::pack_bf2(fmaxf(x0 + breg[2 * q], 0.f), fmaxf(x1 + breg[2 * q + 1], 0.f));
+          }
+          *reinterpret_cast<uint4*>(A_b + tc::tile_off(A, r, c8)) = o;
+        }
+      } else {  // A = e1 of the warpgroup's 64 edges: t1 → s = t1 @ K1 + cg → e1
+        const int rw = 64 * wg + r0;
+        const uint8_t* X_b = p + 2 * PD + DTB;
+        float dr[2][DIN], acc[64], inv[2];
+        uint32_t a[32];
+        d_rows<DIN>(dr, D, rw);
+        t1_frags<DIN>(dr, wd_s, bd_s, a);
+        tc::zero(acc);
+        mm_frag(acc, a, K1);
+        e1_from_s(acc, add_staged(X_b, tc::tiles(X_b, DT), rw), gw_s, gb_s, eps, inv, a);
+        put_pairs(A_b, A, rw, a);
+      }
+      tc::fence_smem();
+      __syncthreads();  // A in place
+      tc::fence_acc(accw);
+      tc::fence();
+      tc::mm<DT / 16, false, false>(accw, A, 64 * wg, tc::tiles(p + 2 * PD, DT));
+      tc::commit();
+      tc::wait_all();
+      tc::fence_acc(accw);
+    }
+    cp_async_wait<0>();  // the empty groups past the last tile
+  };
+  if (y == 0)
+    walk(std::integral_constant<int, DW0_STAGES>{}, DW0_STAGE);
+  else
+    walk(std::integral_constant<int, DW1_STAGES>{}, DW1_STAGE);
+
+  float* P = part + ((long)blockIdx.x * 2 + y) * C * C;
+#pragma unroll
+  for (int i = 0; i < 64; i += 2)
+    *reinterpret_cast<float2*>(P + (64 * wg + tc::acc_row(i)) * C + tc::acc_col(i)) =
+        make_float2(accw[i], accw[i + 1]);
+}
+
+template <typename T, int DIN>
+int launch_pool(const float* d, const void* cg, const void* kd, const float* bd, const void* k1,
+                const float* gchw, const float* gchb, const void* kout, void* out, int e,
+                float eps, cudaStream_t stream) {
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int smem = pool_fwd_smem<DIN>();
+    err = set_smem((const void*)edge_mlp_pool_tc_kernel<DIN>, smem);
+    if (err != cudaSuccess) return (int)err;
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return (int)cudaGetLastError();
+    const int tiles = (e + PT - 1) / PT, blocks = min(sms, (tiles + PF_WGS - 1) / PF_WGS);
+    if (blocks > 0)
+      edge_mlp_pool_tc_kernel<DIN><<<blocks, PF_THREADS, smem, stream>>>(
+          d, (const bf16*)cg, (const bf16*)kd, bd, (const bf16*)k1, gchw, gchb,
+          (const bf16*)kout, (bf16*)out, e, eps);
+  } else {
+    const int smem = (EB * LDA + C * C) * (int)sizeof(float);
+    err = set_smem((const void*)edge_mlp_pool_kernel<T, DIN>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int tiles = (e + EB - 1) / EB;
+    if (tiles > 0)
+      edge_mlp_pool_kernel<T, DIN><<<tiles, NT, smem, stream>>>(
+          d, (const T*)cg, (const T*)kd, bd, (const T*)k1, gchw, gchb, (const T*)kout, (T*)out,
+          e, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
+// part: [blocks][2*C*C + (3 + DIN)*C] floats. bf16: the dW pass's partials
+// [splits][dK1, dWout] from the start, the chain pass's vector sums
+// [chain blocks][(3 + DIN)*C] from blocks*2*C*C; fp32: one row per block.
 template <typename T, int DIN>
 int launch_pool_bwd(const float* d, const void* cg, const void* g, const void* kd,
                     const float* bd, const void* k1, const float* gchw, const float* gchb,
                     const void* kout, float* dd, void* dcg, float* part, float* grads, int e,
                     int blocks, float eps, cudaStream_t stream) {
-  const int smem = (4 * EB * LDA + C * C + EB + NT / 32 * (3 + DIN) * C) * (int)sizeof(float);
-  cudaError_t err = set_smem((const void*)edge_mlp_pool_bwd_kernel<T, DIN>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (e + EB - 1) / EB;
-  if (blocks > tiles) blocks = tiles;
-  if (blocks > 0) {
-    edge_mlp_pool_bwd_kernel<T, DIN><<<blocks, NT, smem, stream>>>(
-        d, (const T*)cg, (const T*)g, (const T*)kd, bd, (const T*)k1, gchw, gchb,
-        (const T*)kout, dd, (T*)dcg, part, e, eps);
-    err = cudaGetLastError();
+  constexpr int NV = 3 + DIN;
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int nb = min(blocks, ((e + PT - 1) / PT + PW_WGS - 1) / PW_WGS);
+    const int splits = min(blocks, (e + DT - 1) / DT);
+    float* part_v = part + (long)blocks * 2 * C * C;
+    if (nb > 0) {
+      int smem = pool_bwd_smem<DIN>();
+      err = set_smem((const void*)edge_mlp_pool_bwd_tc_kernel<DIN>, smem);
+      if (err != cudaSuccess) return (int)err;
+      edge_mlp_pool_bwd_tc_kernel<DIN><<<nb, PW_THREADS, smem, stream>>>(
+          d, (const bf16*)cg, (const bf16*)g, (const bf16*)kd, bd, (const bf16*)k1, gchw, gchb,
+          (const bf16*)kout, dd, (bf16*)dcg, part_v, e, eps);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      smem = pool_dw_smem<DIN>();
+      err = set_smem((const void*)edge_mlp_pool_dw_tc_kernel<DIN>, smem);
+      if (err != cudaSuccess) return (int)err;
+      edge_mlp_pool_dw_tc_kernel<DIN><<<dim3(splits, 2), PW_THREADS, smem, stream>>>(
+          d, (const bf16*)cg, (const bf16*)g, (const bf16*)dcg, (const bf16*)kd, bd,
+          (const bf16*)k1, gchw, gchb, part, e, eps);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    err = reduce_partials(part, grads, splits, 2 * C * C, stream);
     if (err != cudaSuccess) return (int)err;
+    return (int)reduce_partials(part_v, grads + 2 * C * C, nb, NV * C, stream);
+  } else {
+    const int smem = (4 * EB * LDA + C * C + EB + NT / 32 * NV * C) * (int)sizeof(float);
+    err = set_smem((const void*)edge_mlp_pool_bwd_kernel<T, DIN>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int tiles = (e + EB - 1) / EB;
+    if (blocks > tiles) blocks = tiles;
+    if (blocks > 0) {
+      edge_mlp_pool_bwd_kernel<T, DIN><<<blocks, NT, smem, stream>>>(
+          d, (const T*)cg, (const T*)g, (const T*)kd, bd, (const T*)k1, gchw, gchb,
+          (const T*)kout, dd, (T*)dcg, part, e, eps);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    return (int)reduce_partials(part, grads, blocks, 2 * C * C + NV * C, stream);
   }
-  return (int)reduce_partials(part, grads, blocks, 2 * C * C + (3 + DIN) * C, stream);
 }
 
 }  // namespace
@@ -447,6 +993,7 @@ extern "C" int edge_mlp_fwd(const void* d, const void* qg, const void* cg, const
 
 // LanePooling's configuration (has_dist2 = has_query = false). dtype as
 // edge_mlp_fwd (cg, kd [din, C], k1, kout, out); d fp32 [e, din], din 2 or 4.
+// bf16: d, cg and out 16-byte aligned (cp.async and 16-byte row stores).
 extern "C" int edge_mlp_pool_fwd(const void* d, const void* cg, const void* kd, const void* bd,
                                  const void* k1, const void* gchw, const void* gchb,
                                  const void* kout, void* out, int e, int din, float eps,
@@ -490,9 +1037,11 @@ extern "C" int edge_mlp_bwd(const void* d, const void* qg, const void* cg, const
 
 // LanePooling's backward. g: the output cotangent [e, 128] in the activation
 // dtype; dd fp32 [e, din], or null to skip it; dcg [e, 128] in the activation
-// dtype; part: fp32 [blocks, 2*C*C + (3 + din)*C]; grads: fp32
-// [2*C*C + (3 + din)*C] = dK1, dWout (in, out), dbd, dgchw, dgchb, then the
-// din rows of dWd, the partials' sum in block order.
+// dtype; part: fp32 [blocks, 2*C*C + (3 + din)*C], a workspace (see
+// launch_pool_bwd); grads: fp32 [2*C*C + (3 + din)*C] = dK1, dWout (in,
+// out), dbd, dgchw, dgchb, then the din rows of dWd, the partials' sums in
+// block (split) order. blocks: the card's SMs. bf16: d, cg, g and dcg
+// 16-byte aligned.
 extern "C" int edge_mlp_pool_bwd(const void* d, const void* cg, const void* g, const void* kd,
                                  const void* bd, const void* k1, const void* gchw,
                                  const void* gchb, const void* kout, void* dd, void* dcg,

@@ -44,6 +44,7 @@
 #include <type_traits>
 
 #include "edge_chain.cuh"
+#include "edge_tc.cuh"
 #include "segment_sum.cuh"
 
 using namespace lgk;
@@ -87,20 +88,6 @@ __device__ __forceinline__ void gather_t1(float* A_s, const int* lu_s, const int
 
 // --- the bf16 chain on tensor cores, shared by the forward and the
 // backward's recompute -----------------------------------------------------
-
-// The warpgroup's 128 threads (named barrier 1 + warpgroup).
-__device__ __forceinline__ void wg_sync() {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (threadIdx.x >> 7)) : "memory");
-}
-
-__device__ __forceinline__ float2 ld_bf2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float2 unpack_bf2(uint32_t u) {
-  __nv_bfloat162 h;
-  memcpy(&h, &u, 4);
-  return __bfloat1622float2(h);
-}
 
 // Wdo | K1 | Wout into core tiles at W_b (one cp.async group, not waited
 // for), by the block's `threads` threads.
@@ -149,49 +136,17 @@ __device__ __forceinline__ void t2_from_z(const float (&acc)[64], const float* w
   }
 }
 
-// s += Cs[v] + Qd[u] on the thread's edge rows (ok); then acc ← nrm_s, GN_ch's
-// normalised rows, and e1 = rnd(relu(nrm_s ⊙ w + b)) as bf16 pairs (the
-// register-A fragments of e1 @ Wout). inv: s's 1/sqrt(var + eps) per row.
-__device__ __forceinline__ void e1_from_s(float (&acc)[64], const bool (&ok)[2],
-                                          const int (&uu)[2], const int (&vv)[2],
-                                          const bf16* cs, const bf16* qd, const float* w,
-                                          const float* b, float eps, float (&inv)[2],
-                                          uint32_t (&e1)[32]) {
-#pragma unroll
-  for (int i = 0; i < 64; i += 2) {
-    const int h = tc::acc_half(i), c = tc::acc_col(i);
+// e1_from_s's row addition for Att's chain: s += Cs[v] + Qd[u] on the
+// thread's edge rows (ok).
+__device__ __forceinline__ auto add_cq(const bool (&ok)[2], const int (&uu)[2],
+                                       const int (&vv)[2], const bf16* cs, const bf16* qd) {
+  return [&ok, &uu, &vv, cs, qd](int h, int c, float& x0, float& x1) {
     if (ok[h]) {
       const float2 cv = ld_bf2(cs + (long)vv[h] * C + c), qv = ld_bf2(qd + (long)uu[h] * C + c);
-      acc[i] = acc[i] + cv.x + qv.x;
-      acc[i + 1] = acc[i + 1] + cv.y + qv.y;
+      x0 = x0 + cv.x + qv.x;
+      x1 = x1 + cv.y + qv.y;
     }
-  }
-  float mu[2];
-  tc::acc_row_stats(acc, eps, mu, inv);
-#pragma unroll
-  for (int i = 0; i < 64; i += 2) {
-    const int h = tc::acc_half(i), c = tc::acc_col(i);
-    acc[i] = (acc[i] - mu[h]) * inv[h];
-    acc[i + 1] = (acc[i + 1] - mu[h]) * inv[h];
-    e1[i / 2] = tc::pack_bf2(fmaxf(acc[i] * w[c] + b[c], 0.f),
-                             fmaxf(acc[i + 1] * w[c + 1] + b[c + 1], 0.f));
-  }
-}
-
-// acc += A B with A the warpgroup's 64 rows as register-A fragments (a:
-// bf16 pairs of an m64n128 accumulator's layout) and B a [128 x 128] weight
-// read MN-major from core tiles; issued, committed and waited for.
-__device__ __forceinline__ void mm_frag(float (&acc)[64], const uint32_t (&a)[32],
-                                        const tc::Tiles& b) {
-  tc::fence_acc(acc);
-  tc::fence();
-#pragma unroll
-  for (int ks = 0; ks < C / 16; ++ks)
-    tc::mma_rs<1>(acc, *reinterpret_cast<const uint32_t(*)[4]>(&a[4 * ks]),
-                  tc::desc(b, false, ks, 0));
-  tc::commit();
-  tc::wait_all();
-  tc::fence_acc(acc);
+  };
 }
 
 // --- the forward's chain pass --------------------------------------------
@@ -350,7 +305,7 @@ win_edge_fwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
     t2_from_z(acc, gdow_s, gdob_s, eps, mu, inv, a);
     tc::zero(acc);  // s = t2 @ K1
     mm_frag(acc, a, K1);
-    e1_from_s(acc, ok, uu, vv, cs, qd, gchw_s, gchb_s, eps, inv, a);
+    e1_from_s(acc, add_cq(ok, uu, vv, cs, qd), gchw_s, gchb_s, eps, inv, a);
     tc::zero(acc);  // e2 = e1 @ Wout
     mm_frag(acc, a, Wout);
     float* row[2] = {ws + (t * TE + r0) * C, ws + (t * TE + r0 + 8) * C};
@@ -615,61 +570,6 @@ inline int bwd_tc_smem() {
          WE_WGS * 3 * TE * (int)sizeof(int);
 }
 
-// v[k] += the sum over the tile's 64 rows of a[i]·b[i] (MUL) or a[i], for
-// this lane's 4 columns (2g·8 + 2q + {0, 1} and (2g + 1)·8 + 2q + {0, 1},
-// g = lane / 4, q = lane % 4). The thread's two rows are added first, then
-// a halving butterfly over the 8 lanes of one q: each stage keeps half of
-// the columns and sends the other half to its partner (28 shuffles).
-template <bool MUL>
-__device__ __forceinline__ void col_sums(float (&v)[4], const float (&a)[64],
-                                         const float (&b)[64]) {
-  const int lane = threadIdx.x & 31;
-  float x[32];  // slot j: columns of accumulator elements 4(j >> 1) + (j & 1) (+2)
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    const int i0 = 4 * (j >> 1) + (j & 1), i1 = i0 + 2;
-    x[j] = MUL ? a[i0] * b[i0] + a[i1] * b[i1] : a[i0] + a[i1];
-  }
-#pragma unroll
-  for (int m = 16, half = 16; m >= 4; m >>= 1, half >>= 1) {
-    const bool hi = (lane & m) != 0;
-#pragma unroll
-    for (int j = 0; j < half; ++j) {
-      const float send = hi ? x[j] : x[j + half];
-      const float keep = hi ? x[j + half] : x[j];
-      x[j] = keep + __shfl_xor_sync(0xffffffffu, send, m);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) v[k] += x[k];
-}
-
-// GroupNorm backward on the accumulators: d[i] = inv·(d_nrm − mean(d_nrm) −
-// nrm·mean(d_nrm·nrm)), d_nrm = dy[i]·w[col], per row (as common.cuh
-// gn_bwd_row), returned as bf16 pairs in `out` (element pair i/2).
-__device__ __forceinline__ void gn_bwd_acc(const float (&dy)[64], const float (&nrm)[64],
-                                           const float (&inv)[2], const float* w,
-                                           uint32_t (&out)[32]) {
-  float c1[2] = {0.f, 0.f}, c2[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    const float dn = dy[i] * w[tc::acc_col(i)];
-    c1[tc::acc_half(i)] += dn;
-    c2[tc::acc_half(i)] += dn * nrm[i];
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    c1[h] = tc::quad_sum(c1[h]) * (1.f / C);
-    c2[h] = tc::quad_sum(c2[h]) * (1.f / C);
-  }
-#pragma unroll
-  for (int i = 0; i < 64; i += 2) {
-    const int h = tc::acc_half(i), c = tc::acc_col(i);
-    out[i / 2] = tc::pack_bf2(inv[h] * (dy[i] * w[c] - c1[h] - nrm[i] * c2[h]),
-                              inv[h] * (dy[i + 1] * w[c + 1] - c1[h] - nrm[i + 1] * c2[h]));
-  }
-}
-
 __global__ void __launch_bounds__(WE_THREADS, 1)
 win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
                        const bf16* __restrict__ ps, const bf16* __restrict__ cs,
@@ -687,7 +587,7 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
   uint8_t* E_b = W_b + 3 * WB;                                     // [WE_WGS][t1, X, Y]
   float* vec_s = reinterpret_cast<float*>(E_b + WE_WGS * 3 * TB);  // bd, gdow, gdob, gchw, gchb
   int* row_s = reinterpret_cast<int*>(vec_s + 5 * C);              // [WE_WGS][u, v, spos][TE]
-  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127, lane = threadIdx.x & 31;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
   const tc::Tiles Wdo = tc::tiles(W_b, C), K1 = tc::tiles(W_b + WB, C),
                   Wout = tc::tiles(W_b + 2 * WB, C);
   uint8_t* T1_b = E_b + wg * 3 * TB;
@@ -792,7 +692,7 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
     // s += Cs[v] + Qd[u]; acc ← nrm_s; e1 = rnd(relu(nrm_s ⊙ gchw + gchb)) to
     // act; acc2 ← d_gn_s = d_e1 ⊙ [e1 > 0] (0 past the edges).
     float invs[2];
-    e1_from_s(acc, ok, uu, vv, cs, qd, gchw_s, gchb_s, eps, invs, d2);
+    e1_from_s(acc, add_cq(ok, uu, vv, cs, qd), gchw_s, gchb_s, eps, invs, d2);
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
       const int h = tc::acc_half(i), c = tc::acc_col(i);
@@ -880,12 +780,12 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
   // The block's vectors: each warp's columns, summed over the warps in order.
   __syncthreads();
   float* red_s = reinterpret_cast<float*>(E_b);  // [WE_THREADS / 32][5][C]
-  const int warp = threadIdx.x >> 5, g8 = lane >> 2, q = lane & 3;
+  const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int k = 0; k < 5; ++k) {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      red_s[(warp * 5 + k) * C + (2 * g8 + (j >> 1)) * 8 + 2 * q + (j & 1)] = va[k][j];
+      red_s[(warp * 5 + k) * C + col_sum_col(j)] = va[k][j];
   }
   __syncthreads();
   for (int i = threadIdx.x; i < 5 * C; i += WE_THREADS) {

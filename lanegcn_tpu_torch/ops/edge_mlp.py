@@ -183,6 +183,9 @@ def edge_mlp_pool_bwd_plain(d, cg, kd, bd, k1, gchw, gchb, kout, g, eps: float =
 
 
 def _pool_prep(d, cg, kd, bd, k1, gchw, gchb, kout, *rows):
+    """(d, cg, *rows), weights, vectors, dtype code for the pool kernels:
+    the row tensors contiguous and 16-byte aligned (the bf16 kernels copy
+    them by cp.async)."""
     e, c = cg.shape
     din = d.shape[1] if d.dim() == 2 else 0
     if (c != C or tuple(d.shape) != (e, din) or din not in (2, 4)
@@ -193,14 +196,15 @@ def _pool_prep(d, cg, kd, bd, k1, gchw, gchb, kout, *rows):
     if d.dtype != torch.float32:
         raise TypeError("edge_mlp: d must be float32")
     dt = cg.dtype
+    acts = [cuda.param(x, x.dtype) for x in (d, cg, *rows)]
     ws = [cuda.param(w, dt) for w in (kd, k1, kout)]
     vs = [cuda.param(p) for p in (bd, gchw, gchb)]
-    code = cuda.check_cuda("edge_mlp", cg, *rows, d, *ws, *vs)
-    return ws, vs, code
+    code = cuda.check_cuda("edge_mlp", *acts[1:], acts[0], *ws, *vs)
+    return acts, ws, vs, code
 
 
 def _pool_fwd_cuda(d, cg, kd, bd, k1, gchw, gchb, kout, eps):
-    ws, vs, code = _pool_prep(d, cg, kd, bd, k1, gchw, gchb, kout)
+    (d, cg), ws, vs, code = _pool_prep(d, cg, kd, bd, k1, gchw, gchb, kout)
     out = torch.empty_like(cg)
     cuda.call(
         "edge_mlp", "edge_mlp_pool_fwd",
@@ -218,7 +222,7 @@ def edge_mlp_pool_bwd_cuda(d, cg, kd, bd, k1, gchw, gchb, kout, g, eps: float = 
     kernel then skips it)."""
     if g.shape != cg.shape or g.dtype != cg.dtype:
         raise ValueError(f"edge_mlp: cotangent {g.shape} {g.dtype} for {cg.shape} {cg.dtype}")
-    ws, vs, code = _pool_prep(d, cg, kd, bd, k1, gchw, gchb, kout, g)
+    (d, cg, g), ws, vs, code = _pool_prep(d, cg, kd, bd, k1, gchw, gchb, kout, g)
     dev = cg.device
     e, din = d.shape
     part_size = 2 * C * C + (3 + din) * C

@@ -9,7 +9,10 @@ parent unpacked under build/) can be compared on one card in one call.
 
 Geometries: windowed (windowed_pack_config(256)), bench
 (bench_pack_config(256)), contiguous (contiguous_pack_config(32)),
-lanercnn (lanercnn_pack_config(256), get_model("lanercnn")), unfused
+lanercnn (lanercnn_pack_config(256), get_model("lanercnn")),
+lanercnn_remat (lanercnn's packs, the train step's net built with
+LaneRCNN(remat=True): its three LanePoolings' forwards run again in the
+backward; the serve step is lanercnn's), unfused
 (windowed's packs with ModelConfig(pallas_bands="off")), merged (bench's
 packs with merge_plan_agg="auto") and flat (flat_pack_config(32) packed
 without bands, tables or plan), the packs
@@ -39,6 +42,7 @@ import time
 GEOMETRIES = {"windowed": ("windowed_pack_config", 256), "bench": ("bench_pack_config", 256),
               "contiguous": ("contiguous_pack_config", 32),
               "lanercnn": ("lanercnn_pack_config", 256),
+              "lanercnn_remat": ("lanercnn_pack_config", 256),
               "unfused": ("windowed_pack_config", 256),
               "merged": ("bench_pack_config", 256), "flat": ("flat_pack_config", 32)}
 # ModelConfig fields and pack_batch keyword arguments a geometry sets
@@ -83,7 +87,7 @@ def run(tree, geom):
     from lanegcn_tpu_torch.train.loop import init_state, make_eval_step, make_train_step
 
     name, s = GEOMETRIES[geom]
-    roi = geom == "lanercnn"
+    roi = geom.startswith("lanercnn")
     field = "roi_pack" if roi else "pack"
     cfg = config.Config(**{field: getattr(config, name)(s)})
     if geom in MODEL_FIELDS:
@@ -105,6 +109,11 @@ def run(tree, geom):
     fns = dict(loss_fn=bundle.loss_fn, metrics_fn=bundle.metrics_fn)
     serve = make_eval_step(bundle.config, bundle.net, **fns)
     train_bundle = get_model("lanercnn" if roi else "lanegcn", cfg, dtype=torch.bfloat16, seed=0)
+    if geom == "lanercnn_remat":
+        from lanegcn_tpu_torch.models.lanercnn import LaneRCNN
+
+        train_bundle = dataclasses.replace(train_bundle, net=LaneRCNN(
+            train_bundle.config.model, dtype=torch.bfloat16, seed=0, remat=True))
     net, state = init_state(train_bundle.config, net=train_bundle.net)
     train = make_train_step(train_bundle.config, net, state, **fns)
     for b in batches:
