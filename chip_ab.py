@@ -28,7 +28,8 @@ it to its Att layers); the pair_agg forward and backward likewise (the
 spill plan's `prepare_spill` timed beside, forward-only for the forward,
 the call handed the one a LaneGCN forward made); row_tail's forward and
 backward at K = 1 on the windowed geometry (Att's tails) and at K = 2 on
-LaneRCNN's (LanePooling's tail, `row_tail2`). Each call shape
+LaneRCNN's (LanePooling's tail, `row_tail2`; the K = 2 backward's C
+interface changed: the other tree's through its own wrapper). Each call shape
 (A2M, M2A, A2A) of the forward and of the backward runs once per build (the
 largest difference between the two builds' outputs is printed;
 `chip_smoke.py` holds each kernel to its plain version) and is then timed
@@ -80,7 +81,8 @@ OWN_WRAPPERS = {"scenario_agg": {"scenario_agg": ("scenario_aggregate", 8),
                 "win_edge": {"win_edge": ("win_edge_mlp", 14),
                              "win_edge_bwd": ("win_edge_bwd_cuda", 14)},
                 "pair_agg": {"pair_agg": ("pair_aggregate", 4),
-                             "pair_agg_bwd": ("pair_agg_bwd_cuda", 4)}}
+                             "pair_agg_bwd": ("pair_agg_bwd_cuda", 4)},
+                "row_tail": {"row_tail2_bwd": ("row_tail2_bwd_cuda", 11)}}
 
 
 def build_old(old_root: Path, name: str):

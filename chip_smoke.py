@@ -76,8 +76,10 @@ and exits non-zero:
           `TAIL_ROWS`: 1, 63, 65 and 12,345 rows) and edge_mlp_pool (and
           `POOL_ROWS`: 1, 63, 65 and 12,345 rows, and an all-padding call,
           whose rows must all equal row 0);
-          merged: lane_plan and row_tail; unfused: band_conv and
-          row_tail (the LaneConv tails at N rows beside Att's); flat:
+          merged: lane_plan and row_tail; unfused: band_conv (and
+          `LANE_ROWS`' cuts of its largest call, around the bf16 kernel's
+          192-row blocks, and 385 rows with relation 0's band mask all
+          zero) and row_tail (the LaneConv tails at N rows beside Att's); flat:
           row_tail (the LaneConv tails).
   kernel_bwd  the same kernels' backwards against their plain backwards on
           the inputs and cotangent one bf16 train step hands them, with a
@@ -89,9 +91,12 @@ and exits non-zero:
           merged: lane_plan_bwd; unfused: band_conv_bwd; windowed:
           scenario_agg_bwd on `PLAN_CASES` too, and win_edge_bwd on
           `WIN_CASES`; bench: pair_agg_bwd on `SPILL_CASES` too), and
-          lane_layer_bwd, band_conv_bwd and row_tail_bwd again on their
-          largest call cut to 1,000 and 20,000 rows (`RAGGED_ROWS`: no
-          multiple of their tensor-core passes' row blocks). A few rows whose
+          lane_layer_bwd, band_conv_bwd, row_tail_bwd and row_tail2_bwd
+          again on their largest call cut to 1,000 and 20,000 rows
+          (`RAGGED_ROWS`: no multiple of their tensor-core passes' row
+          blocks), row_tail2_bwd also to 1, 63, 65, 127 and 129 rows
+          (`RAGGED_EXTRA_ROWS`: around its 64-row chain tiles and 128-row
+          weight-gradient tiles). A few rows whose
           ReLU pre-activation ties at zero on the plain side (see TIE_EPS)
           may get a zero cotangent before the comparison.
   kernel_step  segment_sum on every call shape of that train step (the
@@ -1326,6 +1331,10 @@ def drive(geom):
         cap.calls["pair_agg"].update(calls)
         cap.counts["pair_agg"].update(counts)
         check_empty_spill(calls[empty])
+    if geom == "unfused":
+        calls, counts = lane_case_calls(cap.calls["band_conv"], "band_conv")
+        cap.calls["band_conv"].update(calls)
+        cap.counts["band_conv"].update(counts)
     results = kernel_phase("kernel", geom, forward_ops(spec["kernels"]), cap.calls, cap.counts)
     del cap
 
@@ -1479,10 +1488,14 @@ def check_empty_plan(fwd_args):
 
 
 # Row counts that are no multiple of the tensor-core backward passes' row
-# blocks (192 rows in the band passes, 128 in the row pass), so that their
-# partial tiles run: the row guards and the zeroed halo and mask rows.
+# blocks (192 rows in the band passes, 128 in the row pass, 64 and 128 in
+# row_tail2_bwd's chain and weight-gradient passes), so that their partial
+# tiles run: the row guards and the zeroed halo and mask rows. The K = 2
+# tail's backward also runs one row, a chain tile less and more a row, and
+# a weight-gradient tile less and more a row (RAGGED_EXTRA_ROWS).
 RAGGED_ROWS = (1000, 20000)
-RAGGED_BWD = ("lane_layer_bwd", "band_conv_bwd", "row_tail_bwd")
+RAGGED_BWD = ("lane_layer_bwd", "band_conv_bwd", "row_tail_bwd", "row_tail2_bwd")
+RAGGED_EXTRA_ROWS = {"row_tail2_bwd": (1, 63, 65, 127, 129)}
 
 
 def cut_rows(args, n):
@@ -1506,39 +1519,44 @@ def shape_key(args):
 
 def ragged_calls(calls):
     """{kernel: {shapes: args}}: each RAGGED_BWD kernel's captured call with
-    the most rows cut to each of RAGGED_ROWS rows."""
+    the most rows cut to each of RAGGED_ROWS rows (and of its
+    RAGGED_EXTRA_ROWS)."""
     cut = {}
     for name in RAGGED_BWD:
         if not calls.get(name):
             continue
         args = max(calls[name].values(), key=lambda a: a[0].shape[0])
         cut[name] = {}
-        for n in (n for n in RAGGED_ROWS if n < args[0].shape[0]):
+        rows = RAGGED_EXTRA_ROWS.get(name, ()) + RAGGED_ROWS
+        for n in (n for n in rows if n < args[0].shape[0]):
             part = cut_rows(args, n)
             cut[name][shape_key(part)] = part
     return cut
 
 
-# lane_layer's edge cases: the bf16 forward's blocks own 192 rows (three
-# warpgroups of 64), so its captured call with the most rows is cut to one
-# row, one row short of a block and one row past it (LANE_ROWS), and to two
-# blocks and a row with relation 0's band mask all zero (every warpgroup
-# skips that relation). kernel_phase runs each without temp_out and, through
-# check_temp, with it.
+# lane_layer's and band_conv's edge cases: their bf16 forwards' blocks own
+# 192 rows (three warpgroups of 64; band_conv runs lane_layer's band loop),
+# so the captured call with the most rows is cut to one row, one row short
+# of a block and one row past it (LANE_ROWS), and to two blocks and a row
+# with relation 0's band mask all zero (every warpgroup skips that
+# relation). kernel_phase runs each lane_layer case without temp_out and,
+# through check_temp, with it.
 LANE_ROWS = (1, 191, 193)
 LANE_ZERO_REL_ROWS = 385
+LANE_MASK_ARG = {"lane_layer": 2, "band_conv": 1}  # the band masks' argument
 
 
-def lane_case_calls(calls):
-    """{shapes: args} and {shapes: 0} of lane_layer's edge cases, cut from
-    its captured forward calls."""
+def lane_case_calls(calls, name="lane_layer"):
+    """{shapes: args} and {shapes: 0} of lane_layer's (or band_conv's) edge
+    cases, cut from its captured forward calls."""
     args = max(calls.values(), key=lambda a: a[0].shape[0])
+    m = LANE_MASK_ARG[name]
     cases, counts = {}, {}
     for n in LANE_ROWS + (LANE_ZERO_REL_ROWS,):
         part = cut_rows(args, n)
         if n == LANE_ZERO_REL_ROWS:
-            part[2] = part[2].clone()
-            part[2][0] = 0
+            part[m] = part[m].clone()
+            part[m][0] = 0
         cases[shape_key(part)], counts[shape_key(part)] = part, 0
     return cases, counts
 

@@ -13,19 +13,28 @@
 // with g the output cotangent in feat's dtype. What bounds it: one
 // [128 x 128] product per row each mask selects (forward), two (backward),
 // ~8.3 masked band rows per row at the 256-scenario pack (N = 208,896):
-// 56.7 GFLOP forward against ~110 MB of traffic, so it is compute-bound on the
-// card's matrix rate. This first version runs the products on CUDA cores in
-// fp32, as lane_layer does, far below the bf16 tensor-core bound; wgmma is
-// later work. What the design keeps out of device memory, against the TPU
-// kernel: the TPU kernel DMAs a 128-lane mask plane and a ±32-row halo per
-// grid step and accumulates dW into one [J, C, C] block that its sequential
-// grid revisits. Here the masks stay compact ([J, N] bytes); a block loads
-// its 64-row tile with its ±32-row halo of feat (forward) or of g (the dx
-// pass) once into shared memory and reuses it for all J shifted products
-// (lane_band.cuh: load_halo, band_fwd, band_t); dW runs as (split, j)
-// blocks that each keep an 8 x 8 register block per thread over their
-// tiles and write one partial, summed in split order by reduce_partials
-// (band_dw_kernel): no float atomics, so a rerun is bitwise equal.
+// 56.7 GFLOP forward against ~110 MB of traffic, so it is compute-bound on
+// the card's bf16 matrix rate (0.057 ms). What the design keeps out of
+// device memory, against the TPU kernel: the TPU kernel DMAs a 128-lane
+// mask plane and a ±32-row halo per grid step and accumulates dW into one
+// [J, C, C] block that its sequential grid revisits. Here the masks stay
+// compact ([J, N] bytes) and a block loads its rows' halo of feat (forward)
+// or of g (the dx pass) once into shared memory for all J shifted products.
+//   bf16 (the path that serves and trains): the forward is
+//     band_conv_tc_kernel, lane_layer.cu's bf16 forward without `pre` and
+//     without the tail: 192-row blocks of three warpgroups, a bf16 halo
+//     tile by cp.async, A by `ldmatrix` at the shifted rows with the rows
+//     whose band_j[u] is 0 zeroed, Wb_j read MN-major from two cp.async
+//     buffers, a relation skipped by a warpgroup none of whose rows has it
+//     (lane_band.cuh band_fwd_tc, shared with lane_layer_tc_kernel); the
+//     accumulator starts at zero and is rounded once to bf16. The backward
+//     runs band_t_tc_kernel (dx) and band_dw_tc_kernel (dW: (split, j)
+//     blocks, 64 wgmma accumulators a thread over their tiles).
+//   fp32 (the parity path: wgmma has no fp32 operands): 64-row tiles with
+//     an fp32 ±32-row halo and the products on CUDA cores (lane_band.cuh
+//     band_fwd, band_t, band_dw_kernel).
+// dW's partials are summed in split order by reduce_partials: no float
+// atomics, so a rerun is bitwise equal.
 #include "lane_band.cuh"
 
 using namespace lgk;
@@ -47,15 +56,54 @@ band_conv_kernel(const T* __restrict__ feat, const uint8_t* __restrict__ masks,
   store_rows<T>(out, acc, tile0, n);
 }
 
+// The bf16 forward on tensor cores: lane_layer_tc_kernel's block, halo
+// tile, masks and weight buffers, its band loop (lane_band.cuh band_fwd_tc)
+// from a zero accumulator, and the accumulator rounded once to bf16.
+inline int band_conv_tc_smem() {
+  return DX_HROWS * DX_HLD * (int)sizeof(bf16) + 2 * tc::tiles_bytes(C) + MAXJ * DX_ROWS;
+}
+
+__global__ void __launch_bounds__(DX_THREADS, 1)
+band_conv_tc_kernel(const bf16* __restrict__ feat, const uint8_t* __restrict__ masks,
+                    const bf16* __restrict__ w, bf16* __restrict__ out, int n, int nj,
+                    Shifts sh) {
+  extern __shared__ float4 smem4[];
+  bf16* X_s = reinterpret_cast<bf16*>(smem4);                          // [DX_HROWS][DX_HLD] feat
+  uint8_t* W_b = reinterpret_cast<uint8_t*>(X_s + DX_HROWS * DX_HLD);  // [2] weight core tiles
+  uint8_t* M_s = W_b + 2 * tc::tiles_bytes(C);                         // [MAXJ][DX_ROWS] band_j[u]
+  __shared__ uint8_t act_s[MAXJ][DX_WGS];  // relation j in warpgroup g's rows
+  const long tile0 = (long)blockIdx.x * DX_ROWS;
+
+  float acc[64];
+  band_fwd_tc(acc, X_s, W_b, M_s, act_s, feat, nullptr, masks, w, nullptr, tile0, n, nj, sh);
+  const long row0 = tile0 + 64 * (threadIdx.x >> 7);  // the warpgroup's first row
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const long gr = row0 + tc::acc_row(i);
+    if (gr < n)
+      *reinterpret_cast<__nv_bfloat162*>(out + gr * C + tc::acc_col(i)) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
+}
+
 template <typename T>
 int launch(const T* feat, const uint8_t* masks, const T* w, T* out, int n, int nj,
            const Shifts& sh, cudaStream_t stream) {
-  const int smem = (HALO_TILE + C * C) * (int)sizeof(float);
-  cudaError_t e = set_smem((const void*)band_conv_kernel<T>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = (n + TM - 1) / TM;
-  if (blocks > 0)
-    band_conv_kernel<T><<<blocks, NT, smem, stream>>>(feat, masks, w, out, n, nj, sh);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int smem = band_conv_tc_smem();
+    cudaError_t e = set_smem((const void*)band_conv_tc_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    const int blocks = (n + DX_ROWS - 1) / DX_ROWS;
+    if (blocks > 0)
+      band_conv_tc_kernel<<<blocks, DX_THREADS, smem, stream>>>(feat, masks, w, out, n, nj, sh);
+  } else {
+    const int smem = (HALO_TILE + C * C) * (int)sizeof(float);
+    cudaError_t e = set_smem((const void*)band_conv_kernel<T>, smem);
+    if (e != cudaSuccess) return (int)e;
+    const int blocks = (n + TM - 1) / TM;
+    if (blocks > 0)
+      band_conv_kernel<T><<<blocks, NT, smem, stream>>>(feat, masks, w, out, n, nj, sh);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -474,20 +474,6 @@ __device__ __forceinline__ void fetch_d(float* D, const float* d, long row0, int
   }
 }
 
-// Rows [row0, row0 + n) of a [e, C] bf16 matrix into core tiles at dst
-// (tc::tiles(dst, n)) by cp.async, zeros past e; thread t of `threads`
-// copies 16-byte chunks, a warp two whole rows at a time.
-__device__ __forceinline__ void fetch_rows(uint8_t* dst, const bf16* src, long row0, int n,
-                                           int e, int t, int threads) {
-  const tc::Tiles T = tc::tiles(dst, n);
-  for (int i = t; i < n * (C / 8); i += threads) {
-    const int r = i >> 4, c = (i & 15) * 8;
-    const bool in = row0 + r < e;
-    cp_async16_zfill(dst + tc::tile_off(T, r, c), in ? src + (row0 + r) * C + c : src,
-                     in ? 16 : 0);
-  }
-}
-
 // Rows [row0, row0 + n) of a staged core tile to dst [e, C] in 16-byte
 // chunks; rows past e are not written.
 __device__ __forceinline__ void store_rows(bf16* dst, const uint8_t* X_b, const tc::Tiles& X,
@@ -534,21 +520,10 @@ __device__ __forceinline__ void t1_frags(const float (&dr)[2][DIN], const float*
 // (the thread's rows r0 and r0 + 8).
 __device__ __forceinline__ auto add_staged(const uint8_t* X_b, const tc::Tiles& X, int r0) {
   return [X_b, X, r0](int h, int c, float& x0, float& x1) {
-    const float2 v =
-        unpack_bf2(*reinterpret_cast<const uint32_t*>(X_b + tc::tile_off(X, r0 + 8 * h, c)));
+    const float2 v = staged_pair(X_b, X, r0 + 8 * h, c);
     x0 += v.x;
     x1 += v.y;
   };
-}
-
-// bf16 pairs (the accumulator layout of the thread's rows r0, r0 + 8) into
-// a staged core tile.
-__device__ __forceinline__ void put_pairs(uint8_t* X_b, const tc::Tiles& X, int r0,
-                                          const uint32_t (&a)[32]) {
-#pragma unroll
-  for (int i = 0; i < 64; i += 2)
-    *reinterpret_cast<uint32_t*>(X_b + tc::tile_off(X, r0 + 8 * tc::acc_half(i), tc::acc_col(i))) =
-        a[i / 2];
 }
 
 // The forward (see the header). Warpgroup g of block b takes tiles

@@ -1,7 +1,8 @@
-// The per-edge chain's bf16 pieces on wgmma accumulators, shared by the
+// The per-row chain's bf16 pieces on wgmma accumulators, shared by the
 // tensor-core passes of win_edge.cu (Att's window-pair chain, forward and
-// backward) and edge_mlp.cu (LanePooling's flat edge chain, forward and
-// backward).
+// backward), edge_mlp.cu (LanePooling's flat edge chain, forward and
+// backward) and row_tail.cu (LanePooling's two-Linear tail, backward), and
+// the staged core tiles they read rows from and write rows through.
 //
 // A warpgroup holds 64 rows in the m64n128 accumulator layout: each thread
 // two rows (tc::acc_row: r and r + 8) of 32 columns, a row's 128 columns in
@@ -27,6 +28,48 @@ __device__ __forceinline__ float2 unpack_bf2(uint32_t u) {
   __nv_bfloat162 h;
   memcpy(&h, &u, 4);
   return __bfloat1622float2(h);
+}
+
+// Rows [row0, row0 + n) of a [e, C] bf16 matrix into core tiles at dst
+// (tc::tiles(dst, n)) by cp.async, zeros past e; thread t of `threads`
+// copies 16-byte chunks, a warp two whole rows at a time.
+__device__ __forceinline__ void fetch_rows(uint8_t* dst, const bf16* src, long row0, int n,
+                                           int e, int t, int threads) {
+  const tc::Tiles T = tc::tiles(dst, n);
+  for (int i = t; i < n * (C / 8); i += threads) {
+    const int r = i >> 4, c = (i & 15) * 8;
+    const bool in = row0 + r < e;
+    cp_async16_zfill(dst + tc::tile_off(T, r, c), in ? src + (row0 + r) * C + c : src,
+                     in ? 16 : 0);
+  }
+}
+
+// Columns c, c + 1 of row r of a staged core tile.
+__device__ __forceinline__ float2 staged_pair(const uint8_t* X_b, const tc::Tiles& X, int r,
+                                              int c) {
+  return unpack_bf2(*reinterpret_cast<const uint32_t*>(X_b + tc::tile_off(X, r, c)));
+}
+
+// acc ← the thread's two rows (r0 and r0 + 8) of a staged core tile, in the
+// accumulator layout.
+__device__ __forceinline__ void load_pairs(float (&acc)[64], const uint8_t* X_b,
+                                           const tc::Tiles& X, int r0) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const float2 v = staged_pair(X_b, X, r0 + 8 * tc::acc_half(i), tc::acc_col(i));
+    acc[i] = v.x;
+    acc[i + 1] = v.y;
+  }
+}
+
+// bf16 pairs (the accumulator layout of the thread's rows r0, r0 + 8) into
+// a staged core tile.
+__device__ __forceinline__ void put_pairs(uint8_t* X_b, const tc::Tiles& X, int r0,
+                                          const uint32_t (&a)[32]) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 2)
+    *reinterpret_cast<uint32_t*>(X_b + tc::tile_off(X, r0 + 8 * tc::acc_half(i), tc::acc_col(i))) =
+        a[i / 2];
 }
 
 // s += the row's additions (add(h, c, s[i], s[i + 1]) for the thread's row h

@@ -27,11 +27,12 @@
 // (dx, 192-row blocks of three warpgroups, A through registers at the
 // shifted rows, fp32 d_temp split into bf16 hi + lo) and band_dw_tc_kernel
 // (dWb, both operands MN-major from a cp.async ring of shared core tiles);
-// tail_bwd.cuh's row pass likewise. The bf16 forward of lane_layer.cu
-// (lane_layer_tc_kernel) mirrors band_t_tc_kernel with its 192-row blocks,
-// halo tile and weight buffers (DX_*, prefetch_weight). The bf16 forwards
-// of band_conv.cu and lane_plan.cu still run band_fwd (and layer_tail) on
-// CUDA cores: moving them onto the same products is queued.
+// tail_bwd.cuh's row pass likewise. The bf16 band products of lane_layer.cu
+// (lane_layer_tc_kernel) and band_conv.cu (band_conv_tc_kernel) run
+// band_fwd_tc, which mirrors band_t_tc_kernel with its 192-row blocks, halo
+// tile and weight buffers (DX_*, prefetch_weight). The bf16 forward of
+// lane_plan.cu still runs band_fwd and layer_tail on CUDA cores: moving it
+// onto the same products is queued.
 #pragma once
 
 #include "tail_bwd.cuh"
@@ -238,6 +239,106 @@ __device__ __forceinline__ void prefetch_weight(uint8_t* dst, const tc::Tiles& t
     cp_async16(dst + tc::tile_off(t, r, cb * 8), src + r * C + cb * 8);
   }
   cp_async_commit();
+}
+
+// The bf16 band products of one DX_ROWS-row block on tensor cores, shared
+// by lane_layer_tc_kernel (lane_layer.cu: acc from pre, W2 prefetched after
+// the last relation) and band_conv_tc_kernel (band_conv.cu: acc from zero,
+// no weight after):
+//
+//   acc = pre + Σ_j band_j[u] · feat[u + s_j] @ Wb_j    (pre null: 0)
+//
+// for warpgroup g's rows u = tile0 + 64g .. 64g + 63. The block's feat rows
+// u − HALO .. u + DX_ROWS + HALO − 1 go into X_s once, as a row-major bf16
+// halo tile (DX_HLD-element rows), by cp.async in one group with the first
+// weight (Wb_0, or `after` without relations); M_s [MAXJ][DX_ROWS] takes
+// band_j of the block's rows and act_s whether relation j has a row in
+// warpgroup g's. The A operand of relation j sits at row offset HALO + s_j
+// of the halo tile, which no shared-memory descriptor can address (8-row
+// core matrices), so it goes through registers by `ldmatrix`, the
+// fragment's rows zeroed where band_j[u] is 0; Wb_j is the B operand, read
+// MN-major from core tiles in W_b (two buffers: j + 1, and `after` past the
+// last relation, load while j multiplies). A warpgroup skips a relation
+// none of its rows has. On return `after` (when given) is the one cp.async
+// group in flight, into buffer nj & 1; without it no copy is.
+__device__ __forceinline__ void band_fwd_tc(float (&acc)[64], bf16* X_s, uint8_t* W_b,
+                                            uint8_t* M_s, uint8_t (*act_s)[DX_WGS],
+                                            const bf16* feat, const bf16* pre,
+                                            const uint8_t* masks, const bf16* wb,
+                                            const bf16* after, long tile0, int n, int nj,
+                                            const Shifts& sh) {
+  const tc::Tiles Wt = tc::tiles(W_b, C);  // the strides of both weight buffers
+  constexpr int WB = tc::tiles_bytes(C);
+  const int lane = threadIdx.x & 31, wg = threadIdx.x >> 7, wr = (threadIdx.x >> 5) & 3;
+
+  // The halo tile by cp.async (zeros outside [0, n)) and the first weight
+  // in one commit group.
+  for (int i = threadIdx.x; i < DX_HROWS * (C / 8); i += DX_THREADS) {
+    const int r = i >> 4, c = (i & 15) * 8;
+    const long gr = tile0 - HALO + r;
+    const bool in = gr >= 0 && gr < n;
+    cp_async16_zfill(X_s + r * DX_HLD + c, in ? feat + gr * C + c : feat, in ? 16 : 0);
+  }
+  const bf16* first = nj > 0 ? wb : after;
+  if (first)
+    prefetch_weight(W_b, Wt, first);
+  else
+    cp_async_commit();
+  for (int idx = threadIdx.x; idx < nj * DX_ROWS; idx += DX_THREADS) {
+    const int j = idx / DX_ROWS, r = idx % DX_ROWS;
+    M_s[idx] = tile0 + r < n ? masks[(long)j * n + tile0 + r] : 0;
+  }
+  // acc = pre at this thread's rows and columns (0 past n, or without pre).
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const long gr = tile0 + 64 * wg + tc::acc_row(i);
+    float2 v = make_float2(0.f, 0.f);
+    if (pre && gr < n)
+      v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(pre + gr * C + tc::acc_col(i)));
+    acc[i] = v.x;
+    acc[i + 1] = v.y;
+  }
+  __syncthreads();
+  for (int q = threadIdx.x >> 5; q < DX_WGS * nj; q += DX_THREADS / 32) {
+    const int j = q / DX_WGS, w = q % DX_WGS;
+    const uint8_t* m = M_s + j * DX_ROWS + 64 * w;
+    const bool any = __any_sync(0xffffffffu, (m[lane] | m[lane + 32]) != 0);
+    if (lane == 0) act_s[j][w] = any;
+  }
+
+  const int row0 = 64 * wg + 16 * wr;  // this warp's first row in the block
+  const int g8 = lane >> 2;             // the fragment's rows row0 + g8, row0 + g8 + 8
+  for (int j = 0; j < nj; ++j) {
+    cp_async_wait<0>();  // weight j, the one group in flight
+    tc::fence_smem();
+    // Wb_j (and, at j = 0, the halo, masks and flags) in place for every
+    // thread, and every warpgroup done with j − 1, whose buffer the next
+    // weight (Wb_{j+1}, or `after` past the last relation) now takes.
+    __syncthreads();
+    const bf16* next = j + 1 < nj ? wb + (long)(j + 1) * C * C : after;
+    if (next) prefetch_weight(W_b + ((j + 1) & 1) * WB, Wt, next);
+    if (act_s[j][wg]) {
+      const int hr = HALO + row0 + sh.s[j];  // halo row of the warp's first A row
+      const bool m0 = M_s[j * DX_ROWS + row0 + g8] != 0;
+      const bool m1 = M_s[j * DX_ROWS + row0 + g8 + 8] != 0;
+      uint32_t a[C / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < C / 16; ++ks) {
+        tc::ldm_a(a[ks], X_s, DX_HLD, hr, ks * 16);
+        if (!m0) a[ks][0] = a[ks][2] = 0u;
+        if (!m1) a[ks][1] = a[ks][3] = 0u;
+      }
+      const tc::Tiles Wj = tc::tiles(W_b + (j & 1) * WB, C);
+      tc::fence_acc(acc);
+      tc::fence();
+#pragma unroll
+      for (int ks = 0; ks < C / 16; ++ks) tc::mma_rs<1>(acc, a[ks], tc::desc(Wj, false, ks, 0));
+      tc::commit();
+      tc::wait_all();
+      tc::fence_acc(acc);
+    }
+  }
+  if (!after) cp_async_wait<0>();  // without relations: the halo's group
 }
 
 template <typename D>

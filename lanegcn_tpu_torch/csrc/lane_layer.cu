@@ -25,8 +25,9 @@
 //     band_j[u] is 0; Wb_j is the B operand, read MN-major from core tiles.
 //     A warpgroup skips a relation none of its rows has. The weights stream
 //     through two shared buffers by cp.async, j + 1 (and W2 after the last
-//     relation) loading while j multiplies. The accumulator starts from pre
-//     and ends as temp, in registers; GN1 takes each row's statistics from
+//     relation) loading while j multiplies (lane_band.cuh band_fwd_tc,
+//     shared with band_conv.cu's bf16 forward). The accumulator starts from
+//     pre and ends as temp, in registers; GN1 takes each row's statistics from
 //     its quad of lanes (a row's 128 columns sit in 4 lanes), and
 //     h = rnd(relu(GN1(temp))) becomes the A fragments of z = h @ W2 in the
 //     registers it was computed in (one k16 slice of an m64n128 accumulator
@@ -37,8 +38,9 @@
 //     fp32 halo, the band products and the tail on CUDA cores in fp32
 //     (lane_band.cuh band_fwd, layer_tail; register-blocked 4 x 8 per
 //     thread); wgmma has no fp32 operands, and this path is what the parity
-//     checks hold to the CPU. lane_plan.cu and band_conv.cu run the same
-//     band_fwd / layer_tail in both dtypes.
+//     checks hold to the CPU. lane_plan.cu runs the same band_fwd /
+//     layer_tail in both dtypes, band_conv.cu band_fwd in fp32 and the bf16
+//     band loop (lane_band.cuh band_fwd_tc) in bf16.
 // The band masks stay compact ([J, N] bytes) instead of padded planes.
 //
 // Backward (`lane_layer_bwd`): replaces pallas_lane_layer.py `_bwd_kernel` /
@@ -119,78 +121,17 @@ lane_layer_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ pre
   float* gn_s = reinterpret_cast<float*>(W_b + 2 * tc::tiles_bytes(C));  // g1w, g1b, g2w, g2b
   uint8_t* M_s = reinterpret_cast<uint8_t*>(gn_s + 4 * C);          // [MAXJ][DX_ROWS] band_j[u]
   __shared__ uint8_t act_s[MAXJ][DX_WGS];  // relation j in warpgroup g's rows
-  const tc::Tiles Wt = tc::tiles(W_b, C);  // the strides of both weight buffers
   constexpr int WB = tc::tiles_bytes(C);
   const long tile0 = (long)blockIdx.x * DX_ROWS;
-  const int lane = threadIdx.x & 31, wg = threadIdx.x >> 7, wr = (threadIdx.x >> 5) & 3;
+  const int wg = threadIdx.x >> 7;
 
-  // The halo tile by cp.async (zeros outside [0, n)) and the first weight
-  // (Wb_0, or W2 without relations) in one commit group.
-  for (int i = threadIdx.x; i < DX_HROWS * (C / 8); i += DX_THREADS) {
-    const int r = i >> 4, c = (i & 15) * 8;
-    const long gr = tile0 - HALO + r;
-    const bool in = gr >= 0 && gr < n;
-    cp_async16_zfill(X_s + r * DX_HLD + c, in ? feat + gr * C + c : feat, in ? 16 : 0);
-  }
-  prefetch_weight(W_b, Wt, nj > 0 ? wb : w2);
   for (int i = threadIdx.x; i < 4 * C; i += DX_THREADS) {
     const float* v = i < C ? g1w : i < 2 * C ? g1b : i < 3 * C ? g2w : g2b;
     gn_s[i] = v[i & (C - 1)];
   }
-  for (int idx = threadIdx.x; idx < nj * DX_ROWS; idx += DX_THREADS) {
-    const int j = idx / DX_ROWS, r = idx % DX_ROWS;
-    M_s[idx] = tile0 + r < n ? masks[(long)j * n + tile0 + r] : 0;
-  }
-  // acc = pre at this thread's rows and columns (0 past n).
+  // acc = temp = pre + the band products; W2 in flight after them.
   float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; i += 2) {
-    const long gr = tile0 + 64 * wg + tc::acc_row(i);
-    float2 v = make_float2(0.f, 0.f);
-    if (gr < n)
-      v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(pre + gr * C + tc::acc_col(i)));
-    acc[i] = v.x;
-    acc[i + 1] = v.y;
-  }
-  __syncthreads();
-  for (int q = threadIdx.x >> 5; q < DX_WGS * nj; q += DX_THREADS / 32) {
-    const int j = q / DX_WGS, w = q % DX_WGS;
-    const uint8_t* m = M_s + j * DX_ROWS + 64 * w;
-    const bool any = __any_sync(0xffffffffu, (m[lane] | m[lane + 32]) != 0);
-    if (lane == 0) act_s[j][w] = any;
-  }
-
-  const int row0 = 64 * wg + 16 * wr;  // this warp's first row in the block
-  const int g8 = lane >> 2;             // the fragment's rows row0 + g8, row0 + g8 + 8
-  for (int j = 0; j < nj; ++j) {
-    cp_async_wait<0>();  // weight j, the one group in flight
-    tc::fence_smem();
-    // Wb_j (and, at j = 0, the halo, masks and flags) in place for every
-    // thread, and every warpgroup done with j − 1, whose buffer the next
-    // weight (Wb_{j+1}, or W2 after the last relation) now takes.
-    __syncthreads();
-    prefetch_weight(W_b + ((j + 1) & 1) * WB, Wt, j + 1 < nj ? wb + (long)(j + 1) * C * C : w2);
-    if (act_s[j][wg]) {
-      const int hr = HALO + row0 + sh.s[j];  // halo row of the warp's first A row
-      const bool m0 = M_s[j * DX_ROWS + row0 + g8] != 0;
-      const bool m1 = M_s[j * DX_ROWS + row0 + g8 + 8] != 0;
-      uint32_t a[C / 16][4];
-#pragma unroll
-      for (int ks = 0; ks < C / 16; ++ks) {
-        tc::ldm_a(a[ks], X_s, DX_HLD, hr, ks * 16);
-        if (!m0) a[ks][0] = a[ks][2] = 0u;
-        if (!m1) a[ks][1] = a[ks][3] = 0u;
-      }
-      const tc::Tiles Wj = tc::tiles(W_b + (j & 1) * WB, C);
-      tc::fence_acc(acc);
-      tc::fence();
-#pragma unroll
-      for (int ks = 0; ks < C / 16; ++ks) tc::mma_rs<1>(acc, a[ks], tc::desc(Wj, false, ks, 0));
-      tc::commit();
-      tc::wait_all();
-      tc::fence_acc(acc);
-    }
-  }
+  band_fwd_tc(acc, X_s, W_b, M_s, act_s, feat, pre, masks, wb, w2, tile0, n, nj, sh);
   cp_async_wait<0>();  // W2
   tc::fence_smem();
   __syncthreads();  // W2 (and, without relations, the halo and vectors) in place

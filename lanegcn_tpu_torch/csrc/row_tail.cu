@@ -53,25 +53,49 @@
 // 13.7 GFLOP: memory-bound at the card's bf16 matrix rate.
 //
 // K = 2 backward (`row_tail2_bwd`): replaces `_bwd_kernel` / `_bwd_impl` at
-// K = 2. Per 64-row tile it recomputes the chain and runs back through
-// GN3 → W2 → GN2 → W1 → GN1:
+// K = 2. Per row it recomputes the chain and runs back through GN3 → W2 →
+// GN2 → W1 → GN1:
 //
-//   d_y = g ⊙ [y + res > 0] (= dres);  d_t2 = rnd(GN3ᵀ(d_y));  dW2 += h2ᵀ d_t2
-//   d_h2 = d_t2 @ W2ᵀ ⊙ [h2_pre > 0]; d_t1 = rnd(GN2ᵀ(d_h2));  dW1 += h1ᵀ d_t1
+//   d_y = g ⊙ [y + res > 0] (= dres);  d_t2 = rnd(GN3ᵀ(d_y));  dW2 = Σ h2ᵀ d_t2
+//   d_h2 = d_t2 @ W2ᵀ ⊙ [h2_pre > 0]; d_t1 = rnd(GN2ᵀ(d_h2));  dW1 = Σ h1ᵀ d_t1
 //   d_h1 = d_t1 @ W1ᵀ ⊙ [h1_pre > 0]; dx = GN1ᵀ(d_h1)
 //
 // with h1, h2 and each d_t rounded to x's dtype before its products, as the
-// Pallas backward rounds them. Shared memory: four fp32 tiles (x/h1, t1 then
-// d_t1 then d_h1, h2, t2 then d_t2 then d_h2), one 64 KB weight slot loaded
-// with W1, W2, W2ᵀ and W1ᵀ in turn (all four at once would take 256 KB),
-// and the six GN vector sums per warp: 220 KB, one block per SM. One block
-// per SM walks the tiles with dW1 and dW2 in registers (an 8 x 8 block of
-// each per thread) and writes one partial per block; reduce_partials sums
-// the partials in block order (no float atomics, bitwise reruns). What
-// bounds it: x, res and g read and dx, dres written (267 MB at N = 208,896
-// in bf16) against six [N x 128] x [128 x 128] products (41.1 GFLOP):
-// memory-bound at the card's bf16 matrix rate, product-bound on the CUDA
-// cores this version uses.
+// Pallas backward rounds them, fp32 statistics and fp32 dW. What bounds it:
+// x, res and g read and dx, dres written (267 MB at N = 208,896 in bf16)
+// against six [N x 128] x [128 x 128] products (41.1 GFLOP): memory-bound
+// at the card's bf16 matrix rate. Two instantiations:
+//   bf16 (the path that trains), two passes on wgmma:
+//   1. row_tail2_bwd_tc_kernel, the chain: row_tail_tc_kernel's persistent
+//      grid of 2-warpgroup blocks, W1 and W2 once per block as bf16 core
+//      tiles (read MN-major for the chain, K-major for d_t @ Wᵀ), each
+//      warpgroup on 64-row tiles of its own with the next tile's x in
+//      flight by cp.async from the start of the current one and the next
+//      g and res from the moment d_y is made. The chain runs on the
+//      accumulators: h1, t1, h2, t2 made again (tail_fwd.cuh), the three
+//      GroupNorm backwards on the accumulators (edge_tc.cuh gn_bwd_acc),
+//      d_t2 and d_t1 fed to d_t @ Wᵀ as register-A fragments, t1 made again
+//      from x for GN2's backward (the registers hold one chain: 255 a
+//      thread), the six GN vector sums as column sums kept per lane across
+//      the tiles. dx, dres, rnd(d_t1) and rnd(d_t2) leave from the
+//      registers; no fp32 tile in shared memory.
+//   2. row_tail2_dw_tc_kernel, the weight gradients: dW1 = h1ᵀ rnd(d_t1)
+//      and dW2 = h2ᵀ rnd(d_t2) as split-K wgmma over 128-row tiles of x and
+//      d_t streamed through a cp.async ring, h1 (and h2 through W1) made
+//      again from x; grid (splits, 2), one fp32 partial per split. Beside
+//      the chain's registers the two [128 x 128] fp32 accumulators do not
+//      fit (128 more a thread), so the chain pass writes rnd(d_t1) and
+//      rnd(d_t2) in bf16 (a [2, N, 128] workspace, 107 MB at N = 208,896)
+//      and this pass reads them beside x: 321 MB more traffic, not the
+//      428 MB that writing h1 and h2 too would cost.
+//   The partials are summed in block and split order (reduce_partials): no
+//   float atomics, bitwise reruns.
+//   fp32 (row_tail2_bwd_kernel, the parity path: wgmma has no fp32
+//   operands): one block per SM walks 64-row tiles with dW1 and dW2 in
+//   registers (an 8 x 8 block of each per thread); four fp32 tiles and one
+//   64 KB weight slot loaded with W1, W2, W2ᵀ and W1ᵀ in turn (220 KB, one
+//   block per SM); the products on CUDA cores.
+#include "edge_tc.cuh"
 #include "tail_bwd.cuh"
 #include "tail_fwd.cuh"
 
@@ -476,23 +500,305 @@ row_tail2_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res, const T
   sum_warp_vecs<6>(vec_s, P + 2 * C * C);
 }
 
+// The bf16 backward on tensor cores, two passes (see the header). The
+// chain pass: the forward's persistent grid of RT_WGS warpgroups a block,
+// W1 and W2 once per block as bf16 core tiles; warpgroup g of block b walks
+// 64-row tiles b·RT_WGS + g, then every RT_WGS·B-th one. Per warpgroup four staged
+// tiles: x in two stages (the next tile's x in flight from the start of
+// the current one), g and res in one (the next tile's in flight once d_y
+// is made, the last read of the current ones). part_v: [blocks][6][C], the
+// block's GN vector sums; dt: [2][n][C], rnd(d_t1) then rnd(d_t2).
+constexpr int RB_TB = tc::tiles_bytes(RT_ROWS);  // a staged [64 x 128] bf16 tile
+constexpr int RB_WB = tc::tiles_bytes(C);        // a [128 x 128] weight in core tiles
+constexpr int RB_DT = 128;                       // rows of a weight-gradient tile
+constexpr int RB_DTB = tc::tiles_bytes(RB_DT);
+constexpr int RB_DW_STAGES = 2;                  // the weight-gradient pass's ring
+
+constexpr int tail2_bwd_tc_smem() {
+  return 2 * RB_WB + 6 * C * (int)sizeof(float) + RT_WGS * 4 * RB_TB;
+}
+constexpr int tail2_dw_tc_smem() {
+  return RB_WB + 4 * C * (int)sizeof(float) + RB_DTB + RB_DW_STAGES * 2 * RB_DTB;
+}
+
+// v ← (v − μ)·inv per row, the single-group GN's normalised rows (inv: the
+// rows' 1/sqrt(var + eps)).
+__device__ __forceinline__ void gn_normalise(float (&v)[64], float eps, float (&inv)[2]) {
+  float mu[2];
+  tc::acc_row_stats(v, eps, mu, inv);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) v[i] = (v[i] - mu[tc::acc_half(i)]) * inv[tc::acc_half(i)];
+}
+
+// d ← d ⊙ [nrm·w + b > 0] (the ReLU's mask at its pre-activation), 0 in
+// rows past n (ok).
+__device__ __forceinline__ void relu_mask(float (&d)[64], const float (&nrm)[64], const float* w,
+                                          const float* b, const bool (&ok)[2]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int c = tc::acc_col(i);
+    d[i] = ok[tc::acc_half(i)] && nrm[i] * w[c] + b[c] > 0.f ? d[i] : 0.f;
+  }
+}
+
+// bf16 pairs in the accumulator layout to the thread's rows r0, r0 + 8 of
+// dst [n, C] that lie below n.
+__device__ __forceinline__ void store_pairs(bf16* dst, long row0, int r0, const bool (&ok)[2],
+                                            const uint32_t (&a)[32]) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int h = tc::acc_half(i);
+    if (ok[h])
+      *reinterpret_cast<uint32_t*>(dst + (row0 + r0 + 8 * h) * C + tc::acc_col(i)) = a[i / 2];
+  }
+}
+
+__global__ void __launch_bounds__(RT_THREADS, 1)
+row_tail2_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
+                        const bf16* __restrict__ g, const bf16* __restrict__ w1,
+                        const bf16* __restrict__ w2, const float* __restrict__ gn,
+                        bf16* __restrict__ dx, bf16* __restrict__ dres, bf16* __restrict__ dt,
+                        float* __restrict__ part_v, int n, float eps) {
+  extern __shared__ float4 smem4[];
+  uint8_t* W_b = reinterpret_cast<uint8_t*>(smem4);            // W1 | W2
+  float* gn_s = reinterpret_cast<float*>(W_b + 2 * RB_WB);      // [6][C] GN1, GN2, GN3 w, b
+  uint8_t* S_b = reinterpret_cast<uint8_t*>(gn_s + 6 * C);      // [RT_WGS][x0 | x1 | g | res]
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const tc::Tiles W1 = tc::tiles(W_b, C), W2 = tc::tiles(W_b + RB_WB, C);
+  tc::load_tiles_128(W_b, W1, w1);
+  tc::load_tiles_128(W_b + RB_WB, W2, w2);
+  for (int i = threadIdx.x; i < 6 * C; i += RT_THREADS) gn_s[i] = gn[i];
+  tc::fence_smem();
+  __syncthreads();  // the weights (for wgmma) and the vectors in place
+  const float *g1w = gn_s, *g1b = gn_s + C, *g2w = gn_s + 2 * C, *g2b = gn_s + 3 * C,
+              *g3w = gn_s + 4 * C, *g3b = gn_s + 5 * C;
+  bf16 *dt1 = dt, *dt2 = dt + (long)n * C;
+
+  const int ntiles = (n + RT_ROWS - 1) / RT_ROWS, step = gridDim.x * RT_WGS, r0 = tc::acc_row(0);
+  uint8_t* own = S_b + wg * 4 * RB_TB;
+  uint8_t *G_b = own + 2 * RB_TB, *R_b = own + 3 * RB_TB;
+  const tc::Tiles T = tc::tiles(own, RT_ROWS);  // the strides of every staged tile
+  auto fetch_x = [&](int tile, int s) {  // one commit group
+    fetch_rows(own + s * RB_TB, x, (long)tile * RT_ROWS, RT_ROWS, n, t, 128);
+    cp_async_commit();
+  };
+  auto fetch_gr = [&](int tile) {  // one commit group
+    fetch_rows(G_b, g, (long)tile * RT_ROWS, RT_ROWS, n, t, 128);
+    fetch_rows(R_b, res, (long)tile * RT_ROWS, RT_ROWS, n, t, 128);
+    cp_async_commit();
+  };
+  float va[6][4];  // column sums (this lane's 4 columns): dg1w, dg1b, dg2w, dg2b, dg3w, dg3b
+#pragma unroll
+  for (int k = 0; k < 6; ++k) va[k][0] = va[k][1] = va[k][2] = va[k][3] = 0.f;
+  int tile = blockIdx.x * RT_WGS + wg;
+  if (tile < ntiles) {
+    fetch_x(tile, 0);
+    fetch_gr(tile);
+  }
+  for (int k = 0; tile < ntiles; ++k, tile += step) {
+    const int s = k & 1;
+    cp_async_wait<0>();  // this tile's x, g and res
+    // in place for the warpgroup, which is done with the other x stage
+    wg_sync();
+    if (tile + step < ntiles) fetch_x(tile + step, s ^ 1);
+    const uint8_t* X_b = own + s * RB_TB;
+    const long row0 = (long)tile * RT_ROWS;
+    const bool ok[2] = {row0 + r0 < n, row0 + r0 + 8 < n};
+    float acc[64], acc2[64], inv[2];
+    uint32_t a[32];
+    auto& ha = *reinterpret_cast<uint32_t(*)[C / 16][4]>(a);
+
+    // The chain again: h1 → t1 = h1 @ W1 → h2 → t2 = h2 @ W2; acc ← nrm3.
+    load_pairs(acc, X_b, T, r0);
+    tail::gn_relu_frags(acc, g1w, g1b, eps, ha);
+    tail::frag_mm(acc, ha, W1);
+    tail::gn_relu_frags(acc, g2w, g2b, eps, ha);
+    tail::frag_mm(acc, ha, W2);
+    gn_normalise(acc, eps, inv);
+    // d_y = g ⊙ [nrm3·w + b + res > 0] (0 past n) = dres.
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int h = tc::acc_half(i), c = tc::acc_col(i), r = r0 + 8 * h;
+      const float2 rv = staged_pair(R_b, T, r, c), gv = staged_pair(G_b, T, r, c);
+      acc2[i] = ok[h] && acc[i] * g3w[c] + g3b[c] + rv.x > 0.f ? gv.x : 0.f;
+      acc2[i + 1] = ok[h] && acc[i + 1] * g3w[c + 1] + g3b[c + 1] + rv.y > 0.f ? gv.y : 0.f;
+    }
+    wg_sync();  // every thread done with g's and res's tiles: the next tile's go there
+    if (tile + step < ntiles) fetch_gr(tile + step);
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) a[i / 2] = tc::pack_bf2(acc2[i], acc2[i + 1]);
+    store_pairs(dres, row0, r0, ok, a);
+    col_sums<true>(va[4], acc2, acc);     // dg3w
+    col_sums<false>(va[5], acc2, acc2);   // dg3b
+    gn_bwd_acc(acc2, acc, inv, g3w, a);   // a ← rnd(d_t2)
+    store_pairs(dt2, row0, r0, ok, a);
+
+    // d_h2 = rnd(d_t2) @ W2ᵀ ⊙ [h2_pre > 0], h2_pre from t1 made again.
+    tc::zero(acc);
+    mm_frag<true>(acc, a, W2);
+    load_pairs(acc2, X_b, T, r0);
+    tail::gn_relu_frags(acc2, g1w, g1b, eps, ha);
+    tail::frag_mm(acc2, ha, W1);
+    gn_normalise(acc2, eps, inv);  // nrm2
+    relu_mask(acc, acc2, g2w, g2b, ok);
+    col_sums<true>(va[2], acc, acc2);  // dg2w
+    col_sums<false>(va[3], acc, acc);  // dg2b
+    gn_bwd_acc(acc, acc2, inv, g2w, a);  // a ← rnd(d_t1)
+    store_pairs(dt1, row0, r0, ok, a);
+
+    // d_h1 = rnd(d_t1) @ W1ᵀ ⊙ [h1_pre > 0]; dx = GN1ᵀ(d_h1).
+    tc::zero(acc);
+    mm_frag<true>(acc, a, W1);
+    load_pairs(acc2, X_b, T, r0);
+    gn_normalise(acc2, eps, inv);  // nrm1
+    relu_mask(acc, acc2, g1w, g1b, ok);
+    col_sums<true>(va[0], acc, acc2);  // dg1w
+    col_sums<false>(va[1], acc, acc);  // dg1b
+    gn_bwd_acc(acc, acc2, inv, g1w, a);
+    store_pairs(dx, row0, r0, ok, a);
+  }
+
+  // The block's vectors: each warp's columns, summed over the warps in order.
+  __syncthreads();
+  float* red_s = reinterpret_cast<float*>(S_b);  // [RT_THREADS / 32][6][C]
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red_s[(warp * 6 + k) * C + col_sum_col(j)] = va[k][j];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 6 * C; i += RT_THREADS) {
+    float sum = 0.f;
+    for (int w = 0; w < RT_THREADS / 32; ++w) sum += red_s[w * 6 * C + i];
+    part_v[(long)blockIdx.x * 6 * C + i] = sum;
+  }
+}
+
+// The weight-gradient pass: block (split, y) sums Aᵀ B over the RB_DT-row
+// tiles split, split + splits, ..., y = 0: dW1 (A = h1, B = rnd(d_t1)),
+// y = 1: dW2 (A = h2, B = rnd(d_t2)), K running over a tile's rows (rows
+// past n zero-filled in B), both operands MN-major from core tiles;
+// warpgroup w owns input channels 64w .. 64w + 63. The tiles [x | d_t]
+// stream through a ring of RB_DW_STAGES stages by cp.async; A is made in
+// place from x, each warpgroup on its 64 rows of the tile: h1 =
+// rnd(relu(GN1(x))), or (y = 1) h2 = rnd(relu(GN2(h1 @ W1))) by the chain
+// pass's own arithmetic. part: [splits][dW1, dW2].
+__global__ void __launch_bounds__(RT_THREADS, 1)
+row_tail2_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                       const float* __restrict__ gn, const bf16* __restrict__ dt,
+                       float* __restrict__ part, int n, float eps) {
+  extern __shared__ float4 smem4[];
+  uint8_t* W_b = reinterpret_cast<uint8_t*>(smem4);           // W1 (y = 1)
+  float* gn_s = reinterpret_cast<float*>(W_b + RB_WB);         // [4][C] GN1, GN2 w, b
+  uint8_t* A_b = reinterpret_cast<uint8_t*>(gn_s + 4 * C);     // [RB_DT x C]: h1 or h2
+  uint8_t* S_b = A_b + RB_DTB;                                 // the ring
+  const int y = blockIdx.y, wg = threadIdx.x >> 7;
+  const tc::Tiles W1 = tc::tiles(W_b, C), A = tc::tiles(A_b, RB_DT);
+  if (y == 1) tc::load_tiles_128(W_b, W1, w1);
+  for (int i = threadIdx.x; i < 4 * C; i += RT_THREADS) gn_s[i] = gn[i];
+  tc::fence_smem();
+  __syncthreads();  // W1 (for wgmma) and the vectors in place
+  const bf16* B_src = dt + (long)y * n * C;
+  const int ntiles = (n + RB_DT - 1) / RB_DT, step = gridDim.x, r0 = tc::acc_row(0);
+  constexpr int S = RB_DW_STAGES;
+  auto issue = [&](int tile, int st) {  // one commit group, empty past the last tile
+    uint8_t* p = S_b + st * 2 * RB_DTB;
+    if (tile < ntiles) {
+      const long row0 = (long)tile * RB_DT;
+      fetch_rows(p, x, row0, RB_DT, n, threadIdx.x, RT_THREADS);
+      fetch_rows(p + RB_DTB, B_src, row0, RB_DT, n, threadIdx.x, RT_THREADS);
+    }
+    cp_async_commit();
+  };
+  float accw[64];
+  tc::zero(accw);
+#pragma unroll
+  for (int j = 0; j < S - 1; ++j) issue(blockIdx.x + j * step, j);
+  for (int k = 0, tile = blockIdx.x; tile < ntiles; ++k, tile += step) {
+    cp_async_wait<S - 2>();  // tile k landed (the S − 2 after it may be in flight)
+    tc::fence_smem();
+    // tile k in place for every thread; both warpgroups done with tile
+    // k − 1's A and stage, where tile k + S − 1 goes
+    __syncthreads();
+    issue(tile + (S - 1) * step, (k + S - 1) % S);
+    const uint8_t* p = S_b + (k % S) * 2 * RB_DTB;
+    const int rw = 64 * wg + r0;
+    float acc[64];
+    uint32_t a[32];
+    auto& ha = *reinterpret_cast<uint32_t(*)[C / 16][4]>(a);
+    load_pairs(acc, p, tc::tiles(p, RB_DT), rw);
+    tail::gn_relu_frags(acc, gn_s, gn_s + C, eps, ha);  // h1
+    if (y == 1) {
+      tail::frag_mm(acc, ha, W1);
+      tail::gn_relu_frags(acc, gn_s + 2 * C, gn_s + 3 * C, eps, ha);  // h2
+    }
+    put_pairs(A_b, A, rw, a);
+    tc::fence_smem();
+    __syncthreads();  // A in place
+    tc::fence_acc(accw);
+    tc::fence();
+    tc::mm<RB_DT / 16, false, false>(accw, A, 64 * wg, tc::tiles(p + RB_DTB, RB_DT));
+    tc::commit();
+    tc::wait_all();
+    tc::fence_acc(accw);
+  }
+  cp_async_wait<0>();  // the empty groups past the last tile
+  float* P = part + ((long)blockIdx.x * 2 + y) * C * C;
+#pragma unroll
+  for (int i = 0; i < 64; i += 2)
+    *reinterpret_cast<float2*>(P + (64 * wg + tc::acc_row(i)) * C + tc::acc_col(i)) =
+        make_float2(accw[i], accw[i + 1]);
+}
+
+// part: blocks * TAIL2_PART floats. bf16: the weight-gradient pass's
+// partials [splits][dW1, dW2] from the start, the chain pass's vector sums
+// [chain blocks][6*C] from blocks*2*C*C; dt: [2, n, C] bf16 workspace.
+// fp32: one partial per block (dt unused).
 template <typename T>
 int launch2_bwd(const void* x, const void* res, const void* g, const void* w1, const void* w2,
-                const float* gn, void* dx, void* dres, float* part, float* grads, int n,
-                int blocks, float eps, cudaStream_t stream) {
-  const int smem = tail2_bwd_smem();
-  cudaError_t err = set_smem((const void*)row_tail2_bwd_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int ntiles = (n + TM - 1) / TM;
-  if (blocks > ntiles) blocks = ntiles;
-  if (blocks > 0) {
-    row_tail2_bwd_kernel<T><<<blocks, NT, smem, stream>>>(
-        (const T*)x, (const T*)res, (const T*)g, (const T*)w1, (const T*)w2, gn, (T*)dx,
-        (T*)dres, part, n, eps);
-    err = cudaGetLastError();
+                const float* gn, void* dx, void* dres, float* part, float* grads, void* dt,
+                int n, int blocks, float eps, cudaStream_t stream) {
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int nb = min(blocks, ((n + RT_ROWS - 1) / RT_ROWS + RT_WGS - 1) / RT_WGS);
+    const int splits = min(blocks, (n + RB_DT - 1) / RB_DT);
+    float* part_v = part + (long)blocks * 2 * C * C;
+    if (nb > 0) {
+      int smem = tail2_bwd_tc_smem();
+      err = set_smem((const void*)row_tail2_bwd_tc_kernel, smem);
+      if (err != cudaSuccess) return (int)err;
+      row_tail2_bwd_tc_kernel<<<nb, RT_THREADS, smem, stream>>>(
+          (const bf16*)x, (const bf16*)res, (const bf16*)g, (const bf16*)w1, (const bf16*)w2, gn,
+          (bf16*)dx, (bf16*)dres, (bf16*)dt, part_v, n, eps);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      smem = tail2_dw_tc_smem();
+      err = set_smem((const void*)row_tail2_dw_tc_kernel, smem);
+      if (err != cudaSuccess) return (int)err;
+      row_tail2_dw_tc_kernel<<<dim3(splits, 2), RT_THREADS, smem, stream>>>(
+          (const bf16*)x, (const bf16*)w1, gn, (const bf16*)dt, part, n, eps);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    err = reduce_partials(part, grads, splits, 2 * C * C, stream);
     if (err != cudaSuccess) return (int)err;
+    return (int)reduce_partials(part_v, grads + 2 * C * C, nb, 6 * C, stream);
+  } else {
+    const int smem = tail2_bwd_smem();
+    err = set_smem((const void*)row_tail2_bwd_kernel<T>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int ntiles = (n + TM - 1) / TM;
+    if (blocks > ntiles) blocks = ntiles;
+    if (blocks > 0) {
+      row_tail2_bwd_kernel<T><<<blocks, NT, smem, stream>>>(
+          (const T*)x, (const T*)res, (const T*)g, (const T*)w1, (const T*)w2, gn, (T*)dx,
+          (T*)dres, part, n, eps);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    return (int)reduce_partials(part, grads, blocks, TAIL2_PART, stream);
   }
-  return (int)reduce_partials(part, grads, blocks, TAIL2_PART, stream);
 }
 
 }  // namespace
@@ -548,17 +854,20 @@ extern "C" int row_tail_bwd(const void* x, const void* res, const void* g, const
 // K = 2 backward. g: the output cotangent in x's dtype; dx, dres [n, 128] in
 // x's dtype; gn as row_tail2_fwd; part: blocks * (2*C*C + 6*C) fp32
 // workspace; grads: fp32 [2*C*C + 6*C] = dW1, dW2 (in, out), then the GN1,
-// GN2 and GN3 weight and bias gradients.
+// GN2 and GN3 weight and bias gradients, the partials' sums in block
+// (split) order; dt: bf16 [2, n, 128] workspace (rnd(d_t1), rnd(d_t2)),
+// null for float32. blocks: the card's SMs. bf16: x, res, g, dx, dres and
+// dt 16-byte aligned.
 extern "C" int row_tail2_bwd(const void* x, const void* res, const void* g, const void* w1,
                              const void* w2, const void* gn, void* dx, void* dres, void* part,
-                             void* grads, int n, int blocks, float eps, int dtype,
+                             void* grads, void* dt, int n, int blocks, float eps, int dtype,
                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float* gv = (const float*)gn;
   float *p = (float*)part, *gr = (float*)grads;
   if (dtype == 0)
-    return launch2_bwd<float>(x, res, g, w1, w2, gv, dx, dres, p, gr, n, blocks, eps, st);
+    return launch2_bwd<float>(x, res, g, w1, w2, gv, dx, dres, p, gr, dt, n, blocks, eps, st);
   if (dtype == 1)
-    return launch2_bwd<bf16>(x, res, g, w1, w2, gv, dx, dres, p, gr, n, blocks, eps, st);
+    return launch2_bwd<bf16>(x, res, g, w1, w2, gv, dx, dres, p, gr, dt, n, blocks, eps, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -72,7 +72,8 @@ def _fwd_cuda(feat, masks, w, shifts):
     """The `band_conv_fwd` kernel; the same output as `band_conv_plain`."""
     _check(feat, masks, w, shifts)
     masks = _mask_bytes(masks)
-    w = cuda.param(w, w.dtype)
+    # The bf16 kernel copies feat rows and the weights by 16-byte cp.async.
+    feat, w = (cuda.param(t, t.dtype) for t in (feat, w))
     code = cuda.check_cuda("band_conv", feat, masks, w)
     out = torch.empty_like(feat)
     sh = _shift_array(shifts)

@@ -206,20 +206,29 @@ def _fwd2_cuda(x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b, eps):
 
 
 def row_tail2_bwd_cuda(x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b, g, eps: float = 1e-5):
-    """The `row_tail2_bwd` kernel; the same outputs as `row_tail2_bwd_plain`."""
+    """The `row_tail2_bwd` kernel; the same outputs as `row_tail2_bwd_plain`.
+
+    In bf16 it runs two passes: the chain pass writes rnd(d_t1) and
+    rnd(d_t2) to a [2, N, 128] bf16 workspace (2·N·512 bytes, freed on
+    return), which the weight-gradient pass reads beside x. The row tensors
+    go in 16-byte aligned (the bf16 passes copy them by cp.async)."""
     w1, w2, gn = _check2(x, res, w1, w2, (g1w, g1b, g2w, g2b, g3w, g3b))
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"row_tail: cotangent {g.shape} {g.dtype} for x {x.shape} {x.dtype}")
+    x, res, g = (cuda.param(t, t.dtype) for t in (x, res, g))
     code = cuda.check_cuda("row_tail", x, res, g, w1, w2, gn)
     blocks = cuda.num_sms(x.device)
+    n = x.shape[0]
     dx, dres = torch.empty_like(x), torch.empty_like(x)
     part = torch.empty(blocks * PART2, dtype=torch.float32, device=x.device)
     grads = torch.empty(PART2, dtype=torch.float32, device=x.device)
+    dt = torch.empty(2, n, C, dtype=x.dtype, device=x.device) if x.dtype == torch.bfloat16 else None
     cuda.call(
         "row_tail", "row_tail2_bwd",
         cuda.ptr(x), cuda.ptr(res), cuda.ptr(g), cuda.ptr(w1), cuda.ptr(w2), cuda.ptr(gn),
-        cuda.ptr(dx), cuda.ptr(dres), cuda.ptr(part), cuda.ptr(grads), ctypes.c_int(x.shape[0]),
-        ctypes.c_int(blocks), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+        cuda.ptr(dx), cuda.ptr(dres), cuda.ptr(part), cuda.ptr(grads), cuda.ptr(dt),
+        ctypes.c_int(n), ctypes.c_int(blocks), ctypes.c_float(eps), ctypes.c_int(code),
+        cuda.stream(),
     )
     dgn = grads[2 * C * C:].view(6, C)
     return (dx, dres, grads[:C * C].view(C, C), grads[C * C:2 * C * C].view(C, C),

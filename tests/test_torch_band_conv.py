@@ -144,6 +144,73 @@ def test_band_conv_bwd_plain_rounds_the_cotangent_to_feat_dtype():
 # --- the LaneConv stack and LaneGCN with pallas_bands="off" -------------------
 
 
+# The bf16 forward kernel's blocks (csrc/band_conv.cu band_conv_tc_kernel on
+# lane_band.cuh band_fwd_tc): BLOCK rows a block, three warpgroups of
+# BLOCK // 3, and the block's rows with a ±HALO-row halo of feat.
+BLOCK, BLOCK_WGS, HALO = 192, 3, 32
+
+
+def _band_conv_blocks(feat, masks, w, shifts):
+    """band_conv_plain's arithmetic in the bf16 forward kernel's schedule:
+    per block its halo tile (zeros outside [0, N)) and its rows' masks (zero
+    past N); per warpgroup one fp32 accumulator from zero, the relations in
+    order, a relation none of the warpgroup's rows has skipped; the rows
+    below N rounded once to feat's dtype. Returns the output and the
+    (block, warpgroup, relation) products run."""
+    n, c = feat.shape
+    rows = BLOCK // BLOCK_WGS
+    f, m = feat.float(), masks.float()
+    out = torch.empty(n, c, dtype=feat.dtype)
+    ran = []
+    for b, b0 in enumerate(range(0, n, BLOCK)):
+        halo = torch.zeros(BLOCK + 2 * HALO, c)
+        lo, hi = max(b0 - HALO, 0), min(b0 + BLOCK + HALO, n)
+        halo[lo - (b0 - HALO):hi - (b0 - HALO)] = f[lo:hi]
+        mb = torch.zeros(len(shifts), BLOCK)
+        mb[:, :min(BLOCK, n - b0)] = m[:, b0:b0 + BLOCK]
+        for wg in range(BLOCK_WGS):
+            r0 = wg * rows
+            acc = torch.zeros(rows, c)
+            for j, s in enumerate(shifts):
+                mj = mb[j, r0:r0 + rows]
+                if not bool(mj.any()):
+                    continue
+                ran.append((b, wg, j))
+                a = halo[HALO + r0 + s:HALO + r0 + s + rows] * mj[:, None]
+                acc = acc + a @ w[j].float()
+            keep = min(rows, n - (b0 + r0))
+            if keep > 0:
+                out[b0 + r0:b0 + r0 + keep] = acc[:keep].to(feat.dtype)
+    return out, ran
+
+
+@pytest.mark.parametrize("n", [1, 191, 193, 385], ids=["one-row", "block-less-1",
+                                                      "block-plus-1", "two-blocks-plus-1"])
+def test_band_conv_block_schedule_emulated_matches_plain(n):
+    """The bf16 forward kernel's blocks, halos and skipped relations through
+    the plain arithmetic, at fp32, against `band_conv_plain`: within 1e-5
+    relative (the products' sums in another order), shifts ±1 .. ±32, the
+    ±32 relations set on the 40 rows around each block edge (their sources
+    cross it), relation 3's mask all zero (no warpgroup runs it)."""
+    rng = np.random.RandomState(n)
+    j = len(SHIFTS)
+    feat = torch.from_numpy(rng.randn(n, 128).astype(np.float32))
+    masks = rng.rand(j, n) < 0.5
+    masks[3] = False
+    for k, s in enumerate(SHIFTS):
+        if abs(s) == 32:
+            for edge in range(BLOCK, n + BLOCK, BLOCK):
+                masks[k, max(edge - 20, 0):min(edge + 20, n)] = True
+    masks = torch.from_numpy(masks)
+    w = torch.from_numpy((rng.randn(j, 128, 128) / np.sqrt(128)).astype(np.float32))
+    want = band_conv_plain(feat, masks, w, SHIFTS)
+    got, ran = _band_conv_blocks(feat, masks, w, SHIFTS)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+    assert not any(jj == 3 for _, _, jj in ran)
+    assert {jj for _, _, jj in ran} == {jj for jj in range(j) if bool(masks[jj].any())}
+
+
 @pytest.fixture(scope="module")
 def world():
     """Both JAX-built packs and one JAX LaneGCN init (pallas_bands="off"),

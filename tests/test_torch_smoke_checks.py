@@ -101,3 +101,42 @@ def test_float32_excuses_no_source_row():
     r, _, out_f = _relu_tie(a, eu, ev)
     rows, how = cs.tie_rows("win_edge_bwd", "float32", _with_row(out_p, out_f, r), out_p, a)
     assert rows.numel() == 0 and how == {}
+
+
+def test_cut_helpers_make_band_conv_and_row_tail2_bwd_cases():
+    """`lane_case_calls` cuts band_conv's largest captured forward call (not
+    a smaller one) to LANE_ROWS and to LANE_ZERO_REL_ROWS with relation 0's
+    band mask, its argument 1, all zero, and leaves the capture as it was;
+    `ragged_calls` cuts row_tail2_bwd's largest captured call to its
+    RAGGED_EXTRA_ROWS and to RAGGED_ROWS, x, res and the cotangent with it,
+    the weights and the GN vectors as they were."""
+    shifts = (-1, 1, -32, 32)
+    n, j = 500, len(shifts)
+    feat, w = torch.randn(n, C), torch.randn(j, C, C)
+    masks = torch.ones(j, n, dtype=torch.bool)
+    big = [feat, masks, w, shifts]
+    small = cs.cut_rows(big, 300)
+    cases, counts = cs.lane_case_calls({cs.shape_key(big): big, cs.shape_key(small): small},
+                                       "band_conv")
+    assert sorted(a[0].shape[0] for a in cases.values()) == sorted(
+        cs.LANE_ROWS + (cs.LANE_ZERO_REL_ROWS,))
+    for a in cases.values():
+        rows = a[0].shape[0]
+        assert torch.equal(a[0], feat[:rows]) and a[1].shape == (j, rows)
+        assert a[2] is w and a[3] == shifts
+        assert bool(a[1][0].any()) == (rows != cs.LANE_ZERO_REL_ROWS) and bool(a[1][1:].all())
+    assert bool(masks.all()) and set(counts.values()) == {0}
+
+    n = 30000
+    x, res, g = torch.randn(n, C), torch.randn(n, C), torch.randn(n, C)
+    w1, w2 = torch.randn(C, C), torch.randn(C, C)
+    gns = [torch.randn(C) for _ in range(6)]
+    args = [x, res, w1, w2, *gns, g]
+    cut = cs.ragged_calls({"row_tail2_bwd": {cs.shape_key(args): args}})["row_tail2_bwd"]
+    want = cs.RAGGED_EXTRA_ROWS["row_tail2_bwd"] + cs.RAGGED_ROWS
+    assert sorted(a[0].shape[0] for a in cut.values()) == sorted(want)
+    assert {1, 63, 65, 127, 129} <= set(want) and "row_tail2_bwd" in cs.RAGGED_BWD
+    for a in cut.values():
+        rows = a[0].shape[0]
+        assert all(torch.equal(a[i], args[i][:rows]) for i in (0, 1, 10))
+        assert all(a[i] is args[i] for i in range(2, 10))
