@@ -20,10 +20,13 @@ backwards) of the windowed, LaneRCNN and flat geometries; scenario_agg
 and its backward on the windowed and LaneRCNN geometries, the other tree
 through its own wrappers (`OWN_WRAPPERS`: the C interfaces differ), with
 the time of this checkout's plan preparation beside (`new_prep_ms`); the
-win_edge forward and backward likewise (their C interfaces changed: the
-other tree's through its own wrappers, and for the backward this
-checkout's pair-plan preparation timed beside, `new_prep_ms`, the call
-itself handed the preparation the train step made, as a fusion stage hands
+lane_plan forward and backward likewise (the other tree's ops/lane_layer.py
+loaded with that tree's ops/scenario_agg.py, `WRAPPER_MODULES`,
+`OLD_IMPORTS`; this checkout's calls handed the preparation the model
+made, its time beside); the win_edge forward and backward likewise (their
+C interfaces changed: the other tree's through its own wrappers, and for
+the backward this checkout's pair-plan preparation timed beside,
+`new_prep_ms`, the call itself handed the preparation the train step made, as a fusion stage hands
 it to its Att layers); the pair_agg forward and backward likewise (the
 spill plan's `prepare_spill` timed beside, forward-only for the forward,
 the call handed the one a LaneGCN forward made); row_tail's forward and
@@ -78,11 +81,18 @@ TARGETS = {"win_edge": (("windowed", "win_edge"),),
 # arguments)}}.
 OWN_WRAPPERS = {"scenario_agg": {"scenario_agg": ("scenario_aggregate", 8),
                                  "scenario_agg_bwd": ("scenario_agg_bwd_cuda", 8)},
+                "lane_plan": {"lane_plan": ("fused_lane_layer_plan", 17),
+                              "lane_plan_bwd": ("lane_plan_bwd_cuda", 18)},
                 "win_edge": {"win_edge": ("win_edge_mlp", 14),
                              "win_edge_bwd": ("win_edge_bwd_cuda", 14)},
                 "pair_agg": {"pair_agg": ("pair_aggregate", 4),
                              "pair_agg_bwd": ("pair_agg_bwd_cuda", 4)},
                 "row_tail": {"row_tail2_bwd": ("row_tail2_bwd_cuda", 11)}}
+# Wrapper modules named other than their kernel library (ops/<module>.py),
+# and the other tree's modules that its wrapper module imports in place of
+# this checkout's (names it takes from them are gone here).
+WRAPPER_MODULES = {"lane_plan": "lane_layer"}
+OLD_IMPORTS = {"lane_plan": ("scenario_agg",)}
 
 
 def build_old(old_root: Path, name: str):
@@ -109,12 +119,29 @@ def old_wrappers(old_root: Path, name: str):
     shared."""
     import importlib.util
 
-    src = old_root / "lanegcn_tpu_torch" / "ops" / f"{name}.py"
+    ops = old_root / "lanegcn_tpu_torch" / "ops"
+    src = ops / f"{WRAPPER_MODULES.get(name, name)}.py"
     if name not in OWN_WRAPPERS or not src.exists():
         return {}
-    spec = importlib.util.spec_from_file_location(f"ab_old_{name}", src)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+
+    def load(path, as_name):
+        spec = importlib.util.spec_from_file_location(as_name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    deps = {f"lanegcn_tpu_torch.ops.{d}": load(ops / f"{d}.py", f"ab_old_{d}")
+            for d in OLD_IMPORTS.get(name, ())}
+    saved = {k: sys.modules.get(k) for k in deps}
+    sys.modules.update(deps)
+    try:
+        mod = load(src, f"ab_old_{name}")
+    finally:
+        for k, m in saved.items():
+            if m is None:
+                del sys.modules[k]
+            else:
+                sys.modules[k] = m
     return {k: (lambda *a, _f=getattr(mod, attr), _n=n: _f(*a[:_n]))
             for k, (attr, n) in OWN_WRAPPERS[name].items()}
 
@@ -181,13 +208,12 @@ def host_ms(fn, runs: int = 25) -> float:
     return statistics.median(times)
 
 
-def prep_ms(a) -> float:
-    """CUDA-event time of this checkout's plan preparation for scenario_agg's
-    captured forward call `a` (with the backward's source order), which a
-    LaneConv stack makes once for its layers and their backwards."""
+def prep_ms(feat, w_rel, lu, lv, rel, num_win, groups) -> float:
+    """CUDA-event time of this checkout's plan preparation (with the
+    backward's source order) for a captured scenario_agg or lane_plan call,
+    which a LaneConv stack makes once for its layers and their backwards."""
     from lanegcn_tpu_torch.ops import scenario_agg
 
-    feat, _, w_rel, lu, lv, rel, num_win, groups = a[:8]
     return cs.time_ms(lambda: scenario_agg.prepare_plan(
         lu, lv, rel, num_win, feat.shape[0] // num_win, groups, w_rel.shape[0]))
 
@@ -290,7 +316,9 @@ def main() -> None:
                     res["with_out"] = len(a) > 3 and a[3] is not None
                 fns = {v: old_fns[name].get(kname, fn) if v == "old" else fn for v in versions}
                 if name == "scenario_agg" and kname == "scenario_agg":
-                    res["new_prep_ms"] = prep_ms(a)
+                    res["new_prep_ms"] = prep_ms(a[0], a[2], *a[3:8])
+                if kname == "lane_plan":  # the call is handed the model's preparation
+                    res["new_prep_ms"] = prep_ms(a[0], a[9], *a[10:14], a[15])
                 if kname == "win_edge_bwd":
                     res["new_prep_ms"] = pair_prep_ms(a)
                 if kname == "pair_agg":

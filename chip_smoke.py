@@ -76,7 +76,10 @@ and exits non-zero:
           `TAIL_ROWS`: 1, 63, 65 and 12,345 rows) and edge_mlp_pool (and
           `POOL_ROWS`: 1, 63, 65 and 12,345 rows, and an all-padding call,
           whose rows must all equal row 0);
-          merged: lane_plan and row_tail; unfused: band_conv (and
+          merged: lane_plan (and `PLAN_CASES`, each with random band masks
+          over ±1 .. ±32 shifts and tail weights, `PLAN_SHIFTS`: windows of
+          256, 512, 768 and 1,024 rows, which its bf16 kernel's 192-row
+          blocks straddle) and row_tail; unfused: band_conv (and
           `LANE_ROWS`' cuts of its largest call, around the bf16 kernel's
           192-row blocks, and 385 rows with relation 0's band mask all
           zero) and row_tail (the LaneConv tails at N rows beside Att's); flat:
@@ -88,8 +91,8 @@ and exits non-zero:
           beside one `index_select` call, row_tail2_bwd, edge_mlp_pool_bwd
           with `POOL_ROWS` and the all-padding call, whose outputs must all
           be zero;
-          merged: lane_plan_bwd; unfused: band_conv_bwd; windowed:
-          scenario_agg_bwd on `PLAN_CASES` too, and win_edge_bwd on
+          merged: lane_plan_bwd (and `PLAN_CASES`); unfused: band_conv_bwd;
+          windowed: scenario_agg_bwd on `PLAN_CASES` too, and win_edge_bwd on
           `WIN_CASES`; bench: pair_agg_bwd on `SPILL_CASES` too), and
           lane_layer_bwd, band_conv_bwd, row_tail_bwd and row_tail2_bwd
           again on their largest call cut to 1,000 and 20,000 rows
@@ -491,7 +494,10 @@ def forward_ops(names):
     ops = {
         "lane_layer": (lane_layer.fused_lane_layer, lane_layer.lane_layer_plain),
         "band_conv": (band_conv.band_conv, band_conv.band_conv_plain),
-        "lane_plan": (lane_layer.fused_lane_layer_plan, lane_layer.lane_plan_plain),
+        # The model hands the layer eps and its prepared plan (arguments 16
+        # and 17); the plain version works from the plan itself.
+        "lane_plan": (lane_layer.fused_lane_layer_plan,
+                      lambda *a: lane_layer.lane_plan_plain(*a[:17])),
         "segment_sum": (segment_sum.sorted_segment_sum, segment_sum.segment_sum_plain),
         "scenario_agg": (scenario_agg.scenario_aggregate, scenario_agg.scenario_agg_plain),
         "win_edge": (win_edge.win_edge_mlp, win_edge.win_edge_plain),
@@ -544,7 +550,8 @@ def backward_ops(names):
     ops = {
         "lane_layer": (lane_layer.lane_layer_bwd_cuda, lane_layer.lane_layer_bwd_plain),
         "band_conv": (band_conv.band_conv_bwd_cuda, band_conv.band_conv_bwd_plain),
-        "lane_plan": (lane_layer.lane_plan_bwd_cuda, lane_layer.lane_plan_bwd_plain),
+        "lane_plan": (lane_layer.lane_plan_bwd_cuda,
+                      lambda *a: lane_layer.lane_plan_bwd_plain(*a[:18])),
         "scenario_agg": (scenario_agg.scenario_agg_bwd_cuda,
                          scenario_agg.scenario_agg_bwd_plain),
         "win_edge": (win_edge.win_edge_bwd_cuda, win_edge.win_edge_bwd_plain),
@@ -842,19 +849,54 @@ def check_temp(name, a, out):
     """The forward kernel's saved fp32 temp (lane_layer, lane_plan), which
     its backward consumes, against the plain temp under the float32
     tolerances in both dtypes (both sum products of the same dtype-valued
-    operands in fp32; only the order differs), and the out of that launch
-    bitwise equal to the eval path's `out`."""
+    operands in fp32; only the order differs; lane_plan's bf16 plan
+    messages up to their rounding ties, `plan_temp_ref`), and the out of
+    that launch bitwise equal to the eval path's `out`."""
     import torch
     from lanegcn_tpu_torch.ops import lane_layer
 
+    moved = 0
     if name == "lane_layer":
         out_t, temp = lane_layer._fwd_cuda(*a[:10], 1e-5, save_temp=True)
         plain = lane_layer._temp_plain(a[0], a[1], a[2], a[3], a[9])
     else:
-        out_t, temp = lane_layer._plan_fwd_cuda(*a[:16], 1e-5, save_temp=True)
+        eps, prep = (a[16], a[17]) if len(a) > 16 else (1e-5, None)
+        out_t, temp = lane_layer._plan_fwd_cuda(*a[:16], eps, prep, save_temp=True)
         plain = lane_layer._plan_temp_plain(a[0], a[1], a[2], a[3], a[14], *a[9:14], a[15])
+        if a[0].dtype == torch.bfloat16:
+            plain, moved = plan_temp_ref(a, temp, plain)
     check(torch.equal(out_t, out), f"{name}: out with save_temp differs from out without")
-    return compare(f"{name} temp", "float32", temp, plain)
+    return {**compare(f"{name} temp", "float32", temp, plain), "rounding_tie_elements": moved}
+
+
+def plan_temp_ref(a, temp, plain):
+    """lane_plan's bf16 temp reference. Each plan message is the bf16
+    rounding of an fp32 product that the kernel (wgmma) and the plain
+    version (cuBLAS) sum in other orders, so where that product lies within
+    ROUND_EPS of a bf16 ulp of the midpoint between its two bf16 neighbours
+    the two may round it to opposite sides: one ulp of that message apart
+    in temp, which the float32 tolerance does not cover. The reference is
+    the plain temp moved toward the kernel's, per element, by at most the
+    sum of such flips of its row's messages (none elsewhere); every other
+    difference is held to the float32 tolerance as before. Returns (the
+    reference, the elements where the plain temp itself misses the float32
+    tolerance)."""
+    import torch
+    from lanegcn_tpu_torch.ops import lane_layer
+    from lanegcn_tpu_torch.ops.scenario_agg import _per_relation
+
+    feat, w_rel = a[0], a[9]
+    u, v, counts = lane_layer._plan_rows(feat, w_rel, *a[10:14], a[15])
+    x = _per_relation(feat[v].float(), w_rel, counts)
+    y = x.to(feat.dtype).float()
+    o = bf16_other(y, x)
+    near = (x - (y + o) / 2).abs() <= ROUND_EPS * (y - o).abs()
+    step = torch.where(near, o - y, torch.zeros_like(x))
+    lo = plain.index_add(0, u, step.clamp(max=0))
+    hi = plain.index_add(0, u, step.clamp(min=0))
+    ref = torch.minimum(torch.maximum(temp, lo), hi)
+    tol = TOL["float32"] * (plain.square().mean().sqrt() + plain.abs())
+    return ref, int(((temp - plain).abs() > tol).sum())
 
 
 def kernel_phase(phase, geom, ops, calls, counts):
@@ -1335,6 +1377,10 @@ def drive(geom):
         calls, counts = lane_case_calls(cap.calls["band_conv"], "band_conv")
         cap.calls["band_conv"].update(calls)
         cap.counts["band_conv"].update(counts)
+    if geom == "merged":
+        calls, counts, _ = plan_case_calls(backward=False, layer=True)
+        cap.calls["lane_plan"].update(calls)
+        cap.counts["lane_plan"].update(counts)
     results = kernel_phase("kernel", geom, forward_ops(spec["kernels"]), cap.calls, cap.counts)
     del cap
 
@@ -1447,33 +1493,67 @@ PLAN_CASES = (
 )
 
 
-def plan_case_calls(backward: bool):
-    """{shapes: args} and {shapes: 0} of PLAN_CASES, bf16 on the card
-    (kernel_phase casts them to fp32 too), as scenario_agg's forward
-    (feat, temp, w_rel, lu, lv, rel, windows, groups) or backward launcher
-    (feat, w_rel, lu, lv, rel, windows, groups, g) takes them; and the key
-    of the empty plan."""
+# lane_plan's band shifts in its PLAN_CASES calls: ±1 .. ±32 (the model's
+# dilations), so that the band products reach the ±32-row halo.
+PLAN_SHIFTS = tuple(s for k in range(6) for s in (-(1 << k), 1 << k))
+
+
+def plan_case_calls(backward: bool, layer: bool = False, dev: str = "cuda"):
+    """{shapes: args} and {shapes: 0} of PLAN_CASES, bf16 on `dev`
+    (kernel_phase casts them to fp32 too), as scenario_agg's forward (feat,
+    temp, w_rel, lu, lv, rel, windows, groups) or backward launcher (feat,
+    w_rel, lu, lv, rel, windows, groups, g) takes them, or with `layer` as
+    lane_plan's (`plan_layer_args`); and the key of the empty plan."""
     import torch
 
-    rng = np.random.default_rng(13)
+    rng, layer_rng = np.random.default_rng(13), np.random.default_rng(17)
     calls, counts, empty = {}, {}, None
     bf = lambda *shape, scale=1.0: torch.as_tensor(rng.normal(size=shape) * scale,
-                                                   dtype=torch.bfloat16, device="cuda")
+                                                   dtype=torch.bfloat16, device=dev)
+
     for name, num_win, stride, ecap, grouped, fill in PLAN_CASES:
         lu = np.full((num_win, ecap), -1, np.int32)
         lv, rel = lu.copy(), lu.copy()
         fill(rng, lu, lv, rel, stride)
-        plan = [torch.as_tensor(x.reshape(-1, 1), device="cuda") for x in (lu, lv, rel)]
+        plan = [torch.as_tensor(x.reshape(-1, 1), device=dev) for x in (lu, lv, rel)]
         groups = (tuple(range(12, 14)), tuple(range(12))) if grouped else None
         n = num_win * stride
         feat, w_rel = bf(n, 128), bf(14, 128, 128, scale=128 ** -0.5)
         args = ([feat, w_rel, *plan, num_win, groups, bf(n, 128)] if backward
                 else [feat, bf(n, 128), w_rel, *plan, num_win, groups])
+        if layer:  # the same plans; the layer's other inputs from a generator of their own
+            args = plan_layer_args(layer_rng, feat, w_rel, plan, num_win, groups, backward)
         key = tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
         calls[key], counts[key] = args, 0
         if name == "empty":
             empty = key
     return calls, counts, empty
+
+
+def plan_layer_args(rng, feat, w_rel, plan, num_win, groups, backward):
+    """lane_plan's arguments on one plan case: random band masks (half the
+    rows) over PLAN_SHIFTS, band and tail weights and GN vectors; forward
+    (feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, rel,
+    windows, shifts, groups) or backward launcher (feat, temp, masks, wb, w2,
+    the GN vectors, w_rel, lu, lv, rel, windows, groups, g, shifts), temp
+    the plain forward's fp32 temp on the forward case's inputs."""
+    import torch
+    from lanegcn_tpu_torch.ops import lane_layer
+
+    n, j, dev = feat.shape[0], len(PLAN_SHIFTS), feat.device
+    bf = lambda *shape, scale=1.0: torch.as_tensor(rng.normal(size=shape) * scale,
+                                                   dtype=torch.bfloat16, device=dev)
+    masks = torch.as_tensor(rng.random((j, n)) < 0.5, device=dev)
+    wb, w2 = bf(j, 128, 128, scale=128 ** -0.5), bf(128, 128, scale=128 ** -0.5)
+    gns = [torch.as_tensor(1.0 + 0.1 * rng.normal(size=128) if k % 2 == 0
+                           else 0.1 * rng.normal(size=128), dtype=torch.float32,
+                           device=dev) for k in range(4)]
+    pre, g = bf(n, 128), bf(n, 128)  # both drawn either way: the cases match
+    if not backward:
+        return [feat, pre, masks, wb, w2, *gns, w_rel, *plan, num_win, PLAN_SHIFTS, groups]
+    temp = lane_layer._plan_temp_plain(feat, pre, masks, wb, PLAN_SHIFTS, w_rel, *plan, num_win,
+                                       groups)
+    return [feat, temp, masks, wb, w2, *gns, w_rel, *plan, num_win, groups, g, PLAN_SHIFTS]
 
 
 def check_empty_plan(fwd_args):
@@ -1805,6 +1885,10 @@ def step_kernel_phases(geom, cap):
         calls, counts, _ = spill_case_calls(backward=True)
         cap.calls["pair_agg_bwd"].update(calls)
         cap.counts["pair_agg_bwd"].update(counts)
+    if geom == "merged":
+        calls, counts, _ = plan_case_calls(backward=True, layer=True)
+        cap.calls["lane_plan_bwd"].update(calls)
+        cap.counts["lane_plan_bwd"].update(counts)
     pool_pad = add_pool_cases("edge_mlp_pool_bwd", cap) if geom == "lanercnn" else None
     results = kernel_phase("kernel_bwd", geom, backward_ops(spec["kernels"]), cap.calls,
                            cap.counts)

@@ -19,23 +19,32 @@
 // products per masked row, ~57 GFLOP a pass at the 256-scenario pack,
 // against ~160-320 MB moved), so they belong on the tensor cores.
 //
-// band_fwd / layer_tail (the forward on 64-row tiles), lane_plan.cu's
-// band_t inside its plan tile, and every fp32 instantiation run the
-// products on CUDA cores in fp32 (mm_64x128 / mm_tn): the fp32 path is what
-// the parity checks hold to the CPU, and wgmma has no fp32 operands. The
-// bf16 backward passes run on wgmma (common.cuh `tc`): band_t_tc_kernel
-// (dx, 192-row blocks of three warpgroups, A through registers at the
-// shifted rows, fp32 d_temp split into bf16 hi + lo) and band_dw_tc_kernel
-// (dWb, both operands MN-major from a cp.async ring of shared core tiles);
-// tail_bwd.cuh's row pass likewise. The bf16 band products of lane_layer.cu
-// (lane_layer_tc_kernel) and band_conv.cu (band_conv_tc_kernel) run
+// band_fwd / layer_tail / band_t (64-row tiles) run the products on CUDA
+// cores in fp32 (mm_64x128 / mm_tn) and serve only the fp32
+// instantiations: the fp32 path is what the parity checks hold to the CPU,
+// and wgmma has no fp32 operands. Every bf16 product runs on wgmma
+// (common.cuh `tc`): band_t_tc_kernel (dx, 192-row blocks of three
+// warpgroups, A through registers at the shifted rows, fp32 d_temp split
+// into bf16 hi + lo), band_dw_tc_kernel (dWb, both operands MN-major from a
+// cp.async ring of shared core tiles) and tail_bwd.cuh's row pass; the bf16
+// forwards of lane_layer.cu (lane_layer_tc_kernel), lane_plan.cu
+// (lane_plan_tc_kernel) and band_conv.cu (band_conv_tc_kernel) run
 // band_fwd_tc, which mirrors band_t_tc_kernel with its 192-row blocks, halo
-// tile and weight buffers (DX_*, prefetch_weight). The bf16 forward of
-// lane_plan.cu still runs band_fwd and layer_tail on CUDA cores: moving it
-// onto the same products is queued.
+// tile and weight buffers (DX_*, prefetch_weight), and the two layer
+// kernels end in layer_tail_tc (tail_fwd.cuh's chain in registers).
+//
+// lane_plan.cu adds the window plan's messages into these sums: a
+// [slots, 128] workspace holds each plan edge's rounded message at its
+// position in destination (forward) or source (backward) order, and a
+// block adds its rows' runs of positions (segment_sum.cuh `run_table` over
+// the sorted segment keys) in position order, into the accumulators before
+// the tail (add_runs_tc, add_runs_mm) or before dx is stored (the PLAN
+// instantiations of band_t_kernel and band_t_tc_kernel).
 #pragma once
 
+#include "segment_sum.cuh"
 #include "tail_bwd.cuh"
+#include "tail_fwd.cuh"
 
 namespace lgk {
 
@@ -80,6 +89,29 @@ __device__ __forceinline__ void store_rows(T* dst, const float acc[4][8], long t
     if (g < n) {
       store4<T>(dst + g * C + mm_col(0), make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
       store4<T>(dst + g * C + mm_col(4), make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
+    }
+  }
+}
+
+// acc[i] (the tile's row mm_row(i), the 64 x 128 product layout) += the
+// fp32 rows [blo + lo_s[r], blo + hi_s[r]) of msg [slots, 128], in order (a
+// block's run table, segment_sum.cuh `run_table`).
+__device__ __forceinline__ void add_runs_mm(float acc[4][8], const float* msg, long blo,
+                                            const int* lo_s, const int* hi_s) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = mm_row(i);
+    for (long p = blo + lo_s[r]; p < blo + hi_s[r]; ++p) {
+      const float4 a = load4<float>(msg + p * C + mm_col(0));
+      const float4 b = load4<float>(msg + p * C + mm_col(4));
+      acc[i][0] += a.x;
+      acc[i][1] += a.y;
+      acc[i][2] += a.z;
+      acc[i][3] += a.w;
+      acc[i][4] += b.x;
+      acc[i][5] += b.y;
+      acc[i][6] += b.z;
+      acc[i][7] += b.w;
     }
   }
 }
@@ -182,12 +214,15 @@ __device__ __forceinline__ void band_t(const float* D_s, float* W_s, const float
 // Band pass: dx[p] = d_y[p] + Σ_j band_j[p − s_j] · d_temp[p − s_j] @ Wb_jᵀ
 // (rows p − s_j outside [0, n) give 0), stored in T. A block owns 64 rows p
 // and loads the d_temp rows p − HALO .. p + TM + HALO − 1 once for all J
-// products.
-template <typename T, typename D>
+// products. PLAN (lane_plan.cu, fp32): dx[p] also adds p's run of the plan's
+// transposed messages pm [slots, 128], which sit at the positions whose
+// source key pseg is p, in position order.
+template <typename T, typename D, bool PLAN = false>
 __global__ void __launch_bounds__(NT)
 band_t_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
               const uint8_t* __restrict__ masks, const T* __restrict__ wb, T* __restrict__ dx,
-              int n, int nj, Shifts sh) {
+              int n, int nj, Shifts sh, const T* __restrict__ pm,
+              const long long* __restrict__ pseg, long slots) {
   extern __shared__ float4 smem4[];
   float* D_s = reinterpret_cast<float*>(smem4);  // [TM + 2*HALO][LDA]
   float* W_s = D_s + HALO_TILE;                  // [C][C] Wb_jᵀ
@@ -196,6 +231,13 @@ band_t_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
   load_halo<D>(D_s, dtemp, tile0, n);
   float acc[4][8];
   band_t<T>(D_s, W_s, dy, masks, wb, tile0, n, nj, sh, acc);
+  if constexpr (PLAN) {
+    static_assert(std::is_same<T, float>::value, "bf16 runs band_t_tc_kernel");
+    __shared__ int lo_s[TM], hi_s[TM];
+    __shared__ long blk_s[2];
+    seg::run_table<TM>(pseg, slots, tile0, (int)min((long)TM, n - tile0), lo_s, hi_s, blk_s);
+    add_runs_mm(acc, pm, blk_s[0], lo_s, hi_s);
+  }
   store_rows<T>(dx, acc, tile0, n);
 }
 
@@ -341,11 +383,94 @@ __device__ __forceinline__ void band_fwd_tc(float (&acc)[64], bf16* X_s, uint8_t
   if (!after) cp_async_wait<0>();  // without relations: the halo's group
 }
 
-template <typename D>
+// The bf16 layer kernels' shared memory (lane_layer_tc_kernel,
+// lane_plan_tc_kernel): the feat halo tile of band_t_tc_kernel's shape (rows
+// u − HALO .. u + DX_ROWS + HALO − 1, stride DX_HLD), two weight buffers,
+// the GN vectors and the band masks of the block's own rows (the forward
+// masks by band_j[u]; the dx pass by band_j[p − s_j]).
+inline int layer_tc_smem() {
+  return DX_HROWS * DX_HLD * (int)sizeof(bf16) + 2 * tc::tiles_bytes(C) +
+         4 * C * (int)sizeof(float) + MAXJ * DX_ROWS;
+}
+
+// gn_s = g1w, g1b, g2w, g2b (4 x C fp32).
+__device__ __forceinline__ void load_gn(float* gn_s, const float* g1w, const float* g1b,
+                                        const float* g2w, const float* g2b) {
+  for (int i = threadIdx.x; i < 4 * C; i += blockDim.x) {
+    const float* v = i < C ? g1w : i < 2 * C ? g1b : i < 3 * C ? g2w : g2b;
+    gn_s[i] = v[i & (C - 1)];
+  }
+}
+
+// acc (warpgroup rows r0 .. r0 + 63 of the block, the m64n128 accumulator
+// layout) += the bf16 rows [blo + lo_s[r], blo + hi_s[r]) of msg [slots,
+// 128] of each of the thread's two rows r, in order: a quad of lanes reads a
+// row's 16-byte column slices, each thread the two columns it holds.
+__device__ __forceinline__ void add_runs_tc(float (&acc)[64], const bf16* msg, long blo,
+                                            const int* lo_s, const int* hi_s, int r0) {
+  const int c0 = tc::acc_col(0);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + tc::acc_row(2 * h);
+    for (long p = blo + lo_s[r]; p < blo + hi_s[r]; ++p) {
+      const __nv_bfloat162* m = reinterpret_cast<const __nv_bfloat162*>(msg + p * C + c0);
+      float2 v[C / 8];
+#pragma unroll
+      for (int k = 0; k < C / 8; ++k) v[k] = __bfloat1622float2(m[4 * k]);
+#pragma unroll
+      for (int k = 0; k < C / 8; ++k) {
+        acc[4 * k + 2 * h] += v[k].x;
+        acc[4 * k + 2 * h + 1] += v[k].y;
+      }
+    }
+  }
+}
+
+// The tail of the bf16 layer kernels on warpgroup wg's 64 rows, acc holding
+// temp and W2 landed in weight buffer nj & 1 (band_fwd_tc's `after`):
+// temp_out ← temp when given (fp32, bitwise what the tail consumes), then
+// h = rnd(relu(GN1(temp))) as the A fragments of z = h @ W2 in the registers
+// it was computed in, and out = relu(GN2(z) + feat), the residual from the
+// halo tile (tail_fwd.cuh).
+__device__ __forceinline__ void layer_tail_tc(float (&acc)[64], const bf16* X_s,
+                                              const uint8_t* W_b, const float* gn_s,
+                                              bf16* out, float* temp_out, long tile0, int n,
+                                              int nj, float eps) {
+  const int r0 = 64 * (threadIdx.x >> 7);
+  if (temp_out) {
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const long gr = tile0 + r0 + tc::acc_row(i);
+      if (gr < n)
+        *reinterpret_cast<float2*>(temp_out + gr * C + tc::acc_col(i)) =
+            make_float2(acc[i], acc[i + 1]);
+    }
+  }
+  uint32_t ha[C / 16][4];
+  tail::gn_relu_frags(acc, gn_s, gn_s + C, eps, ha);
+  tail::frag_mm(acc, ha, tc::tiles(W_b + (nj & 1) * tc::tiles_bytes(C), C));
+  tail::gn_res_relu(
+      acc, gn_s + 2 * C, gn_s + 3 * C, eps,
+      [&](int r, int c) {
+        return __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(X_s + (HALO + r0 + r) * DX_HLD + c));
+      },
+      [&](int r, int c, float y0, float y1) {
+        const long gr = tile0 + r0 + r;
+        if (gr < n)
+          *reinterpret_cast<__nv_bfloat162*>(out + gr * C + c) = __floats2bfloat162_rn(y0, y1);
+      });
+}
+
+// PLAN (lane_plan.cu): dx[p] also adds p's run of the plan's transposed
+// messages pm [slots, 128] (bf16, each rounded as written), at the
+// positions whose source key pseg is p, in position order, before the store.
+template <typename D, bool PLAN = false>
 __global__ void __launch_bounds__(DX_THREADS, 1)
 band_t_tc_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
                  const uint8_t* __restrict__ masks, const bf16* __restrict__ wb,
-                 bf16* __restrict__ dx, int n, int nj, Shifts sh) {
+                 bf16* __restrict__ dx, int n, int nj, Shifts sh, const bf16* __restrict__ pm,
+                 const long long* __restrict__ pseg, long slots) {
   constexpr bool SPLIT = std::is_same<D, float>::value;
   extern __shared__ float4 smem4[];
   bf16* Hi_s = reinterpret_cast<bf16*>(smem4);        // [DX_HROWS][DX_HLD] hi
@@ -453,6 +578,13 @@ band_t_tc_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
       tc::fence_acc(acc);
     }
   }
+  if constexpr (PLAN) {
+    __shared__ int lo_s[DX_ROWS], hi_s[DX_ROWS];
+    __shared__ long blk_s[2];
+    seg::run_table<DX_ROWS>(pseg, slots, tile0, (int)min((long)DX_ROWS, n - tile0), lo_s,
+                            hi_s, blk_s);
+    add_runs_tc(acc, pm, blk_s[0], lo_s, hi_s, 64 * wg);
+  }
 #pragma unroll
   for (int i = 0; i < 64; i += 2) {
     const long gr = tile0 + 64 * wg + tc::acc_row(i);
@@ -462,24 +594,29 @@ band_t_tc_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
   }
 }
 
-template <typename T, typename D>
+// The dx pass; with PLAN, plus the plan's transposed messages pm at the
+// positions of the sorted source keys pseg [slots].
+template <typename T, typename D, bool PLAN = false>
 int launch_band_t(const D* dtemp, const float* dy, const uint8_t* masks, const T* wb, T* dx,
-                  int n, int nj, const Shifts& sh, cudaStream_t stream) {
+                  int n, int nj, const Shifts& sh, cudaStream_t stream,
+                  const T* pm = nullptr, const long long* pseg = nullptr, long slots = 0) {
   if constexpr (std::is_same<T, bf16>::value) {
     const int smem = band_t_tc_smem<D>();
-    cudaError_t e = set_smem((const void*)band_t_tc_kernel<D>, smem);
+    cudaError_t e = set_smem((const void*)band_t_tc_kernel<D, PLAN>, smem);
     if (e != cudaSuccess) return (int)e;
     const int ntiles = (n + DX_ROWS - 1) / DX_ROWS;
     if (ntiles > 0)
-      band_t_tc_kernel<D><<<ntiles, DX_THREADS, smem, stream>>>(dtemp, dy, masks, wb, dx, n, nj,
-                                                                 sh);
+      band_t_tc_kernel<D, PLAN><<<ntiles, DX_THREADS, smem, stream>>>(dtemp, dy, masks, wb, dx,
+                                                                       n, nj, sh, pm, pseg,
+                                                                       slots);
   } else {
     const int ntiles = (n + TM - 1) / TM;
     const int smem = (HALO_TILE + C * C) * (int)sizeof(float);
-    cudaError_t e = set_smem((const void*)band_t_kernel<T, D>, smem);
+    cudaError_t e = set_smem((const void*)band_t_kernel<T, D, PLAN>, smem);
     if (e != cudaSuccess) return (int)e;
     if (ntiles > 0)
-      band_t_kernel<T, D><<<ntiles, NT, smem, stream>>>(dtemp, dy, masks, wb, dx, n, nj, sh);
+      band_t_kernel<T, D, PLAN><<<ntiles, NT, smem, stream>>>(dtemp, dy, masks, wb, dx, n, nj,
+                                                              sh, pm, pseg, slots);
   }
   return (int)cudaGetLastError();
 }

@@ -39,8 +39,10 @@
 //     (lane_band.cuh band_fwd, layer_tail; register-blocked 4 x 8 per
 //     thread); wgmma has no fp32 operands, and this path is what the parity
 //     checks hold to the CPU. lane_plan.cu runs the same band_fwd /
-//     layer_tail in both dtypes, band_conv.cu band_fwd in fp32 and the bf16
-//     band loop (lane_band.cuh band_fwd_tc) in bf16.
+//     layer_tail in fp32, and in bf16 the band loop and the tail
+//     (lane_band.cuh band_fwd_tc, layer_tail_tc) with the plan's messages
+//     added between them; band_conv.cu runs band_fwd in fp32 and
+//     band_fwd_tc in bf16.
 // The band masks stay compact ([J, N] bytes) instead of padded planes.
 //
 // Backward (`lane_layer_bwd`): replaces pallas_lane_layer.py `_bwd_kernel` /
@@ -70,7 +72,6 @@
 // splits x 12 x 64 KB rather than one [12, 128, 128] per tile; a second
 // pass sums the partials in split order (deterministic).
 #include "lane_band.cuh"
-#include "tail_fwd.cuh"
 
 using namespace lgk;
 
@@ -99,15 +100,7 @@ lane_layer_kernel(const T* __restrict__ feat, const T* __restrict__ pre,
 }
 
 // The bf16 forward on tensor cores: DX_WGS = 3 warpgroups, DX_ROWS = 192
-// rows u a block, the feat halo tile of band_t_tc_kernel's shape (rows
-// u − HALO .. u + DX_ROWS + HALO − 1, stride DX_HLD), the band masks of the
-// block's own rows (the forward masks by band_j[u]; the dx pass by
-// band_j[p − s_j]) and the GN vectors in shared memory.
-inline int lane_layer_tc_smem() {
-  return DX_HROWS * DX_HLD * (int)sizeof(bf16) + 2 * tc::tiles_bytes(C) +
-         4 * C * (int)sizeof(float) + MAXJ * DX_ROWS;
-}
-
+// rows u a block, shared memory as lane_band.cuh `layer_tc_smem` lays it out.
 __global__ void __launch_bounds__(DX_THREADS, 1)
 lane_layer_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ pre,
                      const uint8_t* __restrict__ masks, const bf16* __restrict__ wb,
@@ -121,48 +114,16 @@ lane_layer_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ pre
   float* gn_s = reinterpret_cast<float*>(W_b + 2 * tc::tiles_bytes(C));  // g1w, g1b, g2w, g2b
   uint8_t* M_s = reinterpret_cast<uint8_t*>(gn_s + 4 * C);          // [MAXJ][DX_ROWS] band_j[u]
   __shared__ uint8_t act_s[MAXJ][DX_WGS];  // relation j in warpgroup g's rows
-  constexpr int WB = tc::tiles_bytes(C);
   const long tile0 = (long)blockIdx.x * DX_ROWS;
-  const int wg = threadIdx.x >> 7;
 
-  for (int i = threadIdx.x; i < 4 * C; i += DX_THREADS) {
-    const float* v = i < C ? g1w : i < 2 * C ? g1b : i < 3 * C ? g2w : g2b;
-    gn_s[i] = v[i & (C - 1)];
-  }
+  load_gn(gn_s, g1w, g1b, g2w, g2b);
   // acc = temp = pre + the band products; W2 in flight after them.
   float acc[64];
   band_fwd_tc(acc, X_s, W_b, M_s, act_s, feat, pre, masks, wb, w2, tile0, n, nj, sh);
   cp_async_wait<0>();  // W2
   tc::fence_smem();
   __syncthreads();  // W2 (and, without relations, the halo and vectors) in place
-
-  // The tail. acc holds temp.
-  if (temp_out) {
-#pragma unroll
-    for (int i = 0; i < 64; i += 2) {
-      const long gr = tile0 + 64 * wg + tc::acc_row(i);
-      if (gr < n)
-        *reinterpret_cast<float2*>(temp_out + gr * C + tc::acc_col(i)) =
-            make_float2(acc[i], acc[i + 1]);
-    }
-  }
-  // h = rnd(relu(GN1(temp))) as the A fragments of z = h @ W2, then
-  // out = relu(GN2(z) + feat), the residual from the halo tile.
-  uint32_t ha[C / 16][4];
-  tail::gn_relu_frags(acc, gn_s, gn_s + C, eps, ha);
-  tail::frag_mm(acc, ha, tc::tiles(W_b + (nj & 1) * WB, C));
-  const int r0 = 64 * wg;
-  tail::gn_res_relu(
-      acc, gn_s + 2 * C, gn_s + 3 * C, eps,
-      [&](int r, int c) {
-        return __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(X_s + (HALO + r0 + r) * DX_HLD + c));
-      },
-      [&](int r, int c, float y0, float y1) {
-        const long gr = tile0 + r0 + r;
-        if (gr < n)
-          *reinterpret_cast<__nv_bfloat162*>(out + gr * C + c) = __floats2bfloat162_rn(y0, y1);
-      });
+  layer_tail_tc(acc, X_s, W_b, gn_s, out, temp_out, tile0, n, nj, eps);
 }
 
 template <typename T>
@@ -171,7 +132,7 @@ int launch(const void* feat, const void* pre, const uint8_t* masks, const void* 
            const float* g2b, void* out, float* temp_out, int n, int nj, const Shifts& sh,
            float eps, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    const int smem = lane_layer_tc_smem();
+    const int smem = layer_tc_smem();
     cudaError_t err = set_smem((const void*)lane_layer_tc_kernel, smem);
     if (err != cudaSuccess) return (int)err;
     const int blocks = (n + DX_ROWS - 1) / DX_ROWS;

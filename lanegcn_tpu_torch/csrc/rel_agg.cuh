@@ -1,6 +1,7 @@
 // The passes of the plan aggregations over relation-pure edge tiles, shared
-// by scenario_agg.cu (the window plan) and pair_agg.cu (the spill plan),
-// forward and backward. The wrapper prepares the plan on the device
+// by scenario_agg.cu (the window plan), pair_agg.cu (the spill plan) and
+// lane_plan.cu (the window plan inside the LaneConv layer), forward and
+// backward. The wrapper prepares the plan on the device
 // (ops/scenario_agg.py `prepare_plan`, ops/pair_agg.py `prepare_spill`: a
 // `PlanPrep`): its valid edges (u ← v, relation r; global rows) sorted by
 // relation, cut into 64-edge tiles that each hold one relation, and each
@@ -13,8 +14,9 @@
 //   1. messages: per tile, gather the 64 rows, multiply by W_r (or W_rᵀ)
 //      (bf16: wgmma m64n128k16, common.cuh `tc`; fp32: CUDA cores,
 //      mm_64x128) and write each fp32 message row at its edge's position in
-//      the destination (source) order, in a workspace [slots, 128]. Every
-//      position is written once: no atomics, no races.
+//      the destination (source) order, in a workspace [slots, 128] (bf16
+//      rows for lane_plan.cu, whose layer kernels add them in place of
+//      pass 2). Every position is written once: no atomics, no races.
 //   2. the fixed-order segment sum (segment_sum.cuh) of the workspace into
 //      the destination (source) rows, from temp's rows (from zero), in fp32,
 //      rounded once to T. A row's edges come in relation order (the stable
@@ -67,16 +69,18 @@ __device__ __forceinline__ int2 block_tiles(const int* rel_tiles, int num_rel) {
 }
 
 // Pass 1 in bf16 on tensor cores: ws[pos[e]] = x[rows[e]] @ W_r (TRANS:
-// @ W_rᵀ) for every edge e of the block's tiles, one warpgroup per block.
+// @ W_rᵀ) for every edge e of the block's tiles, one warpgroup per block,
+// stored as M: fp32 (the aggregations' workspace) or bf16 (lane_plan.cu's,
+// whose layer rounds every message to bf16 anyway).
 // Tile t + 1's gather (and W_r, where the relation changes, into the other
 // of two weight buffers) is in flight by cp.async while tile t multiplies;
 // each thread's source rows of the next tile are loaded a tile ahead.
-template <bool TRANS, class Plan>
+template <bool TRANS, class Plan, typename M = float>
 __global__ void __launch_bounds__(MT)
 msg_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_rel,
               const int* __restrict__ rows, const int* __restrict__ tiles,
               const int* __restrict__ rel_tiles, const int* __restrict__ pos,
-              float* __restrict__ ws, int num_rel) {
+              M* __restrict__ ws, int num_rel) {
   extern __shared__ float4 smem4[];
   constexpr int WB = tc::tiles_bytes(C), AB = tc::tiles_bytes(TE);
   uint8_t* W_b = reinterpret_cast<uint8_t*>(smem4);  // [2] W_r core tiles
@@ -153,9 +157,12 @@ msg_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_rel,
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
       const int p = (i & 2) ? p1 : p0;
-      if (p >= 0)
-        *reinterpret_cast<float2*>(ws + (long)p * C + tc::acc_col(i)) =
-            make_float2(acc[i], acc[i + 1]);
+      if (p < 0) continue;
+      M* q = ws + (long)p * C + tc::acc_col(i);
+      if constexpr (std::is_same<M, float>::value)
+        *reinterpret_cast<float2*>(q) = make_float2(acc[i], acc[i + 1]);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(q) = __floats2bfloat162_rn(acc[i], acc[i + 1]);
     }
   }
 }
@@ -362,18 +369,20 @@ __global__ void reduce_rel_kernel(const float* __restrict__ part,
   dw[(long)r * C * C + i] = s;
 }
 
-template <class Plan, typename T, bool TRANS>
+// Pass 1 into a workspace of M: fp32, or (bf16 products only) bf16.
+template <class Plan, typename T, bool TRANS, typename M = float>
 int launch_msg(const T* x, const T* w_rel, const int* rows, const int* tiles,
-               const int* rel_tiles, const int* pos, float* ws, int num_rel, int blocks,
+               const int* rel_tiles, const int* pos, M* ws, int num_rel, int blocks,
                cudaStream_t stream) {
   cudaError_t e;
   if constexpr (std::is_same<T, bf16>::value) {
     const int smem = 2 * tc::tiles_bytes(C) + 2 * tc::tiles_bytes(TE);
-    e = set_smem((const void*)msg_tc_kernel<TRANS, Plan>, smem);
+    e = set_smem((const void*)msg_tc_kernel<TRANS, Plan, M>, smem);
     if (e != cudaSuccess) return (int)e;
-    msg_tc_kernel<TRANS, Plan><<<blocks, MT, smem, stream>>>(x, w_rel, rows, tiles, rel_tiles,
-                                                             pos, ws, num_rel);
+    msg_tc_kernel<TRANS, Plan, M><<<blocks, MT, smem, stream>>>(x, w_rel, rows, tiles,
+                                                                rel_tiles, pos, ws, num_rel);
   } else {
+    static_assert(std::is_same<M, float>::value, "the fp32 pass writes an fp32 workspace");
     const int smem = (C * C + TE * LDA) * (int)sizeof(float);
     e = set_smem((const void*)msg_kernel<TRANS, Plan>, smem);
     if (e != cudaSuccess) return (int)e;

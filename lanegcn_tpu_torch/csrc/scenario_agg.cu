@@ -12,8 +12,8 @@
 // scattered through one-hot matmuls on the MXU, which is how a TPU avoids a
 // scatter. Here the wrapper prepares the plan once per LaneConv stack call
 // (ops/scenario_agg.py `prepare_plan`, on the device, no host sync): the
-// applied slots (the `applied_rel` rule: valid, inside a visited chunk of
-// their relation group) sorted by relation, cut into 64-edge tiles that each
+// applied slots (`_applied_edges`: valid, inside a visited chunk of their
+// relation group) sorted by relation, cut into 64-edge tiles that each
 // hold one relation, and each edge's position in destination order (and, for
 // the backward, in source order). The passes over those tiles (messages at
 // their positions, the fixed-order segment sum, dW_r per relation run) are

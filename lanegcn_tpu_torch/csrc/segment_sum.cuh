@@ -61,6 +61,34 @@ __device__ __forceinline__ long warp_lower_bound(const K* seg, long n, long long
   return lo + __popc(less);
 }
 
+// The run table of a block's rows [s0, s0 + rows) (rows ≤ ROWS) over the
+// sorted keys seg [num_keys]: blk_s = the block's entries [blo, bhi), and
+// row s0 + r's entries are [blo + lo_s[r], blo + hi_s[r]) (lo = hi = 0 for a
+// row without entries and for r ≥ rows). Warps 0 and 1 find blo and bhi
+// (warp_lower_bound); then one pass over the block's entries: an entry starts
+// a run where its key differs from its left neighbour's and ends one where it
+// differs from its right neighbour's. Every thread of the block calls it; on
+// return the table is visible to every thread.
+template <int ROWS, typename K>
+__device__ __forceinline__ void run_table(const K* seg, long num_keys, long s0, int rows,
+                                          int* lo_s, int* hi_s, long* blk_s) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < 2) {
+    const long e = warp_lower_bound(seg, num_keys, warp ? s0 + rows : s0);
+    if (lane == 0) blk_s[warp] = e;
+  }
+  for (int r = threadIdx.x; r < ROWS; r += blockDim.x) lo_s[r] = hi_s[r] = 0;
+  __syncthreads();
+  const long blo = blk_s[0], bhi = blk_s[1];
+  for (long e = blo + threadIdx.x; e < bhi; e += blockDim.x) {
+    const long long s = seg[e];
+    const int r = (int)(s - s0);
+    if (e == blo || seg[e - 1] != s) lo_s[r] = (int)(e - blo);
+    if (e + 1 == bhi || seg[e + 1] != s) hi_s[r] = (int)(e + 1 - blo);
+  }
+  __syncthreads();
+}
+
 constexpr int AHEAD = 4;   // edge rows loaded ahead of the additions
 constexpr int UNROLL = 8;  // chunks a thread loads at once: 128 bf16 rows in one batch
 
@@ -178,23 +206,9 @@ segment_sum_kernel(const D* __restrict__ data, const long long* __restrict__ seg
     else v[k].zero();
   }
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp < 2) {  // the block's edges [blk_s[0], blk_s[1]), a warp each
-    const long e = warp_lower_bound(seg, num_edges, warp ? s0 + rows : s0);
-    if (lane == 0) blk_s[warp] = e;
-  }
-  for (int r = threadIdx.x; r < ROWS; r += NT) lo_s[r] = hi_s[r] = 0;
-  __syncthreads();
-  const long blo = blk_s[0], bhi = blk_s[1];
-
-  // The run table: [lo, hi) of each row's edges, relative to blo.
-  for (long e = blo + threadIdx.x; e < bhi; e += NT) {
-    const long long s = seg[e];
-    const int r = (int)(s - s0);
-    if (e == blo || seg[e - 1] != s) lo_s[r] = (int)(e - blo);
-    if (e + 1 == bhi || seg[e + 1] != s) hi_s[r] = (int)(e + 1 - blo);
-  }
-  __syncthreads();
+  // The block's edges [blo, bhi) and each row's run [lo, hi) relative to blo.
+  run_table<ROWS>(seg, num_edges, s0, rows, lo_s, hi_s, blk_s);
+  const long blo = blk_s[0];
 
   // Every chunk of the block's rows, UNROLL a batch per thread: a row
   // without edges is base's row (or zeros); a row with edges sums its run,

@@ -16,9 +16,9 @@ the pack carries:
 - the residue lists: one masked_gather of all relations' lists →
   per-relation matmul → one scatter_add, both in an order sorted once per
   call (ops/scatter.py) and shared by the layers;
-- the window plan's edges (both endpoints in one node window): the
-  `scenario_agg` kernel (its plan prepared once per call and shared by the
-  layers), or, in the fused layer with
+- the window plan's edges (both endpoints in one node window), on the
+  plan prepared once per call and shared by the layers: the
+  `scenario_agg` kernel, or, in the fused layer with
   `ModelConfig.merge_plan_agg` and a node window that can be the layer's
   tile (`merge_plan`), inside the layer kernel (`lane_plan`); a plan that
   is not group-aligned raises (`check_plan_groups`) instead of losing
@@ -114,9 +114,10 @@ class LaneConvStack(nn.ModuleDict):
             groups = plan_groups(names, plan_lu.shape[0] // num_win)
             check_plan_groups(plan_lu, plan_rel, num_win, groups, len(names))
             merge = fused and merge_plan(self.cfg, num_nodes, plan_lu.shape[0], num_win)
-            if not merge:  # scenario_agg's tiles and orders, shared by the layers
-                prep = prepare_plan(plan_lu, plan_lv, plan_rel, num_win, num_nodes // num_win,
-                                    groups, len(names), backward=grad)
+            # The plan's tiles and orders, shared by the layers' scenario_agg
+            # or lane_plan kernels and their backwards.
+            prep = prepare_plan(plan_lu, plan_lv, plan_rel, num_win, num_nodes // num_win,
+                                groups, len(names), backward=grad)
 
         if spill is not None and spill_prep is None:  # pair_agg's tiles and orders
             spill_prep = prepare_spill(spill, num_nodes, len(names), backward=grad)
@@ -170,7 +171,7 @@ class LaneConvStack(nn.ModuleDict):
                          norm.weight, norm.bias, ctr2.norm.weight, ctr2.norm.bias)
                 if merge:
                     feat = fused_lane_layer_plan(*layer, w_dt, plan_lu, plan_lv, plan_rel,
-                                                 num_win, shifts, groups)
+                                                 num_win, shifts, groups, norm.eps, prep)
                 else:
                     feat = fused_lane_layer(*layer, shifts)
             else:

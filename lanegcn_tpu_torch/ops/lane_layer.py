@@ -26,7 +26,7 @@ from lanegcn_tpu_torch.ops import cuda
 from lanegcn_tpu_torch.ops.norm import group_norm
 from lanegcn_tpu_torch.ops.row_tail import PART, tail_bwd_plain
 from lanegcn_tpu_torch.ops.scenario_agg import (
-    _CHUNK as _PLAN_CHUNK, _group_args, _per_relation, plan_edge_count, plan_edges)
+    _CHUNK as _PLAN_CHUNK, _blocks, _per_relation, _prep_for, plan_edge_count, plan_edges)
 
 C = 128
 HALO = 32
@@ -288,15 +288,22 @@ def work_bwd(feat, masks) -> dict:
 #
 # Node rows are num_win windows of t = N / num_win rows (t % 128 == 0); the
 # plan is [num_win * ECAP, 1] int32 lu/lv/rel (ECAP % 512 == 0), window-local,
-# with the chunk-aligned relation groups of `scenario_agg`
-# (group_chunk_ends). Each plan message is rounded to the activation dtype
-# before its fp32 sum, as the TPU kernel rounds it. The backward:
+# with the chunk-aligned relation groups of `scenario_agg`. Each plan
+# message is rounded to the activation dtype before its fp32 sum, as the TPU
+# kernel rounds it. The backward:
 #
 #     d_msg = rnd(d_temp[u]);  dfeat[v] += rnd(d_msg @ W_rᵀ);  dW_r += rnd(feat[v])ᵀ d_msg
 #
 # in fp32, on top of lane_layer's backward. The TPU kernel rounds dfeat to the
 # activation dtype after every 512-slot chunk; the port sums it in fp32 and
 # rounds once, as scenario_agg does.
+#
+# On the card the kernels take the plan as `scenario_agg.prepare_plan`
+# prepares it (a `PlanPrep`, which a LaneConv stack makes once per call and
+# hands to every layer and its backward; the wrappers make one when given
+# none): the rounded messages go to a [slots, 128] workspace in the
+# activation dtype at their destination (source) positions, and the layer
+# adds each row's run of positions in order (csrc/lane_plan.cu).
 
 
 def _plan_check(feat, w_rel, lu, lv, rel, num_win):
@@ -364,76 +371,80 @@ def lane_plan_bwd_plain(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu
 
 
 def _plan_fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, rel, num_win,
-                   shifts, groups, eps, save_temp=False):
-    """The forward kernel; returns out, or (out, temp fp32) with save_temp."""
+                   shifts, groups, eps, prep=None, save_temp=False):
+    """The forward kernel on the prepared plan (`prep`, or one prepared
+    here); returns out, or (out, temp fp32) with save_temp."""
     _check(feat, pre, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts)
     _plan_check(feat, w_rel, lu, lv, rel, num_win)
-    n = feat.shape[0]
-    r_num = w_rel.shape[0]
-    groups, ends, gmasks = _group_args(lu, rel, num_win, groups, r_num)
+    n, r_num, slots = feat.shape[0], w_rel.shape[0], lu.shape[0]
+    prep = _prep_for(lu, lv, rel, num_win, n, groups, r_num, prep, False)
     masks = _mask_bytes(masks)
     gns = _gn_params(g1w, g1b, g2w, g2b)
-    wb, w2, w_rel = (cuda.param(t, t.dtype) for t in (wb, w2, w_rel))
-    code = cuda.check_cuda("lane_plan", feat, pre, masks, wb, w2, w_rel, *gns, lu, lv, rel, ends)
+    # The bf16 kernels copy feat rows and the weights by 16-byte cp.async.
+    feat, wb, w2, w_rel = (cuda.param(t, t.dtype) for t in (feat, wb, w2, w_rel))
+    code = cuda.check_cuda("lane_plan", feat, pre, masks, wb, w2, w_rel, *gns, *prep[:7])
+    ws = torch.empty(slots, C, dtype=feat.dtype, device=feat.device)
     out = torch.empty_like(feat)
     temp = torch.empty(n, C, dtype=torch.float32, device=feat.device) if save_temp else None
-    sh = _shift_array(shifts)
     cuda.call(
         "lane_plan", "lane_plan_fwd",
         cuda.ptr(feat), cuda.ptr(pre), cuda.ptr(masks), cuda.ptr(wb), cuda.ptr(w2),
-        *(cuda.ptr(t) for t in gns), cuda.ptr(w_rel), cuda.ptr(lu), cuda.ptr(lv), cuda.ptr(rel),
-        cuda.ptr(ends), ctypes.cast(gmasks, ctypes.c_void_p), cuda.ptr(out), cuda.ptr(temp),
-        ctypes.c_int(n), ctypes.c_int(len(shifts)), sh,
-        ctypes.c_int(num_win), ctypes.c_int(lu.shape[0] // num_win), ctypes.c_int(r_num),
-        ctypes.c_int(len(groups)), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+        *(cuda.ptr(t) for t in gns), cuda.ptr(w_rel), cuda.ptr(prep.src), cuda.ptr(prep.tiles),
+        cuda.ptr(prep.rel_tiles), cuda.ptr(prep.dpos), cuda.ptr(prep.dseg), cuda.ptr(ws),
+        cuda.ptr(out), cuda.ptr(temp), ctypes.c_int(n), ctypes.c_int(len(shifts)),
+        _shift_array(shifts), ctypes.c_longlong(slots), ctypes.c_int(r_num),
+        ctypes.c_int(_blocks(feat.device)), ctypes.c_float(eps), ctypes.c_int(code),
+        cuda.stream(),
     )
     return (out, temp) if save_temp else out
 
 
 def lane_plan_bwd_cuda(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, rel,
-                       num_win: int, groups, g, shifts: Sequence[int], eps: float = 1e-5):
-    """The `lane_plan_bwd` kernel; the same outputs as `lane_plan_bwd_plain`."""
+                       num_win: int, groups, g, shifts: Sequence[int], eps: float = 1e-5,
+                       prep=None):
+    """The `lane_plan_bwd` kernel on the prepared plan (`prep` with its
+    source order, or one prepared here); the same outputs as
+    `lane_plan_bwd_plain`."""
     _check(feat, feat, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts)
     _plan_check(feat, w_rel, lu, lv, rel, num_win)
-    n = feat.shape[0]
+    n, slots = feat.shape[0], lu.shape[0]
     j, r_num = len(shifts), w_rel.shape[0]
     if (temp.shape != feat.shape or temp.dtype != torch.float32
             or g.shape != feat.shape or g.dtype != feat.dtype):
         raise ValueError("lane_plan: temp must be fp32 and g in feat's dtype, both [N, 128]")
-    groups, ends, gmasks = _group_args(lu, rel, num_win, groups, r_num)
+    prep = _prep_for(lu, lv, rel, num_win, n, groups, r_num, prep, True)
     masks = _mask_bytes(masks)
     gns = _gn_params(g1w, g1b, g2w, g2b)
-    wb, w2, w_rel = (cuda.param(t, t.dtype) for t in (wb, w2, w_rel))
-    code = cuda.check_cuda("lane_plan", feat, temp, masks, wb, w2, w_rel, g, *gns, lu, lv, rel,
-                           ends)
+    feat, wb, w2, w_rel = (cuda.param(t, t.dtype) for t in (feat, wb, w2, w_rel))
+    code = cuda.check_cuda("lane_plan", feat, temp, masks, wb, w2, w_rel, g, *gns, *prep[:9])
     dev = feat.device
-    tail_blocks = cuda.num_sms(dev)
+    tail_blocks, blocks = cuda.num_sms(dev), _blocks(dev)
     splits = max(1, 2 * tail_blocks // max(j, 1))
-    splits_rel = max(1, 2 * tail_blocks // r_num)
     f32 = dict(dtype=torch.float32, device=dev)
     dx, dpre = torch.empty_like(feat), torch.empty_like(feat)
-    d_temp, d_y = torch.empty(n, C, **f32), torch.empty(n, C, **f32)
-    part_tail = torch.empty(tail_blocks * PART, **f32)
-    part_band = torch.empty(splits * j * C * C, **f32)
-    part_rel = torch.empty(splits_rel * r_num * C * C, **f32)
-    grads_tail = torch.empty(PART, **f32)
-    dwb = torch.empty(j, C, C, **f32)
-    dwr = torch.empty(r_num, C, C, **f32)
-    sh = _shift_array(shifts)
+    ws = torch.empty(slots, C, dtype=feat.dtype, device=dev)
+    # The fp32 workspaces (d_temp, d_y and the passes' partials) in one
+    # allocation, passed by address; the outputs in their own, so that a
+    # gradient kept after the call holds no workspace.
+    sizes = (n * C, n * C, tail_blocks * PART, splits * j * C * C, (blocks + r_num) * C * C)
+    work = torch.empty(sum(sizes), **f32)
+    offs = [sum(sizes[:i]) for i in range(len(sizes))]
+    parts = [ctypes.c_void_p(work.data_ptr() + 4 * o) for o in offs]
+    grads = torch.empty(PART + (j + r_num) * C * C, **f32)
+    dw2, dgn, dwb, dwr = grads.split([C * C, 4 * C, j * C * C, r_num * C * C])
     cuda.call(
         "lane_plan", "lane_plan_bwd",
         cuda.ptr(feat), cuda.ptr(temp), cuda.ptr(masks), cuda.ptr(wb), cuda.ptr(w2),
-        *(cuda.ptr(t) for t in gns), cuda.ptr(w_rel), cuda.ptr(lu), cuda.ptr(lv), cuda.ptr(rel),
-        cuda.ptr(ends), ctypes.cast(gmasks, ctypes.c_void_p), cuda.ptr(g), cuda.ptr(dx),
-        cuda.ptr(dpre), cuda.ptr(d_temp), cuda.ptr(d_y), cuda.ptr(part_tail),
-        cuda.ptr(part_band), cuda.ptr(part_rel), cuda.ptr(grads_tail), cuda.ptr(dwb),
-        cuda.ptr(dwr), ctypes.c_int(n), ctypes.c_int(j), sh,
-        ctypes.c_int(num_win), ctypes.c_int(lu.shape[0] // num_win), ctypes.c_int(r_num),
-        ctypes.c_int(len(groups)), ctypes.c_int(tail_blocks), ctypes.c_int(splits),
-        ctypes.c_int(splits_rel), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+        *(cuda.ptr(t) for t in gns), cuda.ptr(w_rel), cuda.ptr(prep.dst), cuda.ptr(prep.src),
+        cuda.ptr(prep.tiles), cuda.ptr(prep.rel_tiles), cuda.ptr(prep.spos),
+        cuda.ptr(prep.sseg), cuda.ptr(g), cuda.ptr(ws), cuda.ptr(dx), cuda.ptr(dpre), *parts,
+        cuda.ptr(grads), cuda.ptr(dwb), cuda.ptr(dwr), ctypes.c_int(n), ctypes.c_int(j),
+        _shift_array(shifts), ctypes.c_longlong(slots), ctypes.c_int(r_num),
+        ctypes.c_int(tail_blocks), ctypes.c_int(splits), ctypes.c_int(blocks),
+        ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
     )
-    dgn = grads_tail[C * C:].view(4, C)
-    return (dx, dpre, dwb, grads_tail[: C * C].view(C, C), dgn[0], dgn[1], dgn[2], dgn[3], dwr)
+    return (dx, dpre, dwb.view(j, C, C), dw2.view(C, C), *dgn.view(4, C).unbind(0),
+            dwr.view(r_num, C, C))
 
 
 class _LanePlan(torch.autograd.Function):
@@ -444,41 +455,45 @@ class _LanePlan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, rel, num_win,
-                shifts, groups, eps):
+                shifts, groups, eps, prep):
         if feat.device.type == "cpu":
             temp = _plan_temp_plain(feat, pre, masks, wb, shifts, w_rel, lu, lv, rel, num_win,
                                     groups)
             out = _tail_plain(feat, temp, w2, g1w, g1b, g2w, g2b, eps)
         else:
             out, temp = _plan_fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu,
-                                       lv, rel, num_win, shifts, groups, eps, save_temp=True)
+                                       lv, rel, num_win, shifts, groups, eps, prep,
+                                       save_temp=True)
         ctx.save_for_backward(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, rel)
         ctx.num_win, ctx.shifts, ctx.groups, ctx.eps = num_win, tuple(shifts), groups, eps
-        ctx.pre_dtype = pre.dtype
+        ctx.pre_dtype, ctx.prep = pre.dtype, prep
         return out
 
     @staticmethod
     def backward(ctx, g):
         feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, rel = ctx.saved_tensors
-        bwd = lane_plan_bwd_plain if feat.device.type == "cpu" else lane_plan_bwd_cuda
-        dx, dpre, dwb, dw2, *dgn, dwr = bwd(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel,
-                                            lu, lv, rel, ctx.num_win, ctx.groups,
-                                            g.to(feat.dtype).contiguous(), ctx.shifts, ctx.eps)
+        args = (feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, rel, ctx.num_win,
+                ctx.groups, g.to(feat.dtype).contiguous(), ctx.shifts, ctx.eps)
+        if feat.device.type == "cpu":
+            dx, dpre, dwb, dw2, *dgn, dwr = lane_plan_bwd_plain(*args)
+        else:
+            dx, dpre, dwb, dw2, *dgn, dwr = lane_plan_bwd_cuda(*args, ctx.prep)
         return (dx, dpre.to(ctx.pre_dtype), None, dwb.to(wb.dtype), dw2.to(w2.dtype),
                 *(d.to(p.dtype) for d, p in zip(dgn, (g1w, g1b, g2w, g2b))),
-                dwr.to(w_rel.dtype), None, None, None, None, None, None, None)
+                dwr.to(w_rel.dtype), None, None, None, None, None, None, None, None)
 
 
 def fused_lane_layer_plan(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, rel,
                           num_win: int, shifts: Sequence[int], groups=None,
-                          eps: float = 1e-5) -> torch.Tensor:
+                          eps: float = 1e-5, prep=None) -> torch.Tensor:
     """relu(GN2(relu(GN1(pre + band_conv(feat) + plan_agg(feat))) @ w2) + feat).
 
     fused_lane_layer's arguments, plus w_rel [R, 128, 128] (in, out) in
     feat's dtype and the window plan lu/lv/rel [num_win*ECAP, 1] int32 with
     its relation groups (None: one group). N = num_win * t with t % 128 ==
-    0; ECAP % 512 == 0. CPU tensors take the plain version; CUDA tensors
-    launch the kernel.
+    0; ECAP % 512 == 0. prep: the plan's `scenario_agg.prepare_plan` (made
+    here when None; a LaneConv stack makes it once for its layers). CPU
+    tensors take the plain version; CUDA tensors launch the kernel.
     """
     if feat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lane_plan: unsupported device {feat.device}")
@@ -486,10 +501,10 @@ def fused_lane_layer_plan(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, l
     args = (feat.contiguous(), pre.contiguous(), masks, wb.contiguous(), w2.contiguous(),
             g1w, g1b, g2w, g2b, w_rel.contiguous(), lu, lv, rel)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _LanePlan.apply(*args, num_win, tuple(shifts), groups, eps)
+        return _LanePlan.apply(*args, num_win, tuple(shifts), groups, eps, prep)
     if feat.device.type == "cpu":
         return lane_plan_plain(*args, num_win, shifts, groups, eps)
-    return _plan_fwd_cuda(*args, num_win, shifts, groups, eps)
+    return _plan_fwd_cuda(*args, num_win, shifts, groups, eps, prep)
 
 
 def work_plan(feat, masks, lu, rel, w_rel, num_win: int, groups=None) -> dict:

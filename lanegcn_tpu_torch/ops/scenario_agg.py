@@ -98,13 +98,6 @@ def _chunk_ends(lu, num_win: int, groups, sg) -> torch.Tensor:
     return ((per + _CHUNK - 1) // _CHUNK).cumsum(1)
 
 
-def group_chunk_ends(lu, rel, num_win: int, groups) -> torch.Tensor:
-    """[W, G] int32 cumulative chunk ends per relation group: group g owns
-    chunks [ends[:, g-1], ends[:, g]) of each window."""
-    sg = _slot_groups(lu, rel, groups) if len(groups) > 1 else None
-    return _chunk_ends(lu, num_win, groups, sg).to(torch.int32)
-
-
 def _applied(lu, rel, num_win: int, groups) -> torch.Tensor:
     """[W*ECAP] bool: slots the kernel applies (valid, inside a visited chunk
     of its group, relation in that group)."""
@@ -118,8 +111,8 @@ def _applied(lu, rel, num_win: int, groups) -> torch.Tensor:
 
 
 def _applied_edges(lu, lv, rel, num_win: int, stride: int, groups, num_rel: int):
-    """[W*ECAP] bool: the slots the kernels apply, both rows inside their
-    window (the kernel's `applied_rel` rule)."""
+    """[W*ECAP] bool: the slots the kernels apply (`_applied`), both rows
+    inside their window."""
     lu_f, lv_f = lu.reshape(-1), lv.reshape(-1)
     return (_applied(lu_f, rel, num_win, _groups(groups, num_rel))
             & (torch.maximum(lu_f, lv_f) < stride) & (lv_f >= 0))
@@ -297,15 +290,6 @@ def _check(feat, temp, w_rel, lu, lv, rel, num_win):
     for t in (lu, lv, rel):
         if t.dtype != torch.int32:
             raise TypeError("scenario_agg: plan indices must be int32")
-
-
-def _group_args(lu, rel, num_win, groups, r_num):
-    """lane_plan's group arguments: the groups, their chunk ends per window
-    and their relation bitmasks (a host array)."""
-    groups = _groups(groups, r_num)
-    ends = group_chunk_ends(lu, rel, num_win, groups)
-    masks = (ctypes.c_uint * len(groups))(*(sum(1 << r for r in g) for g in groups))
-    return groups, ends, masks
 
 
 def _prep_for(lu, lv, rel, num_win, n, groups, r_num, prep, backward):

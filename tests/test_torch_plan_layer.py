@@ -32,10 +32,14 @@ from lanegcn_tpu.models.lanegcn import LaneGCN as JLaneGCN, pred_loss as jax_pre
 from lanegcn_tpu.ops.pallas_lane_layer import fused_lane_layer_plan as jax_lane_plan
 
 from lanegcn_tpu_torch.config import Config, ModelConfig, PackConfig
-from lanegcn_tpu_torch.config import bench_pack_config, lanercnn_pack_config
+from lanegcn_tpu_torch.config import (bench_pack_config, lanercnn_pack_config,
+                                      windowed_pack_config)
+from lanegcn_tpu_torch.data.packing import pack_batch
+from lanegcn_tpu_torch.data.synthetic import make_urban_scenario
 from lanegcn_tpu_torch.graph import PackedBatch
 from lanegcn_tpu_torch.models import map_net
 from lanegcn_tpu_torch.models.lanegcn import LaneGCN
+from lanegcn_tpu_torch.models.layers import init_parameters
 from lanegcn_tpu_torch.ops import lane_layer, scenario_agg
 from lanegcn_tpu_torch.train.loop import init_state, make_train_step
 from lanegcn_tpu_torch.utils.weights import export_state_dict, load_jax_params
@@ -257,3 +261,200 @@ def test_merge_gate_follows_the_geometry():
     w = roi.max_roi_nodes // 256
     assert not map_net.merge_plan(on, roi.max_roi_nodes, w * 512, w)
     assert not map_net.merge_plan(on, 3 * 768, 3 * 1000, 3)  # slots not a chunk multiple
+
+
+# --- the kernels' schedule on the prepared plan, emulated on the CPU --------------
+
+EMU_STRIDE, EMU_WIN, EMU_ROWS = 256, 3, 192  # window rows, windows, the bf16 blocks' rows
+HOT = 100  # in-edges of one row (more than a 64-edge tile)
+
+
+def _emu_case(seed, grouped):
+    """Three 256-row windows, which 192-row blocks straddle: window 0 with a
+    row of HOT in-edges among random edges, window 1 without edges, window 2
+    with a few; grouped (left/right edges in the first 512-slot chunk, the
+    dilated ones in the second) or not (one chunk)."""
+    rng = np.random.RandomState(seed)
+    ecap = 1024 if grouped else 512
+    lu = np.full((EMU_WIN, ecap), -1, np.int32)
+    lv, rel = lu.copy(), np.zeros_like(lu)
+    for w, k in ((0, 400), (2, 40)):
+        lu[w, :k] = rng.randint(0, EMU_STRIDE, k)
+        if w == 0:
+            lu[w, :HOT] = 7
+        lv[w, :k] = rng.randint(0, EMU_STRIDE, k)
+        rel[w, :k] = rng.choice(LR, k) if grouped else np.sort(rng.randint(0, 14, k))
+        if grouped:
+            lu[w, 512:512 + k // 2] = rng.randint(0, EMU_STRIDE, k // 2)
+            lv[w, 512:512 + k // 2] = rng.randint(0, EMU_STRIDE, k // 2)
+            rel[w, 512:512 + k // 2] = np.sort(rng.choice(DIL, k // 2))
+    n, j = EMU_WIN * EMU_STRIDE, len(SHIFTS)
+    t = lambda *shape, s=1.0: torch.from_numpy((rng.randn(*shape) * s).astype(np.float32))
+    feat, pre, g = t(n, C), t(n, C), t(n, C)
+    masks = torch.from_numpy(rng.rand(j, n) < 0.5)
+    wb, w2, w_rel = t(j, C, C, s=C ** -0.5), t(C, C, s=C ** -0.5), t(14, C, C, s=C ** -0.5)
+    gns = [1.0 + 0.1 * t(C), 0.1 * t(C), 1.0 + 0.1 * t(C), 0.1 * t(C)]
+    plan = [torch.from_numpy(a.reshape(-1, 1)) for a in (lu, lv, rel)]
+    return feat, pre, masks, wb, w2, gns, w_rel, plan, GROUPS if grouped else None, g
+
+
+def _messages(prep, x, w_rel, pos, gather, transpose=False):
+    """The message pass on the prepared tiles: ws[pos[e]] = rnd(x[gather[e]]
+    @ W_r (or W_rᵀ)) for each tile's edges, one write per position."""
+    ws = torch.zeros(prep.dst.shape[0], C)
+    for t in range(int(prep.rel_tiles[-1])):
+        r, first, cnt = prep.tiles[t].tolist()
+        e = slice(first, first + cnt)
+        w = w_rel[r].float()
+        ws[pos[e].long()] = (x[gather[e].long()].float() @ (w.t() if transpose else w)).to(
+            x.dtype).float()
+    return ws
+
+
+def _run_table(seg, s0, rows):
+    """segment_sum.cuh `run_table`: the block's entries [blo, bhi) by two
+    searches, then each row's run [lo, hi) from where its key starts and
+    ends."""
+    blo, bhi = (int(torch.searchsorted(seg, torch.tensor(k))) for k in (s0, s0 + rows))
+    lo, hi = [0] * rows, [0] * rows
+    for e in range(blo, bhi):
+        r = int(seg[e]) - s0
+        if e == blo or seg[e - 1] != seg[e]:
+            lo[r] = e - blo
+        if e + 1 == bhi or seg[e + 1] != seg[e]:
+            hi[r] = e + 1 - blo
+    return blo, lo, hi
+
+
+def _add_runs(acc, ws, seg, block_rows):
+    """Every block's rows add their runs of ws in position order."""
+    n = acc.shape[0]
+    for s0 in range(0, n, block_rows):
+        rows = min(block_rows, n - s0)
+        blo, lo, hi = _run_table(seg, s0, rows)
+        for r in range(rows):
+            for q in range(blo + lo[r], blo + hi[r]):
+                acc[s0 + r] += ws[q]
+    return acc
+
+
+def _close_rel(got, want, what):
+    tol = 1e-5 * max(float(want.abs().max()), 1e-30)
+    err = float((got - want).abs().max())
+    assert err <= tol, f"{what}: max abs err {err} > {tol}"
+
+
+@pytest.mark.parametrize("grouped", [True, False])
+def test_forward_schedule_emulated_matches_the_plain_version(grouped):
+    """lane_plan_fwd's schedule in fp32: prepare_plan's tiles, the messages
+    at their destination positions (each rounded as written), 192-row
+    blocks adding each row's run of the sorted dseg in position order into
+    pre + the band products, then the tail: lane_plan_plain within 1e-5 of
+    its largest element."""
+    feat, pre, masks, wb, w2, gns, w_rel, plan, groups, _ = _emu_case(31, grouped)
+    n = feat.shape[0]
+    prep = scenario_agg.prepare_plan(*plan, EMU_WIN, EMU_STRIDE, groups, 14, backward=False)
+    e = int(prep.rel_edges[-1])
+    assert e > HOT and int(torch.bincount(prep.dst[:e].long()).max()) >= HOT
+    ws = _messages(prep, feat, w_rel, prep.dpos, prep.src)
+    temp = _add_runs(lane_layer._temp_plain(feat, pre, masks, wb, SHIFTS), ws, prep.dseg,
+                     EMU_ROWS)
+    out = lane_layer._tail_plain(feat, temp, w2, *gns, 1e-5)
+    want_temp = lane_layer._plan_temp_plain(feat, pre, masks, wb, SHIFTS, w_rel, *plan, EMU_WIN,
+                                            groups)
+    _close_rel(temp, want_temp, "temp")
+    assert not temp[EMU_STRIDE:2 * EMU_STRIDE].ne(
+        lane_layer._temp_plain(feat, pre, masks, wb, SHIFTS)[EMU_STRIDE:2 * EMU_STRIDE]).any()
+    _close_rel(out, lane_layer.lane_plan_plain(feat, pre, masks, wb, w2, *gns, w_rel, *plan,
+                                               EMU_WIN, SHIFTS, groups), "out")
+
+
+@pytest.mark.parametrize("blocks", [1, 3])
+@pytest.mark.parametrize("grouped", [True, False])
+def test_backward_schedule_emulated_matches_the_plain_version(grouped, blocks):
+    """lane_plan_bwd's schedule in fp32 from the forward's temp: the row pass,
+    the transposed messages of rnd(d_temp) at the source positions, the dx
+    pass adding each row's run of the sorted sseg after the band transposes
+    (192-row blocks), and dW_rel as the dW pass's (block, relation) partials
+    summed in block order: lane_plan_bwd_plain within 1e-5 of each output's
+    largest element."""
+    feat, pre, masks, wb, w2, gns, w_rel, plan, groups, g = _emu_case(32, grouped)
+    prep = scenario_agg.prepare_plan(*plan, EMU_WIN, EMU_STRIDE, groups, 14)
+    temp = lane_layer._plan_temp_plain(feat, pre, masks, wb, SHIFTS, w_rel, *plan, EMU_WIN,
+                                       groups)
+    d_temp, dx, dwb, dw2, dgn = lane_layer._band_bwd_plain(feat, temp, masks, wb, w2, *gns, g,
+                                                           SHIFTS, 1e-5)
+    dpre = d_temp.to(feat.dtype)
+    ws = _messages(prep, dpre, w_rel, prep.spos, prep.dst, transpose=True)
+    dx = _add_runs(dx, ws, prep.sseg, EMU_ROWS)
+    part = {}
+    total = int(prep.rel_tiles[-1])
+    for b in range(blocks):
+        for t in range(b * total // blocks, (b + 1) * total // blocks):
+            r, first, cnt = prep.tiles[t].tolist()
+            rows = slice(first, first + cnt)
+            acc = feat[prep.src[rows].long()].t() @ dpre[prep.dst[rows].long()].float()
+            part[b + r] = part.get(b + r, 0) + acc
+    dwr = torch.zeros(14, C, C)
+    for b in range(blocks):
+        lo, hi = b * total // blocks, (b + 1) * total // blocks
+        for r in range(14):
+            if lo < hi and lo < int(prep.rel_tiles[r + 1]) and hi > int(prep.rel_tiles[r]) and \
+                    int(prep.rel_tiles[r]) < int(prep.rel_tiles[r + 1]):
+                dwr[r] += part[b + r]
+    want = lane_layer.lane_plan_bwd_plain(feat, temp, masks, wb, w2, *gns, w_rel, *plan, EMU_WIN,
+                                          groups, g, SHIFTS)
+    got = (dx, dpre, dwb, dw2, *dgn, dwr)
+    names = ["dx", "dpre", "dwb", "dw2", "dg1w", "dg1b", "dg2w", "dg2b", "dw_rel"]
+    for nm, a, b in zip(names, got, want):
+        _close_rel(a.float(), b.float(), nm)
+
+
+def test_passed_prep_gives_the_same_outputs_and_gradients():
+    """fused_lane_layer_plan with the stack's prepared plan and with none
+    (prepared inside): the same output and the same gradients."""
+    feat0, pre0, masks, wb0, w20, gns0, w_rel0, plan, groups, g = _emu_case(33, True)
+    prep = scenario_agg.prepare_plan(*plan, EMU_WIN, EMU_STRIDE, groups, 14)
+    runs = []
+    for p in (prep, None):
+        leaves = [x.clone().requires_grad_(True) for x in (feat0, pre0, wb0, w20, *gns0, w_rel0)]
+        feat, pre, wb, w2, *rest = leaves
+        out = lane_layer.fused_lane_layer_plan(feat, pre, masks, wb, w2, *rest, *plan, EMU_WIN,
+                                               SHIFTS, groups, 1e-5, p)
+        out.backward(g)
+        runs.append([out.detach()] + [x.grad for x in leaves])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_merged_stack_prepares_the_plan_once_per_call(monkeypatch):
+    """With merge_plan_agg="auto" the LaneConv stack calls prepare_plan once
+    per call, with the source order only when a gradient is wanted, and
+    hands that plan to every layer's fused_lane_layer_plan."""
+    scens = [make_urban_scenario(seed=40 + i, num_corridors=3, num_actors=6) for i in range(2)]
+    batch, _ = pack_batch(scens, windowed_pack_config(2), ModelConfig(**MODEL))
+    graph = PackedBatch.from_numpy(batch).graph
+    cfg = ModelConfig(**MODEL, merge_plan_agg="auto")
+    stack = map_net.LaneConvStack(cfg, 2)
+    init_parameters(stack, seed=0)
+    made, seen = [], []
+    prepare, layer = map_net.prepare_plan, map_net.fused_lane_layer_plan
+
+    def counted_prepare(*a, **k):
+        made.append((prepare(*a, **k), k.get("backward")))
+        return made[-1][0]
+
+    def counted_layer(*a):
+        seen.append(a[-1])
+        return layer(*a)
+
+    monkeypatch.setattr(map_net, "prepare_plan", counted_prepare)
+    monkeypatch.setattr(map_net, "fused_lane_layer_plan", counted_layer)
+    for grad in (False, True):
+        made.clear()
+        seen.clear()
+        feat = torch.randn(graph.capacity, MODEL["n_map"], requires_grad=grad)
+        with torch.set_grad_enabled(grad):
+            stack(feat, **map_net.graph_inputs(graph))
+        assert [b for _, b in made] == [grad] and len(seen) == 2
+        assert all(p is made[0][0] for p in seen)
+        assert (made[0][0].spos is not None) == grad

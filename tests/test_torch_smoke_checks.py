@@ -140,3 +140,36 @@ def test_cut_helpers_make_band_conv_and_row_tail2_bwd_cases():
         rows = a[0].shape[0]
         assert all(torch.equal(a[i], args[i][:rows]) for i in (0, 1, 10))
         assert all(a[i] is args[i] for i in range(2, 10))
+
+
+def test_plan_case_helpers_build_lane_plan_arguments():
+    """`plan_case_calls(..., layer=True)` builds lane_plan's forward and
+    backward arguments on every PLAN_CASES plan (the same plans as
+    scenario_agg's cases, with band masks over PLAN_SHIFTS, ±32 among them,
+    and the tail's weights): the layout the public op and the backward
+    launcher take, the backward's temp the plain forward's fp32 temp, and
+    the plain versions run on each (as chip_smoke.py's kernel check calls
+    them)."""
+    from lanegcn_tpu_torch.ops import lane_layer
+
+    assert {-32, 32} <= set(cs.PLAN_SHIFTS)
+    plans, _, _ = cs.plan_case_calls(False, dev="cpu")
+    fwd, counts, empty = cs.plan_case_calls(False, layer=True, dev="cpu")
+    bwd, _, _ = cs.plan_case_calls(True, layer=True, dev="cpu")
+    assert len(fwd) == len(bwd) == len(plans) == len(cs.PLAN_CASES) and set(counts.values()) == {0}
+    assert {a[0].shape[0] // a[13] for a in fwd.values()} == {256, 512, 768, 1024}
+    (_, plain_fwd), = cs.forward_ops(["lane_plan"]).values()
+    (_, plain_bwd), = cs.backward_ops(["lane_plan"]).values()
+    for p, f, b in zip(plans.values(), fwd.values(), bwd.values()):
+        n, j = f[0].shape[0], len(cs.PLAN_SHIFTS)
+        assert all(torch.equal(x, y) for x, y in zip(p[3:6], f[10:13]))
+        assert f[13:] == [p[6], cs.PLAN_SHIFTS, p[7]] and f[2].shape == (j, n)
+        assert f[3].shape == (j, C, C) and f[4].shape == (C, C) and f[9].shape == (14, C, C)
+        assert b[14] == f[15] and b[16] == cs.PLAN_SHIFTS and b[1].dtype == torch.float32
+        assert torch.equal(b[1], lane_layer._plan_temp_plain(f[0], f[1], f[2], f[3], f[14],
+                                                             *f[9:14], f[15]))
+        out = plain_fwd(*cs.cast_args(f, torch.float32))
+        grads = plain_bwd(*cs.cast_args(b, torch.float32))
+        assert out.shape == (n, C) and bool(torch.isfinite(out).all())
+        assert len(grads) == 9 and grads[-1].shape == (14, C, C)
+    assert empty in fwd
