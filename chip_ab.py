@@ -32,7 +32,9 @@ spill plan's `prepare_spill` timed beside, forward-only for the forward,
 the call handed the one a LaneGCN forward made); row_tail's forward and
 backward at K = 1 on the windowed geometry (Att's tails) and at K = 2 on
 LaneRCNN's (LanePooling's tail, `row_tail2`; the K = 2 backward's C
-interface changed: the other tree's through its own wrapper). Each call shape
+interface changed: the other tree's through its own wrapper); Att's edge_mlp
+backward likewise (its C interface took the bf16 workspace `act` and the
+weight-gradient pass's splits). Each call shape
 (A2M, M2A, A2A) of the forward and of the backward runs once per build (the
 largest difference between the two builds' outputs is printed;
 `chip_smoke.py` holds each kernel to its plain version) and is then timed
@@ -87,7 +89,8 @@ OWN_WRAPPERS = {"scenario_agg": {"scenario_agg": ("scenario_aggregate", 8),
                              "win_edge_bwd": ("win_edge_bwd_cuda", 14)},
                 "pair_agg": {"pair_agg": ("pair_aggregate", 4),
                              "pair_agg_bwd": ("pair_agg_bwd_cuda", 4)},
-                "row_tail": {"row_tail2_bwd": ("row_tail2_bwd_cuda", 11)}}
+                "row_tail": {"row_tail2_bwd": ("row_tail2_bwd_cuda", 11)},
+                "edge_mlp": {"edge_mlp_bwd": ("edge_mlp_bwd_cuda", 14)}}
 # Wrapper modules named other than their kernel library (ops/<module>.py),
 # and the other tree's modules that its wrapper module imports in place of
 # this checkout's (names it takes from them are gone here).

@@ -69,13 +69,14 @@ and exits non-zero:
           one edge beside relations with none, rows past n, runs of one
           chunk, one window's run of many chunks, 1,536-row windows) and
           row_tail; contiguous: lane_layer (no
-          node windows), row_tail (A2M and 512 actor rows) and edge_mlp;
+          node windows), row_tail (A2M and 512 actor rows) and edge_mlp
+          (and `EDGE_ROWS`: 1, 63, 65 and 12,345 rows, and an all-padding
+          call, whose rows must all equal row 0);
           lanercnn: lane_layer and scenario_agg at the RoI and global
           shapes, window_scatter (both pool scatters, beside one `index_add`
           call on the same inputs), row_tail2 (its three row counts, and
           `TAIL_ROWS`: 1, 63, 65 and 12,345 rows) and edge_mlp_pool (and
-          `POOL_ROWS`: 1, 63, 65 and 12,345 rows, and an all-padding call,
-          whose rows must all equal row 0);
+          `EDGE_ROWS` and an all-padding call, as edge_mlp's);
           merged: lane_plan (and `PLAN_CASES`, each with random band masks
           over ±1 .. ±32 shifts and tail weights, `PLAN_SHIFTS`: windows of
           256, 512, 768 and 1,024 rows, which its bf16 kernel's 192-row
@@ -89,8 +90,8 @@ and exits non-zero:
           rerun that must be bitwise equal (lanercnn: lane_layer_bwd and
           scenario_agg_bwd at the RoI and global shapes, window_scatter_bwd
           beside one `index_select` call, row_tail2_bwd, edge_mlp_pool_bwd
-          with `POOL_ROWS` and the all-padding call, whose outputs must all
-          be zero;
+          with `EDGE_ROWS` and the all-padding call, whose outputs must all
+          be zero; contiguous: edge_mlp_bwd likewise;
           merged: lane_plan_bwd (and `PLAN_CASES`); unfused: band_conv_bwd;
           windowed: scenario_agg_bwd on `PLAN_CASES` too, and win_edge_bwd on
           `WIN_CASES`; bench: pair_agg_bwd on `SPILL_CASES` too), and
@@ -1381,8 +1382,11 @@ def drive(geom):
         calls, counts, _ = plan_case_calls(backward=False, layer=True)
         cap.calls["lane_plan"].update(calls)
         cap.counts["lane_plan"].update(counts)
+    edge_pad = add_edge_cases("edge_mlp", cap) if geom == "contiguous" else None
     results = kernel_phase("kernel", geom, forward_ops(spec["kernels"]), cap.calls, cap.counts)
-    del cap
+    if edge_pad is not None:
+        check_edge_padding(geom, "edge_mlp", edge_pad)
+    del cap, edge_pad
 
     # --- backward kernels against their plain backwards, on a train step's inputs ---
     net_t, state = init_state(cfg, dtype=torch.bfloat16)
@@ -1658,53 +1662,56 @@ def add_tail_cases(name, cap):
         cap.counts[name][shape_key(part)] = 0
 
 
-# LanePooling's edge MLP's edge cases: its bf16 kernels' warpgroups own
-# 64-row tiles (the backward's weight-gradient pass 128-edge tiles), so the
-# largest captured forward and backward call is cut to one row, one row
-# short of a tile, one past it and a ragged count of many tiles
-# (POOL_ROWS), and to POOL_PAD_ROWS rows made all padding (d = cg = 0, a
-# zero cotangent), which `check_pool_padding` also holds to its exact
-# answer: every output row equal to row 0, every gradient and dcg zero.
-POOL_ROWS = (1, 63, 65, 12345)
-POOL_PAD_ROWS = 3000
-POOL_PAD_ARGS = {"edge_mlp_pool": (0, 2), "edge_mlp_pool_bwd": (0, 1, 8)}  # d, cg (, g)
+# The flat edge MLPs' edge cases (Att's edge_mlp on the contiguous
+# geometry, LanePooling's edge_mlp_pool on lanercnn): their bf16 kernels'
+# warpgroups own 64-row tiles (the backwards' weight-gradient passes 64- or
+# 128-edge tiles), so the largest captured forward and backward call is cut
+# to one row, one row short of a tile, one past it and a ragged count of
+# many tiles (EDGE_ROWS), and to EDGE_PAD_ROWS rows made all padding (d =
+# cg = 0, and qg = 0 for Att's; a zero cotangent), which
+# `check_edge_padding` also holds to its exact answer: every output row
+# equal to row 0, every gradient, dd, dcg (and dqg) zero.
+EDGE_ROWS = (1, 63, 65, 12345)
+EDGE_PAD_ROWS = 3000
+EDGE_PAD_ARGS = {"edge_mlp": (0, 1, 2), "edge_mlp_bwd": (0, 1, 2, 12),  # d, qg, cg (, g)
+                 "edge_mlp_pool": (0, 2), "edge_mlp_pool_bwd": (0, 1, 8)}  # d, cg (, g)
 
 
-def add_pool_cases(name, cap):
-    """Adds POOL_ROWS' cuts of the largest captured call of `name`
-    (edge_mlp_pool or edge_mlp_pool_bwd) and its all-padding call to the
-    capture (0 calls a step each); returns the all-padding call."""
+def add_edge_cases(name, cap):
+    """Adds EDGE_ROWS' cuts of the largest captured call of `name`
+    (edge_mlp, edge_mlp_pool or their backwards) and its all-padding call
+    to the capture (0 calls a step each); returns the all-padding call."""
     import torch
 
     args = max(cap.calls[name].values(), key=lambda a: a[0].shape[0])
-    pad = cut_rows(args, POOL_PAD_ROWS)
-    for i in POOL_PAD_ARGS[name]:
+    pad = cut_rows(args, EDGE_PAD_ROWS)
+    for i in EDGE_PAD_ARGS[name]:
         pad[i] = torch.zeros_like(pad[i])
-    for part in [cut_rows(args, n) for n in POOL_ROWS if n < args[0].shape[0]] + [pad]:
+    for part in [cut_rows(args, n) for n in EDGE_ROWS if n < args[0].shape[0]] + [pad]:
         cap.calls[name][shape_key(part)] = part
         cap.counts[name][shape_key(part)] = 0
     return pad
 
 
-def check_pool_padding(geom, name, a):
+def check_edge_padding(geom, name, a):
     """The all-padding call through the kernel in fp32 and bf16: the
     forward's rows all equal to row 0; every output of the backward (dd,
-    dcg and the gradients) exactly zero."""
+    dcg (and dqg) and the gradients) exactly zero."""
     import torch
 
-    res = {"phase": "pool_padding", "geometry": geom, "name": name, "rows": POOL_PAD_ROWS}
+    res = {"phase": "edge_padding", "geometry": geom, "name": name, "rows": EDGE_PAD_ROWS}
     for dtype in (torch.float32, torch.bfloat16):
         x = cast_args(a, dtype)
         tag = str(dtype).split(".")[-1]
-        if name == "edge_mlp_pool":
-            out = forward_ops([name])[name][0](*x)
-            res[tag] = bool(torch.equal(out, out[:1].expand_as(out)))
-            check(res[tag], f"{name} {tag}: an all-padding call's rows differ from row 0")
-        else:
-            outs = backward_ops(["edge_mlp_pool"])[name][0](*x)
+        if name.endswith("_bwd"):
+            outs = backward_ops([name[:-len("_bwd")]])[name][0](*x)
             res[tag] = [float(o.abs().max()) for o in outs]
             check(not any(res[tag]), f"{name} {tag}: an all-padding call's outputs are not "
                   f"all zero: {res[tag]}")
+        else:
+            out = forward_ops([name])[name][0](*x)
+            res[tag] = bool(torch.equal(out, out[:1].expand_as(out)))
+            check(res[tag], f"{name} {tag}: an all-padding call's rows differ from row 0")
     emit(res)
 
 
@@ -1889,11 +1896,12 @@ def step_kernel_phases(geom, cap):
         calls, counts, _ = plan_case_calls(backward=True, layer=True)
         cap.calls["lane_plan_bwd"].update(calls)
         cap.counts["lane_plan_bwd"].update(counts)
-    pool_pad = add_pool_cases("edge_mlp_pool_bwd", cap) if geom == "lanercnn" else None
+    edge = {"lanercnn": "edge_mlp_pool_bwd", "contiguous": "edge_mlp_bwd"}.get(geom)
+    edge_pad = add_edge_cases(edge, cap) if edge else None
     results = kernel_phase("kernel_bwd", geom, backward_ops(spec["kernels"]), cap.calls,
                            cap.counts)
-    if pool_pad is not None:
-        check_pool_padding(geom, "edge_mlp_pool_bwd", pool_pad)
+    if edge:
+        check_edge_padding(geom, edge, edge_pad)
     if geom == "windowed":
         calls, counts = segment_case_calls()
         cap.calls["segment_sum"].update(calls)
@@ -2118,10 +2126,10 @@ def drive_lanercnn(geom):
         step(batches[0])
     torch.cuda.synchronize()
     add_tail_cases("row_tail2", cap)
-    pool_pad = add_pool_cases("edge_mlp_pool", cap)
+    edge_pad = add_edge_cases("edge_mlp_pool", cap)
     results = kernel_phase("kernel", geom, forward_ops(spec["kernels"]), cap.calls, cap.counts)
-    check_pool_padding(geom, "edge_mlp_pool", pool_pad)
-    del cap, pool_pad
+    check_edge_padding(geom, "edge_mlp_pool", edge_pad)
+    del cap, edge_pad
 
     # --- backward kernels against their plain backwards, on a train step's inputs ---
     bundle = get_model("lanercnn", cfg, dtype=torch.bfloat16, seed=0)

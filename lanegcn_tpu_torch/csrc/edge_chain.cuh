@@ -1,12 +1,11 @@
 // The fusion stages' per-edge chain over one 64-row tile, forward and
-// backward, on CUDA cores in fp32 arithmetic, shared by win_edge.cu (Att's
-// edges of a window-pair plan: its forward in both dtypes and its fp32
-// backward; the bf16 backward runs the chain on tensor cores in
-// win_edge.cu itself) and edge_mlp.cu (a flat edge list: Att's, or
-// LanePooling's without the dist_out stage, whose forward uses chain_fwd
-// and whose backward, with its weight gradients kept on chip, is
-// edge_mlp.cu's own). Per row, from t1
-// (the caller's: rnd(relu(d@Wd + bd)) in both):
+// backward, on CUDA cores in fp32 arithmetic: the fp32 parity paths of
+// win_edge.cu (Att's edges of a window-pair plan) and edge_mlp.cu (a flat
+// edge list: Att's, or LanePooling's forward without the dist_out stage;
+// LanePooling's backward, with its weight gradients kept on chip, is
+// edge_mlp.cu's own). The bf16 passes run the chain on tensor cores
+// (edge_tc.cuh). Per row, from t1 (the caller's: rnd(relu(d@Wd + bd)) in
+// both):
 //
 //   t2 = rnd(relu(GN_do(t1 @ Wdo)));  s = t2 @ K1 + (the row's query and
 //   context projections);  e1 = rnd(relu(GN_ch(s)));  e2 = e1 @ Wout

@@ -17,25 +17,67 @@
 // 0, so its output is a constant row that the caller's masked scatter drops,
 // and its cotangent is zero, so it adds exactly nothing to any gradient.
 //
-// edge_mlp_fwd: a block per 64-row tile keeps the tile's chain in shared
-// memory (one fp32 [64 x 128] tile, one [128 x 128] weight reloaded per
-// stage): only d, qg, cg are read and only out is written.
-//
-// edge_mlp_bwd: recomputes the chain per tile, as the TPU kernel does, and
-// runs it backwards (edge_chain.cuh), with dqg = dcg = rnd(d_s), dWd +=
-// rnd(d)ᵀ rnd(d_t1p) and dd = rnd(d_t1p) @ Wdᵀ per row. One block per SM
-// walks the tiles (tile = block, block + blocks, ...); it adds its products
-// into its own slice of a [blocks, 3*C*C + 7*C] workspace (zeroed by the
-// wrapper; a read-modify-write per tile by the block that owns the slice)
-// and keeps its vector sums per warp in registers; reduce_partials sums the
-// slices in block order. No float atomics; reruns are bitwise equal.
-//
 // What bounds it: three (forward) or nine (backward) [E x 128] x [128 x 128]
-// products per row against ~3 (forward) or ~7 (backward) [E x 128] rows of
-// traffic: at the card's bf16 rates the rows' bytes bound it. This first
-// version runs the products on CUDA cores in fp32, which makes the products
-// the larger cost; about 93 % of the rows are padding at the CLI geometry's
-// capacities, and the kernel runs them all, as the TPU kernel did.
+// products per row (3.2 and 9.7 GFLOP at the CLI geometry's 32,768-row
+// A2M list) against d, qg, cg read and out written (25.4 MB, 7.6 us at
+// 3.35 TB/s), or d, qg, cg, g read and dd, dqg, dcg written (42.5 MB):
+// bytes, at the card's bf16 rates. About 87-93 % of the rows are padding at
+// the CLI geometry's capacities; the kernels run them all, as the TPU
+// kernels did (skipping them would need a live-row count the op does not
+// take).
+//
+// edge_mlp_fwd:
+//   bf16 (edge_mlp_tc_kernel, the path that serves and trains): the
+//     LanePooling forward's walk below (fwd_tc, templated on the chain): a
+//     persistent grid of PF_WGS warpgroups a block, Wdo, K1 and Wout held
+//     once per block as bf16 core tiles, each warpgroup on 64-row tiles of
+//     its own with the next tile's d and cg rows in flight by cp.async. t1
+//     is made in registers from d as the register-A fragments of z = t1 @
+//     Wdo; t2 on z's accumulators (edge_tc.cuh t2_from_z) as those of s =
+//     t2 @ K1; cg (staged) then qg (from device memory: a third staged tile
+//     would pass the block's shared memory) added to s in fp32; e1 as the
+//     fragments of out = e1 @ Wout, which leaves through cg's tile in
+//     16-byte rows.
+//   fp32 (edge_mlp_kernel, the parity path: wgmma has no fp32 operands): a
+//     block per 64-row tile keeps the tile's chain in shared memory (one
+//     fp32 [64 x 128] tile, one [128 x 128] weight reloaded per stage,
+//     edge_chain.cuh's chain_fwd on CUDA cores).
+//
+// edge_mlp_bwd: the chain recomputed per tile, as the TPU kernel does, and
+// run backwards (edge_chain.cuh's header), with dqg = dcg = rnd(d_s), dWd
+// += rnd(d)ᵀ rnd(d_t1p) and dd = rnd(d_t1p) @ Wdᵀ per row.
+//   bf16, two passes over the rows, then the partial sums:
+//   1. edge_mlp_bwd_tc_kernel: the LanePooling backward's walk (bwd_tc,
+//      templated on the chain; the next tile's d and g in flight, cg and
+//      qg read from device memory where s takes them: staged by cp.async
+//      in one stage a warpgroup, which is all shared memory holds beside
+//      the three weights, the pass took 7 % longer on the H100) running
+//      win_edge_bwd_tc_kernel's chain on wgmma over the list's own rows:
+//      z = t1 @ Wdo beside d_e1 = g @ Woutᵀ, s = t2 @ K1, d_t2 = rnd(d_s)
+//      @ K1ᵀ, z again (the registers hold no nrm_z), d_t1 = rnd(d_z) @
+//      Wdoᵀ; each GroupNorm forward and backward on the accumulators
+//      (edge_tc.cuh gn_bwd_acc, gn_do_bwd). rnd(d_s) leaves for dqg and dcg
+//      (two copies: a consumer may write into either gradient) through g's
+//      staged tile; the vector sums (dbd, dgdow, dgdob, dgchw, dgchb, dWd's
+//      two rows) are column sums over a tile's rows, kept per lane across
+//      the tiles and summed over the warps once per block; dd by quad
+//      sums. Each row's t1 | t2 | e1 | rnd(d_z) goes to a bf16 workspace
+//      act [e, 4C].
+//   2. edge_mlp_dw_tc_kernel: dWdo = t1ᵀ rnd(d_z), dK1 = t2ᵀ rnd(d_s),
+//      dWout = e1ᵀ rnd(g) as split-K wgmma products over 64-edge tiles of
+//      act, dcg and g (edge_tc.cuh dw_tc, win_edge's dW pass), one fp32
+//      partial per split. Three [128 x 128] fp32 accumulators do not fit
+//      beside the chain; making e1 again in pass 2 would take two products
+//      and the cg and qg rows again.
+//   The partials are summed in block and split order (reduce_partials):
+//   no float atomics, bitwise reruns, no zeroed workspace.
+//   fp32 (edge_mlp_bwd_kernel, the parity path): one block per SM walks
+//   the tiles (tile = block, block + blocks, ...) with edge_chain.cuh's
+//   chain_bwd on CUDA cores; it adds its products into its own slice of a
+//   [blocks, 3*C*C + 7*C] workspace (zeroed by the wrapper; a read-modify-
+//   write per tile by the block that owns the slice) and keeps its vector
+//   sums per warp in registers; reduce_partials sums the slices in block
+//   order.
 //
 // edge_mlp_pool_fwd (LaneRCNN's three LanePooling stages): per row,
 //
@@ -275,44 +317,6 @@ edge_mlp_pool_kernel(const float* __restrict__ d, const T* __restrict__ cg,
   }
 }
 
-template <typename T>
-int launch(const float* d, const void* qg, const void* cg, const void* kd, const float* bd,
-           const void* kdo, const float* gdow, const float* gdob, const void* k1,
-           const float* gchw, const float* gchb, const void* kout, void* out, int e, float eps,
-           cudaStream_t stream) {
-  const int smem = (EB * LDA + C * C) * (int)sizeof(float);
-  cudaError_t err = set_smem((const void*)edge_mlp_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (e + EB - 1) / EB;
-  if (tiles > 0) {
-    edge_mlp_kernel<T><<<tiles, NT, smem, stream>>>(
-        d, (const T*)qg, (const T*)cg, (const T*)kd, bd, (const T*)kdo, gdow, gdob, (const T*)k1,
-        gchw, gchb, (const T*)kout, (T*)out, e, eps);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_bwd(const float* d, const void* qg, const void* cg, const void* g, const void* kd,
-               const float* bd, const void* kdo, const float* gdow, const float* gdob,
-               const void* k1, const float* gchw, const float* gchb, const void* kout, float* dd,
-               void* dqg, void* dcg, float* part, float* grads, int e, int blocks, float eps,
-               cudaStream_t stream) {
-  const int smem = (4 * EB * LDA + C * C + 2 * EB) * (int)sizeof(float);
-  cudaError_t err = set_smem((const void*)edge_mlp_bwd_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (e + EB - 1) / EB;
-  if (blocks > tiles) blocks = tiles;
-  if (blocks > 0) {
-    edge_mlp_bwd_kernel<T><<<blocks, NT, smem, stream>>>(
-        d, (const T*)qg, (const T*)cg, (const T*)g, (const T*)kd, bd, (const T*)kdo, gdow, gdob,
-        (const T*)k1, gchw, gchb, (const T*)kout, dd, (T*)dqg, (T*)dcg, part, e, eps);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)reduce_partials(part, grads, blocks, EM_PART, stream);
-}
-
 // LanePooling's chain backwards in fp32 (see the header); part holds
 // blocks rows of [2*C*C + (3 + DIN)*C]: dK1, dWout (in, out), dbd, dgchw,
 // dgchb, dWd rows.
@@ -424,7 +428,8 @@ edge_mlp_pool_bwd_kernel(const float* __restrict__ d, const T* __restrict__ cg,
   sum_warp_vecs<NV>(vec_s, P + 2 * C * C);
 }
 
-// --- LanePooling's chain on tensor cores (bf16) ----------------------------
+// --- the flat chains on tensor cores (bf16): LanePooling's, and Att's
+// (ATT: the dist_out stage and the query rows) -------------------------------
 
 constexpr int PF_WGS = 3;                          // the forward's warpgroups a block
 constexpr int PF_THREADS = 128 * PF_WGS;
@@ -438,25 +443,62 @@ constexpr int DT = 128;                            // edges of a weight-gradient
 constexpr int DTB = tc::tiles_bytes(DT);
 static_assert(PW_THREADS == NT, "tc::load_tiles_128 strides by NT threads");
 
-template <int DIN>
-constexpr int pool_fwd_smem() {
-  return 2 * PWB + (DIN + 3) * C * (int)sizeof(float) + PF_WGS * 2 * (PD + PTB);
-}
-template <int DIN>
-constexpr int pool_bwd_smem() {
-  return 2 * PWB + (DIN + 3) * C * (int)sizeof(float) + PW_WGS * 2 * (PD + 2 * PTB);
+// The chain's weights in shared memory ((Wdo |) K1 | Wout) and its vectors
+// (rnd(Wd) [DIN][C], bd, (gdow, gdob,) gchw, gchb).
+template <bool ATT> __host__ __device__ constexpr int chain_mats() { return ATT ? 3 : 2; }
+template <int DIN, bool ATT>
+__host__ __device__ constexpr int chain_vecs() {
+  return DIN + (ATT ? 5 : 3);
 }
 
-// The pool kernels' vectors in shared memory: rnd(Wd) [DIN][C], bd, gchw,
-// gchb; by the block's `threads` threads.
-template <int DIN>
-__device__ __forceinline__ void load_pool_vecs(float* vec_s, const bf16* kd, const float* bd,
-                                               const float* gchw, const float* gchb,
-                                               int threads) {
-  for (int i = threadIdx.x; i < (DIN + 3) * C; i += threads) {
+// A backward warpgroup's stage: [d | cg | g] (LanePooling) or [d | g] (Att,
+// whose cg and qg rows s reads from device memory: two more staged tiles a
+// warpgroup would pass the block's shared memory). A forward one's: [d | cg]
+// (Att reads qg from device memory).
+template <bool ATT> __host__ __device__ constexpr int bwd_stage() {
+  return PD + (ATT ? 1 : 2) * PTB;
+}
+
+template <int DIN, bool ATT>
+constexpr int fwd_tc_smem() {
+  return chain_mats<ATT>() * PWB + chain_vecs<DIN, ATT>() * C * (int)sizeof(float) +
+         PF_WGS * 2 * (PD + PTB);
+}
+template <int DIN, bool ATT>
+constexpr int bwd_tc_smem() {
+  return chain_mats<ATT>() * PWB + chain_vecs<DIN, ATT>() * C * (int)sizeof(float) +
+         PW_WGS * 2 * bwd_stage<ATT>();
+}
+static_assert(fwd_tc_smem<2, true>() <= 232448 && fwd_tc_smem<4, false>() <= 232448 &&
+                  bwd_tc_smem<2, true>() <= 232448 && bwd_tc_smem<4, false>() <= 232448,
+              "a block's shared memory");
+
+// The chain's vectors in shared memory (chain_vecs' order) by the block's
+// `threads` threads; gdow and gdob only with ATT.
+template <int DIN, bool ATT>
+__device__ __forceinline__ void load_chain_vecs(float* vec_s, const bf16* kd, const float* bd,
+                                                const float* gdow, const float* gdob,
+                                                const float* gchw, const float* gchb,
+                                                int threads) {
+  const float* v[5] = {bd, ATT ? gdow : gchw, ATT ? gdob : gchb, gchw, gchb};
+  for (int i = threadIdx.x; i < chain_vecs<DIN, ATT>() * C; i += threads) {
     const int k = i / C, j = i % C;
-    vec_s[i] = k < DIN ? __bfloat162float(kd[i]) : k == DIN ? bd[j] : k == DIN + 1 ? gchw[j]
-                                                                                    : gchb[j];
+    vec_s[i] = k < DIN ? __bfloat162float(kd[i]) : v[k - DIN][j];
+  }
+}
+
+// The chain's weights into core tiles at W_b (chain_mats' order), landed
+// for the caller's barrier: LanePooling's by the first NT threads, Att's
+// by cp.async (edge_tc.cuh load_chain_weights).
+template <bool ATT>
+__device__ __forceinline__ void load_chain_mats(uint8_t* W_b, const bf16* kdo, const bf16* k1,
+                                                const bf16* kout, int threads) {
+  if constexpr (ATT) {
+    load_chain_weights(W_b, kdo, k1, kout, threads);
+    cp_async_wait<0>();
+  } else if (threadIdx.x < NT) {  // tc::load_tiles_128 strides by NT threads
+    tc::load_tiles_128(W_b, tc::tiles(W_b, C), k1);
+    tc::load_tiles_128(W_b + PWB, tc::tiles(W_b + PWB, C), kout);
   }
 }
 
@@ -498,8 +540,8 @@ __device__ __forceinline__ void d_rows(float (&dr)[2][DIN], const float* D, int 
 }
 
 // t1 = rnd(relu(dr @ rnd(Wd) + bd)) of the thread's two rows as bf16 pairs
-// in the accumulator layout: the register-A fragments of t1 @ K1. The DIN
-// products are summed in order with fmaf, as tile_t1.
+// in the accumulator layout: the register-A fragments of t1 @ K1 (Att:
+// t1 @ Wdo). The DIN products are summed in order with fmaf, as tile_t1.
 template <int DIN>
 __device__ __forceinline__ void t1_frags(const float (&dr)[2][DIN], const float* wd,
                                          const float* bd, uint32_t (&a)[32]) {
@@ -526,31 +568,62 @@ __device__ __forceinline__ auto add_staged(const uint8_t* X_b, const tc::Tiles& 
   };
 }
 
-// The forward (see the header). Warpgroup g of block b takes tiles
-// b·PF_WGS + g, then every PF_WGS·B-th one; per warpgroup two stages of
-// [d | cg] (cg's tile then takes the output).
-template <int DIN>
-__global__ void __launch_bounds__(PF_THREADS, 1)
-edge_mlp_pool_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ cg,
-                        const bf16* __restrict__ kd, const float* __restrict__ bd,
-                        const bf16* __restrict__ k1, const float* __restrict__ gchw,
-                        const float* __restrict__ gchb, const bf16* __restrict__ kout,
-                        bf16* __restrict__ out, int e, float eps) {
+// Att's: s += cg from its staged tile, then qg from device memory (rows
+// before e), in the plain version's order.
+__device__ __forceinline__ auto add_staged_q(const uint8_t* X_b, const tc::Tiles& X, int r0,
+                                             const bf16* qg, long row0, int e) {
+  return [X_b, X, r0, qg, row0, e](int h, int c, float& x0, float& x1) {
+    const float2 v = staged_pair(X_b, X, r0 + 8 * h, c);
+    x0 += v.x;
+    x1 += v.y;
+    const long row = row0 + r0 + 8 * h;
+    if (row < e) {
+      const float2 q = ld_bf2(qg + row * C + c);
+      x0 += q.x;
+      x1 += q.y;
+    }
+  };
+}
+
+// The thread's two rows of bf16 pairs a (the accumulator layout) to columns
+// col .. col + C − 1 of rows row0 + r0 and row0 + r0 + 8 of dst [e, ld],
+// where ok.
+__device__ __forceinline__ void store_pairs(bf16* dst, int ld, long row0, int r0,
+                                            const bool (&ok)[2], int col,
+                                            const uint32_t (&a)[32]) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int h = tc::acc_half(i);
+    if (ok[h])
+      *reinterpret_cast<uint32_t*>(dst + (row0 + r0 + 8 * h) * ld + col + tc::acc_col(i)) =
+          a[i / 2];
+  }
+}
+
+// The forward (see the header), LanePooling's chain or Att's: warpgroup g
+// of block b takes tiles b·PF_WGS + g, then every PF_WGS·B-th one; per
+// warpgroup two stages of [d | cg] (cg's tile then takes the output).
+template <int DIN, bool ATT>
+__device__ __forceinline__ void fwd_tc(const float* d, const bf16* qg, const bf16* cg,
+                                       const bf16* kd, const float* bd, const bf16* kdo,
+                                       const float* gdow, const float* gdob, const bf16* k1,
+                                       const float* gchw, const float* gchb, const bf16* kout,
+                                       bf16* out, int e, float eps) {
+  constexpr int NW = chain_mats<ATT>(), NV = chain_vecs<DIN, ATT>();
   constexpr int STAGE = PD + PTB;
   extern __shared__ float4 smem4[];
-  uint8_t* W_b = reinterpret_cast<uint8_t*>(smem4);                 // K1 | Wout
-  float* vec_s = reinterpret_cast<float*>(W_b + 2 * PWB);            // Wd, bd, gchw, gchb
-  uint8_t* S_b = reinterpret_cast<uint8_t*>(vec_s + (DIN + 3) * C);  // [PF_WGS][2][d | cg]
+  uint8_t* W_b = reinterpret_cast<uint8_t*>(smem4);          // (Wdo |) K1 | Wout
+  float* vec_s = reinterpret_cast<float*>(W_b + NW * PWB);    // Wd, bd, (gdow, gdob,) gchw, gchb
+  uint8_t* S_b = reinterpret_cast<uint8_t*>(vec_s + NV * C);  // [PF_WGS][2][d | cg]
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
-  const tc::Tiles K1 = tc::tiles(W_b, C), Wout = tc::tiles(W_b + PWB, C);
-  if (threadIdx.x < NT) {  // tc::load_tiles_128 strides by NT threads
-    tc::load_tiles_128(W_b, K1, k1);
-    tc::load_tiles_128(W_b + PWB, Wout, kout);
-  }
-  load_pool_vecs<DIN>(vec_s, kd, bd, gchw, gchb, PF_THREADS);
+  const tc::Tiles Wdo = tc::tiles(W_b, C), K1 = tc::tiles(W_b + (NW - 2) * PWB, C),
+                  Wout = tc::tiles(W_b + (NW - 1) * PWB, C);
+  load_chain_mats<ATT>(W_b, kdo, k1, kout, PF_THREADS);
+  load_chain_vecs<DIN, ATT>(vec_s, kd, bd, gdow, gdob, gchw, gchb, PF_THREADS);
   tc::fence_smem();
   __syncthreads();  // the weights (for wgmma) and the vectors in place
-  const float *wd_s = vec_s, *bd_s = vec_s + DIN * C, *gw_s = bd_s + C, *gb_s = gw_s + C;
+  const float *wd_s = vec_s, *bd_s = vec_s + DIN * C, *gw_s = vec_s + (NV - 2) * C,
+              *gb_s = vec_s + (NV - 1) * C;
 
   const int ntiles = (e + PT - 1) / PT, step = gridDim.x * PF_WGS, r0 = tc::acc_row(0);
   uint8_t* stage0 = S_b + wg * 2 * STAGE;
@@ -576,9 +649,18 @@ edge_mlp_pool_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ cg
     uint32_t a[32];
     d_rows<DIN>(dr, D, r0);
     t1_frags<DIN>(dr, wd_s, bd_s, a);
-    tc::zero(acc);  // s = t1 @ K1
+    if constexpr (ATT) {  // z = t1 @ Wdo; a ← t2 = rnd(relu(GN_do(z)))
+      float mu[2];
+      tc::zero(acc);
+      mm_frag(acc, a, Wdo);
+      t2_from_z(acc, bd_s + C, bd_s + 2 * C, eps, mu, inv, a);
+    }
+    tc::zero(acc);  // s = t2 @ K1 (LanePooling: t1 @ K1)
     mm_frag(acc, a, K1);
-    e1_from_s(acc, add_staged(X_b, X, r0), gw_s, gb_s, eps, inv, a);
+    if constexpr (ATT)
+      e1_from_s(acc, add_staged_q(X_b, X, r0, qg, (long)tile * PT, e), gw_s, gb_s, eps, inv, a);
+    else
+      e1_from_s(acc, add_staged(X_b, X, r0), gw_s, gb_s, eps, inv, a);
     tc::zero(acc);  // out = e1 @ Wout, into cg's tile
     mm_frag(acc, a, Wout);
 #pragma unroll
@@ -589,40 +671,66 @@ edge_mlp_pool_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ cg
   }
 }
 
-// The backward's chain pass (pass 1, see the header): the forward's grid
-// and walk, per warpgroup two stages of [d | cg | g] (g's tile then takes
-// dcg). part_v: [blocks][3 + DIN][C], the block's vector sums.
 template <int DIN>
-__global__ void __launch_bounds__(PW_THREADS, 1)
-edge_mlp_pool_bwd_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ cg,
-                            const bf16* __restrict__ g, const bf16* __restrict__ kd,
-                            const float* __restrict__ bd, const bf16* __restrict__ k1,
-                            const float* __restrict__ gchw, const float* __restrict__ gchb,
-                            const bf16* __restrict__ kout, float* __restrict__ dd,
-                            bf16* __restrict__ dcg, float* __restrict__ part_v, int e,
-                            float eps) {
-  constexpr int NV = 3 + DIN;  // dbd, dgchw, dgchb, the dWd rows
-  constexpr int STAGE = PD + 2 * PTB;
+__global__ void __launch_bounds__(PF_THREADS, 1)
+edge_mlp_pool_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ cg,
+                        const bf16* __restrict__ kd, const float* __restrict__ bd,
+                        const bf16* __restrict__ k1, const float* __restrict__ gchw,
+                        const float* __restrict__ gchb, const bf16* __restrict__ kout,
+                        bf16* __restrict__ out, int e, float eps) {
+  fwd_tc<DIN, false>(d, nullptr, cg, kd, bd, nullptr, nullptr, nullptr, k1, gchw, gchb, kout, out,
+                     e, eps);
+}
+
+__global__ void __launch_bounds__(PF_THREADS, 1)
+edge_mlp_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ qg,
+                   const bf16* __restrict__ cg, const bf16* __restrict__ kd,
+                   const float* __restrict__ bd, const bf16* __restrict__ kdo,
+                   const float* __restrict__ gdow, const float* __restrict__ gdob,
+                   const bf16* __restrict__ k1, const float* __restrict__ gchw,
+                   const float* __restrict__ gchb, const bf16* __restrict__ kout,
+                   bf16* __restrict__ out, int e, float eps) {
+  fwd_tc<2, true>(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, out, e, eps);
+}
+
+// The backward's chain pass (pass 1, see the header), LanePooling's chain
+// or Att's: the forward's grid and walk with PW_WGS warpgroups a block, per
+// warpgroup two stages (bwd_stage; g's tile then takes rnd(d_s)). part_v:
+// [blocks][NV][C], the block's vector sums: dbd, (dgdow, dgdob,) dgchw,
+// dgchb, the DIN rows of dWd. Att's also writes each row's weight-gradient
+// operands t1 | t2 | e1 | rnd(d_z) to act [e, 4C], and rnd(d_s) to dqg too.
+template <int DIN, bool ATT>
+__device__ __forceinline__ void bwd_tc(const float* d, const bf16* qg, const bf16* cg,
+                                       const bf16* g, const bf16* kd, const float* bd,
+                                       const bf16* kdo, const float* gdow, const float* gdob,
+                                       const bf16* k1, const float* gchw, const float* gchb,
+                                       const bf16* kout, float* dd, bf16* dqg, bf16* dcg,
+                                       bf16* act, float* part_v, int e, float eps) {
+  constexpr int NW = chain_mats<ATT>(), NV = chain_vecs<DIN, ATT>();
+  constexpr int VCH = ATT ? 3 : 1;  // the column sums: dbd, (dgdow, dgdob,) dgchw, dgchb, dWd
+  constexpr int STAGE = bwd_stage<ATT>();
+  constexpr int G_AT = PD + (ATT ? 0 : PTB);  // g's tile in a stage (LanePooling: after cg's)
   extern __shared__ float4 smem4[];
-  uint8_t* W_b = reinterpret_cast<uint8_t*>(smem4);                 // K1 | Wout
-  float* vec_s = reinterpret_cast<float*>(W_b + 2 * PWB);            // Wd, bd, gchw, gchb
-  uint8_t* S_b = reinterpret_cast<uint8_t*>(vec_s + (DIN + 3) * C);  // [PW_WGS][2][d | cg | g]
+  uint8_t* W_b = reinterpret_cast<uint8_t*>(smem4);          // (Wdo |) K1 | Wout
+  float* vec_s = reinterpret_cast<float*>(W_b + NW * PWB);    // Wd, bd, (gdow, gdob,) gchw, gchb
+  uint8_t* S_b = reinterpret_cast<uint8_t*>(vec_s + NV * C);  // [PW_WGS][2][stage]
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
-  const tc::Tiles K1 = tc::tiles(W_b, C), Wout = tc::tiles(W_b + PWB, C);
-  tc::load_tiles_128(W_b, K1, k1);
-  tc::load_tiles_128(W_b + PWB, Wout, kout);
-  load_pool_vecs<DIN>(vec_s, kd, bd, gchw, gchb, PW_THREADS);
+  const tc::Tiles Wdo = tc::tiles(W_b, C), K1 = tc::tiles(W_b + (NW - 2) * PWB, C),
+                  Wout = tc::tiles(W_b + (NW - 1) * PWB, C);
+  load_chain_mats<ATT>(W_b, kdo, k1, kout, PW_THREADS);
+  load_chain_vecs<DIN, ATT>(vec_s, kd, bd, gdow, gdob, gchw, gchb, PW_THREADS);
   tc::fence_smem();
   __syncthreads();  // the weights (for wgmma) and the vectors in place
-  const float *wd_s = vec_s, *bd_s = vec_s + DIN * C, *gw_s = bd_s + C, *gb_s = gw_s + C;
+  const float *wd_s = vec_s, *bd_s = vec_s + DIN * C, *gw_s = vec_s + (NV - 2) * C,
+              *gb_s = vec_s + (NV - 1) * C;
 
   const int ntiles = (e + PT - 1) / PT, step = gridDim.x * PW_WGS, r0 = tc::acc_row(0);
   uint8_t* stage0 = S_b + wg * 2 * STAGE;
-  auto fetch = [&](int tile, int s) {  // one commit group: the tile's d, cg and g rows
+  auto fetch = [&](int tile, int s) {  // one commit group: the tile's d, (cg,) g rows
     uint8_t* st = stage0 + s * STAGE;
     fetch_d<DIN>(reinterpret_cast<float*>(st), d, (long)tile * PT, PT, e, t, 128);
-    fetch_rows(st + PD, cg, (long)tile * PT, PT, e, t, 128);
-    fetch_rows(st + PD + PTB, g, (long)tile * PT, PT, e, t, 128);
+    if constexpr (!ATT) fetch_rows(st + PD, cg, (long)tile * PT, PT, e, t, 128);
+    fetch_rows(st + G_AT, g, (long)tile * PT, PT, e, t, 128);
     cp_async_commit();
   };
   float va[NV][4];  // column sums (this lane's 4 columns)
@@ -639,15 +747,15 @@ edge_mlp_pool_bwd_tc_kernel(const float* __restrict__ d, const bf16* __restrict_
     const long row0 = (long)tile * PT;
     const float* D = reinterpret_cast<const float*>(stage0 + s * STAGE);
     const uint8_t* X_b = stage0 + s * STAGE + PD;
-    uint8_t* Y_b = stage0 + s * STAGE + PD + PTB;
+    uint8_t* Y_b = stage0 + s * STAGE + G_AT;
     const tc::Tiles X = tc::tiles(X_b, PT), Y = tc::tiles(Y_b, PT);
     const bool ok[2] = {row0 + r0 < e, row0 + r0 + 8 < e};
-    float dr[2][DIN], acc[64], acc2[64], inv[2];
+    float dr[2][DIN], acc[64], acc2[64], inv[2], muz[2], invz[2];
     uint32_t a[32];
     d_rows<DIN>(dr, D, r0);
     t1_frags<DIN>(dr, wd_s, bd_s, a);
 
-    // s = t1 @ K1 beside d_e1 = g @ Woutᵀ.
+    // Att: z = t1 @ Wdo; LanePooling: s = t1 @ K1; beside d_e1 = g @ Woutᵀ.
     tc::zero(acc);
     tc::zero(acc2);
     tc::fence_acc(acc);
@@ -656,14 +764,25 @@ edge_mlp_pool_bwd_tc_kernel(const float* __restrict__ d, const bf16* __restrict_
 #pragma unroll
     for (int ks = 0; ks < C / 16; ++ks)
       tc::mma_rs<1>(acc, *reinterpret_cast<const uint32_t(*)[4]>(&a[4 * ks]),
-                    tc::desc(K1, false, ks, 0));
+                    tc::desc(ATT ? Wdo : K1, false, ks, 0));
     tc::mm<C / 16, true, true>(acc2, Y, 0, Wout);
     tc::commit();
     tc::wait_all();
     tc::fence_acc(acc);
     tc::fence_acc(acc2);
-    // s += cg; acc ← nrm_s, a ← e1; acc2 ← d_gn = d_e1 ⊙ [e1 > 0] (0 past e).
-    e1_from_s(acc, add_staged(X_b, X, r0), gw_s, gb_s, eps, inv, a);
+    if constexpr (ATT) {  // t1, t2 to act; s = t2 @ K1; s += cg + qg; e1 to act
+      const int uu[2] = {(int)row0 + r0, (int)row0 + r0 + 8};
+      store_pairs(act, 4 * C, row0, r0, ok, 0, a);
+      t2_from_z(acc, bd_s + C, bd_s + 2 * C, eps, muz, invz, a);
+      store_pairs(act, 4 * C, row0, r0, ok, C, a);
+      tc::zero(acc);
+      mm_frag(acc, a, K1);
+      e1_from_s(acc, add_cq(ok, uu, uu, cg, qg), gw_s, gb_s, eps, inv, a);
+      store_pairs(act, 4 * C, row0, r0, ok, 2 * C, a);
+    } else {  // s += cg
+      e1_from_s(acc, add_staged(X_b, X, r0), gw_s, gb_s, eps, inv, a);
+    }
+    // acc ← nrm_s, a ← e1; acc2 ← d_gn = d_e1 ⊙ [e1 > 0] (0 past e).
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
       const int h = tc::acc_half(i);
@@ -671,15 +790,26 @@ edge_mlp_pool_bwd_tc_kernel(const float* __restrict__ d, const bf16* __restrict_
       acc2[i] = ok[h] && ef.x > 0.f ? acc2[i] : 0.f;
       acc2[i + 1] = ok[h] && ef.y > 0.f ? acc2[i + 1] : 0.f;
     }
-    col_sums<true>(va[1], acc2, acc);    // dgchw
-    col_sums<false>(va[2], acc2, acc2);  // dgchb
-    gn_bwd_acc(acc2, acc, inv, gw_s, a);  // a ← rnd(d_s) = dcg
-    wg_sync();  // every warp's products are done with g's tile, which takes dcg
+    col_sums<true>(va[VCH], acc2, acc);        // dgchw
+    col_sums<false>(va[VCH + 1], acc2, acc2);  // dgchb
+    gn_bwd_acc(acc2, acc, inv, gw_s, a);  // a ← rnd(d_s) = dcg (= dqg)
+    wg_sync();  // every warp's products are done with g's tile, which takes rnd(d_s)
     put_pairs(Y_b, Y, r0, a);
 
-    // d_t1 = rnd(d_s) @ K1ᵀ; d_t1p = d_t1 ⊙ [t1 > 0] (t1 made again).
+    // LanePooling: d_t1 = rnd(d_s) @ K1ᵀ. Att: d_t2 = rnd(d_s) @ K1ᵀ, z
+    // again, rnd(d_z) to act, d_t1 = rnd(d_z) @ Wdoᵀ.
     tc::zero(acc);
     mm_frag<true>(acc, a, K1);
+    if constexpr (ATT) {
+      t1_frags<DIN>(dr, wd_s, bd_s, a);
+      tc::zero(acc2);
+      mm_frag(acc2, a, Wdo);
+      gn_do_bwd(acc, acc2, muz, invz, ok, bd_s + C, bd_s + 2 * C, va[1], va[2], a);
+      store_pairs(act, 4 * C, row0, r0, ok, 3 * C, a);
+      tc::zero(acc);
+      mm_frag<true>(acc, a, Wdo);
+    }
+    // d_t1p = d_t1 ⊙ [t1 > 0] (t1 made again).
     t1_frags<DIN>(dr, wd_s, bd_s, a);
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
@@ -696,7 +826,7 @@ edge_mlp_pool_bwd_tc_kernel(const float* __restrict__ d, const bf16* __restrict_
       float dv[64];
 #pragma unroll
       for (int i = 0; i < 64; ++i) dv[i] = dr[tc::acc_half(i)][kk];
-      col_sums<true>(va[3 + kk], acc, dv);
+      col_sums<true>(va[VCH + 2 + kk], acc, dv);
       if (dd) {  // dd[row][kk] = rnd(d_t1p) · rnd(Wd)[kk]
         float p[2] = {0.f, 0.f};
 #pragma unroll
@@ -708,8 +838,9 @@ edge_mlp_pool_bwd_tc_kernel(const float* __restrict__ d, const bf16* __restrict_
         }
       }
     }
-    wg_sync();  // dcg's tile complete
+    wg_sync();  // rnd(d_s)'s tile complete
     store_rows(dcg, Y_b, Y, row0, PT, e, t, 128);
+    if constexpr (ATT) store_rows(dqg, Y_b, Y, row0, PT, e, t, 128);
   }
 
   // The block's vectors: each warp's columns, summed over the warps in order.
@@ -727,6 +858,41 @@ edge_mlp_pool_bwd_tc_kernel(const float* __restrict__ d, const bf16* __restrict_
     for (int w = 0; w < PW_THREADS / 32; ++w) sum += red_s[w * NV * C + i];
     part_v[(long)blockIdx.x * NV * C + i] = sum;
   }
+}
+
+template <int DIN>
+__global__ void __launch_bounds__(PW_THREADS, 1)
+edge_mlp_pool_bwd_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ cg,
+                            const bf16* __restrict__ g, const bf16* __restrict__ kd,
+                            const float* __restrict__ bd, const bf16* __restrict__ k1,
+                            const float* __restrict__ gchw, const float* __restrict__ gchb,
+                            const bf16* __restrict__ kout, float* __restrict__ dd,
+                            bf16* __restrict__ dcg, float* __restrict__ part_v, int e,
+                            float eps) {
+  bwd_tc<DIN, false>(d, nullptr, cg, g, kd, bd, nullptr, nullptr, nullptr, k1, gchw, gchb, kout,
+                     dd, nullptr, dcg, nullptr, part_v, e, eps);
+}
+
+__global__ void __launch_bounds__(PW_THREADS, 1)
+edge_mlp_bwd_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ qg,
+                       const bf16* __restrict__ cg, const bf16* __restrict__ g,
+                       const bf16* __restrict__ kd, const float* __restrict__ bd,
+                       const bf16* __restrict__ kdo, const float* __restrict__ gdow,
+                       const float* __restrict__ gdob, const bf16* __restrict__ k1,
+                       const float* __restrict__ gchw, const float* __restrict__ gchb,
+                       const bf16* __restrict__ kout, float* __restrict__ dd,
+                       bf16* __restrict__ dqg, bf16* __restrict__ dcg, bf16* __restrict__ act,
+                       float* __restrict__ part_v, int e, float eps) {
+  bwd_tc<2, true>(d, qg, cg, g, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, dd, dqg, dcg, act,
+                  part_v, e, eps);
+}
+
+// Att's weight gradients (pass 2, edge_tc.cuh dw_tc): row p of the list is
+// edge p; rnd(d_s) is dcg.
+__global__ void __launch_bounds__(NT)
+edge_mlp_dw_tc_kernel(const bf16* __restrict__ act, const bf16* __restrict__ dcg,
+                      const bf16* __restrict__ g, int e, float* __restrict__ part) {
+  dw_tc(act, dcg, C, g, nullptr, e, part);
 }
 
 // The backward's weight-gradient pass (pass 2, see the header): block
@@ -765,7 +931,7 @@ edge_mlp_pool_dw_tc_kernel(const float* __restrict__ d, const bf16* __restrict__
   const int y = blockIdx.y, wg = threadIdx.x >> 7;
   const tc::Tiles K1 = tc::tiles(W_b, C), A = tc::tiles(A_b, DT);
   if (y == 1) tc::load_tiles_128(W_b, K1, k1);
-  load_pool_vecs<DIN>(vec_s, kd, bd, gchw, gchb, PW_THREADS);
+  load_chain_vecs<DIN, false>(vec_s, kd, bd, nullptr, nullptr, gchw, gchb, PW_THREADS);
   tc::fence_smem();
   __syncthreads();  // K1 (for wgmma) and the vectors in place
   const float *wd_s = vec_s, *bd_s = vec_s + DIN * C, *gw_s = bd_s + C, *gb_s = gw_s + C;
@@ -865,13 +1031,97 @@ edge_mlp_pool_dw_tc_kernel(const float* __restrict__ d, const bf16* __restrict__
         make_float2(accw[i], accw[i + 1]);
 }
 
+template <typename T>
+int launch(const float* d, const void* qg, const void* cg, const void* kd, const float* bd,
+           const void* kdo, const float* gdow, const float* gdob, const void* k1,
+           const float* gchw, const float* gchb, const void* kout, void* out, int e, float eps,
+           cudaStream_t stream) {
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int smem = fwd_tc_smem<2, true>();
+    err = set_smem((const void*)edge_mlp_tc_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return (int)cudaGetLastError();
+    const int tiles = (e + PT - 1) / PT, blocks = min(sms, (tiles + PF_WGS - 1) / PF_WGS);
+    if (blocks > 0)
+      edge_mlp_tc_kernel<<<blocks, PF_THREADS, smem, stream>>>(
+          d, (const bf16*)qg, (const bf16*)cg, (const bf16*)kd, bd, (const bf16*)kdo, gdow, gdob,
+          (const bf16*)k1, gchw, gchb, (const bf16*)kout, (bf16*)out, e, eps);
+  } else {
+    const int smem = (EB * LDA + C * C) * (int)sizeof(float);
+    err = set_smem((const void*)edge_mlp_kernel<T>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int tiles = (e + EB - 1) / EB;
+    if (tiles > 0)
+      edge_mlp_kernel<T><<<tiles, NT, smem, stream>>>(
+          d, (const T*)qg, (const T*)cg, (const T*)kd, bd, (const T*)kdo, gdow, gdob, (const T*)k1,
+          gchw, gchb, (const T*)kout, (T*)out, e, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
+// part: bf16 [blocks][7*C] (the chain pass's vector sums) then
+// [splits][3*C*C] (the dW pass's partials), act [e, 4*C] bf16; fp32 one
+// zeroed row of EM_PART per block, act unused.
+template <typename T>
+int launch_bwd(const float* d, const void* qg, const void* cg, const void* g, const void* kd,
+               const float* bd, const void* kdo, const float* gdow, const float* gdob,
+               const void* k1, const float* gchw, const float* gchb, const void* kout, float* dd,
+               void* dqg, void* dcg, void* act, float* part, float* grads, int e, int blocks,
+               int splits, float eps, cudaStream_t stream) {
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int nb = min(blocks, ((e + PT - 1) / PT + PW_WGS - 1) / PW_WGS);
+    const int sp = min(splits, (e + DW_TE - 1) / DW_TE);
+    float* part_w = part + (long)blocks * 7 * C;
+    if (nb > 0) {
+      int smem = bwd_tc_smem<2, true>();
+      err = set_smem((const void*)edge_mlp_bwd_tc_kernel, smem);
+      if (err != cudaSuccess) return (int)err;
+      edge_mlp_bwd_tc_kernel<<<nb, PW_THREADS, smem, stream>>>(
+          d, (const bf16*)qg, (const bf16*)cg, (const bf16*)g, (const bf16*)kd, bd,
+          (const bf16*)kdo, gdow, gdob, (const bf16*)k1, gchw, gchb, (const bf16*)kout, dd,
+          (bf16*)dqg, (bf16*)dcg, (bf16*)act, part, e, eps);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      smem = dw_tc_smem();
+      err = set_smem((const void*)edge_mlp_dw_tc_kernel, smem);
+      if (err != cudaSuccess) return (int)err;
+      edge_mlp_dw_tc_kernel<<<dim3(sp, 3), NT, smem, stream>>>(
+          (const bf16*)act, (const bf16*)dcg, (const bf16*)g, e, part_w);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    err = reduce_partials(part_w, grads, sp, 3 * C * C, stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)reduce_partials(part, grads + 3 * C * C, nb, 7 * C, stream);
+  } else {
+    const int smem = (4 * EB * LDA + C * C + 2 * EB) * (int)sizeof(float);
+    err = set_smem((const void*)edge_mlp_bwd_kernel<T>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int tiles = (e + EB - 1) / EB;
+    if (blocks > tiles) blocks = tiles;
+    if (blocks > 0) {
+      edge_mlp_bwd_kernel<T><<<blocks, NT, smem, stream>>>(
+          d, (const T*)qg, (const T*)cg, (const T*)g, (const T*)kd, bd, (const T*)kdo, gdow, gdob,
+          (const T*)k1, gchw, gchb, (const T*)kout, dd, (T*)dqg, (T*)dcg, part, e, eps);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    return (int)reduce_partials(part, grads, blocks, EM_PART, stream);
+  }
+}
+
 template <typename T, int DIN>
 int launch_pool(const float* d, const void* cg, const void* kd, const float* bd, const void* k1,
                 const float* gchw, const float* gchb, const void* kout, void* out, int e,
                 float eps, cudaStream_t stream) {
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
-    const int smem = pool_fwd_smem<DIN>();
+    const int smem = fwd_tc_smem<DIN, false>();
     err = set_smem((const void*)edge_mlp_pool_tc_kernel<DIN>, smem);
     if (err != cudaSuccess) return (int)err;
     int dev = 0, sms = 0;
@@ -911,7 +1161,7 @@ int launch_pool_bwd(const float* d, const void* cg, const void* g, const void* k
     const int splits = min(blocks, (e + DT - 1) / DT);
     float* part_v = part + (long)blocks * 2 * C * C;
     if (nb > 0) {
-      int smem = pool_bwd_smem<DIN>();
+      int smem = bwd_tc_smem<DIN, false>();
       err = set_smem((const void*)edge_mlp_pool_bwd_tc_kernel<DIN>, smem);
       if (err != cudaSuccess) return (int)err;
       edge_mlp_pool_bwd_tc_kernel<DIN><<<nb, PW_THREADS, smem, stream>>>(
@@ -952,6 +1202,7 @@ int launch_pool_bwd(const float* d, const void* cg, const void* g, const void* k
 
 // dtype: 0 = float32, 1 = bfloat16 (qg, cg, kd [2, C], kdo, k1, kout (in,
 // out), out); d fp32 [e, 2]; bd and the GN vectors fp32 [128]; out [e, 128].
+// bf16: d, qg, cg and out 16-byte aligned (cp.async and 16-byte row stores).
 extern "C" int edge_mlp_fwd(const void* d, const void* qg, const void* cg, const void* kd,
                             const void* bd, const void* kdo, const void* gdow, const void* gdob,
                             const void* k1, const void* gchw, const void* gchb, const void* kout,
@@ -988,25 +1239,30 @@ extern "C" int edge_mlp_pool_fwd(const void* d, const void* cg, const void* kd, 
 }
 
 // Backward. g: the output cotangent [e, 128] in the activation dtype; dd fp32
-// [e, 2]; dqg/dcg [e, 128] in the activation dtype; part: fp32 [blocks,
-// 3*C*C + 7*C], zero on entry; grads: fp32 [3*C*C + 7*C] = dWdo, dK1, dWout
-// (in, out), dbd, dgdow, dgdob, dgchw, dgchb, dWd row 0, dWd row 1, the
-// slices' sum in block order.
+// [e, 2]; dqg/dcg [e, 128] in the activation dtype; grads: fp32 [3*C*C +
+// 7*C] = dWdo, dK1, dWout (in, out), dbd, dgdow, dgdob, dgchw, dgchb, dWd
+// row 0, dWd row 1, the partials' sums in block (split) order. part, act:
+// workspaces (see launch_bwd): bf16 part fp32 [blocks*7*C + splits*3*C*C]
+// and act bf16 [e, 4*C]; fp32 part [blocks, 3*C*C + 7*C], zero on entry,
+// and act null. blocks: the card's SMs; splits: the bf16 weight-gradient
+// pass's splits. bf16: d, qg, cg, g, dqg and dcg 16-byte aligned.
 extern "C" int edge_mlp_bwd(const void* d, const void* qg, const void* cg, const void* g,
                             const void* kd, const void* bd, const void* kdo, const void* gdow,
                             const void* gdob, const void* k1, const void* gchw, const void* gchb,
-                            const void* kout, void* dd, void* dqg, void* dcg, void* part,
-                            void* grads, int e, int blocks, float eps, int dtype, void* stream) {
+                            const void* kout, void* dd, void* dqg, void* dcg, void* act,
+                            void* part, void* grads, int e, int blocks, int splits, float eps,
+                            int dtype, void* stream) {
+  if (e < 0 || blocks < 1 || splits < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float *dp = (const float*)d, *b = (const float*)bd, *g0 = (const float*)gdow,
               *g1 = (const float*)gdob, *g2 = (const float*)gchw, *g3 = (const float*)gchb;
   float *ddp = (float*)dd, *pt = (float*)part, *gr = (float*)grads;
   if (dtype == 0)
     return launch_bwd<float>(dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg, dcg,
-                             pt, gr, e, blocks, eps, st);
+                             act, pt, gr, e, blocks, splits, eps, st);
   if (dtype == 1)
     return launch_bwd<bf16>(dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg, dcg,
-                            pt, gr, e, blocks, eps, st);
+                            act, pt, gr, e, blocks, splits, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 

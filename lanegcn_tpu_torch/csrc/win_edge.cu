@@ -86,22 +86,8 @@ __device__ __forceinline__ void gather_t1(float* A_s, const int* lu_s, const int
   }
 }
 
-// --- the bf16 chain on tensor cores, shared by the forward and the
-// backward's recompute -----------------------------------------------------
-
-// Wdo | K1 | Wout into core tiles at W_b (one cp.async group, not waited
-// for), by the block's `threads` threads.
-__device__ __forceinline__ void load_chain_weights(uint8_t* W_b, const bf16* kdo, const bf16* k1,
-                                                   const bf16* kout, int threads) {
-  const tc::Tiles t = tc::tiles(W_b, C);
-  for (int i = threadIdx.x; i < 3 * C * C / 8; i += threads) {
-    const int m = i / (C * C / 8), j = i % (C * C / 8);
-    const int r = ((j >> 7) << 3) + (j & 7), c = ((j >> 3) & 15) * 8;
-    const bf16* src = m == 0 ? kdo : m == 1 ? k1 : kout;
-    cp_async16(W_b + m * WB + tc::tile_off(t, r, c), src + r * C + c);
-  }
-  cp_async_commit();
-}
+// --- the bf16 chain's t1, shared by the forward and the backward (the
+// chain's other pieces: edge_tc.cuh) --------------------------------------
 
 // rnd(relu(Pd[u] + Ps[v] + bd)) of 8 channels: 16 bytes of a Pd row and of a
 // Ps row, bd at the same channels.
@@ -119,34 +105,6 @@ __device__ __forceinline__ uint4 t1_pack8(const bf16* pd_row, const bf16* ps_row
     op[q] = tc::pack_bf2(fmaxf(x.x + y.x + bd[2 * q], 0.f), fmaxf(x.y + y.y + bd[2 * q + 1], 0.f));
   }
   return o;
-}
-
-// t2 = rnd(relu(GN_do(z))) from z's accumulator as bf16 pairs: t2[i / 2]
-// holds elements i and i + 1, which is also the register-A fragment of
-// t2 @ K1 (k slice ks: t2[4ks .. 4ks + 3]). mu / inv: z's row statistics.
-__device__ __forceinline__ void t2_from_z(const float (&acc)[64], const float* w, const float* b,
-                                          float eps, float (&mu)[2], float (&inv)[2],
-                                          uint32_t (&t2)[32]) {
-  tc::acc_row_stats(acc, eps, mu, inv);
-#pragma unroll
-  for (int i = 0; i < 64; i += 2) {
-    const int h = tc::acc_half(i), c = tc::acc_col(i);
-    t2[i / 2] = tc::pack_bf2(fmaxf((acc[i] - mu[h]) * inv[h] * w[c] + b[c], 0.f),
-                             fmaxf((acc[i + 1] - mu[h]) * inv[h] * w[c + 1] + b[c + 1], 0.f));
-  }
-}
-
-// e1_from_s's row addition for Att's chain: s += Cs[v] + Qd[u] on the
-// thread's edge rows (ok).
-__device__ __forceinline__ auto add_cq(const bool (&ok)[2], const int (&uu)[2],
-                                       const int (&vv)[2], const bf16* cs, const bf16* qd) {
-  return [&ok, &uu, &vv, cs, qd](int h, int c, float& x0, float& x1) {
-    if (ok[h]) {
-      const float2 cv = ld_bf2(cs + (long)vv[h] * C + c), qv = ld_bf2(qd + (long)uu[h] * C + c);
-      x0 = x0 + cv.x + qv.x;
-      x1 = x1 + cv.y + qv.y;
-    }
-  };
 }
 
 // --- the forward's chain pass --------------------------------------------
@@ -729,21 +687,8 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
     tc::wait_all();
     tc::fence_acc(acc);
     tc::fence_acc(acc2);
-    // acc2 ← nrm_z; acc ← d_gn_z = d_t2 ⊙ [t2 > 0].
-#pragma unroll
-    for (int i = 0; i < 64; i += 2) {
-      const int h = tc::acc_half(i), c = tc::acc_col(i);
-      acc2[i] = (acc2[i] - muz[h]) * invz[h];
-      acc2[i + 1] = (acc2[i + 1] - muz[h]) * invz[h];
-      const float2 t2 = unpack_bf2(
-          tc::pack_bf2(fmaxf(acc2[i] * gdow_s[c] + gdob_s[c], 0.f),
-                       fmaxf(acc2[i + 1] * gdow_s[c + 1] + gdob_s[c + 1], 0.f)));
-      acc[i] = ok[h] && t2.x > 0.f ? acc[i] : 0.f;
-      acc[i + 1] = ok[h] && t2.y > 0.f ? acc[i + 1] : 0.f;
-    }
-    col_sums<true>(va[1], acc, acc2);
-    col_sums<false>(va[2], acc, acc);
-    gn_bwd_acc(acc, acc2, invz, gdow_s, d2);  // rnd(d_z)
+    // acc2 ← nrm_z; acc ← d_gn_z = d_t2 ⊙ [t2 > 0]; d2 ← rnd(d_z).
+    gn_do_bwd(acc, acc2, muz, invz, ok, gdow_s, gdob_s, va[1], va[2], d2);
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
       const int h = tc::acc_half(i), c = tc::acc_col(i);
@@ -795,74 +740,14 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
   }
 }
 
-// The bf16 weight gradients: block (split, k) sums A[p]ᵀ B[p] over the
-// tiles split, split + splits, ... of the destination-ordered edges, for
-// k = 0: dWdo (t1, rnd(d_z)), 1: dK1 (t2, rnd(d_s)), 2: dWout (e1, g[u]),
-// K running over a tile's 64 edges (rows past the edges zero-filled). Both
-// operands MN-major from a DW_STAGES ring of core tiles by cp.async, as
-// lane_band.cuh's band_dw_tc_kernel; warpgroup w owns input channels
-// 64w .. 64w + 63.
-constexpr int DW_STAGES = 3;
-
+// The bf16 weight gradients (edge_tc.cuh dw_tc): the operands at each
+// edge's destination position, rnd(d_s) in the second half of rows_d's,
+// the cotangent at the edge's destination row.
 __global__ void __launch_bounds__(NT)
 win_edge_dw_tc_kernel(const bf16* __restrict__ act, const bf16* __restrict__ rows_d,
                       const bf16* __restrict__ g, const int* __restrict__ eu,
                       const int* __restrict__ count, float* __restrict__ part) {
-  extern __shared__ float4 smem4[];
-  uint8_t* buf = reinterpret_cast<uint8_t*>(smem4);  // [DW_STAGES][A, B] core tiles
-  constexpr int PER = TE * C / 8 / NT;  // 16-byte chunks per thread per operand
-  const int k = blockIdx.y, wg = threadIdx.x >> 7;
-  const int e = *count, ntiles = (e + TE - 1) / TE, step = gridDim.x;
-  const tc::Tiles t0 = tc::tiles(buf, TE);  // offsets are the same in every stage
-  const bf16* a_src = act + k * C;
-  const bf16* b_src = k == 0 ? act + 3 * C : k == 1 ? rows_d + C : g;
-  const int b_ld = k == 0 ? 4 * C : k == 1 ? 2 * C : C;
-
-  auto issue = [&](int tile, int stage) {  // one commit group, empty past the last tile
-    uint8_t* A_b = buf + stage * 2 * TB;
-    if (tile < ntiles) {
-#pragma unroll
-      for (int kk = 0; kk < PER; ++kk) {
-        const int i = threadIdx.x + kk * NT;
-        const int r = ((i >> 7) << 3) + (i & 7), c = ((i >> 3) & 15) * 8;
-        const uint32_t off = tc::tile_off(t0, r, c);
-        const long p = (long)tile * TE + r;
-        const bool in = p < e;
-        const long brow = !in ? 0 : k == 2 ? (long)eu[p] : p;
-        cp_async16_zfill(A_b + off, in ? a_src + p * 4 * C + c : act, in ? 16 : 0);
-        cp_async16_zfill(A_b + TB + off, in ? b_src + brow * b_ld + c : g, in ? 16 : 0);
-      }
-    }
-    cp_async_commit();
-  };
-
-  float acc[64];
-  tc::zero(acc);
-  const int first = blockIdx.x;
-  issue(first, 0);
-  issue(first + step, 1);
-  for (int kk = 0; first + kk * step < ntiles; ++kk) {
-    cp_async_wait<1>();  // stage kk landed (kk + 1 may be in flight)
-    tc::fence_smem();
-    // stage kk in place for every thread; every warpgroup done with kk − 1,
-    // whose buffer stage kk + 2 now takes
-    __syncthreads();
-    issue(first + (kk + 2) * step, (kk + 2) % DW_STAGES);
-    const int st = kk % DW_STAGES;
-    const tc::Tiles A = tc::tiles(buf + st * 2 * TB, TE), B = tc::tiles(buf + st * 2 * TB + TB, TE);
-    tc::fence_acc(acc);
-    tc::fence();
-    tc::mm<TE / 16, false, false>(acc, A, 64 * wg, B);
-    tc::commit();
-    tc::wait_all();
-    tc::fence_acc(acc);
-  }
-  cp_async_wait<0>();  // no copy lands after the block is gone
-  float* P = part + ((long)blockIdx.x * 3 + k) * C * C;
-#pragma unroll
-  for (int i = 0; i < 64; i += 2)
-    *reinterpret_cast<float2*>(P + (64 * wg + tc::acc_row(i)) * C + tc::acc_col(i)) =
-        make_float2(acc[i], acc[i + 1]);
+  dw_tc(act, rows_d + C, 2 * C, g, eu, *count, part);
 }
 
 template <typename T>
@@ -885,7 +770,7 @@ int launch_bwd(const T* pd, const T* qd, const T* ps, const T* cs, const T* g, c
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     float* part_w = part + (long)blocks * 5 * C;
-    smem = DW_STAGES * 2 * TB;
+    smem = dw_tc_smem();
     e = set_smem((const void*)win_edge_dw_tc_kernel, smem);
     if (e != cudaSuccess) return (int)e;
     win_edge_dw_tc_kernel<<<dim3(splits, 3), NT, smem, stream>>>(act, rows_d, g, eu, count,

@@ -13,6 +13,8 @@ destination scatter after it stay outside. Each configuration runs
 through a `torch.autograd.Function`: Att's backward is the `edge_mlp_bwd`
 kernel on CUDA tensors and `edge_mlp_bwd_plain` on CPU tensors,
 LanePooling's the `edge_mlp_pool_bwd` kernel and `edge_mlp_pool_bwd_plain`.
+In bf16 both configurations multiply on the tensor cores (wgmma); fp32 runs
+the CUDA-core kernels, the parity path.
 """
 
 from __future__ import annotations
@@ -88,16 +90,20 @@ def _check(d, qg, cg, kd, weights, vectors):
 
 
 def _prep(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, *rows):
+    """(d, qg, cg, *rows), weights, vectors, dtype code for Att's kernels:
+    the row tensors contiguous and 16-byte aligned (the bf16 kernels copy
+    them by cp.async and store 16-byte rows)."""
     _check(d, qg, cg, kd, (kdo, k1, kout), (bd, gdow, gdob, gchw, gchb))
     dt = cg.dtype
+    acts = [cuda.param(x, x.dtype) for x in (d, qg, cg, *rows)]
     ws = [cuda.param(w, dt) for w in (kd, kdo, k1, kout)]
     vs = [cuda.param(p) for p in (bd, gdow, gdob, gchw, gchb)]
-    code = cuda.check_cuda("edge_mlp", qg, cg, *rows, d, *ws, *vs)
-    return ws, vs, code
+    code = cuda.check_cuda("edge_mlp", *acts[1:], acts[0], *ws, *vs)
+    return acts, ws, vs, code
 
 
 def _fwd_cuda(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, eps):
-    ws, vs, code = _prep(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout)
+    (d, qg, cg), ws, vs, code = _prep(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout)
     out = torch.empty_like(cg)
     cuda.call(
         "edge_mlp", "edge_mlp_fwd",
@@ -111,24 +117,35 @@ def _fwd_cuda(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, eps):
 
 def edge_mlp_bwd_cuda(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, g,
                       eps: float = 1e-5):
-    """The `edge_mlp_bwd` kernel; the same outputs as `edge_mlp_bwd_plain`."""
+    """The `edge_mlp_bwd` kernel; the same outputs as `edge_mlp_bwd_plain`.
+    bf16 runs the chain pass, then the weight-gradient pass over its
+    operands (`act`, [E, 4C] bf16), and sums each pass's partials in block
+    (split) order; nothing is zeroed. fp32 adds into a zeroed [blocks,
+    PART] workspace."""
     if g.shape != cg.shape or g.dtype != cg.dtype:
         raise ValueError(f"edge_mlp: cotangent {g.shape} {g.dtype} for {cg.shape} {cg.dtype}")
-    ws, vs, code = _prep(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, g)
+    (d, qg, cg, g), ws, vs, code = _prep(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb,
+                                         kout, g)
     dev = cg.device
     f32 = dict(dtype=torch.float32, device=dev)
     blocks = cuda.num_sms(dev)
+    splits = max(1, blocks // 2)
     dd = torch.empty(d.shape, **f32)
     dqg, dcg = torch.empty_like(cg), torch.empty_like(cg)
-    part = torch.zeros(blocks * PART, **f32)
+    if cg.dtype == torch.bfloat16:
+        act = torch.empty(cg.shape[0], 4 * C, dtype=cg.dtype, device=dev)
+        part = torch.empty(blocks * 7 * C + splits * 3 * C * C, **f32)
+    else:
+        act, part = None, torch.zeros(blocks * PART, **f32)
     grads = torch.empty(PART, **f32)
     cuda.call(
         "edge_mlp", "edge_mlp_bwd",
         cuda.ptr(d), cuda.ptr(qg), cuda.ptr(cg), cuda.ptr(g), cuda.ptr(ws[0]), cuda.ptr(vs[0]),
         cuda.ptr(ws[1]), cuda.ptr(vs[1]), cuda.ptr(vs[2]), cuda.ptr(ws[2]), cuda.ptr(vs[3]),
         cuda.ptr(vs[4]), cuda.ptr(ws[3]), cuda.ptr(dd), cuda.ptr(dqg), cuda.ptr(dcg),
-        cuda.ptr(part), cuda.ptr(grads), ctypes.c_int(cg.shape[0]), ctypes.c_int(blocks),
-        ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+        cuda.ptr(act), cuda.ptr(part), cuda.ptr(grads), ctypes.c_int(cg.shape[0]),
+        ctypes.c_int(blocks), ctypes.c_int(splits), ctypes.c_float(eps), ctypes.c_int(code),
+        cuda.stream(),
     )
     mats = grads[: 3 * C * C].view(3, C, C)
     vecs = grads[3 * C * C:].view(7, C)

@@ -265,7 +265,7 @@ def test_public_ops_backprop_through_their_function(monkeypatch):
                       (scenario_agg, "scenario_agg_bwd_plain"), (win_edge, "win_edge_bwd_plain"),
                       (window_scatter, "window_scatter_bwd_plain"),
                       (row_tail, "row_tail2_bwd_plain"), (edge_mlp, "edge_mlp_pool_bwd_plain"),
-                      (band_conv, "band_conv_bwd_plain")):
+                      (edge_mlp, "edge_mlp_bwd_plain"), (band_conv, "band_conv_bwd_plain")):
         counted(mod, name)
     t = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).requires_grad_(True)
     gn = [torch.ones(C), torch.zeros(C), torch.ones(C), torch.zeros(C)]
@@ -295,6 +295,9 @@ def test_public_ops_backprop_through_their_function(monkeypatch):
     outs["edge_mlp_pool_bwd_plain"] = edge_mlp.fused_edge_mlp(
         t(90, 4), None, t(90, C), t(4, C), t(C), None, None, None, t(C, C), torch.ones(C),
         torch.zeros(C), t(C, C), False, False)
+    outs["edge_mlp_bwd_plain"] = edge_mlp.fused_edge_mlp(
+        t(90, 2), t(90, C), t(90, C), t(2, C), t(C), t(C, C), torch.ones(C), torch.zeros(C),
+        t(C, C), torch.ones(C), torch.zeros(C), t(C, C))
     functions = {"row_tail_bwd_plain": "_RowTailBackward",
                  "lane_layer_bwd_plain": "_LaneLayerBackward",
                  "scenario_agg_bwd_plain": "_ScenarioAggBackward",
@@ -302,6 +305,7 @@ def test_public_ops_backprop_through_their_function(monkeypatch):
                  "window_scatter_bwd_plain": "_WindowScatterBackward",
                  "row_tail2_bwd_plain": "_RowTail2Backward",
                  "edge_mlp_pool_bwd_plain": "_EdgeMlpPoolBackward",
+                 "edge_mlp_bwd_plain": "_EdgeMlpBackward",
                  "band_conv_bwd_plain": "_BandConvBackward"}
     for name, out in outs.items():
         assert type(out.grad_fn).__name__ == functions[name], (name, out.grad_fn)

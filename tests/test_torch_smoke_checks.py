@@ -173,3 +173,70 @@ def test_plan_case_helpers_build_lane_plan_arguments():
         assert out.shape == (n, C) and bool(torch.isfinite(out).all())
         assert len(grads) == 9 and grads[-1].shape == (14, C, C)
     assert empty in fwd
+
+
+def _edge_call(name, n, rng):
+    """A captured call of the flat edge MLP `name` (chip_smoke.py's
+    forward_ops / backward_ops layout) with n rows: bf16 rows, fp32 weights
+    and vectors, as the model hands them."""
+    r = lambda *s: torch.from_numpy((rng.randn(*s) * 0.5).astype(np.float32))
+    rows = lambda: r(n, C).to(torch.bfloat16)
+    gn = [torch.ones(C), torch.zeros(C)]
+    if name.startswith("edge_mlp_pool"):
+        d, cg, kd = r(n, 4), rows(), r(4, C)
+        if name.endswith("_bwd"):
+            return [d, cg, kd, r(C), r(C, C), *gn, r(C, C), rows(), 1e-5]
+        return [d, None, cg, kd, r(C), None, None, None, r(C, C), *gn, r(C, C), False, False]
+    args = [r(n, 2), rows(), rows(), r(2, C), r(C), r(C, C), *gn, r(C, C), *gn, r(C, C)]
+    return args + [rows(), 1e-5] if name.endswith("_bwd") else args
+
+
+@pytest.mark.parametrize("name", ["edge_mlp", "edge_mlp_bwd", "edge_mlp_pool",
+                                  "edge_mlp_pool_bwd"])
+def test_edge_case_helpers_cover_both_configurations(name, monkeypatch):
+    """`add_edge_cases` cuts the largest captured call (not a smaller one)
+    of Att's or LanePooling's edge MLP, forward or backward, to EDGE_ROWS
+    and adds its all-padding call (EDGE_PAD_ARGS zero: d, cg, Att's qg, the
+    cotangent), each at 0 calls a step, the capture's calls left as they
+    were; `check_edge_padding` passes the plain version's exact answer and
+    fails a kernel whose answer is one element off it."""
+    from types import SimpleNamespace
+
+    rng = np.random.RandomState(5)
+    big, small = _edge_call(name, 13000, rng), _edge_call(name, 200, rng)
+    keys = (cs.shape_key(big), cs.shape_key(small))
+    cap = SimpleNamespace(calls={name: dict(zip(keys, (big, small)))},
+                          counts={name: dict.fromkeys(keys, 6)})
+    pad = cs.add_edge_cases(name, cap)
+    added = [a for k, a in cap.calls[name].items() if k not in keys]
+    assert sorted(a[0].shape[0] for a in added) == sorted(cs.EDGE_ROWS + (cs.EDGE_PAD_ROWS,))
+    assert all(cap.counts[name][cs.shape_key(a)] == 0 for a in added)
+    assert all(cap.counts[name][k] == 6 for k in keys) and cap.calls[name][keys[0]] is big
+    zeroed = cs.EDGE_PAD_ARGS[name]
+    for a in added:
+        n = a[0].shape[0]
+        for i, (x, y) in enumerate(zip(a, big)):
+            if not isinstance(y, torch.Tensor) or y.shape[0] != 13000:
+                assert x is y
+            elif a is pad and i in zeroed:
+                assert x.shape == y[:n].shape and not bool(x.any())
+            else:
+                assert torch.equal(x, y[:n])
+
+    base = name[:-len("_bwd")] if name.endswith("_bwd") else name
+    plain = (cs.backward_ops if name.endswith("_bwd") else cs.forward_ops)([base])[name][1]
+    ops = lambda kernel: {name: (kernel, plain)}
+    which = "backward_ops" if name.endswith("_bwd") else "forward_ops"
+    monkeypatch.setattr(cs, which, lambda names: ops(plain))
+    cs.check_edge_padding("cpu", name, pad)
+
+    def off(*a):
+        out = plain(*a)
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        outs[-1] = outs[-1].clone()
+        outs[-1].view(-1)[-1] += 1
+        return outs if isinstance(out, (tuple, list)) else outs[0]
+
+    monkeypatch.setattr(cs, which, lambda names: ops(off))
+    with pytest.raises(RuntimeError, match="all-padding"):
+        cs.check_edge_padding("cpu", name, pad)
