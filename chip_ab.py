@@ -34,9 +34,13 @@ backward at K = 1 on the windowed geometry (Att's tails) and at K = 2 on
 LaneRCNN's (LanePooling's tail, `row_tail2`; the K = 2 backward's C
 interface changed: the other tree's through its own wrapper); Att's edge_mlp
 backward likewise (its C interface took the bf16 workspace `act` and the
-weight-gradient pass's splits). Each call shape
+weight-gradient pass's splits); window_scatter and its backward on
+LaneRCNN's geometry (both pool scatters, r2g and g2r; the C interface is
+unchanged, so both builds run through this checkout's wrappers) in
+float32 as well as bfloat16 (`DTYPES`). Each call shape
 (A2M, M2A, A2A) of the forward and of the backward runs once per build (the
-largest difference between the two builds' outputs is printed;
+largest difference between the two builds' outputs is printed, and
+whether they are bitwise equal;
 `chip_smoke.py` holds each kernel to its plain version) and is then timed
 in ROUNDS rounds, the order of old and new alternating from round to round:
 each round the wrapper and, beside it, its bare C entries (`bare_ms`), each
@@ -75,7 +79,10 @@ TARGETS = {"win_edge": (("windowed", "win_edge"),),
                            ("flat", "segment_sum")),
            "scenario_agg": (("windowed", "scenario_agg"), ("lanercnn", "scenario_agg")),
            "pair_agg": (("bench", "pair_agg"),),
-           "row_tail": (("windowed", "row_tail"), ("lanercnn", "row_tail2"))}
+           "row_tail": (("windowed", "row_tail"), ("lanercnn", "row_tail2")),
+           "window_scatter": (("lanercnn", "window_scatter"),)}
+# Kernel libraries timed in float32 as well as bfloat16 (default: bf16 only).
+DTYPES = {"window_scatter": ("bfloat16", "float32")}
 # Kernel libraries whose C interface changed: the other tree's calls go
 # through its own wrapper module (ops/<name>.py under that tree, loaded
 # beside this checkout's package, its `cuda.call`s landing on the other
@@ -308,10 +315,11 @@ def main() -> None:
                      f"{fwd_name}_bwd": bwd_calls[f"{fwd_name}_bwd"]}
         versions = [v for v in ("old", "new") if libs[name][v] is not None]
         for kname, (fn, _) in ops.items():
-            for ci, (key, args) in enumerate(calls[kname].items()):
-                a = cs.cast_args(args, torch.bfloat16)
+            for ci, (key, args), dt in [(ci, ka, dt) for ci, ka in enumerate(calls[kname].items())
+                                        for dt in DTYPES.get(name, ("bfloat16",))]:
+                a = cs.cast_args(args, getattr(torch, dt))
                 res = {"phase": "ab", "kernel": kname, "geometry": geom, "call": ci,
-                       "rows": key[0][0], "gpu": smi}
+                       "rows": key[0][0], "dtype": dt, "gpu": smi}
                 if kname == "segment_sum":
                     res["rows"] = a[2]
                     res["edges_kept"] = int((a[1] < a[2]).sum())
@@ -337,6 +345,8 @@ def main() -> None:
                     res["old_vs_new_max_abs"] = max(
                         float((x.float() - y.float()).abs().max()) if x.numel() else 0.0
                         for x, y in zip(outs["old"], outs["new"]))
+                    res["old_vs_new_bitwise"] = all(
+                        torch.equal(x, y) for x, y in zip(outs["old"], outs["new"]))
                 del outs
                 samples = {v: [] for v in versions}
                 bare = {v: [] for v in versions}

@@ -74,7 +74,10 @@ and exits non-zero:
           call, whose rows must all equal row 0);
           lanercnn: lane_layer and scenario_agg at the RoI and global
           shapes, window_scatter (both pool scatters, beside one `index_add`
-          call on the same inputs), row_tail2 (its three row counts, and
+          call on the same inputs, and `SCATTER_CASES`: an empty plan, whose
+          output must be temp bitwise, a window no edge reaches, tail
+          chunks all padding, a run over three chunks, runs across 128-row
+          blocks, a 200-row stride), row_tail2 (its three row counts, and
           `TAIL_ROWS`: 1, 63, 65 and 12,345 rows) and edge_mlp_pool (and
           `EDGE_ROWS` and an all-padding call, as edge_mlp's);
           merged: lane_plan (and `PLAN_CASES`, each with random band masks
@@ -89,7 +92,8 @@ and exits non-zero:
           the inputs and cotangent one bf16 train step hands them, with a
           rerun that must be bitwise equal (lanercnn: lane_layer_bwd and
           scenario_agg_bwd at the RoI and global shapes, window_scatter_bwd
-          beside one `index_select` call, row_tail2_bwd, edge_mlp_pool_bwd
+          beside one `index_select` call and on `SCATTER_CASES` (the empty
+          plan's gradient all zero), row_tail2_bwd, edge_mlp_pool_bwd
           with `EDGE_ROWS` and the all-padding call, whose outputs must all
           be zero; contiguous: edge_mlp_bwd likewise;
           merged: lane_plan_bwd (and `PLAN_CASES`); unfused: band_conv_bwd;
@@ -1000,7 +1004,7 @@ def work_of(name, a):
         "row_tail_bwd": lambda: row_tail.work_bwd(a[0].shape[0], a[0].element_size()),
         "pair_agg_bwd": lambda: pair_agg.work_bwd(a[0], a[1], a[2]),
         "edge_mlp_bwd": lambda: edge_mlp.work_bwd(a[0], a[1], a[2], a[12]),
-        "window_scatter": lambda: window_scatter.work(a[0], a[1], a[2]),
+        "window_scatter": lambda: window_scatter.work(a[0], a[1], a[2], a[3], a[4]),
         "row_tail2": lambda: row_tail.work2(a[0].shape[0], a[0].element_size()),
         "edge_mlp_pool": lambda: edge_mlp.work(a[0], a[1], a[2], a[12]),
         "window_scatter_bwd": lambda: window_scatter.work_bwd(a[0], a[1], a[2], a[3]),
@@ -1791,6 +1795,83 @@ def check_empty_win(fwd_args):
               f"win_edge {dtype}: the empty plan's output is not temp")
 
 
+# window_scatter's edge cases (name, windows, rows a window, slot capacity,
+# edge maker): the forward sums a segment-sum key derived from (wchunk, lu)
+# over blocks of flat rows (128 rows from 32,768 rows on, else 32, which
+# straddle windows), passing over padding; the backward gathers g's rows in
+# 64-slot tiles of one chunk. Built by the port's window_chunked_edges, as
+# the packer builds LanePooling's edges. The cases: an empty plan (the
+# forward's output is temp bitwise, the backward's all zero), a destination
+# window no edge reaches, a capacity far past the edges (tail chunks all
+# padding), one row whose run spans more than two 512-slot chunks, rows
+# with edges on both sides of 128-row block boundaries, and a 200-row
+# stride (no multiple of the block's rows: blocks straddle windows). `make(rng,
+# windows, stride)` returns the edges' flat destination rows.
+# segment_sum.cuh's forward blocks: ROWS_BIG rows from BIG_FROM rows on, else ROWS_SMALL.
+SCATTER_BLOCKS = {"ROWS_BIG": 128, "ROWS_SMALL": 32, "BIG_FROM": 32768}
+SCATTER_CASES = (
+    ("empty", 3, 256, 1024, lambda rng, nw, sd: np.zeros(0, np.int64)),
+    ("untouched-window", 5, 256, 4096,
+     lambda rng, nw, sd: np.concatenate([rng.integers(0, 2 * sd, 900),
+                                         rng.integers(3 * sd, nw * sd, 900)])),
+    ("padding-chunks", 4, 256, 8192, lambda rng, nw, sd: rng.integers(0, nw * sd, 300)),
+    ("long-run", 3, 256, 8704,
+     lambda rng, nw, sd: np.concatenate([np.full(1300, sd + 77),
+                                         rng.integers(0, nw * sd, 1500)])),
+    ("across-blocks", 130, 256, 69632,
+     lambda rng, nw, sd: np.concatenate([w * sd + rng.integers(120, 136, 40)
+                                         for w in range(0, nw, 3)] +
+                                        [rng.integers(0, nw * sd, 20000)])),
+    ("stride-200", 170, 200, 90112, lambda rng, nw, sd: rng.integers(0, nw * sd, 30000)),
+)
+
+
+def scatter_case_calls(backward: bool, dev: str = "cuda"):
+    """{shapes: args} and {shapes: 0} of SCATTER_CASES, bf16 rows (kernel_phase
+    casts them to fp32 too), as window_scatter's forward op (msg, temp, lu,
+    wchunk, stride) or its backward launcher (g, lu, wchunk, stride) takes
+    them; and the key of the empty plan."""
+    import torch
+    from lanegcn_tpu_torch.data.packing import window_chunked_edges
+
+    rng = np.random.default_rng(23)
+    calls, counts, empty = {}, {}, None
+    for name, num_win, stride, cap, make in SCATTER_CASES:
+        u = make(rng, num_win, stride)
+        es, dropped = window_chunked_edges(u, rng.integers(0, 50, len(u)), cap, stride, 50)
+        check(dropped == 0, f"window_scatter case {name}: {dropped} edges dropped")
+        lu = torch.as_tensor(es.win_lu, device=dev)
+        wchunk = torch.as_tensor(es.win_chunk, device=dev)
+        rows = lambda k: torch.as_tensor(rng.normal(size=(k, 128)), dtype=torch.bfloat16,
+                                         device=dev)
+        n = num_win * stride
+        args = ([rows(n), lu, wchunk, stride] if backward
+                else [rows(cap), rows(n), lu, wchunk, stride])
+        key = shape_key(args)
+        check(key not in calls, f"window_scatter case {name}: its shapes repeat another case's")
+        calls[key], counts[key] = args, 0
+        if name == "empty":
+            empty = key
+    return calls, counts, empty
+
+
+def check_empty_scatter(args, backward: bool):
+    """The empty plan, in both dtypes: the forward returns temp bitwise, the
+    backward all zeros."""
+    import torch
+    from lanegcn_tpu_torch.ops import window_scatter
+
+    for dtype in (torch.float32, torch.bfloat16):
+        a = cast_args(args, dtype)
+        if backward:
+            out = window_scatter.window_scatter_bwd_cuda(*a)
+            check(not bool(out.any()), f"window_scatter_bwd {dtype}: the empty plan's "
+                  f"gradient is not all zero")
+        else:
+            check(torch.equal(window_scatter.window_scatter_add(*a), a[1]),
+                  f"window_scatter {dtype}: the empty plan's output is not temp")
+
+
 # pair_agg's edge cases on the spill plan (name, windows, rows a window,
 # slot capacity, {relation: edges}, destination window of every edge or
 # None, each destination window's edges from its own source window, rows
@@ -1896,6 +1977,11 @@ def step_kernel_phases(geom, cap):
         calls, counts, _ = plan_case_calls(backward=True, layer=True)
         cap.calls["lane_plan_bwd"].update(calls)
         cap.counts["lane_plan_bwd"].update(counts)
+    if geom == "lanercnn":
+        calls, counts, empty = scatter_case_calls(backward=True)
+        cap.calls["window_scatter_bwd"].update(calls)
+        cap.counts["window_scatter_bwd"].update(counts)
+        check_empty_scatter(calls[empty], backward=True)
     edge = {"lanercnn": "edge_mlp_pool_bwd", "contiguous": "edge_mlp_bwd"}.get(geom)
     edge_pad = add_edge_cases(edge, cap) if edge else None
     results = kernel_phase("kernel_bwd", geom, backward_ops(spec["kernels"]), cap.calls,
@@ -2127,6 +2213,10 @@ def drive_lanercnn(geom):
     torch.cuda.synchronize()
     add_tail_cases("row_tail2", cap)
     edge_pad = add_edge_cases("edge_mlp_pool", cap)
+    calls, counts, empty = scatter_case_calls(backward=False)
+    cap.calls["window_scatter"].update(calls)
+    cap.counts["window_scatter"].update(counts)
+    check_empty_scatter(calls[empty], backward=False)
     results = kernel_phase("kernel", geom, forward_ops(spec["kernels"]), cap.calls, cap.counts)
     check_edge_padding(geom, "edge_mlp_pool", edge_pad)
     del cap, edge_pad

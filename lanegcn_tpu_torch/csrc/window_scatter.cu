@@ -1,8 +1,9 @@
 // Window-chunked scatter-add of LanePooling's per-edge messages, forward
 // and backward.
 //
-// Replaces lanegcn_tpu/ops/pallas_window_scatter.py `_fwd_kernel` /
-// `_pallas_fwd` (the Pallas kernel behind `window_scatter_add`):
+// Forward (`window_scatter_fwd`): replaces lanegcn_tpu/ops/
+// pallas_window_scatter.py `_fwd_kernel` (:44) / `_pallas_fwd` (:82), the
+// Pallas kernel behind `window_scatter_add`:
 //
 //   out = temp;  out[wchunk[e / 512] * stride + lu[e]] += msg[e]   (lu[e] >= 0)
 //
@@ -10,122 +11,134 @@
 // 512-edge chunk into a VMEM block of the destination window, rounding the
 // block after every chunk. Here the layout the packer emits does the work
 // instead: each destination window's edges fill whole chunks, sorted by
-// destination row, and `wchunk` is non-decreasing, so every destination
-// row's messages are one contiguous run of edges. A warp owns 8 consecutive
-// rows of one window: it finds the window's chunk range and the first edge
-// of its first row by binary search (every lane reads the same addresses),
-// then walks the runs in edge order, each lane summing its 4 channels in
-// fp32, adds temp and rounds once. No atomics and no shared memory; the sum
-// order is fixed, so reruns are bitwise equal. Rows no edge reaches copy
-// temp (the output is a new tensor).
+// destination row, its padding (lu = -1) after them, and `wchunk` is
+// non-decreasing (tail chunks repeat the last window). So the forward is a
+// sorted segment sum over the flat rows w * stride + lu, and it runs
+// segment_sum.cuh's kernel on a key derived from (wchunk, lu) (`WinKeys`):
 //
-// What bounds it: one add per message element, so it moves bytes only: the
-// valid messages and temp read once, the output written once (about 0.35 GB
-// at 935,627 live r2g edges into 208,896 rows in bf16, ~0.1 ms at the card's
-// 3.35 TB/s). Each lane loads 8 (bf16) or 16 (fp32) consecutive bytes, so a
-// warp reads a message row as one 256- or 512-byte transaction.
+//   key(e) = 2 (w * stride + lu[e])   a valid edge (row w * stride + lu[e])
+//          = 2 (w + 1) * stride - 1   padding: after its window's last row,
+//                                     before the next window's first
+//
+// (w = wchunk[e / 512]), non-decreasing over the edge slots; odd keys belong
+// to no row. A block owns 128 flat output rows of the num_win x stride rows
+// (32 below 32,768 rows; blocks straddle windows), finds its slots by two
+// warp searches of 32 probes a step, writes each row's run of slots into a
+// shared table (passing over padding), then moves every 16-byte chunk of
+// its rows, 8 batched per thread: a row no edge reaches copies temp; a row
+// with edges sums its run in fp32 from zero in edge order, 4 message loads
+// in flight (the run's last ones together), adds temp and rounds once
+// (`BASE_LAST`: the order of the kernel it replaces and of
+// `window_scatter_plain`, so its output is bitwise theirs). No atomics;
+// reruns are bitwise equal.
+//
+// What bounds it: one add per message element, so bytes: the valid messages
+// and temp read once, the output written once (0.35 GB at 935,627 live r2g
+// edges into 208,896 rows in bf16: 0.105 ms at the card's 3.35 TB/s). The
+// kernel it replaces here ran three serial binary searches per warp of 8
+// rows, then walked each row's edges one 256-byte message row at a time.
+// On an H100 80GB HBM3 at 700 W (chip_ab.py, device time, bf16) this kernel
+// takes 0.207 ms at r2g (the replaced one 0.355) and 0.132 at g2r (0.194;
+// bound 0.088). Without the message loads it takes 0.040 ms, so the sums
+// hold it: r2g's runs are skewed (most of its rows take no edge and some
+// take many; ops/window_scatter.py `work` counts both), and a block lasts
+// as long as its longest thread's runs.
 //
 // Backward (`window_scatter_bwd`): replaces pallas_window_scatter.py
-// `_bwd_kernel` / `_pallas_bwd`, the one-hot [512 x stride] x [stride x 128]
-// matmul per chunk. The cotangent of temp is the output cotangent g itself
-// (the wrapper passes it on); the messages' is a row gather,
+// `_bwd_kernel` (:64) / `_pallas_bwd` (:111), the one-hot [512 x stride] x
+// [stride x 128] matmul per chunk. The cotangent of temp is the output
+// cotangent g itself (the wrapper passes it on); the messages' is a row
+// gather,
 //
 //   d_msg[e] = g[wchunk[e / 512] * stride + lu[e]]   (lu[e] >= 0),  0 on padding,
 //
-// a warp per edge row, each lane copying its 4 channels (no arithmetic, no
-// rounding: d_msg is bitwise g's row). What bounds it: bytes only, the
-// valid edges' rows of g read and every d_msg row written (0.51 GB at
-// 935,627 live of 1,048,576 r2g edges in bf16, ~0.15 ms at 3.35 TB/s).
-#include "common.cuh"
+// bitwise g's rows. What bounds it: bytes, the valid edges' rows of g read
+// once and every d_msg row written (0.29 GB at r2g in bf16, 0.089 ms). The
+// design: a grid of 8 blocks an SM walks 64-slot tiles of one chunk
+// (wchunk read once a tile, lu as one load a slot); each thread moves one
+// 16-byte chunk of several slots' rows, all of their g loads in flight
+// before the stores, and padding rows store zeros without reading g. The
+// replaced kernel ran a warp per row, 8 bytes a lane, in 131,072 blocks:
+// 0.175 ms at r2g, this one 0.109 (H100 80GB HBM3, 700 W, device time).
+#include "segment_sum.cuh"
 
 using namespace lgk;
 
 namespace {
 
-constexpr int WCH = 512;                  // edges per chunk (the packer's alignment)
-constexpr int ROWS_PER_WARP = 8;
-constexpr int ROWS_PER_BLOCK = ROWS_PER_WARP * (NT / 32);
+constexpr int WCH = 512;  // edges per chunk (the packer's alignment)
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-window_scatter_kernel(const T* __restrict__ msg, const T* __restrict__ temp,
-                      const int* __restrict__ lu, const int* __restrict__ wchunk,
-                      T* __restrict__ out, int stride, int nch) {
-  const int w = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = blockIdx.x * ROWS_PER_BLOCK + warp * ROWS_PER_WARP;
-  if (r0 >= stride) return;
-
-  // This window's chunks [c0, c1): wchunk is non-decreasing.
-  int lo = 0, hi = nch;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (wchunk[mid] < w) lo = mid + 1; else hi = mid;
+// The forward's sorted key over the window-chunked edge slots (see above).
+struct WinKeys {
+  const int* lu;
+  const int* wchunk;
+  long stride;
+  __device__ __forceinline__ long long operator()(long e) const {
+    const long w = wchunk[e / WCH];
+    const int l = lu[e];
+    return l >= 0 ? 2 * (w * stride + l) : 2 * (w + 1) * stride - 1;
   }
-  const int c0 = lo;
-  hi = nch;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (wchunk[mid] <= w) lo = mid + 1; else hi = mid;
-  }
-  const long e_end = (long)lo * WCH;
+  __device__ __forceinline__ long long first(long s) const { return 2 * s; }
+  __device__ __forceinline__ bool live(long long k) const { return !(k & 1); }
+  __device__ __forceinline__ long row(long long k) const { return (long)(k >> 1); }
+};
 
-  // First edge of row r0 or later: the window's valid edges are sorted by
-  // lu and its padding (lu = -1) follows them.
-  long a = (long)c0 * WCH, b = e_end;
-  while (a < b) {
-    const long mid = (a + b) >> 1;
-    const int v = lu[mid];
-    if (v >= 0 && v < r0) a = mid + 1; else b = mid;
-  }
-  long e = a;
+constexpr int BWD_TILE = 64;       // edge slots a tile (divides WCH)
+constexpr int BWD_BLOCKS_SM = 8;   // blocks an SM in the grid
 
-  const int r_end = min(r0 + ROWS_PER_WARP, stride);
-  for (int r = r0; r < r_end; ++r) {
-    float4 acc = zero4();
-    while (e < e_end && lu[e] == r) {
-      acc = add4(acc, load4<T>(msg + e * C + lane * 4));
-      ++e;
-    }
-    const long row = (long)w * stride + r;
-    store4<T>(out + row * C + lane * 4, add4(load4<T>(temp + row * C + lane * 4), acc));
-  }
-}
-
-// d_msg row e = g row dst(e), or zeros on padding; a warp per row.
+// d_msg row e = g row dst(e), or zeros on padding. A thread moves chunk c
+// (16 bytes) of R rows of each tile, rows r0, r0 + RPP, ...
 template <typename T>
 __global__ void __launch_bounds__(NT)
 window_scatter_bwd_kernel(const T* __restrict__ g, const int* __restrict__ lu,
                           const int* __restrict__ wchunk, T* __restrict__ dmsg, int stride,
-                          long e) {
-  const long row = (long)blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
-  if (row >= e) return;
-  const int c = (threadIdx.x & 31) * 4;
-  const int l = lu[row];
-  float4 v = zero4();
-  if (l >= 0) v = load4<T>(g + ((long)wchunk[row / WCH] * stride + l) * C + c);
-  store4<T>(dmsg + row * C + c, v);
+                          long tiles) {
+  constexpr int CPR = C * (int)sizeof(T) / 16;  // 16-byte chunks a row: bf16 16, fp32 32
+  constexpr int RPP = NT / CPR;                 // rows a pass
+  constexpr int R = BWD_TILE / RPP;             // rows a thread a tile
+  constexpr int EL = 16 / (int)sizeof(T);       // elements a chunk
+  const int c = threadIdx.x % CPR, r0 = threadIdx.x / CPR;
+  for (long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long e0 = t * BWD_TILE;
+    const long wrow = (long)wchunk[e0 / WCH] * stride;
+    int l[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) l[k] = lu[e0 + r0 + k * RPP];
+    uint4 v[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      v[k] = make_uint4(0, 0, 0, 0);
+      if (l[k] >= 0)
+        v[k] = *reinterpret_cast<const uint4*>(g + (wrow + l[k]) * C + c * EL);
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      *reinterpret_cast<uint4*>(dmsg + (e0 + r0 + k * RPP) * C + c * EL) = v[k];
+  }
 }
 
 template <typename T>
 int launch(const void* msg, const void* temp, const int* lu, const int* wchunk, void* out,
            int num_win, int stride, int nch, cudaStream_t stream) {
-  if (num_win > 0 && stride > 0) {
-    const dim3 grid((stride + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, num_win);
-    window_scatter_kernel<T><<<grid, NT, 0, stream>>>((const T*)msg, (const T*)temp, lu,
-                                                      wchunk, (T*)out, stride, nch);
-  }
-  return (int)cudaGetLastError();
+  if (num_win <= 0 || stride <= 0) return (int)cudaGetLastError();
+  const WinKeys keys{lu, wchunk, stride};
+  return seg::launch_keys<T, T, true>((const T*)msg, keys, (const T*)temp, (T*)out,
+                                      (long)nch * WCH, num_win * stride, C, stream);
 }
 
 template <typename T>
 int launch_bwd(const void* g, const int* lu, const int* wchunk, void* dmsg, int stride, int nch,
                cudaStream_t stream) {
-  const long e = (long)nch * WCH;
-  const long blocks = (e + NT / 32 - 1) / (NT / 32);
-  if (blocks > 0) {
+  if ((((uintptr_t)g | (uintptr_t)dmsg) & 15) != 0) return (int)cudaErrorMisalignedAddress;
+  const long tiles = (long)nch * (WCH / BWD_TILE);
+  if (tiles > 0) {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return (int)cudaGetLastError();
+    const long blocks = tiles < (long)sms * BWD_BLOCKS_SM ? tiles : (long)sms * BWD_BLOCKS_SM;
     window_scatter_bwd_kernel<T><<<(unsigned)blocks, NT, 0, stream>>>((const T*)g, lu, wchunk,
-                                                                      (T*)dmsg, stride, e);
+                                                                      (T*)dmsg, stride, tiles);
   }
   return (int)cudaGetLastError();
 }
@@ -134,7 +147,8 @@ int launch_bwd(const void* g, const int* lu, const int* wchunk, void* dmsg, int 
 
 // dtype: 0 = float32, 1 = bfloat16 (msg [nch*512, 128], temp and out
 // [num_win*stride, 128]); lu int32 [nch*512] window-local destination (-1
-// padding); wchunk int32 [nch] destination window per chunk, non-decreasing.
+// padding, after the window's valid edges, which are sorted by lu); wchunk
+// int32 [nch] destination window per chunk, non-decreasing.
 extern "C" int window_scatter_fwd(const void* msg, const void* temp, const void* lu,
                                   const void* wchunk, void* out, int num_win, int stride,
                                   int nch, int dtype, void* stream) {
@@ -146,7 +160,8 @@ extern "C" int window_scatter_fwd(const void* msg, const void* temp, const void*
 }
 
 // Backward: dmsg [nch*512, 128] = the rows of g [num_win*stride, 128] at each
-// edge's destination, zeros on padding; dtype as window_scatter_fwd (g, dmsg).
+// edge's destination, zeros on padding; dtype as window_scatter_fwd (g, dmsg);
+// g and dmsg 16-byte aligned.
 extern "C" int window_scatter_bwd(const void* g, const void* lu, const void* wchunk, void* dmsg,
                                   int stride, int nch, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;

@@ -11,8 +11,10 @@ edges filling whole WCHUNK-edge chunks, `wchunk` non-decreasing, lu = -1 on
 padding. The sum is taken in fp32 and added to temp, then rounded once to
 temp's dtype (the TPU kernel rounded after every chunk). Rows that no edge
 reaches keep temp; the output is a new tensor. The TPU kernel's `first`
-flags are not needed: with `wchunk` non-decreasing, a window's chunks are
-found by binary search.
+flags are not needed: with `wchunk` non-decreasing, the forward kernel is a
+sorted segment sum (csrc/segment_sum.cuh) on a key derived from (wchunk,
+lu), padding slots keyed between their window's rows and the next
+window's.
 
 The op runs through a `torch.autograd.Function`: its backward passes the
 output cotangent g on to temp and gathers it for the messages,
@@ -142,20 +144,25 @@ def window_scatter_add(msg, temp, lu, wchunk, stride: int) -> torch.Tensor:
                                 wchunk.contiguous(), stride)
 
 
-def work(msg, temp, lu) -> dict:
+def work(msg, temp, lu, wchunk, stride: int) -> dict:
     """Bytes moved and operations done at these inputs: the messages of
     valid edges read once, temp read and the output written whole, lu and
     the chunk windows read; one add per valid edge and channel, and one per
-    row for temp."""
+    row for temp. Beside them, how the edges fall on the rows: the rows
+    that take an edge and the longest run (a row's edges)."""
     e, c = msg.shape
     n = temp.shape[0]
     db = msg.element_size()
-    live = int((lu >= 0).sum())
+    dst = flat_destinations(lu, wchunk, stride, n)
+    runs = torch.bincount(dst[dst < n], minlength=n)
+    live = int(runs.sum())
     return {
         "bytes": live * c * db + 2 * n * c * db + e * 4 + (e // WCHUNK) * 4,
         "flops": (live + n) * c,
         "edges": e,
         "live_edges": live,
+        "rows_with_edges": int((runs > 0).sum()),
+        "longest_run": int(runs.max()) if n else 0,
     }
 
 

@@ -240,3 +240,45 @@ def test_edge_case_helpers_cover_both_configurations(name, monkeypatch):
     monkeypatch.setattr(cs, which, lambda names: ops(off))
     with pytest.raises(RuntimeError, match="all-padding"):
         cs.check_edge_padding("cpu", name, pad)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_scatter_cases_are_what_their_names_say(backward):
+    """SCATTER_CASES as `scatter_case_calls` builds them (on the CPU), each
+    against its name: the forward's (msg, temp, lu, wchunk, stride) or the
+    backward's (g, lu, wchunk, stride) layout at 128 channels, and the edge
+    property the case exists for."""
+    from lanegcn_tpu_torch.ops.window_scatter import WCHUNK, flat_destinations
+
+    calls, counts, empty = cs.scatter_case_calls(backward=backward, dev="cpu")
+    assert len(calls) == len(cs.SCATTER_CASES) and not any(counts.values())
+    blocks = cs.SCATTER_BLOCKS
+    for (name, num_win, stride, cap, _), (key, a) in zip(cs.SCATTER_CASES, calls.items()):
+        n = num_win * stride
+        lu, wchunk = a[-3], a[-2]
+        assert a[-1] == stride and a[-4].shape == (n, C) and lu.shape == (cap, 1)
+        if not backward:
+            assert a[0].shape == (cap, C) and a[0].dtype == torch.bfloat16
+        assert bool((wchunk[1:] >= wchunk[:-1]).all())
+        dst = flat_destinations(lu, wchunk, stride, n)
+        valid = dst < n
+        runs = torch.bincount(dst[valid], minlength=n)
+        if name == "empty":
+            assert key == empty and not bool(valid.any())
+            continue
+        assert bool(valid.any())
+        if name == "untouched-window":
+            assert len(set(range(num_win)) - set((dst[valid] // stride).tolist())) == 1
+        elif name == "padding-chunks":
+            assert not bool((lu.view(-1, WCHUNK) >= 0).any(1)[-2:].any())
+        elif name == "long-run":
+            slots = torch.nonzero(dst == int(runs.argmax())).view(-1)
+            assert int(slots[-1]) // WCHUNK - int(slots[0]) // WCHUNK >= 2  # 3+ chunks
+        elif name == "across-blocks":
+            big = blocks["ROWS_BIG"]
+            assert n >= blocks["BIG_FROM"]
+            b = torch.arange(big, n, big)  # block boundaries: rows b - 1 and b
+            both = (runs[b - 1] > 0) & (runs[b] > 0)
+            assert int(both.sum()) >= 10
+        elif name == "stride-200":
+            assert stride % blocks["ROWS_BIG"] and n >= blocks["BIG_FROM"]
