@@ -3,7 +3,8 @@
 one GPU, on each of the three LaneGCN pack geometries the port serves, then
 its LaneRCNN eval and train paths, then LaneGCN with the window plan inside
 the LaneConv layer kernel, with the unfused LaneConv layer, and on packs
-without band masks.
+without band masks; then its CLI (train, preempt and resume, eval,
+preprocess) and its loader.
 
     python3 chip_smoke.py            # one card, no arguments
 
@@ -150,6 +151,30 @@ and exits non-zero:
           packs and weights, profiled in turns: merged, the separate
           kernels against the merged layer (merge_plan_agg); unfused, the
           fused layer against the unfused one (pallas_bands).
+After the geometries, two phases without a geometry:
+  cli     python -m lanegcn_tpu_torch.cli as a user runs it (bf16, 2 pack
+          workers, packs of 32): preprocess 256 urban scenarios to shards
+          (a subprocess; meanwhile LaneRCNN's fp32 forward at the CLI's
+          RoI pack, card against CPU, zero drops, equal NMS picks, tagged
+          cli_lanercnn); train R1 for 2 epochs with validation, in this
+          process with every launch count from 0 (asserted: 16 steps and 2
+          forwards of the contiguous geometry's counts); R2, the same run
+          as a subprocess, sent SIGTERM after its 5th step line (exit 0,
+          'SIGTERM: saved'), then resumed: its 2.000.ckpt bitwise R1's
+          (state_dict, flat_adam, step); eval by --weight and by
+          --torch-weight (subprocesses) print R1's last validation lines,
+          and the submission holds 64·6·30 rows; one epoch of LaneRCNN at
+          the CLI's RoI pack (launches counted, lane_layer, row_tail2,
+          edge_mlp_pool and segment_sum asserted). Every step line finite,
+          none with a drop. Prints the warm step ms and scen/s from the
+          logs' time and the launches per step of both families.
+  loader  PackedLoader (to_device) into the bench train step
+          (bench_pack_config(256), bf16) on 1,024 urban scenarios made
+          once with their pack caches: 2 epochs of 4 packs with 1, 2, 4, 4,
+          2 and 1 pack workers; scen/s (the first pack left out), host pack s and
+          transfer ms per pack, the same steps' scen/s on the packs already
+          on the card; zero drops; losses bitwise equal across worker
+          counts.
 Then the `kernels` summary line (all 23 kernels, each from the first
 geometry that checks it, with the launches of that geometry's serve or
 train run, and under `also_checked` its checks on the later geometries),
@@ -1103,17 +1128,18 @@ def nms_report(picks, a="cuda", b="cpu"):
             "min_logit_gap_at_picks": float(gap.min()) if gap.numel() else None}
 
 
-def roi_parity_phase(geom):
+def roi_parity_phase(geom, cfg=None, s=8):
     """LaneRCNN's full float32 forward + roi_loss: card (kernels) vs CPU
-    (plain versions), 8 scenarios, same weights; the segmented-NMS picks
-    must be equal on both sides (`nms_report`)."""
+    (plain versions), s scenarios packed by `cfg` (default: the geometry's
+    config for s), same weights; zero drops of either kind asserted
+    (`make_packs`); the segmented-NMS picks must be equal on both sides
+    (`nms_report`)."""
     import torch
     from lanegcn_tpu_torch.graph import RoiPackedBatch
     from lanegcn_tpu_torch.models import lanercnn
     from lanegcn_tpu_torch.train.loop import make_eval_step
 
-    s = 8
-    cfg = pack_config(geom, s)
+    cfg = cfg or pack_config(geom, s)
     packs, _, _, _ = make_packs(cfg, 1, s, seed0=10_000, roi=True)
     batch = RoiPackedBatch.from_numpy(packs[0])
     net_gpu = lanercnn.LaneRCNN(cfg.model, dtype=torch.float32, device="cuda", seed=1)
@@ -2295,6 +2321,409 @@ def remat_phase(geom, cfg, batch, fns):
     check_counts(rem["launches"], GEOMETRIES[geom]["per_remat_step"], 1, f"{geom} remat step")
 
 
+# The CLI's runs in the `cli` phase: LaneGCN on CLI_N preprocessed urban
+# scenarios (7 corridors, 16 actors; shards of CLI_SHARD), packs of CLI_B,
+# 2 epochs, with CLI_VAL_N generated for validation; LaneRCNN on
+# CLI_RCNN_N urban RoI scenarios (12 actors) for one epoch.
+CLI_B, CLI_N, CLI_SHARD, CLI_VAL_N, CLI_RCNN_N = 32, 256, 64, 64, 256
+CLI_EPOCHS = 2
+CLI_PREEMPT_AT = 5  # SIGTERM once the preempted run has logged this many steps
+# LaneRCNN at the CLI's RoI pack (flat RoI and global node spaces, flat pool
+# edges): the C entries that must run in each train step.
+CLI_RCNN_ENTRIES = ("lane_layer_fwd", "lane_layer_bwd", "row_tail2_fwd", "row_tail2_bwd",
+                    "edge_mlp_pool_fwd", "edge_mlp_pool_bwd", "segment_sum")
+
+
+def _cli_env():
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+
+
+def _cli_proc(args, cwd, name):
+    """`python -m lanegcn_tpu_torch.cli ARGS` started in cwd, its stdout on
+    a pipe and its stderr into cwd/NAME.err."""
+    err_path = os.path.join(cwd, name + ".err")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "lanegcn_tpu_torch.cli", *args],
+                                cwd=cwd, env=_cli_env(), stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+    proc.err_path = err_path
+    return proc
+
+
+def _cli_wait(proc, what, timeout=600):
+    """The process's stdout after it exited with code 0."""
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise RuntimeError(f"cli {what}: no exit within {timeout} s")
+    with open(proc.err_path) as f:
+        err = f.read()
+    check(proc.returncode == 0, f"cli {what}: exit code {proc.returncode}\n{err[-4000:]}")
+    return out or ""
+
+
+def _cli_here(args):
+    """The CLI's main(args) in this process (so its launches are counted),
+    its stdout captured; returns (stdout, seconds)."""
+    import io
+
+    from lanegcn_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(list(args))
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _step_clock(ends):
+    """Within the block, every train step the CLI makes appends to `ends`
+    the host clock once its work on the card has ended (a synchronize after
+    the step; at --display-every 1 the CLI syncs at each display anyway)."""
+    import torch
+    from lanegcn_tpu_torch.train import loop
+
+    make = loop.make_train_step
+
+    def timed_make(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def timed(*a, **kw):
+            out = step(*a, **kw)
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            return out
+
+        return timed
+
+    loop.make_train_step = timed_make
+    try:
+        yield
+    finally:
+        loop.make_train_step = make
+
+
+def _warm_step_ms(ends, steps_per_epoch):
+    """The CLI's step times (ms) between the ends of successive steps:
+    what a step costs the trainer, the loader's wait, the display and the
+    copies to the card included. Leaves out the first two steps (warm-up)
+    and each epoch's first, which also holds the last epoch's checkpoint,
+    validation and the loader's start; returns them all and their
+    median, least and most."""
+    ms = [(ends[i] - ends[i - 1]) * 1e3 for i in range(2, len(ends))
+          if i % steps_per_epoch]
+    srt = sorted(ms)
+    return {"ms": ms, "n": len(ms), "median": srt[len(srt) // 2], "min": srt[0],
+            "max": srt[-1]}
+
+
+@contextlib.contextmanager
+def _torch_defaults():
+    """PyTorch's own TF32 defaults (cuBLAS off, cuDNN on) within the block,
+    as a CLI process has them; this script turns both off for its checks."""
+    import torch
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _step_lines(text):
+    """The display lines of a train log (--display-every 1: one a step)."""
+    return [ln for ln in text.splitlines() if ln.startswith("epoch ")]
+
+
+def _metric_lines(text):
+    return [ln for ln in text.splitlines() if ln.startswith(("  minADE", "  minFDE", "  MR_"))]
+
+
+def _check_step_lines(lines, what, steps):
+    """`steps` display lines, each with a finite loss and no drop counter
+    (the CLI adds ', dropped {...}' for any dropped_*, skipped_*, spilled_*
+    or graph_dropped_* count); returns each line's loss."""
+    check(len(lines) == steps, f"cli {what}: {len(lines)} step lines, expected {steps}")
+    losses = [float(ln.split(" loss ")[1].split()[0]) for ln in lines]
+    check(all(math.isfinite(x) for x in losses), f"cli {what}: non-finite loss {losses}")
+    bad = [ln for ln in lines if "dropped" in ln]
+    check(not bad, f"cli {what}: the packs dropped edges or scenarios: {bad[:2]}")
+    return losses
+
+
+def _same_checkpoints(a, b):
+    """Bitwise equal state_dict, flat_adam and step."""
+    import torch
+
+    return (a["step"] == b["step"] and a["state_dict"].keys() == b["state_dict"].keys()
+            and all(torch.equal(a["state_dict"][k], b["state_dict"][k]) for k in a["state_dict"])
+            and all(torch.equal(a["flat_adam"][k], b["flat_adam"][k])
+                    for k in ("flat", "mu", "nu", "count")))
+
+
+def _submission_rows(path):
+    if os.path.exists(path + ".npz"):
+        return np.load(path + ".npz")["argoverse_forecasting"]
+    import h5py  # where the card's machine has it, write_submission wrote .h5
+
+    with h5py.File(path + ".h5", "r") as f:
+        return f["argoverse_forecasting"][:]
+
+
+def cli_phase():
+    """The port's CLI as a user runs it, on the card (bf16, 2 pack workers):
+    preprocess to shards; train R1 in this process (launches counted) for 2
+    epochs with validation and a checkpoint each epoch; the same run R2 as
+    a subprocess, sent SIGTERM after CLI_PREEMPT_AT steps, then resumed: its
+    2.000.ckpt must equal R1's bitwise; eval by --weight and by
+    --torch-weight (subprocesses, beside R2) must print R1's last
+    validation; LaneRCNN's fp32 forward at the CLI's RoI pack, card against
+    CPU, then one epoch of LaneRCNN training (launches counted). The
+    in-process runs' steps are timed by `_step_clock`."""
+    import argparse
+    import shutil
+    import signal
+    import threading
+
+    import torch
+    from lanegcn_tpu_torch import cli
+    from lanegcn_tpu_torch.ops import cuda
+    from lanegcn_tpu_torch.train.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    card = torch.cuda.get_device_name(0)
+    root = os.path.join(REPO, "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    shards, r1, r2 = (os.path.join(root, d) for d in ("shards", "r1", "r2"))
+    b, val = str(CLI_B), f"urban:{CLI_VAL_N}:7:16"
+    train = lambda save_dir, *extra: [
+        "train", "--data", shards, "--batch-size", b, "--epochs", str(CLI_EPOCHS), "--bf16",
+        "--workers", "2", "--save-freq", "1", "--display-every", "1", "--save-dir", save_dir,
+        *extra]
+
+    pre = _cli_proc(["preprocess", "--data", f"urban:{CLI_N}:7:16", "--out", shards,
+                     "--shard-size", str(CLI_SHARD)], root, "preprocess")
+    # While the shards are written: LaneRCNN's fp32 forward on the CLI's
+    # RoI pack of CLI_B, card against CPU, zero drops of either kind.
+    rcfg = cli._default_config(argparse.Namespace(batch_size=CLI_B, seed=None))
+    roi_parity_phase("cli_lanercnn", cfg=rcfg, s=CLI_B)
+    _cli_wait(pre, "preprocess")
+    check(len(os.listdir(shards)) == -(-CLI_N // CLI_SHARD),
+          f"cli preprocess: {sorted(os.listdir(shards))}")
+
+    # --- R1: the uninterrupted run, in this process ---
+    ends1 = []
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    with _torch_defaults(), _step_clock(ends1):
+        out1, r1_s = _cli_here(train(r1, "--val-data", val))
+    torch.cuda.synchronize()
+    gcn_counts = cuda.launch_counts()
+    with open(os.path.join(r1, "log")) as f:
+        log1 = f.read()
+    steps = CLI_EPOCHS * -(-CLI_N // CLI_B)
+    losses1 = _check_step_lines(_step_lines(log1), "R1", steps)
+    check(len(ends1) == steps, f"cli R1: {len(ends1)} steps timed, expected {steps}")
+    check(f"steps/epoch on {card}" in log1, f"cli R1: the start line does not name {card}")
+    last = "%3.3f.ckpt" % CLI_EPOCHS
+    for e in range(1, CLI_EPOCHS + 1):
+        name = "%3.3f.ckpt" % e
+        check(os.path.exists(os.path.join(r1, name)), f"cli R1: no {name}")
+    val1 = _metric_lines(log1)
+    check(len(val1) == 6 and all(math.isfinite(float(ln.split(": ")[1])) for ln in val1),
+          f"cli R1: validation {val1}")
+    check(f"validation: {CLI_VAL_N} scenarios" in log1 and "WARNING" not in log1,
+          "cli R1: validation")
+    # The train steps and validation forwards of the contiguous geometry.
+    spec = GEOMETRIES["contiguous"]
+    forwards = -(-CLI_VAL_N // CLI_B)
+    want = {e: steps * spec["per_train_step"].get(e, 0) + forwards * spec["per_forward"].get(e, 0)
+            for e in gcn_counts}
+    check(gcn_counts == want, f"cli R1: launches {gcn_counts}, expected {want}")
+
+    # --- eval by --weight and --torch-weight, and the preempted R2, at once ---
+    # Both read R1's checkpoint, and from it that R1 computed in bf16.
+    ckpt = os.path.join(r1, last)
+    sub = os.path.join(root, "submission")
+    evals = {
+        "weight": _cli_proc(["eval", "--weight", ckpt, "--data", val, "--batch-size", b,
+                             "--submission", sub], root, "eval_weight"),
+        "torch_weight": _cli_proc(["eval", "--torch-weight", ckpt, "--data", val,
+                                   "--batch-size", b], root, "eval_torch_weight"),
+    }
+    proc = _cli_proc(train(r2), root, "r2")
+    watchdog = threading.Timer(600, proc.kill)
+    watchdog.start()
+    lines, sent = [], False
+    for ln in proc.stdout:
+        lines.append(ln)
+        if not sent and len(_step_lines("".join(lines))) == CLI_PREEMPT_AT:
+            proc.send_signal(signal.SIGTERM)
+            sent = True
+    rc = proc.wait()
+    watchdog.cancel()
+    out2 = "".join(lines)
+    check(sent and rc == 0, f"cli R2: exit code {rc} after SIGTERM (sent: {sent})")
+    saved = [ln for ln in out2.splitlines() if ln.startswith("SIGTERM: saved ")]
+    check(len(saved) == 1, f"cli R2: no 'SIGTERM: saved' line:\n{out2[-2000:]}")
+    cut = saved[0][len("SIGTERM: saved "):-len(", exiting")]
+    cut_step = load_checkpoint(cut)["step"]
+    check(CLI_PREEMPT_AT <= cut_step < steps, f"cli R2: preempted at step {cut_step}")
+    with _torch_defaults():
+        out2r, _ = _cli_here(train(r2, "--resume", cut))
+    check(f"resumed from {cut} at epoch" in out2r, "cli R2: no 'resumed from' line")
+    _check_step_lines(_step_lines(out2r), "R2 resumed", steps - cut_step)
+    resumed_equal = _same_checkpoints(load_checkpoint(ckpt),
+                                      load_checkpoint(os.path.join(r2, last)))
+    check(resumed_equal, f"cli R2: resumed from step {cut_step}, {last} differs from R1's")
+    eval_out = {k: _cli_wait(p, f"eval --{k.replace('_', '-')}") for k, p in evals.items()}
+    for k, text in eval_out.items():
+        check(_metric_lines(text) == val1,
+              f"cli eval --{k}: {_metric_lines(text)} != R1's validation {val1}")
+    rows = _submission_rows(sub)
+    check(rows.shape == (CLI_VAL_N * 6 * 30, 5), f"cli eval: submission of {rows.shape}")
+
+    # --- LaneRCNN, one epoch, in this process ---
+    ends3 = []
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    with _torch_defaults(), _step_clock(ends3):
+        out3, _ = _cli_here(["train", "--model", "lanercnn", "--data",
+                             f"urban:{CLI_RCNN_N}:7:12", "--batch-size", b, "--epochs", "1",
+                             "--bf16", "--workers", "2", "--display-every", "1"])
+    torch.cuda.synchronize()
+    rcnn_counts = cuda.launch_counts()
+    rcnn_steps = -(-CLI_RCNN_N // CLI_B)
+    losses3 = _check_step_lines(_step_lines(out3), "lanercnn", rcnn_steps)
+    check(len(ends3) == rcnn_steps, f"cli lanercnn: {len(ends3)} steps timed")
+    missing = [e for e in CLI_RCNN_ENTRIES if rcnn_counts[e] == 0]
+    check(not missing, f"cli lanercnn: no launch of {missing}: {rcnn_counts}")
+
+    gcn_ms = _warm_step_ms(ends1, steps // CLI_EPOCHS)
+    rcnn_ms = _warm_step_ms(ends3, rcnn_steps)
+    emit({"phase": "cli", "card": card, "seconds": time.perf_counter() - t_phase,
+          "lanegcn": {"steps": steps, "scenarios_per_pack": CLI_B, "first_loss": losses1[0],
+                      "last_loss": losses1[-1], "warm_step_ms": gcn_ms,
+                      "scen_per_s_median": CLI_B / gcn_ms["median"] * 1e3,
+                      "r1_run_s": r1_s, "validation": val1,
+                      "launches_per_step": {e: spec["per_train_step"].get(e, 0)
+                                            for e in gcn_counts if want[e]},
+                      "launches": {e: n for e, n in gcn_counts.items() if n}},
+          "preempted_at_step": cut_step, "resumed_bitwise_equal": resumed_equal,
+          "eval_lines_equal": True, "submission_rows": int(rows.shape[0]),
+          "lanercnn": {"steps": rcnn_steps, "scenarios_per_pack": CLI_B, "losses": losses3,
+                       "warm_step_ms": rcnn_ms,
+                       "scen_per_s_median": CLI_B / rcnn_ms["median"] * 1e3,
+                       "launches_per_step": {e: n / rcnn_steps
+                                             for e, n in rcnn_counts.items() if n},
+                       "launches": {e: n for e, n in rcnn_counts.items() if n}}})
+    shutil.rmtree(root, ignore_errors=True)
+
+
+# The loader phase: 4 packs of 256 an epoch, 2 epochs, per worker count;
+# the counts in turns, each twice, since the host's clock drifts within a
+# call.
+LOADER_S, LOADER_PACKS, LOADER_EPOCHS, LOADER_WORKERS = 256, 4, 2, (1, 2, 4, 4, 2, 1)
+
+
+def urban_scenarios(seeds):
+    """Urban scenarios (7 corridors, 16 actors) with their pack caches, for
+    a process pool (a module-level function: spawn imports it)."""
+    from lanegcn_tpu_torch.config import ModelConfig
+    from lanegcn_tpu_torch.data.packing import precompute_pack_cache
+    from lanegcn_tpu_torch.data.synthetic import make_urban_scenario
+
+    out = []
+    for seed in seeds:
+        scen = make_urban_scenario(seed=seed, num_corridors=7, num_actors=16)
+        precompute_pack_cache(scen, ModelConfig())
+        out.append(scen)
+    return out
+
+
+def loader_phase():
+    """The PackedLoader (to_device: packs copied to the card on a side
+    stream) into the bench train step (bench_pack_config(256), bf16), for
+    LOADER_EPOCHS epochs of LOADER_PACKS packs with 1, 2 and 4 pack workers
+    in turns (LOADER_WORKERS, each count twice), on scenarios generated once
+    and held in memory with their pack caches:
+    scen/s through the loader (the first pack left out), host pack s and
+    transfer ms per pack, and the same steps' scen/s on the packs already
+    on the card; zero drops, and the losses bitwise equal whatever the
+    worker count."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from lanegcn_tpu_torch.config import Config, bench_pack_config
+    from lanegcn_tpu_torch.data.dataset import PackedLoader
+    from lanegcn_tpu_torch.train.loop import init_state, make_train_step
+
+    t_phase = time.perf_counter()
+    n = LOADER_S * LOADER_PACKS
+    t0 = time.perf_counter()
+    procs = max(1, min(8, len(os.sched_getaffinity(0))))
+    chunks = [list(range(i * n // procs, (i + 1) * n // procs)) for i in range(procs)]
+    with ProcessPoolExecutor(procs, mp_context=mp.get_context("spawn")) as pool:
+        scens = [sc for part in pool.map(urban_scenarios, chunks) for sc in part]
+    gen_s = time.perf_counter() - t0
+    cfg = Config(pack=bench_pack_config(LOADER_S))
+    rows, losses = {}, []
+    for workers in LOADER_WORKERS:
+        stats = []
+        loader = PackedLoader(scens, cfg, seed=0, pack_workers=workers, drop_stats=stats,
+                              to_device=True)
+        net, state = init_state(cfg, dtype=torch.bfloat16)
+        step = make_train_step(cfg, net, state)
+        batches, loss = [], []
+        pack_s = transfer_s = 0.0
+        torch.cuda.synchronize()
+        for e in range(LOADER_EPOCHS):
+            for b in loader.epoch(e):
+                loss.append(step(b, len(batches) / LOADER_PACKS)["loss"])
+                batches.append(b)
+                if len(batches) == 1:  # the first pack is left out of the timing
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+            pack_s += loader.pack_s
+            transfer_s += loader.transfer_s
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        timed = len(batches) - 1
+        # The same steps on the packs already on the card.
+        t2 = time.perf_counter()
+        for i, b in enumerate(batches[1:], 1):
+            step(b, i / LOADER_PACKS)
+        torch.cuda.synchronize()
+        dt_dev = time.perf_counter() - t2
+        drops = {k: v for st in stats for k, v in st.items()
+                 if k.startswith(("dropped", "skipped", "graph_dropped")) and v}
+        check(not drops, f"loader workers={workers}: drops {drops}")
+        check(len(batches) == LOADER_EPOCHS * LOADER_PACKS, f"loader: {len(batches)} packs")
+        losses.append(torch.stack(loss).cpu())
+        for key, val in (("scen_per_s", timed * LOADER_S / dt),
+                         ("host_pack_s_per_pack", pack_s / len(batches)),
+                         ("transfer_ms_per_pack", transfer_s / len(batches) * 1e3),
+                         ("step_only_scen_per_s", timed * LOADER_S / dt_dev)):
+            rows.setdefault(workers, {}).setdefault(key, []).append(val)
+        del net, state, step, batches, loader
+        torch.cuda.empty_cache()
+    same = all(torch.equal(l, losses[0]) for l in losses)
+    emit({"phase": "loader", "card": torch.cuda.get_device_name(0),
+          "seconds": time.perf_counter() - t_phase,
+          "scenarios": n, "gen_s": gen_s, "gen_processes": procs,
+          "scenarios_per_pack": LOADER_S, "packs": LOADER_EPOCHS * LOADER_PACKS,
+          "timed_packs": LOADER_EPOCHS * LOADER_PACKS - 1, "order": LOADER_WORKERS,
+          "by_workers": rows, "losses_bitwise_equal": same, "losses": losses[0].tolist()})
+    check(same, f"loader: losses differ by worker count {[l.tolist() for l in losses]}")
+
+
 def main() -> None:
     import torch
 
@@ -2364,6 +2793,8 @@ def main() -> None:
                 "bound_ms": res["work"]["bound_ms"], "bound_by": res["work"]["bound_by"],
                 "library_ms": res["library_ms"],
             }
+    cli_phase()
+    loader_phase()
     kernels = list(kernels.values())
     # Every kernel's launches on every path, beside its home geometry's count.
     for k in kernels:

@@ -262,7 +262,11 @@ def windowed_pack_config(s: int) -> PackConfig:
     windows, fusion pair plans, no neighbour tables) with spill_pairs off,
     so the plan's residue rides the classic edge lists. Capacities scale
     with the s scenarios per pack, with max_edges_lr raised so urban
-    scenarios drop no edge, and floors for small packs."""
+    scenarios drop no edge, and floors for small packs. The fusion pair
+    plans hold 192·s (A2M), 160·s (M2A) and 72·s (A2A) slots, more than
+    bench.py's 160·s and 64·s for A2M and A2A, which dropped A2M edges on a
+    shuffled draw of 256 urban scenarios (`pack_draws.py` counts what
+    shuffled draws need)."""
     return PackConfig(
         max_scenarios=s,
         max_actors=128 * (-(-16 * s // 128)),  # whole 128-row actor windows
@@ -274,24 +278,28 @@ def windowed_pack_config(s: int) -> PackConfig:
         max_edges_scale0=max(16 * s, 512),
         max_edges_dilated=tuple(max(8 * (2 ** i) * s, 512) for i in range(1, 6)),
         max_edges_lr=max(24 * s, 512),
-        max_a2m_edges=max(160 * s, 4096),
+        max_a2m_edges=max(192 * s, 4096),
         max_m2a_edges=max(160 * s, 4096),
-        max_a2a_edges=max(64 * s, 2048),
+        max_a2a_edges=max(72 * s, 2048),
         actor_stride=128,
         fusion_pairs=True,
     )
 
 
 def bench_pack_config(s: int) -> PackConfig:
-    """The geometry of the JAX package's benchmark (bench.py
-    `bench_pack_config`, without its environment overrides): the windowed
+    """The layout of the JAX package's benchmark (bench.py
+    `bench_pack_config`, without its environment overrides), with larger
+    capacities where bench.py's dropped edges on shuffled draws of urban
+    scenarios (`pack_draws.py` counts what such draws need): the windowed
     layout of `windowed_pack_config` with spill_pairs on, so the window
     plan's residue rides a (dst-window, src-window) chunk-pair plan of
-    192·s slots and the classic lists (512 slots per relation) keep only
-    what overflows it. max_actors is 16·s rounded up to whole 128-row actor
-    windows, and the fusion capacities have the floors of
-    `windowed_pack_config` for small packs (both the same as bench.py's
-    from s = 32 up)."""
+    192·s slots and the classic lists keep only what overflows it: 512
+    slots per relation, the dilated ones max(8·s, 512) (bench.py's 512
+    overflowed once the spill plan did). max_actors is 16·s rounded up to
+    whole 128-row actor windows, and the fusion pair plans are
+    `windowed_pack_config`'s, with its floors for small packs (the
+    max_actors and M2A capacities are bench.py's from s = 32 up; A2M and
+    A2A are larger)."""
     return PackConfig(
         max_scenarios=s,
         max_actors=128 * (-(-16 * s // 128)),
@@ -302,11 +310,11 @@ def bench_pack_config(s: int) -> PackConfig:
         spill_pairs=True,
         max_spill_pair_edges=192 * s,
         max_edges_scale0=512,
-        max_edges_dilated=(512, 512, 512, 512, 512),
+        max_edges_dilated=(max(8 * s, 512),) * 5,
         max_edges_lr=512,
-        max_a2m_edges=max(160 * s, 4096),
+        max_a2m_edges=max(192 * s, 4096),
         max_m2a_edges=max(160 * s, 4096),
-        max_a2a_edges=max(64 * s, 2048),
+        max_a2a_edges=max(72 * s, 2048),
         actor_stride=128,
         fusion_pairs=True,
     )

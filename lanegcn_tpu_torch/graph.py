@@ -57,10 +57,21 @@ def _is_node(v) -> bool:
 
 
 class _Tree:
-    """Shared `.to(device)` for the batch dataclasses."""
+    """Shared `.to(device)`, `.map_leaves(fn)` and `.leaves()` for the batch
+    dataclasses."""
 
     def to(self, device):
         return _map_leaves(self, lambda t: t.to(device))
+
+    def map_leaves(self, fn):
+        """A copy of the tree with fn applied to every tensor leaf."""
+        return _map_leaves(self, fn)
+
+    def leaves(self) -> list:
+        """Every tensor leaf, in field order."""
+        out = []
+        _map_leaves(self, out.append)
+        return out
 
 
 @dataclasses.dataclass

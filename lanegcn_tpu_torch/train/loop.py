@@ -125,19 +125,33 @@ def make_eval_step(config: Config, net, device=None, loss_fn=None,
 
 
 class MetricAccumulator:
-    """Running sums of loss/metric components, normalized at display time."""
+    """Running sums of loss/metric components, normalized at display time.
+
+    A device metric is summed as an fp64 tensor on its device, so `update`
+    makes no host sync; `summary` converts once. fp32 values widened to
+    fp64 and added in the same order give bitwise the sums of Python
+    floats."""
 
     def __init__(self):
-        self.sums: Dict[str, float] = {}
+        self.sums: Dict[str, Any] = {}
 
     def update(self, metrics: Dict[str, Any]):
         for k, v in metrics.items():
             if k in ("loss", "lr"):
                 continue
-            self.sums[k] = self.sums.get(k, 0.0) + float(v)
+            v = v.detach().double() if isinstance(v, torch.Tensor) else float(v)
+            self.sums[k] = self.sums.get(k, 0.0) + v
+
+    def host_sums(self) -> Dict[str, float]:
+        """The running sums as Python floats (one host sync)."""
+        keys = [k for k, v in self.sums.items() if isinstance(v, torch.Tensor)]
+        out = {k: v for k, v in self.sums.items() if k not in keys}
+        if keys:
+            out.update(zip(keys, torch.stack([self.sums[k] for k in keys]).tolist()))
+        return out
 
     def summary(self) -> Dict[str, float]:
-        s = self.sums
+        s = self.host_sums()
         eps = 1e-10
         out = {
             "cls": s.get("cls_loss", 0.0) / (s.get("num_cls", 0.0) + eps),

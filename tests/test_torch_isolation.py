@@ -51,16 +51,20 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "lanegcn_tpu_torch.data.lane_roi", "lanegcn_tpu_torch.models.lanercnn",
                  "lanegcn_tpu_torch.models.registry",
                  "lanegcn_tpu_torch.train.loop", "lanegcn_tpu_torch.train.optimizer",
-                 "lanegcn_tpu_torch.utils.weights"):
+                 "lanegcn_tpu_torch.utils.weights", "lanegcn_tpu_torch.cli",
+                 "lanegcn_tpu_torch.eval", "lanegcn_tpu_torch.data.dataset",
+                 "lanegcn_tpu_torch.data.augment", "lanegcn_tpu_torch.train.checkpoint",
+                 "lanegcn_tpu_torch.train.preempt", "lanegcn_tpu_torch.utils.logger",
+                 "lanegcn_tpu_torch.utils.profiling"):
         assert name in res["modules"], name
     assert res["banned"] == [], res["banned"]
 
 
 def test_gpu_scripts_import_no_jax():
-    """chip_smoke.py and tree_profile.py, beside every port module, import
-    neither JAX nor the JAX package."""
+    """chip_smoke.py, tree_profile.py and pack_draws.py, beside every port
+    module, import neither JAX nor the JAX package."""
     probe = _PROBE + """
-import chip_smoke, tree_profile
+import chip_smoke, tree_profile, pack_draws
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "lanegcn_tpu"))
 print(json.dumps({"banned": banned}))
