@@ -4,7 +4,7 @@ one GPU, on each of the three LaneGCN pack geometries the port serves, then
 its LaneRCNN eval and train paths, then LaneGCN with the window plan inside
 the LaneConv layer kernel, with the unfused LaneConv layer, and on packs
 without band masks; then its CLI (train, preempt and resume, eval,
-preprocess) and its loader.
+preprocess), its loader and its multi-GPU split (on the one card).
 
     python3 chip_smoke.py            # one card, no arguments
 
@@ -175,6 +175,31 @@ After the geometries, two phases without a geometry:
           transfer ms per pack, the same steps' scen/s on the packs already
           on the card; zero drops; losses bitwise equal across worker
           counts.
+  mesh    the windowed data×graph split (lanegcn_tpu_torch/parallel/):
+          (a) 3 bf16 steps of the windowed step in a one-rank NCCL world
+          (bench_pack_config(256), full width) against make_train_step
+          from the same weights on the same packs: loss, metrics, every
+          gradient and the parameters bitwise equal, the bench launches a
+          step; (b) two ranks (torch.multiprocessing spawn, tcp init) on
+          the one card over gloo (NCCL on two cards where the machine has
+          them), fp32, one SGD step (lr 0.1) each: LaneGCN at D=1×G=2
+          (one group of 256 split by balance_scenarios, packed at the
+          mesh's subdivided capacities) and D=2×G=1 (two packs of 256),
+          LaneRCNN at D=1×G=2 (lanercnn_pack_config(256)), against the
+          single-device step on the union packs (the columns' scenarios
+          in column order) or the mean of the rows' steps: the loss within
+          MESH_LOSS_RTOL, the support counts equal, the mean gradient and
+          each rank's SGD update within MESH_TOL/MESH_RMS_TOL of the
+          reference's scale, both ranks' parameters equal, zero drops of
+          both kinds, each rank's launches those of the single-device step;
+          (c) `python -m torch.distributed.run --nproc-per-node 1 -m
+          lanegcn_tpu_torch.cli train --mesh 1x1` (contiguous packs of 32,
+          bf16, 2 pack workers, 2 epochs of urban:96): a run beside a
+          second one sent SIGTERM to its worker after its 2nd step line
+          (both exit 0), then resumed: its 2.000.ckpt bitwise the first
+          run's. Each run's step ms by host clock and device busy, its
+          collectives a step and their bytes, and peak memory (gloo's
+          times are not NCCL's).
 Then the `kernels` summary line (all 23 kernels, each from the first
 geometry that checks it, with the launches of that geometry's serve or
 train run, and under `also_checked` its checks on the later geometries),
@@ -1293,6 +1318,16 @@ def train_parity_phase(geom):
 HOST_SYNCS = ("aten::nonzero", "aten::_local_scalar_dense")
 
 
+def _union_us(spans) -> float:
+    """The length of the union of (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    return busy
+
+
 def profile_phase(phase, geom, step, items, top_n=40) -> dict:
     """torch.profiler (CUPTI) over step(item) for each item: device time by
     kernel name, the device's idle share of the host wall time (which
@@ -1321,11 +1356,7 @@ def profile_phase(phase, geom, step, items, top_n=40) -> dict:
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + (t1 - t0))
     check(bool(spans), f"{phase}: no device activity was traced")
-    busy, end = 0.0, float("-inf")
-    for t0, t1 in sorted(spans):  # union of the device intervals
-        if t1 > end:
-            busy += t1 - max(t0, end)
-            end = t1
+    busy = _union_us(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top_n]
     res = {"phase": phase, "geometry": geom, "steps": len(items), "wall_ms": wall_us / 1e3,
            "device_busy_ms": busy / 1e3, "busy_ms_per_step": busy / 1e3 / len(items),
@@ -2339,16 +2370,29 @@ def _cli_env():
         p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
 
 
-def _cli_proc(args, cwd, name):
-    """`python -m lanegcn_tpu_torch.cli ARGS` started in cwd, its stdout on
-    a pipe and its stderr into cwd/NAME.err."""
+def _cli_proc(args, cwd, name, launcher=()):
+    """`python [LAUNCHER] -m lanegcn_tpu_torch.cli ARGS` started in cwd,
+    its stdout on a pipe and its stderr into cwd/NAME.err. A launcher's run
+    gets a session of its own, so `_stop_session` ends its workers too."""
     err_path = os.path.join(cwd, name + ".err")
     with open(err_path, "w") as err:
-        proc = subprocess.Popen([sys.executable, "-m", "lanegcn_tpu_torch.cli", *args],
+        proc = subprocess.Popen([sys.executable, *launcher, "-m", "lanegcn_tpu_torch.cli",
+                                 *args], start_new_session=bool(launcher),
                                 cwd=cwd, env=_cli_env(), stdout=subprocess.PIPE, stderr=err,
                                 text=True)
     proc.err_path = err_path
     return proc
+
+
+def _stop_session(proc):
+    """Kill what is left of a process started in a session of its own."""
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
 
 
 def _cli_wait(proc, what, timeout=600):
@@ -2724,6 +2768,600 @@ def loader_phase():
     check(same, f"loader: losses differ by worker count {[l.tolist() for l in losses]}")
 
 
+# The mesh phase: the windowed data×graph split (lanegcn_tpu_torch/parallel/)
+# on bench_pack_config(MESH_S) and lanercnn_pack_config(MESH_S) at full width:
+# (a) MESH_A_STEPS bf16 steps of a one-rank NCCL world against make_train_step
+# from the same weights and packs, bitwise; (b) one fp32 SGD step (lr
+# MESH_LR, TF32 off) of two ranks on one card over gloo (NCCL on two cards
+# where the machine has them) at D=1×G=2 and D=2×G=1 for LaneGCN and
+# D=1×G=2 for LaneRCNN, against the single-device step on the union packs;
+# (c) the CLI under torch.distributed.run, --mesh 1x1, preempted and resumed.
+MESH_S, MESH_A_STEPS, MESH_SEED, MESH_LR = 256, 3, 11, 0.1
+# The scenarios' seeds: LaneGCN's 2·MESH_S from MESH_GCN_SEED0, LaneRCNN's
+# MESH_S from MESH_RCNN_SEED0 (lanercnn_pack_config(256) skips scenarios of
+# some draws of 256 even whole: ROADMAP.md §3).
+MESH_GCN_SEED0, MESH_RCNN_SEED0 = 40_000, 0
+# (b)'s flat gradient and SGD update, elementwise within
+# MESH_TOL · (rms(reference) + |reference|), and in RMS within
+# MESH_RMS_TOL · rms(reference). Both sides are fp32 with TF32 off; the
+# ranks' kernels sum each gradient over sub-packs (other block partitions,
+# other segment and partial-sum orders, then one all_reduce) where the
+# reference sums the union pack: a reorder error of ~1e-6 of the summed
+# terms, which a gradient element that cancels can make 1e-5..1e-4 of its
+# own size. A missed rank or a gradient scaled by G is off by ~100 % in RMS.
+MESH_TOL, MESH_RMS_TOL = 1e-3, 1e-4
+MESH_LOSS_RTOL = 1e-4
+# (c): LaneGCN on urban:MESH_CLI_N (generated in the loader), packs of
+# MESH_CLI_B on the contiguous geometry, MESH_CLI_EPOCHS epochs, SIGTERM to
+# the worker after MESH_CLI_PREEMPT_AT step lines.
+MESH_CLI_B, MESH_CLI_N, MESH_CLI_EPOCHS, MESH_CLI_PREEMPT_AT = 32, 96, 2, 2
+MESH_TIMEOUT = 600  # seconds for the ranks of (b), and for each CLI run
+
+
+def roi_scenarios(seeds):
+    """Urban RoI scenarios (7 corridors, 12 actors) with their pack caches,
+    for a process pool (a module-level function: spawn imports it)."""
+    from lanegcn_tpu_torch.config import ModelConfig
+    from lanegcn_tpu_torch.data.packing import precompute_pack_cache
+    from lanegcn_tpu_torch.data.packing_roi import precompute_roi_cache
+    from lanegcn_tpu_torch.data.synthetic import make_roi_scenario
+
+    out = []
+    for seed in seeds:
+        scen = make_roi_scenario(seed=seed, num_corridors=7, num_actors=12, urban=True)
+        precompute_pack_cache(scen, ModelConfig())
+        precompute_roi_cache(scen, ModelConfig())
+        out.append(scen)
+    return out
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _busy_ms(prof) -> float:
+    """The union of the device intervals a torch.profiler trace holds, ms."""
+    import torch
+
+    return _union_us([(e.time_range.start, e.time_range.end) for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]) / 1e3
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _timed_step(step, batch, epoch, device):
+    """(metrics, host ms) of one step, from a synchronize to the next."""
+    _sync(device)
+    t0 = time.perf_counter()
+    m = step(batch, epoch)
+    _sync(device)
+    return m, (time.perf_counter() - t0) * 1e3
+
+
+def _profiled_ms(step, batch, epoch, device):
+    """(host ms, device busy ms) of one more step under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch, epoch)
+        _sync(device)
+        host = (time.perf_counter() - t0) * 1e3
+    return host, _busy_ms(prof)
+
+
+def _peak_gib(device, reset=False):
+    """Peak device memory since the last reset (0 off the card)."""
+    import torch
+
+    if device.type != "cuda":
+        return 0.0
+    if reset:
+        torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def _device_label(device):
+    import torch
+
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
+
+
+def _mesh_config(family, s, train):
+    from lanegcn_tpu_torch.config import Config, bench_pack_config, lanercnn_pack_config
+
+    if family == "lanercnn":
+        return Config(roi_pack=lanercnn_pack_config(s), train=train)
+    return Config(pack=bench_pack_config(s), train=train)
+
+
+def _mesh_sgd():
+    from lanegcn_tpu_torch.config import TrainConfig
+
+    return TrainConfig(opt="sgd", lr=(MESH_LR,), lr_epochs=())
+
+
+def _flat_grad(net):
+    import torch
+
+    return torch.cat([p.grad.reshape(-1).float() for p in net.parameters()])
+
+
+def mesh_rank(rank, port, path, two_cards, device_type="cuda"):
+    """One rank of (b): the windowed step of each case in `path` (one SGD
+    step, fp32), then a warm step timed and one profiled; its results to
+    path.rankR. On one card the two ranks share it over gloo; on two cards
+    each rank takes its own, over NCCL."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from lanegcn_tpu_torch.graph import PackedBatch, RoiPackedBatch
+    from lanegcn_tpu_torch.models.registry import get_model
+    from lanegcn_tpu_torch.ops import cuda
+    from lanegcn_tpu_torch.parallel.mesh import init_mesh
+    from lanegcn_tpu_torch.parallel.windowed_parallel import make_windowed_parallel_train_step
+    from lanegcn_tpu_torch.train.loop import init_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device_type, rank if two_cards else 0)
+    backend = "nccl" if two_cards else "gloo"
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+    inputs = torch.load(path, weights_only=False)
+    out = {}
+    if device.type == "cuda" and not two_cards:
+        # NCCL with both ranks on this one card must raise, not switch.
+        try:
+            init_mesh(1, 2, device=device, backend="nccl")
+            out["nccl_one_card"] = "no error"
+        except RuntimeError as e:
+            out["nccl_one_card"] = str(e)[:120]
+    for (family, d, g), packs in inputs.items():
+        mesh = init_mesh(d, g, device=device, backend=backend)
+        bundle = get_model(family, _mesh_config(family, MESH_S, _mesh_sgd()), device=device,
+                           seed=MESH_SEED)
+        net, state = init_state(bundle.config, net=bundle.net, device=device)
+        step = make_windowed_parallel_train_step(bundle.config, net, state, mesh, device,
+                                                 bundle.loss_fn, bundle.metrics_fn)
+        kind = RoiPackedBatch if family == "lanercnn" else PackedBatch
+        batch = kind.from_numpy(packs[rank]).to(device)
+        before = state.opt.flat.clone()
+        _sync(device)
+        _peak_gib(device, reset=True)
+        cuda.reset_launch_counts()
+        m, first_ms = _timed_step(step, batch, 0.0, device)
+        counts = cuda.launch_counts()
+        collectives = dict(mesh.counts)
+        res = dict(metrics={k: float(v) for k, v in m.items()}, grad=_flat_grad(net).cpu(),
+                   before=before.cpu(), after=state.opt.flat.clone().cpu(), launches=counts,
+                   collectives=collectives, first_ms=first_ms, peak_gib=_peak_gib(device))
+        _, res["warm_ms"] = _timed_step(step, batch, 0.0, device)
+        res["profiled_ms"], res["busy_ms"] = _profiled_ms(step, batch, 0.0, device)
+        out[(family, d, g)] = res
+        del net, state, step, bundle, batch
+    torch.save(out, f"{path}.rank{rank}")
+    dist.destroy_process_group()
+
+
+def _mesh_reference(family, packs, device):
+    """The single-device fp32 SGD step from the same seeded weights on each
+    of `packs`: the mean loss, the other metrics summed, the launches of
+    one step, the mean flat gradient and the SGD update on that mean."""
+    import torch
+    from lanegcn_tpu_torch.graph import PackedBatch, RoiPackedBatch
+    from lanegcn_tpu_torch.models.registry import get_model
+    from lanegcn_tpu_torch.ops import cuda
+    from lanegcn_tpu_torch.train.loop import init_state, make_train_step
+
+    kind = RoiPackedBatch if family == "lanercnn" else PackedBatch
+    cfg = _mesh_config(family, MESH_S, _mesh_sgd())
+    losses, grads, sums, launches = [], [], {}, None
+    for p in packs:
+        bundle = get_model(family, cfg, device=device, seed=MESH_SEED)
+        net, state = init_state(bundle.config, net=bundle.net, device=device)
+        step = make_train_step(bundle.config, net, state, device, bundle.loss_fn,
+                               bundle.metrics_fn)
+        _sync(device)
+        cuda.reset_launch_counts()
+        m = step(kind.from_numpy(p).to(device), 0.0)
+        _sync(device)
+        launches = cuda.launch_counts()
+        losses.append(float(m["loss"]))
+        grads.append(_flat_grad(net))
+        for k, v in m.items():
+            if k not in ("loss", "lr", "skipped"):
+                sums[k] = sums.get(k, 0.0) + float(v)
+        del net, state, step, bundle
+    grad = torch.stack(grads).mean(0)
+    bundle = get_model(family, cfg, device=device, seed=MESH_SEED)
+    net, state = init_state(bundle.config, net=bundle.net, device=device)
+    before = state.opt.flat.clone()
+    state.opt.step(state.lr_fn(0.0, device), reduce=lambda g: grad.clone())
+    return dict(loss=sum(losses) / len(losses), sums=sums, launches=launches,
+                grad=grad.cpu(), update=(state.opt.flat - before).cpu(), before=before.cpu())
+
+
+def mesh_errors(got, want, eps=0.0):
+    """(worst |got − want| / (MESH_TOL · (rms + |want|) + eps), rms(got −
+    want) / (MESH_RMS_TOL · rms(want))): each must be ≤ 1. eps covers the
+    fp32 rounding of a parameter update read as after − before."""
+    rms = float(want.square().mean().sqrt())
+    err = (got - want).abs()
+    worst = float((err / (MESH_TOL * (rms + want.abs()) + eps)).max())
+    rel_rms = float(err.square().mean().sqrt()) / (MESH_RMS_TOL * max(rms, 1e-30))
+    return worst, rel_rms
+
+
+def mesh_union_order(scens, g):
+    """Each graph column's scenarios of one group, in column order, and
+    their union: the order the step's gathers lay the group out in."""
+    from lanegcn_tpu_torch.parallel.windowed_parallel import balance_scenarios
+
+    parts = balance_scenarios(scens, g, max_per_group=-(-len(scens) // g))
+    cols = [[scens[i] for i in grp] for grp in parts]
+    return cols, [s for col in cols for s in col]
+
+
+def _mesh_one_rank(packs, device):
+    """(a): MESH_A_STEPS bf16 steps of the windowed step in a one-rank
+    NCCL world and of make_train_step, from the same weights on the same
+    packs: loss, every gradient and the parameters after each step bitwise
+    equal; launches, collectives, step ms and peak memory."""
+    import torch
+    from lanegcn_tpu_torch.config import TrainConfig
+    from lanegcn_tpu_torch.graph import PackedBatch
+    from lanegcn_tpu_torch.models.registry import get_model
+    from lanegcn_tpu_torch.ops import cuda
+    from lanegcn_tpu_torch.parallel.mesh import destroy, init_mesh
+    from lanegcn_tpu_torch.parallel.windowed_parallel import make_windowed_parallel_train_step
+    from lanegcn_tpu_torch.train.loop import init_state, make_train_step
+
+    mesh = init_mesh(1, 1, device=device, init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        check(mesh.backend == ("nccl" if device.type == "cuda" else "gloo"),
+              f"mesh (a): backend {mesh.backend}")
+        cfg = _mesh_config("lanegcn", MESH_S, TrainConfig())
+        nets = []
+        for _ in range(2):
+            bundle = get_model("lanegcn", cfg, dtype=torch.bfloat16, device=device,
+                               seed=MESH_SEED)
+            nets.append(init_state(bundle.config, net=bundle.net, device=device))
+        (net_w, st_w), (net_s, st_s) = nets
+        step_w = make_windowed_parallel_train_step(cfg, net_w, st_w, mesh, device)
+        step_s = make_train_step(cfg, net_s, st_s, device)
+        batches = [PackedBatch.from_numpy(p).to(device) for p in packs]
+        apart = []
+        _sync(device)
+        _peak_gib(device, reset=True)
+        mesh.counts.clear()
+        ms_w, ms_s, counts_w, counts_s = [], [], {}, {}
+
+        def counted(step, acc, b, e):
+            cuda.reset_launch_counts()
+            m, t = _timed_step(step, b, e, device)
+            for k, v in cuda.launch_counts().items():
+                acc[k] = acc.get(k, 0) + v
+            return m, t
+
+        for i in range(MESH_A_STEPS):
+            b, e = batches[i % len(batches)], i / 100.0
+            m_w, t_w = counted(step_w, counts_w, b, e)
+            ms_w.append(t_w)
+            m_s, t_s = counted(step_s, counts_s, b, e)
+            ms_s.append(t_s)
+            if not torch.equal(m_w["loss"], m_s["loss"]):
+                apart.append(f"step {i} loss {float(m_w['loss'])!r} {float(m_s['loss'])!r}")
+            if not torch.equal(_flat_grad(net_w), _flat_grad(net_s)):
+                apart.append(f"step {i} gradient")
+            if not torch.equal(st_w.opt.flat, st_s.opt.flat):
+                apart.append(f"step {i} parameters")
+            for k in m_s:
+                if not torch.equal(m_w[k], m_s[k]):
+                    apart.append(f"step {i} metric {k}")
+        peak = _peak_gib(device)
+        coll = {k: v / MESH_A_STEPS for k, v in mesh.counts.items()}
+        spec = GEOMETRIES["bench"]["per_train_step"]
+        host_w, busy_w = _profiled_ms(step_w, batches[0], 0.5, device)
+        host_s, busy_s = _profiled_ms(step_s, batches[0], 0.5, device)
+        res = {"case": "a", "backend": mesh.backend, "world": 1, "dtype": "bfloat16",
+               "steps": MESH_A_STEPS, "bitwise_equal": not apart, "apart": apart[:6],
+               "step_ms_host": ms_w, "single_device_step_ms_host": ms_s,
+               "profiled_step_ms_host": host_w, "busy_ms": busy_w,
+               "single_device_profiled_ms_host": host_s, "single_device_busy_ms": busy_s,
+               "collectives_per_step": coll, "peak_gib_both_nets": peak,
+               "launches_per_step": {k: v / MESH_A_STEPS for k, v in counts_w.items() if v}}
+        emit({"phase": "mesh", **res})
+        check(not apart, f"mesh (a): the one-rank windowed step differs from make_train_step: "
+              f"{apart[:4]}")
+        check_counts(counts_w, spec, MESH_A_STEPS, "mesh (a) windowed")
+        check_counts(counts_s, spec, MESH_A_STEPS, "mesh (a) single-device")
+        check(coll.get("all_gather") == 2 and coll.get("all_reduce") == 3,
+              f"mesh (a): collectives a step {coll}")
+        return res
+    finally:
+        destroy()
+
+
+def _mesh_cli(root, device):
+    """(c): `python -m torch.distributed.run --nproc-per-node 1 -m
+    lanegcn_tpu_torch.cli train --mesh 1x1` (LaneGCN, contiguous packs, bf16,
+    2 pack workers): R1 uninterrupted; R2 beside it, SIGTERM to its worker
+    after MESH_CLI_PREEMPT_AT step lines (the launcher and the worker exit
+    0, 'SIGTERM: saved'), then resumed: its last checkpoint bitwise R1's."""
+    import signal
+    import threading
+
+    from lanegcn_tpu_torch.train.checkpoint import load_checkpoint
+
+    def start(save_dir, name, *extra):
+        return _cli_proc(
+            ["train", "--mesh", "1x1", "--data", f"urban:{MESH_CLI_N}:7:16", "--batch-size",
+             str(MESH_CLI_B), "--epochs", str(MESH_CLI_EPOCHS), "--bf16", "--workers", "2",
+             "--save-freq", "1", "--display-every", "1", "--save-dir", save_dir, *extra,
+             *(["--device", "cpu"] if device.type == "cpu" else [])], root, name,
+            launcher=("-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1"))
+
+    def workers(pid):
+        out = []
+        for entry in os.listdir("/proc"):
+            if not entry.isdigit():
+                continue
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+                with open(f"/proc/{entry}/cmdline") as f:
+                    cmd = f.read()
+            except OSError:
+                continue
+            if ppid == pid and "lanegcn_tpu_torch.cli" in cmd:
+                out.append(int(entry))
+        return out
+
+    t0 = time.perf_counter()
+    r1, r2 = os.path.join(root, "r1"), os.path.join(root, "r2")
+    procs = [start(r1, "r1"), start(r2, "r2")]
+    p1, p2 = procs
+    watchdog = [threading.Timer(MESH_TIMEOUT, _stop_session, (p,)) for p in procs]
+    for w in watchdog:
+        w.start()
+    try:
+        lines, sent = [], False
+        for ln in p2.stdout:
+            lines.append(ln)
+            if not sent and len(_step_lines("".join(lines))) == MESH_CLI_PREEMPT_AT:
+                pids = workers(p2.pid)
+                check(len(pids) == 1, f"mesh (c): workers of the launcher {pids}")
+                os.kill(pids[0], signal.SIGTERM)
+                sent = True
+        rc2 = p2.wait()
+        out1 = _cli_wait(p1, "mesh R1", timeout=MESH_TIMEOUT)
+        out2 = "".join(lines)
+        with open(p2.err_path) as f:
+            err2 = f.read()
+        check(sent and rc2 == 0, f"mesh (c) R2: exit code {rc2} after SIGTERM (sent: {sent})\n"
+              f"{err2[-3000:]}")
+        steps = MESH_CLI_EPOCHS * (MESH_CLI_N // MESH_CLI_B)
+        saved = [ln for ln in out2.splitlines() if ln.startswith("SIGTERM: saved ")]
+        check(len(saved) == 1, f"mesh (c) R2: no 'SIGTERM: saved' line:\n{out2[-2000:]}")
+        cut = os.path.join(root, saved[0][len("SIGTERM: saved "):-len(", exiting")])
+        cut_step = load_checkpoint(cut)["step"]
+        check(MESH_CLI_PREEMPT_AT <= cut_step < steps, f"mesh (c): preempted at step {cut_step}")
+        procs.append(start(r2, "r2_resumed", "--resume", cut))
+        out3 = _cli_wait(procs[-1], "mesh R2 resumed", timeout=MESH_TIMEOUT)
+    finally:
+        for w in watchdog:
+            w.cancel()
+        for p in procs:  # a failed check leaves no launcher or worker behind
+            _stop_session(p)
+    losses1 = _check_step_lines(_step_lines(out1), "mesh R1", steps)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    check(f"mesh: data=1 x graph=1, 1 process(es), {backend}" in out1, "mesh (c): no mesh line")
+    _check_step_lines(_step_lines(out3), "mesh R2 resumed", steps - cut_step)
+    last = "%3.3f.ckpt" % MESH_CLI_EPOCHS
+    equal = _same_checkpoints(load_checkpoint(os.path.join(r1, last)),
+                              load_checkpoint(os.path.join(r2, last)))
+    coll = [ln for ln in out1.splitlines() if ln.startswith("mesh collectives: ")]
+    check(len(coll) == 1, "mesh (c): no 'mesh collectives' line")
+    coll = json.loads(coll[0][len("mesh collectives: "):])
+    step_s = [float(ln.rsplit("time ", 1)[1].split(",")[0]) for ln in _step_lines(out1)]
+    res = {"case": "c", "launcher": "torch.distributed.run --nproc-per-node 1",
+           "mesh": "1x1", "backend": backend, "steps": steps, "preempted_at_step": cut_step,
+           "resumed_bitwise_equal": equal, "first_loss": losses1[0], "last_loss": losses1[-1],
+           # The log's `time` of each step line (display every step: the step,
+           # the loader's wait and the display), first two left out.
+           "step_ms_host_from_log": [t * 1e3 for t in step_s[2:]],
+           "busy_ms": "not measured", "peak_gib": "not measured",
+           "collectives_per_step": {k: v / steps for k, v in coll.items()
+                                    if not k.startswith("broadcast")},
+           "broadcast_at_start": {k: v for k, v in coll.items() if k.startswith("broadcast")},
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "mesh", **res})
+    check(equal, f"mesh (c): resumed from step {cut_step}, {last} differs from R1's")
+    return res
+
+
+def mesh_packs(s):
+    """The mesh phase's packs, {(family, D, G): packs}: each rank's and the
+    single-device references' (zero drops of any kind asserted). LaneGCN:
+    2·s urban scenarios in two data rows of bench_pack_config(s) packs,
+    the first row also split in two columns at the mesh's subdivided
+    capacities (graph_split) and its union in column order; LaneRCNN: s
+    urban RoI scenarios split in two columns of lanercnn_pack_config(s)
+    likewise, and their union. Scenarios made by a pool of up to 8 processes."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    from lanegcn_tpu_torch.data.packing import pack_batch
+    from lanegcn_tpu_torch.data.packing_roi import pack_roi_batch
+    from lanegcn_tpu_torch.parallel.windowed_parallel import graph_split
+
+    t0 = time.perf_counter()
+    procs = max(1, min(8, len(os.sched_getaffinity(0))))
+    with ProcessPoolExecutor(procs, mp_context=mp.get_context("spawn")) as pool:
+        gcn = pool.map(urban_scenarios, [range(MESH_GCN_SEED0 + i, MESH_GCN_SEED0 + 2 * s, procs)
+                                         for i in range(procs)])
+        rcnn = pool.map(roi_scenarios, [range(MESH_RCNN_SEED0 + i, MESH_RCNN_SEED0 + s, procs)
+                                        for i in range(procs)])
+        gcn = [sc for part in gcn for sc in part]
+        rcnn = [sc for part in rcnn for sc in part]
+    gen_s = time.perf_counter() - t0
+
+    def packed(family, scens, cfg):
+        if family == "lanercnn":
+            b, st = pack_roi_batch(scens, cfg.roi_pack, cfg.model)
+        else:
+            b, st = pack_batch(scens, cfg.pack, cfg.model)
+        bad = {k: v for k, v in st.items()
+               if k.startswith(("dropped", "graph_dropped", "skipped")) and v}
+        check(not bad and st["packed_scenarios"] == len(scens),
+              f"mesh: {family} pack of {len(scens)} dropped {bad} "
+              f"(packed {st['packed_scenarios']})")
+        return b
+
+    class _Col:  # the graph column count graph_split reads
+        def __init__(self, g):
+            self.graph, self.g = g, 0
+
+    t0 = time.perf_counter()
+    inputs, refs_from = {}, {}
+    rows = [gcn[:s], gcn[s:]]
+    for family, group_scens, d, g in (("lanegcn", rows, 2, 1), ("lanegcn", rows[:1], 1, 2),
+                                      ("lanercnn", [rcnn], 1, 2)):
+        cfg = _mesh_config(family, s, _mesh_sgd())
+        if g == 1:
+            packs = [packed(family, r, cfg) for r in group_scens]
+            inputs[(family, d, g)], refs_from[(family, d, g)] = packs, packs
+        else:
+            cols, union = mesh_union_order(group_scens[0], g)
+            sub = graph_split(cfg, _Col(g), family).config
+            inputs[(family, d, g)] = [packed(family, c, sub) for c in cols]
+            refs_from[(family, d, g)] = [packed(family, union, cfg)]
+    pack_s = time.perf_counter() - t0
+    return inputs, refs_from, {"gen_s": gen_s, "gen_processes": procs, "pack_s": pack_s}
+
+
+def mesh_phase(device_type="cuda"):
+    """The windowed data×graph split: (a) a one-rank NCCL world bitwise
+    against make_train_step; (b) two ranks (gloo on one card, NCCL on two)
+    against the single-device step on the union packs; (c) the CLI under
+    torch.distributed.run, preempted and resumed bitwise. Each run's step
+    ms (host clock and device busy), collectives a step and their bytes,
+    and peak memory; gloo's times are not NCCL's."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as tmp
+
+    t_phase = time.perf_counter()
+    device = torch.device(device_type, 0)
+    root = os.path.join(REPO, "build", "chip_smoke_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    inputs, refs_from, sizes = mesh_packs(MESH_S)
+
+    # (a) on the bench packs of the two data rows.
+    a = _mesh_one_rank(inputs[("lanegcn", 2, 1)], device)
+
+    # (b): the references here, then the two ranks.
+    two_cards = device.type == "cuda" and torch.cuda.device_count() >= 2
+    refs = {case: _mesh_reference(case[0], packs, device) for case, packs in refs_from.items()}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    path = os.path.join(root, "inputs.pt")
+    torch.save(inputs, path)
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(mesh_rank, args=(_free_port(), path, two_cards, device_type),
+                              nprocs=2, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() - t0 < MESH_TIMEOUT,
+                  f"mesh (b): the ranks did not end within {MESH_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{path}.rank{r}", weights_only=False) for r in range(2)]
+    backend = "nccl, two cards" if two_cards else "gloo, two ranks on one card"
+    if device.type == "cuda" and not two_cards:
+        refusals = [r.pop("nccl_one_card") for r in ranks]
+        emit({"phase": "mesh", "case": "nccl_two_ranks_one_card", "raised": refusals})
+        check(all("two ranks on one card" in e for e in refusals),
+              f"mesh: NCCL with two ranks on one card did not raise: {refusals}")
+    b_results = []
+    for case, ref in refs.items():
+        family, d, g = case
+        r0, r1 = (r[case] for r in ranks)
+        grad = (r0["grad"] + r1["grad"]) / 2
+        g_worst, g_rms = mesh_errors(grad, ref["grad"])
+        eps = 4 * torch.finfo(torch.float32).eps * ref["before"].abs()
+        rows_ = []
+        for r in (r0, r1):
+            u_worst, u_rms = mesh_errors(r["after"] - r["before"], ref["update"], eps)
+            m = r["metrics"]
+            rows_.append({
+                "loss": m["loss"], "loss_ref": ref["loss"],
+                "counts": {k: m[k] for k in ref["sums"] if k.startswith("num_")},
+                "update_err_over_tol": u_worst, "update_rms_err_over_tol": u_rms,
+                "skipped": m["skipped"], "launches_equal_single_device":
+                    r["launches"] == ref["launches"],
+                "first_step_ms_host": r["first_ms"], "warm_step_ms_host": r["warm_ms"],
+                "profiled_step_ms_host": r["profiled_ms"], "busy_ms": r["busy_ms"],
+                "peak_gib": r["peak_gib"], "collectives_first_step": r["collectives"]})
+        res = {"case": "b", "family": family, "mesh": f"{d}x{g}", "backend": backend,
+               "dtype": "float32", "opt": "sgd", "lr": MESH_LR,
+               "tol": MESH_TOL, "rms_tol": MESH_RMS_TOL,
+               "grad_err_over_tol": g_worst, "grad_rms_err_over_tol": g_rms,
+               "ranks": rows_, "ranks_params_equal": torch.equal(r0["after"], r1["after"]),
+               "launches_per_step": {k: v for k, v in r0["launches"].items() if v}}
+        emit({"phase": "mesh", **res})
+        b_results.append(res)
+        geom = "lanercnn" if family == "lanercnn" else "bench"
+        for i, (r, row) in enumerate(zip((r0, r1), rows_)):
+            what = f"mesh (b) {family} {d}x{g} rank {i}"
+            check(abs(row["loss"] - ref["loss"]) <= MESH_LOSS_RTOL * abs(ref["loss"]),
+                  f"{what}: loss {row['loss']} vs {ref['loss']}")
+            for k, v in ref["sums"].items():
+                if k.startswith("num_"):
+                    check(r["metrics"][k] == v, f"{what}: {k} {r['metrics'][k]} vs {v}")
+            check(row["skipped"] == 0.0, f"{what}: the guard skipped the step")
+            check(row["update_err_over_tol"] <= 1.0 and row["update_rms_err_over_tol"] <= 1.0,
+                  f"{what}: SGD update off by {row['update_err_over_tol']} x the tolerance "
+                  f"(RMS {row['update_rms_err_over_tol']})")
+            check_counts(r["launches"], GEOMETRIES[geom]["per_train_step"], 1, what)
+            check(row["launches_equal_single_device"], f"{what}: launches {r['launches']} vs "
+                  f"the single-device step's {ref['launches']}")
+        check(g_worst <= 1.0 and g_rms <= 1.0, f"mesh (b) {family} {d}x{g}: gradient off by "
+              f"{g_worst} x the tolerance (RMS {g_rms})")
+        check(res["ranks_params_equal"], f"mesh (b) {family} {d}x{g}: ranks' params differ")
+
+    # (c) the CLI.
+    c = _mesh_cli(root, device)
+    emit({"phase": "mesh", "device": _device_label(device), "backend_b": backend,
+          "seconds": time.perf_counter() - t_phase, **sizes, "ranks_s": ranks_s,
+          "a_bitwise": a["bitwise_equal"], "b_cases": len(b_results),
+          "c_resumed_bitwise": c["resumed_bitwise_equal"]})
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     import torch
 
@@ -2795,6 +3433,7 @@ def main() -> None:
             }
     cli_phase()
     loader_phase()
+    mesh_phase()
     kernels = list(kernels.values())
     # Every kernel's launches on every path, beside its home geometry's count.
     for k in kernels:

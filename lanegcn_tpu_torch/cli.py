@@ -14,8 +14,21 @@ given `--device cpu`, and raises without CUDA otherwise. Examples:
 A resumed run (`--resume CKPT`) restores the step counter and skips the
 groups of the current epoch that were already trained, without fetching or
 packing them, so it ends bitwise where the run that was never stopped ends.
-The mesh and multi-process flags of the JAX CLI (--mesh, --graph-parallel,
---edge-shard-slack, --dist-*) are not ported yet.
+
+Several cards: launch one process a card with torch.distributed.run and
+give train a D×G mesh (the windowed data×graph split,
+parallel/windowed_parallel.py); D·G must equal the number of processes,
+and without --mesh they train data parallel (D = processes, G = 1):
+
+    python -m torch.distributed.run --nproc-per-node 4 -m lanegcn_tpu_torch.cli \
+        train --mesh 2x2 --data shards/ --bf16 --save-dir results/mesh
+
+Rank 0 alone writes the checkpoints, the log and the run snapshot; eval
+under torch.distributed.run gives each process its own stride of the
+scenarios and sums the metrics over them. --graph-parallel explicit (the
+source-partitioned layers) is not ported yet; gspmd (XLA's partitioner)
+has no PyTorch counterpart. The JAX CLI's --edge-shard-slack and --dist-*
+have none either: torch.distributed.run sets the ranks and the address.
 """
 
 from __future__ import annotations
@@ -23,6 +36,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import json
 import os
 import pickle
 import sys
@@ -108,7 +122,6 @@ def _snapshot_run(save_dir: str, config, device) -> None:
     build products) plus argv, the resolved config, the git rev, the torch
     version and the device name (the reference copies its *.py into
     save_dir, train.py:108-115)."""
-    import json
     import shutil
     import subprocess
 
@@ -174,17 +187,110 @@ def _drops(drop_stats: list) -> dict:
     return drops
 
 
-def cmd_train(args):
+def _mesh_layout(args):
+    """(D, G) of the run: --mesh, else (WORLD_SIZE, 1) under several
+    processes; None for one process without --mesh."""
+    from lanegcn_tpu_torch.parallel.mesh import parse_mesh
+
+    world = int(os.environ.get("WORLD_SIZE") or 1)
+    if getattr(args, "mesh", None):
+        data, graph = parse_mesh(args.mesh)
+        if data * graph != world:
+            raise SystemExit(f"--mesh {args.mesh} needs {data * graph} processes "
+                             f"(torch.distributed.run --nproc-per-node); WORLD_SIZE is {world}")
+        return data, graph
+    return (world, 1) if world > 1 else None
+
+
+def _start_mesh(args):
+    """(mesh, device): the process group and this rank's Mesh under a
+    layout (its card is cuda:LOCAL_RANK unless --device names the CPU),
+    else (None, the one device)."""
     from lanegcn_tpu_torch.device import resolve_device
 
-    device = resolve_device(args.device)
-    with _tee(args.save_dir):
-        _train(args, device)
+    layout = _mesh_layout(args)
+    if layout is None:
+        return None, resolve_device(args.device)
+    from lanegcn_tpu_torch.parallel.mesh import init_mesh
+
+    dev = None if args.device in (None, "cuda") else args.device
+    mesh = init_mesh(*layout, device=dev)
+    if mesh.device.type == "cuda":
+        # Every rank builds the same kernels: rank 0 first, the rest then
+        # load its libraries.
+        from lanegcn_tpu_torch.ops import cuda
+
+        if mesh.rank == 0:
+            cuda.build_all()
+        torch.distributed.barrier(group=mesh.control_group)
+    return mesh, mesh.device
 
 
-def _train(args, device):
+@contextlib.contextmanager
+def _rank_output(mesh, save_dir):
+    """Rank 0's stdout mirrored into save_dir/log; the other ranks' stdout
+    dropped (their errors still reach stderr)."""
+    if mesh is None or mesh.rank == 0:
+        with _tee(save_dir):
+            yield
+        return
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        yield
+
+
+def cmd_train(args):
+    if args.graph_parallel == "explicit":
+        raise NotImplementedError(
+            "--graph-parallel explicit (source-partitioned LaneConv and Att, "
+            "lanegcn_tpu/parallel/graph_parallel.py) is not ported yet: ROADMAP.md §1 item 8; "
+            "use windowed")
+    if args.graph_parallel == "gspmd":
+        raise NotImplementedError(
+            "--graph-parallel gspmd is XLA's GSPMD partitioner, which PyTorch has no "
+            "counterpart of; use windowed")
+    mesh, device = _start_mesh(args)
+    try:
+        with _rank_output(mesh, args.save_dir):
+            _train(args, device, mesh)
+            if mesh is not None:
+                # What the run sent between the ranks, by kind: calls and bytes.
+                print(f"mesh collectives: {json.dumps(mesh.counts, sort_keys=True)}")
+    finally:
+        if mesh is not None:
+            from lanegcn_tpu_torch.parallel.mesh import destroy
+
+            destroy()
+
+
+def _any_rank(flag: bool, mesh) -> bool:
+    """Whether `flag` is set on any rank (a host all_reduce, MAX, on the
+    mesh's gloo group; the flag alone without a mesh)."""
+    if mesh is None:
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int32)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX,
+                                 group=mesh.control_group)
+    mesh.count("flag_all_reduce", t.numel() * t.element_size())
+    return bool(t.item())
+
+
+def _all_drops(drops: dict, mesh) -> dict:
+    """The drop counters of every rank's packs, summed."""
+    if mesh is None:
+        return drops
+    every = [None] * mesh.world
+    torch.distributed.all_gather_object(every, drops, group=mesh.control_group)
+    out: dict = {}
+    for d in every:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _train(args, device, mesh=None):
     from lanegcn_tpu_torch.models.registry import get_model
     from lanegcn_tpu_torch.train.checkpoint import (
+        has_train_state,
         load_checkpoint,
         load_pretrain,
         restore_train_state,
@@ -202,20 +308,34 @@ def _train(args, device):
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     bundle = get_model(args.model, config, dtype=dtype, device=device)
     config = bundle.config  # model factories may adjust (e.g. AdamW)
-    if args.save_dir:
+    rank0 = mesh is None or mesh.rank == 0
+    if args.save_dir and rank0:
         _snapshot_run(args.save_dir, config, device)
     dataset = _parse_data(args.data, args.model)
     if args.rot_aug:
         from lanegcn_tpu_torch.data.augment import RotationAugment
+        from lanegcn_tpu_torch.parallel.multihost import process_seed
 
-        dataset = RotationAugment(dataset, seed=config.train.seed)
+        # Each rank its own rotations (the reference seeds per rank); the
+        # shuffle seed stays shared, so the ranks' strides stay disjoint.
+        dataset = RotationAugment(dataset, seed=process_seed(config.train.seed))
     # Drop accounting: every packer stats dict lands here; the display
     # lines sum its drop counters (`_drops`), so capacity overflow shows in
     # the training log.
     drop_stats: list = []
+    mesh_kw = {}
+    if mesh is not None:
+        from lanegcn_tpu_torch.parallel.windowed_parallel import graph_split
+
+        # Data row d takes its stride of the shared order, whole groups only;
+        # graph column g packs its share of each group at 1/G capacities.
+        mesh_kw = dict(process_index=mesh.d, process_count=mesh.data, drop_last=True,
+                       graph_split=graph_split(config, mesh, args.model)
+                       if mesh.graph > 1 else None)
     loader = _make_loader(
         dataset, config, args.model, shuffle=True, seed=config.train.seed,
         pack_workers=args.workers, drop_stats=drop_stats, to_device=True, device=device,
+        **mesh_kw,
     )
     steps_per_epoch = loader.steps_per_epoch()
     net, state = init_state(config, net=bundle.net, device=device)
@@ -224,15 +344,25 @@ def _train(args, device):
         ck = load_checkpoint(args.resume)
         load_pretrain(net, ck["state_dict"])
         start_epoch = float(ck["epoch"])
-        if "flat_adam" in ck:
+        if has_train_state(ck):
             restore_train_state(state, ck)
         else:  # a reference checkpoint: weights and epoch only
             state.step = int(round(start_epoch * steps_per_epoch))
         print(f"resumed from {args.resume} at epoch {start_epoch:.3f}")
 
     eval_step = make_eval_step(config, net, device, bundle.loss_fn, bundle.metrics_fn)
-    train_step = make_train_step(config, net, state, device, bundle.loss_fn,
-                                 bundle.metrics_fn)
+    if mesh is None:
+        train_step = make_train_step(config, net, state, device, bundle.loss_fn,
+                                     bundle.metrics_fn)
+    else:
+        from lanegcn_tpu_torch.parallel.windowed_parallel import (
+            broadcast_train_state,
+            make_windowed_parallel_train_step,
+        )
+
+        broadcast_train_state(net, state, mesh)
+        train_step = make_windowed_parallel_train_step(config, net, state, mesh, device,
+                                                       bundle.loss_fn, bundle.metrics_fn)
     val_dataset = _parse_data(args.val_data, args.model) if args.val_data else None
     acc = MetricAccumulator()
     save_freq = args.save_freq if args.save_freq is not None else config.train.save_freq
@@ -244,6 +374,9 @@ def _train(args, device):
     num_params = sum(p.numel() for p in net.parameters())
     print(f"model {args.model}: {num_params:,} params, "
           f"{steps_per_epoch} steps/epoch on {_device_name(device)}")
+    if mesh is not None:
+        print(f"mesh: data={mesh.data} x graph={mesh.graph}, {mesh.world} process(es), "
+              f"{mesh.backend}, graph axis: windowed (scenario-aligned)")
     last_val_step = -1
     profile = contextlib.ExitStack()
     profiling = False  # a trace is open (a run resumed past step 5 starts none)
@@ -254,7 +387,7 @@ def _train(args, device):
     with PreemptionGuard() as guard, profile:  # closes an open trace on exit
         for epoch_i in range(first_epoch, args.epochs):
             for batch in loader.epoch(epoch_i, skip=skip if epoch_i == first_epoch else 0):
-                if args.profile and state.step == 5:
+                if args.profile and rank0 and state.step == 5:
                     profile.enter_context(trace_context(args.profile))
                     profiling = True
                 epoch = state.step / steps_per_epoch
@@ -269,7 +402,7 @@ def _train(args, device):
                     print(f"wrote profiler trace to {args.profile}")
                 if step % args.display_every == 0:
                     s = acc.summary()
-                    drops = _drops(drop_stats)
+                    drops = _all_drops(_drops(drop_stats), mesh)
                     print(
                         f"epoch {epoch:.3f} lr {float(metrics['lr']):.5f} "
                         f"loss {s['loss']:.4f} {s['cls']:.4f} {s['reg']:.4f}, "
@@ -281,46 +414,57 @@ def _train(args, device):
                     acc.reset()
                     t0 = time.time()
                 epoch_now = step / steps_per_epoch
-                if guard.triggered:
+                # Under a mesh every rank stops at the step where any rank was
+                # signalled, so the ranks stay in step and one checkpoint holds
+                # the state they share.
+                if _any_rank(guard.triggered, mesh):
                     # Preempted: write a resumable checkpoint and exit cleanly
                     # (the reference would just die; --resume continues here).
-                    if args.save_dir:
+                    why = guard.signal_name or "a rank was signalled"
+                    if args.save_dir and rank0:
                         path = os.path.join(args.save_dir, "%3.3f.ckpt" % epoch_now)
                         save_checkpoint(path, net, state, epoch_now, args.bf16)
-                        print(f"{guard.signal_name}: saved {path}, exiting")
+                        print(f"{why}: saved {path}, exiting")
                     else:
-                        print(f"{guard.signal_name}: exiting")
+                        print(f"{why}: exiting")
                     return
                 if next_save is not None and epoch_now >= next_save:
-                    if args.save_dir:
+                    if args.save_dir and rank0:
                         path = os.path.join(args.save_dir, "%3.3f.ckpt" % epoch_now)
                         save_checkpoint(path, net, state, epoch_now, args.bf16)
                         print(f"saved {path}")
                     next_save += save_freq
                 if next_val is not None and epoch_now >= next_val:
-                    _run_eval(config, bundle, val_dataset, eval_step, device=device)
+                    _run_eval(config, bundle, val_dataset, eval_step, device=device, mesh=mesh)
                     last_val_step = step
                     next_val += args.val_every
 
     if val_dataset is not None and last_val_step != state.step:
-        _run_eval(config, bundle, val_dataset, eval_step, device=device)
+        _run_eval(config, bundle, val_dataset, eval_step, device=device, mesh=mesh)
 
 
-def _run_eval(config, bundle, dataset, eval_step, submission=None, device=None):
+def _run_eval(config, bundle, dataset, eval_step, submission=None, device=None, mesh=None):
     """Validation/inference over every scenario of `dataset` with
     eval_step(batch) → (out, metrics). Scenarios a pack skips for capacity
     are counted and reported: the reference evaluates every scenario
-    (test.py:82-90), so a nonzero drop count flags an undersized pack."""
+    (test.py:82-90), so a nonzero drop count flags an undersized pack.
+
+    Under a mesh each rank evaluates its own stride of the scenarios (whole
+    packs: no collective in the loop) and the metric sums and drop counts
+    add up over every rank (sync_metric_sums); a submission is written in
+    one part a rank (SUBMISSION.partR)."""
     from lanegcn_tpu_torch.eval import (
         forecasting_metric_sums,
         metrics_from_sums,
         write_submission,
     )
+    from lanegcn_tpu_torch.parallel.multihost import sync_metric_sums
 
     drop_stats: list = []
+    shard = {} if mesh is None else dict(process_index=mesh.rank, process_count=mesh.world)
     # One pack worker: the stats (and the seq_ids in them) arrive in order.
     loader = _make_loader(dataset, config, bundle.name, shuffle=False,
-                          drop_stats=drop_stats, to_device=True, device=device)
+                          drop_stats=drop_stats, to_device=True, device=device, **shard)
     preds, gts, probs = [], [], []
     t0 = time.time()
     for batch in loader.epoch(0):
@@ -338,9 +482,15 @@ def _run_eval(config, bundle, dataset, eval_step, submission=None, device=None):
     ) if drop_stats else np.zeros(0, np.int64)
     dropped = sum(s.get("skipped_scenarios", 0) for s in drop_stats)
     if submission:
+        if mesh is not None and mesh.world > 1:
+            submission = f"{submission}.part{mesh.rank}"
         write_submission(submission, preds, seq_ids, probabilities=probs)
         print(f"wrote submission to {submission}")
     sums = forecasting_metric_sums(preds, gts)
+    sums["dropped"] = float(dropped)
+    if mesh is not None:
+        sums = sync_metric_sums(sums, mesh.control_group)
+    dropped = sums.pop("dropped")
     metrics = metrics_from_sums(sums)
     print(
         f"validation: {int(sums['count'])} scenarios in {time.time() - t0:.1f}s"
@@ -352,12 +502,24 @@ def _run_eval(config, bundle, dataset, eval_step, submission=None, device=None):
 
 
 def cmd_eval(args):
-    from lanegcn_tpu_torch.device import resolve_device
+    """Evaluate a checkpoint; under torch.distributed.run each process
+    takes its own stride of the scenarios."""
+    mesh, device = _start_mesh(args)
+    try:
+        with _rank_output(mesh, None):
+            return _eval(args, device, mesh)
+    finally:
+        if mesh is not None:
+            from lanegcn_tpu_torch.parallel.mesh import destroy
+
+            destroy()
+
+
+def _eval(args, device, mesh):
     from lanegcn_tpu_torch.models.registry import get_model
     from lanegcn_tpu_torch.train.checkpoint import load_checkpoint, load_pretrain
     from lanegcn_tpu_torch.train.loop import make_eval_step
 
-    device = resolve_device(args.device)
     if args.torch_weight:
         # A reference-named state dict (e.g. the reference's published
         # 36.000.ckpt, reference README.MD:88, or a port checkpoint): the
@@ -384,7 +546,7 @@ def cmd_eval(args):
     eval_step = make_eval_step(config, net, device, bundle.loss_fn, bundle.metrics_fn)
     dataset = _parse_data(args.data, args.model)
     return _run_eval(config, bundle, dataset, eval_step, submission=args.submission,
-                     device=device)
+                     device=device, mesh=mesh)
 
 
 def cmd_preprocess(args):
@@ -454,6 +616,15 @@ def main(argv=None):
     pt.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of steps 5-10 to DIR")
     pt.add_argument("--device", default=None, help=device_help)
+    pt.add_argument("--mesh", default=None, metavar="DxG",
+                    help="process layout under torch.distributed.run, e.g. 4 (data) or 2x2 "
+                         "(data x graph); D*G = the number of processes (default: data "
+                         "parallel over them)")
+    pt.add_argument("--graph-parallel", choices=["windowed", "explicit", "gspmd"],
+                    default="windowed",
+                    help="graph-axis strategy for --mesh DxG: windowed = scenario-aligned "
+                         "sub-packs, each rank running the one-card path (explicit: not "
+                         "ported yet; gspmd: no PyTorch counterpart)")
     pt.set_defaults(fn=cmd_train)
 
     pe = sub.add_parser("eval")

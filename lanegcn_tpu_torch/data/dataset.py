@@ -127,6 +127,15 @@ class PackedLoader:
     Sharding across processes: pass process_index/process_count to give
     each process a disjoint scenario shard (reference DistributedSampler,
     train.py:119-121).
+
+    On a D×G mesh (parallel/windowed_parallel.py) the rank at data row d
+    and graph column g passes process_index=d, process_count=D,
+    drop_last=True and graph_split=GraphSplit(g, G, sub-config): it fetches
+    each group of scen_per_pack scenarios of its row's stride, splits it G
+    ways with balance_scenarios and packs only part g, at the subdivided
+    capacities. drop_last cuts the shared order to whole groups of every
+    row, so every rank takes the same number of steps (the collectives of
+    a step would wait forever on a rank that has none).
     """
 
     def __init__(
@@ -144,6 +153,8 @@ class PackedLoader:
         pack_workers: int = 1,
         to_device: bool = False,
         device=None,
+        drop_last: bool = False,
+        graph_split=None,
     ):
         """packer: (scenarios, config) → (batch, stats); defaults to the
         LaneGCN pack_batch. For LaneRCNN pass a pack_roi_batch wrapper.
@@ -171,6 +182,8 @@ class PackedLoader:
         )
         self.scen_per_pack = scen_per_pack or config.pack.max_scenarios
         self.pack_workers = pack_workers
+        self.drop_last = drop_last
+        self.graph_split = graph_split
         self.to_device = to_device
         self.device = resolve_device(device) if to_device else None
         self._copy_stream = None
@@ -210,6 +223,12 @@ class PackedLoader:
             order = np.concatenate(parts)
         else:
             order = rng.permutation(n)
+        if self.drop_last:
+            whole = self.process_count * self.scen_per_pack
+            if n < whole:
+                raise ValueError(f"{n} scenarios make no whole group of {self.scen_per_pack} "
+                                 f"for each of {self.process_count} data rows")
+            order = order[: n - n % whole]
         return order[self.process_index :: self.process_count]
 
     def _groups(self, epoch: int) -> List[List[int]]:
@@ -238,7 +257,12 @@ class PackedLoader:
     def _build(self, group_idcs):
         t0 = time.perf_counter()
         group = [self.dataset[int(i)] for i in group_idcs]
-        batch, stats = self.packer(group, self.config)
+        config = self.config
+        if self.graph_split is not None:
+            from lanegcn_tpu_torch.parallel.windowed_parallel import split_group
+
+            group, config = split_group(group, self.graph_split), self.graph_split.config
+        batch, stats = self.packer(group, config)
         with self._lock:
             self.pack_s += time.perf_counter() - t0
         if self.drop_stats is not None:

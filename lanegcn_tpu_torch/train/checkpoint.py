@@ -7,7 +7,8 @@ so `torch.load(weights_only=True)` reads it:
 
 - `state_dict`: the net's reference-named tensors, cloned to the CPU;
 - `epoch`: the fractional epoch;
-- `flat_adam`: FusedAdam's `flat`, `mu`, `nu` and `count`, cloned to the CPU;
+- `flat_adam`: FusedAdam's `flat`, `mu`, `nu` and `count`, cloned to the CPU
+  (with opt="sgd": `flat_sgd`, FusedSGD's `flat` and `trace`);
 - `step`: the train step counter;
 - `bf16`: whether the run computed in bfloat16, so that an eval of the
   checkpoint computes as the run's validation did.
@@ -42,8 +43,7 @@ def save_checkpoint(path: str, net, state, epoch: float, bf16: bool = False) -> 
     payload = {
         "state_dict": {k: _cpu(v) for k, v in net.state_dict().items()},
         "epoch": float(epoch),
-        "flat_adam": {"flat": _cpu(opt.flat), "mu": _cpu(opt.mu), "nu": _cpu(opt.nu),
-                      "count": _cpu(opt.count)},
+        opt.KEY: {k: _cpu(v) for k, v in opt.state().items()},
         "step": int(state.step),
         "bf16": bool(bf16),
     }
@@ -74,21 +74,30 @@ def load_pretrain(net, state_dict: Dict[str, torch.Tensor]) -> List[str]:
     return sorted(skipped)
 
 
+def has_train_state(payload: Dict[str, Any]) -> bool:
+    """Whether a checkpoint holds an optimizer (a reference checkpoint holds
+    weights and the epoch only)."""
+    return any(k.startswith("flat_") for k in payload)
+
+
 def restore_train_state(state, payload: Dict[str, Any]) -> None:
     """The optimizer and the step counter of a checkpoint into `state`.
 
     `flat` is copied in place: the net's parameters are views of it, and a
-    new tensor would cut them loose from the optimizer. FusedAdam.step
-    replaces `mu`, `nu` and `count` each step, so they are restored as new
-    tensors on `flat`'s device."""
-    opt, saved = state.opt, payload["flat_adam"]
+    new tensor would cut them loose from the optimizer. A step replaces the
+    optimizer's state tensors (Adam's `mu`, `nu`, `count`; SGD's `trace`),
+    so they are restored as new tensors on `flat`'s device."""
+    opt = state.opt
+    if opt.KEY not in payload:
+        raise ValueError(f"checkpoint holds {sorted(k for k in payload if k.startswith('flat_'))}, "
+                         f"the optimizer needs {opt.KEY!r}")
+    saved = payload[opt.KEY]
     if saved["flat"].shape != opt.flat.shape:
         raise ValueError(f"checkpoint holds {saved['flat'].numel()} optimizer parameters, "
                          f"the net {opt.flat.numel()}")
     dev = opt.flat.device
     with torch.no_grad():
         opt.flat.copy_(saved["flat"])
-    opt.mu = saved["mu"].to(dev, copy=True)
-    opt.nu = saved["nu"].to(dev, copy=True)
-    opt.count = saved["count"].to(dev, copy=True)
+    for k in opt.STATE:
+        setattr(opt, k, saved[k].to(dev, copy=True))
     state.step = int(payload["step"])

@@ -6,8 +6,9 @@ lanegcn_tpu/train/loop.py).
 the metrics (LaneGCN's pred_loss and agent_metrics by default, LaneRCNN's
 roi_loss and roi_metrics when given), on one packed batch.
 `make_train_step` adds the backward (through the kernels' hand-written
-backward passes) and the flat Adam(W) step with the StepLR schedule and
-the NaN guard; it takes the same loss_fn and metrics_fn.
+backward passes) and the flat Adam(W) or SGD step with the StepLR schedule
+and the NaN guard; it takes the same loss_fn and metrics_fn, and, on a
+mesh, the collectives of parallel/windowed_parallel.py.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from lanegcn_tpu_torch.config import Config
 from lanegcn_tpu_torch.device import resolve_device
 from lanegcn_tpu_torch.graph import PackedBatch, RoiPackedBatch
 from lanegcn_tpu_torch.models.lanegcn import LaneGCN, agent_metrics, pred_loss
-from lanegcn_tpu_torch.train.optimizer import FusedAdam, make_optimizer
+from lanegcn_tpu_torch.train.optimizer import FlatOptimizer, make_optimizer
 
 
 def _on_device(batch, device):
@@ -38,7 +39,7 @@ class TrainState:
     step counter. The parameters themselves live in the net, as views of
     the optimizer's flat buffer."""
 
-    def __init__(self, opt: FusedAdam, lr_fn: Callable, step: int = 0):
+    def __init__(self, opt: FlatOptimizer, lr_fn: Callable, step: int = 0):
         self.opt = opt
         self.lr_fn = lr_fn
         self.step = step
@@ -59,16 +60,23 @@ def init_state(config: Config, net=None, dtype=torch.float32,
 
 
 def make_train_step(config: Config, net, state: TrainState, device=None, loss_fn=None,
-                    metrics_fn=None) -> Callable:
+                    metrics_fn=None, comm=None) -> Callable:
     """Returns fn(batch, epoch) → metrics.
 
     One step: forward, loss_fn (default pred_loss; LaneRCNN: roi_loss),
-    backward, then the flat Adam(W) update at lr_fn(epoch) (fractional
+    backward, then the flat optimizer's update at lr_fn(epoch) (fractional
     epoch). Where the JAX step returns new params and optimizer state, this
     one updates `net`'s parameters and `state` in place. The metrics are
     device tensors (no host sync): the losses, metrics_fn's (default
     agent_metrics; LaneRCNN: roi_metrics), `lr`, and `skipped` (1 when the
     NaN guard dropped the update) when config.train.nan_guard is set.
+
+    `comm` (a parallel.windowed_parallel.WindowedComm) makes it one rank's
+    step of a D×G mesh: the loss and metrics are taken on
+    comm.union(out, batch), the union of the graph row's outputs and loss
+    fields; comm.reduce_metrics averages the loss over the data column and
+    sums the rest; comm.reduce_grad averages the flat gradient over every
+    rank before the guard and the update.
     """
     device = resolve_device(device)
     net.to(device).train()
@@ -81,15 +89,20 @@ def make_train_step(config: Config, net, state: TrainState, device=None, loss_fn
         for p in state.opt.params:
             p.grad = None
         out = net(batch)
+        if comm is not None:
+            out, batch = comm.union(out, batch)
         losses = loss_fn(out, batch, config.loss)
         losses["loss"].backward()
-        lr = state.lr_fn(epoch, device)
-        ok = state.opt.step(lr, losses["loss"] if guard else None)
         metrics = {k: v.detach() for k, v in losses.items()}
-        if guard:
-            metrics["skipped"] = 1.0 - ok.float()
         with torch.no_grad():
             metrics.update(metrics_fn({k: v.detach() for k, v in out.items()}, batch))
+        if comm is not None:
+            metrics = comm.reduce_metrics(metrics)
+        lr = state.lr_fn(epoch, device)
+        ok = state.opt.step(lr, metrics["loss"] if guard else None,
+                            reduce=None if comm is None else comm.reduce_grad)
+        if guard:
+            metrics["skipped"] = 1.0 - ok.float()
         metrics["lr"] = lr
         state.step += 1
         return metrics

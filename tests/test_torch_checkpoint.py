@@ -3,15 +3,18 @@ LaneGCN (32 channels, 2 LaneConv layers a stack) on the CPU: the round trip
 bitwise and readable with weights_only=True, no .tmp left behind,
 load_pretrain's shape-checked partial restore, the parameters still views
 of the optimizer's flat buffer after a load, and a resumed run bitwise
-equal to the run that never stopped. Also the metric accumulator's device
-sums against Python floats, and the profiler hook."""
+equal to the run that never stopped, with Adam and with SGD (whose trace
+the checkpoint carries instead of the moments). Also the metric
+accumulator's device sums against Python floats, and the profiler hook."""
+
+import dataclasses
 
 import os
 
 import pytest
 import torch
 
-from lanegcn_tpu_torch.config import Config, ModelConfig, contiguous_pack_config
+from lanegcn_tpu_torch.config import Config, ModelConfig, TrainConfig, contiguous_pack_config
 from lanegcn_tpu_torch.data.packing import pack_batch
 from lanegcn_tpu_torch.data.synthetic import make_synthetic_scenario
 from lanegcn_tpu_torch.models.lanegcn import LaneGCN
@@ -45,12 +48,12 @@ def packs():
     return [pack_batch(scens[i:i + 2], CFG.pack, CFG.model)[0] for i in (0, 2, 4)]
 
 
-def _fresh(seed=0):
-    return init_state(CFG, net=LaneGCN(CFG.model, device="cpu", seed=seed), device="cpu")
+def _fresh(seed=0, cfg=CFG):
+    return init_state(cfg, net=LaneGCN(cfg.model, device="cpu", seed=seed), device="cpu")
 
 
-def _train(net, state, packs, start, steps, spe=3):
-    step = make_train_step(CFG, net, state, device="cpu")
+def _train(net, state, packs, start, steps, spe=3, cfg=CFG):
+    step = make_train_step(cfg, net, state, device="cpu")
     for i in range(start, start + steps):
         step(packs[i % len(packs)], i / spe)
 
@@ -135,6 +138,39 @@ def test_resumed_run_is_bitwise_the_straight_run(tmp_path, packs):
     save_checkpoint(str(tmp_path / "resumed.ckpt"), net, state, 1.0)
     _assert_payloads_equal(load_checkpoint(str(tmp_path / "straight.ckpt")),
                            load_checkpoint(str(tmp_path / "resumed.ckpt")))
+
+
+def test_sgd_trace_round_trips_and_resumes_bitwise(tmp_path, packs):
+    """opt="sgd": the checkpoint holds `flat_sgd` (flat and the momentum
+    trace, no moments), restores into a fresh optimizer, refuses an Adam
+    one, and a run resumed from it ends bitwise the straight run."""
+    cfg = dataclasses.replace(CFG, train=TrainConfig(opt="sgd", lr=(0.05,), lr_epochs=()))
+    net, state = _fresh(cfg=cfg)
+    _train(net, state, packs, 0, 3, cfg=cfg)
+    straight = str(tmp_path / "straight.ckpt")
+    save_checkpoint(straight, net, state, 1.0)
+
+    net, state = _fresh(cfg=cfg)
+    _train(net, state, packs, 0, 1, cfg=cfg)
+    save_checkpoint(str(tmp_path / "cut.ckpt"), net, state, 1 / 3)
+    ck = load_checkpoint(str(tmp_path / "cut.ckpt"))
+    assert "flat_adam" not in ck and set(ck["flat_sgd"]) == {"flat", "trace"}
+    assert torch.equal(ck["flat_sgd"]["trace"], state.opt.trace)
+    assert float(ck["flat_sgd"]["trace"].abs().sum()) > 0
+    with pytest.raises(ValueError, match="flat_adam"):
+        restore_train_state(_fresh()[1], ck)
+    net, state = _fresh(seed=4, cfg=cfg)
+    load_pretrain(net, ck["state_dict"])
+    restore_train_state(state, ck)
+    assert _views_of_flat(net, state) and torch.equal(state.opt.trace, ck["flat_sgd"]["trace"])
+    _train(net, state, packs, state.step, 2, cfg=cfg)
+    save_checkpoint(str(tmp_path / "resumed.ckpt"), net, state, 1.0)
+    a, b = load_checkpoint(straight), load_checkpoint(str(tmp_path / "resumed.ckpt"))
+    assert a["step"] == b["step"] == 3
+    for k in a["state_dict"]:
+        assert torch.equal(a["state_dict"][k], b["state_dict"][k]), k
+    for k in ("flat", "trace"):
+        assert torch.equal(a["flat_sgd"][k], b["flat_sgd"][k]), k
 
 
 def test_metric_accumulator_sums_on_device_as_python_floats():

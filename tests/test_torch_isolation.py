@@ -19,6 +19,7 @@ from lanegcn_tpu_torch.graph import EdgeSet
 from lanegcn_tpu_torch.models.lanegcn import LaneGCN
 from lanegcn_tpu_torch.models.lanercnn import LaneRCNN
 from lanegcn_tpu_torch.models.registry import get_model
+from lanegcn_tpu_torch.parallel.mesh import init_mesh
 from lanegcn_tpu_torch.train.loop import init_state, make_eval_step, make_train_step
 
 REPO = Path(__file__).resolve().parents[1]
@@ -55,16 +56,18 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "lanegcn_tpu_torch.eval", "lanegcn_tpu_torch.data.dataset",
                  "lanegcn_tpu_torch.data.augment", "lanegcn_tpu_torch.train.checkpoint",
                  "lanegcn_tpu_torch.train.preempt", "lanegcn_tpu_torch.utils.logger",
-                 "lanegcn_tpu_torch.utils.profiling"):
+                 "lanegcn_tpu_torch.utils.profiling", "lanegcn_tpu_torch.parallel",
+                 "lanegcn_tpu_torch.parallel.mesh", "lanegcn_tpu_torch.parallel.multihost",
+                 "lanegcn_tpu_torch.parallel.windowed_parallel"):
         assert name in res["modules"], name
     assert res["banned"] == [], res["banned"]
 
 
 def test_gpu_scripts_import_no_jax():
-    """chip_smoke.py, tree_profile.py and pack_draws.py, beside every port
-    module, import neither JAX nor the JAX package."""
+    """chip_smoke.py, tree_profile.py, pack_draws.py and mesh_draws.py,
+    beside every port module, import neither JAX nor the JAX package."""
     probe = _PROBE + """
-import chip_smoke, tree_profile, pack_draws
+import chip_smoke, tree_profile, pack_draws, mesh_draws
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "lanegcn_tpu"))
 print(json.dumps({"banned": banned}))
@@ -82,7 +85,7 @@ def no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "LaneGCN", "LaneRCNN", "make_eval_step",
-                                   "init_state", "make_train_step", "get_model"])
+                                   "init_state", "make_train_step", "get_model", "init_mesh"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     cfg = Config()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -98,6 +101,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
             init_state(cfg)
         elif entry == "get_model":
             get_model("lanercnn", cfg)
+        elif entry == "init_mesh":
+            init_mesh()
         else:
             make_train_step(cfg, torch.nn.Linear(1, 1), None)
     # Asking for the CPU is the one way to run them here.

@@ -282,3 +282,44 @@ def test_scatter_cases_are_what_their_names_say(backward):
             assert int(both.sum()) >= 10
         elif name == "stride-200":
             assert stride % blocks["ROWS_BIG"] and n >= blocks["BIG_FROM"]
+
+
+def test_mesh_union_order_lays_out_the_columns_as_the_step_gathers_them():
+    """The mesh phase's reference pack holds the group in the order the
+    windowed step's gathers lay it out: column 0's scenarios, then column
+    1's, each column the balanced split's part in the group's order."""
+    from lanegcn_tpu_torch.data.synthetic import make_synthetic_scenario
+    from lanegcn_tpu_torch.parallel.windowed_parallel import GraphSplit, split_group
+
+    scens = [make_synthetic_scenario(seed=80 + i, num_corridors=1 + i % 3, num_actors=4)
+             for i in range(6)]
+    for g in (2, 3):
+        cols, union = cs.mesh_union_order(scens, g)
+        assert [len(c) for c in cols] == [6 // g] * g
+        assert union == [s for c in cols for s in c]
+        assert sorted(map(id, union)) == sorted(map(id, scens))
+        for part, col in enumerate(cols):  # what the loader of column `part` packs
+            assert split_group(scens, GraphSplit(part, g, None)) == col
+            assert col == [s for s in scens if any(s is c for c in col)]  # group order
+
+
+def test_mesh_errors_scale_by_the_reference_rms():
+    """mesh_errors: the elementwise error over MESH_TOL · (rms + |ref|) and
+    the RMS error over MESH_RMS_TOL · rms; a reorder-sized error passes, a
+    gradient off by a factor of 2 (a rank's gradient counted twice) fails
+    both, and eps widens only the elementwise bound."""
+    gen = torch.Generator().manual_seed(0)
+    ref = torch.randn(10_000, generator=gen) * torch.rand(10_000, generator=gen) ** 4
+    rms = float(ref.square().mean().sqrt())
+    noise = torch.randn(10_000, generator=gen)
+    worst, rel = cs.mesh_errors(ref + 1e-7 * rms * noise, ref)
+    assert worst < 0.01 and rel < 0.01
+    worst, rel = cs.mesh_errors(2 * ref, ref)
+    assert worst > 1 and rel > 1
+    # One element off by twice its bound: the elementwise check alone fails.
+    bad = ref.clone()
+    bad[7] += 2 * cs.MESH_TOL * (rms + abs(float(ref[7])))
+    worst, rel = cs.mesh_errors(bad, ref)
+    assert 1.9 < worst < 2.1 and rel < 1
+    eps = torch.full_like(ref, 10 * cs.MESH_TOL * rms)
+    assert cs.mesh_errors(bad, ref, eps)[0] < 1

@@ -6,7 +6,8 @@ weight bridge. Everything runs in float32 on the CPU.
 
 - (a) the gradient of pred_loss, leaf by leaf, against jax.grad;
 - (b) the flat Adam (clip, weight decay, lr_coef, StepLR across a boundary)
-  against JAX's fused_apply on the same gradients;
+  against JAX's fused_apply on the same gradients, and the flat SGD (clip,
+  trace, lr_coef) against JAX's optax chain and apply_lr;
 - (c) the NaN guard; (d) step_lr at fractional epochs; (e) the loss falls.
 """
 
@@ -21,6 +22,7 @@ from lanegcn_tpu.config import PackConfig as JPackConfig, TrainConfig as JTrainC
 from lanegcn_tpu.data.packing import pack_batch as jax_pack_batch
 from lanegcn_tpu.data.synthetic import make_urban_scenario as jax_make_urban
 from lanegcn_tpu.models.lanegcn import LaneGCN as JLaneGCN, pred_loss as jax_pred_loss
+from lanegcn_tpu.train.optimizer import apply_lr as jax_apply_lr
 from lanegcn_tpu.train.optimizer import make_optimizer as jax_make_optimizer
 from lanegcn_tpu.train.optimizer import step_lr as jax_step_lr
 
@@ -28,7 +30,7 @@ from lanegcn_tpu_torch.config import Config, ModelConfig, PackConfig, TrainConfi
 from lanegcn_tpu_torch.graph import PackedBatch
 from lanegcn_tpu_torch.models.lanegcn import LaneGCN
 from lanegcn_tpu_torch.train.loop import init_state, make_train_step, train_epochs
-from lanegcn_tpu_torch.train.optimizer import make_optimizer, step_lr
+from lanegcn_tpu_torch.train.optimizer import FusedSGD, make_optimizer, step_lr
 from lanegcn_tpu_torch.utils.weights import export_state_dict, load_jax_params
 
 MODEL = dict(n_actor=32, n_map=32, num_fuse_layers=2, num_att_layers=2)
@@ -46,6 +48,17 @@ def _pack(seed0):
     assert stats["packed_scenarios"] == 3
     assert not any(v for k, v in stats.items() if k.startswith("dropped")), stats
     return batch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this file's train steps: they are many small
+    ops, and beside other test processes each op's thread barrier would
+    wait on cores those processes hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -188,7 +201,53 @@ def test_train_epochs_runs_its_steps(world):
     assert all(np.isfinite(v) for v in summary.values()), summary
 
 
+def test_fused_sgd_matches_jax_trace_chain(world):
+    """(b) Three SGD updates on the same numpy gradients, with elementwise
+    clip and lr_coef rules, across an lr boundary: the port's flat SGD
+    (clip, then t ← g + 0.9·t, then the coefficient, p ← p − lr·t) against
+    JAX make_optimizer(opt="sgd")'s optax chain with apply_lr; params
+    within 1e-6 (the same fp32 elementwise formula), and the trace the sum
+    the momentum makes."""
+    rules = (("map_net/fuse", 0.5), ("a2m/att1", 2.0), ("pred_net", 0.25))
+    kw = dict(opt="sgd", lr=(1e-2, 1e-3), lr_epochs=(0.02,), clip_grads=True,
+              clip_low=-0.5, clip_high=0.5, lr_coef=rules)
+    jtx, jlr = jax_make_optimizer(JTrainConfig(**kw))
+    cfg, net = _port_net(world, TrainConfig(**kw))
+    opt, lr_fn = make_optimizer(cfg.train, net)
+    assert isinstance(opt, FusedSGD)
+    params = world["params"]
+    jstate = jtx.init(params)
+
+    @jax.jit
+    def jax_step(params, grads, jstate, lr):
+        updates, jstate = jtx.update(grads, jstate, params)
+        return jax.tree.map(lambda p, u: p + u, params, jax_apply_lr(updates, lr)), jstate
+
+    rng = np.random.RandomState(4)
+    clipped = []
+    for epoch in (0.0, 0.01, 0.03):
+        grads_np = jax.tree.map(lambda p: (rng.randn(*p.shape) * 0.4).astype(np.float32),
+                                world["params_np"])
+        params, jstate = jax_step(params, jax.tree.map(jnp.asarray, grads_np), jstate,
+                                  jlr(epoch))
+        for name, g in export_state_dict(grads_np, cfg.model).items():
+            dict(net.named_parameters())[name].grad = torch.from_numpy(g)
+        clipped.append(opt._flat_grad().clamp(-0.5, 0.5))
+        opt.step(lr_fn(epoch))
+    ref = export_state_dict(jax.tree.map(np.asarray, params), cfg.model)
+    for name, p in net.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), ref[name], rtol=0, atol=1e-6,
+                                   err_msg=name)
+    want = (clipped[0] * 0.9 + clipped[1]) * 0.9 + clipped[2]
+    torch.testing.assert_close(opt.trace, want, rtol=0, atol=1e-6)
+
+
 def test_sgd_is_not_ported_yet():
+    """opt="sgd" builds the flat SGD (momentum trace, no moments) through
+    init_state, and an optimizer the JAX package does not name raises."""
     cfg = Config(model=ModelConfig(**MODEL), train=TrainConfig(opt="sgd"))
-    with pytest.raises(NotImplementedError, match="sgd"):
-        init_state(cfg, device="cpu")
+    net, state = init_state(cfg, device="cpu")
+    assert isinstance(state.opt, FusedSGD) and set(state.opt.state()) == {"flat", "trace"}
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        init_state(Config(model=ModelConfig(**MODEL), train=TrainConfig(opt="lamb")),
+                   device="cpu")
