@@ -175,7 +175,8 @@ After the geometries, two phases without a geometry:
           transfer ms per pack, the same steps' scen/s on the packs already
           on the card; zero drops; losses bitwise equal across worker
           counts.
-  mesh    the windowed data×graph split (lanegcn_tpu_torch/parallel/):
+  mesh    the multi-GPU trainer (lanegcn_tpu_torch/parallel/); first the
+          windowed data×graph split:
           (a) 3 bf16 steps of the windowed step in a one-rank NCCL world
           (bench_pack_config(256), full width) against make_train_step
           from the same weights on the same packs: loss, metrics, every
@@ -199,7 +200,21 @@ After the geometries, two phases without a geometry:
           (both exit 0), then resumed: its 2.000.ckpt bitwise the first
           run's. Each run's step ms by host clock and device busy, its
           collectives a step and their bytes, and peak memory (gloo's
-          times are not NCCL's).
+          times are not NCCL's). Then the explicit graph-parallel split
+          (--graph-parallel explicit) on the first 32 scenarios of each
+          family, LaneGCN on flat_pack_config(32), LaneRCNN on the CLI's
+          flat RoI pack: (a) a one-rank NCCL world, an fp32 step within
+          the train_parity tolerances of make_train_step and 3 bf16 steps
+          bitwise on a rerun (each also reported bitwise against
+          make_train_step), the launches a step of the kernels the
+          explicit layers run (row_tail, row_tail2, edge_mlp with Att's
+          and LanePooling's flags, segment_sum) and the collectives
+          against their predicted calls and bytes; (b) two ranks over
+          gloo at D=1×G=2, fp32 SGD, checked as the windowed (b) against
+          the single-device step on the whole pack, with each rank's live
+          rows and edges; (c) the CLI at --mesh 1x1 --graph-parallel
+          explicit --bf16 on urban:64, preempted and resumed bitwise, no
+          drop in its log. The part's seconds are printed.
 Then the `kernels` summary line (all 23 kernels, each from the first
 geometry that checks it, with the launches of that geometry's serve or
 train run, and under `also_checked` its checks on the later geometries),
@@ -2796,6 +2811,31 @@ MESH_LOSS_RTOL = 1e-4
 # the worker after MESH_CLI_PREEMPT_AT step lines.
 MESH_CLI_B, MESH_CLI_N, MESH_CLI_EPOCHS, MESH_CLI_PREEMPT_AT = 32, 96, 2, 2
 MESH_TIMEOUT = 600  # seconds for the ranks of (b), and for each CLI run
+# The phase's explicit part (--graph-parallel explicit, parallel/
+# graph_parallel.py), at full width on EX_B scenarios (the first EX_B of
+# the phase's LaneGCN and LaneRCNN scenarios): LaneGCN on flat_pack_config
+# (EX_B), LaneRCNN on the CLI's flat RoI pack at EX_B (cli._default_config).
+# (a) a one-rank NCCL world, G = 1: an fp32 step within the train_parity
+# tolerances of make_train_step on the same pack (GRAD_TOL, GRAD_FLOOR),
+# then EX_A_STEPS bf16 steps from the same weights bitwise on a rerun, both
+# also reported against make_train_step bitwise (the layers add in the
+# one-card order; at bf16 a formulation that rounded otherwise would flip
+# the max-margin loss's selections and move the mode head's gradients by up
+# to a leaf's size, so no tolerance short of bitwise holds there); (b) two ranks on one card over
+# gloo at D=1×G=2, fp32, SGD, against the single-device step on the whole
+# pack, as the windowed (b); (c) the CLI under torch.distributed.run,
+# --mesh 1x1 --graph-parallel explicit --bf16, on urban:EX_CLI_N, preempted
+# after EX_CLI_PREEMPT_AT steps and resumed bitwise, no drop in its log.
+EX_B, EX_A_STEPS, EX_CLI_N, EX_CLI_PREEMPT_AT = 32, 3, 64, 2
+# The launches of a train step: LaneGCN's are the flat geometry's (8
+# LaneConv and 6 Att row tails, 6 Att edge chains, 14 scatters and 20
+# gathers' backward on segment_sum); LaneRCNN's 12 LaneConv row tails,
+# r2g, g2r and a2r's edge chains and K = 2 tails, and segment_sum for the
+# a2m, 12 LaneConv, 2 pool and a2r scatters and 16 gathers' backward.
+_EX_STEP = {"lanegcn": GEOMETRIES["flat"]["per_train_step"],
+            "lanercnn": {"row_tail_fwd": 12, "row_tail_bwd": 12, "row_tail2_fwd": 3,
+                         "row_tail2_bwd": 3, "edge_mlp_pool_fwd": 3, "edge_mlp_pool_bwd": 3,
+                         "segment_sum": 32}}
 
 
 def roi_scenarios(seeds):
@@ -2885,6 +2925,47 @@ def _mesh_config(family, s, train):
     return Config(pack=bench_pack_config(s), train=train)
 
 
+def _explicit_config(train):
+    """The explicit part's config: the CLI's under --graph-parallel
+    explicit at EX_B scenarios a pack (LaneGCN flat_pack_config, LaneRCNN
+    the flat RoI pack)."""
+    import dataclasses
+    import types
+
+    from lanegcn_tpu_torch import cli
+
+    args = types.SimpleNamespace(batch_size=EX_B, seed=None, graph_parallel="explicit")
+    return dataclasses.replace(cli._default_config(args), train=train)
+
+
+def _case_config(case, train):
+    """The config of a (path, family, D, G) case of the mesh phase."""
+    path, family = case[:2]
+    return _explicit_config(train) if path == "explicit" else _mesh_config(family, MESH_S, train)
+
+
+def explicit_collectives(family, pack, dtype_bytes, model):
+    """(calls, bytes) a train step of each of reduce_scatter and all_gather
+    at G > 1 (every tensor counted at its whole [G·n, ...] size): each
+    forward reduce-scatter's backward is an all-gather of the same size and
+    each all-gather's a reduce-scatter. LaneGCN: 8 LaneConv partials [N, C]
+    and 6 Att partials (A2M's [N, C], M2A's and A2A's [A, C]) reduce-
+    scattered; 6 Att queries ([N, C], then [A, C]) and the fp32 outputs
+    [A, K·(1 + 2T)] gathered. LaneRCNN: 8 RoI LaneConv [M, C], 4 global
+    LaneConv [Ng, C] and the two pools' [Ng, C], [M, C] partials; the RoI
+    features [M, C] gathered once. C and K from `model` (a ModelConfig)."""
+    c = model.n_map
+    if family == "lanercnn":
+        m, ng = pack.node_feats.shape[0], pack.graph.ctrs.shape[0]
+        return 15, (10 * m + 5 * ng) * c * dtype_bytes
+    n, a = pack.graph.ctrs.shape[0], pack.actors.ctrs.shape[0]
+    k, t = model.num_mods, pack.gt_preds.shape[1]
+    partials = (10 * n + 4 * a) * c * dtype_bytes
+    queries = (2 * n + 4 * a) * c * dtype_bytes
+    outputs = a * k * (1 + 2 * t) * 4
+    return 21, partials + queries + outputs
+
+
 def _mesh_sgd():
     from lanegcn_tpu_torch.config import TrainConfig
 
@@ -2898,26 +2979,29 @@ def _flat_grad(net):
 
 
 def mesh_rank(rank, port, path, two_cards, device_type="cuda"):
-    """One rank of (b): the windowed step of each case in `path` (one SGD
-    step, fp32), then a warm step timed and one profiled; its results to
-    path.rankR. On one card the two ranks share it over gloo; on two cards
-    each rank takes its own, over NCCL."""
+    """One rank of (b): the windowed or explicit step of each (path,
+    family, D, G) case in `path` (one SGD step, fp32), then a warm step
+    timed and one profiled; its results to path.rankR. On one card the two
+    ranks share it over gloo; on two cards each rank takes its own, over
+    NCCL."""
     import datetime
 
     import torch
     import torch.distributed as dist
 
     sys.path.insert(0, REPO)
-    from lanegcn_tpu_torch.graph import PackedBatch, RoiPackedBatch
+    from lanegcn_tpu_torch.graph import tree_kind
     from lanegcn_tpu_torch.models.registry import get_model
     from lanegcn_tpu_torch.ops import cuda
+    from lanegcn_tpu_torch.parallel.graph_parallel import make_explicit_parallel_train_step
     from lanegcn_tpu_torch.parallel.mesh import init_mesh
     from lanegcn_tpu_torch.parallel.windowed_parallel import make_windowed_parallel_train_step
     from lanegcn_tpu_torch.train.loop import init_state
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    device = torch.device(device_type, rank if two_cards else 0)
+    device = (torch.device(device_type, rank if two_cards else 0) if device_type == "cuda"
+              else torch.device("cpu"))
     backend = "nccl" if two_cards else "gloo"
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -2934,15 +3018,16 @@ def mesh_rank(rank, port, path, two_cards, device_type="cuda"):
             out["nccl_one_card"] = "no error"
         except RuntimeError as e:
             out["nccl_one_card"] = str(e)[:120]
-    for (family, d, g), packs in inputs.items():
+    for case, packs in inputs.items():
+        path_, family, d, g = case
         mesh = init_mesh(d, g, device=device, backend=backend)
-        bundle = get_model(family, _mesh_config(family, MESH_S, _mesh_sgd()), device=device,
+        bundle = get_model(family, _case_config(case, _mesh_sgd()), device=device,
                            seed=MESH_SEED)
         net, state = init_state(bundle.config, net=bundle.net, device=device)
-        step = make_windowed_parallel_train_step(bundle.config, net, state, mesh, device,
-                                                 bundle.loss_fn, bundle.metrics_fn)
-        kind = RoiPackedBatch if family == "lanercnn" else PackedBatch
-        batch = kind.from_numpy(packs[rank]).to(device)
+        make = (make_explicit_parallel_train_step if path_ == "explicit"
+                else make_windowed_parallel_train_step)
+        step = make(bundle.config, net, state, mesh, device, bundle.loss_fn, bundle.metrics_fn)
+        batch = tree_kind(packs[rank]).from_numpy(packs[rank]).to(device)
         before = state.opt.flat.clone()
         _sync(device)
         _peak_gib(device, reset=True)
@@ -2951,28 +3036,31 @@ def mesh_rank(rank, port, path, two_cards, device_type="cuda"):
         counts = cuda.launch_counts()
         collectives = dict(mesh.counts)
         res = dict(metrics={k: float(v) for k, v in m.items()}, grad=_flat_grad(net).cpu(),
+                   leaves=[(n, p.numel()) for n, p in net.named_parameters()],
                    before=before.cpu(), after=state.opt.flat.clone().cpu(), launches=counts,
                    collectives=collectives, first_ms=first_ms, peak_gib=_peak_gib(device))
         _, res["warm_ms"] = _timed_step(step, batch, 0.0, device)
         res["profiled_ms"], res["busy_ms"] = _profiled_ms(step, batch, 0.0, device)
-        out[(family, d, g)] = res
+        out[case] = res
         del net, state, step, bundle, batch
     torch.save(out, f"{path}.rank{rank}")
     dist.destroy_process_group()
 
 
-def _mesh_reference(family, packs, device):
+def _mesh_reference(case, packs, device):
     """The single-device fp32 SGD step from the same seeded weights on each
-    of `packs`: the mean loss, the other metrics summed, the launches of
-    one step, the mean flat gradient and the SGD update on that mean."""
+    of `packs` (the case's family and config): the mean loss, the other
+    metrics summed, the launches of one step, the mean flat gradient and
+    the SGD update on that mean."""
     import torch
     from lanegcn_tpu_torch.graph import PackedBatch, RoiPackedBatch
     from lanegcn_tpu_torch.models.registry import get_model
     from lanegcn_tpu_torch.ops import cuda
     from lanegcn_tpu_torch.train.loop import init_state, make_train_step
 
+    family = case[1]
     kind = RoiPackedBatch if family == "lanercnn" else PackedBatch
-    cfg = _mesh_config(family, MESH_S, _mesh_sgd())
+    cfg = _case_config(case, _mesh_sgd())
     losses, grads, sums, launches = [], [], {}, None
     for p in packs:
         bundle = get_model(family, cfg, device=device, seed=MESH_SEED)
@@ -3008,6 +3096,20 @@ def mesh_errors(got, want, eps=0.0):
     worst = float((err / (MESH_TOL * (rms + want.abs()) + eps)).max())
     rel_rms = float(err.square().mean().sqrt()) / (MESH_RMS_TOL * max(rms, 1e-30))
     return worst, rel_rms
+
+
+def worst_element(got, want, leaves, parts):
+    """Where mesh_errors's elementwise error peaks: the leaf, the element,
+    the reference, the mean of the ranks and each rank's own gradient."""
+    rms = float(want.square().mean().sqrt())
+    i = int(((got - want).abs() / (rms + want.abs())).argmax())
+    off = 0
+    for name, n in leaves:
+        if i < off + n:
+            return {"leaf": name, "element": i - off, "want": float(want[i]),
+                    "got": float(got[i]), "ranks": [float(p[i]) for p in parts]}
+        off += n
+    return {}
 
 
 def mesh_union_order(scens, g):
@@ -3093,29 +3195,39 @@ def _mesh_one_rank(packs, device):
               f"{apart[:4]}")
         check_counts(counts_w, spec, MESH_A_STEPS, "mesh (a) windowed")
         check_counts(counts_s, spec, MESH_A_STEPS, "mesh (a) single-device")
-        check(coll.get("all_gather") == 2 and coll.get("all_reduce") == 3,
-              f"mesh (a): collectives a step {coll}")
+        check(coll.get("all_gather") == 2 and coll.get("reduce_scatter") == 1
+              and coll.get("all_reduce") == 2, f"mesh (a): collectives a step {coll}")
         return res
     finally:
         destroy()
 
 
-def _mesh_cli(root, device):
+def _mesh_cli(root, device, explicit=False):
     """(c): `python -m torch.distributed.run --nproc-per-node 1 -m
     lanegcn_tpu_torch.cli train --mesh 1x1` (LaneGCN, contiguous packs, bf16,
-    2 pack workers): R1 uninterrupted; R2 beside it, SIGTERM to its worker
-    after MESH_CLI_PREEMPT_AT step lines (the launcher and the worker exit
-    0, 'SIGTERM: saved'), then resumed: its last checkpoint bitwise R1's."""
+    2 pack workers; with explicit, `--graph-parallel explicit` on its flat
+    packs, urban:EX_CLI_N, SIGTERM after EX_CLI_PREEMPT_AT step lines, and
+    no drop in either log): R1 uninterrupted; R2 beside it, SIGTERM to its
+    worker after MESH_CLI_PREEMPT_AT step lines (the launcher and the
+    worker exit 0, 'SIGTERM: saved'), then resumed: its last checkpoint
+    bitwise R1's."""
     import signal
     import threading
 
     from lanegcn_tpu_torch.train.checkpoint import load_checkpoint
 
+    n, preempt_at = (EX_CLI_N, EX_CLI_PREEMPT_AT) if explicit else (MESH_CLI_N,
+                                                                   MESH_CLI_PREEMPT_AT)
+    tag = "explicit (c)" if explicit else "mesh (c)"
+    root = os.path.join(root, "explicit" if explicit else "windowed")
+    os.makedirs(root)
+
     def start(save_dir, name, *extra):
         return _cli_proc(
-            ["train", "--mesh", "1x1", "--data", f"urban:{MESH_CLI_N}:7:16", "--batch-size",
+            ["train", "--mesh", "1x1", "--data", f"urban:{n}:7:16", "--batch-size",
              str(MESH_CLI_B), "--epochs", str(MESH_CLI_EPOCHS), "--bf16", "--workers", "2",
              "--save-freq", "1", "--display-every", "1", "--save-dir", save_dir, *extra,
+             *(["--graph-parallel", "explicit"] if explicit else []),
              *(["--device", "cpu"] if device.type == "cpu" else [])], root, name,
             launcher=("-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1"))
 
@@ -3146,9 +3258,9 @@ def _mesh_cli(root, device):
         lines, sent = [], False
         for ln in p2.stdout:
             lines.append(ln)
-            if not sent and len(_step_lines("".join(lines))) == MESH_CLI_PREEMPT_AT:
+            if not sent and len(_step_lines("".join(lines))) == preempt_at:
                 pids = workers(p2.pid)
-                check(len(pids) == 1, f"mesh (c): workers of the launcher {pids}")
+                check(len(pids) == 1, f"{tag}: workers of the launcher {pids}")
                 os.kill(pids[0], signal.SIGTERM)
                 sent = True
         rc2 = p2.wait()
@@ -3156,14 +3268,14 @@ def _mesh_cli(root, device):
         out2 = "".join(lines)
         with open(p2.err_path) as f:
             err2 = f.read()
-        check(sent and rc2 == 0, f"mesh (c) R2: exit code {rc2} after SIGTERM (sent: {sent})\n"
+        check(sent and rc2 == 0, f"{tag} R2: exit code {rc2} after SIGTERM (sent: {sent})\n"
               f"{err2[-3000:]}")
-        steps = MESH_CLI_EPOCHS * (MESH_CLI_N // MESH_CLI_B)
+        steps = MESH_CLI_EPOCHS * (n // MESH_CLI_B)
         saved = [ln for ln in out2.splitlines() if ln.startswith("SIGTERM: saved ")]
-        check(len(saved) == 1, f"mesh (c) R2: no 'SIGTERM: saved' line:\n{out2[-2000:]}")
+        check(len(saved) == 1, f"{tag} R2: no 'SIGTERM: saved' line:\n{out2[-2000:]}")
         cut = os.path.join(root, saved[0][len("SIGTERM: saved "):-len(", exiting")])
         cut_step = load_checkpoint(cut)["step"]
-        check(MESH_CLI_PREEMPT_AT <= cut_step < steps, f"mesh (c): preempted at step {cut_step}")
+        check(preempt_at <= cut_step < steps, f"{tag}: preempted at step {cut_step}")
         procs.append(start(r2, "r2_resumed", "--resume", cut))
         out3 = _cli_wait(procs[-1], "mesh R2 resumed", timeout=MESH_TIMEOUT)
     finally:
@@ -3173,17 +3285,20 @@ def _mesh_cli(root, device):
             _stop_session(p)
     losses1 = _check_step_lines(_step_lines(out1), "mesh R1", steps)
     backend = "nccl" if device.type == "cuda" else "gloo"
-    check(f"mesh: data=1 x graph=1, 1 process(es), {backend}" in out1, "mesh (c): no mesh line")
+    axis = "explicit (source-partitioned)" if explicit else "windowed (scenario-aligned)"
+    check(f"mesh: data=1 x graph=1, 1 process(es), {backend}, graph axis: {axis}" in out1,
+          f"{tag}: no mesh line")
     _check_step_lines(_step_lines(out3), "mesh R2 resumed", steps - cut_step)
     last = "%3.3f.ckpt" % MESH_CLI_EPOCHS
     equal = _same_checkpoints(load_checkpoint(os.path.join(r1, last)),
                               load_checkpoint(os.path.join(r2, last)))
     coll = [ln for ln in out1.splitlines() if ln.startswith("mesh collectives: ")]
-    check(len(coll) == 1, "mesh (c): no 'mesh collectives' line")
+    check(len(coll) == 1, f"{tag}: no 'mesh collectives' line")
     coll = json.loads(coll[0][len("mesh collectives: "):])
     step_s = [float(ln.rsplit("time ", 1)[1].split(",")[0]) for ln in _step_lines(out1)]
-    res = {"case": "c", "launcher": "torch.distributed.run --nproc-per-node 1",
-           "mesh": "1x1", "backend": backend, "steps": steps, "preempted_at_step": cut_step,
+    res = {"case": "explicit_c" if explicit else "c",
+           "launcher": "torch.distributed.run --nproc-per-node 1",
+           "mesh": "1x1", "backend": backend, "scenarios": n, "steps": steps, "preempted_at_step": cut_step,
            "resumed_bitwise_equal": equal, "first_loss": losses1[0], "last_loss": losses1[-1],
            # The log's `time` of each step line (display every step: the step,
            # the loader's wait and the display), first two left out.
@@ -3194,23 +3309,22 @@ def _mesh_cli(root, device):
            "broadcast_at_start": {k: v for k, v in coll.items() if k.startswith("broadcast")},
            "seconds": time.perf_counter() - t0}
     emit({"phase": "mesh", **res})
-    check(equal, f"mesh (c): resumed from step {cut_step}, {last} differs from R1's")
+    check(equal, f"{tag}: resumed from step {cut_step}, {last} differs from R1's")
     return res
 
 
 def mesh_packs(s):
-    """The mesh phase's packs, {(family, D, G): packs}: each rank's and the
-    single-device references' (zero drops of any kind asserted). LaneGCN:
-    2·s urban scenarios in two data rows of bench_pack_config(s) packs,
-    the first row also split in two columns at the mesh's subdivided
-    capacities (graph_split) and its union in column order; LaneRCNN: s
-    urban RoI scenarios split in two columns of lanercnn_pack_config(s)
-    likewise, and their union. Scenarios made by a pool of up to 8 processes."""
+    """The mesh phase's windowed packs, {("windowed", family, D, G): packs}:
+    each rank's and the single-device references' (zero drops of any kind
+    asserted), and the scenarios themselves. LaneGCN: 2·s urban scenarios
+    in two data rows of bench_pack_config(s) packs, the first row also split
+    in two columns at the mesh's subdivided capacities (graph_split) and its
+    union in column order; LaneRCNN: s urban RoI scenarios split in two
+    columns of lanercnn_pack_config(s) likewise, and their union. Scenarios
+    made by a pool of up to 8 processes."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
-    from lanegcn_tpu_torch.data.packing import pack_batch
-    from lanegcn_tpu_torch.data.packing_roi import pack_roi_batch
     from lanegcn_tpu_torch.parallel.windowed_parallel import graph_split
 
     t0 = time.perf_counter()
@@ -3224,18 +3338,6 @@ def mesh_packs(s):
         rcnn = [sc for part in rcnn for sc in part]
     gen_s = time.perf_counter() - t0
 
-    def packed(family, scens, cfg):
-        if family == "lanercnn":
-            b, st = pack_roi_batch(scens, cfg.roi_pack, cfg.model)
-        else:
-            b, st = pack_batch(scens, cfg.pack, cfg.model)
-        bad = {k: v for k, v in st.items()
-               if k.startswith(("dropped", "graph_dropped", "skipped")) and v}
-        check(not bad and st["packed_scenarios"] == len(scens),
-              f"mesh: {family} pack of {len(scens)} dropped {bad} "
-              f"(packed {st['packed_scenarios']})")
-        return b
-
     class _Col:  # the graph column count graph_split reads
         def __init__(self, g):
             self.graph, self.g = g, 0
@@ -3245,50 +3347,229 @@ def mesh_packs(s):
     rows = [gcn[:s], gcn[s:]]
     for family, group_scens, d, g in (("lanegcn", rows, 2, 1), ("lanegcn", rows[:1], 1, 2),
                                       ("lanercnn", [rcnn], 1, 2)):
+        case = ("windowed", family, d, g)
         cfg = _mesh_config(family, s, _mesh_sgd())
         if g == 1:
-            packs = [packed(family, r, cfg) for r in group_scens]
-            inputs[(family, d, g)], refs_from[(family, d, g)] = packs, packs
+            packs = [_packed(family, r, cfg) for r in group_scens]
+            inputs[case], refs_from[case] = packs, packs
         else:
             cols, union = mesh_union_order(group_scens[0], g)
             sub = graph_split(cfg, _Col(g), family).config
-            inputs[(family, d, g)] = [packed(family, c, sub) for c in cols]
-            refs_from[(family, d, g)] = [packed(family, union, cfg)]
+            inputs[case] = [_packed(family, c, sub) for c in cols]
+            refs_from[case] = [_packed(family, union, cfg)]
     pack_s = time.perf_counter() - t0
-    return inputs, refs_from, {"gen_s": gen_s, "gen_processes": procs, "pack_s": pack_s}
+    return inputs, refs_from, {"gen_s": gen_s, "gen_processes": procs, "pack_s": pack_s}, \
+        {"lanegcn": gcn, "lanercnn": rcnn}
 
 
-def mesh_phase(device_type="cuda"):
-    """The windowed data×graph split: (a) a one-rank NCCL world bitwise
-    against make_train_step; (b) two ranks (gloo on one card, NCCL on two)
-    against the single-device step on the union packs; (c) the CLI under
-    torch.distributed.run, preempted and resumed bitwise. Each run's step
-    ms (host clock and device busy), collectives a step and their bytes,
-    and peak memory; gloo's times are not NCCL's."""
-    import shutil
+def _packed(family, scens, cfg, packer=None):
+    """One pack of `scens` (the family's default packer, or `packer`);
+    zero drops and skips of any kind asserted (dropped_shard_edges too)."""
+    from lanegcn_tpu_torch.data.packing import pack_batch
+    from lanegcn_tpu_torch.data.packing_roi import pack_roi_batch
 
+    if packer is not None:
+        b, st = packer(scens, cfg)
+    elif family == "lanercnn":
+        b, st = pack_roi_batch(scens, cfg.roi_pack, cfg.model)
+    else:
+        b, st = pack_batch(scens, cfg.pack, cfg.model)
+    bad = {k: v for k, v in st.items()
+           if k.startswith(("dropped", "graph_dropped", "skipped")) and v}
+    check(not bad and st["packed_scenarios"] == len(scens),
+          f"mesh: {family} pack of {len(scens)} dropped {bad} "
+          f"(packed {st['packed_scenarios']})")
+    return b
+
+
+def explicit_packs(scens):
+    """The explicit part's packs from the first EX_B scenarios of each
+    family: {("explicit", family, 1, G): [each column's ShardedPack]} at
+    G = 1 and 2, each packed and partitioned as the CLI's loader does
+    (explicit_packer), zero drops asserted."""
+    from lanegcn_tpu_torch.parallel.graph_parallel import explicit_packer
+
+    cfg = _explicit_config(_mesh_sgd())
+    return {("explicit", fam, 1, g): [_packed(fam, scens[fam][:EX_B], cfg,
+                                              explicit_packer(fam, g, col))
+                                      for col in range(g)]
+            for fam in ("lanegcn", "lanercnn") for g in (1, 2)}
+
+
+def rank_share(family, sp, g, col):
+    """Graph column col's live rows of each node space and live edges of its
+    partition, of a ShardedPack (the flat packs fill their rows from 0, so
+    the first columns hold most of them)."""
+    p = sp.pack
+    spaces = ({"roi_nodes": p.node_mask, "global_nodes": p.graph.node_mask}
+              if family == "lanercnn" else
+              {"lane_nodes": p.graph.node_mask, "actors": p.actors.mask})
+
+    def edges(x):
+        if isinstance(x, dict):
+            return sum(edges(v) for v in x.values())
+        return int(x.mask.sum())
+
+    out = {}
+    for name, live in spaces.items():
+        n = live.shape[0] // g
+        out[name] = int(live[col * n:(col + 1) * n].sum())
+    out["edges"] = edges(sp.edges)
+    return out
+
+
+def _explicit_one_rank(packs, device):
+    """(a) of the explicit part: a one-rank NCCL world, G = 1, LaneGCN and
+    LaneRCNN at full width on their EX_B packs. An fp32 explicit step
+    (TF32 off, the model's optimizer) within the train_parity tolerances of
+    make_train_step from the same weights: the loss within 1e-3, every
+    gradient within GRAD_TOL of its leaf's max |g| (floored at GRAD_FLOOR
+    of the largest); whether it is bitwise make_train_step's is reported
+    (at G = 1 the layers add in the one-card order). Then EX_A_STEPS bf16
+    steps run twice from the same weights, bitwise equal (loss, gradient,
+    parameters), with their launches a step against the layer layout's,
+    collectives, host ms, device busy ms (profiled, one more step) and peak
+    memory, beside make_train_step's from the same weights."""
+    import torch
+    from lanegcn_tpu_torch.config import TrainConfig
+    from lanegcn_tpu_torch.graph import ShardedPack
+    from lanegcn_tpu_torch.models.registry import get_model
+    from lanegcn_tpu_torch.ops import cuda
+    from lanegcn_tpu_torch.parallel.graph_parallel import make_explicit_parallel_train_step
+    from lanegcn_tpu_torch.parallel.mesh import destroy, init_mesh
+    from lanegcn_tpu_torch.train.loop import init_state, make_train_step
+
+    mesh = init_mesh(1, 1, device=device, init_method=f"tcp://127.0.0.1:{_free_port()}")
+    cfg = _explicit_config(TrainConfig())
+    out = []
+    try:
+        check(mesh.backend == ("nccl" if device.type == "cuda" else "gloo"),
+              f"explicit (a): backend {mesh.backend}")
+        for family in ("lanegcn", "lanercnn"):
+            sp = ShardedPack.from_numpy(packs[("explicit", family, 1, 1)][0]).to(device)
+
+            def net_state(dtype):
+                bundle = get_model(family, cfg, dtype=dtype, device=device, seed=MESH_SEED)
+                net, state = init_state(bundle.config, net=bundle.net, device=device)
+                return bundle, net, state
+
+            # fp32: the explicit step against make_train_step.
+            grads, losses = [], []
+            for explicit in (True, False):
+                bundle, net, state = net_state(torch.float32)
+                if explicit:
+                    step = make_explicit_parallel_train_step(
+                        bundle.config, net, state, mesh, device, bundle.loss_fn,
+                        bundle.metrics_fn)
+                    m = step(sp, 0.0)
+                else:
+                    m = make_train_step(bundle.config, net, state, device, bundle.loss_fn,
+                                        bundle.metrics_fn)(sp.pack, 0.0)
+                losses.append(float(m["loss"]))
+                grads.append({n: p.grad.detach().clone() for n, p in net.named_parameters()})
+                del bundle, net, state
+            top = max(float(g.abs().max()) for g in grads[1].values())
+            shares = {n: float((grads[0][n] - g).abs().max())
+                      / (GRAD_TOL * max(float(g.abs().max()), GRAD_FLOOR * top))
+                      for n, g in grads[1].items()}
+            worst = max(shares, key=shares.get)
+            fp32_bitwise = losses[0] == losses[1] and all(
+                torch.equal(grads[0][n], g) for n, g in grads[1].items())
+
+            # bf16: EX_A_STEPS explicit steps twice from the same weights, then
+            # make_train_step's.
+            runs = []
+            for explicit in (True, True, False):
+                bundle, net, state = net_state(torch.bfloat16)
+                if explicit:
+                    step = make_explicit_parallel_train_step(
+                        bundle.config, net, state, mesh, device, bundle.loss_fn,
+                        bundle.metrics_fn)
+                    batch = sp
+                else:
+                    step = make_train_step(bundle.config, net, state, device, bundle.loss_fn,
+                                           bundle.metrics_fn)
+                    batch = sp.pack
+                mesh.counts.clear()
+                _sync(device)
+                _peak_gib(device, reset=True)
+                cuda.reset_launch_counts()
+                ls, ms, skipped = [], [], 0.0
+                for i in range(EX_A_STEPS):
+                    m, t = _timed_step(step, batch, i / 100.0, device)
+                    ls.append(m["loss"].clone())
+                    ms.append(t)
+                    skipped += float(m["skipped"])
+                launches = cuda.launch_counts()
+                coll = {k: v / EX_A_STEPS for k, v in mesh.counts.items()}
+                peak = _peak_gib(device)
+                host, busy = _profiled_ms(step, batch, 0.5, device)
+                runs.append(dict(losses=torch.stack(ls), grad=_flat_grad(net),
+                                 flat=state.opt.flat.clone(), launches=launches, coll=coll,
+                                 ms=ms, host=host, busy=busy, peak=peak, skipped=skipped))
+                del bundle, net, state, step
+            r1, r2, single = runs
+            same = lambda a, b: all(torch.equal(a[k], b[k])  # noqa: E731
+                                    for k in ("losses", "grad", "flat"))
+            bitwise = same(r1, r2)
+            calls, nbytes = explicit_collectives(family, sp.pack, 2, cfg.model)
+            res = {"case": "explicit_a", "family": family, "backend": mesh.backend, "world": 1,
+                   "pack": f"flat, {EX_B} scenarios", "fp32_loss": losses[0],
+                   "fp32_loss_make_train_step": losses[1],
+                   "fp32_worst_grad_err_over_tol": shares[worst], "fp32_worst_grad_leaf": worst,
+                   "fp32_bitwise_equal_make_train_step": fp32_bitwise,
+                   "grad_tol_rel": GRAD_TOL, "bf16_steps": EX_A_STEPS,
+                   "bf16_losses": r1["losses"].tolist(), "bf16_skipped": r1["skipped"],
+                   "bf16_rerun_bitwise_equal": bitwise,
+                   "bf16_bitwise_equal_make_train_step": same(r1, single),
+                   "step_ms_host": r1["ms"] + r2["ms"], "profiled_step_ms_host": r1["host"],
+                   "busy_ms": [r1["busy"], r2["busy"]], "peak_gib": r1["peak"],
+                   "single_device_step_ms_host": single["ms"],
+                   "single_device_busy_ms": single["busy"],
+                   "single_device_peak_gib": single["peak"],
+                   "launches_per_step": {k: v / EX_A_STEPS for k, v in r1["launches"].items()
+                                         if v},
+                   "collectives_per_step": r1["coll"],
+                   "predicted_collectives_per_step": {"reduce_scatter": calls,
+                                                      "reduce_scatter_bytes": nbytes,
+                                                      "all_gather": calls,
+                                                      "all_gather_bytes": nbytes}}
+            emit({"phase": "mesh", **res})
+            out.append(res)
+            what = f"explicit (a) {family}"
+            check(abs(losses[0] - losses[1]) <= 1e-3 * max(1.0, abs(losses[1])),
+                  f"{what}: fp32 loss {losses[0]} vs make_train_step's {losses[1]}")
+            check(shares[worst] <= 1.0, f"{what}: fp32 {worst}'s gradient off by "
+                  f"{shares[worst]} x its tolerance")
+            check(bitwise, f"{what}: bf16 steps differ on a rerun")
+            check(r1["skipped"] == 0.0, f"{what}: the guard skipped {r1['skipped']} bf16 steps")
+            check_counts(r1["launches"], _EX_STEP[family], EX_A_STEPS, what)
+            for k in ("reduce_scatter", "all_gather", "reduce_scatter_bytes", "all_gather_bytes"):
+                want = res["predicted_collectives_per_step"][k]
+                check(r1["coll"].get(k) == want, f"{what}: {k} {r1['coll'].get(k)} a step, "
+                      f"predicted {want}")
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        return out
+    finally:
+        destroy()
+
+
+def _two_ranks(inputs, refs_from, device, root, tag):
+    """(b): every case of `inputs` on two ranks (gloo on one card, NCCL on
+    two) against the single-device step on its reference packs, checked
+    and emitted; returns (results, seconds of the ranks)."""
     import torch
     import torch.multiprocessing as tmp
 
-    t_phase = time.perf_counter()
-    device = torch.device(device_type, 0)
-    root = os.path.join(REPO, "build", "chip_smoke_mesh")
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
-    inputs, refs_from, sizes = mesh_packs(MESH_S)
-
-    # (a) on the bench packs of the two data rows.
-    a = _mesh_one_rank(inputs[("lanegcn", 2, 1)], device)
-
-    # (b): the references here, then the two ranks.
     two_cards = device.type == "cuda" and torch.cuda.device_count() >= 2
-    refs = {case: _mesh_reference(case[0], packs, device) for case, packs in refs_from.items()}
+    refs = {case: _mesh_reference(case, packs, device) for case, packs in refs_from.items()}
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    path = os.path.join(root, "inputs.pt")
+    path = os.path.join(root, f"{tag}.pt")
     torch.save(inputs, path)
     t0 = time.perf_counter()
-    ctx = tmp.start_processes(mesh_rank, args=(_free_port(), path, two_cards, device_type),
+    ctx = tmp.start_processes(mesh_rank, args=(_free_port(), path, two_cards, device.type),
                               nprocs=2, join=False, start_method="spawn")
     try:
         while not ctx.join(timeout=5):
@@ -3308,13 +3589,13 @@ def mesh_phase(device_type="cuda"):
               f"mesh: NCCL with two ranks on one card did not raise: {refusals}")
     b_results = []
     for case, ref in refs.items():
-        family, d, g = case
+        path_, family, d, g = case
         r0, r1 = (r[case] for r in ranks)
         grad = (r0["grad"] + r1["grad"]) / 2
         g_worst, g_rms = mesh_errors(grad, ref["grad"])
         eps = 4 * torch.finfo(torch.float32).eps * ref["before"].abs()
         rows_ = []
-        for r in (r0, r1):
+        for i, r in enumerate((r0, r1)):
             u_worst, u_rms = mesh_errors(r["after"] - r["before"], ref["update"], eps)
             m = r["metrics"]
             rows_.append({
@@ -3326,17 +3607,27 @@ def mesh_phase(device_type="cuda"):
                 "first_step_ms_host": r["first_ms"], "warm_step_ms_host": r["warm_ms"],
                 "profiled_step_ms_host": r["profiled_ms"], "busy_ms": r["busy_ms"],
                 "peak_gib": r["peak_gib"], "collectives_first_step": r["collectives"]})
-        res = {"case": "b", "family": family, "mesh": f"{d}x{g}", "backend": backend,
-               "dtype": "float32", "opt": "sgd", "lr": MESH_LR,
+            if path_ == "explicit":
+                rows_[-1]["live"] = rank_share(family, inputs[case][i], g, i)
+        res = {"case": "b", "path": path_, "family": family, "mesh": f"{d}x{g}",
+               "backend": backend, "dtype": "float32", "opt": "sgd", "lr": MESH_LR,
                "tol": MESH_TOL, "rms_tol": MESH_RMS_TOL,
                "grad_err_over_tol": g_worst, "grad_rms_err_over_tol": g_rms,
+               "grad_worst_element": worst_element(grad, ref["grad"], r0["leaves"],
+                                                   (r0["grad"], r1["grad"])),
                "ranks": rows_, "ranks_params_equal": torch.equal(r0["after"], r1["after"]),
                "launches_per_step": {k: v for k, v in r0["launches"].items() if v}}
+        if path_ == "explicit":
+            calls, nbytes = explicit_collectives(family, refs_from[case][0], 4,
+                                                 _case_config(case, _mesh_sgd()).model)
+            res["predicted_collectives_per_step"] = {"reduce_scatter": calls,
+                                                     "reduce_scatter_bytes": nbytes}
         emit({"phase": "mesh", **res})
         b_results.append(res)
-        geom = "lanercnn" if family == "lanercnn" else "bench"
+        per_step = (_EX_STEP[family] if path_ == "explicit" else
+                    GEOMETRIES["lanercnn" if family == "lanercnn" else "bench"]["per_train_step"])
         for i, (r, row) in enumerate(zip((r0, r1), rows_)):
-            what = f"mesh (b) {family} {d}x{g} rank {i}"
+            what = f"mesh (b) {path_} {family} {d}x{g} rank {i}"
             check(abs(row["loss"] - ref["loss"]) <= MESH_LOSS_RTOL * abs(ref["loss"]),
                   f"{what}: loss {row['loss']} vs {ref['loss']}")
             for k, v in ref["sums"].items():
@@ -3346,19 +3637,69 @@ def mesh_phase(device_type="cuda"):
             check(row["update_err_over_tol"] <= 1.0 and row["update_rms_err_over_tol"] <= 1.0,
                   f"{what}: SGD update off by {row['update_err_over_tol']} x the tolerance "
                   f"(RMS {row['update_rms_err_over_tol']})")
-            check_counts(r["launches"], GEOMETRIES[geom]["per_train_step"], 1, what)
+            check_counts(r["launches"], per_step, 1, what)
             check(row["launches_equal_single_device"], f"{what}: launches {r['launches']} vs "
                   f"the single-device step's {ref['launches']}")
-        check(g_worst <= 1.0 and g_rms <= 1.0, f"mesh (b) {family} {d}x{g}: gradient off by "
-              f"{g_worst} x the tolerance (RMS {g_rms})")
-        check(res["ranks_params_equal"], f"mesh (b) {family} {d}x{g}: ranks' params differ")
+            if path_ == "explicit":
+                coll = r["collectives"]
+                for k in ("reduce_scatter", "all_gather"):
+                    check(coll.get(k) == calls and coll.get(k + "_bytes") == nbytes,
+                          f"{what}: {k} {coll.get(k)} calls, {coll.get(k + '_bytes')} bytes; "
+                          f"predicted {calls}, {nbytes}")
+                check(coll.get("all_reduce") == 2, f"{what}: all_reduce {coll.get('all_reduce')}")
+        check(g_worst <= 1.0 and g_rms <= 1.0, f"mesh (b) {path_} {family} {d}x{g}: gradient "
+              f"off by {g_worst} x the tolerance (RMS {g_rms})")
+        check(res["ranks_params_equal"], f"mesh (b) {path_} {family} {d}x{g}: ranks' params "
+              f"differ")
+    return b_results, ranks_s
 
-    # (c) the CLI.
+
+def mesh_phase(device_type="cuda"):
+    """The multi-GPU trainer. The windowed data×graph split: (a) a one-rank
+    NCCL world bitwise against make_train_step; (b) two ranks (gloo on one
+    card, NCCL on two) against the single-device step on the union packs;
+    (c) the CLI under torch.distributed.run, preempted and resumed bitwise.
+    Then the explicit graph-parallel split's (a), (b) and (c) (see EX_B).
+    Each run's step ms (host clock and device busy), collectives a step and
+    their bytes, and peak memory; gloo's times are not NCCL's."""
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    # The card's index; the CPU takes none (Module.to("cpu:0") copies the
+    # parameters out of the flat optimizer's buffer).
+    device = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
+    root = os.path.join(REPO, "build", "chip_smoke_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    inputs, refs_from, sizes, scens = mesh_packs(MESH_S)
+
+    # (a) on the bench packs of the two data rows.
+    a = _mesh_one_rank(inputs[("windowed", "lanegcn", 2, 1)], device)
+    b_results, ranks_s = _two_ranks(inputs, refs_from, device, root, "windowed")
     c = _mesh_cli(root, device)
-    emit({"phase": "mesh", "device": _device_label(device), "backend_b": backend,
-          "seconds": time.perf_counter() - t_phase, **sizes, "ranks_s": ranks_s,
+    t_windowed = time.perf_counter() - t_phase
+
+    # The explicit part.
+    t0 = time.perf_counter()
+    ex = explicit_packs(scens)
+    ex_pack_s = time.perf_counter() - t0
+    ex_a = _explicit_one_rank(ex, device)
+    ex_inputs = {k: v for k, v in ex.items() if k[3] == 2}
+    ex_refs = {k: [v[0].pack] for k, v in ex_inputs.items()}
+    ex_b, ex_ranks_s = _two_ranks(ex_inputs, ex_refs, device, root, "explicit")
+    ex_c = _mesh_cli(root, device, explicit=True)
+    ex_s = time.perf_counter() - t0
+    emit({"phase": "mesh", "device": _device_label(device), "backend_b": ex_b[0]["backend"],
+          "seconds": time.perf_counter() - t_phase, "windowed_seconds": t_windowed,
+          "explicit_seconds": ex_s, "explicit_pack_s": ex_pack_s,
+          "explicit_ranks_s": ex_ranks_s, **sizes, "ranks_s": ranks_s,
           "a_bitwise": a["bitwise_equal"], "b_cases": len(b_results),
-          "c_resumed_bitwise": c["resumed_bitwise_equal"]})
+          "c_resumed_bitwise": c["resumed_bitwise_equal"],
+          "explicit_a_bitwise": all(r["bf16_rerun_bitwise_equal"] for r in ex_a),
+          "explicit_b_cases": len(ex_b),
+          "explicit_c_resumed_bitwise": ex_c["resumed_bitwise_equal"]})
     shutil.rmtree(root, ignore_errors=True)
 
 

@@ -16,19 +16,25 @@ groups of the current epoch that were already trained, without fetching or
 packing them, so it ends bitwise where the run that was never stopped ends.
 
 Several cards: launch one process a card with torch.distributed.run and
-give train a D×G mesh (the windowed data×graph split,
-parallel/windowed_parallel.py); D·G must equal the number of processes,
-and without --mesh they train data parallel (D = processes, G = 1):
+give train a D×G mesh; D·G must equal the number of processes, and
+without --mesh they train data parallel (D = processes, G = 1). The graph
+axis is split one of two ways: `windowed` (the default) gives each rank of
+a data row a scenario-aligned sub-pack (parallel/windowed_parallel.py);
+`explicit` gives every rank the row's whole flat pack and splits each node
+space into G row blocks, with each edge list partitioned by the owner of
+its source row (parallel/graph_parallel.py; --edge-shard-slack sizes each
+shard's edge lists):
 
     python -m torch.distributed.run --nproc-per-node 4 -m lanegcn_tpu_torch.cli \
         train --mesh 2x2 --data shards/ --bf16 --save-dir results/mesh
+    python -m torch.distributed.run --nproc-per-node 4 -m lanegcn_tpu_torch.cli \
+        train --mesh 1x4 --graph-parallel explicit --data shards/ --bf16 --save-dir results/ex
 
 Rank 0 alone writes the checkpoints, the log and the run snapshot; eval
 under torch.distributed.run gives each process its own stride of the
-scenarios and sums the metrics over them. --graph-parallel explicit (the
-source-partitioned layers) is not ported yet; gspmd (XLA's partitioner)
-has no PyTorch counterpart. The JAX CLI's --edge-shard-slack and --dist-*
-have none either: torch.distributed.run sets the ranks and the address.
+scenarios and sums the metrics over them. gspmd (XLA's partitioner) has no
+PyTorch counterpart, and the JAX CLI's --dist-* have none either:
+torch.distributed.run sets the ranks and the address.
 """
 
 from __future__ import annotations
@@ -85,13 +91,17 @@ def _make_loader(dataset, config, model: str, **kw):
 def _default_config(args):
     """The JAX CLI's packs for b = --batch-size scenarios: LaneGCN's is
     contiguous_pack_config(b) (contiguous nodes, left/right tables, flat
-    fusion lists), LaneRCNN's the same RoiPackConfig capacities (flat RoI
-    and global node spaces, flat pool edges)."""
+    fusion lists), or flat_pack_config(b) under --graph-parallel explicit
+    (left/right in the lists, at twice the tabled layout's slots: the JAX
+    CLI's 256·b drop 20-40 % of them); LaneRCNN's the same RoiPackConfig
+    capacities (flat RoI and global node spaces, flat pool edges), which
+    pack 32 urban RoI scenarios flat with no drop."""
     from lanegcn_tpu_torch.config import (
         Config,
         RoiPackConfig,
         TrainConfig,
         contiguous_pack_config,
+        flat_pack_config,
     )
 
     b = args.batch_size
@@ -110,7 +120,9 @@ def _default_config(args):
     train = TrainConfig(batch_size=b)
     if getattr(args, "seed", None) is not None:
         train = dataclasses.replace(train, seed=args.seed)
-    return Config(pack=contiguous_pack_config(b), roi_pack=roi_pack, train=train)
+    explicit = getattr(args, "graph_parallel", None) == "explicit"
+    pack = (flat_pack_config if explicit else contiguous_pack_config)(b)
+    return Config(pack=pack, roi_pack=roi_pack, train=train)
 
 
 def _device_name(device: torch.device) -> str:
@@ -189,7 +201,8 @@ def _drops(drop_stats: list) -> dict:
 
 def _mesh_layout(args):
     """(D, G) of the run: --mesh, else (WORLD_SIZE, 1) under several
-    processes; None for one process without --mesh."""
+    processes or --graph-parallel explicit; None for one process without
+    --mesh."""
     from lanegcn_tpu_torch.parallel.mesh import parse_mesh
 
     world = int(os.environ.get("WORLD_SIZE") or 1)
@@ -199,7 +212,8 @@ def _mesh_layout(args):
             raise SystemExit(f"--mesh {args.mesh} needs {data * graph} processes "
                              f"(torch.distributed.run --nproc-per-node); WORLD_SIZE is {world}")
         return data, graph
-    return (world, 1) if world > 1 else None
+    explicit = getattr(args, "graph_parallel", None) == "explicit"
+    return (world, 1) if world > 1 or explicit else None
 
 
 def _start_mesh(args):
@@ -239,15 +253,15 @@ def _rank_output(mesh, save_dir):
 
 
 def cmd_train(args):
-    if args.graph_parallel == "explicit":
-        raise NotImplementedError(
-            "--graph-parallel explicit (source-partitioned LaneConv and Att, "
-            "lanegcn_tpu/parallel/graph_parallel.py) is not ported yet: ROADMAP.md §1 item 8; "
-            "use windowed")
     if args.graph_parallel == "gspmd":
         raise NotImplementedError(
             "--graph-parallel gspmd is XLA's GSPMD partitioner, which PyTorch has no "
-            "counterpart of; use windowed")
+            "counterpart of; use windowed or explicit")
+    if args.graph_parallel == "explicit":
+        from lanegcn_tpu_torch.parallel.graph_parallel import check_explicit_capacities
+
+        # Before any process group starts: every rank would raise alike.
+        check_explicit_capacities(_default_config(args), args.model, _mesh_layout(args)[1])
     mesh, device = _start_mesh(args)
     try:
         with _rank_output(mesh, args.save_dir):
@@ -324,14 +338,21 @@ def _train(args, device, mesh=None):
     # the training log.
     drop_stats: list = []
     mesh_kw = {}
+    explicit = mesh is not None and args.graph_parallel == "explicit"
     if mesh is not None:
+        from lanegcn_tpu_torch.parallel.graph_parallel import explicit_packer
         from lanegcn_tpu_torch.parallel.windowed_parallel import graph_split
 
-        # Data row d takes its stride of the shared order, whole groups only;
-        # graph column g packs its share of each group at 1/G capacities.
-        mesh_kw = dict(process_index=mesh.d, process_count=mesh.data, drop_last=True,
-                       graph_split=graph_split(config, mesh, args.model)
-                       if mesh.graph > 1 else None)
+        # Data row d takes its stride of the shared order, whole groups only.
+        mesh_kw = dict(process_index=mesh.d, process_count=mesh.data, drop_last=True)
+        if explicit:
+            # Every rank of the row packs the row's group flat, partitions
+            # its edges in the pack threads and keeps its column's.
+            mesh_kw["packer"] = explicit_packer(args.model, mesh.graph, mesh.g,
+                                                args.edge_shard_slack)
+        elif mesh.graph > 1:
+            # Graph column g packs its share of each group at 1/G capacities.
+            mesh_kw["graph_split"] = graph_split(config, mesh, args.model)
     loader = _make_loader(
         dataset, config, args.model, shuffle=True, seed=config.train.seed,
         pack_workers=args.workers, drop_stats=drop_stats, to_device=True, device=device,
@@ -355,14 +376,15 @@ def _train(args, device, mesh=None):
         train_step = make_train_step(config, net, state, device, bundle.loss_fn,
                                      bundle.metrics_fn)
     else:
+        from lanegcn_tpu_torch.parallel.graph_parallel import make_explicit_parallel_train_step
         from lanegcn_tpu_torch.parallel.windowed_parallel import (
             broadcast_train_state,
             make_windowed_parallel_train_step,
         )
 
         broadcast_train_state(net, state, mesh)
-        train_step = make_windowed_parallel_train_step(config, net, state, mesh, device,
-                                                       bundle.loss_fn, bundle.metrics_fn)
+        make = make_explicit_parallel_train_step if explicit else make_windowed_parallel_train_step
+        train_step = make(config, net, state, mesh, device, bundle.loss_fn, bundle.metrics_fn)
     val_dataset = _parse_data(args.val_data, args.model) if args.val_data else None
     acc = MetricAccumulator()
     save_freq = args.save_freq if args.save_freq is not None else config.train.save_freq
@@ -375,8 +397,9 @@ def _train(args, device, mesh=None):
     print(f"model {args.model}: {num_params:,} params, "
           f"{steps_per_epoch} steps/epoch on {_device_name(device)}")
     if mesh is not None:
+        axis = "explicit (source-partitioned)" if explicit else "windowed (scenario-aligned)"
         print(f"mesh: data={mesh.data} x graph={mesh.graph}, {mesh.world} process(es), "
-              f"{mesh.backend}, graph axis: windowed (scenario-aligned)")
+              f"{mesh.backend}, graph axis: {axis}")
     last_val_step = -1
     profile = contextlib.ExitStack()
     profiling = False  # a trace is open (a run resumed past step 5 starts none)
@@ -623,8 +646,15 @@ def main(argv=None):
     pt.add_argument("--graph-parallel", choices=["windowed", "explicit", "gspmd"],
                     default="windowed",
                     help="graph-axis strategy for --mesh DxG: windowed = scenario-aligned "
-                         "sub-packs, each rank running the one-card path (explicit: not "
-                         "ported yet; gspmd: no PyTorch counterpart)")
+                         "sub-packs, each rank running the one-card path; explicit = every "
+                         "rank of a data row holds its whole flat pack and computes on 1/G "
+                         "of each node space's rows, edges partitioned by source (with G = 1, "
+                         "even without --mesh, the explicit step on one shard); gspmd: no "
+                         "PyTorch counterpart")
+    pt.add_argument("--edge-shard-slack", type=float, default=2.0,
+                    help="per-shard edge capacity of --graph-parallel explicit, as a multiple "
+                         "of E/G (128-aligned, at most E); a skewed pack's edges past it are "
+                         "dropped and counted as dropped_shard_edges")
     pt.set_defaults(fn=cmd_train)
 
     pe = sub.add_parser("eval")

@@ -360,12 +360,18 @@ def lanercnn_pack_config(s: int) -> RoiPackConfig:
     the classic residue lists: they also carry the global graph's plan
     residue (measured maxima over 256 urban scenarios: 119 scale-0, 10,476
     dilated, 3,215 left/right edges), so they are sized to drop nothing
-    (132,096 slots per LaneConv layer at s = 256). Small packs get floors so
-    that they pack with zero drops too."""
+    (132,096 slots per LaneConv layer at s = 256), the RoI rows, 416 a
+    scenario, and the pool edges, 4,608 a scenario (at the benchmark's 384
+    and 4,096, mesh_draws.py's three draws of 256 skipped 17 scenarios,
+    their RoIs needing up to 99,342 rows, which bin-pack into the 256-row
+    windows at ~95 %; with every scenario packed the window-chunked g2r
+    lists then dropped up to 36,683 edges, and 4,352 a scenario was the
+    least that dropped none). Small packs get floors so that they pack
+    with zero drops too."""
     return RoiPackConfig(
         max_scenarios=s,
         max_rois=max(6 * s, 8 * min(s, 32), 96),
-        max_roi_nodes=256 * (-(-max(384 * s, 512 * min(s, 16), 2048) // 256)),
+        max_roi_nodes=256 * (-(-max(416 * s, 512 * min(s, 16), 2048) // 256)),
         max_global_nodes=768 * (-(-s * 17 // 16)),
         max_interest_nodes=max(80 * s, 1024),
         node_stride=256,
@@ -377,7 +383,7 @@ def lanercnn_pack_config(s: int) -> RoiPackConfig:
         max_edges_dilated=max(48 * s, 96 * min(s, 64), 512),
         max_edges_lr=max(16 * s, 24 * min(s, 32), 512),
         max_a2m_edges=max(40 * s, 1024),
-        max_pool_edges=max(4096 * s, 6144 * min(s, 32)),
+        max_pool_edges=max(4608 * s, 6144 * min(s, 32)),
         max_a2r_edges=max(192 * s, 2048),
     )
 

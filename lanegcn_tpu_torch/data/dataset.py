@@ -28,7 +28,7 @@ from lanegcn_tpu_torch.config import Config
 from lanegcn_tpu_torch.data.packing import pack_batch
 from lanegcn_tpu_torch.data.synthetic import make_synthetic_scenario
 from lanegcn_tpu_torch.device import resolve_device
-from lanegcn_tpu_torch.graph import PackedBatch, RoiPackedBatch
+from lanegcn_tpu_torch.graph import tree_kind
 
 # Unpickled shards a ShardDataset keeps (LRU); PackedLoader's shuffle mixes
 # scenarios within windows of one shard fewer, so a shuffled epoch
@@ -115,10 +115,10 @@ class ShardDataset:
 
 
 def to_torch(pack):
-    """A packer's numpy pack as a PackedBatch or RoiPackedBatch of CPU
-    tensors in their final dtypes (int32 indices widened to int64)."""
-    kind = RoiPackedBatch if hasattr(pack, "r2g") else PackedBatch
-    return kind.from_numpy(pack)
+    """A packer's numpy pack as a PackedBatch, RoiPackedBatch or
+    ShardedPack of CPU tensors in their final dtypes (int32 indices widened
+    to int64)."""
+    return tree_kind(pack).from_numpy(pack)
 
 
 class PackedLoader:

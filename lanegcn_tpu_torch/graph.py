@@ -17,7 +17,7 @@ CUDA kernels read.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -417,3 +417,33 @@ class RoiPackedBatch(_Tree):
             plan_rel=_convert(getattr(b, "plan_rel", None), True),
             plan_scen=int(getattr(b, "plan_scen", 0)),
         )
+
+
+@dataclasses.dataclass
+class ShardedPack(_Tree):
+    """One rank's input to the explicit graph-parallel step
+    (parallel/graph_parallel.py): its data row's whole flat pack (a
+    PackedBatch or RoiPackedBatch) and only its own graph column's edge
+    lists, by edge family (an EdgeSet, or a dict of them by relation)."""
+
+    pack: Any
+    edges: Dict[str, Any]
+
+    @classmethod
+    def from_numpy(cls, b) -> "ShardedPack":
+        """A ShardedPack with numpy (or torch) leaves → CPU tensors."""
+        kind = RoiPackedBatch if hasattr(b.pack, "r2g") else PackedBatch
+
+        def edges(e):
+            return {k: edges(x) for k, x in e.items()} if isinstance(e, dict) else (
+                EdgeSet.from_numpy(e))
+
+        return cls(pack=kind.from_numpy(b.pack), edges=edges(b.edges))
+
+
+def tree_kind(pack) -> type:
+    """The batch class of a pack, by its fields: ShardedPack, RoiPackedBatch
+    or PackedBatch."""
+    if isinstance(pack, ShardedPack):
+        return ShardedPack
+    return RoiPackedBatch if hasattr(pack, "r2g") else PackedBatch

@@ -68,16 +68,14 @@ class Att(nn.Module):
         res = agts
         c = self.n_ctx
         dt = self.dtype
-        dist_dense, _, dist_out = self.dist
-        ctx_hidden, ctx_out = self.ctx
+        dist_dense = self.dist[0]
         kd, bd = dist_dense.kernel, dist_dense.bias
-        k_ch = ctx_hidden.linear.kernel  # [3C, C]: dist | query | ctx segments
+        k_ch = self.ctx[0].linear.kernel  # [3C, C]: dist | query | ctx segments
         query_all = self.query(agts)
         qd = query_all.to(dt) @ k_ch[c : 2 * c].to(dt)
         cs = ctx.to(dt) @ k_ch[2 * c :].to(dt)
         temp = self.agt(agts)
-        chain = (dist_out.linear.kernel, dist_out.norm.weight, dist_out.norm.bias, k_ch[:c],
-                 ctx_hidden.norm.weight, ctx_hidden.norm.bias, ctx_out.kernel)
+        chain = self.chain()
         if pair is not None:
             # Sign folding: Pd = ctr_u@Wd, Ps = −ctr_v@Wd; bd is added once per edge.
             pd = agt_ctrs.to(dt) @ kd.to(dt)
@@ -96,8 +94,22 @@ class Att(nn.Module):
             cg = masked_gather(cs, v, mask, src_order(edges, ctx.shape[0]))
             edge_out = fused_edge_mlp(d.float(), qg.to(dt), cg.to(dt), kd, bd, *chain)
             agts = scatter_add(edge_out, u, agts.shape[0], mask=mask, out=temp, order=by_dst)
+        return self.tail(agts, res)
+
+    def chain(self) -> tuple:
+        """The per-edge chain's weights after the distance embedding, as
+        fused_edge_mlp and win_edge_mlp take them."""
+        dist_out, (ctx_hidden, ctx_out) = self.dist[2], self.ctx
+        return (dist_out.linear.kernel, dist_out.norm.weight, dist_out.norm.bias,
+                ctx_hidden.linear.kernel[:self.n_ctx], ctx_hidden.norm.weight,
+                ctx_hidden.norm.bias, ctx_out.kernel)
+
+    def tail(self, temp: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+        """relu(GN(temp)) → Linear → GN → + res → relu, in the `row_tail`
+        kernel."""
+        dt = self.dtype
         return fused_row_tail(
-            agts.to(dt).contiguous(), res.to(dt).contiguous(), self.linear.linear.kernel,
+            temp.to(dt).contiguous(), res.to(dt).contiguous(), self.linear.linear.kernel,
             self.norm.weight, self.norm.bias, self.linear.norm.weight, self.linear.norm.bias,
         )
 

@@ -95,6 +95,22 @@ class LanePooling(nn.Module):
 
     def forward(self, context_feat, context_pose, target_feat, target_pose,
                 edges: EdgeSet) -> torch.Tensor:
+        ctx = self.messages(context_feat, context_pose, target_pose, edges,
+                            src_order(edges, context_feat.shape[0]))
+        tgt = self.input(target_feat)
+        if edges.win_lu is not None:
+            tgt = window_scatter_add(ctx.to(tgt.dtype), tgt, edges.win_lu, edges.win_chunk,
+                                     edges.win_stride)
+        else:
+            tgt = scatter_add(ctx, edges.u, tgt.shape[0], mask=edges.mask, out=tgt,
+                              order=dst_order(edges, tgt.shape[0]))
+        return self.tail(tgt, target_feat)
+
+    def messages(self, context_feat, context_pose, target_pose, edges: EdgeSet,
+                 by_src=None) -> torch.Tensor:
+        """Each edge's message [E, n] (zero rows on padding) from the
+        `edge_mlp` kernel; `by_src`: the edges' source order for the context
+        gather's backward (ops/scatter.py), or None."""
         n, dt = self.n, self.dtype
         # Per-edge relative pose: context − target (reference lanercnn.py:494).
         d = masked_gather(context_pose, edges.v, edges.mask) - masked_gather(
@@ -104,19 +120,15 @@ class LanePooling(nn.Module):
         k_ch = ctx_hidden.linear.kernel  # [2n, n]: context | relative-pose segments
         # The context segment applies per context row, densely, before the
         # edge gather (reference lanercnn.py:497-505).
-        cg = masked_gather(context_feat.to(dt) @ k_ch[:n].to(dt), edges.v, edges.mask,
-                           src_order(edges, context_feat.shape[0]))
-        ctx = fused_edge_mlp(d.float(), None, cg.to(dt), relpose.kernel, relpose.bias, None, None,
-                             None, k_ch[n:], ctx_hidden.norm.weight, ctx_hidden.norm.bias,
-                             ctx_out.kernel, False, False)
-        tgt = self.input(target_feat)
-        if edges.win_lu is not None:
-            tgt = window_scatter_add(ctx.to(tgt.dtype), tgt, edges.win_lu, edges.win_chunk,
-                                     edges.win_stride)
-        else:
-            tgt = scatter_add(ctx, edges.u, tgt.shape[0], mask=edges.mask, out=tgt,
-                              order=dst_order(edges, tgt.shape[0]))
-        # GN → ReLU → mlp.0 → mlp.1 → +res → ReLU (reference lanercnn.py:497-505).
+        cg = masked_gather(context_feat.to(dt) @ k_ch[:n].to(dt), edges.v, edges.mask, by_src)
+        return fused_edge_mlp(d.float(), None, cg.to(dt), relpose.kernel, relpose.bias, None,
+                              None, None, k_ch[n:], ctx_hidden.norm.weight, ctx_hidden.norm.bias,
+                              ctx_out.kernel, False, False)
+
+    def tail(self, tgt: torch.Tensor, target_feat: torch.Tensor) -> torch.Tensor:
+        """GN → ReLU → mlp.0 → mlp.1 → +res → ReLU (reference
+        lanercnn.py:497-505), in the K = 2 `row_tail` kernel."""
+        dt = self.dtype
         mlp1, mlp2 = self.mlp
         return fused_row_tail2(
             tgt.to(dt), target_feat.to(dt), mlp1.linear.kernel, mlp2.linear.kernel,

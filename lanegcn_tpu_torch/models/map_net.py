@@ -175,10 +175,17 @@ class LaneConvStack(nn.ModuleDict):
                 else:
                     feat = fused_lane_layer(*layer, shifts)
             else:
-                feat = fused_row_tail(temp.to(dt).contiguous(), feat.to(dt).contiguous(),
-                                      ctr2.linear.kernel, norm.weight, norm.bias,
-                                      ctr2.norm.weight, ctr2.norm.bias)
+                feat = self.row_tail(i, temp, feat)
         return feat
+
+    def row_tail(self, i: int, temp: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
+        """Layer i's tail relu(GN(temp)) → Linear → GN → + feat → relu, in
+        the `row_tail` kernel (the unfused layer's)."""
+        dt = self.dtype
+        norm, ctr2 = self["norm"][i], self["ctr2"][i]
+        return fused_row_tail(temp.to(dt).contiguous(), feat.to(dt).contiguous(),
+                              ctr2.linear.kernel, norm.weight, norm.bias,
+                              ctr2.norm.weight, ctr2.norm.bias)
 
 
 def plan_groups(names, ecap: int):

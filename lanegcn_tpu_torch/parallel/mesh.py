@@ -1,7 +1,7 @@
-"""The D×G process layout of the windowed data×graph split on
-torch.distributed, and its one collective with a gradient: the port's
-counterpart of lanegcn_tpu/parallel/sharding.py `make_mesh`/`make_mesh_2d`
-and lanegcn_tpu/parallel/multihost.py `initialize_distributed`.
+"""The D×G process layout of the multi-GPU trainer on torch.distributed,
+and its two collectives with a gradient: the port's counterpart of
+lanegcn_tpu/parallel/sharding.py `make_mesh`/`make_mesh_2d` and
+lanegcn_tpu/parallel/multihost.py `initialize_distributed`.
 
 One process (rank) per card. `torch.distributed.run` starts them and sets
 RANK, WORLD_SIZE and LOCAL_RANK; rank r sits at data row d = r // G and
@@ -14,11 +14,15 @@ the test mode of several ranks on one card (NCCL refuses two ranks on one
 device): it must be asked for, and NCCL with two ranks on one card raises
 instead of switching backends quietly.
 
-`gather_union` is the JAX `all_gather(..., tiled=True)` over the graph axis
-as a torch.autograd.Function: forward, the G ranks' rows in column order;
-backward, an all_reduce (sum) of the full cotangent, then this rank's rows
-(the JAX all_gather VJP, which sums the G identical cotangents of the
-replicated loss: lanegcn_tpu/parallel/windowed_parallel.py:292-295).
+Over the graph row, as torch.autograd.Functions, each the other's
+gradient (the JAX VJPs):
+- `gather_union` is the JAX `all_gather(..., tiled=True)`: forward, the G
+  ranks' rows in column order; backward, the reduce-scatter of the
+  cotangent, which sums the G identical cotangents of a replicated loss
+  (lanegcn_tpu/parallel/windowed_parallel.py:292-295) at this rank's rows;
+- `reduce_scatter_rows` is the JAX `psum_scatter(..., tiled=True)`:
+  forward, the sum of the G ranks' [G·n, ...] partials at this rank's n
+  rows; backward, the all-gather of the cotangent.
 """
 
 from __future__ import annotations
@@ -160,6 +164,12 @@ def _all_gather(out: torch.Tensor, x: torch.Tensor, group) -> None:
     fn(out, x, group=group)
 
 
+def _reduce_scatter(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    # reduce_scatter_single is reduce_scatter_tensor's newer name.
+    fn = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    fn(out, x, group=group)
+
+
 def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """[G·n, ...]: the graph row's x, in column order (no gradient)."""
     x = x.contiguous()
@@ -169,25 +179,51 @@ def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return out
 
 
+def sum_scatter_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """[n, ...]: the sum over the graph row of each rank's x [G·n, ...], at
+    this rank's rows (no gradient); counted with x's bytes."""
+    x = x.contiguous()
+    if x.shape[0] % mesh.graph:
+        raise ValueError(f"reduce-scatter of {x.shape[0]} rows over {mesh.graph} ranks")
+    out = x.new_empty((x.shape[0] // mesh.graph,) + tuple(x.shape[1:]))
+    _reduce_scatter(out, x, mesh.graph_group)
+    mesh.count("reduce_scatter", x.numel() * x.element_size())
+    return out
+
+
 class _GatherUnion(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
-        ctx.mesh, ctx.rows = mesh, x.shape[0]
+        ctx.mesh = mesh
         return all_gather_rows(x, mesh)
 
     @staticmethod
     def backward(ctx, grad):
-        mesh, n = ctx.mesh, ctx.rows
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=mesh.graph_group)
-        mesh.count("all_reduce", grad.numel() * grad.element_size())
-        return grad[mesh.g * n:(mesh.g + 1) * n], None
+        return sum_scatter_rows(grad, ctx.mesh), None
+
+
+class _ReduceScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return sum_scatter_rows(x, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_rows(grad, ctx.mesh), None
 
 
 def gather_union(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The graph row's x in column order, [G·n, ...]; its gradient is the
     sum of the G ranks' cotangents at this rank's rows."""
     return _GatherUnion.apply(x, mesh)
+
+
+def reduce_scatter_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over the graph row of each rank's x [G·n, ...], at this
+    rank's n rows; its gradient is the graph row's cotangents gathered in
+    column order."""
+    return _ReduceScatterRows.apply(x, mesh)
 
 
 def destroy() -> None:

@@ -20,16 +20,17 @@ import torch
 
 from lanegcn_tpu_torch.config import Config
 from lanegcn_tpu_torch.device import resolve_device
-from lanegcn_tpu_torch.graph import PackedBatch, RoiPackedBatch
+from lanegcn_tpu_torch.graph import ShardedPack, tree_kind
 from lanegcn_tpu_torch.models.lanegcn import LaneGCN, agent_metrics, pred_loss
 from lanegcn_tpu_torch.train.optimizer import FlatOptimizer, make_optimizer
 
 
 def _on_device(batch, device):
-    """A PackedBatch or RoiPackedBatch on `device`, from one of those or the
-    packers' numpy packs (either framework's)."""
-    kind = RoiPackedBatch if hasattr(batch, "r2g") else PackedBatch
-    if not isinstance(batch, kind) or not isinstance(batch.scen_mask, torch.Tensor):
+    """A PackedBatch, RoiPackedBatch or ShardedPack on `device`, from one
+    of those or the packers' numpy packs (either framework's)."""
+    kind = tree_kind(batch)
+    pack = batch.pack if kind is ShardedPack else batch
+    if not isinstance(batch, kind) or not isinstance(pack.scen_mask, torch.Tensor):
         batch = kind.from_numpy(batch)
     return batch.to(device)
 
@@ -60,7 +61,7 @@ def init_state(config: Config, net=None, dtype=torch.float32,
 
 
 def make_train_step(config: Config, net, state: TrainState, device=None, loss_fn=None,
-                    metrics_fn=None, comm=None) -> Callable:
+                    metrics_fn=None, comm=None, forward=None) -> Callable:
     """Returns fn(batch, epoch) → metrics.
 
     One step: forward, loss_fn (default pred_loss; LaneRCNN: roi_loss),
@@ -76,19 +77,22 @@ def make_train_step(config: Config, net, state: TrainState, device=None, loss_fn
     comm.union(out, batch), the union of the graph row's outputs and loss
     fields; comm.reduce_metrics averages the loss over the data column and
     sums the rest; comm.reduce_grad averages the flat gradient over every
-    rank before the guard and the update.
+    rank before the guard and the update. `forward`: fn(batch) → outputs
+    in place of net(batch) (the explicit graph-parallel step's sharded
+    forward over net's modules, parallel/graph_parallel.py).
     """
     device = resolve_device(device)
     net.to(device).train()
     guard = config.train.nan_guard
     loss_fn = loss_fn or pred_loss
     metrics_fn = metrics_fn or agent_metrics
+    forward = forward or net
 
     def train_step(batch, epoch) -> Dict[str, torch.Tensor]:
         batch = _on_device(batch, device)
         for p in state.opt.params:
             p.grad = None
-        out = net(batch)
+        out = forward(batch)
         if comm is not None:
             out, batch = comm.union(out, batch)
         losses = loss_fn(out, batch, config.loss)

@@ -58,7 +58,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "lanegcn_tpu_torch.train.preempt", "lanegcn_tpu_torch.utils.logger",
                  "lanegcn_tpu_torch.utils.profiling", "lanegcn_tpu_torch.parallel",
                  "lanegcn_tpu_torch.parallel.mesh", "lanegcn_tpu_torch.parallel.multihost",
-                 "lanegcn_tpu_torch.parallel.windowed_parallel"):
+                 "lanegcn_tpu_torch.parallel.windowed_parallel",
+                 "lanegcn_tpu_torch.parallel.graph_shard",
+                 "lanegcn_tpu_torch.parallel.graph_parallel"):
         assert name in res["modules"], name
     assert res["banned"] == [], res["banned"]
 

@@ -236,10 +236,11 @@ def test_windowed_step_matches_the_single_device_step(run, case):
     assert torch.equal(r0["after"], r1["after"])
     # The ranks' local gradients, averaged as the step's all_reduce does.
     _close((r0["grad"] + r1["grad"]) / 2, ref["grad"], f"{case} gradient")
-    # Collectives a step: the two gathers and the cotangent's all_reduce over
-    # the graph row, the metrics' and the gradient's all_reduce.
+    # Collectives a step: the two gathers and the cotangent's reduce-scatter
+    # over the graph row, the metrics' and the gradient's all_reduce.
     counts = r0["counts"]
-    assert counts["all_gather"] == 2 and counts["all_reduce"] == 3, counts
+    assert counts["all_gather"] == 2 and counts["reduce_scatter"] == 1, counts
+    assert counts["all_reduce"] == 2, counts
     assert counts["all_reduce_bytes"] > 4 * ref["grad"].numel()
 
 
