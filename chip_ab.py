@@ -32,9 +32,11 @@ spill plan's `prepare_spill` timed beside, forward-only for the forward,
 the call handed the one a LaneGCN forward made); row_tail's forward and
 backward at K = 1 on the windowed geometry (Att's tails) and at K = 2 on
 LaneRCNN's (LanePooling's tail, `row_tail2`; the K = 2 backward's C
-interface changed: the other tree's through its own wrapper); Att's edge_mlp
-backward likewise (its C interface took the bf16 workspace `act` and the
-weight-gradient pass's splits); window_scatter and its backward on
+interface changed: the other tree's through its own wrapper; so did the K
+= 1 forward's and backward's, which took the row width); Att's edge_mlp
+forward and backward likewise (the backward's C interface took the bf16
+workspace `act` and the weight-gradient pass's splits, both then the row
+width); window_scatter and its backward on
 LaneRCNN's geometry (both pool scatters, r2g and g2r; the C interface is
 unchanged, so both builds run through this checkout's wrappers) in
 float32 as well as bfloat16 (`DTYPES`). Each call shape
@@ -96,8 +98,11 @@ OWN_WRAPPERS = {"scenario_agg": {"scenario_agg": ("scenario_aggregate", 8),
                              "win_edge_bwd": ("win_edge_bwd_cuda", 14)},
                 "pair_agg": {"pair_agg": ("pair_aggregate", 4),
                              "pair_agg_bwd": ("pair_agg_bwd_cuda", 4)},
-                "row_tail": {"row_tail2_bwd": ("row_tail2_bwd_cuda", 11)},
-                "edge_mlp": {"edge_mlp_bwd": ("edge_mlp_bwd_cuda", 14)}}
+                "row_tail": {"row_tail": ("fused_row_tail", 7),
+                             "row_tail_bwd": ("row_tail_bwd_cuda", 8),
+                             "row_tail2_bwd": ("row_tail2_bwd_cuda", 11)},
+                "edge_mlp": {"edge_mlp": ("fused_edge_mlp", 12),
+                             "edge_mlp_bwd": ("edge_mlp_bwd_cuda", 14)}}
 # Wrapper modules named other than their kernel library (ops/<module>.py),
 # and the other tree's modules that its wrapper module imports in place of
 # this checkout's (names it takes from them are gone here).

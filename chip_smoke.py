@@ -34,6 +34,12 @@ Geometries (lanegcn_tpu_torch/config.py), driven in this order:
               explicit graph-parallel pack): no band masks, tables or
               plan; every relation rides the residue lists and each
               LaneConv layer runs the row tail.
+  widths      contiguous_pack_config(32) with ModelConfig(n_actor=64):
+              128-wide lanes beside a 64-wide actor branch. A2M is
+              Att(128, 64) and M2A Att(64, 128), which take the
+              unequal-width branch (the edge chain as PyTorch products,
+              then the scatter and the row tail at n_agt's width); A2A is
+              Att(64, 64): edge_mlp and row_tail at width 64.
 
 Phases, one JSON line each (tagged with the geometry); any failure raises
 and exits non-zero:
@@ -88,7 +94,9 @@ and exits non-zero:
           `LANE_ROWS`' cuts of its largest call, around the bf16 kernel's
           192-row blocks, and 385 rows with relation 0's band mask all
           zero) and row_tail (the LaneConv tails at N rows beside Att's); flat:
-          row_tail (the LaneConv tails).
+          row_tail (the LaneConv tails); widths: row_tail at 128 (A2M) and
+          64 (M2A, A2A; and `TAIL_ROWS` cut from the largest 64-wide call)
+          and edge_mlp at 64 (A2A; `EDGE_ROWS` and the all-padding call).
   kernel_bwd  the same kernels' backwards against their plain backwards on
           the inputs and cotangent one bf16 train step hands them, with a
           rerun that must be bitwise equal (lanercnn: lane_layer_bwd and
@@ -98,6 +106,9 @@ and exits non-zero:
           with `EDGE_ROWS` and the all-padding call, whose outputs must all
           be zero; contiguous: edge_mlp_bwd likewise;
           merged: lane_plan_bwd (and `PLAN_CASES`); unfused: band_conv_bwd;
+          widths: row_tail_bwd at 128 and 64 and edge_mlp_bwd at 64, with
+          `EDGE_ROWS`, the all-padding call and the 64-wide row_tail_bwd
+          cut to `RAGGED_NARROW_ROWS`;
           windowed: scenario_agg_bwd on `PLAN_CASES` too, and win_edge_bwd on
           `WIN_CASES`; bench: pair_agg_bwd on `SPILL_CASES` too), and
           lane_layer_bwd, band_conv_bwd, row_tail_bwd and row_tail2_bwd
@@ -124,7 +135,12 @@ and exits non-zero:
           the CPU from the same weights: the loss, every parameter's gradient
           (same names, none missing) and the parameters after the step (the
           share of elements apart, beside a control with perturbed
-          gradients); on lanercnn (AdamW) the NMS picks must be equal.
+          gradients). Where a leaf misses and a ReLU tie is confirmed (an
+          input within rounding of zero that a CPU step from parameters
+          moved by `TIE_PERTURB` puts on the other side, and that move
+          carries a missing leaf past its tolerance), the whole step is
+          held to the nearer of the two CPU steps (`reference`); on
+          lanercnn (AdamW) the NMS picks must be equal.
   serve   make_eval_step in bfloat16 over the 2 packs, several rounds: ms per
           pack, scen/s, loss/ade/fde/mr, peak device memory, and the kernel
           launch counts of that run, asserted per forward (the geometry's
@@ -217,7 +233,9 @@ After the geometries, two phases without a geometry:
           drop in its log. The part's seconds are printed.
 Then the `kernels` summary line (all 23 kernels, each from the first
 geometry that checks it, with the launches of that geometry's serve or
-train run, and under `also_checked` its checks on the later geometries),
+train run, and under `also_checked` its checks on the later geometries;
+`by_width` gives each row width a kernel was checked at, 128 and, for
+row_tail, row_tail_bwd, edge_mlp and edge_mlp_bwd, 64),
 the nvidia-smi name/power-limit line, and last the `ok` line with the
 device.
 
@@ -340,6 +358,13 @@ _UNFUSED_STEP = {**{k: v for k, v in _WINDOWED_STEP.items() if not k.startswith(
 # residue lists (one scatter per layer, and its gather's backward), and
 # the LaneConv tails run as row tails.
 _FLAT_FWD = {"row_tail_fwd": 14, "edge_mlp_fwd": 6, "segment_sum": 14}
+# n_actor = 64 beside n_map = 128 on the contiguous packs: A2M and M2A take
+# Att's unequal-width branch (no edge_mlp), A2A's two layers run edge_mlp at
+# 64; all six Att layers end in row_tail (A2M's at 128, the rest at 64);
+# the scatters and the gathers' backwards as on contiguous.
+_WIDTHS_FWD = {**_CONTIGUOUS_FWD, "edge_mlp_fwd": 2}
+_WIDTHS_STEP = {**_WIDTHS_FWD, "lane_layer_bwd": 8, "edge_mlp_bwd": 2, "row_tail_bwd": 6,
+                "segment_sum": 42}
 _RCNN_FWD = {"lane_layer_fwd": 12, "scenario_agg_fwd": 12, "window_scatter_fwd": 2,
              "edge_mlp_pool_fwd": 3, "row_tail2_fwd": 3, "segment_sum": 14}
 _RCNN_STEP = {**_RCNN_FWD, "lane_layer_bwd": 12, "scenario_agg_bwd": 12,
@@ -397,6 +422,11 @@ GEOMETRIES = {
                  kernels=("row_tail",), step_kernels=("segment_sum",), per_forward=_FLAT_FWD,
                  per_train_step={**_FLAT_FWD, "row_tail_bwd": 14, "edge_mlp_bwd": 6,
                                  "segment_sum": 34}),
+    # 128-wide lanes beside a 64-wide actor branch (n_map != n_actor).
+    "widths": dict(model="lanegcn", config="contiguous_pack_config", s=32,
+                   model_fields=dict(n_actor=64), kernels=("row_tail", "edge_mlp"),
+                   step_kernels=("segment_sum",), per_forward=_WIDTHS_FWD,
+                   per_train_step=_WIDTHS_STEP),
 }
 
 
@@ -1031,7 +1061,8 @@ def kernel_phase(phase, geom, ops, calls, counts):
                     res["work"] = work_of(name, a)
             emit(res)
             per_step += res["ms"] * counts[name][key]
-            by_call.append({"shape": res["bfloat16"]["shape"], "calls_per_step": counts[name][key],
+            by_call.append({"shape": res["bfloat16"]["shape"], "width": call_width(name, args),
+                            "calls_per_step": counts[name][key],
                             "err_over_tol": res["bfloat16"]["err_over_tol"],
                             "err_over_tol_fp32": res["float32"]["err_over_tol"],
                             "ms": res["ms"], "plain_ms": res["plain_ms"],
@@ -1041,7 +1072,36 @@ def kernel_phase(phase, geom, ops, calls, counts):
                 summary[name] = res
         summary[name]["ms_per_step"] = per_step
         summary[name]["by_call"] = by_call
+        summary[name]["by_width"] = by_width(by_call)
     return summary
+
+
+# The argument that holds a call's rows, for the kernels that take more
+# than one row width (row_tail's x, Att's edge_mlp's cg); every other
+# kernel takes 128-wide rows only.
+ROWS_ARG = {"row_tail": 0, "row_tail_bwd": 0, "edge_mlp": 2, "edge_mlp_bwd": 2}
+
+
+def call_width(name, args):
+    """The row width of a call of kernel `name`."""
+    return args[ROWS_ARG[name]].shape[1] if name in ROWS_ARG else 128
+
+
+def by_width(by_call):
+    """{width: the worst bf16 and fp32 error over tolerance of the calls at
+    that width, and the times and bound of its call with the most calls a
+    step (ties: the first)}."""
+    out = {}
+    for w in sorted({c["width"] for c in by_call}):
+        at = [c for c in by_call if c["width"] == w]
+        top = max(at, key=lambda c: c["calls_per_step"])
+        out[str(w)] = {"calls": len(at),
+                       "err_over_tol": max(c["err_over_tol"] for c in at),
+                       "err_over_tol_fp32": max(c["err_over_tol_fp32"] for c in at),
+                       "shape": top["shape"], "calls_per_step": top["calls_per_step"],
+                       "ms": top["ms"], "plain_ms": top["plain_ms"],
+                       "bound_ms": top["bound_ms"], "library_ms": top["library_ms"]}
+    return out
 
 
 def work_of(name, a):
@@ -1059,14 +1119,16 @@ def work_of(name, a):
         "segment_sum": lambda: segment_sum.work(a[0], a[1], a[2], a[3] if len(a) > 3 else None),
         "scenario_agg": lambda: scenario_agg.work(a[0], a[3], a[4], a[5], a[2], a[6], a[7]),
         "win_edge": lambda: win_edge.work(a[0], a[2], a[13]),
-        "row_tail": lambda: row_tail.work(a[0].shape[0], a[0].element_size()),
+        "row_tail": lambda: row_tail.work(a[0].shape[0], a[0].element_size(),
+                                          call_width(name, a)),
         "pair_agg": lambda: pair_agg.work(a[0], a[2], a[3]),
         "edge_mlp": lambda: edge_mlp.work(a[0], a[1], a[2]),
         "lane_layer_bwd": lambda: lane_layer.work_bwd(a[0], a[2]),
         "scenario_agg_bwd": lambda: scenario_agg.work_bwd(a[0], a[2], a[3], a[4], a[1], a[5],
                                                           a[6]),
         "win_edge_bwd": lambda: win_edge.work_bwd(a[0], a[2], a[12]),
-        "row_tail_bwd": lambda: row_tail.work_bwd(a[0].shape[0], a[0].element_size()),
+        "row_tail_bwd": lambda: row_tail.work_bwd(a[0].shape[0], a[0].element_size(),
+                                                  call_width(name, a)),
         "pair_agg_bwd": lambda: pair_agg.work_bwd(a[0], a[1], a[2]),
         "edge_mlp_bwd": lambda: edge_mlp.work_bwd(a[0], a[1], a[2], a[12]),
         "window_scatter": lambda: window_scatter.work(a[0], a[1], a[2], a[3], a[4]),
@@ -1234,6 +1296,63 @@ GRAD_FLOOR = 1e-4
 # printed beside it.
 PARAM_FAR = 1e-6
 PARAM_FAR_SHARE = 1e-3
+# A ReLU tie: a pre-activation within fp32 rounding of zero takes one side
+# on the card and the other on the CPU, and moves every gradient fed
+# through it by far more than rounding (the widths geometry at S=8: a
+# 128-wide Att tail's h at -2.2e-7 on the CPU moved a2m.att.1's edge-chain
+# leaves to 5.5x their tolerance, exactly as a 1e-7 relative move of the
+# CPU's own parameters does; upstream of that tail MapNet's leaves moved
+# to 0.99x and 6,310 parameters stepped apart, on the card as on the
+# CPU). This loosens the check: where a leaf misses, the CPU step is taken
+# twice more, from the same parameters and from parameters moved by
+# TIE_PERTURB of their size (seeded), recording every torch.relu input
+# (`relu_recorder`). A tie is confirmed only if both hold: a ReLU input
+# within TIE_EPS["float32"] of zero (relative to its RMS) takes the other
+# side in the moved step (`relu_flips`), and the move carries a missing
+# leaf's own gradient past its tolerance. Then the card's whole step (every
+# gradient leaf and every parameter after it) is held to the one of the
+# two CPU steps whose worst gradient leaf is nearer (`reference`), never a
+# mix of the two; otherwise to the first CPU step alone, as before.
+TIE_PERTURB = 1e-7
+
+
+def relu_recorder(near=None):
+    """A TorchFunctionMode that records each torch.relu input in call order:
+    where `near` is None, the elements within TIE_EPS["float32"] of zero,
+    relative to the input's RMS, as (flat index, value); else, call by call,
+    the values at the indices `near` (an earlier run's `calls`) holds."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    class ReluInputs(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in (torch.relu, torch.nn.functional.relu):
+                x = args[0].detach().reshape(-1).float()
+                if near is None:
+                    rms = x.square().mean().sqrt() if x.numel() else 0.0
+                    idx = (x.abs() <= TIE_EPS["float32"] * rms).nonzero().reshape(-1)
+                else:
+                    idx = near[len(self.calls)][0]
+                self.calls.append((idx, x[idx]))
+            return func(*args, **(kwargs or {}))
+
+    return ReluInputs()
+
+
+def relu_flips(near, moved):
+    """[(call, element, first, second)]: the ReLU inputs within rounding of
+    zero in one run (`near`, a relu_recorder's calls) that take the other
+    side of zero in a second run of the same calls (`moved`), nearest zero
+    first."""
+    flips = []
+    for k, ((idx, a), (_, b)) in enumerate(zip(near, moved)):
+        for i in ((a > 0) != (b > 0)).nonzero().reshape(-1).tolist():
+            flips.append((k, int(idx[i]), float(a[i]), float(b[i])))
+    return sorted(flips, key=lambda f: abs(f[2]))
 
 
 def train_parity_phase(geom):
@@ -1276,12 +1395,49 @@ def train_parity_phase(geom):
     missing = sorted(n for n in grads_g if grads_g[n] is None or grads_c[n] is None)
     check(not missing, f"train_parity: no gradient for {missing[:5]} ({len(missing)})")
     top = max(float(g.abs().max()) for g in grads_c.values())
-    shares, scales = {}, {}
-    for n in grads_g:
-        ref = grads_c[n]
-        scales[n] = max(float(ref.abs().max()), GRAD_FLOOR * top)
-        err = float((grads_g[n].cpu() - ref).abs().max())
-        shares[n] = (err / (GRAD_TOL * scales[n]), err, float(ref.abs().max()))
+    scales = {n: max(float(g.abs().max()), GRAD_FLOOR * top) for n, g in grads_c.items()}
+
+    def grad_shares(grads_ref):
+        """{leaf: (error over tolerance, error, max |g|)} of the card's
+        gradients against one CPU step's."""
+        out = {}
+        for n, ref in grads_ref.items():
+            err = float((grads_g[n].cpu() - ref).abs().max())
+            out[n] = (err / (GRAD_TOL * scales[n]), err, float(ref.abs().max()))
+        return out
+
+    def cpu_step(perturb, near=None):
+        """The CPU step again from `start` (moved by TIE_PERTURB where
+        asked), with its ReLU inputs recorded: (net, calls)."""
+        net = get_model(family, cfg, device="cpu", seed=2).net
+        net.load_state_dict(start)
+        if perturb:
+            gen = torch.Generator().manual_seed(1)
+            with torch.no_grad():
+                for p in net.parameters():
+                    p.mul_(1 + TIE_PERTURB * torch.randn(p.shape, generator=gen))
+        net, state = init_state(cfg, net=net, device="cpu")
+        rec = relu_recorder(near)
+        with rec:
+            make_train_step(cfg, net, state, device="cpu", **fns)(batch, 0.0)
+        return net, rec.calls
+
+    shares = grad_shares(grads_c)
+    worst_vs_cpu = max(v[0] for v in shares.values())
+    reference, net_ref, tie_leaves, flips = "cpu", net_c, [], []
+    if worst_vs_cpu > 1.0:
+        _, near = cpu_step(False)
+        net_t, moved = cpu_step(True, near)
+        check(len(moved) == len(near), f"train_parity: the moved CPU step made {len(moved)} "
+              f"ReLU calls, the first {len(near)}")
+        flips = relu_flips(near, moved)
+        grads_t = {n: p.grad for n, p in net_t.named_parameters()}
+        tie_leaves = [n for n in grads_t if shares[n][0] > 1.0 and float(
+            (grads_t[n] - grads_c[n]).abs().max()) > GRAD_TOL * scales[n]]
+        if flips and tie_leaves:
+            shares_t = grad_shares(grads_t)
+            if max(v[0] for v in shares_t.values()) < worst_vs_cpu:
+                reference, net_ref, shares = "cpu_moved", net_t, shares_t
     ranked = sorted(shares, key=lambda n: -shares[n][0])
     worst, worst_name = shares[ranked[0]][0], ranked[0]
 
@@ -1296,14 +1452,19 @@ def train_parity_phase(geom):
         p.grad = grads_c[n] + GRAD_TOL * scales[n] * noise
     state_x.opt.step(m_c["lr"])
 
-    def apart(net):
-        diffs = [(p.detach().cpu() - pc.detach()).abs()
-                 for p, pc in zip(net.parameters(), net_c.parameters())]
-        return max(float(d.max()) for d in diffs), sum(int((d > PARAM_FAR).sum()) for d in diffs)
+    def apart(net, ref):
+        """The largest distance from `ref`'s parameters, the elements farther
+        than PARAM_FAR and the five leaves with the most of them."""
+        refs = dict(ref.named_parameters())
+        diffs = {n: (p.detach().cpu() - refs[n].detach()).abs() for n, p in net.named_parameters()}
+        far = {n: int((d > PARAM_FAR).sum()) for n, d in diffs.items()}
+        top = sorted(far, key=lambda n: -far[n])[:5]
+        return (max(float(d.max()) for d in diffs.values()), sum(far.values()),
+                [[n, far[n]] for n in top])
 
     lr = float(m_c["lr"])
-    p_err, n_far = apart(net_g)
-    _, n_far_control = apart(net_x)
+    p_err, n_far, far_leaves = apart(net_g, net_ref)
+    _, n_far_control, _ = apart(net_x, net_c)
     n_params = sum(p.numel() for p in net_c.parameters())
     nms = nms_report(picks) if roi else {}
     emit({"phase": "train_parity", "geometry": geom, "scenarios": s, "opt": cfg.train.opt,
@@ -1311,8 +1472,12 @@ def train_parity_phase(geom):
           "leaves": len(grads_g), "grad_tol_rel": GRAD_TOL, "grad_floor": GRAD_FLOOR * top,
           "worst_grad_err_over_tol": worst, "worst_grad_leaf": worst_name,
           "worst_leaves": [[n, *shares[n]] for n in ranked[:5]],
+          "reference": reference, "worst_grad_err_over_tol_vs_cpu": worst_vs_cpu,
+          "tie_leaves": tie_leaves, "tie_perturb": TIE_PERTURB, "relu_flips": len(flips),
+          "nearest_relu_flips": flips[:3],
           "param_max_abs_err": p_err, "param_max_tol": 2 * lr, "param_far": PARAM_FAR,
           "params_far": n_far, "params_far_limit": PARAM_FAR_SHARE * n_params,
+          "far_leaves": far_leaves,
           "params_far_control": n_far_control, "params": n_params, **nms})
     if roi:
         check(nms["nms_picks_differ"] == 0,
@@ -1458,7 +1623,9 @@ def drive(geom):
         calls, counts, _ = plan_case_calls(backward=False, layer=True)
         cap.calls["lane_plan"].update(calls)
         cap.counts["lane_plan"].update(counts)
-    edge_pad = add_edge_cases("edge_mlp", cap) if geom == "contiguous" else None
+    if geom == "widths":
+        add_tail_cases("row_tail", cap, width=64)
+    edge_pad = add_edge_cases("edge_mlp", cap) if geom in ("contiguous", "widths") else None
     results = kernel_phase("kernel", geom, forward_ops(spec["kernels"]), cap.calls, cap.counts)
     if edge_pad is not None:
         check_edge_padding(geom, "edge_mlp", edge_pad)
@@ -1656,6 +1823,9 @@ def check_empty_plan(fwd_args):
 RAGGED_ROWS = (1000, 20000)
 RAGGED_BWD = ("lane_layer_bwd", "band_conv_bwd", "row_tail_bwd", "row_tail2_bwd")
 RAGGED_EXTRA_ROWS = {"row_tail2_bwd": (1, 63, 65, 127, 129)}
+# Calls narrower than 128 (row_tail_bwd on 64-wide actor rows, a few
+# hundred of them): also cut around the bf16 row pass's 128-row tiles.
+RAGGED_NARROW_ROWS = (1, 127, 129)
 
 
 def cut_rows(args, n):
@@ -1679,18 +1849,23 @@ def shape_key(args):
 
 def ragged_calls(calls):
     """{kernel: {shapes: args}}: each RAGGED_BWD kernel's captured call with
-    the most rows cut to each of RAGGED_ROWS rows (and of its
-    RAGGED_EXTRA_ROWS)."""
+    the most rows, of each row width it was called at, cut to each of
+    RAGGED_ROWS rows (and of its RAGGED_EXTRA_ROWS; below 128 wide, of
+    RAGGED_NARROW_ROWS)."""
     cut = {}
     for name in RAGGED_BWD:
         if not calls.get(name):
             continue
-        args = max(calls[name].values(), key=lambda a: a[0].shape[0])
         cut[name] = {}
-        rows = RAGGED_EXTRA_ROWS.get(name, ()) + RAGGED_ROWS
-        for n in (n for n in rows if n < args[0].shape[0]):
-            part = cut_rows(args, n)
-            cut[name][shape_key(part)] = part
+        for width in sorted({call_width(name, a) for a in calls[name].values()}):
+            args = max((a for a in calls[name].values() if call_width(name, a) == width),
+                       key=lambda a: a[0].shape[0])
+            rows = RAGGED_EXTRA_ROWS.get(name, ()) + RAGGED_ROWS
+            if width < 128:
+                rows = RAGGED_NARROW_ROWS + rows
+            for n in (n for n in rows if n < args[0].shape[0]):
+                part = cut_rows(args, n)
+                cut[name][shape_key(part)] = part
     return cut
 
 
@@ -1728,10 +1903,12 @@ def lane_case_calls(calls, name="lane_layer"):
 TAIL_ROWS = {"row_tail": (1, 63, 65), "row_tail2": (1, 63, 65, 12345)}
 
 
-def add_tail_cases(name, cap):
+def add_tail_cases(name, cap, width=None):
     """Adds TAIL_ROWS[name]'s cuts of the row tail's largest captured
-    forward call to the capture (0 calls a step each)."""
-    args = max(cap.calls[name].values(), key=lambda a: a[0].shape[0])
+    forward call (of that row width, where given) to the capture (0 calls a
+    step each)."""
+    args = max((a for a in cap.calls[name].values() if width in (None, a[0].shape[1])),
+               key=lambda a: a[0].shape[0])
     for n in TAIL_ROWS[name]:
         part = cut_rows(args, n)
         cap.calls[name][shape_key(part)] = part
@@ -2054,7 +2231,8 @@ def step_kernel_phases(geom, cap):
         cap.calls["window_scatter_bwd"].update(calls)
         cap.counts["window_scatter_bwd"].update(counts)
         check_empty_scatter(calls[empty], backward=True)
-    edge = {"lanercnn": "edge_mlp_pool_bwd", "contiguous": "edge_mlp_bwd"}.get(geom)
+    edge = {"lanercnn": "edge_mlp_pool_bwd", "contiguous": "edge_mlp_bwd",
+            "widths": "edge_mlp_bwd"}.get(geom)
     edge_pad = add_edge_cases(edge, cap) if edge else None
     results = kernel_phase("kernel_bwd", geom, backward_ops(spec["kernels"]), cap.calls,
                            cap.counts)
@@ -3756,7 +3934,7 @@ def main() -> None:
                     "err_over_tol_fp32": res["float32"]["err_over_tol"],
                     "ms": res["ms"], "plain_ms": res["plain_ms"],
                     "bound_ms": res["work"]["bound_ms"], "bound_by": res["work"]["bound_by"],
-                    "by_call": res["by_call"]}
+                    "by_call": res["by_call"], "by_width": res["by_width"]}
                 continue
             kernels[name] = {
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3770,7 +3948,7 @@ def main() -> None:
                 "ms": res["ms"], "plain_ms": res["plain_ms"],
                 "ms_per_step": res["ms_per_step"],
                 "bound_ms": res["work"]["bound_ms"], "bound_by": res["work"]["bound_by"],
-                "library_ms": res["library_ms"],
+                "library_ms": res["library_ms"], "by_width": res["by_width"],
             }
     cli_phase()
     loader_phase()

@@ -1,5 +1,16 @@
 // Shared device helpers for the port's kernels (C = 128 channels).
 //
+// Some kernels also run at a narrower width W (64: Att's row tail and edge
+// chain on the actor side of a model with n_actor = 64). They keep every
+// tile, weight and product at 128 columns, zero-padded: rows are read W
+// wide (columns ≥ W load as zero), W x W weights sit in the top-left of a
+// zeroed 128 x 128, GroupNorm statistics are taken over the first W
+// columns only and the GN affines read as zero past W, so every padded
+// column stays exactly zero through the chain and adds exactly nothing to
+// a product; only W columns are stored. The helpers below take W as a
+// template parameter with default C, and at W = C compile to the code
+// they were before W existed.
+//
 // The kernels keep activations in shared memory as fp32 rows, run their
 // [rows x 128] x [128 x 128] products on CUDA cores with fp32 accumulation
 // (register-blocked: each of 256 threads owns a 4 x 8, 8 x 8 or 2 x 4
@@ -58,17 +69,33 @@ template <> __device__ __forceinline__ void store4<bf16>(bf16* p, float4 v) {
   q[1] = __floats2bfloat162_rn(v.z, v.w);
 }
 
+__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+
+// Whether the lane's 4 columns (lane*4 .. +3 of a warp-per-row layout) lie
+// in a W-wide row.
+template <int W>
+__device__ __forceinline__ bool lane_in() {
+  if constexpr (W == C) return true;
+  else return (threadIdx.x & 31) * 4 < W;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// W_s[k*C + n] = W[k*C + n] for a [C x C] weight in (in, out) layout.
-template <typename T>
+// W_s[k*C + n] = W[k*C + n] for a [C x C] weight in (in, out) layout; a
+// [W x W] one zero-padded to [C x C].
+template <typename T, int WD = C>
 __device__ __forceinline__ void load_weight(float* W_s, const T* W) {
   for (int i = threadIdx.x * 4; i < C * C; i += NT * 4) {
-    *reinterpret_cast<float4*>(W_s + i) = load4<T>(W + i);
+    if constexpr (WD == C) {
+      *reinterpret_cast<float4*>(W_s + i) = load4<T>(W + i);
+    } else {
+      const int k = i / C, n = i % C;
+      *reinterpret_cast<float4*>(W_s + i) = k < WD && n < WD ? load4<T>(W + k * WD + n) : zero4();
+    }
   }
 }
 
@@ -122,14 +149,20 @@ __device__ __forceinline__ void store_acc(float* T_s, const float acc[4][8]) {
   }
 }
 
-// Single-group GroupNorm of one 128-wide row held as 4 values per lane of a
+// Single-group GroupNorm of one W-wide row held as 4 values per lane of a
 // warp (columns lane*4 .. lane*4+3): biased variance, eps inside rsqrt.
+// Lanes past W take no part in the statistics and return zeros (w and b
+// are not read there).
+template <int W = C>
 __device__ __forceinline__ float4 gn_row(float4 v, const float* w, const float* b, float eps) {
   const int c = (threadIdx.x & 31) * 4;
-  const float mu = warp_sum(v.x + v.y + v.z + v.w) * (1.f / C);
-  const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
-  const float var = warp_sum(d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3) * (1.f / C);
+  if (!lane_in<W>()) v = zero4();
+  const float mu = warp_sum(v.x + v.y + v.z + v.w) * (1.f / W);
+  float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
+  if (!lane_in<W>()) d0 = d1 = d2 = d3 = 0.f;
+  const float var = warp_sum(d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3) * (1.f / W);
   const float inv = rsqrtf(var + eps);
+  if (!lane_in<W>()) return zero4();
   return make_float4(d0 * inv * w[c] + b[c], d1 * inv * w[c + 1] + b[c + 1],
                      d2 * inv * w[c + 2] + b[c + 2], d3 * inv * w[c + 3] + b[c + 3]);
 }
@@ -146,14 +179,15 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-// Rows [0, rows) of T_s: relu(GN(row)) rounded to T, in place (warp per row).
-template <typename T>
+// Rows [0, rows) of T_s: relu(GN(row)) rounded to T, in place (warp per
+// row; W-wide rows, zeros past W).
+template <typename T, int W = C>
 __device__ __forceinline__ void gn_relu_rows(float* T_s, int rows, const float* w,
                                              const float* b, float eps) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r = warp; r < rows; r += NT / 32) {
     float* p = T_s + r * LDA + lane * 4;
-    const float4 v = gn_row(*reinterpret_cast<float4*>(p), w, b, eps);
+    const float4 v = gn_row<W>(*reinterpret_cast<float4*>(p), w, b, eps);
     *reinterpret_cast<float4*>(p) = rnd4<T>(relu4(v));
   }
 }
@@ -173,13 +207,16 @@ inline cudaError_t set_smem(const void* kernel, int bytes) {
 // equal.
 
 // W_s[k*C + n] = W[n*C + k]: the transpose of a [C x C] weight, so that
-// mm_64x128 with W_s computes A @ Wᵀ. Reads 4 consecutive k of one row n per
-// thread; neighbouring threads write neighbouring n (no bank conflicts).
-template <typename T>
+// mm_64x128 with W_s computes A @ Wᵀ (a [WD x WD] one zero-padded). Reads 4
+// consecutive k of one row n per thread; neighbouring threads write
+// neighbouring n (no bank conflicts).
+template <typename T, int WD = C>
 __device__ __forceinline__ void load_weight_t(float* W_s, const T* W) {
   for (int i = threadIdx.x; i < C * C / 4; i += NT) {
     const int n = i % C, k4 = (i / C) * 4;
-    const float4 v = load4<T>(W + n * C + k4);
+    float4 v;
+    if constexpr (WD == C) v = load4<T>(W + n * C + k4);
+    else v = n < WD && k4 < WD ? load4<T>(W + n * WD + k4) : zero4();
     W_s[(k4 + 0) * C + n] = v.x;
     W_s[(k4 + 1) * C + n] = v.y;
     W_s[(k4 + 2) * C + n] = v.z;
@@ -222,14 +259,18 @@ __device__ __forceinline__ void mm_tn(const float* A_s, const float* B_s, int ro
   }
 }
 
-// P[tn_row(i)*C + mm_col(j)] = acc[i][j] (add = false) or += (add = true):
-// a thread's 64 elements of a [C x C] gradient in device memory.
+// P[tn_row(i)*W + mm_col(j)] = acc[i][j] (add = false) or += (add = true):
+// a thread's 64 elements of a [C x C] gradient in device memory, or those
+// inside a [W x W] one.
+template <int W = C>
 __device__ __forceinline__ void store_tn(float* P, const float acc[8][8], bool add) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    float* row = P + tn_row(i) * C;
+    if (W < C && tn_row(i) >= W) continue;
+    float* row = P + tn_row(i) * W;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
+      if (W < C && mm_col(4 * h) >= W) continue;
       float4* p = reinterpret_cast<float4*>(row + mm_col(4 * h));
       float4 v = make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
                              acc[i][4 * h + 3]);
@@ -239,12 +280,15 @@ __device__ __forceinline__ void store_tn(float* P, const float acc[8][8], bool a
   }
 }
 
-// Mean and 1/sqrt(var + eps) of one 128-wide row held as 4 values per lane
+// Mean and 1/sqrt(var + eps) of one W-wide row held as 4 values per lane
 // (the statistics of gn_row).
+template <int W = C>
 __device__ __forceinline__ float2 gn_stats(float4 v, float eps) {
-  const float mu = warp_sum(v.x + v.y + v.z + v.w) * (1.f / C);
-  const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
-  const float var = warp_sum(d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3) * (1.f / C);
+  if (!lane_in<W>()) v = zero4();
+  const float mu = warp_sum(v.x + v.y + v.z + v.w) * (1.f / W);
+  float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
+  if (!lane_in<W>()) d0 = d1 = d2 = d3 = 0.f;
+  const float var = warp_sum(d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3) * (1.f / W);
   return make_float2(mu, rsqrtf(var + eps));
 }
 
@@ -253,21 +297,28 @@ __device__ __forceinline__ float4 gn_nrm(float4 v, float2 st) {
                      (v.w - st.x) * st.y);
 }
 
-// nrm ⊙ w + b for the lane's 4 columns.
+// nrm ⊙ w + b for the lane's 4 columns (zeros past W).
+template <int W = C>
 __device__ __forceinline__ float4 gn_affine(float4 nrm, const float* w, const float* b) {
   const int c = (threadIdx.x & 31) * 4;
+  if (!lane_in<W>()) return zero4();
   return make_float4(nrm.x * w[c] + b[c], nrm.y * w[c + 1] + b[c + 1],
                      nrm.z * w[c + 2] + b[c + 2], nrm.w * w[c + 3] + b[c + 3]);
 }
 
-// GroupNorm backward of one row (torch semantics, single group):
-//   d_x = inv · (d_nrm − mean(d_nrm) − nrm · mean(d_nrm · nrm)),  d_nrm = d_y ⊙ w.
+// GroupNorm backward of one W-wide row (torch semantics, single group):
+//   d_x = inv · (d_nrm − mean(d_nrm) − nrm · mean(d_nrm · nrm)),  d_nrm = d_y ⊙ w;
+// zeros past W.
+template <int W = C>
 __device__ __forceinline__ float4 gn_bwd_row(float4 dy, float4 nrm, float inv, const float* w) {
   const int c = (threadIdx.x & 31) * 4;
-  const float4 dn = make_float4(dy.x * w[c], dy.y * w[c + 1], dy.z * w[c + 2], dy.w * w[c + 3]);
-  const float c1 = warp_sum(dn.x + dn.y + dn.z + dn.w) * (1.f / C);
+  const float4 dn = lane_in<W>() ? make_float4(dy.x * w[c], dy.y * w[c + 1], dy.z * w[c + 2],
+                                               dy.w * w[c + 3])
+                                 : zero4();
+  const float c1 = warp_sum(dn.x + dn.y + dn.z + dn.w) * (1.f / W);
   const float c2 =
-      warp_sum(dn.x * nrm.x + dn.y * nrm.y + dn.z * nrm.z + dn.w * nrm.w) * (1.f / C);
+      warp_sum(dn.x * nrm.x + dn.y * nrm.y + dn.z * nrm.z + dn.w * nrm.w) * (1.f / W);
+  if (!lane_in<W>()) return zero4();
   return make_float4(inv * (dn.x - c1 - nrm.x * c2), inv * (dn.y - c1 - nrm.y * c2),
                      inv * (dn.z - c1 - nrm.z * c2), inv * (dn.w - c1 - nrm.w * c2));
 }
@@ -282,12 +333,11 @@ __device__ __forceinline__ float4 pos_mask4(float4 v, float4 m) {
                      m.w > 0.f ? v.w : 0.f);
 }
 
-__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-
 // Column sums kept per warp (lane owns columns lane*4..+3) → their sum over
-// the 8 warps, in warp order, written to out[q*C + c] for the NV vectors.
-// red_s: NT/32 * NV * C floats of shared memory that no thread is using.
-template <int NV>
+// the 8 warps, in warp order, written to out[q*W + c] (c < W) for the NV
+// vectors. red_s: NT/32 * NV * C floats of shared memory that no thread is
+// using.
+template <int NV, int W = C>
 __device__ __forceinline__ void reduce_warp_vecs(const float4 (&v)[NV], float* red_s,
                                                  float* out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -296,9 +346,10 @@ __device__ __forceinline__ void reduce_warp_vecs(const float4 (&v)[NV], float* r
   for (int q = 0; q < NV; ++q)
     *reinterpret_cast<float4*>(red_s + (warp * NV + q) * C + lane * 4) = v[q];
   __syncthreads();
-  for (int i = threadIdx.x; i < NV * C; i += NT) {
+  for (int i = threadIdx.x; i < NV * W; i += NT) {
+    const int at = W == C ? i : (i / W) * C + i % W;
     float s = 0.f;
-    for (int w = 0; w < NT / 32; ++w) s += red_s[w * NV * C + i];
+    for (int w = 0; w < NT / 32; ++w) s += red_s[w * NV * C + at];
     out[i] = s;
   }
   __syncthreads();
@@ -534,24 +585,26 @@ __device__ __forceinline__ float quad_sum(float x) {
 // Single-group GroupNorm statistics of the thread's two accumulator rows
 // (mean and 1/sqrt(biased var + eps), two passes as gn_row): a row's 128
 // columns sit in the 4 lanes of a quad, 32 in each, so two xor shuffles
-// finish each sum.
+// finish each sum. A W-wide row's columns are elements i < W/2 (acc_col(i)
+// < W exactly there): only those are summed.
+template <int W = C>
 __device__ __forceinline__ void acc_row_stats(const float (&d)[64], float eps, float (&mu)[2],
                                               float (&inv)[2]) {
   float s[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) s[acc_half(i)] += d[i];
+  for (int i = 0; i < W / 2; ++i) s[acc_half(i)] += d[i];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    mu[h] = quad_sum(s[h]) * (1.f / C);
+    mu[h] = quad_sum(s[h]) * (1.f / W);
     s[h] = 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < W / 2; ++i) {
     const float x = d[i] - mu[acc_half(i)];
     s[acc_half(i)] += x * x;
   }
 #pragma unroll
-  for (int h = 0; h < 2; ++h) inv[h] = rsqrtf(quad_sum(s[h]) * (1.f / C) + eps);
+  for (int h = 0; h < 2; ++h) inv[h] = rsqrtf(quad_sum(s[h]) * (1.f / W) + eps);
 }
 
 // Two fp32 values as one register of bf16x2 (the register-A fragment's element pair).
@@ -582,11 +635,19 @@ __device__ __forceinline__ void st_bf4(uint8_t* base, uint32_t off, float4 v) {
 
 // A [128 x 128] bf16 matrix (row-major in device memory) into core tiles
 // `t` at shared pointer dst: 8 neighbouring threads fill one core matrix.
+// A [W x W] one goes to the top-left of a zeroed [128 x 128].
+template <int W = C>
 __device__ __forceinline__ void load_tiles_128(uint8_t* dst, const Tiles& t, const bf16* src) {
   for (int i = threadIdx.x; i < C * C / 8; i += NT) {
     const int r = ((i >> 7) << 3) + (i & 7), cb = (i >> 3) & 15;
-    *reinterpret_cast<uint4*>(dst + tile_off(t, r, cb * 8)) =
-        *reinterpret_cast<const uint4*>(src + r * C + cb * 8);
+    if constexpr (W == C) {
+      *reinterpret_cast<uint4*>(dst + tile_off(t, r, cb * 8)) =
+          *reinterpret_cast<const uint4*>(src + r * C + cb * 8);
+    } else {
+      *reinterpret_cast<uint4*>(dst + tile_off(t, r, cb * 8)) =
+          r < W && cb * 8 < W ? *reinterpret_cast<const uint4*>(src + r * W + cb * 8)
+                              : make_uint4(0u, 0u, 0u, 0u);
+    }
   }
 }
 

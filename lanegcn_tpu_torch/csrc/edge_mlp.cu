@@ -79,6 +79,17 @@
 //   sums per warp in registers; reduce_partials sums the slices in block
 //   order.
 //
+// Width: Att's chain (edge_mlp_fwd / edge_mlp_bwd) also runs at W = 64
+// (A2A where n_actor = 64), every Att kernel above templated on W by the
+// padded route of common.cuh: d, qg, cg and g rows read W wide into the
+// same 128-column tiles with zeros past W, Wd's and bd's columns and the GN
+// affines zero past W, Wdo, K1 and Wout zero-padded to 128 x 128 in shared
+// memory, GN statistics over W columns, only W columns stored; act is
+// [E, 4W] and the weight gradients W x W. The wgmma products keep their
+// m64n128k16 shape with K cut to W, so half of N multiplies zero columns.
+// At W = 128 each kernel compiles to the code it was before the width
+// existed. LanePooling's configuration stays at 128.
+//
 // edge_mlp_pool_fwd (LaneRCNN's three LanePooling stages): per row,
 //
 //   t1 = rnd(relu(rnd(d[e]) @ rnd(Wd) + bd)),  s = t1 @ K1 + cg[e],
@@ -154,25 +165,29 @@ using namespace lgk;
 namespace {
 
 constexpr int EB = TM;                       // rows per tile
-constexpr int EM_PART = 3 * C * C + 7 * C;  // dWdo, dK1, dWout, dbd, dgdow, dgdob, dgchw, dgchb, dWd
+// A block's fp32 partial at width W: dWdo, dK1, dWout, dbd, dgdow, dgdob,
+// dgchw, dgchb, dWd.
+template <int W = C>
+__host__ __device__ constexpr int em_part() { return 3 * W * W + 7 * W; }
 
 // A_s[r] = rnd(relu(rnd(d[row]) @ rnd(Wd) + bd)) for the tile's rows; 0 past
-// e. d is [e, DIN]; the DIN products are summed in order with fmaf.
-template <typename T, int DIN>
+// e and past W. d is [e, DIN]; the DIN products are summed in order with
+// fmaf.
+template <typename T, int DIN, int W = C>
 __device__ __forceinline__ void tile_t1(float* A_s, const float* d, const T* kd, const float* bd,
                                         long row0, int e) {
   for (int i = threadIdx.x; i < EB * (C / 4); i += NT) {
     const int r = i / (C / 4), c4 = (i % (C / 4)) * 4;
     const long row = row0 + r;
     float4 t = zero4();
-    if (row < e) {
+    if (row < e && (W == C || c4 < W)) {
       const float d0 = rnd<T>(d[row * DIN]);
       const float4 k0 = load4<T>(kd + c4);
       t = make_float4(d0 * k0.x, d0 * k0.y, d0 * k0.z, d0 * k0.w);
 #pragma unroll
       for (int k = 1; k < DIN; ++k) {
         const float dk = rnd<T>(d[row * DIN + k]);
-        const float4 kk = load4<T>(kd + k * C + c4);
+        const float4 kk = load4<T>(kd + k * W + c4);
         t = make_float4(fmaf(dk, kk.x, t.x), fmaf(dk, kk.y, t.y), fmaf(dk, kk.z, t.z),
                         fmaf(dk, kk.w, t.w));
       }
@@ -183,7 +198,7 @@ __device__ __forceinline__ void tile_t1(float* A_s, const float* d, const T* kd,
   }
 }
 
-template <typename T>
+template <typename T, int W>
 __global__ void __launch_bounds__(NT)
 edge_mlp_kernel(const float* __restrict__ d, const T* __restrict__ qg, const T* __restrict__ cg,
                 const T* __restrict__ kd, const float* __restrict__ bd, const T* __restrict__ kdo,
@@ -198,28 +213,30 @@ edge_mlp_kernel(const float* __restrict__ d, const T* __restrict__ qg, const T* 
   const int lane = threadIdx.x & 31;
   float mm[4][8];
 
-  tile_t1<T, 2>(A_s, d, kd, bd, row0, e);
-  chain_fwd<T>(A_s, W_s, Chain<T>{kdo, gdow, gdob, k1, gchw, gchb, kout, eps},
-               [&](int r, float4 s) {  // s += cg + qg
-                 const long row = row0 + r;
-                 if (row < e) {
-                   s = add4(s, load4<T>(cg + row * C + lane * 4));
-                   s = add4(s, load4<T>(qg + row * C + lane * 4));
-                 }
-                 return s;
-               },
-               mm);  // e2 = e1 @ Wout
+  tile_t1<T, 2, W>(A_s, d, kd, bd, row0, e);
+  chain_fwd<T, true, W>(A_s, W_s, Chain<T>{kdo, gdow, gdob, k1, gchw, gchb, kout, eps},
+                        [&](int r, float4 s) {  // s += cg + qg
+                          const long row = row0 + r;
+                          if (row < e && lane_in<W>()) {
+                            s = add4(s, load4<T>(cg + row * W + lane * 4));
+                            s = add4(s, load4<T>(qg + row * W + lane * 4));
+                          }
+                          return s;
+                        },
+                        mm);  // e2 = e1 @ Wout
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const long row = row0 + mm_row(i);
     if (row < e) {
-      store4<T>(out + row * C + mm_col(0), make_float4(mm[i][0], mm[i][1], mm[i][2], mm[i][3]));
-      store4<T>(out + row * C + mm_col(4), make_float4(mm[i][4], mm[i][5], mm[i][6], mm[i][7]));
+      store4<T>(out + row * W + mm_col(0), make_float4(mm[i][0], mm[i][1], mm[i][2], mm[i][3]));
+      if (W == C)
+        store4<T>(out + row * W + mm_col(4),
+                  make_float4(mm[i][4], mm[i][5], mm[i][6], mm[i][7]));
     }
   }
 }
 
-template <typename T>
+template <typename T, int W>
 __global__ void __launch_bounds__(NT)
 edge_mlp_bwd_kernel(const float* __restrict__ d, const T* __restrict__ qg,
                     const T* __restrict__ cg, const T* __restrict__ g, const T* __restrict__ kd,
@@ -237,32 +254,37 @@ edge_mlp_bwd_kernel(const float* __restrict__ d, const T* __restrict__ qg,
   float* W_s = D_s + EB * LDA;  // [C][C]
   float* st_s = W_s + C * C;    // [EB][2] inv of GN(do), GN(ch)
 
-  float* P = part + (long)blockIdx.x * EM_PART;  // this block's own slice (zeroed)
+  float* P = part + (long)blockIdx.x * em_part<W>();  // this block's own slice (zeroed)
   const Chain<T> w{kdo, gdow, gdob, k1, gchw, gchb, kout, eps};
   const int lane = threadIdx.x & 31;
+  const bool in_w = lane_in<W>();  // the lane's columns lie in the row
   const int ntiles = (e + EB - 1) / EB;
   float4 vecs[5] = {zero4(), zero4(), zero4(), zero4(), zero4()};  // dbd, dgdow, dgdob, dgchw, dgchb
   float4 vkd[2] = {zero4(), zero4()};                               // dWd rows
-  const float4 k0 = load4<T>(kd + lane * 4), k1v = load4<T>(kd + C + lane * 4);
+  const float4 k0 = in_w ? load4<T>(kd + lane * 4) : zero4(),
+               k1v = in_w ? load4<T>(kd + W + lane * 4) : zero4();
 
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long row0 = (long)tile * EB;
-    chain_bwd<T>(
+    chain_bwd<T, W>(
         A_s, B_s, C_s, D_s, W_s, st_s, P, vecs, w,
-        [&](float* X_s) { tile_t1<T, 2>(X_s, d, kd, bd, row0, e); },
+        [&](float* X_s) { tile_t1<T, 2, W>(X_s, d, kd, bd, row0, e); },
         [&](int r, float4 sv) {  // s += cg + qg
           const long row = row0 + r;
-          if (row < e) {
-            sv = add4(sv, load4<T>(cg + row * C + lane * 4));
-            sv = add4(sv, load4<T>(qg + row * C + lane * 4));
+          if (row < e && in_w) {
+            sv = add4(sv, load4<T>(cg + row * W + lane * 4));
+            sv = add4(sv, load4<T>(qg + row * W + lane * 4));
           }
           return sv;
         },
-        [&](int r) { return row0 + r < e ? load4<T>(g + (row0 + r) * C + lane * 4) : zero4(); },
+        [&](int r) {
+          return row0 + r < e && in_w ? load4<T>(g + (row0 + r) * W + lane * 4) : zero4();
+        },
         [&](int r) { return row0 + r < e; },
         [&](int r, float4 ds) {  // dqg = dcg = rnd(d_s)
-          store4<T>(dqg + (row0 + r) * C + lane * 4, ds);
-          store4<T>(dcg + (row0 + r) * C + lane * 4, ds);
+          if (!in_w) return;
+          store4<T>(dqg + (row0 + r) * W + lane * 4, ds);
+          store4<T>(dcg + (row0 + r) * W + lane * 4, ds);
         },
         [] {},
         [&](int r, float4 d1) {  // dWd += rnd(d)ᵀ rnd(d_t1p);  dd = rnd(d_t1p) @ Wdᵀ
@@ -280,7 +302,7 @@ edge_mlp_bwd_kernel(const float* __restrict__ d, const T* __restrict__ qg,
         [] {});
   }
   const float4 all[7] = {vecs[0], vecs[1], vecs[2], vecs[3], vecs[4], vkd[0], vkd[1]};
-  reduce_warp_vecs<7>(all, B_s, P + 3 * C * C);
+  reduce_warp_vecs<7, W>(all, B_s, P + 3 * W * W);
 }
 
 // LanePooling's chain (no dist_out stage, no query): t1 from d [e, DIN],
@@ -475,7 +497,7 @@ static_assert(fwd_tc_smem<2, true>() <= 232448 && fwd_tc_smem<4, false>() <= 232
 
 // The chain's vectors in shared memory (chain_vecs' order) by the block's
 // `threads` threads; gdow and gdob only with ATT.
-template <int DIN, bool ATT>
+template <int DIN, bool ATT, int W = C>
 __device__ __forceinline__ void load_chain_vecs(float* vec_s, const bf16* kd, const float* bd,
                                                 const float* gdow, const float* gdob,
                                                 const float* gchw, const float* gchb,
@@ -483,18 +505,22 @@ __device__ __forceinline__ void load_chain_vecs(float* vec_s, const bf16* kd, co
   const float* v[5] = {bd, ATT ? gdow : gchw, ATT ? gdob : gchb, gchw, gchb};
   for (int i = threadIdx.x; i < chain_vecs<DIN, ATT>() * C; i += threads) {
     const int k = i / C, j = i % C;
-    vec_s[i] = k < DIN ? __bfloat162float(kd[i]) : v[k - DIN][j];
+    if (W < C && j >= W)  // the padded columns of a W-wide chain
+      vec_s[i] = 0.f;
+    else
+      vec_s[i] = k < DIN ? __bfloat162float(kd[k * W + j]) : v[k - DIN][j];
   }
 }
 
 // The chain's weights into core tiles at W_b (chain_mats' order), landed
 // for the caller's barrier: LanePooling's by the first NT threads, Att's
 // by cp.async (edge_tc.cuh load_chain_weights).
-template <bool ATT>
+template <bool ATT, int W = C>
 __device__ __forceinline__ void load_chain_mats(uint8_t* W_b, const bf16* kdo, const bf16* k1,
                                                 const bf16* kout, int threads) {
+  static_assert(ATT || W == C, "LanePooling's chain runs at 128 only");
   if constexpr (ATT) {
-    load_chain_weights(W_b, kdo, k1, kout, threads);
+    load_chain_weights<W>(W_b, kdo, k1, kout, threads);
     cp_async_wait<0>();
   } else if (threadIdx.x < NT) {  // tc::load_tiles_128 strides by NT threads
     tc::load_tiles_128(W_b, tc::tiles(W_b, C), k1);
@@ -516,14 +542,15 @@ __device__ __forceinline__ void fetch_d(float* D, const float* d, long row0, int
   }
 }
 
-// Rows [row0, row0 + n) of a staged core tile to dst [e, C] in 16-byte
-// chunks; rows past e are not written.
+// Rows [row0, row0 + n) of a staged core tile to dst [e, W] in 16-byte
+// chunks; rows past e and columns past W are not written.
+template <int W = C>
 __device__ __forceinline__ void store_rows(bf16* dst, const uint8_t* X_b, const tc::Tiles& X,
                                            long row0, int n, int e, int t, int threads) {
   for (int i = t; i < n * (C / 8); i += threads) {
     const int r = i >> 4, c = (i & 15) * 8;
-    if (row0 + r < e)
-      *reinterpret_cast<uint4*>(dst + (row0 + r) * C + c) =
+    if (row0 + r < e && (W == C || c < W))
+      *reinterpret_cast<uint4*>(dst + (row0 + r) * W + c) =
           *reinterpret_cast<const uint4*>(X_b + tc::tile_off(X, r, c));
   }
 }
@@ -569,7 +596,8 @@ __device__ __forceinline__ auto add_staged(const uint8_t* X_b, const tc::Tiles& 
 }
 
 // Att's: s += cg from its staged tile, then qg from device memory (rows
-// before e), in the plain version's order.
+// before e; W-wide rows), in the plain version's order.
+template <int W = C>
 __device__ __forceinline__ auto add_staged_q(const uint8_t* X_b, const tc::Tiles& X, int r0,
                                              const bf16* qg, long row0, int e) {
   return [X_b, X, r0, qg, row0, e](int h, int c, float& x0, float& x1) {
@@ -578,7 +606,7 @@ __device__ __forceinline__ auto add_staged_q(const uint8_t* X_b, const tc::Tiles
     x1 += v.y;
     const long row = row0 + r0 + 8 * h;
     if (row < e) {
-      const float2 q = ld_bf2(qg + row * C + c);
+      const float2 q = ld_bf2(qg + row * W + c);
       x0 += q.x;
       x1 += q.y;
     }
@@ -586,13 +614,14 @@ __device__ __forceinline__ auto add_staged_q(const uint8_t* X_b, const tc::Tiles
 }
 
 // The thread's two rows of bf16 pairs a (the accumulator layout) to columns
-// col .. col + C − 1 of rows row0 + r0 and row0 + r0 + 8 of dst [e, ld],
+// col .. col + W − 1 of rows row0 + r0 and row0 + r0 + 8 of dst [e, ld],
 // where ok.
+template <int W = C>
 __device__ __forceinline__ void store_pairs(bf16* dst, int ld, long row0, int r0,
                                             const bool (&ok)[2], int col,
                                             const uint32_t (&a)[32]) {
 #pragma unroll
-  for (int i = 0; i < 64; i += 2) {
+  for (int i = 0; i < W / 2; i += 2) {
     const int h = tc::acc_half(i);
     if (ok[h])
       *reinterpret_cast<uint32_t*>(dst + (row0 + r0 + 8 * h) * ld + col + tc::acc_col(i)) =
@@ -603,7 +632,7 @@ __device__ __forceinline__ void store_pairs(bf16* dst, int ld, long row0, int r0
 // The forward (see the header), LanePooling's chain or Att's: warpgroup g
 // of block b takes tiles b·PF_WGS + g, then every PF_WGS·B-th one; per
 // warpgroup two stages of [d | cg] (cg's tile then takes the output).
-template <int DIN, bool ATT>
+template <int DIN, bool ATT, int W = C>
 __device__ __forceinline__ void fwd_tc(const float* d, const bf16* qg, const bf16* cg,
                                        const bf16* kd, const float* bd, const bf16* kdo,
                                        const float* gdow, const float* gdob, const bf16* k1,
@@ -618,8 +647,8 @@ __device__ __forceinline__ void fwd_tc(const float* d, const bf16* qg, const bf1
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
   const tc::Tiles Wdo = tc::tiles(W_b, C), K1 = tc::tiles(W_b + (NW - 2) * PWB, C),
                   Wout = tc::tiles(W_b + (NW - 1) * PWB, C);
-  load_chain_mats<ATT>(W_b, kdo, k1, kout, PF_THREADS);
-  load_chain_vecs<DIN, ATT>(vec_s, kd, bd, gdow, gdob, gchw, gchb, PF_THREADS);
+  load_chain_mats<ATT, W>(W_b, kdo, k1, kout, PF_THREADS);
+  load_chain_vecs<DIN, ATT, W>(vec_s, kd, bd, gdow, gdob, gchw, gchb, PF_THREADS);
   tc::fence_smem();
   __syncthreads();  // the weights (for wgmma) and the vectors in place
   const float *wd_s = vec_s, *bd_s = vec_s + DIN * C, *gw_s = vec_s + (NV - 2) * C,
@@ -630,7 +659,7 @@ __device__ __forceinline__ void fwd_tc(const float* d, const bf16* qg, const bf1
   auto fetch = [&](int tile, int s) {  // one commit group: the tile's d and cg rows
     uint8_t* st = stage0 + s * STAGE;
     fetch_d<DIN>(reinterpret_cast<float*>(st), d, (long)tile * PT, PT, e, t, 128);
-    fetch_rows(st + PD, cg, (long)tile * PT, PT, e, t, 128);
+    fetch_rows<W>(st + PD, cg, (long)tile * PT, PT, e, t, 128);
     cp_async_commit();
   };
   int tile = blockIdx.x * PF_WGS + wg;
@@ -652,22 +681,23 @@ __device__ __forceinline__ void fwd_tc(const float* d, const bf16* qg, const bf1
     if constexpr (ATT) {  // z = t1 @ Wdo; a ← t2 = rnd(relu(GN_do(z)))
       float mu[2];
       tc::zero(acc);
-      mm_frag(acc, a, Wdo);
-      t2_from_z(acc, bd_s + C, bd_s + 2 * C, eps, mu, inv, a);
+      mm_frag<false, W>(acc, a, Wdo);
+      t2_from_z<W>(acc, bd_s + C, bd_s + 2 * C, eps, mu, inv, a);
     }
     tc::zero(acc);  // s = t2 @ K1 (LanePooling: t1 @ K1)
-    mm_frag(acc, a, K1);
+    mm_frag<false, W>(acc, a, K1);
     if constexpr (ATT)
-      e1_from_s(acc, add_staged_q(X_b, X, r0, qg, (long)tile * PT, e), gw_s, gb_s, eps, inv, a);
+      e1_from_s<W>(acc, add_staged_q<W>(X_b, X, r0, qg, (long)tile * PT, e), gw_s, gb_s, eps,
+                   inv, a);
     else
       e1_from_s(acc, add_staged(X_b, X, r0), gw_s, gb_s, eps, inv, a);
     tc::zero(acc);  // out = e1 @ Wout, into cg's tile
-    mm_frag(acc, a, Wout);
+    mm_frag<false, W>(acc, a, Wout);
 #pragma unroll
     for (int i = 0; i < 64; i += 2) a[i / 2] = tc::pack_bf2(acc[i], acc[i + 1]);
     put_pairs(X_b, X, r0, a);
     wg_sync();  // the output tile complete
-    store_rows(out, X_b, X, (long)tile * PT, PT, e, t, 128);
+    store_rows<W>(out, X_b, X, (long)tile * PT, PT, e, t, 128);
   }
 }
 
@@ -682,6 +712,7 @@ edge_mlp_pool_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ cg
                      e, eps);
 }
 
+template <int W>
 __global__ void __launch_bounds__(PF_THREADS, 1)
 edge_mlp_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ qg,
                    const bf16* __restrict__ cg, const bf16* __restrict__ kd,
@@ -690,7 +721,7 @@ edge_mlp_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ qg,
                    const bf16* __restrict__ k1, const float* __restrict__ gchw,
                    const float* __restrict__ gchb, const bf16* __restrict__ kout,
                    bf16* __restrict__ out, int e, float eps) {
-  fwd_tc<2, true>(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, out, e, eps);
+  fwd_tc<2, true, W>(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, out, e, eps);
 }
 
 // The backward's chain pass (pass 1, see the header), LanePooling's chain
@@ -699,7 +730,7 @@ edge_mlp_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ qg,
 // [blocks][NV][C], the block's vector sums: dbd, (dgdow, dgdob,) dgchw,
 // dgchb, the DIN rows of dWd. Att's also writes each row's weight-gradient
 // operands t1 | t2 | e1 | rnd(d_z) to act [e, 4C], and rnd(d_s) to dqg too.
-template <int DIN, bool ATT>
+template <int DIN, bool ATT, int W = C>
 __device__ __forceinline__ void bwd_tc(const float* d, const bf16* qg, const bf16* cg,
                                        const bf16* g, const bf16* kd, const float* bd,
                                        const bf16* kdo, const float* gdow, const float* gdob,
@@ -717,8 +748,8 @@ __device__ __forceinline__ void bwd_tc(const float* d, const bf16* qg, const bf1
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
   const tc::Tiles Wdo = tc::tiles(W_b, C), K1 = tc::tiles(W_b + (NW - 2) * PWB, C),
                   Wout = tc::tiles(W_b + (NW - 1) * PWB, C);
-  load_chain_mats<ATT>(W_b, kdo, k1, kout, PW_THREADS);
-  load_chain_vecs<DIN, ATT>(vec_s, kd, bd, gdow, gdob, gchw, gchb, PW_THREADS);
+  load_chain_mats<ATT, W>(W_b, kdo, k1, kout, PW_THREADS);
+  load_chain_vecs<DIN, ATT, W>(vec_s, kd, bd, gdow, gdob, gchw, gchb, PW_THREADS);
   tc::fence_smem();
   __syncthreads();  // the weights (for wgmma) and the vectors in place
   const float *wd_s = vec_s, *bd_s = vec_s + DIN * C, *gw_s = vec_s + (NV - 2) * C,
@@ -730,7 +761,7 @@ __device__ __forceinline__ void bwd_tc(const float* d, const bf16* qg, const bf1
     uint8_t* st = stage0 + s * STAGE;
     fetch_d<DIN>(reinterpret_cast<float*>(st), d, (long)tile * PT, PT, e, t, 128);
     if constexpr (!ATT) fetch_rows(st + PD, cg, (long)tile * PT, PT, e, t, 128);
-    fetch_rows(st + G_AT, g, (long)tile * PT, PT, e, t, 128);
+    fetch_rows<W>(st + G_AT, g, (long)tile * PT, PT, e, t, 128);
     cp_async_commit();
   };
   float va[NV][4];  // column sums (this lane's 4 columns)
@@ -762,23 +793,23 @@ __device__ __forceinline__ void bwd_tc(const float* d, const bf16* qg, const bf1
     tc::fence_acc(acc2);
     tc::fence();
 #pragma unroll
-    for (int ks = 0; ks < C / 16; ++ks)
+    for (int ks = 0; ks < W / 16; ++ks)
       tc::mma_rs<1>(acc, *reinterpret_cast<const uint32_t(*)[4]>(&a[4 * ks]),
                     tc::desc(ATT ? Wdo : K1, false, ks, 0));
-    tc::mm<C / 16, true, true>(acc2, Y, 0, Wout);
+    tc::mm<W / 16, true, true>(acc2, Y, 0, Wout);
     tc::commit();
     tc::wait_all();
     tc::fence_acc(acc);
     tc::fence_acc(acc2);
     if constexpr (ATT) {  // t1, t2 to act; s = t2 @ K1; s += cg + qg; e1 to act
       const int uu[2] = {(int)row0 + r0, (int)row0 + r0 + 8};
-      store_pairs(act, 4 * C, row0, r0, ok, 0, a);
-      t2_from_z(acc, bd_s + C, bd_s + 2 * C, eps, muz, invz, a);
-      store_pairs(act, 4 * C, row0, r0, ok, C, a);
+      store_pairs<W>(act, 4 * W, row0, r0, ok, 0, a);
+      t2_from_z<W>(acc, bd_s + C, bd_s + 2 * C, eps, muz, invz, a);
+      store_pairs<W>(act, 4 * W, row0, r0, ok, W, a);
       tc::zero(acc);
-      mm_frag(acc, a, K1);
-      e1_from_s(acc, add_cq(ok, uu, uu, cg, qg), gw_s, gb_s, eps, inv, a);
-      store_pairs(act, 4 * C, row0, r0, ok, 2 * C, a);
+      mm_frag<false, W>(acc, a, K1);
+      e1_from_s<W>(acc, add_cq<W>(ok, uu, uu, cg, qg), gw_s, gb_s, eps, inv, a);
+      store_pairs<W>(act, 4 * W, row0, r0, ok, 2 * W, a);
     } else {  // s += cg
       e1_from_s(acc, add_staged(X_b, X, r0), gw_s, gb_s, eps, inv, a);
     }
@@ -792,22 +823,22 @@ __device__ __forceinline__ void bwd_tc(const float* d, const bf16* qg, const bf1
     }
     col_sums<true>(va[VCH], acc2, acc);        // dgchw
     col_sums<false>(va[VCH + 1], acc2, acc2);  // dgchb
-    gn_bwd_acc(acc2, acc, inv, gw_s, a);  // a ← rnd(d_s) = dcg (= dqg)
+    gn_bwd_acc<W>(acc2, acc, inv, gw_s, a);  // a ← rnd(d_s) = dcg (= dqg)
     wg_sync();  // every warp's products are done with g's tile, which takes rnd(d_s)
     put_pairs(Y_b, Y, r0, a);
 
     // LanePooling: d_t1 = rnd(d_s) @ K1ᵀ. Att: d_t2 = rnd(d_s) @ K1ᵀ, z
     // again, rnd(d_z) to act, d_t1 = rnd(d_z) @ Wdoᵀ.
     tc::zero(acc);
-    mm_frag<true>(acc, a, K1);
+    mm_frag<true, W>(acc, a, K1);
     if constexpr (ATT) {
       t1_frags<DIN>(dr, wd_s, bd_s, a);
       tc::zero(acc2);
-      mm_frag(acc2, a, Wdo);
-      gn_do_bwd(acc, acc2, muz, invz, ok, bd_s + C, bd_s + 2 * C, va[1], va[2], a);
-      store_pairs(act, 4 * C, row0, r0, ok, 3 * C, a);
+      mm_frag<false, W>(acc2, a, Wdo);
+      gn_do_bwd<W>(acc, acc2, muz, invz, ok, bd_s + C, bd_s + 2 * C, va[1], va[2], a);
+      store_pairs<W>(act, 4 * W, row0, r0, ok, 3 * W, a);
       tc::zero(acc);
-      mm_frag<true>(acc, a, Wdo);
+      mm_frag<true, W>(acc, a, Wdo);
     }
     // d_t1p = d_t1 ⊙ [t1 > 0] (t1 made again).
     t1_frags<DIN>(dr, wd_s, bd_s, a);
@@ -839,8 +870,8 @@ __device__ __forceinline__ void bwd_tc(const float* d, const bf16* qg, const bf1
       }
     }
     wg_sync();  // rnd(d_s)'s tile complete
-    store_rows(dcg, Y_b, Y, row0, PT, e, t, 128);
-    if constexpr (ATT) store_rows(dqg, Y_b, Y, row0, PT, e, t, 128);
+    store_rows<W>(dcg, Y_b, Y, row0, PT, e, t, 128);
+    if constexpr (ATT) store_rows<W>(dqg, Y_b, Y, row0, PT, e, t, 128);
   }
 
   // The block's vectors: each warp's columns, summed over the warps in order.
@@ -853,10 +884,11 @@ __device__ __forceinline__ void bwd_tc(const float* d, const bf16* qg, const bf1
     for (int j = 0; j < 4; ++j) red_s[(warp * NV + k) * C + col_sum_col(j)] = va[k][j];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < NV * C; i += PW_THREADS) {
+  for (int i = threadIdx.x; i < NV * W; i += PW_THREADS) {  // [NV][W]: the row's columns
+    const int at = W == C ? i : (i / W) * C + i % W;
     float sum = 0.f;
-    for (int w = 0; w < PW_THREADS / 32; ++w) sum += red_s[w * NV * C + i];
-    part_v[(long)blockIdx.x * NV * C + i] = sum;
+    for (int w = 0; w < PW_THREADS / 32; ++w) sum += red_s[w * NV * C + at];
+    part_v[(long)blockIdx.x * NV * W + i] = sum;
   }
 }
 
@@ -873,6 +905,7 @@ edge_mlp_pool_bwd_tc_kernel(const float* __restrict__ d, const bf16* __restrict_
                      dd, nullptr, dcg, nullptr, part_v, e, eps);
 }
 
+template <int W>
 __global__ void __launch_bounds__(PW_THREADS, 1)
 edge_mlp_bwd_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ qg,
                        const bf16* __restrict__ cg, const bf16* __restrict__ g,
@@ -883,16 +916,17 @@ edge_mlp_bwd_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ qg,
                        const bf16* __restrict__ kout, float* __restrict__ dd,
                        bf16* __restrict__ dqg, bf16* __restrict__ dcg, bf16* __restrict__ act,
                        float* __restrict__ part_v, int e, float eps) {
-  bwd_tc<2, true>(d, qg, cg, g, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, dd, dqg, dcg, act,
-                  part_v, e, eps);
+  bwd_tc<2, true, W>(d, qg, cg, g, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, dd, dqg, dcg,
+                     act, part_v, e, eps);
 }
 
 // Att's weight gradients (pass 2, edge_tc.cuh dw_tc): row p of the list is
 // edge p; rnd(d_s) is dcg.
+template <int W>
 __global__ void __launch_bounds__(NT)
 edge_mlp_dw_tc_kernel(const bf16* __restrict__ act, const bf16* __restrict__ dcg,
                       const bf16* __restrict__ g, int e, float* __restrict__ part) {
-  dw_tc(act, dcg, C, g, nullptr, e, part);
+  dw_tc<W>(act, dcg, W, g, nullptr, e, part);
 }
 
 // The backward's weight-gradient pass (pass 2, see the header): block
@@ -1031,7 +1065,7 @@ edge_mlp_pool_dw_tc_kernel(const float* __restrict__ d, const bf16* __restrict__
         make_float2(accw[i], accw[i + 1]);
 }
 
-template <typename T>
+template <typename T, int W>
 int launch(const float* d, const void* qg, const void* cg, const void* kd, const float* bd,
            const void* kdo, const float* gdow, const float* gdob, const void* k1,
            const float* gchw, const float* gchb, const void* kout, void* out, int e, float eps,
@@ -1039,7 +1073,7 @@ int launch(const float* d, const void* qg, const void* cg, const void* kd, const
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
     const int smem = fwd_tc_smem<2, true>();
-    err = set_smem((const void*)edge_mlp_tc_kernel, smem);
+    err = set_smem((const void*)edge_mlp_tc_kernel<W>, smem);
     if (err != cudaSuccess) return (int)err;
     int dev = 0, sms = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -1047,26 +1081,26 @@ int launch(const float* d, const void* qg, const void* cg, const void* kd, const
       return (int)cudaGetLastError();
     const int tiles = (e + PT - 1) / PT, blocks = min(sms, (tiles + PF_WGS - 1) / PF_WGS);
     if (blocks > 0)
-      edge_mlp_tc_kernel<<<blocks, PF_THREADS, smem, stream>>>(
+      edge_mlp_tc_kernel<W><<<blocks, PF_THREADS, smem, stream>>>(
           d, (const bf16*)qg, (const bf16*)cg, (const bf16*)kd, bd, (const bf16*)kdo, gdow, gdob,
           (const bf16*)k1, gchw, gchb, (const bf16*)kout, (bf16*)out, e, eps);
   } else {
     const int smem = (EB * LDA + C * C) * (int)sizeof(float);
-    err = set_smem((const void*)edge_mlp_kernel<T>, smem);
+    err = set_smem((const void*)edge_mlp_kernel<T, W>, smem);
     if (err != cudaSuccess) return (int)err;
     const int tiles = (e + EB - 1) / EB;
     if (tiles > 0)
-      edge_mlp_kernel<T><<<tiles, NT, smem, stream>>>(
+      edge_mlp_kernel<T, W><<<tiles, NT, smem, stream>>>(
           d, (const T*)qg, (const T*)cg, (const T*)kd, bd, (const T*)kdo, gdow, gdob, (const T*)k1,
           gchw, gchb, (const T*)kout, (T*)out, e, eps);
   }
   return (int)cudaGetLastError();
 }
 
-// part: bf16 [blocks][7*C] (the chain pass's vector sums) then
-// [splits][3*C*C] (the dW pass's partials), act [e, 4*C] bf16; fp32 one
-// zeroed row of EM_PART per block, act unused.
-template <typename T>
+// part: bf16 [blocks][7*W] (the chain pass's vector sums) then
+// [splits][3*W*W] (the dW pass's partials), act [e, 4*W] bf16; fp32 one
+// zeroed row of em_part<W>() per block, act unused.
+template <typename T, int W>
 int launch_bwd(const float* d, const void* qg, const void* cg, const void* g, const void* kd,
                const float* bd, const void* kdo, const float* gdow, const float* gdob,
                const void* k1, const float* gchw, const float* gchb, const void* kout, float* dd,
@@ -1076,42 +1110,42 @@ int launch_bwd(const float* d, const void* qg, const void* cg, const void* g, co
   if constexpr (std::is_same<T, bf16>::value) {
     const int nb = min(blocks, ((e + PT - 1) / PT + PW_WGS - 1) / PW_WGS);
     const int sp = min(splits, (e + DW_TE - 1) / DW_TE);
-    float* part_w = part + (long)blocks * 7 * C;
+    float* part_w = part + (long)blocks * 7 * W;
     if (nb > 0) {
       int smem = bwd_tc_smem<2, true>();
-      err = set_smem((const void*)edge_mlp_bwd_tc_kernel, smem);
+      err = set_smem((const void*)edge_mlp_bwd_tc_kernel<W>, smem);
       if (err != cudaSuccess) return (int)err;
-      edge_mlp_bwd_tc_kernel<<<nb, PW_THREADS, smem, stream>>>(
+      edge_mlp_bwd_tc_kernel<W><<<nb, PW_THREADS, smem, stream>>>(
           d, (const bf16*)qg, (const bf16*)cg, (const bf16*)g, (const bf16*)kd, bd,
           (const bf16*)kdo, gdow, gdob, (const bf16*)k1, gchw, gchb, (const bf16*)kout, dd,
           (bf16*)dqg, (bf16*)dcg, (bf16*)act, part, e, eps);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
       smem = dw_tc_smem();
-      err = set_smem((const void*)edge_mlp_dw_tc_kernel, smem);
+      err = set_smem((const void*)edge_mlp_dw_tc_kernel<W>, smem);
       if (err != cudaSuccess) return (int)err;
-      edge_mlp_dw_tc_kernel<<<dim3(sp, 3), NT, smem, stream>>>(
+      edge_mlp_dw_tc_kernel<W><<<dim3(sp, 3), NT, smem, stream>>>(
           (const bf16*)act, (const bf16*)dcg, (const bf16*)g, e, part_w);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
-    err = reduce_partials(part_w, grads, sp, 3 * C * C, stream);
+    err = reduce_partials(part_w, grads, sp, 3 * W * W, stream);
     if (err != cudaSuccess) return (int)err;
-    return (int)reduce_partials(part, grads + 3 * C * C, nb, 7 * C, stream);
+    return (int)reduce_partials(part, grads + 3 * W * W, nb, 7 * W, stream);
   } else {
     const int smem = (4 * EB * LDA + C * C + 2 * EB) * (int)sizeof(float);
-    err = set_smem((const void*)edge_mlp_bwd_kernel<T>, smem);
+    err = set_smem((const void*)edge_mlp_bwd_kernel<T, W>, smem);
     if (err != cudaSuccess) return (int)err;
     const int tiles = (e + EB - 1) / EB;
     if (blocks > tiles) blocks = tiles;
     if (blocks > 0) {
-      edge_mlp_bwd_kernel<T><<<blocks, NT, smem, stream>>>(
+      edge_mlp_bwd_kernel<T, W><<<blocks, NT, smem, stream>>>(
           d, (const T*)qg, (const T*)cg, (const T*)g, (const T*)kd, bd, (const T*)kdo, gdow, gdob,
           (const T*)k1, gchw, gchb, (const T*)kout, dd, (T*)dqg, (T*)dcg, part, e, eps);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
-    return (int)reduce_partials(part, grads, blocks, EM_PART, stream);
+    return (int)reduce_partials(part, grads, blocks, em_part<W>(), stream);
   }
 }
 
@@ -1200,20 +1234,25 @@ int launch_pool_bwd(const float* d, const void* cg, const void* g, const void* k
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (qg, cg, kd [2, C], kdo, k1, kout (in,
-// out), out); d fp32 [e, 2]; bd and the GN vectors fp32 [128]; out [e, 128].
-// bf16: d, qg, cg and out 16-byte aligned (cp.async and 16-byte row stores).
+// dtype: 0 = float32, 1 = bfloat16 (qg, cg, kd [2, W], kdo, k1, kout (in,
+// out), out); d fp32 [e, 2]; bd and the GN vectors fp32 [W]; qg, cg, out
+// [e, W]; W = width, 128 or 64. bf16: d, qg, cg and out 16-byte aligned
+// (cp.async and 16-byte row stores).
 extern "C" int edge_mlp_fwd(const void* d, const void* qg, const void* cg, const void* kd,
                             const void* bd, const void* kdo, const void* gdow, const void* gdob,
                             const void* k1, const void* gchw, const void* gchb, const void* kout,
-                            void* out, int e, float eps, int dtype, void* stream) {
+                            void* out, int e, int width, float eps, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float *dp = (const float*)d, *b = (const float*)bd, *g0 = (const float*)gdow,
               *g1 = (const float*)gdob, *g2 = (const float*)gchw, *g3 = (const float*)gchb;
-  if (dtype == 0)
-    return launch<float>(dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout, out, e, eps, st);
-  if (dtype == 1)
-    return launch<bf16>(dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout, out, e, eps, st);
+  if (dtype == 0 && width == 128)
+    return launch<float, 128>(dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout, out, e, eps, st);
+  if (dtype == 1 && width == 128)
+    return launch<bf16, 128>(dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout, out, e, eps, st);
+  if (dtype == 0 && width == 64)
+    return launch<float, 64>(dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout, out, e, eps, st);
+  if (dtype == 1 && width == 64)
+    return launch<bf16, 64>(dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout, out, e, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1238,31 +1277,38 @@ extern "C" int edge_mlp_pool_fwd(const void* d, const void* cg, const void* kd, 
   return (int)cudaErrorInvalidValue;
 }
 
-// Backward. g: the output cotangent [e, 128] in the activation dtype; dd fp32
-// [e, 2]; dqg/dcg [e, 128] in the activation dtype; grads: fp32 [3*C*C +
-// 7*C] = dWdo, dK1, dWout (in, out), dbd, dgdow, dgdob, dgchw, dgchb, dWd
-// row 0, dWd row 1, the partials' sums in block (split) order. part, act:
-// workspaces (see launch_bwd): bf16 part fp32 [blocks*7*C + splits*3*C*C]
-// and act bf16 [e, 4*C]; fp32 part [blocks, 3*C*C + 7*C], zero on entry,
-// and act null. blocks: the card's SMs; splits: the bf16 weight-gradient
-// pass's splits. bf16: d, qg, cg, g, dqg and dcg 16-byte aligned.
+// Backward. g: the output cotangent [e, W] in the activation dtype (W =
+// width, 128 or 64); dd fp32 [e, 2]; dqg/dcg [e, W] in the activation dtype;
+// grads: fp32 [3*W*W + 7*W] = dWdo, dK1, dWout (in, out), dbd, dgdow, dgdob,
+// dgchw, dgchb, dWd row 0, dWd row 1, the partials' sums in block (split)
+// order. part, act: workspaces (see launch_bwd): bf16 part fp32
+// [blocks*7*W + splits*3*W*W] and act bf16 [e, 4*W]; fp32 part [blocks,
+// 3*W*W + 7*W], zero on entry, and act null. blocks: the card's SMs;
+// splits: the bf16 weight-gradient pass's splits. bf16: d, qg, cg, g, dqg
+// and dcg 16-byte aligned.
 extern "C" int edge_mlp_bwd(const void* d, const void* qg, const void* cg, const void* g,
                             const void* kd, const void* bd, const void* kdo, const void* gdow,
                             const void* gdob, const void* k1, const void* gchw, const void* gchb,
                             const void* kout, void* dd, void* dqg, void* dcg, void* act,
-                            void* part, void* grads, int e, int blocks, int splits, float eps,
-                            int dtype, void* stream) {
+                            void* part, void* grads, int e, int width, int blocks, int splits,
+                            float eps, int dtype, void* stream) {
   if (e < 0 || blocks < 1 || splits < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float *dp = (const float*)d, *b = (const float*)bd, *g0 = (const float*)gdow,
               *g1 = (const float*)gdob, *g2 = (const float*)gchw, *g3 = (const float*)gchb;
   float *ddp = (float*)dd, *pt = (float*)part, *gr = (float*)grads;
-  if (dtype == 0)
-    return launch_bwd<float>(dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg, dcg,
-                             act, pt, gr, e, blocks, splits, eps, st);
-  if (dtype == 1)
-    return launch_bwd<bf16>(dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg, dcg,
-                            act, pt, gr, e, blocks, splits, eps, st);
+  if (dtype == 0 && width == 128)
+    return launch_bwd<float, 128>(dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg,
+                                  dcg, act, pt, gr, e, blocks, splits, eps, st);
+  if (dtype == 1 && width == 128)
+    return launch_bwd<bf16, 128>(dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg,
+                                 dcg, act, pt, gr, e, blocks, splits, eps, st);
+  if (dtype == 0 && width == 64)
+    return launch_bwd<float, 64>(dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg,
+                                 dcg, act, pt, gr, e, blocks, splits, eps, st);
+  if (dtype == 1 && width == 64)
+    return launch_bwd<bf16, 64>(dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg,
+                                dcg, act, pt, gr, e, blocks, splits, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 

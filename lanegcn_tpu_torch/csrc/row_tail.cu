@@ -28,6 +28,16 @@
 // to x's dtype before their products, fp32 statistics, one rounding of the
 // output.
 //
+// Width: K = 1, forward and backward, also runs on W = 64-wide rows (Att's
+// tail where n_agt = 64, the actor side of a model with n_actor = 64),
+// every kernel above templated on W. The padded route (common.cuh): rows
+// read W wide into the same 128-column tiles with zeros past W, W x W
+// weights zero-padded to 128 x 128 in shared memory, GN statistics over W
+// columns, the GN affines zero past W, only W columns stored, dW and the
+// GN vector gradients W x W and W. The bf16 products keep the m64n128k16
+// shape with K cut to W (half of N multiplies zero columns). At W = 128
+// every kernel compiles to the code it was before the width existed.
+//
 // Backward (`row_tail_bwd`): replaces pallas_row_tail.py `_bwd_kernel` /
 // `_bwd_impl`. It recomputes the chain per row (nothing but the inputs is
 // saved) and emits dx, dres (= the masked output cotangent), dW and the four
@@ -103,7 +113,7 @@ using namespace lgk;
 
 namespace {
 
-template <typename T>
+template <typename T, int W>
 __global__ void __launch_bounds__(NT)
 row_tail_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __restrict__ w,
                 const float* __restrict__ g1w, const float* __restrict__ g1b,
@@ -118,12 +128,12 @@ row_tail_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __r
     const int r = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
     const long g = row0 + r;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (g < n) v = load4<T>(x + g * C + c4);
+    if (g < n && (W == C || c4 < W)) v = load4<T>(x + g * W + c4);
     *reinterpret_cast<float4*>(X_s + r * LDA + c4) = v;
   }
-  load_weight<T>(W_s, w);
+  load_weight<T, W>(W_s, w);
   __syncthreads();
-  gn_relu_rows<T>(X_s, TM, g1w, g1b, eps);  // h = relu(GN1(x)), rounded to T
+  gn_relu_rows<T, W>(X_s, TM, g1w, g1b, eps);  // h = relu(GN1(x)), rounded to T
   __syncthreads();
 
   float acc[4][8];
@@ -139,9 +149,10 @@ row_tail_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __r
     const long g = row0 + r;
     if (g >= n) break;
     const float4 z = *reinterpret_cast<const float4*>(X_s + r * LDA + lane * 4);
-    const float4 y = gn_row(z, g2w, g2b, eps);
-    const float4 rv = load4<T>(res + g * C + lane * 4);
-    store4<T>(out + g * C + lane * 4, relu4(add4(y, rv)));
+    const float4 y = gn_row<W>(z, g2w, g2b, eps);
+    if (!lane_in<W>()) continue;
+    const float4 rv = load4<T>(res + g * W + lane * 4);
+    store4<T>(out + g * W + lane * 4, relu4(add4(y, rv)));
   }
 }
 
@@ -220,7 +231,7 @@ inline int row_tail_tc_smem() {
          RT_WGS * 2 * 2 * RT_TILE * (int)sizeof(bf16);
 }
 
-template <int K>
+template <int K, int W>
 __global__ void __launch_bounds__(RT_THREADS, 1)
 row_tail_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
                    const bf16* __restrict__ w1, const bf16* __restrict__ w2, TailVecs vecs,
@@ -231,9 +242,11 @@ row_tail_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
   bf16* S_s = reinterpret_cast<bf16*>(gn_s + (2 * K + 2) * C);          // [RT_WGS][2][x, res]
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
 
-  tc::load_tiles_128(W_b, tc::tiles(W_b, C), w1);
+  static_assert(K == 1 || W == C, "the K = 2 tail runs at 128 only");
+  tc::load_tiles_128<W>(W_b, tc::tiles(W_b, C), w1);
   if (K == 2) tc::load_tiles_128(W_b + tc::tiles_bytes(C), tc::tiles(W_b, C), w2);
-  for (int i = threadIdx.x; i < (2 * K + 2) * C; i += RT_THREADS) gn_s[i] = vecs.v[i / C][i % C];
+  for (int i = threadIdx.x; i < (2 * K + 2) * C; i += RT_THREADS)
+    gn_s[i] = W == C || i % C < W ? vecs.v[i / C][i % C] : 0.f;
   tc::fence_smem();
   __syncthreads();  // the weights (for wgmma) and the vectors in place
 
@@ -246,9 +259,9 @@ row_tail_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
     for (int i = t; i < RT_ROWS * (C / 8); i += 128) {
       const int r = i >> 4, c = (i & 15) * 8;
       const long gr = row0 + r;
-      const bool in = gr < n;
-      cp_async16_zfill(X + r * RT_LD + c, in ? x + gr * C + c : x, in ? 16 : 0);
-      cp_async16_zfill(X + RT_TILE + r * RT_LD + c, in ? res + gr * C + c : res, in ? 16 : 0);
+      const bool in = gr < n && (W == C || c < W);
+      cp_async16_zfill(X + r * RT_LD + c, in ? x + gr * W + c : x, in ? 16 : 0);
+      cp_async16_zfill(X + RT_TILE + r * RT_LD + c, in ? res + gr * W + c : res, in ? 16 : 0);
     }
     cp_async_commit();
   };
@@ -275,11 +288,11 @@ row_tail_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
     uint32_t ha[C / 16][4];
 #pragma unroll
     for (int j = 0; j < K; ++j) {  // h_j = rnd(relu(GN_j(·))), then h_j @ W_j
-      tail::gn_relu_frags(acc, gn_s + 2 * j * C, gn_s + (2 * j + 1) * C, eps, ha);
-      tail::frag_mm(acc, ha, tc::tiles(W_b + j * tc::tiles_bytes(C), C));
+      tail::gn_relu_frags<W>(acc, gn_s + 2 * j * C, gn_s + (2 * j + 1) * C, eps, ha);
+      tail::frag_mm<W>(acc, ha, tc::tiles(W_b + j * tc::tiles_bytes(C), C));
     }
     // out = relu(GN(·) + res), over res in its staged tile
-    tail::gn_res_relu(
+    tail::gn_res_relu<W>(
         acc, gn_s + 2 * K * C, gn_s + (2 * K + 1) * C, eps,
         [&](int r, int c) {
           return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(R + r * RT_LD + c));
@@ -291,8 +304,8 @@ row_tail_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
     const long row0 = (long)tile * RT_ROWS;
     for (int i = t; i < RT_ROWS * (C / 8); i += 128) {
       const int r = i >> 4, c = (i & 15) * 8;
-      if (row0 + r < n)
-        *reinterpret_cast<uint4*>(out + (row0 + r) * C + c) =
+      if (row0 + r < n && (W == C || c < W))
+        *reinterpret_cast<uint4*>(out + (row0 + r) * W + c) =
             *reinterpret_cast<const uint4*>(R + r * RT_LD + c);
     }
   }
@@ -309,16 +322,16 @@ inline int row_tail_tc_blocks(int n) {
   return min(sms, (tiles + RT_WGS - 1) / RT_WGS);
 }
 
-template <int K>
+template <int K, int W = C>
 int launch_tc(const void* x, const void* res, const void* w1, const void* w2,
               const TailVecs& vecs, void* out, int n, float eps, cudaStream_t stream) {
   const int smem = row_tail_tc_smem<K>();
-  cudaError_t err = set_smem((const void*)row_tail_tc_kernel<K>, smem);
+  cudaError_t err = set_smem((const void*)row_tail_tc_kernel<K, W>, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = row_tail_tc_blocks(n);
   if (blocks < 0) return (int)cudaGetLastError();
   if (blocks > 0)
-    row_tail_tc_kernel<K><<<blocks, RT_THREADS, smem, stream>>>(
+    row_tail_tc_kernel<K, W><<<blocks, RT_THREADS, smem, stream>>>(
         (const bf16*)x, (const bf16*)res, (const bf16*)w1, (const bf16*)w2, vecs, (bf16*)out, n,
         eps);
   return (int)cudaGetLastError();
@@ -343,21 +356,21 @@ int launch2(const void* x, const void* res, const void* w1, const void* w2, cons
   }
 }
 
-template <typename T>
+template <typename T, int W>
 int launch(const void* x, const void* res, const void* w, const float* g1w, const float* g1b,
            const float* g2w, const float* g2b, void* out, int n, float eps,
            cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
     const TailVecs vecs{{g1w, g1b, g2w, g2b, nullptr, nullptr}};
-    return launch_tc<1>(x, res, w, nullptr, vecs, out, n, eps, stream);
+    return launch_tc<1, W>(x, res, w, nullptr, vecs, out, n, eps, stream);
   } else {
     const int smem = (TM * LDA + C * C) * (int)sizeof(float);
-    cudaError_t err = set_smem((const void*)row_tail_kernel<T>, smem);
+    cudaError_t err = set_smem((const void*)row_tail_kernel<T, W>, smem);
     if (err != cudaSuccess) return (int)err;
     const int blocks = (n + TM - 1) / TM;
     if (blocks > 0)
-      row_tail_kernel<T><<<blocks, NT, smem, stream>>>((const T*)x, (const T*)res, (const T*)w,
-                                                       g1w, g1b, g2w, g2b, (T*)out, n, eps);
+      row_tail_kernel<T, W><<<blocks, NT, smem, stream>>>(
+          (const T*)x, (const T*)res, (const T*)w, g1w, g1b, g2w, g2b, (T*)out, n, eps);
     return (int)cudaGetLastError();
   }
 }
@@ -803,15 +816,18 @@ int launch2_bwd(const void* x, const void* res, const void* g, const void* w1, c
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, res, w, out); GN vectors fp32 [128].
+// dtype: 0 = float32, 1 = bfloat16 (x, res, w, out); x, res, out [n, width],
+// w [width, width], GN vectors fp32 [width]; width 128 or 64.
 extern "C" int row_tail_fwd(const void* x, const void* res, const void* w, const void* g1w,
                             const void* g1b, const void* g2w, const void* g2b, void* out,
-                            int n, float eps, int dtype, void* stream) {
+                            int n, int width, float eps, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float *a = (const float*)g1w, *b = (const float*)g1b, *c = (const float*)g2w,
               *d = (const float*)g2b;
-  if (dtype == 0) return launch<float>(x, res, w, a, b, c, d, out, n, eps, st);
-  if (dtype == 1) return launch<bf16>(x, res, w, a, b, c, d, out, n, eps, st);
+  if (dtype == 0 && width == 128) return launch<float, 128>(x, res, w, a, b, c, d, out, n, eps, st);
+  if (dtype == 1 && width == 128) return launch<bf16, 128>(x, res, w, a, b, c, d, out, n, eps, st);
+  if (dtype == 0 && width == 64) return launch<float, 64>(x, res, w, a, b, c, d, out, n, eps, st);
+  if (dtype == 1 && width == 64) return launch<bf16, 64>(x, res, w, a, b, c, d, out, n, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -828,26 +844,45 @@ extern "C" int row_tail2_fwd(const void* x, const void* res, const void* w1, con
   return (int)cudaErrorInvalidValue;
 }
 
-// Backward. g: the output cotangent in x's dtype; dx, dres [n, 128] in x's
-// dtype; part: blocks * (C*C + 4*C) fp32 workspace; grads: fp32
-// [C*C + 4*C] = dW (in, out), dg1w, dg1b, dg2w, dg2b.
+namespace {
+
+template <int W>
+int launch_row_tail_bwd(const void* x, const void* res, const void* g, const void* w,
+                        const float* g1w, const float* g1b, const float* g2w, const float* g2b,
+                        void* dx, void* dres, float* part, float* grads, int n, int blocks,
+                        float eps, int dtype, cudaStream_t st) {
+  if (dtype == 0)
+    return launch_tail_bwd<float, float, W>((const float*)x, (const float*)res, (const float*)g,
+                                            (const float*)w, g1w, g1b, g2w, g2b, (float*)dx,
+                                            (float*)dres, nullptr, nullptr, part, grads, n,
+                                            blocks, eps, st);
+  if (dtype == 1)
+    return launch_tail_bwd<bf16, bf16, W>((const bf16*)x, (const bf16*)res, (const bf16*)g,
+                                          (const bf16*)w, g1w, g1b, g2w, g2b, (bf16*)dx,
+                                          (bf16*)dres, nullptr, nullptr, part, grads, n, blocks,
+                                          eps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Backward. g: the output cotangent in x's dtype; dx, dres [n, width] in x's
+// dtype; part: blocks * (W*W + 4*W) fp32 workspace (W = width, 128 or 64);
+// grads: fp32 [W*W + 4*W] = dW (in, out), dg1w, dg1b, dg2w, dg2b.
 extern "C" int row_tail_bwd(const void* x, const void* res, const void* g, const void* w,
                             const void* g1w, const void* g1b, const void* g2w, const void* g2b,
-                            void* dx, void* dres, void* part, void* grads, int n, int blocks,
-                            float eps, int dtype, void* stream) {
+                            void* dx, void* dres, void* part, void* grads, int n, int width,
+                            int blocks, float eps, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float *a = (const float*)g1w, *b = (const float*)g1b, *c = (const float*)g2w,
               *d = (const float*)g2b;
   float *p = (float*)part, *gr = (float*)grads;
-  if (dtype == 0)
-    return launch_tail_bwd<float, float>((const float*)x, (const float*)res, (const float*)g,
-                                         (const float*)w, a, b, c, d, (float*)dx,
-                                         (float*)dres, nullptr, nullptr, p, gr, n, blocks,
-                                         eps, st);
-  if (dtype == 1)
-    return launch_tail_bwd<bf16, bf16>((const bf16*)x, (const bf16*)res, (const bf16*)g,
-                                       (const bf16*)w, a, b, c, d, (bf16*)dx, (bf16*)dres,
-                                       nullptr, nullptr, p, gr, n, blocks, eps, st);
+  if (width == 128)
+    return launch_row_tail_bwd<128>(x, res, g, w, a, b, c, d, dx, dres, p, gr, n, blocks, eps,
+                                    dtype, st);
+  if (width == 64)
+    return launch_row_tail_bwd<64>(x, res, g, w, a, b, c, d, dx, dres, p, gr, n, blocks, eps,
+                                   dtype, st);
   return (int)cudaErrorInvalidValue;
 }
 

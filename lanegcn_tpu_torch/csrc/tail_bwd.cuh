@@ -29,6 +29,9 @@
 //     fp32 operands.
 //   bf16 (tail_bwd_tc_kernel, T = bf16, the path that trains): 128-row
 //     tiles, the three products on wgmma (common.cuh `tc`); below.
+// Both take the row width W (template, default 128): row_tail_bwd also runs
+// them on 64-wide rows (Att's tail at n_agt = 64), zero-padded in the tiles
+// as common.cuh sets out; the partial is then [W*W + 4*W].
 #pragma once
 
 #include <type_traits>
@@ -37,13 +40,15 @@
 
 namespace lgk {
 
-constexpr int TAIL_PART = C * C + 4 * C;  // dW, dg1w, dg1b, dg2w, dg2b
+// A block's partial at width W: dW, dg1w, dg1b, dg2w, dg2b.
+template <int W = C>
+__host__ __device__ constexpr int tail_part() { return W * W + 4 * W; }
 
 inline int tail_bwd_smem() {
   return (2 * TM * LDA + 2 * C * C + 2 * TM) * (int)sizeof(float);
 }
 
-template <typename T, typename TX>
+template <typename T, typename TX, int W>
 __global__ void __launch_bounds__(NT)
 tail_bwd_kernel(const TX* __restrict__ x, const T* __restrict__ res, const T* __restrict__ g,
                 const T* __restrict__ w, const float* __restrict__ g1w,
@@ -59,8 +64,9 @@ tail_bwd_kernel(const TX* __restrict__ x, const T* __restrict__ res, const T* __
   float* st_s = Wt_s + C * C;                    // [TM][2] GN1 mean, inv
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  load_weight<T>(W_s, w);
-  load_weight_t<T>(Wt_s, w);
+  const bool in_w = lane_in<W>();  // the lane's columns lie in the row
+  load_weight<T, W>(W_s, w);
+  load_weight_t<T, W>(Wt_s, w);
 
   float accW[8][8];
   zero_tn(accW);
@@ -75,14 +81,14 @@ tail_bwd_kernel(const TX* __restrict__ x, const T* __restrict__ res, const T* __
       const int r = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
       const long gr = row0 + r;
       *reinterpret_cast<float4*>(X_s + r * LDA + c4) =
-          gr < n ? load4<TX>(x + gr * C + c4) : zero4();
+          gr < n && (W == C || c4 < W) ? load4<TX>(x + gr * W + c4) : zero4();
     }
     __syncthreads();
     // h = rnd(relu(GN1(x))) in place; rows past n hold 0.
     for (int r = warp; r < TM; r += NT / 32) {
       float4* p = reinterpret_cast<float4*>(X_s + r * LDA + lane * 4);
-      const float2 st = gn_stats(*p, eps);
-      const float4 h = rnd4<T>(relu4(gn_affine(gn_nrm(*p, st), g1w, g1b)));
+      const float2 st = gn_stats<W>(*p, eps);
+      const float4 h = rnd4<T>(relu4(gn_affine<W>(gn_nrm(*p, st), g1w, g1b)));
       *p = (row0 + r < n) ? h : zero4();
       if (lane == 0) {
         st_s[2 * r] = st.x;
@@ -101,16 +107,17 @@ tail_bwd_kernel(const TX* __restrict__ x, const T* __restrict__ res, const T* __
       const long gr = row0 + r;
       float4 dz = zero4();
       if (gr < n) {
-        const float2 st = gn_stats(*p, eps);
+        const float2 st = gn_stats<W>(*p, eps);
         const float4 nrm = gn_nrm(*p, st);
-        const float4 y = gn_affine(nrm, g2w, g2b);
-        const float4 rv = load4<T>(res + gr * C + lane * 4);
-        const float4 d_y = pos_mask4(load4<T>(g + gr * C + lane * 4), add4(y, rv));
+        const float4 y = gn_affine<W>(nrm, g2w, g2b);
+        const float4 rv = in_w ? load4<T>(res + gr * W + lane * 4) : zero4();
+        const float4 d_y =
+            pos_mask4(in_w ? load4<T>(g + gr * W + lane * 4) : zero4(), add4(y, rv));
         v2w = add4(v2w, mul4(d_y, nrm));
         v2b = add4(v2b, d_y);
-        dz = rnd4<T>(gn_bwd_row(d_y, nrm, st.y, g2w));
-        if (dy) store4<T>(dy + gr * C + lane * 4, d_y);
-        if (dy32) *reinterpret_cast<float4*>(dy32 + gr * C + lane * 4) = d_y;
+        dz = rnd4<T>(gn_bwd_row<W>(d_y, nrm, st.y, g2w));
+        if (dy && in_w) store4<T>(dy + gr * W + lane * 4, d_y);
+        if (dy32 && in_w) *reinterpret_cast<float4*>(dy32 + gr * W + lane * 4) = d_y;
       }
       *p = dz;
     }
@@ -126,20 +133,21 @@ tail_bwd_kernel(const TX* __restrict__ x, const T* __restrict__ res, const T* __
       const long gr = row0 + r;
       if (gr >= n) break;
       const float2 st = make_float2(st_s[2 * r], st_s[2 * r + 1]);
-      const float4 nrm = gn_nrm(load4<TX>(x + gr * C + lane * 4), st);
+      const float4 nrm = gn_nrm(in_w ? load4<TX>(x + gr * W + lane * 4) : zero4(), st);
       const float4 d_h = pos_mask4(*reinterpret_cast<const float4*>(Z_s + r * LDA + lane * 4),
-                                   gn_affine(nrm, g1w, g1b));
+                                   gn_affine<W>(nrm, g1w, g1b));
       v1w = add4(v1w, mul4(d_h, nrm));
       v1b = add4(v1b, d_h);
-      const float4 d_x = gn_bwd_row(d_h, nrm, st.y, g1w);
-      store4<T>(dx + gr * C + lane * 4, d_x);
-      if (dx32) *reinterpret_cast<float4*>(dx32 + gr * C + lane * 4) = d_x;
+      const float4 d_x = gn_bwd_row<W>(d_h, nrm, st.y, g1w);
+      if (!in_w) continue;
+      store4<T>(dx + gr * W + lane * 4, d_x);
+      if (dx32) *reinterpret_cast<float4*>(dx32 + gr * W + lane * 4) = d_x;
     }
   }
-  float* P = part + (long)blockIdx.x * TAIL_PART;
-  store_tn(P, accW, false);
+  float* P = part + (long)blockIdx.x * tail_part<W>();
+  store_tn<W>(P, accW, false);
   const float4 vecs[4] = {v1w, v1b, v2w, v2b};
-  reduce_warp_vecs<4>(vecs, X_s, P + C * C);
+  reduce_warp_vecs<4, W>(vecs, X_s, P + W * W);
 }
 
 // The bf16 row pass on tensor cores. The same arithmetic per row, on
@@ -158,7 +166,7 @@ inline int tail_bwd_tc_smem() {
   return 3 * tc::tiles_bytes(TC_ROWS) + (TC_ROWS * LDA + 2 * TC_ROWS) * (int)sizeof(float);
 }
 
-template <typename TX>
+template <typename TX, int W>
 __global__ void __launch_bounds__(NT, 1)
 tail_bwd_tc_kernel(const TX* __restrict__ x, const bf16* __restrict__ res,
                    const bf16* __restrict__ g, const bf16* __restrict__ w,
@@ -176,7 +184,8 @@ tail_bwd_tc_kernel(const TX* __restrict__ x, const bf16* __restrict__ res,
                   Zt = tc::tiles(Z_b, TC_ROWS);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wg = threadIdx.x >> 7;
-  tc::load_tiles_128(W_b, Wt, w);
+  const bool in_w = lane_in<W>();  // the lane's columns lie in the row
+  tc::load_tiles_128<W>(W_b, Wt, w);
 
   float accW[64], acc[64];
   tc::zero(accW);
@@ -193,13 +202,13 @@ tail_bwd_tc_kernel(const TX* __restrict__ x, const bf16* __restrict__ res,
 #pragma unroll
       for (int k = 0; k < ROW_AHEAD; ++k) {
         const long gr = row0 + r0 + k * (NT / 32);
-        xv[k] = gr < n ? load4<TX>(x + gr * C + lane * 4) : zero4();
+        xv[k] = gr < n && in_w ? load4<TX>(x + gr * W + lane * 4) : zero4();
       }
 #pragma unroll
       for (int k = 0; k < ROW_AHEAD; ++k) {
         const int r = r0 + k * (NT / 32);
-        const float2 st = gn_stats(xv[k], eps);
-        const float4 h = relu4(gn_affine(gn_nrm(xv[k], st), g1w, g1b));
+        const float2 st = gn_stats<W>(xv[k], eps);
+        const float4 h = relu4(gn_affine<W>(gn_nrm(xv[k], st), g1w, g1b));
         tc::st_bf4(H_b, tc::tile_off(Ht, r, lane * 4), row0 + r < n ? h : zero4());
         if (lane == 0) {
           st_s[2 * r] = st.x;
@@ -212,7 +221,7 @@ tail_bwd_tc_kernel(const TX* __restrict__ x, const bf16* __restrict__ res,
     tc::zero(acc);
     tc::fence_acc(acc);
     tc::fence();
-    tc::mm<C / 16, true, false>(acc, Ht, 64 * wg, Wt);  // z = h @ W
+    tc::mm<W / 16, true, false>(acc, Ht, 64 * wg, Wt);  // z = h @ W
     tc::commit();
     tc::wait_all();
     tc::fence_acc(acc);
@@ -227,8 +236,8 @@ tail_bwd_tc_kernel(const TX* __restrict__ x, const bf16* __restrict__ res,
 #pragma unroll
       for (int k = 0; k < ROW_AHEAD; ++k) {
         const long gr = row0 + r0 + k * (NT / 32);
-        rv[k] = gr < n ? load4<bf16>(res + gr * C + lane * 4) : zero4();
-        gv[k] = gr < n ? load4<bf16>(g + gr * C + lane * 4) : zero4();
+        rv[k] = gr < n && in_w ? load4<bf16>(res + gr * W + lane * 4) : zero4();
+        gv[k] = gr < n && in_w ? load4<bf16>(g + gr * W + lane * 4) : zero4();
       }
 #pragma unroll
       for (int k = 0; k < ROW_AHEAD; ++k) {
@@ -237,15 +246,15 @@ tail_bwd_tc_kernel(const TX* __restrict__ x, const bf16* __restrict__ res,
         float4 dz = zero4();
         if (gr < n) {
           const float4 zv = *reinterpret_cast<const float4*>(R_s + r * LDA + lane * 4);
-          const float2 st = gn_stats(zv, eps);
+          const float2 st = gn_stats<W>(zv, eps);
           const float4 nrm = gn_nrm(zv, st);
-          const float4 y = gn_affine(nrm, g2w, g2b);
+          const float4 y = gn_affine<W>(nrm, g2w, g2b);
           const float4 d_y = pos_mask4(gv[k], add4(y, rv[k]));
           v2w = add4(v2w, mul4(d_y, nrm));
           v2b = add4(v2b, d_y);
-          dz = gn_bwd_row(d_y, nrm, st.y, g2w);
-          if (dy) store4<bf16>(dy + gr * C + lane * 4, d_y);
-          if (dy32) *reinterpret_cast<float4*>(dy32 + gr * C + lane * 4) = d_y;
+          dz = gn_bwd_row<W>(d_y, nrm, st.y, g2w);
+          if (dy && in_w) store4<bf16>(dy + gr * W + lane * 4, d_y);
+          if (dy32 && in_w) *reinterpret_cast<float4*>(dy32 + gr * W + lane * 4) = d_y;
         }
         tc::st_bf4(Z_b, tc::tile_off(Zt, r, lane * 4), dz);
       }
@@ -256,7 +265,7 @@ tail_bwd_tc_kernel(const TX* __restrict__ x, const bf16* __restrict__ res,
     tc::fence_acc(acc);
     tc::fence_acc(accW);
     tc::fence();
-    tc::mm<C / 16, true, true>(acc, Zt, 64 * wg, Wt);                 // rnd(d_z) @ Wᵀ
+    tc::mm<W / 16, true, true>(acc, Zt, 64 * wg, Wt);                 // rnd(d_z) @ Wᵀ
     tc::mm<TC_ROWS / 16, false, false>(accW, Ht, 64 * wg, Zt);        // dW += hᵀ rnd(d_z)
     tc::commit();
     tc::wait_all();
@@ -273,7 +282,7 @@ tail_bwd_tc_kernel(const TX* __restrict__ x, const bf16* __restrict__ res,
 #pragma unroll
       for (int k = 0; k < ROW_AHEAD; ++k) {
         const long gr = row0 + r0 + k * (NT / 32);
-        xv[k] = gr < n ? load4<TX>(x + gr * C + lane * 4) : zero4();
+        xv[k] = gr < n && in_w ? load4<TX>(x + gr * W + lane * 4) : zero4();
       }
 #pragma unroll
       for (int k = 0; k < ROW_AHEAD; ++k) {
@@ -282,29 +291,32 @@ tail_bwd_tc_kernel(const TX* __restrict__ x, const bf16* __restrict__ res,
         if (gr < n) {
           const float2 st = make_float2(st_s[2 * r], st_s[2 * r + 1]);
           const float4 nrm = gn_nrm(xv[k], st);
-          const float4 d_h = pos_mask4(
-              *reinterpret_cast<const float4*>(R_s + r * LDA + lane * 4), gn_affine(nrm, g1w, g1b));
+          const float4 d_h =
+              pos_mask4(*reinterpret_cast<const float4*>(R_s + r * LDA + lane * 4),
+                        gn_affine<W>(nrm, g1w, g1b));
           v1w = add4(v1w, mul4(d_h, nrm));
           v1b = add4(v1b, d_h);
-          const float4 d_x = gn_bwd_row(d_h, nrm, st.y, g1w);
-          store4<bf16>(dx + gr * C + lane * 4, d_x);
-          if (dx32) *reinterpret_cast<float4*>(dx32 + gr * C + lane * 4) = d_x;
+          const float4 d_x = gn_bwd_row<W>(d_h, nrm, st.y, g1w);
+          if (in_w) store4<bf16>(dx + gr * W + lane * 4, d_x);
+          if (dx32 && in_w) *reinterpret_cast<float4*>(dx32 + gr * W + lane * 4) = d_x;
         }
       }
     }
   }
-  float* P = part + (long)blockIdx.x * TAIL_PART;
+  float* P = part + (long)blockIdx.x * tail_part<W>();
+  if (W == C || 64 * wg < W) {  // at W = 64 the second warpgroup's input channels are padding
 #pragma unroll
-  for (int i = 0; i < 64; i += 2)
-    *reinterpret_cast<float2*>(P + (64 * wg + tc::acc_row(i)) * C + tc::acc_col(i)) =
-        make_float2(accW[i], accW[i + 1]);
+    for (int i = 0; i < W / 2; i += 2)
+      *reinterpret_cast<float2*>(P + (64 * wg + tc::acc_row(i)) * W + tc::acc_col(i)) =
+          make_float2(accW[i], accW[i + 1]);
+  }
   const float4 vecs[4] = {v1w, v1b, v2w, v2b};
-  reduce_warp_vecs<4>(vecs, R_s, P + C * C);
+  reduce_warp_vecs<4, W>(vecs, R_s, P + W * W);
 }
 
 // Launches the row pass on `blocks` blocks and sums their partials into
-// grads [C*C + 4*C] (part: blocks * TAIL_PART floats of workspace).
-template <typename T, typename TX>
+// grads [W*W + 4*W] (part: blocks * tail_part<W>() floats of workspace).
+template <typename T, typename TX, int W = C>
 int launch_tail_bwd(const TX* x, const T* res, const T* g, const T* w, const float* g1w,
                     const float* g1b, const float* g2w, const float* g2b, T* dx, T* dy,
                     float* dx32, float* dy32, float* part, float* grads, int n, int blocks,
@@ -313,11 +325,11 @@ int launch_tail_bwd(const TX* x, const T* res, const T* g, const T* w, const flo
   const void* kernel;
   int smem, rows;
   if constexpr (TC) {
-    kernel = (const void*)tail_bwd_tc_kernel<TX>;
+    kernel = (const void*)tail_bwd_tc_kernel<TX, W>;
     smem = tail_bwd_tc_smem();
     rows = TC_ROWS;
   } else {
-    kernel = (const void*)tail_bwd_kernel<T, TX>;
+    kernel = (const void*)tail_bwd_kernel<T, TX, W>;
     smem = tail_bwd_smem();
     rows = TM;
   }
@@ -327,15 +339,15 @@ int launch_tail_bwd(const TX* x, const T* res, const T* g, const T* w, const flo
   if (blocks > ntiles) blocks = ntiles;
   if (blocks > 0) {
     if constexpr (TC)
-      tail_bwd_tc_kernel<TX><<<blocks, NT, smem, stream>>>(x, res, g, w, g1w, g1b, g2w, g2b, dx,
-                                                           dy, dx32, dy32, part, n, eps);
+      tail_bwd_tc_kernel<TX, W><<<blocks, NT, smem, stream>>>(
+          x, res, g, w, g1w, g1b, g2w, g2b, dx, dy, dx32, dy32, part, n, eps);
     else
-      tail_bwd_kernel<T, TX><<<blocks, NT, smem, stream>>>(x, res, g, w, g1w, g1b, g2w, g2b,
-                                                           dx, dy, dx32, dy32, part, n, eps);
+      tail_bwd_kernel<T, TX, W><<<blocks, NT, smem, stream>>>(
+          x, res, g, w, g1w, g1b, g2w, g2b, dx, dy, dx32, dy32, part, n, eps);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)reduce_partials(part, grads, blocks, TAIL_PART, stream);
+  return (int)reduce_partials(part, grads, blocks, tail_part<W>(), stream);
 }
 
 }  // namespace lgk

@@ -6,8 +6,8 @@ within a distance threshold, an edge MLP consumes the relative offset, a
 query projection of the destination and the source feature; edge outputs
 sum into the destination, followed by GN → ReLU → Linear → residual → ReLU.
 
-The port runs the JAX package's two branches for n_agt == n_ctx, whichever
-the pack carries:
+The port runs the JAX package's three branches. For n_agt == n_ctx,
+whichever the pack carries:
 - the window-pair branch: the distance embedding is affine in the endpoint
   centers (d@Wd = ctr_u@Wd − ctr_v@Wd), so every per-edge input folds into
   dense per-row projections and the gathers, the edge MLP and the
@@ -20,8 +20,21 @@ the pack carries:
   `sorted_transpose_gather` does), the per-edge chain runs in the
   `edge_mlp` kernel, and its rows are added into their destinations by
   `scatter_add`.
-Both end in the `row_tail` kernel. Att with n_agt != n_ctx is not ported
-yet and raises NotImplementedError.
+For n_agt != n_ctx (a model whose n_map and n_actor differ: A2M and M2A),
+the unequal-width branch on the flat fusion lists (JAX fusion.py:141-206):
+the distance MLP per edge, `SplitLinear` over (dist, the query rows
+gathered by u, the context rows gathered by v) and ctx_out as PyTorch
+products, GroupNorm and ReLU, as the JAX package computes them outside any
+kernel; the rows are added into their destinations by `scatter_add`.
+All three end in the `row_tail` kernel, at n_agt's width.
+
+An Att at unequal widths takes no pair plan: on a pack with fusion pair
+plans (the bench and windowed layouts, `fusion_pairs`) it raises
+ValueError. Those packs carry A2M's and M2A's edges in the plans and leave
+the EdgeSets empty, and the JAX package's Att, which takes the pair branch
+only at equal widths, then drops every one of those edges without a
+count (ROADMAP §3 fault 8). The flat-list layouts (contiguous, flat) carry
+them as lists.
 """
 
 from __future__ import annotations
@@ -31,7 +44,7 @@ from torch import nn
 
 from lanegcn_tpu_torch.config import ModelConfig
 from lanegcn_tpu_torch.graph import EdgeSet, LaneGraphBatch, PairPlan
-from lanegcn_tpu_torch.models.layers import Dense, GroupNorm, Linear
+from lanegcn_tpu_torch.models.layers import Dense, GroupNorm, Linear, SplitLinear
 from lanegcn_tpu_torch.models.map_net import LaneConvStack, graph_inputs
 from lanegcn_tpu_torch.ops.scatter import dst_order, masked_gather, scatter_add, src_order
 from lanegcn_tpu_torch.ops.edge_mlp import fused_edge_mlp
@@ -51,7 +64,8 @@ class Att(nn.Module):
         )
         self.query = Linear(n_agt, n_ctx, dtype=dtype)
         self.ctx = nn.Sequential(
-            Linear(3 * n_ctx, n_agt, dtype=dtype), Dense(n_agt, n_agt, bias=False, dtype=dtype)
+            SplitLinear((n_ctx,) * 3, n_agt, dtype=dtype),
+            Dense(n_agt, n_agt, bias=False, dtype=dtype),
         )
         self.agt = Dense(n_agt, n_agt, bias=False, dtype=dtype)
         self.norm = GroupNorm(n_agt)
@@ -62,9 +76,15 @@ class Att(nn.Module):
         """agts [A, n_agt] (destinations), ctx [S, n_ctx] (sources), their
         centers; `pair`, the window-pair plan of the fusion edges (with
         `prep`, its `prepare_pair` for the backward, or None), or None and
-        `edges`, the same edges as a list (u → agts rows, v → ctx rows)."""
+        `edges`, the same edges as a list (u → agts rows, v → ctx rows). At
+        n_agt != n_ctx only the list is taken: a pair plan raises ValueError."""
         if self.n_agt != self.n_ctx:
-            raise NotImplementedError("Att with n_agt != n_ctx is not ported yet")
+            if pair is not None:
+                raise ValueError(
+                    f"Att({self.n_agt}, {self.n_ctx}): unequal widths take the fusion edges "
+                    "as flat lists (contiguous_pack_config, flat_pack_config); this pack "
+                    "carries them as pair plans (fusion_pairs), whose EdgeSets are empty")
+            return self.unequal(agts, agt_ctrs, ctx, ctx_ctrs, edges)
         res = agts
         c = self.n_ctx
         dt = self.dtype
@@ -96,6 +116,35 @@ class Att(nn.Module):
             agts = scatter_add(edge_out, u, agts.shape[0], mask=mask, out=temp, order=by_dst)
         return self.tail(agts, res)
 
+    def unequal(self, agts, agt_ctrs, ctx, ctx_ctrs, edges: EdgeSet) -> torch.Tensor:
+        """The n_agt != n_ctx branch on the edge list (JAX fusion.py:141-206):
+        the distance MLP per edge, SplitLinear over (dist, query rows gathered
+        by u, ctx rows gathered by v) and ctx_out, added into agt(agts) at u,
+        then the row tail."""
+        by_dst = dst_order(edges, agts.shape[0])
+        by_src = src_order(edges, ctx.shape[0])
+        partial = self.unequal_partial(self.query(agts), self.agt(agts), agt_ctrs, ctx, ctx_ctrs,
+                                       edges, by_dst, by_src)
+        return self.tail(partial, agts)
+
+    def unequal_partial(self, query_all, temp, agt_ctrs, ctx, ctx_ctrs, edges: EdgeSet,
+                        by_dst, by_src) -> torch.Tensor:
+        """temp plus the edges' rows at their destinations (the aggregate the
+        tail takes), the edge rows made from the per-row query projection
+        query_all [A, n_ctx] and the sources ctx; shared with the
+        graph-parallel layer (parallel/graph_shard.py)."""
+        u, v, mask = edges.u, edges.v, edges.mask
+        # The centre offset per edge (centers are data: no gradient).
+        d = masked_gather(agt_ctrs, u, mask) - masked_gather(ctx_ctrs, v, mask)
+        dist = self.dist(d)
+        edge_out = self.ctx[0]([
+            (dist, None),
+            (query_all, lambda rows: masked_gather(rows, u, mask, by_dst)),
+            (ctx, lambda rows: masked_gather(rows, v, mask, by_src)),
+        ])
+        edge_out = self.ctx[1](edge_out)
+        return scatter_add(edge_out, u, temp.shape[0], mask=mask, out=temp, order=by_dst)
+
     def chain(self) -> tuple:
         """The per-edge chain's weights after the distance embedding, as
         fused_edge_mlp and win_edge_mlp take them."""
@@ -123,7 +172,9 @@ def pair_prep(pair: PairPlan | None, nd: int, ns: int):
 
 
 class A2M(nn.Module):
-    """Actor → lane-node fusion (reference lanegcn.py:366-407)."""
+    """Actor → lane-node fusion (reference lanegcn.py:366-407). Where n_map
+    != n_actor its Att layers take the unequal-width branch, which needs the
+    fusion edges as flat lists: a pack with pair plans raises ValueError."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -156,7 +207,9 @@ class M2M(nn.Module):
 
 
 class M2A(nn.Module):
-    """Lane-node → actor fusion (reference lanegcn.py:483-513)."""
+    """Lane-node → actor fusion (reference lanegcn.py:483-513). Where n_map
+    != n_actor its Att layers take the unequal-width branch, which needs the
+    fusion edges as flat lists: a pack with pair plans raises ValueError."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32):
         super().__init__()

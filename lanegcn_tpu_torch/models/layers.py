@@ -98,6 +98,41 @@ class Linear(nn.Module):
         return torch.relu(y) if self.act else y
 
 
+class SplitLinear(Linear):
+    """`Linear` over a virtual concatenation, evaluated as a sum of
+    per-segment products so that the [E, sum(widths)] concatenation is never
+    made (counterpart of lanegcn_tpu/models/layers.py `SplitLinear`).
+
+    The parameters are `Linear(sum(widths), n_out)`'s (`linear.weight`,
+    `norm.*`), so state dicts are those of the Linear over the
+    concatenation. Each part is (x, gather): x is multiplied by its slice of
+    the kernel at its own row count, then `gather` (if not None) maps the
+    product rows onto the output rows (an edge gather). The pieces are added
+    in the compute dtype in the parts' order, as the JAX package adds them:
+    in bf16 the sum rounds after each piece."""
+
+    def __init__(self, widths, n_out: int, act: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(sum(widths), n_out, act=act, dtype=dtype)
+        self.widths = tuple(widths)
+
+    def forward(self, parts) -> torch.Tensor:
+        if len(parts) != len(self.widths):
+            raise ValueError(f"SplitLinear: {len(parts)} parts for widths {self.widths}")
+        kernel, dt = self.linear.kernel, self.linear.dtype
+        z, off = None, 0
+        for i, ((x, gather), w) in enumerate(zip(parts, self.widths)):
+            if x.shape[-1] != w:
+                raise ValueError(f"SplitLinear part {i}: width {x.shape[-1]}, declared {w}")
+            piece = x.to(dt) @ kernel[off:off + w].to(dt)
+            if gather is not None:
+                piece = gather(piece)
+            z = piece if z is None else z + piece
+            off += w
+        z = self.norm(z)
+        return torch.relu(z) if self.act else z
+
+
 class LinearRes(nn.Module):
     """Linear residual block (reference layers.LinearRes)."""
 

@@ -14,7 +14,9 @@ through a `torch.autograd.Function`: Att's backward is the `edge_mlp_bwd`
 kernel on CUDA tensors and `edge_mlp_bwd_plain` on CPU tensors,
 LanePooling's the `edge_mlp_pool_bwd` kernel and `edge_mlp_pool_bwd_plain`.
 In bf16 both configurations multiply on the tensor cores (wgmma); fp32 runs
-the CUDA-core kernels, the parity path.
+the CUDA-core kernels, the parity path. Att's kernels take rows W = 128 or
+64 wide (A2A where n_actor = 64), LanePooling's 128; the plain versions
+take any width.
 """
 
 from __future__ import annotations
@@ -27,7 +29,13 @@ from lanegcn_tpu_torch.ops import cuda
 from lanegcn_tpu_torch.ops.norm import gn_bwd, gn_stats, group_norm
 
 C = 128
-PART = 3 * C * C + 7 * C  # dWdo, dK1, dWout, dbd, dgdow, dgdob, dgchw, dgchb, dWd (2 rows)
+WIDTHS = (64, 128)  # the row widths Att's kernels take
+
+
+def part_size(c: int) -> int:
+    """Att's fp32 backward partial at width c: dWdo, dK1, dWout, dbd, dgdow,
+    dgdob, dgchw, dgchb, dWd (2 rows)."""
+    return 3 * c * c + 7 * c
 
 
 def edge_mlp_plain(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
@@ -79,8 +87,13 @@ def edge_mlp_bwd_plain(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
 
 
 def _check(d, qg, cg, kd, weights, vectors):
+    """Shapes and dtypes Att's kernels take: qg/cg [E, W] with W 64 or 128,
+    d [E, 2], kd [2, W], the weights [W, W], the vectors [W]."""
     e, c = cg.shape
-    if (c != C or qg.shape != cg.shape or tuple(d.shape) != (e, 2) or tuple(kd.shape) != (2, c)
+    if c not in WIDTHS:
+        raise ValueError(f"edge_mlp: Att's kernels take rows {' or '.join(map(str, WIDTHS))} "
+                         f"wide, not {c}")
+    if (qg.shape != cg.shape or tuple(d.shape) != (e, 2) or tuple(kd.shape) != (2, c)
             or any(tuple(w.shape) != (c, c) for w in weights)
             or any(tuple(p.shape) != (c,) for p in vectors)):
         raise ValueError(f"edge_mlp: bad shapes d {d.shape} qg {qg.shape} cg {cg.shape} "
@@ -110,7 +123,7 @@ def _fwd_cuda(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, eps):
         cuda.ptr(d), cuda.ptr(qg), cuda.ptr(cg), cuda.ptr(ws[0]), cuda.ptr(vs[0]),
         cuda.ptr(ws[1]), cuda.ptr(vs[1]), cuda.ptr(vs[2]), cuda.ptr(ws[2]), cuda.ptr(vs[3]),
         cuda.ptr(vs[4]), cuda.ptr(ws[3]), cuda.ptr(out), ctypes.c_int(cg.shape[0]),
-        ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+        ctypes.c_int(cg.shape[1]), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
     )
     return out
 
@@ -119,36 +132,37 @@ def edge_mlp_bwd_cuda(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, 
                       eps: float = 1e-5):
     """The `edge_mlp_bwd` kernel; the same outputs as `edge_mlp_bwd_plain`.
     bf16 runs the chain pass, then the weight-gradient pass over its
-    operands (`act`, [E, 4C] bf16), and sums each pass's partials in block
+    operands (`act`, [E, 4W] bf16), and sums each pass's partials in block
     (split) order; nothing is zeroed. fp32 adds into a zeroed [blocks,
-    PART] workspace."""
+    part_size(W)] workspace."""
     if g.shape != cg.shape or g.dtype != cg.dtype:
         raise ValueError(f"edge_mlp: cotangent {g.shape} {g.dtype} for {cg.shape} {cg.dtype}")
     (d, qg, cg, g), ws, vs, code = _prep(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb,
                                          kout, g)
     dev = cg.device
+    e, c = cg.shape
     f32 = dict(dtype=torch.float32, device=dev)
     blocks = cuda.num_sms(dev)
     splits = max(1, blocks // 2)
     dd = torch.empty(d.shape, **f32)
     dqg, dcg = torch.empty_like(cg), torch.empty_like(cg)
     if cg.dtype == torch.bfloat16:
-        act = torch.empty(cg.shape[0], 4 * C, dtype=cg.dtype, device=dev)
-        part = torch.empty(blocks * 7 * C + splits * 3 * C * C, **f32)
+        act = torch.empty(e, 4 * c, dtype=cg.dtype, device=dev)
+        part = torch.empty(blocks * 7 * c + splits * 3 * c * c, **f32)
     else:
-        act, part = None, torch.zeros(blocks * PART, **f32)
-    grads = torch.empty(PART, **f32)
+        act, part = None, torch.zeros(blocks * part_size(c), **f32)
+    grads = torch.empty(part_size(c), **f32)
     cuda.call(
         "edge_mlp", "edge_mlp_bwd",
         cuda.ptr(d), cuda.ptr(qg), cuda.ptr(cg), cuda.ptr(g), cuda.ptr(ws[0]), cuda.ptr(vs[0]),
         cuda.ptr(ws[1]), cuda.ptr(vs[1]), cuda.ptr(vs[2]), cuda.ptr(ws[2]), cuda.ptr(vs[3]),
         cuda.ptr(vs[4]), cuda.ptr(ws[3]), cuda.ptr(dd), cuda.ptr(dqg), cuda.ptr(dcg),
-        cuda.ptr(act), cuda.ptr(part), cuda.ptr(grads), ctypes.c_int(cg.shape[0]),
+        cuda.ptr(act), cuda.ptr(part), cuda.ptr(grads), ctypes.c_int(e), ctypes.c_int(c),
         ctypes.c_int(blocks), ctypes.c_int(splits), ctypes.c_float(eps), ctypes.c_int(code),
         cuda.stream(),
     )
-    mats = grads[: 3 * C * C].view(3, C, C)
-    vecs = grads[3 * C * C:].view(7, C)
+    mats = grads[: 3 * c * c].view(3, c, c)
+    vecs = grads[3 * c * c:].view(7, c)
     return (dd, dqg, dcg, vecs[5:7], vecs[0], mats[0], vecs[1], vecs[2], mats[1], vecs[3],
             vecs[4], mats[2])
 
@@ -293,13 +307,14 @@ class _EdgeMlpPool(torch.autograd.Function):
 def fused_edge_mlp(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
                    has_dist2: bool = True, has_query: bool = True,
                    eps: float = 1e-5) -> torch.Tensor:
-    """The per-edge chain; returns e2 [E, 128] for the caller's masked
+    """The per-edge chain; returns e2 [E, W] for the caller's masked
     destination scatter.
 
     Att (has_dist2, has_query): d [E, 2] fp32 (the edge's centre offset);
-    qg/cg [E, 128] in one activation dtype (the gathered query and context
-    projections); kd [2, 128], kdo/k1/kout [128, 128] (in, out), cast to the
-    activation dtype inside; bd and the GN affines [128] fp32.
+    qg/cg [E, W] in one activation dtype (the gathered query and context
+    projections; W = 128 or 64 on the card); kd [2, W], kdo/k1/kout [W, W]
+    (in, out), cast to the activation dtype inside; bd and the GN affines
+    [W] fp32.
     LanePooling (neither flag): qg, kdo, gdow and gdob None; d [E, 4] fp32
     (the relative pose), kd [4, 128]. CPU tensors take the plain version;
     CUDA tensors launch the kernel.
@@ -325,9 +340,10 @@ def _live_rows(*rows) -> int:
 
 
 def work(d, qg, cg, has_dist2: bool = True) -> dict:
-    """Bytes moved and operations done at these inputs: d, cg (and qg, where
-    given) read and the output written whole, the weights read once; the
-    chain's products (d @ Wd and three [128 x 128], two without has_dist2)
+    """Bytes moved and operations done at these inputs (rows W wide, W =
+    cg's width): d, cg (and qg, where given) read and the output written
+    whole, the weights read once; the chain's products (d @ Wd and three
+    [W x W], two without has_dist2)
     run once per row with a non-zero input and once for all the all-zero
     (padding) rows together."""
     e, c = cg.shape
@@ -346,9 +362,9 @@ def work(d, qg, cg, has_dist2: bool = True) -> dict:
 
 
 def work_bwd(d, qg, cg, g) -> dict:
-    """The backward's bytes and operations at these inputs: d, qg, cg and g
-    read and dd, dqg, dcg written whole, the weights read and their
-    gradients written; nine [128 x 128] products (three recomputed, three
+    """The backward's bytes and operations at these inputs (rows W wide): d,
+    qg, cg and g read and dd, dqg, dcg written whole, the weights read and
+    their gradients written; nine [W x W] products (three recomputed, three
     transposed, three weight gradients) and the Wd ones on the rows whose
     cotangent is non-zero (a zero cotangent contributes nothing)."""
     e, c = cg.shape

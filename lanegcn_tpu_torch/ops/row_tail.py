@@ -9,6 +9,10 @@ tail) and `fused_row_tail2` (LaneRCNN's LanePooling tail). Both run
 through a `torch.autograd.Function`: the backward is the `row_tail_bwd`
 (K = 1) or `row_tail2_bwd` (K = 2) kernel on CUDA tensors and
 `row_tail_bwd_plain` / `row_tail2_bwd_plain` on CPU tensors.
+
+The K = 1 kernels take rows W = 128 or 64 wide (Att's tail on 128-wide lane
+nodes, and on 64-wide actors where n_actor = 64); K = 2 takes 128. The
+plain versions take any width.
 """
 
 from __future__ import annotations
@@ -21,8 +25,16 @@ from lanegcn_tpu_torch.ops import cuda
 from lanegcn_tpu_torch.ops.norm import gn_bwd, gn_stats, group_norm
 
 C = 128
-PART = C * C + 4 * C  # a backward partial: dW, dg1w, dg1b, dg2w, dg2b
+WIDTHS = (64, 128)  # the row widths the K = 1 kernels take
 PART2 = 2 * C * C + 6 * C  # K = 2: dW1, dW2, then the three GNs' weight and bias
+
+
+def part_size(c: int) -> int:
+    """A K = 1 backward partial at width c: dW, dg1w, dg1b, dg2w, dg2b."""
+    return c * c + 4 * c
+
+
+PART = part_size(C)  # at 128, the width lane_layer's row pass shares
 
 
 def row_tail_plain(x, res, w, g1w, g1b, g2w, g2b, eps: float = 1e-5) -> torch.Tensor:
@@ -59,14 +71,19 @@ def tail_bwd_plain(x, res, w, g1w, g1b, g2w, g2b, g, eps: float = 1e-5):
 
 def row_tail_bwd_plain(x, res, w, g1w, g1b, g2w, g2b, g, eps: float = 1e-5):
     """The backward kernel's arithmetic: (dx, dres) in x's dtype, then fp32
-    dW [128, 128] (in, out) and the four GN vector gradients."""
+    dW [W, W] (in, out) and the four GN vector gradients."""
     d_x, d_y, *grads = tail_bwd_plain(x, res, w, g1w, g1b, g2w, g2b, g, eps)
     return (d_x.to(x.dtype), d_y.to(x.dtype), *grads)
 
 
-def _check(x, res, w, gns):
+def _check(x, res, w, gns, widths=WIDTHS):
+    """Shapes and dtypes a kernel takes: x/res [N, W] with W in `widths`
+    (the K = 1 kernels 64 or 128, K = 2 128), w [W, W], the GN vectors [W]."""
     n, c = x.shape
-    if (c != C or res.shape != x.shape or tuple(w.shape) != (c, c)
+    if c not in widths:
+        raise ValueError(f"row_tail: the kernels take rows {' or '.join(map(str, widths))} "
+                         f"wide, not {c}")
+    if (res.shape != x.shape or tuple(w.shape) != (c, c)
             or any(tuple(g.shape) != (c,) for g in gns)):
         raise ValueError(f"row_tail: bad shapes x {x.shape} res {res.shape} w {w.shape}")
     if res.dtype != x.dtype or w.dtype != x.dtype:
@@ -82,7 +99,8 @@ def _fwd_cuda(x, res, w, g1w, g1b, g2w, g2b, eps):
     cuda.call(
         "row_tail", "row_tail_fwd",
         cuda.ptr(x), cuda.ptr(res), cuda.ptr(w), *(cuda.ptr(g) for g in gns), cuda.ptr(out),
-        ctypes.c_int(x.shape[0]), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+        ctypes.c_int(x.shape[0]), ctypes.c_int(x.shape[1]), ctypes.c_float(eps),
+        ctypes.c_int(code), cuda.stream(),
     )
     return out
 
@@ -96,18 +114,19 @@ def row_tail_bwd_cuda(x, res, w, g1w, g1b, g2w, g2b, g, eps: float = 1e-5):
     gns = [cuda.param(t) for t in (g1w, g1b, g2w, g2b)]
     code = cuda.check_cuda("row_tail", x, res, g, w, *gns)
     blocks = cuda.num_sms(x.device)
+    n, c = x.shape
     dx, dres = torch.empty_like(x), torch.empty_like(x)
-    part = torch.empty(blocks * PART, dtype=torch.float32, device=x.device)
-    grads = torch.empty(PART, dtype=torch.float32, device=x.device)
+    part = torch.empty(blocks * part_size(c), dtype=torch.float32, device=x.device)
+    grads = torch.empty(part_size(c), dtype=torch.float32, device=x.device)
     cuda.call(
         "row_tail", "row_tail_bwd",
         cuda.ptr(x), cuda.ptr(res), cuda.ptr(g), cuda.ptr(w), *(cuda.ptr(t) for t in gns),
         cuda.ptr(dx), cuda.ptr(dres), cuda.ptr(part), cuda.ptr(grads),
-        ctypes.c_int(x.shape[0]), ctypes.c_int(blocks), ctypes.c_float(eps), ctypes.c_int(code),
-        cuda.stream(),
+        ctypes.c_int(n), ctypes.c_int(c), ctypes.c_int(blocks), ctypes.c_float(eps),
+        ctypes.c_int(code), cuda.stream(),
     )
-    dgn = grads[C * C:].view(4, C)
-    return dx, dres, grads[: C * C].view(C, C), dgn[0], dgn[1], dgn[2], dgn[3]
+    dgn = grads[c * c:].view(4, c)
+    return dx, dres, grads[: c * c].view(c, c), dgn[0], dgn[1], dgn[2], dgn[3]
 
 
 class _RowTail(torch.autograd.Function):
@@ -133,9 +152,10 @@ class _RowTail(torch.autograd.Function):
 
 
 def fused_row_tail(x, res, w, g1w, g1b, g2w, g2b, eps: float = 1e-5) -> torch.Tensor:
-    """x/res [N, 128] in one dtype; w [128, 128] (in, out), cast to x's
-    dtype (its gradient flows back through the cast); GN affines [128] fp32.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    """x/res [N, W] in one dtype (W = 128 or 64 on the card); w [W, W] (in,
+    out), cast to x's dtype (its gradient flows back through the cast); GN
+    affines [W] fp32. CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"row_tail: unsupported device {x.device}")
     w = w.to(x.dtype)
@@ -189,7 +209,7 @@ def _check2(x, res, w1, w2, gns):
     """The K = 2 kernels' weights as they read them and the six GN affines
     stacked [6, 128] fp32."""
     for w in (w1, w2):
-        _check(x, res, w, gns)
+        _check(x, res, w, gns, widths=(C,))
     return cuda.param(w1, x.dtype), cuda.param(w2, x.dtype), torch.stack([g.float() for g in gns])
 
 
@@ -272,17 +292,18 @@ def fused_row_tail2(x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b,
                            w2.to(x.dtype).contiguous(), g1w, g1b, g2w, g2b, g3w, g3b, eps)
 
 
-def work(n: int, itemsize: int) -> dict:
-    c = C
+def work(n: int, itemsize: int, c: int = C) -> dict:
+    """The forward's bytes and operations at width c: x and res read and
+    out written once, W and the GN vectors read; one [N, c] x [c, c]
+    product."""
     return {"bytes": 3 * n * c * itemsize + c * c * itemsize + 4 * c * 4,
             "flops": 2 * n * c * c}
 
 
-def work_bwd(n: int, itemsize: int) -> dict:
-    """The backward's bytes and operations: x, res and g read and dx, dres
-    written once, W read and dW and the GN vectors written; three [N, 128] x
-    [128, 128] products (z recomputed, d_h, dW)."""
-    c = C
+def work_bwd(n: int, itemsize: int, c: int = C) -> dict:
+    """The backward's bytes and operations at width c: x, res and g read
+    and dx, dres written once, W read and dW and the GN vectors written;
+    three [N, c] x [c, c] products (z recomputed, d_h, dW)."""
     return {"bytes": 5 * n * c * itemsize + c * c * (itemsize + 4) + 8 * c * 4,
             "flops": 3 * 2 * n * c * c}
 

@@ -16,6 +16,8 @@ and one reduce-scatter a layer brings every destination row its messages:
   Att layer (destination rows A and source rows split alike):
     qd       = gather_union(query(agts_local) @ K_q)            [A, C]
     e        = edge_mlp(d, qd[u], (ctx_local @ K_c)[v])         the rank's edges
+               (at n_agt != n_ctx: gather_union(query(agts_local)), then
+               Att.unequal's distance MLP, SplitLinear and ctx_out per edge)
     partial  = own(W_agt agts_local) + scatter_add(e → u)       [A, C]
     agts'    = row_tail(reduce_scatter_rows(partial), agts_local)
 
@@ -183,11 +185,15 @@ def att_sharded(att, agts_local: torch.Tensor, agt_ctrs: torch.Tensor, ctx_local
     """One Att layer (a models.fusion.Att) with its destinations (the rows of
     agt_ctrs, whole) and sources split over the graph row: the edge-list
     branch of Att.forward on this rank's edges, then one reduce-scatter."""
-    if att.n_agt != att.n_ctx:
-        raise NotImplementedError("Att with n_agt != n_ctx is not ported yet")
+    e = lists.edges
+    if att.n_agt != att.n_ctx:  # Att.unequal's operations, the query rows gathered first
+        query_all = gather_union(att.query(agts_local), mesh)
+        temp = own_rows(att.agt(agts_local), agt_ctrs.shape[0], mesh)
+        partial = att.unequal_partial(query_all, temp, agt_ctrs, ctx_local, ctx_ctrs_local, e,
+                                      lists.by_dst, lists.by_src)
+        return att.tail(reduce_scatter_rows(partial, mesh), agts_local)
     # Att.forward's operations in its order (as lane_conv_layer_sharded).
     c, dt = att.n_ctx, att.dtype
-    e = lists.edges
     dist_dense = att.dist[0]
     k_ch = att.ctx[0].linear.kernel  # [3C, C]: dist | query | ctx segments
     qd = gather_union(att.query(agts_local).to(dt) @ k_ch[c:2 * c].to(dt), mesh)

@@ -8,7 +8,9 @@ The weights are the port modules' seeded init, carried into JAX trees by
 the bridge's tables. The port's side runs on two gloo ranks of one
 torch.multiprocessing spawn (the module imports JAX only inside its
 functions, so the spawned ranks do not); each returns its rows of the
-stack's and the Att's outputs, fp32. Both sides compute the same fp32
+stack's and the Att's outputs, fp32; the Att also at n_agt != n_ctx
+(16-wide destinations, 32-wide sources: the unequal-width branch). Both
+sides compute the same fp32
 terms, in other orders, so the outputs agree to the fp32 reorder error
 (~1e-6 of their O(1) scale); checked at rtol = atol = 2e-4, the JAX
 package's own tolerance for these functions (tests/test_graph_shard.py).
@@ -93,15 +95,20 @@ def _rank_main(rank, port, path):
     stack.load_state_dict(w["stack"])
     att = Att(32, 32)
     att.load_state_dict(w["att"])
+    att_unequal = Att(16, 32)
+    att_unequal.load_state_dict(w["att_unequal"])
     mine = lambda es: {k: EdgeSet(u=e.u[rank], v=e.v[rank], mask=e.mask[rank])  # noqa: E731
                        for k, e in es.items()}
+    edges = mine({"e": w["att_edges"]})["e"]
     with torch.no_grad():
         out = {"stack": gs.make_sharded_lane_conv(mesh, w["feat"].shape[0])(
             stack, rows(w["feat"]), mine(w["graph"])),
             "att": gs.make_sharded_att(mesh)(
-                att, rows(w["agts"]), w["agt_ctrs"], rows(w["ctx"]), rows(w["ctx_ctrs"]),
-                mine({"e": w["att_edges"]})["e"]),
+                att, rows(w["agts"]), w["agt_ctrs"], rows(w["ctx"]), rows(w["ctx_ctrs"]), edges),
             "counts": dict(mesh.counts)}
+        out["att_unequal"] = gs.make_sharded_att(mesh)(
+            att_unequal, rows(w["agts"][:, :16]), w["agt_ctrs"], rows(w["ctx"]),
+            rows(w["ctx_ctrs"]), edges)
     torch.save(out, f"{path}.rank{rank}")
     dist.destroy_process_group()
 
@@ -146,12 +153,18 @@ def world(tmp_path_factory):
     rows = [jnp.asarray(x) for x in (agts, agt_ctrs, ctx, ctx_ctrs)]
     want_att = jgs.make_sharded_att(jmesh, ATT_A)(_jax_params(_att("m", ()), att), *rows,
                                                   jax.tree.map(jnp.asarray, att_parts))
+    att_unequal = Att(16, 32)
+    init_parameters(att_unequal, 2)
+    want_unequal = jgs.make_sharded_att(jmesh, ATT_A)(
+        _jax_params(_att("m", ()), att_unequal), rows[0][:, :16], *rows[1:],
+        jax.tree.map(jnp.asarray, att_parts))
 
     tens = lambda x: torch.from_numpy(np.asarray(x))  # noqa: E731
     to_set = lambda e: EdgeSet(u=tens(e.u).long(), v=tens(e.v).long(),  # noqa: E731
                                mask=tens(e.mask))
     inputs = {
         "stack": stack.state_dict(), "att": att.state_dict(),
+        "att_unequal": att_unequal.state_dict(),
         "feat": tens(feat), "graph": {k: to_set(e) for k, e in parts.items()},
         "agts": tens(agts), "agt_ctrs": tens(agt_ctrs), "ctx": tens(ctx),
         "ctx_ctrs": tens(ctx_ctrs), "att_edges": to_set(att_parts),
@@ -161,10 +174,11 @@ def world(tmp_path_factory):
     mp.start_processes(_rank_main, args=(_free_port(), path), nprocs=2, join=True,
                        start_method="spawn")
     ranks = [torch.load(f"{path}.rank{r}", weights_only=False) for r in range(2)]
-    return dict(ranks=ranks, stack=np.asarray(want_stack), att=np.asarray(want_att), pack=b)
+    return dict(ranks=ranks, stack=np.asarray(want_stack), att=np.asarray(want_att),
+                att_unequal=np.asarray(want_unequal), pack=b)
 
 
-@pytest.mark.parametrize("what", ["stack", "att"])
+@pytest.mark.parametrize("what", ["stack", "att", "att_unequal"])
 def test_sharded_layers_match_jax(world, what):
     got = torch.cat([r[what] for r in world["ranks"]]).numpy()
     np.testing.assert_allclose(got, world[what], rtol=TOL, atol=TOL)

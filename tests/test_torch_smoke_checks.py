@@ -323,3 +323,86 @@ def test_mesh_errors_scale_by_the_reference_rms():
     assert 1.9 < worst < 2.1 and rel < 1
     eps = torch.full_like(ref, 10 * cs.MESH_TOL * rms)
     assert cs.mesh_errors(bad, ref, eps)[0] < 1
+
+
+def test_relu_flips_are_near_zero_inputs_that_change_side():
+    """relu_recorder keeps each torch.relu / F.relu input's elements within
+    TIE_EPS["float32"] of zero (once a call), and relu_flips names those that
+    a second run puts on the other side; an element far from zero that
+    changes side, or one at zero in both runs, is no tie."""
+    x1 = torch.tensor([1.0, -3e-7, 0.5, -2.0, 0.0])
+    x2 = torch.tensor([1.0, 2e-7, 0.5, 2.0, 0.0])
+    first = cs.relu_recorder()
+    with first:
+        torch.relu(x1)
+        torch.nn.functional.relu(2 * x1)
+    assert [c[0].tolist() for c in first.calls] == [[1, 4], [1, 4]]
+    same = cs.relu_recorder(first.calls)
+    with same:
+        torch.relu(x1)
+        torch.nn.functional.relu(2 * x1)
+    assert cs.relu_flips(first.calls, same.calls) == []
+    moved = cs.relu_recorder(first.calls)
+    with moved:
+        torch.relu(x2)
+        torch.nn.functional.relu(2 * x2)
+    flips = cs.relu_flips(first.calls, moved.calls)
+    assert [(k, i) for k, i, _, _ in flips] == [(0, 1), (1, 1)]
+    assert flips[0][2] < 0 < flips[0][3]
+
+
+def test_relu_recorder_follows_a_train_step():
+    """train_parity's CPU steps under relu_recorder: the step's ReLU calls
+    (forward and the plain backwards) are recorded in one order, a rerun
+    from the same parameters flips nothing, and a step from parameters moved
+    by TIE_PERTURB makes the same calls."""
+    from lanegcn_tpu_torch.config import Config, ModelConfig, contiguous_pack_config
+    from lanegcn_tpu_torch.data.packing import pack_batch
+    from lanegcn_tpu_torch.data.synthetic import make_synthetic_scenario
+    from lanegcn_tpu_torch.graph import PackedBatch
+    from lanegcn_tpu_torch.models.lanegcn import LaneGCN
+    from lanegcn_tpu_torch.train.loop import init_state, make_train_step
+
+    cfg = Config(model=ModelConfig(n_actor=16, n_map=32, num_fuse_layers=2, num_att_layers=2),
+                 pack=contiguous_pack_config(2))
+    scens = [make_synthetic_scenario(seed=i, num_corridors=1, num_actors=4) for i in range(2)]
+    batch = PackedBatch.from_numpy(pack_batch(scens, cfg.pack, cfg.model)[0])
+    start = LaneGCN(cfg.model, device="cpu", seed=0).state_dict()
+
+    def step(perturb, near=None):
+        net = LaneGCN(cfg.model, device="cpu", seed=0)
+        net.load_state_dict(start)
+        if perturb:
+            gen = torch.Generator().manual_seed(1)
+            with torch.no_grad():
+                for p in net.parameters():
+                    p.mul_(1 + cs.TIE_PERTURB * torch.randn(p.shape, generator=gen))
+        net, state = init_state(cfg, net=net, device="cpu")
+        rec = cs.relu_recorder(near)
+        with rec:
+            make_train_step(cfg, net, state, device="cpu")(batch, 0.0)
+        return rec.calls
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        near = step(False)
+        again = step(False, near)
+        moved = step(True, near)
+    finally:
+        torch.set_num_threads(n)
+    assert len(near) > 20 and len(again) == len(near) == len(moved)
+    assert cs.relu_flips(near, again) == []
+
+
+@pytest.mark.parametrize("name,shapes,width", [
+    ("row_tail", [(9, 64), (9, 64)], 64),
+    ("row_tail_bwd", [(9, 128), (9, 128)], 128),
+    ("edge_mlp", [(9, 2), (9, 64), (9, 64)], 64),
+    ("edge_mlp_bwd", [(9, 2), (9, 128), (9, 128)], 128),
+    ("lane_layer", [(9, 128), (9, 6)], 128),
+])
+def test_call_width_reads_the_rows_argument(name, shapes, width):
+    """call_width takes the width from the argument ROWS_ARG names (d's 2
+    columns and a mask's 6 are never the width)."""
+    assert cs.call_width(name, [torch.zeros(s) for s in shapes]) == width
