@@ -4,7 +4,9 @@ one GPU, on each of the three LaneGCN pack geometries the port serves, then
 its LaneRCNN eval and train paths, then LaneGCN with the window plan inside
 the LaneConv layer kernel, with the unfused LaneConv layer, and on packs
 without band masks; then its CLI (train, preempt and resume, eval,
-preprocess), its loader and its multi-GPU split (on the one card).
+preprocess), its loader, its Argoverse reader (scenario CSVs into both
+models, the raster path, segment_softmax) and its multi-GPU split (on the
+one card).
 
     python3 chip_smoke.py            # one card, no arguments
 
@@ -191,6 +193,27 @@ After the geometries, two phases without a geometry:
           transfer ms per pack, the same steps' scen/s on the packs already
           on the card; zero drops; losses bitwise equal across worker
           counts.
+  argoverse  the Argoverse reader (lanegcn_tpu_torch/data/argoverse.py): 256
+          scenario CSVs written from the synthetic urban worlds (7
+          corridors, 16 actors; UUID-style TRACK_IDs, shuffled rows, 0.1 s
+          timestamps, repr floats; a process pool), read back through
+          ArgoScenarioDataset with `WorldMap` (each world's lanes with a
+          centerline point within the Manhattan radius) as the map: host s
+          per scenario to read and build, lanes out of the radius and
+          clipped by pred_range; every scenario bitwise the same world
+          built without the CSV, its actor leaves bitwise
+          make_urban_scenario's (the whole dict where no lane was left
+          out). LaneGCN through PackedLoader(to_device) on
+          bench_pack_config(256), bf16: 2 packs served and 3 train steps,
+          zero drops, the bench launches, the packs, outputs and losses
+          bitwise those of the worlds built without the CSV. LaneRCNN with
+          RoIs on lanercnn_pack_config(256), 192 scenarios a pack: one
+          serve and one train step, zero drops of both kinds and no skipped
+          scenario, its launches. Then fp32, card against CPU within
+          TOL["float32"]: segment_softmax on A2M-sized inputs (one
+          segment_sum launch), get_pixel_feat and get_roi_feat on a
+          RasterMapQuery raster of one scenario, Conv2dBlock and PostRes
+          (stride 2, with downsample) on the RoI crops. The phase's seconds.
   mesh    the multi-GPU trainer (lanegcn_tpu_torch/parallel/); first the
           windowed data×graph split:
           (a) 3 bf16 steps of the windowed step in a one-rank NCCL world
@@ -2961,6 +2984,396 @@ def loader_phase():
     check(same, f"loader: losses differ by worker count {[l.tolist() for l in losses]}")
 
 
+# The argoverse phase: ARGO_S scenario CSVs written from _synthetic_world
+# (urban, ARGO_CORRIDORS corridors and ARGO_ACTORS actors, the bench
+# geometry's scenes), read back through ArgoScenarioDataset with WorldMap as
+# the map, into LaneGCN (bench_pack_config(ARGO_S)) and LaneRCNN
+# (lanercnn_pack_config(ARGO_S), ARGO_RCNN_SPP scenarios a pack: with 16
+# actors these scenes carry more RoIs than the 6 a scenario the config
+# sizes, so a pack of ARGO_S of them would skip scenarios), then the raster
+# path and segment_softmax on the card.
+ARGO_S, ARGO_CORRIDORS, ARGO_ACTORS = 256, 7, 16
+ARGO_RCNN_SPP, ARGO_TRAIN_STEPS = 192, 3
+ARGO_RADIUS = 200.0  # the map radius build_scenario asks for: max|x| + max|y| of pred_range
+ARGO_TS0 = 315969629.0  # the first timestamp of a written scenario, s
+ARGO_HEADER = ("TIMESTAMP", "TRACK_ID", "OBJECT_TYPE", "X", "Y", "CITY_NAME")
+# The raster checks: a RASTER_SCALE px/m crop of RASTER_RANGE around the
+# agent, RASTER_ROI x RASTER_ROI bins per actor box of RASTER_BOX m, with
+# RASTER_CHANNELS - 1 seeded noise channels beside the raster.
+RASTER_SCALE, RASTER_RANGE, RASTER_ROI, RASTER_BOX, RASTER_CHANNELS = (
+    2, (-100.0, 100.0, -100.0, 100.0), 32, 40.0, 4)
+# segment_softmax: a SOFTMAX_LIVE share of the edges live, their
+# destinations among the first 1/SOFTMAX_SPREAD of the node rows (several
+# edges a segment; the other rows empty, as map nodes far from any actor).
+SOFTMAX_LIVE, SOFTMAX_SPREAD = 0.9, 16
+
+
+def write_argo_csv(path, trajs, steps, city, seed):
+    """One scenario as an Argoverse v1.1 CSV: UUID-style TRACK_IDs drawn
+    from `seed`, sorted so that the tracks after the AGENT (trajs[0], whose
+    ID is any of them) read back in the order given; rows shuffled;
+    timestamps ARGO_TS0 + 0.1 s a step; coordinates as repr(float), so
+    that they read back exactly."""
+    import csv
+    import uuid
+
+    rng = np.random.default_rng(seed)
+    ids = sorted(str(uuid.UUID(bytes=rng.bytes(16), version=4)) for _ in trajs)
+    ids.insert(0, ids.pop(int(rng.integers(len(ids)))))
+    types = ["AGENT"] + ["AV" if i == 1 else "OTHERS" for i in range(1, len(trajs))]
+    rows = [(repr(ARGO_TS0 + 0.1 * int(s)), tid, typ, repr(float(x)), repr(float(y)), city)
+            for tid, typ, xy, st in zip(ids, types, trajs, steps)
+            for (x, y), s in zip(xy, st)]
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(ARGO_HEADER)
+        w.writerows(rows[i] for i in rng.permutation(len(rows)))
+
+
+def write_world_csv(root, seed, num_corridors=ARGO_CORRIDORS, num_actors=ARGO_ACTORS):
+    """The actors of the urban _synthetic_world(seed) as root/<seed>.csv,
+    city SYN<seed>; returns the path."""
+    from lanegcn_tpu_torch.data.synthetic import _synthetic_world
+
+    _, trajs, steps = _synthetic_world(seed, num_corridors, num_actors, urban=True)
+    path = os.path.join(root, f"{seed}.csv")
+    write_argo_csv(path, trajs, steps, f"SYN{seed}", seed)
+    return path
+
+
+class WorldMap:
+    """A MapProvider over the synthetic worlds: city SYN<seed> holds the
+    lanes of the urban _synthetic_world(seed) (world frame, in its order),
+    of which lanes_in_radius returns those with a centerline point within
+    `radius` of `center` in Manhattan distance."""
+
+    def __init__(self, num_corridors=ARGO_CORRIDORS):
+        self.num_corridors = num_corridors
+
+    def world(self, city):
+        from lanegcn_tpu_torch.data.synthetic import _synthetic_world
+
+        return _synthetic_world(int(city[3:]), self.num_corridors, urban=True)[0]
+
+    def lanes_in_radius(self, center, city, radius):
+        return lanes_near(self.world(city), center, radius)
+
+
+def lanes_near(lanes, center, radius):
+    """The lanes with a centerline point within `radius` of `center` in
+    Manhattan distance, in their order."""
+    c = np.asarray(center, np.float32)
+    return [ln for ln in lanes if (np.abs(ln.centerline - c).sum(1) <= radius).any()]
+
+
+def argo_worlds(args):
+    """(root, seeds) → for each seed: write its CSV, and return the
+    scenario built from the same world without the CSV (build_scenario on
+    its trajs and WorldMap), make_urban_scenario(seed), and the world's
+    lanes and those WorldMap returns for the scenario (a module-level
+    function: spawn imports it)."""
+    from lanegcn_tpu_torch.data.argoverse import build_scenario
+    from lanegcn_tpu_torch.data.synthetic import _synthetic_world, make_urban_scenario
+
+    root, seeds = args
+    out = []
+    for seed in seeds:
+        lanes, trajs, steps = _synthetic_world(seed, ARGO_CORRIDORS, ARGO_ACTORS, urban=True)
+        city = f"SYN{seed}"
+        write_argo_csv(os.path.join(root, f"{seed}.csv"), trajs, steps, city, seed)
+        scen = build_scenario({"city": city, "trajs": trajs, "steps": steps}, WorldMap())
+        scen["seq_id"] = seed
+        out.append((scen,
+                    make_urban_scenario(seed, num_corridors=ARGO_CORRIDORS,
+                                        num_actors=ARGO_ACTORS),
+                    len(lanes), len(lanes_near(lanes, scen["orig"], ARGO_RADIUS))))
+    return out
+
+
+def tree_equal(a, b) -> bool:
+    """Scenario dicts (numpy, lists, scalars) or batch trees (tensors) equal
+    bitwise, leaf by leaf."""
+    import torch
+
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(tree_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(tree_equal(x, y) for x, y in zip(a, b)))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    if hasattr(a, "leaves"):
+        return type(a) is type(b) and tree_equal(a.leaves(), b.leaves())
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return type(a) is type(b) and a == b
+
+
+def surface_check(what, got, want, results):
+    """A card result against its CPU plain version: elementwise within
+    TOL["float32"] · (rms + |plain|); records the error over the tolerance.
+    The samplers' outputs are ill-conditioned in their positions: a map
+    steps by up to 1 between neighbouring pixels, so one ulp of a sample's
+    fp32 position (which the card may round otherwise, contracting products
+    into FMAs) moves the sample by a good share of that tolerance."""
+    import torch
+
+    got, want = got.detach().float().cpu(), want.detach().float()
+    rms = float(want.square().mean().sqrt()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    over = float(((got - want).abs() / (TOL["float32"] * (rms + want.abs()))).max()) \
+        if want.numel() and rms > 0 else (0.0 if err == 0 else math.inf)
+    results[what] = {"shape": list(want.shape), "max_abs_err": err, "rms": rms,
+                     "err_over_tol": over}
+    check(torch.isfinite(got).all().item(), f"argoverse {what}: non-finite values on the card")
+    check(over <= 1.0, f"argoverse {what}: card vs CPU {err} (x{over:.2f} of the tolerance)")
+
+
+def serve_summary(metrics, what="lanegcn"):
+    """loss/ade/fde/mr over eval steps' metrics (MetricAccumulator), each
+    asserted finite."""
+    from lanegcn_tpu_torch.train.loop import MetricAccumulator
+
+    acc = MetricAccumulator()
+    for m in metrics:
+        acc.update(m)
+    summ = {k: acc.summary()[k] for k in ("loss", "ade", "fde", "mr")}
+    check(all(math.isfinite(v) for v in summ.values()), f"argoverse {what}: serve {summ}")
+    return summ
+
+
+def argo_surface(scen, pack_cfg, device, results):
+    """segment_softmax on A2M-sized inputs (the A2M capacity and node rows
+    of `pack_cfg`; seeded logits and destinations, see SOFTMAX_SPREAD; its
+    segment-sum launches counted), get_pixel_feat and get_roi_feat on the raster of
+    `scen`'s lane graph, and Conv2dBlock and PostRes (stride 2, with
+    downsample) on those RoI crops: fp32, card against CPU."""
+    import copy
+
+    import torch
+    from lanegcn_tpu_torch.data.raster import RasterMapQuery
+    from lanegcn_tpu_torch.models.layers import Conv2dBlock, PostRes, init_parameters
+    from lanegcn_tpu_torch.ops import cuda
+    from lanegcn_tpu_torch.ops.roi import get_pixel_feat, get_roi_feat
+    from lanegcn_tpu_torch.ops.scatter import segment_softmax
+
+    gen = torch.Generator().manual_seed(0)
+    n_edges, n_nodes = pack_cfg.max_a2m_edges, pack_cfg.max_nodes
+    logits = torch.randn(n_edges, generator=gen) * 4.0
+    idx = torch.randint(0, n_nodes // SOFTMAX_SPREAD, (n_edges,), generator=gen)
+    mask = torch.rand(n_edges, generator=gen) < SOFTMAX_LIVE
+    args = [logits, idx, n_nodes, mask]
+    want = segment_softmax(*args)
+    dev = [t.to(device) if isinstance(t, torch.Tensor) else t for t in args]
+    cuda.reset_launch_counts()
+    got = segment_softmax(*dev)
+    _sync(device)
+    launches = cuda.launch_counts()
+    surface_check("segment_softmax", got, want, results)
+    results["segment_softmax"].update(edges=n_edges, live=int(mask.sum()), segments=n_nodes,
+                                      launches={k: v for k, v in launches.items() if v})
+    if device.type == "cuda":
+        check(launches["segment_sum"] == 1 and sum(launches.values()) == 1,
+              f"argoverse segment_softmax: launches {launches}")
+
+    g = scen["graph"]
+    q = RasterMapQuery.from_lane_graph(g["ctrs"], g["feats"], scale=RASTER_SCALE)
+    raster = np.ascontiguousarray(q.query(RASTER_RANGE[:4], theta=0.0))
+    fm = torch.cat([torch.from_numpy(raster)[None],
+                    torch.rand((RASTER_CHANNELS - 1,) + raster.shape, generator=gen)])
+    pts = torch.from_numpy(np.asarray(g["ctrs"], np.float32))
+    ctrs = torch.from_numpy(scen["ctrs"])
+    heading = torch.rand(len(ctrs), generator=gen) * (2 * math.pi)
+    boxes = torch.cat([ctrs, torch.full((len(ctrs), 2), RASTER_BOX), heading[:, None]], 1)
+    surface_check("get_pixel_feat", get_pixel_feat(fm.to(device), pts.to(device), RASTER_RANGE),
+                  get_pixel_feat(fm, pts, RASTER_RANGE), results)
+    crops = get_roi_feat(fm, boxes, RASTER_ROI, RASTER_RANGE)
+    surface_check("get_roi_feat", get_roi_feat(fm.to(device), boxes.to(device), RASTER_ROI,
+                                               RASTER_RANGE), crops, results)
+    results["get_roi_feat"]["raster_lane_px"] = int(raster.sum())
+    for name, block in (("Conv2dBlock", Conv2dBlock(RASTER_CHANNELS, 32)),
+                        ("PostRes", PostRes(RASTER_CHANNELS, 64, stride=2))):
+        init_parameters(block, seed=0)
+        on_card = copy.deepcopy(block).to(device)
+        with torch.no_grad():
+            surface_check(name, on_card(crops.to(device)), block(crops), results)
+
+
+def argoverse_phase(device_type="cuda"):
+    """The Argoverse reader on the card's paths: ARGO_S CSVs written from
+    the synthetic worlds (a process pool), each read and built
+    (ArgoScenarioDataset, WorldMap) and held against the same world built
+    without the CSV (bitwise) and against make_urban_scenario (its actor
+    leaves bitwise; the whole dict where no lane was left out); LaneGCN
+    through PackedLoader(to_device) on bench_pack_config(ARGO_S), bf16: 2
+    packs served and ARGO_TRAIN_STEPS train steps, the bench launches, zero
+    drops, the packs bitwise those of the worlds built without the CSV and
+    so the outputs and losses; LaneRCNN with RoIs on
+    lanercnn_pack_config(ARGO_S): one serve and one train step, zero drops
+    of both kinds, its launches; then `argo_surface`."""
+    import multiprocessing as mp
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from lanegcn_tpu_torch.config import Config, bench_pack_config, lanercnn_pack_config
+    from lanegcn_tpu_torch.data.argoverse import ArgoScenarioDataset
+    from lanegcn_tpu_torch.data.dataset import PackedLoader
+    from lanegcn_tpu_torch.data.packing_roi import pack_roi_batch
+    from lanegcn_tpu_torch.models.lanegcn import LaneGCN
+    from lanegcn_tpu_torch.models.registry import get_model
+    from lanegcn_tpu_torch.ops import cuda
+    from lanegcn_tpu_torch.train.loop import init_state, make_eval_step, make_train_step
+
+    t_phase = time.perf_counter()
+    device = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
+    on_card = device.type == "cuda"
+    root = os.path.join(REPO, "build", "chip_smoke_argo")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    # --- write the CSVs; the same worlds built without them ---
+    t0 = time.perf_counter()
+    procs = max(1, min(8, len(os.sched_getaffinity(0))))
+    chunks = [(root, list(range(i * ARGO_S // procs, (i + 1) * ARGO_S // procs)))
+              for i in range(procs)]
+    with ProcessPoolExecutor(procs, mp_context=mp.get_context("spawn")) as pool:
+        refs = [r for part in pool.map(argo_worlds, chunks) for r in part]
+    write_s = time.perf_counter() - t0
+
+    # --- read and build each CSV; against the references ---
+    ds = ArgoScenarioDataset(root, WorldMap())
+    check(len(ds) == ARGO_S, f"argoverse: {len(ds)} CSVs of {ARGO_S}")
+    t0 = time.perf_counter()
+    items = [ds[i] for i in range(len(ds))]
+    read_s = time.perf_counter() - t0
+    refs = [refs[it["seq_id"]] for it in items]
+    mem = [r[0] for r in refs]
+    world_lanes = out_of_radius = clipped = unclipped = 0
+    actor_keys = ("feats", "ctrs", "orig", "theta", "rot", "gt_preds", "has_preds", "obs_trajs")
+    for it, (m, sy, n_world, n_radius) in zip(items, refs):
+        city = it["city"]
+        check(city == f"SYN{it['seq_id']}", f"argoverse: city {city} for seq {it['seq_id']}")
+        check(tree_equal(it, m), f"argoverse {city}: the CSV route differs from the world's")
+        check(all(tree_equal(it[k], sy[k]) for k in actor_keys),
+              f"argoverse {city}: actor features differ from make_urban_scenario's")
+        n_graph = len(np.unique(it["graph"]["lane_idcs"]))
+        world_lanes += n_world
+        out_of_radius += n_world - n_radius
+        clipped += n_radius - n_graph
+        if n_graph == n_world:
+            unclipped += 1
+            check(tree_equal({k: v for k, v in it.items() if k != "city"},
+                             {k: v for k, v in sy.items() if k != "city"}),
+                  f"argoverse {city}: no lane clipped, yet differs from make_urban_scenario")
+
+    # --- LaneGCN: the CSVs through the loader, beside the worlds' packs ---
+    cfg = Config(pack=bench_pack_config(ARGO_S))
+    spec = GEOMETRIES["bench"]
+
+    def loader_packs(dataset, stats):
+        loader = PackedLoader(dataset, cfg, seed=0, drop_stats=stats, to_device=True,
+                              device=device, pack_workers=2)
+        packs = [b for e in range(2) for b in loader.epoch(e)]
+        return packs, loader.pack_s
+
+    stats = []
+    t0 = time.perf_counter()
+    packs, pack_s = loader_packs(ds, stats)
+    loader_s = time.perf_counter() - t0
+    ref_packs, _ = loader_packs(mem, [])
+    drops = {k: v for st in stats for k, v in st.items()
+             if k.startswith(("dropped", "skipped", "graph_dropped")) and v}
+    check(not drops, f"argoverse lanegcn: drops {drops}")
+    check(len(packs) == 2, f"argoverse lanegcn: {len(packs)} packs")
+    check(all(tree_equal(a, b) for a, b in zip(packs, ref_packs)),
+          "argoverse lanegcn: the CSV packs differ from the worlds' packs")
+
+    net = LaneGCN(cfg.model, dtype=torch.bfloat16, device=device, seed=0)
+    step = make_eval_step(cfg, net, device=device)
+    cuda.reset_launch_counts()
+    outs = [step(b) for b in packs]
+    _sync(device)
+    serve_counts = cuda.launch_counts()
+    ref_outs = [step(b) for b in ref_packs]
+    nets = [init_state(cfg, dtype=torch.bfloat16, device=device) for _ in range(2)]
+    tsteps = [make_train_step(cfg, n, s, device=device) for n, s in nets]
+    cuda.reset_launch_counts()
+    train = [tsteps[0](packs[i % 2], i / 100.0) for i in range(ARGO_TRAIN_STEPS)]
+    _sync(device)
+    train_counts = cuda.launch_counts()
+    ref_train = [tsteps[1](ref_packs[i % 2], i / 100.0) for i in range(ARGO_TRAIN_STEPS)]
+    gcn = {"serve": serve_summary([m for _, m in outs]),
+           "train_loss": [float(m["loss"]) for m in train],
+           "skipped": sum(float(m["skipped"]) for m in train)}
+    check(all(math.isfinite(x) for x in gcn["train_loss"]) and gcn["skipped"] == 0,
+          f"argoverse lanegcn: train {gcn}")
+    check(tree_equal(outs, ref_outs), "argoverse lanegcn: equal packs, outputs differ")
+    check(tree_equal([m["loss"] for m in train], [m["loss"] for m in ref_train]),
+          "argoverse lanegcn: equal packs, train losses differ")
+    if on_card:
+        check_counts(serve_counts, spec["per_forward"], len(packs), "argoverse lanegcn serve")
+        check_counts(train_counts, spec["per_train_step"], ARGO_TRAIN_STEPS,
+                     "argoverse lanegcn train")
+    del net, step, nets, tsteps, outs, ref_outs, ref_packs
+
+    # --- LaneRCNN: the same CSVs with their RoIs ---
+    rcfg = Config(roi_pack=lanercnn_pack_config(ARGO_S))
+    rds = ArgoScenarioDataset(root, WorldMap(), with_rois=True)
+    rstats = []
+    t0 = time.perf_counter()
+    rloader = PackedLoader(rds, rcfg, seed=0, drop_stats=rstats, to_device=True, device=device,
+                           packer=lambda sc, c: pack_roi_batch(sc, c.roi_pack, c.model),
+                           scen_per_pack=ARGO_RCNN_SPP, pack_workers=2)
+    rpacks = list(rloader.epoch(0))
+    rcnn_loader_s = time.perf_counter() - t0
+    rdrops = {k: v for st in rstats for k, v in st.items()
+              if k.startswith(("dropped", "skipped", "graph_dropped")) and v}
+    check(not rdrops, f"argoverse lanercnn: drops {rdrops}")
+    bundle = get_model("lanercnn", rcfg, dtype=torch.bfloat16, device=device, seed=0)
+    fns = dict(loss_fn=bundle.loss_fn, metrics_fn=bundle.metrics_fn)
+    cuda.reset_launch_counts()
+    _, rm = make_eval_step(rcfg, bundle.net, device=device, **fns)(rpacks[0])
+    _sync(device)
+    rserve_counts = cuda.launch_counts()
+    rnet, rstate = init_state(bundle.config, net=bundle.net, device=device)
+    rtstep = make_train_step(bundle.config, rnet, rstate, device=device, **fns)
+    cuda.reset_launch_counts()
+    rtm = rtstep(rpacks[0], 0.0)
+    _sync(device)
+    rtrain_counts = cuda.launch_counts()
+    rcnn = {"serve": serve_summary([rm], "lanercnn"), "train_loss": float(rtm["loss"]),
+            "skipped": float(rtm["skipped"]), "packs": len(rpacks),
+            "rois": [st["num_rois"] for st in rstats],
+            "packed_scenarios": [st["packed_scenarios"] for st in rstats]}
+    check(math.isfinite(rcnn["train_loss"]) and rcnn["skipped"] == 0,
+          f"argoverse lanercnn: train {rcnn}")
+    check(sum(rcnn["packed_scenarios"]) == ARGO_S, f"argoverse lanercnn: {rcnn}")
+    if on_card:
+        rspec = GEOMETRIES["lanercnn"]
+        check_counts(rserve_counts, rspec["per_forward"], 1, "argoverse lanercnn serve")
+        check_counts(rtrain_counts, rspec["per_train_step"], 1, "argoverse lanercnn train")
+    del bundle, rnet, rstate, rtstep, rpacks
+
+    # --- the rest of the surface, fp32, card against CPU ---
+    surface = {}
+    argo_surface(max(items, key=lambda it: len(it["ctrs"])), cfg.pack, device, surface)
+    emit({"phase": "argoverse", "device": _device_label(device),
+          "seconds": time.perf_counter() - t_phase, "scenarios": ARGO_S,
+          "write_s": write_s, "write_processes": procs,
+          "read_build_s_per_scenario": read_s / ARGO_S,
+          "world_lanes": world_lanes, "lanes_out_of_radius": out_of_radius,
+          "lanes_clipped_by_pred_range": clipped, "scenarios_whole": unclipped,
+          "lanegcn_loader_s": loader_s, "lanegcn_pack_s": pack_s,
+          "lanegcn_serve_launches": serve_counts, "lanegcn_train_launches": train_counts,
+          "lanegcn": gcn, "lanercnn_loader_s": rcnn_loader_s, "lanercnn": rcnn,
+          "lanercnn_serve_launches": rserve_counts,
+          "lanercnn_train_launches": rtrain_counts, "surface": surface})
+    shutil.rmtree(root, ignore_errors=True)
+
+
 # The mesh phase: the windowed data×graph split (lanegcn_tpu_torch/parallel/)
 # on bench_pack_config(MESH_S) and lanercnn_pack_config(MESH_S) at full width:
 # (a) MESH_A_STEPS bf16 steps of a one-rank NCCL world against make_train_step
@@ -3952,6 +4365,7 @@ def main() -> None:
             }
     cli_phase()
     loader_phase()
+    argoverse_phase()
     mesh_phase()
     kernels = list(kernels.values())
     # Every kernel's launches on every path, beside its home geometry's count.

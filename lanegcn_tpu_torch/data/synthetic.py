@@ -10,7 +10,7 @@ the real code path at realistic sizes (~600-1500 lane nodes, 5-25 actors).
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -121,26 +121,16 @@ def _actor_traj(rng: np.random.Generator, path: np.ndarray, num_steps: int = 50)
     return pts
 
 
-def make_synthetic_scenario(
+def _synthetic_world(
     seed: int,
     num_corridors: int = 4,
     num_actors: int = 12,
     num_hist: int = 20,
     num_pred: int = 30,
-    num_scales: int = 6,
     urban: bool = False,
-) -> Dict:
-    """One scenario dict: featurized actors + node-level lane graph.
-
-    urban=False: isolated straight corridors — every pre/suc edge is
-    intra-chain (banded) and every left/right matches 1:1.
-    urban=True: a junction grammar over the corridors — forks (one corridor
-    end feeding two successor corridors), merges (two ends feeding one
-    start), turn connectors marked is_intersection, and jittered lane
-    widths — so the packed graphs populate the irregular cross-lane edge
-    lists and dilated-scale scatter paths the way real Argoverse maps do
-    (reference maps branch/merge at every intersection, data.py:220-361;
-    lanes carry multiple successors/predecessors there)."""
+) -> Tuple[List[Lane], List[np.ndarray], List[np.ndarray]]:
+    """The world of make_synthetic_scenario(seed, ...) before featurizing:
+    its world-frame lanes and the actors' (trajs, steps), the AGENT first."""
     rng = np.random.default_rng(seed)
     lanes: List[Lane] = []
     paths = []
@@ -209,6 +199,31 @@ def make_synthetic_scenario(
         trajs.append(tr[keep])
         steps.append(keep)
 
+    return lanes, trajs, steps
+
+
+def make_synthetic_scenario(
+    seed: int,
+    num_corridors: int = 4,
+    num_actors: int = 12,
+    num_hist: int = 20,
+    num_pred: int = 30,
+    num_scales: int = 6,
+    urban: bool = False,
+) -> Dict:
+    """One scenario dict: featurized actors + node-level lane graph.
+
+    urban=False: isolated straight corridors — every pre/suc edge is
+    intra-chain (banded) and every left/right matches 1:1.
+    urban=True: a junction grammar over the corridors — forks (one corridor
+    end feeding two successor corridors), merges (two ends feeding one
+    start), turn connectors marked is_intersection, and jittered lane
+    widths — so the packed graphs populate the irregular cross-lane edge
+    lists and dilated-scale scatter paths the way real Argoverse maps do
+    (reference maps branch/merge at every intersection, data.py:220-361;
+    lanes carry multiple successors/predecessors there)."""
+    lanes, trajs, steps = _synthetic_world(seed, num_corridors, num_actors, num_hist,
+                                           num_pred, urban)
     data = featurize_scenario(trajs, steps, num_hist, num_pred)
 
     # Build the graph in the agent frame (reference rotates centerlines into

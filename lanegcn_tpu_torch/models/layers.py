@@ -1,7 +1,9 @@
 """Primitive blocks with the reference's semantics and parameter names.
 
-Layout is channels-last ([N, C] / [N, L, C]); parameters keep torch's own
-layouts (Linear [out, in], Conv1d [out, in, k]) and the reference module
+Layout is channels-last ([N, C] / [N, L, C]), except the 2-D blocks of the
+legacy raster path (Conv2dBlock, PostRes), which are NCHW as torch's
+Conv2d; parameters keep torch's own layouts (Linear [out, in], Conv1d
+[out, in, k], Conv2d [out, in, k, k]) and the reference module
 names (`linear`, `norm`, `conv1`, `bn1`, `downsample.0`, ...), so a
 reference state_dict loads with strict=True.
 
@@ -18,6 +20,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from lanegcn_tpu_torch.ops import conv1d, group_norm
@@ -52,14 +55,15 @@ class Dense(nn.Module):
 
 
 class ConvWeight(nn.Module):
-    """Holds a bias-free Conv1d weight [out, in, k] (torch nn.Conv1d name)."""
+    """Holds a bias-free Conv1d weight [out, in, k], or with dims=2 a Conv2d
+    weight [out, in, k, k] (torch nn.Conv1d / nn.Conv2d name)."""
 
-    def __init__(self, n_in: int, n_out: int, kernel_size: int):
+    def __init__(self, n_in: int, n_out: int, kernel_size: int, dims: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(n_out, n_in, kernel_size))
+        self.weight = nn.Parameter(torch.empty(n_out, n_in, *(kernel_size,) * dims))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        fan_in = self.weight.shape[1] * self.weight.shape[2]
+        fan_in = math.prod(self.weight.shape[1:])
         bound = 1.0 / math.sqrt(fan_in)
         self.weight.data.copy_(
             torch.empty(self.weight.shape).uniform_(-bound, bound, generator=gen))
@@ -200,6 +204,93 @@ class Res1d(nn.Module):
             x = norm(conv1d(x.to(dt), conv.weight.to(dt), self.stride))
         y = y + x
         return torch.relu(y) if self.act else y
+
+
+class GroupNorm2d(GroupNorm):
+    """GroupNorm on NCHW input: statistics in fp32 over each group's
+    channels and the whole map, returned in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.groups, self.weight.float(), self.bias.float(),
+                            self.eps).to(x.dtype)
+
+
+def _conv2d(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    return F.conv2d(x, w, stride=stride, padding=(w.shape[-1] - 1) // 2)
+
+
+class Conv2dBlock(nn.Module):
+    """Conv2d(bias=False) + GN + optional ReLU (reference layers.Conv2d,
+    layers.py:15-37, the legacy raster path). NCHW."""
+
+    def __init__(self, n_in: int, n_out: int, kernel_size: int = 3, stride: int = 1,
+                 ng: int = 1, act: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = ConvWeight(n_in, n_out, kernel_size, dims=2)
+        self.norm = GroupNorm2d(n_out, ng)
+        self.stride = stride
+        self.act = act
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.norm(_conv2d(x.to(self.dtype), self.conv.weight.to(self.dtype), self.stride))
+        return torch.relu(y) if self.act else y
+
+
+class PostRes(nn.Module):
+    """2-D residual block (reference layers.PostRes, layers.py:91-139, the
+    legacy raster path). NCHW; the 1x1 downsample conv and its norm exist
+    only where the stride is not 1 or the widths differ."""
+
+    def __init__(self, n_in: int, n_out: int, stride: int = 1, ng: int = 1, act: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv1 = ConvWeight(n_in, n_out, 3, dims=2)
+        self.conv2 = ConvWeight(n_out, n_out, 3, dims=2)
+        self.bn1 = GroupNorm2d(n_out, ng)
+        self.bn2 = GroupNorm2d(n_out, ng)
+        self.downsample = (
+            nn.Sequential(ConvWeight(n_in, n_out, 1, dims=2), GroupNorm2d(n_out, ng))
+            if stride != 1 or n_out != n_in else None
+        )
+        self.stride = stride
+        self.act = act
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = torch.relu(self.bn1(_conv2d(x.to(dt), self.conv1.weight.to(dt), self.stride)))
+        y = self.bn2(_conv2d(y, self.conv2.weight.to(dt), 1))
+        if self.downsample is not None:
+            conv, norm = self.downsample
+            x = norm(_conv2d(x.to(dt), conv.weight.to(dt), self.stride))
+        y = y + x
+        return torch.relu(y) if self.act else y
+
+
+class Null(nn.Module):
+    """Identity (reference layers.Null, layers.py:241-246)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+class EncodeDist(nn.Module):
+    """Signed-log distance encoder (reference lanegcn.py:548-572, defined
+    but unused by the reference Net): [N, 2] → [N, n] through
+    Linear(2, n), ReLU and, with `linear`, Linear(n, n) (`block.0`,
+    `block.2`)."""
+
+    def __init__(self, n: int, linear: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        block = [Dense(2, n, dtype=dtype), nn.ReLU()]
+        if linear:
+            block.append(Dense(n, n, dtype=dtype))
+        self.block = nn.Sequential(*block)
+
+    def forward(self, dist: torch.Tensor) -> torch.Tensor:
+        enc = torch.sign(dist) * torch.log(dist.abs() + 1.0)
+        return self.block(enc)
 
 
 def init_parameters(module: nn.Module, seed: int = 0) -> None:

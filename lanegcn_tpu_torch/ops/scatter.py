@@ -151,3 +151,31 @@ def scatter_add(
     base = None if out is None else out.reshape(num_segments, -1)
     res = segment_sum.SegmentScatter.apply(rows, base, key, order.perm, order.seg, num_segments)
     return res.reshape((num_segments,) + tuple(data.shape[1:]))
+
+
+def segment_softmax(
+    logits: torch.Tensor,
+    idx: torch.Tensor,
+    num_segments: int,
+    mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Numerically stable softmax over edges grouped by destination segment
+    (lanegcn_tpu/ops/scatter.py segment_softmax; LaneGCN's Att sums, so no
+    model of the port calls it). logits: [E]; returns [E].
+
+    The segment max is a scatter_reduce("amax") from finfo.min, masked
+    edges routed to a drop row (the maximum takes no order, so it is the
+    same on every run); the shift reads it at clamped indices; masked edges
+    get exp 0; the denominator is `scatter_add`, the segment-sum kernel on
+    the card, divided with a floor of finfo.tiny."""
+    n = num_segments
+    key = _keys(idx, mask, n)
+    fi = torch.finfo(logits.dtype)
+    seg_max = torch.full((n + 1,), fi.min, dtype=logits.dtype, device=logits.device)
+    seg_max = seg_max.scatter_reduce(0, key, logits.reshape(-1), "amax")[:n]
+    at = idx.clamp(0, n - 1)
+    ex = torch.exp(logits - seg_max[at])
+    if mask is not None:
+        ex = torch.where(mask, ex, torch.zeros((), dtype=ex.dtype, device=ex.device))
+    denom = scatter_add(ex, idx, n, mask=mask)[at]
+    return ex / denom.clamp_min(fi.tiny)

@@ -9,7 +9,8 @@ reference checkpoint's state_dict would load the same way.
 The name/layout tables below are the port's own copies of the JAX
 package's (lanegcn_tpu/utils/torch_import.py `lanegcn_table`,
 `lanercnn_table`): Dense kernels [in, out] become
-Linear weights [out, in]; conv kernels [k, in, out] become [out, in, k];
+Linear weights [out, in]; conv kernels [k, in, out] become [out, in, k]
+and 2-D ones (HWIO [k, k, in, out], `block_table`) [out, in, k, k];
 norm vectors copy; the stacked relation kernel [R, C, C] splits into the
 14 per-relation Linear weights.
 """
@@ -22,10 +23,12 @@ import numpy as np
 import torch
 
 from lanegcn_tpu_torch.config import ModelConfig, relation_names
+from lanegcn_tpu_torch.models.layers import Conv2dBlock, EncodeDist, PostRes
 
 # transform kinds
 _LIN = "linear"      # torch [out, in]      → flax [in, out]
 _CONV = "conv1d"     # torch [out, in, k]   → flax [k, in, out]
+_CONV2D = "conv2d"   # torch [out, in, k, k] → flax HWIO [k, k, in, out]
 _COPY = "copy"       # identical layout (norm vectors, biases)
 
 # An entry maps one torch key to one flax leaf (path tuple) — or, for the
@@ -225,6 +228,44 @@ def refine_head_table(cfg: ModelConfig) -> List[Entry]:
     return _linear_block("refinement.0", ("hidden",)) + _dense("refinement.1", ("out",))
 
 
+def _conv2d_block(pre: str, f: Tuple[str, ...]) -> List[Entry]:
+    """Reference layers.Conv2d → Conv2dBlock (`kernel` HWIO, `norm`)."""
+    return ([(f"{pre}conv.weight", f + ("kernel",), _CONV2D, None)]
+            + _norm(f"{pre}norm", f + ("norm",)))
+
+
+def _post_res(pre: str, f: Tuple[str, ...], downsample: bool) -> List[Entry]:
+    """Reference layers.PostRes → PostRes (conv1/conv2 kernels HWIO, bn1, bn2,
+    and the 1x1 downsample where the block has one)."""
+    out = [(f"{pre}conv1.weight", f + ("conv1_kernel",), _CONV2D, None),
+           (f"{pre}conv2.weight", f + ("conv2_kernel",), _CONV2D, None)]
+    out += _norm(f"{pre}bn1", f + ("bn1",)) + _norm(f"{pre}bn2", f + ("bn2",))
+    if downsample:
+        out.append((f"{pre}downsample.0.weight", f + ("downsample_kernel",), _CONV2D, None))
+        out += _norm(f"{pre}downsample.1", f + ("downsample_norm",))
+    return out
+
+
+def _encode_dist(pre: str, f: Tuple[str, ...], linear: bool) -> List[Entry]:
+    """Reference EncodeDist (block.0, block.2) → EncodeDist (`dense`, `out`)."""
+    out = _dense(f"{pre}block.0", f + ("dense",))
+    return out + (_dense(f"{pre}block.2", f + ("out",)) if linear else [])
+
+
+def block_table(block: torch.nn.Module) -> List[Entry]:
+    """The entries of one of models.layers' raster-path and distance blocks
+    (Conv2dBlock, PostRes, EncodeDist) as a module of its own; which
+    entries exist follows the block (PostRes's downsample, EncodeDist's
+    `linear`)."""
+    if isinstance(block, Conv2dBlock):
+        return _conv2d_block("", ())
+    if isinstance(block, PostRes):
+        return _post_res("", (), block.downsample is not None)
+    if isinstance(block, EncodeDist):
+        return _encode_dist("", (), len(block.block) == 3)
+    raise TypeError(f"no weight table for {type(block).__name__}")
+
+
 TABLES = {"lanegcn": lanegcn_table, "lanercnn": lanercnn_table,
           "pred_head": pred_head_table, "refine_head": refine_head_table}
 
@@ -234,6 +275,8 @@ def _to_torch(value: np.ndarray, kind: str) -> np.ndarray:
         return np.ascontiguousarray(value.T)
     if kind == _CONV:
         return np.ascontiguousarray(value.transpose(2, 1, 0))
+    if kind == _CONV2D:
+        return np.ascontiguousarray(value.transpose(3, 2, 0, 1))
     return np.asarray(value)
 
 
@@ -244,17 +287,21 @@ def _get_leaf(tree: Dict, path: Tuple[str, ...]):
     return node
 
 
-def export_state_dict(params: Dict, cfg: ModelConfig,
-                      model: str = "lanegcn") -> Dict[str, np.ndarray]:
-    """JAX params (nested dict of arrays) of `model` (a key of TABLES) →
-    reference-named state_dict (numpy, torch layouts)."""
+def _export(params: Dict, entries: List[Entry]) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
-    for tkey, fpath, kind, rel in TABLES[model](cfg):
+    for tkey, fpath, kind, rel in entries:
         leaf = np.asarray(_get_leaf(params, fpath), np.float32)
         if rel is not None:
             leaf = leaf[rel]
         out[tkey] = _to_torch(leaf, kind)
     return out
+
+
+def export_state_dict(params: Dict, cfg: ModelConfig,
+                      model: str = "lanegcn") -> Dict[str, np.ndarray]:
+    """JAX params (nested dict of arrays) of `model` (a key of TABLES) →
+    reference-named state_dict (numpy, torch layouts)."""
+    return _export(params, TABLES[model](cfg))
 
 
 def load_jax_params(net: torch.nn.Module, params: Dict, cfg: ModelConfig,
@@ -264,3 +311,10 @@ def load_jax_params(net: torch.nn.Module, params: Dict, cfg: ModelConfig,
     name and shape must match)."""
     sd = {k: torch.tensor(v) for k, v in export_state_dict(params, cfg, model).items()}
     net.load_state_dict(sd, strict=True)
+
+
+def load_block_params(block: torch.nn.Module, params: Dict) -> None:
+    """Copy the flax params of a Conv2dBlock, PostRes or EncodeDist into the
+    port's block of the same shape (strict, `block_table`)."""
+    sd = {k: torch.tensor(v) for k, v in _export(params, block_table(block)).items()}
+    block.load_state_dict(sd, strict=True)

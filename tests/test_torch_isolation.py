@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of `lanegcn_tpu_torch` pulls
-in neither JAX (nor flax / optax) nor any module of the JAX package, and the
-port's entry points run on CUDA unless the caller asks for the CPU — without
+in neither JAX (nor flax / optax) nor any module of the JAX package, nor
+pandas (the port's data path is numpy and scipy), and the port's entry
+points run on CUDA unless the caller asks for the CPU — without
 CUDA they raise instead of falling back quietly."""
 
 import json
@@ -32,7 +33,7 @@ names = sorted(m.name for m in pkgutil.walk_packages(lanegcn_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 banned = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "lanegcn_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "lanegcn_tpu", "pandas"))
 print(json.dumps({"modules": names, "banned": banned}))
 """
 
@@ -60,7 +61,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "lanegcn_tpu_torch.parallel.mesh", "lanegcn_tpu_torch.parallel.multihost",
                  "lanegcn_tpu_torch.parallel.windowed_parallel",
                  "lanegcn_tpu_torch.parallel.graph_shard",
-                 "lanegcn_tpu_torch.parallel.graph_parallel"):
+                 "lanegcn_tpu_torch.parallel.graph_parallel",
+                 "lanegcn_tpu_torch.data.argoverse", "lanegcn_tpu_torch.data.raster",
+                 "lanegcn_tpu_torch.ops.roi", "lanegcn_tpu_torch.utils.misc"):
         assert name in res["modules"], name
     assert res["banned"] == [], res["banned"]
 
