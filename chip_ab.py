@@ -36,7 +36,10 @@ interface changed: the other tree's through its own wrapper; so did the K
 = 1 forward's and backward's, which took the row width); Att's edge_mlp
 forward and backward likewise (the backward's C interface took the bf16
 workspace `act` and the weight-gradient pass's splits, both then the row
-width); window_scatter and its backward on
+width); the lane_layer forward likewise (its C interface took the row
+width, as the scenario_agg, pair_agg and win_edge forwards' did; the
+backward's did not: both builds through this checkout's wrapper);
+window_scatter and its backward on
 LaneRCNN's geometry (both pool scatters, r2g and g2r; the C interface is
 unchanged, so both builds run through this checkout's wrappers) in
 float32 as well as bfloat16 (`DTYPES`). Each call shape
@@ -102,7 +105,8 @@ OWN_WRAPPERS = {"scenario_agg": {"scenario_agg": ("scenario_aggregate", 8),
                              "row_tail_bwd": ("row_tail_bwd_cuda", 8),
                              "row_tail2_bwd": ("row_tail2_bwd_cuda", 11)},
                 "edge_mlp": {"edge_mlp": ("fused_edge_mlp", 12),
-                             "edge_mlp_bwd": ("edge_mlp_bwd_cuda", 14)}}
+                             "edge_mlp_bwd": ("edge_mlp_bwd_cuda", 14)},
+                "lane_layer": {"lane_layer": ("fused_lane_layer", 10)}}
 # Wrapper modules named other than their kernel library (ops/<module>.py),
 # and the other tree's modules that its wrapper module imports in place of
 # this checkout's (names it takes from them are gone here).

@@ -9,6 +9,10 @@ models, the raster path, segment_softmax) and its multi-GPU split (on the
 one card).
 
     python3 chip_smoke.py            # one card, no arguments
+    python3 chip_smoke.py mesh-witness   # the build, then mesh_witness_phase alone
+
+It also serves the half-width LaneGCN (n_map = n_actor = 64) on the bench
+layout, its forward kernels at W = 64.
 
 Geometries (lanegcn_tpu_torch/config.py), driven in this order:
   windowed    windowed_pack_config(256): node_stride 768, window plan 2048,
@@ -42,6 +46,10 @@ Geometries (lanegcn_tpu_torch/config.py), driven in this order:
               unequal-width branch (the edge chain as PyTorch products,
               then the scatter and the row tail at n_agt's width); A2A is
               Att(64, 64): edge_mlp and row_tail at width 64.
+  half        bench_pack_config(256) with ModelConfig(n_map=64, n_actor=64),
+              serving only: lane_layer, scenario_agg, pair_agg, win_edge
+              and row_tail all at W = 64 (the bench launches); its train
+              step must stop at its first backward kernel (128 only).
 
 Phases, one JSON line each (tagged with the geometry); any failure raises
 and exits non-zero:
@@ -98,7 +106,9 @@ and exits non-zero:
           zero) and row_tail (the LaneConv tails at N rows beside Att's); flat:
           row_tail (the LaneConv tails); widths: row_tail at 128 (A2M) and
           64 (M2A, A2A; and `TAIL_ROWS` cut from the largest 64-wide call)
-          and edge_mlp at 64 (A2A; `EDGE_ROWS` and the all-padding call).
+          and edge_mlp at 64 (A2A; `EDGE_ROWS` and the all-padding call);
+          half: lane_layer (and `LANE_ROWS`' cuts), scenario_agg, pair_agg,
+          win_edge and row_tail (and `TAIL_ROWS`' cuts), all at W = 64.
   kernel_bwd  the same kernels' backwards against their plain backwards on
           the inputs and cotangent one bf16 train step hands them, with a
           rerun that must be bitwise equal (lanercnn: lane_layer_bwd and
@@ -151,7 +161,7 @@ and exits non-zero:
           after the counted serve run), the device's idle share and the host
           syncs (nonzero / item calls) per step; none of either asserted.
   train   make_train_step in bfloat16 over fp32 params on the 2 packs: 2 warm
-          steps, then 20 steps alternating the packs: ms per step, scen/s,
+          steps, then 10 steps alternating the packs: ms per step, scen/s,
           first and last loss (finite), skipped steps (0), peak device
           memory, and the launch counts, asserted per step (`per_train_step`).
   remat   (lanercnn) one train step with remat=False and one with remat=True
@@ -169,13 +179,19 @@ and exits non-zero:
           packs and weights, profiled in turns: merged, the separate
           kernels against the merged layer (merge_plan_agg); unfused, the
           fused layer against the unfused one (pallas_bands).
-After the geometries, two phases without a geometry:
+  serve_rerun  (half) two bf16 eval forwards of one pack bitwise equal.
+  refused_train  (half) one bf16 train step: it must raise ValueError
+          naming the first backward kernel it reaches that takes 128-wide
+          rows only (`NARROW_REFUSED`) and the width, that entry never
+          launched, no plain backward run on the card, the forward's
+          launches those of one eval forward.
+After the geometries, phases without a geometry:
   cli     python -m lanegcn_tpu_torch.cli as a user runs it (bf16, 2 pack
-          workers, packs of 32): preprocess 256 urban scenarios to shards
+          workers, packs of 32): preprocess 128 urban scenarios to shards
           (a subprocess; meanwhile LaneRCNN's fp32 forward at the CLI's
           RoI pack, card against CPU, zero drops, equal NMS picks, tagged
           cli_lanercnn); train R1 for 2 epochs with validation, in this
-          process with every launch count from 0 (asserted: 16 steps and 2
+          process with every launch count from 0 (asserted: 8 steps and 2
           forwards of the contiguous geometry's counts); R2, the same run
           as a subprocess, sent SIGTERM after its 5th step line (exit 0,
           'SIGTERM: saved'), then resumed: its 2.000.ckpt bitwise R1's
@@ -187,8 +203,8 @@ After the geometries, two phases without a geometry:
           none with a drop. Prints the warm step ms and scen/s from the
           logs' time and the launches per step of both families.
   loader  PackedLoader (to_device) into the bench train step
-          (bench_pack_config(256), bf16) on 1,024 urban scenarios made
-          once with their pack caches: 2 epochs of 4 packs with 1, 2, 4, 4,
+          (bench_pack_config(256), bf16) on 512 urban scenarios made
+          once with their pack caches: 2 epochs of 2 packs with 1, 2, 4, 4,
           2 and 1 pack workers; scen/s (the first pack left out), host pack s and
           transfer ms per pack, the same steps' scen/s on the packs already
           on the card; zero drops; losses bitwise equal across worker
@@ -254,11 +270,13 @@ After the geometries, two phases without a geometry:
           rows and edges; (c) the CLI at --mesh 1x1 --graph-parallel
           explicit --bf16 on urban:64, preempted and resumed bitwise, no
           drop in its log. The part's seconds are printed.
-Then the `kernels` summary line (all 23 kernels, each from the first
-geometry that checks it, with the launches of that geometry's serve or
-train run, and under `also_checked` its checks on the later geometries;
-`by_width` gives each row width a kernel was checked at, 128 and, for
-row_tail, row_tail_bwd, edge_mlp and edge_mlp_bwd, 64),
+Then the seconds of each geometry and phase (`seconds`), the `kernels`
+summary line (all 23 kernels, each from the first geometry that checks
+it, with the launches of that geometry's serve or train run, and under
+`also_checked` its checks on the later geometries; `by_width` gives each
+row width a kernel was checked at, 128 and, for row_tail, row_tail_bwd,
+edge_mlp and edge_mlp_bwd (widths), lane_layer, scenario_agg, pair_agg,
+win_edge and row_tail (half), 64, with the geometry that checked it),
 the nvidia-smi name/power-limit line, and last the `ok` line with the
 device.
 
@@ -450,7 +468,18 @@ GEOMETRIES = {
                    model_fields=dict(n_actor=64), kernels=("row_tail", "edge_mlp"),
                    step_kernels=("segment_sum",), per_forward=_WIDTHS_FWD,
                    per_train_step=_WIDTHS_STEP),
+    # The half-width model (n_map = n_actor = 64) on the bench layout,
+    # serving only: every kernel of the forward at W = 64, the bench
+    # launches; a train step must raise at its first backward kernel
+    # (`refused_train_phase`: the backwards take 128 only).
+    "half": dict(model="lanegcn", config="bench_pack_config", s=256,
+                 model_fields=dict(n_map=64, n_actor=64),
+                 kernels=("lane_layer", "scenario_agg", "pair_agg", "win_edge", "row_tail"),
+                 per_forward={**_WINDOWED_FWD, "pair_agg_fwd": 8}, serve_only=True),
 }
+# The backward kernels that take 128-wide rows only; a half-width train step
+# reaches one of them first and must stop there.
+NARROW_REFUSED = ("lane_layer_bwd", "scenario_agg_bwd", "pair_agg_bwd", "win_edge_bwd")
 
 
 def emit(obj) -> None:
@@ -463,23 +492,44 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+class ScenarioCache:
+    """Each synthetic scenario made once a run, by (kind, seed): the
+    geometries draw the same seeds (the five 256-scenario LaneGCN ones the
+    same 512). `get` hands out a shallow copy of the scenario as it was
+    made: the packers memoize their per-scenario blobs on the dict they are
+    given (`_fusion`, `_pack`, `_roi_pack`), so every geometry packs from
+    cold blobs, its `pack_s` times the work a fresh scenario needs, and its
+    packs are those of fresh scenarios."""
+
+    def __init__(self):
+        self.made = {}
+
+    def get(self, seed: int, roi: bool):
+        from lanegcn_tpu_torch.data.synthetic import make_roi_scenario, make_urban_scenario
+
+        key = (roi, seed)
+        if key not in self.made:
+            self.made[key] = (
+                make_roi_scenario(seed=seed, num_corridors=7, num_actors=12, urban=True) if roi
+                else make_urban_scenario(seed=seed, num_corridors=7, num_actors=16))
+        return dict(self.made[key])
+
+
+SCENARIOS = ScenarioCache()
+
+
 def make_packs(cfg, num_packs: int, s: int, seed0: int, roi: bool = False, pack_kw=None):
     """Synthetic urban scenarios packed for LaneGCN (16 actors, pack_batch
     with the keyword arguments pack_kw) or, with roi, for LaneRCNN (12
     actors with their LaneRoIs, pack_roi_batch); zero drops of any kind (the
     RoI pack's global-graph lists included) and no skipped scenario
-    asserted."""
+    asserted. The scenarios come from `SCENARIOS` (`gen_s`: the time to make
+    the ones no earlier call made; `pack_s` packs from cold blobs)."""
     from lanegcn_tpu_torch.data.packing import pack_batch
     from lanegcn_tpu_torch.data.packing_roi import pack_roi_batch
-    from lanegcn_tpu_torch.data.synthetic import make_roi_scenario, make_urban_scenario
 
     t0 = time.perf_counter()
-    if roi:
-        scens = [make_roi_scenario(seed=seed0 + i, num_corridors=7, num_actors=12, urban=True)
-                 for i in range(num_packs * s)]
-    else:
-        scens = [make_urban_scenario(seed=seed0 + i, num_corridors=7, num_actors=16)
-                 for i in range(num_packs * s)]
+    scens = [SCENARIOS.get(seed0 + i, roi) for i in range(num_packs * s)]
     gen_s = time.perf_counter() - t0
     packs, stats = [], []
     t0 = time.perf_counter()
@@ -1100,9 +1150,11 @@ def kernel_phase(phase, geom, ops, calls, counts):
 
 
 # The argument that holds a call's rows, for the kernels that take more
-# than one row width (row_tail's x, Att's edge_mlp's cg); every other
-# kernel takes 128-wide rows only.
-ROWS_ARG = {"row_tail": 0, "row_tail_bwd": 0, "edge_mlp": 2, "edge_mlp_bwd": 2}
+# than one row width (row_tail's x, Att's edge_mlp's cg, lane_layer's,
+# scenario_agg's and pair_agg's feat, win_edge's Pd); every other kernel
+# takes 128-wide rows only.
+ROWS_ARG = {"row_tail": 0, "row_tail_bwd": 0, "edge_mlp": 2, "edge_mlp_bwd": 2,
+            "lane_layer": 0, "scenario_agg": 0, "pair_agg": 0, "win_edge": 0}
 
 
 def call_width(name, args):
@@ -1585,6 +1637,7 @@ def drive(geom):
     import torch
     from lanegcn_tpu_torch.graph import PackedBatch
     from lanegcn_tpu_torch.models.lanegcn import LaneGCN
+    from lanegcn_tpu_torch.models.registry import get_model
     from lanegcn_tpu_torch.ops import cuda
     from lanegcn_tpu_torch.train.loop import init_state, make_eval_step, make_train_step
 
@@ -1613,7 +1666,8 @@ def drive(geom):
     if cfg.pack.spill_pairs:
         check(all(x > 0 for x in spill), f"{geom}: no spill-plan edges {spill}")
 
-    net = LaneGCN(cfg.model, dtype=torch.bfloat16, device="cuda", seed=0)
+    # The entry points a user calls: the registry's net, then the eval step.
+    net = get_model("lanegcn", cfg, dtype=torch.bfloat16, device="cuda", seed=0).net
     step = make_eval_step(cfg, net)
 
     # --- kernels against their plain versions, on the eval path's inputs ---
@@ -1648,11 +1702,22 @@ def drive(geom):
         cap.counts["lane_plan"].update(counts)
     if geom == "widths":
         add_tail_cases("row_tail", cap, width=64)
+    if geom == "half":
+        calls, counts = lane_case_calls(cap.calls["lane_layer"])
+        cap.calls["lane_layer"].update(calls)
+        cap.counts["lane_layer"].update(counts)
+        add_tail_cases("row_tail", cap, width=64)
     edge_pad = add_edge_cases("edge_mlp", cap) if geom in ("contiguous", "widths") else None
     results = kernel_phase("kernel", geom, forward_ops(spec["kernels"]), cap.calls, cap.counts)
     if edge_pad is not None:
         check_edge_padding(geom, "edge_mlp", edge_pad)
     del cap, edge_pad
+    if spec.get("serve_only"):
+        parity_phase(geom)
+        serve = serve_phase(geom, step, batches, results, pack_s)
+        serve_rerun_phase(geom, step, batches[0])
+        refused_train_phase(geom, cfg, batches[0])
+        return results, serve, None
 
     # --- backward kernels against their plain backwards, on a train step's inputs ---
     net_t, state = init_state(cfg, dtype=torch.bfloat16)
@@ -2361,7 +2426,7 @@ def ab_phase(geom, batches):
 
 
 def train_phase(geom, tstep, batches, results):
-    """The train path: 2 warm steps, then 20 counted steps alternating the
+    """The train path: 2 warm steps, then 10 counted steps alternating the
     packs (every launch count from 0 just before, read just after);
     returns the launch counts and the number of steps."""
     import torch
@@ -2373,7 +2438,7 @@ def train_phase(geom, tstep, batches, results):
         tstep(batches[i % 2], (1 + i) / 100.0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    steps = 20
+    steps = 10
     cuda.reset_launch_counts()
     t0 = time.perf_counter()
     metrics = [tstep(batches[i % 2], (3 + i) / 100.0) for i in range(steps)]
@@ -2434,6 +2499,77 @@ def serve_phase(geom, step, batches, results, pack_s):
     check_counts(serve_counts, spec["per_forward"], forwards, f"{geom} serve")
     profile_phase("profile", geom, step, batches)
     return serve_counts, forwards
+
+
+def serve_rerun_phase(geom, step, batch):
+    """Two bf16 eval forwards of the same pack: every output bitwise equal."""
+    import torch
+
+    (out0, m0), (out1, m1) = step(batch), step(batch)
+    torch.cuda.synchronize()
+    apart = sorted(k for k in out0 if not torch.equal(out0[k], out1[k]))
+    emit({"phase": "serve_rerun", "geometry": geom, "outputs": sorted(out0),
+          "outputs_apart": apart, "loss": [float(m0["loss"]), float(m1["loss"])]})
+    check(not apart, f"{geom}: a rerun of the eval forward differs in {apart}")
+
+
+def refused_train_phase(geom, cfg, batch):
+    """A bf16 train step at a width whose backward kernels take 128 only
+    (the half-width model): the step must raise ValueError naming the first
+    of NARROW_REFUSED it reaches and the width, before that entry launches
+    (its count stays 0), with no plain backward run in a kernel's place on
+    the card (the plain backwards are watched), after the forward's
+    launches of one eval forward. Which backward kernels ran before it (at
+    widths they take) is printed."""
+    import torch
+    from lanegcn_tpu_torch.ops import cuda
+    from lanegcn_tpu_torch.train.loop import init_state, make_train_step
+
+    spec = GEOMETRIES[geom]
+    width = cfg.model.n_map
+    net, state = init_state(cfg, dtype=torch.bfloat16)
+    tstep = make_train_step(cfg, net, state)
+    plain_bwd = plain_backward_watch()
+    cuda.reset_launch_counts()
+    err = None
+    with plain_bwd:
+        try:
+            tstep(batch, 0.0)
+        except ValueError as e:
+            err = str(e)
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    named = [k for k in NARROW_REFUSED if err is not None and err.startswith(k + ":")]
+    plain_calls = {k: sum(v.values()) for k, v in plain_bwd.counts.items() if v}
+    fwd = {k: v for k, v in counts.items() if k.endswith("_fwd")}
+    emit({"phase": "refused_train", "geometry": geom, "width": width, "error": err,
+          "refused_at": named[0] if named else None,
+          "launched": {k: v for k, v in counts.items() if v},
+          "plain_backward_calls": plain_calls})
+    check(err is not None, f"{geom}: a train step at width {width} ran without a ValueError")
+    check(bool(named) and f"not {width}" in err,
+          f"{geom}: the step's ValueError names no refusing backward kernel and width "
+          f"{width}: {err}")
+    check(counts[named[0]] == 0, f"{geom}: {named[0]} launched before it refused")
+    check(not plain_calls, f"{geom}: plain backwards ran on the card: {plain_calls}")
+    want = {k: v for k, v in spec["per_forward"].items() if k.endswith("_fwd")}
+    check(fwd == {k: want.get(k, 0) for k in fwd},
+          f"{geom}: the refused step's forward launched {fwd}, one forward launches {want}")
+
+
+def plain_backward_watch():
+    """A Capture of every plain backward the autograd Functions can call
+    (none may run on CUDA tensors)."""
+    from lanegcn_tpu_torch.ops import band_conv, edge_mlp, lane_layer, pair_agg, row_tail
+    from lanegcn_tpu_torch.ops import scenario_agg, win_edge, window_scatter
+
+    return Capture([(mod, attr, attr) for mod, attr in (
+        (lane_layer, "lane_layer_bwd_plain"), (lane_layer, "lane_plan_bwd_plain"),
+        (band_conv, "band_conv_bwd_plain"), (scenario_agg, "scenario_agg_bwd_plain"),
+        (pair_agg, "pair_agg_bwd_plain"), (win_edge, "win_edge_bwd_plain"),
+        (row_tail, "row_tail_bwd_plain"), (row_tail, "row_tail2_bwd_plain"),
+        (edge_mlp, "edge_mlp_bwd_plain"), (edge_mlp, "edge_mlp_pool_bwd_plain"),
+        (window_scatter, "window_scatter_bwd_plain"))])
 
 
 def drive_lanercnn(geom):
@@ -2572,7 +2708,7 @@ def remat_phase(geom, cfg, batch, fns):
 # scenarios (7 corridors, 16 actors; shards of CLI_SHARD), packs of CLI_B,
 # 2 epochs, with CLI_VAL_N generated for validation; LaneRCNN on
 # CLI_RCNN_N urban RoI scenarios (12 actors) for one epoch.
-CLI_B, CLI_N, CLI_SHARD, CLI_VAL_N, CLI_RCNN_N = 32, 256, 64, 64, 256
+CLI_B, CLI_N, CLI_SHARD, CLI_VAL_N, CLI_RCNN_N = 32, 128, 64, 64, 128
 CLI_EPOCHS = 2
 CLI_PREEMPT_AT = 5  # SIGTERM once the preempted run has logged this many steps
 # LaneRCNN at the CLI's RoI pack (flat RoI and global node spaces, flat pool
@@ -2886,10 +3022,10 @@ def cli_phase():
     shutil.rmtree(root, ignore_errors=True)
 
 
-# The loader phase: 4 packs of 256 an epoch, 2 epochs, per worker count;
+# The loader phase: 2 packs of 256 an epoch, 2 epochs, per worker count;
 # the counts in turns, each twice, since the host's clock drifts within a
 # call.
-LOADER_S, LOADER_PACKS, LOADER_EPOCHS, LOADER_WORKERS = 256, 4, 2, (1, 2, 4, 4, 2, 1)
+LOADER_S, LOADER_PACKS, LOADER_EPOCHS, LOADER_WORKERS = 256, 2, 2, (1, 2, 4, 4, 2, 1)
 
 
 def urban_scenarios(seeds):
@@ -3529,10 +3665,13 @@ def _explicit_config(train):
     return dataclasses.replace(cli._default_config(args), train=train)
 
 
-def _case_config(case, train):
-    """The config of a (path, family, D, G) case of the mesh phase."""
+def _case_config(case, train, s=None):
+    """The config of a (path, family, D, G) case of the mesh phase (a
+    windowed one at packs of `s` scenarios, by default MESH_S)."""
     path, family = case[:2]
-    return _explicit_config(train) if path == "explicit" else _mesh_config(family, MESH_S, train)
+    if path == "explicit":
+        return _explicit_config(train)
+    return _mesh_config(family, MESH_S if s is None else s, train)
 
 
 def explicit_collectives(family, pack, dtype_bytes, model):
@@ -3569,7 +3708,7 @@ def _flat_grad(net):
     return torch.cat([p.grad.reshape(-1).float() for p in net.parameters()])
 
 
-def mesh_rank(rank, port, path, two_cards, device_type="cuda"):
+def mesh_rank(rank, port, path, two_cards, device_type="cuda", s=None):
     """One rank of (b): the windowed or explicit step of each (path,
     family, D, G) case in `path` (one SGD step, fp32), then a warm step
     timed and one profiled; its results to path.rankR. On one card the two
@@ -3612,7 +3751,7 @@ def mesh_rank(rank, port, path, two_cards, device_type="cuda"):
     for case, packs in inputs.items():
         path_, family, d, g = case
         mesh = init_mesh(d, g, device=device, backend=backend)
-        bundle = get_model(family, _case_config(case, _mesh_sgd()), device=device,
+        bundle = get_model(family, _case_config(case, _mesh_sgd(), s), device=device,
                            seed=MESH_SEED)
         net, state = init_state(bundle.config, net=bundle.net, device=device)
         make = (make_explicit_parallel_train_step if path_ == "explicit"
@@ -3638,7 +3777,7 @@ def mesh_rank(rank, port, path, two_cards, device_type="cuda"):
     dist.destroy_process_group()
 
 
-def _mesh_reference(case, packs, device):
+def _mesh_reference(case, packs, device, s=None):
     """The single-device fp32 SGD step from the same seeded weights on each
     of `packs` (the case's family and config): the mean loss, the other
     metrics summed, the launches of one step, the mean flat gradient and
@@ -3651,7 +3790,7 @@ def _mesh_reference(case, packs, device):
 
     family = case[1]
     kind = RoiPackedBatch if family == "lanercnn" else PackedBatch
-    cfg = _case_config(case, _mesh_sgd())
+    cfg = _case_config(case, _mesh_sgd(), s)
     losses, grads, sums, launches = [], [], {}, None
     for p in packs:
         bundle = get_model(family, cfg, device=device, seed=MESH_SEED)
@@ -3904,7 +4043,7 @@ def _mesh_cli(root, device, explicit=False):
     return res
 
 
-def mesh_packs(s):
+def mesh_packs(s, families=("lanegcn", "lanercnn")):
     """The mesh phase's windowed packs, {("windowed", family, D, G): packs}:
     each rank's and the single-device references' (zero drops of any kind
     asserted), and the scenarios themselves. LaneGCN: 2·s urban scenarios
@@ -3912,7 +4051,7 @@ def mesh_packs(s):
     in two columns at the mesh's subdivided capacities (graph_split) and its
     union in column order; LaneRCNN: s urban RoI scenarios split in two
     columns of lanercnn_pack_config(s) likewise, and their union. Scenarios
-    made by a pool of up to 8 processes."""
+    made by a pool of up to 8 processes; those of `families` only."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
@@ -3922,9 +4061,9 @@ def mesh_packs(s):
     procs = max(1, min(8, len(os.sched_getaffinity(0))))
     with ProcessPoolExecutor(procs, mp_context=mp.get_context("spawn")) as pool:
         gcn = pool.map(urban_scenarios, [range(MESH_GCN_SEED0 + i, MESH_GCN_SEED0 + 2 * s, procs)
-                                         for i in range(procs)])
+                                         for i in range(procs if "lanegcn" in families else 0)])
         rcnn = pool.map(roi_scenarios, [range(MESH_RCNN_SEED0 + i, MESH_RCNN_SEED0 + s, procs)
-                                        for i in range(procs)])
+                                        for i in range(procs if "lanercnn" in families else 0)])
         gcn = [sc for part in gcn for sc in part]
         rcnn = [sc for part in rcnn for sc in part]
     gen_s = time.perf_counter() - t0
@@ -3938,6 +4077,8 @@ def mesh_packs(s):
     rows = [gcn[:s], gcn[s:]]
     for family, group_scens, d, g in (("lanegcn", rows, 2, 1), ("lanegcn", rows[:1], 1, 2),
                                       ("lanercnn", [rcnn], 1, 2)):
+        if family not in families:
+            continue
         case = ("windowed", family, d, g)
         cfg = _mesh_config(family, s, _mesh_sgd())
         if g == 1:
@@ -4146,21 +4287,18 @@ def _explicit_one_rank(packs, device):
         destroy()
 
 
-def _two_ranks(inputs, refs_from, device, root, tag):
-    """(b): every case of `inputs` on two ranks (gloo on one card, NCCL on
-    two) against the single-device step on its reference packs, checked
-    and emitted; returns (results, seconds of the ranks)."""
+def _run_ranks(inputs, device, root, tag, s=None):
+    """mesh_rank on two ranks over every case of `inputs` (gloo on one card
+    or on the CPU, NCCL on two cards): (each rank's results, whether it
+    took two cards, seconds of the ranks)."""
     import torch
     import torch.multiprocessing as tmp
 
     two_cards = device.type == "cuda" and torch.cuda.device_count() >= 2
-    refs = {case: _mesh_reference(case, packs, device) for case, packs in refs_from.items()}
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
     path = os.path.join(root, f"{tag}.pt")
     torch.save(inputs, path)
     t0 = time.perf_counter()
-    ctx = tmp.start_processes(mesh_rank, args=(_free_port(), path, two_cards, device.type),
+    ctx = tmp.start_processes(mesh_rank, args=(_free_port(), path, two_cards, device.type, s),
                               nprocs=2, join=False, start_method="spawn")
     try:
         while not ctx.join(timeout=5):
@@ -4170,8 +4308,20 @@ def _two_ranks(inputs, refs_from, device, root, tag):
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
-    ranks_s = time.perf_counter() - t0
     ranks = [torch.load(f"{path}.rank{r}", weights_only=False) for r in range(2)]
+    return ranks, two_cards, time.perf_counter() - t0
+
+
+def _two_ranks(inputs, refs_from, device, root, tag):
+    """(b): every case of `inputs` on two ranks (gloo on one card, NCCL on
+    two) against the single-device step on its reference packs, checked
+    and emitted; returns (results, seconds of the ranks)."""
+    import torch
+
+    refs = {case: _mesh_reference(case, packs, device) for case, packs in refs_from.items()}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    ranks, two_cards, ranks_s = _run_ranks(inputs, device, root, tag)
     backend = "nccl, two cards" if two_cards else "gloo, two ranks on one card"
     if device.type == "cuda" and not two_cards:
         refusals = [r.pop("nccl_one_card") for r in ranks]
@@ -4294,6 +4444,120 @@ def mesh_phase(device_type="cuda"):
     shutil.rmtree(root, ignore_errors=True)
 
 
+# The mesh witness (`python3 chip_smoke.py mesh-witness`, no other phase):
+# (b)'s windowed LaneRCNN 1x2 case on packs of MESH_WITNESS_S scenarios,
+# the cut at which the card's update once missed MESH_TOL at one element
+# (ROADMAP.md §3); the card's single-device step is moved by TIE_PERTURB
+# with each of MESH_WITNESS_MOVES seeds.
+MESH_WITNESS_S, MESH_WITNESS_MOVES = 128, 8
+
+
+def mesh_witness_phase(s=MESH_WITNESS_S, devices=("cuda", "cpu")):
+    """(b)'s LaneRCNN 1x2 case on packs of `s` scenarios: the two ranks'
+    mean gradient against the single-device step on the union pack, on
+    each of `devices` (two gloo ranks). Then, as train_parity_phase takes
+    it, the CPU's single-device step again with every torch.relu input
+    recorded, from the same parameters and from parameters moved by
+    TIE_PERTURB; and on the card the single-device step once more from the
+    same parameters (a rerun, bitwise) and from MESH_WITNESS_MOVES moves.
+    The worst element of the first device's ranks is a tie (`tie`) where a
+    ReLU input near zero takes the other side under the CPU's move and a
+    move alone carries that element past its tolerance. Emits what it
+    found; fails only where a run fails."""
+    import contextlib
+    import shutil
+
+    import torch
+    from lanegcn_tpu_torch.graph import RoiPackedBatch
+    from lanegcn_tpu_torch.models.registry import get_model
+    from lanegcn_tpu_torch.train.loop import init_state, make_train_step
+
+    t_phase = time.perf_counter()
+    case = ("windowed", "lanercnn", 1, 2)
+    root = os.path.join(REPO, "build", "chip_smoke_witness")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    inputs, refs_from, _, _ = mesh_packs(s, families=("lanercnn",))
+    union = refs_from[case]
+    found, grads = {}, {}
+    for kind in devices:
+        device = torch.device(kind, 0) if kind == "cuda" else torch.device("cpu")
+        ref = _mesh_reference(case, union, device, s)
+        ranks, _, ranks_s = _run_ranks(inputs, device, root, kind, s)
+        r0, r1 = (r[case] for r in ranks)
+        grad = (r0["grad"] + r1["grad"]) / 2
+        worst, rms = mesh_errors(grad, ref["grad"])
+        grads[kind] = (grad, ref["grad"])
+        leaves = r0["leaves"]
+        found[kind] = {"grad_err_over_tol": worst, "grad_rms_err_over_tol": rms,
+                       "worst_element": worst_element(grad, ref["grad"], leaves,
+                                                      (r0["grad"], r1["grad"])),
+                       "ranks_s": ranks_s}
+        del ranks, r0, r1
+        if kind == "cuda":
+            torch.cuda.empty_cache()
+
+    cfg = _case_config(case, _mesh_sgd(), s)
+    batch = RoiPackedBatch.from_numpy(union[0])
+
+    def step_grad(device, seed=None, near=None, record=True):
+        """The single-device step's flat gradient on the union pack from the
+        seeded weights, moved by TIE_PERTURB with generator `seed` (None:
+        not moved), with its torch.relu inputs recorded where `record`:
+        (gradient, calls)."""
+        bundle = get_model("lanercnn", cfg, device=device, seed=MESH_SEED)
+        if seed is not None:
+            gen = torch.Generator().manual_seed(seed)
+            with torch.no_grad():
+                for p in bundle.net.parameters():
+                    p.mul_(1 + TIE_PERTURB * torch.randn(p.shape, generator=gen).to(p.device))
+        net, state = init_state(bundle.config, net=bundle.net, device=device)
+        step = make_train_step(bundle.config, net, state, device, bundle.loss_fn,
+                               bundle.metrics_fn)
+        rec = relu_recorder(near) if record else contextlib.nullcontext()
+        with rec:
+            step(batch.to(device), 0.0)
+        return _flat_grad(net).cpu(), rec.calls if record else None
+
+    g0, near = step_grad("cpu")
+    g1, moved = step_grad("cpu", seed=1, near=near)
+    flips = relu_flips(near, moved)
+    del near, moved
+    # The first device's worst element and its tolerance against the CPU's
+    # reference; how far each move alone carries it, in those units.
+    got, want = grads[devices[0]]
+    rms = float(want.square().mean().sqrt())
+    i = int(((got - want).abs() / (rms + want.abs())).argmax())
+    tol_i = MESH_TOL * (float(g0.square().mean().sqrt()) + abs(float(g0[i])))
+    cpu_move = abs(float(g1[i] - g0[i])) / tol_i
+    move_worst, move_rms = mesh_errors(g1, g0)
+    card = {}
+    if "cuda" in devices:
+        card_ref = grads["cuda"][1]
+        rerun, _ = step_grad("cuda", record=False)
+        card["rerun_bitwise"] = torch.equal(rerun, card_ref)
+        card["moves"] = []
+        for seed in range(1, MESH_WITNESS_MOVES + 1):
+            gm, _ = step_grad("cuda", seed=seed, record=False)
+            worst, rms_m = mesh_errors(gm, card_ref)
+            card["moves"].append({"seed": seed, "element_over_tol":
+                                  abs(float(gm[i] - card_ref[i])) / tol_i,
+                                  "grad_err_over_tol": worst, "grad_rms_err_over_tol": rms_m})
+        torch.cuda.empty_cache()
+    card_move = max((m["element_over_tol"] for m in card.get("moves", [])), default=0.0)
+    at = {k: {"ranks": float(g[0][i]), "reference": float(g[1][i])} for k, g in grads.items()}
+    emit({"phase": "mesh_witness", "case": "b windowed lanercnn 1x2", "scenarios": s,
+          "dtype": "float32", "tol": MESH_TOL, "rms_tol": MESH_RMS_TOL, **found,
+          "element": at, "element_tol": tol_i, "cpu_step": float(g0[i]),
+          "cpu_moved_step": float(g1[i]), "tie_perturb": TIE_PERTURB,
+          "cpu_move_element_over_tol": cpu_move, "cpu_move_grad_err_over_tol": move_worst,
+          "cpu_move_grad_rms_err_over_tol": move_rms, "relu_flips": len(flips),
+          "nearest_relu_flips": flips[:3], "card": card,
+          "tie": bool(flips) and max(cpu_move, card_move) > 1.0,
+          "seconds": time.perf_counter() - t_phase})
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     import torch
 
@@ -4327,10 +4591,16 @@ def main() -> None:
           "triton": triton_version, "nvcc": nvcc, "gpu": smi,
           "device": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
           "build_s": build["seconds"], "ptxas": ptxas})
+    if sys.argv[1:] == ["mesh-witness"]:
+        mesh_witness_phase()
+        print(smi, flush=True)
+        return
 
-    kernels, paths = {}, {}
+    kernels, paths, seconds = {}, {}, {}
     for geom in GEOMETRIES:
+        t0 = time.perf_counter()
         results, serve, train = drive(geom)
+        seconds[geom] = time.perf_counter() - t0
         paths[geom] = (serve, train)
         torch.cuda.empty_cache()
         for name, res in results.items():
@@ -4339,6 +4609,8 @@ def main() -> None:
             counts, runs = paths[geom][which]
             launches = counts[entries[0]]
             if name in kernels:  # checked again at this geometry's shapes
+                for w, at in res["by_width"].items():  # a width first checked here
+                    kernels[name]["by_width"].setdefault(w, {**at, "geometry": geom})
                 kernels[name].setdefault("also_checked", {})[geom] = {
                     "shape": res["bfloat16"]["shape"], "launches": launches,
                     "err_over_tol": res["bfloat16"]["err_over_tol"],
@@ -4363,15 +4635,18 @@ def main() -> None:
                 "bound_ms": res["work"]["bound_ms"], "bound_by": res["work"]["bound_by"],
                 "library_ms": res["library_ms"], "by_width": res["by_width"],
             }
-    cli_phase()
-    loader_phase()
-    argoverse_phase()
-    mesh_phase()
+    for phase in (cli_phase, loader_phase, argoverse_phase, mesh_phase):
+        t0 = time.perf_counter()
+        phase()
+        seconds[phase.__name__] = time.perf_counter() - t0
+    emit({"phase": "seconds", **seconds})
     kernels = list(kernels.values())
-    # Every kernel's launches on every path, beside its home geometry's count.
+    # Every kernel's launches on every path, beside its home geometry's count
+    # (None: the path does not train).
     for k in kernels:
         entry, bwd = KERNEL_META[k["name"]][2][0], k["name"].endswith("_bwd")
-        k["launches_by_geometry"] = {g: p[int(bwd)][0][entry] for g, p in paths.items()}
+        k["launches_by_geometry"] = {g: p[int(bwd)][0][entry] if p[int(bwd)] else None
+                                     for g, p in paths.items()}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <type_traits>
+
 namespace lgk {
 
 constexpr int C = 128;       // channel width the kernels are written for
@@ -671,6 +673,28 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Host dispatch onto the widths the W-templated kernels are built at (the
+// wrappers' ops/cuda.py WIDTHS). with_width calls f(width_c<W>{}) for
+// width W = 128 or 64; with_width_dtype calls f(width_c<W>{},
+// dtype_c<T>{}) with T = float (dtype 0) or bf16 (dtype 1). Any other
+// width or dtype returns cudaErrorInvalidValue and launches nothing.
+template <int W> using width_c = std::integral_constant<int, W>;
+template <typename T> struct dtype_c { using type = T; };
+
+template <typename F> int with_width(int width, F&& f) {
+  if (width == C) return f(width_c<C>{});
+  if (width == 64) return f(width_c<64>{});
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename F> int with_width_dtype(int width, int dtype, F&& f) {
+  return with_width(width, [&](auto Wc) {
+    if (dtype == 0) return f(Wc, dtype_c<float>{});
+    if (dtype == 1) return f(Wc, dtype_c<bf16>{});
+    return (int)cudaErrorInvalidValue;
+  });
 }
 
 }  // namespace lgk

@@ -1245,15 +1245,10 @@ extern "C" int edge_mlp_fwd(const void* d, const void* qg, const void* cg, const
   cudaStream_t st = (cudaStream_t)stream;
   const float *dp = (const float*)d, *b = (const float*)bd, *g0 = (const float*)gdow,
               *g1 = (const float*)gdob, *g2 = (const float*)gchw, *g3 = (const float*)gchb;
-  if (dtype == 0 && width == 128)
-    return launch<float, 128>(dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout, out, e, eps, st);
-  if (dtype == 1 && width == 128)
-    return launch<bf16, 128>(dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout, out, e, eps, st);
-  if (dtype == 0 && width == 64)
-    return launch<float, 64>(dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout, out, e, eps, st);
-  if (dtype == 1 && width == 64)
-    return launch<bf16, 64>(dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout, out, e, eps, st);
-  return (int)cudaErrorInvalidValue;
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    return launch<typename decltype(Tc)::type, decltype(Wc)::value>(
+        dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout, out, e, eps, st);
+  });
 }
 
 // LanePooling's configuration (has_dist2 = has_query = false). dtype as
@@ -1297,19 +1292,11 @@ extern "C" int edge_mlp_bwd(const void* d, const void* qg, const void* cg, const
   const float *dp = (const float*)d, *b = (const float*)bd, *g0 = (const float*)gdow,
               *g1 = (const float*)gdob, *g2 = (const float*)gchw, *g3 = (const float*)gchb;
   float *ddp = (float*)dd, *pt = (float*)part, *gr = (float*)grads;
-  if (dtype == 0 && width == 128)
-    return launch_bwd<float, 128>(dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg,
-                                  dcg, act, pt, gr, e, blocks, splits, eps, st);
-  if (dtype == 1 && width == 128)
-    return launch_bwd<bf16, 128>(dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg,
-                                 dcg, act, pt, gr, e, blocks, splits, eps, st);
-  if (dtype == 0 && width == 64)
-    return launch_bwd<float, 64>(dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg,
-                                 dcg, act, pt, gr, e, blocks, splits, eps, st);
-  if (dtype == 1 && width == 64)
-    return launch_bwd<bf16, 64>(dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg,
-                                dcg, act, pt, gr, e, blocks, splits, eps, st);
-  return (int)cudaErrorInvalidValue;
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    return launch_bwd<typename decltype(Tc)::type, decltype(Wc)::value>(
+        dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg, dcg, act, pt, gr, e,
+        blocks, splits, eps, st);
+  });
 }
 
 // LanePooling's backward. g: the output cotangent [e, 128] in the activation

@@ -68,14 +68,15 @@ inline int make_shifts(int nj, const int* shifts, Shifts* sh) {
 // Shared memory of a [TM + 2*HALO] halo tile.
 constexpr int HALO_TILE = (TM + 2 * HALO) * LDA;
 
-// S_s[r] = src rows tile0 − HALO + r (r < TM + 2*HALO), zero outside [0, n).
-template <typename S>
+// S_s[r] = src rows tile0 − HALO + r (r < TM + 2*HALO), zero outside [0, n)
+// (and past a row width W below C).
+template <typename S, int W = C>
 __device__ __forceinline__ void load_halo(float* S_s, const S* src, long tile0, int n) {
   for (int idx = threadIdx.x; idx < (TM + 2 * HALO) * (C / 4); idx += NT) {
     const int r = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
     const long g = tile0 - HALO + r;
     float4 v = zero4();
-    if (g >= 0 && g < n) v = load4<S>(src + g * C + c4);
+    if (g >= 0 && g < n && (W == C || c4 < W)) v = load4<S>(src + g * W + c4);
     *reinterpret_cast<float4*>(S_s + r * LDA + c4) = v;
   }
 }
@@ -117,8 +118,10 @@ __device__ __forceinline__ void add_runs_mm(float acc[4][8], const float* msg, l
 }
 
 // acc = pre + Σ_j band_j[u] · X_s[u + s_j] @ Wb_j over the tile's rows (X_s:
-// the feat halo tile, loaded; W_s: [C][C] scratch; pre may be null).
-template <typename T>
+// the feat halo tile, loaded; W_s: [C][C] scratch; pre may be null). At a
+// row width W below C: pre and the [W x W] Wb_j zero-padded, so acc is zero
+// past W.
+template <typename T, int W = C>
 __device__ __forceinline__ void band_fwd(const float* X_s, float* W_s, const T* pre,
                                          const uint8_t* masks, const T* wb, long tile0, int n,
                                          int nj, const Shifts& sh, float acc[4][8]) {
@@ -127,11 +130,12 @@ __device__ __forceinline__ void band_fwd(const float* X_s, float* W_s, const T* 
     const long g = tile0 + mm_row(i);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      acc[i][j] = (pre && g < n) ? to_f<T>(pre[g * C + mm_col(j)]) : 0.f;
+      acc[i][j] = (pre && g < n && (W == C || mm_col(j) < W)) ? to_f<T>(pre[g * W + mm_col(j)])
+                                                               : 0.f;
   }
   for (int j = 0; j < nj; ++j) {
     __syncthreads();  // previous product done with W_s (and X_s loaded)
-    load_weight<T>(W_s, wb + (long)j * C * C);
+    load_weight<T, W>(W_s, wb + (long)j * W * W);
     float m[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -146,8 +150,10 @@ __device__ __forceinline__ void band_fwd(const float* X_s, float* W_s, const T* 
 // The layer tail from the tile's fp32 temp in T_s (complete, and visible to
 // every thread): temp_out ← T_s when given, then
 // out = relu(GN2(relu(GN1(temp)) @ W2) + feat) with h rounded to T before the
-// product. X_s: the feat halo tile (the residual); W_s: [C][C] scratch.
-template <typename T>
+// product. X_s: the feat halo tile (the residual); W_s: [C][C] scratch. At
+// a row width W below C: W-wide rows (temp zero past W), GN statistics over
+// W, the [W x W] W2 zero-padded, only W columns stored.
+template <typename T, int W = C>
 __device__ __forceinline__ void layer_tail(const float* X_s, float* T_s, float* W_s, const T* w2,
                                            const float* g1w, const float* g1b, const float* g2w,
                                            const float* g2b, T* out, float* temp_out, long tile0,
@@ -156,14 +162,14 @@ __device__ __forceinline__ void layer_tail(const float* X_s, float* T_s, float* 
     for (int idx = threadIdx.x; idx < TM * (C / 4); idx += NT) {
       const int r = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
       const long g = tile0 + r;
-      if (g < n)
-        *reinterpret_cast<float4*>(temp_out + g * C + c4) =
+      if (g < n && (W == C || c4 < W))
+        *reinterpret_cast<float4*>(temp_out + g * W + c4) =
             *reinterpret_cast<const float4*>(T_s + r * LDA + c4);
     }
     __syncthreads();
   }
-  gn_relu_rows<T>(T_s, TM, g1w, g1b, eps);  // h = relu(GN1(temp)), rounded to T
-  load_weight<T>(W_s, w2);
+  gn_relu_rows<T, W>(T_s, TM, g1w, g1b, eps);  // h = relu(GN1(temp)), rounded to T
+  load_weight<T, W>(W_s, w2);
   __syncthreads();
   const float ones[4] = {1.f, 1.f, 1.f, 1.f};
   float acc[4][8];
@@ -179,8 +185,8 @@ __device__ __forceinline__ void layer_tail(const float* X_s, float* T_s, float* 
     if (g >= n) break;
     const float4 z = *reinterpret_cast<const float4*>(T_s + r * LDA + lane * 4);
     const float4 res = *reinterpret_cast<const float4*>(X_s + (HALO + r) * LDA + lane * 4);
-    const float4 y = gn_row(z, g2w, g2b, eps);
-    store4<T>(out + g * C + lane * 4, relu4(add4(y, res)));
+    const float4 y = gn_row<W>(z, g2w, g2b, eps);
+    if (lane_in<W>()) store4<T>(out + g * W + lane * 4, relu4(add4(y, res)));
   }
 }
 
@@ -273,12 +279,20 @@ inline int band_t_tc_smem() {
          MAXJ * DX_HROWS;
 }
 
-// Wb_j (row-major [C][C] bf16) into core tiles by cp.async, one commit group.
+// Wb_j (row-major [C][C] bf16) into core tiles by cp.async, one commit group;
+// a [W x W] one into the top-left of the [C x C] tiles, zeros elsewhere.
+template <int W = C>
 __device__ __forceinline__ void prefetch_weight(uint8_t* dst, const tc::Tiles& t,
                                                 const bf16* src) {
   for (int i = threadIdx.x; i < C * C / 8; i += blockDim.x) {
     const int r = ((i >> 7) << 3) + (i & 7), cb = (i >> 3) & 15;
-    cp_async16(dst + tc::tile_off(t, r, cb * 8), src + r * C + cb * 8);
+    if constexpr (W == C) {
+      cp_async16(dst + tc::tile_off(t, r, cb * 8), src + r * C + cb * 8);
+    } else {
+      const bool in = r < W && cb * 8 < W;
+      cp_async16_zfill(dst + tc::tile_off(t, r, cb * 8), in ? src + r * W + cb * 8 : src,
+                       in ? 16 : 0);
+    }
   }
   cp_async_commit();
 }
@@ -303,6 +317,13 @@ __device__ __forceinline__ void prefetch_weight(uint8_t* dst, const tc::Tiles& t
 // last relation, load while j multiplies). A warpgroup skips a relation
 // none of its rows has. On return `after` (when given) is the one cp.async
 // group in flight, into buffer nj & 1; without it no copy is.
+//
+// At a row width W below C (64: lane_layer's half-width model) the same
+// 128-column halo tile, buffers and m64n128k16 products: feat rows read W
+// wide (zeros past W), the [W x W] weights zero-padded into the [C x C]
+// core tiles, pre zero past W, K cut to W (the A fragments past W would be
+// zero); the accumulator's columns past W stay zero.
+template <int W = C>
 __device__ __forceinline__ void band_fwd_tc(float (&acc)[64], bf16* X_s, uint8_t* W_b,
                                             uint8_t* M_s, uint8_t (*act_s)[DX_WGS],
                                             const bf16* feat, const bf16* pre,
@@ -318,12 +339,12 @@ __device__ __forceinline__ void band_fwd_tc(float (&acc)[64], bf16* X_s, uint8_t
   for (int i = threadIdx.x; i < DX_HROWS * (C / 8); i += DX_THREADS) {
     const int r = i >> 4, c = (i & 15) * 8;
     const long gr = tile0 - HALO + r;
-    const bool in = gr >= 0 && gr < n;
-    cp_async16_zfill(X_s + r * DX_HLD + c, in ? feat + gr * C + c : feat, in ? 16 : 0);
+    const bool in = gr >= 0 && gr < n && (W == C || c < W);
+    cp_async16_zfill(X_s + r * DX_HLD + c, in ? feat + gr * W + c : feat, in ? 16 : 0);
   }
   const bf16* first = nj > 0 ? wb : after;
   if (first)
-    prefetch_weight(W_b, Wt, first);
+    prefetch_weight<W>(W_b, Wt, first);
   else
     cp_async_commit();
   for (int idx = threadIdx.x; idx < nj * DX_ROWS; idx += DX_THREADS) {
@@ -335,8 +356,8 @@ __device__ __forceinline__ void band_fwd_tc(float (&acc)[64], bf16* X_s, uint8_t
   for (int i = 0; i < 64; i += 2) {
     const long gr = tile0 + 64 * wg + tc::acc_row(i);
     float2 v = make_float2(0.f, 0.f);
-    if (pre && gr < n)
-      v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(pre + gr * C + tc::acc_col(i)));
+    if (pre && gr < n && (W == C || tc::acc_col(i) < W))
+      v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(pre + gr * W + tc::acc_col(i)));
     acc[i] = v.x;
     acc[i + 1] = v.y;
   }
@@ -357,15 +378,15 @@ __device__ __forceinline__ void band_fwd_tc(float (&acc)[64], bf16* X_s, uint8_t
     // thread, and every warpgroup done with j − 1, whose buffer the next
     // weight (Wb_{j+1}, or `after` past the last relation) now takes.
     __syncthreads();
-    const bf16* next = j + 1 < nj ? wb + (long)(j + 1) * C * C : after;
-    if (next) prefetch_weight(W_b + ((j + 1) & 1) * WB, Wt, next);
+    const bf16* next = j + 1 < nj ? wb + (long)(j + 1) * W * W : after;
+    if (next) prefetch_weight<W>(W_b + ((j + 1) & 1) * WB, Wt, next);
     if (act_s[j][wg]) {
       const int hr = HALO + row0 + sh.s[j];  // halo row of the warp's first A row
       const bool m0 = M_s[j * DX_ROWS + row0 + g8] != 0;
       const bool m1 = M_s[j * DX_ROWS + row0 + g8 + 8] != 0;
-      uint32_t a[C / 16][4];
+      uint32_t a[W / 16][4];
 #pragma unroll
-      for (int ks = 0; ks < C / 16; ++ks) {
+      for (int ks = 0; ks < W / 16; ++ks) {
         tc::ldm_a(a[ks], X_s, DX_HLD, hr, ks * 16);
         if (!m0) a[ks][0] = a[ks][2] = 0u;
         if (!m1) a[ks][1] = a[ks][3] = 0u;
@@ -374,7 +395,7 @@ __device__ __forceinline__ void band_fwd_tc(float (&acc)[64], bf16* X_s, uint8_t
       tc::fence_acc(acc);
       tc::fence();
 #pragma unroll
-      for (int ks = 0; ks < C / 16; ++ks) tc::mma_rs<1>(acc, a[ks], tc::desc(Wj, false, ks, 0));
+      for (int ks = 0; ks < W / 16; ++ks) tc::mma_rs<1>(acc, a[ks], tc::desc(Wj, false, ks, 0));
       tc::commit();
       tc::wait_all();
       tc::fence_acc(acc);
@@ -393,12 +414,13 @@ inline int layer_tc_smem() {
          4 * C * (int)sizeof(float) + MAXJ * DX_ROWS;
 }
 
-// gn_s = g1w, g1b, g2w, g2b (4 x C fp32).
+// gn_s = g1w, g1b, g2w, g2b (4 x C fp32; [W] vectors zero-padded to C).
+template <int W = C>
 __device__ __forceinline__ void load_gn(float* gn_s, const float* g1w, const float* g1b,
                                         const float* g2w, const float* g2b) {
   for (int i = threadIdx.x; i < 4 * C; i += blockDim.x) {
     const float* v = i < C ? g1w : i < 2 * C ? g1b : i < 3 * C ? g2w : g2b;
-    gn_s[i] = v[i & (C - 1)];
+    gn_s[i] = W == C || (i & (C - 1)) < W ? v[i & (C - 1)] : 0.f;
   }
 }
 
@@ -431,7 +453,10 @@ __device__ __forceinline__ void add_runs_tc(float (&acc)[64], const bf16* msg, l
 // temp_out ← temp when given (fp32, bitwise what the tail consumes), then
 // h = rnd(relu(GN1(temp))) as the A fragments of z = h @ W2 in the registers
 // it was computed in, and out = relu(GN2(z) + feat), the residual from the
-// halo tile (tail_fwd.cuh).
+// halo tile (tail_fwd.cuh). At a row width W below C: temp's and out's
+// first W columns stored (W-wide rows), GN statistics over W, gn_s zero
+// past W (load_gn<W>), W2 zero-padded (band_fwd_tc<W>).
+template <int W = C>
 __device__ __forceinline__ void layer_tail_tc(float (&acc)[64], const bf16* X_s,
                                               const uint8_t* W_b, const float* gn_s,
                                               bf16* out, float* temp_out, long tile0, int n,
@@ -439,17 +464,17 @@ __device__ __forceinline__ void layer_tail_tc(float (&acc)[64], const bf16* X_s,
   const int r0 = 64 * (threadIdx.x >> 7);
   if (temp_out) {
 #pragma unroll
-    for (int i = 0; i < 64; i += 2) {
+    for (int i = 0; i < W / 2; i += 2) {
       const long gr = tile0 + r0 + tc::acc_row(i);
       if (gr < n)
-        *reinterpret_cast<float2*>(temp_out + gr * C + tc::acc_col(i)) =
+        *reinterpret_cast<float2*>(temp_out + gr * W + tc::acc_col(i)) =
             make_float2(acc[i], acc[i + 1]);
     }
   }
   uint32_t ha[C / 16][4];
-  tail::gn_relu_frags(acc, gn_s, gn_s + C, eps, ha);
-  tail::frag_mm(acc, ha, tc::tiles(W_b + (nj & 1) * tc::tiles_bytes(C), C));
-  tail::gn_res_relu(
+  tail::gn_relu_frags<W>(acc, gn_s, gn_s + C, eps, ha);
+  tail::frag_mm<W>(acc, ha, tc::tiles(W_b + (nj & 1) * tc::tiles_bytes(C), C));
+  tail::gn_res_relu<W>(
       acc, gn_s + 2 * C, gn_s + 3 * C, eps,
       [&](int r, int c) {
         return __bfloat1622float2(
@@ -458,7 +483,7 @@ __device__ __forceinline__ void layer_tail_tc(float (&acc)[64], const bf16* X_s,
       [&](int r, int c, float y0, float y1) {
         const long gr = tile0 + r0 + r;
         if (gr < n)
-          *reinterpret_cast<__nv_bfloat162*>(out + gr * C + c) = __floats2bfloat162_rn(y0, y1);
+          *reinterpret_cast<__nv_bfloat162*>(out + gr * W + c) = __floats2bfloat162_rn(y0, y1);
       });
 }
 

@@ -45,6 +45,19 @@
 //     band_fwd_tc in bf16.
 // The band masks stay compact ([J, N] bytes) instead of padded planes.
 //
+// Width: the forward also runs on W = 64-wide rows (MapNet's and M2M's
+// LaneConv layers where n_map = 64), both kernels templated on W by the
+// padded route of common.cuh: feat and pre rows read W wide into the same
+// 128-column tiles (the bf16 halo tile keeps its ±32-row layout, DX_HROWS x
+// DX_HLD), the [W x W] Wb_j and W2 zero-padded to 128 x 128 in shared
+// memory, the GN affines zero past W, GN1's and GN2's statistics over W
+// columns (a quad of lanes holds a row's 128 accumulator columns, half of
+// them padding at 64: tc::acc_row_stats<W> sums only the first W), only W
+// columns of out and temp stored. The bf16 products keep m64n128k16 with K
+// cut to W (half of N multiplies zero columns). At W = 128 each kernel
+// compiles to the code it was before the width existed. The backward takes
+// 128 only.
+//
 // Backward (`lane_layer_bwd`): replaces pallas_lane_layer.py `_bwd_kernel` /
 // `_bwd_impl`. It consumes the saved temp:
 //
@@ -77,7 +90,7 @@ using namespace lgk;
 
 namespace {
 
-template <typename T>
+template <typename T, int W>
 __global__ void __launch_bounds__(NT)
 lane_layer_kernel(const T* __restrict__ feat, const T* __restrict__ pre,
                   const uint8_t* __restrict__ masks, const T* __restrict__ wb,
@@ -91,16 +104,17 @@ lane_layer_kernel(const T* __restrict__ feat, const T* __restrict__ pre,
   float* W_s = T_s + TM * LDA;                    // [C][C]
   const long tile0 = (long)blockIdx.x * TM;
 
-  load_halo<T>(X_s, feat, tile0, n);
+  load_halo<T, W>(X_s, feat, tile0, n);
   float acc[4][8];
-  band_fwd<T>(X_s, W_s, pre, masks, wb, tile0, n, nj, sh, acc);
+  band_fwd<T, W>(X_s, W_s, pre, masks, wb, tile0, n, nj, sh, acc);
   store_acc(T_s, acc);
   __syncthreads();
-  layer_tail<T>(X_s, T_s, W_s, w2, g1w, g1b, g2w, g2b, out, temp_out, tile0, n, eps);
+  layer_tail<T, W>(X_s, T_s, W_s, w2, g1w, g1b, g2w, g2b, out, temp_out, tile0, n, eps);
 }
 
 // The bf16 forward on tensor cores: DX_WGS = 3 warpgroups, DX_ROWS = 192
 // rows u a block, shared memory as lane_band.cuh `layer_tc_smem` lays it out.
+template <int W>
 __global__ void __launch_bounds__(DX_THREADS, 1)
 lane_layer_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ pre,
                      const uint8_t* __restrict__ masks, const bf16* __restrict__ wb,
@@ -116,37 +130,37 @@ lane_layer_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ pre
   __shared__ uint8_t act_s[MAXJ][DX_WGS];  // relation j in warpgroup g's rows
   const long tile0 = (long)blockIdx.x * DX_ROWS;
 
-  load_gn(gn_s, g1w, g1b, g2w, g2b);
+  load_gn<W>(gn_s, g1w, g1b, g2w, g2b);
   // acc = temp = pre + the band products; W2 in flight after them.
   float acc[64];
-  band_fwd_tc(acc, X_s, W_b, M_s, act_s, feat, pre, masks, wb, w2, tile0, n, nj, sh);
+  band_fwd_tc<W>(acc, X_s, W_b, M_s, act_s, feat, pre, masks, wb, w2, tile0, n, nj, sh);
   cp_async_wait<0>();  // W2
   tc::fence_smem();
   __syncthreads();  // W2 (and, without relations, the halo and vectors) in place
-  layer_tail_tc(acc, X_s, W_b, gn_s, out, temp_out, tile0, n, nj, eps);
+  layer_tail_tc<W>(acc, X_s, W_b, gn_s, out, temp_out, tile0, n, nj, eps);
 }
 
-template <typename T>
+template <typename T, int W>
 int launch(const void* feat, const void* pre, const uint8_t* masks, const void* wb,
            const void* w2, const float* g1w, const float* g1b, const float* g2w,
            const float* g2b, void* out, float* temp_out, int n, int nj, const Shifts& sh,
            float eps, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
     const int smem = layer_tc_smem();
-    cudaError_t err = set_smem((const void*)lane_layer_tc_kernel, smem);
+    cudaError_t err = set_smem((const void*)lane_layer_tc_kernel<W>, smem);
     if (err != cudaSuccess) return (int)err;
     const int blocks = (n + DX_ROWS - 1) / DX_ROWS;
     if (blocks > 0)
-      lane_layer_tc_kernel<<<blocks, DX_THREADS, smem, stream>>>(
+      lane_layer_tc_kernel<W><<<blocks, DX_THREADS, smem, stream>>>(
           (const bf16*)feat, (const bf16*)pre, masks, (const bf16*)wb, (const bf16*)w2, g1w, g1b,
           g2w, g2b, (bf16*)out, temp_out, n, nj, sh, eps);
   } else {
     const int smem = (HALO_TILE + TM * LDA + C * C) * (int)sizeof(float);
-    cudaError_t err = set_smem((const void*)lane_layer_kernel<T>, smem);
+    cudaError_t err = set_smem((const void*)lane_layer_kernel<T, W>, smem);
     if (err != cudaSuccess) return (int)err;
     const int blocks = (n + TM - 1) / TM;
     if (blocks > 0)
-      lane_layer_kernel<T><<<blocks, NT, smem, stream>>>(
+      lane_layer_kernel<T, W><<<blocks, NT, smem, stream>>>(
           (const T*)feat, (const T*)pre, masks, (const T*)wb, (const T*)w2, g1w, g1b, g2w, g2b,
           (T*)out, temp_out, n, nj, sh, eps);
   }
@@ -172,27 +186,26 @@ int launch_bwd(const T* feat, const float* temp, const uint8_t* masks, const T* 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (feat, pre, wb, w2, out); masks [nj, n]
-// bytes (0/1); GN vectors fp32 [128]; shifts: host array of nj ints;
-// temp_out: fp32 [n, 128] that receives temp, or null.
+// dtype: 0 = float32, 1 = bfloat16 (feat, pre, wb, w2, out); feat, pre, out
+// [n, width], wb [nj, width, width], w2 [width, width], width 128 or 64;
+// masks [nj, n] bytes (0/1); GN vectors fp32 [width]; shifts: host array of
+// nj ints; temp_out: fp32 [n, width] that receives temp, or null.
 extern "C" int lane_layer_fwd(const void* feat, const void* pre, const void* masks,
                               const void* wb, const void* w2, const void* g1w,
                               const void* g1b, const void* g2w, const void* g2b, void* out,
-                              void* temp_out, int n, int nj, const void* shifts, float eps,
-                              int dtype, void* stream) {
+                              void* temp_out, int n, int width, int nj, const void* shifts,
+                              float eps, int dtype, void* stream) {
   Shifts sh;
   const int bad = make_shifts(nj, (const int*)shifts, &sh);
   if (bad) return bad;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float>(feat, pre, (const uint8_t*)masks, wb, w2, (const float*)g1w,
-                         (const float*)g1b, (const float*)g2w, (const float*)g2b, out,
-                         (float*)temp_out, n, nj, sh, eps, st);
-  if (dtype == 1)
-    return launch<bf16>(feat, pre, (const uint8_t*)masks, wb, w2, (const float*)g1w,
-                        (const float*)g1b, (const float*)g2w, (const float*)g2b, out,
-                        (float*)temp_out, n, nj, sh, eps, st);
-  return (int)cudaErrorInvalidValue;
+  const uint8_t* m = (const uint8_t*)masks;
+  const float *a = (const float*)g1w, *b = (const float*)g1b, *c = (const float*)g2w,
+              *d = (const float*)g2b;
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    return launch<typename decltype(Tc)::type, decltype(Wc)::value>(
+        feat, pre, m, wb, w2, a, b, c, d, out, (float*)temp_out, n, nj, sh, eps, st);
+  });
 }
 
 // Backward. temp: the forward's fp32 temp; g: the output cotangent in feat's

@@ -41,34 +41,33 @@
 // rows the edges read): memory-bound at the card's rates. The passes also
 // move the fp32 message workspace (512 bytes an edge, written and read),
 // the price of a scatter without atomics.
+//
+// Width: the forward also runs on 64-wide rows (rel_agg.cuh, the padded
+// route); the backward takes 128 only.
 #include "rel_agg.cuh"
 
 using namespace lgk;
 
 // Forward, over the spill plan prepared by ops/pair_agg.py `prepare_spill`
 // (a PlanPrep over `slots` = nc*chunk plan slots, as scenario_agg_fwd takes
-// it). dtype: 0 = float32, 1 = bfloat16 (feat, temp, w_rel [R, C, C] (in,
-// out) and out [n, C]); src int32 [slots], the valid edges' source rows in
-// relation order; tiles / rel_tiles the relation-pure tile table; dpos /
-// dseg each edge's position in destination order and the destination row of
-// each (n past the valid edges); ws fp32 [slots, C]; blocks: the message
-// pass's persistent blocks.
+// it). dtype: 0 = float32, 1 = bfloat16 (feat, temp, w_rel [R, W, W] (in,
+// out) and out [n, W], W = width: 128 or 64); src int32 [slots], the valid
+// edges' source rows in relation order; tiles / rel_tiles the relation-pure
+// tile table; dpos / dseg each edge's position in destination order and the
+// destination row of each (n past the valid edges); ws fp32 [slots, W];
+// blocks: the message pass's persistent blocks.
 extern "C" int pair_agg_fwd(const void* feat, const void* temp, const void* w_rel,
                             const void* src, const void* tiles, const void* rel_tiles,
                             const void* dpos, const void* dseg, void* ws, void* out, int n,
-                            long long slots, int num_rel, int blocks, int dtype, void* stream) {
+                            int width, long long slots, int num_rel, int blocks, int dtype,
+                            void* stream) {
   if (n < 0 || slots < 0 || num_rel < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
   const int *s = (const int*)src, *t = (const int*)tiles, *rt = (const int*)rel_tiles,
             *dp = (const int*)dpos;
-  const long long* ds = (const long long*)dseg;
-  if (dtype == 0)
-    return agg::launch_fwd<agg::SpillPlan, float>(feat, temp, w_rel, s, t, rt, dp, ds,
-                                                  (float*)ws, out, n, slots, num_rel, blocks, st);
-  if (dtype == 1)
-    return agg::launch_fwd<agg::SpillPlan, bf16>(feat, temp, w_rel, s, t, rt, dp, ds,
-                                                 (float*)ws, out, n, slots, num_rel, blocks, st);
-  return (int)cudaErrorInvalidValue;
+  return agg::launch_fwd_width<agg::SpillPlan>(feat, temp, w_rel, s, t, rt, dp,
+                                               (const long long*)dseg, (float*)ws, out, n,
+                                               width, slots, num_rel, blocks, dtype,
+                                               (cudaStream_t)stream);
 }
 
 // Backward, over the spill plan prepared by ops/pair_agg.py `prepare_spill`

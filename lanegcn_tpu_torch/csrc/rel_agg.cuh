@@ -37,6 +37,15 @@
 //
 // Every kernel is templated on the plan kind (WindowPlan, SpillPlan) only so
 // that a profile names the two callers' passes apart.
+//
+// Width: the forward's passes also run on W = 64-wide rows (the LaneConv
+// layers where n_map = 64), the message kernels templated on W by the
+// padded route of common.cuh: source rows gathered W wide into the same
+// 128-column tiles (zeros past W), the [W x W] W_r zero-padded to 128 x 128
+// in shared memory, K cut to W on wgmma, the workspace [slots, W] and only
+// its W columns written, the segment sum over W columns. At W = 128 each
+// kernel compiles to the code it was before the width existed. The
+// backward's passes take 128 only.
 #pragma once
 
 #include <type_traits>
@@ -75,7 +84,8 @@ __device__ __forceinline__ int2 block_tiles(const int* rel_tiles, int num_rel) {
 // Tile t + 1's gather (and W_r, where the relation changes, into the other
 // of two weight buffers) is in flight by cp.async while tile t multiplies;
 // each thread's source rows of the next tile are loaded a tile ahead.
-template <bool TRANS, class Plan, typename M = float>
+// W: the rows' width (x [., W], W_r [W, W], ws [slots, W]).
+template <bool TRANS, class Plan, typename M = float, int W = C>
 __global__ void __launch_bounds__(MT)
 msg_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_rel,
               const int* __restrict__ rows, const int* __restrict__ tiles,
@@ -108,19 +118,24 @@ msg_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_rel,
     if (nt.rel != cur_rel) {
       wb ^= 1;
       cur_rel = nt.rel;
-      const bf16* w = w_rel + (long)cur_rel * C * C;
+      const bf16* w = w_rel + (long)cur_rel * W * W;
       uint8_t* dst = W_b + wb * WB;
       for (int i = threadIdx.x; i < C * C / 8; i += MT) {
         const int r = ((i >> 7) << 3) + (i & 7), c = ((i >> 3) & 15) * 8;
-        cp_async16(dst + tc::tile_off(wt, r, c), w + r * C + c);
+        if constexpr (W == C) {
+          cp_async16(dst + tc::tile_off(wt, r, c), w + r * C + c);
+        } else {
+          const bool in = r < W && c < W;
+          cp_async16_zfill(dst + tc::tile_off(wt, r, c), in ? w + r * W + c : w, in ? 16 : 0);
+        }
       }
     }
     stage_wb = (stage_wb & ~(1 << s)) | (wb << s);
     uint8_t* a = A_b + s * AB;
 #pragma unroll
     for (int k = 0; k < TE / 8; ++k) {
-      const bool in = src[k] >= 0;
-      cp_async16_zfill(a + tc::tile_off(at, rr + 8 * k, cb), in ? x + (long)src[k] * C + cb : x,
+      const bool in = src[k] >= 0 && (W == C || cb < W);
+      cp_async16_zfill(a + tc::tile_off(at, rr + 8 * k, cb), in ? x + (long)src[k] * W + cb : x,
                        in ? 16 : 0);
     }
     cp_async_commit();
@@ -145,20 +160,20 @@ msg_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_rel,
     __syncthreads();
     if (t + 1 < range.y) fetch(t + 1);
     const tc::Tiles A = tc::tiles(A_b + s * AB, TE);
-    const tc::Tiles W = tc::tiles(W_b + ((stage_wb >> s) & 1) * WB, C);
+    const tc::Tiles Wr = tc::tiles(W_b + ((stage_wb >> s) & 1) * WB, C);
     float acc[64];
     tc::zero(acc);
     tc::fence_acc(acc);
     tc::fence();
-    tc::mm<C / 16, true, TRANS>(acc, A, 0, W);
+    tc::mm<W / 16, true, TRANS>(acc, A, 0, Wr);
     tc::commit();
     tc::wait_all();
     tc::fence_acc(acc);
 #pragma unroll
-    for (int i = 0; i < 64; i += 2) {
+    for (int i = 0; i < W / 2; i += 2) {
       const int p = (i & 2) ? p1 : p0;
       if (p < 0) continue;
-      M* q = ws + (long)p * C + tc::acc_col(i);
+      M* q = ws + (long)p * W + tc::acc_col(i);
       if constexpr (std::is_same<M, float>::value)
         *reinterpret_cast<float2*>(q) = make_float2(acc[i], acc[i + 1]);
       else
@@ -169,8 +184,8 @@ msg_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_rel,
 
 // Pass 1 in fp32 on CUDA cores (the parity path): the same tiles and
 // positions, W_r (TRANS: W_rᵀ) in shared memory as fp32, reloaded where the
-// relation changes.
-template <bool TRANS, class Plan>
+// relation changes; W as in msg_tc_kernel.
+template <bool TRANS, class Plan, int W = C>
 __global__ void __launch_bounds__(NT)
 msg_kernel(const float* __restrict__ x, const float* __restrict__ w_rel,
            const int* __restrict__ rows, const int* __restrict__ tiles,
@@ -187,13 +202,14 @@ msg_kernel(const float* __restrict__ x, const float* __restrict__ w_rel,
     __syncthreads();  // the previous tile's product is done with A_s and W_s
     if (ct.rel != cur_rel) {
       cur_rel = ct.rel;
-      if (TRANS) load_weight_t<float>(W_s, w_rel + (long)cur_rel * C * C);
-      else load_weight<float>(W_s, w_rel + (long)cur_rel * C * C);
+      if (TRANS) load_weight_t<float, W>(W_s, w_rel + (long)cur_rel * W * W);
+      else load_weight<float, W>(W_s, w_rel + (long)cur_rel * W * W);
     }
     for (int idx = threadIdx.x; idx < TE * (C / 4); idx += NT) {
       const int i = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
       float4 v = zero4();
-      if (i < ct.count) v = load4<float>(x + (long)rows[ct.first + i] * C + c4);
+      if (i < ct.count && (W == C || c4 < W))
+        v = load4<float>(x + (long)rows[ct.first + i] * W + c4);
       *reinterpret_cast<float4*>(A_s + i * LDA + c4) = v;
     }
     __syncthreads();
@@ -204,11 +220,12 @@ msg_kernel(const float* __restrict__ x, const float* __restrict__ w_rel,
     for (int i = 0; i < 4; ++i) {
       const int row = mm_row(i);
       if (row < ct.count) {
-        float* p = ws + (long)pos[ct.first + row] * C;
+        float* p = ws + (long)pos[ct.first + row] * W;
         *reinterpret_cast<float4*>(p + mm_col(0)) =
             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        *reinterpret_cast<float4*>(p + mm_col(4)) =
-            make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+        if (W == C)  // mm_col(4) ≥ 64
+          *reinterpret_cast<float4*>(p + mm_col(4)) =
+              make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
       }
     }
   }
@@ -369,25 +386,25 @@ __global__ void reduce_rel_kernel(const float* __restrict__ part,
   dw[(long)r * C * C + i] = s;
 }
 
-// Pass 1 into a workspace of M: fp32, or (bf16 products only) bf16.
-template <class Plan, typename T, bool TRANS, typename M = float>
+// Pass 1 into a workspace of M: fp32, or (bf16 products only) bf16; rows W wide.
+template <class Plan, typename T, bool TRANS, typename M = float, int W = C>
 int launch_msg(const T* x, const T* w_rel, const int* rows, const int* tiles,
                const int* rel_tiles, const int* pos, M* ws, int num_rel, int blocks,
                cudaStream_t stream) {
   cudaError_t e;
   if constexpr (std::is_same<T, bf16>::value) {
     const int smem = 2 * tc::tiles_bytes(C) + 2 * tc::tiles_bytes(TE);
-    e = set_smem((const void*)msg_tc_kernel<TRANS, Plan, M>, smem);
+    e = set_smem((const void*)msg_tc_kernel<TRANS, Plan, M, W>, smem);
     if (e != cudaSuccess) return (int)e;
-    msg_tc_kernel<TRANS, Plan, M><<<blocks, MT, smem, stream>>>(x, w_rel, rows, tiles,
-                                                                rel_tiles, pos, ws, num_rel);
+    msg_tc_kernel<TRANS, Plan, M, W><<<blocks, MT, smem, stream>>>(x, w_rel, rows, tiles,
+                                                                   rel_tiles, pos, ws, num_rel);
   } else {
     static_assert(std::is_same<M, float>::value, "the fp32 pass writes an fp32 workspace");
     const int smem = (C * C + TE * LDA) * (int)sizeof(float);
-    e = set_smem((const void*)msg_kernel<TRANS, Plan>, smem);
+    e = set_smem((const void*)msg_kernel<TRANS, Plan, W>, smem);
     if (e != cudaSuccess) return (int)e;
-    msg_kernel<TRANS, Plan><<<blocks, NT, smem, stream>>>(x, w_rel, rows, tiles, rel_tiles, pos,
-                                                          ws, num_rel);
+    msg_kernel<TRANS, Plan, W><<<blocks, NT, smem, stream>>>(x, w_rel, rows, tiles, rel_tiles,
+                                                             pos, ws, num_rel);
   }
   return (int)cudaGetLastError();
 }
@@ -417,15 +434,29 @@ int launch_dw(const T* feat, const T* g, const int* dst, const int* src, const i
   return (int)cudaGetLastError();
 }
 
-template <class Plan, typename T>
+template <class Plan, typename T, int W = C>
 int launch_fwd(const void* feat, const void* temp, const void* w_rel, const int* src,
                const int* tiles, const int* rel_tiles, const int* dpos, const long long* dseg,
                float* ws, void* out, int n, long slots, int num_rel, int blocks,
                cudaStream_t stream) {
-  const int err = launch_msg<Plan, T, false>((const T*)feat, (const T*)w_rel, src, tiles,
-                                             rel_tiles, dpos, ws, num_rel, blocks, stream);
+  const int err = launch_msg<Plan, T, false, float, W>((const T*)feat, (const T*)w_rel, src,
+                                                       tiles, rel_tiles, dpos, ws, num_rel,
+                                                       blocks, stream);
   if (err != 0) return err;
-  return launch_segment_sum<float, T>(ws, dseg, (const T*)temp, (T*)out, slots, n, C, stream);
+  return launch_segment_sum<float, T>(ws, dseg, (const T*)temp, (T*)out, slots, n, W, stream);
+}
+
+// The forward at the row width and activation dtype of `with_width_dtype`.
+template <class Plan>
+int launch_fwd_width(const void* feat, const void* temp, const void* w_rel, const int* src,
+                     const int* tiles, const int* rel_tiles, const int* dpos,
+                     const long long* dseg, float* ws, void* out, int n, int width, long slots,
+                     int num_rel, int blocks, int dtype, cudaStream_t stream) {
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    return launch_fwd<Plan, typename decltype(Tc)::type, decltype(Wc)::value>(
+        feat, temp, w_rel, src, tiles, rel_tiles, dpos, dseg, ws, out, n, slots, num_rel, blocks,
+        stream);
+  });
 }
 
 template <class Plan, typename T>

@@ -824,11 +824,10 @@ extern "C" int row_tail_fwd(const void* x, const void* res, const void* w, const
   cudaStream_t st = (cudaStream_t)stream;
   const float *a = (const float*)g1w, *b = (const float*)g1b, *c = (const float*)g2w,
               *d = (const float*)g2b;
-  if (dtype == 0 && width == 128) return launch<float, 128>(x, res, w, a, b, c, d, out, n, eps, st);
-  if (dtype == 1 && width == 128) return launch<bf16, 128>(x, res, w, a, b, c, d, out, n, eps, st);
-  if (dtype == 0 && width == 64) return launch<float, 64>(x, res, w, a, b, c, d, out, n, eps, st);
-  if (dtype == 1 && width == 64) return launch<bf16, 64>(x, res, w, a, b, c, d, out, n, eps, st);
-  return (int)cudaErrorInvalidValue;
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    return launch<typename decltype(Tc)::type, decltype(Wc)::value>(x, res, w, a, b, c, d, out,
+                                                                    n, eps, st);
+  });
 }
 
 // K = 2: out = relu(GN3(relu(GN2(relu(GN1(x)) @ W1)) @ W2) + res).
@@ -877,13 +876,10 @@ extern "C" int row_tail_bwd(const void* x, const void* res, const void* g, const
   const float *a = (const float*)g1w, *b = (const float*)g1b, *c = (const float*)g2w,
               *d = (const float*)g2b;
   float *p = (float*)part, *gr = (float*)grads;
-  if (width == 128)
-    return launch_row_tail_bwd<128>(x, res, g, w, a, b, c, d, dx, dres, p, gr, n, blocks, eps,
-                                    dtype, st);
-  if (width == 64)
-    return launch_row_tail_bwd<64>(x, res, g, w, a, b, c, d, dx, dres, p, gr, n, blocks, eps,
-                                   dtype, st);
-  return (int)cudaErrorInvalidValue;
+  return with_width(width, [&](auto Wc) {
+    return launch_row_tail_bwd<decltype(Wc)::value>(x, res, g, w, a, b, c, d, dx, dres, p, gr, n,
+                                                    blocks, eps, dtype, st);
+  });
 }
 
 // K = 2 backward. g: the output cotangent in x's dtype; dx, dres [n, 128] in

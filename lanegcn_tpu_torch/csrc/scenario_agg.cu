@@ -26,36 +26,34 @@
 // and out: ~0.05 ms at the card's memory rate. This design also moves the
 // fp32 workspace (written and read once, 512 bytes an edge), which is the
 // price of a scatter without atomics.
+//
+// Width: the forward also runs on 64-wide rows (rel_agg.cuh, the padded
+// route); the backward takes 128 only.
 #include "rel_agg.cuh"
 
 using namespace lgk;
 
-// dtype: 0 = float32, 1 = bfloat16 (feat, temp, w_rel [R, C, C] (in, out) and
-// out [n, C]). The prepared plan (ops/scenario_agg.py `prepare_plan`), over
-// `slots` plan slots: src int32 [slots], the applied edges' source rows in
-// relation order; tiles int32 [*, 3] (relation, first edge, edges) and
-// rel_tiles int32 [R + 1], each relation's first tile (rel_tiles[R]: the live
-// tiles); dpos int32 [slots], each edge's position in destination order;
-// dseg int64 [slots], the destination row of each position (n past the
-// applied edges). ws: fp32 [slots, C] workspace. blocks: the message pass's
-// persistent blocks.
+// dtype: 0 = float32, 1 = bfloat16 (feat, temp, w_rel [R, W, W] (in, out) and
+// out [n, W], W = width: 128 or 64). The prepared plan (ops/scenario_agg.py
+// `prepare_plan`), over `slots` plan slots: src int32 [slots], the applied
+// edges' source rows in relation order; tiles int32 [*, 3] (relation, first
+// edge, edges) and rel_tiles int32 [R + 1], each relation's first tile
+// (rel_tiles[R]: the live tiles); dpos int32 [slots], each edge's position
+// in destination order; dseg int64 [slots], the destination row of each
+// position (n past the applied edges). ws: fp32 [slots, W] workspace.
+// blocks: the message pass's persistent blocks.
 extern "C" int scenario_agg_fwd(const void* feat, const void* temp, const void* w_rel,
                                 const void* src, const void* tiles, const void* rel_tiles,
                                 const void* dpos, const void* dseg, void* ws, void* out, int n,
-                                long long slots, int num_rel, int blocks, int dtype,
+                                int width, long long slots, int num_rel, int blocks, int dtype,
                                 void* stream) {
   if (n < 0 || slots < 0 || num_rel < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
   const int *s = (const int*)src, *t = (const int*)tiles, *rt = (const int*)rel_tiles,
             *dp = (const int*)dpos;
-  const long long* ds = (const long long*)dseg;
-  if (dtype == 0)
-    return agg::launch_fwd<agg::WindowPlan, float>(feat, temp, w_rel, s, t, rt, dp, ds,
-                                                   (float*)ws, out, n, slots, num_rel, blocks, st);
-  if (dtype == 1)
-    return agg::launch_fwd<agg::WindowPlan, bf16>(feat, temp, w_rel, s, t, rt, dp, ds,
-                                                  (float*)ws, out, n, slots, num_rel, blocks, st);
-  return (int)cudaErrorInvalidValue;
+  return agg::launch_fwd_width<agg::WindowPlan>(feat, temp, w_rel, s, t, rt, dp,
+                                                (const long long*)dseg, (float*)ws, out, n,
+                                                width, slots, num_rel, blocks, dtype,
+                                                (cudaStream_t)stream);
 }
 
 // Backward. g: the output cotangent in feat's dtype; w_rel as in the forward

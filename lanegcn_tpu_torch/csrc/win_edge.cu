@@ -41,6 +41,16 @@
 //      edge reaches come out as temp. A row's edges add in slot order, the
 //      order of the plain version's index_add_: reruns are bitwise equal.
 //
+// Width: the forward also runs on W = 64-wide rows (the fusion stages where
+// n_map = n_actor = 64), its three kernels templated on W by the padded
+// route of common.cuh: Pd/Qd/Ps/Cs/temp rows read W wide (zeros past W), bd
+// and the GN affines zero past W, Wdo, K1 and Wout zero-padded to 128 x 128
+// in shared memory (edge_tc.cuh's chain helpers at W, as edge_mlp.cu's Att
+// chain), GN statistics over W, the e2 workspace [slots, W], the sum pass's
+// lanes past W idle, only W columns stored. The wgmma products keep
+// m64n128k16 with K cut to W. At W = 128 each kernel compiles to the code
+// it was before the width existed. The backward takes 128 only.
+//
 #include <type_traits>
 
 #include "edge_chain.cuh"
@@ -69,17 +79,18 @@ __device__ __forceinline__ bool slot_rows(const int* idx, const int* meta, long 
 }
 
 // t1 = rnd(relu(Pd[u] + Ps[v] + bd)) for the tile's edges into A_s (0 where
-// lu_s is -1); lu_s / lv_s hold rows relative to base_d / base_s.
-template <typename T>
+// lu_s is -1, and past a row width W below C); lu_s / lv_s hold rows
+// relative to base_d / base_s.
+template <typename T, int W = C>
 __device__ __forceinline__ void gather_t1(float* A_s, const int* lu_s, const int* lv_s,
                                           const T* pd, const T* ps, const float* bd,
                                           long base_d, long base_s) {
   for (int i = threadIdx.x; i < TE * (C / 4); i += NT) {
     const int r = i / (C / 4), c4 = (i % (C / 4)) * 4;
     float4 t = zero4();
-    if (lu_s[r] >= 0) {
-      const float4 a = load4<T>(pd + (base_d + lu_s[r]) * C + c4);
-      const float4 b = load4<T>(ps + (base_s + lv_s[r]) * C + c4);
+    if (lu_s[r] >= 0 && (W == C || c4 < W)) {
+      const float4 a = load4<T>(pd + (base_d + lu_s[r]) * W + c4);
+      const float4 b = load4<T>(ps + (base_s + lv_s[r]) * W + c4);
       t = rnd4<T>(relu4(add4(add4(a, b), *reinterpret_cast<const float4*>(bd + c4))));
     }
     *reinterpret_cast<float4*>(A_s + r * LDA + c4) = t;
@@ -111,7 +122,8 @@ __device__ __forceinline__ uint4 t1_pack8(const bf16* pd_row, const bf16* ps_row
 
 // fp32 (the parity path): edge_chain.cuh's chain_fwd on CUDA cores. Block b
 // takes the plan's 64-slot tiles b, b + B, ..., skips a tile without an
-// edge, and writes each edge's e2 row at its slot of ws.
+// edge, and writes each edge's e2 row at its slot of ws ([slots, W]).
+template <int W>
 __global__ void __launch_bounds__(NT)
 win_edge_fwd_kernel(const float* __restrict__ pd, const float* __restrict__ qd,
                     const float* __restrict__ ps, const float* __restrict__ cs,
@@ -142,25 +154,26 @@ win_edge_fwd_kernel(const float* __restrict__ pd, const float* __restrict__ qd,
       lv_s[threadIdx.x] = ok ? v : -1;
     }
     if (!__syncthreads_or(ok)) continue;
-    gather_t1<float>(A_s, lu_s, lv_s, pd, ps, bd, 0, 0);
-    chain_fwd<float>(A_s, W_s, w,
-                     [&](int r, float4 s) {  // s += Cs[v] + Qd[u]
-                       if (lu_s[r] >= 0) {
-                         s = add4(s, load4<float>(cs + (long)lv_s[r] * C + lane * 4));
-                         s = add4(s, load4<float>(qd + (long)lu_s[r] * C + lane * 4));
-                       }
-                       return s;
-                     },
-                     mm);
+    gather_t1<float, W>(A_s, lu_s, lv_s, pd, ps, bd, 0, 0);
+    chain_fwd<float, true, W>(A_s, W_s, w,
+                              [&](int r, float4 s) {  // s += Cs[v] + Qd[u]
+                                if (lu_s[r] >= 0 && lane_in<W>()) {
+                                  s = add4(s, load4<float>(cs + (long)lv_s[r] * W + lane * 4));
+                                  s = add4(s, load4<float>(qd + (long)lu_s[r] * W + lane * 4));
+                                }
+                                return s;
+                              },
+                              mm);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = mm_row(i);
       if (lu_s[r] >= 0) {
-        float* row = ws + (t * TE + r) * C;
+        float* row = ws + (t * TE + r) * W;
         *reinterpret_cast<float4*>(row + mm_col(0)) =
             make_float4(mm[i][0], mm[i][1], mm[i][2], mm[i][3]);
-        *reinterpret_cast<float4*>(row + mm_col(4)) =
-            make_float4(mm[i][4], mm[i][5], mm[i][6], mm[i][7]);
+        if (W == C)  // mm_col(4) ≥ 64
+          *reinterpret_cast<float4*>(row + mm_col(4)) =
+              make_float4(mm[i][4], mm[i][5], mm[i][6], mm[i][7]);
       }
     }
   }
@@ -182,6 +195,7 @@ inline int fwd_tc_smem() {
          FW_WGS * (2 * TE + 2) * (int)sizeof(int);
 }
 
+template <int W>
 __global__ void __launch_bounds__(FW_THREADS, 1)
 win_edge_fwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
                        const bf16* __restrict__ ps, const bf16* __restrict__ cs,
@@ -212,10 +226,10 @@ win_edge_fwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
   const float* gchw_s = vec_s + 3 * C;
   const float* gchb_s = vec_s + 4 * C;
 
-  load_chain_weights(W_b, kdo, k1, kout, FW_THREADS);
+  load_chain_weights<W>(W_b, kdo, k1, kout, FW_THREADS);
   for (int i = threadIdx.x; i < 5 * C; i += FW_THREADS) {
     const float* v = i < C ? bd : i < 2 * C ? gdow : i < 3 * C ? gdob : i < 4 * C ? gchw : gchb;
-    vec_s[i] = v[i & (C - 1)];
+    vec_s[i] = W == C || (i & (C - 1)) < W ? v[i & (C - 1)] : 0.f;
   }
   cp_async_wait<0>();
   tc::fence_smem();
@@ -241,8 +255,9 @@ win_edge_fwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
     for (int k = 0; k < TE * C / 8 / 128; ++k) {
       const int r = 8 * k + (tid & 7), c = (tid >> 3) * 8;
       const int u = U_s[r];
-      const uint4 o = u >= 0 ? t1_pack8(pd + (long)u * C + c, ps + (long)V_s[r] * C + c, bd_s + c)
-                             : make_uint4(0u, 0u, 0u, 0u);
+      const uint4 o = u >= 0 && (W == C || c < W)
+                          ? t1_pack8(pd + (long)u * W + c, ps + (long)V_s[r] * W + c, bd_s + c)
+                          : make_uint4(0u, 0u, 0u, 0u);
       *reinterpret_cast<uint4*>(T1_b + tc::tile_off(T1, r, c)) = o;
     }
     tc::fence_smem();
@@ -256,19 +271,19 @@ win_edge_fwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
     tc::zero(acc);  // z = t1 @ Wdo
     tc::fence_acc(acc);
     tc::fence();
-    tc::mm<C / 16, true, false>(acc, T1, 0, Wdo);
+    tc::mm<W / 16, true, false>(acc, T1, 0, Wdo);
     tc::commit();
     tc::wait_all();
     tc::fence_acc(acc);
-    t2_from_z(acc, gdow_s, gdob_s, eps, mu, inv, a);
+    t2_from_z<W>(acc, gdow_s, gdob_s, eps, mu, inv, a);
     tc::zero(acc);  // s = t2 @ K1
-    mm_frag(acc, a, K1);
-    e1_from_s(acc, add_cq(ok, uu, vv, cs, qd), gchw_s, gchb_s, eps, inv, a);
+    mm_frag<false, W>(acc, a, K1);
+    e1_from_s<W>(acc, add_cq<W>(ok, uu, vv, cs, qd), gchw_s, gchb_s, eps, inv, a);
     tc::zero(acc);  // e2 = e1 @ Wout
-    mm_frag(acc, a, Wout);
-    float* row[2] = {ws + (t * TE + r0) * C, ws + (t * TE + r0 + 8) * C};
+    mm_frag<false, W>(acc, a, Wout);
+    float* row[2] = {ws + (t * TE + r0) * W, ws + (t * TE + r0 + 8) * W};
 #pragma unroll
-    for (int i = 0; i < 64; i += 2) {
+    for (int i = 0; i < W / 2; i += 2) {
       const int h = tc::acc_half(i);
       if (ok[h])
         *reinterpret_cast<float2*>(row[h] + tc::acc_col(i)) = make_float2(acc[i], acc[i + 1]);
@@ -289,8 +304,9 @@ constexpr int SUM_STAGE = 1024;  // plan slots staged at a time: 4 a thread
 // edge, or an edge into another item's rows). Warp w owns the item's rows
 // 4w .. 4w + 3 (lane: 4 channels, kept in registers), scans the staged rows
 // 32 at a time by ballot and adds its hits in slot order, loading up to
-// four hits' rows before adding them.
-template <typename T>
+// four hits' rows before adding them. Rows W wide: lanes past W carry no
+// channel (they still vote in the ballots).
+template <typename T, int W>
 __global__ void __launch_bounds__(NT)
 win_edge_sum_kernel(const float* __restrict__ ws, const T* __restrict__ temp,
                     const int* __restrict__ idx, const int* __restrict__ meta,
@@ -309,7 +325,7 @@ win_edge_sum_kernel(const float* __restrict__ ws, const T* __restrict__ temp,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int r = 4 * warp + j;
-      acc[j] = r < rows ? load4<T>(temp + (g0 + r) * C + lane * 4) : zero4();
+      acc[j] = r < rows && lane_in<W>() ? load4<T>(temp + (g0 + r) * W + lane * 4) : zero4();
     }
     const long s_lo = seg::warp_lower_bound(meta, nc, w) * chunk;
     const long s_hi = seg::warp_lower_bound(meta, nc, w + 1) * chunk;
@@ -338,11 +354,11 @@ win_edge_sum_kernel(const float* __restrict__ ws, const T* __restrict__ temp,
           }
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            if (b[j] >= 0)
-              x[j] = *reinterpret_cast<const float4*>(ws + (s0 + q0 + b[j]) * C + lane * 4);
+            if (b[j] >= 0 && lane_in<W>())
+              x[j] = *reinterpret_cast<const float4*>(ws + (s0 + q0 + b[j]) * W + lane * 4);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            if (b[j] < 0) continue;
+            if (b[j] < 0 || !lane_in<W>()) continue;
             const int rr = row_s[q0 + b[j]] & 3;
 #pragma unroll
             for (int k = 0; k < 4; ++k)
@@ -354,12 +370,12 @@ win_edge_sum_kernel(const float* __restrict__ ws, const T* __restrict__ temp,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int r = 4 * warp + j;
-      if (r < rows) store4<T>(out + (g0 + r) * C + lane * 4, acc[j]);
+      if (r < rows && lane_in<W>()) store4<T>(out + (g0 + r) * W + lane * 4, acc[j]);
     }
   }
 }
 
-template <typename T>
+template <typename T, int W>
 int launch_fwd(const T* pd, const T* qd, const T* ps, const T* cs, const T* temp,
                const float* bd, const T* kdo, const float* gdow, const float* gdob, const T* k1,
                const float* gchw, const float* gchb, const T* kout, const int* idx,
@@ -369,16 +385,16 @@ int launch_fwd(const T* pd, const T* qd, const T* ps, const T* cs, const T* temp
   if (nc > 0) {
     if constexpr (std::is_same<T, bf16>::value) {
       const int smem = fwd_tc_smem();
-      e = set_smem((const void*)win_edge_fwd_tc_kernel, smem);
+      e = set_smem((const void*)win_edge_fwd_tc_kernel<W>, smem);
       if (e != cudaSuccess) return (int)e;
-      win_edge_fwd_tc_kernel<<<blocks, FW_THREADS, smem, stream>>>(
+      win_edge_fwd_tc_kernel<W><<<blocks, FW_THREADS, smem, stream>>>(
           pd, qd, ps, cs, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, idx, meta, ws, nc, chunk,
           icol, sd, ss, nd, ns, eps);
     } else {
       const int smem = (TE * LDA + C * C) * (int)sizeof(float) + 2 * TE * (int)sizeof(int);
-      e = set_smem((const void*)win_edge_fwd_kernel, smem);
+      e = set_smem((const void*)win_edge_fwd_kernel<W>, smem);
       if (e != cudaSuccess) return (int)e;
-      win_edge_fwd_kernel<<<2 * blocks, NT, smem, stream>>>(
+      win_edge_fwd_kernel<W><<<2 * blocks, NT, smem, stream>>>(
           pd, qd, ps, cs, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, idx, meta, ws, nc, chunk,
           icol, sd, ss, nd, ns, eps);
     }
@@ -388,8 +404,8 @@ int launch_fwd(const T* pd, const T* qd, const T* ps, const T* cs, const T* temp
   const long items = (long)((nd + sd - 1) / sd) * ((sd + SUM_ROWS - 1) / SUM_ROWS);
   const long grid = items < 8L * blocks ? items : 8L * blocks;  // 8 blocks an SM
   if (grid > 0)
-    win_edge_sum_kernel<T><<<(unsigned)grid, NT, 0, stream>>>(ws, temp, idx, meta, out, nc,
-                                                              chunk, icol, sd, ss, nd, ns);
+    win_edge_sum_kernel<T, W><<<(unsigned)grid, NT, 0, stream>>>(ws, temp, idx, meta, out, nc,
+                                                                 chunk, icol, sd, ss, nd, ns);
   return (int)cudaGetLastError();
 }
 
@@ -802,35 +818,33 @@ int launch_bwd(const T* pd, const T* qd, const T* ps, const T* cs, const T* g, c
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (pd, qd, ps, cs, temp, kdo, k1, kout, out);
-// bd and the GN vectors fp32 [128]; idx int32 [nc*chunk, icol] (lu, lv, ...);
-// meta int32 [6, nc] (dwin, swin, ...; dwin non-decreasing, as the packer
-// emits it); ws fp32 [nc*chunk, 128] workspace; out [nd, 128], every row
-// written (temp's where no edge lands). blocks: the card's SMs (the chain
-// pass's persistent blocks: one per SM in bf16, two in fp32).
+// rows and vectors W = width wide (128 or 64): pd, qd, temp, out [nd, W],
+// ps, cs [ns, W], kdo, k1, kout [W, W], bd and the GN vectors fp32 [W];
+// idx int32 [nc*chunk, icol] (lu, lv, ...); meta int32 [6, nc] (dwin, swin,
+// ...; dwin non-decreasing, as the packer emits it); ws fp32 [nc*chunk, W]
+// workspace; out every row written (temp's where no edge lands). blocks:
+// the card's SMs (the chain pass's persistent blocks: one per SM in bf16,
+// two in fp32).
 extern "C" int win_edge_fwd(const void* pd, const void* qd, const void* ps, const void* cs,
                             const void* temp, const void* bd, const void* kdo,
                             const void* gdow, const void* gdob, const void* k1,
                             const void* gchw, const void* gchb, const void* kout,
                             const void* idx, const void* meta, void* ws, void* out, int nc,
-                            int chunk, int sd, int ss, int icol, int nd, int ns, int blocks,
-                            float eps, int dtype, void* stream) {
+                            int chunk, int sd, int ss, int icol, int nd, int ns, int width,
+                            int blocks, float eps, int dtype, void* stream) {
   if (nc < 0 || chunk < 1 || sd < 1 || ss < 1 || icol < 2 || nd < 0 || ns < 0 || blocks < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float *b = (const float*)bd, *g0 = (const float*)gdow, *g1 = (const float*)gdob,
               *g2 = (const float*)gchw, *g3 = (const float*)gchb;
   const int *ix = (const int*)idx, *mt = (const int*)meta;
-  if (dtype == 0)
-    return launch_fwd<float>((const float*)pd, (const float*)qd, (const float*)ps,
-                             (const float*)cs, (const float*)temp, b, (const float*)kdo, g0, g1,
-                             (const float*)k1, g2, g3, (const float*)kout, ix, mt, (float*)ws,
-                             (float*)out, nc, chunk, sd, ss, icol, nd, ns, blocks, eps, st);
-  if (dtype == 1)
-    return launch_fwd<bf16>((const bf16*)pd, (const bf16*)qd, (const bf16*)ps, (const bf16*)cs,
-                            (const bf16*)temp, b, (const bf16*)kdo, g0, g1, (const bf16*)k1, g2,
-                            g3, (const bf16*)kout, ix, mt, (float*)ws, (bf16*)out, nc, chunk, sd,
-                            ss, icol, nd, ns, blocks, eps, st);
-  return (int)cudaErrorInvalidValue;
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    using T = typename decltype(Tc)::type;
+    return launch_fwd<T, decltype(Wc)::value>(
+        (const T*)pd, (const T*)qd, (const T*)ps, (const T*)cs, (const T*)temp, b,
+        (const T*)kdo, g0, g1, (const T*)k1, g2, g3, (const T*)kout, ix, mt, (float*)ws, (T*)out,
+        nc, chunk, sd, ss, icol, nd, ns, blocks, eps, st);
+  });
 }
 
 // Backward. g: the output cotangent in pd's dtype. The plan prepared by

@@ -45,6 +45,11 @@ ENTRIES = {
 
 KERNELS = tuple(ENTRIES)
 
+# The row widths the W-templated kernels are built at (csrc/common.cuh
+# `with_width`); each wrapper refuses the others, and the kernels that take
+# 128 only refuse 64 too.
+WIDTHS = (64, 128)
+
 LAUNCHES: Dict[str, int] = {e: 0 for entries in ENTRIES.values() for e in entries}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"

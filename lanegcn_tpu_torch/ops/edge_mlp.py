@@ -26,10 +26,10 @@ import ctypes
 import torch
 
 from lanegcn_tpu_torch.ops import cuda
+from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.norm import gn_bwd, gn_stats, group_norm
 
 C = 128
-WIDTHS = (64, 128)  # the row widths Att's kernels take
 
 
 def part_size(c: int) -> int:
@@ -223,9 +223,10 @@ def _pool_prep(d, cg, kd, bd, k1, gchw, gchb, kout, *rows):
             or tuple(kd.shape) != (din, c) or tuple(k1.shape) != (c, c)
             or tuple(kout.shape) != (c, c)
             or any(tuple(p.shape) != (c,) for p in (bd, gchw, gchb))):
-        raise ValueError(f"edge_mlp: bad shapes d {d.shape} cg {cg.shape} kd {kd.shape}")
+        raise ValueError(f"edge_mlp_pool: bad shapes d {d.shape} cg {cg.shape} kd {kd.shape} "
+                         f"(rows {C} wide)")
     if d.dtype != torch.float32:
-        raise TypeError("edge_mlp: d must be float32")
+        raise TypeError("edge_mlp_pool: d must be float32")
     dt = cg.dtype
     acts = [cuda.param(x, x.dtype) for x in (d, cg, *rows)]
     ws = [cuda.param(w, dt) for w in (kd, k1, kout)]

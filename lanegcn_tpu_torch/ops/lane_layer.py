@@ -13,6 +13,10 @@ the forward kernel writes it, bitwise its own value) and its backward is the
 `fused_lane_layer_plan` (the `lane_plan` kernels, csrc/lane_plan.cu) is the
 same layer with the window plan's aggregate added into temp inside it, the
 counterpart of `fused_lane_layer_plan` there; see its section below.
+
+The forward kernel takes rows W = 128 or 64 wide (`WIDTHS`: LaneGCN at
+n_map = 128, and the half-width model at 64); the backward and `lane_plan`
+take 128. The plain versions take any width.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Sequence
 import torch
 
 from lanegcn_tpu_torch.ops import cuda
+from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.norm import group_norm
 from lanegcn_tpu_torch.ops.row_tail import PART, tail_bwd_plain
 from lanegcn_tpu_torch.ops.scenario_agg import (
@@ -77,7 +82,8 @@ def _band_bwd_plain(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, g, shifts, ep
         m = masks[j].to(torch.float32)[:, None]
         dx = dx + _shift_rows(d_temp * m, -s) @ wb[j].float().t()
         dwb.append((_shift_rows(f, s) * m).t() @ dt_r)
-    dwb = torch.stack(dwb) if dwb else torch.zeros(0, C, C, dtype=torch.float32,
+    c = feat.shape[1]
+    dwb = torch.stack(dwb) if dwb else torch.zeros(0, c, c, dtype=torch.float32,
                                                    device=feat.device)
     return d_temp, dx, dwb, dw2, dgn
 
@@ -90,7 +96,7 @@ def lane_layer_bwd_plain(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, g,
         dx  = d_y + Σ_j band_j[p − s_j] · d_temp[p − s_j] @ Wb_jᵀ   (fp32 d_temp)
         dWb_j = Σ_u (band_j[u] · feat[u + s_j])ᵀ rnd(d_temp[u])
 
-    Returns (dx, dpre) in feat's dtype, then fp32 dWb [J, 128, 128], dW2 and
+    Returns (dx, dpre) in feat's dtype, then fp32 dWb [J, W, W], dW2 and
     the four GN vector gradients.
     """
     dt = feat.dtype
@@ -99,18 +105,24 @@ def lane_layer_bwd_plain(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, g,
     return (dx.to(dt), d_temp.to(dt), dwb, dw2, *dgn)
 
 
-def _check(feat, pre, masks, wb, w2, gns, shifts):
+def _check(feat, pre, masks, wb, w2, gns, shifts, name="lane_layer", widths=WIDTHS):
+    """Shapes and dtypes kernel `name` takes: feat/pre [N, W] with W in
+    `widths` (the forward 64 or 128; the backward and lane_plan 128), wb
+    [J, W, W], w2 [W, W], masks [J, N], the GN vectors [W]."""
     n, c = feat.shape
     j = len(shifts)
-    if (c != C or pre.shape != feat.shape or tuple(wb.shape) != (j, c, c)
+    if c not in widths:
+        raise ValueError(f"{name}: the kernel takes rows {' or '.join(map(str, widths))} "
+                         f"wide, not {c}")
+    if (pre.shape != feat.shape or tuple(wb.shape) != (j, c, c)
             or tuple(w2.shape) != (c, c) or tuple(masks.shape) != (j, n)
             or any(tuple(g.shape) != (c,) for g in gns)):
-        raise ValueError(f"lane_layer: bad shapes feat {feat.shape} pre {pre.shape} "
+        raise ValueError(f"{name}: bad shapes feat {feat.shape} pre {pre.shape} "
                          f"masks {masks.shape} wb {wb.shape} w2 {w2.shape}")
     if any(abs(s) > HALO for s in shifts):
-        raise ValueError(f"lane_layer: shifts beyond ±{HALO}: {shifts}")
+        raise ValueError(f"{name}: shifts beyond ±{HALO}: {shifts}")
     if pre.dtype != feat.dtype or wb.dtype != feat.dtype or w2.dtype != feat.dtype:
-        raise TypeError("lane_layer: feat, pre, wb and w2 must share one dtype")
+        raise TypeError(f"{name}: feat, pre, wb and w2 must share one dtype")
 
 
 def _mask_bytes(masks):
@@ -144,20 +156,20 @@ def _gn_params(*gns):
 def _fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, shifts, eps, save_temp=False):
     """The forward kernel; returns out, or (out, temp fp32) with save_temp."""
     _check(feat, pre, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts)
-    n = feat.shape[0]
+    n, c = feat.shape
     masks = _mask_bytes(masks)
     gns = _gn_params(g1w, g1b, g2w, g2b)
     # The bf16 kernel copies feat rows and the weights by 16-byte cp.async.
     feat, wb, w2 = (cuda.param(t, t.dtype) for t in (feat, wb, w2))
     code = cuda.check_cuda("lane_layer", feat, pre, masks, wb, w2, *gns)
     out = torch.empty_like(feat)
-    temp = torch.empty(n, C, dtype=torch.float32, device=feat.device) if save_temp else None
+    temp = torch.empty(n, c, dtype=torch.float32, device=feat.device) if save_temp else None
     sh = _shift_array(shifts)
     cuda.call(
         "lane_layer", "lane_layer_fwd",
         cuda.ptr(feat), cuda.ptr(pre), cuda.ptr(masks), cuda.ptr(wb), cuda.ptr(w2),
         *(cuda.ptr(g) for g in gns), cuda.ptr(out), cuda.ptr(temp),
-        ctypes.c_int(n), ctypes.c_int(len(shifts)), sh,
+        ctypes.c_int(n), ctypes.c_int(c), ctypes.c_int(len(shifts)), sh,
         ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
     )
     return (out, temp) if save_temp else out
@@ -166,7 +178,7 @@ def _fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, shifts, eps, save_te
 def lane_layer_bwd_cuda(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, g,
                         shifts: Sequence[int], eps: float = 1e-5):
     """The `lane_layer_bwd` kernel; the same outputs as `lane_layer_bwd_plain`."""
-    _check(feat, feat, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts)
+    _check(feat, feat, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts, "lane_layer_bwd", (C,))
     n = feat.shape[0]
     j = len(shifts)
     if (temp.shape != feat.shape or temp.dtype != torch.float32
@@ -231,10 +243,11 @@ def fused_lane_layer(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b,
                      shifts: Sequence[int], eps: float = 1e-5) -> torch.Tensor:
     """relu(GN2(relu(GN1(pre + band_conv(feat))) @ w2) + feat).
 
-    feat/pre [N, 128] (float32 or bfloat16); masks [J, N] bool or 0/1;
-    wb [J, 128, 128] and w2 [128, 128] in (in, out) layout, in feat's dtype;
-    GN affines [128] fp32; shifts: J ints with |s| ≤ 32. CPU tensors take
-    the plain version; CUDA tensors launch the kernel.
+    feat/pre [N, W] (float32 or bfloat16; W = 128 or 64 on the card);
+    masks [J, N] bool or 0/1; wb [J, W, W] and w2 [W, W] in (in, out)
+    layout, in feat's dtype; GN affines [W] fp32; shifts: J ints with |s| ≤
+    32. CPU tensors take the plain version; CUDA tensors launch the kernel
+    (the backward kernel at W = 128 only).
     """
     if feat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lane_layer: unsupported device {feat.device}")
@@ -248,10 +261,11 @@ def fused_lane_layer(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b,
 
 
 def work(feat, masks) -> dict:
-    """Bytes the function must move and operations it does at these inputs:
-    feat, pre and out whole, the masks as bytes, the weights once; a band
-    product only on the rows its mask selects (the work depends on the
-    masks' data), the second product on every row."""
+    """Bytes the function must move and operations it does at these inputs,
+    at feat's width W: feat, pre and out whole (W wide), the masks as
+    bytes, the [W, W] weights once; a band product (2·W² operations a row)
+    only on the rows its mask selects (the work depends on the masks'
+    data), the second product on every row."""
     n, c = feat.shape
     j, db = masks.shape[0], feat.element_size()
     band_rows = int((masks != 0).sum())
@@ -374,7 +388,7 @@ def _plan_fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, 
                    shifts, groups, eps, prep=None, save_temp=False):
     """The forward kernel on the prepared plan (`prep`, or one prepared
     here); returns out, or (out, temp fp32) with save_temp."""
-    _check(feat, pre, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts)
+    _check(feat, pre, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts, "lane_plan", (C,))
     _plan_check(feat, w_rel, lu, lv, rel, num_win)
     n, r_num, slots = feat.shape[0], w_rel.shape[0], lu.shape[0]
     prep = _prep_for(lu, lv, rel, num_win, n, groups, r_num, prep, False)
@@ -405,7 +419,7 @@ def lane_plan_bwd_cuda(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu,
     """The `lane_plan_bwd` kernel on the prepared plan (`prep` with its
     source order, or one prepared here); the same outputs as
     `lane_plan_bwd_plain`."""
-    _check(feat, feat, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts)
+    _check(feat, feat, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts, "lane_plan_bwd", (C,))
     _plan_check(feat, w_rel, lu, lv, rel, num_win)
     n, slots = feat.shape[0], lu.shape[0]
     j, r_num = len(shifts), w_rel.shape[0]

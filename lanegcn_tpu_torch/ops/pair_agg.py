@@ -11,6 +11,9 @@ runs through a `torch.autograd.Function` whose backward is the
 `pair_agg_bwd` kernel on CUDA tensors and `pair_agg_bwd_plain` on CPU
 tensors; temp's cotangent is the output's, unchanged.
 
+The forward kernel takes rows W = 128 or 64 wide (`WIDTHS`); the backward
+takes 128. The plain versions take any width.
+
 Both kernels walk the plan as `prepare_spill` lists it (a
 scenario_agg.PlanPrep: the valid slots in relation order, their 64-edge
 single-relation tiles, their destination and, for the backward, source
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 
 from lanegcn_tpu_torch.graph import PairPlan
 from lanegcn_tpu_torch.ops import cuda
+from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.scenario_agg import (PlanPrep, _arange, _blocks, _per_relation,
                                                  prepare_edges)
 
@@ -117,19 +121,25 @@ def pair_agg_bwd_plain(feat, w_rel, plan: PairPlan, g, prep=None):
     return dfeat[:n].to(feat.dtype), dw
 
 
-def _check(feat, temp, w_rel, plan: PairPlan):
+def _check(feat, temp, w_rel, plan: PairPlan, name="pair_agg", widths=WIDTHS):
+    """Shapes and dtypes kernel `name` takes: feat/temp [N, W] with W in
+    `widths` (the forward 64 or 128, the backward 128), w_rel [R, W, W], the
+    spill plan with its relation column."""
     n, c = feat.shape
     r_num = w_rel.shape[0]
     nc = plan.num_chunks
-    if (c != C or temp.shape != feat.shape or tuple(w_rel.shape) != (r_num, c, c)
+    if c not in widths:
+        raise ValueError(f"{name}: the kernel takes rows {' or '.join(map(str, widths))} "
+                         f"wide, not {c}")
+    if (temp.shape != feat.shape or tuple(w_rel.shape) != (r_num, c, c)
             or not 0 < r_num <= 32 or plan.idx.dim() != 2 or plan.idx.shape[1] != 3
             or plan.idx.shape[0] != nc * plan.chunk or tuple(plan.meta.shape) != (6, nc)):
-        raise ValueError(f"pair_agg: bad shapes feat {feat.shape} w_rel {w_rel.shape} "
+        raise ValueError(f"{name}: bad shapes feat {feat.shape} w_rel {w_rel.shape} "
                          f"plan idx {plan.idx.shape} meta {plan.meta.shape}")
     if temp.dtype != feat.dtype or w_rel.dtype != feat.dtype:
-        raise TypeError("pair_agg: feat, temp and w_rel must share one dtype")
+        raise TypeError(f"{name}: feat, temp and w_rel must share one dtype")
     if plan.idx.dtype != torch.int32 or plan.meta.dtype != torch.int32:
-        raise TypeError("pair_agg: plan indices must be int32")
+        raise TypeError(f"{name}: plan indices must be int32")
 
 
 def _prep_for(plan: PairPlan, n: int, r_num: int, prep, backward: bool) -> PlanPrep:
@@ -147,17 +157,17 @@ def _prep_for(plan: PairPlan, n: int, r_num: int, prep, backward: bool) -> PlanP
 
 def _fwd_cuda(feat, temp, w_rel, plan: PairPlan, prep: PlanPrep | None = None):
     _check(feat, temp, w_rel, plan)
-    n, r_num, slots = feat.shape[0], w_rel.shape[0], plan.idx.shape[0]
+    (n, c), r_num, slots = feat.shape, w_rel.shape[0], plan.idx.shape[0]
     prep = _prep_for(plan, n, r_num, prep, False)
     feat, temp, w_rel = (cuda.param(t, t.dtype) for t in (feat, temp, w_rel))
     code = cuda.check_cuda("pair_agg", feat, temp, w_rel, *prep[:7])
-    ws = torch.empty(slots, C, dtype=torch.float32, device=feat.device)
+    ws = torch.empty(slots, c, dtype=torch.float32, device=feat.device)
     out = torch.empty_like(temp)
     cuda.call(
         "pair_agg", "pair_agg_fwd",
         cuda.ptr(feat), cuda.ptr(temp), cuda.ptr(w_rel), cuda.ptr(prep.src),
         cuda.ptr(prep.tiles), cuda.ptr(prep.rel_tiles), cuda.ptr(prep.dpos),
-        cuda.ptr(prep.dseg), cuda.ptr(ws), cuda.ptr(out), ctypes.c_int(n),
+        cuda.ptr(prep.dseg), cuda.ptr(ws), cuda.ptr(out), ctypes.c_int(n), ctypes.c_int(c),
         ctypes.c_longlong(slots), ctypes.c_int(r_num), ctypes.c_int(_blocks(feat.device)),
         ctypes.c_int(code), cuda.stream(),
     )
@@ -169,7 +179,7 @@ def pair_agg_bwd_cuda(feat, w_rel, plan: PairPlan, g, prep: PlanPrep | None = No
     `prep`: the plan's `prepare_spill` for feat's rows with the source order
     (made here when None or forward-only; a LaneGCN forward makes it once
     for both stacks)."""
-    _check(feat, g, w_rel, plan)
+    _check(feat, g, w_rel, plan, "pair_agg_bwd", (C,))
     n, r_num, slots = feat.shape[0], w_rel.shape[0], plan.idx.shape[0]
     prep = _prep_for(plan, n, r_num, prep, True)
     feat, g, w_rel = (cuda.param(t, t.dtype) for t in (feat, g, w_rel))
@@ -217,7 +227,8 @@ class _PairAgg(torch.autograd.Function):
 def pair_aggregate(feat, temp, w_rel, plan: PairPlan, prep: PlanPrep | None = None) -> torch.Tensor:
     """temp + Σ spill-plan edges W_rel[rel] · feat[src] added to dst.
 
-    feat/temp [N, 128] and w_rel [R, 128, 128] (in, out) in one dtype; plan:
+    feat/temp [N, W] and w_rel [R, W, W] (in, out) in one dtype (W = 128 or
+    64 on the card, the backward kernel 128 only); plan:
     the pack's `spill_pair` (int32 idx with the relation column, meta);
     prep: the plan's `prepare_spill` for N rows and R relations, which the
     kernels walk (a LaneGCN forward makes it once for both stacks, with the
@@ -242,9 +253,10 @@ def work(feat, w_rel, plan: PairPlan) -> dict:
     """Bytes moved and operations done at these inputs. The work depends on
     the plan's data: feat is read at the distinct source rows of valid
     slots; temp is read and the output written whole; the plan and W_rel are
-    read once; the products run on valid slots only. (The kernel's own
-    traffic adds the fp32 message workspace, 512 bytes an edge written and
-    read, and the prepared plan: not the function's.)"""
+    read once; the products (2·W² operations an edge at feat's width W) run
+    on valid slots only. `slot_bytes` is apart: the fp32 message workspace
+    [slots, W], 8·W bytes an edge written and read, traffic of the kernel's
+    design and not of the function (as is the prepared plan)."""
     n, c = feat.shape
     db = feat.element_size()
     edges, dst_rows, src_rows = _edges_and_rows(feat, w_rel, plan)
@@ -255,6 +267,7 @@ def work(feat, w_rel, plan: PairPlan) -> dict:
         "edges": edges,
         "src_rows": src_rows,
         "dst_rows": dst_rows,
+        "slot_bytes": 2 * edges * c * 4,
     }
 
 

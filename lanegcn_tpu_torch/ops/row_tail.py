@@ -22,10 +22,10 @@ import ctypes
 import torch
 
 from lanegcn_tpu_torch.ops import cuda
+from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.norm import gn_bwd, gn_stats, group_norm
 
 C = 128
-WIDTHS = (64, 128)  # the row widths the K = 1 kernels take
 PART2 = 2 * C * C + 6 * C  # K = 2: dW1, dW2, then the three GNs' weight and bias
 
 
@@ -76,12 +76,13 @@ def row_tail_bwd_plain(x, res, w, g1w, g1b, g2w, g2b, g, eps: float = 1e-5):
     return (d_x.to(x.dtype), d_y.to(x.dtype), *grads)
 
 
-def _check(x, res, w, gns, widths=WIDTHS):
-    """Shapes and dtypes a kernel takes: x/res [N, W] with W in `widths`
-    (the K = 1 kernels 64 or 128, K = 2 128), w [W, W], the GN vectors [W]."""
+def _check(x, res, w, gns, widths=WIDTHS, name="row_tail"):
+    """Shapes and dtypes kernel `name` takes: x/res [N, W] with W in
+    `widths` (the K = 1 kernels 64 or 128, K = 2 128), w [W, W], the GN
+    vectors [W]."""
     n, c = x.shape
     if c not in widths:
-        raise ValueError(f"row_tail: the kernels take rows {' or '.join(map(str, widths))} "
+        raise ValueError(f"{name}: the kernels take rows {' or '.join(map(str, widths))} "
                          f"wide, not {c}")
     if (res.shape != x.shape or tuple(w.shape) != (c, c)
             or any(tuple(g.shape) != (c,) for g in gns)):
@@ -209,7 +210,7 @@ def _check2(x, res, w1, w2, gns):
     """The K = 2 kernels' weights as they read them and the six GN affines
     stacked [6, 128] fp32."""
     for w in (w1, w2):
-        _check(x, res, w, gns, widths=(C,))
+        _check(x, res, w, gns, widths=(C,), name="row_tail2")
     return cuda.param(w1, x.dtype), cuda.param(w2, x.dtype), torch.stack([g.float() for g in gns])
 
 

@@ -21,6 +21,9 @@ into the destination rows (csrc/scenario_agg.cu). The public op runs
 through a `torch.autograd.Function` whose backward is the
 `scenario_agg_bwd` kernel on CUDA tensors and `scenario_agg_bwd_plain` on
 CPU tensors; temp's cotangent is the output's, unchanged.
+
+The forward kernel takes rows W = 128 or 64 wide (`WIDTHS`); the backward
+takes 128. The plain versions take any width.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from lanegcn_tpu_torch.ops import cuda
+from lanegcn_tpu_torch.ops.cuda import WIDTHS
 
 C = 128
 
@@ -277,19 +281,25 @@ def scenario_agg_bwd_plain(feat, w_rel, lu, lv, rel, num_win: int, groups, g, pr
     return dfeat.to(feat.dtype), dw
 
 
-def _check(feat, temp, w_rel, lu, lv, rel, num_win):
+def _check(feat, temp, w_rel, lu, lv, rel, num_win, name="scenario_agg", widths=WIDTHS):
+    """Shapes and dtypes kernel `name` takes: feat/temp [N, W] with W in
+    `widths` (the forward 64 or 128, the backward 128), w_rel [R, W, W],
+    the plan [num_win*ECAP, 1] int32."""
     n, c = feat.shape
     r_num = w_rel.shape[0]
-    if (c != 128 or temp.shape != feat.shape or n % num_win or lu.shape[0] % num_win
+    if c not in widths:
+        raise ValueError(f"{name}: the kernel takes rows {' or '.join(map(str, widths))} "
+                         f"wide, not {c}")
+    if (temp.shape != feat.shape or n % num_win or lu.shape[0] % num_win
             or tuple(w_rel.shape) != (r_num, c, c) or not 0 < r_num <= 32
             or lv.shape != lu.shape or rel.shape != lu.shape or lu.numel() != lu.shape[0]):
-        raise ValueError(f"scenario_agg: bad shapes feat {feat.shape} w_rel {w_rel.shape} "
+        raise ValueError(f"{name}: bad shapes feat {feat.shape} w_rel {w_rel.shape} "
                          f"plan {lu.shape} windows {num_win}")
     if temp.dtype != feat.dtype or w_rel.dtype != feat.dtype:
-        raise TypeError("scenario_agg: feat, temp and w_rel must share one dtype")
+        raise TypeError(f"{name}: feat, temp and w_rel must share one dtype")
     for t in (lu, lv, rel):
         if t.dtype != torch.int32:
-            raise TypeError("scenario_agg: plan indices must be int32")
+            raise TypeError(f"{name}: plan indices must be int32")
 
 
 def _prep_for(lu, lv, rel, num_win, n, groups, r_num, prep, backward):
@@ -310,17 +320,17 @@ def _blocks(device) -> int:
 
 def _fwd_cuda(feat, temp, w_rel, lu, lv, rel, num_win, groups, prep=None):
     _check(feat, temp, w_rel, lu, lv, rel, num_win)
-    n, r_num, slots = feat.shape[0], w_rel.shape[0], lu.shape[0]
+    (n, c), r_num, slots = feat.shape, w_rel.shape[0], lu.shape[0]
     prep = _prep_for(lu, lv, rel, num_win, n, groups, r_num, prep, False)
     feat, temp, w_rel = (cuda.param(t, t.dtype) for t in (feat, temp, w_rel))
     code = cuda.check_cuda("scenario_agg", feat, temp, w_rel, *prep[:7])
-    ws = torch.empty(slots, C, dtype=torch.float32, device=feat.device)
+    ws = torch.empty(slots, c, dtype=torch.float32, device=feat.device)
     out = torch.empty_like(temp)
     cuda.call(
         "scenario_agg", "scenario_agg_fwd",
         cuda.ptr(feat), cuda.ptr(temp), cuda.ptr(w_rel), cuda.ptr(prep.src),
         cuda.ptr(prep.tiles), cuda.ptr(prep.rel_tiles), cuda.ptr(prep.dpos),
-        cuda.ptr(prep.dseg), cuda.ptr(ws), cuda.ptr(out), ctypes.c_int(n),
+        cuda.ptr(prep.dseg), cuda.ptr(ws), cuda.ptr(out), ctypes.c_int(n), ctypes.c_int(c),
         ctypes.c_longlong(slots), ctypes.c_int(r_num), ctypes.c_int(_blocks(feat.device)),
         ctypes.c_int(code), cuda.stream(),
     )
@@ -329,7 +339,7 @@ def _fwd_cuda(feat, temp, w_rel, lu, lv, rel, num_win, groups, prep=None):
 
 def scenario_agg_bwd_cuda(feat, w_rel, lu, lv, rel, num_win: int, groups, g, prep=None):
     """The `scenario_agg_bwd` kernel; the same outputs as `scenario_agg_bwd_plain`."""
-    _check(feat, g, w_rel, lu, lv, rel, num_win)
+    _check(feat, g, w_rel, lu, lv, rel, num_win, "scenario_agg_bwd", (C,))
     n, r_num, slots = feat.shape[0], w_rel.shape[0], lu.shape[0]
     prep = _prep_for(lu, lv, rel, num_win, n, groups, r_num, prep, True)
     feat, g, w_rel = (cuda.param(t, t.dtype) for t in (feat, g, w_rel))
@@ -376,11 +386,11 @@ class _ScenarioAgg(torch.autograd.Function):
 def scenario_aggregate(feat, temp, w_rel, lu, lv, rel, num_win: int, groups=None, prep=None):
     """temp + Σ planned edges W_rel[rel] · feat[src] added to dst.
 
-    feat/temp [N, 128] (N = num_win * stride), w_rel [R, 128, 128] (in, out)
-    in feat's dtype; lu/lv/rel [num_win*ECAP, 1] int32; prep: the plan's
-    `prepare_plan` (made here when None; a LaneConv stack makes it once for
-    its layers). CPU tensors take the plain version; CUDA tensors launch
-    the kernel.
+    feat/temp [N, W] (N = num_win * stride; W = 128 or 64 on the card, the
+    backward kernel 128 only), w_rel [R, W, W] (in, out) in feat's dtype;
+    lu/lv/rel [num_win*ECAP, 1] int32; prep: the plan's `prepare_plan`
+    (made here when None; a LaneConv stack makes it once for its layers).
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
     if feat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"scenario_agg: unsupported device {feat.device}")
@@ -400,9 +410,11 @@ def work(feat, lu, lv, rel, w_rel, num_win: int, groups=None) -> dict:
     """Bytes moved and operations done at these inputs. The work depends on
     the plan's data: feat is read at the distinct source rows of applied
     edges; temp is read and the output written whole; the plan and W_rel
-    are read once; the products run on applied edges only. (The kernel's
-    own traffic adds the fp32 message workspace and the prepared plan:
-    not the function's.)"""
+    are read once; the products (2·W² operations an edge at feat's width W)
+    run on applied edges only. `slot_bytes` is apart: the fp32 message
+    workspace [slots, W] the message pass writes and the segment sum reads
+    back, traffic of the kernel's design and not of the function (as is the
+    prepared plan)."""
     n, c = feat.shape
     db = feat.element_size()
     edges, _, src_rows = _rows_touched(lu, lv, rel, num_win, n, groups, w_rel.shape[0])
@@ -411,6 +423,7 @@ def work(feat, lu, lv, rel, w_rel, num_win: int, groups=None) -> dict:
         "flops": 2 * edges * c * c,
         "edges": edges,
         "src_rows": src_rows,
+        "slot_bytes": 2 * edges * c * 4,
     }
 
 

@@ -22,6 +22,10 @@ Att layers share it): in destination order (a stable sort of the slots by
 destination row), each with its position in source order. Both the kernel
 and the plain version sum dPd/dQd over the destination order and dPs/dCs
 over the source order, so a row's edges always add up in one fixed order.
+
+The forward kernel takes rows W = 128 or 64 wide (`WIDTHS`: Att at n_map =
+n_actor = 128, and the half-width model at 64); the backward takes 128. The
+plain versions take any width.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch.nn.functional as F
 
 from lanegcn_tpu_torch.graph import PairPlan
 from lanegcn_tpu_torch.ops import cuda
+from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.norm import gn_bwd, gn_stats, group_norm
 from lanegcn_tpu_torch.ops.scenario_agg import _arange
 from lanegcn_tpu_torch.ops.segment_sum import segment_sum_plain
@@ -174,21 +179,28 @@ def win_edge_bwd_plain(pd, qd, ps, cs, bd, kdo, gdow, gdob, k1, gchw, gchb, kout
             t2.t() @ d_s, (d_gn_s * nrm_s).sum(0), d_gn_s.sum(0), e1.t() @ d_e2)
 
 
-def _check(pd, qd, ps, cs, temp, weights, vectors, plan: PairPlan):
+def _check(pd, qd, ps, cs, temp, weights, vectors, plan: PairPlan, name="win_edge",
+           widths=WIDTHS):
+    """Shapes and dtypes kernel `name` takes: pd/qd/temp [Nd, W] and ps/cs
+    [Ns, W] with W in `widths` (the forward 64 or 128, the backward 128),
+    the weights [W, W], the vectors [W], a pair plan."""
     nd, c = pd.shape
     nc = plan.num_chunks
-    if (c != 128 or qd.shape != pd.shape or temp.shape != pd.shape or cs.shape != ps.shape
+    if c not in widths:
+        raise ValueError(f"{name}: the kernel takes rows {' or '.join(map(str, widths))} "
+                         f"wide, not {c}")
+    if (qd.shape != pd.shape or temp.shape != pd.shape or cs.shape != ps.shape
             or ps.shape[1] != c
             or any(tuple(w.shape) != (c, c) for w in weights)
             or any(tuple(p.shape) != (c,) for p in vectors)
             or plan.idx.dim() != 2 or plan.idx.shape[0] != nc * plan.chunk
             or plan.idx.shape[1] < 2 or tuple(plan.meta.shape) != (6, nc)):
-        raise ValueError(f"win_edge: bad shapes pd {pd.shape} ps {ps.shape} "
+        raise ValueError(f"{name}: bad shapes pd {pd.shape} ps {ps.shape} "
                          f"plan idx {plan.idx.shape} meta {plan.meta.shape}")
     if any(t.dtype != pd.dtype for t in (qd, ps, cs, temp)):
-        raise TypeError("win_edge: pd, qd, ps, cs and temp must share one dtype")
+        raise TypeError(f"{name}: pd, qd, ps, cs and temp must share one dtype")
     if plan.idx.dtype != torch.int32 or plan.meta.dtype != torch.int32:
-        raise TypeError("win_edge: plan indices must be int32")
+        raise TypeError(f"{name}: plan indices must be int32")
 
 
 def _plan_args(plan: PairPlan, nd: int, ns: int):
@@ -215,7 +227,8 @@ def _fwd_cuda(pd, qd, ps, cs, temp, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, p
         cuda.ptr(vs[0]), cuda.ptr(ws[0]), cuda.ptr(vs[1]), cuda.ptr(vs[2]), cuda.ptr(ws[1]),
         cuda.ptr(vs[3]), cuda.ptr(vs[4]), cuda.ptr(ws[2]), cuda.ptr(plan.idx),
         cuda.ptr(plan.meta), cuda.ptr(e2_rows), cuda.ptr(out), *_plan_args(plan, nd, ps.shape[0]),
-        ctypes.c_int(cuda.num_sms(dev)), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+        ctypes.c_int(c), ctypes.c_int(cuda.num_sms(dev)), ctypes.c_float(eps), ctypes.c_int(code),
+        cuda.stream(),
     )
     return out
 
@@ -228,7 +241,8 @@ def win_edge_bwd_cuda(pd, qd, ps, cs, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
     """The `win_edge_bwd` kernel; the same outputs as `win_edge_bwd_plain`
     (dPd/dQd and dPs/dCs as the two halves of one [rows, 256] tensor each).
     `prep`: the plan's `prepare_pair`, made here when None."""
-    _check(pd, qd, ps, cs, g, (kdo, k1, kout), (bd, gdow, gdob, gchw, gchb), plan)
+    _check(pd, qd, ps, cs, g, (kdo, k1, kout), (bd, gdow, gdob, gchw, gchb), plan,
+           "win_edge_bwd", (C,))
     nd, c = pd.shape
     ns = ps.shape[0]
     dt, dev = pd.dtype, pd.device
@@ -300,9 +314,10 @@ def win_edge_mlp(pd, qd, ps, cs, temp, bd, kdo, gdow, gdob, k1, gchw, gchb, kout
                  plan: PairPlan, eps: float = 1e-5, prep: PairPrep | None = None) -> torch.Tensor:
     """temp + scatter(edge MLP over the window-pair plan).
 
-    pd/qd/temp [Nd, 128], ps/cs [Ns, 128] in one activation dtype; bd and
-    GN affines [128] fp32; kdo/k1/kout [128, 128] (in, out), cast to the
-    activation dtype inside (their gradients come back in their own dtype).
+    pd/qd/temp [Nd, W], ps/cs [Ns, W] in one activation dtype (W = 128 or
+    64 on the card, the backward kernel 128 only); bd and GN affines [W]
+    fp32; kdo/k1/kout [W, W] (in, out), cast to the activation dtype inside
+    (their gradients come back in their own dtype).
     prep: the plan's `prepare_pair` for these row counts, which the
     backward walks (a fusion stage makes it once for its Att layers; None:
     the backward makes it). CPU tensors take the plain version; CUDA tensors
@@ -318,10 +333,11 @@ def work(pd, ps, plan: PairPlan) -> dict:
     """Bytes moved and operations done at these inputs. The work depends on
     the plan's data: pd/qd are read at the distinct destination rows of
     valid edges and ps/cs at their distinct source rows; temp is read and
-    the output written whole; the plan and the weights are read once; the
-    three products run on valid edges only. `slot_bytes` is apart: the fp32
-    e2 rows the chain pass writes and the sum pass reads back, traffic of the
-    kernel's design and not of the function."""
+    the output written whole (W wide); the plan and the [W, W] weights are
+    read once; the three products (3·2·W² operations an edge) run on valid
+    edges only. `slot_bytes` is apart: the fp32 e2 rows the chain pass
+    writes and the sum pass reads back, traffic of the kernel's design and
+    not of the function."""
     nd, c = pd.shape
     db = pd.element_size()
     e, u, v = _edge_rows(plan, nd, ps.shape[0])

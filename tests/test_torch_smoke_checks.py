@@ -401,8 +401,35 @@ def test_relu_recorder_follows_a_train_step():
     ("edge_mlp", [(9, 2), (9, 64), (9, 64)], 64),
     ("edge_mlp_bwd", [(9, 2), (9, 128), (9, 128)], 128),
     ("lane_layer", [(9, 128), (9, 6)], 128),
+    ("lane_layer", [(9, 64), (12, 9)], 64),
+    ("scenario_agg", [(9, 64), (9, 64), (3, 64, 64)], 64),
+    ("pair_agg", [(9, 64), (9, 64), (3, 64, 64)], 64),
+    ("win_edge", [(9, 64), (9, 64), (5, 64)], 64),
 ])
 def test_call_width_reads_the_rows_argument(name, shapes, width):
     """call_width takes the width from the argument ROWS_ARG names (d's 2
     columns and a mask's 6 are never the width)."""
     assert cs.call_width(name, [torch.zeros(s) for s in shapes]) == width
+
+
+GEOMETRIES_ROI = {g: spec["model"] == "lanercnn" for g, spec in cs.GEOMETRIES.items()}
+
+
+@pytest.mark.parametrize("geom,before", [
+    ("bench", "windowed"), ("half", "bench"), ("lanercnn", "lanercnn")])
+def test_reused_scenarios_pack_as_fresh_ones(geom, before, monkeypatch):
+    """make_packs through a ScenarioCache that another geometry's packing
+    has used gives the packs, stats and per-scenario blobs of fresh
+    scenarios; the cache keeps its scenarios as they were made."""
+    s, roi = 2, GEOMETRIES_ROI[geom]
+    monkeypatch.setattr(cs, "SCENARIOS", cs.ScenarioCache())
+    fresh = cs.make_packs(cs.pack_config(geom, s), 1, s, seed0=0, roi=roi,
+                          pack_kw=cs.pack_kwargs(geom))
+    monkeypatch.setattr(cs, "SCENARIOS", cs.ScenarioCache())
+    cs.make_packs(cs.pack_config(before, s), 1, s, seed0=0, roi=GEOMETRIES_ROI[before],
+                  pack_kw=cs.pack_kwargs(before))
+    assert all(not any(k.startswith("_") for k in scen) for scen in cs.SCENARIOS.made.values())
+    reused = cs.make_packs(cs.pack_config(geom, s), 1, s, seed0=0, roi=roi,
+                           pack_kw=cs.pack_kwargs(geom))
+    assert cs.tree_equal(reused[0], fresh[0]) and reused[1] == fresh[1]
+
