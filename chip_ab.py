@@ -36,9 +36,9 @@ interface changed: the other tree's through its own wrapper; so did the K
 = 1 forward's and backward's, which took the row width); Att's edge_mlp
 forward and backward likewise (the backward's C interface took the bf16
 workspace `act` and the weight-gradient pass's splits, both then the row
-width); the lane_layer forward likewise (its C interface took the row
-width, as the scenario_agg, pair_agg and win_edge forwards' did; the
-backward's did not: both builds through this checkout's wrapper);
+width); the lane_layer forward and backward likewise (their C interfaces
+took the row width, as the scenario_agg, pair_agg and win_edge forwards'
+and then backwards' did);
 window_scatter and its backward on
 LaneRCNN's geometry (both pool scatters, r2g and g2r; the C interface is
 unchanged, so both builds run through this checkout's wrappers) in
@@ -106,7 +106,8 @@ OWN_WRAPPERS = {"scenario_agg": {"scenario_agg": ("scenario_aggregate", 8),
                              "row_tail2_bwd": ("row_tail2_bwd_cuda", 11)},
                 "edge_mlp": {"edge_mlp": ("fused_edge_mlp", 12),
                              "edge_mlp_bwd": ("edge_mlp_bwd_cuda", 14)},
-                "lane_layer": {"lane_layer": ("fused_lane_layer", 10)}}
+                "lane_layer": {"lane_layer": ("fused_lane_layer", 10),
+                               "lane_layer_bwd": ("lane_layer_bwd_cuda", 12)}}
 # Wrapper modules named other than their kernel library (ops/<module>.py),
 # and the other tree's modules that its wrapper module imports in place of
 # this checkout's (names it takes from them are gone here).

@@ -11,8 +11,8 @@ one card).
     python3 chip_smoke.py            # one card, no arguments
     python3 chip_smoke.py mesh-witness   # the build, then mesh_witness_phase alone
 
-It also serves the half-width LaneGCN (n_map = n_actor = 64) on the bench
-layout, its forward kernels at W = 64.
+It also serves and trains the half-width LaneGCN (n_map = n_actor = 64) on
+the bench layout, its kernels at W = 64 both ways.
 
 Geometries (lanegcn_tpu_torch/config.py), driven in this order:
   windowed    windowed_pack_config(256): node_stride 768, window plan 2048,
@@ -46,10 +46,11 @@ Geometries (lanegcn_tpu_torch/config.py), driven in this order:
               unequal-width branch (the edge chain as PyTorch products,
               then the scatter and the row tail at n_agt's width); A2A is
               Att(64, 64): edge_mlp and row_tail at width 64.
-  half        bench_pack_config(256) with ModelConfig(n_map=64, n_actor=64),
-              serving only: lane_layer, scenario_agg, pair_agg, win_edge
-              and row_tail all at W = 64 (the bench launches); its train
-              step must stop at its first backward kernel (128 only).
+  half        bench_pack_config(256) with ModelConfig(n_map=64, n_actor=64):
+              lane_layer, scenario_agg, pair_agg, win_edge, row_tail and
+              their backwards all at W = 64 (the bench launches); with
+              merge_plan_agg="auto" its train step must stop at lane_plan
+              (128 only).
 
 Phases, one JSON line each (tagged with the geometry); any failure raises
 and exits non-zero:
@@ -122,7 +123,9 @@ and exits non-zero:
           `EDGE_ROWS`, the all-padding call and the 64-wide row_tail_bwd
           cut to `RAGGED_NARROW_ROWS`;
           windowed: scenario_agg_bwd on `PLAN_CASES` too, and win_edge_bwd on
-          `WIN_CASES`; bench: pair_agg_bwd on `SPILL_CASES` too), and
+          `WIN_CASES`; bench: pair_agg_bwd on `SPILL_CASES` too; half: the
+          five backwards at W = 64, pair_agg_bwd on `SPILL_CASES` at 64
+          too, lane_layer_bwd's cuts also to `RAGGED_NARROW_ROWS`), and
           lane_layer_bwd, band_conv_bwd, row_tail_bwd and row_tail2_bwd
           again on their largest call cut to 1,000 and 20,000 rows
           (`RAGGED_ROWS`: no multiple of their tensor-core passes' row
@@ -149,9 +152,11 @@ and exits non-zero:
           share of elements apart, beside a control with perturbed
           gradients). Where a leaf misses and a ReLU tie is confirmed (an
           input within rounding of zero that a CPU step from parameters
-          moved by `TIE_PERTURB` puts on the other side, and that move
-          carries a missing leaf past its tolerance), the whole step is
-          held to the nearer of the two CPU steps (`reference`); on
+          moved by `TIE_PERTURB` puts on the other side, that move carries
+          a missing leaf past its tolerance, and it reproduces the card's
+          miss: every leaf that missed lies within tolerance of the moved
+          step), the whole step is held to the moved CPU step
+          (`reference`); every move tried is printed (`tie_tries`). On
           lanercnn (AdamW) the NMS picks must be equal.
   serve   make_eval_step in bfloat16 over the 2 packs, several rounds: ms per
           pack, scen/s, loss/ade/fde/mr, peak device memory, and the kernel
@@ -180,11 +185,12 @@ and exits non-zero:
           kernels against the merged layer (merge_plan_agg); unfused, the
           fused layer against the unfused one (pallas_bands).
   serve_rerun  (half) two bf16 eval forwards of one pack bitwise equal.
-  refused_train  (half) one bf16 train step: it must raise ValueError
-          naming the first backward kernel it reaches that takes 128-wide
-          rows only (`NARROW_REFUSED`) and the width, that entry never
-          launched, no plain backward run on the card, the forward's
-          launches those of one eval forward.
+  refused_train  (half) one bf16 train step of the same model with the
+          geometry's `refused` fields (merge_plan_agg="auto"): it must
+          raise ValueError naming the first kernel it reaches that takes
+          128-wide rows only (`NARROW_REFUSED`: lane_plan) and the width,
+          that kernel's entries never launched, no backward launched, no
+          plain version of it or plain backward run on the card.
 After the geometries, phases without a geometry:
   cli     python -m lanegcn_tpu_torch.cli as a user runs it (bf16, 2 pack
           workers, packs of 32): preprocess 128 urban scenarios to shards
@@ -276,7 +282,8 @@ it, with the launches of that geometry's serve or train run, and under
 `also_checked` its checks on the later geometries; `by_width` gives each
 row width a kernel was checked at, 128 and, for row_tail, row_tail_bwd,
 edge_mlp and edge_mlp_bwd (widths), lane_layer, scenario_agg, pair_agg,
-win_edge and row_tail (half), 64, with the geometry that checked it),
+win_edge, row_tail and their backwards (half), 64, with the geometry that
+checked it),
 the nvidia-smi name/power-limit line, and last the `ok` line with the
 device.
 
@@ -375,7 +382,9 @@ KERNEL_META = {
 # kernels checked on a train step's calls (`step_kernels`: segment_sum runs
 # in the forward's scatters and in the gathers' backward) and the launches
 # of each C entry point per eval forward and per train step (every other
-# entry: 0).
+# entry: 0); where set, `serve_rerun` (two eval forwards bitwise equal,
+# `serve_rerun_phase`) and `refused` (ModelConfig fields under which a
+# train step must refuse, `refused_train_phase`).
 _WINDOWED_FWD = {"lane_layer_fwd": 8, "scenario_agg_fwd": 8, "win_edge_fwd": 6,
                  "row_tail_fwd": 6, "segment_sum": 8}
 _WINDOWED_STEP = {**_WINDOWED_FWD, "lane_layer_bwd": 8, "scenario_agg_bwd": 8,
@@ -468,18 +477,22 @@ GEOMETRIES = {
                    model_fields=dict(n_actor=64), kernels=("row_tail", "edge_mlp"),
                    step_kernels=("segment_sum",), per_forward=_WIDTHS_FWD,
                    per_train_step=_WIDTHS_STEP),
-    # The half-width model (n_map = n_actor = 64) on the bench layout,
-    # serving only: every kernel of the forward at W = 64, the bench
-    # launches; a train step must raise at its first backward kernel
-    # (`refused_train_phase`: the backwards take 128 only).
+    # The half-width model (n_map = n_actor = 64) on the bench layout: every
+    # kernel of the bench train step at W = 64, the bench launches; with
+    # the `refused` fields its train step must raise at lane_plan
+    # (`refused_train_phase`: lane_plan takes 128 only).
     "half": dict(model="lanegcn", config="bench_pack_config", s=256,
                  model_fields=dict(n_map=64, n_actor=64),
                  kernels=("lane_layer", "scenario_agg", "pair_agg", "win_edge", "row_tail"),
-                 per_forward={**_WINDOWED_FWD, "pair_agg_fwd": 8}, serve_only=True),
+                 step_kernels=("segment_sum",),
+                 per_forward={**_WINDOWED_FWD, "pair_agg_fwd": 8},
+                 per_train_step={**_WINDOWED_STEP, "pair_agg_fwd": 8, **_PAIR_BWD},
+                 serve_rerun=True, refused=dict(merge_plan_agg="auto")),
 }
-# The backward kernels that take 128-wide rows only; a half-width train step
-# reaches one of them first and must stop there.
-NARROW_REFUSED = ("lane_layer_bwd", "scenario_agg_bwd", "pair_agg_bwd", "win_edge_bwd")
+# The kernels that take 128-wide rows only and that the half-width model
+# reaches with its `refused` fields, by their C entries: a train step there
+# must stop at the first of them.
+NARROW_REFUSED = {"lane_plan": ("lane_plan_fwd", "lane_plan_bwd")}
 
 
 def emit(obj) -> None:
@@ -1151,10 +1164,11 @@ def kernel_phase(phase, geom, ops, calls, counts):
 
 # The argument that holds a call's rows, for the kernels that take more
 # than one row width (row_tail's x, Att's edge_mlp's cg, lane_layer's,
-# scenario_agg's and pair_agg's feat, win_edge's Pd); every other kernel
-# takes 128-wide rows only.
-ROWS_ARG = {"row_tail": 0, "row_tail_bwd": 0, "edge_mlp": 2, "edge_mlp_bwd": 2,
-            "lane_layer": 0, "scenario_agg": 0, "pair_agg": 0, "win_edge": 0}
+# scenario_agg's and pair_agg's feat, win_edge's Pd, both ways; segment_sum's
+# data, any width); every other kernel takes 128-wide rows only.
+ROWS_ARG = {"row_tail": 0, "row_tail_bwd": 0, "edge_mlp": 2, "edge_mlp_bwd": 2, "segment_sum": 0,
+            **{k: 0 for name in ("lane_layer", "scenario_agg", "pair_agg", "win_edge")
+               for k in (name, name + "_bwd")}}
 
 
 def call_width(name, args):
@@ -1379,16 +1393,23 @@ PARAM_FAR_SHARE = 1e-3
 # CPU's own parameters does; upstream of that tail MapNet's leaves moved
 # to 0.99x and 6,310 parameters stepped apart, on the card as on the
 # CPU). This loosens the check: where a leaf misses, the CPU step is taken
-# twice more, from the same parameters and from parameters moved by
-# TIE_PERTURB of their size (seeded), recording every torch.relu input
-# (`relu_recorder`). A tie is confirmed only if both hold: a ReLU input
-# within TIE_EPS["float32"] of zero (relative to its RMS) takes the other
-# side in the moved step (`relu_flips`), and the move carries a missing
-# leaf's own gradient past its tolerance. Then the card's whole step (every
-# gradient leaf and every parameter after it) is held to the one of the
-# two CPU steps whose worst gradient leaf is nearer (`reference`), never a
-# mix of the two; otherwise to the first CPU step alone, as before.
+# again from the same parameters and then from parameters moved by
+# TIE_PERTURB of their size (seeded: 1, 2, ..., at most TIE_MOVES moves),
+# recording every torch.relu input (`relu_recorder`). A tie is confirmed
+# by the first move for which all three hold: a ReLU input within
+# TIE_EPS["float32"] of zero (relative to its RMS) takes the other side in
+# the moved step (`relu_flips`); the move carries a missing leaf's own
+# gradient past its tolerance; and the moved step reproduces the card's
+# miss, every leaf that missed against the first CPU step lying within
+# its tolerance of the moved one. Then the card's whole step (every
+# gradient leaf and every parameter after it) is held to the moved CPU
+# step (`reference`), never a mix of the two; otherwise (no move
+# confirms) to the first CPU step alone, as before. A random move of
+# 1e-7 need not flip the input the card flipped, hence several seeds (the
+# half geometry at S=8: seed 1 flipped no ReLU); a kernel fault is not
+# a ReLU flip, so no move reproduces it.
 TIE_PERTURB = 1e-7
+TIE_MOVES = 8
 
 
 def relu_recorder(near=None):
@@ -1481,13 +1502,14 @@ def train_parity_phase(geom):
             out[n] = (err / (GRAD_TOL * scales[n]), err, float(ref.abs().max()))
         return out
 
-    def cpu_step(perturb, near=None):
-        """The CPU step again from `start` (moved by TIE_PERTURB where
-        asked), with its ReLU inputs recorded: (net, calls)."""
+    def cpu_step(move, near=None):
+        """The CPU step again from `start` (moved by TIE_PERTURB with seed
+        `move`, where it is not 0), with its ReLU inputs recorded: (net,
+        calls)."""
         net = get_model(family, cfg, device="cpu", seed=2).net
         net.load_state_dict(start)
-        if perturb:
-            gen = torch.Generator().manual_seed(1)
+        if move:
+            gen = torch.Generator().manual_seed(move)
             with torch.no_grad():
                 for p in net.parameters():
                     p.mul_(1 + TIE_PERTURB * torch.randn(p.shape, generator=gen))
@@ -1499,20 +1521,26 @@ def train_parity_phase(geom):
 
     shares = grad_shares(grads_c)
     worst_vs_cpu = max(v[0] for v in shares.values())
-    reference, net_ref, tie_leaves, flips = "cpu", net_c, [], []
+    reference, net_ref, tie_leaves, flips, tie_move = "cpu", net_c, [], [], None
+    tries = []
     if worst_vs_cpu > 1.0:
-        _, near = cpu_step(False)
-        net_t, moved = cpu_step(True, near)
-        check(len(moved) == len(near), f"train_parity: the moved CPU step made {len(moved)} "
-              f"ReLU calls, the first {len(near)}")
-        flips = relu_flips(near, moved)
-        grads_t = {n: p.grad for n, p in net_t.named_parameters()}
-        tie_leaves = [n for n in grads_t if shares[n][0] > 1.0 and float(
-            (grads_t[n] - grads_c[n]).abs().max()) > GRAD_TOL * scales[n]]
-        if flips and tie_leaves:
+        missed = sorted(n for n in shares if shares[n][0] > 1.0)
+        _, near = cpu_step(0)
+        for move in range(1, TIE_MOVES + 1):
+            net_t, moved = cpu_step(move, near)
+            check(len(moved) == len(near), f"train_parity: the moved CPU step made "
+                  f"{len(moved)} ReLU calls, the first {len(near)}")
+            flips = relu_flips(near, moved)
+            grads_t = {n: p.grad for n, p in net_t.named_parameters()}
+            tie_leaves = [n for n in missed if float(
+                (grads_t[n] - grads_c[n]).abs().max()) > GRAD_TOL * scales[n]]
             shares_t = grad_shares(grads_t)
-            if max(v[0] for v in shares_t.values()) < worst_vs_cpu:
-                reference, net_ref, shares = "cpu_moved", net_t, shares_t
+            tries.append({"seed": move, "relu_flips": len(flips),
+                          "nearest_relu_flips": flips[:3], "carried": tie_leaves,
+                          "missed_vs_moved": {n: shares_t[n][0] for n in missed}})
+            if flips and tie_leaves and all(shares_t[n][0] <= 1.0 for n in missed):
+                tie_move, reference, net_ref, shares = move, "cpu_moved", net_t, shares_t
+                break
     ranked = sorted(shares, key=lambda n: -shares[n][0])
     worst, worst_name = shares[ranked[0]][0], ranked[0]
 
@@ -1548,8 +1576,8 @@ def train_parity_phase(geom):
           "worst_grad_err_over_tol": worst, "worst_grad_leaf": worst_name,
           "worst_leaves": [[n, *shares[n]] for n in ranked[:5]],
           "reference": reference, "worst_grad_err_over_tol_vs_cpu": worst_vs_cpu,
-          "tie_leaves": tie_leaves, "tie_perturb": TIE_PERTURB, "relu_flips": len(flips),
-          "nearest_relu_flips": flips[:3],
+          "tie_leaves": tie_leaves, "tie_perturb": TIE_PERTURB, "tie_move": tie_move,
+          "relu_flips": len(flips), "nearest_relu_flips": flips[:3], "tie_tries": tries,
           "param_max_abs_err": p_err, "param_max_tol": 2 * lr, "param_far": PARAM_FAR,
           "params_far": n_far, "params_far_limit": PARAM_FAR_SHARE * n_params,
           "far_leaves": far_leaves,
@@ -1712,12 +1740,6 @@ def drive(geom):
     if edge_pad is not None:
         check_edge_padding(geom, "edge_mlp", edge_pad)
     del cap, edge_pad
-    if spec.get("serve_only"):
-        parity_phase(geom)
-        serve = serve_phase(geom, step, batches, results, pack_s)
-        serve_rerun_phase(geom, step, batches[0])
-        refused_train_phase(geom, cfg, batches[0])
-        return results, serve, None
 
     # --- backward kernels against their plain backwards, on a train step's inputs ---
     net_t, state = init_state(cfg, dtype=torch.bfloat16)
@@ -1739,6 +1761,10 @@ def drive(geom):
                                            seed=0), batches[0], {})
     if "ab" in spec:
         ab_phase(geom, batches)
+    if spec.get("serve_rerun"):
+        serve_rerun_phase(geom, step, batches[0])
+    if "refused" in spec:
+        refused_train_phase(geom, cfg, batches[0])
     return results, serve, train
 
 
@@ -2233,13 +2259,13 @@ SPILL_CASES = (
 )
 
 
-def spill_case_calls(backward: bool):
-    """{shapes: args} and {shapes: 0} of SPILL_CASES, bf16 on the card
-    (kernel_phase casts them to fp32 too), as pair_agg's forward op (feat,
-    temp, w_rel, plan, prep) or its backward launcher (feat, w_rel, plan, g,
-    prep) takes them, each with the plan's `prepare_spill` (forward-only for
-    the forward), as a LaneGCN forward hands it; and the key of the empty
-    plan."""
+def spill_case_calls(backward: bool, width: int = 128):
+    """{shapes: args} and {shapes: 0} of SPILL_CASES on `width`-wide rows,
+    bf16 on the card (kernel_phase casts them to fp32 too), as pair_agg's
+    forward op (feat, temp, w_rel, plan, prep) or its backward launcher
+    (feat, w_rel, plan, g, prep) takes them, each with the plan's
+    `prepare_spill` (forward-only for the forward), as a LaneGCN forward
+    hands it; and the key of the empty plan."""
     import torch
     from lanegcn_tpu_torch.data.packing import build_pair_plan
     from lanegcn_tpu_torch.graph import PairPlan
@@ -2267,10 +2293,10 @@ def spill_case_calls(backward: bool):
                         meta=torch.as_tensor(meta, device="cuda"), chunk=128,
                         dst_stride=stride, src_stride=stride)
         n = rows - cut
-        feat, w_rel = bf(n, 128), bf(14, 128, 128, scale=128 ** -0.5)
+        feat, w_rel = bf(n, width), bf(14, width, width, scale=width ** -0.5)
         prep = pair_agg.prepare_spill(plan, n, 14, backward=backward)
-        args = ([feat, w_rel, plan, bf(n, 128), prep] if backward
-                else [feat, bf(n, 128), w_rel, plan, prep])
+        args = ([feat, w_rel, plan, bf(n, width), prep] if backward
+                else [feat, bf(n, width), w_rel, plan, prep])
         key = shape_key(args)
         check(key not in calls, f"pair_agg case {name}: its shapes repeat another case's")
         calls[key], counts[key] = args, 0
@@ -2306,8 +2332,9 @@ def step_kernel_phases(geom, cap):
         calls, counts, _ = win_case_calls()
         cap.calls["win_edge_bwd"].update(calls)
         cap.counts["win_edge_bwd"].update(counts)
-    if geom == "bench":
-        calls, counts, _ = spill_case_calls(backward=True)
+    if geom in ("bench", "half"):
+        width = spec.get("model_fields", {}).get("n_map", 128)
+        calls, counts, _ = spill_case_calls(backward=True, width=width)
         cap.calls["pair_agg_bwd"].update(calls)
         cap.counts["pair_agg_bwd"].update(counts)
     if geom == "merged":
@@ -2427,7 +2454,8 @@ def ab_phase(geom, batches):
 
 def train_phase(geom, tstep, batches, results):
     """The train path: 2 warm steps, then 10 counted steps alternating the
-    packs (every launch count from 0 just before, read just after);
+    packs (every launch count from 0 just before, read just after; no
+    plain backward may run in a kernel's place, `plain_backward_watch`);
     returns the launch counts and the number of steps."""
     import torch
     from lanegcn_tpu_torch.ops import cuda
@@ -2439,12 +2467,15 @@ def train_phase(geom, tstep, batches, results):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     steps = 10
+    plain = plain_backward_watch()
     cuda.reset_launch_counts()
-    t0 = time.perf_counter()
-    metrics = [tstep(batches[i % 2], (3 + i) / 100.0) for i in range(steps)]
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with plain:
+        t0 = time.perf_counter()
+        metrics = [tstep(batches[i % 2], (3 + i) / 100.0) for i in range(steps)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     train_counts = cuda.launch_counts()
+    plain_calls = {k: sum(v.values()) for k, v in plain.counts.items() if v}
     losses = [float(m["loss"]) for m in metrics]
     skipped = sum(float(m["skipped"]) for m in metrics)
     emit({"phase": "train", "geometry": geom, "scenarios_per_pack": s, "steps": steps,
@@ -2454,7 +2485,9 @@ def train_phase(geom, tstep, batches, results):
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "kernel_ms_per_step_checked": sum(r["ms_per_step"] for r in results.values()),
           "launches": train_counts,
-          "launches_per_step": {k: v / steps for k, v in train_counts.items()}})
+          "launches_per_step": {k: v / steps for k, v in train_counts.items()},
+          "plain_backward_calls": plain_calls})
+    check(not plain_calls, f"{geom}: plain backwards ran on the card: {plain_calls}")
     check(all(math.isfinite(x) for x in losses), f"{geom}: non-finite train loss: {losses}")
     check(skipped == 0, f"{geom}: the NaN guard skipped {skipped} of {steps} steps")
     check_counts(train_counts, spec["per_train_step"], steps, f"{geom} train")
@@ -2514,25 +2547,29 @@ def serve_rerun_phase(geom, step, batch):
 
 
 def refused_train_phase(geom, cfg, batch):
-    """A bf16 train step at a width whose backward kernels take 128 only
-    (the half-width model): the step must raise ValueError naming the first
-    of NARROW_REFUSED it reaches and the width, before that entry launches
-    (its count stays 0), with no plain backward run in a kernel's place on
-    the card (the plain backwards are watched), after the forward's
-    launches of one eval forward. Which backward kernels ran before it (at
-    widths they take) is printed."""
+    """A bf16 train step of the geometry's model with its `refused` fields
+    (the half-width model with merge_plan_agg="auto"): the step must raise
+    ValueError naming the first kernel of NARROW_REFUSED it reaches (by its
+    check: lane_plan takes 128-wide rows only) and the width, before any of
+    that kernel's entries launches (their counts stay 0) and before any
+    backward launches, with no plain version of it or plain backward run in
+    a kernel's place on the card (both watched). What launched before it is
+    printed."""
+    import dataclasses
+
     import torch
     from lanegcn_tpu_torch.ops import cuda
     from lanegcn_tpu_torch.train.loop import init_state, make_train_step
 
     spec = GEOMETRIES[geom]
     width = cfg.model.n_map
-    net, state = init_state(cfg, dtype=torch.bfloat16)
-    tstep = make_train_step(cfg, net, state)
-    plain_bwd = plain_backward_watch()
+    rcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **spec["refused"]))
+    net, state = init_state(rcfg, dtype=torch.bfloat16)
+    tstep = make_train_step(rcfg, net, state)
+    plain = plain_backward_watch(forward=True)
     cuda.reset_launch_counts()
     err = None
-    with plain_bwd:
+    with plain:
         try:
             tstep(batch, 0.0)
         except ValueError as e:
@@ -2540,30 +2577,31 @@ def refused_train_phase(geom, cfg, batch):
     torch.cuda.synchronize()
     counts = cuda.launch_counts()
     named = [k for k in NARROW_REFUSED if err is not None and err.startswith(k + ":")]
-    plain_calls = {k: sum(v.values()) for k, v in plain_bwd.counts.items() if v}
-    fwd = {k: v for k, v in counts.items() if k.endswith("_fwd")}
-    emit({"phase": "refused_train", "geometry": geom, "width": width, "error": err,
-          "refused_at": named[0] if named else None,
-          "launched": {k: v for k, v in counts.items() if v},
-          "plain_backward_calls": plain_calls})
-    check(err is not None, f"{geom}: a train step at width {width} ran without a ValueError")
+    plain_calls = {k: sum(v.values()) for k, v in plain.counts.items() if v}
+    launched = {k: v for k, v in counts.items() if v}
+    emit({"phase": "refused_train", "geometry": geom, "width": width,
+          "fields": spec["refused"], "error": err, "refused_at": named[0] if named else None,
+          "launched": launched, "plain_calls": plain_calls})
+    check(err is not None, f"{geom}: a train step at width {width} with {spec['refused']} ran "
+          f"without a ValueError")
     check(bool(named) and f"not {width}" in err,
-          f"{geom}: the step's ValueError names no refusing backward kernel and width "
-          f"{width}: {err}")
-    check(counts[named[0]] == 0, f"{geom}: {named[0]} launched before it refused")
-    check(not plain_calls, f"{geom}: plain backwards ran on the card: {plain_calls}")
-    want = {k: v for k, v in spec["per_forward"].items() if k.endswith("_fwd")}
-    check(fwd == {k: want.get(k, 0) for k in fwd},
-          f"{geom}: the refused step's forward launched {fwd}, one forward launches {want}")
+          f"{geom}: the step's ValueError names no refusing kernel and width {width}: {err}")
+    check(all(counts[e] == 0 for e in NARROW_REFUSED[named[0]]),
+          f"{geom}: {named[0]} launched before it refused: {launched}")
+    check(not any(k.endswith("_bwd") for k in launched),
+          f"{geom}: a backward launched before the forward refused: {launched}")
+    check(not plain_calls, f"{geom}: plain versions ran on the card: {plain_calls}")
 
 
-def plain_backward_watch():
+def plain_backward_watch(forward=False):
     """A Capture of every plain backward the autograd Functions can call
-    (none may run on CUDA tensors)."""
+    and, with `forward`, of lane_plan's plain forward (none may run on CUDA
+    tensors)."""
     from lanegcn_tpu_torch.ops import band_conv, edge_mlp, lane_layer, pair_agg, row_tail
     from lanegcn_tpu_torch.ops import scenario_agg, win_edge, window_scatter
 
-    return Capture([(mod, attr, attr) for mod, attr in (
+    fwd = ((lane_layer, "lane_plan_plain"), (lane_layer, "_plan_temp_plain")) if forward else ()
+    return Capture([(mod, attr, attr) for mod, attr in fwd + (
         (lane_layer, "lane_layer_bwd_plain"), (lane_layer, "lane_plan_bwd_plain"),
         (band_conv, "band_conv_bwd_plain"), (scenario_agg, "scenario_agg_bwd_plain"),
         (pair_agg, "pair_agg_bwd_plain"), (win_edge, "win_edge_bwd_plain"),

@@ -81,15 +81,18 @@ __device__ __forceinline__ void load_halo(float* S_s, const S* src, long tile0, 
   }
 }
 
-// dst rows tile0 + mm_row(i) (those below n) = acc, rounded to T.
-template <typename T>
+// dst rows tile0 + mm_row(i) (those below n) = acc, rounded to T; W-wide
+// rows (mm_col(4) ≥ 64: not stored below C).
+template <typename T, int W = C>
 __device__ __forceinline__ void store_rows(T* dst, const float acc[4][8], long tile0, int n) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const long g = tile0 + mm_row(i);
     if (g < n) {
-      store4<T>(dst + g * C + mm_col(0), make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-      store4<T>(dst + g * C + mm_col(4), make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
+      store4<T>(dst + g * W + mm_col(0), make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+      if (W == C)
+        store4<T>(dst + g * W + mm_col(4),
+                  make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
     }
   }
 }
@@ -192,8 +195,9 @@ __device__ __forceinline__ void layer_tail(const float* X_s, float* T_s, float* 
 
 // acc = d_y[p] + Σ_j band_j[p − s_j] · d_temp[p − s_j] @ Wb_jᵀ over the tile's
 // rows p (D_s: the d_temp halo tile in fp32, loaded; W_s: [C][C] scratch; dy
-// may be null).
-template <typename T>
+// may be null). At a row width W below C: dy read W wide, the [W x W] Wb_j
+// zero-padded, so acc is zero past W.
+template <typename T, int W = C>
 __device__ __forceinline__ void band_t(const float* D_s, float* W_s, const float* dy,
                                        const uint8_t* masks, const T* wb, long tile0, int n,
                                        int nj, const Shifts& sh, float acc[4][8]) {
@@ -201,11 +205,12 @@ __device__ __forceinline__ void band_t(const float* D_s, float* W_s, const float
   for (int i = 0; i < 4; ++i) {
     const long g = tile0 + mm_row(i);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = (dy && g < n) ? dy[g * C + mm_col(j)] : 0.f;
+    for (int j = 0; j < 8; ++j)
+      acc[i][j] = (dy && g < n && (W == C || mm_col(j) < W)) ? dy[g * W + mm_col(j)] : 0.f;
   }
   for (int j = 0; j < nj; ++j) {
     __syncthreads();  // the previous product is done with W_s (and D_s is loaded)
-    load_weight_t<T>(W_s, wb + (long)j * C * C);
+    load_weight_t<T, W>(W_s, wb + (long)j * W * W);
     float m[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -222,21 +227,23 @@ __device__ __forceinline__ void band_t(const float* D_s, float* W_s, const float
 // and loads the d_temp rows p − HALO .. p + TM + HALO − 1 once for all J
 // products. PLAN (lane_plan.cu, fp32): dx[p] also adds p's run of the plan's
 // transposed messages pm [slots, 128], which sit at the positions whose
-// source key pseg is p, in position order.
-template <typename T, typename D, bool PLAN = false>
+// source key pseg is p, in position order. W: the rows' width (dtemp, dy,
+// dx [n, W], wb [nj, W, W]; PLAN at 128 only).
+template <typename T, typename D, bool PLAN = false, int W = C>
 __global__ void __launch_bounds__(NT)
 band_t_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
               const uint8_t* __restrict__ masks, const T* __restrict__ wb, T* __restrict__ dx,
               int n, int nj, Shifts sh, const T* __restrict__ pm,
               const long long* __restrict__ pseg, long slots) {
+  static_assert(!PLAN || W == C, "lane_plan takes 128-wide rows only");
   extern __shared__ float4 smem4[];
   float* D_s = reinterpret_cast<float*>(smem4);  // [TM + 2*HALO][LDA]
   float* W_s = D_s + HALO_TILE;                  // [C][C] Wb_jᵀ
   const long tile0 = (long)blockIdx.x * TM;
 
-  load_halo<D>(D_s, dtemp, tile0, n);
+  load_halo<D, W>(D_s, dtemp, tile0, n);
   float acc[4][8];
-  band_t<T>(D_s, W_s, dy, masks, wb, tile0, n, nj, sh, acc);
+  band_t<T, W>(D_s, W_s, dy, masks, wb, tile0, n, nj, sh, acc);
   if constexpr (PLAN) {
     static_assert(std::is_same<T, float>::value, "bf16 runs band_t_tc_kernel");
     __shared__ int lo_s[TM], hi_s[TM];
@@ -244,7 +251,7 @@ band_t_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
     seg::run_table<TM>(pseg, slots, tile0, (int)min((long)TM, n - tile0), lo_s, hi_s, blk_s);
     add_runs_mm(acc, pm, blk_s[0], lo_s, hi_s);
   }
-  store_rows<T>(dx, acc, tile0, n);
+  store_rows<T, W>(dx, acc, tile0, n);
 }
 
 // The bf16 dx pass on tensor cores (its block shape, halo tile and weight
@@ -266,6 +273,11 @@ band_t_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
 // one fp32 accumulator: the operand then carries ~16 bits, where one
 // rounding to bf16 would carry 8 and sit outside the fp32 plain backward's
 // tolerance. A bf16 cotangent (band_conv's) is exact in hi alone.
+//
+// At a row width W below C (64: lane_layer's half-width model) the same
+// 128-column halo tile and buffers: d_temp and d_y rows read W wide (zeros
+// past W), the [W x W] Wb_j zero-padded into the [C x C] core tiles, K cut
+// to W (the A fragments past W are zero), only W columns of dx stored.
 constexpr int DX_WGS = 3;                      // warpgroups per block
 constexpr int DX_THREADS = 128 * DX_WGS;
 constexpr int DX_ROWS = 64 * DX_WGS;           // output rows per block
@@ -490,12 +502,13 @@ __device__ __forceinline__ void layer_tail_tc(float (&acc)[64], const bf16* X_s,
 // PLAN (lane_plan.cu): dx[p] also adds p's run of the plan's transposed
 // messages pm [slots, 128] (bf16, each rounded as written), at the
 // positions whose source key pseg is p, in position order, before the store.
-template <typename D, bool PLAN = false>
+template <typename D, bool PLAN = false, int W = C>
 __global__ void __launch_bounds__(DX_THREADS, 1)
 band_t_tc_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
                  const uint8_t* __restrict__ masks, const bf16* __restrict__ wb,
                  bf16* __restrict__ dx, int n, int nj, Shifts sh, const bf16* __restrict__ pm,
                  const long long* __restrict__ pseg, long slots) {
+  static_assert(!PLAN || W == C, "lane_plan takes 128-wide rows only");
   constexpr bool SPLIT = std::is_same<D, float>::value;
   extern __shared__ float4 smem4[];
   bf16* Hi_s = reinterpret_cast<bf16*>(smem4);        // [DX_HROWS][DX_HLD] hi
@@ -507,7 +520,7 @@ band_t_tc_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
   const long tile0 = (long)blockIdx.x * DX_ROWS;
   const int lane = threadIdx.x & 31, wg = threadIdx.x >> 7, wr = (threadIdx.x >> 5) & 3;
 
-  if (nj > 0) prefetch_weight(W_b, Wt, wb);
+  if (nj > 0) prefetch_weight<W>(W_b, Wt, wb);
   // The halo tile: hi (and lo) of rows tile0 − HALO + r, zero outside [0, n),
   // HALO_BATCH loads in flight per thread.
   constexpr int HALO_BATCH = 8, HALO_ITEMS = DX_HROWS * (C / 4);
@@ -517,7 +530,9 @@ band_t_tc_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
     for (int k = 0; k < HALO_BATCH; ++k) {
       const int idx = i0 + k * DX_THREADS, r = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
       const long gr = tile0 - HALO + r;
-      v[k] = (idx < HALO_ITEMS && gr >= 0 && gr < n) ? load4<D>(dtemp + gr * C + c4) : zero4();
+      v[k] = (idx < HALO_ITEMS && gr >= 0 && gr < n && (W == C || c4 < W))
+                 ? load4<D>(dtemp + gr * W + c4)
+                 : zero4();
     }
 #pragma unroll
     for (int k = 0; k < HALO_BATCH; ++k) {
@@ -558,7 +573,8 @@ band_t_tc_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
   for (int i = 0; i < 64; i += 2) {
     const long gr = tile0 + 64 * wg + tc::acc_row(i);
     float2 v = make_float2(0.f, 0.f);
-    if (dy && gr < n) v = *reinterpret_cast<const float2*>(dy + gr * C + tc::acc_col(i));
+    if (dy && gr < n && (W == C || tc::acc_col(i) < W))
+      v = *reinterpret_cast<const float2*>(dy + gr * W + tc::acc_col(i));
     acc[i] = v.x;
     acc[i + 1] = v.y;
   }
@@ -572,14 +588,15 @@ band_t_tc_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
     // now takes.
     __syncthreads();
     if (j + 1 < nj)
-      prefetch_weight(W_b + ((j + 1) & 1) * tc::tiles_bytes(C), Wt, wb + (long)(j + 1) * C * C);
+      prefetch_weight<W>(W_b + ((j + 1) & 1) * tc::tiles_bytes(C), Wt,
+                         wb + (long)(j + 1) * W * W);
     if (act_s[j][wg]) {
       const int hr = HALO + row0 - sh.s[j];  // halo row of the warp's first A row
       const bool m0 = M_s[j * DX_HROWS + hr + g8] != 0;
       const bool m1 = M_s[j * DX_HROWS + hr + g8 + 8] != 0;
-      uint32_t ahi[C / 16][4], alo[SPLIT ? C / 16 : 1][4];
+      uint32_t ahi[W / 16][4], alo[SPLIT ? W / 16 : 1][4];
 #pragma unroll
-      for (int ks = 0; ks < C / 16; ++ks) {
+      for (int ks = 0; ks < W / 16; ++ks) {
         tc::ldm_a(ahi[ks], Hi_s, DX_HLD, hr, ks * 16);
         if (!m0) ahi[ks][0] = ahi[ks][2] = 0u;
         if (!m1) ahi[ks][1] = ahi[ks][3] = 0u;
@@ -593,7 +610,7 @@ band_t_tc_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
       tc::fence_acc(acc);
       tc::fence();
 #pragma unroll
-      for (int ks = 0; ks < C / 16; ++ks) {
+      for (int ks = 0; ks < W / 16; ++ks) {
         const uint64_t db = tc::desc(Wj, true, ks, 0);
         tc::mma_rs<0>(acc, ahi[ks], db);
         if constexpr (SPLIT) tc::mma_rs<0>(acc, alo[ks], db);
@@ -611,44 +628,45 @@ band_t_tc_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
     add_runs_tc(acc, pm, blk_s[0], lo_s, hi_s, 64 * wg);
   }
 #pragma unroll
-  for (int i = 0; i < 64; i += 2) {
+  for (int i = 0; i < W / 2; i += 2) {
     const long gr = tile0 + 64 * wg + tc::acc_row(i);
     if (gr < n)
-      *reinterpret_cast<__nv_bfloat162*>(dx + gr * C + tc::acc_col(i)) =
+      *reinterpret_cast<__nv_bfloat162*>(dx + gr * W + tc::acc_col(i)) =
           __floats2bfloat162_rn(acc[i], acc[i + 1]);
   }
 }
 
 // The dx pass; with PLAN, plus the plan's transposed messages pm at the
-// positions of the sorted source keys pseg [slots].
-template <typename T, typename D, bool PLAN = false>
+// positions of the sorted source keys pseg [slots]. W: the rows' width
+// (PLAN at 128 only).
+template <typename T, typename D, bool PLAN = false, int W = C>
 int launch_band_t(const D* dtemp, const float* dy, const uint8_t* masks, const T* wb, T* dx,
                   int n, int nj, const Shifts& sh, cudaStream_t stream,
                   const T* pm = nullptr, const long long* pseg = nullptr, long slots = 0) {
   if constexpr (std::is_same<T, bf16>::value) {
     const int smem = band_t_tc_smem<D>();
-    cudaError_t e = set_smem((const void*)band_t_tc_kernel<D, PLAN>, smem);
+    cudaError_t e = set_smem((const void*)band_t_tc_kernel<D, PLAN, W>, smem);
     if (e != cudaSuccess) return (int)e;
     const int ntiles = (n + DX_ROWS - 1) / DX_ROWS;
     if (ntiles > 0)
-      band_t_tc_kernel<D, PLAN><<<ntiles, DX_THREADS, smem, stream>>>(dtemp, dy, masks, wb, dx,
-                                                                       n, nj, sh, pm, pseg,
-                                                                       slots);
+      band_t_tc_kernel<D, PLAN, W><<<ntiles, DX_THREADS, smem, stream>>>(
+          dtemp, dy, masks, wb, dx, n, nj, sh, pm, pseg, slots);
   } else {
     const int ntiles = (n + TM - 1) / TM;
     const int smem = (HALO_TILE + C * C) * (int)sizeof(float);
-    cudaError_t e = set_smem((const void*)band_t_kernel<T, D, PLAN>, smem);
+    cudaError_t e = set_smem((const void*)band_t_kernel<T, D, PLAN, W>, smem);
     if (e != cudaSuccess) return (int)e;
     if (ntiles > 0)
-      band_t_kernel<T, D, PLAN><<<ntiles, NT, smem, stream>>>(dtemp, dy, masks, wb, dx, n, nj,
-                                                              sh, pm, pseg, slots);
+      band_t_kernel<T, D, PLAN, W><<<ntiles, NT, smem, stream>>>(dtemp, dy, masks, wb, dx, n,
+                                                                 nj, sh, pm, pseg, slots);
   }
   return (int)cudaGetLastError();
 }
 
 // The fp32 dWb pass: block (p, j) sums (band_j[u] · feat[u + s_j])ᵀ rnd(d_temp[u]) over
-// the tiles p, p + splits, ... and writes its partial part[p][j] [C][C].
-template <typename T, typename D>
+// the tiles p, p + splits, ... and writes its partial part[p][j] [W][W] (W-wide
+// rows read with zeros past W).
+template <typename T, typename D, int W = C>
 __global__ void __launch_bounds__(NT)
 band_dw_kernel(const T* __restrict__ feat, const D* __restrict__ dtemp,
                const uint8_t* __restrict__ masks, float* __restrict__ part, int n, int nj,
@@ -666,10 +684,10 @@ band_dw_kernel(const T* __restrict__ feat, const D* __restrict__ dtemp,
       const int r = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
       const long u = (long)tile * TM + r;
       float4 a = zero4(), b = zero4();
-      if (u < n) {
-        b = rnd4<T>(load4<D>(dtemp + u * C + c4));
+      if (u < n && (W == C || c4 < W)) {
+        b = rnd4<T>(load4<D>(dtemp + u * W + c4));
         const long v = u + s;
-        if (v >= 0 && v < n && masks[(long)j * n + u]) a = load4<T>(feat + v * C + c4);
+        if (v >= 0 && v < n && masks[(long)j * n + u]) a = load4<T>(feat + v * W + c4);
       }
       *reinterpret_cast<float4*>(A_s + r * LDA + c4) = a;
       *reinterpret_cast<float4*>(B_s + r * LDA + c4) = b;
@@ -677,7 +695,7 @@ band_dw_kernel(const T* __restrict__ feat, const D* __restrict__ dtemp,
     __syncthreads();
     mm_tn(A_s, B_s, TM, accW);
   }
-  store_tn(part + ((long)blockIdx.x * nj + j) * C * C, accW, false);
+  store_tn<W>(part + ((long)blockIdx.x * nj + j) * W * W, accW, false);
 }
 
 // The bf16 dWb pass on tensor cores: the same (split, j) blocks and the
@@ -692,12 +710,16 @@ band_dw_kernel(const T* __restrict__ feat, const D* __restrict__ dtemp,
 // cp.async into a ring of DW_STAGES stages, two stages in flight while the
 // tensor cores work on a third; a row whose band mask is 0 (or whose
 // shifted source falls outside [0, n)) is a zero-filled copy, its mask
-// byte loaded a stage before the copy is issued.
+// byte loaded a stage before the copy is issued. At a row width W below C
+// the operands' columns past W are zero-filled copies, warpgroup 1 (input
+// channels 64 .. 127, all padding at W = 64) skips its products, and the
+// partial is [W][W].
 constexpr int DW_ROWS = 64;   // node rows per stage
 constexpr int DW_STAGES = 3;  // stages in the ring
 
 inline int band_dw_tc_smem() { return DW_STAGES * 2 * tc::tiles_bytes(DW_ROWS); }
 
+template <int W = C>
 __global__ void __launch_bounds__(NT)
 band_dw_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ dt,
                   const uint8_t* __restrict__ masks, float* __restrict__ part, int n, int nj,
@@ -733,9 +755,9 @@ band_dw_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ dt,
         const int r = row_of(k), c = col_of(k);
         const uint32_t off = tc::tile_off(t0, r, c);
         const long u = (long)tile * DW_ROWS + r, v = u + s;
-        const bool b_in = u < n, a_in = b_in && mk[k] && v >= 0 && v < n;
-        cp_async16_zfill(A_b + off, a_in ? feat + v * C + c : feat, a_in ? 16 : 0);
-        cp_async16_zfill(A_b + TB + off, b_in ? dt + u * C + c : dt, b_in ? 16 : 0);
+        const bool b_in = u < n && (W == C || c < W), a_in = b_in && mk[k] && v >= 0 && v < n;
+        cp_async16_zfill(A_b + off, a_in ? feat + v * W + c : feat, a_in ? 16 : 0);
+        cp_async16_zfill(A_b + TB + off, b_in ? dt + u * W + c : dt, b_in ? 16 : 0);
       }
     }
     cp_async_commit();
@@ -760,24 +782,28 @@ band_dw_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ dt,
     const int st = k % DW_STAGES;
     const tc::Tiles A = tc::tiles(buf + st * 2 * TB, DW_ROWS),
                     B = tc::tiles(buf + st * 2 * TB + TB, DW_ROWS);
-    tc::fence_acc(acc);
-    tc::fence();
-    tc::mm<DW_ROWS / 16, false, false>(acc, A, 64 * wg, B);
-    tc::commit();
-    tc::wait_all();
-    tc::fence_acc(acc);
+    if (W == C || 64 * wg < W) {
+      tc::fence_acc(acc);
+      tc::fence();
+      tc::mm<DW_ROWS / 16, false, false>(acc, A, 64 * wg, B);
+      tc::commit();
+      tc::wait_all();
+      tc::fence_acc(acc);
+    }
   }
   cp_async_wait<0>();  // no copy lands after the block is gone
-  float* P = part + ((long)blockIdx.x * nj + j) * C * C;
+  float* P = part + ((long)blockIdx.x * nj + j) * W * W;
+  if (W == C || 64 * wg < W) {
 #pragma unroll
-  for (int i = 0; i < 64; i += 2)
-    *reinterpret_cast<float2*>(P + (64 * wg + tc::acc_row(i)) * C + tc::acc_col(i)) =
-        make_float2(acc[i], acc[i + 1]);
+    for (int i = 0; i < W / 2; i += 2)
+      *reinterpret_cast<float2*>(P + (64 * wg + tc::acc_row(i)) * W + tc::acc_col(i)) =
+          make_float2(acc[i], acc[i + 1]);
+  }
 }
 
 // The dWb pass on `splits` x nj blocks, then its partials summed in split
-// order into dwb [nj, C, C].
-template <typename T, typename D>
+// order into dwb [nj, W, W].
+template <typename T, typename D, int W = C>
 int launch_band_dw(const T* feat, const D* dtemp, const uint8_t* masks, float* part,
                    float* dwb, int n, int nj, const Shifts& sh, int splits, cudaStream_t stream) {
   cudaError_t e;
@@ -785,21 +811,21 @@ int launch_band_dw(const T* feat, const D* dtemp, const uint8_t* masks, float* p
     if constexpr (std::is_same<T, bf16>::value) {
       static_assert(std::is_same<D, bf16>::value, "the bf16 dWb pass reads rnd(d_temp) in bf16");
       const int smem = band_dw_tc_smem();
-      e = set_smem((const void*)band_dw_tc_kernel, smem);
+      e = set_smem((const void*)band_dw_tc_kernel<W>, smem);
       if (e != cudaSuccess) return (int)e;
-      band_dw_tc_kernel<<<dim3(splits, nj), NT, smem, stream>>>(feat, dtemp, masks, part, n, nj,
-                                                                 sh);
+      band_dw_tc_kernel<W><<<dim3(splits, nj), NT, smem, stream>>>(feat, dtemp, masks, part, n,
+                                                                    nj, sh);
     } else {
       const int smem = 2 * TM * LDA * (int)sizeof(float);
-      e = set_smem((const void*)band_dw_kernel<T, D>, smem);
+      e = set_smem((const void*)band_dw_kernel<T, D, W>, smem);
       if (e != cudaSuccess) return (int)e;
-      band_dw_kernel<T, D><<<dim3(splits, nj), NT, smem, stream>>>(feat, dtemp, masks, part, n,
-                                                                    nj, sh);
+      band_dw_kernel<T, D, W><<<dim3(splits, nj), NT, smem, stream>>>(feat, dtemp, masks, part,
+                                                                       n, nj, sh);
     }
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  return (int)reduce_partials(part, dwb, splits, (long)nj * C * C, stream);
+  return (int)reduce_partials(part, dwb, splits, (long)nj * W * W, stream);
 }
 
 }  // namespace lgk

@@ -56,7 +56,7 @@
 // columns of out and temp stored. The bf16 products keep m64n128k16 with K
 // cut to W (half of N multiplies zero columns). At W = 128 each kernel
 // compiles to the code it was before the width existed. The backward takes
-// 128 only.
+// W = 64 the same way (below).
 //
 // Backward (`lane_layer_bwd`): replaces pallas_lane_layer.py `_bwd_kernel` /
 // `_bwd_impl`. It consumes the saved temp:
@@ -84,6 +84,18 @@
 // warpgroup's 64 wgmma accumulators in bf16), so the partial workspace is
 // splits x 12 x 64 KB rather than one [12, 128, 128] per tile; a second
 // pass sums the partials in split order (deterministic).
+//
+// Width: the backward's three passes also run on W = 64-wide rows, each
+// templated on W by the padded route of common.cuh: the row pass is
+// tail_bwd.cuh's at W (temp, feat, g read W wide; dW2 and dGN W x W and W);
+// the dx pass keeps band_t_tc_kernel's 128-column halo tile, d_temp and d_y
+// read W wide with zeros past W, the [W x W] Wb_j zero-padded in the core
+// tiles, K cut to W, W columns of dx stored; the dWb pass zero-fills the
+// operands past W, its second warpgroup (input channels 64 .. 127, all
+// padding) skips its products, and each partial is W x W. The workspaces
+// are W wide: d_temp, d_y [n, W], part_band splits x nj x W*W. At W = 128
+// each kernel compiles to the code it was before the width existed;
+// lane_plan.cu's PLAN instantiation of the dx pass stays at 128.
 #include "lane_band.cuh"
 
 using namespace lgk;
@@ -167,21 +179,21 @@ int launch(const void* feat, const void* pre, const uint8_t* masks, const void* 
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int W>
 int launch_bwd(const T* feat, const float* temp, const uint8_t* masks, const T* wb,
                const T* w2, const float* g1w, const float* g1b, const float* g2w,
                const float* g2b, const T* g, T* dx, T* dpre, float* dtemp, float* dy,
                float* part_tail, float* part_band, float* grads_tail, float* dwb, int n, int nj,
                const Shifts& sh, int tail_blocks, int splits, float eps, cudaStream_t stream) {
-  int err = launch_tail_bwd<T, float>(temp, feat, g, w2, g1w, g1b, g2w, g2b, dpre, nullptr,
-                                      dtemp, dy, part_tail, grads_tail, n, tail_blocks, eps,
-                                      stream);
+  int err = launch_tail_bwd<T, float, W>(temp, feat, g, w2, g1w, g1b, g2w, g2b, dpre, nullptr,
+                                         dtemp, dy, part_tail, grads_tail, n, tail_blocks, eps,
+                                         stream);
   if (err != 0) return err;
-  err = launch_band_t<T, float>(dtemp, dy, masks, wb, dx, n, nj, sh, stream);
+  err = launch_band_t<T, float, false, W>(dtemp, dy, masks, wb, dx, n, nj, sh, stream);
   if (err != 0) return err;
   // dWb's operand rnd(d_temp) is dpre, which the row pass wrote in T: half
   // the bytes of d_temp in bf16, each of the 12 relations' blocks reads it.
-  return launch_band_dw<T, T>(feat, dpre, masks, part_band, dwb, n, nj, sh, splits, stream);
+  return launch_band_dw<T, T, W>(feat, dpre, masks, part_band, dwb, n, nj, sh, splits, stream);
 }
 
 }  // namespace
@@ -208,17 +220,17 @@ extern "C" int lane_layer_fwd(const void* feat, const void* pre, const void* mas
   });
 }
 
-// Backward. temp: the forward's fp32 temp; g: the output cotangent in feat's
-// dtype; dx, dpre [n, 128] in feat's dtype; dtemp, dy: fp32 [n, 128]
-// workspace; part_tail: tail_blocks * (C*C + 4*C) and part_band:
-// splits * nj * C*C fp32 workspace; grads_tail: fp32 [C*C + 4*C] = dW2,
-// dg1w, dg1b, dg2w, dg2b; dwb: fp32 [nj, C, C].
+// Backward, at W = width (128 or 64). temp: the forward's fp32 temp [n, W];
+// g: the output cotangent in feat's dtype; dx, dpre [n, W] in feat's dtype;
+// dtemp, dy: fp32 [n, W] workspace; part_tail: tail_blocks * (W*W + 4*W)
+// and part_band: splits * nj * W*W fp32 workspace; grads_tail: fp32
+// [W*W + 4*W] = dW2, dg1w, dg1b, dg2w, dg2b; dwb: fp32 [nj, W, W].
 extern "C" int lane_layer_bwd(const void* feat, const void* temp, const void* masks,
                               const void* wb, const void* w2, const void* g1w,
                               const void* g1b, const void* g2w, const void* g2b, const void* g,
                               void* dx, void* dpre, void* dtemp, void* dy, void* part_tail,
-                              void* part_band, void* grads_tail, void* dwb, int n, int nj,
-                              const void* shifts, int tail_blocks, int splits, float eps,
+                              void* part_band, void* grads_tail, void* dwb, int n, int width,
+                              int nj, const void* shifts, int tail_blocks, int splits, float eps,
                               int dtype, void* stream) {
   Shifts sh;
   const int bad = make_shifts(nj, (const int*)shifts, &sh);
@@ -229,13 +241,11 @@ extern "C" int lane_layer_bwd(const void* feat, const void* temp, const void* ma
   const uint8_t* m = (const uint8_t*)masks;
   float *dt = (float*)dtemp, *y = (float*)dy, *pt = (float*)part_tail, *pb = (float*)part_band,
         *gt = (float*)grads_tail, *gb = (float*)dwb;
-  if (dtype == 0)
-    return launch_bwd<float>((const float*)feat, t, m, (const float*)wb, (const float*)w2, a, b,
-                             c, d, (const float*)g, (float*)dx, (float*)dpre, dt, y, pt, pb, gt,
-                             gb, n, nj, sh, tail_blocks, splits, eps, st);
-  if (dtype == 1)
-    return launch_bwd<bf16>((const bf16*)feat, t, m, (const bf16*)wb, (const bf16*)w2, a, b, c,
-                            d, (const bf16*)g, (bf16*)dx, (bf16*)dpre, dt, y, pt, pb, gt, gb, n,
-                            nj, sh, tail_blocks, splits, eps, st);
-  return (int)cudaErrorInvalidValue;
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    using T = typename decltype(Tc)::type;
+    return launch_bwd<T, decltype(Wc)::value>((const T*)feat, t, m, (const T*)wb, (const T*)w2,
+                                               a, b, c, d, (const T*)g, (T*)dx, (T*)dpre, dt, y,
+                                               pt, pb, gt, gb, n, nj, sh, tail_blocks, splits,
+                                               eps, st);
+  });
 }

@@ -39,11 +39,11 @@
 // products on the valid spill edges (29,784 at the 256-scenario bench pack:
 // 1 GFLOP) against ~110 MB (temp read and out written whole, feat at the
 // rows the edges read): memory-bound at the card's rates. The passes also
-// move the fp32 message workspace (512 bytes an edge, written and read),
-// the price of a scatter without atomics.
+// move the fp32 message workspace (a 4·W-byte row an edge, written and
+// read: 512 bytes at W = 128), the price of a scatter without atomics.
 //
-// Width: the forward also runs on 64-wide rows (rel_agg.cuh, the padded
-// route); the backward takes 128 only.
+// Width: both directions also run on 64-wide rows (rel_agg.cuh, the padded
+// route).
 #include "rel_agg.cuh"
 
 using namespace lgk;
@@ -72,31 +72,24 @@ extern "C" int pair_agg_fwd(const void* feat, const void* temp, const void* w_re
 
 // Backward, over the spill plan prepared by ops/pair_agg.py `prepare_spill`
 // (a PlanPrep over `slots` = nc*chunk plan slots, as scenario_agg_bwd takes
-// it): g the output cotangent in feat's dtype; w_rel [R, C, C] (in, out), not
-// transposed; dst / src int32 [slots], the valid edges' global rows in
-// relation order; tiles / rel_tiles the relation-pure tile table; spos /
-// sseg each edge's position in source order and the source row of each;
-// ws fp32 [slots, C]; dfeat [n, C] in feat's dtype; part fp32 (blocks + R) *
-// C*C; dw fp32 [R, C, C]. The cotangent of temp is g itself (the wrapper
-// returns it).
+// it): g the output cotangent in feat's dtype; w_rel [R, W, W] (in, out),
+// not transposed, W = width: 128 or 64; dst / src int32 [slots], the valid
+// edges' global rows in relation order; tiles / rel_tiles the relation-pure
+// tile table; spos / sseg each edge's position in source order and the
+// source row of each; ws fp32 [slots, W]; dfeat [n, W] in feat's dtype;
+// part fp32 (blocks + R) * W*W; dw fp32 [R, W, W]. The cotangent of temp is
+// g itself (the wrapper returns it).
 extern "C" int pair_agg_bwd(const void* feat, const void* g, const void* w_rel, const void* dst,
                             const void* src, const void* tiles, const void* rel_tiles,
                             const void* spos, const void* sseg, void* ws, void* dfeat, void* part,
-                            void* dw, int n, long long slots, int num_rel, int blocks, int dtype,
-                            void* stream) {
+                            void* dw, int n, int width, long long slots, int num_rel, int blocks,
+                            int dtype, void* stream) {
   if (n < 0 || slots < 0 || num_rel < 1 || blocks < 1 || blocks > agg::MAX_BLOCKS)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
   const int *d = (const int*)dst, *s = (const int*)src, *t = (const int*)tiles,
             *rt = (const int*)rel_tiles, *sp = (const int*)spos;
-  const long long* ss = (const long long*)sseg;
-  if (dtype == 0)
-    return agg::launch_bwd<agg::SpillPlan, float>(feat, g, w_rel, d, s, t, rt, sp, ss,
-                                                  (float*)ws, dfeat, (float*)part, (float*)dw, n,
-                                                  slots, num_rel, blocks, st);
-  if (dtype == 1)
-    return agg::launch_bwd<agg::SpillPlan, bf16>(feat, g, w_rel, d, s, t, rt, sp, ss, (float*)ws,
-                                                 dfeat, (float*)part, (float*)dw, n, slots,
-                                                 num_rel, blocks, st);
-  return (int)cudaErrorInvalidValue;
+  return agg::launch_bwd_width<agg::SpillPlan>(feat, g, w_rel, d, s, t, rt, sp,
+                                               (const long long*)sseg, (float*)ws, dfeat,
+                                               (float*)part, (float*)dw, n, width, slots,
+                                               num_rel, blocks, dtype, (cudaStream_t)stream);
 }

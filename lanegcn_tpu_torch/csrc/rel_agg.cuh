@@ -43,9 +43,14 @@
 // padded route of common.cuh: source rows gathered W wide into the same
 // 128-column tiles (zeros past W), the [W x W] W_r zero-padded to 128 x 128
 // in shared memory, K cut to W on wgmma, the workspace [slots, W] and only
-// its W columns written, the segment sum over W columns. At W = 128 each
-// kernel compiles to the code it was before the width existed. The
-// backward's passes take 128 only.
+// its W columns written, the segment sum over W columns. The backward's
+// passes take W the same way: the transposed messages (msg_tc_kernel /
+// msg_kernel with TRANS, K cut to W: g's columns past W are zero) into a
+// [slots, W] workspace, the segment sum over W columns, and the dW pass on
+// W-wide rows read with zeros past W, its second warpgroup (input channels
+// 64 .. 127, all padding at W = 64) skipping its products, one [W x W]
+// partial per (block, relation) run, reduce_rel_kernel over W*W. At W = 128
+// each kernel compiles to the code it was before the width existed.
 #pragma once
 
 #include <type_traits>
@@ -235,11 +240,11 @@ msg_kernel(const float* __restrict__ x, const float* __restrict__ w_rel,
 // tiles, K running over a tile's 64 edges (rows past its edges zero-filled).
 // Warpgroup w owns input channels 64w .. 64w + 63; a DW_STAGES ring of
 // (A, B) core tiles keeps two tiles' gathers in flight. On a change of
-// relation, and at the end, the block writes its partial to slot
+// relation, and at the end, the block writes its partial ([W x W]) to slot
 // blockIdx.x + r of part.
 constexpr int DW_STAGES = 3;
 
-template <class Plan>
+template <class Plan, int W = C>
 __global__ void __launch_bounds__(NT)
 dw_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ g,
              const int* __restrict__ dst, const int* __restrict__ src,
@@ -261,22 +266,24 @@ dw_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ g,
 #pragma unroll
       for (int k = 0; k < TE * C / 8 / NT; ++k) {
         const int r = 8 * (2 * k + wg) + rr;
-        const bool in = r < ct.count;
+        const bool in = r < ct.count && (W == C || cb < W);
         const uint32_t off = tc::tile_off(t0, r, cb);
-        cp_async16_zfill(A + off, in ? feat + (long)src[ct.first + r] * C + cb : feat,
+        cp_async16_zfill(A + off, in ? feat + (long)src[ct.first + r] * W + cb : feat,
                          in ? 16 : 0);
-        cp_async16_zfill(A + AB + off, in ? g + (long)dst[ct.first + r] * C + cb : g,
+        cp_async16_zfill(A + AB + off, in ? g + (long)dst[ct.first + r] * W + cb : g,
                          in ? 16 : 0);
       }
     }
     cp_async_commit();
   };
   float acc[64];
+  const bool live = W == C || 64 * wg < W;  // the warpgroup's input channels lie in the row
   auto flush = [&](int rel) {
-    float* P = part + (long)(blockIdx.x + rel) * C * C;
+    if (!live) return;
+    float* P = part + (long)(blockIdx.x + rel) * W * W;
 #pragma unroll
-    for (int i = 0; i < 64; i += 2)
-      *reinterpret_cast<float2*>(P + (64 * wg + tc::acc_row(i)) * C + tc::acc_col(i)) =
+    for (int i = 0; i < W / 2; i += 2)
+      *reinterpret_cast<float2*>(P + (64 * wg + tc::acc_row(i)) * W + tc::acc_col(i)) =
           make_float2(acc[i], acc[i + 1]);
   };
 
@@ -300,20 +307,22 @@ dw_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ g,
     }
     const int st = k % DW_STAGES;
     const tc::Tiles A = tc::tiles(buf + st * 2 * AB, TE), B = tc::tiles(buf + st * 2 * AB + AB, TE);
-    tc::fence_acc(acc);
-    tc::fence();
-    tc::mm<TE / 16, false, false>(acc, A, 64 * wg, B);
-    tc::commit();
-    tc::wait_all();
-    tc::fence_acc(acc);
+    if (live) {
+      tc::fence_acc(acc);
+      tc::fence();
+      tc::mm<TE / 16, false, false>(acc, A, 64 * wg, B);
+      tc::commit();
+      tc::wait_all();
+      tc::fence_acc(acc);
+    }
   }
   cp_async_wait<0>();  // no copy lands after the block is gone
   flush(cur_rel);
 }
 
 // dW_r in fp32 on CUDA cores (the parity path): the same tiles, partial
-// slots and order of flushes.
-template <class Plan>
+// slots and order of flushes; W as in dw_tc_kernel.
+template <class Plan, int W = C>
 __global__ void __launch_bounds__(NT)
 dw_kernel(const float* __restrict__ feat, const float* __restrict__ g,
           const int* __restrict__ dst, const int* __restrict__ src,
@@ -330,7 +339,7 @@ dw_kernel(const float* __restrict__ feat, const float* __restrict__ g,
   for (int t = range.x; t < range.y; ++t) {
     const Tile ct = tile_at(tiles, t);
     if (ct.rel != cur_rel) {
-      store_tn(part + (long)(blockIdx.x + cur_rel) * C * C, accW, false);
+      store_tn<W>(part + (long)(blockIdx.x + cur_rel) * W * W, accW, false);
       zero_tn(accW);
       cur_rel = ct.rel;
     }
@@ -338,9 +347,9 @@ dw_kernel(const float* __restrict__ feat, const float* __restrict__ g,
     for (int idx = threadIdx.x; idx < TE * (C / 4); idx += NT) {
       const int i = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
       float4 a = zero4(), b = zero4();
-      if (i < ct.count) {
-        a = load4<float>(feat + (long)src[ct.first + i] * C + c4);
-        b = load4<float>(g + (long)dst[ct.first + i] * C + c4);
+      if (i < ct.count && (W == C || c4 < W)) {
+        a = load4<float>(feat + (long)src[ct.first + i] * W + c4);
+        b = load4<float>(g + (long)dst[ct.first + i] * W + c4);
       }
       *reinterpret_cast<float4*>(A_s + i * LDA + c4) = a;
       *reinterpret_cast<float4*>(B_s + i * LDA + c4) = b;
@@ -348,16 +357,16 @@ dw_kernel(const float* __restrict__ feat, const float* __restrict__ g,
     __syncthreads();
     mm_tn(A_s, B_s, ct.count, accW);
   }
-  store_tn(part + (long)(blockIdx.x + cur_rel) * C * C, accW, false);
+  store_tn<W>(part + (long)(blockIdx.x + cur_rel) * W * W, accW, false);
 }
 
 // dw[r] = Σ over the blocks b whose tiles meet relation r's (in b order) of
-// part[b + r]; zero for a relation without edges. The blocks that meet
-// relation r are found once per CTA, into a shared bitmask.
+// part[b + r] ([W x W] each); zero for a relation without edges. The blocks
+// that meet relation r are found once per CTA, into a shared bitmask.
 constexpr int RED_THREADS = 1024;  // threads of the reduction's CTAs
 constexpr int MAX_BLOCKS = RED_THREADS;  // dW blocks it takes: a thread tests one
 
-template <class Plan>
+template <class Plan, int W = C>
 __global__ void reduce_rel_kernel(const float* __restrict__ part,
                                   const int* __restrict__ rel_tiles, float* __restrict__ dw,
                                   int num_rel, int blocks) {
@@ -375,15 +384,15 @@ __global__ void reduce_rel_kernel(const float* __restrict__ part,
   }
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C * C) return;
+  if (i >= W * W) return;
   float s = 0.f;
   for (int w = 0; w < words; ++w) {
     for (unsigned bits = hit_s[w]; bits; bits &= bits - 1u) {
       const int b = w * 32 + __ffs(bits) - 1;
-      s += part[(long)(b + r) * C * C + i];
+      s += part[(long)(b + r) * W * W + i];
     }
   }
-  dw[(long)r * C * C + i] = s;
+  dw[(long)r * W * W + i] = s;
 }
 
 // Pass 1 into a workspace of M: fp32, or (bf16 products only) bf16; rows W wide.
@@ -409,27 +418,28 @@ int launch_msg(const T* x, const T* w_rel, const int* rows, const int* tiles,
   return (int)cudaGetLastError();
 }
 
-template <class Plan, typename T>
+// The dW pass on W-wide rows: partials [W x W], then dw [R, W, W].
+template <class Plan, typename T, int W = C>
 int launch_dw(const T* feat, const T* g, const int* dst, const int* src, const int* tiles,
               const int* rel_tiles, float* part, float* dw, int num_rel, int blocks,
               cudaStream_t stream) {
   cudaError_t e;
   if constexpr (std::is_same<T, bf16>::value) {
     const int smem = DW_STAGES * 2 * tc::tiles_bytes(TE);
-    e = set_smem((const void*)dw_tc_kernel<Plan>, smem);
+    e = set_smem((const void*)dw_tc_kernel<Plan, W>, smem);
     if (e != cudaSuccess) return (int)e;
-    dw_tc_kernel<Plan><<<blocks, NT, smem, stream>>>(feat, g, dst, src, tiles, rel_tiles, part,
-                                                     num_rel);
+    dw_tc_kernel<Plan, W><<<blocks, NT, smem, stream>>>(feat, g, dst, src, tiles, rel_tiles,
+                                                        part, num_rel);
   } else {
     const int smem = 2 * TE * LDA * (int)sizeof(float);
-    e = set_smem((const void*)dw_kernel<Plan>, smem);
+    e = set_smem((const void*)dw_kernel<Plan, W>, smem);
     if (e != cudaSuccess) return (int)e;
-    dw_kernel<Plan><<<blocks, NT, smem, stream>>>(feat, g, dst, src, tiles, rel_tiles, part,
-                                                  num_rel);
+    dw_kernel<Plan, W><<<blocks, NT, smem, stream>>>(feat, g, dst, src, tiles, rel_tiles, part,
+                                                     num_rel);
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  reduce_rel_kernel<Plan><<<dim3(C * C / RED_THREADS, num_rel), RED_THREADS, 0, stream>>>(
+  reduce_rel_kernel<Plan, W><<<dim3(W * W / RED_THREADS, num_rel), RED_THREADS, 0, stream>>>(
       part, rel_tiles, dw, num_rel, blocks);
   return (int)cudaGetLastError();
 }
@@ -459,18 +469,32 @@ int launch_fwd_width(const void* feat, const void* temp, const void* w_rel, cons
   });
 }
 
-template <class Plan, typename T>
+template <class Plan, typename T, int W = C>
 int launch_bwd(const void* feat, const void* g, const void* w_rel, const int* dst,
                const int* src, const int* tiles, const int* rel_tiles, const int* spos,
                const long long* sseg, float* ws, void* dfeat, float* part, float* dw, int n,
                long slots, int num_rel, int blocks, cudaStream_t stream) {
-  int err = launch_msg<Plan, T, true>((const T*)g, (const T*)w_rel, dst, tiles, rel_tiles, spos,
-                                      ws, num_rel, blocks, stream);
+  int err = launch_msg<Plan, T, true, float, W>((const T*)g, (const T*)w_rel, dst, tiles,
+                                                rel_tiles, spos, ws, num_rel, blocks, stream);
   if (err != 0) return err;
-  err = launch_segment_sum<float, T>(ws, sseg, nullptr, (T*)dfeat, slots, n, C, stream);
+  err = launch_segment_sum<float, T>(ws, sseg, nullptr, (T*)dfeat, slots, n, W, stream);
   if (err != 0) return err;
-  return launch_dw<Plan, T>((const T*)feat, (const T*)g, dst, src, tiles, rel_tiles, part, dw,
-                            num_rel, blocks, stream);
+  return launch_dw<Plan, T, W>((const T*)feat, (const T*)g, dst, src, tiles, rel_tiles, part, dw,
+                               num_rel, blocks, stream);
+}
+
+// The backward at the row width and activation dtype of `with_width_dtype`.
+template <class Plan>
+int launch_bwd_width(const void* feat, const void* g, const void* w_rel, const int* dst,
+                     const int* src, const int* tiles, const int* rel_tiles, const int* spos,
+                     const long long* sseg, float* ws, void* dfeat, float* part, float* dw, int n,
+                     int width, long slots, int num_rel, int blocks, int dtype,
+                     cudaStream_t stream) {
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    return launch_bwd<Plan, typename decltype(Tc)::type, decltype(Wc)::value>(
+        feat, g, w_rel, dst, src, tiles, rel_tiles, spos, sseg, ws, dfeat, part, dw, n, slots,
+        num_rel, blocks, stream);
+  });
 }
 
 }  // namespace agg

@@ -24,11 +24,11 @@
 // What bounds it: bytes. Per launch the products are 2·edges·128² operations
 // (0.09 ms at the bf16 rate for 350k edges) against the gathered rows, temp
 // and out: ~0.05 ms at the card's memory rate. This design also moves the
-// fp32 workspace (written and read once, 512 bytes an edge), which is the
-// price of a scatter without atomics.
+// fp32 workspace (written and read once, a 4·W-byte row an edge: 512 bytes
+// at W = 128), which is the price of a scatter without atomics.
 //
-// Width: the forward also runs on 64-wide rows (rel_agg.cuh, the padded
-// route); the backward takes 128 only.
+// Width: both directions also run on 64-wide rows (rel_agg.cuh, the padded
+// route).
 #include "rel_agg.cuh"
 
 using namespace lgk;
@@ -57,30 +57,24 @@ extern "C" int scenario_agg_fwd(const void* feat, const void* temp, const void* 
 }
 
 // Backward. g: the output cotangent in feat's dtype; w_rel as in the forward
-// (not transposed); dst int32 [slots], the applied edges' destination rows in
-// relation order; spos / sseg: positions in source order and the source row
-// of each; dfeat [n, C] in feat's dtype; part: fp32 (blocks + R) * C*C
-// workspace; dw: fp32 [R, C, C]. The cotangent of temp is g itself (the
-// wrapper returns it).
+// (not transposed; [R, W, W], W = width: 128 or 64); dst int32 [slots], the
+// applied edges' destination rows in relation order; spos / sseg: positions
+// in source order and the source row of each; ws fp32 [slots, W]; dfeat
+// [n, W] in feat's dtype; part: fp32 (blocks + R) * W*W workspace; dw:
+// fp32 [R, W, W]. The cotangent of temp is g itself (the wrapper returns
+// it).
 extern "C" int scenario_agg_bwd(const void* feat, const void* g, const void* w_rel,
                                 const void* dst, const void* src, const void* tiles,
                                 const void* rel_tiles, const void* spos, const void* sseg,
-                                void* ws, void* dfeat, void* part, void* dw, int n,
+                                void* ws, void* dfeat, void* part, void* dw, int n, int width,
                                 long long slots, int num_rel, int blocks, int dtype,
                                 void* stream) {
   if (n < 0 || slots < 0 || num_rel < 1 || blocks < 1 || blocks > agg::MAX_BLOCKS)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
   const int *d = (const int*)dst, *s = (const int*)src, *t = (const int*)tiles,
             *rt = (const int*)rel_tiles, *sp = (const int*)spos;
-  const long long* ss = (const long long*)sseg;
-  if (dtype == 0)
-    return agg::launch_bwd<agg::WindowPlan, float>(feat, g, w_rel, d, s, t, rt, sp, ss,
-                                                   (float*)ws, dfeat, (float*)part, (float*)dw,
-                                                   n, slots, num_rel, blocks, st);
-  if (dtype == 1)
-    return agg::launch_bwd<agg::WindowPlan, bf16>(feat, g, w_rel, d, s, t, rt, sp, ss,
-                                                  (float*)ws, dfeat, (float*)part, (float*)dw,
-                                                  n, slots, num_rel, blocks, st);
-  return (int)cudaErrorInvalidValue;
+  return agg::launch_bwd_width<agg::WindowPlan>(feat, g, w_rel, d, s, t, rt, sp,
+                                                (const long long*)sseg, (float*)ws, dfeat,
+                                                (float*)part, (float*)dw, n, width, slots,
+                                                num_rel, blocks, dtype, (cudaStream_t)stream);
 }

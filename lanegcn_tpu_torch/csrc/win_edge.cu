@@ -49,7 +49,8 @@
 // chain), GN statistics over W, the e2 workspace [slots, W], the sum pass's
 // lanes past W idle, only W columns stored. The wgmma products keep
 // m64n128k16 with K cut to W. At W = 128 each kernel compiles to the code
-// it was before the width existed. The backward takes 128 only.
+// it was before the width existed. The backward's passes take W = 64 the
+// same way (below).
 //
 #include <type_traits>
 
@@ -442,7 +443,22 @@ int launch_fwd(const T* pd, const T* qd, const T* ps, const T* cs, const T* temp
 // ~21k edges) against dPd/dQd/dPs/dCs written whole (~110 MB at 208,896
 // rows): bytes, at the card's rates. The chain itself, forward and
 // backward, is edge_chain.cuh's in fp32, shared with edge_mlp.cu.
-constexpr int WE_PART = 3 * C * C + 5 * C;  // dWdo, dK1, dWout, dbd, dgdow, dgdob, dgchw, dgchb
+//
+// Width: every pass also runs on W = 64-wide rows (the fusion stages where
+// n_map = n_actor = 64), templated on W by the padded route of common.cuh
+// as the forward: Pd/Qd/Ps/Cs/g rows read W wide into the same 128-column
+// tiles (zeros past W), Wdo, K1 and Wout zero-padded to 128 x 128 in shared
+// memory, bd and the GN affines zero past W, GN statistics over W, K cut to
+// W on wgmma (N kept at 128: the padded columns come out zero); the per-edge
+// rows [slots, 2W] and act [slots, 4W] hold W columns a part, the weight
+// gradients are W x W (edge_tc.cuh dw_tc<W>, edge_chain.cuh chain_bwd<., W>)
+// and the vectors W wide. At W = 128 each kernel compiles to the code it
+// was before the width existed.
+
+// A block's fp32 partial at width W (the fp32 pass): dWdo, dK1, dWout, dbd,
+// dgdow, dgdob, dgchw, dgchb.
+template <int W = C>
+__host__ __device__ constexpr int we_part() { return 3 * W * W + 5 * W; }
 
 // This block's tiles [x, y): an equal share of the ⌈e / TE⌉ tiles over the
 // destination-ordered edges, in order.
@@ -456,7 +472,9 @@ __device__ __forceinline__ int2 block_tiles(int e) {
 // block's tiles, the weight gradients added into the block's own slice of
 // `part` (zeroed here, then a read-modify-write per tile, by this block
 // only), the vectors kept per warp and written once. rows_d / rows_s get
-// rnd(d_t1p) | rnd(d_s) at each edge's destination / source position.
+// rnd(d_t1p) | rnd(d_s) at each edge's destination / source position
+// ([slots, 2W] rows; lanes past W store nothing).
+template <int W>
 __global__ void __launch_bounds__(NT)
 win_edge_bwd_kernel(const float* __restrict__ pd, const float* __restrict__ qd,
                     const float* __restrict__ ps, const float* __restrict__ cs,
@@ -481,10 +499,11 @@ win_edge_bwd_kernel(const float* __restrict__ pd, const float* __restrict__ qd,
 
   const int e = *count;
   const int2 range = block_tiles(e);
-  float* P = part + (long)blockIdx.x * WE_PART;
-  for (int i = threadIdx.x; i < 3 * C * C; i += NT) P[i] = 0.f;
+  float* P = part + (long)blockIdx.x * we_part<W>();
+  for (int i = threadIdx.x; i < 3 * W * W; i += NT) P[i] = 0.f;
   const Chain<float> w{kdo, gdow, gdob, k1, gchw, gchb, kout, eps};
   const int lane = threadIdx.x & 31;
+  const bool in_w = lane_in<W>();  // the lane's columns lie in the row
   float4 vecs[5] = {zero4(), zero4(), zero4(), zero4(), zero4()};
   for (int t = range.x; t < range.y; ++t) {
     const long p0 = (long)t * TE;
@@ -497,26 +516,27 @@ win_edge_bwd_kernel(const float* __restrict__ pd, const float* __restrict__ qd,
       sp_s[threadIdx.x] = ok ? spos[p] : -1;
     }
     auto store = [&](int r, int col, float4 x) {
-      store4<float>(rows_d + (p0 + r) * 2 * C + col + lane * 4, x);
-      store4<float>(rows_s + (long)sp_s[r] * 2 * C + col + lane * 4, x);
+      if (!in_w) return;
+      store4<float>(rows_d + (p0 + r) * 2 * W + col + lane * 4, x);
+      store4<float>(rows_s + (long)sp_s[r] * 2 * W + col + lane * 4, x);
     };
-    chain_bwd<float>(
+    chain_bwd<float, W>(
         A_s, B_s, C_s, D_s, W_s, st_s, P, vecs, w,
-        [&](float* X_s) { gather_t1<float>(X_s, lu_s, lv_s, pd, ps, bd, 0, 0); },
+        [&](float* X_s) { gather_t1<float, W>(X_s, lu_s, lv_s, pd, ps, bd, 0, 0); },
         [&](int r, float4 sv) {  // s += Cs[v] + Qd[u]
-          if (lu_s[r] >= 0) {
-            sv = add4(sv, load4<float>(cs + (long)lv_s[r] * C + lane * 4));
-            sv = add4(sv, load4<float>(qd + (long)lu_s[r] * C + lane * 4));
+          if (lu_s[r] >= 0 && in_w) {
+            sv = add4(sv, load4<float>(cs + (long)lv_s[r] * W + lane * 4));
+            sv = add4(sv, load4<float>(qd + (long)lu_s[r] * W + lane * 4));
           }
           return sv;
         },
         [&](int r) {  // d_e2 = g[u]
-          return lu_s[r] >= 0 ? load4<float>(g + (long)lu_s[r] * C + lane * 4) : zero4();
+          return lu_s[r] >= 0 && in_w ? load4<float>(g + (long)lu_s[r] * W + lane * 4) : zero4();
         },
-        [&](int r) { return lu_s[r] >= 0; }, [&](int r, float4 ds) { store(r, C, ds); }, []() {},
+        [&](int r) { return lu_s[r] >= 0; }, [&](int r, float4 ds) { store(r, W, ds); }, []() {},
         [&](int r, float4 d1) { store(r, 0, d1); }, []() {});
   }
-  reduce_warp_vecs<5>(vecs, B_s, P + 3 * C * C);
+  reduce_warp_vecs<5, W>(vecs, B_s, P + 3 * W * W);
 }
 
 // bf16 (the path that trains): the chain on tensor cores. A block of
@@ -535,7 +555,8 @@ win_edge_bwd_kernel(const float* __restrict__ pd, const float* __restrict__ qd,
 // tiles and summed over the warps once. The weight gradients are left to
 // win_edge_dw_tc_kernel: three [128 x 128] fp32 accumulators do not fit
 // beside the chain, so each edge's operands (t1 | t2 | e1 | rnd(d_z)) go to
-// `act` at its destination position.
+// `act` at its destination position. At W = 64 the tiles keep 128 columns
+// (zeros past W) and only W columns of each row are stored.
 constexpr int WE_WGS = 2;
 constexpr int WE_THREADS = 128 * WE_WGS;
 
@@ -544,6 +565,7 @@ inline int bwd_tc_smem() {
          WE_WGS * 3 * TE * (int)sizeof(int);
 }
 
+template <int W>
 __global__ void __launch_bounds__(WE_THREADS, 1)
 win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
                        const bf16* __restrict__ ps, const bf16* __restrict__ cs,
@@ -577,10 +599,10 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
   const float* gchw_s = vec_s + 3 * C;
   const float* gchb_s = vec_s + 4 * C;
 
-  load_chain_weights(W_b, kdo, k1, kout, WE_THREADS);
+  load_chain_weights<W>(W_b, kdo, k1, kout, WE_THREADS);
   for (int i = threadIdx.x; i < 5 * C; i += WE_THREADS) {
     const float* v = i < C ? bd : i < 2 * C ? gdow : i < 3 * C ? gdob : i < 4 * C ? gchw : gchb;
-    vec_s[i] = v[i & (C - 1)];
+    vec_s[i] = W == C || (i & (C - 1)) < W ? v[i & (C - 1)] : 0.f;
   }
   const int e = *count;
   const int2 range = block_tiles(e);
@@ -609,12 +631,13 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
     for (int k = 0; k < TE * C / 8 / 128; ++k) {
       const int r = 8 * k + (tid & 7), c = (tid >> 3) * 8;
       const int u = U_s[r], v = V_s[r];
+      const bool in = u >= 0 && (W == C || c < W);
       const uint32_t off = tc::tile_off(T1, r, c);  // the same in every edge tile
-      cp_async16_zfill(Y_b + off, u >= 0 ? g + (long)u * C + c : g, u >= 0 ? 16 : 0);
+      cp_async16_zfill(Y_b + off, in ? g + (long)u * W + c : g, in ? 16 : 0);
       uint4 o = make_uint4(0u, 0u, 0u, 0u);
-      if (u >= 0) {
-        o = t1_pack8(pd + (long)u * C + c, ps + (long)v * C + c, bd_s + c);
-        *reinterpret_cast<uint4*>(act + (p0 + r) * 4 * C + c) = o;
+      if (in) {
+        o = t1_pack8(pd + (long)u * W + c, ps + (long)v * W + c, bd_s + c);
+        *reinterpret_cast<uint4*>(act + (p0 + r) * 4 * W + c) = o;
       }
       *reinterpret_cast<uint4*>(T1_b + off) = o;
     }
@@ -626,27 +649,29 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
     const int ua = U_s[r0], ub = U_s[r0 + 8], sa = S_s[r0], sb = S_s[r0 + 8];
     const bool ok[2] = {ua >= 0, ub >= 0};
     const int uu[2] = {ua, ub}, vv[2] = {V_s[r0], V_s[r0 + 8]};
-    bf16* act_r[2] = {act + (p0 + r0) * 4 * C, act + (p0 + r0 + 8) * 4 * C};
-    bf16* rd_r[2] = {rows_d + (p0 + r0) * 2 * C, rows_d + (p0 + r0 + 8) * 2 * C};
-    bf16* rs_r[2] = {rows_s + (long)sa * 2 * C, rows_s + (long)sb * 2 * C};
+    bf16* act_r[2] = {act + (p0 + r0) * 4 * W, act + (p0 + r0 + 8) * 4 * W};
+    bf16* rd_r[2] = {rows_d + (p0 + r0) * 2 * W, rows_d + (p0 + r0 + 8) * 2 * W};
+    bf16* rs_r[2] = {rows_s + (long)sa * 2 * W, rows_s + (long)sb * 2 * W};
+    // Accumulator element pairs i < W / 2 hold the row's W columns.
+    auto in_row = [](int i) { return W == C || i < W / 2; };
 
     // z = t1 @ Wdo; t2 = rnd(relu(GN_do(z))) into X and act.
     float acc[64], acc2[64];
     tc::zero(acc);
     tc::fence_acc(acc);
     tc::fence();
-    tc::mm<C / 16, true, false>(acc, T1, 0, Wdo);
+    tc::mm<W / 16, true, false>(acc, T1, 0, Wdo);
     tc::commit();
     tc::wait_all();
     tc::fence_acc(acc);
     float muz[2], invz[2];
     uint32_t d2[32];
-    t2_from_z(acc, gdow_s, gdob_s, eps, muz, invz, d2);  // t2
+    t2_from_z<W>(acc, gdow_s, gdob_s, eps, muz, invz, d2);  // t2
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
       const int h = tc::acc_half(i), c = tc::acc_col(i);
       *reinterpret_cast<uint32_t*>(X_b + tc::tile_off(X, r0 + 8 * h, c)) = d2[i / 2];
-      if (ok[h]) *reinterpret_cast<uint32_t*>(act_r[h] + C + c) = d2[i / 2];
+      if (ok[h] && in_row(i)) *reinterpret_cast<uint32_t*>(act_r[h] + W + c) = d2[i / 2];
     }
     tc::fence_smem();
     wg_sync();  // t2 in place
@@ -657,8 +682,8 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
     tc::fence_acc(acc);
     tc::fence_acc(acc2);
     tc::fence();
-    tc::mm<C / 16, true, false>(acc, X, 0, K1);
-    tc::mm<C / 16, true, true>(acc2, Y, 0, Wout);
+    tc::mm<W / 16, true, false>(acc, X, 0, K1);
+    tc::mm<W / 16, true, true>(acc2, Y, 0, Wout);
     tc::commit();
     tc::wait_all();
     tc::fence_acc(acc);
@@ -666,26 +691,26 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
     // s += Cs[v] + Qd[u]; acc ← nrm_s; e1 = rnd(relu(nrm_s ⊙ gchw + gchb)) to
     // act; acc2 ← d_gn_s = d_e1 ⊙ [e1 > 0] (0 past the edges).
     float invs[2];
-    e1_from_s(acc, add_cq(ok, uu, vv, cs, qd), gchw_s, gchb_s, eps, invs, d2);
+    e1_from_s<W>(acc, add_cq<W>(ok, uu, vv, cs, qd), gchw_s, gchb_s, eps, invs, d2);
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
       const int h = tc::acc_half(i), c = tc::acc_col(i);
-      if (ok[h]) *reinterpret_cast<uint32_t*>(act_r[h] + 2 * C + c) = d2[i / 2];
+      if (ok[h] && in_row(i)) *reinterpret_cast<uint32_t*>(act_r[h] + 2 * W + c) = d2[i / 2];
       const float2 ef = unpack_bf2(d2[i / 2]);
       acc2[i] = ok[h] && ef.x > 0.f ? acc2[i] : 0.f;
       acc2[i + 1] = ok[h] && ef.y > 0.f ? acc2[i + 1] : 0.f;
     }
     col_sums<true>(va[3], acc2, acc);
     col_sums<false>(va[4], acc2, acc2);
-    gn_bwd_acc(acc2, acc, invs, gchw_s, d2);  // rnd(d_s)
+    gn_bwd_acc<W>(acc2, acc, invs, gchw_s, d2);  // rnd(d_s)
     wg_sync();  // every warp's products are done with X (t2)
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
       const int h = tc::acc_half(i), c = tc::acc_col(i);
       *reinterpret_cast<uint32_t*>(X_b + tc::tile_off(X, r0 + 8 * h, c)) = d2[i / 2];
-      if (ok[h]) {
-        *reinterpret_cast<uint32_t*>(rd_r[h] + C + c) = d2[i / 2];
-        *reinterpret_cast<uint32_t*>(rs_r[h] + C + c) = d2[i / 2];
+      if (ok[h] && in_row(i)) {
+        *reinterpret_cast<uint32_t*>(rd_r[h] + W + c) = d2[i / 2];
+        *reinterpret_cast<uint32_t*>(rs_r[h] + W + c) = d2[i / 2];
       }
     }
     tc::fence_smem();
@@ -697,19 +722,19 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
     tc::fence_acc(acc);
     tc::fence_acc(acc2);
     tc::fence();
-    tc::mm<C / 16, true, true>(acc, X, 0, K1);
-    tc::mm<C / 16, true, false>(acc2, T1, 0, Wdo);
+    tc::mm<W / 16, true, true>(acc, X, 0, K1);
+    tc::mm<W / 16, true, false>(acc2, T1, 0, Wdo);
     tc::commit();
     tc::wait_all();
     tc::fence_acc(acc);
     tc::fence_acc(acc2);
     // acc2 ← nrm_z; acc ← d_gn_z = d_t2 ⊙ [t2 > 0]; d2 ← rnd(d_z).
-    gn_do_bwd(acc, acc2, muz, invz, ok, gdow_s, gdob_s, va[1], va[2], d2);
+    gn_do_bwd<W>(acc, acc2, muz, invz, ok, gdow_s, gdob_s, va[1], va[2], d2);
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
       const int h = tc::acc_half(i), c = tc::acc_col(i);
       *reinterpret_cast<uint32_t*>(Y_b + tc::tile_off(Y, r0 + 8 * h, c)) = d2[i / 2];
-      if (ok[h]) *reinterpret_cast<uint32_t*>(act_r[h] + 3 * C + c) = d2[i / 2];
+      if (ok[h] && in_row(i)) *reinterpret_cast<uint32_t*>(act_r[h] + 3 * W + c) = d2[i / 2];
     }
     tc::fence_smem();
     wg_sync();  // rnd(d_z) in place (g[u]'s product finished before the last barrier)
@@ -718,7 +743,7 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
     tc::zero(acc);
     tc::fence_acc(acc);
     tc::fence();
-    tc::mm<C / 16, true, true>(acc, Y, 0, Wdo);
+    tc::mm<W / 16, true, true>(acc, Y, 0, Wdo);
     tc::commit();
     tc::wait_all();
     tc::fence_acc(acc);
@@ -729,7 +754,7 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
           unpack_bf2(*reinterpret_cast<const uint32_t*>(T1_b + tc::tile_off(T1, r0 + 8 * h, c)));
       acc[i] = ok[h] && t1.x > 0.f ? acc[i] : 0.f;
       acc[i + 1] = ok[h] && t1.y > 0.f ? acc[i + 1] : 0.f;
-      if (ok[h]) {
+      if (ok[h] && in_row(i)) {
         const uint32_t d1 = tc::pack_bf2(acc[i], acc[i + 1]);
         *reinterpret_cast<uint32_t*>(rd_r[h] + c) = d1;
         *reinterpret_cast<uint32_t*>(rs_r[h] + c) = d1;
@@ -749,24 +774,26 @@ win_edge_bwd_tc_kernel(const bf16* __restrict__ pd, const bf16* __restrict__ qd,
       red_s[(warp * 5 + k) * C + col_sum_col(j)] = va[k][j];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < 5 * C; i += WE_THREADS) {
+  for (int i = threadIdx.x; i < 5 * W; i += WE_THREADS) {  // [5][W]: the row's columns
+    const int at = W == C ? i : (i / W) * C + i % W;
     float s = 0.f;
-    for (int w = 0; w < WE_THREADS / 32; ++w) s += red_s[w * 5 * C + i];
-    part_v[(long)blockIdx.x * 5 * C + i] = s;
+    for (int w = 0; w < WE_THREADS / 32; ++w) s += red_s[w * 5 * C + at];
+    part_v[(long)blockIdx.x * 5 * W + i] = s;
   }
 }
 
 // The bf16 weight gradients (edge_tc.cuh dw_tc): the operands at each
 // edge's destination position, rnd(d_s) in the second half of rows_d's,
-// the cotangent at the edge's destination row.
+// the cotangent at the edge's destination row; W-wide rows, W x W partials.
+template <int W>
 __global__ void __launch_bounds__(NT)
 win_edge_dw_tc_kernel(const bf16* __restrict__ act, const bf16* __restrict__ rows_d,
                       const bf16* __restrict__ g, const int* __restrict__ eu,
                       const int* __restrict__ count, float* __restrict__ part) {
-  dw_tc(act, rows_d + C, 2 * C, g, eu, *count, part);
+  dw_tc<W>(act, rows_d + W, 2 * W, g, eu, *count, part);
 }
 
-template <typename T>
+template <typename T, int W>
 int launch_bwd(const T* pd, const T* qd, const T* ps, const T* cs, const T* g, const float* bd,
                const T* kdo, const float* gdow, const float* gdob, const T* k1, const float* gchw,
                const float* gchb, const T* kout, const int* eu, const int* ev, const int* spos,
@@ -774,45 +801,45 @@ int launch_bwd(const T* pd, const T* qd, const T* ps, const T* cs, const T* g, c
                float* part, float* grads, T* out_d, T* out_s, long slots, int nd, int ns,
                int blocks, int splits, float eps, cudaStream_t stream) {
   T* rows_d = rows;
-  T* rows_s = rows + slots * 2 * C;
+  T* rows_s = rows + slots * 2 * W;
   cudaError_t e;
   if constexpr (std::is_same<T, bf16>::value) {
     int smem = bwd_tc_smem();
-    e = set_smem((const void*)win_edge_bwd_tc_kernel, smem);
+    e = set_smem((const void*)win_edge_bwd_tc_kernel<W>, smem);
     if (e != cudaSuccess) return (int)e;
-    win_edge_bwd_tc_kernel<<<blocks, WE_THREADS, smem, stream>>>(
+    win_edge_bwd_tc_kernel<W><<<blocks, WE_THREADS, smem, stream>>>(
         pd, qd, ps, cs, g, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, eu, ev, spos, count, rows_d,
         rows_s, act, part, eps);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    float* part_w = part + (long)blocks * 5 * C;
+    float* part_w = part + (long)blocks * 5 * W;
     smem = dw_tc_smem();
-    e = set_smem((const void*)win_edge_dw_tc_kernel, smem);
+    e = set_smem((const void*)win_edge_dw_tc_kernel<W>, smem);
     if (e != cudaSuccess) return (int)e;
-    win_edge_dw_tc_kernel<<<dim3(splits, 3), NT, smem, stream>>>(act, rows_d, g, eu, count,
-                                                                  part_w);
+    win_edge_dw_tc_kernel<W><<<dim3(splits, 3), NT, smem, stream>>>(act, rows_d, g, eu, count,
+                                                                     part_w);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    e = reduce_partials(part_w, grads, splits, 3 * C * C, stream);
+    e = reduce_partials(part_w, grads, splits, 3 * W * W, stream);
     if (e != cudaSuccess) return (int)e;
-    e = reduce_partials(part, grads + 3 * C * C, blocks, 5 * C, stream);
+    e = reduce_partials(part, grads + 3 * W * W, blocks, 5 * W, stream);
   } else {
     const int smem = (4 * TE * LDA + C * C + 2 * TE) * (int)sizeof(float) +
                      3 * TE * (int)sizeof(int);
-    e = set_smem((const void*)win_edge_bwd_kernel, smem);
+    e = set_smem((const void*)win_edge_bwd_kernel<W>, smem);
     if (e != cudaSuccess) return (int)e;
-    win_edge_bwd_kernel<<<blocks, NT, smem, stream>>>(pd, qd, ps, cs, g, bd, kdo, gdow, gdob, k1,
-                                                      gchw, gchb, kout, eu, ev, spos, count,
-                                                      rows_d, rows_s, part, eps);
+    win_edge_bwd_kernel<W><<<blocks, NT, smem, stream>>>(pd, qd, ps, cs, g, bd, kdo, gdow, gdob,
+                                                         k1, gchw, gchb, kout, eu, ev, spos,
+                                                         count, rows_d, rows_s, part, eps);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    e = reduce_partials(part, grads, blocks, WE_PART, stream);
+    e = reduce_partials(part, grads, blocks, we_part<W>(), stream);
   }
   if (e != cudaSuccess) return (int)e;
   // dPd | dQd and dPs | dCs: each row's edges in destination / source order.
-  const int err = launch_segment_sum<T, T>(rows_d, dseg, nullptr, out_d, slots, nd, 2 * C, stream);
+  const int err = launch_segment_sum<T, T>(rows_d, dseg, nullptr, out_d, slots, nd, 2 * W, stream);
   if (err != 0) return err;
-  return launch_segment_sum<T, T>(rows_s, sseg, nullptr, out_s, slots, ns, 2 * C, stream);
+  return launch_segment_sum<T, T>(rows_s, sseg, nullptr, out_s, slots, ns, 2 * W, stream);
 }
 
 }  // namespace
@@ -847,16 +874,17 @@ extern "C" int win_edge_fwd(const void* pd, const void* qd, const void* ps, cons
   });
 }
 
-// Backward. g: the output cotangent in pd's dtype. The plan prepared by
+// Backward. g: the output cotangent in pd's dtype; rows and vectors W =
+// width wide (128 or 64), as the forward's. The plan prepared by
 // ops/win_edge.py `prepare_pair` over its `slots` slots: eu, ev int32, the
 // valid edges' destination and source rows in destination order; spos int32,
 // each one's position in source order; dseg / sseg int64, the destination
 // rows in destination order and the source rows in source order (nd / ns
 // past the edges); count int32 [1], the edges E. Workspaces: rows [2, slots,
-// 2C] in pd's dtype; act [slots, 4C] (bf16 only); part fp32: bf16
-// blocks*5C + splits*3*C*C, fp32 blocks*(3*C*C + 5*C). grads fp32
-// [3*C*C + 5*C] = dWdo, dK1, dWout (in, out), dbd, dgdow, dgdob, dgchw,
-// dgchb. out_d [nd, 2C] = dPd | dQd and out_s [ns, 2C] = dPs | dCs, in pd's
+// 2W] in pd's dtype; act [slots, 4W] (bf16 only); part fp32: bf16
+// blocks*5W + splits*3*W*W, fp32 blocks*(3*W*W + 5*W). grads fp32
+// [3*W*W + 5*W] = dWdo, dK1, dWout (in, out), dbd, dgdow, dgdob, dgchw,
+// dgchb. out_d [nd, 2W] = dPd | dQd and out_s [ns, 2W] = dPs | dCs, in pd's
 // dtype (zero on rows no edge touches). blocks: the chain pass's blocks
 // (one per SM); splits: the bf16 weight-gradient pass's splits.
 extern "C" int win_edge_bwd(const void* pd, const void* qd, const void* ps, const void* cs,
@@ -865,7 +893,7 @@ extern "C" int win_edge_bwd(const void* pd, const void* qd, const void* ps, cons
                             const void* gchb, const void* kout, const void* eu, const void* ev,
                             const void* spos, const void* dseg, const void* sseg,
                             const void* count, void* rows, void* act, void* part, void* grads,
-                            void* out_d, void* out_s, long long slots, int nd, int ns,
+                            void* out_d, void* out_s, long long slots, int nd, int ns, int width,
                             int blocks, int splits, float eps, int dtype, void* stream) {
   if (slots < 0 || nd < 0 || ns < 0 || blocks < 1 || splits < 1)
     return (int)cudaErrorInvalidValue;
@@ -876,17 +904,11 @@ extern "C" int win_edge_bwd(const void* pd, const void* qd, const void* ps, cons
             *n = (const int*)count;
   const long long *ds = (const long long*)dseg, *ss = (const long long*)sseg;
   float *pt = (float*)part, *gr = (float*)grads;
-  if (dtype == 0)
-    return launch_bwd<float>((const float*)pd, (const float*)qd, (const float*)ps,
-                             (const float*)cs, (const float*)g, b, (const float*)kdo, g0, g1,
-                             (const float*)k1, g2, g3, (const float*)kout, u, v, sp, ds, ss, n,
-                             (float*)rows, nullptr, pt, gr, (float*)out_d, (float*)out_s, slots,
-                             nd, ns, blocks, splits, eps, st);
-  if (dtype == 1)
-    return launch_bwd<bf16>((const bf16*)pd, (const bf16*)qd, (const bf16*)ps, (const bf16*)cs,
-                            (const bf16*)g, b, (const bf16*)kdo, g0, g1, (const bf16*)k1, g2, g3,
-                            (const bf16*)kout, u, v, sp, ds, ss, n, (bf16*)rows, (bf16*)act, pt,
-                            gr, (bf16*)out_d, (bf16*)out_s, slots, nd, ns, blocks, splits, eps,
-                            st);
-  return (int)cudaErrorInvalidValue;
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    using T = typename decltype(Tc)::type;
+    return launch_bwd<T, decltype(Wc)::value>(
+        (const T*)pd, (const T*)qd, (const T*)ps, (const T*)cs, (const T*)g, b, (const T*)kdo, g0,
+        g1, (const T*)k1, g2, g3, (const T*)kout, u, v, sp, ds, ss, n, (T*)rows, (T*)act, pt, gr,
+        (T*)out_d, (T*)out_s, slots, nd, ns, blocks, splits, eps, st);
+  });
 }

@@ -14,9 +14,9 @@ the forward kernel writes it, bitwise its own value) and its backward is the
 same layer with the window plan's aggregate added into temp inside it, the
 counterpart of `fused_lane_layer_plan` there; see its section below.
 
-The forward kernel takes rows W = 128 or 64 wide (`WIDTHS`: LaneGCN at
-n_map = 128, and the half-width model at 64); the backward and `lane_plan`
-take 128. The plain versions take any width.
+The layer's kernels, forward and backward, take rows W = 128 or 64 wide
+(`WIDTHS`: LaneGCN at n_map = 128, and the half-width model at 64);
+`lane_plan` takes 128. The plain versions take any width.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import torch
 from lanegcn_tpu_torch.ops import cuda
 from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.norm import group_norm
-from lanegcn_tpu_torch.ops.row_tail import PART, tail_bwd_plain
+from lanegcn_tpu_torch.ops.row_tail import PART, part_size, tail_bwd_plain
 from lanegcn_tpu_torch.ops.scenario_agg import (
     _CHUNK as _PLAN_CHUNK, _blocks, _per_relation, _prep_for, plan_edge_count, plan_edges)
 
@@ -107,8 +107,8 @@ def lane_layer_bwd_plain(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, g,
 
 def _check(feat, pre, masks, wb, w2, gns, shifts, name="lane_layer", widths=WIDTHS):
     """Shapes and dtypes kernel `name` takes: feat/pre [N, W] with W in
-    `widths` (the forward 64 or 128; the backward and lane_plan 128), wb
-    [J, W, W], w2 [W, W], masks [J, N], the GN vectors [W]."""
+    `widths` (the layer both ways 64 or 128; lane_plan 128), wb [J, W, W],
+    w2 [W, W], masks [J, N], the GN vectors [W]."""
     n, c = feat.shape
     j = len(shifts)
     if c not in widths:
@@ -178,12 +178,12 @@ def _fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, shifts, eps, save_te
 def lane_layer_bwd_cuda(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, g,
                         shifts: Sequence[int], eps: float = 1e-5):
     """The `lane_layer_bwd` kernel; the same outputs as `lane_layer_bwd_plain`."""
-    _check(feat, feat, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts, "lane_layer_bwd", (C,))
-    n = feat.shape[0]
+    _check(feat, feat, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts, "lane_layer_bwd")
+    n, c = feat.shape
     j = len(shifts)
     if (temp.shape != feat.shape or temp.dtype != torch.float32
             or g.shape != feat.shape or g.dtype != feat.dtype):
-        raise ValueError("lane_layer: temp must be fp32 and g in feat's dtype, both [N, 128]")
+        raise ValueError(f"lane_layer: temp must be fp32 and g in feat's dtype, both [N, {c}]")
     masks = _mask_bytes(masks)
     gns = _gn_params(g1w, g1b, g2w, g2b)
     code = cuda.check_cuda("lane_layer", feat, temp, masks, wb, w2, g, *gns)
@@ -192,24 +192,25 @@ def lane_layer_bwd_cuda(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, g,
     splits = max(1, 2 * tail_blocks // max(j, 1))
     f32 = dict(dtype=torch.float32, device=dev)
     dx, dpre = torch.empty_like(feat), torch.empty_like(feat)
-    # The workspaces (d_temp, d_y and both passes' partials) in one
-    # allocation, passed by address; the outputs in their own, so that a
+    # The workspaces (d_temp, d_y and both passes' partials, all W wide) in
+    # one allocation, passed by address; the outputs in their own, so that a
     # gradient kept after the call holds no workspace.
-    work = torch.empty(2 * n * C + tail_blocks * PART + splits * j * C * C, **f32)
+    part = part_size(c)
+    work = torch.empty(2 * n * c + tail_blocks * part + splits * j * c * c, **f32)
     at = work.data_ptr()
     ws = [ctypes.c_void_p(at + 4 * off) for off in
-          (0, n * C, 2 * n * C, 2 * n * C + tail_blocks * PART)]
-    grads = torch.empty(PART + j * C * C, **f32)
-    dw2, dgn, dwb = grads.split([C * C, 4 * C, j * C * C])
+          (0, n * c, 2 * n * c, 2 * n * c + tail_blocks * part)]
+    grads = torch.empty(part + j * c * c, **f32)
+    dw2, dgn, dwb = grads.split([c * c, 4 * c, j * c * c])
     cuda.call(
         "lane_layer", "lane_layer_bwd",
         cuda.ptr(feat), cuda.ptr(temp), cuda.ptr(masks), cuda.ptr(wb), cuda.ptr(w2),
         *(cuda.ptr(t) for t in gns), cuda.ptr(g), cuda.ptr(dx), cuda.ptr(dpre), *ws,
-        cuda.ptr(grads), cuda.ptr(dwb), ctypes.c_int(n), ctypes.c_int(j),
+        cuda.ptr(grads), cuda.ptr(dwb), ctypes.c_int(n), ctypes.c_int(c), ctypes.c_int(j),
         _shift_array(shifts), ctypes.c_int(tail_blocks), ctypes.c_int(splits),
         ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
     )
-    return (dx, dpre, dwb.view(j, C, C), dw2.view(C, C), *dgn.view(4, C).unbind(0))
+    return (dx, dpre, dwb.view(j, c, c), dw2.view(c, c), *dgn.view(4, c).unbind(0))
 
 
 class _LaneLayer(torch.autograd.Function):
@@ -247,7 +248,7 @@ def fused_lane_layer(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b,
     masks [J, N] bool or 0/1; wb [J, W, W] and w2 [W, W] in (in, out)
     layout, in feat's dtype; GN affines [W] fp32; shifts: J ints with |s| ≤
     32. CPU tensors take the plain version; CUDA tensors launch the kernel
-    (the backward kernel at W = 128 only).
+    (forward and backward).
     """
     if feat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lane_layer: unsupported device {feat.device}")
@@ -277,11 +278,12 @@ def work(feat, masks) -> dict:
 
 
 def work_bwd(feat, masks) -> dict:
-    """The backward's bytes and operations at these inputs: feat, g and the
-    fp32 temp read, dx and dpre written, the masks, the weights read and
-    their gradients written; the band transpose and dWb only on the rows
-    each mask selects, and three [N, 128] x [128, 128] products (z
-    recomputed, d_h, dW2) on every row."""
+    """The backward's bytes and operations at these inputs, at feat's width
+    W: feat, g and the fp32 temp read, dx and dpre written (W wide), the
+    masks, the [W, W] weights read and their gradients written; the band
+    transpose and dWb (2·W² operations a row each) only on the rows each
+    mask selects, and three [N, W] x [W, W] products (z recomputed, d_h,
+    dW2) on every row."""
     n, c = feat.shape
     j, db = masks.shape[0], feat.element_size()
     band_rows = int((masks != 0).sum())

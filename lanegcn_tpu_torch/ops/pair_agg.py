@@ -11,8 +11,8 @@ runs through a `torch.autograd.Function` whose backward is the
 `pair_agg_bwd` kernel on CUDA tensors and `pair_agg_bwd_plain` on CPU
 tensors; temp's cotangent is the output's, unchanged.
 
-The forward kernel takes rows W = 128 or 64 wide (`WIDTHS`); the backward
-takes 128. The plain versions take any width.
+The kernels, forward and backward, take rows W = 128 or 64 wide (`WIDTHS`).
+The plain versions take any width.
 
 Both kernels walk the plan as `prepare_spill` lists it (a
 scenario_agg.PlanPrep: the valid slots in relation order, their 64-edge
@@ -36,8 +36,6 @@ from lanegcn_tpu_torch.ops import cuda
 from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.scenario_agg import (PlanPrep, _arange, _blocks, _per_relation,
                                                  prepare_edges)
-
-C = 128
 
 
 def _slot_rows(plan: PairPlan, n: int, num_rel: int):
@@ -106,7 +104,7 @@ def pair_agg_bwd_plain(feat, w_rel, plan: PairPlan, g, prep=None):
     (u ← v, relation r) dfeat[v] += g[u] @ W_rᵀ (fp32 sums over the
     relation-ordered edges, one rounding to feat's dtype) and dW_r +=
     feat[v]ᵀ g[u] (fp32); padding slots gather zero rows. `prep` is
-    accepted and not used. Returns (dfeat, dW_rel [R, 128, 128])."""
+    accepted and not used. Returns (dfeat, dW_rel [R, W, W])."""
     n, c = feat.shape
     u, v, counts = _sorted_slots(plan, n, w_rel.shape[0])
     d_msg = _pad(g.to(feat.dtype))[u].float()
@@ -123,8 +121,8 @@ def pair_agg_bwd_plain(feat, w_rel, plan: PairPlan, g, prep=None):
 
 def _check(feat, temp, w_rel, plan: PairPlan, name="pair_agg", widths=WIDTHS):
     """Shapes and dtypes kernel `name` takes: feat/temp [N, W] with W in
-    `widths` (the forward 64 or 128, the backward 128), w_rel [R, W, W], the
-    spill plan with its relation column."""
+    `widths` (64 or 128), w_rel [R, W, W], the spill plan with its relation
+    column."""
     n, c = feat.shape
     r_num = w_rel.shape[0]
     nc = plan.num_chunks
@@ -179,23 +177,23 @@ def pair_agg_bwd_cuda(feat, w_rel, plan: PairPlan, g, prep: PlanPrep | None = No
     `prep`: the plan's `prepare_spill` for feat's rows with the source order
     (made here when None or forward-only; a LaneGCN forward makes it once
     for both stacks)."""
-    _check(feat, g, w_rel, plan, "pair_agg_bwd", (C,))
-    n, r_num, slots = feat.shape[0], w_rel.shape[0], plan.idx.shape[0]
+    _check(feat, g, w_rel, plan, "pair_agg_bwd")
+    (n, c), r_num, slots = feat.shape, w_rel.shape[0], plan.idx.shape[0]
     prep = _prep_for(plan, n, r_num, prep, True)
     feat, g, w_rel = (cuda.param(t, t.dtype) for t in (feat, g, w_rel))
     code = cuda.check_cuda("pair_agg", feat, g, w_rel, *prep[:9])
     blocks = _blocks(feat.device)
     f32 = dict(dtype=torch.float32, device=feat.device)
-    ws = torch.empty(slots, C, **f32)
+    ws = torch.empty(slots, c, **f32)
     dfeat = torch.empty_like(feat)
-    part = torch.empty((blocks + r_num) * C * C, **f32)
-    dw = torch.empty(r_num, C, C, **f32)
+    part = torch.empty((blocks + r_num) * c * c, **f32)
+    dw = torch.empty(r_num, c, c, **f32)
     cuda.call(
         "pair_agg", "pair_agg_bwd",
         cuda.ptr(feat), cuda.ptr(g), cuda.ptr(w_rel), cuda.ptr(prep.dst), cuda.ptr(prep.src),
         cuda.ptr(prep.tiles), cuda.ptr(prep.rel_tiles), cuda.ptr(prep.spos),
         cuda.ptr(prep.sseg), cuda.ptr(ws), cuda.ptr(dfeat), cuda.ptr(part), cuda.ptr(dw),
-        ctypes.c_int(n), ctypes.c_longlong(slots), ctypes.c_int(r_num), ctypes.c_int(blocks),
+        ctypes.c_int(n), ctypes.c_int(c), ctypes.c_longlong(slots), ctypes.c_int(r_num), ctypes.c_int(blocks),
         ctypes.c_int(code), cuda.stream(),
     )
     return dfeat, dw
@@ -228,7 +226,7 @@ def pair_aggregate(feat, temp, w_rel, plan: PairPlan, prep: PlanPrep | None = No
     """temp + Σ spill-plan edges W_rel[rel] · feat[src] added to dst.
 
     feat/temp [N, W] and w_rel [R, W, W] (in, out) in one dtype (W = 128 or
-    64 on the card, the backward kernel 128 only); plan:
+    64 on the card, both ways); plan:
     the pack's `spill_pair` (int32 idx with the relation column, meta);
     prep: the plan's `prepare_spill` for N rows and R relations, which the
     kernels walk (a LaneGCN forward makes it once for both stacks, with the
@@ -275,9 +273,9 @@ def work_bwd(feat, w_rel, plan: PairPlan) -> dict:
     """The backward's bytes and operations at these inputs: g read at the
     distinct destination rows and feat at the distinct source rows of valid
     slots, dfeat written whole, the plan and W_rel read and dW_rel written;
-    two products (dfeat, dW_rel) per valid slot. (The kernel's own traffic
-    adds the fp32 message workspace, 512 bytes an edge written and read, and
-    the prepared plan: not the function's.)"""
+    two products (dfeat, dW_rel, 2·W² operations each) per valid slot. (The
+    kernel's own traffic adds the fp32 message workspace, a 4·W-byte row an
+    edge written and read, and the prepared plan: not the function's.)"""
     n, c = feat.shape
     db = feat.element_size()
     edges, dst_rows, src_rows = _edges_and_rows(feat, w_rel, plan)

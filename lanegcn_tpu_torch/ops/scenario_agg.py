@@ -22,8 +22,8 @@ through a `torch.autograd.Function` whose backward is the
 `scenario_agg_bwd` kernel on CUDA tensors and `scenario_agg_bwd_plain` on
 CPU tensors; temp's cotangent is the output's, unchanged.
 
-The forward kernel takes rows W = 128 or 64 wide (`WIDTHS`); the backward
-takes 128. The plain versions take any width.
+The kernels, forward and backward, take rows W = 128 or 64 wide (`WIDTHS`).
+The plain versions take any width.
 """
 
 from __future__ import annotations
@@ -37,7 +37,6 @@ import torch.nn.functional as F
 from lanegcn_tpu_torch.ops import cuda
 from lanegcn_tpu_torch.ops.cuda import WIDTHS
 
-C = 128
 
 # Plan slot chunk; relation-grouped plans need at least two chunks per
 # window. Shared with the packer (data/packing.py build_window_plan).
@@ -264,7 +263,7 @@ def scenario_agg_plain(feat, temp, w_rel, lu, lv, rel, num_win: int, groups=None
 def scenario_agg_bwd_plain(feat, w_rel, lu, lv, rel, num_win: int, groups, g, prep=None):
     """The backward kernel's arithmetic: per applied edge (u ← v, relation
     r), dfeat[v] += g[u] @ W_rᵀ (fp32 sums, one rounding to feat's dtype)
-    and dW_r += feat[v]ᵀ g[u] (fp32). Returns (dfeat, dW_rel [R, 128, 128])."""
+    and dW_r += feat[v]ᵀ g[u] (fp32). Returns (dfeat, dW_rel [R, W, W])."""
     n, c = feat.shape
     u, v, counts = plan_edges(lu, lv, rel, num_win, n // num_win, groups, w_rel.shape[0])
     k = sum(counts)
@@ -283,8 +282,8 @@ def scenario_agg_bwd_plain(feat, w_rel, lu, lv, rel, num_win: int, groups, g, pr
 
 def _check(feat, temp, w_rel, lu, lv, rel, num_win, name="scenario_agg", widths=WIDTHS):
     """Shapes and dtypes kernel `name` takes: feat/temp [N, W] with W in
-    `widths` (the forward 64 or 128, the backward 128), w_rel [R, W, W],
-    the plan [num_win*ECAP, 1] int32."""
+    `widths` (64 or 128), w_rel [R, W, W], the plan [num_win*ECAP, 1]
+    int32."""
     n, c = feat.shape
     r_num = w_rel.shape[0]
     if c not in widths:
@@ -339,23 +338,23 @@ def _fwd_cuda(feat, temp, w_rel, lu, lv, rel, num_win, groups, prep=None):
 
 def scenario_agg_bwd_cuda(feat, w_rel, lu, lv, rel, num_win: int, groups, g, prep=None):
     """The `scenario_agg_bwd` kernel; the same outputs as `scenario_agg_bwd_plain`."""
-    _check(feat, g, w_rel, lu, lv, rel, num_win, "scenario_agg_bwd", (C,))
-    n, r_num, slots = feat.shape[0], w_rel.shape[0], lu.shape[0]
+    _check(feat, g, w_rel, lu, lv, rel, num_win, "scenario_agg_bwd")
+    (n, c), r_num, slots = feat.shape, w_rel.shape[0], lu.shape[0]
     prep = _prep_for(lu, lv, rel, num_win, n, groups, r_num, prep, True)
     feat, g, w_rel = (cuda.param(t, t.dtype) for t in (feat, g, w_rel))
     code = cuda.check_cuda("scenario_agg", feat, g, w_rel, *prep[:9])
     blocks = _blocks(feat.device)
     f32 = dict(dtype=torch.float32, device=feat.device)
-    ws = torch.empty(slots, C, **f32)
+    ws = torch.empty(slots, c, **f32)
     dfeat = torch.empty_like(feat)
-    part = torch.empty((blocks + r_num) * C * C, **f32)
-    dw = torch.empty(r_num, C, C, **f32)
+    part = torch.empty((blocks + r_num) * c * c, **f32)
+    dw = torch.empty(r_num, c, c, **f32)
     cuda.call(
         "scenario_agg", "scenario_agg_bwd",
         cuda.ptr(feat), cuda.ptr(g), cuda.ptr(w_rel), cuda.ptr(prep.dst), cuda.ptr(prep.src),
         cuda.ptr(prep.tiles), cuda.ptr(prep.rel_tiles), cuda.ptr(prep.spos),
         cuda.ptr(prep.sseg), cuda.ptr(ws), cuda.ptr(dfeat), cuda.ptr(part), cuda.ptr(dw),
-        ctypes.c_int(n), ctypes.c_longlong(slots), ctypes.c_int(r_num), ctypes.c_int(blocks),
+        ctypes.c_int(n), ctypes.c_int(c), ctypes.c_longlong(slots), ctypes.c_int(r_num), ctypes.c_int(blocks),
         ctypes.c_int(code), cuda.stream(),
     )
     return dfeat, dw
@@ -386,8 +385,8 @@ class _ScenarioAgg(torch.autograd.Function):
 def scenario_aggregate(feat, temp, w_rel, lu, lv, rel, num_win: int, groups=None, prep=None):
     """temp + Σ planned edges W_rel[rel] · feat[src] added to dst.
 
-    feat/temp [N, W] (N = num_win * stride; W = 128 or 64 on the card, the
-    backward kernel 128 only), w_rel [R, W, W] (in, out) in feat's dtype;
+    feat/temp [N, W] (N = num_win * stride; W = 128 or 64 on the card, both
+    ways), w_rel [R, W, W] (in, out) in feat's dtype;
     lu/lv/rel [num_win*ECAP, 1] int32; prep: the plan's `prepare_plan`
     (made here when None; a LaneConv stack makes it once for its layers).
     CPU tensors take the plain version; CUDA tensors launch the kernel.

@@ -23,9 +23,9 @@ destination row), each with its position in source order. Both the kernel
 and the plain version sum dPd/dQd over the destination order and dPs/dCs
 over the source order, so a row's edges always add up in one fixed order.
 
-The forward kernel takes rows W = 128 or 64 wide (`WIDTHS`: Att at n_map =
-n_actor = 128, and the half-width model at 64); the backward takes 128. The
-plain versions take any width.
+The kernels, forward and backward, take rows W = 128 or 64 wide
+(`WIDTHS`: Att at n_map = n_actor = 128, and the half-width model at 64).
+The plain versions take any width.
 """
 
 from __future__ import annotations
@@ -42,8 +42,6 @@ from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.norm import gn_bwd, gn_stats, group_norm
 from lanegcn_tpu_torch.ops.scenario_agg import _arange
 from lanegcn_tpu_torch.ops.segment_sum import segment_sum_plain
-
-C = 128
 
 
 class PairPrep(NamedTuple):
@@ -182,8 +180,8 @@ def win_edge_bwd_plain(pd, qd, ps, cs, bd, kdo, gdow, gdob, k1, gchw, gchb, kout
 def _check(pd, qd, ps, cs, temp, weights, vectors, plan: PairPlan, name="win_edge",
            widths=WIDTHS):
     """Shapes and dtypes kernel `name` takes: pd/qd/temp [Nd, W] and ps/cs
-    [Ns, W] with W in `widths` (the forward 64 or 128, the backward 128),
-    the weights [W, W], the vectors [W], a pair plan."""
+    [Ns, W] with W in `widths` (64 or 128), the weights [W, W], the vectors
+    [W], a pair plan."""
     nd, c = pd.shape
     nc = plan.num_chunks
     if c not in widths:
@@ -233,16 +231,19 @@ def _fwd_cuda(pd, qd, ps, cs, temp, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, p
     return out
 
 
-PART = 3 * C * C + 5 * C  # dWdo, dK1, dWout, dbd, dgdow, dgdob, dgchw, dgchb
+def part_size(c: int) -> int:
+    """The gradients at width c: dWdo, dK1, dWout, dbd, dgdow, dgdob, dgchw,
+    dgchb (also the fp32 pass's partial per block)."""
+    return 3 * c * c + 5 * c
 
 
 def win_edge_bwd_cuda(pd, qd, ps, cs, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
                       plan: PairPlan, g, eps: float = 1e-5, prep=None):
     """The `win_edge_bwd` kernel; the same outputs as `win_edge_bwd_plain`
-    (dPd/dQd and dPs/dCs as the two halves of one [rows, 256] tensor each).
+    (dPd/dQd and dPs/dCs as the two halves of one [rows, 2W] tensor each).
     `prep`: the plan's `prepare_pair`, made here when None."""
     _check(pd, qd, ps, cs, g, (kdo, k1, kout), (bd, gdow, gdob, gchw, gchb), plan,
-           "win_edge_bwd", (C,))
+           "win_edge_bwd")
     nd, c = pd.shape
     ns = ps.shape[0]
     dt, dev = pd.dtype, pd.device
@@ -261,8 +262,9 @@ def win_edge_bwd_cuda(pd, qd, ps, cs, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
     rows = torch.empty(2, slots, 2 * c, dtype=dt, device=dev)
     tc = dt == torch.bfloat16
     act = torch.empty(slots, 4 * c, dtype=dt, device=dev) if tc else None
-    part = torch.empty(blocks * 5 * c + splits * 3 * c * c if tc else blocks * PART, **f32)
-    grads = torch.empty(PART, **f32)
+    part = torch.empty(blocks * 5 * c + splits * 3 * c * c if tc else blocks * part_size(c),
+                       **f32)
+    grads = torch.empty(part_size(c), **f32)
     out_d = torch.empty(nd, 2 * c, dtype=dt, device=dev)
     out_s = torch.empty(ns, 2 * c, dtype=dt, device=dev)
     cuda.call(
@@ -273,7 +275,8 @@ def win_edge_bwd_cuda(pd, qd, ps, cs, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
         cuda.ptr(prep.spos), cuda.ptr(prep.dseg), cuda.ptr(prep.sseg), cuda.ptr(prep.count),
         cuda.ptr(rows), cuda.ptr(act), cuda.ptr(part), cuda.ptr(grads), cuda.ptr(out_d),
         cuda.ptr(out_s), ctypes.c_longlong(slots), ctypes.c_int(nd), ctypes.c_int(ns),
-        ctypes.c_int(blocks), ctypes.c_int(splits), ctypes.c_float(eps), ctypes.c_int(code),
+        ctypes.c_int(c), ctypes.c_int(blocks), ctypes.c_int(splits), ctypes.c_float(eps),
+        ctypes.c_int(code),
         cuda.stream(),
     )
     mats = grads[: 3 * c * c].view(3, c, c)
@@ -315,7 +318,7 @@ def win_edge_mlp(pd, qd, ps, cs, temp, bd, kdo, gdow, gdob, k1, gchw, gchb, kout
     """temp + scatter(edge MLP over the window-pair plan).
 
     pd/qd/temp [Nd, W], ps/cs [Ns, W] in one activation dtype (W = 128 or
-    64 on the card, the backward kernel 128 only); bd and GN affines [W]
+    64 on the card, both ways); bd and GN affines [W]
     fp32; kdo/k1/kout [W, W] (in, out), cast to the activation dtype inside
     (their gradients come back in their own dtype).
     prep: the plan's `prepare_pair` for these row counts, which the

@@ -19,8 +19,8 @@ the CPU, and the kernel wrappers' width dispatch.
   tests/test_torch_model.py. The weights come from one numpy seed on the
   shapes of the JAX init (`jax.eval_shape`); one jit of the forward, no
   gradients.
-- The wrappers' checks, called directly: the four forwards take 64 and 128
-  and refuse 96; the four backwards and the other kernels (band_conv,
+- The wrappers' checks, called directly: the four forwards and their
+  backwards take 64 and 128 and refuse 96; the other kernels (band_conv,
   lane_plan and its backward, window_scatter, the K = 2 row tail,
   LanePooling's edge MLP) refuse 64; each names its kernel and the width.
 - `work()` at W = 64: W² products per masked band row and per row, per
@@ -256,9 +256,9 @@ def test_half_width_lanegcn_eval_matches_jax():
 
 def _dispatch(c):
     """{kernel: (its wrapper's check, the CUDA wrapper itself)} on c-wide
-    CPU tensors, for the four forwards (`forward`) and the kernels that
-    take 128 only. A wrapper refuses at its check, its first statement,
-    before anything touches the card."""
+    CPU tensors, for the four kernels that take 64 and 128 both ways
+    (`64 and 128`) and the kernels that take 128 only. A wrapper refuses at
+    its check, its first statement, before anything touches the card."""
     n, j, r_num, num_win, eps = 256, len(SHIFTS), 3, 2, 1e-5
     x, w, v = torch.zeros(n, c), torch.zeros(c, c), torch.zeros(c)
     masks, wb = torch.zeros(j, n, dtype=torch.bool), torch.zeros(j, c, c)
@@ -275,7 +275,7 @@ def _dispatch(c):
     ll = lambda *kw: lambda: lane_layer._check(x, x, masks, wb, w, gns, SHIFTS, *kw)
     wcs = window_scatter.WCHUNK
     return {
-        "forward": {
+        "64 and 128": {
             "lane_layer": (ll(), lambda: lane_layer._fwd_cuda(x, x, masks, wb, w, *gns, SHIFTS,
                                                               eps)),
             "scenario_agg": (lambda: scenario_agg._check(x, x, w_rel, *plan, num_win),
@@ -284,20 +284,18 @@ def _dispatch(c):
                          lambda: pair_agg._fwd_cuda(x, x, w_rel, spill)),
             "win_edge": (lambda: win_edge._check(x, x, x, x, x, (w,) * 3, (v,) * 5, pair),
                          lambda: win_edge._fwd_cuda(x, x, x, x, x, *chain, pair, eps)),
-        },
-        "128 only": {
-            "lane_layer_bwd": (ll("lane_layer_bwd", (128,)), lambda: lane_layer.lane_layer_bwd_cuda(
+            "lane_layer_bwd": (ll("lane_layer_bwd"), lambda: lane_layer.lane_layer_bwd_cuda(
                 x, x, masks, wb, w, *gns, x, SHIFTS)),
             "scenario_agg_bwd": (
-                lambda: scenario_agg._check(x, x, w_rel, *plan, num_win, "scenario_agg_bwd",
-                                            (128,)),
+                lambda: scenario_agg._check(x, x, w_rel, *plan, num_win, "scenario_agg_bwd"),
                 lambda: scenario_agg.scenario_agg_bwd_cuda(x, w_rel, *plan, num_win, None, x)),
-            "pair_agg_bwd": (lambda: pair_agg._check(x, x, w_rel, spill, "pair_agg_bwd", (128,)),
+            "pair_agg_bwd": (lambda: pair_agg._check(x, x, w_rel, spill, "pair_agg_bwd"),
                              lambda: pair_agg.pair_agg_bwd_cuda(x, w_rel, spill, x)),
             "win_edge_bwd": (
-                lambda: win_edge._check(x, x, x, x, x, (w,) * 3, (v,) * 5, pair, "win_edge_bwd",
-                                        (128,)),
+                lambda: win_edge._check(x, x, x, x, x, (w,) * 3, (v,) * 5, pair, "win_edge_bwd"),
                 lambda: win_edge.win_edge_bwd_cuda(x, x, x, x, *chain, pair, x)),
+        },
+        "128 only": {
             "lane_plan": (ll("lane_plan", (128,)), lambda: lane_layer._plan_fwd_cuda(
                 x, x, masks, wb, w, *gns, w_rel, *plan, num_win, SHIFTS, None, eps)),
             "lane_plan_bwd": (ll("lane_plan_bwd", (128,)), lambda: lane_layer.lane_plan_bwd_cuda(
@@ -322,13 +320,13 @@ def _dispatch(c):
 
 @pytest.mark.parametrize("width", [64, 96, 128])
 def test_width_dispatch(width):
-    """The forward kernels' checks take rows 64 and 128 wide and their
-    wrappers refuse 96; the backward kernels' and the 128-only kernels'
-    checks take 128 and their wrappers refuse 64 (and 96): a ValueError
-    naming the kernel and the width, raised by the check before any
-    launch."""
+    """The checks of the four kernels that take 64 and 128 (forward and
+    backward) take rows 64 and 128 wide and their wrappers refuse 96; the
+    128-only kernels' checks take 128 and their wrappers refuse 64 (and
+    96): a ValueError naming the kernel and the width, raised by the check
+    before any launch."""
     kernels = _dispatch(width)
-    for group, ok in (("forward", (64, 128)), ("128 only", (128,))):
+    for group, ok in (("64 and 128", (64, 128)), ("128 only", (128,))):
         for name, (check, wrapper) in kernels[group].items():
             if width in ok:
                 check()
