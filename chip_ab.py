@@ -38,7 +38,7 @@ forward and backward likewise (the backward's C interface took the bf16
 workspace `act` and the weight-gradient pass's splits, both then the row
 width); the lane_layer forward and backward likewise (their C interfaces
 took the row width, as the scenario_agg, pair_agg and win_edge forwards'
-and then backwards' did);
+and then backwards' did, and then band_conv's and lane_plan's both ways);
 window_scatter and its backward on
 LaneRCNN's geometry (both pool scatters, r2g and g2r; the C interface is
 unchanged, so both builds run through this checkout's wrappers) in
@@ -107,12 +107,14 @@ OWN_WRAPPERS = {"scenario_agg": {"scenario_agg": ("scenario_aggregate", 8),
                 "edge_mlp": {"edge_mlp": ("fused_edge_mlp", 12),
                              "edge_mlp_bwd": ("edge_mlp_bwd_cuda", 14)},
                 "lane_layer": {"lane_layer": ("fused_lane_layer", 10),
-                               "lane_layer_bwd": ("lane_layer_bwd_cuda", 12)}}
+                               "lane_layer_bwd": ("lane_layer_bwd_cuda", 12)},
+                "band_conv": {"band_conv": ("band_conv", 4),
+                              "band_conv_bwd": ("band_conv_bwd_cuda", 5)}}
 # Wrapper modules named other than their kernel library (ops/<module>.py),
 # and the other tree's modules that its wrapper module imports in place of
 # this checkout's (names it takes from them are gone here).
 WRAPPER_MODULES = {"lane_plan": "lane_layer"}
-OLD_IMPORTS = {"lane_plan": ("scenario_agg",)}
+OLD_IMPORTS = {"lane_plan": ("scenario_agg", "row_tail"), "lane_layer": ("row_tail",)}
 
 
 def build_old(old_root: Path, name: str):

@@ -12,7 +12,8 @@ one card).
     python3 chip_smoke.py mesh-witness   # the build, then mesh_witness_phase alone
 
 It also serves and trains the half-width LaneGCN (n_map = n_actor = 64) on
-the bench layout, its kernels at W = 64 both ways.
+the bench layout, its kernels at W = 64 both ways, and in the two other
+layer settings: merged (lane_plan) and unfused (band_conv) at W = 64.
 
 Geometries (lanegcn_tpu_torch/config.py), driven in this order:
   windowed    windowed_pack_config(256): node_stride 768, window plan 2048,
@@ -48,9 +49,16 @@ Geometries (lanegcn_tpu_torch/config.py), driven in this order:
               Att(64, 64): edge_mlp and row_tail at width 64.
   half        bench_pack_config(256) with ModelConfig(n_map=64, n_actor=64):
               lane_layer, scenario_agg, pair_agg, win_edge, row_tail and
-              their backwards all at W = 64 (the bench launches); with
-              merge_plan_agg="auto" its train step must stop at lane_plan
-              (128 only).
+              their backwards all at W = 64 (the bench launches).
+  half_merged  merged at n_map = n_actor = 64: lane_plan and lane_plan_bwd
+              (lane_plan_tc_kernel<64>, msg_tc_kernel<false, WindowPlan,
+              bf16, 64>, band_t_tc_kernel<float, true, 64>) in place of
+              lane_layer and scenario_agg, pair_agg, win_edge and row_tail
+              at 64 (the merged launches).
+  half_unfused  unfused at n_map = n_actor = 64: band_conv and band_conv_bwd
+              (band_conv_tc_kernel<64>, band_t_tc_kernel<bf16, false, 64>,
+              band_dw_tc_kernel<64>) then the row tail, in place of
+              lane_layer (the unfused launches).
 
 Phases, one JSON line each (tagged with the geometry); any failure raises
 and exits non-zero:
@@ -109,7 +117,10 @@ and exits non-zero:
           64 (M2A, A2A; and `TAIL_ROWS` cut from the largest 64-wide call)
           and edge_mlp at 64 (A2A; `EDGE_ROWS` and the all-padding call);
           half: lane_layer (and `LANE_ROWS`' cuts), scenario_agg, pair_agg,
-          win_edge and row_tail (and `TAIL_ROWS`' cuts), all at W = 64.
+          win_edge and row_tail (and `TAIL_ROWS`' cuts), all at W = 64;
+          half_merged: lane_plan (and `PLAN_CASES` at W = 64) and row_tail;
+          half_unfused: band_conv (and `LANE_ROWS`' cuts) and row_tail, at
+          W = 64.
   kernel_bwd  the same kernels' backwards against their plain backwards on
           the inputs and cotangent one bf16 train step hands them, with a
           rerun that must be bitwise equal (lanercnn: lane_layer_bwd and
@@ -119,6 +130,8 @@ and exits non-zero:
           with `EDGE_ROWS` and the all-padding call, whose outputs must all
           be zero; contiguous: edge_mlp_bwd likewise;
           merged: lane_plan_bwd (and `PLAN_CASES`); unfused: band_conv_bwd;
+          half_merged and half_unfused: the same at W = 64 (band_conv_bwd's
+          cuts also to `RAGGED_NARROW_ROWS`);
           widths: row_tail_bwd at 128 and 64 and edge_mlp_bwd at 64, with
           `EDGE_ROWS`, the all-padding call and the 64-wide row_tail_bwd
           cut to `RAGGED_NARROW_ROWS`;
@@ -179,18 +192,20 @@ and exits non-zero:
           loss, every gradient and every parameter after the step bitwise
           equal; then one under torch.use_deterministic_algorithms(True,
           warn_only=True), listing what PyTorch flags as nondeterministic.
-  ab      (merged, unfused) the device busy time per serve forward and
-          per train step of two settings of one ModelConfig field, same
-          packs and weights, profiled in turns: merged, the separate
-          kernels against the merged layer (merge_plan_agg); unfused, the
-          fused layer against the unfused one (pallas_bands).
+  ab      (merged, unfused, half_merged, half_unfused) the device busy
+          time per serve forward and per train step of two settings of one
+          ModelConfig field, same packs and weights, profiled in turns:
+          merged, the separate kernels against the merged layer
+          (merge_plan_agg); unfused, the fused layer against the unfused
+          one (pallas_bands).
   serve_rerun  (half) two bf16 eval forwards of one pack bitwise equal.
-  refused_train  (half) one bf16 train step of the same model with the
-          geometry's `refused` fields (merge_plan_agg="auto"): it must
+  refused_train  (lanercnn) one bf16 train step of the same model with the
+          geometry's `refused` fields (n_map = n_actor = 64): it must
           raise ValueError naming the first kernel it reaches that takes
-          128-wide rows only (`NARROW_REFUSED`: lane_plan) and the width,
-          that kernel's entries never launched, no backward launched, no
-          plain version of it or plain backward run on the card.
+          128-wide rows only (`NARROW_REFUSED`: window_scatter,
+          edge_mlp_pool, row_tail2) and the width, that kernel's entries
+          never launched, no backward launched, no plain version of a
+          refusing kernel or plain backward run on the card.
 After the geometries, phases without a geometry:
   cli     python -m lanegcn_tpu_torch.cli as a user runs it (bf16, 2 pack
           workers, packs of 32): preprocess 128 urban scenarios to shards
@@ -282,8 +297,9 @@ it, with the launches of that geometry's serve or train run, and under
 `also_checked` its checks on the later geometries; `by_width` gives each
 row width a kernel was checked at, 128 and, for row_tail, row_tail_bwd,
 edge_mlp and edge_mlp_bwd (widths), lane_layer, scenario_agg, pair_agg,
-win_edge, row_tail and their backwards (half), 64, with the geometry that
-checked it),
+win_edge, row_tail and their backwards (half), lane_plan and lane_plan_bwd
+(half_merged), band_conv and band_conv_bwd (half_unfused), 64, with the
+geometry that checked it),
 the nvidia-smi name/power-limit line, and last the `ok` line with the
 device.
 
@@ -383,8 +399,8 @@ KERNEL_META = {
 # in the forward's scatters and in the gathers' backward) and the launches
 # of each C entry point per eval forward and per train step (every other
 # entry: 0); where set, `serve_rerun` (two eval forwards bitwise equal,
-# `serve_rerun_phase`) and `refused` (ModelConfig fields under which a
-# train step must refuse, `refused_train_phase`).
+# `serve_rerun_phase`), `ab` (`ab_phase`) and `refused` (ModelConfig fields
+# under which a train step must refuse, `refused_train_phase`).
 _WINDOWED_FWD = {"lane_layer_fwd": 8, "scenario_agg_fwd": 8, "win_edge_fwd": 6,
                  "row_tail_fwd": 6, "segment_sum": 8}
 _WINDOWED_STEP = {**_WINDOWED_FWD, "lane_layer_bwd": 8, "scenario_agg_bwd": 8,
@@ -448,7 +464,8 @@ GEOMETRIES = {
                      per_forward=_RCNN_FWD, per_train_step=_RCNN_STEP,
                      per_remat_step={**_RCNN_STEP, "window_scatter_fwd": 4,
                                      "edge_mlp_pool_fwd": 6, "row_tail2_fwd": 6,
-                                     "segment_sum": 31}),
+                                     "segment_sum": 31},
+                     refused=dict(n_map=64, n_actor=64)),
     # The bench geometry with the window plan inside the LaneConv layer
     # kernel (merge_plan_agg="auto"); the `ab` phase profiles it beside the
     # separate kernels on the same packs and weights.
@@ -478,21 +495,33 @@ GEOMETRIES = {
                    step_kernels=("segment_sum",), per_forward=_WIDTHS_FWD,
                    per_train_step=_WIDTHS_STEP),
     # The half-width model (n_map = n_actor = 64) on the bench layout: every
-    # kernel of the bench train step at W = 64, the bench launches; with
-    # the `refused` fields its train step must raise at lane_plan
-    # (`refused_train_phase`: lane_plan takes 128 only).
+    # kernel of the bench train step at W = 64, the bench launches.
     "half": dict(model="lanegcn", config="bench_pack_config", s=256,
                  model_fields=dict(n_map=64, n_actor=64),
                  kernels=("lane_layer", "scenario_agg", "pair_agg", "win_edge", "row_tail"),
                  step_kernels=("segment_sum",),
                  per_forward={**_WINDOWED_FWD, "pair_agg_fwd": 8},
                  per_train_step={**_WINDOWED_STEP, "pair_agg_fwd": 8, **_PAIR_BWD},
-                 serve_rerun=True, refused=dict(merge_plan_agg="auto")),
+                 serve_rerun=True),
+    # The half-width model merged (merge_plan_agg="auto"): lane_plan at W = 64.
+    "half_merged": dict(model="lanegcn", config="bench_pack_config", s=256,
+                        model_fields=dict(n_map=64, n_actor=64, merge_plan_agg="auto"),
+                        kernels=("lane_plan", "row_tail"), step_kernels=("segment_sum",),
+                        per_forward=_MERGED_FWD, per_train_step=_MERGED_STEP,
+                        ab=("merge_plan_agg", ("off", "separate"), ("auto", "merged"))),
+    # The half-width model unfused (pallas_bands="off"): band_conv at W = 64.
+    "half_unfused": dict(model="lanegcn", config="windowed_pack_config", s=256,
+                         model_fields=dict(n_map=64, n_actor=64, pallas_bands="off"),
+                         kernels=("band_conv", "row_tail"), step_kernels=("segment_sum",),
+                         per_forward=_UNFUSED_FWD, per_train_step=_UNFUSED_STEP,
+                         ab=("pallas_bands", ("auto", "fused"), ("off", "unfused"))),
 }
-# The kernels that take 128-wide rows only and that the half-width model
-# reaches with its `refused` fields, by their C entries: a train step there
-# must stop at the first of them.
-NARROW_REFUSED = {"lane_plan": ("lane_plan_fwd", "lane_plan_bwd")}
+# The kernels that take 128-wide rows only and that the half-width LaneRCNN
+# reaches (the lanercnn geometry's `refused` fields), by their C entries: a
+# train step there must stop at the first of them.
+NARROW_REFUSED = {"window_scatter": ("window_scatter_fwd", "window_scatter_bwd"),
+                  "edge_mlp_pool": ("edge_mlp_pool_fwd", "edge_mlp_pool_bwd"),
+                  "row_tail2": ("row_tail2_fwd", "row_tail2_bwd")}
 
 
 def emit(obj) -> None:
@@ -1164,10 +1193,12 @@ def kernel_phase(phase, geom, ops, calls, counts):
 
 # The argument that holds a call's rows, for the kernels that take more
 # than one row width (row_tail's x, Att's edge_mlp's cg, lane_layer's,
-# scenario_agg's and pair_agg's feat, win_edge's Pd, both ways; segment_sum's
-# data, any width); every other kernel takes 128-wide rows only.
+# scenario_agg's, pair_agg's, lane_plan's and band_conv's feat, win_edge's
+# Pd, both ways; segment_sum's data, any width); every other kernel takes
+# 128-wide rows only.
 ROWS_ARG = {"row_tail": 0, "row_tail_bwd": 0, "edge_mlp": 2, "edge_mlp_bwd": 2, "segment_sum": 0,
-            **{k: 0 for name in ("lane_layer", "scenario_agg", "pair_agg", "win_edge")
+            **{k: 0 for name in ("lane_layer", "scenario_agg", "pair_agg", "win_edge",
+                                 "lane_plan", "band_conv")
                for k in (name, name + "_bwd")}}
 
 
@@ -1720,12 +1751,12 @@ def drive(geom):
         cap.calls["pair_agg"].update(calls)
         cap.counts["pair_agg"].update(counts)
         check_empty_spill(calls[empty])
-    if geom == "unfused":
+    if geom in ("unfused", "half_unfused"):
         calls, counts = lane_case_calls(cap.calls["band_conv"], "band_conv")
         cap.calls["band_conv"].update(calls)
         cap.counts["band_conv"].update(counts)
-    if geom == "merged":
-        calls, counts, _ = plan_case_calls(backward=False, layer=True)
+    if geom in ("merged", "half_merged"):
+        calls, counts, _ = plan_case_calls(backward=False, layer=True, width=cfg.model.n_map)
         cap.calls["lane_plan"].update(calls)
         cap.counts["lane_plan"].update(counts)
     if geom == "widths":
@@ -1763,8 +1794,6 @@ def drive(geom):
         ab_phase(geom, batches)
     if spec.get("serve_rerun"):
         serve_rerun_phase(geom, step, batches[0])
-    if "refused" in spec:
-        refused_train_phase(geom, cfg, batches[0])
     return results, serve, train
 
 
@@ -1859,12 +1888,13 @@ PLAN_CASES = (
 PLAN_SHIFTS = tuple(s for k in range(6) for s in (-(1 << k), 1 << k))
 
 
-def plan_case_calls(backward: bool, layer: bool = False, dev: str = "cuda"):
-    """{shapes: args} and {shapes: 0} of PLAN_CASES, bf16 on `dev`
-    (kernel_phase casts them to fp32 too), as scenario_agg's forward (feat,
-    temp, w_rel, lu, lv, rel, windows, groups) or backward launcher (feat,
-    w_rel, lu, lv, rel, windows, groups, g) takes them, or with `layer` as
-    lane_plan's (`plan_layer_args`); and the key of the empty plan."""
+def plan_case_calls(backward: bool, layer: bool = False, dev: str = "cuda", width: int = 128):
+    """{shapes: args} and {shapes: 0} of PLAN_CASES on `width`-wide rows,
+    bf16 on `dev` (kernel_phase casts them to fp32 too), as scenario_agg's
+    forward (feat, temp, w_rel, lu, lv, rel, windows, groups) or backward
+    launcher (feat, w_rel, lu, lv, rel, windows, groups, g) takes them, or
+    with `layer` as lane_plan's (`plan_layer_args`); and the key of the
+    empty plan."""
     import torch
 
     rng, layer_rng = np.random.default_rng(13), np.random.default_rng(17)
@@ -1879,9 +1909,9 @@ def plan_case_calls(backward: bool, layer: bool = False, dev: str = "cuda"):
         plan = [torch.as_tensor(x.reshape(-1, 1), device=dev) for x in (lu, lv, rel)]
         groups = (tuple(range(12, 14)), tuple(range(12))) if grouped else None
         n = num_win * stride
-        feat, w_rel = bf(n, 128), bf(14, 128, 128, scale=128 ** -0.5)
-        args = ([feat, w_rel, *plan, num_win, groups, bf(n, 128)] if backward
-                else [feat, bf(n, 128), w_rel, *plan, num_win, groups])
+        feat, w_rel = bf(n, width), bf(14, width, width, scale=width ** -0.5)
+        args = ([feat, w_rel, *plan, num_win, groups, bf(n, width)] if backward
+                else [feat, bf(n, width), w_rel, *plan, num_win, groups])
         if layer:  # the same plans; the layer's other inputs from a generator of their own
             args = plan_layer_args(layer_rng, feat, w_rel, plan, num_win, groups, backward)
         key = tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
@@ -1893,23 +1923,24 @@ def plan_case_calls(backward: bool, layer: bool = False, dev: str = "cuda"):
 
 def plan_layer_args(rng, feat, w_rel, plan, num_win, groups, backward):
     """lane_plan's arguments on one plan case: random band masks (half the
-    rows) over PLAN_SHIFTS, band and tail weights and GN vectors; forward
-    (feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, rel,
-    windows, shifts, groups) or backward launcher (feat, temp, masks, wb, w2,
-    the GN vectors, w_rel, lu, lv, rel, windows, groups, g, shifts), temp
-    the plain forward's fp32 temp on the forward case's inputs."""
+    rows) over PLAN_SHIFTS, band and tail weights and GN vectors at feat's
+    width; forward (feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu,
+    lv, rel, windows, shifts, groups) or backward launcher (feat, temp,
+    masks, wb, w2, the GN vectors, w_rel, lu, lv, rel, windows, groups, g,
+    shifts), temp the plain forward's fp32 temp on the forward case's
+    inputs."""
     import torch
     from lanegcn_tpu_torch.ops import lane_layer
 
-    n, j, dev = feat.shape[0], len(PLAN_SHIFTS), feat.device
+    (n, c), j, dev = feat.shape, len(PLAN_SHIFTS), feat.device
     bf = lambda *shape, scale=1.0: torch.as_tensor(rng.normal(size=shape) * scale,
                                                    dtype=torch.bfloat16, device=dev)
     masks = torch.as_tensor(rng.random((j, n)) < 0.5, device=dev)
-    wb, w2 = bf(j, 128, 128, scale=128 ** -0.5), bf(128, 128, scale=128 ** -0.5)
-    gns = [torch.as_tensor(1.0 + 0.1 * rng.normal(size=128) if k % 2 == 0
-                           else 0.1 * rng.normal(size=128), dtype=torch.float32,
+    wb, w2 = bf(j, c, c, scale=c ** -0.5), bf(c, c, scale=c ** -0.5)
+    gns = [torch.as_tensor(1.0 + 0.1 * rng.normal(size=c) if k % 2 == 0
+                           else 0.1 * rng.normal(size=c), dtype=torch.float32,
                            device=dev) for k in range(4)]
-    pre, g = bf(n, 128), bf(n, 128)  # both drawn either way: the cases match
+    pre, g = bf(n, c), bf(n, c)  # both drawn either way: the cases match
     if not backward:
         return [feat, pre, masks, wb, w2, *gns, w_rel, *plan, num_win, PLAN_SHIFTS, groups]
     temp = lane_layer._plan_temp_plain(feat, pre, masks, wb, PLAN_SHIFTS, w_rel, *plan, num_win,
@@ -2337,8 +2368,9 @@ def step_kernel_phases(geom, cap):
         calls, counts, _ = spill_case_calls(backward=True, width=width)
         cap.calls["pair_agg_bwd"].update(calls)
         cap.counts["pair_agg_bwd"].update(counts)
-    if geom == "merged":
-        calls, counts, _ = plan_case_calls(backward=True, layer=True)
+    if geom in ("merged", "half_merged"):
+        width = spec.get("model_fields", {}).get("n_map", 128)
+        calls, counts, _ = plan_case_calls(backward=True, layer=True, width=width)
         cap.calls["lane_plan_bwd"].update(calls)
         cap.counts["lane_plan_bwd"].update(counts)
     if geom == "lanercnn":
@@ -2548,24 +2580,27 @@ def serve_rerun_phase(geom, step, batch):
 
 def refused_train_phase(geom, cfg, batch):
     """A bf16 train step of the geometry's model with its `refused` fields
-    (the half-width model with merge_plan_agg="auto"): the step must raise
-    ValueError naming the first kernel of NARROW_REFUSED it reaches (by its
-    check: lane_plan takes 128-wide rows only) and the width, before any of
-    that kernel's entries launches (their counts stay 0) and before any
-    backward launches, with no plain version of it or plain backward run in
-    a kernel's place on the card (both watched). What launched before it is
-    printed."""
+    (LaneRCNN at n_map = n_actor = 64): the step must raise ValueError
+    naming the first kernel of NARROW_REFUSED it reaches (by its check: the
+    kernel takes 128-wide rows only) and the width, before any of that
+    kernel's entries launches (their counts stay 0) and before any backward
+    launches, with no plain version of a refusing kernel or plain backward
+    run in a kernel's place on the card (both watched). What launched
+    before it is printed."""
     import dataclasses
 
     import torch
+    from lanegcn_tpu_torch.models.registry import get_model
     from lanegcn_tpu_torch.ops import cuda
     from lanegcn_tpu_torch.train.loop import init_state, make_train_step
 
     spec = GEOMETRIES[geom]
-    width = cfg.model.n_map
     rcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **spec["refused"]))
-    net, state = init_state(rcfg, dtype=torch.bfloat16)
-    tstep = make_train_step(rcfg, net, state)
+    width = rcfg.model.n_map
+    bundle = get_model(spec["model"], rcfg, dtype=torch.bfloat16, seed=0)
+    net, state = init_state(bundle.config, net=bundle.net)
+    tstep = make_train_step(bundle.config, net, state, loss_fn=bundle.loss_fn,
+                            metrics_fn=bundle.metrics_fn)
     plain = plain_backward_watch(forward=True)
     cuda.reset_launch_counts()
     err = None
@@ -2595,12 +2630,14 @@ def refused_train_phase(geom, cfg, batch):
 
 def plain_backward_watch(forward=False):
     """A Capture of every plain backward the autograd Functions can call
-    and, with `forward`, of lane_plan's plain forward (none may run on CUDA
-    tensors)."""
+    (lane_plan's and band_conv's at W = 64 and 128 among them) and, with
+    `forward`, of the plain forwards of NARROW_REFUSED's kernels (none may
+    run on CUDA tensors)."""
     from lanegcn_tpu_torch.ops import band_conv, edge_mlp, lane_layer, pair_agg, row_tail
     from lanegcn_tpu_torch.ops import scenario_agg, win_edge, window_scatter
 
-    fwd = ((lane_layer, "lane_plan_plain"), (lane_layer, "_plan_temp_plain")) if forward else ()
+    fwd = ((window_scatter, "window_scatter_plain"), (edge_mlp, "edge_mlp_plain"),
+           (row_tail, "row_tail2_plain")) if forward else ()
     return Capture([(mod, attr, attr) for mod, attr in fwd + (
         (lane_layer, "lane_layer_bwd_plain"), (lane_layer, "lane_plan_bwd_plain"),
         (band_conv, "band_conv_bwd_plain"), (scenario_agg, "scenario_agg_bwd_plain"),
@@ -2612,7 +2649,8 @@ def plain_backward_watch(forward=False):
 
 def drive_lanercnn(geom):
     """LaneRCNN's phases: pack, kernel, kernel_bwd, parity, train_parity,
-    serve (+ profile), train, remat and profile_train; returns its kernel
+    serve (+ profile), train, remat, profile_train, rerun and (with the
+    geometry's `refused` fields) refused_train; returns its kernel
     results and the serve and train runs' launch counts."""
     import torch
     from lanegcn_tpu_torch.graph import RoiPackedBatch
@@ -2689,6 +2727,8 @@ def drive_lanercnn(geom):
     profile_phase("profile_train", geom, lambda b: tstep(b, 0.5), batches[:1])
     rerun_phase(geom, tcfg, lambda: get_model("lanercnn", cfg, dtype=torch.bfloat16,
                                               seed=0).net, batches[0], fns)
+    if "refused" in spec:
+        refused_train_phase(geom, cfg, batches[0])
     return results, serve, train
 
 

@@ -35,13 +35,19 @@
 //     band_fwd, band_t, band_dw_kernel).
 // dW's partials are summed in split order by reduce_partials: no float
 // atomics, so a rerun is bitwise equal.
+// Width: both directions also run on W = 64-wide rows (the half-width
+// LaneGCN's unfused layers) by the padded route of common.cuh: feat and g
+// rows read W wide into the same 128-column tiles, the [W x W] W_j
+// zero-padded, K cut to W on wgmma, only W columns of out and dx stored,
+// dW's partials [splits, J, W, W]. At W = 128 each kernel compiles to the
+// code it was before the width existed.
 #include "lane_band.cuh"
 
 using namespace lgk;
 
 namespace {
 
-template <typename T>
+template <typename T, int W>
 __global__ void __launch_bounds__(NT)
 band_conv_kernel(const T* __restrict__ feat, const uint8_t* __restrict__ masks,
                  const T* __restrict__ w, T* __restrict__ out, int n, int nj, Shifts sh) {
@@ -50,10 +56,10 @@ band_conv_kernel(const T* __restrict__ feat, const uint8_t* __restrict__ masks,
   float* W_s = X_s + HALO_TILE;                  // [C][C]
   const long tile0 = (long)blockIdx.x * TM;
 
-  load_halo<T>(X_s, feat, tile0, n);
+  load_halo<T, W>(X_s, feat, tile0, n);
   float acc[4][8];
-  band_fwd<T>(X_s, W_s, nullptr, masks, w, tile0, n, nj, sh, acc);
-  store_rows<T>(out, acc, tile0, n);
+  band_fwd<T, W>(X_s, W_s, nullptr, masks, w, tile0, n, nj, sh, acc);
+  store_rows<T, W>(out, acc, tile0, n);
 }
 
 // The bf16 forward on tensor cores: lane_layer_tc_kernel's block, halo
@@ -63,6 +69,7 @@ inline int band_conv_tc_smem() {
   return DX_HROWS * DX_HLD * (int)sizeof(bf16) + 2 * tc::tiles_bytes(C) + MAXJ * DX_ROWS;
 }
 
+template <int W>
 __global__ void __launch_bounds__(DX_THREADS, 1)
 band_conv_tc_kernel(const bf16* __restrict__ feat, const uint8_t* __restrict__ masks,
                     const bf16* __restrict__ w, bf16* __restrict__ out, int n, int nj,
@@ -75,80 +82,82 @@ band_conv_tc_kernel(const bf16* __restrict__ feat, const uint8_t* __restrict__ m
   const long tile0 = (long)blockIdx.x * DX_ROWS;
 
   float acc[64];
-  band_fwd_tc(acc, X_s, W_b, M_s, act_s, feat, nullptr, masks, w, nullptr, tile0, n, nj, sh);
+  band_fwd_tc<W>(acc, X_s, W_b, M_s, act_s, feat, nullptr, masks, w, nullptr, tile0, n, nj,
+                 sh);
   const long row0 = tile0 + 64 * (threadIdx.x >> 7);  // the warpgroup's first row
 #pragma unroll
-  for (int i = 0; i < 64; i += 2) {
+  for (int i = 0; i < W / 2; i += 2) {
     const long gr = row0 + tc::acc_row(i);
     if (gr < n)
-      *reinterpret_cast<__nv_bfloat162*>(out + gr * C + tc::acc_col(i)) =
+      *reinterpret_cast<__nv_bfloat162*>(out + gr * W + tc::acc_col(i)) =
           __floats2bfloat162_rn(acc[i], acc[i + 1]);
   }
 }
 
-template <typename T>
+template <typename T, int W>
 int launch(const T* feat, const uint8_t* masks, const T* w, T* out, int n, int nj,
            const Shifts& sh, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
     const int smem = band_conv_tc_smem();
-    cudaError_t e = set_smem((const void*)band_conv_tc_kernel, smem);
+    cudaError_t e = set_smem((const void*)band_conv_tc_kernel<W>, smem);
     if (e != cudaSuccess) return (int)e;
     const int blocks = (n + DX_ROWS - 1) / DX_ROWS;
     if (blocks > 0)
-      band_conv_tc_kernel<<<blocks, DX_THREADS, smem, stream>>>(feat, masks, w, out, n, nj, sh);
+      band_conv_tc_kernel<W><<<blocks, DX_THREADS, smem, stream>>>(feat, masks, w, out, n, nj,
+                                                                    sh);
   } else {
     const int smem = (HALO_TILE + C * C) * (int)sizeof(float);
-    cudaError_t e = set_smem((const void*)band_conv_kernel<T>, smem);
+    cudaError_t e = set_smem((const void*)band_conv_kernel<T, W>, smem);
     if (e != cudaSuccess) return (int)e;
     const int blocks = (n + TM - 1) / TM;
     if (blocks > 0)
-      band_conv_kernel<T><<<blocks, NT, smem, stream>>>(feat, masks, w, out, n, nj, sh);
+      band_conv_kernel<T, W><<<blocks, NT, smem, stream>>>(feat, masks, w, out, n, nj, sh);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int W>
 int launch_bwd(const T* feat, const uint8_t* masks, const T* w, const T* g, T* dx, float* part,
                float* dw, int n, int nj, const Shifts& sh, int splits, cudaStream_t stream) {
-  const int err = launch_band_t<T, T>(g, nullptr, masks, w, dx, n, nj, sh, stream);
+  const int err = launch_band_t<T, T, false, W>(g, nullptr, masks, w, dx, n, nj, sh, stream);
   if (err != 0) return err;
-  return launch_band_dw<T, T>(feat, g, masks, part, dw, n, nj, sh, splits, stream);
+  return launch_band_dw<T, T, W>(feat, g, masks, part, dw, n, nj, sh, splits, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (feat, w, out); masks [nj, n] bytes
-// (0/1); w [nj, 128, 128] in (in, out) layout; shifts: host array of nj ints.
+// dtype: 0 = float32, 1 = bfloat16 (feat, w, out); width: W = 128 or 64
+// (feat, out [n, W]; w [nj, W, W] in (in, out) layout); masks [nj, n] bytes
+// (0/1); shifts: host array of nj ints.
 extern "C" int band_conv_fwd(const void* feat, const void* masks, const void* w, void* out,
-                             int n, int nj, const void* shifts, int dtype, void* stream) {
+                             int n, int width, int nj, const void* shifts, int dtype,
+                             void* stream) {
   Shifts sh;
   const int bad = make_shifts(nj, (const int*)shifts, &sh);
   if (bad) return bad;
   cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* m = (const uint8_t*)masks;
-  if (dtype == 0)
-    return launch<float>((const float*)feat, m, (const float*)w, (float*)out, n, nj, sh, st);
-  if (dtype == 1)
-    return launch<bf16>((const bf16*)feat, m, (const bf16*)w, (bf16*)out, n, nj, sh, st);
-  return (int)cudaErrorInvalidValue;
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    using T = typename decltype(Tc)::type;
+    return launch<T, decltype(Wc)::value>((const T*)feat, m, (const T*)w, (T*)out, n, nj, sh,
+                                          st);
+  });
 }
 
-// Backward. g: the output cotangent in feat's dtype; dx [n, 128] in feat's
-// dtype; part: splits * nj * C*C fp32 workspace; dw: fp32 [nj, C, C].
+// Backward. g: the output cotangent in feat's dtype; dx [n, W] in feat's
+// dtype; part: splits * nj * W*W fp32 workspace; dw: fp32 [nj, W, W].
 extern "C" int band_conv_bwd(const void* feat, const void* masks, const void* w, const void* g,
-                             void* dx, void* part, void* dw, int n, int nj, const void* shifts,
-                             int splits, int dtype, void* stream) {
+                             void* dx, void* part, void* dw, int n, int width, int nj,
+                             const void* shifts, int splits, int dtype, void* stream) {
   Shifts sh;
   const int bad = make_shifts(nj, (const int*)shifts, &sh);
   if (bad) return bad;
   cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* m = (const uint8_t*)masks;
   float *p = (float*)part, *d = (float*)dw;
-  if (dtype == 0)
-    return launch_bwd<float>((const float*)feat, m, (const float*)w, (const float*)g, (float*)dx,
-                             p, d, n, nj, sh, splits, st);
-  if (dtype == 1)
-    return launch_bwd<bf16>((const bf16*)feat, m, (const bf16*)w, (const bf16*)g, (bf16*)dx, p,
-                            d, n, nj, sh, splits, st);
-  return (int)cudaErrorInvalidValue;
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    using T = typename decltype(Tc)::type;
+    return launch_bwd<T, decltype(Wc)::value>((const T*)feat, m, (const T*)w, (const T*)g,
+                                              (T*)dx, p, d, n, nj, sh, splits, st);
+  });
 }

@@ -34,7 +34,7 @@
 // kernels end in layer_tail_tc (tail_fwd.cuh's chain in registers).
 //
 // lane_plan.cu adds the window plan's messages into these sums: a
-// [slots, 128] workspace holds each plan edge's rounded message at its
+// [slots, W] workspace holds each plan edge's rounded message at its
 // position in destination (forward) or source (backward) order, and a
 // block adds its rows' runs of positions (segment_sum.cuh `run_table` over
 // the sorted segment keys) in position order, into the accumulators before
@@ -98,24 +98,29 @@ __device__ __forceinline__ void store_rows(T* dst, const float acc[4][8], long t
 }
 
 // acc[i] (the tile's row mm_row(i), the 64 x 128 product layout) += the
-// fp32 rows [blo + lo_s[r], blo + hi_s[r]) of msg [slots, 128], in order (a
-// block's run table, segment_sum.cuh `run_table`).
+// fp32 rows [blo + lo_s[r], blo + hi_s[r]) of msg [slots, W], in order (a
+// block's run table, segment_sum.cuh `run_table`). At a row width W below
+// C the columns mm_col(4) ≥ 64 lie past W: acc[i][4..7] are left as they
+// are (zero).
+template <int W = C>
 __device__ __forceinline__ void add_runs_mm(float acc[4][8], const float* msg, long blo,
                                             const int* lo_s, const int* hi_s) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = mm_row(i);
     for (long p = blo + lo_s[r]; p < blo + hi_s[r]; ++p) {
-      const float4 a = load4<float>(msg + p * C + mm_col(0));
-      const float4 b = load4<float>(msg + p * C + mm_col(4));
+      const float4 a = load4<float>(msg + p * W + mm_col(0));
       acc[i][0] += a.x;
       acc[i][1] += a.y;
       acc[i][2] += a.z;
       acc[i][3] += a.w;
-      acc[i][4] += b.x;
-      acc[i][5] += b.y;
-      acc[i][6] += b.z;
-      acc[i][7] += b.w;
+      if constexpr (W == C) {
+        const float4 b = load4<float>(msg + p * C + mm_col(4));
+        acc[i][4] += b.x;
+        acc[i][5] += b.y;
+        acc[i][6] += b.z;
+        acc[i][7] += b.w;
+      }
     }
   }
 }
@@ -226,16 +231,15 @@ __device__ __forceinline__ void band_t(const float* D_s, float* W_s, const float
 // (rows p − s_j outside [0, n) give 0), stored in T. A block owns 64 rows p
 // and loads the d_temp rows p − HALO .. p + TM + HALO − 1 once for all J
 // products. PLAN (lane_plan.cu, fp32): dx[p] also adds p's run of the plan's
-// transposed messages pm [slots, 128], which sit at the positions whose
+// transposed messages pm [slots, W], which sit at the positions whose
 // source key pseg is p, in position order. W: the rows' width (dtemp, dy,
-// dx [n, W], wb [nj, W, W]; PLAN at 128 only).
+// dx [n, W], wb [nj, W, W]).
 template <typename T, typename D, bool PLAN = false, int W = C>
 __global__ void __launch_bounds__(NT)
 band_t_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
               const uint8_t* __restrict__ masks, const T* __restrict__ wb, T* __restrict__ dx,
               int n, int nj, Shifts sh, const T* __restrict__ pm,
               const long long* __restrict__ pseg, long slots) {
-  static_assert(!PLAN || W == C, "lane_plan takes 128-wide rows only");
   extern __shared__ float4 smem4[];
   float* D_s = reinterpret_cast<float*>(smem4);  // [TM + 2*HALO][LDA]
   float* W_s = D_s + HALO_TILE;                  // [C][C] Wb_jᵀ
@@ -249,7 +253,7 @@ band_t_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
     __shared__ int lo_s[TM], hi_s[TM];
     __shared__ long blk_s[2];
     seg::run_table<TM>(pseg, slots, tile0, (int)min((long)TM, n - tile0), lo_s, hi_s, blk_s);
-    add_runs_mm(acc, pm, blk_s[0], lo_s, hi_s);
+    add_runs_mm<W>(acc, pm, blk_s[0], lo_s, hi_s);
   }
   store_rows<T, W>(dx, acc, tile0, n);
 }
@@ -437,9 +441,13 @@ __device__ __forceinline__ void load_gn(float* gn_s, const float* g1w, const flo
 }
 
 // acc (warpgroup rows r0 .. r0 + 63 of the block, the m64n128 accumulator
-// layout) += the bf16 rows [blo + lo_s[r], blo + hi_s[r]) of msg [slots,
-// 128] of each of the thread's two rows r, in order: a quad of lanes reads a
-// row's 16-byte column slices, each thread the two columns it holds.
+// layout) += the bf16 rows [blo + lo_s[r], blo + hi_s[r]) of msg [slots, W]
+// of each of the thread's two rows r, in order: a quad of lanes reads a
+// row's 16-byte column slices, each thread the two columns it holds
+// (columns 8k + acc_col(0), k < W / 8). At a row width W below C the
+// accumulators of the columns at W and past it (k ≥ W / 8) are not touched
+// and stay exactly zero, as the tail's GN over W needs.
+template <int W = C>
 __device__ __forceinline__ void add_runs_tc(float (&acc)[64], const bf16* msg, long blo,
                                             const int* lo_s, const int* hi_s, int r0) {
   const int c0 = tc::acc_col(0);
@@ -447,12 +455,12 @@ __device__ __forceinline__ void add_runs_tc(float (&acc)[64], const bf16* msg, l
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + tc::acc_row(2 * h);
     for (long p = blo + lo_s[r]; p < blo + hi_s[r]; ++p) {
-      const __nv_bfloat162* m = reinterpret_cast<const __nv_bfloat162*>(msg + p * C + c0);
-      float2 v[C / 8];
+      const __nv_bfloat162* m = reinterpret_cast<const __nv_bfloat162*>(msg + p * W + c0);
+      float2 v[W / 8];
 #pragma unroll
-      for (int k = 0; k < C / 8; ++k) v[k] = __bfloat1622float2(m[4 * k]);
+      for (int k = 0; k < W / 8; ++k) v[k] = __bfloat1622float2(m[4 * k]);
 #pragma unroll
-      for (int k = 0; k < C / 8; ++k) {
+      for (int k = 0; k < W / 8; ++k) {
         acc[4 * k + 2 * h] += v[k].x;
         acc[4 * k + 2 * h + 1] += v[k].y;
       }
@@ -500,7 +508,7 @@ __device__ __forceinline__ void layer_tail_tc(float (&acc)[64], const bf16* X_s,
 }
 
 // PLAN (lane_plan.cu): dx[p] also adds p's run of the plan's transposed
-// messages pm [slots, 128] (bf16, each rounded as written), at the
+// messages pm [slots, W] (bf16, each rounded as written), at the
 // positions whose source key pseg is p, in position order, before the store.
 template <typename D, bool PLAN = false, int W = C>
 __global__ void __launch_bounds__(DX_THREADS, 1)
@@ -508,7 +516,6 @@ band_t_tc_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
                  const uint8_t* __restrict__ masks, const bf16* __restrict__ wb,
                  bf16* __restrict__ dx, int n, int nj, Shifts sh, const bf16* __restrict__ pm,
                  const long long* __restrict__ pseg, long slots) {
-  static_assert(!PLAN || W == C, "lane_plan takes 128-wide rows only");
   constexpr bool SPLIT = std::is_same<D, float>::value;
   extern __shared__ float4 smem4[];
   bf16* Hi_s = reinterpret_cast<bf16*>(smem4);        // [DX_HROWS][DX_HLD] hi
@@ -625,7 +632,7 @@ band_t_tc_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
     __shared__ long blk_s[2];
     seg::run_table<DX_ROWS>(pseg, slots, tile0, (int)min((long)DX_ROWS, n - tile0), lo_s,
                             hi_s, blk_s);
-    add_runs_tc(acc, pm, blk_s[0], lo_s, hi_s, 64 * wg);
+    add_runs_tc<W>(acc, pm, blk_s[0], lo_s, hi_s, 64 * wg);
   }
 #pragma unroll
   for (int i = 0; i < W / 2; i += 2) {
@@ -637,8 +644,7 @@ band_t_tc_kernel(const D* __restrict__ dtemp, const float* __restrict__ dy,
 }
 
 // The dx pass; with PLAN, plus the plan's transposed messages pm at the
-// positions of the sorted source keys pseg [slots]. W: the rows' width
-// (PLAN at 128 only).
+// positions of the sorted source keys pseg [slots]. W: the rows' width.
 template <typename T, typename D, bool PLAN = false, int W = C>
 int launch_band_t(const D* dtemp, const float* dy, const uint8_t* masks, const T* wb, T* dx,
                   int n, int nj, const Shifts& sh, cudaStream_t stream,

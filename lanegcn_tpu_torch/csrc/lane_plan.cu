@@ -26,7 +26,7 @@
 // Forward (`lane_plan_fwd`), two passes:
 //   messages  rel_agg.cuh's pass 1 on the tiles (bf16: msg_tc_kernel on
 //             wgmma; fp32: msg_kernel on CUDA cores): ws[dpos[e]] =
-//             rnd(feat[v_e] @ W_r), one write per position, ws [slots, 128]
+//             rnd(feat[v_e] @ W_r), one write per position, ws [slots, W]
 //             in the activation dtype (the rounding is the plain version's,
 //             so a bf16 workspace is exact and moves half the bytes of an
 //             fp32 one).
@@ -66,6 +66,17 @@
 // merge keeps out of device memory, against scenario_agg + lane_layer: the
 // aggregate's read of temp and its write of the layer's pre (2 x 53 MB in
 // bf16 at N = 208,896), and the backward's separate dfeat segment sum.
+//
+// Width: both directions also run on W = 64-wide rows (the half-width
+// LaneGCN's merged layers), every pass templated on W by the padded route
+// of common.cuh that lane_layer.cu takes: the same 192-row blocks, halo
+// tile and 128-column m64n128k16 products with K cut to W, the [W x W]
+// weights zero-padded in shared memory, GN statistics over W, only W
+// columns stored. The message workspace is [slots, W] at row stride W; the
+// layer adds a row's messages into its first W accumulator columns only
+// (add_runs_tc<W>, add_runs_mm<W>), so the columns at W and past it stay
+// exactly zero for the tail's GN over W. At W = 128 each kernel compiles to
+// the code it was before the width existed.
 #include "lane_band.cuh"
 #include "rel_agg.cuh"
 
@@ -76,8 +87,9 @@ namespace {
 using agg::WindowPlan;
 
 // The fp32 forward (the parity path): lane_layer_kernel's 64-row tile with
-// the tile's runs of plan messages (fp32, msg [slots, 128]) added after the
+// the tile's runs of plan messages (fp32, msg [slots, W]) added after the
 // band products.
+template <int W>
 __global__ void __launch_bounds__(NT)
 lane_plan_kernel(const float* __restrict__ feat, const float* __restrict__ pre,
                  const uint8_t* __restrict__ masks, const float* __restrict__ wb,
@@ -94,19 +106,20 @@ lane_plan_kernel(const float* __restrict__ feat, const float* __restrict__ pre,
   __shared__ long blk_s[2];
   const long tile0 = (long)blockIdx.x * TM;
 
-  load_halo<float>(X_s, feat, tile0, n);
+  load_halo<float, W>(X_s, feat, tile0, n);
   float acc[4][8];
-  band_fwd<float>(X_s, W_s, pre, masks, wb, tile0, n, nj, sh, acc);
+  band_fwd<float, W>(X_s, W_s, pre, masks, wb, tile0, n, nj, sh, acc);
   seg::run_table<TM>(dseg, slots, tile0, (int)min((long)TM, n - tile0), lo_s, hi_s, blk_s);
-  add_runs_mm(acc, msg, blk_s[0], lo_s, hi_s);
+  add_runs_mm<W>(acc, msg, blk_s[0], lo_s, hi_s);
   store_acc(T_s, acc);
   __syncthreads();
-  layer_tail<float>(X_s, T_s, W_s, w2, g1w, g1b, g2w, g2b, out, temp_out, tile0, n, eps);
+  layer_tail<float, W>(X_s, T_s, W_s, w2, g1w, g1b, g2w, g2b, out, temp_out, tile0, n, eps);
 }
 
 // The bf16 forward on tensor cores: lane_layer_tc_kernel with the block's
-// runs of plan messages (bf16, msg [slots, 128]) added into the accumulators
+// runs of plan messages (bf16, msg [slots, W]) added into the accumulators
 // between the band products and the tail.
+template <int W>
 __global__ void __launch_bounds__(DX_THREADS, 1)
 lane_plan_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ pre,
                     const uint8_t* __restrict__ masks, const bf16* __restrict__ wb,
@@ -125,18 +138,18 @@ lane_plan_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ pre,
   __shared__ long blk_s[2];
   const long tile0 = (long)blockIdx.x * DX_ROWS;
 
-  load_gn(gn_s, g1w, g1b, g2w, g2b);
+  load_gn<W>(gn_s, g1w, g1b, g2w, g2b);
   // acc = pre + the band products; W2 in flight after them.
   float acc[64];
-  band_fwd_tc(acc, X_s, W_b, M_s, act_s, feat, pre, masks, wb, w2, tile0, n, nj, sh);
+  band_fwd_tc<W>(acc, X_s, W_b, M_s, act_s, feat, pre, masks, wb, w2, tile0, n, nj, sh);
   // acc = temp: each row's plan messages, in position order.
   seg::run_table<DX_ROWS>(dseg, slots, tile0, (int)min((long)DX_ROWS, n - tile0), lo_s, hi_s,
                           blk_s);
-  add_runs_tc(acc, msg, blk_s[0], lo_s, hi_s, 64 * (threadIdx.x >> 7));
+  add_runs_tc<W>(acc, msg, blk_s[0], lo_s, hi_s, 64 * (threadIdx.x >> 7));
   cp_async_wait<0>();  // W2
   tc::fence_smem();
   __syncthreads();  // W2 (and, without relations, the halo and vectors) in place
-  layer_tail_tc(acc, X_s, W_b, gn_s, out, temp_out, tile0, n, nj, eps);
+  layer_tail_tc<W>(acc, X_s, W_b, gn_s, out, temp_out, tile0, n, nj, eps);
 }
 
 // The prepared plan (ops/scenario_agg.py `PlanPrep`) as the passes take it.
@@ -147,59 +160,60 @@ struct Prep {
   int num_rel, blocks;
 };
 
-template <typename T>
+template <typename T, int W>
 int launch_fwd(const T* feat, const T* pre, const uint8_t* masks, const T* wb, const T* w2,
                const float* g1w, const float* g1b, const float* g2w, const float* g2b,
                const T* w_rel, const Prep& pp, T* ws, T* out, float* temp_out, int n, int nj,
                const Shifts& sh, float eps, cudaStream_t stream) {
-  const int err = agg::launch_msg<WindowPlan, T, false, T>(feat, w_rel, pp.src, pp.tiles,
-                                                           pp.rel_tiles, pp.pos, ws, pp.num_rel,
-                                                           pp.blocks, stream);
+  const int err = agg::launch_msg<WindowPlan, T, false, T, W>(feat, w_rel, pp.src, pp.tiles,
+                                                              pp.rel_tiles, pp.pos, ws,
+                                                              pp.num_rel, pp.blocks, stream);
   if (err != 0) return err;
   if constexpr (std::is_same<T, bf16>::value) {
     const int smem = layer_tc_smem();
-    cudaError_t e = set_smem((const void*)lane_plan_tc_kernel, smem);
+    cudaError_t e = set_smem((const void*)lane_plan_tc_kernel<W>, smem);
     if (e != cudaSuccess) return (int)e;
     const int blocks = (n + DX_ROWS - 1) / DX_ROWS;
     if (blocks > 0)
-      lane_plan_tc_kernel<<<blocks, DX_THREADS, smem, stream>>>(
+      lane_plan_tc_kernel<W><<<blocks, DX_THREADS, smem, stream>>>(
           feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, ws, pp.seg, pp.slots, out, temp_out, n,
           nj, sh, eps);
   } else {
     const int smem = (HALO_TILE + TM * LDA + C * C) * (int)sizeof(float);
-    cudaError_t e = set_smem((const void*)lane_plan_kernel, smem);
+    cudaError_t e = set_smem((const void*)lane_plan_kernel<W>, smem);
     if (e != cudaSuccess) return (int)e;
     const int blocks = (n + TM - 1) / TM;
     if (blocks > 0)
-      lane_plan_kernel<<<blocks, NT, smem, stream>>>(feat, pre, masks, wb, w2, g1w, g1b, g2w,
-                                                     g2b, ws, pp.seg, pp.slots, out, temp_out,
-                                                     n, nj, sh, eps);
+      lane_plan_kernel<W><<<blocks, NT, smem, stream>>>(feat, pre, masks, wb, w2, g1w, g1b, g2w,
+                                                        g2b, ws, pp.seg, pp.slots, out,
+                                                        temp_out, n, nj, sh, eps);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int W>
 int launch_bwd(const T* feat, const float* temp, const uint8_t* masks, const T* wb,
                const T* w2, const float* g1w, const float* g1b, const float* g2w,
                const float* g2b, const T* w_rel, const Prep& pp, const T* g, T* ws, T* dx,
                T* dpre, float* dtemp, float* dy, float* part_tail, float* part_band,
                float* part_rel, float* grads_tail, float* dwb, float* dwr, int n, int nj,
                const Shifts& sh, int tail_blocks, int splits, float eps, cudaStream_t stream) {
-  int err = launch_tail_bwd<T, float>(temp, feat, g, w2, g1w, g1b, g2w, g2b, dpre, nullptr,
-                                      dtemp, dy, part_tail, grads_tail, n, tail_blocks, eps,
-                                      stream);
+  int err = launch_tail_bwd<T, float, W>(temp, feat, g, w2, g1w, g1b, g2w, g2b, dpre, nullptr,
+                                         dtemp, dy, part_tail, grads_tail, n, tail_blocks, eps,
+                                         stream);
   if (err != 0) return err;
   // The plan's transposes from rnd(d_temp) (dpre), at the source positions.
-  err = agg::launch_msg<WindowPlan, T, true, T>(dpre, w_rel, pp.dst, pp.tiles, pp.rel_tiles,
-                                                pp.pos, ws, pp.num_rel, pp.blocks, stream);
+  err = agg::launch_msg<WindowPlan, T, true, T, W>(dpre, w_rel, pp.dst, pp.tiles,
+                                                   pp.rel_tiles, pp.pos, ws, pp.num_rel,
+                                                   pp.blocks, stream);
   if (err != 0) return err;
-  err = launch_band_t<T, float, true>(dtemp, dy, masks, wb, dx, n, nj, sh, stream, ws, pp.seg,
-                                      pp.slots);
+  err = launch_band_t<T, float, true, W>(dtemp, dy, masks, wb, dx, n, nj, sh, stream, ws,
+                                         pp.seg, pp.slots);
   if (err != 0) return err;
   // dWb and dW_rel read rnd(d_temp) as the row pass wrote it into dpre (in T).
-  err = launch_band_dw<T, T>(feat, dpre, masks, part_band, dwb, n, nj, sh, splits, stream);
+  err = launch_band_dw<T, T, W>(feat, dpre, masks, part_band, dwb, n, nj, sh, splits, stream);
   if (err != 0) return err;
-  return agg::launch_dw<WindowPlan, T>(feat, dpre, pp.dst, pp.src, pp.tiles, pp.rel_tiles,
+  return agg::launch_dw<WindowPlan, T, W>(feat, dpre, pp.dst, pp.src, pp.tiles, pp.rel_tiles,
                                        part_rel, dwr, pp.num_rel, pp.blocks, stream);
 }
 
@@ -216,23 +230,25 @@ int make_prep(const void* dst, const void* src, const void* tiles, const void* r
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (feat, pre, wb, w2, w_rel [R, C, C] (in,
-// out), ws, out); masks [nj, n] bytes (0/1); GN vectors fp32 [128]; shifts:
-// host array of nj ints. The prepared plan (ops/scenario_agg.py
-// `prepare_plan`) over `slots` plan slots: src int32 [slots], the applied
-// edges' source rows in relation order; tiles int32 [*, 3] (relation, first
-// edge, edges) and rel_tiles int32 [R + 1]; dpos int32 [slots], each edge's
-// position in destination order; dseg int64 [slots], the destination row at
-// each position (n past the applied edges). ws: [slots, C] workspace in
-// feat's dtype; blocks: the message pass's persistent blocks; temp_out: fp32
-// [n, 128] that receives temp, or null.
+// dtype: 0 = float32, 1 = bfloat16 (feat, pre, wb, w2, w_rel, ws, out);
+// width: W = 128 or 64 (feat, pre, out [n, W]; wb [nj, W, W], w2 [W, W],
+// w_rel [R, W, W] in (in, out) layout; GN vectors fp32 [W]); masks [nj, n]
+// bytes (0/1); shifts: host array of nj ints. The prepared plan
+// (ops/scenario_agg.py `prepare_plan`) over `slots` plan slots: src int32
+// [slots], the applied edges' source rows in relation order; tiles int32
+// [*, 3] (relation, first edge, edges) and rel_tiles int32 [R + 1]; dpos
+// int32 [slots], each edge's position in destination order; dseg int64
+// [slots], the destination row at each position (n past the applied edges).
+// ws: [slots, W] workspace in feat's dtype; blocks: the message pass's
+// persistent blocks; temp_out: fp32 [n, W] that receives temp, or null.
 extern "C" int lane_plan_fwd(const void* feat, const void* pre, const void* masks,
                              const void* wb, const void* w2, const void* g1w, const void* g1b,
                              const void* g2w, const void* g2b, const void* w_rel,
                              const void* src, const void* tiles, const void* rel_tiles,
                              const void* dpos, const void* dseg, void* ws, void* out,
-                             void* temp_out, int n, int nj, const void* shifts, long long slots,
-                             int num_rel, int blocks, float eps, int dtype, void* stream) {
+                             void* temp_out, int n, int width, int nj, const void* shifts,
+                             long long slots, int num_rel, int blocks, float eps, int dtype,
+                             void* stream) {
   Shifts sh;
   int bad = make_shifts(nj, (const int*)shifts, &sh);
   if (bad) return bad;
@@ -243,26 +259,24 @@ extern "C" int lane_plan_fwd(const void* feat, const void* pre, const void* mask
   const float *a = (const float*)g1w, *b = (const float*)g1b, *c = (const float*)g2w,
               *d = (const float*)g2b;
   const uint8_t* m = (const uint8_t*)masks;
-  if (dtype == 0)
-    return launch_fwd<float>((const float*)feat, (const float*)pre, m, (const float*)wb,
-                             (const float*)w2, a, b, c, d, (const float*)w_rel, pp, (float*)ws,
-                             (float*)out, (float*)temp_out, n, nj, sh, eps, st);
-  if (dtype == 1)
-    return launch_fwd<bf16>((const bf16*)feat, (const bf16*)pre, m, (const bf16*)wb,
-                            (const bf16*)w2, a, b, c, d, (const bf16*)w_rel, pp, (bf16*)ws,
-                            (bf16*)out, (float*)temp_out, n, nj, sh, eps, st);
-  return (int)cudaErrorInvalidValue;
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    using T = typename decltype(Tc)::type;
+    return launch_fwd<T, decltype(Wc)::value>((const T*)feat, (const T*)pre, m, (const T*)wb,
+                                              (const T*)w2, a, b, c, d, (const T*)w_rel, pp,
+                                              (T*)ws, (T*)out, (float*)temp_out, n, nj, sh, eps,
+                                              st);
+  });
 }
 
 // Backward. temp: the forward's fp32 temp; g: the output cotangent in feat's
 // dtype; the prepared plan as in the forward, with dst int32 [slots] (the
 // applied edges' destination rows in relation order), spos / sseg (the
-// positions in source order and the source row at each); ws: [slots, C] in
-// feat's dtype; dx, dpre [n, 128] in feat's dtype; dtemp, dy: fp32 [n, 128]
-// workspace; part_tail: tail_blocks * (C*C + 4*C), part_band: splits * nj *
-// C*C and part_rel: (blocks + R) * C*C fp32 workspace; grads_tail: fp32
-// [C*C + 4*C] = dW2, dg1w, dg1b, dg2w, dg2b; dwb: fp32 [nj, C, C]; dwr: fp32
-// [R, C, C].
+// positions in source order and the source row at each); ws: [slots, W] in
+// feat's dtype; dx, dpre [n, W] in feat's dtype; dtemp, dy: fp32 [n, W]
+// workspace; part_tail: tail_blocks * (W*W + 4*W), part_band: splits * nj *
+// W*W and part_rel: (blocks + R) * W*W fp32 workspace; grads_tail: fp32
+// [W*W + 4*W] = dW2, dg1w, dg1b, dg2w, dg2b; dwb: fp32 [nj, W, W]; dwr: fp32
+// [R, W, W].
 extern "C" int lane_plan_bwd(const void* feat, const void* temp, const void* masks,
                              const void* wb, const void* w2, const void* g1w, const void* g1b,
                              const void* g2w, const void* g2b, const void* w_rel,
@@ -270,7 +284,7 @@ extern "C" int lane_plan_bwd(const void* feat, const void* temp, const void* mas
                              const void* rel_tiles, const void* spos, const void* sseg,
                              const void* g, void* ws, void* dx, void* dpre, void* dtemp,
                              void* dy, void* part_tail, void* part_band, void* part_rel,
-                             void* grads_tail, void* dwb, void* dwr, int n, int nj,
+                             void* grads_tail, void* dwb, void* dwr, int n, int width, int nj,
                              const void* shifts, long long slots, int num_rel, int tail_blocks,
                              int splits, int blocks, float eps, int dtype, void* stream) {
   Shifts sh;
@@ -285,15 +299,11 @@ extern "C" int lane_plan_bwd(const void* feat, const void* temp, const void* mas
   const uint8_t* m = (const uint8_t*)masks;
   float *dt = (float*)dtemp, *y = (float*)dy, *pt = (float*)part_tail, *pb = (float*)part_band,
         *pr = (float*)part_rel, *gt = (float*)grads_tail, *gb = (float*)dwb, *gr = (float*)dwr;
-  if (dtype == 0)
-    return launch_bwd<float>((const float*)feat, t, m, (const float*)wb, (const float*)w2, a, b,
-                             c, d, (const float*)w_rel, pp, (const float*)g, (float*)ws,
-                             (float*)dx, (float*)dpre, dt, y, pt, pb, pr, gt, gb, gr, n, nj, sh,
-                             tail_blocks, splits, eps, st);
-  if (dtype == 1)
-    return launch_bwd<bf16>((const bf16*)feat, t, m, (const bf16*)wb, (const bf16*)w2, a, b, c,
-                            d, (const bf16*)w_rel, pp, (const bf16*)g, (bf16*)ws, (bf16*)dx,
-                            (bf16*)dpre, dt, y, pt, pb, pr, gt, gb, gr, n, nj, sh, tail_blocks,
-                            splits, eps, st);
-  return (int)cudaErrorInvalidValue;
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    using T = typename decltype(Tc)::type;
+    return launch_bwd<T, decltype(Wc)::value>((const T*)feat, t, m, (const T*)wb, (const T*)w2,
+                                              a, b, c, d, (const T*)w_rel, pp, (const T*)g,
+                                              (T*)ws, (T*)dx, (T*)dpre, dt, y, pt, pb, pr, gt,
+                                              gb, gr, n, nj, sh, tail_blocks, splits, eps, st);
+  });
 }

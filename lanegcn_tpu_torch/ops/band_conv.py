@@ -10,6 +10,10 @@ runs through a `torch.autograd.Function`: its backward is the
 `band_conv_bwd` kernel on CUDA tensors and `band_conv_bwd_plain` on CPU
 ones. As in the JAX op, the cotangent is rounded to feat's dtype first,
 dW is summed in fp32 and cast to w's dtype, and the masks get no gradient.
+
+The kernels, forward and backward, take rows W = 128 or 64 wide (`WIDTHS`:
+the unfused LaneGCN at n_map = 128, and the half-width model at 64); the
+plain versions take any width.
 """
 
 from __future__ import annotations
@@ -20,9 +24,8 @@ from typing import Sequence
 import torch
 
 from lanegcn_tpu_torch.ops import cuda
+from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.lane_layer import HALO, _mask_bytes, _shift_array, _shift_rows
-
-C = 128
 
 
 def band_conv_plain(feat, masks, w, shifts: Sequence[int]) -> torch.Tensor:
@@ -42,7 +45,7 @@ def band_conv_bwd_plain(feat, masks, w, g, shifts: Sequence[int]):
         dx[p] = Σ_j band_j[p − s_j] · g[p − s_j] @ W_jᵀ     (fp32, then feat's dtype)
         dW_j  = Σ_u (band_j[u] · feat[u + s_j])ᵀ g[u]        (fp32)
 
-    Returns (dx, dW [J, C, C] fp32)."""
+    Returns (dx, dW [J, W, W] fp32)."""
     f = feat.float()
     gr = g.to(feat.dtype).float()
     dx = torch.zeros(feat.shape, dtype=torch.float32, device=feat.device)
@@ -56,16 +59,21 @@ def band_conv_bwd_plain(feat, masks, w, g, shifts: Sequence[int]):
     return dx.to(feat.dtype), dw
 
 
-def _check(feat, masks, w, shifts):
+def _check(feat, masks, w, shifts, name="band_conv"):
+    """Shapes and dtypes kernel `name` takes: feat [N, W] with W in
+    `WIDTHS`, masks [J, N], w [J, W, W] in feat's dtype."""
     n, c = feat.shape
     j = len(shifts)
-    if c != C or tuple(w.shape) != (j, c, c) or tuple(masks.shape) != (j, n):
-        raise ValueError(f"band_conv: bad shapes feat {tuple(feat.shape)} masks "
+    if c not in WIDTHS:
+        raise ValueError(f"{name}: the kernel takes rows {' or '.join(map(str, WIDTHS))} "
+                         f"wide, not {c}")
+    if tuple(w.shape) != (j, c, c) or tuple(masks.shape) != (j, n):
+        raise ValueError(f"{name}: bad shapes feat {tuple(feat.shape)} masks "
                          f"{tuple(masks.shape)} w {tuple(w.shape)} for {j} shifts")
     if any(abs(s) > HALO for s in shifts):
-        raise ValueError(f"band_conv: shifts beyond ±{HALO}: {shifts}")
+        raise ValueError(f"{name}: shifts beyond ±{HALO}: {shifts}")
     if w.dtype != feat.dtype:
-        raise TypeError("band_conv: w must be in feat's dtype")
+        raise TypeError(f"{name}: w must be in feat's dtype")
 
 
 def _fwd_cuda(feat, masks, w, shifts):
@@ -80,7 +88,7 @@ def _fwd_cuda(feat, masks, w, shifts):
     cuda.call(
         "band_conv", "band_conv_fwd",
         cuda.ptr(feat), cuda.ptr(masks), cuda.ptr(w), cuda.ptr(out),
-        ctypes.c_int(feat.shape[0]), ctypes.c_int(len(shifts)), sh,
+        ctypes.c_int(feat.shape[0]), ctypes.c_int(feat.shape[1]), ctypes.c_int(len(shifts)), sh,
         ctypes.c_int(code), cuda.stream(),
     )
     return out
@@ -90,24 +98,24 @@ def band_conv_bwd_cuda(feat, masks, w, g, shifts: Sequence[int]):
     """The `band_conv_bwd` kernel (a dx pass over g's halo tiles, then a
     (split, relation) dW pass with its partials summed in split order); the
     same outputs as `band_conv_bwd_plain`."""
-    _check(feat, masks, w, shifts)
+    _check(feat, masks, w, shifts, "band_conv_bwd")
     if g.shape != feat.shape:
         raise ValueError(f"band_conv: g {tuple(g.shape)} is not feat's shape")
     g = g.to(feat.dtype).contiguous()
     masks = _mask_bytes(masks)
     w = cuda.param(w, w.dtype)
     code = cuda.check_cuda("band_conv", feat, masks, w, g)
-    n, j = feat.shape[0], len(shifts)
+    (n, c), j = feat.shape, len(shifts)
     splits = max(1, 2 * cuda.num_sms(feat.device) // max(j, 1))
     f32 = dict(dtype=torch.float32, device=feat.device)
     dx = torch.empty_like(feat)
-    part = torch.empty(splits * j * C * C, **f32)
-    dw = torch.empty(j, C, C, **f32)
+    part = torch.empty(splits * j * c * c, **f32)
+    dw = torch.empty(j, c, c, **f32)
     sh = _shift_array(shifts)
     cuda.call(
         "band_conv", "band_conv_bwd",
         cuda.ptr(feat), cuda.ptr(masks), cuda.ptr(w), cuda.ptr(g), cuda.ptr(dx), cuda.ptr(part),
-        cuda.ptr(dw), ctypes.c_int(n), ctypes.c_int(j), sh,
+        cuda.ptr(dw), ctypes.c_int(n), ctypes.c_int(c), ctypes.c_int(j), sh,
         ctypes.c_int(splits), ctypes.c_int(code), cuda.stream(),
     )
     return dx, dw
@@ -135,22 +143,22 @@ class _BandConv(torch.autograd.Function):
 
 
 def band_conv(feat, masks, w, shifts: Sequence[int]) -> torch.Tensor:
-    """Σ_j masks[j] · (feat shifted by s_j) @ w[j] → [N, C] in feat's dtype.
+    """Σ_j masks[j] · (feat shifted by s_j) @ w[j] → [N, W] in feat's dtype.
 
-    feat [N, 128] (float32 or bfloat16); masks [J, N] bool or 0/1 in feat's
-    dtype; w [J, 128, 128] in (in, out) layout, in feat's dtype; shifts: J
-    ints with |s| ≤ 32. CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    feat [N, W] (float32 or bfloat16; W = 128 or 64 on the card); masks
+    [J, N] bool or 0/1 in feat's dtype; w [J, W, W] in (in, out) layout, in
+    feat's dtype; shifts: J ints with |s| ≤ 32. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     if feat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"band_conv: unsupported device {feat.device}")
     return _BandConv.apply(feat.contiguous(), masks, w.contiguous(), tuple(shifts))
 
 
 def work(feat, masks) -> dict:
-    """Bytes the function must move and operations it does at these inputs:
-    feat read and out written once, the masks as they are given, the
-    weights once; one product per row each mask selects (the work depends
-    on the masks' data)."""
+    """Bytes the function must move and operations it does at these inputs,
+    at feat's width W: feat read and out written once, the masks as they
+    are given, the [W, W] weights once; one product (2·W² operations) per
+    row each mask selects (the work depends on the masks' data)."""
     n, c = feat.shape
     j, db = masks.shape[0], feat.element_size()
     band_rows = int((masks != 0).sum())
@@ -162,9 +170,9 @@ def work(feat, masks) -> dict:
 
 
 def work_bwd(feat, masks) -> dict:
-    """The backward's: feat and g read, dx written, the masks and the
-    weights read, dW written in fp32; two products (dx and dW) per masked
-    row."""
+    """The backward's, at feat's width W: feat and g read, dx written, the
+    masks and the [W, W] weights read, dW written in fp32; two products (dx
+    and dW, 2·W² operations each) per masked row."""
     n, c = feat.shape
     j, db = masks.shape[0], feat.element_size()
     band_rows = int((masks != 0).sum())

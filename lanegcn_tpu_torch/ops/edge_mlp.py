@@ -219,7 +219,9 @@ def _pool_prep(d, cg, kd, bd, k1, gchw, gchb, kout, *rows):
     them by cp.async)."""
     e, c = cg.shape
     din = d.shape[1] if d.dim() == 2 else 0
-    if (c != C or tuple(d.shape) != (e, din) or din not in (2, 4)
+    if c != C:
+        raise ValueError(f"edge_mlp_pool: the kernel takes rows {C} wide, not {c}")
+    if (tuple(d.shape) != (e, din) or din not in (2, 4)
             or tuple(kd.shape) != (din, c) or tuple(k1.shape) != (c, c)
             or tuple(kout.shape) != (c, c)
             or any(tuple(p.shape) != (c,) for p in (bd, gchw, gchb))):

@@ -14,9 +14,9 @@ the forward kernel writes it, bitwise its own value) and its backward is the
 same layer with the window plan's aggregate added into temp inside it, the
 counterpart of `fused_lane_layer_plan` there; see its section below.
 
-The layer's kernels, forward and backward, take rows W = 128 or 64 wide
-(`WIDTHS`: LaneGCN at n_map = 128, and the half-width model at 64);
-`lane_plan` takes 128. The plain versions take any width.
+The layer's kernels and `lane_plan`'s, forward and backward, take rows
+W = 128 or 64 wide (`WIDTHS`: LaneGCN at n_map = 128, and the half-width
+model at 64). The plain versions take any width.
 """
 
 from __future__ import annotations
@@ -29,11 +29,10 @@ import torch
 from lanegcn_tpu_torch.ops import cuda
 from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.norm import group_norm
-from lanegcn_tpu_torch.ops.row_tail import PART, part_size, tail_bwd_plain
+from lanegcn_tpu_torch.ops.row_tail import part_size, tail_bwd_plain
 from lanegcn_tpu_torch.ops.scenario_agg import (
     _CHUNK as _PLAN_CHUNK, _blocks, _per_relation, _prep_for, plan_edge_count, plan_edges)
 
-C = 128
 HALO = 32
 
 
@@ -105,14 +104,13 @@ def lane_layer_bwd_plain(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, g,
     return (dx.to(dt), d_temp.to(dt), dwb, dw2, *dgn)
 
 
-def _check(feat, pre, masks, wb, w2, gns, shifts, name="lane_layer", widths=WIDTHS):
+def _check(feat, pre, masks, wb, w2, gns, shifts, name="lane_layer"):
     """Shapes and dtypes kernel `name` takes: feat/pre [N, W] with W in
-    `widths` (the layer both ways 64 or 128; lane_plan 128), wb [J, W, W],
-    w2 [W, W], masks [J, N], the GN vectors [W]."""
+    `WIDTHS`, wb [J, W, W], w2 [W, W], masks [J, N], the GN vectors [W]."""
     n, c = feat.shape
     j = len(shifts)
-    if c not in widths:
-        raise ValueError(f"{name}: the kernel takes rows {' or '.join(map(str, widths))} "
+    if c not in WIDTHS:
+        raise ValueError(f"{name}: the kernel takes rows {' or '.join(map(str, WIDTHS))} "
                          f"wide, not {c}")
     if (pre.shape != feat.shape or tuple(wb.shape) != (j, c, c)
             or tuple(w2.shape) != (c, c) or tuple(masks.shape) != (j, n)
@@ -317,7 +315,7 @@ def work_bwd(feat, masks) -> dict:
 # On the card the kernels take the plan as `scenario_agg.prepare_plan`
 # prepares it (a `PlanPrep`, which a LaneConv stack makes once per call and
 # hands to every layer and its backward; the wrappers make one when given
-# none): the rounded messages go to a [slots, 128] workspace in the
+# none): the rounded messages go to a [slots, W] workspace in the
 # activation dtype at their destination (source) positions, and the layer
 # adds each row's run of positions in order (csrc/lane_plan.cu).
 
@@ -369,7 +367,7 @@ def lane_plan_bwd_plain(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu
     """The backward kernel's arithmetic, from the forward's fp32 temp:
     lane_layer_bwd_plain's, plus the plan's transpose into dx (fp32, one
     rounding) and dW_rel. Returns (dx, dpre) in feat's dtype, then fp32 dWb,
-    dW2, the four GN vector gradients and dW_rel [R, 128, 128]."""
+    dW2, the four GN vector gradients and dW_rel [R, W, W]."""
     dt = feat.dtype
     d_temp, dx, dwb, dw2, dgn = _band_bwd_plain(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b,
                                                 g, shifts, eps)
@@ -390,24 +388,24 @@ def _plan_fwd_cuda(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu, lv, 
                    shifts, groups, eps, prep=None, save_temp=False):
     """The forward kernel on the prepared plan (`prep`, or one prepared
     here); returns out, or (out, temp fp32) with save_temp."""
-    _check(feat, pre, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts, "lane_plan", (C,))
+    _check(feat, pre, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts, "lane_plan")
     _plan_check(feat, w_rel, lu, lv, rel, num_win)
-    n, r_num, slots = feat.shape[0], w_rel.shape[0], lu.shape[0]
+    (n, c), r_num, slots = feat.shape, w_rel.shape[0], lu.shape[0]
     prep = _prep_for(lu, lv, rel, num_win, n, groups, r_num, prep, False)
     masks = _mask_bytes(masks)
     gns = _gn_params(g1w, g1b, g2w, g2b)
     # The bf16 kernels copy feat rows and the weights by 16-byte cp.async.
     feat, wb, w2, w_rel = (cuda.param(t, t.dtype) for t in (feat, wb, w2, w_rel))
     code = cuda.check_cuda("lane_plan", feat, pre, masks, wb, w2, w_rel, *gns, *prep[:7])
-    ws = torch.empty(slots, C, dtype=feat.dtype, device=feat.device)
+    ws = torch.empty(slots, c, dtype=feat.dtype, device=feat.device)
     out = torch.empty_like(feat)
-    temp = torch.empty(n, C, dtype=torch.float32, device=feat.device) if save_temp else None
+    temp = torch.empty(n, c, dtype=torch.float32, device=feat.device) if save_temp else None
     cuda.call(
         "lane_plan", "lane_plan_fwd",
         cuda.ptr(feat), cuda.ptr(pre), cuda.ptr(masks), cuda.ptr(wb), cuda.ptr(w2),
         *(cuda.ptr(t) for t in gns), cuda.ptr(w_rel), cuda.ptr(prep.src), cuda.ptr(prep.tiles),
         cuda.ptr(prep.rel_tiles), cuda.ptr(prep.dpos), cuda.ptr(prep.dseg), cuda.ptr(ws),
-        cuda.ptr(out), cuda.ptr(temp), ctypes.c_int(n), ctypes.c_int(len(shifts)),
+        cuda.ptr(out), cuda.ptr(temp), ctypes.c_int(n), ctypes.c_int(c), ctypes.c_int(len(shifts)),
         _shift_array(shifts), ctypes.c_longlong(slots), ctypes.c_int(r_num),
         ctypes.c_int(_blocks(feat.device)), ctypes.c_float(eps), ctypes.c_int(code),
         cuda.stream(),
@@ -421,13 +419,13 @@ def lane_plan_bwd_cuda(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu,
     """The `lane_plan_bwd` kernel on the prepared plan (`prep` with its
     source order, or one prepared here); the same outputs as
     `lane_plan_bwd_plain`."""
-    _check(feat, feat, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts, "lane_plan_bwd", (C,))
+    _check(feat, feat, masks, wb, w2, (g1w, g1b, g2w, g2b), shifts, "lane_plan_bwd")
     _plan_check(feat, w_rel, lu, lv, rel, num_win)
-    n, slots = feat.shape[0], lu.shape[0]
+    (n, c), slots = feat.shape, lu.shape[0]
     j, r_num = len(shifts), w_rel.shape[0]
     if (temp.shape != feat.shape or temp.dtype != torch.float32
             or g.shape != feat.shape or g.dtype != feat.dtype):
-        raise ValueError("lane_plan: temp must be fp32 and g in feat's dtype, both [N, 128]")
+        raise ValueError(f"lane_plan: temp must be fp32 and g in feat's dtype, both [N, {c}]")
     prep = _prep_for(lu, lv, rel, num_win, n, groups, r_num, prep, True)
     masks = _mask_bytes(masks)
     gns = _gn_params(g1w, g1b, g2w, g2b)
@@ -438,29 +436,31 @@ def lane_plan_bwd_cuda(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, lu,
     splits = max(1, 2 * tail_blocks // max(j, 1))
     f32 = dict(dtype=torch.float32, device=dev)
     dx, dpre = torch.empty_like(feat), torch.empty_like(feat)
-    ws = torch.empty(slots, C, dtype=feat.dtype, device=dev)
-    # The fp32 workspaces (d_temp, d_y and the passes' partials) in one
-    # allocation, passed by address; the outputs in their own, so that a
-    # gradient kept after the call holds no workspace.
-    sizes = (n * C, n * C, tail_blocks * PART, splits * j * C * C, (blocks + r_num) * C * C)
+    ws = torch.empty(slots, c, dtype=feat.dtype, device=dev)
+    # The fp32 workspaces (d_temp, d_y and the passes' partials, all W
+    # wide) in one allocation, passed by address; the outputs in their own,
+    # so that a gradient kept after the call holds no workspace.
+    part = part_size(c)
+    sizes = (n * c, n * c, tail_blocks * part, splits * j * c * c, (blocks + r_num) * c * c)
     work = torch.empty(sum(sizes), **f32)
     offs = [sum(sizes[:i]) for i in range(len(sizes))]
     parts = [ctypes.c_void_p(work.data_ptr() + 4 * o) for o in offs]
-    grads = torch.empty(PART + (j + r_num) * C * C, **f32)
-    dw2, dgn, dwb, dwr = grads.split([C * C, 4 * C, j * C * C, r_num * C * C])
+    grads = torch.empty(part + (j + r_num) * c * c, **f32)
+    dw2, dgn, dwb, dwr = grads.split([c * c, 4 * c, j * c * c, r_num * c * c])
     cuda.call(
         "lane_plan", "lane_plan_bwd",
         cuda.ptr(feat), cuda.ptr(temp), cuda.ptr(masks), cuda.ptr(wb), cuda.ptr(w2),
         *(cuda.ptr(t) for t in gns), cuda.ptr(w_rel), cuda.ptr(prep.dst), cuda.ptr(prep.src),
         cuda.ptr(prep.tiles), cuda.ptr(prep.rel_tiles), cuda.ptr(prep.spos),
         cuda.ptr(prep.sseg), cuda.ptr(g), cuda.ptr(ws), cuda.ptr(dx), cuda.ptr(dpre), *parts,
-        cuda.ptr(grads), cuda.ptr(dwb), cuda.ptr(dwr), ctypes.c_int(n), ctypes.c_int(j),
+        cuda.ptr(grads), cuda.ptr(dwb), cuda.ptr(dwr), ctypes.c_int(n), ctypes.c_int(c),
+        ctypes.c_int(j),
         _shift_array(shifts), ctypes.c_longlong(slots), ctypes.c_int(r_num),
         ctypes.c_int(tail_blocks), ctypes.c_int(splits), ctypes.c_int(blocks),
         ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
     )
-    return (dx, dpre, dwb.view(j, C, C), dw2.view(C, C), *dgn.view(4, C).unbind(0),
-            dwr.view(r_num, C, C))
+    return (dx, dpre, dwb.view(j, c, c), dw2.view(c, c), *dgn.view(4, c).unbind(0),
+            dwr.view(r_num, c, c))
 
 
 class _LanePlan(torch.autograd.Function):
@@ -504,7 +504,7 @@ def fused_lane_layer_plan(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, l
                           eps: float = 1e-5, prep=None) -> torch.Tensor:
     """relu(GN2(relu(GN1(pre + band_conv(feat) + plan_agg(feat))) @ w2) + feat).
 
-    fused_lane_layer's arguments, plus w_rel [R, 128, 128] (in, out) in
+    fused_lane_layer's arguments, plus w_rel [R, W, W] (in, out) in
     feat's dtype and the window plan lu/lv/rel [num_win*ECAP, 1] int32 with
     its relation groups (None: one group). N = num_win * t with t % 128 ==
     0; ECAP % 512 == 0. prep: the plan's `scenario_agg.prepare_plan` (made
@@ -525,8 +525,8 @@ def fused_lane_layer_plan(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b, w_rel, l
 
 def work_plan(feat, masks, lu, rel, w_rel, num_win: int, groups=None) -> dict:
     """`work`'s bytes and operations plus the plan's: its indices and W_rel
-    read once, one [128, 128] product per applied edge (its source rows are
-    feat's, already counted)."""
+    read once, one [W, W] product (2·W² operations) per applied edge (its
+    source rows are feat's, already counted)."""
     w = work(feat, masks)
     edges = plan_edge_count(lu, rel, num_win, groups, w_rel.shape[0])
     c, db = feat.shape[1], feat.element_size()
@@ -538,7 +538,7 @@ def work_plan(feat, masks, lu, rel, w_rel, num_win: int, groups=None) -> dict:
 
 def work_plan_bwd(feat, masks, lu, rel, w_rel, num_win: int, groups=None) -> dict:
     """`work_bwd`'s plus the plan's: its indices and W_rel read, dW_rel
-    written, two [128, 128] products per applied edge (dfeat and dW_rel)."""
+    written, two [W, W] products per applied edge (dfeat and dW_rel)."""
     w = work_bwd(feat, masks)
     edges = plan_edge_count(lu, rel, num_win, groups, w_rel.shape[0])
     c, db = feat.shape[1], feat.element_size()

@@ -34,9 +34,6 @@ def part_size(c: int) -> int:
     return c * c + 4 * c
 
 
-PART = part_size(C)  # at 128, the width lane_plan's row pass shares
-
-
 def row_tail_plain(x, res, w, g1w, g1b, g2w, g2b, eps: float = 1e-5) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch: h rounded to x's dtype, fp32
     product and statistics, one rounding of the output."""

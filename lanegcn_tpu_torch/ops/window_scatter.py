@@ -66,7 +66,9 @@ def window_scatter_bwd_plain(g, lu, wchunk, stride: int) -> torch.Tensor:
 def _check(msg, temp, lu, wchunk, stride: int):
     e, c = msg.shape
     n = temp.shape[0]
-    if (c != 128 or temp.shape[1] != c or e % WCHUNK or stride <= 0 or n % stride
+    if c != 128:
+        raise ValueError(f"window_scatter: the kernel takes rows 128 wide, not {c}")
+    if (temp.shape[1] != c or e % WCHUNK or stride <= 0 or n % stride
             or tuple(lu.shape) != (e, 1) or tuple(wchunk.shape) != (e // WCHUNK,)):
         raise ValueError(f"window_scatter: bad shapes msg {msg.shape} temp {temp.shape} "
                          f"lu {lu.shape} wchunk {wchunk.shape} stride {stride}")

@@ -19,10 +19,10 @@ the CPU, and the kernel wrappers' width dispatch.
   tests/test_torch_model.py. The weights come from one numpy seed on the
   shapes of the JAX init (`jax.eval_shape`); one jit of the forward, no
   gradients.
-- The wrappers' checks, called directly: the four forwards and their
-  backwards take 64 and 128 and refuse 96; the other kernels (band_conv,
-  lane_plan and its backward, window_scatter, the K = 2 row tail,
-  LanePooling's edge MLP) refuse 64; each names its kernel and the width.
+- The wrappers' checks, called directly: the four forwards, band_conv and
+  lane_plan, and their backwards, take 64 and 128 and refuse 96; the other
+  kernels (window_scatter, the K = 2 row tail, LanePooling's edge MLP)
+  refuse 64; each names its kernel and the width.
 - `work()` at W = 64: W² products per masked band row and per row, per
   applied edge and per valid slot, three per valid pair-plan edge.
 """
@@ -256,7 +256,7 @@ def test_half_width_lanegcn_eval_matches_jax():
 
 def _dispatch(c):
     """{kernel: (its wrapper's check, the CUDA wrapper itself)} on c-wide
-    CPU tensors, for the four kernels that take 64 and 128 both ways
+    CPU tensors, for the six kernels that take 64 and 128 both ways
     (`64 and 128`) and the kernels that take 128 only. A wrapper refuses at
     its check, its first statement, before anything touches the card."""
     n, j, r_num, num_win, eps = 256, len(SHIFTS), 3, 2, 1e-5
@@ -294,14 +294,16 @@ def _dispatch(c):
             "win_edge_bwd": (
                 lambda: win_edge._check(x, x, x, x, x, (w,) * 3, (v,) * 5, pair, "win_edge_bwd"),
                 lambda: win_edge.win_edge_bwd_cuda(x, x, x, x, *chain, pair, x)),
-        },
-        "128 only": {
-            "lane_plan": (ll("lane_plan", (128,)), lambda: lane_layer._plan_fwd_cuda(
+            "lane_plan": (ll("lane_plan"), lambda: lane_layer._plan_fwd_cuda(
                 x, x, masks, wb, w, *gns, w_rel, *plan, num_win, SHIFTS, None, eps)),
-            "lane_plan_bwd": (ll("lane_plan_bwd", (128,)), lambda: lane_layer.lane_plan_bwd_cuda(
+            "lane_plan_bwd": (ll("lane_plan_bwd"), lambda: lane_layer.lane_plan_bwd_cuda(
                 x, x, masks, wb, w, *gns, w_rel, *plan, num_win, None, x, SHIFTS)),
             "band_conv": (lambda: band_conv._check(x, masks, wb, SHIFTS),
                           lambda: band_conv._fwd_cuda(x, masks, wb, SHIFTS)),
+            "band_conv_bwd": (lambda: band_conv._check(x, masks, wb, SHIFTS, "band_conv_bwd"),
+                              lambda: band_conv.band_conv_bwd_cuda(x, masks, wb, x, SHIFTS)),
+        },
+        "128 only": {
             "window_scatter": (
                 lambda: window_scatter._check(torch.zeros(wcs, c), x, torch.zeros(
                     wcs, 1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32), n),
@@ -320,7 +322,7 @@ def _dispatch(c):
 
 @pytest.mark.parametrize("width", [64, 96, 128])
 def test_width_dispatch(width):
-    """The checks of the four kernels that take 64 and 128 (forward and
+    """The checks of the six kernels that take 64 and 128 (forward and
     backward) take rows 64 and 128 wide and their wrappers refuse 96; the
     128-only kernels' checks take 128 and their wrappers refuse 64 (and
     96): a ValueError naming the kernel and the width, raised by the check

@@ -150,12 +150,24 @@ def test_plan_case_helpers_build_lane_plan_arguments():
     launcher take, the backward's temp the plain forward's fp32 temp, and
     the plain versions run on each (as chip_smoke.py's kernel check calls
     them)."""
+    _check_plan_case_helpers(C)
+
+
+def test_plan_case_helpers_build_lane_plan_arguments_at_64():
+    """The same on 64-wide rows, as the half-width merged geometry asks for
+    them (`plan_case_calls(..., width=64)`): the same plans, every row,
+    weight and GN vector 64 wide."""
+    _check_plan_case_helpers(64)
+
+
+def _check_plan_case_helpers(width):
     from lanegcn_tpu_torch.ops import lane_layer
 
     assert {-32, 32} <= set(cs.PLAN_SHIFTS)
-    plans, _, _ = cs.plan_case_calls(False, dev="cpu")
-    fwd, counts, empty = cs.plan_case_calls(False, layer=True, dev="cpu")
-    bwd, _, _ = cs.plan_case_calls(True, layer=True, dev="cpu")
+    c = width
+    plans, _, _ = cs.plan_case_calls(False, dev="cpu", width=c)
+    fwd, counts, empty = cs.plan_case_calls(False, layer=True, dev="cpu", width=c)
+    bwd, _, _ = cs.plan_case_calls(True, layer=True, dev="cpu", width=c)
     assert len(fwd) == len(bwd) == len(plans) == len(cs.PLAN_CASES) and set(counts.values()) == {0}
     assert {a[0].shape[0] // a[13] for a in fwd.values()} == {256, 512, 768, 1024}
     (_, plain_fwd), = cs.forward_ops(["lane_plan"]).values()
@@ -164,14 +176,15 @@ def test_plan_case_helpers_build_lane_plan_arguments():
         n, j = f[0].shape[0], len(cs.PLAN_SHIFTS)
         assert all(torch.equal(x, y) for x, y in zip(p[3:6], f[10:13]))
         assert f[13:] == [p[6], cs.PLAN_SHIFTS, p[7]] and f[2].shape == (j, n)
-        assert f[3].shape == (j, C, C) and f[4].shape == (C, C) and f[9].shape == (14, C, C)
+        assert f[0].shape == (n, c) and all(x.shape == (c,) for x in f[5:9])
+        assert f[3].shape == (j, c, c) and f[4].shape == (c, c) and f[9].shape == (14, c, c)
         assert b[14] == f[15] and b[16] == cs.PLAN_SHIFTS and b[1].dtype == torch.float32
         assert torch.equal(b[1], lane_layer._plan_temp_plain(f[0], f[1], f[2], f[3], f[14],
                                                              *f[9:14], f[15]))
         out = plain_fwd(*cs.cast_args(f, torch.float32))
         grads = plain_bwd(*cs.cast_args(b, torch.float32))
-        assert out.shape == (n, C) and bool(torch.isfinite(out).all())
-        assert len(grads) == 9 and grads[-1].shape == (14, C, C)
+        assert out.shape == (n, c) and bool(torch.isfinite(out).all())
+        assert len(grads) == 9 and grads[-1].shape == (14, c, c)
     assert empty in fwd
 
 
@@ -405,6 +418,10 @@ def test_relu_recorder_follows_a_train_step():
     ("scenario_agg", [(9, 64), (9, 64), (3, 64, 64)], 64),
     ("pair_agg", [(9, 64), (9, 64), (3, 64, 64)], 64),
     ("win_edge", [(9, 64), (9, 64), (5, 64)], 64),
+    ("band_conv", [(9, 64), (12, 9), (12, 64, 64)], 64),
+    ("band_conv_bwd", [(9, 64), (12, 9), (12, 64, 64), (9, 64)], 64),
+    ("lane_plan", [(9, 64), (9, 64), (12, 9), (12, 64, 64)], 64),
+    ("lane_plan_bwd", [(9, 128), (9, 128), (12, 9), (12, 128, 128)], 128),
 ])
 def test_call_width_reads_the_rows_argument(name, shapes, width):
     """call_width takes the width from the argument ROWS_ARG names (d's 2
