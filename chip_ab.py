@@ -40,9 +40,10 @@ width); the lane_layer forward and backward likewise (their C interfaces
 took the row width, as the scenario_agg, pair_agg and win_edge forwards'
 and then backwards' did, and then band_conv's and lane_plan's both ways);
 window_scatter and its backward on
-LaneRCNN's geometry (both pool scatters, r2g and g2r; the C interface is
-unchanged, so both builds run through this checkout's wrappers) in
-float32 as well as bfloat16 (`DTYPES`). Each call shape
+LaneRCNN's geometry (both pool scatters, r2g and g2r; their C interfaces
+took the row width, as row_tail2's and LanePooling's edge_mlp's both ways
+did: the other tree's through its own wrappers). window_scatter, row_tail
+and edge_mlp run in float32 as well as bfloat16 (`DTYPES`). Each call shape
 (A2M, M2A, A2A) of the forward and of the backward runs once per build (the
 largest difference between the two builds' outputs is printed, and
 whether they are bitwise equal;
@@ -87,7 +88,7 @@ TARGETS = {"win_edge": (("windowed", "win_edge"),),
            "row_tail": (("windowed", "row_tail"), ("lanercnn", "row_tail2")),
            "window_scatter": (("lanercnn", "window_scatter"),)}
 # Kernel libraries timed in float32 as well as bfloat16 (default: bf16 only).
-DTYPES = {"window_scatter": ("bfloat16", "float32")}
+DTYPES = {k: ("bfloat16", "float32") for k in ("window_scatter", "row_tail", "edge_mlp")}
 # Kernel libraries whose C interface changed: the other tree's calls go
 # through its own wrapper module (ops/<name>.py under that tree, loaded
 # beside this checkout's package, its `cuda.call`s landing on the other
@@ -103,9 +104,14 @@ OWN_WRAPPERS = {"scenario_agg": {"scenario_agg": ("scenario_aggregate", 8),
                              "pair_agg_bwd": ("pair_agg_bwd_cuda", 4)},
                 "row_tail": {"row_tail": ("fused_row_tail", 7),
                              "row_tail_bwd": ("row_tail_bwd_cuda", 8),
+                             "row_tail2": ("fused_row_tail2", 10),
                              "row_tail2_bwd": ("row_tail2_bwd_cuda", 11)},
                 "edge_mlp": {"edge_mlp": ("fused_edge_mlp", 12),
-                             "edge_mlp_bwd": ("edge_mlp_bwd_cuda", 14)},
+                             "edge_mlp_bwd": ("edge_mlp_bwd_cuda", 14),
+                             "edge_mlp_pool": ("fused_edge_mlp", 14),
+                             "edge_mlp_pool_bwd": ("edge_mlp_pool_bwd_cuda", 10)},
+                "window_scatter": {"window_scatter": ("window_scatter_add", 5),
+                                   "window_scatter_bwd": ("window_scatter_bwd_cuda", 4)},
                 "lane_layer": {"lane_layer": ("fused_lane_layer", 10),
                                "lane_layer_bwd": ("lane_layer_bwd_cuda", 12)},
                 "band_conv": {"band_conv": ("band_conv", 4),

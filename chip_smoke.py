@@ -59,6 +59,9 @@ Geometries (lanegcn_tpu_torch/config.py), driven in this order:
               (band_conv_tc_kernel<64>, band_t_tc_kernel<bf16, false, 64>,
               band_dw_tc_kernel<64>) then the row tail, in place of
               lane_layer (the unfused launches).
+  half_lanercnn  lanercnn at n_map = n_actor = 64: every LaneRCNN kernel at
+              W = 64 both ways, window_scatter, row_tail2 and
+              edge_mlp_pool among them (the lanercnn launches).
 
 Phases, one JSON line each (tagged with the geometry); any failure raises
 and exits non-zero:
@@ -199,13 +202,14 @@ and exits non-zero:
           (merge_plan_agg); unfused, the fused layer against the unfused
           one (pallas_bands).
   serve_rerun  (half) two bf16 eval forwards of one pack bitwise equal.
-  refused_train  (lanercnn) one bf16 train step of the same model with the
-          geometry's `refused` fields (n_map = n_actor = 64): it must
-          raise ValueError naming the first kernel it reaches that takes
-          128-wide rows only (`NARROW_REFUSED`: window_scatter,
-          edge_mlp_pool, row_tail2) and the width, that kernel's entries
-          never launched, no backward launched, no plain version of a
-          refusing kernel or plain backward run on the card.
+  refused_train  (half_lanercnn) one bf16 train step of the same model
+          with the geometry's `refused` fields (n_map = n_actor = 96, a
+          width no kernel takes): it must raise ValueError naming the
+          first width-checked kernel it reaches (`NARROW_REFUSED`:
+          scenario_agg, in LaneRoI's first LaneConv layer) and the width,
+          after no launch but the any-width segment sum's, that kernel's
+          entries never launched, no backward launched, no plain version
+          of the refusing kernel or plain backward run on the card.
 After the geometries, phases without a geometry:
   cli     python -m lanegcn_tpu_torch.cli as a user runs it (bf16, 2 pack
           workers, packs of 32): preprocess 128 urban scenarios to shards
@@ -271,7 +275,7 @@ After the geometries, phases without a geometry:
           both kinds, each rank's launches those of the single-device step;
           (c) `python -m torch.distributed.run --nproc-per-node 1 -m
           lanegcn_tpu_torch.cli train --mesh 1x1` (contiguous packs of 32,
-          bf16, 2 pack workers, 2 epochs of urban:96): a run beside a
+          bf16, 2 pack workers, 2 epochs of urban:64): a run beside a
           second one sent SIGTERM to its worker after its 2nd step line
           (both exit 0), then resumed: its 2.000.ckpt bitwise the first
           run's. Each run's step ms by host clock and device busy, its
@@ -298,7 +302,8 @@ it, with the launches of that geometry's serve or train run, and under
 row width a kernel was checked at, 128 and, for row_tail, row_tail_bwd,
 edge_mlp and edge_mlp_bwd (widths), lane_layer, scenario_agg, pair_agg,
 win_edge, row_tail and their backwards (half), lane_plan and lane_plan_bwd
-(half_merged), band_conv and band_conv_bwd (half_unfused), 64, with the
+(half_merged), band_conv and band_conv_bwd (half_unfused), window_scatter,
+row_tail2, edge_mlp_pool and their backwards (half_lanercnn), 64, with the
 geometry that checked it),
 the nvidia-smi name/power-limit line, and last the `ok` line with the
 device.
@@ -436,6 +441,8 @@ _RCNN_FWD = {"lane_layer_fwd": 12, "scenario_agg_fwd": 12, "window_scatter_fwd":
 _RCNN_STEP = {**_RCNN_FWD, "lane_layer_bwd": 12, "scenario_agg_bwd": 12,
               "window_scatter_bwd": 2, "edge_mlp_pool_bwd": 3, "row_tail2_bwd": 3,
               "segment_sum": 30}
+_RCNN_REMAT_STEP = {**_RCNN_STEP, "window_scatter_fwd": 4, "edge_mlp_pool_fwd": 6,
+                    "row_tail2_fwd": 6, "segment_sum": 31}
 GEOMETRIES = {
     "windowed": dict(model="lanegcn", config="windowed_pack_config", s=256,
                      kernels=("lane_layer", "scenario_agg", "win_edge", "row_tail"),
@@ -462,10 +469,7 @@ GEOMETRIES = {
                               "edge_mlp_pool"),
                      step_kernels=("segment_sum",),
                      per_forward=_RCNN_FWD, per_train_step=_RCNN_STEP,
-                     per_remat_step={**_RCNN_STEP, "window_scatter_fwd": 4,
-                                     "edge_mlp_pool_fwd": 6, "row_tail2_fwd": 6,
-                                     "segment_sum": 31},
-                     refused=dict(n_map=64, n_actor=64)),
+                     per_remat_step=_RCNN_REMAT_STEP),
     # The bench geometry with the window plan inside the LaneConv layer
     # kernel (merge_plan_agg="auto"); the `ab` phase profiles it beside the
     # separate kernels on the same packs and weights.
@@ -515,13 +519,24 @@ GEOMETRIES = {
                          kernels=("band_conv", "row_tail"), step_kernels=("segment_sum",),
                          per_forward=_UNFUSED_FWD, per_train_step=_UNFUSED_STEP,
                          ab=("pallas_bands", ("auto", "fused"), ("off", "unfused"))),
+    # The half-width LaneRCNN (n_map = n_actor = 64): every LaneRCNN kernel
+    # at W = 64, the lanercnn launches; a train step at 96 must refuse.
+    "half_lanercnn": dict(model="lanercnn", config="lanercnn_pack_config", s=256,
+                          model_fields=dict(n_map=64, n_actor=64),
+                          kernels=("lane_layer", "scenario_agg", "window_scatter", "row_tail2",
+                                   "edge_mlp_pool"),
+                          step_kernels=("segment_sum",),
+                          per_forward=_RCNN_FWD, per_train_step=_RCNN_STEP,
+                          per_remat_step=_RCNN_REMAT_STEP,
+                          refused=dict(n_map=96, n_actor=96)),
 }
-# The kernels that take 128-wide rows only and that the half-width LaneRCNN
-# reaches (the lanercnn geometry's `refused` fields), by their C entries: a
-# train step there must stop at the first of them.
-NARROW_REFUSED = {"window_scatter": ("window_scatter_fwd", "window_scatter_bwd"),
-                  "edge_mlp_pool": ("edge_mlp_pool_fwd", "edge_mlp_pool_bwd"),
-                  "row_tail2": ("row_tail2_fwd", "row_tail2_bwd")}
+# The first width-checked kernel a LaneRCNN train step reaches at a width
+# no kernel takes (the half_lanercnn geometry's `refused` fields), by its C
+# entries: the step must stop there. Only the segment sum, which takes any
+# width, launches before it (LaneInput's and the first LaneConv stack's
+# scatters).
+NARROW_REFUSED = {"scenario_agg": ("scenario_agg_fwd", "scenario_agg_bwd")}
+ANY_WIDTH = ("segment_sum",)
 
 
 def emit(obj) -> None:
@@ -1191,20 +1206,21 @@ def kernel_phase(phase, geom, ops, calls, counts):
     return summary
 
 
-# The argument that holds a call's rows, for the kernels that take more
-# than one row width (row_tail's x, Att's edge_mlp's cg, lane_layer's,
+# The argument that holds a call's rows, for every kernel (row_tail's and
+# row_tail2's x, Att's edge_mlp's and LanePooling's cg, lane_layer's,
 # scenario_agg's, pair_agg's, lane_plan's and band_conv's feat, win_edge's
-# Pd, both ways; segment_sum's data, any width); every other kernel takes
-# 128-wide rows only.
-ROWS_ARG = {"row_tail": 0, "row_tail_bwd": 0, "edge_mlp": 2, "edge_mlp_bwd": 2, "segment_sum": 0,
+# Pd, window_scatter's msg and g, both ways; segment_sum's data, any width).
+ROWS_ARG = {"edge_mlp": 2, "edge_mlp_bwd": 2, "edge_mlp_pool": 2, "edge_mlp_pool_bwd": 1,
+            "segment_sum": 0,
             **{k: 0 for name in ("lane_layer", "scenario_agg", "pair_agg", "win_edge",
-                                 "lane_plan", "band_conv")
+                                 "lane_plan", "band_conv", "row_tail", "row_tail2",
+                                 "window_scatter")
                for k in (name, name + "_bwd")}}
 
 
 def call_width(name, args):
     """The row width of a call of kernel `name`."""
-    return args[ROWS_ARG[name]].shape[1] if name in ROWS_ARG else 128
+    return args[ROWS_ARG[name]].shape[1]
 
 
 def by_width(by_call):
@@ -1252,10 +1268,12 @@ def work_of(name, a):
         "pair_agg_bwd": lambda: pair_agg.work_bwd(a[0], a[1], a[2]),
         "edge_mlp_bwd": lambda: edge_mlp.work_bwd(a[0], a[1], a[2], a[12]),
         "window_scatter": lambda: window_scatter.work(a[0], a[1], a[2], a[3], a[4]),
-        "row_tail2": lambda: row_tail.work2(a[0].shape[0], a[0].element_size()),
+        "row_tail2": lambda: row_tail.work2(a[0].shape[0], a[0].element_size(),
+                                            call_width(name, a)),
         "edge_mlp_pool": lambda: edge_mlp.work(a[0], a[1], a[2], a[12]),
         "window_scatter_bwd": lambda: window_scatter.work_bwd(a[0], a[1], a[2], a[3]),
-        "row_tail2_bwd": lambda: row_tail.work2_bwd(a[0].shape[0], a[0].element_size()),
+        "row_tail2_bwd": lambda: row_tail.work2_bwd(a[0].shape[0], a[0].element_size(),
+                                                    call_width(name, a)),
         "edge_mlp_pool_bwd": lambda: edge_mlp.work_pool_bwd(a[0], a[1], a[8]),
     }
     w = works[name]()
@@ -2220,11 +2238,11 @@ SCATTER_CASES = (
 )
 
 
-def scatter_case_calls(backward: bool, dev: str = "cuda"):
-    """{shapes: args} and {shapes: 0} of SCATTER_CASES, bf16 rows (kernel_phase
-    casts them to fp32 too), as window_scatter's forward op (msg, temp, lu,
-    wchunk, stride) or its backward launcher (g, lu, wchunk, stride) takes
-    them; and the key of the empty plan."""
+def scatter_case_calls(backward: bool, dev: str = "cuda", width: int = 128):
+    """{shapes: args} and {shapes: 0} of SCATTER_CASES, bf16 rows `width`
+    wide (kernel_phase casts them to fp32 too), as window_scatter's forward
+    op (msg, temp, lu, wchunk, stride) or its backward launcher (g, lu,
+    wchunk, stride) takes them; and the key of the empty plan."""
     import torch
     from lanegcn_tpu_torch.data.packing import window_chunked_edges
 
@@ -2236,7 +2254,7 @@ def scatter_case_calls(backward: bool, dev: str = "cuda"):
         check(dropped == 0, f"window_scatter case {name}: {dropped} edges dropped")
         lu = torch.as_tensor(es.win_lu, device=dev)
         wchunk = torch.as_tensor(es.win_chunk, device=dev)
-        rows = lambda k: torch.as_tensor(rng.normal(size=(k, 128)), dtype=torch.bfloat16,
+        rows = lambda k: torch.as_tensor(rng.normal(size=(k, width)), dtype=torch.bfloat16,
                                          device=dev)
         n = num_win * stride
         args = ([rows(n), lu, wchunk, stride] if backward
@@ -2373,13 +2391,14 @@ def step_kernel_phases(geom, cap):
         calls, counts, _ = plan_case_calls(backward=True, layer=True, width=width)
         cap.calls["lane_plan_bwd"].update(calls)
         cap.counts["lane_plan_bwd"].update(counts)
-    if geom == "lanercnn":
-        calls, counts, empty = scatter_case_calls(backward=True)
+    if spec["model"] == "lanercnn":
+        width = spec.get("model_fields", {}).get("n_map", 128)
+        calls, counts, empty = scatter_case_calls(backward=True, width=width)
         cap.calls["window_scatter_bwd"].update(calls)
         cap.counts["window_scatter_bwd"].update(counts)
         check_empty_scatter(calls[empty], backward=True)
-    edge = {"lanercnn": "edge_mlp_pool_bwd", "contiguous": "edge_mlp_bwd",
-            "widths": "edge_mlp_bwd"}.get(geom)
+    edge = {"lanercnn": "edge_mlp_pool_bwd", "half_lanercnn": "edge_mlp_pool_bwd",
+            "contiguous": "edge_mlp_bwd", "widths": "edge_mlp_bwd"}.get(geom)
     edge_pad = add_edge_cases(edge, cap) if edge else None
     results = kernel_phase("kernel_bwd", geom, backward_ops(spec["kernels"]), cap.calls,
                            cap.counts)
@@ -2580,13 +2599,13 @@ def serve_rerun_phase(geom, step, batch):
 
 def refused_train_phase(geom, cfg, batch):
     """A bf16 train step of the geometry's model with its `refused` fields
-    (LaneRCNN at n_map = n_actor = 64): the step must raise ValueError
-    naming the first kernel of NARROW_REFUSED it reaches (by its check: the
-    kernel takes 128-wide rows only) and the width, before any of that
-    kernel's entries launches (their counts stay 0) and before any backward
-    launches, with no plain version of a refusing kernel or plain backward
-    run in a kernel's place on the card (both watched). What launched
-    before it is printed."""
+    (LaneRCNN at n_map = n_actor = 96): the step must raise ValueError
+    naming the kernel of NARROW_REFUSED (by its check: the kernels take
+    rows 64 or 128 wide) and the width, before any of that kernel's entries
+    launches (their counts stay 0), with nothing launched but ANY_WIDTH's
+    entries, and with no plain version of the refusing kernel or plain
+    backward run in a kernel's place on the card (both watched). What
+    launched before it is printed."""
     import dataclasses
 
     import torch
@@ -2623,21 +2642,20 @@ def refused_train_phase(geom, cfg, batch):
           f"{geom}: the step's ValueError names no refusing kernel and width {width}: {err}")
     check(all(counts[e] == 0 for e in NARROW_REFUSED[named[0]]),
           f"{geom}: {named[0]} launched before it refused: {launched}")
-    check(not any(k.endswith("_bwd") for k in launched),
-          f"{geom}: a backward launched before the forward refused: {launched}")
+    check(set(launched) <= set(ANY_WIDTH),
+          f"{geom}: a kernel other than {ANY_WIDTH} launched before the refusal: {launched}")
     check(not plain_calls, f"{geom}: plain versions ran on the card: {plain_calls}")
 
 
 def plain_backward_watch(forward=False):
     """A Capture of every plain backward the autograd Functions can call
     (lane_plan's and band_conv's at W = 64 and 128 among them) and, with
-    `forward`, of the plain forwards of NARROW_REFUSED's kernels (none may
+    `forward`, of the plain forward of NARROW_REFUSED's kernel (it may not
     run on CUDA tensors)."""
     from lanegcn_tpu_torch.ops import band_conv, edge_mlp, lane_layer, pair_agg, row_tail
     from lanegcn_tpu_torch.ops import scenario_agg, win_edge, window_scatter
 
-    fwd = ((window_scatter, "window_scatter_plain"), (edge_mlp, "edge_mlp_plain"),
-           (row_tail, "row_tail2_plain")) if forward else ()
+    fwd = ((scenario_agg, "scenario_agg_plain"),) if forward else ()
     return Capture([(mod, attr, attr) for mod, attr in fwd + (
         (lane_layer, "lane_layer_bwd_plain"), (lane_layer, "lane_plan_bwd_plain"),
         (band_conv, "band_conv_bwd_plain"), (scenario_agg, "scenario_agg_bwd_plain"),
@@ -2698,7 +2716,7 @@ def drive_lanercnn(geom):
     torch.cuda.synchronize()
     add_tail_cases("row_tail2", cap)
     edge_pad = add_edge_cases("edge_mlp_pool", cap)
-    calls, counts, empty = scatter_case_calls(backward=False)
+    calls, counts, empty = scatter_case_calls(backward=False, width=cfg.model.n_map)
     cap.calls["window_scatter"].update(calls)
     cap.counts["window_scatter"].update(counts)
     check_empty_scatter(calls[empty], backward=False)
@@ -3614,7 +3632,7 @@ MESH_LOSS_RTOL = 1e-4
 # (c): LaneGCN on urban:MESH_CLI_N (generated in the loader), packs of
 # MESH_CLI_B on the contiguous geometry, MESH_CLI_EPOCHS epochs, SIGTERM to
 # the worker after MESH_CLI_PREEMPT_AT step lines.
-MESH_CLI_B, MESH_CLI_N, MESH_CLI_EPOCHS, MESH_CLI_PREEMPT_AT = 32, 96, 2, 2
+MESH_CLI_B, MESH_CLI_N, MESH_CLI_EPOCHS, MESH_CLI_PREEMPT_AT = 32, 64, 2, 2
 MESH_TIMEOUT = 600  # seconds for the ranks of (b), and for each CLI run
 # The phase's explicit part (--graph-parallel explicit, parallel/
 # graph_parallel.py), at full width on EX_B scenarios (the first EX_B of

@@ -1,7 +1,8 @@
 // Shared device helpers for the port's kernels (C = 128 channels).
 //
-// Some kernels also run at a narrower width W (64: Att's row tail and edge
-// chain on the actor side of a model with n_actor = 64). They keep every
+// Every kernel also runs at a narrower width W (64: the half-width
+// models, n_map = n_actor = 64, and Att's row tail and edge chain on the
+// actor side of a model with n_actor = 64). The kernels keep every
 // tile, weight and product at 128 columns, zero-padded: rows are read W
 // wide (columns ≥ W load as zero), W x W weights sit in the top-left of a
 // zeroed 128 x 128, GroupNorm statistics are taken over the first W
@@ -370,13 +371,15 @@ __device__ __forceinline__ void add_warp_vec(float* vec_s, int q, float4 v) {
   float4* p = reinterpret_cast<float4*>(vec_s + (warp * NV + q) * C + lane * 4);
   *p = add4(*p, v);
 }
-// out[q*C + c] = Σ over the warps, in warp order (as reduce_warp_vecs).
-template <int NV>
+// out[q*W + c] = Σ over the warps, in warp order (as reduce_warp_vecs), for
+// the columns c < W.
+template <int NV, int W = C>
 __device__ __forceinline__ void sum_warp_vecs(const float* vec_s, float* out) {
   __syncthreads();
-  for (int i = threadIdx.x; i < NV * C; i += NT) {
+  for (int i = threadIdx.x; i < NV * W; i += NT) {
+    const int at = W == C ? i : (i / W) * C + i % W;
     float s = 0.f;
-    for (int w = 0; w < NT / 32; ++w) s += vec_s[w * NV * C + i];
+    for (int w = 0; w < NT / 32; ++w) s += vec_s[w * NV * C + at];
     out[i] = s;
   }
 }

@@ -88,7 +88,11 @@
 // [E, 4W] and the weight gradients W x W. The wgmma products keep their
 // m64n128k16 shape with K cut to W, so half of N multiplies zero columns.
 // At W = 128 each kernel compiles to the code it was before the width
-// existed. LanePooling's configuration stays at 128.
+// existed. LanePooling's configuration (edge_mlp_pool_fwd / _bwd, below)
+// takes W = 64 the same way (LaneRCNN at n_map = 64): cg, out, g and dcg
+// rows, Wd's columns, bd and the GN affines W wide, K1 and Wout zero-padded,
+// the weight-gradient pass's second warpgroup idle (its input channels are
+// padding), the partials W x W and W.
 //
 // edge_mlp_pool_fwd (LaneRCNN's three LanePooling stages): per row,
 //
@@ -306,8 +310,9 @@ edge_mlp_bwd_kernel(const float* __restrict__ d, const T* __restrict__ qg,
 }
 
 // LanePooling's chain (no dist_out stage, no query): t1 from d [e, DIN],
-// s = t1 @ K1 + cg[e], out[e] = rnd(e1 @ Wout); fp32, the parity path.
-template <typename T, int DIN>
+// s = t1 @ K1 + cg[e], out[e] = rnd(e1 @ Wout); fp32, the parity path; rows
+// W wide.
+template <typename T, int DIN, int W>
 __global__ void __launch_bounds__(NT)
 edge_mlp_pool_kernel(const float* __restrict__ d, const T* __restrict__ cg,
                      const T* __restrict__ kd, const float* __restrict__ bd,
@@ -321,28 +326,35 @@ edge_mlp_pool_kernel(const float* __restrict__ d, const T* __restrict__ cg,
   const int lane = threadIdx.x & 31;
   float mm[4][8];
 
-  tile_t1<T, DIN>(A_s, d, kd, bd, row0, e);
-  chain_fwd<T, false>(A_s, W_s, Chain<T>{nullptr, nullptr, nullptr, k1, gchw, gchb, kout, eps},
-                      [&](int r, float4 s) {  // s += cg
-                        const long row = row0 + r;
-                        if (row < e) s = add4(s, load4<T>(cg + row * C + lane * 4));
-                        return s;
-                      },
-                      mm);  // e2 = e1 @ Wout
+  tile_t1<T, DIN, W>(A_s, d, kd, bd, row0, e);
+  chain_fwd<T, false, W>(A_s, W_s,
+                         Chain<T>{nullptr, nullptr, nullptr, k1, gchw, gchb, kout, eps},
+                         [&](int r, float4 s) {  // s += cg
+                           const long row = row0 + r;
+                           if (row < e && lane_in<W>())
+                             s = add4(s, load4<T>(cg + row * W + lane * 4));
+                           return s;
+                         },
+                         mm);  // e2 = e1 @ Wout
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const long row = row0 + mm_row(i);
     if (row < e) {
-      store4<T>(out + row * C + mm_col(0), make_float4(mm[i][0], mm[i][1], mm[i][2], mm[i][3]));
-      store4<T>(out + row * C + mm_col(4), make_float4(mm[i][4], mm[i][5], mm[i][6], mm[i][7]));
+      store4<T>(out + row * W + mm_col(0), make_float4(mm[i][0], mm[i][1], mm[i][2], mm[i][3]));
+      if (W == C)
+        store4<T>(out + row * W + mm_col(4),
+                  make_float4(mm[i][4], mm[i][5], mm[i][6], mm[i][7]));
     }
   }
 }
 
 // LanePooling's chain backwards in fp32 (see the header); part holds
-// blocks rows of [2*C*C + (3 + DIN)*C]: dK1, dWout (in, out), dbd, dgchw,
-// dgchb, dWd rows.
-template <typename T, int DIN>
+// blocks rows of pool_part<DIN, W>() = [2*W*W + (3 + DIN)*W]: dK1, dWout
+// (in, out), dbd, dgchw, dgchb, dWd rows.
+template <int DIN, int W = C>
+__host__ __device__ constexpr int pool_part() { return 2 * W * W + (3 + DIN) * W; }
+
+template <typename T, int DIN, int W>
 __global__ void __launch_bounds__(NT, 1)
 edge_mlp_pool_bwd_kernel(const float* __restrict__ d, const T* __restrict__ cg,
                          const T* __restrict__ g, const T* __restrict__ kd,
@@ -361,6 +373,7 @@ edge_mlp_pool_bwd_kernel(const float* __restrict__ d, const T* __restrict__ cg,
   float* vec_s = st_s + EB;                      // [NT/32][NV][C]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool in_w = lane_in<W>();  // the lane's columns lie in the row
   const float ones[4] = {1.f, 1.f, 1.f, 1.f};
   float accK1[8][8], accOut[8][8];
   zero_tn(accK1);
@@ -371,8 +384,8 @@ edge_mlp_pool_bwd_kernel(const float* __restrict__ d, const T* __restrict__ cg,
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long row0 = (long)tile * EB;
     __syncthreads();  // the previous tile is done with the tiles and W_s
-    tile_t1<T, DIN>(A_s, d, kd, bd, row0, e);  // A = t1 (0 past e)
-    load_weight<T>(W_s, k1);
+    tile_t1<T, DIN, W>(A_s, d, kd, bd, row0, e);  // A = t1 (0 past e and past W)
+    load_weight<T, W>(W_s, k1);
     __syncthreads();
     float acc[4][8];
     zero_acc(acc);
@@ -383,17 +396,17 @@ edge_mlp_pool_bwd_kernel(const float* __restrict__ d, const T* __restrict__ cg,
       const long row = row0 + r;
       float* pb = B_s + r * LDA + lane * 4;
       float4 sv = *reinterpret_cast<float4*>(pb);
-      if (row < e) sv = add4(sv, load4<T>(cg + row * C + lane * 4));
-      const float2 st = gn_stats(sv, eps);
+      if (row < e && in_w) sv = add4(sv, load4<T>(cg + row * W + lane * 4));
+      const float2 st = gn_stats<W>(sv, eps);
       const float4 nrm = gn_nrm(sv, st);
       *reinterpret_cast<float4*>(pb) = nrm;
       *reinterpret_cast<float4*>(C_s + r * LDA + lane * 4) =
-          rnd4<T>(relu4(gn_affine(nrm, gchw, gchb)));
+          rnd4<T>(relu4(gn_affine<W>(nrm, gchw, gchb)));
       *reinterpret_cast<float4*>(D_s + r * LDA + lane * 4) =
-          row < e ? load4<T>(g + row * C + lane * 4) : zero4();
+          row < e && in_w ? load4<T>(g + row * W + lane * 4) : zero4();
       if (lane == 0) st_s[r] = st.y;
     }
-    load_weight_t<T>(W_s, kout);
+    load_weight_t<T, W>(W_s, kout);
     __syncthreads();
     zero_acc(acc);
     mm_64x128(D_s, 0, ones, W_s, acc);  // d_e1 = g @ Woutᵀ
@@ -411,12 +424,12 @@ edge_mlp_pool_bwd_kernel(const float* __restrict__ d, const T* __restrict__ cg,
         const float4 dgn = pos_mask4(*pd, e1);
         add_warp_vec<NV>(vec_s, 1, mul4(dgn, nrm));
         add_warp_vec<NV>(vec_s, 2, dgn);
-        ds = rnd4<T>(gn_bwd_row(dgn, nrm, st_s[r], gchw));
-        store4<T>(dcg + row * C + lane * 4, ds);
+        ds = rnd4<T>(gn_bwd_row<W>(dgn, nrm, st_s[r], gchw));
+        if (in_w) store4<T>(dcg + row * W + lane * 4, ds);
       }
       *pd = ds;
     }
-    load_weight_t<T>(W_s, k1);
+    load_weight_t<T, W>(W_s, k1);
     __syncthreads();
     zero_acc(acc);
     mm_64x128(D_s, 0, ones, W_s, acc);  // d_t1 = rnd(d_s) @ K1ᵀ
@@ -437,17 +450,17 @@ edge_mlp_pool_bwd_kernel(const float* __restrict__ d, const T* __restrict__ cg,
         const float a = rnd<T>(d[row * DIN + k]);
         add_warp_vec<NV>(vec_s, 3 + k, make_float4(a * d1.x, a * d1.y, a * d1.z, a * d1.w));
         if (dd) {
-          const float4 kk = load4<T>(kd + k * C + lane * 4);
+          const float4 kk = in_w ? load4<T>(kd + k * W + lane * 4) : zero4();
           const float sk = warp_sum(d1.x * kk.x + d1.y * kk.y + d1.z * kk.z + d1.w * kk.w);
           if (lane == 0) dd[row * DIN + k] = sk;
         }
       }
     }
   }
-  float* P = part + (long)blockIdx.x * (2 * C * C + NV * C);
-  store_tn(P, accK1, false);
-  store_tn(P + C * C, accOut, false);
-  sum_warp_vecs<NV>(vec_s, P + 2 * C * C);
+  float* P = part + (long)blockIdx.x * pool_part<DIN, W>();
+  store_tn<W>(P, accK1, false);
+  store_tn<W>(P + W * W, accOut, false);
+  sum_warp_vecs<NV, W>(vec_s, P + 2 * W * W);
 }
 
 // --- the flat chains on tensor cores (bf16): LanePooling's, and Att's
@@ -512,19 +525,18 @@ __device__ __forceinline__ void load_chain_vecs(float* vec_s, const bf16* kd, co
   }
 }
 
-// The chain's weights into core tiles at W_b (chain_mats' order), landed
-// for the caller's barrier: LanePooling's by the first NT threads, Att's
-// by cp.async (edge_tc.cuh load_chain_weights).
+// The chain's weights into core tiles at W_b (chain_mats' order; [W x W]
+// weights zero-padded), landed for the caller's barrier: LanePooling's by
+// the first NT threads, Att's by cp.async (edge_tc.cuh load_chain_weights).
 template <bool ATT, int W = C>
 __device__ __forceinline__ void load_chain_mats(uint8_t* W_b, const bf16* kdo, const bf16* k1,
                                                 const bf16* kout, int threads) {
-  static_assert(ATT || W == C, "LanePooling's chain runs at 128 only");
   if constexpr (ATT) {
     load_chain_weights<W>(W_b, kdo, k1, kout, threads);
     cp_async_wait<0>();
   } else if (threadIdx.x < NT) {  // tc::load_tiles_128 strides by NT threads
-    tc::load_tiles_128(W_b, tc::tiles(W_b, C), k1);
-    tc::load_tiles_128(W_b + PWB, tc::tiles(W_b + PWB, C), kout);
+    tc::load_tiles_128<W>(W_b, tc::tiles(W_b, C), k1);
+    tc::load_tiles_128<W>(W_b + PWB, tc::tiles(W_b + PWB, C), kout);
   }
 }
 
@@ -690,7 +702,7 @@ __device__ __forceinline__ void fwd_tc(const float* d, const bf16* qg, const bf1
       e1_from_s<W>(acc, add_staged_q<W>(X_b, X, r0, qg, (long)tile * PT, e), gw_s, gb_s, eps,
                    inv, a);
     else
-      e1_from_s(acc, add_staged(X_b, X, r0), gw_s, gb_s, eps, inv, a);
+      e1_from_s<W>(acc, add_staged(X_b, X, r0), gw_s, gb_s, eps, inv, a);
     tc::zero(acc);  // out = e1 @ Wout, into cg's tile
     mm_frag<false, W>(acc, a, Wout);
 #pragma unroll
@@ -701,15 +713,15 @@ __device__ __forceinline__ void fwd_tc(const float* d, const bf16* qg, const bf1
   }
 }
 
-template <int DIN>
+template <int DIN, int W>
 __global__ void __launch_bounds__(PF_THREADS, 1)
 edge_mlp_pool_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ cg,
                         const bf16* __restrict__ kd, const float* __restrict__ bd,
                         const bf16* __restrict__ k1, const float* __restrict__ gchw,
                         const float* __restrict__ gchb, const bf16* __restrict__ kout,
                         bf16* __restrict__ out, int e, float eps) {
-  fwd_tc<DIN, false>(d, nullptr, cg, kd, bd, nullptr, nullptr, nullptr, k1, gchw, gchb, kout, out,
-                     e, eps);
+  fwd_tc<DIN, false, W>(d, nullptr, cg, kd, bd, nullptr, nullptr, nullptr, k1, gchw, gchb, kout,
+                        out, e, eps);
 }
 
 template <int W>
@@ -760,7 +772,7 @@ __device__ __forceinline__ void bwd_tc(const float* d, const bf16* qg, const bf1
   auto fetch = [&](int tile, int s) {  // one commit group: the tile's d, (cg,) g rows
     uint8_t* st = stage0 + s * STAGE;
     fetch_d<DIN>(reinterpret_cast<float*>(st), d, (long)tile * PT, PT, e, t, 128);
-    if constexpr (!ATT) fetch_rows(st + PD, cg, (long)tile * PT, PT, e, t, 128);
+    if constexpr (!ATT) fetch_rows<W>(st + PD, cg, (long)tile * PT, PT, e, t, 128);
     fetch_rows<W>(st + G_AT, g, (long)tile * PT, PT, e, t, 128);
     cp_async_commit();
   };
@@ -811,7 +823,7 @@ __device__ __forceinline__ void bwd_tc(const float* d, const bf16* qg, const bf1
       e1_from_s<W>(acc, add_cq<W>(ok, uu, uu, cg, qg), gw_s, gb_s, eps, inv, a);
       store_pairs<W>(act, 4 * W, row0, r0, ok, 2 * W, a);
     } else {  // s += cg
-      e1_from_s(acc, add_staged(X_b, X, r0), gw_s, gb_s, eps, inv, a);
+      e1_from_s<W>(acc, add_staged(X_b, X, r0), gw_s, gb_s, eps, inv, a);
     }
     // acc ← nrm_s, a ← e1; acc2 ← d_gn = d_e1 ⊙ [e1 > 0] (0 past e).
 #pragma unroll
@@ -892,7 +904,7 @@ __device__ __forceinline__ void bwd_tc(const float* d, const bf16* qg, const bf1
   }
 }
 
-template <int DIN>
+template <int DIN, int W>
 __global__ void __launch_bounds__(PW_THREADS, 1)
 edge_mlp_pool_bwd_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ cg,
                             const bf16* __restrict__ g, const bf16* __restrict__ kd,
@@ -901,8 +913,8 @@ edge_mlp_pool_bwd_tc_kernel(const float* __restrict__ d, const bf16* __restrict_
                             const bf16* __restrict__ kout, float* __restrict__ dd,
                             bf16* __restrict__ dcg, float* __restrict__ part_v, int e,
                             float eps) {
-  bwd_tc<DIN, false>(d, nullptr, cg, g, kd, bd, nullptr, nullptr, nullptr, k1, gchw, gchb, kout,
-                     dd, nullptr, dcg, nullptr, part_v, e, eps);
+  bwd_tc<DIN, false, W>(d, nullptr, cg, g, kd, bd, nullptr, nullptr, nullptr, k1, gchw, gchb,
+                        kout, dd, nullptr, dcg, nullptr, part_v, e, eps);
 }
 
 template <int W>
@@ -938,7 +950,10 @@ edge_mlp_dw_tc_kernel(const bf16* __restrict__ act, const bf16* __restrict__ dcg
 // three tiles in flight) or [d | B | cg] (y = 1: DW1_STAGES, what shared
 // memory holds beside K1); A is made in place by the block's threads: t1
 // from d, or e1 by the chain, each warpgroup on its 64 edges of the tile.
-// part: [splits][dK1, dWout].
+// part: [splits][dK1, dWout]. At width W (64: LanePooling at n_map = 64)
+// the rows are read W wide into the same tiles, zero past W, the second
+// warpgroup's input channels are padding (it makes its rows of A and skips
+// its products) and part is [splits][2][W][W].
 constexpr int DW0_STAGES = 4, DW1_STAGES = 2;
 constexpr int DW0_STAGE = 2 * PD + DTB, DW1_STAGE = 2 * PD + 2 * DTB;
 
@@ -949,7 +964,7 @@ constexpr int pool_dw_smem() {
                                                           : DW1_STAGES * DW1_STAGE);
 }
 
-template <int DIN>
+template <int DIN, int W>
 __global__ void __launch_bounds__(PW_THREADS, 1)
 edge_mlp_pool_dw_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ cg,
                            const bf16* __restrict__ g, const bf16* __restrict__ dcg,
@@ -964,8 +979,8 @@ edge_mlp_pool_dw_tc_kernel(const float* __restrict__ d, const bf16* __restrict__
   uint8_t* S_b = A_b + DTB;                                           // the ring
   const int y = blockIdx.y, wg = threadIdx.x >> 7;
   const tc::Tiles K1 = tc::tiles(W_b, C), A = tc::tiles(A_b, DT);
-  if (y == 1) tc::load_tiles_128(W_b, K1, k1);
-  load_chain_vecs<DIN, false>(vec_s, kd, bd, nullptr, nullptr, gchw, gchb, PW_THREADS);
+  if (y == 1) tc::load_tiles_128<W>(W_b, K1, k1);
+  load_chain_vecs<DIN, false, W>(vec_s, kd, bd, nullptr, nullptr, gchw, gchb, PW_THREADS);
   tc::fence_smem();
   __syncthreads();  // K1 (for wgmma) and the vectors in place
   const float *wd_s = vec_s, *bd_s = vec_s + DIN * C, *gw_s = bd_s + C, *gb_s = gw_s + C;
@@ -994,8 +1009,8 @@ edge_mlp_pool_dw_tc_kernel(const float* __restrict__ d, const bf16* __restrict__
       if (tile < ntiles) {
         const long row0 = (long)tile * DT;
         fetch_d<DIN>(reinterpret_cast<float*>(p), d, row0, DT, e, threadIdx.x, PW_THREADS);
-        fetch_rows(p + 2 * PD, y == 0 ? dcg : g, row0, DT, e, threadIdx.x, PW_THREADS);
-        if (y == 1) fetch_rows(p + 2 * PD + DTB, cg, row0, DT, e, threadIdx.x, PW_THREADS);
+        fetch_rows<W>(p + 2 * PD, y == 0 ? dcg : g, row0, DT, e, threadIdx.x, PW_THREADS);
+        if (y == 1) fetch_rows<W>(p + 2 * PD + DTB, cg, row0, DT, e, threadIdx.x, PW_THREADS);
       }
       cp_async_commit();
     };
@@ -1038,18 +1053,20 @@ edge_mlp_pool_dw_tc_kernel(const float* __restrict__ d, const bf16* __restrict__
         d_rows<DIN>(dr, D, rw);
         t1_frags<DIN>(dr, wd_s, bd_s, a);
         tc::zero(acc);
-        mm_frag(acc, a, K1);
-        e1_from_s(acc, add_staged(X_b, tc::tiles(X_b, DT), rw), gw_s, gb_s, eps, inv, a);
+        mm_frag<false, W>(acc, a, K1);
+        e1_from_s<W>(acc, add_staged(X_b, tc::tiles(X_b, DT), rw), gw_s, gb_s, eps, inv, a);
         put_pairs(A_b, A, rw, a);
       }
       tc::fence_smem();
       __syncthreads();  // A in place
-      tc::fence_acc(accw);
-      tc::fence();
-      tc::mm<DT / 16, false, false>(accw, A, 64 * wg, tc::tiles(p + 2 * PD, DT));
-      tc::commit();
-      tc::wait_all();
-      tc::fence_acc(accw);
+      if (W == C || 64 * wg < W) {  // at W = 64 the second warpgroup's channels are padding
+        tc::fence_acc(accw);
+        tc::fence();
+        tc::mm<DT / 16, false, false>(accw, A, 64 * wg, tc::tiles(p + 2 * PD, DT));
+        tc::commit();
+        tc::wait_all();
+        tc::fence_acc(accw);
+      }
     }
     cp_async_wait<0>();  // the empty groups past the last tile
   };
@@ -1058,11 +1075,13 @@ edge_mlp_pool_dw_tc_kernel(const float* __restrict__ d, const bf16* __restrict__
   else
     walk(std::integral_constant<int, DW1_STAGES>{}, DW1_STAGE);
 
-  float* P = part + ((long)blockIdx.x * 2 + y) * C * C;
+  float* P = part + ((long)blockIdx.x * 2 + y) * W * W;
+  if (W == C || 64 * wg < W) {
 #pragma unroll
-  for (int i = 0; i < 64; i += 2)
-    *reinterpret_cast<float2*>(P + (64 * wg + tc::acc_row(i)) * C + tc::acc_col(i)) =
-        make_float2(accw[i], accw[i + 1]);
+    for (int i = 0; i < W / 2; i += 2)
+      *reinterpret_cast<float2*>(P + (64 * wg + tc::acc_row(i)) * W + tc::acc_col(i)) =
+          make_float2(accw[i], accw[i + 1]);
+  }
 }
 
 template <typename T, int W>
@@ -1149,14 +1168,14 @@ int launch_bwd(const float* d, const void* qg, const void* cg, const void* g, co
   }
 }
 
-template <typename T, int DIN>
+template <typename T, int DIN, int W>
 int launch_pool(const float* d, const void* cg, const void* kd, const float* bd, const void* k1,
                 const float* gchw, const float* gchb, const void* kout, void* out, int e,
                 float eps, cudaStream_t stream) {
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
     const int smem = fwd_tc_smem<DIN, false>();
-    err = set_smem((const void*)edge_mlp_pool_tc_kernel<DIN>, smem);
+    err = set_smem((const void*)edge_mlp_pool_tc_kernel<DIN, W>, smem);
     if (err != cudaSuccess) return (int)err;
     int dev = 0, sms = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -1164,26 +1183,26 @@ int launch_pool(const float* d, const void* cg, const void* kd, const float* bd,
       return (int)cudaGetLastError();
     const int tiles = (e + PT - 1) / PT, blocks = min(sms, (tiles + PF_WGS - 1) / PF_WGS);
     if (blocks > 0)
-      edge_mlp_pool_tc_kernel<DIN><<<blocks, PF_THREADS, smem, stream>>>(
+      edge_mlp_pool_tc_kernel<DIN, W><<<blocks, PF_THREADS, smem, stream>>>(
           d, (const bf16*)cg, (const bf16*)kd, bd, (const bf16*)k1, gchw, gchb,
           (const bf16*)kout, (bf16*)out, e, eps);
   } else {
     const int smem = (EB * LDA + C * C) * (int)sizeof(float);
-    err = set_smem((const void*)edge_mlp_pool_kernel<T, DIN>, smem);
+    err = set_smem((const void*)edge_mlp_pool_kernel<T, DIN, W>, smem);
     if (err != cudaSuccess) return (int)err;
     const int tiles = (e + EB - 1) / EB;
     if (tiles > 0)
-      edge_mlp_pool_kernel<T, DIN><<<tiles, NT, smem, stream>>>(
+      edge_mlp_pool_kernel<T, DIN, W><<<tiles, NT, smem, stream>>>(
           d, (const T*)cg, (const T*)kd, bd, (const T*)k1, gchw, gchb, (const T*)kout, (T*)out,
           e, eps);
   }
   return (int)cudaGetLastError();
 }
 
-// part: [blocks][2*C*C + (3 + DIN)*C] floats. bf16: the dW pass's partials
+// part: [blocks][pool_part<DIN, W>()] floats. bf16: the dW pass's partials
 // [splits][dK1, dWout] from the start, the chain pass's vector sums
-// [chain blocks][(3 + DIN)*C] from blocks*2*C*C; fp32: one row per block.
-template <typename T, int DIN>
+// [chain blocks][(3 + DIN)*W] from blocks*2*W*W; fp32: one row per block.
+template <typename T, int DIN, int W>
 int launch_pool_bwd(const float* d, const void* cg, const void* g, const void* kd,
                     const float* bd, const void* k1, const float* gchw, const float* gchb,
                     const void* kout, float* dd, void* dcg, float* part, float* grads, int e,
@@ -1193,42 +1212,42 @@ int launch_pool_bwd(const float* d, const void* cg, const void* g, const void* k
   if constexpr (std::is_same<T, bf16>::value) {
     const int nb = min(blocks, ((e + PT - 1) / PT + PW_WGS - 1) / PW_WGS);
     const int splits = min(blocks, (e + DT - 1) / DT);
-    float* part_v = part + (long)blocks * 2 * C * C;
+    float* part_v = part + (long)blocks * 2 * W * W;
     if (nb > 0) {
       int smem = bwd_tc_smem<DIN, false>();
-      err = set_smem((const void*)edge_mlp_pool_bwd_tc_kernel<DIN>, smem);
+      err = set_smem((const void*)edge_mlp_pool_bwd_tc_kernel<DIN, W>, smem);
       if (err != cudaSuccess) return (int)err;
-      edge_mlp_pool_bwd_tc_kernel<DIN><<<nb, PW_THREADS, smem, stream>>>(
+      edge_mlp_pool_bwd_tc_kernel<DIN, W><<<nb, PW_THREADS, smem, stream>>>(
           d, (const bf16*)cg, (const bf16*)g, (const bf16*)kd, bd, (const bf16*)k1, gchw, gchb,
           (const bf16*)kout, dd, (bf16*)dcg, part_v, e, eps);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
       smem = pool_dw_smem<DIN>();
-      err = set_smem((const void*)edge_mlp_pool_dw_tc_kernel<DIN>, smem);
+      err = set_smem((const void*)edge_mlp_pool_dw_tc_kernel<DIN, W>, smem);
       if (err != cudaSuccess) return (int)err;
-      edge_mlp_pool_dw_tc_kernel<DIN><<<dim3(splits, 2), PW_THREADS, smem, stream>>>(
+      edge_mlp_pool_dw_tc_kernel<DIN, W><<<dim3(splits, 2), PW_THREADS, smem, stream>>>(
           d, (const bf16*)cg, (const bf16*)g, (const bf16*)dcg, (const bf16*)kd, bd,
           (const bf16*)k1, gchw, gchb, part, e, eps);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
-    err = reduce_partials(part, grads, splits, 2 * C * C, stream);
+    err = reduce_partials(part, grads, splits, 2 * W * W, stream);
     if (err != cudaSuccess) return (int)err;
-    return (int)reduce_partials(part_v, grads + 2 * C * C, nb, NV * C, stream);
+    return (int)reduce_partials(part_v, grads + 2 * W * W, nb, NV * W, stream);
   } else {
     const int smem = (4 * EB * LDA + C * C + EB + NT / 32 * NV * C) * (int)sizeof(float);
-    err = set_smem((const void*)edge_mlp_pool_bwd_kernel<T, DIN>, smem);
+    err = set_smem((const void*)edge_mlp_pool_bwd_kernel<T, DIN, W>, smem);
     if (err != cudaSuccess) return (int)err;
     const int tiles = (e + EB - 1) / EB;
     if (blocks > tiles) blocks = tiles;
     if (blocks > 0) {
-      edge_mlp_pool_bwd_kernel<T, DIN><<<blocks, NT, smem, stream>>>(
+      edge_mlp_pool_bwd_kernel<T, DIN, W><<<blocks, NT, smem, stream>>>(
           d, (const T*)cg, (const T*)g, (const T*)kd, bd, (const T*)k1, gchw, gchb,
           (const T*)kout, dd, (T*)dcg, part, e, eps);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
-    return (int)reduce_partials(part, grads, blocks, 2 * C * C + NV * C, stream);
+    return (int)reduce_partials(part, grads, blocks, pool_part<DIN, W>(), stream);
   }
 }
 
@@ -1251,25 +1270,24 @@ extern "C" int edge_mlp_fwd(const void* d, const void* qg, const void* cg, const
   });
 }
 
-// LanePooling's configuration (has_dist2 = has_query = false). dtype as
-// edge_mlp_fwd (cg, kd [din, C], k1, kout, out); d fp32 [e, din], din 2 or 4.
-// bf16: d, cg and out 16-byte aligned (cp.async and 16-byte row stores).
+// LanePooling's configuration (has_dist2 = has_query = false). dtype and
+// width as edge_mlp_fwd (cg, kd [din, W], k1, kout, out; cg and out [e, W],
+// bd and the GN vectors [W]); d fp32 [e, din], din 2 or 4. bf16: d, cg and
+// out 16-byte aligned (cp.async and 16-byte row stores).
 extern "C" int edge_mlp_pool_fwd(const void* d, const void* cg, const void* kd, const void* bd,
                                  const void* k1, const void* gchw, const void* gchb,
-                                 const void* kout, void* out, int e, int din, float eps,
-                                 int dtype, void* stream) {
+                                 const void* kout, void* out, int e, int width, int din,
+                                 float eps, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float *dp = (const float*)d, *b = (const float*)bd, *g2 = (const float*)gchw,
               *g3 = (const float*)gchb;
-  if (dtype == 0 && din == 2)
-    return launch_pool<float, 2>(dp, cg, kd, b, k1, g2, g3, kout, out, e, eps, st);
-  if (dtype == 0 && din == 4)
-    return launch_pool<float, 4>(dp, cg, kd, b, k1, g2, g3, kout, out, e, eps, st);
-  if (dtype == 1 && din == 2)
-    return launch_pool<bf16, 2>(dp, cg, kd, b, k1, g2, g3, kout, out, e, eps, st);
-  if (dtype == 1 && din == 4)
-    return launch_pool<bf16, 4>(dp, cg, kd, b, k1, g2, g3, kout, out, e, eps, st);
-  return (int)cudaErrorInvalidValue;
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    using T = typename decltype(Tc)::type;
+    constexpr int W = decltype(Wc)::value;
+    if (din == 2) return launch_pool<T, 2, W>(dp, cg, kd, b, k1, g2, g3, kout, out, e, eps, st);
+    if (din == 4) return launch_pool<T, 4, W>(dp, cg, kd, b, k1, g2, g3, kout, out, e, eps, st);
+    return (int)cudaErrorInvalidValue;
+  });
 }
 
 // Backward. g: the output cotangent [e, W] in the activation dtype (W =
@@ -1299,33 +1317,31 @@ extern "C" int edge_mlp_bwd(const void* d, const void* qg, const void* cg, const
   });
 }
 
-// LanePooling's backward. g: the output cotangent [e, 128] in the activation
-// dtype; dd fp32 [e, din], or null to skip it; dcg [e, 128] in the activation
-// dtype; part: fp32 [blocks, 2*C*C + (3 + din)*C], a workspace (see
-// launch_pool_bwd); grads: fp32 [2*C*C + (3 + din)*C] = dK1, dWout (in,
-// out), dbd, dgchw, dgchb, then the din rows of dWd, the partials' sums in
-// block (split) order. blocks: the card's SMs. bf16: d, cg, g and dcg
-// 16-byte aligned.
+// LanePooling's backward. g: the output cotangent [e, W] in the activation
+// dtype (W = width, 128 or 64); dd fp32 [e, din], or null to skip it; dcg
+// [e, W] in the activation dtype; part: fp32 [blocks, 2*W*W + (3 + din)*W],
+// a workspace (see launch_pool_bwd); grads: fp32 [2*W*W + (3 + din)*W] =
+// dK1, dWout (in, out), dbd, dgchw, dgchb, then the din rows of dWd, the
+// partials' sums in block (split) order. blocks: the card's SMs. bf16: d,
+// cg, g and dcg 16-byte aligned.
 extern "C" int edge_mlp_pool_bwd(const void* d, const void* cg, const void* g, const void* kd,
                                  const void* bd, const void* k1, const void* gchw,
                                  const void* gchb, const void* kout, void* dd, void* dcg,
-                                 void* part, void* grads, int e, int din, int blocks, float eps,
-                                 int dtype, void* stream) {
+                                 void* part, void* grads, int e, int width, int din, int blocks,
+                                 float eps, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float *dp = (const float*)d, *b = (const float*)bd, *g2 = (const float*)gchw,
               *g3 = (const float*)gchb;
   float *ddp = (float*)dd, *pt = (float*)part, *gr = (float*)grads;
-  if (dtype == 0 && din == 2)
-    return launch_pool_bwd<float, 2>(dp, cg, g, kd, b, k1, g2, g3, kout, ddp, dcg, pt, gr, e,
-                                     blocks, eps, st);
-  if (dtype == 0 && din == 4)
-    return launch_pool_bwd<float, 4>(dp, cg, g, kd, b, k1, g2, g3, kout, ddp, dcg, pt, gr, e,
-                                     blocks, eps, st);
-  if (dtype == 1 && din == 2)
-    return launch_pool_bwd<bf16, 2>(dp, cg, g, kd, b, k1, g2, g3, kout, ddp, dcg, pt, gr, e,
-                                    blocks, eps, st);
-  if (dtype == 1 && din == 4)
-    return launch_pool_bwd<bf16, 4>(dp, cg, g, kd, b, k1, g2, g3, kout, ddp, dcg, pt, gr, e,
-                                    blocks, eps, st);
-  return (int)cudaErrorInvalidValue;
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    using T = typename decltype(Tc)::type;
+    constexpr int W = decltype(Wc)::value;
+    if (din == 2)
+      return launch_pool_bwd<T, 2, W>(dp, cg, g, kd, b, k1, g2, g3, kout, ddp, dcg, pt, gr, e,
+                                      blocks, eps, st);
+    if (din == 4)
+      return launch_pool_bwd<T, 4, W>(dp, cg, g, kd, b, k1, g2, g3, kout, ddp, dcg, pt, gr, e,
+                                      blocks, eps, st);
+    return (int)cudaErrorInvalidValue;
+  });
 }

@@ -28,15 +28,18 @@
 // to x's dtype before their products, fp32 statistics, one rounding of the
 // output.
 //
-// Width: K = 1, forward and backward, also runs on W = 64-wide rows (Att's
-// tail where n_agt = 64, the actor side of a model with n_actor = 64),
-// every kernel above templated on W. The padded route (common.cuh): rows
+// Width: K = 1 and K = 2, forward and backward, also run on W = 64-wide
+// rows (Att's tail where n_agt = 64, the actor side of a model with
+// n_actor = 64; LanePooling's tail where n_map = 64), every kernel here
+// templated on W. The padded route (common.cuh): rows
 // read W wide into the same 128-column tiles with zeros past W, W x W
 // weights zero-padded to 128 x 128 in shared memory, GN statistics over W
 // columns, the GN affines zero past W, only W columns stored, dW and the
 // GN vector gradients W x W and W. The bf16 products keep the m64n128k16
-// shape with K cut to W (half of N multiplies zero columns). At W = 128
-// every kernel compiles to the code it was before the width existed.
+// shape with K cut to W (half of N multiplies zero columns); K = 2's
+// weight-gradient pass skips the second warpgroup's products at 64 (its
+// input channels are padding), and its d_t workspace is [2, N, W]. At W =
+// 128 every kernel compiles to the code it was before the width existed.
 //
 // Backward (`row_tail_bwd`): replaces pallas_row_tail.py `_bwd_kernel` /
 // `_bwd_impl`. It recomputes the chain per row (nothing but the inputs is
@@ -158,7 +161,7 @@ row_tail_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __r
 
 // K = 2 (LanePooling's tail): the same block and tile, with the second
 // product's weight loaded over the first's once the first product is done.
-template <typename T>
+template <typename T, int W>
 __global__ void __launch_bounds__(NT)
 row_tail2_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __restrict__ w1,
                  const T* __restrict__ w2, const float* __restrict__ gn, T* __restrict__ out,
@@ -172,12 +175,12 @@ row_tail2_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __
     const int r = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
     const long g = row0 + r;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (g < n) v = load4<T>(x + g * C + c4);
+    if (g < n && (W == C || c4 < W)) v = load4<T>(x + g * W + c4);
     *reinterpret_cast<float4*>(X_s + r * LDA + c4) = v;
   }
-  load_weight<T>(W_s, w1);
+  load_weight<T, W>(W_s, w1);
   __syncthreads();
-  gn_relu_rows<T>(X_s, TM, gn, gn + C, eps);  // h1 = relu(GN1(x)), rounded to T
+  gn_relu_rows<T, W>(X_s, TM, gn, gn + W, eps);  // h1 = relu(GN1(x)), rounded to T
   __syncthreads();
 
   float acc[4][8];
@@ -186,9 +189,9 @@ row_tail2_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __
   mm_64x128(X_s, 0, ones, W_s, acc);  // t1 = h1 @ W1
   __syncthreads();
   store_acc(X_s, acc);
-  load_weight<T>(W_s, w2);
+  load_weight<T, W>(W_s, w2);
   __syncthreads();
-  gn_relu_rows<T>(X_s, TM, gn + 2 * C, gn + 3 * C, eps);  // h2 = relu(GN2(t1)), rounded
+  gn_relu_rows<T, W>(X_s, TM, gn + 2 * W, gn + 3 * W, eps);  // h2 = relu(GN2(t1)), rounded
   __syncthreads();
   zero_acc(acc);
   mm_64x128(X_s, 0, ones, W_s, acc);  // t2 = h2 @ W2
@@ -201,9 +204,10 @@ row_tail2_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __
     const long g = row0 + r;
     if (g >= n) break;
     const float4 t = *reinterpret_cast<const float4*>(X_s + r * LDA + lane * 4);
-    const float4 y = gn_row(t, gn + 4 * C, gn + 5 * C, eps);
-    const float4 rv = load4<T>(res + g * C + lane * 4);
-    store4<T>(out + g * C + lane * 4, relu4(add4(y, rv)));
+    const float4 y = gn_row<W>(t, gn + 4 * W, gn + 5 * W, eps);
+    if (!lane_in<W>()) continue;
+    const float4 rv = load4<T>(res + g * W + lane * 4);
+    store4<T>(out + g * W + lane * 4, relu4(add4(y, rv)));
   }
 }
 
@@ -242,9 +246,8 @@ row_tail_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
   bf16* S_s = reinterpret_cast<bf16*>(gn_s + (2 * K + 2) * C);          // [RT_WGS][2][x, res]
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
 
-  static_assert(K == 1 || W == C, "the K = 2 tail runs at 128 only");
   tc::load_tiles_128<W>(W_b, tc::tiles(W_b, C), w1);
-  if (K == 2) tc::load_tiles_128(W_b + tc::tiles_bytes(C), tc::tiles(W_b, C), w2);
+  if (K == 2) tc::load_tiles_128<W>(W_b + tc::tiles_bytes(C), tc::tiles(W_b, C), w2);
   for (int i = threadIdx.x; i < (2 * K + 2) * C; i += RT_THREADS)
     gn_s[i] = W == C || i % C < W ? vecs.v[i / C][i % C] : 0.f;
   tc::fence_smem();
@@ -337,21 +340,20 @@ int launch_tc(const void* x, const void* res, const void* w1, const void* w2,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int W>
 int launch2(const void* x, const void* res, const void* w1, const void* w2, const float* gn,
             void* out, int n, float eps, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    const TailVecs vecs{{gn, gn + C, gn + 2 * C, gn + 3 * C, gn + 4 * C, gn + 5 * C}};
-    return launch_tc<2>(x, res, w1, w2, vecs, out, n, eps, stream);
+    const TailVecs vecs{{gn, gn + W, gn + 2 * W, gn + 3 * W, gn + 4 * W, gn + 5 * W}};
+    return launch_tc<2, W>(x, res, w1, w2, vecs, out, n, eps, stream);
   } else {
     const int smem = (TM * LDA + C * C) * (int)sizeof(float);
-    cudaError_t err = set_smem((const void*)row_tail2_kernel<T>, smem);
+    cudaError_t err = set_smem((const void*)row_tail2_kernel<T, W>, smem);
     if (err != cudaSuccess) return (int)err;
     const int blocks = (n + TM - 1) / TM;
     if (blocks > 0)
-      row_tail2_kernel<T><<<blocks, NT, smem, stream>>>((const T*)x, (const T*)res,
-                                                        (const T*)w1, (const T*)w2, gn, (T*)out,
-                                                        n, eps);
+      row_tail2_kernel<T, W><<<blocks, NT, smem, stream>>>(
+          (const T*)x, (const T*)res, (const T*)w1, (const T*)w2, gn, (T*)out, n, eps);
     return (int)cudaGetLastError();
   }
 }
@@ -375,13 +377,16 @@ int launch(const void* x, const void* res, const void* w, const float* g1w, cons
   }
 }
 
-constexpr int TAIL2_PART = 2 * C * C + 6 * C;  // dW1, dW2, dg1w, dg1b, dg2w, dg2b, dg3w, dg3b
+// A block's K = 2 backward partial at width W: dW1, dW2, dg1w, dg1b, dg2w,
+// dg2b, dg3w, dg3b.
+template <int W = C>
+__host__ __device__ constexpr int tail2_part() { return 2 * W * W + 6 * W; }
 
 inline int tail2_bwd_smem() {
   return (4 * TM * LDA + C * C + 2 * TM + NT / 32 * 6 * C) * (int)sizeof(float);
 }
 
-template <typename T>
+template <typename T, int W>
 __global__ void __launch_bounds__(NT, 1)
 row_tail2_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __restrict__ g,
                      const T* __restrict__ w1, const T* __restrict__ w2,
@@ -395,10 +400,11 @@ row_tail2_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res, const T
   float* W_s = D_s + TM * LDA;                   // [C][C] W1, W2, W2ᵀ, W1ᵀ in turn
   float* st_s = W_s + C * C;                     // [TM][2] GN1 mean, inv
   float* vec_s = st_s + 2 * TM;                  // [NT/32][6][C] GN vector sums
-  const float *g1w = gn, *g1b = gn + C, *g2w = gn + 2 * C, *g2b = gn + 3 * C,
-              *g3w = gn + 4 * C, *g3b = gn + 5 * C;
+  const float *g1w = gn, *g1b = gn + W, *g2w = gn + 2 * W, *g2b = gn + 3 * W,
+              *g3w = gn + 4 * W, *g3b = gn + 5 * W;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool in_w = lane_in<W>();  // the lane's columns lie in the row
   float accW1[8][8], accW2[8][8];
   zero_tn(accW1);
   zero_tn(accW2);
@@ -412,15 +418,16 @@ row_tail2_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res, const T
     for (int idx = threadIdx.x; idx < TM * (C / 4); idx += NT) {
       const int r = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
       const long gr = row0 + r;
-      *reinterpret_cast<float4*>(A_s + r * LDA + c4) = gr < n ? load4<T>(x + gr * C + c4) : zero4();
+      *reinterpret_cast<float4*>(A_s + r * LDA + c4) =
+          gr < n && (W == C || c4 < W) ? load4<T>(x + gr * W + c4) : zero4();
     }
-    load_weight<T>(W_s, w1);
+    load_weight<T, W>(W_s, w1);
     __syncthreads();
     // h1 = rnd(relu(GN1(x))) in place; rows past n hold 0.
     for (int r = warp; r < TM; r += NT / 32) {
       float4* p = reinterpret_cast<float4*>(A_s + r * LDA + lane * 4);
-      const float2 st = gn_stats(*p, eps);
-      const float4 h = rnd4<T>(relu4(gn_affine(gn_nrm(*p, st), g1w, g1b)));
+      const float2 st = gn_stats<W>(*p, eps);
+      const float4 h = rnd4<T>(relu4(gn_affine<W>(gn_nrm(*p, st), g1w, g1b)));
       *p = (row0 + r < n) ? h : zero4();
       if (lane == 0) {
         st_s[2 * r] = st.x;
@@ -436,10 +443,10 @@ row_tail2_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res, const T
     // h2 = rnd(relu(GN2(t1))); rows past n hold 0.
     for (int r = warp; r < TM; r += NT / 32) {
       const float4 t1 = *reinterpret_cast<const float4*>(B_s + r * LDA + lane * 4);
-      const float4 h = rnd4<T>(relu4(gn_row(t1, g2w, g2b, eps)));
+      const float4 h = rnd4<T>(relu4(gn_row<W>(t1, g2w, g2b, eps)));
       *reinterpret_cast<float4*>(C_s + r * LDA + lane * 4) = (row0 + r < n) ? h : zero4();
     }
-    load_weight<T>(W_s, w2);
+    load_weight<T, W>(W_s, w2);
     __syncthreads();
     zero_acc(acc);
     mm_64x128(C_s, 0, ones, W_s, acc);  // t2 = h2 @ W2
@@ -451,19 +458,19 @@ row_tail2_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res, const T
       const long gr = row0 + r;
       float4 dt = zero4();
       if (gr < n) {
-        const float2 st = gn_stats(*p, eps);
+        const float2 st = gn_stats<W>(*p, eps);
         const float4 nrm = gn_nrm(*p, st);
-        const float4 y = gn_affine(nrm, g3w, g3b);
-        const float4 rv = load4<T>(res + gr * C + lane * 4);
-        const float4 d_y = pos_mask4(load4<T>(g + gr * C + lane * 4), add4(y, rv));
+        const float4 y = gn_affine<W>(nrm, g3w, g3b);
+        const float4 rv = in_w ? load4<T>(res + gr * W + lane * 4) : zero4();
+        const float4 d_y = pos_mask4(in_w ? load4<T>(g + gr * W + lane * 4) : zero4(), add4(y, rv));
         add_warp_vec<6>(vec_s, 4, mul4(d_y, nrm));
         add_warp_vec<6>(vec_s, 5, d_y);
-        dt = rnd4<T>(gn_bwd_row(d_y, nrm, st.y, g3w));
-        store4<T>(dres + gr * C + lane * 4, d_y);
+        dt = rnd4<T>(gn_bwd_row<W>(d_y, nrm, st.y, g3w));
+        if (in_w) store4<T>(dres + gr * W + lane * 4, d_y);
       }
       *p = dt;
     }
-    load_weight_t<T>(W_s, w2);
+    load_weight_t<T, W>(W_s, w2);
     __syncthreads();
     zero_acc(acc);
     mm_64x128(D_s, 0, ones, W_s, acc);  // rnd(d_t2) @ W2ᵀ
@@ -476,17 +483,17 @@ row_tail2_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res, const T
       float4* p = reinterpret_cast<float4*>(B_s + r * LDA + lane * 4);
       float4 dt = zero4();
       if (row0 + r < n) {
-        const float2 st = gn_stats(*p, eps);
+        const float2 st = gn_stats<W>(*p, eps);
         const float4 nrm = gn_nrm(*p, st);
         const float4 d_h = pos_mask4(*reinterpret_cast<const float4*>(D_s + r * LDA + lane * 4),
-                                     gn_affine(nrm, g2w, g2b));
+                                     gn_affine<W>(nrm, g2w, g2b));
         add_warp_vec<6>(vec_s, 2, mul4(d_h, nrm));
         add_warp_vec<6>(vec_s, 3, d_h);
-        dt = rnd4<T>(gn_bwd_row(d_h, nrm, st.y, g2w));
+        dt = rnd4<T>(gn_bwd_row<W>(d_h, nrm, st.y, g2w));
       }
       *p = dt;
     }
-    load_weight_t<T>(W_s, w1);
+    load_weight_t<T, W>(W_s, w1);
     __syncthreads();
     zero_acc(acc);
     mm_64x128(B_s, 0, ones, W_s, acc);  // rnd(d_t1) @ W1ᵀ
@@ -499,18 +506,19 @@ row_tail2_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res, const T
       const long gr = row0 + r;
       if (gr >= n) break;
       const float2 st = make_float2(st_s[2 * r], st_s[2 * r + 1]);
-      const float4 nrm = gn_nrm(load4<T>(x + gr * C + lane * 4), st);
+      const float4 nrm = gn_nrm(in_w ? load4<T>(x + gr * W + lane * 4) : zero4(), st);
       const float4 d_h = pos_mask4(*reinterpret_cast<const float4*>(B_s + r * LDA + lane * 4),
-                                   gn_affine(nrm, g1w, g1b));
+                                   gn_affine<W>(nrm, g1w, g1b));
       add_warp_vec<6>(vec_s, 0, mul4(d_h, nrm));
       add_warp_vec<6>(vec_s, 1, d_h);
-      store4<T>(dx + gr * C + lane * 4, gn_bwd_row(d_h, nrm, st.y, g1w));
+      const float4 d_x = gn_bwd_row<W>(d_h, nrm, st.y, g1w);
+      if (in_w) store4<T>(dx + gr * W + lane * 4, d_x);
     }
   }
-  float* P = part + (long)blockIdx.x * TAIL2_PART;
-  store_tn(P, accW1, false);
-  store_tn(P + C * C, accW2, false);
-  sum_warp_vecs<6>(vec_s, P + 2 * C * C);
+  float* P = part + (long)blockIdx.x * tail2_part<W>();
+  store_tn<W>(P, accW1, false);
+  store_tn<W>(P + W * W, accW2, false);
+  sum_warp_vecs<6, W>(vec_s, P + 2 * W * W);
 }
 
 // The bf16 backward on tensor cores, two passes (see the header). The
@@ -536,9 +544,10 @@ constexpr int tail2_dw_tc_smem() {
 
 // v ← (v − μ)·inv per row, the single-group GN's normalised rows (inv: the
 // rows' 1/sqrt(var + eps)).
+template <int W = C>
 __device__ __forceinline__ void gn_normalise(float (&v)[64], float eps, float (&inv)[2]) {
   float mu[2];
-  tc::acc_row_stats(v, eps, mu, inv);
+  tc::acc_row_stats<W>(v, eps, mu, inv);
 #pragma unroll
   for (int i = 0; i < 64; ++i) v[i] = (v[i] - mu[tc::acc_half(i)]) * inv[tc::acc_half(i)];
 }
@@ -555,17 +564,19 @@ __device__ __forceinline__ void relu_mask(float (&d)[64], const float (&nrm)[64]
 }
 
 // bf16 pairs in the accumulator layout to the thread's rows r0, r0 + 8 of
-// dst [n, C] that lie below n.
+// dst [n, W] that lie below n (the columns below W).
+template <int W = C>
 __device__ __forceinline__ void store_pairs(bf16* dst, long row0, int r0, const bool (&ok)[2],
                                             const uint32_t (&a)[32]) {
 #pragma unroll
-  for (int i = 0; i < 64; i += 2) {
+  for (int i = 0; i < W / 2; i += 2) {
     const int h = tc::acc_half(i);
     if (ok[h])
-      *reinterpret_cast<uint32_t*>(dst + (row0 + r0 + 8 * h) * C + tc::acc_col(i)) = a[i / 2];
+      *reinterpret_cast<uint32_t*>(dst + (row0 + r0 + 8 * h) * W + tc::acc_col(i)) = a[i / 2];
   }
 }
 
+template <int W>
 __global__ void __launch_bounds__(RT_THREADS, 1)
 row_tail2_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
                         const bf16* __restrict__ g, const bf16* __restrict__ w1,
@@ -578,26 +589,27 @@ row_tail2_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res
   uint8_t* S_b = reinterpret_cast<uint8_t*>(gn_s + 6 * C);      // [RT_WGS][x0 | x1 | g | res]
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
   const tc::Tiles W1 = tc::tiles(W_b, C), W2 = tc::tiles(W_b + RB_WB, C);
-  tc::load_tiles_128(W_b, W1, w1);
-  tc::load_tiles_128(W_b + RB_WB, W2, w2);
-  for (int i = threadIdx.x; i < 6 * C; i += RT_THREADS) gn_s[i] = gn[i];
+  tc::load_tiles_128<W>(W_b, W1, w1);
+  tc::load_tiles_128<W>(W_b + RB_WB, W2, w2);
+  for (int i = threadIdx.x; i < 6 * C; i += RT_THREADS)  // [6][C], zero past W
+    gn_s[i] = W == C || i % C < W ? gn[i / C * W + i % C] : 0.f;
   tc::fence_smem();
   __syncthreads();  // the weights (for wgmma) and the vectors in place
   const float *g1w = gn_s, *g1b = gn_s + C, *g2w = gn_s + 2 * C, *g2b = gn_s + 3 * C,
               *g3w = gn_s + 4 * C, *g3b = gn_s + 5 * C;
-  bf16 *dt1 = dt, *dt2 = dt + (long)n * C;
+  bf16 *dt1 = dt, *dt2 = dt + (long)n * W;
 
   const int ntiles = (n + RT_ROWS - 1) / RT_ROWS, step = gridDim.x * RT_WGS, r0 = tc::acc_row(0);
   uint8_t* own = S_b + wg * 4 * RB_TB;
   uint8_t *G_b = own + 2 * RB_TB, *R_b = own + 3 * RB_TB;
   const tc::Tiles T = tc::tiles(own, RT_ROWS);  // the strides of every staged tile
   auto fetch_x = [&](int tile, int s) {  // one commit group
-    fetch_rows(own + s * RB_TB, x, (long)tile * RT_ROWS, RT_ROWS, n, t, 128);
+    fetch_rows<W>(own + s * RB_TB, x, (long)tile * RT_ROWS, RT_ROWS, n, t, 128);
     cp_async_commit();
   };
   auto fetch_gr = [&](int tile) {  // one commit group
-    fetch_rows(G_b, g, (long)tile * RT_ROWS, RT_ROWS, n, t, 128);
-    fetch_rows(R_b, res, (long)tile * RT_ROWS, RT_ROWS, n, t, 128);
+    fetch_rows<W>(G_b, g, (long)tile * RT_ROWS, RT_ROWS, n, t, 128);
+    fetch_rows<W>(R_b, res, (long)tile * RT_ROWS, RT_ROWS, n, t, 128);
     cp_async_commit();
   };
   float va[6][4];  // column sums (this lane's 4 columns): dg1w, dg1b, dg2w, dg2b, dg3w, dg3b
@@ -623,11 +635,11 @@ row_tail2_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res
 
     // The chain again: h1 → t1 = h1 @ W1 → h2 → t2 = h2 @ W2; acc ← nrm3.
     load_pairs(acc, X_b, T, r0);
-    tail::gn_relu_frags(acc, g1w, g1b, eps, ha);
-    tail::frag_mm(acc, ha, W1);
-    tail::gn_relu_frags(acc, g2w, g2b, eps, ha);
-    tail::frag_mm(acc, ha, W2);
-    gn_normalise(acc, eps, inv);
+    tail::gn_relu_frags<W>(acc, g1w, g1b, eps, ha);
+    tail::frag_mm<W>(acc, ha, W1);
+    tail::gn_relu_frags<W>(acc, g2w, g2b, eps, ha);
+    tail::frag_mm<W>(acc, ha, W2);
+    gn_normalise<W>(acc, eps, inv);
     // d_y = g ⊙ [nrm3·w + b + res > 0] (0 past n) = dres.
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
@@ -640,35 +652,35 @@ row_tail2_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res
     if (tile + step < ntiles) fetch_gr(tile + step);
 #pragma unroll
     for (int i = 0; i < 64; i += 2) a[i / 2] = tc::pack_bf2(acc2[i], acc2[i + 1]);
-    store_pairs(dres, row0, r0, ok, a);
+    store_pairs<W>(dres, row0, r0, ok, a);
     col_sums<true>(va[4], acc2, acc);     // dg3w
     col_sums<false>(va[5], acc2, acc2);   // dg3b
-    gn_bwd_acc(acc2, acc, inv, g3w, a);   // a ← rnd(d_t2)
-    store_pairs(dt2, row0, r0, ok, a);
+    gn_bwd_acc<W>(acc2, acc, inv, g3w, a);  // a ← rnd(d_t2)
+    store_pairs<W>(dt2, row0, r0, ok, a);
 
     // d_h2 = rnd(d_t2) @ W2ᵀ ⊙ [h2_pre > 0], h2_pre from t1 made again.
     tc::zero(acc);
-    mm_frag<true>(acc, a, W2);
+    mm_frag<true, W>(acc, a, W2);
     load_pairs(acc2, X_b, T, r0);
-    tail::gn_relu_frags(acc2, g1w, g1b, eps, ha);
-    tail::frag_mm(acc2, ha, W1);
-    gn_normalise(acc2, eps, inv);  // nrm2
+    tail::gn_relu_frags<W>(acc2, g1w, g1b, eps, ha);
+    tail::frag_mm<W>(acc2, ha, W1);
+    gn_normalise<W>(acc2, eps, inv);  // nrm2
     relu_mask(acc, acc2, g2w, g2b, ok);
     col_sums<true>(va[2], acc, acc2);  // dg2w
     col_sums<false>(va[3], acc, acc);  // dg2b
-    gn_bwd_acc(acc, acc2, inv, g2w, a);  // a ← rnd(d_t1)
-    store_pairs(dt1, row0, r0, ok, a);
+    gn_bwd_acc<W>(acc, acc2, inv, g2w, a);  // a ← rnd(d_t1)
+    store_pairs<W>(dt1, row0, r0, ok, a);
 
     // d_h1 = rnd(d_t1) @ W1ᵀ ⊙ [h1_pre > 0]; dx = GN1ᵀ(d_h1).
     tc::zero(acc);
-    mm_frag<true>(acc, a, W1);
+    mm_frag<true, W>(acc, a, W1);
     load_pairs(acc2, X_b, T, r0);
-    gn_normalise(acc2, eps, inv);  // nrm1
+    gn_normalise<W>(acc2, eps, inv);  // nrm1
     relu_mask(acc, acc2, g1w, g1b, ok);
     col_sums<true>(va[0], acc, acc2);  // dg1w
     col_sums<false>(va[1], acc, acc);  // dg1b
-    gn_bwd_acc(acc, acc2, inv, g1w, a);
-    store_pairs(dx, row0, r0, ok, a);
+    gn_bwd_acc<W>(acc, acc2, inv, g1w, a);
+    store_pairs<W>(dx, row0, r0, ok, a);
   }
 
   // The block's vectors: each warp's columns, summed over the warps in order.
@@ -681,10 +693,11 @@ row_tail2_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res
     for (int j = 0; j < 4; ++j) red_s[(warp * 6 + k) * C + col_sum_col(j)] = va[k][j];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < 6 * C; i += RT_THREADS) {
+  for (int i = threadIdx.x; i < 6 * W; i += RT_THREADS) {  // [6][W]: the row's columns
+    const int at = W == C ? i : (i / W) * C + i % W;
     float sum = 0.f;
-    for (int w = 0; w < RT_THREADS / 32; ++w) sum += red_s[w * 6 * C + i];
-    part_v[(long)blockIdx.x * 6 * C + i] = sum;
+    for (int w = 0; w < RT_THREADS / 32; ++w) sum += red_s[w * 6 * C + at];
+    part_v[(long)blockIdx.x * 6 * W + i] = sum;
   }
 }
 
@@ -697,6 +710,7 @@ row_tail2_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res
 // place from x, each warpgroup on its 64 rows of the tile: h1 =
 // rnd(relu(GN1(x))), or (y = 1) h2 = rnd(relu(GN2(h1 @ W1))) by the chain
 // pass's own arithmetic. part: [splits][dW1, dW2].
+template <int W>
 __global__ void __launch_bounds__(RT_THREADS, 1)
 row_tail2_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                        const float* __restrict__ gn, const bf16* __restrict__ dt,
@@ -708,19 +722,20 @@ row_tail2_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   uint8_t* S_b = A_b + RB_DTB;                                 // the ring
   const int y = blockIdx.y, wg = threadIdx.x >> 7;
   const tc::Tiles W1 = tc::tiles(W_b, C), A = tc::tiles(A_b, RB_DT);
-  if (y == 1) tc::load_tiles_128(W_b, W1, w1);
-  for (int i = threadIdx.x; i < 4 * C; i += RT_THREADS) gn_s[i] = gn[i];
+  if (y == 1) tc::load_tiles_128<W>(W_b, W1, w1);
+  for (int i = threadIdx.x; i < 4 * C; i += RT_THREADS)  // [4][C], zero past W
+    gn_s[i] = W == C || i % C < W ? gn[i / C * W + i % C] : 0.f;
   tc::fence_smem();
   __syncthreads();  // W1 (for wgmma) and the vectors in place
-  const bf16* B_src = dt + (long)y * n * C;
+  const bf16* B_src = dt + (long)y * n * W;
   const int ntiles = (n + RB_DT - 1) / RB_DT, step = gridDim.x, r0 = tc::acc_row(0);
   constexpr int S = RB_DW_STAGES;
   auto issue = [&](int tile, int st) {  // one commit group, empty past the last tile
     uint8_t* p = S_b + st * 2 * RB_DTB;
     if (tile < ntiles) {
       const long row0 = (long)tile * RB_DT;
-      fetch_rows(p, x, row0, RB_DT, n, threadIdx.x, RT_THREADS);
-      fetch_rows(p + RB_DTB, B_src, row0, RB_DT, n, threadIdx.x, RT_THREADS);
+      fetch_rows<W>(p, x, row0, RB_DT, n, threadIdx.x, RT_THREADS);
+      fetch_rows<W>(p + RB_DTB, B_src, row0, RB_DT, n, threadIdx.x, RT_THREADS);
     }
     cp_async_commit();
   };
@@ -741,34 +756,38 @@ row_tail2_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     uint32_t a[32];
     auto& ha = *reinterpret_cast<uint32_t(*)[C / 16][4]>(a);
     load_pairs(acc, p, tc::tiles(p, RB_DT), rw);
-    tail::gn_relu_frags(acc, gn_s, gn_s + C, eps, ha);  // h1
+    tail::gn_relu_frags<W>(acc, gn_s, gn_s + C, eps, ha);  // h1
     if (y == 1) {
-      tail::frag_mm(acc, ha, W1);
-      tail::gn_relu_frags(acc, gn_s + 2 * C, gn_s + 3 * C, eps, ha);  // h2
+      tail::frag_mm<W>(acc, ha, W1);
+      tail::gn_relu_frags<W>(acc, gn_s + 2 * C, gn_s + 3 * C, eps, ha);  // h2
     }
     put_pairs(A_b, A, rw, a);
     tc::fence_smem();
     __syncthreads();  // A in place
-    tc::fence_acc(accw);
-    tc::fence();
-    tc::mm<RB_DT / 16, false, false>(accw, A, 64 * wg, tc::tiles(p + RB_DTB, RB_DT));
-    tc::commit();
-    tc::wait_all();
-    tc::fence_acc(accw);
+    if (W == C || 64 * wg < W) {  // at W = 64 the second warpgroup's channels are padding
+      tc::fence_acc(accw);
+      tc::fence();
+      tc::mm<RB_DT / 16, false, false>(accw, A, 64 * wg, tc::tiles(p + RB_DTB, RB_DT));
+      tc::commit();
+      tc::wait_all();
+      tc::fence_acc(accw);
+    }
   }
   cp_async_wait<0>();  // the empty groups past the last tile
-  float* P = part + ((long)blockIdx.x * 2 + y) * C * C;
+  float* P = part + ((long)blockIdx.x * 2 + y) * W * W;
+  if (W == C || 64 * wg < W) {
 #pragma unroll
-  for (int i = 0; i < 64; i += 2)
-    *reinterpret_cast<float2*>(P + (64 * wg + tc::acc_row(i)) * C + tc::acc_col(i)) =
-        make_float2(accw[i], accw[i + 1]);
+    for (int i = 0; i < W / 2; i += 2)
+      *reinterpret_cast<float2*>(P + (64 * wg + tc::acc_row(i)) * W + tc::acc_col(i)) =
+          make_float2(accw[i], accw[i + 1]);
+  }
 }
 
-// part: blocks * TAIL2_PART floats. bf16: the weight-gradient pass's
+// part: blocks * tail2_part<W>() floats. bf16: the weight-gradient pass's
 // partials [splits][dW1, dW2] from the start, the chain pass's vector sums
-// [chain blocks][6*C] from blocks*2*C*C; dt: [2, n, C] bf16 workspace.
+// [chain blocks][6*W] from blocks*2*W*W; dt: [2, n, W] bf16 workspace.
 // fp32: one partial per block (dt unused).
-template <typename T>
+template <typename T, int W>
 int launch2_bwd(const void* x, const void* res, const void* g, const void* w1, const void* w2,
                 const float* gn, void* dx, void* dres, float* part, float* grads, void* dt,
                 int n, int blocks, float eps, cudaStream_t stream) {
@@ -776,41 +795,41 @@ int launch2_bwd(const void* x, const void* res, const void* g, const void* w1, c
   if constexpr (std::is_same<T, bf16>::value) {
     const int nb = min(blocks, ((n + RT_ROWS - 1) / RT_ROWS + RT_WGS - 1) / RT_WGS);
     const int splits = min(blocks, (n + RB_DT - 1) / RB_DT);
-    float* part_v = part + (long)blocks * 2 * C * C;
+    float* part_v = part + (long)blocks * 2 * W * W;
     if (nb > 0) {
       int smem = tail2_bwd_tc_smem();
-      err = set_smem((const void*)row_tail2_bwd_tc_kernel, smem);
+      err = set_smem((const void*)row_tail2_bwd_tc_kernel<W>, smem);
       if (err != cudaSuccess) return (int)err;
-      row_tail2_bwd_tc_kernel<<<nb, RT_THREADS, smem, stream>>>(
+      row_tail2_bwd_tc_kernel<W><<<nb, RT_THREADS, smem, stream>>>(
           (const bf16*)x, (const bf16*)res, (const bf16*)g, (const bf16*)w1, (const bf16*)w2, gn,
           (bf16*)dx, (bf16*)dres, (bf16*)dt, part_v, n, eps);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
       smem = tail2_dw_tc_smem();
-      err = set_smem((const void*)row_tail2_dw_tc_kernel, smem);
+      err = set_smem((const void*)row_tail2_dw_tc_kernel<W>, smem);
       if (err != cudaSuccess) return (int)err;
-      row_tail2_dw_tc_kernel<<<dim3(splits, 2), RT_THREADS, smem, stream>>>(
+      row_tail2_dw_tc_kernel<W><<<dim3(splits, 2), RT_THREADS, smem, stream>>>(
           (const bf16*)x, (const bf16*)w1, gn, (const bf16*)dt, part, n, eps);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
-    err = reduce_partials(part, grads, splits, 2 * C * C, stream);
+    err = reduce_partials(part, grads, splits, 2 * W * W, stream);
     if (err != cudaSuccess) return (int)err;
-    return (int)reduce_partials(part_v, grads + 2 * C * C, nb, 6 * C, stream);
+    return (int)reduce_partials(part_v, grads + 2 * W * W, nb, 6 * W, stream);
   } else {
     const int smem = tail2_bwd_smem();
-    err = set_smem((const void*)row_tail2_bwd_kernel<T>, smem);
+    err = set_smem((const void*)row_tail2_bwd_kernel<T, W>, smem);
     if (err != cudaSuccess) return (int)err;
     const int ntiles = (n + TM - 1) / TM;
     if (blocks > ntiles) blocks = ntiles;
     if (blocks > 0) {
-      row_tail2_bwd_kernel<T><<<blocks, NT, smem, stream>>>(
+      row_tail2_bwd_kernel<T, W><<<blocks, NT, smem, stream>>>(
           (const T*)x, (const T*)res, (const T*)g, (const T*)w1, (const T*)w2, gn, (T*)dx,
           (T*)dres, part, n, eps);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
-    return (int)reduce_partials(part, grads, blocks, TAIL2_PART, stream);
+    return (int)reduce_partials(part, grads, blocks, tail2_part<W>(), stream);
   }
 }
 
@@ -831,16 +850,18 @@ extern "C" int row_tail_fwd(const void* x, const void* res, const void* w, const
 }
 
 // K = 2: out = relu(GN3(relu(GN2(relu(GN1(x)) @ W1)) @ W2) + res).
-// dtype as row_tail_fwd (x, res, w1, w2, out); gn: fp32 [6, 128] = GN1
-// weight, GN1 bias, GN2 weight, GN2 bias, GN3 weight, GN3 bias.
+// dtype and width as row_tail_fwd (x, res, w1, w2, out; x, res, out [n,
+// width], w1, w2 [width, width]); gn: fp32 [6, width] = GN1 weight, GN1
+// bias, GN2 weight, GN2 bias, GN3 weight, GN3 bias.
 extern "C" int row_tail2_fwd(const void* x, const void* res, const void* w1, const void* w2,
-                             const void* gn, void* out, int n, float eps, int dtype,
+                             const void* gn, void* out, int n, int width, float eps, int dtype,
                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float* g = (const float*)gn;
-  if (dtype == 0) return launch2<float>(x, res, w1, w2, g, out, n, eps, st);
-  if (dtype == 1) return launch2<bf16>(x, res, w1, w2, g, out, n, eps, st);
-  return (int)cudaErrorInvalidValue;
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    return launch2<typename decltype(Tc)::type, decltype(Wc)::value>(x, res, w1, w2, g, out, n,
+                                                                     eps, st);
+  });
 }
 
 namespace {
@@ -882,23 +903,22 @@ extern "C" int row_tail_bwd(const void* x, const void* res, const void* g, const
   });
 }
 
-// K = 2 backward. g: the output cotangent in x's dtype; dx, dres [n, 128] in
-// x's dtype; gn as row_tail2_fwd; part: blocks * (2*C*C + 6*C) fp32
-// workspace; grads: fp32 [2*C*C + 6*C] = dW1, dW2 (in, out), then the GN1,
-// GN2 and GN3 weight and bias gradients, the partials' sums in block
-// (split) order; dt: bf16 [2, n, 128] workspace (rnd(d_t1), rnd(d_t2)),
-// null for float32. blocks: the card's SMs. bf16: x, res, g, dx, dres and
-// dt 16-byte aligned.
+// K = 2 backward. g: the output cotangent in x's dtype; dx, dres [n, W] in
+// x's dtype (W = width, 128 or 64); gn as row_tail2_fwd; part: blocks *
+// (2*W*W + 6*W) fp32 workspace; grads: fp32 [2*W*W + 6*W] = dW1, dW2 (in,
+// out), then the GN1, GN2 and GN3 weight and bias gradients, the
+// partials' sums in block (split) order; dt: bf16 [2, n, W] workspace
+// (rnd(d_t1), rnd(d_t2)), null for float32. blocks: the card's SMs. bf16:
+// x, res, g, dx, dres and dt 16-byte aligned.
 extern "C" int row_tail2_bwd(const void* x, const void* res, const void* g, const void* w1,
                              const void* w2, const void* gn, void* dx, void* dres, void* part,
-                             void* grads, void* dt, int n, int blocks, float eps, int dtype,
-                             void* stream) {
+                             void* grads, void* dt, int n, int width, int blocks, float eps,
+                             int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float* gv = (const float*)gn;
   float *p = (float*)part, *gr = (float*)grads;
-  if (dtype == 0)
-    return launch2_bwd<float>(x, res, g, w1, w2, gv, dx, dres, p, gr, dt, n, blocks, eps, st);
-  if (dtype == 1)
-    return launch2_bwd<bf16>(x, res, g, w1, w2, gv, dx, dres, p, gr, dt, n, blocks, eps, st);
-  return (int)cudaErrorInvalidValue;
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    return launch2_bwd<typename decltype(Tc)::type, decltype(Wc)::value>(
+        x, res, g, w1, w2, gv, dx, dres, p, gr, dt, n, blocks, eps, st);
+  });
 }

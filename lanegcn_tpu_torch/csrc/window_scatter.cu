@@ -60,6 +60,13 @@
 // before the stores, and padding rows store zeros without reading g. The
 // replaced kernel ran a warp per row, 8 bytes a lane, in 131,072 blocks:
 // 0.175 ms at r2g, this one 0.109 (H100 80GB HBM3, 700 W, device time).
+//
+// Width: both directions also take W = 64-wide rows (LaneRCNN at n_map =
+// 64). The forward hands the width to segment_sum.cuh as its column count
+// (a 64-wide bf16 row is 128 bytes: still whole 16-byte chunks); the
+// backward is templated on W, a row 8 (bf16) or 16 (fp32) chunks, so a
+// pass of the block moves 32 or 16 rows. At W = 128 both compile to the
+// code they were before the width existed.
 #include "segment_sum.cuh"
 
 using namespace lgk;
@@ -86,17 +93,19 @@ struct WinKeys {
 constexpr int BWD_TILE = 64;       // edge slots a tile (divides WCH)
 constexpr int BWD_BLOCKS_SM = 8;   // blocks an SM in the grid
 
-// d_msg row e = g row dst(e), or zeros on padding. A thread moves chunk c
-// (16 bytes) of R rows of each tile, rows r0, r0 + RPP, ...
-template <typename T>
+// d_msg row e = g row dst(e), or zeros on padding, rows W wide. A thread
+// moves chunk c (16 bytes) of R rows of each tile, rows r0, r0 + RPP, ...
+template <typename T, int W>
 __global__ void __launch_bounds__(NT)
 window_scatter_bwd_kernel(const T* __restrict__ g, const int* __restrict__ lu,
                           const int* __restrict__ wchunk, T* __restrict__ dmsg, int stride,
                           long tiles) {
-  constexpr int CPR = C * (int)sizeof(T) / 16;  // 16-byte chunks a row: bf16 16, fp32 32
+  // 16-byte chunks a row: bf16 16 (W = 64: 8), fp32 32 (16)
+  constexpr int CPR = W * (int)sizeof(T) / 16;
   constexpr int RPP = NT / CPR;                 // rows a pass
   constexpr int R = BWD_TILE / RPP;             // rows a thread a tile
   constexpr int EL = 16 / (int)sizeof(T);       // elements a chunk
+  static_assert(NT % CPR == 0 && BWD_TILE % RPP == 0, "a tile's rows split evenly");
   const int c = threadIdx.x % CPR, r0 = threadIdx.x / CPR;
   for (long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const long e0 = t * BWD_TILE;
@@ -109,24 +118,24 @@ window_scatter_bwd_kernel(const T* __restrict__ g, const int* __restrict__ lu,
     for (int k = 0; k < R; ++k) {
       v[k] = make_uint4(0, 0, 0, 0);
       if (l[k] >= 0)
-        v[k] = *reinterpret_cast<const uint4*>(g + (wrow + l[k]) * C + c * EL);
+        v[k] = *reinterpret_cast<const uint4*>(g + (wrow + l[k]) * W + c * EL);
     }
 #pragma unroll
     for (int k = 0; k < R; ++k)
-      *reinterpret_cast<uint4*>(dmsg + (e0 + r0 + k * RPP) * C + c * EL) = v[k];
+      *reinterpret_cast<uint4*>(dmsg + (e0 + r0 + k * RPP) * W + c * EL) = v[k];
   }
 }
 
-template <typename T>
+template <typename T, int W>
 int launch(const void* msg, const void* temp, const int* lu, const int* wchunk, void* out,
            int num_win, int stride, int nch, cudaStream_t stream) {
   if (num_win <= 0 || stride <= 0) return (int)cudaGetLastError();
   const WinKeys keys{lu, wchunk, stride};
   return seg::launch_keys<T, T, true>((const T*)msg, keys, (const T*)temp, (T*)out,
-                                      (long)nch * WCH, num_win * stride, C, stream);
+                                      (long)nch * WCH, num_win * stride, W, stream);
 }
 
-template <typename T>
+template <typename T, int W>
 int launch_bwd(const void* g, const int* lu, const int* wchunk, void* dmsg, int stride, int nch,
                cudaStream_t stream) {
   if ((((uintptr_t)g | (uintptr_t)dmsg) & 15) != 0) return (int)cudaErrorMisalignedAddress;
@@ -137,36 +146,39 @@ int launch_bwd(const void* g, const int* lu, const int* wchunk, void* dmsg, int 
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
       return (int)cudaGetLastError();
     const long blocks = tiles < (long)sms * BWD_BLOCKS_SM ? tiles : (long)sms * BWD_BLOCKS_SM;
-    window_scatter_bwd_kernel<T><<<(unsigned)blocks, NT, 0, stream>>>((const T*)g, lu, wchunk,
-                                                                      (T*)dmsg, stride, tiles);
+    window_scatter_bwd_kernel<T, W><<<(unsigned)blocks, NT, 0, stream>>>(
+        (const T*)g, lu, wchunk, (T*)dmsg, stride, tiles);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (msg [nch*512, 128], temp and out
-// [num_win*stride, 128]); lu int32 [nch*512] window-local destination (-1
-// padding, after the window's valid edges, which are sorted by lu); wchunk
-// int32 [nch] destination window per chunk, non-decreasing.
+// dtype: 0 = float32, 1 = bfloat16 (msg [nch*512, width], temp and out
+// [num_win*stride, width], width 128 or 64); lu int32 [nch*512]
+// window-local destination (-1 padding, after the window's valid edges,
+// which are sorted by lu); wchunk int32 [nch] destination window per
+// chunk, non-decreasing.
 extern "C" int window_scatter_fwd(const void* msg, const void* temp, const void* lu,
                                   const void* wchunk, void* out, int num_win, int stride,
-                                  int nch, int dtype, void* stream) {
+                                  int nch, int width, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int *l = (const int*)lu, *wc = (const int*)wchunk;
-  if (dtype == 0) return launch<float>(msg, temp, l, wc, out, num_win, stride, nch, st);
-  if (dtype == 1) return launch<bf16>(msg, temp, l, wc, out, num_win, stride, nch, st);
-  return (int)cudaErrorInvalidValue;
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    return launch<typename decltype(Tc)::type, decltype(Wc)::value>(msg, temp, l, wc, out,
+                                                                    num_win, stride, nch, st);
+  });
 }
 
-// Backward: dmsg [nch*512, 128] = the rows of g [num_win*stride, 128] at each
-// edge's destination, zeros on padding; dtype as window_scatter_fwd (g, dmsg);
-// g and dmsg 16-byte aligned.
+// Backward: dmsg [nch*512, width] = the rows of g [num_win*stride, width] at
+// each edge's destination, zeros on padding; width and dtype as
+// window_scatter_fwd (g, dmsg); g and dmsg 16-byte aligned.
 extern "C" int window_scatter_bwd(const void* g, const void* lu, const void* wchunk, void* dmsg,
-                                  int stride, int nch, int dtype, void* stream) {
+                                  int stride, int nch, int width, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int *l = (const int*)lu, *wc = (const int*)wchunk;
-  if (dtype == 0) return launch_bwd<float>(g, l, wc, dmsg, stride, nch, st);
-  if (dtype == 1) return launch_bwd<bf16>(g, l, wc, dmsg, stride, nch, st);
-  return (int)cudaErrorInvalidValue;
+  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+    return launch_bwd<typename decltype(Tc)::type, decltype(Wc)::value>(g, l, wc, dmsg, stride,
+                                                                        nch, st);
+  });
 }

@@ -45,9 +45,8 @@ ENTRIES = {
 
 KERNELS = tuple(ENTRIES)
 
-# The row widths the W-templated kernels are built at (csrc/common.cuh
-# `with_width`); each wrapper refuses the others, and the kernels that take
-# 128 only refuse 64 too.
+# The row widths every kernel is built at (csrc/common.cuh `with_width`;
+# segment_sum takes any width); each wrapper refuses the others.
 WIDTHS = (64, 128)
 
 LAUNCHES: Dict[str, int] = {e: 0 for entries in ENTRIES.values() for e in entries}

@@ -14,9 +14,9 @@ through a `torch.autograd.Function`: Att's backward is the `edge_mlp_bwd`
 kernel on CUDA tensors and `edge_mlp_bwd_plain` on CPU tensors,
 LanePooling's the `edge_mlp_pool_bwd` kernel and `edge_mlp_pool_bwd_plain`.
 In bf16 both configurations multiply on the tensor cores (wgmma); fp32 runs
-the CUDA-core kernels, the parity path. Att's kernels take rows W = 128 or
-64 wide (A2A where n_actor = 64), LanePooling's 128; the plain versions
-take any width.
+the CUDA-core kernels, the parity path. Both configurations' kernels take
+rows W = 128 or 64 wide (Att's: A2A where n_actor = 64; LanePooling's:
+LaneRCNN at n_map = 64); the plain versions take any width.
 """
 
 from __future__ import annotations
@@ -28,8 +28,6 @@ import torch
 from lanegcn_tpu_torch.ops import cuda
 from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.norm import gn_bwd, gn_stats, group_norm
-
-C = 128
 
 
 def part_size(c: int) -> int:
@@ -213,22 +211,29 @@ def edge_mlp_pool_bwd_plain(d, cg, kd, bd, k1, gchw, gchb, kout, g, eps: float =
             (d_gn_s * nrm_s).sum(0), d_gn_s.sum(0), e1.t() @ d_e2)
 
 
-def _pool_prep(d, cg, kd, bd, k1, gchw, gchb, kout, *rows):
-    """(d, cg, *rows), weights, vectors, dtype code for the pool kernels:
-    the row tensors contiguous and 16-byte aligned (the bf16 kernels copy
-    them by cp.async)."""
+def pool_part_size(c: int, din: int) -> int:
+    """LanePooling's backward partial at width c: dK1, dWout, dbd, dgchw,
+    dgchb, dWd (din rows)."""
+    return 2 * c * c + (3 + din) * c
+
+
+def _pool_prep(d, cg, kd, bd, k1, gchw, gchb, kout, *rows, name="edge_mlp_pool"):
+    """(d, cg, *rows), weights, vectors, dtype code for the pool kernels
+    (`name` in the messages): the row tensors contiguous and 16-byte
+    aligned (the bf16 kernels copy them by cp.async)."""
     e, c = cg.shape
     din = d.shape[1] if d.dim() == 2 else 0
-    if c != C:
-        raise ValueError(f"edge_mlp_pool: the kernel takes rows {C} wide, not {c}")
+    if c not in WIDTHS:
+        raise ValueError(f"{name}: the kernels take rows {' or '.join(map(str, WIDTHS))} "
+                         f"wide, not {c}")
     if (tuple(d.shape) != (e, din) or din not in (2, 4)
             or tuple(kd.shape) != (din, c) or tuple(k1.shape) != (c, c)
             or tuple(kout.shape) != (c, c)
             or any(tuple(p.shape) != (c,) for p in (bd, gchw, gchb))):
-        raise ValueError(f"edge_mlp_pool: bad shapes d {d.shape} cg {cg.shape} kd {kd.shape} "
-                         f"(rows {C} wide)")
+        raise ValueError(f"{name}: bad shapes d {d.shape} cg {cg.shape} kd {kd.shape} "
+                         f"(rows {c} wide)")
     if d.dtype != torch.float32:
-        raise TypeError("edge_mlp_pool: d must be float32")
+        raise TypeError(f"{name}: d must be float32")
     dt = cg.dtype
     acts = [cuda.param(x, x.dtype) for x in (d, cg, *rows)]
     ws = [cuda.param(w, dt) for w in (kd, k1, kout)]
@@ -244,7 +249,8 @@ def _pool_fwd_cuda(d, cg, kd, bd, k1, gchw, gchb, kout, eps):
         "edge_mlp", "edge_mlp_pool_fwd",
         cuda.ptr(d), cuda.ptr(cg), cuda.ptr(ws[0]), cuda.ptr(vs[0]), cuda.ptr(ws[1]),
         cuda.ptr(vs[1]), cuda.ptr(vs[2]), cuda.ptr(ws[2]), cuda.ptr(out), ctypes.c_int(cg.shape[0]),
-        ctypes.c_int(d.shape[1]), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+        ctypes.c_int(cg.shape[1]), ctypes.c_int(d.shape[1]), ctypes.c_float(eps),
+        ctypes.c_int(code), cuda.stream(),
     )
     return out
 
@@ -256,24 +262,26 @@ def edge_mlp_pool_bwd_cuda(d, cg, kd, bd, k1, gchw, gchb, kout, g, eps: float = 
     kernel then skips it)."""
     if g.shape != cg.shape or g.dtype != cg.dtype:
         raise ValueError(f"edge_mlp: cotangent {g.shape} {g.dtype} for {cg.shape} {cg.dtype}")
-    (d, cg, g), ws, vs, code = _pool_prep(d, cg, kd, bd, k1, gchw, gchb, kout, g)
+    (d, cg, g), ws, vs, code = _pool_prep(d, cg, kd, bd, k1, gchw, gchb, kout, g,
+                                          name="edge_mlp_pool_bwd")
     dev = cg.device
     e, din = d.shape
-    part_size = 2 * C * C + (3 + din) * C
+    c = cg.shape[1]
     blocks = cuda.num_sms(dev)
     dd = torch.empty(d.shape, dtype=torch.float32, device=dev) if need_dd else None
     dcg = torch.empty_like(cg)
-    part = torch.empty(blocks * part_size, dtype=torch.float32, device=dev)
-    grads = torch.empty(part_size, dtype=torch.float32, device=dev)
+    part = torch.empty(blocks * pool_part_size(c, din), dtype=torch.float32, device=dev)
+    grads = torch.empty(pool_part_size(c, din), dtype=torch.float32, device=dev)
     cuda.call(
         "edge_mlp", "edge_mlp_pool_bwd",
         cuda.ptr(d), cuda.ptr(cg), cuda.ptr(g), cuda.ptr(ws[0]), cuda.ptr(vs[0]),
         cuda.ptr(ws[1]), cuda.ptr(vs[1]), cuda.ptr(vs[2]), cuda.ptr(ws[2]), cuda.ptr(dd),
-        cuda.ptr(dcg), cuda.ptr(part), cuda.ptr(grads), ctypes.c_int(e), ctypes.c_int(din),
-        ctypes.c_int(blocks), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+        cuda.ptr(dcg), cuda.ptr(part), cuda.ptr(grads), ctypes.c_int(e), ctypes.c_int(c),
+        ctypes.c_int(din), ctypes.c_int(blocks), ctypes.c_float(eps), ctypes.c_int(code),
+        cuda.stream(),
     )
-    mats = grads[:2 * C * C].view(2, C, C)
-    vecs = grads[2 * C * C:].view(3 + din, C)
+    mats = grads[:2 * c * c].view(2, c, c)
+    vecs = grads[2 * c * c:].view(3 + din, c)
     return dd, dcg, vecs[3:], vecs[0], mats[0], vecs[1], vecs[2], mats[1]
 
 
@@ -319,8 +327,8 @@ def fused_edge_mlp(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
     (in, out), cast to the activation dtype inside; bd and the GN affines
     [W] fp32.
     LanePooling (neither flag): qg, kdo, gdow and gdob None; d [E, 4] fp32
-    (the relative pose), kd [4, 128]. CPU tensors take the plain version;
-    CUDA tensors launch the kernel.
+    (the relative pose), kd [4, W], cg [E, W] (W = 128 or 64 on the card).
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
     if cg.device.type not in ("cpu", "cuda"):
         raise ValueError(f"edge_mlp: unsupported device {cg.device}")
@@ -385,7 +393,7 @@ def work_pool_bwd(d, cg, g) -> dict:
     """LanePooling's backward at these inputs, dd included (the model skips
     it, d being pack data; `chip_smoke.py` asks for it to check it): d, cg
     and g read and dd and dcg written whole, the weights read and their
-    gradients written; per row whose cotangent is non-zero five [128 x 128]
+    gradients written; per row whose cotangent is non-zero five [W x W]
     products (K1 recomputed, d_e1, d_t1, dK1, dWout) and three with Wd (t1
     recomputed, dWd, dd)."""
     e, c = cg.shape

@@ -10,9 +10,9 @@ through a `torch.autograd.Function`: the backward is the `row_tail_bwd`
 (K = 1) or `row_tail2_bwd` (K = 2) kernel on CUDA tensors and
 `row_tail_bwd_plain` / `row_tail2_bwd_plain` on CPU tensors.
 
-The K = 1 kernels take rows W = 128 or 64 wide (Att's tail on 128-wide lane
-nodes, and on 64-wide actors where n_actor = 64); K = 2 takes 128. The
-plain versions take any width.
+The kernels take rows W = 128 or 64 wide (K = 1: Att's tail on 128-wide
+lane nodes, and on 64-wide actors where n_actor = 64; K = 2: LanePooling's
+tail at n_map = 128 or 64). The plain versions take any width.
 """
 
 from __future__ import annotations
@@ -26,12 +26,17 @@ from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.norm import gn_bwd, gn_stats, group_norm
 
 C = 128
-PART2 = 2 * C * C + 6 * C  # K = 2: dW1, dW2, then the three GNs' weight and bias
 
 
 def part_size(c: int) -> int:
     """A K = 1 backward partial at width c: dW, dg1w, dg1b, dg2w, dg2b."""
     return c * c + 4 * c
+
+
+def part2_size(c: int) -> int:
+    """A K = 2 backward partial at width c: dW1, dW2, then the three GNs'
+    weight and bias."""
+    return 2 * c * c + 6 * c
 
 
 def row_tail_plain(x, res, w, g1w, g1b, g2w, g2b, eps: float = 1e-5) -> torch.Tensor:
@@ -73,13 +78,12 @@ def row_tail_bwd_plain(x, res, w, g1w, g1b, g2w, g2b, g, eps: float = 1e-5):
     return (d_x.to(x.dtype), d_y.to(x.dtype), *grads)
 
 
-def _check(x, res, w, gns, widths=WIDTHS, name="row_tail"):
+def _check(x, res, w, gns, name="row_tail"):
     """Shapes and dtypes kernel `name` takes: x/res [N, W] with W in
-    `widths` (the K = 1 kernels 64 or 128, K = 2 128), w [W, W], the GN
-    vectors [W]."""
+    WIDTHS (64 or 128), w [W, W], the GN vectors [W]."""
     n, c = x.shape
-    if c not in widths:
-        raise ValueError(f"{name}: the kernels take rows {' or '.join(map(str, widths))} "
+    if c not in WIDTHS:
+        raise ValueError(f"{name}: the kernels take rows {' or '.join(map(str, WIDTHS))} "
                          f"wide, not {c}")
     if (res.shape != x.shape or tuple(w.shape) != (c, c)
             or any(tuple(g.shape) != (c,) for g in gns)):
@@ -179,7 +183,7 @@ def row_tail2_bwd_plain(x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b, g,
     """The K = 2 backward kernel's arithmetic: the chain recomputed, then
     back through GN3, W2, GN2, W1 and GN1 with h1, h2 and each d_t rounded
     to x's dtype before their products. Returns (dx, dres) in x's dtype,
-    then fp32 dW1, dW2 [128, 128] (in, out) and the six GN vector
+    then fp32 dW1, dW2 [W, W] (in, out) and the six GN vector
     gradients: one gradient per input, in the inputs' order."""
     dt = x.dtype
     rnd = lambda t: t.to(dt).float()
@@ -203,11 +207,11 @@ def row_tail2_bwd_plain(x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b, g,
             (d_y * nrm3).sum(0), d_y.sum(0))
 
 
-def _check2(x, res, w1, w2, gns):
+def _check2(x, res, w1, w2, gns, name="row_tail2"):
     """The K = 2 kernels' weights as they read them and the six GN affines
-    stacked [6, 128] fp32."""
+    stacked [6, W] fp32."""
     for w in (w1, w2):
-        _check(x, res, w, gns, widths=(C,), name="row_tail2")
+        _check(x, res, w, gns, name=name)
     return cuda.param(w1, x.dtype), cuda.param(w2, x.dtype), torch.stack([g.float() for g in gns])
 
 
@@ -218,7 +222,8 @@ def _fwd2_cuda(x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b, eps):
     cuda.call(
         "row_tail", "row_tail2_fwd",
         cuda.ptr(x), cuda.ptr(res), cuda.ptr(w1), cuda.ptr(w2), cuda.ptr(gn), cuda.ptr(out),
-        ctypes.c_int(x.shape[0]), ctypes.c_float(eps), ctypes.c_int(code), cuda.stream(),
+        ctypes.c_int(x.shape[0]), ctypes.c_int(x.shape[1]), ctypes.c_float(eps),
+        ctypes.c_int(code), cuda.stream(),
     )
     return out
 
@@ -227,30 +232,30 @@ def row_tail2_bwd_cuda(x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b, g, eps: flo
     """The `row_tail2_bwd` kernel; the same outputs as `row_tail2_bwd_plain`.
 
     In bf16 it runs two passes: the chain pass writes rnd(d_t1) and
-    rnd(d_t2) to a [2, N, 128] bf16 workspace (2·N·512 bytes, freed on
+    rnd(d_t2) to a [2, N, W] bf16 workspace (2·N·4W bytes, freed on
     return), which the weight-gradient pass reads beside x. The row tensors
     go in 16-byte aligned (the bf16 passes copy them by cp.async)."""
-    w1, w2, gn = _check2(x, res, w1, w2, (g1w, g1b, g2w, g2b, g3w, g3b))
+    w1, w2, gn = _check2(x, res, w1, w2, (g1w, g1b, g2w, g2b, g3w, g3b), "row_tail2_bwd")
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"row_tail: cotangent {g.shape} {g.dtype} for x {x.shape} {x.dtype}")
     x, res, g = (cuda.param(t, t.dtype) for t in (x, res, g))
     code = cuda.check_cuda("row_tail", x, res, g, w1, w2, gn)
     blocks = cuda.num_sms(x.device)
-    n = x.shape[0]
+    n, c = x.shape
     dx, dres = torch.empty_like(x), torch.empty_like(x)
-    part = torch.empty(blocks * PART2, dtype=torch.float32, device=x.device)
-    grads = torch.empty(PART2, dtype=torch.float32, device=x.device)
-    dt = torch.empty(2, n, C, dtype=x.dtype, device=x.device) if x.dtype == torch.bfloat16 else None
+    part = torch.empty(blocks * part2_size(c), dtype=torch.float32, device=x.device)
+    grads = torch.empty(part2_size(c), dtype=torch.float32, device=x.device)
+    dt = torch.empty(2, n, c, dtype=x.dtype, device=x.device) if x.dtype == torch.bfloat16 else None
     cuda.call(
         "row_tail", "row_tail2_bwd",
         cuda.ptr(x), cuda.ptr(res), cuda.ptr(g), cuda.ptr(w1), cuda.ptr(w2), cuda.ptr(gn),
         cuda.ptr(dx), cuda.ptr(dres), cuda.ptr(part), cuda.ptr(grads), cuda.ptr(dt),
-        ctypes.c_int(n), ctypes.c_int(blocks), ctypes.c_float(eps), ctypes.c_int(code),
-        cuda.stream(),
+        ctypes.c_int(n), ctypes.c_int(c), ctypes.c_int(blocks), ctypes.c_float(eps),
+        ctypes.c_int(code), cuda.stream(),
     )
-    dgn = grads[2 * C * C:].view(6, C)
-    return (dx, dres, grads[:C * C].view(C, C), grads[C * C:2 * C * C].view(C, C),
-            *dgn.unbind(0))
+    mats = grads[:2 * c * c].view(2, c, c)
+    dgn = grads[2 * c * c:].view(6, c)
+    return (dx, dres, mats[0], mats[1], *dgn.unbind(0))
 
 
 class _RowTail2(torch.autograd.Function):
@@ -280,9 +285,9 @@ def fused_row_tail2(x, res, w1, w2, g1w, g1b, g2w, g2b, g3w, g3b,
                     eps: float = 1e-5) -> torch.Tensor:
     """The two-Linear tail of LanePooling (reference lanercnn.py:497-505).
 
-    x/res [N, 128] in one dtype; w1/w2 [128, 128] (in, out), cast to x's
-    dtype (their gradients flow back through the casts); GN affines [128]
-    fp32. CPU tensors take the plain versions; CUDA tensors launch the
+    x/res [N, W] in one dtype (W = 128 or 64 on the card); w1/w2 [W, W]
+    (in, out), cast to x's dtype (their gradients flow back through the
+    casts); GN affines [W] fp32. CPU tensors take the plain versions; CUDA tensors launch the
     kernels."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"row_tail: unsupported device {x.device}")
@@ -306,19 +311,17 @@ def work_bwd(n: int, itemsize: int, c: int = C) -> dict:
             "flops": 3 * 2 * n * c * c}
 
 
-def work2(n: int, itemsize: int) -> dict:
-    """K = 2: x and res read and out written once, both weights read; two
-    [N, 128] x [128, 128] products."""
-    c = C
+def work2(n: int, itemsize: int, c: int = C) -> dict:
+    """K = 2 at width c: x and res read and out written once, both weights
+    and the six GN vectors read; two [N, c] x [c, c] products."""
     return {"bytes": 3 * n * c * itemsize + 2 * c * c * itemsize + 6 * c * 4,
             "flops": 2 * 2 * n * c * c}
 
 
-def work2_bwd(n: int, itemsize: int) -> dict:
-    """K = 2 backward: x, res and g read and dx, dres written once, both
-    weights read and their gradients and the six GN vectors written; six
-    [N, 128] x [128, 128] products (t1 and t2 recomputed, d_h2 and d_h1,
-    dW2 and dW1)."""
-    c = C
+def work2_bwd(n: int, itemsize: int, c: int = C) -> dict:
+    """K = 2 backward at width c: x, res and g read and dx, dres written
+    once, both weights read and their gradients and the six GN vectors
+    written; six [N, c] x [c, c] products (t1 and t2 recomputed, d_h2 and
+    d_h1, dW2 and dW1)."""
     return {"bytes": 5 * n * c * itemsize + 2 * c * c * (itemsize + 4) + 12 * c * 4,
             "flops": 6 * 2 * n * c * c}

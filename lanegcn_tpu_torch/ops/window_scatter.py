@@ -29,6 +29,7 @@ import ctypes
 import torch
 
 from lanegcn_tpu_torch.ops import cuda
+from lanegcn_tpu_torch.ops.cuda import WIDTHS
 
 # Edge chunk of the window-chunked layout (the packer aligns to it).
 WCHUNK = 512
@@ -54,7 +55,7 @@ def window_scatter_plain(msg, temp, lu, wchunk, stride: int) -> torch.Tensor:
 
 
 def window_scatter_bwd_plain(g, lu, wchunk, stride: int) -> torch.Tensor:
-    """The backward kernel's function in PyTorch: d_msg [E, 128] in g's
+    """The backward kernel's function in PyTorch: d_msg [E, W] in g's
     dtype, g's row at each edge's destination, zeros on padding."""
     n = g.shape[0]
     dst = flat_destinations(lu, wchunk, stride, n)
@@ -66,8 +67,9 @@ def window_scatter_bwd_plain(g, lu, wchunk, stride: int) -> torch.Tensor:
 def _check(msg, temp, lu, wchunk, stride: int):
     e, c = msg.shape
     n = temp.shape[0]
-    if c != 128:
-        raise ValueError(f"window_scatter: the kernel takes rows 128 wide, not {c}")
+    if c not in WIDTHS:
+        raise ValueError(f"window_scatter: the kernel takes rows "
+                         f"{' or '.join(map(str, WIDTHS))} wide, not {c}")
     if (temp.shape[1] != c or e % WCHUNK or stride <= 0 or n % stride
             or tuple(lu.shape) != (e, 1) or tuple(wchunk.shape) != (e // WCHUNK,)):
         raise ValueError(f"window_scatter: bad shapes msg {msg.shape} temp {temp.shape} "
@@ -86,27 +88,36 @@ def _fwd_cuda(msg, temp, lu, wchunk, stride: int):
         "window_scatter", "window_scatter_fwd",
         cuda.ptr(msg), cuda.ptr(temp), cuda.ptr(lu), cuda.ptr(wchunk), cuda.ptr(out),
         ctypes.c_int(temp.shape[0] // stride), ctypes.c_int(stride),
-        ctypes.c_int(wchunk.shape[0]), ctypes.c_int(code), cuda.stream(),
+        ctypes.c_int(wchunk.shape[0]), ctypes.c_int(msg.shape[1]), ctypes.c_int(code),
+        cuda.stream(),
     )
     return out
+
+
+def _check_bwd(g, lu, wchunk, stride: int):
+    e, c = lu.shape[0], g.shape[1]
+    if c not in WIDTHS:
+        raise ValueError(f"window_scatter_bwd: the kernel takes rows "
+                         f"{' or '.join(map(str, WIDTHS))} wide, not {c}")
+    if (e % WCHUNK or stride <= 0 or g.shape[0] % stride
+            or tuple(lu.shape) != (e, 1) or tuple(wchunk.shape) != (e // WCHUNK,)):
+        raise ValueError(f"window_scatter_bwd: bad shapes g {g.shape} lu {lu.shape} "
+                         f"wchunk {wchunk.shape} stride {stride}")
+    if lu.dtype != torch.int32 or wchunk.dtype != torch.int32:
+        raise TypeError("window_scatter: lu and wchunk must be int32")
 
 
 def window_scatter_bwd_cuda(g, lu, wchunk, stride: int) -> torch.Tensor:
     """The `window_scatter_bwd` kernel; the same output as
     `window_scatter_bwd_plain`."""
-    e = lu.shape[0]
-    if (g.shape[1] != 128 or e % WCHUNK or stride <= 0 or g.shape[0] % stride
-            or tuple(lu.shape) != (e, 1) or tuple(wchunk.shape) != (e // WCHUNK,)):
-        raise ValueError(f"window_scatter: bad shapes g {g.shape} lu {lu.shape} "
-                         f"wchunk {wchunk.shape} stride {stride}")
-    if lu.dtype != torch.int32 or wchunk.dtype != torch.int32:
-        raise TypeError("window_scatter: lu and wchunk must be int32")
+    _check_bwd(g, lu, wchunk, stride)
+    e, c = lu.shape[0], g.shape[1]
     code = cuda.check_cuda("window_scatter", g, lu, wchunk)
-    dmsg = torch.empty((e, g.shape[1]), dtype=g.dtype, device=g.device)
+    dmsg = torch.empty((e, c), dtype=g.dtype, device=g.device)
     cuda.call(
         "window_scatter", "window_scatter_bwd",
         cuda.ptr(g), cuda.ptr(lu), cuda.ptr(wchunk), cuda.ptr(dmsg), ctypes.c_int(stride),
-        ctypes.c_int(wchunk.shape[0]), ctypes.c_int(code), cuda.stream(),
+        ctypes.c_int(wchunk.shape[0]), ctypes.c_int(c), ctypes.c_int(code), cuda.stream(),
     )
     return dmsg
 
@@ -135,7 +146,8 @@ class _WindowScatter(torch.autograd.Function):
 def window_scatter_add(msg, temp, lu, wchunk, stride: int) -> torch.Tensor:
     """temp + the window-chunked messages scattered into their rows.
 
-    msg [E, 128] and temp [N, 128] in one dtype (N = windows x stride);
+    msg [E, W] and temp [N, W] in one dtype (N = windows x stride; W = 128
+    or 64 on the card);
     lu [E, 1] and wchunk [E / 512] int32 as the packer emits them
     (EdgeSet.win_lu / win_chunk). CPU tensors take the plain versions; CUDA
     tensors launch the kernels. Gradients flow to msg and temp.

@@ -330,8 +330,8 @@ def test_pair_plans_at_unequal_widths_raise():
 @pytest.mark.parametrize("width", [64, 96, 128])
 def test_kernel_width_checks(width):
     """row_tail's and Att's edge_mlp wrappers take rows 64 or 128 wide and
-    name any other width (the check runs before a CUDA launch); the K = 2
-    tail takes 128 only."""
+    name any other width (the check runs before a CUDA launch); so does the
+    K = 2 tail's."""
     x, w, v = torch.zeros(4, width), torch.zeros(width, width), torch.zeros(width)
     d, kd = torch.zeros(4, 2), torch.zeros(2, width)
     for check in (lambda: row_tail._check(x, x, w, (v,) * 4),
@@ -341,8 +341,8 @@ def test_kernel_width_checks(width):
                 check()
         else:
             check()
-    if width == 128:
-        row_tail._check2(x, x, w, w, (v,) * 6)
-    else:
+    if width == 96:
         with pytest.raises(ValueError, match=str(width)):
             row_tail._check2(x, x, w, w, (v,) * 6)
+    else:
+        row_tail._check2(x, x, w, w, (v,) * 6)

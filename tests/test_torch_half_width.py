@@ -256,9 +256,9 @@ def test_half_width_lanegcn_eval_matches_jax():
 
 def _dispatch(c):
     """{kernel: (its wrapper's check, the CUDA wrapper itself)} on c-wide
-    CPU tensors, for the six kernels that take 64 and 128 both ways
-    (`64 and 128`) and the kernels that take 128 only. A wrapper refuses at
-    its check, its first statement, before anything touches the card."""
+    CPU tensors, for every kernel of the port both ways (each takes 64 and
+    128). A wrapper refuses at its check, its first statement, before
+    anything touches the card."""
     n, j, r_num, num_win, eps = 256, len(SHIFTS), 3, 2, 1e-5
     x, w, v = torch.zeros(n, c), torch.zeros(c, c), torch.zeros(c)
     masks, wb = torch.zeros(j, n, dtype=torch.bool), torch.zeros(j, c, c)
@@ -274,67 +274,65 @@ def _dispatch(c):
     gns, chain = (v,) * 4, (v, w, v, v, w, v, v, w)  # bd, kdo, gdow, gdob, k1, gchw, gchb, kout
     ll = lambda *kw: lambda: lane_layer._check(x, x, masks, wb, w, gns, SHIFTS, *kw)
     wcs = window_scatter.WCHUNK
+    msg, lu = torch.zeros(wcs, c), torch.zeros(wcs, 1, dtype=torch.int32)
+    wchunk, d, kd = torch.zeros(1, dtype=torch.int32), torch.zeros(n, 2), torch.zeros(2, c)
     return {
-        "64 and 128": {
-            "lane_layer": (ll(), lambda: lane_layer._fwd_cuda(x, x, masks, wb, w, *gns, SHIFTS,
-                                                              eps)),
-            "scenario_agg": (lambda: scenario_agg._check(x, x, w_rel, *plan, num_win),
-                             lambda: scenario_agg._fwd_cuda(x, x, w_rel, *plan, num_win, None)),
-            "pair_agg": (lambda: pair_agg._check(x, x, w_rel, spill),
-                         lambda: pair_agg._fwd_cuda(x, x, w_rel, spill)),
-            "win_edge": (lambda: win_edge._check(x, x, x, x, x, (w,) * 3, (v,) * 5, pair),
-                         lambda: win_edge._fwd_cuda(x, x, x, x, x, *chain, pair, eps)),
-            "lane_layer_bwd": (ll("lane_layer_bwd"), lambda: lane_layer.lane_layer_bwd_cuda(
-                x, x, masks, wb, w, *gns, x, SHIFTS)),
-            "scenario_agg_bwd": (
-                lambda: scenario_agg._check(x, x, w_rel, *plan, num_win, "scenario_agg_bwd"),
-                lambda: scenario_agg.scenario_agg_bwd_cuda(x, w_rel, *plan, num_win, None, x)),
-            "pair_agg_bwd": (lambda: pair_agg._check(x, x, w_rel, spill, "pair_agg_bwd"),
-                             lambda: pair_agg.pair_agg_bwd_cuda(x, w_rel, spill, x)),
-            "win_edge_bwd": (
-                lambda: win_edge._check(x, x, x, x, x, (w,) * 3, (v,) * 5, pair, "win_edge_bwd"),
-                lambda: win_edge.win_edge_bwd_cuda(x, x, x, x, *chain, pair, x)),
-            "lane_plan": (ll("lane_plan"), lambda: lane_layer._plan_fwd_cuda(
-                x, x, masks, wb, w, *gns, w_rel, *plan, num_win, SHIFTS, None, eps)),
-            "lane_plan_bwd": (ll("lane_plan_bwd"), lambda: lane_layer.lane_plan_bwd_cuda(
-                x, x, masks, wb, w, *gns, w_rel, *plan, num_win, None, x, SHIFTS)),
-            "band_conv": (lambda: band_conv._check(x, masks, wb, SHIFTS),
-                          lambda: band_conv._fwd_cuda(x, masks, wb, SHIFTS)),
-            "band_conv_bwd": (lambda: band_conv._check(x, masks, wb, SHIFTS, "band_conv_bwd"),
-                              lambda: band_conv.band_conv_bwd_cuda(x, masks, wb, x, SHIFTS)),
-        },
-        "128 only": {
-            "window_scatter": (
-                lambda: window_scatter._check(torch.zeros(wcs, c), x, torch.zeros(
-                    wcs, 1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32), n),
-                lambda: window_scatter._fwd_cuda(torch.zeros(wcs, c), x, torch.zeros(
-                    wcs, 1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32), n)),
-            "row_tail2": (lambda: row_tail._check2(x, x, w, w, (v,) * 6),
-                          lambda: row_tail._fwd2_cuda(x, x, w, w, *(v,) * 6, eps)),
-            "edge_mlp_pool": (lambda: edge_mlp._pool_prep(torch.zeros(n, 2), x, torch.zeros(2, c),
-                                                          v, w, v, v, w),
-                              lambda: edge_mlp._pool_fwd_cuda(torch.zeros(n, 2), x,
-                                                              torch.zeros(2, c), v, w, v, v, w,
-                                                              eps)),
-        },
+        "lane_layer": (ll(), lambda: lane_layer._fwd_cuda(x, x, masks, wb, w, *gns, SHIFTS,
+                                                          eps)),
+        "scenario_agg": (lambda: scenario_agg._check(x, x, w_rel, *plan, num_win),
+                         lambda: scenario_agg._fwd_cuda(x, x, w_rel, *plan, num_win, None)),
+        "pair_agg": (lambda: pair_agg._check(x, x, w_rel, spill),
+                     lambda: pair_agg._fwd_cuda(x, x, w_rel, spill)),
+        "win_edge": (lambda: win_edge._check(x, x, x, x, x, (w,) * 3, (v,) * 5, pair),
+                     lambda: win_edge._fwd_cuda(x, x, x, x, x, *chain, pair, eps)),
+        "lane_layer_bwd": (ll("lane_layer_bwd"), lambda: lane_layer.lane_layer_bwd_cuda(
+            x, x, masks, wb, w, *gns, x, SHIFTS)),
+        "scenario_agg_bwd": (
+            lambda: scenario_agg._check(x, x, w_rel, *plan, num_win, "scenario_agg_bwd"),
+            lambda: scenario_agg.scenario_agg_bwd_cuda(x, w_rel, *plan, num_win, None, x)),
+        "pair_agg_bwd": (lambda: pair_agg._check(x, x, w_rel, spill, "pair_agg_bwd"),
+                         lambda: pair_agg.pair_agg_bwd_cuda(x, w_rel, spill, x)),
+        "win_edge_bwd": (
+            lambda: win_edge._check(x, x, x, x, x, (w,) * 3, (v,) * 5, pair, "win_edge_bwd"),
+            lambda: win_edge.win_edge_bwd_cuda(x, x, x, x, *chain, pair, x)),
+        "lane_plan": (ll("lane_plan"), lambda: lane_layer._plan_fwd_cuda(
+            x, x, masks, wb, w, *gns, w_rel, *plan, num_win, SHIFTS, None, eps)),
+        "lane_plan_bwd": (ll("lane_plan_bwd"), lambda: lane_layer.lane_plan_bwd_cuda(
+            x, x, masks, wb, w, *gns, w_rel, *plan, num_win, None, x, SHIFTS)),
+        "band_conv": (lambda: band_conv._check(x, masks, wb, SHIFTS),
+                      lambda: band_conv._fwd_cuda(x, masks, wb, SHIFTS)),
+        "band_conv_bwd": (lambda: band_conv._check(x, masks, wb, SHIFTS, "band_conv_bwd"),
+                          lambda: band_conv.band_conv_bwd_cuda(x, masks, wb, x, SHIFTS)),
+        "window_scatter": (
+            lambda: window_scatter._check(msg, x, lu, wchunk, n),
+            lambda: window_scatter._fwd_cuda(msg, x, lu, wchunk, n)),
+        "window_scatter_bwd": (
+            lambda: window_scatter._check_bwd(x, lu, wchunk, n),
+            lambda: window_scatter.window_scatter_bwd_cuda(x, lu, wchunk, n)),
+        "row_tail2": (lambda: row_tail._check2(x, x, w, w, (v,) * 6),
+                      lambda: row_tail._fwd2_cuda(x, x, w, w, *(v,) * 6, eps)),
+        "row_tail2_bwd": (lambda: row_tail._check2(x, x, w, w, (v,) * 6, "row_tail2_bwd"),
+                          lambda: row_tail.row_tail2_bwd_cuda(x, x, w, w, *(v,) * 6, x)),
+        "edge_mlp_pool": (lambda: edge_mlp._pool_prep(d, x, kd, v, w, v, v, w),
+                          lambda: edge_mlp._pool_fwd_cuda(d, x, kd, v, w, v, v, w, eps)),
+        "edge_mlp_pool_bwd": (
+            lambda: edge_mlp._pool_prep(d, x, kd, v, w, v, v, w, x,
+                                        name="edge_mlp_pool_bwd"),
+            lambda: edge_mlp.edge_mlp_pool_bwd_cuda(d, x, kd, v, w, v, v, w, x)),
     }
 
 
 @pytest.mark.parametrize("width", [64, 96, 128])
 def test_width_dispatch(width):
-    """The checks of the six kernels that take 64 and 128 (forward and
-    backward) take rows 64 and 128 wide and their wrappers refuse 96; the
-    128-only kernels' checks take 128 and their wrappers refuse 64 (and
-    96): a ValueError naming the kernel and the width, raised by the check
-    before any launch."""
-    kernels = _dispatch(width)
-    for group, ok in (("64 and 128", (64, 128)), ("128 only", (128,))):
-        for name, (check, wrapper) in kernels[group].items():
-            if width in ok:
-                check()
-            else:
-                with pytest.raises(ValueError, match=rf"^{name}: .*{width}"):
-                    wrapper()
+    """The checks of every kernel (forward and backward) take rows 64 and
+    128 wide and their wrappers refuse 96: a ValueError naming the kernel
+    and the width, raised by the check before any launch."""
+    for name, (check, wrapper) in _dispatch(width).items():
+        if width in (64, 128):
+            check()
+        else:
+            with pytest.raises(ValueError, match=rf"^{name}: .*{width}"):
+                wrapper()
 
 
 # --- work() at W = 64 ---------------------------------------------------------------

@@ -41,6 +41,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from lanegcn_tpu.config import Config as JConfig, ModelConfig as JModelConfig
 from lanegcn_tpu.config import PackConfig as JPackConfig
@@ -214,11 +215,12 @@ def test_half_width_merged_lanegcn_matches_jax(monkeypatch):
     LaneGCN with the same setting; every LaneConv layer of both runs took
     the plan-merged layer."""
     fields = dict(merge_plan_agg="auto")
-    # Scenario seeds 80-82 put one ReLU input of the merged port at -3e-8
-    # where the separate kernels' sum order gives +1.5e-7 (chip_smoke's
-    # relu_flips): a tie between two correct orders, which carries M2M's
-    # gradients past the tolerance; the JAX gradients match the separate
-    # order's there. Seeds 90-92 hold no such tie.
+    # On one CPU, scenario seeds 80-82 put one ReLU input of the merged port
+    # at -3e-8 where the separate order gives +1.5e-7: a tie between two
+    # correct orders (the test below), which carries M2M's gradients past
+    # the tolerance. Seeds 90-92 hold no such tie. On the CPU, JAX runs its
+    # separate XLA formulation here: its merged Pallas layer needs
+    # pallas_bands="on" or "interpret".
     jcfg, jb, jnet, batch, params = _world(MERGED_PACK, fields, range(90, 93))
     num_win = batch.graph.plan_lu.shape[0] // MERGED_PACK["max_plan_edges"]
     assert map_net.merge_plan(ModelConfig(**fields), MERGED_PACK["max_nodes"],
@@ -256,6 +258,49 @@ def test_half_width_merged_lanegcn_matches_jax(monkeypatch):
         tol = zero if scale < zero else 1e-4 * scale + 1e-9
         err = float(np.abs(grad.numpy() - want).max())
         assert err <= tol, f"{name}: max abs err {err} > {tol}"
+
+
+class _ReluInputs(TorchFunctionMode):
+    """Every torch.relu input of a run, flattened, in call order."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in (torch.relu, torch.nn.functional.relu):
+            self.calls.append(args[0].detach().reshape(-1).float().clone())
+        return func(*args, **(kwargs or {}))
+
+
+def test_half_width_merged_and_separate_differ_by_rounding_at_seeds_80_82():
+    """Scenario seeds 80-82, which the merged test above leaves for 90-92:
+    one train step of the merged half-width port (lane_plan_plain: the
+    band sum, then each plan message added in turn, as the card's
+    add_runs_tc adds them) and one of the separate port (scenario_agg's
+    messages into temp, then the band products), same weights and pack.
+    Every ReLU input agrees to 1e-5 of its call's RMS, a sign differs only
+    where both values lie within that of zero (a tie of two correct
+    orders, which moves the gradients through the ReLU's mask), and the
+    losses agree within rtol 1e-5."""
+    fields = dict(merge_plan_agg="auto")
+    _, _, _, batch, params = _world(MERGED_PACK, fields, range(80, 83))
+    runs = {}
+    for setting in ("auto", "off"):
+        cfg, net = _port(MERGED_PACK, dict(merge_plan_agg=setting), params)
+        net, state = init_state(cfg, net=net, device="cpu")
+        rec = _ReluInputs()
+        with rec:
+            m = make_train_step(cfg, net, state, device="cpu")(batch, 0.0)
+        runs[setting] = (float(m["loss"]), rec.calls)
+    (merged_loss, merged), (separate_loss, separate) = runs["auto"], runs["off"]
+    np.testing.assert_allclose(merged_loss, separate_loss, rtol=1e-5)
+    assert len(merged) == len(separate) > 0
+    for k, (a, b) in enumerate(zip(merged, separate)):
+        tol = 1e-5 * float(b.square().mean().sqrt())
+        assert float((a - b).abs().max()) <= tol, f"relu call {k}: {float((a - b).abs().max())}"
+        flip = (a > 0) != (b > 0)
+        assert bool((a[flip].abs() <= tol).all() and (b[flip].abs() <= tol).all()), k
 
 
 def test_half_width_unfused_lanegcn_matches_jax(monkeypatch):

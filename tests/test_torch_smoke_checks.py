@@ -261,17 +261,28 @@ def test_scatter_cases_are_what_their_names_say(backward):
     against its name: the forward's (msg, temp, lu, wchunk, stride) or the
     backward's (g, lu, wchunk, stride) layout at 128 channels, and the edge
     property the case exists for."""
+    _check_scatter_cases(backward, C)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_scatter_cases_at_64_are_what_their_names_say(backward):
+    """The same at 64 channels (`scatter_case_calls(width=64)`, the
+    half_lanercnn geometry's)."""
+    _check_scatter_cases(backward, 64)
+
+
+def _check_scatter_cases(backward, width):
     from lanegcn_tpu_torch.ops.window_scatter import WCHUNK, flat_destinations
 
-    calls, counts, empty = cs.scatter_case_calls(backward=backward, dev="cpu")
+    calls, counts, empty = cs.scatter_case_calls(backward=backward, dev="cpu", width=width)
     assert len(calls) == len(cs.SCATTER_CASES) and not any(counts.values())
     blocks = cs.SCATTER_BLOCKS
     for (name, num_win, stride, cap, _), (key, a) in zip(cs.SCATTER_CASES, calls.items()):
         n = num_win * stride
         lu, wchunk = a[-3], a[-2]
-        assert a[-1] == stride and a[-4].shape == (n, C) and lu.shape == (cap, 1)
+        assert a[-1] == stride and a[-4].shape == (n, width) and lu.shape == (cap, 1)
         if not backward:
-            assert a[0].shape == (cap, C) and a[0].dtype == torch.bfloat16
+            assert a[0].shape == (cap, width) and a[0].dtype == torch.bfloat16
         assert bool((wchunk[1:] >= wchunk[:-1]).all())
         dst = flat_destinations(lu, wchunk, stride, n)
         valid = dst < n
@@ -295,6 +306,48 @@ def test_scatter_cases_are_what_their_names_say(backward):
             assert int(both.sum()) >= 10
         elif name == "stride-200":
             assert stride % blocks["ROWS_BIG"] and n >= blocks["BIG_FROM"]
+
+
+def test_narrow_refused_is_the_first_width_checked_kernel(monkeypatch):
+    """A LaneRCNN train step's kernel calls in order (the model's wrappers and
+    the segment sum, on the CPU, at the half_lanercnn geometry's `refused`
+    width): the first call not of ANY_WIDTH's kernels is NARROW_REFUSED's
+    kernel, whose check refuses that width, so on the card the step stops
+    there with nothing but the segment sum launched."""
+    import dataclasses
+
+    from lanegcn_tpu_torch.graph import RoiPackedBatch
+    from lanegcn_tpu_torch.models.registry import get_model
+    from lanegcn_tpu_torch.ops import scenario_agg, segment_sum
+    from lanegcn_tpu_torch.train.loop import init_state, make_train_step
+
+    spec = cs.GEOMETRIES["half_lanercnn"]
+    cfg = cs.pack_config("half_lanercnn", 2)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **spec["refused"]))
+    packs, _, _, _ = cs.make_packs(cfg, 1, 2, seed0=0, roi=True)
+    bundle = get_model("lanercnn", cfg, device="cpu", seed=0)
+    net, state = init_state(bundle.config, net=bundle.net, device="cpu")
+    step = make_train_step(bundle.config, net, state, device="cpu", loss_fn=bundle.loss_fn,
+                           metrics_fn=bundle.metrics_fn)
+    order = []
+    targets = cs.forward_capture().targets + [(segment_sum, "sorted_segment_sum", "segment_sum")]
+    for mod, attr, name in targets:
+        fn = getattr(mod, attr)
+        monkeypatch.setattr(mod, attr,
+                            lambda *a, _fn=fn, _n=name, **k: (order.append(_n), _fn(*a, **k))[1])
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        step(RoiPackedBatch.from_numpy(packs[0]), 0.0)
+    finally:
+        torch.set_num_threads(n)
+    first = next(k for k in order if k not in cs.ANY_WIDTH)
+    assert [first] == list(cs.NARROW_REFUSED) and order.index(first) > 0
+    width = spec["refused"]["n_map"]
+    x = torch.zeros(512, width)
+    with pytest.raises(ValueError, match=rf"^{first}: .*not {width}"):
+        scenario_agg._fwd_cuda(x, x, torch.zeros(14, width, width),
+                               *[torch.zeros(512, 1, dtype=torch.int32)] * 3, 1, None)
 
 
 def test_mesh_union_order_lays_out_the_columns_as_the_step_gathers_them():
@@ -422,6 +475,12 @@ def test_relu_recorder_follows_a_train_step():
     ("band_conv_bwd", [(9, 64), (12, 9), (12, 64, 64), (9, 64)], 64),
     ("lane_plan", [(9, 64), (9, 64), (12, 9), (12, 64, 64)], 64),
     ("lane_plan_bwd", [(9, 128), (9, 128), (12, 9), (12, 128, 128)], 128),
+    ("window_scatter", [(512, 64), (256, 64), (512, 1), (1,)], 64),
+    ("window_scatter_bwd", [(256, 128), (512, 1), (1,)], 128),
+    ("row_tail2", [(9, 64), (9, 64), (64, 64)], 64),
+    ("row_tail2_bwd", [(9, 64), (9, 64), (64, 64)], 64),
+    ("edge_mlp_pool", [(9, 4), (1,), (9, 64), (4, 64)], 64),
+    ("edge_mlp_pool_bwd", [(9, 4), (9, 64), (4, 64)], 64),
 ])
 def test_call_width_reads_the_rows_argument(name, shapes, width):
     """call_width takes the width from the argument ROWS_ARG names (d's 2
