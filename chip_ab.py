@@ -42,8 +42,11 @@ and then backwards' did, and then band_conv's and lane_plan's both ways);
 window_scatter and its backward on
 LaneRCNN's geometry (both pool scatters, r2g and g2r; their C interfaces
 took the row width, as row_tail2's and LanePooling's edge_mlp's both ways
-did: the other tree's through its own wrappers). window_scatter, row_tail
-and edge_mlp run in float32 as well as bfloat16 (`DTYPES`). Each call shape
+did: the other tree's through its own wrappers). lane_layer, row_tail and
+edge_mlp also run at W = 64 (`half`; `widths`, Att's tails and A2A's edge
+MLP at 64 beside A2M's at 128; `half_lanercnn`, LanePooling's tail and
+edge MLP). window_scatter, row_tail, edge_mlp and lane_layer run in
+float32 as well as bfloat16 (`DTYPES`). Each call shape
 (A2M, M2A, A2A) of the forward and of the backward runs once per build (the
 largest difference between the two builds' outputs is printed, and
 whether they are bitwise equal;
@@ -78,17 +81,21 @@ ROUNDS = 8
 # kernel library: ((geometry whose forward and train step run it, the
 # forward op's capture name there), ...)
 TARGETS = {"win_edge": (("windowed", "win_edge"),),
-           "edge_mlp": (("contiguous", "edge_mlp"), ("lanercnn", "edge_mlp_pool")),
-           "lane_layer": (("windowed", "lane_layer"),), "lane_plan": (("merged", "lane_plan"),),
+           "edge_mlp": (("contiguous", "edge_mlp"), ("lanercnn", "edge_mlp_pool"),
+                        ("widths", "edge_mlp"), ("half_lanercnn", "edge_mlp_pool")),
+           "lane_layer": (("windowed", "lane_layer"), ("half", "lane_layer")),
+           "lane_plan": (("merged", "lane_plan"),),
            "band_conv": (("unfused", "band_conv"),),
            "segment_sum": (("windowed", "segment_sum"), ("lanercnn", "segment_sum"),
                            ("flat", "segment_sum")),
            "scenario_agg": (("windowed", "scenario_agg"), ("lanercnn", "scenario_agg")),
            "pair_agg": (("bench", "pair_agg"),),
-           "row_tail": (("windowed", "row_tail"), ("lanercnn", "row_tail2")),
+           "row_tail": (("windowed", "row_tail"), ("lanercnn", "row_tail2"),
+                        ("widths", "row_tail"), ("half_lanercnn", "row_tail2")),
            "window_scatter": (("lanercnn", "window_scatter"),)}
 # Kernel libraries timed in float32 as well as bfloat16 (default: bf16 only).
-DTYPES = {k: ("bfloat16", "float32") for k in ("window_scatter", "row_tail", "edge_mlp")}
+DTYPES = {k: ("bfloat16", "float32")
+          for k in ("window_scatter", "row_tail", "edge_mlp", "lane_layer")}
 # Kernel libraries whose C interface changed: the other tree's calls go
 # through its own wrapper module (ops/<name>.py under that tree, loaded
 # beside this checkout's package, its `cuda.call`s landing on the other
@@ -158,18 +165,28 @@ def old_wrappers(old_root: Path, name: str):
         spec.loader.exec_module(mod)
         return mod
 
-    deps = {f"lanegcn_tpu_torch.ops.{d}": load(ops / f"{d}.py", f"ab_old_{d}")
-            for d in OLD_IMPORTS.get(name, ())}
-    saved = {k: sys.modules.get(k) for k in deps}
-    sys.modules.update(deps)
+    # The other tree's wrappers import their width check's table from
+    # ops/cuda.py by name: they get the other tree's (a tuple of widths
+    # before each entry had its own), the rest of this checkout's module.
+    from lanegcn_tpu_torch.ops import cuda
+
+    widths = cuda.WIDTHS
+    cuda.WIDTHS = getattr(load(ops / "cuda.py", "ab_old_cuda"), "WIDTHS", widths)
     try:
-        mod = load(src, f"ab_old_{name}")
+        deps = {f"lanegcn_tpu_torch.ops.{d}": load(ops / f"{d}.py", f"ab_old_{d}")
+                for d in OLD_IMPORTS.get(name, ())}
+        saved = {k: sys.modules.get(k) for k in deps}
+        sys.modules.update(deps)
+        try:
+            mod = load(src, f"ab_old_{name}")
+        finally:
+            for k, m in saved.items():
+                if m is None:
+                    del sys.modules[k]
+                else:
+                    sys.modules[k] = m
     finally:
-        for k, m in saved.items():
-            if m is None:
-                del sys.modules[k]
-            else:
-                sys.modules[k] = m
+        cuda.WIDTHS = widths
     return {k: (lambda *a, _f=getattr(mod, attr), _n=n: _f(*a[:_n]))
             for k, (attr, n) in OWN_WRAPPERS[name].items()}
 

@@ -13,7 +13,9 @@ one card).
 
 It also serves and trains the half-width LaneGCN (n_map = n_actor = 64) on
 the bench layout, its kernels at W = 64 both ways, and in the two other
-layer settings: merged (lane_plan) and unfused (band_conv) at W = 64.
+layer settings: merged (lane_plan) and unfused (band_conv) at W = 64; and
+serves the double-width LaneGCN (n_map = n_actor = 256) on the CLI's
+layout, its three forward kernels at W = 256.
 
 Geometries (lanegcn_tpu_torch/config.py), driven in this order:
   windowed    windowed_pack_config(256): node_stride 768, window plan 2048,
@@ -62,12 +64,18 @@ Geometries (lanegcn_tpu_torch/config.py), driven in this order:
   half_lanercnn  lanercnn at n_map = n_actor = 64: every LaneRCNN kernel at
               W = 64 both ways, window_scatter, row_tail2 and
               edge_mlp_pool among them (the lanercnn launches).
+  double      contiguous at n_map = n_actor = 256, full depth, served only:
+              lane_layer, Att's edge_mlp and row_tail at W = 256
+              (csrc/wide.cuh's kernels; the contiguous launches); phases
+              pack, kernel, parity, serve (+ profile), serve_rerun,
+              refused_step and refused_serve.
 
 Phases, one JSON line each (tagged with the geometry); any failure raises
 and exits non-zero:
   env     torch / CUDA / Triton / nvcc versions, the card's name and power
           limit, and the kernels' build time (one nvcc per source, in
-          parallel).
+          parallel), with ptxas's registers and spills of the 256-wide
+          kernels (`ptxas_wide`).
   pack    2 packs of synthetic urban scenarios, zero drops asserted; the
           edges left in the classic residue lists and, on the bench
           geometry, the spill-plan edges (asserted > 0); on lanercnn the
@@ -201,7 +209,8 @@ and exits non-zero:
           merged, the separate kernels against the merged layer
           (merge_plan_agg); unfused, the fused layer against the unfused
           one (pallas_bands).
-  serve_rerun  (half) two bf16 eval forwards of one pack bitwise equal.
+  serve_rerun  (half, double) two bf16 eval forwards of one pack bitwise
+          equal.
   refused_train  (half_lanercnn) one bf16 train step of the same model
           with the geometry's `refused` fields (n_map = n_actor = 96, a
           width no kernel takes): it must raise ValueError naming the
@@ -210,6 +219,14 @@ and exits non-zero:
           after no launch but the any-width segment sum's, that kernel's
           entries never launched, no backward launched, no plain version
           of the refusing kernel or plain backward run on the card.
+  refused_step  (double) one bf16 train step of the double-width model on
+          its pack: it must raise ValueError at its first backward
+          (`WIDE_REFUSED_STEP`: A2A's row_tail_bwd, not built at 256)
+          after exactly the eval forward's launches (its per_forward), the
+          forwards all on their 256-wide kernels.
+  refused_serve  (double) one bf16 eval forward of the same model on 8
+          scenarios of the bench layout: it must raise ValueError at
+          scenario_agg (`WIDE_REFUSED_SERVE`) after only segment sums.
 After the geometries, phases without a geometry:
   cli     python -m lanegcn_tpu_torch.cli as a user runs it (bf16, 2 pack
           workers, packs of 32): preprocess 128 urban scenarios to shards
@@ -303,8 +320,9 @@ row width a kernel was checked at, 128 and, for row_tail, row_tail_bwd,
 edge_mlp and edge_mlp_bwd (widths), lane_layer, scenario_agg, pair_agg,
 win_edge, row_tail and their backwards (half), lane_plan and lane_plan_bwd
 (half_merged), band_conv and band_conv_bwd (half_unfused), window_scatter,
-row_tail2, edge_mlp_pool and their backwards (half_lanercnn), 64, with the
-geometry that checked it),
+row_tail2, edge_mlp_pool and their backwards (half_lanercnn), 64, and for
+lane_layer, edge_mlp and row_tail (double), 256, with the geometry that
+checked it),
 the nvidia-smi name/power-limit line, and last the `ok` line with the
 device.
 
@@ -317,6 +335,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -443,6 +462,12 @@ _RCNN_STEP = {**_RCNN_FWD, "lane_layer_bwd": 12, "scenario_agg_bwd": 12,
               "segment_sum": 30}
 _RCNN_REMAT_STEP = {**_RCNN_STEP, "window_scatter_fwd": 4, "edge_mlp_pool_fwd": 6,
                     "row_tail2_fwd": 6, "segment_sum": 31}
+# The double geometry's refusals: the first kernel each run reaches that is
+# not built at 256, by its C entries. A train step's first backward is A2A's
+# last row tail's; an eval forward on the bench layout reaches the window
+# plan's aggregate after LaneInput's segment sums.
+WIDE_REFUSED_STEP = {"row_tail_bwd": ("row_tail_bwd",)}
+WIDE_REFUSED_SERVE = {"scenario_agg": ("scenario_agg_fwd",)}
 GEOMETRIES = {
     "windowed": dict(model="lanegcn", config="windowed_pack_config", s=256,
                      kernels=("lane_layer", "scenario_agg", "win_edge", "row_tail"),
@@ -529,6 +554,19 @@ GEOMETRIES = {
                           per_forward=_RCNN_FWD, per_train_step=_RCNN_STEP,
                           per_remat_step=_RCNN_REMAT_STEP,
                           refused=dict(n_map=96, n_actor=96)),
+    # The double-width model (n_map = n_actor = 256) on the CLI's contiguous
+    # layout at full depth: lane_layer, Att's edge_mlp and row_tail at W =
+    # 256 (csrc/wide.cuh), the contiguous launches. It serves and does not
+    # train (no per_train_step): its backwards are not built at 256, so a
+    # train step must refuse at its first backward (`refused_step`), and an
+    # eval forward at 256 on the bench layout at its first kernel not built
+    # at 256 (`refused_serve`: the geometry and the refusal).
+    "double": dict(model="lanegcn", config="contiguous_pack_config", s=32,
+                   model_fields=dict(n_map=256, n_actor=256),
+                   kernels=("lane_layer", "edge_mlp", "row_tail"), step_kernels=(),
+                   per_forward=_CONTIGUOUS_FWD, serve_rerun=True,
+                   refused_step=WIDE_REFUSED_STEP,
+                   refused_serve=("bench", WIDE_REFUSED_SERVE)),
 }
 # The first width-checked kernel a LaneRCNN train step reaches at a width
 # no kernel takes (the half_lanercnn geometry's `refused` fields), by its C
@@ -1779,16 +1817,24 @@ def drive(geom):
         cap.counts["lane_plan"].update(counts)
     if geom == "widths":
         add_tail_cases("row_tail", cap, width=64)
-    if geom == "half":
+    if geom in ("half", "double"):
         calls, counts = lane_case_calls(cap.calls["lane_layer"])
         cap.calls["lane_layer"].update(calls)
         cap.counts["lane_layer"].update(counts)
-        add_tail_cases("row_tail", cap, width=64)
-    edge_pad = add_edge_cases("edge_mlp", cap) if geom in ("contiguous", "widths") else None
+        add_tail_cases("row_tail", cap, width=cfg.model.n_actor)
+    edge_pad = (add_edge_cases("edge_mlp", cap) if geom in ("contiguous", "widths", "double")
+                else None)
     results = kernel_phase("kernel", geom, forward_ops(spec["kernels"]), cap.calls, cap.counts)
     if edge_pad is not None:
         check_edge_padding(geom, "edge_mlp", edge_pad)
     del cap, edge_pad
+    if "per_train_step" not in spec:  # serves only
+        parity_phase(geom)
+        serve = serve_phase(geom, step, batches, results, pack_s)
+        if spec.get("serve_rerun"):
+            serve_rerun_phase(geom, step, batches[0])
+        refused_wide_phases(geom, cfg, batches[0])
+        return results, serve, None
 
     # --- backward kernels against their plain backwards, on a train step's inputs ---
     net_t, state = init_state(cfg, dtype=torch.bfloat16)
@@ -2597,54 +2643,100 @@ def serve_rerun_phase(geom, step, batch):
     check(not apart, f"{geom}: a rerun of the eval forward differs in {apart}")
 
 
-def refused_train_phase(geom, cfg, batch):
-    """A bf16 train step of the geometry's model with its `refused` fields
-    (LaneRCNN at n_map = n_actor = 96): the step must raise ValueError
-    naming the kernel of NARROW_REFUSED (by its check: the kernels take
-    rows 64 or 128 wide) and the width, before any of that kernel's entries
-    launches (their counts stay 0), with nothing launched but ANY_WIDTH's
-    entries, and with no plain version of the refusing kernel or plain
-    backward run in a kernel's place on the card (both watched). What
-    launched before it is printed."""
-    import dataclasses
-
+def refusal_phase(phase, geom, width, run, refusing, before, extra=None):
+    """run() must raise a ValueError naming a kernel of `refusing` ({kernel:
+    its C entries}) and the width (the kernel's check: "not <width>"),
+    before any of that kernel's entries launches (their counts stay 0),
+    with only `before` launched ahead of it (a dict: exactly those counts;
+    a tuple: entries that may launch) and no plain version of a refusing
+    kernel or plain backward run in a kernel's place on the card (both
+    watched). What launched before it is printed."""
     import torch
-    from lanegcn_tpu_torch.models.registry import get_model
     from lanegcn_tpu_torch.ops import cuda
-    from lanegcn_tpu_torch.train.loop import init_state, make_train_step
 
-    spec = GEOMETRIES[geom]
-    rcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **spec["refused"]))
-    width = rcfg.model.n_map
-    bundle = get_model(spec["model"], rcfg, dtype=torch.bfloat16, seed=0)
-    net, state = init_state(bundle.config, net=bundle.net)
-    tstep = make_train_step(bundle.config, net, state, loss_fn=bundle.loss_fn,
-                            metrics_fn=bundle.metrics_fn)
     plain = plain_backward_watch(forward=True)
     cuda.reset_launch_counts()
     err = None
     with plain:
         try:
-            tstep(batch, 0.0)
+            run()
         except ValueError as e:
             err = str(e)
     torch.cuda.synchronize()
     counts = cuda.launch_counts()
-    named = [k for k in NARROW_REFUSED if err is not None and err.startswith(k + ":")]
+    named = [k for k in refusing if err is not None and err.startswith(k + ":")]
     plain_calls = {k: sum(v.values()) for k, v in plain.counts.items() if v}
     launched = {k: v for k, v in counts.items() if v}
-    emit({"phase": "refused_train", "geometry": geom, "width": width,
-          "fields": spec["refused"], "error": err, "refused_at": named[0] if named else None,
-          "launched": launched, "plain_calls": plain_calls})
-    check(err is not None, f"{geom}: a train step at width {width} with {spec['refused']} ran "
-          f"without a ValueError")
+    emit({"phase": phase, "geometry": geom, "width": width, **(extra or {}), "error": err,
+          "refused_at": named[0] if named else None, "launched": launched,
+          "plain_calls": plain_calls})
+    check(err is not None, f"{geom} {phase}: a run at width {width} ended without a ValueError")
     check(bool(named) and f"not {width}" in err,
-          f"{geom}: the step's ValueError names no refusing kernel and width {width}: {err}")
-    check(all(counts[e] == 0 for e in NARROW_REFUSED[named[0]]),
-          f"{geom}: {named[0]} launched before it refused: {launched}")
-    check(set(launched) <= set(ANY_WIDTH),
-          f"{geom}: a kernel other than {ANY_WIDTH} launched before the refusal: {launched}")
-    check(not plain_calls, f"{geom}: plain versions ran on the card: {plain_calls}")
+          f"{geom} {phase}: the ValueError names no refusing kernel and width {width}: {err}")
+    check(all(counts[e] == 0 for e in refusing[named[0]]),
+          f"{geom} {phase}: {named[0]} launched before it refused: {launched}")
+    if isinstance(before, dict):
+        check(launched == {k: v for k, v in before.items() if v},
+              f"{geom} {phase}: launched {launched} before the refusal, expected {before}")
+    else:
+        check(set(launched) <= set(before),
+              f"{geom} {phase}: a kernel other than {before} launched before the refusal: "
+              f"{launched}")
+    check(not plain_calls, f"{geom} {phase}: plain versions ran on the card: {plain_calls}")
+
+
+def refused_train_phase(geom, cfg, batch):
+    """A bf16 train step of the geometry's model with its `refused` fields
+    (LaneRCNN at n_map = n_actor = 96) must refuse at NARROW_REFUSED's
+    kernel (by its check: the kernels take rows 64 or 128 wide) with
+    nothing launched but ANY_WIDTH's entries (`refusal_phase`)."""
+    import dataclasses
+
+    import torch
+    from lanegcn_tpu_torch.models.registry import get_model
+    from lanegcn_tpu_torch.train.loop import init_state, make_train_step
+
+    spec = GEOMETRIES[geom]
+    rcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **spec["refused"]))
+    bundle = get_model(spec["model"], rcfg, dtype=torch.bfloat16, seed=0)
+    net, state = init_state(bundle.config, net=bundle.net)
+    tstep = make_train_step(bundle.config, net, state, loss_fn=bundle.loss_fn,
+                            metrics_fn=bundle.metrics_fn)
+    refusal_phase("refused_train", geom, rcfg.model.n_map, lambda: tstep(batch, 0.0),
+                  NARROW_REFUSED, ANY_WIDTH, {"fields": spec["refused"]})
+
+
+def refused_wide_phases(geom, cfg, batch):
+    """The double geometry's refusals (`refusal_phase`): a bf16 train step
+    on its pack must stop at its first backward (`refused_step`) after
+    exactly the eval forward's launches, its forwards all on the kernels
+    at 256; an eval forward of the same model on 8 scenarios of the
+    `refused_serve` geometry's layout must stop at that geometry's first
+    kernel not built at 256, with nothing launched but ANY_WIDTH's."""
+    import dataclasses
+
+    import torch
+    from lanegcn_tpu_torch.graph import PackedBatch
+    from lanegcn_tpu_torch.models.registry import get_model
+    from lanegcn_tpu_torch.train.loop import init_state, make_eval_step, make_train_step
+
+    spec = GEOMETRIES[geom]
+    width = cfg.model.n_map
+    net, state = init_state(cfg, dtype=torch.bfloat16)
+    tstep = make_train_step(cfg, net, state)
+    refusal_phase("refused_step", geom, width, lambda: tstep(batch, 0.0), spec["refused_step"],
+                  spec["per_forward"])
+    del net, state, tstep
+    other, refusing = spec["refused_serve"]
+    s = 8
+    ocfg = pack_config(other, s)
+    ocfg = dataclasses.replace(ocfg, model=dataclasses.replace(ocfg.model,
+                                                               **spec["model_fields"]))
+    packs, _, _, _ = make_packs(ocfg, 1, s, seed0=0, pack_kw=pack_kwargs(other))
+    step = make_eval_step(ocfg, get_model("lanegcn", ocfg, dtype=torch.bfloat16, seed=0).net)
+    obatch = PackedBatch.from_numpy(packs[0]).to("cuda")
+    refusal_phase("refused_serve", geom, width, lambda: step(obatch), refusing, ANY_WIDTH,
+                  {"layout": GEOMETRIES[other]["config"], "scenarios": s})
 
 
 def plain_backward_watch(forward=False):
@@ -4654,6 +4746,33 @@ def mesh_witness_phase(s=MESH_WITNESS_S, devices=("cuda", "cpu")):
     shutil.rmtree(root, ignore_errors=True)
 
 
+def kernel_name(mangled):
+    """A kernel's own name inside its mangled entry name (the identifier
+    after its length prefix that ends in "_kernel"), else the name itself."""
+    for j in range(1, len(mangled)):
+        i = j
+        while i > 0 and mangled[i - 1].isdigit():
+            i -= 1
+            name = mangled[j:j + int(mangled[i:j])]
+            if name.endswith("_kernel"):
+                return name
+    return mangled
+
+
+def ptxas_entries(logs, part):
+    """{kernel: its registers and spill lines} from `nvcc -Xptxas -v` logs
+    ({library: log}) for the entry functions whose name holds `part`."""
+    out, entry = {}, None
+    for log in logs.values():
+        for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                entry = kernel_name(m.group(1)) if part in m.group(1) else None
+            elif entry and ("registers" in ln or "spill" in ln):
+                out.setdefault(entry, []).append(ln.split(":", 1)[-1].strip())
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -4686,7 +4805,8 @@ def main() -> None:
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "triton": triton_version, "nvcc": nvcc, "gpu": smi,
           "device": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
-          "build_s": build["seconds"], "ptxas": ptxas})
+          "build_s": build["seconds"], "ptxas": ptxas,
+          "ptxas_wide": ptxas_entries(build["ptxas"], "_wide")})
     if sys.argv[1:] == ["mesh-witness"]:
         mesh_witness_phase()
         print(smi, flush=True)

@@ -10,7 +10,8 @@
 // column stays exactly zero through the chain and adds exactly nothing to
 // a product; only W columns are stored. The helpers below take W as a
 // template parameter with default C, and at W = C compile to the code
-// they were before W existed.
+// they were before W existed. Three forwards also run 256-wide rows, on a
+// tiling of their own (wide.cuh).
 //
 // The kernels keep activations in shared memory as fp32 rows, run their
 // [rows x 128] x [128 x 128] products on CUDA cores with fp32 accumulation
@@ -698,6 +699,17 @@ template <typename F> int with_width_dtype(int width, int dtype, F&& f) {
     if (dtype == 1) return f(Wc, dtype_c<bf16>{});
     return (int)cudaErrorInvalidValue;
   });
+}
+
+// The entries also built at W = 256 (lane_layer_fwd, row_tail_fwd and
+// edge_mlp_fwd, on wide.cuh's kernels of their own): f(width_c<256>{},
+// dtype_c<T>{}) at width 256, else with_width_dtype. Every other entry
+// dispatches through with_width or with_width_dtype and refuses 256.
+template <typename F> int with_width_dtype_256(int width, int dtype, F&& f) {
+  if (width != 2 * C) return with_width_dtype(width, dtype, f);
+  if (dtype == 0) return f(width_c<2 * C>{}, dtype_c<float>{});
+  if (dtype == 1) return f(width_c<2 * C>{}, dtype_c<bf16>{});
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace lgk

@@ -88,7 +88,9 @@
 // [E, 4W] and the weight gradients W x W. The wgmma products keep their
 // m64n128k16 shape with K cut to W, so half of N multiplies zero columns.
 // At W = 128 each kernel compiles to the code it was before the width
-// existed. LanePooling's configuration (edge_mlp_pool_fwd / _bwd, below)
+// existed. Att's forward also takes W = 256, on kernels of their own
+// (edge_mlp_wide_kernel, edge_mlp_wide_tc_kernel, below; wide.cuh).
+// LanePooling's configuration (edge_mlp_pool_fwd / _bwd, below)
 // takes W = 64 the same way (LaneRCNN at n_map = 64): cg, out, g and dcg
 // rows, Wd's columns, bd and the GN affines W wide, K1 and Wout zero-padded,
 // the weight-gradient pass's second warpgroup idle (its input channels are
@@ -163,6 +165,7 @@
 
 #include "edge_chain.cuh"
 #include "edge_tc.cuh"
+#include "wide.cuh"
 
 using namespace lgk;
 
@@ -1251,11 +1254,222 @@ int launch_pool_bwd(const float* d, const void* cg, const void* g, const void* k
   }
 }
 
+// --- Att's chain at W = 256 (wide.cuh's tiling; the double-width model's
+// fusion edges) -----------------------------------------------------------------
+//
+// fp32 (edge_mlp_wide_kernel, the parity path): a block per 64-row tile,
+// the chain in one fp32 [64 x 256] tile (t1, then z → t2, s → e1 in
+// place), GN by warp-a-row, the three products on CUDA cores with each
+// weight streamed in KC-row chunks; 97 KB of shared memory.
+// bf16 (edge_mlp_wide_tc_kernel): a persistent grid of two-warpgroup
+// blocks walking pairs of 64-row tiles, one a warpgroup. Wdo, K1 and Wout
+// (3 x 128 KB) do not fit whole: they stream through a ring of four
+// quadrant slots (QuadRing), three quadrants ahead of the products, so the
+// next weight loads while a GroupNorm runs. Each warpgroup makes t1 from
+// d straight into its A operand in shared memory; z = t1 @ Wdo, s = t2 @
+// K1 and out = e1 @ Wout on wgmma into two m64n128 accumulators; t2 and e1
+// made on the accumulators (cg then qg added to s from device memory) and
+// written back to the A operand; out rounded and stored from the
+// accumulators. A warpgroup whose tile lies past e runs the chain on zero
+// rows and stores nothing (every thread takes part in every ring step).
+// What bounds it: d, qg, cg read and out written (8 bytes and 3·256 bf16 a
+// row) against 3·2·256² operations a row: 255 operations a byte, just below
+// the card's ~295, so bytes, and nearly operations.
+
+__global__ void __launch_bounds__(NT)
+edge_mlp_wide_kernel(const float* __restrict__ d, const float* __restrict__ qg,
+                     const float* __restrict__ cg, const float* __restrict__ kd,
+                     const float* __restrict__ bd, const float* __restrict__ kdo,
+                     const float* __restrict__ gdow, const float* __restrict__ gdob,
+                     const float* __restrict__ k1, const float* __restrict__ gchw,
+                     const float* __restrict__ gchb, const float* __restrict__ kout,
+                     float* __restrict__ out, int e, float eps) {
+  constexpr int WW = wide::WW, LDW = wide::LDW;
+  extern __shared__ float4 smem4[];
+  float* A_s = reinterpret_cast<float*>(smem4);  // [EB][LDW]
+  float* W_s = A_s + EB * LDW;                   // [KC][256]
+  const long row0 = (long)blockIdx.x * EB;
+  const int warp = threadIdx.x >> 5;
+  const float ones[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
+  float acc[8][8];
+
+  // t1 = relu(d @ Wd + bd), 0 past e (tile_t1's arithmetic)
+  for (int i = threadIdx.x; i < EB * (WW / 4); i += NT) {
+    const int r = i / (WW / 4), c4 = (i % (WW / 4)) * 4;
+    const long row = row0 + r;
+    float4 t = zero4();
+    if (row < e) {
+      const float d0 = d[row * 2], d1 = d[row * 2 + 1];
+      const float4 k0 = load4<float>(kd + c4), kk = load4<float>(kd + WW + c4);
+      t = make_float4(d0 * k0.x, d0 * k0.y, d0 * k0.z, d0 * k0.w);
+      t = make_float4(fmaf(d1, kk.x, t.x), fmaf(d1, kk.y, t.y), fmaf(d1, kk.z, t.z),
+                      fmaf(d1, kk.w, t.w));
+      t = relu4(add4(t, *reinterpret_cast<const float4*>(bd + c4)));
+    }
+    *reinterpret_cast<float4*>(A_s + r * LDW + c4) = t;
+  }
+  wide::zero8(acc);
+  wide::mm_rows(A_s, 0, ones, kdo, W_s, acc);  // z = t1 @ Wdo
+  __syncthreads();
+  wide::store_tile(A_s, acc);
+  __syncthreads();
+  wide::gn_relu_tile(A_s, gdow, gdob, eps);  // t2
+  wide::zero8(acc);
+  wide::mm_rows(A_s, 0, ones, k1, W_s, acc);  // s = t2 @ K1
+  __syncthreads();
+  wide::store_tile(A_s, acc);
+  __syncthreads();
+  for (int r = warp; r < EB; r += NT / 32) {  // e1 = relu(GN(s + cg + qg))
+    const long row = row0 + r;
+    float* p = A_s + r * LDW;
+    wide::Row sv = wide::ld_row(p);
+    if (row < e) {
+      sv = wide::add_row(sv, wide::ld_row_g<float>(cg + row * WW));
+      sv = wide::add_row(sv, wide::ld_row_g<float>(qg + row * WW));
+    }
+    wide::st_row(p, wide::relu_row(wide::gn_row(sv, gchw, gchb, eps)));
+  }
+  wide::zero8(acc);
+  wide::mm_rows(A_s, 0, ones, kout, W_s, acc);  // e2 = e1 @ Wout
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const long row = row0 + wide::wrow(i);
+    if (row < e) {
+      *reinterpret_cast<float4*>(out + row * WW + wide::wcol(0)) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *reinterpret_cast<float4*>(out + row * WW + wide::wcol(4)) =
+          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+  }
+}
+
+constexpr int EW_WGS = 2;
+constexpr int EW_THREADS = 128 * EW_WGS;
+constexpr int EW_RING = 4;  // quadrant slots
+
+inline int edge_mlp_wide_tc_smem() {
+  return EW_RING * wide::QB + EW_WGS * 2 * wide::HB + 7 * wide::WW * (int)sizeof(float);
+}
+
+__global__ void __launch_bounds__(EW_THREADS, 1)
+edge_mlp_wide_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ qg,
+                        const bf16* __restrict__ cg, const bf16* __restrict__ kd,
+                        const float* __restrict__ bd, const bf16* __restrict__ kdo,
+                        const float* __restrict__ gdow, const float* __restrict__ gdob,
+                        const bf16* __restrict__ k1, const float* __restrict__ gchw,
+                        const float* __restrict__ gchb, const bf16* __restrict__ kout,
+                        bf16* __restrict__ out, int e, float eps) {
+  constexpr int WW = wide::WW;
+  extern __shared__ float4 smem4[];
+  uint8_t* R_b = reinterpret_cast<uint8_t*>(smem4);  // the ring's quadrant slots
+  uint8_t* H_all = R_b + EW_RING * wide::QB;
+  // bd, gdow, gdob, gchw, gchb, then Wd's two rows (as floats)
+  float* vec_s = reinterpret_cast<float*>(H_all + EW_WGS * 2 * wide::HB);
+  const int wg = threadIdx.x >> 7;
+  uint8_t* H_b = H_all + wg * 2 * wide::HB;  // the warpgroup's A operand
+
+  const int ntiles = (e + EB - 1) / EB, pairs = (ntiles + EW_WGS - 1) / EW_WGS;
+  const int mine = blockIdx.x < pairs ? (pairs - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  auto chain = [=](int k) { return k % 3 == 0 ? kdo : k % 3 == 1 ? k1 : kout; };
+  auto ring = wide::quad_ring<EW_RING>(R_b, chain, 12 * mine);
+  ring.start();
+  for (int i = threadIdx.x; i < 7 * WW; i += EW_THREADS) {
+    const int k = i / WW, c = i & (WW - 1);
+    const float* v = k == 0 ? bd : k == 1 ? gdow : k == 2 ? gdob : k == 3 ? gchw : gchb;
+    vec_s[i] = k < 5 ? v[c] : __bfloat162float(kd[(k - 5) * WW + c]);
+  }
+  const float *bd_s = vec_s, *gdow_s = vec_s + WW, *gdob_s = vec_s + 2 * WW,
+              *gchw_s = vec_s + 3 * WW, *gchb_s = vec_s + 4 * WW, *kd_s = vec_s + 5 * WW;
+  __syncthreads();  // the vectors in place
+
+  for (int p = blockIdx.x; p < pairs; p += gridDim.x) {
+    const long row0 = (long)(p * EW_WGS + wg) * EB;
+    float dr[2][2];  // rnd(d) of the thread's two rows
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long row = row0 + tc::acc_row(2 * h);
+      dr[h][0] = row < e ? rnd<bf16>(d[row * 2]) : 0.f;
+      dr[h][1] = row < e ? rnd<bf16>(d[row * 2 + 1]) : 0.f;
+    }
+    wg_sync();  // the warpgroup's previous products are done with H
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {  // t1 = rnd(relu(rnd(d) @ rnd(Wd) + bd)) into H
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int h = tc::acc_half(i), c = wide::acc_col(n, i);
+        const bool in = row0 + tc::acc_row(i) < e;
+        float t0 = fmaf(dr[h][1], kd_s[WW + c], dr[h][0] * kd_s[c]);
+        float t1 = fmaf(dr[h][1], kd_s[WW + c + 1], dr[h][0] * kd_s[c + 1]);
+        t0 = in ? fmaxf(t0 + bd_s[c], 0.f) : 0.f;
+        t1 = in ? fmaxf(t1 + bd_s[c + 1], 0.f) : 0.f;
+        *wide::a_pair(H_b, tc::acc_row(i), c) = tc::pack_bf2(t0, t1);
+      }
+    }
+    float a[2][64];
+    wide::zero2(a);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) wide::mm_quadrant(a[q >> 1], H_b, q & 1, ring.take());  // z
+    wg_sync();
+    wide::gn_relu_to(H_b, a, gdow_s, gdob_s, eps);  // t2
+    wide::zero2(a);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) wide::mm_quadrant(a[q >> 1], H_b, q & 1, ring.take());  // s
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {  // s += cg + qg
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const long row = row0 + tc::acc_row(i);
+        if (row < e) {
+          const int c = wide::acc_col(n, i);
+          const float2 cv = ld_bf2(cg + row * WW + c), qv = ld_bf2(qg + row * WW + c);
+          a[n][i] = a[n][i] + cv.x + qv.x;
+          a[n][i + 1] = a[n][i + 1] + cv.y + qv.y;
+        }
+      }
+    }
+    wg_sync();
+    wide::gn_relu_to(H_b, a, gchw_s, gchb_s, eps);  // e1
+    wide::zero2(a);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) wide::mm_quadrant(a[q >> 1], H_b, q & 1, ring.take());  // out
+    wide::store_rows<bf16>(out, a, row0, e);
+  }
+}
+
+template <typename T>
+int launch_wide(const float* d, const void* qg, const void* cg, const void* kd, const float* bd,
+                const void* kdo, const float* gdow, const float* gdob, const void* k1,
+                const float* gchw, const float* gchb, const void* kout, void* out, int e,
+                float eps, cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int smem = edge_mlp_wide_tc_smem();
+    cudaError_t err = set_smem((const void*)edge_mlp_wide_tc_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int sms = wide::sm_count();
+    if (sms < 0) return (int)cudaGetLastError();
+    const int pairs = ((e + EB - 1) / EB + EW_WGS - 1) / EW_WGS, blocks = min(sms, pairs);
+    if (blocks > 0)
+      edge_mlp_wide_tc_kernel<<<blocks, EW_THREADS, smem, stream>>>(
+          d, (const bf16*)qg, (const bf16*)cg, (const bf16*)kd, bd, (const bf16*)kdo, gdow, gdob,
+          (const bf16*)k1, gchw, gchb, (const bf16*)kout, (bf16*)out, e, eps);
+  } else {
+    const int smem = wide::TILE_BYTES + wide::CHUNK_BYTES;
+    cudaError_t err = set_smem((const void*)edge_mlp_wide_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (e + EB - 1) / EB;
+    if (blocks > 0)
+      edge_mlp_wide_kernel<<<blocks, NT, smem, stream>>>(
+          d, (const float*)qg, (const float*)cg, (const float*)kd, bd, (const float*)kdo, gdow,
+          gdob, (const float*)k1, gchw, gchb, (const float*)kout, (float*)out, e, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (qg, cg, kd [2, W], kdo, k1, kout (in,
 // out), out); d fp32 [e, 2]; bd and the GN vectors fp32 [W]; qg, cg, out
-// [e, W]; W = width, 128 or 64. bf16: d, qg, cg and out 16-byte aligned
+// [e, W]; W = width, 128, 64 or 256. bf16: d, qg, cg and out 16-byte aligned
 // (cp.async and 16-byte row stores).
 extern "C" int edge_mlp_fwd(const void* d, const void* qg, const void* cg, const void* kd,
                             const void* bd, const void* kdo, const void* gdow, const void* gdob,
@@ -1264,9 +1478,13 @@ extern "C" int edge_mlp_fwd(const void* d, const void* qg, const void* cg, const
   cudaStream_t st = (cudaStream_t)stream;
   const float *dp = (const float*)d, *b = (const float*)bd, *g0 = (const float*)gdow,
               *g1 = (const float*)gdob, *g2 = (const float*)gchw, *g3 = (const float*)gchb;
-  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
-    return launch<typename decltype(Tc)::type, decltype(Wc)::value>(
-        dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout, out, e, eps, st);
+  return with_width_dtype_256(width, dtype, [&](auto Wc, auto Tc) {
+    using T = typename decltype(Tc)::type;
+    if constexpr (decltype(Wc)::value == 2 * C)
+      return launch_wide<T>(dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout, out, e, eps, st);
+    else
+      return launch<T, decltype(Wc)::value>(dp, qg, cg, kd, b, kdo, g0, g1, k1, g2, g3, kout,
+                                             out, e, eps, st);
   });
 }
 

@@ -56,7 +56,9 @@
 // columns of out and temp stored. The bf16 products keep m64n128k16 with K
 // cut to W (half of N multiplies zero columns). At W = 128 each kernel
 // compiles to the code it was before the width existed. The backward takes
-// W = 64 the same way (below).
+// W = 64 the same way (below). The forward also takes W = 256, on kernels
+// of their own (lane_layer_wide_kernel, lane_layer_wide_tc_kernel, below;
+// wide.cuh).
 //
 // Backward (`lane_layer_bwd`): replaces pallas_lane_layer.py `_bwd_kernel` /
 // `_bwd_impl`. It consumes the saved temp:
@@ -97,6 +99,7 @@
 // each kernel compiles to the code it was before the width existed;
 // lane_plan.cu's PLAN instantiation of the dx pass stays at 128.
 #include "lane_band.cuh"
+#include "wide.cuh"
 
 using namespace lgk;
 
@@ -179,6 +182,264 @@ int launch(const void* feat, const void* pre, const uint8_t* masks, const void* 
   return (int)cudaGetLastError();
 }
 
+// --- the forward at W = 256 (wide.cuh's tiling; the double-width model's
+// LaneConv layers) ----------------------------------------------------------------
+//
+// fp32 (lane_layer_wide_kernel, the parity path): a block per 64-row tile
+// holds the feat rows u − 32 .. u + 95 as a ±32-row fp32 halo tile; the
+// band products run on CUDA cores (wide.cuh mm_rows, the A rows at the
+// shifted halo rows, scaled by band_j[u]; a relation none of the tile's
+// rows has is skipped), temp goes back over the halo's first 64 rows (the
+// residual is read from feat in device memory), then the tail: GN1 by
+// warp-a-row, h @ W2, GN2, the residual and the ReLU. 162 KB of shared
+// memory.
+// bf16 (lane_layer_wide_tc_kernel): a block of two warpgroups owns 128 rows
+// u and holds feat rows u − 32 .. u + 159 as a row-major bf16 halo tile
+// (264-element rows, 99 KB): the A operand of relation j sits at row
+// offset 32 + s_j, which no descriptor can address, so it goes through
+// registers by ldmatrix (lane_layer_tc_kernel's route), one K half at a
+// time, the fragment's rows zeroed where band_j[u] is 0. Each Wb_j is 128 KB
+// at this width: the relations the block's rows have, then W2, stream
+// through a ring of three quadrant slots (QuadRing), two quadrants ahead of
+// the products; a warpgroup whose rows lack relation j skips its products.
+// temp stays in two m64n128 accumulators from pre on. After a block
+// barrier, h = rnd(relu(GN1(temp))) goes into each warpgroup's A operand
+// over the halo tile (the residual is read from feat in device memory), z
+// = h @ W2 on wgmma from shared memory, then GN2, the residual and the ReLU
+// on the accumulators. What bounds it: 2·256² operations per masked band
+// row and per row against 3·256 bf16 moved a row: operations.
+
+__global__ void __launch_bounds__(NT)
+lane_layer_wide_kernel(const float* __restrict__ feat, const float* __restrict__ pre,
+                       const uint8_t* __restrict__ masks, const float* __restrict__ wb,
+                       const float* __restrict__ w2, const float* __restrict__ g1w,
+                       const float* __restrict__ g1b, const float* __restrict__ g2w,
+                       const float* __restrict__ g2b, float* __restrict__ out,
+                       float* __restrict__ temp_out, int n, int nj, Shifts sh, float eps) {
+  constexpr int WW = wide::WW, LDW = wide::LDW;
+  extern __shared__ float4 smem4[];
+  float* X_s = reinterpret_cast<float*>(smem4);  // [TM + 2*HALO][LDW] feat, then temp
+  float* W_s = X_s + (TM + 2 * HALO) * LDW;      // [KC][256]
+  const long tile0 = (long)blockIdx.x * TM;
+  const int warp = threadIdx.x >> 5;
+
+  for (int i = threadIdx.x; i < (TM + 2 * HALO) * (WW / 4); i += NT) {
+    const int r = i / (WW / 4), c4 = (i % (WW / 4)) * 4;
+    const long g = tile0 - HALO + r;
+    *reinterpret_cast<float4*>(X_s + r * LDW + c4) =
+        g >= 0 && g < n ? load4<float>(feat + g * WW + c4) : zero4();
+  }
+  float acc[8][8];  // temp = pre + the band products
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const long g = tile0 + wide::wrow(i);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = pre && g < n ? pre[g * WW + wide::wcol(j)] : 0.f;
+  }
+  for (int j = 0; j < nj; ++j) {
+    float m[8];
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const long g = tile0 + wide::wrow(i);
+      m[i] = g < n && masks[(long)j * n + g] ? 1.f : 0.f;
+      any |= m[i] != 0.f;
+    }
+    if (!__syncthreads_or(any)) continue;  // no row of the tile has relation j
+    wide::mm_rows(X_s, HALO + sh.s[j], m, wb + (long)j * WW * WW, W_s, acc);
+  }
+  __syncthreads();  // the band products are done with the halo tile
+  float* T_s = X_s;
+  wide::store_tile(T_s, acc);
+  __syncthreads();
+  if (temp_out) {
+    for (int i = threadIdx.x; i < TM * (WW / 4); i += NT) {
+      const int r = i / (WW / 4), c4 = (i % (WW / 4)) * 4;
+      if (tile0 + r < n)
+        *reinterpret_cast<float4*>(temp_out + (tile0 + r) * WW + c4) =
+            *reinterpret_cast<const float4*>(T_s + r * LDW + c4);
+    }
+    __syncthreads();
+  }
+  wide::gn_relu_tile(T_s, g1w, g1b, eps);  // h = relu(GN1(temp))
+  const float ones[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
+  wide::zero8(acc);
+  wide::mm_rows(T_s, 0, ones, w2, W_s, acc);  // z = h @ W2
+  __syncthreads();
+  wide::store_tile(T_s, acc);
+  __syncthreads();
+  for (int r = warp; r < TM; r += NT / 32) {
+    const long g = tile0 + r;
+    if (g >= n) break;
+    const wide::Row y = wide::gn_row(wide::ld_row(T_s + r * LDW), g2w, g2b, eps);
+    const wide::Row res = wide::ld_row_g<float>(feat + g * WW);
+    wide::st_row_g<float>(out + g * WW, wide::relu_row(wide::add_row(y, res)));
+  }
+}
+
+constexpr int LW_WGS = 2;                      // warpgroups per block
+constexpr int LW_THREADS = 128 * LW_WGS;
+constexpr int LW_ROWS = 64 * LW_WGS;           // rows u per block
+constexpr int LW_HROWS = LW_ROWS + 2 * HALO;   // halo tile rows
+constexpr int LW_HLD = wide::WW + 8;           // halo tile row stride (elements)
+constexpr int LW_RING = 3;                     // quadrant slots
+static_assert(LW_WGS * 2 * wide::HB <= LW_HROWS * LW_HLD * (int)sizeof(bf16),
+              "the A operands sit over the halo tile");
+
+inline int lane_layer_wide_tc_smem() {
+  return LW_HROWS * LW_HLD * (int)sizeof(bf16) + LW_RING * wide::QB +
+         4 * wide::WW * (int)sizeof(float) + MAXJ * LW_ROWS;
+}
+
+// acc += band-masked halo rows @ Q for one quadrant (K half kh): the warp's
+// 16 A rows from halo row hr on, by ldmatrix, rows g8 and g8 + 8 of the
+// fragment zeroed where m0, m1 are false; Q read MN-major.
+__device__ __forceinline__ void band_quadrant(float (&acc)[64], const bf16* X_s, int hr, int kh,
+                                              bool m0, bool m1, const uint8_t* Q_b) {
+  uint32_t f[C / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < C / 16; ++ks) {
+    tc::ldm_a(f[ks], X_s, LW_HLD, hr, kh * C + ks * 16);
+    if (!m0) f[ks][0] = f[ks][2] = 0u;
+    if (!m1) f[ks][1] = f[ks][3] = 0u;
+  }
+  const tc::Tiles B = tc::tiles(Q_b, C);
+  tc::fence_acc(acc);
+  tc::fence();
+#pragma unroll
+  for (int ks = 0; ks < C / 16; ++ks) tc::mma_rs<1>(acc, f[ks], tc::desc(B, false, ks, 0));
+  tc::commit();
+  tc::wait_all();
+  tc::fence_acc(acc);
+}
+
+__global__ void __launch_bounds__(LW_THREADS, 1)
+lane_layer_wide_tc_kernel(const bf16* __restrict__ feat, const bf16* __restrict__ pre,
+                          const uint8_t* __restrict__ masks, const bf16* __restrict__ wb,
+                          const bf16* __restrict__ w2, const float* __restrict__ g1w,
+                          const float* __restrict__ g1b, const float* __restrict__ g2w,
+                          const float* __restrict__ g2b, bf16* __restrict__ out,
+                          float* __restrict__ temp_out, int n, int nj, Shifts sh, float eps) {
+  constexpr int WW = wide::WW;
+  extern __shared__ float4 smem4[];
+  bf16* X_s = reinterpret_cast<bf16*>(smem4);                              // halo tile
+  uint8_t* R_b = reinterpret_cast<uint8_t*>(X_s + LW_HROWS * LW_HLD);       // ring slots
+  float* gn_s = reinterpret_cast<float*>(R_b + LW_RING * wide::QB);        // g1w, g1b, g2w, g2b
+  uint8_t* M_s = reinterpret_cast<uint8_t*>(gn_s + 4 * WW);               // [MAXJ][LW_ROWS]
+  __shared__ uint8_t act_s[MAXJ][LW_WGS];  // relation j in warpgroup g's rows
+  __shared__ int jl_s[MAXJ + 1];           // the block's relations in order, then their count
+  const long tile0 = (long)blockIdx.x * LW_ROWS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, wg = threadIdx.x >> 7,
+            wr = (threadIdx.x >> 5) & 3;
+
+  for (int i = threadIdx.x; i < LW_HROWS * (WW / 8); i += LW_THREADS) {  // one group
+    const int r = i >> 5, c = (i & 31) * 8;
+    const long gr = tile0 - HALO + r;
+    const bool in = gr >= 0 && gr < n;
+    cp_async16_zfill(X_s + r * LW_HLD + c, in ? feat + gr * WW + c : feat, in ? 16 : 0);
+  }
+  cp_async_commit();
+  for (int idx = threadIdx.x; idx < nj * LW_ROWS; idx += LW_THREADS) {
+    const int j = idx / LW_ROWS, r = idx % LW_ROWS;
+    M_s[idx] = tile0 + r < n ? masks[(long)j * n + tile0 + r] : 0;
+  }
+  for (int i = threadIdx.x; i < 4 * WW; i += LW_THREADS) {
+    const float* v = i < WW ? g1w : i < 2 * WW ? g1b : i < 3 * WW ? g2w : g2b;
+    gn_s[i] = v[i & (WW - 1)];
+  }
+  __syncthreads();
+  for (int q = warp; q < LW_WGS * nj; q += LW_THREADS / 32) {
+    const int j = q / LW_WGS, w = q % LW_WGS;
+    const uint8_t* m = M_s + j * LW_ROWS + 64 * w;
+    const bool any = __any_sync(0xffffffffu, (m[lane] | m[lane + 32]) != 0);
+    if (lane == 0) act_s[j][w] = any;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int k = 0;
+    for (int j = 0; j < nj; ++j)
+      if (act_s[j][0] | act_s[j][1]) jl_s[k++] = j;
+    jl_s[MAXJ] = k;
+  }
+  __syncthreads();
+  const int nact = jl_s[MAXJ];
+  const int* jl = jl_s;
+  auto src = [=](int k) { return k < nact ? wb + (long)jl[k] * WW * WW : w2; };
+  auto ring = wide::quad_ring<LW_RING>(R_b, src, 4 * (nact + 1));
+  ring.start();
+
+  float a[2][64];  // temp = pre + the band products, this warpgroup's 64 rows
+#pragma unroll
+  for (int n2 = 0; n2 < 2; ++n2) {
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const long gr = tile0 + 64 * wg + tc::acc_row(i);
+      float2 v = make_float2(0.f, 0.f);
+      if (pre && gr < n) v = wide::ld_pair(pre + gr * WW + wide::acc_col(n2, i));
+      a[n2][i] = v.x;
+      a[n2][i + 1] = v.y;
+    }
+  }
+  const int row0 = 64 * wg + 16 * wr;  // this warp's first row in the block
+  const int g8 = lane >> 2;             // the fragment's rows row0 + g8, row0 + g8 + 8
+  for (int t = 0; t < nact; ++t) {
+    const int j = jl[t];
+    const bool on = act_s[j][wg];
+    const bool m0 = M_s[j * LW_ROWS + row0 + g8] != 0, m1 = M_s[j * LW_ROWS + row0 + g8 + 8] != 0;
+    const int hr = HALO + row0 + sh.s[j];  // halo row of the warp's first A row
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint8_t* Q_b = ring.take();
+      if (on) band_quadrant(a[q >> 1], X_s, hr, q & 1, m0, m1, Q_b);
+    }
+  }
+  const long r0 = tile0 + 64 * wg;
+  if (temp_out) wide::store_rows<float>(temp_out, a, r0, n);
+  __syncthreads();  // every warpgroup's band products are done with the halo tile
+  uint8_t* H_b = reinterpret_cast<uint8_t*>(X_s) + wg * 2 * wide::HB;
+  wide::gn_relu_to(H_b, a, gn_s, gn_s + WW, eps);  // h = rnd(relu(GN1(temp)))
+  wide::zero2(a);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) wide::mm_quadrant(a[q >> 1], H_b, q & 1, ring.take());  // z
+  wide::gn_res_relu(
+      a, gn_s + 2 * WW, gn_s + 3 * WW, eps,
+      [&](int r, int c) {
+        return r0 + r < n ? wide::ld_pair(feat + (r0 + r) * WW + c) : make_float2(0.f, 0.f);
+      },
+      [&](int r, int c, float y0, float y1) {
+        if (r0 + r < n)
+          *reinterpret_cast<__nv_bfloat162*>(out + (r0 + r) * WW + c) =
+              __floats2bfloat162_rn(y0, y1);
+      });
+}
+
+template <typename T>
+int launch_wide(const void* feat, const void* pre, const uint8_t* masks, const void* wb,
+                const void* w2, const float* g1w, const float* g1b, const float* g2w,
+                const float* g2b, void* out, float* temp_out, int n, int nj, const Shifts& sh,
+                float eps, cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int smem = lane_layer_wide_tc_smem();
+    cudaError_t err = set_smem((const void*)lane_layer_wide_tc_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (n + LW_ROWS - 1) / LW_ROWS;
+    if (blocks > 0)
+      lane_layer_wide_tc_kernel<<<blocks, LW_THREADS, smem, stream>>>(
+          (const bf16*)feat, (const bf16*)pre, masks, (const bf16*)wb, (const bf16*)w2, g1w, g1b,
+          g2w, g2b, (bf16*)out, temp_out, n, nj, sh, eps);
+  } else {
+    const int smem = (TM + 2 * HALO) * wide::LDW * (int)sizeof(float) + wide::CHUNK_BYTES;
+    cudaError_t err = set_smem((const void*)lane_layer_wide_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (n + TM - 1) / TM;
+    if (blocks > 0)
+      lane_layer_wide_kernel<<<blocks, NT, smem, stream>>>(
+          (const float*)feat, (const float*)pre, masks, (const float*)wb, (const float*)w2, g1w,
+          g1b, g2w, g2b, (float*)out, temp_out, n, nj, sh, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int W>
 int launch_bwd(const T* feat, const float* temp, const uint8_t* masks, const T* wb,
                const T* w2, const float* g1w, const float* g1b, const float* g2w,
@@ -199,7 +460,7 @@ int launch_bwd(const T* feat, const float* temp, const uint8_t* masks, const T* 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (feat, pre, wb, w2, out); feat, pre, out
-// [n, width], wb [nj, width, width], w2 [width, width], width 128 or 64;
+// [n, width], wb [nj, width, width], w2 [width, width], width 128, 64 or 256;
 // masks [nj, n] bytes (0/1); GN vectors fp32 [width]; shifts: host array of
 // nj ints; temp_out: fp32 [n, width] that receives temp, or null.
 extern "C" int lane_layer_fwd(const void* feat, const void* pre, const void* masks,
@@ -214,9 +475,14 @@ extern "C" int lane_layer_fwd(const void* feat, const void* pre, const void* mas
   const uint8_t* m = (const uint8_t*)masks;
   const float *a = (const float*)g1w, *b = (const float*)g1b, *c = (const float*)g2w,
               *d = (const float*)g2b;
-  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
-    return launch<typename decltype(Tc)::type, decltype(Wc)::value>(
-        feat, pre, m, wb, w2, a, b, c, d, out, (float*)temp_out, n, nj, sh, eps, st);
+  return with_width_dtype_256(width, dtype, [&](auto Wc, auto Tc) {
+    using T = typename decltype(Tc)::type;
+    if constexpr (decltype(Wc)::value == 2 * C)
+      return launch_wide<T>(feat, pre, m, wb, w2, a, b, c, d, out, (float*)temp_out, n, nj, sh,
+                            eps, st);
+    else
+      return launch<T, decltype(Wc)::value>(feat, pre, m, wb, w2, a, b, c, d, out,
+                                             (float*)temp_out, n, nj, sh, eps, st);
   });
 }
 

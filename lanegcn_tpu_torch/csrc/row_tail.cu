@@ -40,6 +40,8 @@
 // weight-gradient pass skips the second warpgroup's products at 64 (its
 // input channels are padding), and its d_t workspace is [2, N, W]. At W =
 // 128 every kernel compiles to the code it was before the width existed.
+// K = 1's forward also takes W = 256, on kernels of their own
+// (row_tail_wide_kernel, row_tail_wide_tc_kernel, below; wide.cuh).
 //
 // Backward (`row_tail_bwd`): replaces pallas_row_tail.py `_bwd_kernel` /
 // `_bwd_impl`. It recomputes the chain per row (nothing but the inputs is
@@ -111,6 +113,7 @@
 #include "edge_tc.cuh"
 #include "tail_bwd.cuh"
 #include "tail_fwd.cuh"
+#include "wide.cuh"
 
 using namespace lgk;
 
@@ -833,19 +836,154 @@ int launch2_bwd(const void* x, const void* res, const void* g, const void* w1, c
   }
 }
 
+// --- K = 1 at W = 256 (wide.cuh's tiling; the double-width model's Att
+// tails) -----------------------------------------------------------------------
+//
+// fp32 (row_tail_wide_kernel, the parity path): a block per 64-row tile,
+// the rows in one fp32 [64 x 256] tile, GN by warp-a-row, the product on
+// CUDA cores with W streamed in KC-row chunks; 97 KB of shared memory.
+// bf16 (row_tail_wide_tc_kernel): a persistent grid of two-warpgroup
+// blocks, W held once per block as four quadrants (129 KB), each warpgroup
+// on 64-row tiles of its own: x read into the accumulator layout, h =
+// rnd(relu(GN1(x))) into the warpgroup's A operand in shared memory, z = h
+// @ W on wgmma into two m64n128 accumulators, then GN2, the residual and
+// the ReLU on them. What bounds it: x and res read and out written (3·256
+// bf16 a row) against 2·256² operations a row: 85 operations a byte, below
+// the card's ~295, so bytes.
+
+__global__ void __launch_bounds__(NT)
+row_tail_wide_kernel(const float* __restrict__ x, const float* __restrict__ res,
+                     const float* __restrict__ w, const float* __restrict__ g1w,
+                     const float* __restrict__ g1b, const float* __restrict__ g2w,
+                     const float* __restrict__ g2b, float* __restrict__ out, int n, float eps) {
+  extern __shared__ float4 smem4[];
+  float* X_s = reinterpret_cast<float*>(smem4);  // [TM][LDW]
+  float* W_s = X_s + TM * wide::LDW;             // [KC][256]
+  const long row0 = (long)blockIdx.x * TM;
+  const int warp = threadIdx.x >> 5;
+
+  for (int r = warp; r < TM; r += NT / 32) {  // h = relu(GN1(x)) (0 past n)
+    const long g = row0 + r;
+    wide::Row v = g < n ? wide::ld_row_g<float>(x + g * wide::WW) : wide::Row{zero4(), zero4()};
+    wide::st_row(X_s + r * wide::LDW, wide::relu_row(wide::gn_row(v, g1w, g1b, eps)));
+  }
+  float acc[8][8];
+  wide::zero8(acc);
+  const float ones[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
+  wide::mm_rows(X_s, 0, ones, w, W_s, acc);  // z = h @ W
+  __syncthreads();
+  wide::store_tile(X_s, acc);
+  __syncthreads();
+  for (int r = warp; r < TM; r += NT / 32) {
+    const long g = row0 + r;
+    if (g >= n) break;
+    const wide::Row y = wide::gn_row(wide::ld_row(X_s + r * wide::LDW), g2w, g2b, eps);
+    const wide::Row rv = wide::ld_row_g<float>(res + g * wide::WW);
+    wide::st_row_g<float>(out + g * wide::WW, wide::relu_row(wide::add_row(y, rv)));
+  }
+}
+
+constexpr int RW_WGS = 2;
+constexpr int RW_THREADS = 128 * RW_WGS;
+
+inline int row_tail_wide_tc_smem() {
+  return 4 * wide::QB + RW_WGS * 2 * wide::HB + 4 * wide::WW * (int)sizeof(float);
+}
+
+__global__ void __launch_bounds__(RW_THREADS, 1)
+row_tail_wide_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
+                        const bf16* __restrict__ w, const float* __restrict__ g1w,
+                        const float* __restrict__ g1b, const float* __restrict__ g2w,
+                        const float* __restrict__ g2b, bf16* __restrict__ out, int n,
+                        float eps) {
+  extern __shared__ float4 smem4[];
+  uint8_t* W_b = reinterpret_cast<uint8_t*>(smem4);                        // 4 quadrants
+  float* gn_s = reinterpret_cast<float*>(W_b + 4 * wide::QB + RW_WGS * 2 * wide::HB);  // [4][256]
+  const int wg = threadIdx.x >> 7;
+  uint8_t* H_b = W_b + 4 * wide::QB + wg * 2 * wide::HB;  // the warpgroup's A operand
+
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    wide::fetch_quadrant(W_b + q * wide::QB, w, q & 1, q >> 1, threadIdx.x, RW_THREADS);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < 4 * wide::WW; i += RW_THREADS) {
+    const float* v = i < wide::WW ? g1w : i < 2 * wide::WW ? g1b : i < 3 * wide::WW ? g2w : g2b;
+    gn_s[i] = v[i & (wide::WW - 1)];
+  }
+  cp_async_wait<0>();
+  tc::fence_smem();
+  __syncthreads();  // W and the vectors in place
+
+  const int ntiles = (n + TM - 1) / TM;
+  for (int tile = blockIdx.x * RW_WGS + wg; tile < ntiles; tile += gridDim.x * RW_WGS) {
+    const long row0 = (long)tile * TM;
+    float a[2][64];
+    wide::load_rows(a, x, row0, n);
+    wg_sync();  // the warpgroup's previous products are done with H
+    wide::gn_relu_to(H_b, a, gn_s, gn_s + wide::WW, eps);  // h = rnd(relu(GN1(x)))
+    tc::fence_smem();
+    wg_sync();
+    wide::zero2(a);
+    wide::mm_weight(a, H_b, W_b);  // z = h @ W
+    wide::gn_res_relu(
+        a, gn_s + 2 * wide::WW, gn_s + 3 * wide::WW, eps,
+        [&](int r, int c) {
+          const long gr = row0 + r;
+          return gr < n ? wide::ld_pair(res + gr * wide::WW + c) : make_float2(0.f, 0.f);
+        },
+        [&](int r, int c, float y0, float y1) {
+          const long gr = row0 + r;
+          if (gr < n)
+            *reinterpret_cast<__nv_bfloat162*>(out + gr * wide::WW + c) =
+                __floats2bfloat162_rn(y0, y1);
+        });
+  }
+}
+
+template <typename T>
+int launch_wide(const void* x, const void* res, const void* w, const float* g1w,
+                const float* g1b, const float* g2w, const float* g2b, void* out, int n,
+                float eps, cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int smem = row_tail_wide_tc_smem();
+    cudaError_t err = set_smem((const void*)row_tail_wide_tc_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int sms = wide::sm_count();
+    if (sms < 0) return (int)cudaGetLastError();
+    const int tiles = (n + TM - 1) / TM, blocks = min(sms, (tiles + RW_WGS - 1) / RW_WGS);
+    if (blocks > 0)
+      row_tail_wide_tc_kernel<<<blocks, RW_THREADS, smem, stream>>>(
+          (const bf16*)x, (const bf16*)res, (const bf16*)w, g1w, g1b, g2w, g2b, (bf16*)out, n,
+          eps);
+  } else {
+    const int smem = wide::TILE_BYTES + wide::CHUNK_BYTES;
+    cudaError_t err = set_smem((const void*)row_tail_wide_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (n + TM - 1) / TM;
+    if (blocks > 0)
+      row_tail_wide_kernel<<<blocks, NT, smem, stream>>>(
+          (const float*)x, (const float*)res, (const float*)w, g1w, g1b, g2w, g2b, (float*)out,
+          n, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, res, w, out); x, res, out [n, width],
-// w [width, width], GN vectors fp32 [width]; width 128 or 64.
+// w [width, width], GN vectors fp32 [width]; width 128, 64 or 256.
 extern "C" int row_tail_fwd(const void* x, const void* res, const void* w, const void* g1w,
                             const void* g1b, const void* g2w, const void* g2b, void* out,
                             int n, int width, float eps, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float *a = (const float*)g1w, *b = (const float*)g1b, *c = (const float*)g2w,
               *d = (const float*)g2b;
-  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
-    return launch<typename decltype(Tc)::type, decltype(Wc)::value>(x, res, w, a, b, c, d, out,
-                                                                    n, eps, st);
+  return with_width_dtype_256(width, dtype, [&](auto Wc, auto Tc) {
+    using T = typename decltype(Tc)::type;
+    if constexpr (decltype(Wc)::value == 2 * C)
+      return launch_wide<T>(x, res, w, a, b, c, d, out, n, eps, st);
+    else
+      return launch<T, decltype(Wc)::value>(x, res, w, a, b, c, d, out, n, eps, st);
   });
 }
 

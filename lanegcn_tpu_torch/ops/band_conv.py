@@ -11,7 +11,7 @@ runs through a `torch.autograd.Function`: its backward is the
 ones. As in the JAX op, the cotangent is rounded to feat's dtype first,
 dW is summed in fp32 and cast to w's dtype, and the masks get no gradient.
 
-The kernels, forward and backward, take rows W = 128 or 64 wide (`WIDTHS`:
+The kernels, forward and backward, take rows W = 128 or 64 wide (`cuda.WIDTHS`:
 the unfused LaneGCN at n_map = 128, and the half-width model at 64); the
 plain versions take any width.
 """
@@ -24,7 +24,6 @@ from typing import Sequence
 import torch
 
 from lanegcn_tpu_torch.ops import cuda
-from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.lane_layer import HALO, _mask_bytes, _shift_array, _shift_rows
 
 
@@ -61,12 +60,10 @@ def band_conv_bwd_plain(feat, masks, w, g, shifts: Sequence[int]):
 
 def _check(feat, masks, w, shifts, name="band_conv"):
     """Shapes and dtypes kernel `name` takes: feat [N, W] with W in
-    `WIDTHS`, masks [J, N], w [J, W, W] in feat's dtype."""
+    `cuda.WIDTHS`, masks [J, N], w [J, W, W] in feat's dtype."""
     n, c = feat.shape
     j = len(shifts)
-    if c not in WIDTHS:
-        raise ValueError(f"{name}: the kernel takes rows {' or '.join(map(str, WIDTHS))} "
-                         f"wide, not {c}")
+    cuda.check_width(name, c)
     if tuple(w.shape) != (j, c, c) or tuple(masks.shape) != (j, n):
         raise ValueError(f"{name}: bad shapes feat {tuple(feat.shape)} masks "
                          f"{tuple(masks.shape)} w {tuple(w.shape)} for {j} shifts")

@@ -45,9 +45,14 @@ ENTRIES = {
 
 KERNELS = tuple(ENTRIES)
 
-# The row widths every kernel is built at (csrc/common.cuh `with_width`;
-# segment_sum takes any width); each wrapper refuses the others.
-WIDTHS = (64, 128)
+# The row widths each C entry point is built at (csrc/common.cuh `with_width`;
+# `with_width_dtype_256` for the three forwards that also take 256, on
+# csrc/wide.cuh's tiling); segment_sum takes any width. Each wrapper refuses
+# the others (`check_width`).
+WIDTHS = {e: (64, 128) for entries in ENTRIES.values() for e in entries
+          if e != "segment_sum"}
+WIDTHS.update({e: (64, 128, 256) for e in ("lane_layer_fwd", "row_tail_fwd",
+                                            "edge_mlp_fwd")})
 
 LAUNCHES: Dict[str, int] = {e: 0 for entries in ENTRIES.values() for e in entries}
 
@@ -163,6 +168,21 @@ def call(name: str, entry: str, *args) -> None:
 
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def entry_of(name: str) -> str:
+    """The C entry point behind kernel `name` as the wrappers' messages name
+    it: `lane_layer` → lane_layer_fwd, `lane_layer_bwd` → itself."""
+    return name if name.endswith("_bwd") else f"{name}_fwd"
+
+
+def check_width(name: str, c: int) -> None:
+    """Raise a ValueError naming kernel `name` and the width c where its C
+    entry is not built at rows c wide (before anything touches the card)."""
+    widths = WIDTHS[entry_of(name)]
+    if c not in widths:
+        raise ValueError(f"{name}: the kernel takes rows {' or '.join(map(str, widths))} "
+                         f"wide, not {c}")
 
 
 _SMS: Dict[int, int] = {}

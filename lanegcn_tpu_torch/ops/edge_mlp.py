@@ -15,7 +15,8 @@ kernel on CUDA tensors and `edge_mlp_bwd_plain` on CPU tensors,
 LanePooling's the `edge_mlp_pool_bwd` kernel and `edge_mlp_pool_bwd_plain`.
 In bf16 both configurations multiply on the tensor cores (wgmma); fp32 runs
 the CUDA-core kernels, the parity path. Both configurations' kernels take
-rows W = 128 or 64 wide (Att's: A2A where n_actor = 64; LanePooling's:
+rows W = 128 or 64 wide (Att's: A2A where n_actor = 64, and its forward
+also 256, the double-width model, csrc/wide.cuh; LanePooling's:
 LaneRCNN at n_map = 64); the plain versions take any width.
 """
 
@@ -26,7 +27,6 @@ import ctypes
 import torch
 
 from lanegcn_tpu_torch.ops import cuda
-from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.norm import gn_bwd, gn_stats, group_norm
 
 
@@ -84,13 +84,12 @@ def edge_mlp_bwd_plain(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
             d_gn_s.sum(0), e1.t() @ d_e2)
 
 
-def _check(d, qg, cg, kd, weights, vectors):
-    """Shapes and dtypes Att's kernels take: qg/cg [E, W] with W 64 or 128,
-    d [E, 2], kd [2, W], the weights [W, W], the vectors [W]."""
+def _check(d, qg, cg, kd, weights, vectors, name="edge_mlp"):
+    """Shapes and dtypes Att's kernel `name` takes: qg/cg [E, W] with W one
+    of its widths (`cuda.WIDTHS`: the forward 64, 128 or 256, the backward
+    64 or 128), d [E, 2], kd [2, W], the weights [W, W], the vectors [W]."""
     e, c = cg.shape
-    if c not in WIDTHS:
-        raise ValueError(f"edge_mlp: Att's kernels take rows {' or '.join(map(str, WIDTHS))} "
-                         f"wide, not {c}")
+    cuda.check_width(name, c)
     if (qg.shape != cg.shape or tuple(d.shape) != (e, 2) or tuple(kd.shape) != (2, c)
             or any(tuple(w.shape) != (c, c) for w in weights)
             or any(tuple(p.shape) != (c,) for p in vectors)):
@@ -100,11 +99,11 @@ def _check(d, qg, cg, kd, weights, vectors):
         raise TypeError("edge_mlp: qg and cg must share one dtype, d must be float32")
 
 
-def _prep(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, *rows):
-    """(d, qg, cg, *rows), weights, vectors, dtype code for Att's kernels:
-    the row tensors contiguous and 16-byte aligned (the bf16 kernels copy
-    them by cp.async and store 16-byte rows)."""
-    _check(d, qg, cg, kd, (kdo, k1, kout), (bd, gdow, gdob, gchw, gchb))
+def _prep(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, *rows, name="edge_mlp"):
+    """(d, qg, cg, *rows), weights, vectors, dtype code for Att's kernel
+    `name`: the row tensors contiguous and 16-byte aligned (the bf16 kernels
+    copy them by cp.async and store 16-byte rows)."""
+    _check(d, qg, cg, kd, (kdo, k1, kout), (bd, gdow, gdob, gchw, gchb), name)
     dt = cg.dtype
     acts = [cuda.param(x, x.dtype) for x in (d, qg, cg, *rows)]
     ws = [cuda.param(w, dt) for w in (kd, kdo, k1, kout)]
@@ -136,7 +135,7 @@ def edge_mlp_bwd_cuda(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, 
     if g.shape != cg.shape or g.dtype != cg.dtype:
         raise ValueError(f"edge_mlp: cotangent {g.shape} {g.dtype} for {cg.shape} {cg.dtype}")
     (d, qg, cg, g), ws, vs, code = _prep(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb,
-                                         kout, g)
+                                         kout, g, name="edge_mlp_bwd")
     dev = cg.device
     e, c = cg.shape
     f32 = dict(dtype=torch.float32, device=dev)
@@ -223,9 +222,7 @@ def _pool_prep(d, cg, kd, bd, k1, gchw, gchb, kout, *rows, name="edge_mlp_pool")
     aligned (the bf16 kernels copy them by cp.async)."""
     e, c = cg.shape
     din = d.shape[1] if d.dim() == 2 else 0
-    if c not in WIDTHS:
-        raise ValueError(f"{name}: the kernels take rows {' or '.join(map(str, WIDTHS))} "
-                         f"wide, not {c}")
+    cuda.check_width(name, c)
     if (tuple(d.shape) != (e, din) or din not in (2, 4)
             or tuple(kd.shape) != (din, c) or tuple(k1.shape) != (c, c)
             or tuple(kout.shape) != (c, c)
@@ -323,9 +320,9 @@ def fused_edge_mlp(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
 
     Att (has_dist2, has_query): d [E, 2] fp32 (the edge's centre offset);
     qg/cg [E, W] in one activation dtype (the gathered query and context
-    projections; W = 128 or 64 on the card); kd [2, W], kdo/k1/kout [W, W]
-    (in, out), cast to the activation dtype inside; bd and the GN affines
-    [W] fp32.
+    projections; W = 128, 64 or 256 on the card, 256 without a gradient);
+    kd [2, W], kdo/k1/kout [W, W] (in, out), cast to the activation dtype
+    inside; bd and the GN affines [W] fp32.
     LanePooling (neither flag): qg, kdo, gdow and gdob None; d [E, 4] fp32
     (the relative pose), kd [4, W], cg [E, W] (W = 128 or 64 on the card).
     CPU tensors take the plain version; CUDA tensors launch the kernel.

@@ -15,8 +15,9 @@ same layer with the window plan's aggregate added into temp inside it, the
 counterpart of `fused_lane_layer_plan` there; see its section below.
 
 The layer's kernels and `lane_plan`'s, forward and backward, take rows
-W = 128 or 64 wide (`WIDTHS`: LaneGCN at n_map = 128, and the half-width
-model at 64). The plain versions take any width.
+W = 128 or 64 wide (`cuda.WIDTHS`: LaneGCN at n_map = 128, and the
+half-width model at 64); the layer's forward also takes 256 (the
+double-width model, csrc/wide.cuh). The plain versions take any width.
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ from typing import Sequence
 import torch
 
 from lanegcn_tpu_torch.ops import cuda
-from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.norm import group_norm
 from lanegcn_tpu_torch.ops.row_tail import part_size, tail_bwd_plain
 from lanegcn_tpu_torch.ops.scenario_agg import (
@@ -106,12 +106,11 @@ def lane_layer_bwd_plain(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, g,
 
 def _check(feat, pre, masks, wb, w2, gns, shifts, name="lane_layer"):
     """Shapes and dtypes kernel `name` takes: feat/pre [N, W] with W in
-    `WIDTHS`, wb [J, W, W], w2 [W, W], masks [J, N], the GN vectors [W]."""
+    `cuda.WIDTHS` for `name`, wb [J, W, W], w2 [W, W], masks [J, N], the GN
+    vectors [W]."""
     n, c = feat.shape
     j = len(shifts)
-    if c not in WIDTHS:
-        raise ValueError(f"{name}: the kernel takes rows {' or '.join(map(str, WIDTHS))} "
-                         f"wide, not {c}")
+    cuda.check_width(name, c)
     if (pre.shape != feat.shape or tuple(wb.shape) != (j, c, c)
             or tuple(w2.shape) != (c, c) or tuple(masks.shape) != (j, n)
             or any(tuple(g.shape) != (c,) for g in gns)):
@@ -242,7 +241,8 @@ def fused_lane_layer(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b,
                      shifts: Sequence[int], eps: float = 1e-5) -> torch.Tensor:
     """relu(GN2(relu(GN1(pre + band_conv(feat))) @ w2) + feat).
 
-    feat/pre [N, W] (float32 or bfloat16; W = 128 or 64 on the card);
+    feat/pre [N, W] (float32 or bfloat16; W = 128 or 64 on the card, and
+    256 without a gradient);
     masks [J, N] bool or 0/1; wb [J, W, W] and w2 [W, W] in (in, out)
     layout, in feat's dtype; GN affines [W] fp32; shifts: J ints with |s| ≤
     32. CPU tensors take the plain version; CUDA tensors launch the kernel

@@ -11,7 +11,7 @@ runs through a `torch.autograd.Function` whose backward is the
 `pair_agg_bwd` kernel on CUDA tensors and `pair_agg_bwd_plain` on CPU
 tensors; temp's cotangent is the output's, unchanged.
 
-The kernels, forward and backward, take rows W = 128 or 64 wide (`WIDTHS`).
+The kernels, forward and backward, take rows W = 128 or 64 wide (`cuda.WIDTHS`).
 The plain versions take any width.
 
 Both kernels walk the plan as `prepare_spill` lists it (a
@@ -33,7 +33,6 @@ import torch.nn.functional as F
 
 from lanegcn_tpu_torch.graph import PairPlan
 from lanegcn_tpu_torch.ops import cuda
-from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.scenario_agg import (PlanPrep, _arange, _blocks, _per_relation,
                                                  prepare_edges)
 
@@ -119,16 +118,14 @@ def pair_agg_bwd_plain(feat, w_rel, plan: PairPlan, g, prep=None):
     return dfeat[:n].to(feat.dtype), dw
 
 
-def _check(feat, temp, w_rel, plan: PairPlan, name="pair_agg", widths=WIDTHS):
+def _check(feat, temp, w_rel, plan: PairPlan, name="pair_agg"):
     """Shapes and dtypes kernel `name` takes: feat/temp [N, W] with W in
-    `widths` (64 or 128), w_rel [R, W, W], the spill plan with its relation
+    `cuda.WIDTHS` (64 or 128), w_rel [R, W, W], the spill plan with its relation
     column."""
     n, c = feat.shape
     r_num = w_rel.shape[0]
     nc = plan.num_chunks
-    if c not in widths:
-        raise ValueError(f"{name}: the kernel takes rows {' or '.join(map(str, widths))} "
-                         f"wide, not {c}")
+    cuda.check_width(name, c)
     if (temp.shape != feat.shape or tuple(w_rel.shape) != (r_num, c, c)
             or not 0 < r_num <= 32 or plan.idx.dim() != 2 or plan.idx.shape[1] != 3
             or plan.idx.shape[0] != nc * plan.chunk or tuple(plan.meta.shape) != (6, nc)):

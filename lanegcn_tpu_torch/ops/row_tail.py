@@ -12,7 +12,8 @@ through a `torch.autograd.Function`: the backward is the `row_tail_bwd`
 
 The kernels take rows W = 128 or 64 wide (K = 1: Att's tail on 128-wide
 lane nodes, and on 64-wide actors where n_actor = 64; K = 2: LanePooling's
-tail at n_map = 128 or 64). The plain versions take any width.
+tail at n_map = 128 or 64); K = 1's forward also takes 256 (the
+double-width model, csrc/wide.cuh). The plain versions take any width.
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ import ctypes
 import torch
 
 from lanegcn_tpu_torch.ops import cuda
-from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.norm import gn_bwd, gn_stats, group_norm
 
 C = 128
@@ -80,11 +80,9 @@ def row_tail_bwd_plain(x, res, w, g1w, g1b, g2w, g2b, g, eps: float = 1e-5):
 
 def _check(x, res, w, gns, name="row_tail"):
     """Shapes and dtypes kernel `name` takes: x/res [N, W] with W in
-    WIDTHS (64 or 128), w [W, W], the GN vectors [W]."""
+    `cuda.WIDTHS` for `name`, w [W, W], the GN vectors [W]."""
     n, c = x.shape
-    if c not in WIDTHS:
-        raise ValueError(f"{name}: the kernels take rows {' or '.join(map(str, WIDTHS))} "
-                         f"wide, not {c}")
+    cuda.check_width(name, c)
     if (res.shape != x.shape or tuple(w.shape) != (c, c)
             or any(tuple(g.shape) != (c,) for g in gns)):
         raise ValueError(f"row_tail: bad shapes x {x.shape} res {res.shape} w {w.shape}")
@@ -109,7 +107,7 @@ def _fwd_cuda(x, res, w, g1w, g1b, g2w, g2b, eps):
 
 def row_tail_bwd_cuda(x, res, w, g1w, g1b, g2w, g2b, g, eps: float = 1e-5):
     """The `row_tail_bwd` kernel; the same outputs as `row_tail_bwd_plain`."""
-    _check(x, res, w, (g1w, g1b, g2w, g2b))
+    _check(x, res, w, (g1w, g1b, g2w, g2b), "row_tail_bwd")
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"row_tail: cotangent {g.shape} {g.dtype} for x {x.shape} {x.dtype}")
     w = cuda.param(w, x.dtype)
@@ -154,10 +152,10 @@ class _RowTail(torch.autograd.Function):
 
 
 def fused_row_tail(x, res, w, g1w, g1b, g2w, g2b, eps: float = 1e-5) -> torch.Tensor:
-    """x/res [N, W] in one dtype (W = 128 or 64 on the card); w [W, W] (in,
-    out), cast to x's dtype (its gradient flows back through the cast); GN
-    affines [W] fp32. CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    """x/res [N, W] in one dtype (W = 128, 64 or 256 on the card, 256
+    without a gradient); w [W, W] (in, out), cast to x's dtype (its
+    gradient flows back through the cast); GN affines [W] fp32. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"row_tail: unsupported device {x.device}")
     w = w.to(x.dtype)

@@ -22,7 +22,7 @@ through a `torch.autograd.Function` whose backward is the
 `scenario_agg_bwd` kernel on CUDA tensors and `scenario_agg_bwd_plain` on
 CPU tensors; temp's cotangent is the output's, unchanged.
 
-The kernels, forward and backward, take rows W = 128 or 64 wide (`WIDTHS`).
+The kernels, forward and backward, take rows W = 128 or 64 wide (`cuda.WIDTHS`).
 The plain versions take any width.
 """
 
@@ -35,7 +35,6 @@ import torch
 import torch.nn.functional as F
 
 from lanegcn_tpu_torch.ops import cuda
-from lanegcn_tpu_torch.ops.cuda import WIDTHS
 
 
 # Plan slot chunk; relation-grouped plans need at least two chunks per
@@ -280,15 +279,13 @@ def scenario_agg_bwd_plain(feat, w_rel, lu, lv, rel, num_win: int, groups, g, pr
     return dfeat.to(feat.dtype), dw
 
 
-def _check(feat, temp, w_rel, lu, lv, rel, num_win, name="scenario_agg", widths=WIDTHS):
+def _check(feat, temp, w_rel, lu, lv, rel, num_win, name="scenario_agg"):
     """Shapes and dtypes kernel `name` takes: feat/temp [N, W] with W in
-    `widths` (64 or 128), w_rel [R, W, W], the plan [num_win*ECAP, 1]
+    `cuda.WIDTHS` (64 or 128), w_rel [R, W, W], the plan [num_win*ECAP, 1]
     int32."""
     n, c = feat.shape
     r_num = w_rel.shape[0]
-    if c not in widths:
-        raise ValueError(f"{name}: the kernel takes rows {' or '.join(map(str, widths))} "
-                         f"wide, not {c}")
+    cuda.check_width(name, c)
     if (temp.shape != feat.shape or n % num_win or lu.shape[0] % num_win
             or tuple(w_rel.shape) != (r_num, c, c) or not 0 < r_num <= 32
             or lv.shape != lu.shape or rel.shape != lu.shape or lu.numel() != lu.shape[0]):

@@ -24,7 +24,7 @@ and the plain version sum dPd/dQd over the destination order and dPs/dCs
 over the source order, so a row's edges always add up in one fixed order.
 
 The kernels, forward and backward, take rows W = 128 or 64 wide
-(`WIDTHS`: Att at n_map = n_actor = 128, and the half-width model at 64).
+(`cuda.WIDTHS`: Att at n_map = n_actor = 128, and the half-width model at 64).
 The plain versions take any width.
 """
 
@@ -38,7 +38,6 @@ import torch.nn.functional as F
 
 from lanegcn_tpu_torch.graph import PairPlan
 from lanegcn_tpu_torch.ops import cuda
-from lanegcn_tpu_torch.ops.cuda import WIDTHS
 from lanegcn_tpu_torch.ops.norm import gn_bwd, gn_stats, group_norm
 from lanegcn_tpu_torch.ops.scenario_agg import _arange
 from lanegcn_tpu_torch.ops.segment_sum import segment_sum_plain
@@ -177,16 +176,13 @@ def win_edge_bwd_plain(pd, qd, ps, cs, bd, kdo, gdow, gdob, k1, gchw, gchb, kout
             t2.t() @ d_s, (d_gn_s * nrm_s).sum(0), d_gn_s.sum(0), e1.t() @ d_e2)
 
 
-def _check(pd, qd, ps, cs, temp, weights, vectors, plan: PairPlan, name="win_edge",
-           widths=WIDTHS):
+def _check(pd, qd, ps, cs, temp, weights, vectors, plan: PairPlan, name="win_edge"):
     """Shapes and dtypes kernel `name` takes: pd/qd/temp [Nd, W] and ps/cs
-    [Ns, W] with W in `widths` (64 or 128), the weights [W, W], the vectors
+    [Ns, W] with W in `cuda.WIDTHS` (64 or 128), the weights [W, W], the vectors
     [W], a pair plan."""
     nd, c = pd.shape
     nc = plan.num_chunks
-    if c not in widths:
-        raise ValueError(f"{name}: the kernel takes rows {' or '.join(map(str, widths))} "
-                         f"wide, not {c}")
+    cuda.check_width(name, c)
     if (qd.shape != pd.shape or temp.shape != pd.shape or cs.shape != ps.shape
             or ps.shape[1] != c
             or any(tuple(w.shape) != (c, c) for w in weights)

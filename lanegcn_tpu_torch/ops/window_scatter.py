@@ -29,7 +29,6 @@ import ctypes
 import torch
 
 from lanegcn_tpu_torch.ops import cuda
-from lanegcn_tpu_torch.ops.cuda import WIDTHS
 
 # Edge chunk of the window-chunked layout (the packer aligns to it).
 WCHUNK = 512
@@ -67,9 +66,7 @@ def window_scatter_bwd_plain(g, lu, wchunk, stride: int) -> torch.Tensor:
 def _check(msg, temp, lu, wchunk, stride: int):
     e, c = msg.shape
     n = temp.shape[0]
-    if c not in WIDTHS:
-        raise ValueError(f"window_scatter: the kernel takes rows "
-                         f"{' or '.join(map(str, WIDTHS))} wide, not {c}")
+    cuda.check_width("window_scatter", c)
     if (temp.shape[1] != c or e % WCHUNK or stride <= 0 or n % stride
             or tuple(lu.shape) != (e, 1) or tuple(wchunk.shape) != (e // WCHUNK,)):
         raise ValueError(f"window_scatter: bad shapes msg {msg.shape} temp {temp.shape} "
@@ -96,9 +93,7 @@ def _fwd_cuda(msg, temp, lu, wchunk, stride: int):
 
 def _check_bwd(g, lu, wchunk, stride: int):
     e, c = lu.shape[0], g.shape[1]
-    if c not in WIDTHS:
-        raise ValueError(f"window_scatter_bwd: the kernel takes rows "
-                         f"{' or '.join(map(str, WIDTHS))} wide, not {c}")
+    cuda.check_width("window_scatter_bwd", c)
     if (e % WCHUNK or stride <= 0 or g.shape[0] % stride
             or tuple(lu.shape) != (e, 1) or tuple(wchunk.shape) != (e // WCHUNK,)):
         raise ValueError(f"window_scatter_bwd: bad shapes g {g.shape} lu {lu.shape} "
