@@ -45,7 +45,9 @@ took the row width, as row_tail2's and LanePooling's edge_mlp's both ways
 did: the other tree's through its own wrappers). lane_layer, row_tail and
 edge_mlp also run at W = 64 (`half`; `widths`, Att's tails and A2A's edge
 MLP at 64 beside A2M's at 128; `half_lanercnn`, LanePooling's tail and
-edge MLP). window_scatter, row_tail, edge_mlp and lane_layer run in
+edge MLP), and lane_layer and row_tail also on `contiguous` (the
+128-wide shapes of the CLI's layout, whose 256-wide model has kernels of
+its own). window_scatter, row_tail, edge_mlp and lane_layer run in
 float32 as well as bfloat16 (`DTYPES`). Each call shape
 (A2M, M2A, A2A) of the forward and of the backward runs once per build (the
 largest difference between the two builds' outputs is printed, and
@@ -61,8 +63,10 @@ clock. A kernel
 only this checkout has is timed alone in the same rounds, so its spread
 shows the noise within the call.
 
-Prints one JSON line per kernel call shape and, before the last line, the
-card's name and power limit; the last line is {"ok": true}. Needs CUDA.
+Prints one JSON line per kernel call shape, then the count of call shapes
+whose outputs were bitwise equal in both builds (`bitwise`), and, before
+the last line, the card's name and power limit; the last line is {"ok":
+true}. Needs CUDA.
 """
 
 from __future__ import annotations
@@ -83,7 +87,8 @@ ROUNDS = 8
 TARGETS = {"win_edge": (("windowed", "win_edge"),),
            "edge_mlp": (("contiguous", "edge_mlp"), ("lanercnn", "edge_mlp_pool"),
                         ("widths", "edge_mlp"), ("half_lanercnn", "edge_mlp_pool")),
-           "lane_layer": (("windowed", "lane_layer"), ("half", "lane_layer")),
+           "lane_layer": (("windowed", "lane_layer"), ("half", "lane_layer"),
+                          ("contiguous", "lane_layer")),
            "lane_plan": (("merged", "lane_plan"),),
            "band_conv": (("unfused", "band_conv"),),
            "segment_sum": (("windowed", "segment_sum"), ("lanercnn", "segment_sum"),
@@ -91,7 +96,8 @@ TARGETS = {"win_edge": (("windowed", "win_edge"),),
            "scenario_agg": (("windowed", "scenario_agg"), ("lanercnn", "scenario_agg")),
            "pair_agg": (("bench", "pair_agg"),),
            "row_tail": (("windowed", "row_tail"), ("lanercnn", "row_tail2"),
-                        ("widths", "row_tail"), ("half_lanercnn", "row_tail2")),
+                        ("widths", "row_tail"), ("half_lanercnn", "row_tail2"),
+                        ("contiguous", "row_tail")),
            "window_scatter": (("lanercnn", "window_scatter"),)}
 # Kernel libraries timed in float32 as well as bfloat16 (default: bf16 only).
 DTYPES = {k: ("bfloat16", "float32")
@@ -340,6 +346,7 @@ def main() -> None:
     cs.emit({"phase": "build", "seconds": time.perf_counter() - t0,
              "old_present": {n: v["old"] is not None for n, v in libs.items()}})
 
+    bitwise = {"equal": 0, "of": 0, "differ": []}
     for name, geom, fwd_name in [(n, g, f) for n in names for g, f in TARGETS[n]]:
         fwd_calls, bwd_calls = capture(geom)
         if name == "segment_sum":  # the train step's calls: scatters and gathers' backwards
@@ -382,6 +389,10 @@ def main() -> None:
                         for x, y in zip(outs["old"], outs["new"]))
                     res["old_vs_new_bitwise"] = all(
                         torch.equal(x, y) for x, y in zip(outs["old"], outs["new"]))
+                    bitwise["of"] += 1
+                    bitwise["equal"] += res["old_vs_new_bitwise"]
+                    if not res["old_vs_new_bitwise"]:
+                        bitwise["differ"].append([kname, geom, ci, dt])
                 del outs
                 samples = {v: [] for v in versions}
                 bare = {v: [] for v in versions}
@@ -407,6 +418,7 @@ def main() -> None:
         cuda._LIBS[name] = libs[name]["new"]
         del fwd_calls, bwd_calls, calls
         torch.cuda.empty_cache()
+    cs.emit({"phase": "bitwise", **bitwise})
     print(smi, flush=True)
     cs.emit({"ok": True})
 

@@ -64,11 +64,11 @@ Geometries (lanegcn_tpu_torch/config.py), driven in this order:
   half_lanercnn  lanercnn at n_map = n_actor = 64: every LaneRCNN kernel at
               W = 64 both ways, window_scatter, row_tail2 and
               edge_mlp_pool among them (the lanercnn launches).
-  double      contiguous at n_map = n_actor = 256, full depth, served only:
-              lane_layer, Att's edge_mlp and row_tail at W = 256
-              (csrc/wide.cuh's kernels; the contiguous launches); phases
-              pack, kernel, parity, serve (+ profile), serve_rerun,
-              refused_step and refused_serve.
+  double      contiguous at n_map = n_actor = 256, full depth: lane_layer,
+              Att's edge_mlp and row_tail at W = 256 both ways
+              (csrc/wide.cuh's and csrc/wide_bwd.cuh's kernels; the
+              contiguous launches); every phase of contiguous, then
+              serve_rerun and refused_serve.
 
 Phases, one JSON line each (tagged with the geometry); any failure raises
 and exits non-zero:
@@ -139,7 +139,7 @@ and exits non-zero:
           beside one `index_select` call and on `SCATTER_CASES` (the empty
           plan's gradient all zero), row_tail2_bwd, edge_mlp_pool_bwd
           with `EDGE_ROWS` and the all-padding call, whose outputs must all
-          be zero; contiguous: edge_mlp_bwd likewise;
+          be zero; contiguous and double (W = 256): edge_mlp_bwd likewise;
           merged: lane_plan_bwd (and `PLAN_CASES`); unfused: band_conv_bwd;
           half_merged and half_unfused: the same at W = 64 (band_conv_bwd's
           cuts also to `RAGGED_NARROW_ROWS`);
@@ -219,12 +219,7 @@ and exits non-zero:
           after no launch but the any-width segment sum's, that kernel's
           entries never launched, no backward launched, no plain version
           of the refusing kernel or plain backward run on the card.
-  refused_step  (double) one bf16 train step of the double-width model on
-          its pack: it must raise ValueError at its first backward
-          (`WIDE_REFUSED_STEP`: A2A's row_tail_bwd, not built at 256)
-          after exactly the eval forward's launches (its per_forward), the
-          forwards all on their 256-wide kernels.
-  refused_serve  (double) one bf16 eval forward of the same model on 8
+  refused_serve  (double) one bf16 eval forward of the double-width model on 8
           scenarios of the bench layout: it must raise ValueError at
           scenario_agg (`WIDE_REFUSED_SERVE`) after only segment sums.
 After the geometries, phases without a geometry:
@@ -321,8 +316,8 @@ edge_mlp and edge_mlp_bwd (widths), lane_layer, scenario_agg, pair_agg,
 win_edge, row_tail and their backwards (half), lane_plan and lane_plan_bwd
 (half_merged), band_conv and band_conv_bwd (half_unfused), window_scatter,
 row_tail2, edge_mlp_pool and their backwards (half_lanercnn), 64, and for
-lane_layer, edge_mlp and row_tail (double), 256, with the geometry that
-checked it),
+lane_layer, edge_mlp, row_tail and their backwards (double), 256, with the
+geometry that checked it),
 the nvidia-smi name/power-limit line, and last the `ok` line with the
 device.
 
@@ -462,11 +457,9 @@ _RCNN_STEP = {**_RCNN_FWD, "lane_layer_bwd": 12, "scenario_agg_bwd": 12,
               "segment_sum": 30}
 _RCNN_REMAT_STEP = {**_RCNN_STEP, "window_scatter_fwd": 4, "edge_mlp_pool_fwd": 6,
                     "row_tail2_fwd": 6, "segment_sum": 31}
-# The double geometry's refusals: the first kernel each run reaches that is
-# not built at 256, by its C entries. A train step's first backward is A2A's
-# last row tail's; an eval forward on the bench layout reaches the window
-# plan's aggregate after LaneInput's segment sums.
-WIDE_REFUSED_STEP = {"row_tail_bwd": ("row_tail_bwd",)}
+# The double geometry's refusal: the first kernel an eval forward at 256 on
+# the bench layout reaches that is not built at 256, by its C entries: the
+# window plan's aggregate, after LaneInput's segment sums.
 WIDE_REFUSED_SERVE = {"scenario_agg": ("scenario_agg_fwd",)}
 GEOMETRIES = {
     "windowed": dict(model="lanegcn", config="windowed_pack_config", s=256,
@@ -556,17 +549,17 @@ GEOMETRIES = {
                           refused=dict(n_map=96, n_actor=96)),
     # The double-width model (n_map = n_actor = 256) on the CLI's contiguous
     # layout at full depth: lane_layer, Att's edge_mlp and row_tail at W =
-    # 256 (csrc/wide.cuh), the contiguous launches. It serves and does not
-    # train (no per_train_step): its backwards are not built at 256, so a
-    # train step must refuse at its first backward (`refused_step`), and an
-    # eval forward at 256 on the bench layout at its first kernel not built
-    # at 256 (`refused_serve`: the geometry and the refusal).
+    # 256 both ways (csrc/wide.cuh, csrc/wide_bwd.cuh), the contiguous
+    # launches; an eval forward at 256 on the bench layout must stop at its
+    # first kernel not built at 256 (`refused_serve`: the geometry and the
+    # refusal).
     "double": dict(model="lanegcn", config="contiguous_pack_config", s=32,
                    model_fields=dict(n_map=256, n_actor=256),
-                   kernels=("lane_layer", "edge_mlp", "row_tail"), step_kernels=(),
-                   per_forward=_CONTIGUOUS_FWD, serve_rerun=True,
-                   refused_step=WIDE_REFUSED_STEP,
-                   refused_serve=("bench", WIDE_REFUSED_SERVE)),
+                   kernels=("lane_layer", "edge_mlp", "row_tail"),
+                   step_kernels=("segment_sum",), per_forward=_CONTIGUOUS_FWD,
+                   per_train_step={**_CONTIGUOUS_FWD, "lane_layer_bwd": 8, "edge_mlp_bwd": 6,
+                                   "row_tail_bwd": 6, "segment_sum": 42},
+                   serve_rerun=True, refused_serve=("bench", WIDE_REFUSED_SERVE)),
 }
 # The first width-checked kernel a LaneRCNN train step reaches at a width
 # no kernel takes (the half_lanercnn geometry's `refused` fields), by its C
@@ -1828,14 +1821,6 @@ def drive(geom):
     if edge_pad is not None:
         check_edge_padding(geom, "edge_mlp", edge_pad)
     del cap, edge_pad
-    if "per_train_step" not in spec:  # serves only
-        parity_phase(geom)
-        serve = serve_phase(geom, step, batches, results, pack_s)
-        if spec.get("serve_rerun"):
-            serve_rerun_phase(geom, step, batches[0])
-        refused_wide_phases(geom, cfg, batches[0])
-        return results, serve, None
-
     # --- backward kernels against their plain backwards, on a train step's inputs ---
     net_t, state = init_state(cfg, dtype=torch.bfloat16)
     tstep = make_train_step(cfg, net_t, state)
@@ -1858,6 +1843,8 @@ def drive(geom):
         ab_phase(geom, batches)
     if spec.get("serve_rerun"):
         serve_rerun_phase(geom, step, batches[0])
+    if "refused_serve" in spec:
+        refused_serve_phase(geom)
     return results, serve, train
 
 
@@ -2444,7 +2431,8 @@ def step_kernel_phases(geom, cap):
         cap.counts["window_scatter_bwd"].update(counts)
         check_empty_scatter(calls[empty], backward=True)
     edge = {"lanercnn": "edge_mlp_pool_bwd", "half_lanercnn": "edge_mlp_pool_bwd",
-            "contiguous": "edge_mlp_bwd", "widths": "edge_mlp_bwd"}.get(geom)
+            "contiguous": "edge_mlp_bwd", "widths": "edge_mlp_bwd",
+            "double": "edge_mlp_bwd"}.get(geom)
     edge_pad = add_edge_cases(edge, cap) if edge else None
     results = kernel_phase("kernel_bwd", geom, backward_ops(spec["kernels"]), cap.calls,
                            cap.counts)
@@ -2643,14 +2631,13 @@ def serve_rerun_phase(geom, step, batch):
     check(not apart, f"{geom}: a rerun of the eval forward differs in {apart}")
 
 
-def refusal_phase(phase, geom, width, run, refusing, before, extra=None):
+def refusal_phase(phase, geom, width, run, refusing, extra=None):
     """run() must raise a ValueError naming a kernel of `refusing` ({kernel:
     its C entries}) and the width (the kernel's check: "not <width>"),
     before any of that kernel's entries launches (their counts stay 0),
-    with only `before` launched ahead of it (a dict: exactly those counts;
-    a tuple: entries that may launch) and no plain version of a refusing
-    kernel or plain backward run in a kernel's place on the card (both
-    watched). What launched before it is printed."""
+    with nothing but ANY_WIDTH's entries launched ahead of it and no plain
+    version of a refusing kernel or plain backward run in a kernel's place
+    on the card (both watched). What launched before it is printed."""
     import torch
     from lanegcn_tpu_torch.ops import cuda
 
@@ -2675,13 +2662,9 @@ def refusal_phase(phase, geom, width, run, refusing, before, extra=None):
           f"{geom} {phase}: the ValueError names no refusing kernel and width {width}: {err}")
     check(all(counts[e] == 0 for e in refusing[named[0]]),
           f"{geom} {phase}: {named[0]} launched before it refused: {launched}")
-    if isinstance(before, dict):
-        check(launched == {k: v for k, v in before.items() if v},
-              f"{geom} {phase}: launched {launched} before the refusal, expected {before}")
-    else:
-        check(set(launched) <= set(before),
-              f"{geom} {phase}: a kernel other than {before} launched before the refusal: "
-              f"{launched}")
+    check(set(launched) <= set(ANY_WIDTH),
+          f"{geom} {phase}: a kernel other than {ANY_WIDTH} launched before the refusal: "
+          f"{launched}")
     check(not plain_calls, f"{geom} {phase}: plain versions ran on the card: {plain_calls}")
 
 
@@ -2703,30 +2686,23 @@ def refused_train_phase(geom, cfg, batch):
     tstep = make_train_step(bundle.config, net, state, loss_fn=bundle.loss_fn,
                             metrics_fn=bundle.metrics_fn)
     refusal_phase("refused_train", geom, rcfg.model.n_map, lambda: tstep(batch, 0.0),
-                  NARROW_REFUSED, ANY_WIDTH, {"fields": spec["refused"]})
+                  NARROW_REFUSED, {"fields": spec["refused"]})
 
 
-def refused_wide_phases(geom, cfg, batch):
-    """The double geometry's refusals (`refusal_phase`): a bf16 train step
-    on its pack must stop at its first backward (`refused_step`) after
-    exactly the eval forward's launches, its forwards all on the kernels
-    at 256; an eval forward of the same model on 8 scenarios of the
-    `refused_serve` geometry's layout must stop at that geometry's first
-    kernel not built at 256, with nothing launched but ANY_WIDTH's."""
+def refused_serve_phase(geom):
+    """The double geometry's refusal (`refusal_phase`): an eval forward of
+    its model on 8 scenarios of the `refused_serve` geometry's layout must
+    stop at that geometry's first kernel not built at the model's width,
+    with nothing launched but ANY_WIDTH's."""
     import dataclasses
 
     import torch
     from lanegcn_tpu_torch.graph import PackedBatch
     from lanegcn_tpu_torch.models.registry import get_model
-    from lanegcn_tpu_torch.train.loop import init_state, make_eval_step, make_train_step
+    from lanegcn_tpu_torch.train.loop import make_eval_step
 
     spec = GEOMETRIES[geom]
-    width = cfg.model.n_map
-    net, state = init_state(cfg, dtype=torch.bfloat16)
-    tstep = make_train_step(cfg, net, state)
-    refusal_phase("refused_step", geom, width, lambda: tstep(batch, 0.0), spec["refused_step"],
-                  spec["per_forward"])
-    del net, state, tstep
+    width = spec["model_fields"]["n_map"]
     other, refusing = spec["refused_serve"]
     s = 8
     ocfg = pack_config(other, s)
@@ -2735,7 +2711,7 @@ def refused_wide_phases(geom, cfg, batch):
     packs, _, _, _ = make_packs(ocfg, 1, s, seed0=0, pack_kw=pack_kwargs(other))
     step = make_eval_step(ocfg, get_model("lanegcn", ocfg, dtype=torch.bfloat16, seed=0).net)
     obatch = PackedBatch.from_numpy(packs[0]).to("cuda")
-    refusal_phase("refused_serve", geom, width, lambda: step(obatch), refusing, ANY_WIDTH,
+    refusal_phase("refused_serve", geom, width, lambda: step(obatch), refusing,
                   {"layout": GEOMETRIES[other]["config"], "scenarios": s})
 
 

@@ -679,6 +679,64 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// --- Warpgroup helpers of the wgmma passes (edge_tc.cuh's chains and the
+// W = 256 backwards, wide_bwd.cuh) -------------------------------------------
+
+// The warpgroup's 128 threads (named barrier 1 + warpgroup).
+__device__ __forceinline__ void wg_sync() {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (threadIdx.x >> 7)) : "memory");
+}
+
+// Two bf16 values packed in one register (tc::pack_bf2's inverse) as floats.
+__device__ __forceinline__ float2 unpack_bf2(uint32_t u) {
+  __nv_bfloat162 h;
+  memcpy(&h, &u, 4);
+  return __bfloat1622float2(h);
+}
+
+// One stage of col_sums' butterfly: slots 0 .. M−1 keep the lane's half of
+// slots 0 .. 2M−1 (the low half where lane bit M is clear) plus its
+// partner's (lane ^ M) sum of the same columns. A template, so that every
+// index is a constant and x stays in registers.
+template <int M>
+__device__ __forceinline__ void col_stage(float (&x)[32], int lane) {
+  const bool hi = (lane & M) != 0;
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    const float send = hi ? x[j] : x[j + M];
+    const float keep = hi ? x[j + M] : x[j];
+    x[j] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+  }
+}
+
+// v[k] += the sum over the tile's 64 rows of a[i]·b[i] (MUL) or a[i], for
+// this lane's 4 columns (2g·8 + 2q + {0, 1} and (2g + 1)·8 + 2q + {0, 1},
+// g = lane / 4, q = lane % 4). The thread's two rows are added first, then
+// a halving butterfly over the 8 lanes of one q: each stage keeps half of
+// the columns and sends the other half to its partner (28 shuffles).
+template <bool MUL>
+__device__ __forceinline__ void col_sums(float (&v)[4], const float (&a)[64],
+                                         const float (&b)[64]) {
+  const int lane = threadIdx.x & 31;
+  float x[32];  // slot j: columns of accumulator elements 4(j >> 1) + (j & 1) (+2)
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int i0 = 4 * (j >> 1) + (j & 1), i1 = i0 + 2;
+    x[j] = MUL ? a[i0] * b[i0] + a[i1] * b[i1] : a[i0] + a[i1];
+  }
+  col_stage<16>(x, lane);
+  col_stage<8>(x, lane);
+  col_stage<4>(x, lane);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] += x[k];
+}
+
+// The column of the lane's column sum j (0..3) in col_sums' layout.
+__device__ __forceinline__ int col_sum_col(int j) {
+  const int lane = threadIdx.x & 31;
+  return (2 * (lane >> 2) + (j >> 1)) * 8 + 2 * (lane & 3) + (j & 1);
+}
+
 // Host dispatch onto the widths the W-templated kernels are built at (the
 // wrappers' ops/cuda.py WIDTHS). with_width calls f(width_c<W>{}) for
 // width W = 128 or 64; with_width_dtype calls f(width_c<W>{},
@@ -702,9 +760,11 @@ template <typename F> int with_width_dtype(int width, int dtype, F&& f) {
 }
 
 // The entries also built at W = 256 (lane_layer_fwd, row_tail_fwd and
-// edge_mlp_fwd, on wide.cuh's kernels of their own): f(width_c<256>{},
-// dtype_c<T>{}) at width 256, else with_width_dtype. Every other entry
-// dispatches through with_width or with_width_dtype and refuses 256.
+// edge_mlp_fwd, on wide.cuh's kernels of their own, and lane_layer_bwd and
+// edge_mlp_bwd, on wide_bwd.cuh's; row_tail_bwd takes 256 by a branch of its
+// own): f(width_c<256>{}, dtype_c<T>{}) at width 256, else
+// with_width_dtype. Every other entry dispatches through with_width or
+// with_width_dtype and refuses 256.
 template <typename F> int with_width_dtype_256(int width, int dtype, F&& f) {
   if (width != 2 * C) return with_width_dtype(width, dtype, f);
   if (dtype == 0) return f(width_c<2 * C>{}, dtype_c<float>{});

@@ -88,8 +88,11 @@
 // [E, 4W] and the weight gradients W x W. The wgmma products keep their
 // m64n128k16 shape with K cut to W, so half of N multiplies zero columns.
 // At W = 128 each kernel compiles to the code it was before the width
-// existed. Att's forward also takes W = 256, on kernels of their own
-// (edge_mlp_wide_kernel, edge_mlp_wide_tc_kernel, below; wide.cuh).
+// existed. Att's chain also takes W = 256 both ways, on kernels of their
+// own (the forward edge_mlp_wide_kernel and edge_mlp_wide_tc_kernel, on
+// wide.cuh; the backward edge_mlp_bwd_wide_kernel and
+// edge_mlp_bwd_wide_tc_kernel, then wide_bwd.cuh's weight-gradient pass;
+// below).
 // LanePooling's configuration (edge_mlp_pool_fwd / _bwd, below)
 // takes W = 64 the same way (LaneRCNN at n_map = 64): cg, out, g and dcg
 // rows, Wd's columns, bd and the GN affines W wide, K1 and Wout zero-padded,
@@ -165,7 +168,7 @@
 
 #include "edge_chain.cuh"
 #include "edge_tc.cuh"
-#include "wide.cuh"
+#include "wide_bwd.cuh"
 
 using namespace lgk;
 
@@ -1465,6 +1468,521 @@ int launch_wide(const float* d, const void* qg, const void* cg, const void* kd, 
   return (int)cudaGetLastError();
 }
 
+// --- Att's backward at W = 256 (wide_bwd.cuh; the double-width model trains) ------------
+//
+// Two passes, as at 128, then the partial sums:
+// 1. the chain pass: per row the chain again and back (edge_mlp_bwd_plain's
+//    order): t1, z = t1 @ Wdo, t2, s = t2 @ K1 + cg + qg, e1; d_e1 = rnd(g)
+//    @ Woutᵀ, d_s = rnd(GN_chᵀ(d_e1 ⊙ [e1 > 0])) = dqg = dcg; d_s @ K1ᵀ,
+//    d_z = rnd(GN_doᵀ(· ⊙ [t2 > 0])); d_z @ Wdoᵀ, d_t1p = · ⊙ [t1 > 0]; dd =
+//    rnd(d_t1p) @ Wdᵀ; the seven vector gradients (dbd, dgdow, dgdob, dgchw,
+//    dgchb, dWd's rows) as column sums, per block. Each row's weight-
+//    gradient operands t1 | t2 | e1 | rnd(d_z) go to act [e, 4·256] in the
+//    activation dtype, and the normalised rows nrm_z | nrm_s, which the
+//    GroupNorm backwards need after two more products, to an fp32 [e, 2·256]
+//    workspace (the plain version keeps them in fp32).
+//    bf16 (edge_mlp_bwd_wide_tc_kernel): edge_mlp_wide_tc_kernel's
+//    persistent grid of two-warpgroup blocks on pairs of 64-row tiles. At
+//    most one 256-wide product's accumulators (two m64n128, 128 registers a
+//    thread) are live at a time: the five products run in turn from the
+//    warpgroup's A operand in shared memory (t1, t2, rnd(g), rnd(d_s),
+//    rnd(d_z)), and Wdo, K1, Wout, K1, Wdo (5 x 128 KB) stream through a ring
+//    of EB_RING quadrant slots, read MN-major for z and s and K-major for
+//    the three transposed products. A mask or GroupNorm input a later step
+//    needs comes back from act or the fp32 workspace (the thread's own
+//    elements). The column sums per warp in shared memory ([8][7][256]
+//    fp32); 218 KB of shared memory.
+//    fp32 (edge_mlp_bwd_wide_kernel): a persistent grid of 256-thread blocks
+//    on 64-row tiles, the chain in one fp32 [64 x 256] tile by warp-a-row,
+//    the products on CUDA cores with the weights streamed in KC-row chunks,
+//    the column sums per warp in registers.
+// 2. the weight-gradient pass (wide_bwd.cuh): dWdo = t1ᵀ rnd(d_z), dK1 =
+//    t2ᵀ rnd(d_s), dWout = e1ᵀ rnd(g), (splits, 3·4) blocks, one [128 x 128]
+//    quadrant of one gradient each.
+// What bounds it: nine 256-wide products per row (2·9·256² operations)
+// against d, qg, cg, g read and dd, dqg, dcg written (16 bytes and 5·256
+// bf16 a row): operations.
+constexpr int EB_RING = 3;  // quadrant slots of the chain pass's weight stream
+constexpr int EB_NV = 7;    // its vector gradients
+
+inline int edge_mlp_bwd_wide_tc_smem() {
+  return EB_RING * wide::QB + EW_WGS * 2 * wide::HB +
+         NT / 32 * EB_NV * wide::WW * (int)sizeof(float);
+}
+static_assert(EW_THREADS == NT, "the per-warp vectors are NT/32 rows");
+
+__global__ void __launch_bounds__(EW_THREADS, 1)
+edge_mlp_bwd_wide_tc_kernel(const float* __restrict__ d, const bf16* __restrict__ qg,
+                            const bf16* __restrict__ cg, const bf16* __restrict__ g,
+                            const bf16* __restrict__ kd, const float* __restrict__ bd,
+                            const bf16* __restrict__ kdo, const float* __restrict__ gdow,
+                            const float* __restrict__ gdob, const bf16* __restrict__ k1,
+                            const float* __restrict__ gchw, const float* __restrict__ gchb,
+                            const bf16* __restrict__ kout, float* __restrict__ dd,
+                            bf16* __restrict__ dqg, bf16* __restrict__ dcg,
+                            bf16* __restrict__ act, float* __restrict__ nrm,
+                            float* __restrict__ part_v, int e, float eps) {
+  constexpr int WW = wide::WW;
+  extern __shared__ float4 smem4[];
+  uint8_t* R_b = reinterpret_cast<uint8_t*>(smem4);  // the ring's quadrant slots
+  uint8_t* H_all = R_b + EB_RING * wide::QB;
+  float* vec_s = reinterpret_cast<float*>(H_all + EW_WGS * 2 * wide::HB);  // [8][7][256]
+  const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5;
+  uint8_t* H_b = H_all + wg * 2 * wide::HB;  // the warpgroup's A operand
+
+  const int ntiles = (e + EB - 1) / EB, pairs = (ntiles + EW_WGS - 1) / EW_WGS;
+  const int mine = blockIdx.x < pairs ? (pairs - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  auto chain = [=](int k) {  // per tile pair: Wdo, K1, Wout, K1ᵀ, Wdoᵀ
+    const int s = k % 5;
+    return s == 2 ? kout : s == 1 || s == 3 ? k1 : kdo;
+  };
+  auto ring = wide::quad_ring<EB_RING>(R_b, chain, 20 * mine);
+  ring.start();
+  for (int i = threadIdx.x; i < NT / 32 * EB_NV * WW; i += EW_THREADS) vec_s[i] = 0.f;
+  __syncthreads();  // the zeroed vectors in place
+  float* v_s = vec_s + warp * EB_NV * WW;  // dbd, dgdow, dgdob, dgchw, dgchb, dWd's rows
+
+  for (int p = blockIdx.x; p < pairs; p += gridDim.x) {
+    const long row0 = (long)(p * EW_WGS + wg) * EB;
+    const bool ok[2] = {row0 + tc::acc_row(0) < e, row0 + tc::acc_row(2) < e};
+    float dr[2][2];  // rnd(d) of the thread's two rows
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long row = row0 + tc::acc_row(2 * h);
+      dr[h][0] = ok[h] ? rnd<bf16>(d[row * 2]) : 0.f;
+      dr[h][1] = ok[h] ? rnd<bf16>(d[row * 2 + 1]) : 0.f;
+    }
+    // The thread's element pair i of half n2 of a row's act block k (t1, t2,
+    // e1) or of its fp32 workspace block k (nrm_z, nrm_s); 0 past e.
+    auto act2 = [&](int k, int n2, int i) {
+      return ok[tc::acc_half(i)] ? ld_bf2(act + (row0 + tc::acc_row(i)) * 4 * WW + k * WW +
+                                          wide::acc_col(n2, i))
+                                 : make_float2(0.f, 0.f);
+    };
+    auto nrm2 = [&](int k, int n2, int i) {
+      return ok[tc::acc_half(i)]
+                 ? *reinterpret_cast<const float2*>(nrm + (row0 + tc::acc_row(i)) * 2 * WW +
+                                                    k * WW + wide::acc_col(n2, i))
+                 : make_float2(0.f, 0.f);
+    };
+    auto nrm1 = [&](int k, int n2, int i) {
+      const float2 v = nrm2(k, n2, i & ~1);
+      return (i & 1) ? v.y : v.x;
+    };
+    // out(n2, i, u): the bf16 pair u of element pair i of half n2 into H and,
+    // on rows before e, into act's block k (k < 0: nowhere else).
+    auto put = [&](int k, int n2, int i, uint32_t u) {
+      const int r = tc::acc_row(i), c = wide::acc_col(n2, i);
+      *wide::a_pair(H_b, r, c) = u;
+      if (k >= 0 && ok[tc::acc_half(i)])
+        *reinterpret_cast<uint32_t*>(act + (row0 + r) * 4 * WW + k * WW + c) = u;
+    };
+    float a[2][64], mu[2], invz[2], invs[2], c1[2], c2[2];
+
+    wg_sync();  // the warpgroup's previous products are done with H
+#pragma unroll
+    for (int n2 = 0; n2 < 2; ++n2) {  // t1 = rnd(relu(rnd(d) @ rnd(Wd) + bd))
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int h = tc::acc_half(i), c = wide::acc_col(n2, i);
+        const float k00 = __bfloat162float(kd[c]), k01 = __bfloat162float(kd[c + 1]);
+        const float k10 = __bfloat162float(kd[WW + c]), k11 = __bfloat162float(kd[WW + c + 1]);
+        const float t0 = fmaf(dr[h][1], k10, dr[h][0] * k00);
+        const float t1 = fmaf(dr[h][1], k11, dr[h][0] * k01);
+        put(0, n2, i, tc::pack_bf2(ok[h] ? fmaxf(t0 + bd[c], 0.f) : 0.f,
+                                   ok[h] ? fmaxf(t1 + bd[c + 1], 0.f) : 0.f));
+      }
+    }
+    tc::fence_smem();
+    wg_sync();
+    wide::zero2(a);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) wide::mm_quadrant(a[q >> 1], H_b, q & 1, ring.take());  // z
+    wide::row_stats(a, eps, mu, invz);
+    wg_sync();  // the product is done with H
+#pragma unroll
+    for (int n2 = 0; n2 < 2; ++n2) {  // nrm_z out; t2 = rnd(relu(GN_do(z)))
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int h = tc::acc_half(i), c = wide::acc_col(n2, i);
+        const float z0 = (a[n2][i] - mu[h]) * invz[h], z1 = (a[n2][i + 1] - mu[h]) * invz[h];
+        if (ok[h])
+          *reinterpret_cast<float2*>(nrm + (row0 + tc::acc_row(i)) * 2 * WW + c) =
+              make_float2(z0, z1);
+        put(1, n2, i, tc::pack_bf2(fmaxf(z0 * gdow[c] + gdob[c], 0.f),
+                                   fmaxf(z1 * gdow[c + 1] + gdob[c + 1], 0.f)));
+      }
+    }
+    tc::fence_smem();
+    wg_sync();
+    wide::zero2(a);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) wide::mm_quadrant(a[q >> 1], H_b, q & 1, ring.take());  // s
+#pragma unroll
+    for (int n2 = 0; n2 < 2; ++n2) {  // s += cg + qg
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        if (!ok[tc::acc_half(i)]) continue;
+        const long row = row0 + tc::acc_row(i);
+        const int c = wide::acc_col(n2, i);
+        const float2 cv = ld_bf2(cg + row * WW + c), qv = ld_bf2(qg + row * WW + c);
+        a[n2][i] = a[n2][i] + cv.x + qv.x;
+        a[n2][i + 1] = a[n2][i + 1] + cv.y + qv.y;
+      }
+    }
+    wide::row_stats(a, eps, mu, invs);
+    wg_sync();  // the product is done with H
+#pragma unroll
+    for (int n2 = 0; n2 < 2; ++n2) {  // nrm_s and e1 = rnd(relu(GN_ch(s))) out; H ← rnd(g)
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int h = tc::acc_half(i), c = wide::acc_col(n2, i);
+        const long row = row0 + tc::acc_row(i);
+        const float s0 = (a[n2][i] - mu[h]) * invs[h], s1 = (a[n2][i + 1] - mu[h]) * invs[h];
+        uint32_t gu = 0u;
+        if (ok[h]) {
+          *reinterpret_cast<float2*>(nrm + row * 2 * WW + WW + c) = make_float2(s0, s1);
+          *reinterpret_cast<uint32_t*>(act + row * 4 * WW + 2 * WW + c) =
+              tc::pack_bf2(fmaxf(s0 * gchw[c] + gchb[c], 0.f),
+                           fmaxf(s1 * gchw[c + 1] + gchb[c + 1], 0.f));
+          gu = *reinterpret_cast<const uint32_t*>(g + row * WW + c);
+        }
+        put(-1, n2, i, gu);
+      }
+    }
+    tc::fence_smem();
+    wg_sync();
+    wide::zero2(a);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      wide::mm_quadrant_t(a[q & 1], H_b, q >> 1, ring.take());  // d_e1 = rnd(g) @ Woutᵀ
+    // d_gn_s = d_e1 ⊙ [e1 > 0] (0 past e); GN_ch's backward → rnd(d_s).
+    c1[0] = c1[1] = c2[0] = c2[1] = 0.f;
+#pragma unroll
+    for (int n2 = 0; n2 < 2; ++n2) {
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int h = tc::acc_half(i), c = wide::acc_col(n2, i);
+        const float2 ev = act2(2, n2, i), sv = nrm2(1, n2, i);
+        a[n2][i] = ev.x > 0.f ? a[n2][i] : 0.f;
+        a[n2][i + 1] = ev.y > 0.f ? a[n2][i + 1] : 0.f;
+        const float dn0 = a[n2][i] * gchw[c], dn1 = a[n2][i + 1] * gchw[c + 1];
+        c1[h] += dn0;
+        c2[h] += dn0 * sv.x;
+        c1[h] += dn1;
+        c2[h] += dn1 * sv.y;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      c1[h] = tc::quad_sum(c1[h]) * (1.f / WW);
+      c2[h] = tc::quad_sum(c2[h]) * (1.f / WW);
+    }
+#pragma unroll
+    for (int n2 = 0; n2 < 2; ++n2) {  // dgchw, dgchb
+      wide::col_add(v_s + 3 * WW, n2, [&](int i) { return a[n2][i] * nrm1(1, n2, i); });
+      wide::col_add(v_s + 4 * WW, n2, [&](int i) { return a[n2][i]; });
+    }
+    wg_sync();  // the product is done with H
+#pragma unroll
+    for (int n2 = 0; n2 < 2; ++n2) {  // rnd(d_s) into H, dcg and dqg
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int h = tc::acc_half(i), c = wide::acc_col(n2, i);
+        const float2 sv = nrm2(1, n2, i);
+        const uint32_t u = tc::pack_bf2(invs[h] * (a[n2][i] * gchw[c] - c1[h] - sv.x * c2[h]),
+                                        invs[h] * (a[n2][i + 1] * gchw[c + 1] - c1[h] - sv.y * c2[h]));
+        put(-1, n2, i, u);
+        if (ok[h]) {
+          const long o = (row0 + tc::acc_row(i)) * WW + c;
+          *reinterpret_cast<uint32_t*>(dcg + o) = u;
+          *reinterpret_cast<uint32_t*>(dqg + o) = u;
+        }
+      }
+    }
+    tc::fence_smem();
+    wg_sync();
+    wide::zero2(a);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      wide::mm_quadrant_t(a[q & 1], H_b, q >> 1, ring.take());  // rnd(d_s) @ K1ᵀ
+    // d_gn_z = · ⊙ [t2 > 0]; GN_do's backward → rnd(d_z).
+    c1[0] = c1[1] = c2[0] = c2[1] = 0.f;
+#pragma unroll
+    for (int n2 = 0; n2 < 2; ++n2) {
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int h = tc::acc_half(i), c = wide::acc_col(n2, i);
+        const float2 tv = act2(1, n2, i), zv = nrm2(0, n2, i);
+        a[n2][i] = tv.x > 0.f ? a[n2][i] : 0.f;
+        a[n2][i + 1] = tv.y > 0.f ? a[n2][i + 1] : 0.f;
+        const float dn0 = a[n2][i] * gdow[c], dn1 = a[n2][i + 1] * gdow[c + 1];
+        c1[h] += dn0;
+        c2[h] += dn0 * zv.x;
+        c1[h] += dn1;
+        c2[h] += dn1 * zv.y;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      c1[h] = tc::quad_sum(c1[h]) * (1.f / WW);
+      c2[h] = tc::quad_sum(c2[h]) * (1.f / WW);
+    }
+#pragma unroll
+    for (int n2 = 0; n2 < 2; ++n2) {  // dgdow, dgdob
+      wide::col_add(v_s + WW, n2, [&](int i) { return a[n2][i] * nrm1(0, n2, i); });
+      wide::col_add(v_s + 2 * WW, n2, [&](int i) { return a[n2][i]; });
+    }
+    wg_sync();  // the product is done with H
+#pragma unroll
+    for (int n2 = 0; n2 < 2; ++n2) {  // rnd(d_z) into H and act
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int h = tc::acc_half(i), c = wide::acc_col(n2, i);
+        const float2 zv = nrm2(0, n2, i);
+        put(3, n2, i, tc::pack_bf2(invz[h] * (a[n2][i] * gdow[c] - c1[h] - zv.x * c2[h]),
+                                   invz[h] * (a[n2][i + 1] * gdow[c + 1] - c1[h] - zv.y * c2[h])));
+      }
+    }
+    tc::fence_smem();
+    wg_sync();
+    wide::zero2(a);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      wide::mm_quadrant_t(a[q & 1], H_b, q >> 1, ring.take());  // rnd(d_z) @ Wdoᵀ
+    // d_t1p = · ⊙ [t1 > 0]: dbd; then rnd(d_t1p): dWd's rows and dd.
+#pragma unroll
+    for (int n2 = 0; n2 < 2; ++n2) {
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const float2 tv = act2(0, n2, i);
+        a[n2][i] = tv.x > 0.f ? a[n2][i] : 0.f;
+        a[n2][i + 1] = tv.y > 0.f ? a[n2][i + 1] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int n2 = 0; n2 < 2; ++n2) {
+      wide::col_add(v_s, n2, [&](int i) { return a[n2][i]; });  // dbd
+#pragma unroll
+      for (int i = 0; i < 64; ++i) a[n2][i] = rnd<bf16>(a[n2][i]);
+      wide::col_add(v_s + 5 * WW, n2, [&](int i) { return a[n2][i] * dr[tc::acc_half(i)][0]; });
+      wide::col_add(v_s + 6 * WW, n2, [&](int i) { return a[n2][i] * dr[tc::acc_half(i)][1]; });
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {  // dd[row][k] = rnd(d_t1p) · rnd(Wd)[k]
+      float s[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n2 = 0; n2 < 2; ++n2) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          s[tc::acc_half(i)] += a[n2][i] * __bfloat162float(kd[k * WW + wide::acc_col(n2, i)]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s[h] = tc::quad_sum(s[h]);
+        if ((threadIdx.x & 3) == 0 && ok[h]) dd[(row0 + tc::acc_row(2 * h)) * 2 + k] = s[h];
+      }
+    }
+  }
+  wide::sum_warps<EB_NV>(vec_s, part_v + (long)blockIdx.x * EB_NV * WW);
+}
+
+__global__ void __launch_bounds__(NT)
+edge_mlp_bwd_wide_kernel(const float* __restrict__ d, const float* __restrict__ qg,
+                         const float* __restrict__ cg, const float* __restrict__ g,
+                         const float* __restrict__ kd, const float* __restrict__ bd,
+                         const float* __restrict__ kdo, const float* __restrict__ gdow,
+                         const float* __restrict__ gdob, const float* __restrict__ k1,
+                         const float* __restrict__ gchw, const float* __restrict__ gchb,
+                         const float* __restrict__ kout, float* __restrict__ dd,
+                         float* __restrict__ dqg, float* __restrict__ dcg,
+                         float* __restrict__ act, float* __restrict__ nrm,
+                         float* __restrict__ part_v, int e, float eps) {
+  using wide::Row;
+  constexpr int WW = wide::WW, LDW = wide::LDW;
+  extern __shared__ float4 smem4[];
+  float* T_s = reinterpret_cast<float*>(smem4);  // [EB][LDW] the chain's current rows
+  float* W_s = T_s + EB * LDW;                   // [KC][256]
+  float* st_s = W_s + wide::KC * WW;             // [EB][2] GN_do's and GN_ch's inv
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float ones[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
+  Row v[EB_NV];  // dbd, dgdow, dgdob, dgchw, dgchb, dWd's rows (this lane's columns)
+#pragma unroll
+  for (int q = 0; q < EB_NV; ++q) v[q] = wide::zero_row();
+  auto rows = [&](float* base, int ld, long row) { return base + row * ld; };
+  const int ntiles = (e + EB - 1) / EB;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long row0 = (long)tile * EB;
+    __syncthreads();  // the previous tile is done with T_s and st_s
+    for (int i = threadIdx.x; i < EB * (WW / 4); i += NT) {  // t1 (0 past e)
+      const int r = i / (WW / 4), c4 = (i % (WW / 4)) * 4;
+      const long row = row0 + r;
+      float4 t = zero4();
+      if (row < e) {
+        const float d0 = d[row * 2], d1 = d[row * 2 + 1];
+        const float4 k0 = load4<float>(kd + c4), kk = load4<float>(kd + WW + c4);
+        t = make_float4(d0 * k0.x, d0 * k0.y, d0 * k0.z, d0 * k0.w);
+        t = make_float4(fmaf(d1, kk.x, t.x), fmaf(d1, kk.y, t.y), fmaf(d1, kk.z, t.z),
+                        fmaf(d1, kk.w, t.w));
+        t = relu4(add4(t, *reinterpret_cast<const float4*>(bd + c4)));
+        *reinterpret_cast<float4*>(act + row * 4 * WW + c4) = t;
+      }
+      *reinterpret_cast<float4*>(T_s + r * LDW + c4) = t;
+    }
+    float acc[8][8];
+    auto product = [&](const float* w, bool transposed) {  // T_s ← T_s @ w (or wᵀ)
+      wide::zero8(acc);
+      if (transposed)
+        wide::mm_rows<true>(T_s, 0, ones, w, W_s, acc);
+      else
+        wide::mm_rows(T_s, 0, ones, w, W_s, acc);
+      __syncthreads();
+      wide::store_tile(T_s, acc);
+      __syncthreads();
+    };
+    product(kdo, false);  // z
+    for (int r = warp; r < EB; r += NT / 32) {  // nrm_z out; t2 = relu(GN_do(z))
+      const long row = row0 + r;
+      Row t2 = wide::zero_row();
+      if (row < e) {
+        const Row z = wide::ld_row(T_s + r * LDW);
+        const float2 st = wide::row_stats(z, eps);
+        const Row nz = wide::nrm_row(z, st);
+        wide::st_row_g<float>(rows(nrm, 2 * WW, row), nz);
+        t2 = wide::relu_row(wide::affine_row(nz, gdow, gdob));
+        wide::st_row_g<float>(rows(act, 4 * WW, row) + WW, t2);
+        if (lane == 0) st_s[2 * r] = st.y;
+      }
+      wide::st_row(T_s + r * LDW, t2);
+    }
+    product(k1, false);  // s
+    for (int r = warp; r < EB; r += NT / 32) {  // nrm_s and e1 out; T_s ← g
+      const long row = row0 + r;
+      Row gv = wide::zero_row();
+      if (row < e) {
+        const Row sv = wide::add_row(wide::add_row(wide::ld_row(T_s + r * LDW),
+                                                   wide::ld_row_g<float>(cg + row * WW)),
+                                     wide::ld_row_g<float>(qg + row * WW));
+        const float2 st = wide::row_stats(sv, eps);
+        const Row ns = wide::nrm_row(sv, st);
+        wide::st_row_g<float>(rows(nrm, 2 * WW, row) + WW, ns);
+        wide::st_row_g<float>(rows(act, 4 * WW, row) + 2 * WW,
+                              wide::relu_row(wide::affine_row(ns, gchw, gchb)));
+        if (lane == 0) st_s[2 * r + 1] = st.y;
+        gv = wide::ld_row_g<float>(g + row * WW);
+      }
+      wide::st_row(T_s + r * LDW, gv);
+    }
+    product(kout, true);  // d_e1 = g @ Woutᵀ
+    for (int r = warp; r < EB; r += NT / 32) {  // d_gn_s, GN_ch's backward → d_s
+      const long row = row0 + r;
+      Row ds = wide::zero_row();
+      if (row < e) {
+        const Row dg = wide::mask_row(wide::ld_row(T_s + r * LDW),
+                                      wide::ld_row_g<float>(rows(act, 4 * WW, row) + 2 * WW));
+        const Row ns = wide::ld_row_g<float>(rows(nrm, 2 * WW, row) + WW);
+        v[3] = wide::add_row(v[3], wide::mul_row(dg, ns));
+        v[4] = wide::add_row(v[4], dg);
+        ds = wide::gn_bwd_row(dg, ns, st_s[2 * r + 1], gchw);
+        wide::st_row_g<float>(dcg + row * WW, ds);
+        wide::st_row_g<float>(dqg + row * WW, ds);
+      }
+      wide::st_row(T_s + r * LDW, ds);
+    }
+    product(k1, true);  // d_s @ K1ᵀ
+    for (int r = warp; r < EB; r += NT / 32) {  // d_gn_z, GN_do's backward → d_z
+      const long row = row0 + r;
+      Row dz = wide::zero_row();
+      if (row < e) {
+        const Row dg = wide::mask_row(wide::ld_row(T_s + r * LDW),
+                                      wide::ld_row_g<float>(rows(act, 4 * WW, row) + WW));
+        const Row nz = wide::ld_row_g<float>(rows(nrm, 2 * WW, row));
+        v[1] = wide::add_row(v[1], wide::mul_row(dg, nz));
+        v[2] = wide::add_row(v[2], dg);
+        dz = wide::gn_bwd_row(dg, nz, st_s[2 * r], gdow);
+        wide::st_row_g<float>(rows(act, 4 * WW, row) + 3 * WW, dz);
+      }
+      wide::st_row(T_s + r * LDW, dz);
+    }
+    product(kdo, true);  // d_z @ Wdoᵀ
+    for (int r = warp; r < EB; r += NT / 32) {  // d_t1p: dbd, dWd's rows, dd
+      const long row = row0 + r;
+      if (row >= e) break;
+      const Row d1 = wide::mask_row(wide::ld_row(T_s + r * LDW),
+                                    wide::ld_row_g<float>(rows(act, 4 * WW, row)));
+      v[0] = wide::add_row(v[0], d1);
+      v[5] = wide::add_row(v[5], wide::scale_row(d1, d[row * 2]));
+      v[6] = wide::add_row(v[6], wide::scale_row(d1, d[row * 2 + 1]));
+      const float s0 = warp_sum(wide::row_sum(wide::mul_row(d1, wide::vec_row(kd))));
+      const float s1 = warp_sum(wide::row_sum(wide::mul_row(d1, wide::vec_row(kd + WW))));
+      if (lane == 0) {
+        dd[row * 2] = s0;
+        dd[row * 2 + 1] = s1;
+      }
+    }
+  }
+  wide::reduce_rows<EB_NV>(v, T_s, part_v + (long)blockIdx.x * EB_NV * WW);
+}
+
+// dW's operands (wide_bwd.cuh launch_dw): 0: dWdo = t1ᵀ rnd(d_z), 1: dK1 =
+// t2ᵀ rnd(d_s) (dcg), 2: dWout = e1ᵀ rnd(g).
+template <typename T>
+struct EdgeSrc {
+  const T* act;
+  const T* dcg;
+  const T* g;
+  const T* any;
+  __device__ const T* a(int m, long u) const { return act + u * 4 * wide::WW + m * wide::WW; }
+  __device__ const T* b(int m, long u) const {
+    return m == 0 ? act + u * 4 * wide::WW + 3 * wide::WW : (m == 1 ? dcg : g) + u * wide::WW;
+  }
+};
+
+// The workspaces at W = 256: act (bytes) = e·4·256 in T, then the fp32
+// normalised rows e·2·256; part (floats) = blocks·7·256 (the chain pass's
+// vector sums), then splits·3·256² (the dW pass's partials).
+template <typename T>
+int launch_bwd_wide(const float* d, const void* qg, const void* cg, const void* g, const void* kd,
+                    const float* bd, const void* kdo, const float* gdow, const float* gdob,
+                    const void* k1, const float* gchw, const float* gchb, const void* kout,
+                    float* dd, void* dqg, void* dcg, void* act, float* part, float* grads, int e,
+                    int blocks, int splits, float eps, cudaStream_t stream) {
+  constexpr int WW = wide::WW;
+  T* act_t = (T*)act;
+  float* nrm = reinterpret_cast<float*>((uint8_t*)act + (long)e * 4 * WW * sizeof(T));
+  float* part_w = part + (long)blocks * EB_NV * WW;
+  const int ntiles = (e + EB - 1) / EB;
+  cudaError_t err;
+  int nb;
+  if constexpr (std::is_same<T, bf16>::value) {
+    nb = min(blocks, (ntiles + EW_WGS - 1) / EW_WGS);
+    const int smem = edge_mlp_bwd_wide_tc_smem();
+    err = set_smem((const void*)edge_mlp_bwd_wide_tc_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (nb > 0)
+      edge_mlp_bwd_wide_tc_kernel<<<nb, EW_THREADS, smem, stream>>>(
+          d, (const bf16*)qg, (const bf16*)cg, (const bf16*)g, (const bf16*)kd, bd,
+          (const bf16*)kdo, gdow, gdob, (const bf16*)k1, gchw, gchb, (const bf16*)kout, dd,
+          (bf16*)dqg, (bf16*)dcg, act_t, nrm, part, e, eps);
+  } else {
+    nb = min(blocks, ntiles);
+    const int smem = wide::TILE_BYTES + wide::CHUNK_BYTES + 2 * EB * (int)sizeof(float);
+    err = set_smem((const void*)edge_mlp_bwd_wide_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (nb > 0)
+      edge_mlp_bwd_wide_kernel<<<nb, NT, smem, stream>>>(
+          d, (const float*)qg, (const float*)cg, (const float*)g, (const float*)kd, bd,
+          (const float*)kdo, gdow, gdob, (const float*)k1, gchw, gchb, (const float*)kout, dd,
+          (float*)dqg, (float*)dcg, act_t, nrm, part, e, eps);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int e2 = wide::launch_dw<T>(EdgeSrc<T>{act_t, (const T*)dcg, (const T*)g, (const T*)g}, e,
+                                    3, splits, part_w, grads, stream);
+  if (e2 != 0) return e2;
+  return (int)reduce_partials(part, grads + 3 * WW * WW, nb, EB_NV * WW, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (qg, cg, kd [2, W], kdo, k1, kout (in,
@@ -1509,14 +2027,15 @@ extern "C" int edge_mlp_pool_fwd(const void* d, const void* cg, const void* kd, 
 }
 
 // Backward. g: the output cotangent [e, W] in the activation dtype (W =
-// width, 128 or 64); dd fp32 [e, 2]; dqg/dcg [e, W] in the activation dtype;
-// grads: fp32 [3*W*W + 7*W] = dWdo, dK1, dWout (in, out), dbd, dgdow, dgdob,
-// dgchw, dgchb, dWd row 0, dWd row 1, the partials' sums in block (split)
-// order. part, act: workspaces (see launch_bwd): bf16 part fp32
-// [blocks*7*W + splits*3*W*W] and act bf16 [e, 4*W]; fp32 part [blocks,
-// 3*W*W + 7*W], zero on entry, and act null. blocks: the card's SMs;
-// splits: the bf16 weight-gradient pass's splits. bf16: d, qg, cg, g, dqg
-// and dcg 16-byte aligned.
+// width, 128, 64 or 256); dd fp32 [e, 2]; dqg/dcg [e, W] in the activation
+// dtype; grads: fp32 [3*W*W + 7*W] = dWdo, dK1, dWout (in, out), dbd,
+// dgdow, dgdob, dgchw, dgchb, dWd row 0, dWd row 1, the partials' sums in
+// block (split) order. part, act: workspaces (see launch_bwd): bf16 part
+// fp32 [blocks*7*W + splits*3*W*W] and act bf16 [e, 4*W]; fp32 part
+// [blocks, 3*W*W + 7*W], zero on entry, and act null; at 256, both dtypes,
+// part as bf16's and act e*4*W elements of the activation dtype then e*2*W
+// fp32 (launch_bwd_wide). blocks: the card's SMs; splits: the weight-
+// gradient pass's splits. bf16: d, qg, cg, g, dqg and dcg 16-byte aligned.
 extern "C" int edge_mlp_bwd(const void* d, const void* qg, const void* cg, const void* g,
                             const void* kd, const void* bd, const void* kdo, const void* gdow,
                             const void* gdob, const void* k1, const void* gchw, const void* gchb,
@@ -1528,10 +2047,15 @@ extern "C" int edge_mlp_bwd(const void* d, const void* qg, const void* cg, const
   const float *dp = (const float*)d, *b = (const float*)bd, *g0 = (const float*)gdow,
               *g1 = (const float*)gdob, *g2 = (const float*)gchw, *g3 = (const float*)gchb;
   float *ddp = (float*)dd, *pt = (float*)part, *gr = (float*)grads;
-  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
-    return launch_bwd<typename decltype(Tc)::type, decltype(Wc)::value>(
-        dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg, dcg, act, pt, gr, e,
-        blocks, splits, eps, st);
+  return with_width_dtype_256(width, dtype, [&](auto Wc, auto Tc) {
+    using T = typename decltype(Tc)::type;
+    if constexpr (decltype(Wc)::value == 2 * C)
+      return launch_bwd_wide<T>(dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3, kout, ddp, dqg,
+                                dcg, act, pt, gr, e, blocks, splits, eps, st);
+    else
+      return launch_bwd<T, decltype(Wc)::value>(dp, qg, cg, g, kd, b, kdo, g0, g1, k1, g2, g3,
+                                                 kout, ddp, dqg, dcg, act, pt, gr, e, blocks,
+                                                 splits, eps, st);
   });
 }
 

@@ -56,9 +56,10 @@
 // columns of out and temp stored. The bf16 products keep m64n128k16 with K
 // cut to W (half of N multiplies zero columns). At W = 128 each kernel
 // compiles to the code it was before the width existed. The backward takes
-// W = 64 the same way (below). The forward also takes W = 256, on kernels
-// of their own (lane_layer_wide_kernel, lane_layer_wide_tc_kernel, below;
-// wide.cuh).
+// W = 64 the same way (below). Both also take W = 256, on kernels of their
+// own (the forward lane_layer_wide_kernel and lane_layer_wide_tc_kernel,
+// wide.cuh; the backward's passes band_t_wide_kernel,
+// band_t_wide_tc_kernel and wide_bwd.cuh's; below).
 //
 // Backward (`lane_layer_bwd`): replaces pallas_lane_layer.py `_bwd_kernel` /
 // `_bwd_impl`. It consumes the saved temp:
@@ -99,7 +100,7 @@
 // each kernel compiles to the code it was before the width existed;
 // lane_plan.cu's PLAN instantiation of the dx pass stays at 128.
 #include "lane_band.cuh"
-#include "wide.cuh"
+#include "wide_bwd.cuh"
 
 using namespace lgk;
 
@@ -188,8 +189,10 @@ int launch(const void* feat, const void* pre, const uint8_t* masks, const void* 
 // fp32 (lane_layer_wide_kernel, the parity path): a block per 64-row tile
 // holds the feat rows u − 32 .. u + 95 as a ±32-row fp32 halo tile; the
 // band products run on CUDA cores (wide.cuh mm_rows, the A rows at the
-// shifted halo rows, scaled by band_j[u]; a relation none of the tile's
-// rows has is skipped), temp goes back over the halo's first 64 rows (the
+// shifted halo rows, scaled by band_j[u]; each relation's product formed
+// on its own, then added to temp, as the plain version adds them:
+// wide_bwd.cuh add_rows; a relation none of the tile's rows has is
+// skipped), temp goes back over the halo's first 64 rows (the
 // residual is read from feat in device memory), then the tail: GN1 by
 // warp-a-row, h @ W2, GN2, the residual and the ReLU. 162 KB of shared
 // memory.
@@ -246,7 +249,7 @@ lane_layer_wide_kernel(const float* __restrict__ feat, const float* __restrict__
       any |= m[i] != 0.f;
     }
     if (!__syncthreads_or(any)) continue;  // no row of the tile has relation j
-    wide::mm_rows(X_s, HALO + sh.s[j], m, wb + (long)j * WW * WW, W_s, acc);
+    wide::add_rows(X_s, HALO + sh.s[j], m, wb + (long)j * WW * WW, W_s, acc, false);
   }
   __syncthreads();  // the band products are done with the halo tile
   float* T_s = X_s;
@@ -440,6 +443,199 @@ int launch_wide(const void* feat, const void* pre, const uint8_t* masks, const v
   return (int)cudaGetLastError();
 }
 
+// --- the backward at W = 256 (wide_bwd.cuh; the double-width model trains) ----------
+//
+// The three passes of the 128-wide backward, each on the 256-wide tiling:
+//   row pass  wide_bwd.cuh launch_tail_bwd on the saved fp32 temp (x = temp,
+//             res = feat): dpre = rnd(d_temp), d_temp and d_y in fp32, and
+//             dW2 and dGN by its own dW pass.
+//   dx pass   dx[p] = d_y[p] + Σ_j band_j[p − s_j] · d_temp[p − s_j] @ Wb_jᵀ.
+//     bf16 (band_t_wide_tc_kernel): 128-row blocks of two warpgroups, the
+//     output in two m64n128 accumulators from d_y on. A [128 x 256] halo of
+//     d_temp split into bf16 hi and lo does not fit beside the weights (202
+//     KB), so the A operand of relation j, d_temp at rows p − s_j, goes
+//     from device memory straight into the register-A fragments (hi and lo
+//     of each fp32 pair, so that the operand keeps ~16 bits, as
+//     band_t_tc_kernel's), four k-steps at a time, the rows zeroed where
+//     band_j[p − s_j] is 0 or p − s_j lies outside [0, n); each Wb_j, four
+//     128 KB quadrants, streams through a ring of BT_RING quadrant slots
+//     (wide.cuh QuadRing) and is read K-major (quadrant (kh, nh) gives
+//     output half kh from d_temp's columns nh·128..).
+//     fp32 (band_t_wide_kernel): a block per 64-row tile with a ±32-row fp32
+//     halo of d_temp, the products on CUDA cores (wide.cuh mm_rows, transposed).
+//   dWb pass  dWb_j = Σ_u (band_j[u] · feat[u + s_j])ᵀ rnd(d_temp[u]) on
+//     wide_bwd.cuh's weight-gradient pass: (splits, 4·nj) blocks, each one
+//     [128 x 128] quadrant of one dWb_j, the partials splits x nj x 256²
+//     fp32 summed in split order.
+// What bounds it: the band transpose and dWb (2·2·256² operations per
+// masked band row) and three 256-wide products per row, against 4·256 bf16
+// and 256 fp32 moved a row: operations.
+
+constexpr int BT_WGS = 2;
+constexpr int BT_THREADS = 128 * BT_WGS;
+constexpr int BT_ROWS = 64 * BT_WGS;
+constexpr int BT_RING = 4;  // quadrant slots
+constexpr int BT_KG = 4;    // k-steps whose fragments are loaded at once
+
+__global__ void __launch_bounds__(BT_THREADS, 1)
+band_t_wide_tc_kernel(const float* __restrict__ dtemp, const float* __restrict__ dy,
+                      const uint8_t* __restrict__ masks, const bf16* __restrict__ wb,
+                      bf16* __restrict__ dx, int n, int nj, Shifts sh) {
+  constexpr int WW = wide::WW;
+  extern __shared__ float4 smem4[];
+  uint8_t* R_b = reinterpret_cast<uint8_t*>(smem4);  // the ring's quadrant slots
+  const long tile0 = (long)blockIdx.x * BT_ROWS;
+  const int lane = threadIdx.x & 31, wg = threadIdx.x >> 7, wr = (threadIdx.x >> 5) & 3;
+  auto src = [=](int k) { return wb + (long)k * WW * WW; };
+  auto ring = wide::quad_ring<BT_RING>(R_b, src, 4 * nj);
+  ring.start();
+
+  float a[2][64];  // dx = d_y + the band products, this warpgroup's 64 rows
+  const long r0 = tile0 + 64 * wg;
+  wide::load_acc<float>(a, dy, r0, n);
+  // the fragment's rows: p0 = this warp's first row + lane / 4, and p0 + 8
+  const long p0 = r0 + 16 * wr + (lane >> 2);
+  const int cq = 2 * (lane & 3);  // the fragment's column pair within a k-step
+  for (int j = 0; j < nj; ++j) {
+    const long s0 = p0 - sh.s[j], s1 = s0 + 8;
+    const bool m0 = s0 >= 0 && s0 < n && masks[(long)j * n + s0] != 0;
+    const bool m1 = s1 >= 0 && s1 < n && masks[(long)j * n + s1] != 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const tc::Tiles B = tc::tiles(ring.take(), C);
+      float(&acc)[64] = a[q & 1];
+      const int kc = (q >> 1) * C;  // d_temp's columns: the quadrant's K half
+#pragma unroll
+      for (int kg = 0; kg < C / 16; kg += BT_KG) {
+        uint32_t hi[BT_KG][4], lo[BT_KG][4];
+#pragma unroll
+        for (int kk = 0; kk < BT_KG; ++kk) {
+          const int c = kc + 16 * (kg + kk) + cq;
+          const float2 z = make_float2(0.f, 0.f);
+          const float2 v[4] = {m0 ? wide::ld2<float>(dtemp, s0, c) : z,
+                               m1 ? wide::ld2<float>(dtemp, s1, c) : z,
+                               m0 ? wide::ld2<float>(dtemp, s0, c + 8) : z,
+                               m1 ? wide::ld2<float>(dtemp, s1, c + 8) : z};
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            hi[kk][f] = tc::pack_bf2(v[f].x, v[f].y);
+            const float2 h = unpack_bf2(hi[kk][f]);
+            lo[kk][f] = tc::pack_bf2(v[f].x - h.x, v[f].y - h.y);
+          }
+        }
+        tc::fence_acc(acc);
+        tc::fence();
+#pragma unroll
+        for (int kk = 0; kk < BT_KG; ++kk) {
+          const uint64_t db = tc::desc(B, true, kg + kk, 0);
+          tc::mma_rs<0>(acc, hi[kk], db);
+          tc::mma_rs<0>(acc, lo[kk], db);
+        }
+        tc::commit();
+        tc::wait_all();
+        tc::fence_acc(acc);
+      }
+    }
+  }
+  wide::store_rows<bf16>(dx, a, r0, n);
+}
+
+__global__ void __launch_bounds__(NT)
+band_t_wide_kernel(const float* __restrict__ dtemp, const float* __restrict__ dy,
+                   const uint8_t* __restrict__ masks, const float* __restrict__ wb,
+                   float* __restrict__ dx, int n, int nj, Shifts sh) {
+  constexpr int WW = wide::WW, LDW = wide::LDW;
+  extern __shared__ float4 smem4[];
+  float* D_s = reinterpret_cast<float*>(smem4);  // [TM + 2*HALO][LDW] d_temp
+  float* W_s = D_s + (TM + 2 * HALO) * LDW;      // [KC][256]
+  const long tile0 = (long)blockIdx.x * TM;
+  for (int i = threadIdx.x; i < (TM + 2 * HALO) * (WW / 4); i += NT) {
+    const int r = i / (WW / 4), c4 = (i % (WW / 4)) * 4;
+    const long g = tile0 - HALO + r;
+    *reinterpret_cast<float4*>(D_s + r * LDW + c4) =
+        g >= 0 && g < n ? load4<float>(dtemp + g * WW + c4) : zero4();
+  }
+  float acc[8][8];  // dx = d_y + the band products
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const long g = tile0 + wide::wrow(i);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = g < n ? dy[g * WW + wide::wcol(j)] : 0.f;
+  }
+  for (int j = 0; j < nj; ++j) {
+    float m[8];
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const long src = tile0 + wide::wrow(i) - sh.s[j];
+      m[i] = src >= 0 && src < n && masks[(long)j * n + src] ? 1.f : 0.f;
+      any |= m[i] != 0.f;
+    }
+    if (!__syncthreads_or(any)) continue;  // no row of the tile has relation j
+    wide::add_rows(D_s, HALO - sh.s[j], m, wb + (long)j * WW * WW, W_s, acc, true);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const long g = tile0 + wide::wrow(i);
+    if (g >= n) continue;
+    *reinterpret_cast<float4*>(dx + g * WW + wide::wcol(0)) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(dx + g * WW + wide::wcol(4)) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+}
+
+// dWb's operands: A_j = band_j[u] · feat[u + s_j] (zero outside [0, n)),
+// B_j = rnd(d_temp[u]), which the row pass wrote as dpre.
+template <typename T>
+struct BandSrc {
+  const T* feat;
+  const T* dt;
+  const uint8_t* masks;
+  Shifts sh;
+  int n;
+  const T* any;
+  __device__ const T* a(int j, long u) const {
+    const long v = u + sh.s[j];
+    return masks[(long)j * n + u] && v >= 0 && v < n ? feat + v * wide::WW : nullptr;
+  }
+  __device__ const T* b(int, long u) const { return dt + u * wide::WW; }
+};
+
+template <typename T>
+int launch_bwd_wide(const T* feat, const float* temp, const uint8_t* masks, const T* wb,
+                    const T* w2, const float* g1w, const float* g1b, const float* g2w,
+                    const float* g2b, const T* g, T* dx, T* dpre, float* dtemp, float* dy,
+                    float* part_tail, float* part_band, float* grads_tail, float* dwb, int n,
+                    int nj, const Shifts& sh, int tail_blocks, int splits, float eps,
+                    cudaStream_t stream) {
+  int err = wide::launch_tail_bwd<T, float>(temp, feat, g, w2, g1w, g1b, g2w, g2b, dpre, nullptr,
+                                            dtemp, dy, part_tail, grads_tail, n, tail_blocks,
+                                            eps, stream);
+  if (err != 0) return err;
+  cudaError_t e;
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int smem = BT_RING * wide::QB;
+    e = set_smem((const void*)band_t_wide_tc_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    const int blocks = (n + BT_ROWS - 1) / BT_ROWS;
+    if (blocks > 0)
+      band_t_wide_tc_kernel<<<blocks, BT_THREADS, smem, stream>>>(dtemp, dy, masks, wb, dx, n,
+                                                                  nj, sh);
+  } else {
+    const int smem = (TM + 2 * HALO) * wide::LDW * (int)sizeof(float) + wide::CHUNK_BYTES;
+    e = set_smem((const void*)band_t_wide_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    const int blocks = (n + TM - 1) / TM;
+    if (blocks > 0)
+      band_t_wide_kernel<<<blocks, NT, smem, stream>>>(dtemp, dy, masks, wb, dx, n, nj, sh);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return wide::launch_dw<T>(BandSrc<T>{feat, dpre, masks, sh, n, feat}, n, nj, splits, part_band,
+                            dwb, stream);
+}
+
 template <typename T, int W>
 int launch_bwd(const T* feat, const float* temp, const uint8_t* masks, const T* wb,
                const T* w2, const float* g1w, const float* g1b, const float* g2w,
@@ -486,11 +682,11 @@ extern "C" int lane_layer_fwd(const void* feat, const void* pre, const void* mas
   });
 }
 
-// Backward, at W = width (128 or 64). temp: the forward's fp32 temp [n, W];
-// g: the output cotangent in feat's dtype; dx, dpre [n, W] in feat's dtype;
-// dtemp, dy: fp32 [n, W] workspace; part_tail: tail_blocks * (W*W + 4*W)
-// and part_band: splits * nj * W*W fp32 workspace; grads_tail: fp32
-// [W*W + 4*W] = dW2, dg1w, dg1b, dg2w, dg2b; dwb: fp32 [nj, W, W].
+// Backward, at W = width (128, 64 or 256). temp: the forward's fp32 temp
+// [n, W]; g: the output cotangent in feat's dtype; dx, dpre [n, W] in feat's
+// dtype; dtemp, dy: fp32 [n, W] workspace; part_tail: tail_blocks * (W*W +
+// 4*W) fp32 workspace (at 256: wide_bwd.cuh ops/row_tail.py `wide_part_floats`) and part_band: splits * nj * W*W; grads_tail: fp32 [W*W +
+// 4*W] = dW2, dg1w, dg1b, dg2w, dg2b; dwb: fp32 [nj, W, W].
 extern "C" int lane_layer_bwd(const void* feat, const void* temp, const void* masks,
                               const void* wb, const void* w2, const void* g1w,
                               const void* g1b, const void* g2w, const void* g2b, const void* g,
@@ -507,11 +703,16 @@ extern "C" int lane_layer_bwd(const void* feat, const void* temp, const void* ma
   const uint8_t* m = (const uint8_t*)masks;
   float *dt = (float*)dtemp, *y = (float*)dy, *pt = (float*)part_tail, *pb = (float*)part_band,
         *gt = (float*)grads_tail, *gb = (float*)dwb;
-  return with_width_dtype(width, dtype, [&](auto Wc, auto Tc) {
+  return with_width_dtype_256(width, dtype, [&](auto Wc, auto Tc) {
     using T = typename decltype(Tc)::type;
-    return launch_bwd<T, decltype(Wc)::value>((const T*)feat, t, m, (const T*)wb, (const T*)w2,
-                                               a, b, c, d, (const T*)g, (T*)dx, (T*)dpre, dt, y,
-                                               pt, pb, gt, gb, n, nj, sh, tail_blocks, splits,
-                                               eps, st);
+    if constexpr (decltype(Wc)::value == 2 * C)
+      return launch_bwd_wide<T>((const T*)feat, t, m, (const T*)wb, (const T*)w2, a, b, c, d,
+                                (const T*)g, (T*)dx, (T*)dpre, dt, y, pt, pb, gt, gb, n, nj, sh,
+                                tail_blocks, splits, eps, st);
+    else
+      return launch_bwd<T, decltype(Wc)::value>((const T*)feat, t, m, (const T*)wb,
+                                                 (const T*)w2, a, b, c, d, (const T*)g, (T*)dx,
+                                                 (T*)dpre, dt, y, pt, pb, gt, gb, n, nj, sh,
+                                                 tail_blocks, splits, eps, st);
   });
 }

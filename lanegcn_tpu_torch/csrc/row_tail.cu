@@ -40,8 +40,9 @@
 // weight-gradient pass skips the second warpgroup's products at 64 (its
 // input channels are padding), and its d_t workspace is [2, N, W]. At W =
 // 128 every kernel compiles to the code it was before the width existed.
-// K = 1's forward also takes W = 256, on kernels of their own
-// (row_tail_wide_kernel, row_tail_wide_tc_kernel, below; wide.cuh).
+// K = 1 also takes W = 256 both ways, on kernels of their own (the forward
+// row_tail_wide_kernel and row_tail_wide_tc_kernel, below, on wide.cuh; the
+// backward wide_bwd.cuh's row pass and weight-gradient pass).
 //
 // Backward (`row_tail_bwd`): replaces pallas_row_tail.py `_bwd_kernel` /
 // `_bwd_impl`. It recomputes the chain per row (nothing but the inputs is
@@ -113,7 +114,7 @@
 #include "edge_tc.cuh"
 #include "tail_bwd.cuh"
 #include "tail_fwd.cuh"
-#include "wide.cuh"
+#include "wide_bwd.cuh"
 
 using namespace lgk;
 
@@ -1025,7 +1026,8 @@ int launch_row_tail_bwd(const void* x, const void* res, const void* g, const voi
 }  // namespace
 
 // Backward. g: the output cotangent in x's dtype; dx, dres [n, width] in x's
-// dtype; part: blocks * (W*W + 4*W) fp32 workspace (W = width, 128 or 64);
+// dtype; part: blocks * (W*W + 4*W) fp32 workspace (W = width, 128 or 64;
+// at 256, wide_bwd.cuh's kernels: ops/row_tail.py `wide_part_floats`);
 // grads: fp32 [W*W + 4*W] = dW (in, out), dg1w, dg1b, dg2w, dg2b.
 extern "C" int row_tail_bwd(const void* x, const void* res, const void* g, const void* w,
                             const void* g1w, const void* g1b, const void* g2w, const void* g2b,
@@ -1035,6 +1037,19 @@ extern "C" int row_tail_bwd(const void* x, const void* res, const void* g, const
   const float *a = (const float*)g1w, *b = (const float*)g1b, *c = (const float*)g2w,
               *d = (const float*)g2b;
   float *p = (float*)part, *gr = (float*)grads;
+  if (width == 2 * C) {
+    if (dtype == 0)
+      return wide::launch_tail_bwd<float, float>((const float*)x, (const float*)res,
+                                                 (const float*)g, (const float*)w, a, b, c, d,
+                                                 (float*)dx, (float*)dres, nullptr, nullptr, p,
+                                                 gr, n, blocks, eps, st);
+    if (dtype == 1)
+      return wide::launch_tail_bwd<bf16, bf16>((const bf16*)x, (const bf16*)res, (const bf16*)g,
+                                               (const bf16*)w, a, b, c, d, (bf16*)dx,
+                                               (bf16*)dres, nullptr, nullptr, p, gr, n, blocks,
+                                               eps, st);
+    return (int)cudaErrorInvalidValue;
+  }
   return with_width(width, [&](auto Wc) {
     return launch_row_tail_bwd<decltype(Wc)::value>(x, res, g, w, a, b, c, d, dx, dres, p, gr, n,
                                                     blocks, eps, dtype, st);

@@ -66,17 +66,31 @@ __device__ __forceinline__ void zero8(float (&acc)[8][8]) {
 
 // acc[i][j] += Σ_k scale[i]·A_s[(row_off + wrow(i))·LDW + k]·w[k][wcol(j)]
 // over K = 256; w: an fp32 [256 x 256] weight (in, out) in device memory,
-// staged in KC-row chunks through W_s. Starts with a barrier (rows of A_s
-// written before the call are then complete); ends after the last chunk's
-// products, without one.
+// staged in KC-row chunks through W_s. TRANS: A @ wᵀ (w[wcol(j)][k]), the
+// chunk staged transposed (W_s[k][n] = w[n][k0 + k]: a thread reads 4
+// consecutive k of one row n, neighbouring threads write neighbouring n).
+// Starts with a barrier (rows of A_s written before the call are then
+// complete); ends after the last chunk's products, without one.
+template <bool TRANS = false>
 __device__ __forceinline__ void mm_rows(const float* A_s, int row_off, const float (&scale)[8],
                                         const float* w, float* W_s, float (&acc)[8][8]) {
   const int l4 = (threadIdx.x & 31) * 4;
   const float* a0 = A_s + (row_off + (threadIdx.x >> 5) * 8) * LDW;
   for (int k0 = 0; k0 < WW; k0 += KC) {
     __syncthreads();  // the previous chunk's products are done with W_s
-    for (int i = threadIdx.x * 4; i < KC * WW; i += NT * 4)
-      *reinterpret_cast<float4*>(W_s + i) = *reinterpret_cast<const float4*>(w + k0 * WW + i);
+    if constexpr (TRANS) {
+      for (int i = threadIdx.x; i < KC * WW / 4; i += NT) {
+        const int n = i % WW, k4 = (i / WW) * 4;
+        const float4 v = *reinterpret_cast<const float4*>(w + (long)n * WW + k0 + k4);
+        W_s[(k4 + 0) * WW + n] = v.x;
+        W_s[(k4 + 1) * WW + n] = v.y;
+        W_s[(k4 + 2) * WW + n] = v.z;
+        W_s[(k4 + 3) * WW + n] = v.w;
+      }
+    } else {
+      for (int i = threadIdx.x * 4; i < KC * WW; i += NT * 4)
+        *reinterpret_cast<float4*>(W_s + i) = *reinterpret_cast<const float4*>(w + k0 * WW + i);
+    }
     __syncthreads();
 #pragma unroll 4
     for (int k = 0; k < KC; ++k) {
@@ -137,22 +151,56 @@ __device__ __forceinline__ Row add_row(const Row& a, const Row& b) {
 }
 __device__ __forceinline__ Row relu_row(const Row& a) { return Row{relu4(a.lo), relu4(a.hi)}; }
 
-// Single-group GroupNorm of one 256-wide row (biased variance, eps inside
-// rsqrt), the lane's sums over lo then hi, then over the warp.
+__device__ __forceinline__ double warp_sum_d(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Single-group GroupNorm statistics of one 256-wide row, the plain
+// version's arithmetic (ops/norm.py group_norm): mean = Σx / 256, var =
+// Σ rnd(rnd(x − mean)²) / 256, inv = 1 / sqrt(var + eps), each operation
+// rounded to fp32 on its own (no contraction, IEEE sqrt and division); the
+// two sums in float64 (the lane's eight values, then the warp), rounded
+// once. The fp32 path is what the parity checks hold to the CPU: its
+// k-ordered fmaf chains gave lane_layer's temp bit for bit as the CPU's
+// products do, and at 256 an fp32 train step is sensitive to the last bit
+// of every normalisation (PERF.md §6).
+__device__ __forceinline__ float2 row_stats(const Row& v, float eps) {
+  const float e[8] = {v.lo.x, v.lo.y, v.lo.z, v.lo.w, v.hi.x, v.hi.y, v.hi.z, v.hi.w};
+  double s = 0.0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s += e[k];
+  const float mu = (float)(warp_sum_d(s) / WW);
+  double q = 0.0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float d = __fsub_rn(e[k], mu);
+    q += (double)__fmul_rn(d, d);
+  }
+  const float var = (float)(warp_sum_d(q) / WW);
+  return make_float2(mu, __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps))));
+}
+
+// rnd(rnd(rnd(x − mu)·inv)·w) + b, rounded op by op as the plain version's
+// (x − mean)·rsqrt(var + eps), then ·weight + bias.
+__device__ __forceinline__ float gn_el(float x, float mu, float inv, float w, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), inv), w), b);
+}
+
+// Single-group GroupNorm of one 256-wide row (row_stats, gn_el).
 __device__ __forceinline__ Row gn_row(const Row& v, const float* w, const float* b, float eps) {
-  const int l4 = (threadIdx.x & 31) * 4;
-  const float mu = warp_sum((v.lo.x + v.lo.y + v.lo.z + v.lo.w) +
-                            (v.hi.x + v.hi.y + v.hi.z + v.hi.w)) * (1.f / WW);
-  const float4 a = make_float4(v.lo.x - mu, v.lo.y - mu, v.lo.z - mu, v.lo.w - mu);
-  const float4 c = make_float4(v.hi.x - mu, v.hi.y - mu, v.hi.z - mu, v.hi.w - mu);
-  const float var = warp_sum((a.x * a.x + a.y * a.y + a.z * a.z + a.w * a.w) +
-                             (c.x * c.x + c.y * c.y + c.z * c.z + c.w * c.w)) * (1.f / WW);
-  const float inv = rsqrtf(var + eps);
-  const int h = C + l4;
-  return Row{make_float4(a.x * inv * w[l4] + b[l4], a.y * inv * w[l4 + 1] + b[l4 + 1],
-                         a.z * inv * w[l4 + 2] + b[l4 + 2], a.w * inv * w[l4 + 3] + b[l4 + 3]),
-             make_float4(c.x * inv * w[h] + b[h], c.y * inv * w[h + 1] + b[h + 1],
-                         c.z * inv * w[h + 2] + b[h + 2], c.w * inv * w[h + 3] + b[h + 3])};
+  const int l4 = (threadIdx.x & 31) * 4, h = C + l4;
+  const float2 st = row_stats(v, eps);
+  const float mu = st.x, inv = st.y;
+  return Row{make_float4(gn_el(v.lo.x, mu, inv, w[l4], b[l4]),
+                         gn_el(v.lo.y, mu, inv, w[l4 + 1], b[l4 + 1]),
+                         gn_el(v.lo.z, mu, inv, w[l4 + 2], b[l4 + 2]),
+                         gn_el(v.lo.w, mu, inv, w[l4 + 3], b[l4 + 3])),
+             make_float4(gn_el(v.hi.x, mu, inv, w[h], b[h]),
+                         gn_el(v.hi.y, mu, inv, w[h + 1], b[h + 1]),
+                         gn_el(v.hi.z, mu, inv, w[h + 2], b[h + 2]),
+                         gn_el(v.hi.w, mu, inv, w[h + 3], b[h + 3]))};
 }
 
 // Rows [0, TM) of the tile: relu(GN(row)) in place (fp32: no rounding).

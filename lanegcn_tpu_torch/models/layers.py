@@ -26,8 +26,26 @@ from torch import nn
 from lanegcn_tpu_torch.ops import conv1d, group_norm
 
 
+class _BiasAdd(torch.autograd.Function):
+    """y + b, whose backward sums the cotangent's rows in float64. An fp32
+    bias gradient is then one rounding of a near-exact sum, the same on the
+    card and on the CPU; a plain fp32 sum's rounding depends on the
+    reduction's order, and a bias whose gradient cancels by construction
+    (the mode score's: the max-margin loss sees only score differences)
+    would hold only that order's noise."""
+
+    @staticmethod
+    def forward(ctx, y, b):
+        return y + b
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, g.reshape(-1, g.shape[-1]).double().sum(0).to(g.dtype)
+
+
 class Dense(nn.Module):
-    """Bare matmul layer (torch nn.Linear parameters), channels-last."""
+    """Bare matmul layer (torch nn.Linear parameters), channels-last. In
+    float32 the bias gradient is summed in float64 (`_BiasAdd`)."""
 
     def __init__(self, n_in: int, n_out: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -49,9 +67,11 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x.to(self.dtype) @ self.weight.to(self.dtype).t()
-        if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
-        return y
+        if self.bias is None:
+            return y
+        if self.dtype == torch.float32:
+            return _BiasAdd.apply(y, self.bias.float())
+        return y + self.bias.to(self.dtype)
 
 
 class ConvWeight(nn.Module):

@@ -46,13 +46,14 @@ ENTRIES = {
 KERNELS = tuple(ENTRIES)
 
 # The row widths each C entry point is built at (csrc/common.cuh `with_width`;
-# `with_width_dtype_256` for the three forwards that also take 256, on
-# csrc/wide.cuh's tiling); segment_sum takes any width. Each wrapper refuses
-# the others (`check_width`).
+# `with_width_dtype_256` for the entries that also take 256: the double-width
+# LaneGCN's three forwards, on csrc/wide.cuh's tiling, and their backwards, on
+# csrc/wide_bwd.cuh's); segment_sum takes any width. Each wrapper refuses the
+# others (`check_width`).
 WIDTHS = {e: (64, 128) for entries in ENTRIES.values() for e in entries
           if e != "segment_sum"}
-WIDTHS.update({e: (64, 128, 256) for e in ("lane_layer_fwd", "row_tail_fwd",
-                                            "edge_mlp_fwd")})
+WIDTHS.update({e: (64, 128, 256) for e in ("lane_layer_fwd", "lane_layer_bwd", "row_tail_fwd",
+                                            "row_tail_bwd", "edge_mlp_fwd", "edge_mlp_bwd")})
 
 LAUNCHES: Dict[str, int] = {e: 0 for entries in ENTRIES.values() for e in entries}
 

@@ -15,9 +15,9 @@ kernel on CUDA tensors and `edge_mlp_bwd_plain` on CPU tensors,
 LanePooling's the `edge_mlp_pool_bwd` kernel and `edge_mlp_pool_bwd_plain`.
 In bf16 both configurations multiply on the tensor cores (wgmma); fp32 runs
 the CUDA-core kernels, the parity path. Both configurations' kernels take
-rows W = 128 or 64 wide (Att's: A2A where n_actor = 64, and its forward
-also 256, the double-width model, csrc/wide.cuh; LanePooling's:
-LaneRCNN at n_map = 64); the plain versions take any width.
+rows W = 128 or 64 wide (Att's: A2A where n_actor = 64, and also 256
+both ways, the double-width model, csrc/wide.cuh and csrc/wide_bwd.cuh;
+LanePooling's: LaneRCNN at n_map = 64); the plain versions take any width.
 """
 
 from __future__ import annotations
@@ -86,8 +86,8 @@ def edge_mlp_bwd_plain(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout,
 
 def _check(d, qg, cg, kd, weights, vectors, name="edge_mlp"):
     """Shapes and dtypes Att's kernel `name` takes: qg/cg [E, W] with W one
-    of its widths (`cuda.WIDTHS`: the forward 64, 128 or 256, the backward
-    64 or 128), d [E, 2], kd [2, W], the weights [W, W], the vectors [W]."""
+    of its widths (`cuda.WIDTHS`: 64, 128 or 256 both ways), d [E, 2], kd
+    [2, W], the weights [W, W], the vectors [W]."""
     e, c = cg.shape
     cuda.check_width(name, c)
     if (qg.shape != cg.shape or tuple(d.shape) != (e, 2) or tuple(kd.shape) != (2, c)
@@ -131,7 +131,10 @@ def edge_mlp_bwd_cuda(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, 
     bf16 runs the chain pass, then the weight-gradient pass over its
     operands (`act`, [E, 4W] bf16), and sums each pass's partials in block
     (split) order; nothing is zeroed. fp32 adds into a zeroed [blocks,
-    part_size(W)] workspace."""
+    part_size(W)] workspace. At W = 256 both dtypes run the two passes
+    (csrc/wide_bwd.cuh): `act` then holds E·4W values of the activation
+    dtype and the chain's normalised rows, E·2W fp32, and the weight-
+    gradient pass has a block per quadrant of each gradient."""
     if g.shape != cg.shape or g.dtype != cg.dtype:
         raise ValueError(f"edge_mlp: cotangent {g.shape} {g.dtype} for {cg.shape} {cg.dtype}")
     (d, qg, cg, g), ws, vs, code = _prep(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb,
@@ -140,10 +143,16 @@ def edge_mlp_bwd_cuda(d, qg, cg, kd, bd, kdo, gdow, gdob, k1, gchw, gchb, kout, 
     e, c = cg.shape
     f32 = dict(dtype=torch.float32, device=dev)
     blocks = cuda.num_sms(dev)
-    splits = max(1, blocks // 2)
+    # The weight-gradient pass's splits: 3 blocks each at 128 and 64, 12 (a
+    # quadrant of each gradient) at 256; about two blocks an SM either way.
+    splits = max(1, blocks // 2) if c != 256 else max(1, blocks // 6)
     dd = torch.empty(d.shape, **f32)
     dqg, dcg = torch.empty_like(cg), torch.empty_like(cg)
-    if cg.dtype == torch.bfloat16:
+    if c == 256:
+        act = torch.empty(e * 4 * c * cg.element_size() + e * 2 * c * 4, dtype=torch.uint8,
+                          device=dev)
+        part = torch.empty(blocks * 7 * c + splits * 3 * c * c, **f32)
+    elif cg.dtype == torch.bfloat16:
         act = torch.empty(e, 4 * c, dtype=cg.dtype, device=dev)
         part = torch.empty(blocks * 7 * c + splits * 3 * c * c, **f32)
     else:

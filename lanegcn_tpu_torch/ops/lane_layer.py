@@ -16,8 +16,9 @@ counterpart of `fused_lane_layer_plan` there; see its section below.
 
 The layer's kernels and `lane_plan`'s, forward and backward, take rows
 W = 128 or 64 wide (`cuda.WIDTHS`: LaneGCN at n_map = 128, and the
-half-width model at 64); the layer's forward also takes 256 (the
-double-width model, csrc/wide.cuh). The plain versions take any width.
+half-width model at 64); the layer's also take 256 both ways (the
+double-width model, csrc/wide.cuh and csrc/wide_bwd.cuh). The plain
+versions take any width.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 
 from lanegcn_tpu_torch.ops import cuda
 from lanegcn_tpu_torch.ops.norm import group_norm
-from lanegcn_tpu_torch.ops.row_tail import part_size, tail_bwd_plain
+from lanegcn_tpu_torch.ops.row_tail import part_size, tail_bwd_plain, wide_part_floats
 from lanegcn_tpu_torch.ops.scenario_agg import (
     _CHUNK as _PLAN_CHUNK, _blocks, _per_relation, _prep_for, plan_edge_count, plan_edges)
 
@@ -186,17 +187,21 @@ def lane_layer_bwd_cuda(feat, temp, masks, wb, w2, g1w, g1b, g2w, g2b, g,
     code = cuda.check_cuda("lane_layer", feat, temp, masks, wb, w2, g, *gns)
     dev = feat.device
     tail_blocks = cuda.num_sms(dev)
-    splits = max(1, 2 * tail_blocks // max(j, 1))
+    # dWb's blocks: one relation each at 128 and 64, one quadrant of one at 256.
+    splits = max(1, 2 * tail_blocks // (max(j, 1) * (4 if c == 256 else 1)))
     f32 = dict(dtype=torch.float32, device=dev)
     dx, dpre = torch.empty_like(feat), torch.empty_like(feat)
-    # The workspaces (d_temp, d_y and both passes' partials, all W wide) in
-    # one allocation, passed by address; the outputs in their own, so that a
-    # gradient kept after the call holds no workspace.
+    # The workspaces (d_temp, d_y and both passes' partials, all W wide; at
+    # 256 also the row pass's dW operands) in one allocation, passed by
+    # address; the outputs in their own, so that a gradient kept after the
+    # call holds no workspace.
     part = part_size(c)
-    work = torch.empty(2 * n * c + tail_blocks * part + splits * j * c * c, **f32)
+    tail = (-(-wide_part_floats(n, tail_blocks, feat.element_size()) // (4 * tail_blocks)) * 4
+            if c == 256 else part)  # whole float4s a block: part_band stays 16-byte aligned
+    work = torch.empty(2 * n * c + tail_blocks * tail + splits * j * c * c, **f32)
     at = work.data_ptr()
     ws = [ctypes.c_void_p(at + 4 * off) for off in
-          (0, n * c, 2 * n * c, 2 * n * c + tail_blocks * part)]
+          (0, n * c, 2 * n * c, 2 * n * c + tail_blocks * tail)]
     grads = torch.empty(part + j * c * c, **f32)
     dw2, dgn, dwb = grads.split([c * c, 4 * c, j * c * c])
     cuda.call(
@@ -241,8 +246,7 @@ def fused_lane_layer(feat, pre, masks, wb, w2, g1w, g1b, g2w, g2b,
                      shifts: Sequence[int], eps: float = 1e-5) -> torch.Tensor:
     """relu(GN2(relu(GN1(pre + band_conv(feat))) @ w2) + feat).
 
-    feat/pre [N, W] (float32 or bfloat16; W = 128 or 64 on the card, and
-    256 without a gradient);
+    feat/pre [N, W] (float32 or bfloat16; W = 128, 64 or 256 on the card);
     masks [J, N] bool or 0/1; wb [J, W, W] and w2 [W, W] in (in, out)
     layout, in feat's dtype; GN affines [W] fp32; shifts: J ints with |s| ≤
     32. CPU tensors take the plain version; CUDA tensors launch the kernel

@@ -12,8 +12,9 @@ through a `torch.autograd.Function`: the backward is the `row_tail_bwd`
 
 The kernels take rows W = 128 or 64 wide (K = 1: Att's tail on 128-wide
 lane nodes, and on 64-wide actors where n_actor = 64; K = 2: LanePooling's
-tail at n_map = 128 or 64); K = 1's forward also takes 256 (the
-double-width model, csrc/wide.cuh). The plain versions take any width.
+tail at n_map = 128 or 64); K = 1 also takes 256 both ways (the
+double-width model, csrc/wide.cuh and csrc/wide_bwd.cuh). The plain versions
+take any width.
 """
 
 from __future__ import annotations
@@ -31,6 +32,15 @@ C = 128
 def part_size(c: int) -> int:
     """A K = 1 backward partial at width c: dW, dg1w, dg1b, dg2w, dg2b."""
     return c * c + 4 * c
+
+
+def wide_part_floats(n: int, blocks: int, itemsize: int, c: int = 256) -> int:
+    """The fp32 workspace of the 256-wide row tail's backward, as
+    csrc/wide_bwd.cuh `launch_tail_bwd` carves it: the row pass's vector
+    partials (blocks x 4c), the
+    weight-gradient pass's partials (max(1, blocks // 2) splits x c²), then
+    the h and rnd(d_z) workspaces ([n, c] each in the activation dtype)."""
+    return blocks * 4 * c + max(1, blocks // 2) * c * c + (2 * n * c * itemsize + 15) // 16 * 4
 
 
 def part2_size(c: int) -> int:
@@ -106,7 +116,9 @@ def _fwd_cuda(x, res, w, g1w, g1b, g2w, g2b, eps):
 
 
 def row_tail_bwd_cuda(x, res, w, g1w, g1b, g2w, g2b, g, eps: float = 1e-5):
-    """The `row_tail_bwd` kernel; the same outputs as `row_tail_bwd_plain`."""
+    """The `row_tail_bwd` kernel; the same outputs as `row_tail_bwd_plain`.
+    At W = 256 its workspace also holds h and rnd(d_z) ([N, W] each, for
+    the weight-gradient pass; `wide_part_floats`)."""
     _check(x, res, w, (g1w, g1b, g2w, g2b), "row_tail_bwd")
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError(f"row_tail: cotangent {g.shape} {g.dtype} for x {x.shape} {x.dtype}")
@@ -116,7 +128,9 @@ def row_tail_bwd_cuda(x, res, w, g1w, g1b, g2w, g2b, g, eps: float = 1e-5):
     blocks = cuda.num_sms(x.device)
     n, c = x.shape
     dx, dres = torch.empty_like(x), torch.empty_like(x)
-    part = torch.empty(blocks * part_size(c), dtype=torch.float32, device=x.device)
+    floats = (wide_part_floats(n, blocks, x.element_size()) if c == 256
+              else blocks * part_size(c))
+    part = torch.empty(floats, dtype=torch.float32, device=x.device)
     grads = torch.empty(part_size(c), dtype=torch.float32, device=x.device)
     cuda.call(
         "row_tail", "row_tail_bwd",
@@ -152,8 +166,8 @@ class _RowTail(torch.autograd.Function):
 
 
 def fused_row_tail(x, res, w, g1w, g1b, g2w, g2b, eps: float = 1e-5) -> torch.Tensor:
-    """x/res [N, W] in one dtype (W = 128, 64 or 256 on the card, 256
-    without a gradient); w [W, W] (in, out), cast to x's dtype (its
+    """x/res [N, W] in one dtype (W = 128, 64 or 256 on the card); w [W, W]
+    (in, out), cast to x's dtype (its
     gradient flows back through the cast); GN affines [W] fp32. CPU
     tensors take the plain version; CUDA tensors launch the kernel."""
     if x.device.type not in ("cpu", "cuda"):

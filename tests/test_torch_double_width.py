@@ -15,15 +15,16 @@ on the CPU, and the kernel wrappers' width dispatch at 256.
   numpy seed on the shapes of the JAX init (`jax.eval_shape`); one jit of
   the forward. The bridge round trip at 256.
 - The wrappers' checks, called directly, for every C entry point: the
-  three forwards take 256; every other entry, and those three backwards,
-  refuse it with a ValueError naming the kernel and 256, raised by the
-  check before anything touches the card. `work()` at 256.
-- chip_smoke.py's `double` refusals, on the CPU: a train step at 256 on
-  the contiguous layout reaches `row_tail_bwd` first of the kernels that
-  do not take 256, with the eval forward's calls before it; an eval
-  forward at 256 on the bench layout reaches `scenario_agg` first, with
-  only segment sums before it. Its env phase's ptxas summary names the
-  wide kernels.
+  three forwards and their backwards take 256; every other entry refuses
+  it with a ValueError naming the kernel and 256, raised by the check
+  before anything touches the card. `work()` at 256.
+- chip_smoke.py's `double` geometry, on the CPU: a full-depth train step
+  at 256 on the contiguous layout makes exactly the geometry's
+  `per_train_step` calls, each through an entry built at 256; an eval
+  forward at 256 on the bench layout reaches `scenario_agg` first of the
+  kernels that do not take 256, with only segment sums before it
+  (`refused_serve`). Its env phase's ptxas summary names the wide
+  kernels, forwards and backwards.
 """
 
 import collections
@@ -60,7 +61,8 @@ MODEL = dict(n_map=W, n_actor=W, num_fuse_layers=2, num_att_layers=2)
 PACK = dict(max_scenarios=3, max_actors=48, max_nodes=1536, max_edges_scale0=768,
             max_edges_dilated=1024, max_edges_lr=256, max_a2m_edges=3072,
             max_m2a_edges=3072, max_a2a_edges=1152)
-WIDE = ("lane_layer", "row_tail", "edge_mlp")  # the forwards built at 256
+WIDE = ("lane_layer", "row_tail", "edge_mlp")  # the kernels built at 256, both ways
+WIDE_BWD = tuple(f"{k}_bwd" for k in WIDE)
 
 
 @pytest.fixture(autouse=True)
@@ -225,12 +227,12 @@ def test_dispatch_covers_every_entry_point():
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
 def test_width_dispatch_at_256(entry):
-    """lane_layer_fwd, row_tail_fwd and edge_mlp_fwd take rows 256 wide;
-    every other entry, and their backwards, refuse 256: a ValueError naming
+    """lane_layer_fwd, row_tail_fwd and edge_mlp_fwd and their backwards
+    take rows 256 wide; every other entry refuses 256: a ValueError naming
     the kernel and 256, raised by the check before any launch."""
     name = entry[: -len("_fwd")] if entry.endswith("_fwd") else entry
     check, wrapper = _wide_dispatch()[name]
-    if name in WIDE:
+    if name in WIDE + WIDE_BWD:
         check()
         assert W in cuda.WIDTHS[entry]
     else:
@@ -257,7 +259,7 @@ def test_work_counts_w_squared_products_at_256():
     assert em[W]["flops"] - 4 * em[128]["flops"] == 2 * n * (2 * W - 4 * 2 * 128)
 
 
-# --- chip_smoke.py's refusals at 256 ------------------------------------------------
+# --- chip_smoke.py's double geometry at 256 -------------------------------------------
 
 def _call_order(monkeypatch, run, extra=()):
     """The kernel wrappers' calls, in order, while run() runs: the model's
@@ -279,13 +281,13 @@ def _entries(calls):
                                     for k in calls))
 
 
-def test_double_train_step_refuses_at_its_first_backward(monkeypatch):
+def test_double_train_step_launches_the_contiguous_step(monkeypatch):
     """A train step of the `double` geometry (full depth, on the CPU at 2
-    scenarios): the first kernel it reaches that is not built at 256 is
-    A2A's row tail backward (WIDE_REFUSED_STEP), after exactly the eval
-    forward's calls (the geometry's per_forward), and that kernel's check
-    refuses 256."""
+    scenarios) makes exactly the geometry's per_train_step calls (the
+    contiguous geometry's: the three forwards and their backwards, and the
+    segment sums), each through an entry whose WIDTHS hold 256."""
     spec = cs.GEOMETRIES["double"]
+    assert spec["per_train_step"] == cs.GEOMETRIES["contiguous"]["per_train_step"]
     cfg = cs.pack_config("double", 2)
     packs, _, _, _ = cs.make_packs(cfg, 1, 2, seed0=0)
     bundle = get_model("lanegcn", cfg, device="cpu", seed=0)
@@ -296,12 +298,8 @@ def test_double_train_step_refuses_at_its_first_backward(monkeypatch):
            (edge_mlp, "edge_mlp_bwd_plain", "edge_mlp_bwd"),
            (lane_layer, "lane_layer_bwd_plain", "lane_layer_bwd")]
     order = _call_order(monkeypatch, lambda: step(PackedBatch.from_numpy(packs[0]), 0.0), bwd)
-    first = next(i for i, k in enumerate(order) if k not in WIDE + cs.ANY_WIDTH)
-    assert [order[first]] == list(cs.WIDE_REFUSED_STEP)
-    assert _entries(order[:first]) == spec["per_forward"]
-    x, w, v = torch.zeros(64, W), torch.zeros(W, W), torch.zeros(W)
-    with pytest.raises(ValueError, match=rf"^row_tail_bwd: .*not {W}"):
-        row_tail.row_tail_bwd_cuda(x, x, w, *(v,) * 4, x)
+    assert _entries(order) == spec["per_train_step"]
+    assert all(k in cs.ANY_WIDTH or W in cuda.WIDTHS[cuda.entry_of(k)] for k in order)
 
 
 def test_double_bench_serve_refuses_at_the_plan_aggregate(monkeypatch):
@@ -316,14 +314,15 @@ def test_double_bench_serve_refuses_at_the_plan_aggregate(monkeypatch):
     net = get_model("lanegcn", cfg, device="cpu", seed=0).net
     step = make_eval_step(cfg, net, device="cpu")
     order = _call_order(monkeypatch, lambda: step(PackedBatch.from_numpy(packs[0])))
-    first = next(i for i, k in enumerate(order) if k not in WIDE + cs.ANY_WIDTH)
+    first = next(i for i, k in enumerate(order) if k not in WIDE + WIDE_BWD + cs.ANY_WIDTH)
     assert [order[first]] == list(cs.WIDE_REFUSED_SERVE) and first > 0
     assert set(order[:first]) <= set(cs.ANY_WIDTH)
 
 
 def test_ptxas_entries_name_the_wide_kernels():
     """chip_smoke.py's env phase reads the wide kernels' registers and
-    spills from nvcc's -Xptxas -v log by their own names."""
+    spills from nvcc's -Xptxas -v log by their own names, the forwards'
+    and the backwards' (templates in namespace lgk::wide among them)."""
     log = "\n".join([
         "ptxas info    : Compiling entry function "
         "'_ZN44_GLOBAL__N__79584a16_11_edge_mlp_cu_6f7dd86423edge_mlp_wide_tc_kernelEPKfif' "
@@ -339,3 +338,14 @@ def test_ptxas_entries_name_the_wide_kernels():
     assert cs.ptxas_entries({"edge_mlp": log}, "_wide") == {"edge_mlp_wide_tc_kernel": [
         "120 bytes stack frame, 120 bytes spill stores, 128 bytes spill loads",
         "Used 255 registers, used 16 barriers"]}
+    bwd = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN3lgk4wide23tail_bwd_wide_tc_kernelIfEEvPKT_PK13__nv_bfloat16S7_S7_PKfS9_S9_S9_"
+        "PS5_SA_PfSB_SA_SA_SB_if' for 'sm_90a'",
+        "ptxas info    : Used 255 registers, used 16 barriers",
+        "ptxas info    : Compiling entry function '_Z18tail_bwd_tc_kernelIfLi128EEvPKT_' "
+        "for 'sm_90a'",
+        "ptxas info    : Used 154 registers, used 1 barriers",
+    ])
+    assert cs.ptxas_entries({"row_tail": bwd}, "_wide") == {
+        "tail_bwd_wide_tc_kernel": ["Used 255 registers, used 16 barriers"]}
